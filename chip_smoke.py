@@ -1,0 +1,539 @@
+"""Chip smoke for the PyTorch/CUDA port: build the Hopper kernels, hold
+each against its plain PyTorch version at the serving path's shapes,
+then serve Qwen2.5-1.5B-shaped random weights through the port's own
+entry point and check what comes back.
+
+Run from the repository root on a machine with one NVIDIA GPU and the
+CUDA toolkit:
+
+    python3 chip_smoke.py
+
+It exits non-zero without a result line when no GPU is visible, when the
+port's package is not beside it, or when any phase fails.  Every number
+it prints is measured in this run; the second-to-last line is the
+``{"kernels": [...]}`` record and the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+
+# Serving configuration: Qwen2.5-1.5B at its published widths
+# (huggingface.co/Qwen/Qwen2.5-1.5B config.json), random weights.
+SERVE_ARGS = [
+    "--vocab-size", "151936", "--d-model", "1536", "--n-layers", "28",
+    "--n-heads", "12", "--n-kv-heads", "2", "--d-ff", "8960",
+    "--rope-theta", "1000000", "--norm-eps", "1e-6", "--attn-bias",
+    "--dtype", "bfloat16", "--kv-block", "16", "--n-slots", "8",
+    "--max-len", "2048", "--chunk", "8", "--port", "0", "--seed", "0",
+]
+H, KVH, HD, BS = 12, 2, 128, 16
+MAX_LEN = 2048
+
+# Kernel vs plain tolerance: both sides compute in f32 from identical
+# (bf16 or dequantized int8) inputs and differ only in summation order —
+# 128-term dots, and an online vs a two-pass softmax over up to 2048
+# keys — which bounds the gap by about n·eps·|v| = 2048 · 6e-8 · 4 ≈
+# 5e-4.  A wrong block, mask or scale moves outputs by O(0.1).
+KERNEL_ATOL = 1e-3
+# Teacher-forced check: the served model runs in bf16 (activations
+# rounded to 8 mantissa bits at every projection and residual add over
+# 28 layers), the reference in f32 over the same weights.  Logits have
+# std ≈ 0.9 here, so a ~1% drift in the final hidden state moves them by
+# a few hundredths; δ = 0.2 covers that with margin while a broken layer
+# (wrong positions, wrong cache rows) moves logits by O(1).
+DELTA = 0.2
+LOGPROB_ATOL = 0.2
+# Device sleep that every timed series queues behind: 2e8 cycles, about
+# 0.1 s at the H100's clocks, covers the host's enqueue of the series.
+SLEEP_CYCLES = 200_000_000
+# nvidia-smi's "name, power.limit" line, printed beside every time.
+SMI = ""
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, message: str) -> None:
+    if not cond:
+        raise SmokeFailure(message)
+
+
+def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
+    """Median device time of one ``fn`` call in ms over ``runs`` runs,
+    by CUDA events around each run.  Every run is queued behind a long
+    device sleep, so the host has enqueued them all before the first
+    starts and the events time the device, not Python's launch overhead
+    (a version that synchronises inside, as boolean indexing does, pays
+    that overhead anyway); before each run a 128 MiB write flushes the
+    50 MB L2, because the serving path meets each layer's pool cold."""
+    for _ in range(warmup):
+        fn()
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    events = [
+        (torch.cuda.Event(enable_timing=True),
+         torch.cuda.Event(enable_timing=True))
+        for _ in range(runs)
+    ]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+# ---------------------------------------------------------------------------
+# Kernel phase
+
+
+def make_tables(rng, n_rows, positions, n_blocks, reserve=2):
+    """Block tables whose live entries cover [0, positions[b]] plus a few
+    reserved blocks (as an admission's worst case would), the rest
+    sentinel; a position of -1 gives an all-sentinel row."""
+    n_tables = MAX_LEN // BS
+    tables = np.full((n_rows, n_tables), n_blocks, np.int32)
+    free = list(rng.permutation(n_blocks))
+    for b, pos in enumerate(positions):
+        if pos < 0:
+            continue
+        n = min(n_tables, pos // BS + 1 + reserve)
+        tables[b, :n] = [free.pop() for _ in range(n)]
+    return tables
+
+
+def make_pool(gen, n_blocks, quant):
+    shape = (n_blocks, BS, KVH, HD)
+    if quant:
+        k = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        ks = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.04 + 0.005
+        vs = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.04 + 0.005
+        return k, v, ks, vs
+    k = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    return k, v, None, None
+
+
+def row_bytes(pool, scale) -> int:
+    """Bytes of one position's K (or V) row in the pool: every kv head's
+    payload plus, for int8, its f32 scale."""
+    per_row = KVH * HD * pool.element_size()
+    if scale is not None:
+        per_row += KVH * 4
+    return per_row
+
+
+def attend_work(starts, t, tables, n_blocks, window):
+    """What K1 must touch at these inputs: ``pairs``, the (query
+    position, key position) pairs its rows attend, and ``rows``, the
+    distinct live key positions they read, both summed over slots."""
+    pairs = rows = 0
+    for b in range(len(starts)):
+        live = np.repeat(tables[b] < n_blocks, BS)
+        read = np.zeros_like(live)
+        for i in range(t):
+            p = int(starts[b]) + i
+            lo = max(0, p - window + 1) if window else 0
+            pairs += int(live[lo:p + 1].sum())
+            read[lo:p + 1] = True
+        rows += int((read & live).sum())
+    return pairs, rows
+
+
+def bound(moved: int, ops: int, dtype) -> tuple[float, str]:
+    """The least time for the work: the larger of bytes over the memory
+    rate and operations over the peak rate for ``dtype``."""
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS[dtype] * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes"
+    return ops_ms, "operations"
+
+
+def decode_bound(q, pool, scale, tables, starts, window):
+    """Least time for K1 on these inputs: q read once, each needed K and
+    V row read once, the f32 output written once, the table and starts
+    read once; 4·hd operations (q·k and p·v) per (query head, key)."""
+    b, t, h, hd = q.shape
+    pairs, rows = attend_work(starts.cpu().numpy(), t, tables.cpu().numpy(),
+                              pool.shape[0], window)
+    moved = (q.numel() * q.element_size() + 2 * rows * row_bytes(pool, scale)
+             + b * t * h * hd * 4 + tables.numel() * 4 + b * 4)
+    return bound(moved, 4 * hd * h * pairs, q.dtype)
+
+
+def store_bound(k_new, pool, scale, tables, starts):
+    """Least time for K2 on these inputs: k_new and v_new read once, each
+    live window row of both pools (and scales) written once."""
+    b, t = k_new.shape[:2]
+    tab, st = tables.cpu().numpy(), starts.cpu().numpy()
+    live = 0
+    for r in range(b):
+        pos = st[r] + np.arange(t)
+        entry = pos // BS
+        ok = entry < tab.shape[1]
+        live += int((tab[r, entry[ok]] < pool.shape[0]).sum())
+    moved = (2 * k_new.numel() * k_new.element_size()
+             + 2 * live * row_bytes(pool, scale) + tables.numel() * 4 + b * 4)
+    # int8: an abs-max, a division and a rounding per element, in f32.
+    ops = 3 * 2 * k_new.numel() if scale is not None else 0
+    return bound(moved, ops, torch.float32)
+
+
+def sdpa_yardstick(q, pool, scale, tables, starts, window):
+    """One F.scaled_dot_product_attention call over the gathered,
+    dequantized view with the same mask — the library time beside K1
+    (timed only; the port never calls it)."""
+    from oim_tpu_torch.ops.paged import paged_view
+    from oim_tpu_torch.ops.quant import dequantize_int8
+
+    b, t, h, hd = q.shape
+    view, sview = paged_view(pool, scale, tables)
+    kv = view.float() if sview is None else dequantize_int8(view, sview)
+    kv = kv.to(q.dtype).repeat_interleave(h // KVH, dim=2).transpose(1, 2)
+    kv = kv.contiguous()
+    n_keys = kv.shape[2]
+    q_pos = starts.long()[:, None] + torch.arange(t, device=q.device)
+    k_pos = torch.arange(n_keys, device=q.device)
+    live = (tables < pool.shape[0]).repeat_interleave(BS, dim=1)
+    mask = (k_pos[None, None] <= q_pos[:, :, None]) & live[:, None]
+    if window:
+        mask &= q_pos[:, :, None] - k_pos[None, None] < window
+    mask = mask[:, None]
+    qh = q.transpose(1, 2).contiguous()
+    fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qh, kv, kv, attn_mask=mask
+    )
+    return time_ms(fn)
+
+
+def kernel_phase() -> dict:
+    """K1 at the decode shape and K2+K1 at a 512-token prefill, for bf16
+    and int8 pools; returns the measured record per kernel (bf16 — the
+    served configuration)."""
+    from oim_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.RandomState(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_blocks = 8 * (MAX_LEN // BS)
+    record = {}
+    for quant in (False, True):
+        tag = "int8" if quant else "bf16"
+        k_pool, v_pool, ks, vs = make_pool(gen, n_blocks, quant)
+        # -- K1 at decode: B=8, t=1, mixed contexts, two all-sentinel rows.
+        positions = [0, 16, 299, 999, 2047, 776, -1, -1]
+        tables_np = make_tables(rng, 8, positions, n_blocks)
+        tables = torch.from_numpy(tables_np).cuda()
+        starts = torch.tensor([max(p, 0) if p >= 0 else 5 for p in positions],
+                              dtype=torch.int32, device="cuda")
+        q = torch.randn((8, 1, H, HD), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        for window in (0, 256):
+            args = (q, k_pool, v_pool, ks, vs, tables, starts)
+            got = pa.paged_flash_decode(*args, window=window)
+            want = pa.paged_flash_decode_plain(*args, window=window)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            check(bool(torch.isfinite(got).all()), f"K1 {tag} non-finite")
+            check(float(got[6:].abs().max()) == 0.0,
+                  f"K1 {tag}: all-sentinel rows must be zeros")
+            print(f"K1 decode {tag} window={window}: max_abs_err={err:.3e} "
+                  f"(tol {KERNEL_ATOL})", flush=True)
+            check(err <= KERNEL_ATOL, f"K1 decode {tag} window={window} "
+                  f"disagrees: {err}")
+        ms = time_ms(lambda: pa.paged_flash_decode(*args))
+        plain_ms = time_ms(lambda: pa.paged_flash_decode_plain(*args))
+        lib_ms = sdpa_yardstick(q, k_pool, ks, tables, starts, 0)
+        bnd, by = decode_bound(q, k_pool, ks, tables, starts, 0)
+        err = float((pa.paged_flash_decode(*args)
+                     - pa.paged_flash_decode_plain(*args)).abs().max())
+        print(f"K1 decode {tag} B=8 t=1: {ms:.4f} ms (plain {plain_ms:.4f}, "
+              f"sdpa {lib_ms:.4f}, bound {bnd:.5f} by {by}) [{SMI}]",
+              flush=True)
+        if not quant:
+            record["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+        # -- K2 at decode: one new row per slot, two slots all-sentinel.
+        dk = torch.randn((8, 1, KVH, HD), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        dstore = (dk, dk.clone(), k_pool.clone(), v_pool.clone(),
+                  None if ks is None else ks.clone(),
+                  None if vs is None else vs.clone(), tables, starts)
+        dref = [None if x is None else x.clone() for x in dstore[2:6]]
+        pa.paged_kv_store(*dstore)
+        pa.paged_kv_store_plain(*dstore[:2], *dref, tables, starts)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(dstore[2:6], dref)
+                  if a is not None),
+              f"K2 {tag} B=8 t=1: pool bytes differ from paged_store")
+        d_ms = time_ms(lambda: pa.paged_kv_store(*dstore))
+        d_plain = time_ms(lambda: pa.paged_kv_store_plain(*dstore))
+        d_bnd, d_by = store_bound(dk, k_pool, ks, tables, starts)
+        print(f"K2 store {tag} B=8 t=1: {d_ms:.4f} ms (plain {d_plain:.4f}, "
+              f"bound {d_bnd:.5f} by {d_by}) [{SMI}]", flush=True)
+        # -- K2 + K1 at a 512-token prefill straddling a block.
+        t = 512
+        pstarts = [37, 1000]
+        ptables_np = make_tables(rng, 2, [s + t - 1 for s in pstarts],
+                                 n_blocks, reserve=4)
+        ptables = torch.from_numpy(ptables_np).cuda()
+        pst = torch.tensor(pstarts, dtype=torch.int32, device="cuda")
+        k_new = torch.randn((2, t, KVH, HD), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+        v_new = torch.randn((2, t, KVH, HD), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+        qp = torch.randn((2, t, H, HD), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        pools = [k_pool.clone(), v_pool.clone()]
+        scales = [None, None] if ks is None else [ks.clone(), vs.clone()]
+        ref_pools = [p.clone() for p in pools]
+        ref_scales = [None if s is None else s.clone() for s in scales]
+        store = (k_new, v_new, *pools, *scales, ptables, pst)
+        pa.paged_kv_store(*store)
+        pa.paged_kv_store_plain(k_new, v_new, *ref_pools, *ref_scales,
+                                ptables, pst)
+        torch.cuda.synchronize()
+        pairs = list(zip(pools, ref_pools))
+        if ks is not None:
+            pairs += list(zip(scales, ref_scales))
+        same = all(torch.equal(a, b) for a, b in pairs)
+        k2_err = max(float((a.float() - b.float()).abs().max())
+                     for a, b in pairs)
+        print(f"K2 store {tag} t={t}: pool bytes equal to paged_store: "
+              f"{same} (max_abs_err {k2_err})", flush=True)
+        check(same, f"K2 {tag}: pool bytes differ from paged_store")
+        attend = (qp, *pools, *scales, ptables, pst)
+        got = pa.paged_flash_decode(*attend)
+        want = pa.paged_flash_decode_plain(*attend)
+        torch.cuda.synchronize()
+        perr = float((got - want).abs().max())
+        print(f"K1 prefill {tag} t={t}: max_abs_err={perr:.3e} "
+              f"(tol {KERNEL_ATOL})", flush=True)
+        check(perr <= KERNEL_ATOL, f"K1 prefill {tag} disagrees: {perr}")
+        k1p_ms = time_ms(lambda: pa.paged_flash_decode(*attend))
+        k1p_plain = time_ms(lambda: pa.paged_flash_decode_plain(*attend))
+        k1p_lib = sdpa_yardstick(qp, pools[0], scales[0], ptables, pst, 0)
+        pbnd, pby = decode_bound(qp, pools[0], scales[0], ptables, pst, 0)
+        print(f"K1 prefill {tag} B=2 t={t}: {k1p_ms:.4f} ms (plain "
+              f"{k1p_plain:.4f}, sdpa {k1p_lib:.4f}, bound {pbnd:.5f} by "
+              f"{pby}) [{SMI}]", flush=True)
+        k2_ms = time_ms(lambda: pa.paged_kv_store(*store))
+        k2_plain = time_ms(lambda: pa.paged_kv_store_plain(*store))
+        k2_bnd, k2_by = store_bound(k_new, pools[0], scales[0], ptables, pst)
+        print(f"K2 store {tag} B=2 t={t}: {k2_ms:.4f} ms (plain "
+              f"{k2_plain:.4f}, bound {k2_bnd:.5f} by {k2_by}) [{SMI}]",
+              flush=True)
+        if not quant:
+            record["K2"] = dict(max_abs_err=k2_err, ms=k2_ms,
+                                plain_ms=k2_plain, bound_ms=k2_bnd,
+                                bound_by=k2_by, library_ms=None)
+        del k_pool, v_pool, ks, vs, pools, ref_pools, scales, ref_scales
+        del dstore
+        torch.cuda.empty_cache()
+    return record
+
+
+# ---------------------------------------------------------------------------
+# Serve phase
+
+
+def post(port: int, body: dict) -> tuple[int, dict]:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/generate",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def get(port: int, path: str) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def serve_phase() -> dict:
+    """Serve six concurrent requests through the port's serve_main entry
+    and check lengths, drain, kernel counters and a teacher-forced f32
+    reference.  Returns the main path's kernel launch counts."""
+    from oim_tpu_torch.cli import serve_main
+    from oim_tpu_torch.models.decode import prefill
+    from oim_tpu_torch.models.weights import recast
+    from oim_tpu_torch.ops import paged_attention as pa
+
+    args = serve_main.build_parser().parse_args(SERVE_ARGS)
+    t0 = time.monotonic()
+    server = serve_main.start_server(args)
+    try:
+        print(f"serve: started in {time.monotonic() - t0:.1f} s "
+              f"(weights, warmup)", flush=True)
+        vocab = args.vocab_size
+        rng = np.random.RandomState(1)
+        lens = [16, 100, 300, 513, 777, 1000]
+        news = [32, 40, 48, 56, 64, 64]
+        bodies = []
+        for i, (n, m) in enumerate(zip(lens, news)):
+            body = {"tokens": rng.randint(0, vocab, size=n).tolist(),
+                    "max_new_tokens": m, "logprobs": True}
+            if i == 2:
+                body.update(temperature=0.8, seed=1234)
+            bodies.append(body)
+        pa.reset_counters()
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            replies = list(pool.map(lambda b: post(server.port, b), bodies))
+        wall = time.monotonic() - t0
+        counts = pa.counters()
+        for body, (status, reply) in zip(bodies, replies):
+            check(status == 200, f"status {status}")
+            toks = reply["tokens"]
+            check(len(toks) == body["max_new_tokens"],
+                  f"reply length {len(toks)} != {body['max_new_tokens']}")
+            check(all(0 <= t < vocab for t in toks), "token out of range")
+        stats = get(server.port, "/v1/stats")
+        for _ in range(100):
+            if stats["active_slots"] == 0 and stats["queued"] == 0:
+                break
+            time.sleep(0.05)
+            stats = get(server.port, "/v1/stats")
+        check(stats["active_slots"] == 0 and stats["queued"] == 0,
+              f"engine did not drain: {stats}")
+        passes = stats["prefill_dispatches"] + stats["decode_passes"]
+        print(f"serve: {len(bodies)} concurrent requests in {wall:.2f} s; "
+              f"kernel counts {counts} over {stats['prefill_dispatches']} "
+              f"admission dispatches and {stats['decode_passes']} decode "
+              f"passes of {args.n_layers} layers", flush=True)
+        check(counts["paged_flash_decode"] > 0, "K1 never launched")
+        check(counts["paged_kv_store"] > 0, "K2 never launched")
+        check(counts["paged_flash_decode_plain"] == 0
+              and counts["paged_kv_store_plain"] == 0,
+              "a plain version ran on the serving path")
+        # Every layer of every forward pass went through both kernels.
+        check(counts["paged_flash_decode"] == args.n_layers * passes
+              and counts["paged_kv_store"] == args.n_layers * passes,
+              f"launches {counts} != {args.n_layers} x {passes} passes")
+        # Time to first token of a lone 512-token prompt (client wall,
+        # HTTP included), and the engine's decode rate.
+        t0 = time.monotonic()
+        post(server.port, {"tokens": rng.randint(0, vocab, 512).tolist(),
+                           "max_new_tokens": 1})
+        ttft = time.monotonic() - t0
+        dec_rate = stats["decode_tokens"] / max(stats["decode_seconds"], 1e-9)
+        print(f"serve: lone 512-token TTFT {ttft * 1e3:.1f} ms; concurrent "
+              f"TTFT p50 {stats['ttft_p50_s'] * 1e3:.1f} ms; decode "
+              f"{dec_rate:.1f} tok/s over {stats['decode_tokens']} tokens "
+              f"in {stats['decode_seconds']:.3f} s; prefill "
+              f"{stats['prefill_seconds']:.3f} s [{SMI}]", flush=True)
+        # Teacher-forced f32 reference over the served weights.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        engine = server.engine
+        params32, cfg32 = recast(engine.params, engine.cfg, "float32")
+        n_delta = n_pos = 0
+        worst_lp = 0.0
+        for body, (_, reply) in zip(bodies[:2] + bodies[3:4],
+                                    replies[:2] + replies[3:4]):
+            prompt, gen_toks = body["tokens"], reply["tokens"]
+            seq = torch.tensor([prompt + gen_toks], device="cuda")
+            with torch.no_grad():
+                logits, _ = prefill(params32, seq, cfg32, seq.shape[1])
+            logits = logits[0, len(prompt) - 1: -1]  # predicts gen_toks
+            lse = torch.logsumexp(logits, dim=-1)
+            top = logits.max(dim=-1).values
+            chosen = logits[torch.arange(len(gen_toks)), torch.tensor(gen_toks)]
+            gap = (top - chosen).cpu().numpy()
+            check(bool((gap <= DELTA).all()),
+                  f"emitted token's reference logit {gap.max():.3f} below "
+                  f"the max (δ {DELTA})")
+            n_delta += int((gap > 0).sum())
+            n_pos += len(gen_toks)
+            lp_ref = (chosen - lse).cpu().numpy()
+            worst_lp = max(worst_lp, float(np.abs(
+                lp_ref - np.asarray(reply["logprobs"])).max()))
+            del logits
+        check(worst_lp <= LOGPROB_ATOL,
+              f"engine logprobs off the f32 reference by {worst_lp:.3f}")
+        print(f"serve: teacher-forced f32 check over {n_pos} positions: "
+              f"{n_delta} needed δ={DELTA} (rest exact argmax); max "
+              f"|logprob - ref| {worst_lp:.4f} (tol {LOGPROB_ATOL})",
+              flush=True)
+        del params32
+        return counts
+    finally:
+        server.stop()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    try:
+        import oim_tpu_torch
+    except ImportError as exc:
+        print(f"chip_smoke: the port's package is missing: {exc}",
+              file=sys.stderr)
+        return 3
+    if os.path.dirname(os.path.dirname(oim_tpu_torch.__file__)) != HERE:
+        print("chip_smoke: oim_tpu_torch must come from this checkout",
+              file=sys.stderr)
+        return 3
+    from oim_tpu_torch.ops import _build
+
+    global SMI
+    SMI = _build.gpu_line()
+    print(SMI, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
+          flush=True)
+    t0 = time.monotonic()
+    _build.library()
+    print(f"build: {time.monotonic() - t0:.1f} s ({_build.library_path().name})",
+          flush=True)
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"ptxas: {line.strip()}", flush=True)
+    record = kernel_phase()
+    counts = serve_phase()
+    kernels = [
+        dict(name="paged_flash_decode (K1)", route="cuda",
+             source="oim_tpu_torch/csrc/paged_attention.cu",
+             replaces="oim_tpu/ops/paged_attention.py:93",
+             launches=counts["paged_flash_decode"], **record["K1"]),
+        dict(name="paged_kv_store (K2)", route="cuda",
+             source="oim_tpu_torch/csrc/paged_attention.cu",
+             replaces="oim_tpu/ops/paged_attention.py:265",
+             launches=counts["paged_kv_store"], **record["K2"]),
+    ]
+    print(SMI, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

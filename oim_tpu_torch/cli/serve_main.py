@@ -1,0 +1,137 @@
+"""oim-serve for the port: random weights from a seed, the paged engine,
+and the HTTP server, on the GPU unless ``--device cpu``.
+
+Usage (full-width Qwen2.5-1.5B geometry on one H100):
+    python -m oim_tpu_torch.cli.serve_main \\
+        --vocab-size 151936 --d-model 1536 --n-layers 28 --n-heads 12 \\
+        --n-kv-heads 2 --d-ff 8960 --rope-theta 1000000 --norm-eps 1e-6 \\
+        --attn-bias --dtype bfloat16 --kv-block 16 --n-slots 8 \\
+        --max-len 2048 --chunk 8 --port 8000
+Then:
+    curl -s localhost:8000/v1/generate -d \\
+        '{"tokens": [1,2,3], "max_new_tokens": 8}'
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import threading
+import time
+
+from oim_tpu_torch.models.transformer import TransformerConfig, init_params
+from oim_tpu_torch.serve.engine import Engine, resolve_device
+from oim_tpu_torch.serve.server import ServeServer
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="oim-serve-torch", description=__doc__)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000, help="0 = ephemeral")
+    p.add_argument(
+        "--device", default="cuda",
+        help="torch device (default cuda; 'cpu' runs the plain path)",
+    )
+    p.add_argument("--seed", type=int, default=0, help="weight init seed")
+    # Model geometry.
+    p.add_argument("--vocab-size", type=int, default=32768)
+    p.add_argument("--d-model", type=int, default=512)
+    p.add_argument("--n-layers", type=int, default=4)
+    p.add_argument("--n-heads", type=int, default=8)
+    p.add_argument("--n-kv-heads", type=int, default=0)
+    p.add_argument("--d-ff", type=int, default=0)
+    p.add_argument("--rope-theta", type=float, default=10000.0)
+    p.add_argument("--norm-eps", type=float, default=1e-6)
+    p.add_argument(
+        "--attn-bias", action="store_true",
+        help="q/k/v projection biases (the Qwen2 family)",
+    )
+    p.add_argument("--dtype", default="bfloat16")
+    # Engine shape.
+    p.add_argument("--n-slots", type=int, default=8)
+    p.add_argument("--max-len", type=int, default=1024)
+    p.add_argument("--chunk", type=int, default=8)
+    p.add_argument(
+        "--kv-block", type=int, default=16,
+        help="paged KV block size in tokens (must divide --max-len)",
+    )
+    p.add_argument(
+        "--kv-blocks", type=int, default=0,
+        help="pool size in blocks (0 = n_slots x max_len / kv_block)",
+    )
+    p.add_argument("--kv-int8", action="store_true",
+                   help="int8 KV cache with per-(token, head) scales")
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=1.0)
+    p.add_argument(
+        "--max-queue", type=int, default=64,
+        help="admission queue bound (HTTP 429 beyond it; 0 = unbounded)",
+    )
+    return p
+
+
+def make_engine(args) -> Engine:
+    """The engine from parsed args: device first (no GPU and no
+    ``--device cpu`` fails before any work), then weights and engine."""
+    device = resolve_device(args.device)
+    cfg = TransformerConfig(
+        vocab_size=args.vocab_size,
+        d_model=args.d_model,
+        n_layers=args.n_layers,
+        n_heads=args.n_heads,
+        n_kv_heads=args.n_kv_heads,
+        attn_bias=args.attn_bias,
+        d_ff=args.d_ff or 4 * args.d_model,
+        rope_theta=args.rope_theta,
+        norm_eps=args.norm_eps,
+        dtype=args.dtype,
+    )
+    params = init_params(args.seed, cfg, device=device)
+    return Engine(
+        params, cfg,
+        n_slots=args.n_slots,
+        max_len=args.max_len,
+        chunk=args.chunk,
+        top_k=args.top_k,
+        top_p=args.top_p,
+        kv_int8=args.kv_int8,
+        max_queue=args.max_queue,
+        kv_block=args.kv_block,
+        kv_blocks=args.kv_blocks,
+        device=device,
+    )
+
+
+def start_server(args) -> ServeServer:
+    """Build, warm and start the server; prints the listening line."""
+    engine = make_engine(args).warmup()
+    server = ServeServer(engine, host=args.host, port=args.port).start()
+    print(
+        f"oim-serve listening host={server.host!r} port={server.port} "
+        f"n_slots={args.n_slots} max_len={args.max_len} "
+        f"device={engine.device}",
+        file=sys.stderr, flush=True,
+    )
+    return server
+
+
+def main(argv=None) -> int:
+    server = start_server(build_parser().parse_args(argv))
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    try:
+        stop.wait()
+        # Graceful drain: stop admitting, let in-flight requests finish.
+        server.engine.drain()
+        deadline = time.monotonic() + 120.0
+        while server.engine.in_flight() and time.monotonic() < deadline:
+            time.sleep(0.2)
+    finally:
+        server.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

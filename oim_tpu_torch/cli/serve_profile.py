@@ -1,0 +1,151 @@
+"""Where a serving step's time goes on the GPU: the port's engine at a
+served model's full width, profiled with ``torch.profiler``.
+
+Builds the engine as ``serve_main`` does (same geometry flags, random
+weights from ``--seed``) and warms it.  Prompt lengths are spread over
+the slots up to ``--max-len``.  Two windows:
+
+- admission: one wave of one request per slot, admitted in one
+  ``step()`` that also decodes one chunk;
+- decode: every slot seated, ``DECODE_STEPS`` steps of ``--chunk``
+  passes.
+
+Each window runs twice, back to back: once under the host clock (ended
+by a synchronise), once under the profiler, whose own host cost would
+inflate a wall taken under it.  The two runs do like work, not the same
+work: the admission run seats a second wave of the same prompt lengths,
+and the profiled decode steps run at contexts ``DECODE_STEPS * --chunk``
+tokens longer than the timed ones (at the command below, about 2 % more
+K1 work), so the idle share slightly understates the device's idle
+time.  It prints the wall, the device
+time summed over kernels, the device's idle share (one minus their
+ratio) and the kernels that took the most device time; the last line is
+one JSON object with those numbers.  Run on the machine with the GPU:
+
+    python -m oim_tpu_torch.cli.serve_profile \\
+        --vocab-size 151936 --d-model 1536 --n-layers 28 --n-heads 12 \\
+        --n-kv-heads 2 --d-ff 8960 --rope-theta 1000000 --attn-bias \\
+        --max-len 2048 --n-slots 8 --kv-block 16 --chunk 8
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from oim_tpu_torch.cli import serve_main
+from oim_tpu_torch.ops import _build, paged_attention
+from oim_tpu_torch.serve.engine import GenRequest
+
+DECODE_STEPS = 3  # engine steps in the decode window
+TOP = 12  # kernels listed per window
+
+
+def _device_us(event) -> float:
+    """An averaged event's own device time in microseconds."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    return 0.0
+
+
+def _timed(engine, steps: int) -> float:
+    """Host wall in ms of ``steps`` engine steps, unprofiled (each step
+    ends in a device readback, so the wall covers the device work)."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) * 1e3
+
+
+def _profiled(engine, steps: int, wall_ms: float) -> dict:
+    """Profile ``steps`` engine steps: their device time summed over
+    kernels, the idle share it leaves of ``wall_ms`` (the same work's
+    unprofiled wall), and the kernels that took the most device time."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+    kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    busy_ms = sum(us for _, us, _ in kernels) / 1e3
+    kernels.sort(key=lambda e: -e[1])
+    return {
+        "steps": steps,
+        "wall_ms": wall_ms,
+        "device_ms": busy_ms if kernels else None,
+        "idle_share": 1.0 - busy_ms / wall_ms if kernels else None,
+        "top": [
+            {"name": name[:90], "ms": us / 1e3, "calls": count,
+             "share": us / 1e3 / busy_ms}
+            for name, us, count in kernels[:TOP]
+        ],
+    }
+
+
+def _print_window(title: str, w: dict) -> None:
+    if w["device_ms"] is None:
+        print(f"{title}: wall {w['wall_ms']:.2f} ms; device time not "
+              f"measured (the profiler recorded no device events)")
+        return
+    print(f"{title}: wall {w['wall_ms']:.2f} ms over {w['steps']} steps; "
+          f"device {w['device_ms']:.2f} ms; idle share "
+          f"{w['idle_share']:.3f}")
+    for k in w["top"]:
+        print(f"  {k['ms']:9.3f} ms {k['share']:6.1%} x{k['calls']:<6} "
+              f"{k['name']}")
+
+
+def main(argv=None) -> int:
+    args = serve_main.build_parser().parse_args(argv)
+    engine = serve_main.make_engine(args)
+    if engine.device.type != "cuda":
+        raise SystemExit("serve_profile measures the GPU: run it there")
+    smi = _build.gpu_line()
+    engine.warmup()
+    rng = np.random.RandomState(args.seed)
+    # The decode budget covers the seating step and both windows.
+    budget = args.chunk * (2 * DECODE_STEPS + 2)
+    lengths = np.linspace(
+        16, min(engine.prompt_buckets[-1], args.max_len - budget),
+        engine.n_slots,
+    ).astype(int)
+
+    def wave(max_new: int) -> None:
+        for n in lengths:
+            engine.submit(GenRequest(
+                tokens=rng.randint(0, args.vocab_size, int(n)).tolist(),
+                max_new_tokens=max_new,
+            ))
+
+    paged_attention.reset_counters()
+    wave(args.chunk)
+    wall_ms = _timed(engine, 1)
+    wave(args.chunk)
+    admit = _profiled(engine, 1, wall_ms)
+    wave(budget)
+    engine.step()
+    wall_ms = _timed(engine, DECODE_STEPS)
+    decode = _profiled(engine, DECODE_STEPS, wall_ms)
+    counts = paged_attention.counters()
+    print(f"{smi}; prompts {lengths.tolist()}, chunk {args.chunk}")
+    _print_window("admission wave + one decode chunk", admit)
+    _print_window(f"decode ({DECODE_STEPS} steps of {args.chunk} "
+                  f"passes)", decode)
+    print(json.dumps({"device": smi, "prompts": lengths.tolist(),
+                      "admit": admit, "decode": decode,
+                      "kernel_counts": counts}))
+    engine.run()
+    return 0
+
+if __name__ == "__main__":
+    sys.exit(main())

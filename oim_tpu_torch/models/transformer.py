@@ -1,0 +1,291 @@
+"""Flagship decoder-only transformer LM (the serving forward's pieces).
+
+Architecture as in ``oim_tpu/models/transformer.py``: pre-RMSNorm,
+rotary positions, SwiGLU (or GeGLU) MLP, optional q/k/v biases (the
+Qwen2 family), an untied ``wlm`` unembedding, f32 logits.  The layer
+loop is a Python loop (``lax.scan`` has no counterpart to carry over),
+and parameters are a plain dict in the layout the forward reads
+(``models/weights.py``): matmul weights in the compute dtype, norm
+scales in f32, cast once at load instead of per step.
+
+MoE layers and the training forward come with later slices; a config
+asking for experts is refused where parameters are built.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from oim_tpu_torch.ops.rmsnorm import reference_rmsnorm
+
+# The compute dtypes the port's kernels take.
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+}
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    """The reference ``TransformerConfig``: same field names, defaults
+    and validation, so a config moves between the packages unchanged.
+    Fields of the training path (pipeline, remat, Pallas, fused CE,
+    sequence parallelism, packing) are carried for that parity and not
+    read by the serving path."""
+
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int = 0
+    attn_bias: bool = False
+    mlp_act: str = "silu"
+    norm_offset: bool = False
+    embed_scale: bool = False
+    d_ff: int = 0
+    n_experts: int = 0
+    moe_top_k: int = 1
+    expert_capacity_factor: float = 1.25
+    router_z_loss: float = 0.0
+    rope_theta: float = 10000.0
+    rope_scaling: tuple = ()
+    norm_eps: float = 1e-6
+    n_stages: int = 1
+    n_microbatches: int = 1
+    grad_accum: int = 1
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    remat: bool = True
+    use_pallas: bool = True
+    fused_ce: bool = True
+    attn_impl: str = "ring"
+    pp_schedule: str = "gpipe"
+    sliding_window: int = 0
+    doc_sep_id: int = -1
+
+    def __post_init__(self):
+        if self.mlp_act not in ("silu", "gelu_tanh"):
+            raise ValueError(
+                f"unknown mlp_act {self.mlp_act!r}; "
+                "expected 'silu' or 'gelu_tanh'"
+            )
+        if self.attn_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"unknown attn_impl {self.attn_impl!r}; "
+                "expected 'ring' or 'ulysses'"
+            )
+        if self.pp_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(
+                f"unknown pp_schedule {self.pp_schedule!r}; "
+                "expected 'gpipe' or '1f1b'"
+            )
+        if self.n_kv_heads and (
+            self.n_kv_heads < 1 or self.n_heads % self.n_kv_heads
+        ):
+            raise ValueError(
+                f"n_kv_heads={self.n_kv_heads} must be a positive divisor "
+                f"of n_heads={self.n_heads}"
+            )
+        if self.grad_accum < 1:
+            raise ValueError(f"grad_accum={self.grad_accum} must be >= 1")
+        if self.rope_scaling:
+            if len(self.rope_scaling) != 4:
+                raise ValueError(
+                    "rope_scaling must be empty or (factor, low_freq_factor, "
+                    f"high_freq_factor, original_max_position); "
+                    f"got {self.rope_scaling!r}"
+                )
+            factor, low, high, orig = self.rope_scaling
+            if factor <= 0 or low <= 0 or orig <= 0 or low >= high:
+                raise ValueError(
+                    "rope_scaling needs factor>0, 0<low_freq_factor"
+                    f"<high_freq_factor, original_max>0; got "
+                    f"{self.rope_scaling!r}"
+                )
+        if self.moe_top_k < 1 or (
+            self.n_experts and self.moe_top_k > self.n_experts
+        ):
+            raise ValueError(
+                f"moe_top_k={self.moe_top_k} must be in "
+                f"[1, n_experts={self.n_experts}]"
+            )
+        if self.sliding_window < 0:
+            raise ValueError(
+                f"sliding_window={self.sliding_window} must be >= 0"
+            )
+        if self.doc_sep_id >= self.vocab_size:
+            raise ValueError(
+                f"doc_sep_id={self.doc_sep_id} outside vocab "
+                f"{self.vocab_size}"
+            )
+        if self.dtype not in _DTYPES:
+            raise ValueError(
+                f"dtype {self.dtype!r} not one of {sorted(_DTYPES)}"
+            )
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def ff_dim(self) -> int:
+        return self.d_ff or 4 * self.d_model
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+
+def require_dense(cfg: TransformerConfig) -> None:
+    """Refuse configs the port does not serve yet."""
+    if cfg.n_experts:
+        raise ValueError(
+            "MoE layers are not ported yet (ROADMAP Queue A: MoE, "
+            "_moe_exact); serve a dense config"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+
+LAYER_NAMES = (
+    "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_in",
+    "w_out", "bq", "bk", "bv",
+)
+_NORMS = ("attn_norm", "mlp_norm", "final_norm")
+
+
+def prepare_param(name: str, value, cfg: TransformerConfig):
+    """One parameter in the layout the forward reads: norm scales f32,
+    ``wlm`` as compute-dtype values widened to f32 (see ``_unembed``),
+    every other weight in the compute dtype."""
+    if name in _NORMS:
+        return value.float()
+    if name == "wlm":
+        return value.to(cfg.compute_dtype).float()
+    return value.to(cfg.compute_dtype)
+
+
+def init_params(seed: int, cfg: TransformerConfig, device=None) -> dict:
+    """Truncated-normal init (±2 sigma, scaled by 1/sqrt(fan_in)) drawn
+    from ``torch.Generator(device).manual_seed(seed)``, one tensor at a
+    time so the peak is one f32 tensor beyond the model.  Returns
+    ``{"wte", "final_norm", "wlm", "layers": [per-layer dict]}``."""
+    require_dense(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, n = cfg.d_model, cfg.n_heads * cfg.head_dim
+    kvn, f = cfg.kv_heads * cfg.head_dim, cfg.ff_dim
+    lo = 0.5 * math.erfc(2.0 / math.sqrt(2.0))  # standard normal CDF at -2
+
+    def dense(name, *shape, fan_in):
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        t.uniform_(lo, 1.0 - lo, generator=gen)
+        t.mul_(2.0).sub_(1.0).erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+        return prepare_param(name, t.div_(math.sqrt(fan_in)), cfg)
+
+    def const(name, fill, *shape):
+        t = torch.full(shape, fill, dtype=torch.float32, device=device)
+        return prepare_param(name, t, cfg)
+
+    params = {
+        "wte": dense("wte", cfg.vocab_size, d, fan_in=d),
+        "final_norm": const("final_norm", 1.0, d),
+        "wlm": dense("wlm", d, cfg.vocab_size, fan_in=d),
+        "layers": [],
+    }
+    for _ in range(cfg.n_layers):
+        lp = {
+            "attn_norm": const("attn_norm", 1.0, d),
+            "wq": dense("wq", d, n, fan_in=d),
+            "wk": dense("wk", d, kvn, fan_in=d),
+            "wv": dense("wv", d, kvn, fan_in=d),
+            "wo": dense("wo", n, d, fan_in=n),
+            "mlp_norm": const("mlp_norm", 1.0, d),
+            "w_gate": dense("w_gate", d, f, fan_in=d),
+            "w_in": dense("w_in", d, f, fan_in=d),
+            "w_out": dense("w_out", f, d, fan_in=f),
+        }
+        if cfg.attn_bias:
+            lp.update(
+                bq=const("bq", 0.0, n),
+                bk=const("bk", 0.0, kvn),
+                bv=const("bv", 0.0, kvn),
+            )
+        params["layers"].append(lp)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward pieces
+
+
+def _rmsnorm(x, w, cfg: TransformerConfig):
+    if cfg.norm_offset:
+        # Gemma convention: the learned scale is a residual around 1,
+        # formed and kept in f32.
+        w = 1.0 + w.float()
+    return reference_rmsnorm(x, w, cfg.norm_eps)
+
+
+def embed_lookup(wte, tokens, cfg: TransformerConfig):
+    """The token-embedding lookup (solo decode and the engine both route
+    here); Gemma's sqrt(d_model) scale rounds through the compute
+    dtype."""
+    x = F.embedding(tokens, wte)
+    if cfg.embed_scale:
+        x = x * torch.tensor(
+            math.sqrt(cfg.d_model), dtype=wte.dtype, device=x.device
+        )
+    return x
+
+
+def _mlp_act(x, cfg: TransformerConfig):
+    """The gate activation: silu, or Gemma's tanh-approximated gelu."""
+    if cfg.mlp_act == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def _dense_mlp(x, lp, cfg: TransformerConfig):
+    """Pre-norm gated MLP with its residual."""
+    normed = _rmsnorm(x, lp["mlp_norm"], cfg)
+    gate = _mlp_act(normed @ lp["w_gate"], cfg)
+    up = normed @ lp["w_in"]
+    return x + ((gate * up) @ lp["w_out"]).to(x.dtype)
+
+
+def _qkv(x, lp, cfg: TransformerConfig):
+    """Pre-norm q/k/v projections (plus the Qwen biases) reshaped to
+    [b, t, heads, head_dim] — shared by solo decode and the engine."""
+    b, t, _ = x.shape
+    normed = _rmsnorm(x, lp["attn_norm"], cfg)
+    q = normed @ lp["wq"]
+    k = normed @ lp["wk"]
+    v = normed @ lp["wv"]
+    if "bq" in lp:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    hd, kvh = cfg.head_dim, cfg.kv_heads
+    return (
+        q.reshape(b, t, cfg.n_heads, hd),
+        k.reshape(b, t, kvh, hd),
+        v.reshape(b, t, kvh, hd),
+    )
+
+
+def _unembed(x, wlm, cfg: TransformerConfig):
+    """f32 logits from compute-dtype hidden states.  ``wlm`` holds the
+    compute-dtype weight values widened to f32 once at load, so this f32
+    product is the reference's bf16 x bf16 einsum with an f32
+    accumulator and f32 output — which a bf16 matmul here, rounding its
+    output to bf16, would not be."""
+    return x.to(cfg.compute_dtype).float() @ wlm

@@ -1,0 +1,316 @@
+"""Paged attention straight off the block pool: the two Hopper kernels
+of the serving path and their plain PyTorch versions.
+
+``paged_flash_decode`` (kernel K1, ``csrc/paged_attention.cu``
+``paged_decode_kernel``) replaces ``oim_tpu/ops/paged_attention.py``
+``_decode_kernel``: attention for q rows at per-slot positions, reading
+K/V through each slot's block table with no gathered view, online
+softmax in f32, GQA folded into the row axis, int8 dequant fused at the
+load.  ``paged_kv_store`` (kernel K2, ``paged_store_kernel``) replaces
+``_prefill_stage_kernel`` together with its ``paged_store_blocks``
+landing: a segment's fresh K/V rows are written into the slot's blocks
+in place, quantized exactly as ``quantize_int8`` does.
+``paged_flash_prefill`` is K2 then K1 over the updated pool — a
+prompt segment's causal prefill is a tall decode.
+
+Semantics the kernels and the plain versions share (the reference's
+exactness contract): sentinel table entries (``>= n_blocks``) are never
+read; scores are ``dot / sqrt(hd)``; masked scores take ``NEG_BIG``
+(``-1e30``, not ``-inf``); the window keeps ``q_pos - k_pos < window``;
+a row with no valid key outputs zeros.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs
+the plain version only for CPU tensors.  ``<wrapper>.launches`` counts
+kernel launches and ``<plain>.calls`` counts plain runs — plain
+integers that a run reads to show which path it went through.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from oim_tpu_torch.ops import _build
+from oim_tpu_torch.ops.paged import paged_store, paged_view
+from oim_tpu_torch.ops.quant import dequantize_int8
+
+# The reference's mask constant (oim_tpu/ops/flash_attention.py
+# _NEG_BIG): a fully masked row then yields zeros, never NaN.
+NEG_BIG = -1e30
+# What the CUDA kernels take: head_dim is a template parameter (one
+# register slice of hd/32 values per lane), and a pool block is scored
+# by at most two 32-lane passes.
+HEAD_DIMS = (64, 128)
+MAX_BLOCK_SIZE = 64
+# K2 runs one warp per kv head in a block of at most 1024 threads.
+MAX_KV_HEADS = 32
+
+
+def supported_block_size(block_size: int, head_dim: int) -> bool:
+    """Whether the CUDA kernels cover this geometry: head_dim 64 or 128
+    and 1 <= block_size <= 64.  The engine checks this at construction
+    for a CUDA device; the plain versions take any geometry."""
+    return head_dim in HEAD_DIMS and 1 <= block_size <= MAX_BLOCK_SIZE
+
+
+def _check_kernel_geometry(what: str, block_size: int, head_dim: int,
+                           kvh: int) -> None:
+    if not supported_block_size(block_size, head_dim) or kvh > MAX_KV_HEADS:
+        raise ValueError(
+            f"{what} kernel needs head_dim in {HEAD_DIMS}, block_size in "
+            f"[1, {MAX_BLOCK_SIZE}] and kv_heads <= {MAX_KV_HEADS}; got "
+            f"head_dim={head_dim}, block_size={block_size}, kv_heads={kvh}"
+        )
+
+
+def _check_shapes(what: str, rows: int, k_pool, v_pool, k_scale, v_scale,
+                  tables, starts) -> None:
+    """Raise unless the operands agree: pools [n_blocks, block_size,
+    kv_heads, head_dim] alike, scales [n_blocks, block_size, kv_heads]
+    (both or neither), tables [rows, n_tables], starts [rows].  The
+    kernels index with these shapes, so a mismatch would read or write
+    out of bounds."""
+    if k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise ValueError(
+            f"{what}: pools {tuple(k_pool.shape)} and {tuple(v_pool.shape)} "
+            f"must both be [n_blocks, block_size, kv_heads, head_dim]"
+        )
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{what}: pass both scale planes or neither")
+    for scale in (k_scale, v_scale):
+        if scale is not None and scale.shape != k_pool.shape[:3]:
+            raise ValueError(
+                f"{what}: scales {tuple(scale.shape)} must be "
+                f"{tuple(k_pool.shape[:3])}"
+            )
+    if tables.dim() != 2 or tables.shape[0] != rows or tuple(
+            starts.shape) != (rows,):
+        raise ValueError(
+            f"{what}: tables {tuple(tables.shape)} and starts "
+            f"{tuple(starts.shape)} must be [{rows}, n_tables] and [{rows}]"
+        )
+
+
+def _check_kernel_operands(what: str, x, k_pool, v_pool, k_scale, v_scale,
+                           tables, starts, v_new=None) -> None:
+    """Raise unless a kernel takes these operands as they are: its
+    geometry, int8 pools with f32 scales or fp pools of ``x``'s dtype
+    (``x`` is q or the new K, ``v_new`` the new V) with none, int32
+    tables and starts, and every tensor contiguous on ``x``'s device."""
+    _, block_size, kvh, hd = k_pool.shape
+    _check_kernel_geometry(what, block_size, hd, kvh)
+    quantized = k_scale is not None
+    if quantized != (k_pool.dtype == torch.int8):
+        raise ValueError(f"{what}: int8 pools take f32 scales; fp pools "
+                         f"take none")
+    if not quantized and k_pool.dtype != x.dtype:
+        raise ValueError(
+            f"{what}: {x.dtype} operand and fp pool {k_pool.dtype} must "
+            f"share a dtype"
+        )
+    if quantized and (k_scale.dtype != torch.float32
+                      or v_scale.dtype != torch.float32):
+        raise ValueError(f"{what}: int8 pool scales must be float32")
+    for name, t in dict(x=x, v_new=v_new, k_pool=k_pool, v_pool=v_pool,
+                        k_scale=k_scale, v_scale=v_scale, tables=tables,
+                        starts=starts).items():
+        if t is None:
+            continue
+        if t.device != x.device:
+            raise ValueError(
+                f"{what}: {name} on {t.device}, expected {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if tables.dtype != torch.int32 or starts.dtype != torch.int32:
+        raise ValueError(f"{what}: tables and starts must be int32")
+
+
+def _code(what: str, dtype) -> int:
+    try:
+        return _build.DTYPE_CODES[dtype]
+    except KeyError:
+        raise ValueError(f"{what}: unsupported dtype {dtype}") from None
+
+
+# ---------------------------------------------------------------------------
+# K1: paged flash-decode
+
+
+def paged_flash_decode_plain(
+    q, k_pool, v_pool, k_scale, v_scale, tables, starts, *, window: int = 0
+):
+    """Plain PyTorch version of ``paged_flash_decode`` (same signature):
+    gather each slot's blocks into a dense view, mask positions past the
+    row's frontier, outside the window or in a sentinel block, softmax
+    in f32.  Rows with no valid key emit zeros, as the kernel does."""
+    paged_flash_decode_plain.calls += 1
+    b, t, h, hd = q.shape
+    n_blocks, block_size, kvh, _ = k_pool.shape
+    group = h // kvh
+    k_view, ks_view = paged_view(k_pool, k_scale, tables)
+    v_view, vs_view = paged_view(v_pool, v_scale, tables)
+    k = k_view.float() if ks_view is None else dequantize_int8(k_view, ks_view)
+    v = v_view.float() if vs_view is None else dequantize_int8(v_view, vs_view)
+    qg = q.float().reshape(b, t, kvh, group, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / (hd**0.5)
+    n_keys = k.shape[1]
+    q_pos = starts.to(torch.int64)[:, None] + torch.arange(t, device=q.device)
+    k_pos = torch.arange(n_keys, device=q.device)
+    live = (tables < n_blocks).repeat_interleave(block_size, dim=1)
+    keep = (k_pos[None, None, :] <= q_pos[:, :, None]) & live[:, None, :]
+    if window:
+        keep &= q_pos[:, :, None] - k_pos[None, None, :] < window
+    scores = torch.where(keep[:, None, None], scores, NEG_BIG)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    out = torch.where(keep.any(-1)[:, :, None, None, None], out, 0.0)
+    return out.reshape(b, t, h, hd)
+
+
+paged_flash_decode_plain.calls = 0
+
+
+def paged_flash_decode(
+    q, k_pool, v_pool, k_scale, v_scale, tables, starts, *, window: int = 0
+):
+    """Attention for q rows straight off the paged pool.
+
+    q: [B, t, H, hd] (f32 or bf16); k_pool/v_pool: [n_blocks,
+    block_size, KVH, hd] (f32, bf16 or int8); k_scale/v_scale:
+    [n_blocks, block_size, KVH] f32 for int8 pools, else None; tables:
+    [B, n_tables] int32, sentinel entry ``n_blocks``; starts: [B] int32
+    — q row i of slot b sits at position ``starts[b] + i`` and attends
+    positions ``<=`` it (within ``window`` when > 0).  Returns [B, t, H,
+    hd] float32.  CUDA tensors launch K1; CPU tensors run the plain
+    version."""
+    b, t, h, hd = q.shape
+    _check_shapes("paged_flash_decode", b, k_pool, v_pool, k_scale,
+                  v_scale, tables, starts)
+    n_blocks, block_size, kvh, pool_hd = k_pool.shape
+    if h % kvh or hd != pool_hd:
+        raise ValueError(
+            f"paged_flash_decode: q {tuple(q.shape)} needs a multiple of "
+            f"{kvh} heads of {pool_hd}"
+        )
+    if not q.is_cuda:
+        return paged_flash_decode_plain(
+            q, k_pool, v_pool, k_scale, v_scale, tables, starts,
+            window=window,
+        )
+    q = q.contiguous()
+    _check_kernel_operands("paged_flash_decode", q, k_pool, v_pool, k_scale,
+                           v_scale, tables, starts)
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("K1 reads the pools in 16-byte chunks: align them")
+    out = torch.empty((b, t, h, hd), dtype=torch.float32, device=q.device)
+    code = _build.library().oim_paged_flash_decode(
+        _build.ptr(q), _code("q", q.dtype),
+        _build.ptr(k_pool), _build.ptr(v_pool), _code("pool", k_pool.dtype),
+        _build.ptr(k_scale), _build.ptr(v_scale),
+        _build.ptr(tables), _build.ptr(starts), _build.ptr(out),
+        b, t, h, kvh, hd, n_blocks, block_size, tables.shape[1],
+        int(window), _build.stream_of(q),
+    )
+    _build.check(code, "paged_flash_decode")
+    paged_flash_decode.launches += 1
+    return out
+
+
+paged_flash_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: prefill K/V store with fused quant
+
+
+def paged_kv_store_plain(
+    k_new, v_new, k_pool, v_pool, k_scale, v_scale, tables, starts
+):
+    """Plain PyTorch version of ``paged_kv_store`` (same signature):
+    ``paged_store`` of K and of V, in place."""
+    paged_kv_store_plain.calls += 1
+    paged_store(k_pool, k_scale, k_new, tables, starts)
+    paged_store(v_pool, v_scale, v_new, tables, starts)
+
+
+paged_kv_store_plain.calls = 0
+
+
+def paged_kv_store(k_new, v_new, k_pool, v_pool, k_scale, v_scale, tables,
+                   starts):
+    """Write a segment's ``k_new``/``v_new`` [B, t, KVH, hd] at
+    positions ``starts[b] .. starts[b] + t - 1`` of each slot's blocks,
+    IN PLACE — int8 pools quantize each [position, kv-head] row exactly
+    as ``quantize_int8`` does.  Rows whose table entry is the sentinel
+    or lies past the table are dropped; rows outside the window are not
+    touched.  The pool bytes afterwards equal ``paged_store``'s.  CUDA
+    tensors launch K2; CPU tensors run the plain version."""
+    b, t, kvh, hd = k_new.shape
+    _check_shapes("paged_kv_store", b, k_pool, v_pool, k_scale, v_scale,
+                  tables, starts)
+    if k_new.shape[2:] != k_pool.shape[2:] or v_new.shape != k_new.shape:
+        raise ValueError(
+            f"paged_kv_store: new K/V {tuple(k_new.shape)} and "
+            f"{tuple(v_new.shape)} must be [{b}, t, "
+            f"{k_pool.shape[2]}, {k_pool.shape[3]}]"
+        )
+    if not k_new.is_cuda:
+        paged_kv_store_plain(
+            k_new, v_new, k_pool, v_pool, k_scale, v_scale, tables, starts
+        )
+        return
+    if v_new.dtype != k_new.dtype:
+        raise ValueError("k_new and v_new must share a dtype")
+    k_new, v_new = k_new.contiguous(), v_new.contiguous()
+    _check_kernel_operands("paged_kv_store", k_new, k_pool, v_pool, k_scale,
+                           v_scale, tables, starts, v_new=v_new)
+    n_blocks, block_size = k_pool.shape[0], k_pool.shape[1]
+    code = _build.library().oim_paged_kv_store(
+        _build.ptr(k_new), _build.ptr(v_new), _code("new", k_new.dtype),
+        _build.ptr(k_pool), _build.ptr(v_pool), _code("pool", k_pool.dtype),
+        _build.ptr(k_scale), _build.ptr(v_scale),
+        _build.ptr(tables), _build.ptr(starts),
+        b, t, kvh, hd, n_blocks, block_size, tables.shape[1],
+        _build.stream_of(k_new),
+    )
+    _build.check(code, "paged_kv_store")
+    paged_kv_store.launches += 1
+
+
+paged_kv_store.launches = 0
+
+
+def paged_flash_prefill(
+    q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, tables, starts,
+    *, window: int = 0,
+):
+    """One segment's causal attention straight off (and into) the paged
+    pool: store ``k_new``/``v_new`` [B, t, KVH, hd] into the write window
+    ``[starts[b], starts[b] + t)`` (``paged_kv_store``, in place), then
+    attend over the updated pool (``paged_flash_decode``).  Returns
+    ``(out [B, t, H, hd] float32, k_pool, v_pool, k_scale, v_scale)`` at
+    the reference's signature; the pool tensors are the ones passed in,
+    updated in place."""
+    paged_kv_store(k_new, v_new, k_pool, v_pool, k_scale, v_scale, tables,
+                   starts)
+    out = paged_flash_decode(
+        q, k_pool, v_pool, k_scale, v_scale, tables, starts, window=window
+    )
+    return out, k_pool, v_pool, k_scale, v_scale
+
+
+def reset_counters() -> None:
+    """Zero every launch and plain-call count."""
+    paged_flash_decode.launches = 0
+    paged_kv_store.launches = 0
+    paged_flash_decode_plain.calls = 0
+    paged_kv_store_plain.calls = 0
+
+
+def counters() -> dict:
+    """Current launch and plain-call counts by name."""
+    return {
+        "paged_flash_decode": paged_flash_decode.launches,
+        "paged_kv_store": paged_kv_store.launches,
+        "paged_flash_decode_plain": paged_flash_decode_plain.calls,
+        "paged_kv_store_plain": paged_kv_store_plain.calls,
+    }

@@ -1,0 +1,167 @@
+"""The PyTorch port stands alone, and never runs quietly on the CPU.
+
+- No module of ``oim_tpu_torch`` and not ``chip_smoke.py`` imports JAX
+  (``jax``, ``jaxlib``, ``flax``, ``optax``) or anything of the JAX
+  package ``oim_tpu``: the port keeps its own copy of what it needs.
+- Every port module carries a docstring, imports nothing it does not
+  use, and prints only from ``cli/`` (the gates ``tests/test_quality.py``
+  holds ``oim_tpu`` to).
+- Without a GPU, the entry points raise unless the caller asks for the
+  CPU: ``Engine`` with no ``device``, ``serve_main`` with no
+  ``--device``, and ``chip_smoke.py`` (which also refuses to run where
+  the port's package is missing).
+"""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "oim_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "oim_tpu"}
+PRINT_ALLOWED = ("oim_tpu_torch/cli/",)
+
+FILES = sorted(PORT.rglob("*.py"))
+assert FILES, "port file discovery broke"
+IDS = [str(p.relative_to(REPO)) for p in FILES]
+# The port's modules plus the chip smoke that drives them.
+SCRIPTS, SCRIPT_IDS = FILES + [REPO / "chip_smoke.py"], IDS + ["chip_smoke.py"]
+
+
+def _tree(path):
+    return ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=SCRIPT_IDS)
+def test_no_jax_imports(path):
+    bad = sorted(set(_imported_roots(_tree(path))) & FORBIDDEN)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=SCRIPT_IDS)
+def test_module_docstring(path):
+    tree = _tree(path)
+    assert ast.get_docstring(tree), "module lacks a docstring"
+
+
+@pytest.mark.parametrize("path", FILES, ids=IDS)
+def test_no_print_outside_cli(path):
+    rel = str(path.relative_to(REPO))
+    if rel.startswith(PRINT_ALLOWED):
+        return
+    calls = [
+        node.lineno for node in ast.walk(_tree(path))
+        if isinstance(node, ast.Call)
+        and isinstance(node.func, ast.Name) and node.func.id == "print"
+    ]
+    assert not calls, f"print() at lines {calls}"
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=SCRIPT_IDS)
+def test_no_unused_imports(path):
+    if path.name == "__init__.py":
+        return
+    tree = _tree(path)
+    imported = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                imported[alias.asname or alias.name.split(".")[0]] = node
+        elif isinstance(node, ast.ImportFrom) and node.module != "__future__":
+            for alias in node.names:
+                imported[alias.asname or alias.name] = node
+    used = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    used |= {
+        n.value.id for n in ast.walk(tree)
+        if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
+    }
+    unused = sorted(set(imported) - used)
+    assert not unused, f"unused imports: {unused}"
+
+
+def _tiny():
+    from oim_tpu_torch.models.transformer import TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab_size=31, d_model=32, n_layers=1,
+                            n_heads=2, dtype="float32")
+    return cfg, init_params(0, cfg)
+
+
+def test_engine_without_device_needs_a_gpu():
+    from oim_tpu_torch.serve.engine import Engine
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    cfg, params = _tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(params, cfg, max_len=32, kv_block=8)
+    # Asking for the CPU is the one way to run there.
+    engine = Engine(params, cfg, max_len=32, kv_block=8, device="cpu")
+    assert engine.info()["engine"]["attention"] == "plain"
+
+
+def test_serve_main_without_device_needs_a_gpu():
+    from oim_tpu_torch.cli import serve_main
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_main.main(["--vocab-size", "31", "--d-model", "32",
+                         "--n-layers", "1", "--n-heads", "2", "--port", "0"])
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+
+
+def test_chip_smoke_fails_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    for cwd in (REPO, tmp_path):
+        if cwd == tmp_path:  # the script alone, without the program
+            shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        proc = _run_smoke(cwd)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+def test_chip_smoke_counts_the_work_its_inputs_need():
+    """The smoke's bound counts distinct K/V rows read once and (query,
+    key) pairs attended, from the tables it was given."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    bs, n_blocks = chip_smoke.BS, 10
+    tables = np.full((2, 4), n_blocks, np.int32)
+    tables[0, :2] = [3, 5]  # slot 0 owns positions 0..31
+    starts = np.array([20, 0], np.int32)
+    # Slot 0, t=3 at 20..22: pairs 21+22+23, rows 0..22; slot 1 reads
+    # nothing (all sentinel).
+    assert chip_smoke.attend_work(starts, 3, tables, n_blocks, 0) == (66, 23)
+    # A window of 4 keeps 4 keys per row and rows 17..22.
+    assert chip_smoke.attend_work(starts, 3, tables, n_blocks, 4) == (12, 6)
+    assert bs == 16
+    ms, by = chip_smoke.bound(3_350_000_000, 0, torch.bfloat16)
+    assert by == "bytes" and abs(ms - 1.0) < 1e-12
