@@ -1,7 +1,9 @@
 """Chip smoke for the PyTorch/CUDA port: build the Hopper kernels, hold
-each against its plain PyTorch version at the serving path's shapes,
-then serve Qwen2.5-1.5B-shaped random weights through the port's own
-entry point and check what comes back.
+each against its plain PyTorch version at the shapes its path gives it,
+then drive both paths through the port's own entry points at
+Qwen2.5-1.5B's full width — serve six requests (paged-attention kernels
+K1, K2) and train a few steps (RMSNorm and flash attention forward, dq,
+dkv) — and check what comes back.
 
 Run from the repository root on a machine with one NVIDIA GPU and the
 CUDA toolkit:
@@ -45,6 +47,22 @@ SERVE_ARGS = [
 H, KVH, HD, BS = 12, 2, 128, 16
 MAX_LEN = 2048
 
+# The train phases' device (the smoke needs a GPU; a constant so the
+# phases can be rehearsed on the CPU at a tiny size).
+DEV = "cuda"
+# Training configuration: the same model, f32 masters with bf16 compute,
+# a batch of 4 x 1024 synthetic tokens, a fixed learning rate.
+TRAIN_STEPS = 5
+TRAIN_B, TRAIN_T, D_MODEL = 4, 1024, 1536
+TRAIN_ARGS = [
+    "--synthetic", "400000", "--steps", str(TRAIN_STEPS),
+    "--batch-global", str(TRAIN_B), "--seq", str(TRAIN_T), "--seed", "0",
+    "--vocab-size", "151936", "--d-model", str(D_MODEL), "--n-layers", "28",
+    "--n-heads", "12", "--n-kv-heads", "2", "--d-ff", "8960", "--attn-bias",
+    "--rope-theta", "1000000", "--norm-eps", "1e-6", "--dtype", "bfloat16",
+    "--lr", "3e-4", "--log-every", "1",
+]
+
 # Kernel vs plain tolerance: both sides compute in f32 from identical
 # (bf16 or dequantized int8) inputs and differ only in summation order —
 # 128-term dots, and an online vs a two-pass softmax over up to 2048
@@ -59,6 +77,22 @@ KERNEL_ATOL = 1e-3
 # (wrong positions, wrong cache rows) moves logits by O(1).
 DELTA = 0.2
 LOGPROB_ATOL = 0.2
+# Training kernels vs their plain versions, as max |got - want| over
+# max |want|: both sides compute in f32 from the same inputs and round
+# once to the output dtype, so in bf16 they differ by at most one
+# rounding step (2**-7 of a value, and values are at most the max) plus
+# f32 summation-order noise; in f32 by that noise alone (sums of up to
+# 1024 terms at eps 6e-8 stay below 1e-5 of the max).  A wrong mask,
+# tile or head moves outputs by O(1) of the max.
+TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7 + 1e-4}
+# First training step, kernel path against a plain f32 path on the same
+# weights and batch.  In bf16 the kernel path rounds activations to 8
+# mantissa bits at every projection over 28 layers: 0.02 on a loss of
+# about 12 and 5 % of each gradient's norm leave room for that, while a
+# broken kernel or layer moves the loss by O(0.1) and gradients by O(1).
+# In f32 the two paths differ in summation order only: 1e-3 of each.
+STEP_LOSS_ATOL = {torch.bfloat16: 0.02, torch.float32: 1e-3}
+STEP_GRAD_RTOL = {torch.bfloat16: 0.05, torch.float32: 1e-3}
 # Device sleep that every timed series queues behind: 2e8 cycles, about
 # 0.1 s at the H100's clocks, covers the host's enqueue of the series.
 SLEEP_CYCLES = 200_000_000
@@ -486,6 +520,299 @@ def serve_phase() -> dict:
         server.stop()
 
 
+# ---------------------------------------------------------------------------
+# Train-kernel phase
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, that over max |want|), in f32."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
+
+
+def attended_pairs(b, h, t, window, segments) -> int:
+    """(query, key) pairs the causal attention of these inputs attends,
+    over every batch row and head: what the kernels must compute."""
+    from oim_tpu_torch.ops.flash_attention import _keep
+
+    keep = _keep(t, True, window, segments, DEV)
+    per_row = keep.sum(dim=(-2, -1))  # [B or 1, 1]
+    return int(per_row.sum()) * h * (b if keep.shape[0] == 1 else 1)
+
+
+def flash_bound(q, k, pairs, flops_per_pair, n_in, n_out):
+    """Least time for one flash kernel: ``n_in`` q-sized or k-sized
+    tensors read and ``n_out`` written once (``n_in``/``n_out`` as
+    (q-like, k-like, per-row f32) counts), and ``flops_per_pair`` per
+    attended (query, key) pair at the inputs' dtype peak."""
+    rows = q.shape[0] * q.shape[2] * q.shape[1]  # B * H * T lse rows
+    moved = ((n_in[0] + n_out[0]) * q.numel() * q.element_size()
+             + (n_in[1] + n_out[1]) * k.numel() * k.element_size()
+             + (n_in[2] + n_out[2]) * rows * 4)
+    return bound(moved, flops_per_pair * pairs, q.dtype)
+
+
+def flash_case(gen, dtype, t, window, segmented):
+    """Inputs at the training shape: q, k, v, dout [B, t, heads, 128],
+    and packed segment ids (a document boundary about every 100
+    tokens) or None."""
+    shape_q, shape_k = (TRAIN_B, t, H, HD), (TRAIN_B, t, KVH, HD)
+    q, do = (torch.randn(shape_q, generator=gen, device=DEV).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(shape_k, generator=gen, device=DEV).to(dtype)
+            for _ in range(2))
+    seg = None
+    if segmented:
+        starts = torch.rand((TRAIN_B, t), generator=gen, device=DEV) < 0.01
+        seg = torch.cumsum(starts.int(), dim=1, dtype=torch.int32)
+    return q, k, v, do, seg
+
+
+def check_flash(tag, q, k, v, do, window, seg) -> dict:
+    """Each flash kernel against its plain version on these inputs;
+    returns the max abs errors by kernel."""
+    from oim_tpu_torch.ops import flash_attention as fa
+
+    tol = TRAIN_TOL[q.dtype]
+    out, lse = fa.flash_fwd(q, k, v, True, window, seg)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, True, window, seg)
+    delta = fa.flash_delta(ref_out, do)
+    bwd = (q, k, v, do, ref_lse, delta, True, window, seg)
+    dq = fa.flash_dq(*bwd)
+    ref_dq = fa.flash_dq_plain(*bwd)
+    dk, dv = fa.flash_dkv(*bwd)
+    ref_dk, ref_dv = fa.flash_dkv_plain(*bwd)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want in (("flash_fwd", out, ref_out),
+                            ("flash_fwd lse", lse, ref_lse),
+                            ("flash_dq", dq, ref_dq),
+                            ("flash_dkv dk", dk, ref_dk),
+                            ("flash_dkv dv", dv, ref_dv)):
+        check(bool(torch.isfinite(got).all()), f"{name} {tag} non-finite")
+        err, rel = rel_err(got, want)
+        # lse is f32 in both dtypes.
+        limit = TRAIN_TOL[torch.float32] if name.endswith("lse") else tol
+        print(f"{name} {tag}: max_abs_err={err:.3e} rel={rel:.3e} "
+              f"(tol {limit:.3e} of max)", flush=True)
+        check(rel <= limit, f"{name} {tag} disagrees: {rel:.3e} of max")
+        key = name.split()[0]
+        errs[key] = max(errs.get(key, 0.0), err)
+    return errs
+
+
+def train_kernel_phase() -> dict:
+    """RMSNorm at [4096, 1536] and the three flash kernels at the training
+    shape, held against their plain versions (f32 and bf16; window 256,
+    packed segments, a ragged T = 1000), then timed at the main path's
+    case (bf16, T = 1024, no window, no segments); returns the record
+    per kernel."""
+    import torch.nn.functional as F
+
+    from oim_tpu_torch.ops import flash_attention as fa
+    from oim_tpu_torch.ops import rmsnorm as rn
+
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    record = {}
+    # -- RMSNorm: every x/w dtype pair; the main path's is bf16 x, f32 w.
+    rows = TRAIN_B * TRAIN_T
+    for xdt in (torch.float32, torch.bfloat16):
+        for wdt in (torch.float32, torch.bfloat16):
+            x = torch.randn((rows, D_MODEL), generator=gen,
+                            device=DEV).to(xdt)
+            w = (torch.rand(D_MODEL, generator=gen, device=DEV)
+                 + 0.5).to(wdt)
+            got = rn.rmsnorm_fwd(x, w, 1e-6)
+            want = rn.rmsnorm_plain(x, w, 1e-6)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, want)
+            tag = f"x {str(xdt)[6:]} w {str(wdt)[6:]} [{rows}, {D_MODEL}]"
+            print(f"rmsnorm {tag}: max_abs_err={err:.3e} rel={rel:.3e} "
+                  f"(tol {TRAIN_TOL[xdt]:.3e} of max)", flush=True)
+            check(got.dtype == xdt, f"rmsnorm {tag}: output {got.dtype}")
+            check(rel <= TRAIN_TOL[xdt], f"rmsnorm {tag} disagrees: {rel}")
+            if xdt == torch.bfloat16 and wdt == torch.float32:
+                ms = time_ms(lambda: rn.rmsnorm_fwd(x, w, 1e-6))
+                plain_ms = time_ms(lambda: rn.rmsnorm_plain(x, w, 1e-6))
+                wl = w.to(xdt)
+                lib_ms = time_ms(lambda: F.rms_norm(x, (D_MODEL,), wl, 1e-6))
+                moved = 2 * x.numel() * x.element_size() + w.numel() * 4
+                bnd, by = bound(moved, 4 * x.numel(), torch.float32)
+                print(f"rmsnorm {tag}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+                      f"F.rms_norm {lib_ms:.4f}, bound {bnd:.5f} by {by}) "
+                      f"[{SMI}]", flush=True)
+                record["rmsnorm"] = dict(max_abs_err=err, ms=ms,
+                                         plain_ms=plain_ms, bound_ms=bnd,
+                                         bound_by=by, library_ms=lib_ms)
+    # -- Flash: correctness over the variants, then the main path's case.
+    for dtype in (torch.float32, torch.bfloat16):
+        for t, window, segmented in ((TRAIN_T, 0, False), (TRAIN_T, 256, False),
+                                     (TRAIN_T, 0, True), (1000, 256, True)):
+            tag = (f"{str(dtype)[6:]} T={t} window={window} "
+                   f"segments={'packed' if segmented else 'none'}")
+            case = flash_case(gen, dtype, t, window, segmented)
+            check_flash(tag, *case[:4], window, case[4])
+            del case
+    q, k, v, do, _ = flash_case(gen, torch.bfloat16, TRAIN_T, 0, False)
+    errs = check_flash("bf16 main path", q, k, v, do, 0, None)
+    out, lse = fa.flash_fwd_plain(q, k, v, True, 0, None)
+    delta = fa.flash_delta(out, do)
+    bwd = (q, k, v, do, lse, delta, True, 0, None)
+    pairs = attended_pairs(TRAIN_B, H, TRAIN_T, 0, None)
+    # SDPA yardstick in its [B, H, T, hd] layout (transposed untimed).
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    sdpa = F.scaled_dot_product_attention
+    lib_fwd = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
+                                   enable_gqa=True))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
+    out_g = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out_g, (qg, kg, vg), doh, retain_graph=True))
+    timed = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True, 0, None),
+                      lambda: fa.flash_fwd_plain(q, k, v, True, 0, None),
+                      4 * HD, (1, 2, 0), (1, 0, 1), lib_fwd),
+        "flash_dq": (lambda: fa.flash_dq(*bwd), lambda: fa.flash_dq_plain(*bwd),
+                     6 * HD, (2, 2, 2), (1, 0, 0), lib_bwd),
+        "flash_dkv": (lambda: fa.flash_dkv(*bwd),
+                      lambda: fa.flash_dkv_plain(*bwd),
+                      8 * HD, (2, 2, 2), (0, 2, 0), lib_bwd),
+    }
+    for name, (kernel, plain, flops, n_in, n_out, lib) in timed.items():
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
+        bnd, by = flash_bound(q, k, pairs, flops, n_in, n_out)
+        what = "SDPA forward" if name == "flash_fwd" else "SDPA backward"
+        print(f"{name} bf16 B={TRAIN_B} T={TRAIN_T} H={H} KVH={KVH} "
+              f"hd={HD}: {ms:.4f} ms (plain {plain_ms:.4f}, {what} "
+              f"{lib:.4f}, bound {bnd:.5f} by {by}) [{SMI}]", flush=True)
+        record[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                            bound_ms=bnd, bound_by=by, library_ms=lib)
+    del q, k, v, do, qh, kh, vh, doh, qg, kg, vg, out_g, out, lse, delta
+    torch.cuda.empty_cache()
+    return record
+
+
+# ---------------------------------------------------------------------------
+# Train phase
+
+
+def step_grads(params, tokens, cfg):
+    """(first-step objective, gradient of every master tensor) of the
+    training objective on ``tokens``."""
+    from oim_tpu_torch.models.train import _local_objective, named_parameters
+
+    leaves = [value for _, value in named_parameters(params)]
+    obj, _ = _local_objective(params, tokens, cfg)
+    grads = torch.autograd.grad(obj, leaves)
+    return float(obj.detach()), grads
+
+
+def step_parity(args) -> None:
+    """The kernel path's first step (bf16, then f32) against a plain f32
+    path (``use_pallas=False``: the reference formulas) on the same
+    weights and batch: the loss gap and each gradient's relative error
+    within the stated tolerances."""
+    from dataclasses import replace
+
+    from oim_tpu_torch.cli import train_main
+    from oim_tpu_torch.data.loader import TokenBatches
+    from oim_tpu_torch.models.train import named_parameters
+    from oim_tpu_torch.models.transformer import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_main.make_config(args)
+    batches = TokenBatches(train_main._load_corpus(args), args.batch_global,
+                           args.seq, seed=args.seed)
+    tokens = torch.from_numpy(batches.batch_at(0)[:, :args.seq]).long().to(DEV)
+    params = init_params(args.seed, cfg, device=DEV, master=True)
+    names = [name for name, value in named_parameters(params)]
+    for _, value in named_parameters(params):
+        value.requires_grad_(True)
+    plain_cfg = replace(cfg, dtype="float32", use_pallas=False)
+    ref_loss, ref_grads = step_grads(params, tokens, plain_cfg)
+    for dtype, name in ((torch.bfloat16, "bfloat16"),
+                        (torch.float32, "float32")):
+        loss, grads = step_grads(params, tokens, replace(cfg, dtype=name))
+        worst, worst_name = 0.0, ""
+        for tname, g, g_ref in zip(names, grads, ref_grads):
+            check(bool(torch.isfinite(g).all()), f"{tname} grad non-finite")
+            rel = float(torch.linalg.vector_norm(g.float() - g_ref)
+                        / torch.linalg.vector_norm(g_ref).clamp_min(1e-30))
+            if rel > worst:
+                worst, worst_name = rel, tname
+        gap = abs(loss - ref_loss)
+        print(f"train: first step, {name} kernel path vs plain f32: loss "
+              f"{loss:.5f} vs {ref_loss:.5f} (|diff| {gap:.2e}, tol "
+              f"{STEP_LOSS_ATOL[dtype]}); worst gradient "
+              f"||g - g_ref||/||g_ref|| {worst:.3e} at {worst_name} (tol "
+              f"{STEP_GRAD_RTOL[dtype]})", flush=True)
+        check(gap <= STEP_LOSS_ATOL[dtype], f"{name} first-step loss gap "
+              f"{gap:.3e}")
+        check(worst <= STEP_GRAD_RTOL[dtype], f"{name} gradient of "
+              f"{worst_name} off by {worst:.3e}")
+        del grads
+    del params, ref_grads
+    torch.cuda.empty_cache()
+
+
+def train_phase(record: dict) -> dict:
+    """Train Qwen2.5-1.5B at full width for ``TRAIN_STEPS`` steps through
+    the port's train_main entry and check the losses, the kernels'
+    launch counts (every layer of every forward, recompute and backward
+    went through them; no plain version ran) and the first step against
+    a plain f32 path.  Returns the main path's launch counts."""
+    from oim_tpu_torch.cli import train_main
+    from oim_tpu_torch.ops import flash_attention as fa
+    from oim_tpu_torch.ops import rmsnorm as rn
+
+    args = train_main.build_parser().parse_args(TRAIN_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    rn.reset_counters()
+    fa.reset_counters()
+    t0 = time.monotonic()
+    result = train_main.train(args)
+    wall = time.monotonic() - t0
+    counts = {**rn.counters(), **fa.counters()}
+    losses = result["losses"]
+    print(f"train: {len(losses)} steps in {wall:.1f} s (setup included); "
+          f"losses {[round(x, 4) for x in losses]}; kernel counts {counts}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB", flush=True)
+    check(len(losses) == TRAIN_STEPS, f"{len(losses)} steps ran")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    n_layers = args.n_layers
+    # Per step: the forward and the remat recompute each run both norms
+    # and the attention of every layer; the final norm runs once; the
+    # backward runs dq and dkv once per layer.
+    want = {"rmsnorm": TRAIN_STEPS * (4 * n_layers + 1),
+            "flash_fwd": TRAIN_STEPS * 2 * n_layers,
+            "flash_dq": TRAIN_STEPS * n_layers,
+            "flash_dkv": TRAIN_STEPS * n_layers}
+    for name, n in want.items():
+        check(counts[name] == n, f"{name} launched {counts[name]} times, "
+              f"expected {n}")
+        check(counts[f"{name}_plain"] == 0,
+              f"{name}'s plain version ran on the training path")
+    # Steady steps (the first pays warm-up); the kernels' share of one.
+    steady = result["step_seconds"][1:]
+    step_s = float(np.median(steady))
+    share = {name: want[name] / TRAIN_STEPS * record[name]["ms"] / 1e3
+             / step_s for name in want}
+    print(f"train: step {step_s * 1e3:.1f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}; first {result['step_seconds'][0] * 1e3:.1f} ms), "
+          f"{result['tokens_per_step'] / step_s:.0f} tokens/s; kernel share "
+          f"of a step (launches x ms): "
+          f"{ {k: round(v, 4) for k, v in share.items()} } [{SMI}]",
+          flush=True)
+    del result
+    torch.cuda.empty_cache()
+    step_parity(args)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -516,7 +843,17 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
     record = kernel_phase()
+    record.update(train_kernel_phase())
     counts = serve_phase()
+    counts.update(train_phase(record))
+    sources = {"rmsnorm": ("oim_tpu_torch/csrc/rmsnorm.cu",
+                           "oim_tpu/ops/rmsnorm.py:27"),
+               "flash_fwd": ("oim_tpu_torch/csrc/flash_attention.cu",
+                             "oim_tpu/ops/flash_attention.py:100"),
+               "flash_dq": ("oim_tpu_torch/csrc/flash_attention.cu",
+                            "oim_tpu/ops/flash_attention.py:163"),
+               "flash_dkv": ("oim_tpu_torch/csrc/flash_attention.cu",
+                             "oim_tpu/ops/flash_attention.py:213")}
     kernels = [
         dict(name="paged_flash_decode (K1)", route="cuda",
              source="oim_tpu_torch/csrc/paged_attention.cu",
@@ -526,6 +863,10 @@ def main() -> int:
              source="oim_tpu_torch/csrc/paged_attention.cu",
              replaces="oim_tpu/ops/paged_attention.py:265",
              launches=counts["paged_kv_store"], **record["K2"]),
+    ] + [
+        dict(name=name, route="cuda", source=source, replaces=replaces,
+             launches=counts[name], **record[name])
+        for name, (source, replaces) in sources.items()
     ]
     print(SMI, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -55,6 +55,14 @@ def _device_us(event) -> float:
     return 0.0
 
 
+def _annotation(event) -> bool:
+    """Whether an averaged event is a user-annotated range (the
+    optimizer's ``Optimizer.step#AdamW.step``): the profiler reports its
+    device span, which covers kernels already counted on their own."""
+    return bool(getattr(event, "is_user_annotation", False)
+                or event.key.startswith("Optimizer."))
+
+
 def _timed(engine, steps: int) -> float:
     """Host wall in ms of ``steps`` engine steps, unprofiled (each step
     ends in a device readback, so the wall covers the device work)."""
@@ -66,19 +74,28 @@ def _timed(engine, steps: int) -> float:
     return (time.monotonic() - t0) * 1e3
 
 
-def _profiled(engine, steps: int, wall_ms: float) -> dict:
-    """Profile ``steps`` engine steps: their device time summed over
-    kernels, the idle share it leaves of ``wall_ms`` (the same work's
-    unprofiled wall), and the kernels that took the most device time."""
+def profiled(step, steps: int, wall_ms: float, families=None) -> dict:
+    """Profile ``steps`` calls of ``step()``: their device time summed
+    over kernels, the idle share it leaves of ``wall_ms`` (the same
+    work's unprofiled wall), the kernels that took the most device time
+    and, given ``families`` ({family: substrings of kernel names}), the
+    device time per family (the first family that matches; "other" for
+    none)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            engine.step()
+            step()
         torch.cuda.synchronize()
     kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+               and not _annotation(e)]
     busy_ms = sum(us for _, us, _ in kernels) / 1e3
     kernels.sort(key=lambda e: -e[1])
+    by_family = {}
+    for name, us, _ in kernels:
+        family = next((f for f, keys in (families or {}).items()
+                       if any(key in name for key in keys)), "other")
+        by_family[family] = by_family.get(family, 0.0) + us / 1e3
     return {
         "steps": steps,
         "wall_ms": wall_ms,
@@ -89,10 +106,11 @@ def _profiled(engine, steps: int, wall_ms: float) -> dict:
              "share": us / 1e3 / busy_ms}
             for name, us, count in kernels[:TOP]
         ],
+        "families_ms": by_family if families else None,
     }
 
 
-def _print_window(title: str, w: dict) -> None:
+def print_window(title: str, w: dict) -> None:
     if w["device_ms"] is None:
         print(f"{title}: wall {w['wall_ms']:.2f} ms; device time not "
               f"measured (the profiler recorded no device events)")
@@ -131,15 +149,15 @@ def main(argv=None) -> int:
     wave(args.chunk)
     wall_ms = _timed(engine, 1)
     wave(args.chunk)
-    admit = _profiled(engine, 1, wall_ms)
+    admit = profiled(engine.step, 1, wall_ms)
     wave(budget)
     engine.step()
     wall_ms = _timed(engine, DECODE_STEPS)
-    decode = _profiled(engine, DECODE_STEPS, wall_ms)
+    decode = profiled(engine.step, DECODE_STEPS, wall_ms)
     counts = paged_attention.counters()
     print(f"{smi}; prompts {lengths.tolist()}, chunk {args.chunk}")
-    _print_window("admission wave + one decode chunk", admit)
-    _print_window(f"decode ({DECODE_STEPS} steps of {args.chunk} "
+    print_window("admission wave + one decode chunk", admit)
+    print_window(f"decode ({DECODE_STEPS} steps of {args.chunk} "
                   f"passes)", decode)
     print(json.dumps({"device": smi, "prompts": lengths.tolist(),
                       "admit": admit, "decode": decode,

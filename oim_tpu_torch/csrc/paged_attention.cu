@@ -46,8 +46,6 @@
 //     batched per block.
 #include "paged_attention.cuh"
 
-#include <cuda_bf16.h>
-
 #include <math.h>
 
 namespace {
@@ -56,54 +54,8 @@ constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 4;
 constexpr int kTileRows = kWarps * kRowsPerWarp;
 constexpr int kMaxBlockSize = 64;
-// The reference's mask constant (oim_tpu/ops/flash_attention.py _NEG_BIG):
-// a fully masked row then yields zeros, not NaN.
-constexpr float kNegBig = -1e30f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(int8_t v) {
-  return static_cast<float>(v);
-}
-
-__device__ __forceinline__ void from_f32(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* dst) {
-  *dst = __float2bfloat16_rn(v);
-}
-
-// One 16-byte chunk of a pool row: kChunk<T> elements of T.
-template <typename T>
-constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
-
-template <typename T>
-__device__ __forceinline__ uint4 load_chunk(const T* src) {
-  return *reinterpret_cast<const uint4*>(src);
-}
-
-// Widen a chunk to f32 times `scale` (1 for fp pools: exact).
-template <typename T>
-__device__ __forceinline__ void unpack_chunk(const uint4& raw, float scale,
-                                             float* dst) {
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < kChunk<T>; ++i) dst[i] = to_f32(e[i]) * scale;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+using namespace oim;
 
 // ---------------------------------------------------------------------------
 // K1: paged flash-decode

@@ -7,11 +7,7 @@
 // launch was accepted).  Nothing here allocates or synchronises.
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-// dtype codes, mirrored by _DTYPE_CODES in ops/_build.py.
-enum OimDType : int { kOimF32 = 0, kOimBF16 = 1, kOimI8 = 2 };
+#include "common.cuh"
 
 #ifdef __cplusplus
 extern "C" {

@@ -19,7 +19,7 @@ chunk size, the property the engine relies on.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -137,8 +137,10 @@ def _cached_attention(x, lp, k_cache, v_cache, k_scale, v_scale, start: int,
 def _hidden_cached(params, tokens, cache: KVCache, cfg: TransformerConfig):
     """Run ``tokens`` (positions cache.length..+t) through every layer,
     extending the cache in place; returns the final-norm hidden states
-    [b, t, d]."""
+    [b, t, d].  The Pallas switch is off here, as in the reference's
+    decode: inference normalizes with the plain formula."""
     require_dense(cfg)
+    cfg = replace(cfg, use_pallas=False)
     t = tokens.shape[1]
     if cache.length + t > cache.max_len:
         raise ValueError(

@@ -1,15 +1,24 @@
-"""Flagship decoder-only transformer LM (the serving forward's pieces).
+"""Flagship decoder-only transformer LM: the serving forward's pieces
+and the single-device training forward.
 
 Architecture as in ``oim_tpu/models/transformer.py``: pre-RMSNorm,
 rotary positions, SwiGLU (or GeGLU) MLP, optional q/k/v biases (the
 Qwen2 family), an untied ``wlm`` unembedding, f32 logits.  The layer
-loop is a Python loop (``lax.scan`` has no counterpart to carry over),
-and parameters are a plain dict in the layout the forward reads
-(``models/weights.py``): matmul weights in the compute dtype, norm
-scales in f32, cast once at load instead of per step.
+loop is a Python loop (``lax.scan`` has no counterpart to carry over).
+Parameters are a plain dict ``{"wte", "final_norm", "wlm", "layers":
+[per-layer dict]}`` in one of two layouts (``models/weights.py``):
+serving's, every tensor already in the dtype the forward reads (cast
+once at load), and training's f32 masters (``master=True``), which
+``_cast_matmul_weights`` casts per step as the reference does.
 
-MoE layers and the training forward come with later slices; a config
-asking for experts is refused where parameters are built.
+The training forward (``forward_hidden``/``forward_local``) is one
+pipeline stage on one device: ``use_pallas`` routes RMSNorm and
+attention through the Hopper kernels' differentiable wrappers
+(``ops/rmsnorm.py``, ``ops/flash_attention.py``), ``remat`` recomputes
+each layer in the backward (``torch.utils.checkpoint``).  The serving
+paths force ``use_pallas=False``, as the reference's engine does.  MoE
+layers and pipeline stages are refused with the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -19,8 +28,18 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from oim_tpu_torch.ops.rmsnorm import reference_rmsnorm
+from oim_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    reference_attention,
+)
+from oim_tpu_torch.ops.rmsnorm import reference_rmsnorm, rmsnorm
+from oim_tpu_torch.ops.rope import apply_rope
+
+# Weight on the MoE auxiliary channel in the train objective (the
+# reference's AUX_LOSS_WEIGHT); dense layers add 0 to the channel.
+AUX_LOSS_WEIGHT = 0.01
 
 # The compute dtypes the port's kernels take.
 _DTYPES = {
@@ -33,9 +52,10 @@ _DTYPES = {
 class TransformerConfig:
     """The reference ``TransformerConfig``: same field names, defaults
     and validation, so a config moves between the packages unchanged.
-    Fields of the training path (pipeline, remat, Pallas, fused CE,
-    sequence parallelism, packing) are carried for that parity and not
-    read by the serving path."""
+    ``use_pallas`` selects the Hopper kernels in the training forward;
+    ``fused_ce`` is refused there until the fused-CE kernels are ported
+    (``models/train.py``); pipeline, MoE and sequence-parallel fields are
+    carried for parity and refused where they would take effect."""
 
     vocab_size: int = 32000
     d_model: int = 512
@@ -153,6 +173,21 @@ def require_dense(cfg: TransformerConfig) -> None:
         )
 
 
+def require_trainable(cfg: TransformerConfig) -> None:
+    """Refuse configs the port does not train yet: MoE (``_switch_moe``)
+    and pipeline stages."""
+    if cfg.n_experts:
+        raise ValueError(
+            "MoE training is not ported yet (ROADMAP Queue A: training, "
+            "_switch_moe/_capacity_dispatch); train a dense config"
+        )
+    if cfg.n_stages != 1:
+        raise ValueError(
+            f"n_stages={cfg.n_stages}: pipeline parallelism is not ported "
+            "yet (ROADMAP Queue A: parallelism, parallel/pipeline.py)"
+        )
+
+
 # ---------------------------------------------------------------------------
 # Parameters
 
@@ -166,7 +201,8 @@ _NORMS = ("attn_norm", "mlp_norm", "final_norm")
 def prepare_param(name: str, value, cfg: TransformerConfig):
     """One parameter in the layout the forward reads: norm scales f32,
     ``wlm`` as compute-dtype values widened to f32 (see ``_unembed``),
-    every other weight in the compute dtype."""
+    every other weight in the compute dtype.  Differentiable, so the
+    training forward casts its f32 masters through it."""
     if name in _NORMS:
         return value.float()
     if name == "wlm":
@@ -174,11 +210,13 @@ def prepare_param(name: str, value, cfg: TransformerConfig):
     return value.to(cfg.compute_dtype)
 
 
-def init_params(seed: int, cfg: TransformerConfig, device=None) -> dict:
+def init_params(seed: int, cfg: TransformerConfig, device=None,
+                master: bool = False) -> dict:
     """Truncated-normal init (±2 sigma, scaled by 1/sqrt(fan_in)) drawn
     from ``torch.Generator(device).manual_seed(seed)``, one tensor at a
     time so the peak is one f32 tensor beyond the model.  Returns
-    ``{"wte", "final_norm", "wlm", "layers": [per-layer dict]}``."""
+    ``{"wte", "final_norm", "wlm", "layers": [per-layer dict]}`` in
+    serving's layout, or as f32 training masters when ``master``."""
     require_dense(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     d, n = cfg.d_model, cfg.n_heads * cfg.head_dim
@@ -189,11 +227,12 @@ def init_params(seed: int, cfg: TransformerConfig, device=None) -> dict:
         t = torch.empty(shape, dtype=torch.float32, device=device)
         t.uniform_(lo, 1.0 - lo, generator=gen)
         t.mul_(2.0).sub_(1.0).erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
-        return prepare_param(name, t.div_(math.sqrt(fan_in)), cfg)
+        t.div_(math.sqrt(fan_in))
+        return t if master else prepare_param(name, t, cfg)
 
     def const(name, fill, *shape):
         t = torch.full(shape, fill, dtype=torch.float32, device=device)
-        return prepare_param(name, t, cfg)
+        return t if master else prepare_param(name, t, cfg)
 
     params = {
         "wte": dense("wte", cfg.vocab_size, d, fan_in=d),
@@ -232,17 +271,22 @@ def _rmsnorm(x, w, cfg: TransformerConfig):
         # Gemma convention: the learned scale is a residual around 1,
         # formed and kept in f32.
         w = 1.0 + w.float()
+    if cfg.use_pallas:
+        return rmsnorm(x, w, cfg.norm_eps)
     return reference_rmsnorm(x, w, cfg.norm_eps)
 
 
 def embed_lookup(wte, tokens, cfg: TransformerConfig):
-    """The token-embedding lookup (solo decode and the engine both route
-    here); Gemma's sqrt(d_model) scale rounds through the compute
-    dtype."""
-    x = F.embedding(tokens, wte)
+    """The token-embedding lookup (training, solo decode and the engine
+    all route here) in the compute dtype; Gemma's sqrt(d_model) scale
+    rounds through it.  The rows are gathered, then cast (the reference
+    casts the table, then gathers: the same values; the gradient of a
+    repeated token then sums in f32 where the reference sums in the
+    compute dtype)."""
+    x = F.embedding(tokens, wte).to(cfg.compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(
-            math.sqrt(cfg.d_model), dtype=wte.dtype, device=x.device
+            math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device
         )
     return x
 
@@ -289,3 +333,74 @@ def _unembed(x, wlm, cfg: TransformerConfig):
     accumulator and f32 output — which a bf16 matmul here, rounding its
     output to bf16, would not be."""
     return x.to(cfg.compute_dtype).float() @ wlm
+
+
+# ---------------------------------------------------------------------------
+# Training forward (one stage, one device)
+
+
+def _cast_matmul_weights(lp: dict, cfg: TransformerConfig) -> dict:
+    """A layer's f32 masters as the forward reads them: matmul weights
+    and biases in the compute dtype, norm scales f32 (``prepare_param``,
+    differentiable, so gradients reach the masters)."""
+    return {name: prepare_param(name, value, cfg)
+            for name, value in lp.items()}
+
+
+def _attention(x, lp, positions, cfg: TransformerConfig, segments=None):
+    """Pre-norm causal self-attention with its residual: flash attention
+    when ``use_pallas``, else the reference formula."""
+    b, t, _ = x.shape
+    q, k, v = _qkv(x, lp, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+    if cfg.use_pallas:
+        out = flash_attention(q, k, v, True, cfg.sliding_window, segments)
+    else:
+        out = reference_attention(q, k, v, True, segments,
+                                  cfg.sliding_window)
+    out = out.reshape(b, t, cfg.n_heads * cfg.head_dim)
+    return x + (out @ lp["wo"]).to(x.dtype)
+
+
+def _layer(x, lp, positions, cfg: TransformerConfig, segments=None):
+    """One dense layer over f32 master weights."""
+    lp = _cast_matmul_weights(lp, cfg)
+    x = _attention(x, lp, positions, cfg, segments)
+    return _dense_mlp(x, lp, cfg)
+
+
+def _doc_segments(tokens, cfg: TransformerConfig):
+    """Document ids of a packed [b, t] batch: the inclusive running count
+    of separators (a separator opens the document it precedes)."""
+    sep = (tokens == cfg.doc_sep_id).to(torch.int32)
+    return torch.cumsum(sep, dim=1, dtype=torch.int32)
+
+
+def forward_hidden(params: dict, tokens, cfg: TransformerConfig):
+    """tokens [b, t] → (final-norm hidden [b, t, D] in the compute
+    dtype, aux loss 0.0) over f32 master ``params``; each layer is
+    recomputed in the backward when ``cfg.remat``."""
+    require_trainable(cfg)
+    t = tokens.shape[1]
+    x = embed_lookup(params["wte"], tokens, cfg)
+    positions = torch.arange(t, device=tokens.device)
+    segments = _doc_segments(tokens, cfg) if cfg.doc_sep_id >= 0 else None
+    for lp in params["layers"]:
+        if cfg.remat:
+            x = checkpoint(_layer, x, lp, positions, cfg, segments,
+                           use_reentrant=False)
+        else:
+            x = _layer(x, lp, positions, cfg, segments)
+    x = _rmsnorm(x, params["final_norm"], cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_local(params: dict, tokens, cfg: TransformerConfig):
+    """tokens [b, t] → (f32 logits [b, t, V], aux loss) over f32 master
+    ``params``: ``forward_hidden`` then ``_unembed`` of the compute-dtype
+    rounding of ``wlm``, as the reference's bf16 x bf16 einsum with an
+    f32 accumulator."""
+    x, aux = forward_hidden(params, tokens, cfg)
+    wlm = prepare_param("wlm", params["wlm"], cfg)
+    return _unembed(x, wlm, cfg), aux

@@ -3,9 +3,10 @@
 The reference keeps parameters as one dict of stacked arrays
 (``[n_stages, layers_per_stage, ...]`` for layer weights); the port keeps
 ``{"wte", "final_norm", "wlm", "layers": [per-layer dict]}`` with every
-tensor already in the dtype the forward reads (``prepare_param``).
-``from_jax_params`` maps the first onto the second — it is how the
-parity tests make both packages compute the same function — and
+tensor already in the dtype the forward reads (``prepare_param``), or
+with every tensor f32 as training's masters.  ``from_jax_params`` maps
+the first onto the second — it is how the parity tests make both
+packages compute (and train) the same function — and
 ``recast`` re-prepares a port dict for another compute dtype (the f32
 reference forward over a bf16 model's weights).
 """
@@ -25,10 +26,13 @@ from oim_tpu_torch.models.transformer import (
 )
 
 
-def from_jax_params(tree: dict, cfg: TransformerConfig, device=None) -> dict:
+def from_jax_params(tree: dict, cfg: TransformerConfig, device=None,
+                    master: bool = False) -> dict:
     """Reference parameter dict (numpy arrays, layer weights stacked
-    ``[n_stages, layers_per_stage, ...]``) → the port's layout on
-    ``device``.  Weight-quantized trees (``*_wscale``) are refused."""
+    ``[n_stages, layers_per_stage, ...]``) → the port's serving layout on
+    ``device``, or, when ``master``, every tensor f32 as training's
+    masters (the reference's ``param_dtype``).  Weight-quantized trees
+    (``*_wscale``) are refused."""
     require_dense(cfg)
     if any(name.endswith("_wscale") for name in tree):
         raise ValueError(
@@ -38,7 +42,7 @@ def from_jax_params(tree: dict, cfg: TransformerConfig, device=None) -> dict:
 
     def tensor(name, value):
         arr = torch.tensor(np.asarray(value, dtype=np.float32), device=device)
-        return prepare_param(name, arr, cfg)
+        return arr if master else prepare_param(name, arr, cfg)
 
     params = {
         name: tensor(name, tree[name])

@@ -1,10 +1,11 @@
 """Build and bind the hand-written Hopper kernels (``oim_tpu_torch/csrc``).
 
-The sources have a plain C interface, so they are compiled with ``nvcc``
-straight into a shared library and bound with ``ctypes`` — no PyTorch
-headers, so a build takes seconds, not minutes.  The library is built at
-first use (never at import: this module must import on machines with no
-CUDA toolkit) into ``oim_tpu_torch/csrc/build/``, which ``.gitignore``
+The sources have a plain C interface, so each is compiled with ``nvcc``
+(all at once, one process per source) and the objects are linked into
+one shared library bound with ``ctypes`` — no PyTorch headers, so a
+build takes seconds, not minutes.  The library is built at first use
+(never at import: this module must import on machines with no CUDA
+toolkit) into ``oim_tpu_torch/csrc/build/``, which ``.gitignore``
 lists, under a name keyed by the sources' and flags' hash, so an edited
 source always rebuilds and an unchanged one is reused.
 
@@ -28,14 +29,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("paged_attention.cu",)
-HEADERS = ("paged_attention.cuh",)
+SOURCES = ("paged_attention.cu", "rmsnorm.cu", "flash_attention.cu")
+HEADERS = ("common.cuh", "paged_attention.cuh", "rmsnorm.cuh",
+           "flash_attention.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Dtype codes shared with csrc/paged_attention.cuh (enum OimDType).
+# Dtype codes shared with csrc/common.cuh (enum OimDType).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _P = ctypes.c_void_p
@@ -53,6 +55,24 @@ _SIGNATURES = {
     # n_tables, stream
     "oim_paged_kv_store": (
         _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    # x, x_dtype, w, w_dtype, out, rows, d, eps, stream
+    "oim_rmsnorm": (_P, _I, _P, _I, _P, _I, _I, ctypes.c_float, _P),
+    # q, k, v, dtype, segments, out, lse, B, T, H, KVH, hd, causal,
+    # window, stream
+    "oim_flash_fwd": (
+        _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    # q, k, v, dout, lse, delta, dtype, segments, dq, B, T, H, KVH, hd,
+    # causal, window, stream
+    "oim_flash_dq": (
+        _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    # q, k, v, dout, lse, delta, dtype, segments, dk, dv, B, T, H, KVH,
+    # hd, causal, window, stream
+    "oim_flash_dkv": (
+        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _P,
     ),
 }
@@ -83,24 +103,50 @@ def library_path() -> Path:
     return BUILD_DIR / f"liboim_kernels-{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once; their joined output, or an error naming
+    each one that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate(timeout=900)
+        outs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode})")
+    log = "".join(outs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {'; '.join(failed)}\n{log}")
+    return log
+
+
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns the
-    library path.  The output is written under a temporary name and
-    renamed into place, so a concurrent build never loads a torn file."""
+    library path.  Each source compiles in its own ``nvcc``, all started
+    together, and one more links them.  Outputs are written under
+    temporary names and the library renamed into place, so a concurrent
+    build never loads a torn file."""
     global build_log
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(CSRC / name) for name in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        build_log = _run([
+            [_nvcc(), *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+            for name, obj in zip(SOURCES, objs)
+        ])
+        build_log += _run([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                            *map(str, objs)]])
+        os.replace(tmp, path)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, path)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return path
 
 

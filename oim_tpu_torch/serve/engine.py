@@ -36,7 +36,7 @@ import statistics
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -199,7 +199,10 @@ def _hidden_slots(params, tokens, cache: PagedCache, starts, tables,
                   cfg: TransformerConfig):
     """tokens [B, t] at per-slot positions ``starts`` → final-norm hidden
     states [B, t, D], extending the pool in place (a Python loop over
-    layers; no unembedding, so prefill unembeds one position per row)."""
+    layers; no unembedding, so prefill unembeds one position per row).
+    The Pallas switch is off here, as in the reference's engine: serving
+    normalizes with the plain formula."""
+    cfg = replace(cfg, use_pallas=False)
     x = embed_lookup(params["wte"], tokens, cfg)
     for layer, lp in enumerate(params["layers"]):
         x = _slot_attention(x, lp, cache, layer, starts, tables, cfg)

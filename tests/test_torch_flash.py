@@ -1,0 +1,188 @@
+"""Parity of the port's training kernels' plain versions with the JAX
+package's kernels, on the CPU.
+
+The same numpy inputs go through the reference's Pallas kernels, which
+run in interpret mode here (``oim_tpu.ops.rmsnorm.rmsnorm``;
+``oim_tpu.ops.flash_attention`` at T of 128 and 256, where its tiles
+divide T — below that it silently takes the reference formula), and
+through the port's differentiable wrappers, which run their plain
+versions for CPU tensors.  The Hopper kernels themselves are held
+against those plain versions on the card (``tests/test_torch_kernels.py``
+and ``chip_smoke.py``).
+
+Tolerances: in f32 the two sides differ only in summation order (dots of
+16 terms, softmax sums of at most 256 keys of unit-scale data), far
+below 1e-5; bf16 outputs may differ by one bf16 rounding step (2**-8 of
+the value) where an f32 last bit rounds differently.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from oim_tpu.ops.rmsnorm import rmsnorm as j_rmsnorm
+
+from oim_tpu_torch.ops import flash_attention as tfa
+from oim_tpu_torch.ops import rmsnorm as trms
+
+# The package re-exports the function under the module's name.
+jfa = importlib.import_module("oim_tpu.ops.flash_attention")
+
+ATOL = 1e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("rows", [37, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_forward_and_grads_match_jax(dtype, rows):
+    """Ragged row counts: 37 (one partial tile) and 300 (a full 256-row
+    tile of the Pallas kernel plus a padded one)."""
+    rng = np.random.RandomState(rows)
+    x = (rng.randn(rows, 64) * 2).astype(np.float32)
+    w = (rng.rand(64) + 0.5).astype(np.float32)
+    g = rng.randn(rows, 64).astype(np.float32)
+    jx = jnp.asarray(x, dtype)
+    want, vjp = jax.vjp(lambda x, w: j_rmsnorm(x, w, 1e-6), jx,
+                        jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(g, dtype))
+    tx = _t(x).to(getattr(torch, dtype)).requires_grad_()
+    tw = _t(w).requires_grad_()
+    got = trms.rmsnorm(tx, tw, 1e-6)
+    got_dx, got_dw = torch.autograd.grad(got, (tx, tw),
+                                         _t(g).to(got.dtype))
+    assert got.dtype == tx.dtype and got_dx.dtype == tx.dtype
+    rtol = 1e-6 if dtype == "float32" else 2.0 ** -8
+    for a, b in ((got, want), (got_dx, want_dx)):
+        np.testing.assert_allclose(
+            a.float().detach().numpy(), np.asarray(b.astype(jnp.float32)),
+            rtol=rtol, atol=1e-5)
+    # dw sums rows x g in f32 on both sides (from bf16 operands in bf16).
+    np.testing.assert_allclose(got_dw.numpy(), np.asarray(want_dw),
+                               rtol=1e-5, atol=1e-4)
+
+
+# (T, GQA group, window, packed segments): every value of each axis, and
+# MHA/GQA with and without window and segments, at T where the
+# reference's Pallas kernels really run.
+FLASH_CASES = [
+    (128, 1, 0, False),
+    (128, 2, 0, False),
+    (128, 2, 64, True),
+    (256, 1, 64, False),
+    (256, 2, 0, True),
+    (256, 2, 64, True),
+]
+
+
+@pytest.mark.parametrize("t,group,window,segmented", FLASH_CASES)
+def test_flash_attention_matches_jax(t, group, window, segmented):
+    """Forward output, per-row lse and the vjp (dq, dk, dv) against the
+    reference's forward and backward kernels in interpret mode."""
+    rng = np.random.RandomState(t + 10 * group + window + segmented)
+    b, kvh, hd = 2, 2, 16
+    h = kvh * group
+    q = rng.randn(b, t, h, hd).astype(np.float32)
+    k = rng.randn(b, t, kvh, hd).astype(np.float32)
+    v = rng.randn(b, t, kvh, hd).astype(np.float32)
+    g = rng.randn(b, t, h, hd).astype(np.float32)
+    seg = None
+    if segmented:
+        seg = np.cumsum(rng.rand(b, t) < 0.03, axis=1).astype(np.int32)
+    jseg = None if seg is None else jnp.asarray(seg)
+    # The reference's custom_vjp halves: its forward returns the lse among
+    # the residuals, its backward the three gradients.
+    want, res = jfa._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         True, 0, 0, window, jseg)
+    assert res[4] is not None, "the reference fell back to its formula"
+    want_lse = np.asarray(res[4])[..., 0]  # [B*H, T] of the 8-lane tile
+    want_dq, want_dk, want_dv, _ = jfa._bwd(True, 0, 0, window, res,
+                                            jnp.asarray(g))
+
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    tseg = None if seg is None else _t(seg)
+    before = tfa.counters()
+    got = tfa.flash_attention(*leaves, True, window, tseg)
+    dq, dk, dv = torch.autograd.grad(got, leaves, _t(g))
+    _, lse = tfa.flash_fwd(*(_t(x) for x in (q, k, v)), True, window, tseg)
+    after = tfa.counters()
+    assert after["flash_fwd_plain"] == before["flash_fwd_plain"] + 2
+    assert after["flash_dq_plain"] == before["flash_dq_plain"] + 1
+    assert after["flash_dkv_plain"] == before["flash_dkv_plain"] + 1
+    for a, w in ((got, want), (lse, want_lse), (dq, want_dq),
+                 (dk, want_dk), (dv, want_dv)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(w),
+                                   atol=ATOL, rtol=0)
+
+
+def test_flash_attention_any_t_matches_reference_formula():
+    """A T the reference's tiles do not divide (it falls back to its
+    formula there): the port's one path agrees with that formula, in
+    the forward and through autograd."""
+    rng = np.random.RandomState(3)
+    q = rng.randn(2, 50, 4, 16).astype(np.float32)
+    k = rng.randn(2, 50, 2, 16).astype(np.float32)
+    v = rng.randn(2, 50, 2, 16).astype(np.float32)
+    seg = np.cumsum(rng.rand(2, 50) < 0.1, axis=1).astype(np.int32)
+    want, vjp = jax.vjp(
+        lambda q, k, v: jfa.reference_attention(q, k, v, True,
+                                                jnp.asarray(seg), 7),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    want_grads = vjp(jnp.ones_like(want))
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    got = tfa.flash_attention(*leaves, True, 7, _t(seg))
+    grads = torch.autograd.grad(got, leaves, torch.ones_like(got))
+    ref = tfa.reference_attention(*(_t(x) for x in (q, k, v)), True,
+                                  _t(seg), 7)
+    for a, w in [(got, want), (ref, want), *zip(grads, want_grads)]:
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(w),
+                                   atol=ATOL, rtol=0)
+
+
+def test_flash_wrappers_refuse_mismatched_operands():
+    q = torch.zeros(1, 8, 4, 16)
+    kv = torch.zeros(1, 8, 3, 16)
+    with pytest.raises(ValueError, match="H % KVH"):
+        tfa.flash_fwd(q, kv, kv)
+    with pytest.raises(ValueError, match="sliding window"):
+        tfa.flash_attention(q, q, q, False, 4)
+    with pytest.raises(ValueError, match="segments"):
+        tfa.flash_fwd(q, q, q, True, 0, torch.zeros(1, 7, dtype=torch.int32))
+    with pytest.raises(ValueError, match="share a dtype"):
+        tfa.flash_attention(q, q.double(), q)
+
+
+def test_reset_counters():
+    q = torch.zeros(1, 8, 2, 16)
+    tfa.flash_fwd(q, q, q)
+    trms.rmsnorm_fwd(q, torch.ones(16))
+    assert tfa.counters()["flash_fwd_plain"] > 0
+    assert trms.counters()["rmsnorm_plain"] > 0
+    tfa.reset_counters()
+    trms.reset_counters()
+    assert set(tfa.counters().values()) == {0}
+    assert set(trms.counters().values()) == {0}
+
+
+def test_every_kernel_entry_point_has_its_ctypes_signature():
+    """Each ``extern "C"`` entry point the headers declare is bound with
+    one argtype per parameter: ctypes would otherwise pass a pointer as a
+    32-bit int and cut it."""
+    import re
+
+    from oim_tpu_torch.ops import _build
+
+    declared = {}
+    for header in _build.HEADERS:
+        text = (_build.CSRC / header).read_text()
+        for name, params in re.findall(r"int (oim_\w+)\(([^;]*)\);", text):
+            declared[name] = len(params.split(","))
+    assert declared and set(declared) == set(_build._SIGNATURES)
+    for name, n in declared.items():
+        assert len(_build._SIGNATURES[name]) == n, name

@@ -7,9 +7,9 @@
   use, and prints only from ``cli/`` (the gates ``tests/test_quality.py``
   holds ``oim_tpu`` to).
 - Without a GPU, the entry points raise unless the caller asks for the
-  CPU: ``Engine`` with no ``device``, ``serve_main`` with no
-  ``--device``, and ``chip_smoke.py`` (which also refuses to run where
-  the port's package is missing).
+  CPU: ``Engine`` with no ``device``, ``serve_main`` and ``train_main``
+  with no ``--device``, and ``chip_smoke.py`` (which also refuses to run
+  where the port's package is missing).
 """
 
 import ast
@@ -126,6 +126,18 @@ def test_serve_main_without_device_needs_a_gpu():
                          "--n-layers", "1", "--n-heads", "2", "--port", "0"])
 
 
+def test_train_main_without_device_needs_a_gpu():
+    from oim_tpu_torch.cli import train_main
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main.main(["--synthetic", "2000", "--steps", "1",
+                         "--batch-global", "2", "--seq", "16",
+                         "--vocab-size", "31", "--d-model", "32",
+                         "--n-layers", "1", "--n-heads", "2"])
+
+
 def _run_smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run(
@@ -165,3 +177,20 @@ def test_chip_smoke_counts_the_work_its_inputs_need():
     assert bs == 16
     ms, by = chip_smoke.bound(3_350_000_000, 0, torch.bfloat16)
     assert by == "bytes" and abs(ms - 1.0) < 1e-12
+
+
+def test_chip_smoke_counts_the_attention_pairs_its_inputs_need(monkeypatch):
+    """The train-kernel bound counts the (query, key) pairs the causal
+    mask keeps under the window and the packed segments of its inputs."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    # T=4 causal: 1+2+3+4 pairs a row; a window of 2 keeps 1+2+2+2.
+    assert chip_smoke.attended_pairs(2, 3, 4, 0, None) == 10 * 3 * 2
+    assert chip_smoke.attended_pairs(2, 3, 4, 2, None) == 7 * 3 * 2
+    # Documents [0, 0 | 1, 1] keep 1+2+1+2; one document keeps all 10.
+    seg = torch.tensor([[0, 0, 1, 1], [0, 0, 0, 0]], dtype=torch.int32)
+    assert chip_smoke.attended_pairs(2, 3, 4, 0, seg) == (6 + 10) * 3

@@ -144,3 +144,159 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="on cpu"):
         pa.paged_kv_store(kn, vn, pools[0].cpu(), pools[1], None, None,
                           tables, starts)
+
+
+# ---------------------------------------------------------------------------
+# Training kernels: RMSNorm and flash attention forward, dq, dkv.
+#
+# Tolerances, as max |got - want| over max |want|: kernel and plain
+# version compute in f32 from the same inputs and round once to the
+# output dtype, so bf16 outputs differ by at most one rounding step
+# (2**-7 of a value, at most the max) plus f32 summation-order noise,
+# and f32 outputs by that noise alone (sums of at most 256 terms of
+# unit-scale data, far below 1e-5 of the max).  A wrong mask, tile or
+# head moves outputs by O(1) of the max.
+
+from oim_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from oim_tpu_torch.ops import rmsnorm as rn  # noqa: E402
+
+TRAIN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7 + 1e-5}
+
+
+def _rel(got, want):
+    err = float((got.float() - want.float()).abs().max())
+    return err / max(float(want.float().abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 1536])
+@pytest.mark.parametrize("rows", [1, 37, 4096])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16],
+                         ids=["w_f32", "w_bf16"])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16],
+                         ids=["x_f32", "x_bf16"])
+def test_rmsnorm_kernel_matches_plain(xdt, wdt, rows, d):
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(rows + d)
+    x = (torch.randn((rows, d), generator=gen, device="cuda") * 3).to(xdt)
+    w = (torch.rand(d, generator=gen, device="cuda") + 0.5).to(wdt)
+    before = rn.counters()
+    got = rn.rmsnorm_fwd(x, w, 1e-6)
+    want = rn.rmsnorm_plain(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert got.dtype == xdt and got.shape == x.shape
+    assert _rel(got, want) <= TRAIN_TOL[xdt]
+    assert rn.counters()["rmsnorm"] == before["rmsnorm"] + 1
+
+
+def _flash_case(dtype, hd, t, group, segmented, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, kvh = 2, 2
+    h = kvh * group
+    q, do = (torch.randn((b, t, h, hd), generator=gen, device="cuda")
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, t, kvh, hd), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    seg = None
+    if segmented:
+        starts = torch.rand((b, t), generator=gen, device="cuda") < 0.03
+        seg = torch.cumsum(starts.int(), dim=1, dtype=torch.int32)
+    return q, k, v, do, seg
+
+
+def _flash_matches_plain(q, k, v, do, causal, window, seg):
+    tol = TRAIN_TOL[q.dtype]
+    before = fa.counters()
+    out, lse = fa.flash_fwd(q, k, v, causal, window, seg)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal, window, seg)
+    delta = fa.flash_delta(ref_out, do)
+    bwd = (q, k, v, do, ref_lse, delta, causal, window, seg)
+    dq = fa.flash_dq(*bwd)
+    dk, dv = fa.flash_dkv(*bwd)
+    ref_dq = fa.flash_dq_plain(*bwd)
+    ref_dk, ref_dv = fa.flash_dkv_plain(*bwd)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and lse.dtype == torch.float32
+    assert _rel(out, ref_out) <= tol
+    assert _rel(lse, ref_lse) <= TRAIN_TOL[torch.float32]
+    assert _rel(dq, ref_dq) <= tol
+    assert _rel(dk, ref_dk) <= tol
+    assert _rel(dv, ref_dv) <= tol
+    after = fa.counters()
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert after[name] == before[name] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segmented", [False, True], ids=["nosegs", "segs"])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("group", [1, 6])
+@pytest.mark.parametrize("t", [128, 256, 200])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_match_plain(dtype, hd, t, group, window, segmented):
+    _need_gpu()
+    q, k, v, do, seg = _flash_case(dtype, hd, t, group, segmented)
+    _flash_matches_plain(q, k, v, do, True, window, seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_noncausal_match_plain(dtype):
+    _need_gpu()
+    q, k, v, do, seg = _flash_case(dtype, 128, 200, 6, True)
+    _flash_matches_plain(q, k, v, do, False, 0, seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [200, 1024])
+def test_flash_attention_autograd_runs_the_kernels(t):
+    """The differentiable wrapper's forward and backward launch the
+    three kernels and match the reference formula's autograd (in f32:
+    summation order only)."""
+    _need_gpu()
+    q, k, v, do, seg = _flash_case(torch.float32, 128, t, 6, True)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = fa.counters()
+    out = fa.flash_attention(*leaves, True, 64, seg)
+    grads = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    ref = fa.reference_attention(*ref_leaves, True, seg, 64)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, do)
+    assert _rel(out, ref) <= 1e-5
+    for g, r in zip(grads, ref_grads):
+        assert _rel(g, r) <= 1e-4
+    after = fa.counters()
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert after[name] == before[name] + 1
+        assert after[f"{name}_plain"] == before[f"{name}_plain"]
+
+
+@pytest.mark.cuda
+def test_training_wrappers_refuse_what_the_kernels_do_not_take():
+    _need_gpu()
+    x = torch.randn((4, 96), device="cuda")
+    with pytest.raises(ValueError, match="16-byte chunks"):
+        rn.rmsnorm_fwd(x[:, :95].contiguous(), torch.ones(95, device="cuda"))
+    with pytest.raises(ValueError, match="at most"):
+        rn.rmsnorm_fwd(torch.randn((2, 4096), device="cuda"),
+                       torch.ones(4096, device="cuda"))
+    with pytest.raises(ValueError, match="f32/bf16"):
+        rn.rmsnorm_fwd(x.half(), torch.ones(96, device="cuda"))
+    with pytest.raises(ValueError, match="expected cuda"):
+        rn.rmsnorm_fwd(x, torch.ones(96))
+    q, k, v, do, _ = _flash_case(torch.bfloat16, 128, 128, 1, False)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(q[..., :96].contiguous(), k[..., :96].contiguous(),
+                     v[..., :96].contiguous())
+    with pytest.raises(ValueError, match="f32/bf16"):
+        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="expected"):
+        fa.flash_fwd(q, k.float(), v)
+    with pytest.raises(ValueError, match="sliding window"):
+        fa.flash_fwd(q, k, v, False, 16)
+    out, lse = fa.flash_fwd(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_dq(q, k, v, do, lse[:, :64], fa.flash_delta(out, do))
