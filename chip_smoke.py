@@ -1,9 +1,11 @@
 """Chip smoke for the PyTorch/CUDA port: build the Hopper kernels, hold
 each against its plain PyTorch version at the shapes its path gives it,
-then drive both paths through the port's own entry points at
+then drive the paths through the port's own entry points at
 Qwen2.5-1.5B's full width — serve six requests (paged-attention kernels
-K1, K2) and train a few steps (RMSNorm and flash attention forward, dq,
-dkv) — and check what comes back.
+K1, K2), train a few steps in the trainer's usual configuration
+(RMSNorm, flash attention forward, dq, dkv, and the fused unembed+CE
+forward, dx and dw), then checkpoint, resume, export, fine-tune LoRA on
+the export and serve the merged weights — and check what comes back.
 
 Run from the repository root on a machine with one NVIDIA GPU and the
 CUDA toolkit:
@@ -21,7 +23,9 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -93,6 +97,27 @@ TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7 + 1e-4}
 # In f32 the two paths differ in summation order only: 1e-3 of each.
 STEP_LOSS_ATOL = {torch.bfloat16: 0.02, torch.float32: 1e-3}
 STEP_GRAD_RTOL = {torch.bfloat16: 0.05, torch.float32: 1e-3}
+# Fused unembed+CE kernels vs their plain versions, as max |got - want|
+# over max |want|.  Both compute the scores in f32 from the same
+# compute-dtype products (exact in f32): lse and the target differ by
+# summation order over D = 1536 terms and V tiles, under 1e-5 of the
+# max.  Both round the dlogits to the compute dtype before either
+# product: dx comes back in that dtype, so one bf16 rounding step (2**-7
+# of the max) plus order noise bounds it; in f32 it sums V = 151936
+# products in another order, within 1e-4 of the max; dw sums rows in f32,
+# and 1e-4 of its max covers that and the few dlogits whose last f32 bit
+# rounds the other way.  A wrong tile, label or lse moves them by O(1).
+FUSED_CE_TOL = {"lse": 1e-5, "target": 1e-5, "dw": 1e-4,
+                "dx": {torch.float32: 1e-4, torch.bfloat16: 2.0**-7 + 1e-4}}
+VOCAB = 151936
+# Checkpoint phase: the training model at full width, its depth cut to 2
+# layers.  One checkpoint holds the f32 params and both AdamW moments:
+# 12 bytes x 1.78 B parameters = 21 GB at 28 layers, 6.8 GB at 2; at
+# most two exist at once.  Resume must give an uninterrupted run's
+# losses to 1e-5 relative (the phase reports whether they are bit-equal).
+CKPT_LAYERS = 2
+RESUME_RTOL = 1e-5
+LORA_RANK = 8
 # Device sleep that every timed series queues behind: 2e8 cycles, about
 # 0.1 s at the H100's clocks, covers the host's enqueue of the series.
 SLEEP_CYCLES = 200_000_000
@@ -694,6 +719,136 @@ def train_kernel_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Fused-CE kernel phase
+
+
+def ce_bound(n: int, d: int, v: int, dtype, kind: str) -> tuple[float, str]:
+    """Least time for one fused-CE kernel on [n, d] x and [d, v] w of
+    ``dtype``: x, w, labels (int32) and the per-row f32 inputs read once
+    and the outputs written once; 2·n·d·v operations for the forward's
+    scores, twice that for dx and dw (the scores, then the product)."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    inputs = (n * d + d * v) * e + 4 * n
+    if kind == "fwd":  # -> lse, target
+        return bound(inputs + 2 * 4 * n, 2 * n * d * v, dtype)
+    inputs += 2 * 4 * n  # lse, g
+    out = n * d * e if kind == "dx" else d * v * 4
+    return bound(inputs + out, 4 * n * d * v, dtype)
+
+
+def ce_case(gen, dtype, n, d=D_MODEL, v=VOCAB, masked_every=1024):
+    """x [n, d] in ``dtype``, the f32 master w [d, v] cast to it, labels
+    with the first and last columns among them, and the per-row
+    cotangent the training loss gives (1 / n, zero on masked rows)."""
+    x = torch.randn((n, d), generator=gen, device=DEV).to(dtype)
+    w = (torch.randn((d, v), generator=gen, device=DEV) / d**0.5).to(dtype)
+    labels = torch.randint(0, v, (n,), generator=gen, device=DEV)
+    labels[0], labels[-1] = 0, v - 1
+    g = torch.full((n,), 1.0 / n, device=DEV)
+    g[masked_every - 1::masked_every] = 0.0
+    return x, w, labels, g
+
+
+def check_ce(tag, x, w, labels, g) -> dict:
+    """The three fused-CE kernels against their plain versions on these
+    inputs; returns the max abs errors by kernel."""
+    from oim_tpu_torch.ops import fused_ce as fc
+
+    lse, target = fc.fused_ce_fwd(x, w, labels)
+    ref_lse, ref_target = fc.fused_ce_fwd_plain(x, w, labels)
+    dx = fc.fused_ce_dx(x, w, labels, ref_lse, g)
+    ref_dx = fc.fused_ce_dx_plain(x, w, labels, ref_lse, g)
+    dw = fc.fused_ce_dw(x, w, labels, ref_lse, g)
+    ref_dw = fc.fused_ce_dw_plain(x, w, labels, ref_lse, g)
+    torch.cuda.synchronize()
+    check(dx.dtype == x.dtype and dw.dtype == torch.float32,
+          f"fused_ce {tag}: dx {dx.dtype}, dw {dw.dtype}")
+    check(not bool(dx[g == 0].any()), f"fused_ce_dx {tag}: masked rows")
+    errs = {}
+    for name, got, want, limit in (
+            ("fused_ce_fwd lse", lse, ref_lse, FUSED_CE_TOL["lse"]),
+            ("fused_ce_fwd target", target, ref_target,
+             FUSED_CE_TOL["target"]),
+            ("fused_ce_dx", dx, ref_dx, FUSED_CE_TOL["dx"][x.dtype]),
+            ("fused_ce_dw", dw, ref_dw, FUSED_CE_TOL["dw"])):
+        check(bool(torch.isfinite(got).all()), f"{name} {tag} non-finite")
+        err, rel = rel_err(got, want)
+        print(f"{name} {tag}: max_abs_err={err:.3e} rel={rel:.3e} (tol "
+              f"{limit:.3e} of max)", flush=True)
+        check(rel <= limit, f"{name} {tag} disagrees: {rel:.3e} of max")
+        key = name.split()[0]
+        errs[key] = max(errs.get(key, 0.0), err)
+    del ref_dx, ref_dw, dx, dw
+    return errs
+
+
+def unfused_ms(x, w, labels, g) -> tuple[float, float]:
+    """(forward, backward) device ms of the path the fused kernels
+    replace, as the trainer ran it without them: f32 logits from the
+    compute-dtype operands, logsumexp and gather; then the f32 dlogits
+    and the two f32 products dx and dw (timed only)."""
+    xf, wf = x.float(), w.float()
+
+    def fwd():
+        logits = xf @ wf
+        return (torch.logsumexp(logits, -1)
+                - logits.gather(1, labels[:, None])[:, 0])
+
+    logits = xf @ wf
+
+    def bwd():
+        d = torch.softmax(logits, -1) * g[:, None]
+        d.scatter_add_(1, labels[:, None], -g[:, None])
+        return d @ wf.T, xf.T @ d
+
+    return time_ms(fwd), time_ms(bwd)
+
+
+def fused_ce_phase() -> dict:
+    """The fused-CE kernels at the training shape (N = 4096, D = 1536,
+    V = 151936, bf16 x, the f32 master w cast to bf16) and at a ragged
+    N = 1000 in bf16 and f32, held against their plain versions; then
+    timed at the training shape beside their bound and the unfused
+    path's time.  Returns the record per kernel."""
+    from oim_tpu_torch.ops import fused_ce as fc
+
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    n = TRAIN_B * TRAIN_T
+    for dtype in (torch.bfloat16, torch.float32):
+        case = ce_case(gen, dtype, 1000, masked_every=7)
+        check_ce(f"{str(dtype)[6:]} N=1000 D={D_MODEL} V={VOCAB}", *case)
+        del case
+    x, w, labels, g = ce_case(gen, torch.bfloat16, n)
+    tag = f"bf16 N={n} D={D_MODEL} V={VOCAB}"
+    errs = check_ce(tag, x, w, labels, g)
+    lse, _ = fc.fused_ce_fwd_plain(x, w, labels)
+    timed = {
+        "fused_ce_fwd": (lambda: fc.fused_ce_fwd(x, w, labels),
+                         lambda: fc.fused_ce_fwd_plain(x, w, labels)),
+        "fused_ce_dx": (lambda: fc.fused_ce_dx(x, w, labels, lse, g),
+                        lambda: fc.fused_ce_dx_plain(x, w, labels, lse, g)),
+        "fused_ce_dw": (lambda: fc.fused_ce_dw(x, w, labels, lse, g),
+                        lambda: fc.fused_ce_dw_plain(x, w, labels, lse, g)),
+    }
+    record = {}
+    for name, (kernel, plain) in timed.items():
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
+        bnd, by = ce_bound(n, D_MODEL, VOCAB, x.dtype, name.split("_")[-1])
+        print(f"{name} {tag}: {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+              f"{bnd:.5f} by {by}; no one PyTorch call) [{SMI}]", flush=True)
+        record[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                            bound_ms=bnd, bound_by=by, library_ms=None)
+    fwd_ms, bwd_ms = unfused_ms(x, w, labels, g)
+    print(f"fused_ce {tag}: the unfused path (f32 logits; logsumexp and "
+          f"gather; f32 dlogits, dx and dw products) takes {fwd_ms:.4f} ms "
+          f"forward and {bwd_ms:.4f} ms backward [{SMI}]", flush=True)
+    del x, w, labels, g, lse
+    torch.cuda.empty_cache()
+    return record
+
+
+# ---------------------------------------------------------------------------
 # Train phase
 
 
@@ -765,16 +920,18 @@ def train_phase(record: dict) -> dict:
     a plain f32 path.  Returns the main path's launch counts."""
     from oim_tpu_torch.cli import train_main
     from oim_tpu_torch.ops import flash_attention as fa
+    from oim_tpu_torch.ops import fused_ce as fc
     from oim_tpu_torch.ops import rmsnorm as rn
 
     args = train_main.build_parser().parse_args(TRAIN_ARGS)
     torch.cuda.reset_peak_memory_stats()
     rn.reset_counters()
     fa.reset_counters()
+    fc.reset_counters()
     t0 = time.monotonic()
     result = train_main.train(args)
     wall = time.monotonic() - t0
-    counts = {**rn.counters(), **fa.counters()}
+    counts = {**rn.counters(), **fa.counters(), **fc.counters()}
     losses = result["losses"]
     print(f"train: {len(losses)} steps in {wall:.1f} s (setup included); "
           f"losses {[round(x, 4) for x in losses]}; kernel counts {counts}; "
@@ -786,11 +943,15 @@ def train_phase(record: dict) -> dict:
     n_layers = args.n_layers
     # Per step: the forward and the remat recompute each run both norms
     # and the attention of every layer; the final norm runs once; the
-    # backward runs dq and dkv once per layer.
+    # backward runs dq and dkv once per layer; the loss runs the fused
+    # unembed+CE forward, dx and dw once per microbatch.
+    micro = TRAIN_STEPS * args.grad_accum
     want = {"rmsnorm": TRAIN_STEPS * (4 * n_layers + 1),
             "flash_fwd": TRAIN_STEPS * 2 * n_layers,
             "flash_dq": TRAIN_STEPS * n_layers,
-            "flash_dkv": TRAIN_STEPS * n_layers}
+            "flash_dkv": TRAIN_STEPS * n_layers,
+            "fused_ce_fwd": micro, "fused_ce_dx": micro,
+            "fused_ce_dw": micro}
     for name, n in want.items():
         check(counts[name] == n, f"{name} launched {counts[name]} times, "
               f"expected {n}")
@@ -811,6 +972,135 @@ def train_phase(record: dict) -> dict:
     torch.cuda.empty_cache()
     step_parity(args)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint, resume, export, LoRA and serve phase
+
+
+def ckpt_args(steps: int, *flags) -> list[str]:
+    """The training command at full width with its depth cut to
+    ``CKPT_LAYERS``, for ``steps`` steps, plus ``flags``."""
+    args = list(TRAIN_ARGS)
+    args[args.index("--n-layers") + 1] = str(CKPT_LAYERS)
+    args[args.index("--steps") + 1] = str(steps)
+    return args + list(flags)
+
+
+def serve_args(*flags) -> list[str]:
+    """The serving command at the checkpoint phase's depth, plus
+    ``flags``."""
+    args = list(SERVE_ARGS)
+    args[args.index("--n-layers") + 1] = str(CKPT_LAYERS)
+    return args + list(flags)
+
+
+def run_train(argv) -> dict:
+    from oim_tpu_torch.cli import train_main
+
+    return train_main.train(train_main.build_parser().parse_args(argv))
+
+
+def ckpt_lora_phase(work: str) -> None:
+    """Under ``work``: an uninterrupted 5-step run; the same run
+    interrupted after 3 steps (checkpoint every 3) and resumed to 5, whose
+    steps 4-5 give the uninterrupted losses; the same command again with
+    ``--export-dir``; a LoRA fine-tune on that export with its merged
+    export; the merged weights served through ``serve_main``."""
+    from oim_tpu_torch.checkpoint import (
+        Checkpointer,
+        directory_bytes,
+        load_params,
+    )
+    from oim_tpu_torch.cli import serve_main
+    from oim_tpu_torch.models.lora import merge_lora
+    from oim_tpu_torch.models.train import named_parameters
+    from oim_tpu_torch.models.weights import recast
+    from oim_tpu_torch.ops import fused_ce as fc
+    from oim_tpu_torch.ops import paged_attention as pa
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    base, export = os.path.join(work, "base"), os.path.join(work, "export")
+    lora, merged_dir = os.path.join(work, "lora"), os.path.join(work, "merged")
+    full = run_train(ckpt_args(5))["losses"]
+    t0 = time.monotonic()
+    first = run_train(ckpt_args(3, "--checkpoint-dir", base,
+                                "--save-every", "3"))
+    resumed = run_train(ckpt_args(5, "--checkpoint-dir", base,
+                                  "--save-every", "3"))
+    steps = Checkpointer(base).all_steps()
+    got = first["losses"] + resumed["losses"]
+    print(f"ckpt: {CKPT_LAYERS}-layer full-width runs; uninterrupted losses "
+          f"{[round(x, 6) for x in full]}; interrupted at 3 and resumed at "
+          f"{resumed['start_step']}: {[round(x, 6) for x in got]}; "
+          f"bit-equal: {got == full}; checkpoints on disk {steps} "
+          f"({time.monotonic() - t0:.1f} s with saves)", flush=True)
+    check(resumed["start_step"] == 3 and len(got) == 5, "resume cursor")
+    check(bool(np.allclose(got, full, rtol=RESUME_RTOL, atol=0)),
+          f"resumed losses {got} differ from uninterrupted {full}")
+    check(steps == [3, 5], f"checkpoint steps {steps}")
+    base_bytes = directory_bytes(os.path.join(base, "5"))
+    run_train(ckpt_args(5, "--checkpoint-dir", base,
+                        "--save-every", "3", "--export-dir", export))
+    check(os.path.isfile(os.path.join(export, "params.pt")), "no export")
+    shutil.rmtree(base)  # at most two full checkpoints on disk at once
+
+    fc.reset_counters()
+    tuned = run_train(ckpt_args(
+        3, "--checkpoint-dir", lora, "--save-every", "3",
+        "--lora-rank", str(LORA_RANK), "--lora-base", export,
+        "--export-dir", merged_dir))
+    counts = fc.counters()
+    lora_bytes = directory_bytes(os.path.join(lora, "3"))
+    print(f"lora: rank {LORA_RANK}, losses "
+          f"{[round(x, 4) for x in tuned['losses']]}; fused-CE counts "
+          f"{counts}; adapter checkpoint {lora_bytes / 2**20:.1f} MiB vs "
+          f"base checkpoint {base_bytes / 2**20:.1f} MiB", flush=True)
+    check(counts["fused_ce_fwd"] == counts["fused_ce_dx"] == 3
+          and counts["fused_ce_dw"] == 0,
+          f"LoRA steps must launch fused-CE fwd and dx, never dw: {counts}")
+    check(not any(counts[f"{k}_plain"] for k in ("fused_ce_fwd",
+                                                 "fused_ce_dx",
+                                                 "fused_ce_dw")),
+          "a fused-CE plain version ran on the LoRA path")
+    check(lora_bytes < 0.5 * base_bytes, "adapter checkpoint too large")
+
+    # The merged export is merge_lora of the base and the saved adapters.
+    base_params = load_params(export, device=DEV)
+    adapters = Checkpointer(lora).restore_params(device=DEV)
+    with torch.no_grad():
+        want = merge_lora(base_params, adapters, 16.0, LORA_RANK)
+    loaded = dict(named_parameters(load_params(merged_dir, device=DEV)))
+    for name, value in named_parameters(want):
+        check(torch.equal(loaded[name], value),
+              f"merged export {name} differs from merge_lora")
+    args = serve_main.build_parser().parse_args(
+        serve_args("--params-dir", merged_dir))
+    engine = serve_main.make_engine(args)
+    served, _ = recast(want, engine.cfg, engine.cfg.dtype)
+    for (name, got_t), (_, want_t) in zip(named_parameters(engine.params),
+                                          named_parameters(served)):
+        check(torch.equal(got_t, want_t), f"served {name} is not the merge")
+    del base_params, adapters, want, loaded, served
+    pa.reset_counters()
+    rng = np.random.RandomState(3)
+    asked = [16, 24, 32]
+    rids = [engine.submit(GenRequest(
+        tokens=rng.randint(0, VOCAB, 40 + 30 * i).tolist(),
+        max_new_tokens=m)) for i, m in enumerate(asked)]
+    out = engine.run()
+    pcounts = pa.counters()
+    lens = [len(out[r]) for r in rids]
+    print(f"lora serve: {len(rids)} greedy requests on the merged export, "
+          f"lengths {lens} (asked {asked}); kernel counts {pcounts}",
+          flush=True)
+    check(lens == asked, f"served lengths {lens} != {asked}")
+    check(pcounts["paged_flash_decode"] > 0 and pcounts["paged_kv_store"] > 0
+          and pcounts["paged_flash_decode_plain"] == 0
+          and pcounts["paged_kv_store_plain"] == 0,
+          f"the merged model was not served through K1/K2: {pcounts}")
+    del engine
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -844,8 +1134,17 @@ def main() -> int:
             print(f"ptxas: {line.strip()}", flush=True)
     record = kernel_phase()
     record.update(train_kernel_phase())
+    record.update(fused_ce_phase())
     counts = serve_phase()
     counts.update(train_phase(record))
+    work = tempfile.mkdtemp(prefix=".smoke-ckpt-", dir=HERE)
+    try:
+        free = shutil.disk_usage(work).free
+        print(f"ckpt: working in {os.path.basename(work)}, "
+              f"{free / 2**30:.0f} GiB free", flush=True)
+        ckpt_lora_phase(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     sources = {"rmsnorm": ("oim_tpu_torch/csrc/rmsnorm.cu",
                            "oim_tpu/ops/rmsnorm.py:27"),
                "flash_fwd": ("oim_tpu_torch/csrc/flash_attention.cu",
@@ -853,7 +1152,13 @@ def main() -> int:
                "flash_dq": ("oim_tpu_torch/csrc/flash_attention.cu",
                             "oim_tpu/ops/flash_attention.py:163"),
                "flash_dkv": ("oim_tpu_torch/csrc/flash_attention.cu",
-                             "oim_tpu/ops/flash_attention.py:213")}
+                             "oim_tpu/ops/flash_attention.py:213"),
+               "fused_ce_fwd": ("oim_tpu_torch/csrc/fused_ce.cu",
+                                "oim_tpu/ops/fused_ce.py:94"),
+               "fused_ce_dx": ("oim_tpu_torch/csrc/fused_ce.cu",
+                               "oim_tpu/ops/fused_ce.py:148"),
+               "fused_ce_dw": ("oim_tpu_torch/csrc/fused_ce.cu",
+                               "oim_tpu/ops/fused_ce.py:168")}
     kernels = [
         dict(name="paged_flash_decode (K1)", route="cuda",
              source="oim_tpu_torch/csrc/paged_attention.cu",

@@ -1,5 +1,7 @@
-"""oim-serve for the port: random weights from a seed, the paged engine,
-and the HTTP server, on the GPU unless ``--device cpu``.
+"""oim-serve for the port: weights from a params export
+(``--params-dir``), a training checkpoint (``--checkpoint-dir``) or a
+seed, the paged engine, and the HTTP server, on the GPU unless
+``--device cpu``.
 
 Usage (full-width Qwen2.5-1.5B geometry on one H100):
     python -m oim_tpu_torch.cli.serve_main \\
@@ -20,7 +22,13 @@ import sys
 import threading
 import time
 
+from oim_tpu_torch.checkpoint import (
+    Checkpointer,
+    CheckpointerOptions,
+    load_params,
+)
 from oim_tpu_torch.models.transformer import TransformerConfig, init_params
+from oim_tpu_torch.models.weights import check_params, recast
 from oim_tpu_torch.serve.engine import Engine, resolve_device
 from oim_tpu_torch.serve.server import ServeServer
 
@@ -33,7 +41,17 @@ def build_parser() -> argparse.ArgumentParser:
         "--device", default="cuda",
         help="torch device (default cuda; 'cpu' runs the plain path)",
     )
-    p.add_argument("--seed", type=int, default=0, help="weight init seed")
+    p.add_argument("--seed", type=int, default=0,
+                   help="weight init seed (without a weights flag)")
+    weights = p.add_mutually_exclusive_group()
+    weights.add_argument(
+        "--params-dir", default="",
+        help="params-only export from train_main --export-dir",
+    )
+    weights.add_argument(
+        "--checkpoint-dir", default="",
+        help="train_main checkpoint directory: the latest step's params",
+    )
     # Model geometry.
     p.add_argument("--vocab-size", type=int, default=32768)
     p.add_argument("--d-model", type=int, default=512)
@@ -71,6 +89,25 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def load_weights(args, cfg: TransformerConfig, device) -> dict:
+    """The served parameters in serving's layout: the export or the
+    checkpoint's f32 params (checked against the flags' geometry, cast to
+    the compute dtype), else random from ``--seed``.  A missing export or
+    checkpoint raises: a server never quietly serves random weights."""
+    if args.params_dir:
+        what = f"--params-dir {args.params_dir}"
+        params = load_params(args.params_dir, device=device)
+    elif args.checkpoint_dir:
+        what = f"--checkpoint-dir {args.checkpoint_dir}"
+        with Checkpointer(args.checkpoint_dir,
+                          CheckpointerOptions(create=False)) as ckpt:
+            params = ckpt.restore_params(device=device)
+    else:
+        return init_params(args.seed, cfg, device=device)
+    check_params(params, cfg, what)
+    return recast(params, cfg, cfg.dtype)[0]
+
+
 def make_engine(args) -> Engine:
     """The engine from parsed args: device first (no GPU and no
     ``--device cpu`` fails before any work), then weights and engine."""
@@ -87,7 +124,7 @@ def make_engine(args) -> Engine:
         norm_eps=args.norm_eps,
         dtype=args.dtype,
     )
-    params = init_params(args.seed, cfg, device=device)
+    params = load_weights(args, cfg, device)
     return Engine(
         params, cfg,
         n_slots=args.n_slots,

@@ -3,10 +3,18 @@
 Synthetic (or ``.npy``) tokens → deterministic batches
 (``data/loader.py``) → a background copy onto the device
 (``data/prefetch.py``) → the training step (``models/train.py``) over
-f32 master weights from a seed, with RMSNorm and flash attention in the
-Hopper kernels.  The configuration is built with ``fused_ce=False``:
-the loss materializes the logits until the fused unembed+CE kernels are
-ported.  It runs on the GPU unless ``--device cpu``.
+f32 master weights from a seed, with RMSNorm, flash attention and the
+fused unembed+CE loss in the Hopper kernels (the configuration's
+defaults: no [B, T, V] logits are built).  It runs on the GPU unless
+``--device cpu``.
+
+``--checkpoint-dir`` saves every ``--save-every`` steps (asynchronously)
+and resumes from the latest step with its data cursor, so re-running the
+same command continues an interrupted run; a rescue save runs on the way
+out.  ``--export-dir`` writes the params alone after a completed run, for
+``serve_main --params-dir``.  ``--lora-rank/--lora-base`` fine-tune
+low-rank adapters over a frozen params export; evaluation and the export
+use the merged weights.
 
 Usage (full-width Qwen2.5-1.5B geometry on one H100):
     python -m oim_tpu_torch.cli.train_main --synthetic 400000 \\
@@ -16,21 +24,32 @@ Usage (full-width Qwen2.5-1.5B geometry on one H100):
         --dtype bfloat16 --log-every 1
 
 Flags of the reference this slice does not port (mesh axes above 1,
-bootstrap, ZeRO-1, LoRA, checkpoints and exports, MoE) are accepted and
-refused with the ROADMAP item that ports them.
+bootstrap, ZeRO-1, MoE) are accepted and refused with the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
 import numpy as np
 import torch
 
+from oim_tpu_torch.checkpoint import (
+    Checkpointer,
+    CheckpointerOptions,
+    load_params,
+)
 from oim_tpu_torch.data.loader import ShardSpec, TokenBatches, window_count
 from oim_tpu_torch.data.prefetch import device_prefetch
+from oim_tpu_torch.models.lora import (
+    init_lora,
+    make_lora_train_step,
+    merge_lora,
+)
 from oim_tpu_torch.models.train import (
     OptimizerConfig,
     TrainState,
@@ -38,6 +57,7 @@ from oim_tpu_torch.models.train import (
     make_train_step,
 )
 from oim_tpu_torch.models.transformer import TransformerConfig, init_params
+from oim_tpu_torch.models.weights import check_params
 from oim_tpu_torch.serve.engine import resolve_device
 
 
@@ -88,7 +108,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--norm-offset", action="store_true")
     p.add_argument("--embed-scale", action="store_true")
     p.add_argument("--dtype", default="bfloat16")
-    # Mesh and lifecycle flags of the reference, refused above 1 / when set.
+    # Mesh flags of the reference, refused above 1 / when set; LoRA and
+    # checkpoints.
     for axis in ("dp", "pp", "sp", "tp", "ep"):
         p.add_argument(f"--{axis}", type=int, default=1 if axis != "dp" else 0)
     p.add_argument("--bootstrap", default="")
@@ -97,7 +118,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lora-alpha", type=float, default=16.0)
     p.add_argument("--lora-base", default="")
     p.add_argument("--checkpoint-dir", default="")
-    p.add_argument("--export-dir", default="")
+    p.add_argument("--save-every", type=_positive_int, default=200,
+                   help="checkpoint interval in steps (>= 1)")
+    p.add_argument("--export-dir", default="",
+                   help="after a completed run, export the params alone "
+                   "for serve_main --params-dir")
     # Optimization.
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--warmup-steps", type=_nonneg_int, default=0)
@@ -113,9 +138,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
+def _check_flags(args) -> None:
     """Raise for each reference flag this slice does not port, naming the
-    ROADMAP item that does."""
+    ROADMAP item that does, and for flags that need another (checked
+    before any work, as the reference does)."""
     parallel = "ROADMAP Queue A: parallelism"
     for axis in ("dp", "pp", "sp", "tp", "ep"):
         if getattr(args, axis) > 1:
@@ -125,17 +151,18 @@ def _refuse_unported(args) -> None:
     refused = [
         (args.bootstrap, "--bootstrap", f"{parallel}, coordinator.py"),
         (args.zero1, "--zero1", f"{parallel}, sharding.py"),
-        (args.lora_rank or args.lora_base, "--lora-*",
-         "ROADMAP Queue A: training, models/lora.py"),
-        (args.checkpoint_dir or args.export_dir,
-         "--checkpoint-dir/--export-dir",
-         "ROADMAP Queue A: training, checkpoint/manager.py"),
         (args.n_experts, "--n-experts",
-         "ROADMAP Queue A: training, _switch_moe"),
+         "ROADMAP Queue A: MoE, _switch_moe"),
     ]
     for given, flag, item in refused:
         if given:
             raise ValueError(f"{flag} is not ported yet ({item})")
+    if args.export_dir and not args.checkpoint_dir:
+        raise ValueError("--export-dir requires --checkpoint-dir")
+    if args.lora_rank and not args.lora_base:
+        raise ValueError("--lora-rank requires --lora-base (a params export)")
+    if args.lora_base and not args.lora_rank:
+        raise ValueError("--lora-base requires --lora-rank >= 1")
 
 
 def _load_corpus(args) -> np.ndarray:
@@ -150,8 +177,8 @@ def _load_corpus(args) -> np.ndarray:
 
 
 def make_config(args) -> TransformerConfig:
-    """The model configuration from parsed args, with ``fused_ce=False``
-    (the fused-CE kernels are not ported yet)."""
+    """The model configuration from parsed args (``use_pallas`` and
+    ``fused_ce`` at their defaults: the kernels)."""
     return TransformerConfig(
         vocab_size=args.vocab_size,
         d_model=args.d_model,
@@ -170,7 +197,6 @@ def make_config(args) -> TransformerConfig:
         doc_sep_id=args.doc_sep_id,
         grad_accum=args.grad_accum,
         dtype=args.dtype,
-        fused_ce=False,
     )
 
 
@@ -187,12 +213,43 @@ def _log(event: str, **fields) -> None:
     print(f"oim-train {event} {text}", file=sys.stderr, flush=True)
 
 
+def _eval_fn(args, cfg, tokens, device):
+    """(training tokens, ``eval_fn(params) -> ce`` or None): with
+    ``--eval-every`` the corpus tail is held out and averaged over
+    ``--eval-batches`` distinct batches."""
+    if not args.eval_every:
+        return tokens, None
+    if not 0.0 < args.eval_frac < 1.0:
+        raise ValueError(
+            f"--eval-frac must be in (0, 1), got {args.eval_frac}")
+    n_eval = int(len(tokens) * args.eval_frac)
+    if window_count(n_eval, args.seq) < args.batch_global:
+        raise ValueError(
+            f"eval split of {n_eval} tokens cannot fill one batch of "
+            f"{args.batch_global}x(seq+1); raise --eval-frac")
+    # Tail split: train never sees the eval tokens.
+    eval_tokens = tokens[len(tokens) - n_eval:]
+    eval_batches = TokenBatches(eval_tokens, args.batch_global, args.seq,
+                                ShardSpec(), seed=args.seed + 1)
+    n_eval_batches = min(args.eval_batches, eval_batches.steps_per_epoch)
+    eval_step = make_eval_step(cfg)
+
+    def eval_fn(params) -> float:
+        ces = []
+        for i in range(n_eval_batches):
+            batch = torch.from_numpy(eval_batches.batch_at(i)[:, :args.seq])
+            ces.append(eval_step(params, batch.long().to(device)))
+        return float(torch.stack(ces).mean())
+
+    return tokens[: len(tokens) - n_eval], eval_fn
+
+
 def train(args) -> dict:
     """Run the training the args describe; returns ``{"losses": [per
-    step], "step_seconds": [per step], "tokens_per_step", "eval_ce":
-    [...]}``.  Step times are host walls that end in a device sync (the
-    loss readback)."""
-    _refuse_unported(args)
+    step run], "step_seconds": [...], "tokens_per_step", "eval_ce":
+    [...], "start_step", "state"}``.  Step times are host walls that end
+    in a device sync (the loss readback)."""
+    _check_flags(args)
     device = resolve_device(args.device)
     cfg = make_config(args)
     opt = make_optimizer_config(args)
@@ -200,66 +257,108 @@ def train(args) -> dict:
          use_pallas=cfg.use_pallas, remat=cfg.remat, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
          batch=f"{args.batch_global}x{args.seq}")
-    tokens = _load_corpus(args)
-    eval_fn = None
-    if args.eval_every:
-        if not 0.0 < args.eval_frac < 1.0:
-            raise ValueError(
-                f"--eval-frac must be in (0, 1), got {args.eval_frac}")
-        n_eval = int(len(tokens) * args.eval_frac)
-        if window_count(n_eval, args.seq) < args.batch_global:
-            raise ValueError(
-                f"eval split of {n_eval} tokens cannot fill one batch of "
-                f"{args.batch_global}x(seq+1); raise --eval-frac")
-        # Tail split: train never sees the eval tokens.
-        eval_tokens = tokens[len(tokens) - n_eval:]
-        tokens = tokens[: len(tokens) - n_eval]
-        eval_batches = TokenBatches(eval_tokens, args.batch_global, args.seq,
-                                    ShardSpec(), seed=args.seed + 1)
-        n_eval_batches = min(args.eval_batches, eval_batches.steps_per_epoch)
-        eval_step = make_eval_step(cfg)
+    lora_base = None
+    if args.lora_rank:
+        lora_base = load_params(args.lora_base, device=device)
+        check_params(lora_base, cfg, f"--lora-base {args.lora_base}")
+        _log("lora", rank=args.lora_rank, alpha=args.lora_alpha,
+             base=args.lora_base)
 
-        def eval_fn(params) -> float:
-            ces = []
-            for i in range(n_eval_batches):
-                batch = torch.from_numpy(eval_batches.batch_at(i)[:, :args.seq])
-                ces.append(eval_step(params, batch.long().to(device)))
-            return float(torch.stack(ces).mean())
+    def init_fn() -> TrainState:
+        if args.lora_rank:
+            return TrainState.create(
+                init_lora(args.seed, cfg, args.lora_rank, device=device), opt)
+        return TrainState.create(
+            init_params(args.seed, cfg, device=device, master=True), opt)
 
+    def merged(state: TrainState) -> dict:
+        """The model the run trains: the params, or LoRA's merge."""
+        if not args.lora_rank:
+            return state.params
+        with torch.no_grad():
+            return merge_lora(lora_base, state.params, args.lora_alpha,
+                              args.lora_rank)
+
+    start_step = 0
+    checkpointer = None
+    if args.checkpoint_dir:
+        checkpointer = Checkpointer(
+            args.checkpoint_dir,
+            CheckpointerOptions(save_interval_steps=args.save_every))
+        state, data_state, resumed = checkpointer.restore_or_init(init_fn)
+        if resumed:
+            # The data cursor is authoritative for the token stream.
+            start_step = int((data_state or {}).get("next_step", state.step))
+            _log("resumed", step=start_step)
+    else:
+        state = init_fn()
+    tokens, eval_fn = _eval_fn(args, cfg, _load_corpus(args), device)
     batches = TokenBatches(tokens, args.batch_global, args.seq, ShardSpec(),
                            seed=args.seed)
-    state = TrainState.create(
-        init_params(args.seed, cfg, device=device, master=True), opt)
-    step_fn = make_train_step(cfg)
+    if args.lora_rank:
+        lora_step = make_lora_train_step(cfg, args.lora_alpha, args.lora_rank)
+
+        def step_fn(state, batch):
+            return lora_step(state, lora_base, batch)
+    else:
+        step_fn = make_train_step(cfg)
 
     def batch_stream():
-        for step in range(args.steps):
+        for step in range(start_step, args.steps):
             # The window's +1 boundary token is dropped: labels come from
             # the [b, seq] input itself, as in the reference.
             yield batches.batch_at(step)[:, : args.seq]
 
     out = {"losses": [], "step_seconds": [], "eval_ce": [],
-           "tokens_per_step": args.batch_global * args.seq}
+           "tokens_per_step": args.batch_global * args.seq,
+           "start_step": start_step}
+    step = start_step
     t0 = time.perf_counter()
-    for batch in device_prefetch(batch_stream(), device):
-        state, metrics = step_fn(state, batch.long())
-        loss = float(metrics["loss"])  # syncs: the step's wall ends here
-        now = time.perf_counter()
-        out["losses"].append(loss)
-        out["step_seconds"].append(now - t0)
-        t0 = now
-        if state.step % args.log_every == 0 or state.step == args.steps:
-            _log("step", step=state.step, loss=f"{loss:.4f}",
-                 tok_per_s=round(out["tokens_per_step"]
-                                 / out["step_seconds"][-1]))
-        if eval_fn is not None and (state.step % args.eval_every == 0
-                                    or state.step == args.steps):
-            ce = eval_fn(state.params)
-            out["eval_ce"].append(ce)
-            _log("eval", step=state.step, eval_ce=f"{ce:.4f}",
-                 eval_ppl=f"{float(np.exp(min(ce, 30.0))):.2f}")
+    try:
+        for batch in device_prefetch(batch_stream(), device):
+            state, metrics = step_fn(state, batch.long())
+            step += 1
+            loss = float(metrics["loss"])  # syncs: the step's wall ends here
+            now = time.perf_counter()
+            out["losses"].append(loss)
+            out["step_seconds"].append(now - t0)
+            t0 = now
+            if step % args.log_every == 0 or step == args.steps:
+                _log("step", step=step, loss=f"{loss:.4f}",
+                     tok_per_s=round(out["tokens_per_step"]
+                                     / out["step_seconds"][-1]))
+            if eval_fn is not None and (step % args.eval_every == 0
+                                        or step == args.steps):
+                ce = eval_fn(merged(state))
+                out["eval_ce"].append(ce)
+                _log("eval", step=step, eval_ce=f"{ce:.4f}",
+                     eval_ppl=f"{float(np.exp(min(ce, 30.0))):.2f}")
+            if checkpointer is not None and step % args.save_every == 0:
+                checkpointer.save(state, {"next_step": step})
             t0 = time.perf_counter()
-    _log("done", steps=state.step)
+    finally:
+        if checkpointer is not None:
+            try:
+                # Rescue save: an interrupted run resumes where it stopped.
+                if checkpointer.latest_step() != step:
+                    checkpointer.save(state, {"next_step": step}, force=True)
+                if args.export_dir and step >= args.steps:
+                    # Completed runs only; an existing export is a prior
+                    # completed run's, so re-running stays idempotent.
+                    if os.path.exists(args.export_dir):
+                        _log("export exists; skipping", dir=args.export_dir)
+                    else:
+                        # LoRA exports the MERGED weights: serving needs
+                        # no LoRA support.
+                        checkpointer.export_params(
+                            TrainState(params=merged(state), optimizer=None,
+                                       opt=opt, step=state.step),
+                            args.export_dir)
+                        _log("params exported", dir=args.export_dir)
+            finally:
+                checkpointer.close()  # always await the queued save
+    _log("done", steps=step)
+    out["state"] = state
     return out
 
 

@@ -9,7 +9,7 @@ own host cost would inflate a wall taken under it.  Both runs train on
 the same batch from where the previous run left the weights, so they do
 the same work.  It prints the wall, the device time summed over kernels,
 the device's idle share (one minus their ratio), the device time by
-family (the port's four training kernels, cuBLAS GEMMs, the optimizer's
+family (the port's training kernels, cuBLAS GEMMs, the optimizer's
 fused multi-tensor updates, the rest) and the kernels that took the most
 device time; the last line is one JSON object with those numbers.  Run
 on the machine with the GPU:
@@ -44,6 +44,8 @@ FAMILIES = {
     "flash_dq": ("flash_dq_kernel",),
     "flash_dkv": ("flash_dkv_kernel",),
     "rmsnorm": ("rmsnorm_kernel",),
+    # Before cuBLAS's family: "gemm" is in the fused-CE product's name.
+    "fused_ce": ("ce_gemm_kernel", "ce_lse_kernel"),
     "gemm (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass"),
     "optimizer (multi-tensor)": ("multi_tensor",),
 }

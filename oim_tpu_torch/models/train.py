@@ -17,10 +17,15 @@ warmup-cosine learning rate with optax's count semantics (the first
 update uses ``schedule(0)``).  It is ``torch.optim.AdamW`` with two
 parameter groups — the same update, decoupled decay on the pre-update
 value — whose learning rate is set from the schedule before each step.
+It updates one tensor at a time (``foreach=False``, PyTorch's default
+on the CPU): the multi-tensor update holds a temporary the size of every
+parameter at once (the second moment's square root, 6.6 GiB at 1.78 B
+parameters), which set the training step's peak memory on the GPU.
 
-The fused unembed+CE path (``use_pallas and fused_ce``) needs the
-fused-CE kernels, which are not ported yet: it is refused, never
-replaced by another branch.
+With ``use_pallas and fused_ce`` (the configuration's default, as in
+the reference) the loss takes the fused unembed+CE branch: the
+final-norm hidden states go straight into ``ops/fused_ce.py``'s kernels
+and the [b, t, V] logits are never built.
 """
 
 from __future__ import annotations
@@ -33,8 +38,10 @@ import torch
 from oim_tpu_torch.models.transformer import (
     AUX_LOSS_WEIGHT,
     TransformerConfig,
+    forward_hidden,
     forward_local,
 )
+from oim_tpu_torch.ops.fused_ce import fused_linear_ce
 
 
 def _shifted_labels(tokens, doc_sep_id: int = -1):
@@ -62,14 +69,20 @@ def _masked_ce_sum(logits, labels, valid):
     return torch.sum(nll * validf), torch.sum(validf)
 
 
-def _fused_ce_sum(cfg: TransformerConfig):
-    """The reference's fused unembed+CE loss — not ported: it needs the
-    fused-CE kernels."""
-    raise ValueError(
-        "use_pallas with fused_ce needs the fused unembed+CE kernels, not "
-        "ported yet (ROADMAP Queue B rows 7-9: ops/fused_ce.py _fwd_kernel, "
-        "_dx_kernel, _dw_kernel); train with fused_ce=False"
-    )
+def _fused_ce_sum(hidden, wlm, labels, valid, cfg: TransformerConfig):
+    """``_masked_ce_sum`` over the fused unembed+CE kernels: the
+    final-norm hidden [b, t, D] in the compute dtype and the f32 master
+    ``wlm`` (cast to the compute dtype for the kernels; its gradient
+    comes back f32) instead of logits, so the [b, t, V] logits exist in
+    neither pass."""
+    b, t, d = hidden.shape
+    nll = fused_linear_ce(
+        hidden.to(cfg.compute_dtype).reshape(b * t, d),
+        wlm,
+        labels.reshape(b * t),
+    ).reshape(b, t)
+    validf = valid.to(torch.float32)
+    return torch.sum(nll * validf), torch.sum(validf)
 
 
 def _local_objective(params, tokens, cfg: TransformerConfig):
@@ -80,9 +93,12 @@ def _local_objective(params, tokens, cfg: TransformerConfig):
     depend on how many documents a batch packs."""
     labels, valid, _ = _shifted_labels(tokens, cfg.doc_sep_id)
     if cfg.use_pallas and cfg.fused_ce:
-        _fused_ce_sum(cfg)
-    logits, aux = forward_local(params, tokens, cfg)
-    ce_sum, ce_count = _masked_ce_sum(logits, labels, valid)
+        hidden, aux = forward_hidden(params, tokens, cfg)
+        ce_sum, ce_count = _fused_ce_sum(hidden, params["wlm"], labels,
+                                         valid, cfg)
+    else:
+        logits, aux = forward_local(params, tokens, cfg)
+        ce_sum, ce_count = _masked_ce_sum(logits, labels, valid)
     b, t = tokens.shape
     obj = ce_sum / float(b * (t - 1)) + AUX_LOSS_WEIGHT * aux
     return obj, (ce_sum, ce_count)
@@ -140,13 +156,16 @@ def _linear(count: int, peak: float, steps: int) -> float:
 
 
 def named_parameters(params: dict):
-    """``(name, tensor)`` over a port parameter dict, layers as
-    ``layers.<i>.<name>``."""
-    for name in ("wte", "final_norm", "wlm"):
-        yield name, params[name]
-    for i, lp in enumerate(params["layers"]):
-        for name, value in lp.items():
-            yield f"layers.{i}.{name}", value
+    """``(name, tensor)`` over a port parameter dict in its order, layers
+    as ``layers.<i>.<name>`` — the model's parameters or LoRA's
+    adapters."""
+    for name, value in params.items():
+        if name == "layers":
+            for i, lp in enumerate(value):
+                for leaf, t in lp.items():
+                    yield f"layers.{i}.{leaf}", t
+        else:
+            yield name, value
 
 
 def make_optimizer(params: dict, opt: OptimizerConfig):
@@ -159,6 +178,7 @@ def make_optimizer(params: dict, opt: OptimizerConfig):
         [dict(params=decay, weight_decay=opt.weight_decay),
          dict(params=no_decay, weight_decay=0.0)],
         lr=opt.learning_rate(0), betas=(0.9, 0.999), eps=1e-8,
+        foreach=False,
     )
 
 
@@ -191,13 +211,15 @@ class TrainState:
                    opt=opt)
 
 
-def make_train_step(cfg: TransformerConfig):
-    """``step(state, tokens [b, t]) -> (state, {"loss", "ce"})``: the
-    objective's gradient, averaged over ``cfg.grad_accum`` equal
+def make_train_step(cfg: TransformerConfig, model_params=None):
+    """``step(state, tokens [b, t], *extra) -> (state, {"loss", "ce"})``:
+    the objective's gradient, averaged over ``cfg.grad_accum`` equal
     sequential microbatches, then one optimizer update, in place.
-    ``loss`` and ``ce`` are 0-d device tensors."""
+    ``loss`` and ``ce`` are 0-d device tensors.  The objective reads
+    ``state.params``, or ``model_params(state.params, *extra)`` when
+    given (LoRA: the adapters merged into a frozen base)."""
 
-    def step(state: TrainState, tokens):
+    def step(state: TrainState, tokens, *extra):
         accum = cfg.grad_accum
         b = tokens.shape[0]
         if b % accum:
@@ -209,8 +231,9 @@ def make_train_step(cfg: TransformerConfig):
         loss = torch.zeros((), device=tokens.device)
         ce = torch.zeros((), device=tokens.device)
         for micro in tokens.reshape(accum, b // accum, -1):
-            obj, (ce_sum, ce_count) = _local_objective(state.params, micro,
-                                                       cfg)
+            params = (state.params if model_params is None
+                      else model_params(state.params, *extra))
+            obj, (ce_sum, ce_count) = _local_objective(params, micro, cfg)
             (obj / accum).backward()
             loss += obj.detach()
             ce += ce_sum.detach() / ce_count

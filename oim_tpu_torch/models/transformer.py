@@ -52,8 +52,8 @@ _DTYPES = {
 class TransformerConfig:
     """The reference ``TransformerConfig``: same field names, defaults
     and validation, so a config moves between the packages unchanged.
-    ``use_pallas`` selects the Hopper kernels in the training forward;
-    ``fused_ce`` is refused there until the fused-CE kernels are ported
+    ``use_pallas`` selects the Hopper kernels in the training forward,
+    and with ``fused_ce`` the loss runs the fused unembed+CE kernels
     (``models/train.py``); pipeline, MoE and sequence-parallel fields are
     carried for parity and refused where they would take effect."""
 

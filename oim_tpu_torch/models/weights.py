@@ -5,7 +5,8 @@ The reference keeps parameters as one dict of stacked arrays
 ``{"wte", "final_norm", "wlm", "layers": [per-layer dict]}`` with every
 tensor already in the dtype the forward reads (``prepare_param``), or
 with every tensor f32 as training's masters.  ``from_jax_params`` maps
-the first onto the second — it is how the parity tests make both
+the first onto the second (``from_jax_lora`` does the same for LoRA
+adapters) — it is how the parity tests make both
 packages compute (and train) the same function — and
 ``recast`` re-prepares a port dict for another compute dtype (the f32
 reference forward over a bf16 model's weights).
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from oim_tpu_torch.models.decode import _flat_layer_params
+from oim_tpu_torch.models.train import named_parameters
 from oim_tpu_torch.models.transformer import (
     TransformerConfig,
     prepare_param,
@@ -56,6 +58,21 @@ def from_jax_params(tree: dict, cfg: TransformerConfig, device=None,
     return params
 
 
+def from_jax_lora(adapters: dict, cfg: TransformerConfig,
+                  device=None) -> dict:
+    """Reference LoRA adapters (numpy arrays ``{<target>_a, <target>_b}``
+    stacked ``[n_stages, layers_per_stage, ...]``) → the port's
+    ``{"layers": [per-layer dict]}`` of f32 tensors on ``device``."""
+    stacked = {name: np.asarray(value, dtype=np.float32).reshape(
+                   cfg.n_layers, *np.shape(value)[2:])
+               for name, value in adapters.items()}
+    return {"layers": [
+        {name: torch.tensor(value[i], device=device)
+         for name, value in stacked.items()}
+        for i in range(cfg.n_layers)
+    ]}
+
+
 def recast(params: dict, cfg: TransformerConfig, dtype: str) -> tuple:
     """(params, cfg) with the compute dtype switched to ``dtype`` — a
     copy of every tensor (the f32 reference forward reads the served
@@ -72,6 +89,35 @@ def recast(params: dict, cfg: TransformerConfig, dtype: str) -> tuple:
         for lp in params["layers"]
     ]
     return out, new_cfg
+
+
+def param_shapes(cfg: TransformerConfig) -> dict:
+    """``{dotted name: shape}`` of every parameter ``init_params`` makes
+    for ``cfg`` (layers as ``layers.<i>.<name>``)."""
+    d, v, f = cfg.d_model, cfg.vocab_size, cfg.ff_dim
+    n, kvn = cfg.n_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    layer = {"attn_norm": (d,), "wq": (d, n), "wk": (d, kvn),
+             "wv": (d, kvn), "wo": (n, d), "mlp_norm": (d,),
+             "w_gate": (d, f), "w_in": (d, f), "w_out": (f, d)}
+    if cfg.attn_bias:
+        layer.update(bq=(n,), bk=(kvn,), bv=(kvn,))
+    shapes = {"wte": (v, d), "final_norm": (d,), "wlm": (d, v)}
+    for i in range(cfg.n_layers):
+        shapes.update({f"layers.{i}.{k}": s for k, s in layer.items()})
+    return shapes
+
+
+def check_params(params: dict, cfg: TransformerConfig, what: str) -> None:
+    """Raise unless ``params`` (loaded from ``what``) hold exactly the
+    parameters ``cfg`` describes, at their shapes."""
+    got = {name: tuple(t.shape) for name, t in named_parameters(params)}
+    want = param_shapes(cfg)
+    if got != want:
+        bad = sorted(name for name in set(got) | set(want)
+                     if got.get(name) != want.get(name))
+        raise ValueError(
+            f"{what} does not match the model flags at {bad[:6]}: "
+            f"{[(got.get(b), want.get(b)) for b in bad[:6]]}")
 
 
 def n_params(params: dict) -> int:

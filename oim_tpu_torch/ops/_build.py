@@ -29,9 +29,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("paged_attention.cu", "rmsnorm.cu", "flash_attention.cu")
+SOURCES = ("paged_attention.cu", "rmsnorm.cu", "flash_attention.cu",
+           "fused_ce.cu")
 HEADERS = ("common.cuh", "paged_attention.cuh", "rmsnorm.cuh",
-           "flash_attention.cuh")
+           "flash_attention.cuh", "fused_ce.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -74,6 +75,17 @@ _SIGNATURES = {
     "oim_flash_dkv": (
         _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    # x, w, dtype, labels, lse, target, partial, N, D, V, stream
+    "oim_fused_ce_fwd": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, w, dtype, labels, lse, g, dlogits, acc, dx, N, D, V, chunk_v,
+    # stream
+    "oim_fused_ce_dx": (
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+    ),
+    # x, w, dtype, labels, lse, g, dlogits, dw, N, D, V, chunk_v, stream
+    "oim_fused_ce_dw": (
+        _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
     ),
 }
 

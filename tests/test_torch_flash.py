@@ -184,5 +184,7 @@ def test_every_kernel_entry_point_has_its_ctypes_signature():
         for name, params in re.findall(r"int (oim_\w+)\(([^;]*)\);", text):
             declared[name] = len(params.split(","))
     assert declared and set(declared) == set(_build._SIGNATURES)
+    assert {"oim_fused_ce_fwd", "oim_fused_ce_dx", "oim_fused_ce_dw"} <= set(
+        declared)
     for name, n in declared.items():
         assert len(_build._SIGNATURES[name]) == n, name

@@ -194,3 +194,24 @@ def test_chip_smoke_counts_the_attention_pairs_its_inputs_need(monkeypatch):
     # Documents [0, 0 | 1, 1] keep 1+2+1+2; one document keeps all 10.
     seg = torch.tensor([[0, 0, 1, 1], [0, 0, 0, 0]], dtype=torch.int32)
     assert chip_smoke.attended_pairs(2, 3, 4, 0, seg) == (6 + 10) * 3
+
+
+def test_chip_smoke_counts_the_fused_ce_work():
+    """The fused-CE bound counts x, w and the per-row vectors read once
+    and the outputs written once, and 2·N·D·V operations for the forward,
+    4·N·D·V for dx and dw (scores, then the product)."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    n, d, v = 4096, 1536, 151936
+    ms, by = chip_smoke.ce_bound(n, d, v, torch.bfloat16, "fwd")
+    assert by == "operations" and abs(ms - 2 * n * d * v / 989e12 * 1e3) < 1e-9
+    ms, by = chip_smoke.ce_bound(n, d, v, torch.bfloat16, "dw")
+    assert by == "operations" and abs(ms - 4 * n * d * v / 989e12 * 1e3) < 1e-9
+    # One row of a wide vocabulary: bytes bound it.  x, w, labels, lse,
+    # g read once; dx written once.
+    ms, by = chip_smoke.ce_bound(1, 8, 1000, torch.float32, "dx")
+    moved = (8 + 8 * 1000) * 4 + 4 + 2 * 4 + 8 * 4
+    assert by == "bytes" and abs(ms - moved / 3.35e12 * 1e3) < 1e-12

@@ -300,3 +300,115 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take():
     out, lse = fa.flash_fwd(q, k, v)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_dq(q, k, v, do, lse[:, :64], fa.flash_delta(out, do))
+
+
+# ---------------------------------------------------------------------------
+# Fused unembed + cross-entropy (csrc/fused_ce.cu).  Kernel and plain
+# version compute the scores in f32 from the same compute-dtype products
+# and differ in summation order: lse and the target within 1e-5 of
+# their max (D-term dots).  Both round the dlogits to the compute dtype
+# before either product: dx comes back in that dtype, so one bf16
+# rounding step (2**-7 of the max) bounds it; in f32 it sums V products
+# (up to 151936) in another order, within 1e-4 of the max (observed
+# 2.2e-5); dw sums rows in f32, and 1e-4 of its max covers that and the
+# few dlogits whose last f32 bit rounds the other way.
+
+from oim_tpu_torch.ops import fused_ce as fc  # noqa: E402
+
+CE_TOL = {"lse": 1e-5, "target": 1e-5, "dw": 1e-4,
+          "dx": {torch.float32: 1e-4, torch.bfloat16: 2.0**-7 + 1e-4}}
+
+
+def _ce_case(dtype, n, d, v, seed=0):
+    """x, w (cast to x's dtype), labels with the first and last vocab
+    columns among them, and g with zero rows, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((d, v), generator=gen, device="cuda")
+         / d**0.5).to(dtype)
+    labels = torch.randint(0, v, (n,), generator=gen, device="cuda")
+    labels[0], labels[-1] = 0, v - 1
+    g = torch.rand(n, generator=gen, device="cuda")
+    g[::7] = 0.0
+    return x, w, labels, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [384, 151936, 100])
+@pytest.mark.parametrize("n", [128, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_ce_kernels_match_plain(dtype, n, v):
+    _need_gpu()
+    x, w, labels, g = _ce_case(dtype, n, 256, v)
+    before = fc.counters()
+    lse, target = fc.fused_ce_fwd(x, w, labels)
+    ref_lse, ref_target = fc.fused_ce_fwd_plain(x, w, labels)
+    dx = fc.fused_ce_dx(x, w, labels, ref_lse, g)
+    dw = fc.fused_ce_dw(x, w, labels, ref_lse, g)
+    ref_dx = fc.fused_ce_dx_plain(x, w, labels, ref_lse, g)
+    ref_dw = fc.fused_ce_dw_plain(x, w, labels, ref_lse, g)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    assert _rel(lse, ref_lse) <= CE_TOL["lse"]
+    assert _rel(target, ref_target) <= CE_TOL["target"]
+    assert _rel(dx, ref_dx) <= CE_TOL["dx"][dtype]
+    assert _rel(dw, ref_dw) <= CE_TOL["dw"]
+    assert not dx[::7].any()  # rows with g = 0
+    after = fc.counters()
+    for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
+        assert after[name] == before[name] + 1
+
+
+@pytest.mark.cuda
+def test_fused_ce_kernels_are_deterministic():
+    """No atomics: two runs give the same bits."""
+    _need_gpu()
+    x, w, labels, g = _ce_case(torch.bfloat16, 1000, 512, 20000)
+    lse, _ = fc.fused_ce_fwd(x, w, labels)
+    first = (fc.fused_ce_dx(x, w, labels, lse, g),
+             fc.fused_ce_dw(x, w, labels, lse, g))
+    again = (fc.fused_ce_dx(x, w, labels, lse, g),
+             fc.fused_ce_dw(x, w, labels, lse, g))
+    assert torch.equal(fc.fused_ce_fwd(x, w, labels)[0], lse)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_fused_linear_ce_autograd_runs_the_kernels():
+    """The differentiable wrapper launches fwd, dx and dw, skips dw for a
+    frozen w, and matches the logits reference's autograd in f32."""
+    _need_gpu()
+    x, w, labels, g = _ce_case(torch.float32, 300, 128, 1000)
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = fc.counters()
+    nll = fc.fused_linear_ce(xl, wl, labels)
+    dx, dw = torch.autograd.grad(nll, (xl, wl), g)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ref = fc.reference_linear_ce(xr, wr, labels)
+    ref_dx, ref_dw = torch.autograd.grad(ref, (xr, wr), g)
+    assert _rel(nll, ref) <= 1e-5
+    assert _rel(dx, ref_dx) <= 1e-4 and _rel(dw, ref_dw) <= 1e-4
+    after = fc.counters()
+    for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
+        assert after[name] == before[name] + 1
+        assert after[f"{name}_plain"] == before[f"{name}_plain"]
+    xl = x.clone().requires_grad_()
+    fc.fused_linear_ce(xl, w, labels).backward(g)
+    assert fc.counters()["fused_ce_dw"] == after["fused_ce_dw"]
+    assert fc.counters()["fused_ce_dx"] == after["fused_ce_dx"] + 1
+
+
+@pytest.mark.cuda
+def test_fused_ce_wrappers_refuse_what_the_kernels_do_not_take():
+    _need_gpu()
+    x, w, labels, g = _ce_case(torch.bfloat16, 64, 32, 256)
+    with pytest.raises(ValueError, match="f32/bf16"):
+        fc.fused_ce_fwd(x.half(), w.half(), labels)
+    with pytest.raises(ValueError, match="expected cuda"):
+        fc.fused_ce_fwd(x, w.cpu(), labels)
+    with pytest.raises(ValueError, match="x's"):
+        fc.fused_ce_fwd(x, w.float(), labels)
+    lse, _ = fc.fused_ce_fwd(x, w, labels)
+    with pytest.raises(ValueError, match="lse"):
+        fc.fused_ce_dw(x, w, labels, lse[:10], g)

@@ -1,7 +1,9 @@
 """Parity of the port's trainer with the JAX package's, on the CPU.
 
 The centre is a three-step training run of one tiny f32 configuration
-through both packages on the same weights and batches: the reference's
+through both packages on the same weights and batches, once with the
+logits path and once with fused unembed+CE (the usual configuration;
+the reference's fused-CE Pallas kernels in interpret mode): the reference's
 ``make_train_step`` on a one-device mesh with the optax chain its
 trainer builds (global-norm clip, adamw with the ``*_norm`` mask, a
 warmup-cosine schedule), its Pallas RMSNorm and flash kernels in
@@ -42,6 +44,7 @@ from oim_tpu_torch.data.prefetch import device_prefetch
 from oim_tpu_torch.models import train as ttrain
 from oim_tpu_torch.models.transformer import TransformerConfig, init_params
 from oim_tpu_torch.models.weights import from_jax_params
+from oim_tpu_torch.ops import fused_ce
 
 GEOMETRY = dict(vocab_size=101, d_model=64, n_layers=2, n_heads=4,
                 n_kv_heads=2, d_ff=96, attn_bias=True, dtype="float32",
@@ -77,11 +80,12 @@ def _flat(tree: dict, n_layers: int) -> dict:
     return out
 
 
-def test_three_train_steps_match_jax():
-    jcfg = JConfig(**GEOMETRY)
-    cfg = TransformerConfig(**GEOMETRY)
+def _three_steps_match_jax(geometry: dict):
+    jcfg = JConfig(**geometry)
+    cfg = TransformerConfig(**geometry)
     args = train_main.build_parser().parse_args(
-        ["--synthetic", "4000", "--steps", "3", "--vocab-size", "101"])
+        ["--synthetic", "4000", "--steps", "3", "--vocab-size",
+         str(geometry["vocab_size"])])
     corpus = train_main._load_corpus(args)
     np.testing.assert_array_equal(corpus, j_train_main._load_corpus(args))
     batches = loader.TokenBatches(corpus, B, T, seed=0)
@@ -116,6 +120,27 @@ def test_three_train_steps_match_jax():
     for name, value in got_params.items():
         np.testing.assert_allclose(value.detach().numpy(), want_params[name],
                                    rtol=0, atol=2e-5, err_msg=name)
+
+
+def test_three_train_steps_match_jax():
+    _three_steps_match_jax(GEOMETRY)
+
+
+def test_three_fused_ce_train_steps_match_jax():
+    """The usual configuration, fused unembed+CE on: the reference's
+    objective runs its three fused-CE Pallas kernels in interpret mode
+    (vocab 256 and 256-token microbatches are tiles it takes, so it does
+    not fall back to its logits path); the port's runs the kernels'
+    plain versions.  Same tolerances as the unfused run: the fused
+    numerics (f32 scores, dlogits rounded to the f32 compute dtype) are
+    the same function in another summation order."""
+    fused_ce.reset_counters()
+    _three_steps_match_jax({**GEOMETRY, "vocab_size": 256, "fused_ce": True})
+    counts = fused_ce.counters()
+    # Two microbatches a step; the plain versions ran in the kernels' place.
+    assert counts["fused_ce_fwd_plain"] == 2 * STEPS
+    assert counts["fused_ce_dx_plain"] == counts["fused_ce_dw_plain"] == (
+        2 * STEPS)
 
 
 @pytest.mark.parametrize("warmup,decay", [(0, 0), (3, 0), (0, 5), (2, 5)])
@@ -195,11 +220,24 @@ def test_prefetch_yields_batches_in_order_and_surfaces_errors():
 
 
 def test_fused_ce_is_refused_not_replaced():
+    """``use_pallas`` with ``fused_ce`` takes the fused branch (its
+    kernels' plain versions on the CPU), never the logits path, and
+    gives the logits path's objective: the same f32 function, in f32
+    compute, to summation order (1e-5)."""
     cfg = TransformerConfig(**{**GEOMETRY, "fused_ce": True})
     params = init_params(0, cfg, master=True)
-    with pytest.raises(ValueError, match="Queue B rows 7-9"):
-        ttrain._local_objective(params, torch.zeros(1, 8, dtype=torch.long),
-                                cfg)
+    tokens = torch.from_numpy(
+        np.random.RandomState(0).randint(0, 101, (2, 16))).long()
+    fused_ce.reset_counters()
+    obj, (ce_sum, count) = ttrain._local_objective(params, tokens, cfg)
+    assert fused_ce.counters()["fused_ce_fwd_plain"] == 1
+    unfused = TransformerConfig(**{**GEOMETRY, "fused_ce": False})
+    want, (want_sum, want_count) = ttrain._local_objective(params, tokens,
+                                                           unfused)
+    assert fused_ce.counters()["fused_ce_fwd_plain"] == 1
+    assert float(count) == float(want_count) == 2 * 15
+    np.testing.assert_allclose(float(obj), float(want), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(float(ce_sum), float(want_sum), rtol=1e-6)
 
 
 TINY_ARGS = ["--synthetic", "20000", "--steps", "3", "--batch-global", "2",
@@ -218,7 +256,7 @@ def test_train_main_cpu_drive(source, tmp_path, capsys):
         args = ["--corpus", str(path)] + args[2:]
     assert train_main.main(args) == 0
     err = capsys.readouterr().err
-    assert "fused_ce=False" in err
+    assert "fused_ce=True" in err
     assert err.count("oim-train step ") == 3
     assert "oim-train eval step=3" in err
     assert err.strip().endswith("oim-train done steps=3")
@@ -228,9 +266,14 @@ def test_train_main_cpu_drive(source, tmp_path, capsys):
     (["--pp", "2"], "parallelism"),
     (["--dp", "2"], "parallelism"),
     (["--zero1"], "sharding.py"),
-    (["--lora-rank", "4"], "lora.py"),
-    (["--checkpoint-dir", "x"], "checkpoint/manager.py"),
+    # LoRA and checkpoints are ported: what is refused now is a flag
+    # without the one it needs (the ids are the cases' earlier names).
+    pytest.param(["--lora-rank", "4"], "requires --lora-base",
+                 id="flag3-lora.py"),
+    pytest.param(["--export-dir", "x"], "requires --checkpoint-dir",
+                 id="flag4-checkpoint/manager.py"),
     (["--n-experts", "4"], "_switch_moe"),
+    (["--lora-base", "x"], "requires --lora-rank"),
 ])
 def test_train_main_refuses_unported_flags(flag, item):
     with pytest.raises(ValueError, match=item):
