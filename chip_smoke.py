@@ -626,6 +626,40 @@ def check_flash(tag, q, k, v, do, window, seg) -> dict:
     return errs
 
 
+def backward_determinism(bwd) -> None:
+    """Two launches of dq and of dkv on the same inputs give the same
+    bits: no float atomics, every sum in a fixed order (the checkpoint
+    phase's bit-equal resume relies on it)."""
+    from oim_tpu_torch.ops import flash_attention as fa
+
+    first = (fa.flash_dq(*bwd),) + fa.flash_dkv(*bwd)
+    again = (fa.flash_dq(*bwd),) + fa.flash_dkv(*bwd)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, again)]
+    print(f"flash backward determinism bf16 B={TRAIN_B} T={TRAIN_T}: two "
+          f"launches bit-equal dq/dk/dv {same}", flush=True)
+    check(all(same), f"flash backward differs between launches: {same}")
+
+
+def dkv_split_times(bwd, pairs) -> None:
+    """flash_dkv's time at the main path's case for each split of the
+    group of H / KVH q heads, beside the split dkv_split chooses."""
+    from oim_tpu_torch.ops import flash_attention as fa
+
+    q = bwd[0]
+    group = H // KVH
+    chosen = fa.dkv_split(TRAIN_B * KVH, group, TRAIN_T,
+                          fa._sm_count(q.device))
+    times = {}
+    for split in (d for d in range(1, group + 1) if group % d == 0):
+        times[split] = time_ms(lambda: fa.flash_dkv(*bwd, split=split))
+    print(f"flash_dkv bf16 by split (chosen {chosen}): "
+          + ", ".join(f"split {s_} {ms:.4f} ms "
+                      f"({8 * HD * pairs / ms / 1e9:.1f} TFLOP/s)"
+                      for s_, ms in times.items()) + f" [{SMI}]",
+          flush=True)
+
+
 def train_kernel_phase() -> dict:
     """RMSNorm at [4096, 1536] and the three flash kernels at the training
     shape, held against their plain versions (f32 and bf16; window 256,
@@ -710,9 +744,17 @@ def train_kernel_phase() -> dict:
         what = "SDPA forward" if name == "flash_fwd" else "SDPA backward"
         print(f"{name} bf16 B={TRAIN_B} T={TRAIN_T} H={H} KVH={KVH} "
               f"hd={HD}: {ms:.4f} ms (plain {plain_ms:.4f}, {what} "
-              f"{lib:.4f}, bound {bnd:.5f} by {by}) [{SMI}]", flush=True)
+              f"{lib:.4f}, bound {bnd:.5f} by {by}); "
+              f"{flops * pairs / ms / 1e9:.1f} TFLOP/s, {ms / lib:.2f}x "
+              f"{what} [{SMI}]", flush=True)
         record[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                             bound_ms=bnd, bound_by=by, library_ms=lib)
+    pair_ms = record["flash_dq"]["ms"] + record["flash_dkv"]["ms"]
+    print(f"flash_dq + flash_dkv bf16: {pair_ms:.4f} ms, "
+          f"{14 * HD * pairs / pair_ms / 1e9:.1f} TFLOP/s, "
+          f"{pair_ms / lib_bwd:.2f}x SDPA backward [{SMI}]", flush=True)
+    backward_determinism(bwd)
+    dkv_split_times(bwd, pairs)
     del q, k, v, do, qh, kh, vh, doh, qg, kg, vg, out_g, out, lse, delta
     torch.cuda.empty_cache()
     return record
@@ -1103,6 +1145,34 @@ def ckpt_lora_phase(work: str) -> None:
     torch.cuda.empty_cache()
 
 
+def ptxas_lines(log: str) -> list[str]:
+    """ptxas's register and spill report, one line per kernel, each
+    named by its (demangled enough) function name."""
+    import re
+
+    types = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "i8"}
+    report = {}  # mangled name -> (short name, report lines)
+    mangled = "?"
+    for line in log.splitlines():
+        found = re.search(r"(?:entry function|Function properties for) "
+                          r"'?(\w+)", line)
+        if found:
+            mangled = found.group(1)
+            name = mangled
+            tag = re.search(r"\d([a-z_]+?_kernel)(?:I(\w*?)E)?E", mangled)
+            if tag:  # flash_dq_tc_kernel<128>, flash_fwd_kernel<64,f32>
+                args = [n or types[t] for n, t in re.findall(
+                    r"L[ib](\d+)E?|(13__nv_bfloat16|f|a)",
+                    tag.group(2) or "")]
+                name = tag.group(1) + (f"<{','.join(args)}>" if args else "")
+            report.setdefault(mangled, (name, []))
+        elif "registers" in line or "spill" in line:
+            text = line.strip().removeprefix("ptxas info    : ")
+            report.setdefault(mangled, (mangled, []))[1].append(text)
+    return [f"ptxas: {name}: {'; '.join(parts)}"
+            for name, parts in report.values() if parts]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1129,9 +1199,8 @@ def main() -> int:
     _build.library()
     print(f"build: {time.monotonic() - t0:.1f} s ({_build.library_path().name})",
           flush=True)
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
+    for line in ptxas_lines(_build.build_log):
+        print(line, flush=True)
     record = kernel_phase()
     record.update(train_kernel_phase())
     record.update(fused_ce_phase())

@@ -41,8 +41,8 @@ WARMUP = 2  # steps before the windows (allocator and cuBLAS warm-up)
 STEPS = 2  # steps in each window
 FAMILIES = {
     "flash_fwd": ("flash_fwd_kernel",),
-    "flash_dq": ("flash_dq_kernel",),
-    "flash_dkv": ("flash_dkv_kernel",),
+    "flash_dq": ("flash_dq_kernel", "flash_dq_tc_kernel"),
+    "flash_dkv": ("flash_dkv_kernel", "flash_dkv_tc_kernel", "dkv_sum_kernel"),
     "rmsnorm": ("rmsnorm_kernel",),
     # Before cuBLAS's family: "gemm" is in the fused-CE product's name.
     "fused_ce": ("ce_gemm_kernel", "ce_lse_kernel"),

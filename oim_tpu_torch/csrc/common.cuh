@@ -1,7 +1,8 @@
 // What every Hopper kernel of the port shares: the dtype codes that
 // oim_tpu_torch/ops/_build.py mirrors, the reference's mask constant,
 // conversions between the storage dtypes and f32, 16-byte chunk loads,
-// and warp reductions.
+// warp reductions, and the tensor-core fragment helpers (mma.sync,
+// ldmatrix, cp.async) that the bf16 products share.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,6 +62,83 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core fragments (PTX mma.sync m16n8k16, bf16 in, f32 out).  Lane
+// = 4 g + t.  A (16 x 16, row): a0 = (row g, k 2t, 2t+1), a1 = (row
+// g + 8, same k), a2 = (row g, k 2t+8, 2t+9), a3 = (row g + 8, those k).
+// B (16 x 8, col): b0 = (k 2t, 2t+1, column g), b1 = (k 2t+8, 2t+9).
+// C (16 x 8): c0, c1 = (row g, columns 2t, 2t+1), c2, c3 = (row g + 8).
+
+// Two bf16 at p (the lower k first) as one register.
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// (lo, hi) rounded to bf16 as one register, lo in the low half: the
+// fragment order of two neighbouring k.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a @ b for one m16n8k16 bf16 fragment, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i ... 8i + 7 give
+// the addresses of matrix i's rows (16 bytes each, 16-byte aligned) and
+// r[i] receives it in the fragment layout: lane (g, t) holds row g,
+// columns 2t and 2t + 1, or with .trans row 2t and 2t + 1 of column g.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Asynchronous copies from device to shared memory: 16 bytes (`src`
+// 16-byte aligned) or 4; when `valid` is false nothing is read and the
+// destination is zero-filled.  A group is committed, then awaited with
+// cp_async_wait<n> (all but the newest n groups of this thread landed);
+// a __syncthreads after the wait shows every thread's copies to all.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace oim

@@ -35,12 +35,16 @@ int oim_flash_dq(const void* q, const void* k, const void* v,
                  void* stream);
 
 // dk and dv together, summed over each kv head's group of q heads
-// (replaces _dkv_kernel).
+// (replaces _dkv_kernel).  bf16 cuts each group into `split` partitions
+// of (H / KVH) / split q heads, one block each; with split > 1,
+// `partials` is f32 scratch of 2 * split * B * T * KVH * hd elements
+// (partial dk, then dv) that a second kernel sums in partition order.
+// f32 takes split 1 (partials unused).
 int oim_flash_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
                   int dtype, const int32_t* segments, void* dk, void* dv,
-                  int B, int T, int H, int KVH, int hd, int causal,
-                  int window, void* stream);
+                  float* partials, int B, int T, int H, int KVH, int hd,
+                  int causal, int window, int split, void* stream);
 
 #ifdef __cplusplus
 }

@@ -191,24 +191,8 @@ __device__ __forceinline__ void stash(const Operand<T>& op,
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a @ b for one m16n8k16 bf16 fragment, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One kBK step of the warp's 64 x 32 output on the tensor cores.
-// Fragment layout (PTX m16n8k16): lane = 4 g + t; A rows g and g + 8,
-// k pairs 2t and 2t + 8; B column g, the same k pairs; C rows g and
-// g + 8, columns 2t and 2t + 1.
+// One kBK step of the warp's 64 x 32 output on the tensor cores
+// (fragment layout: common.cuh).
 __device__ __forceinline__ void tile_product(const __nv_bfloat16* as,
                                              const __nv_bfloat16* bs, int wm,
                                              int wn, int g, int t,

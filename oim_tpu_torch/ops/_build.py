@@ -70,11 +70,11 @@ _SIGNATURES = {
     "oim_flash_dq": (
         _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # q, k, v, dout, lse, delta, dtype, segments, dk, dv, B, T, H, KVH,
-    # hd, causal, window, stream
+    # q, k, v, dout, lse, delta, dtype, segments, dk, dv, partials, B,
+    # T, H, KVH, hd, causal, window, split, stream
     "oim_flash_dkv": (
-        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # x, w, dtype, labels, lse, target, partial, N, D, V, stream
     "oim_fused_ce_fwd": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P),

@@ -8,10 +8,18 @@ Kernels (``csrc/flash_attention.cu``), each replacing one TPU kernel of
 - ``flash_fwd`` → ``flash_fwd_kernel`` (``_fwd_kernel``): causal
   online-softmax attention with GQA, sliding window and segment ids;
   returns the output and the per-row logsumexp ``lse`` [B·H, T] f32.
-- ``flash_dq`` → ``flash_dq_kernel`` (``_dq_kernel``): dq, recomputing
-  the probabilities from (q, k, lse).
-- ``flash_dkv`` → ``flash_dkv_kernel`` (``_dkv_kernel``): dk and dv
+- ``flash_dq`` → ``flash_dq_tc_kernel`` in bf16, ``flash_dq_kernel`` in
+  f32 (``_dq_kernel``): dq, recomputing the probabilities from (q, k,
+  lse).
+- ``flash_dkv`` → ``flash_dkv_tc_kernel`` (and ``dkv_sum_kernel``) in
+  bf16, ``flash_dkv_kernel`` in f32 (``_dkv_kernel``): dk and dv
   together, summed over each kv head's group of q heads.
+
+The bf16 backward (the training path) runs on the tensor cores; f32
+keeps exact f32 arithmetic on the CUDA cores.  The bf16 dkv cuts each kv
+head's group into ``split`` partitions of q heads, one block each, and
+sums their f32 partials in a fixed order (``dkv_split`` chooses
+``split``).
 
 ``delta = rowsum(dout · out)`` is computed outside the kernels, in
 PyTorch, as the reference computes it in XLA.  The kernels take any T
@@ -26,6 +34,8 @@ k``; masked pairs get probability 0 (the reference's ``-1e30``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from oim_tpu_torch.ops import _build
@@ -33,6 +43,11 @@ from oim_tpu_torch.ops import _build
 NEG_BIG = -1e30
 # head_dim is a template parameter of the kernels.
 HEAD_DIMS = (64, 128)
+# Keys a block of the bf16 dkv kernel owns (csrc/flash_attention.cu
+# kTcRows).
+DKV_KEY_TILE = 64
+# dkv_split splits a group until the grid has this many blocks per SM.
+DKV_BLOCKS_PER_SM = 4
 
 
 def reference_attention(q, k, v, causal: bool = True, segments=None,
@@ -247,7 +262,8 @@ flash_dq_plain.calls = 0
 
 def flash_dkv_plain(q, k, v, dout, lse, delta, causal=True, window=0,
                     segments=None):
-    """Plain PyTorch version of ``flash_dkv`` (same signature)."""
+    """Plain PyTorch version of ``flash_dkv`` (its signature less
+    ``split``)."""
     flash_dkv_plain.calls += 1
     b, t, h, _ = q.shape
     kvh = k.shape[2]
@@ -304,26 +320,66 @@ def flash_dq(q, k, v, dout, lse, delta, causal=True, window=0,
 flash_dq.launches = 0
 
 
+def dkv_split(batch_kv: int, group: int, t: int, sms: int) -> int:
+    """Partitions of each kv head's group of q heads for the bf16 dkv
+    kernel, given B·KVH, the group size, T and the card's SM count: the
+    smallest divisor of ``group`` whose grid (key tiles × B·KVH ×
+    split) reaches ``DKV_BLOCKS_PER_SM`` blocks an SM, else ``group``.
+    A causal key tile's work grows with its distance from the end, so
+    a grid of few, whole-group blocks waits on its heaviest; splitting
+    cuts that chain at the cost of f32 partials (written and summed
+    once per extra partition)."""
+    tiles = -(-t // DKV_KEY_TILE) * batch_kv
+    for split in range(1, group + 1):
+        if group % split == 0 and tiles * split >= DKV_BLOCKS_PER_SM * sms:
+            return split
+    return group
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def flash_dkv(q, k, v, dout, lse, delta, causal=True, window=0,
-              segments=None):
+              segments=None, split=None):
     """(dk, dv) [B, T, KVH, D] in k's dtype, each summed over its kv
-    head's group of q heads; operands as ``flash_dq``.  CUDA tensors
-    launch the kernel; CPU tensors run the plain version."""
+    head's group of q heads; operands as ``flash_dq``.  ``split`` (bf16
+    kernel only; a divisor of the group) cuts the group into partitions
+    whose partial sums are added in a fixed order; None takes
+    ``dkv_split``'s choice, and f32 takes 1.  CUDA tensors launch the
+    kernel; CPU tensors run the plain version (for any ``split``: it
+    shapes only the kernel's grid)."""
+    _check("flash_dkv", q, k, v, causal, window, segments)
+    group = q.shape[2] // k.shape[2]
+    if split is not None and (split < 1 or group % split):
+        raise ValueError(
+            f"flash_dkv: split {split} must divide the group of {group}")
     if not q.is_cuda:
-        _check("flash_dkv", q, k, v, causal, window, segments)
         return flash_dkv_plain(q, k, v, dout, lse, delta, causal, window,
                                segments)
     ops, seg = _backward_operands("flash_dkv", q, k, v, dout, lse, delta,
                                   causal, window, segments)
     b, t, h, d = q.shape
+    kvh = k.shape[2]
+    if q.dtype != torch.bfloat16:
+        if split not in (None, 1):
+            raise ValueError("flash_dkv: the f32 kernel takes no split")
+        split = 1
+    elif split is None:
+        split = dkv_split(b * kvh, group, t, _sm_count(q.device))
     dk = torch.empty_like(ops["k"])
     dv = torch.empty_like(ops["v"])
+    partials = None
+    if split > 1:
+        partials = torch.empty((2, split, b * t * kvh * d),
+                               dtype=torch.float32, device=q.device)
     code = _build.library().oim_flash_dkv(
         *(_build.ptr(ops[n]) for n in ("q", "k", "v", "dout", "lse",
                                        "delta")),
         _build.DTYPE_CODES[q.dtype], _build.ptr(seg), _build.ptr(dk),
-        _build.ptr(dv), b, t, h, k.shape[2], d, int(bool(causal)),
-        int(window), _build.stream_of(q),
+        _build.ptr(dv), _build.ptr(partials), b, t, h, kvh, d,
+        int(bool(causal)), int(window), split, _build.stream_of(q),
     )
     _build.check(code, "flash_dkv")
     flash_dkv.launches += 1

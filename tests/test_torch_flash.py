@@ -188,3 +188,41 @@ def test_every_kernel_entry_point_has_its_ctypes_signature():
         declared)
     for name, n in declared.items():
         assert len(_build._SIGNATURES[name]) == n, name
+
+
+@pytest.mark.parametrize("batch_kv,group,t,sms,want", [
+    # Qwen2.5-1.5B's training shape on an H100: 16 key tiles x B*KVH 8 =
+    # 128 blocks at split 1; 4 blocks an SM of 132 needs 528.
+    (8, 6, 1024, 132, 6),
+    (8, 6, 4096, 132, 2),  # 512 blocks: 528 needs split 2
+    (8, 6, 2048, 132, 3),  # 256 blocks: split 2 gives 512, 3 gives 768
+    (8, 1, 1024, 132, 1),  # no group to split
+    (2, 4, 100, 8, 4),  # 2 key tiles x 2 = 4 blocks: every split short
+])
+def test_dkv_split_reaches_blocks_per_sm(batch_kv, group, t, sms, want):
+    """The smallest divisor of the group whose dkv grid reaches
+    DKV_BLOCKS_PER_SM blocks an SM, else the whole group."""
+    assert tfa.dkv_split(batch_kv, group, t, sms) == want
+    tiles = -(-t // tfa.DKV_KEY_TILE) * batch_kv
+    smaller = [s for s in range(1, want) if group % s == 0]
+    assert all(tiles * s < tfa.DKV_BLOCKS_PER_SM * sms for s in smaller)
+
+
+def test_flash_dkv_split_is_checked_and_leaves_the_plain_result_alone():
+    """``split`` must divide the group; on the CPU it changes nothing
+    (it only shapes the kernel's grid)."""
+    rng = np.random.default_rng(3)
+    q, do = (torch.from_numpy(rng.standard_normal((1, 24, 6, 16),
+                                                  np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 24, 2, 16), np.float32))
+            for _ in range(2))
+    out, lse = tfa.flash_fwd(q, k, v)
+    delta = tfa.flash_delta(out, do)
+    want = tfa.flash_dkv(q, k, v, do, lse, delta)
+    for split in (1, 3):
+        got = tfa.flash_dkv(q, k, v, do, lse, delta, split=split)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for split in (0, 2, 4):
+        with pytest.raises(ValueError, match="must divide"):
+            tfa.flash_dkv(q, k, v, do, lse, delta, split=split)

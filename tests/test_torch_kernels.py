@@ -153,9 +153,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 # version compute in f32 from the same inputs and round once to the
 # output dtype, so bf16 outputs differ by at most one rounding step
 # (2**-7 of a value, at most the max) plus f32 summation-order noise,
-# and f32 outputs by that noise alone (sums of at most 256 terms of
-# unit-scale data, far below 1e-5 of the max).  A wrong mask, tile or
-# head moves outputs by O(1) of the max.
+# and f32 outputs by that noise alone (sums of at most 1000 terms of
+# unit-scale data, far below 1e-5 of the max).  In bf16, dq and dkv also
+# round P and dS to bf16 as operands of their products (the reference's
+# MXU does the same at default precision): an f32 emulation of that on
+# the CPU over these cases moves no output by more than its one rounding
+# step (at most 7.6e-3 of the max).  A wrong mask, tile or head moves
+# outputs by O(1) of the max.
 
 from oim_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from oim_tpu_torch.ops import rmsnorm as rn  # noqa: E402
@@ -231,7 +235,7 @@ def _flash_matches_plain(q, k, v, do, causal, window, seg):
 @pytest.mark.parametrize("segmented", [False, True], ids=["nosegs", "segs"])
 @pytest.mark.parametrize("window", [0, 64])
 @pytest.mark.parametrize("group", [1, 6])
-@pytest.mark.parametrize("t", [128, 256, 200])
+@pytest.mark.parametrize("t", [128, 256, 200, 40, 1000])
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -275,6 +279,62 @@ def test_flash_attention_autograd_runs_the_kernels(t):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [200, 1024])
+def test_flash_attention_bf16_autograd_matches_f32_reference(t):
+    """The bf16 route (the training path: dq and dkv on the tensor
+    cores) against the reference formula's f32 autograd on the same
+    bf16 values.  The output differs by its final bf16 rounding, half a
+    step: 2**-8 of the max.  Each gradient differs by that rounding plus
+    the bf16 roundings inside the route (the forward output that delta
+    reads, and P and dS as operands of the products), which an f32
+    emulation on the CPU puts at most at 4.1e-3 of the max in all: one
+    bf16 step, 2**-7 of the max, leaves twice that.  A wrong mask, tile
+    or head moves them by O(1) of the max."""
+    _need_gpu()
+    q, k, v, do, seg = _flash_case(torch.bfloat16, 128, t, 6, True)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = fa.counters()
+    out = fa.flash_attention(*leaves, True, 64, seg)
+    grads = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref = fa.reference_attention(*ref_leaves, True, seg, 64)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, do.float())
+    assert out.dtype == torch.bfloat16
+    assert _rel(out, ref) <= 2.0**-8 + 1e-5
+    for g, r in zip(grads, ref_grads):
+        assert g.dtype == torch.bfloat16
+        assert _rel(g, r) <= 2.0**-7
+    after = fa.counters()
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert after[name] == before[name] + 1
+        assert after[f"{name}_plain"] == before[f"{name}_plain"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [None, 1, 2, 3, 6],
+                         ids=["chosen", "split1", "split2", "split3",
+                              "split6"])
+@pytest.mark.parametrize("segmented", [False, True], ids=["nosegs", "segs"])
+def test_flash_backward_is_deterministic(segmented, split):
+    """No float atomics and every sum in a fixed order: two launches of
+    dq and dkv on the same bf16 inputs give the same bits, at the split
+    the wrapper chooses and at each other one, and every split agrees
+    with the plain version."""
+    _need_gpu()
+    q, k, v, do, seg = _flash_case(torch.bfloat16, 128, 1000, 6, segmented)
+    out, lse = fa.flash_fwd_plain(q, k, v, True, 0, seg)
+    bwd = (q, k, v, do, lse, fa.flash_delta(out, do), True, 0, seg)
+    first = (fa.flash_dq(*bwd),) + fa.flash_dkv(*bwd, split=split)
+    again = (fa.flash_dq(*bwd),) + fa.flash_dkv(*bwd, split=split)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    want = (fa.flash_dq_plain(*bwd),) + fa.flash_dkv_plain(*bwd)
+    for got, ref in zip(first, want):
+        assert _rel(got, ref) <= TRAIN_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
 def test_training_wrappers_refuse_what_the_kernels_do_not_take():
     _need_gpu()
     x = torch.randn((4, 96), device="cuda")
@@ -300,6 +360,14 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take():
     out, lse = fa.flash_fwd(q, k, v)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_dq(q, k, v, do, lse[:, :64], fa.flash_delta(out, do))
+    q, k, v, do, _ = _flash_case(torch.float32, 128, 128, 6, False)
+    out, lse = fa.flash_fwd(q, k, v)
+    delta = fa.flash_delta(out, do)
+    with pytest.raises(ValueError, match="takes no split"):
+        fa.flash_dkv(q, k, v, do, lse, delta, split=2)
+    with pytest.raises(ValueError, match="must divide"):
+        fa.flash_dkv(*(x.bfloat16() for x in (q, k, v, do)), lse, delta,
+                     split=4)
 
 
 # ---------------------------------------------------------------------------
