@@ -12,6 +12,11 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
+``--kernel-phase-only [--package DIR]`` runs only the K1/K2 kernel
+phase, with the port's package loaded from DIR (another checkout, such
+as a parent commit unpacked beside this one), so that two versions of
+the kernels are timed on the same inputs in one run of the card.
+
 It exits non-zero without a result line when no GPU is visible, when the
 port's package is not beside it, or when any phase fails.  Every number
 it prints is measured in this run; the second-to-last line is the
@@ -118,6 +123,10 @@ VOCAB = 151936
 CKPT_LAYERS = 2
 RESUME_RTOL = 1e-5
 LORA_RANK = 8
+# K1's split sweeps: table ranges per slot at decode (the 128-entry
+# table cut into 1 ... 64 ranges) and at the 512-token prefill.
+DECODE_SPLITS = (1, 2, 4, 8, 16, 32, 64)
+PREFILL_SPLITS = (1, 2, 4)
 # Device sleep that every timed series queues behind: 2e8 cycles, about
 # 0.1 s at the H100's clocks, covers the host's enqueue of the series.
 SLEEP_CYCLES = 200_000_000
@@ -288,6 +297,75 @@ def sdpa_yardstick(q, pool, scale, tables, starts, window):
     return time_ms(fn)
 
 
+def k1_split_kw(pa, splits) -> dict:
+    """``splits`` as a keyword for ``paged_flash_decode`` (None: the
+    wrapper's own choice).  A package from before K1 took a split (a
+    parent checkout timed beside this one) has only its own route."""
+    if splits is None:
+        return {}
+    if not hasattr(pa, "decode_split"):
+        raise SmokeFailure("this package's K1 takes no split")
+    return {"splits": splits}
+
+
+def k1_check(tag, pa, args, window, zero_rows, splits=None) -> float:
+    """K1 against its plain version on ``args`` at one split: finite,
+    within KERNEL_ATOL, the slots ``zero_rows`` (all-sentinel) exactly
+    zero, and two launches bit-equal (no float atomics; the merge of the
+    splits runs in a fixed order).  Returns the max abs error."""
+    kw = k1_split_kw(pa, splits)
+    got = pa.paged_flash_decode(*args, window=window, **kw)
+    again = pa.paged_flash_decode(*args, window=window, **kw)
+    want = pa.paged_flash_decode_plain(*args, window=window)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    what = f"K1 {tag} window={window} splits={splits or 'chosen'}"
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+    check(not bool(got[zero_rows].any()),
+          f"{what}: all-sentinel rows must be zeros")
+    check(torch.equal(got, again), f"{what}: two launches differ")
+    check(err <= KERNEL_ATOL, f"{what} disagrees: {err}")
+    return err
+
+
+def k1_phase(tag, pa, args, zero_rows, sweep, windows) -> dict:
+    """K1 on ``args`` checked at windows ``windows`` for the wrapper's
+    split and every split of ``sweep``, then timed (window 0) at each;
+    prints one line per window and one of times, and returns the
+    record of the wrapper's split."""
+    q, pool, _, scale, _, tables, starts = args
+    sweep = sweep if hasattr(pa, "decode_split") else ()
+    chosen = ""
+    if sweep:
+        b, t, h, _ = q.shape
+        tiles = -(-t * (h // KVH) // pa.Q_TILE_ROWS)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        entries = pa.decode_split(b * KVH, tiles, tables.shape[1], sms)
+        chosen = (f"; decode_split: {entries} entries a split, "
+                  f"{-(-tables.shape[1] // entries)} splits")
+    err = 0.0
+    for window in windows:
+        errs = [k1_check(tag, pa, args, window, zero_rows, s)
+                for s in (None, *sweep)]
+        err = max(err, errs[0])
+        print(f"K1 {tag} window={window}: max_abs_err={errs[0]:.3e} at the "
+              f"wrapper's split, {max(errs):.3e} over splits "
+              f"{list(sweep)} (tol {KERNEL_ATOL}); two launches bit-equal; "
+              f"all-sentinel rows zero{chosen}", flush=True)
+    times = {s: time_ms(lambda: pa.paged_flash_decode(
+        *args, **k1_split_kw(pa, s))) for s in (None, *sweep)}
+    ms = times.pop(None)
+    plain_ms = time_ms(lambda: pa.paged_flash_decode_plain(*args))
+    lib_ms = sdpa_yardstick(q, pool, scale, tables, starts, 0)
+    bnd, by = decode_bound(q, pool, scale, tables, starts, 0)
+    sweep_txt = "".join(f", splits {s_} {t_:.4f}" for s_, t_ in times.items())
+    print(f"K1 {tag}: {ms:.4f} ms at the wrapper's split{sweep_txt} (plain "
+          f"{plain_ms:.4f}, sdpa {lib_ms:.4f}, bound {bnd:.5f} by {by}) "
+          f"[{SMI}]", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=lib_ms)
+
+
 def kernel_phase() -> dict:
     """K1 at the decode shape and K2+K1 at a 512-token prefill, for bf16
     and int8 pools; returns the measured record per kernel (bf16 — the
@@ -309,31 +387,11 @@ def kernel_phase() -> dict:
                               dtype=torch.int32, device="cuda")
         q = torch.randn((8, 1, H, HD), generator=gen,
                         device="cuda").to(torch.bfloat16)
-        for window in (0, 256):
-            args = (q, k_pool, v_pool, ks, vs, tables, starts)
-            got = pa.paged_flash_decode(*args, window=window)
-            want = pa.paged_flash_decode_plain(*args, window=window)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            check(bool(torch.isfinite(got).all()), f"K1 {tag} non-finite")
-            check(float(got[6:].abs().max()) == 0.0,
-                  f"K1 {tag}: all-sentinel rows must be zeros")
-            print(f"K1 decode {tag} window={window}: max_abs_err={err:.3e} "
-                  f"(tol {KERNEL_ATOL})", flush=True)
-            check(err <= KERNEL_ATOL, f"K1 decode {tag} window={window} "
-                  f"disagrees: {err}")
-        ms = time_ms(lambda: pa.paged_flash_decode(*args))
-        plain_ms = time_ms(lambda: pa.paged_flash_decode_plain(*args))
-        lib_ms = sdpa_yardstick(q, k_pool, ks, tables, starts, 0)
-        bnd, by = decode_bound(q, k_pool, ks, tables, starts, 0)
-        err = float((pa.paged_flash_decode(*args)
-                     - pa.paged_flash_decode_plain(*args)).abs().max())
-        print(f"K1 decode {tag} B=8 t=1: {ms:.4f} ms (plain {plain_ms:.4f}, "
-              f"sdpa {lib_ms:.4f}, bound {bnd:.5f} by {by}) [{SMI}]",
-              flush=True)
+        args = (q, k_pool, v_pool, ks, vs, tables, starts)
+        k1 = k1_phase(f"decode {tag} B=8 t=1", pa, args, slice(6, None),
+                      DECODE_SPLITS, (0, 256))
         if not quant:
-            record["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+            record["K1"] = k1
         # -- K2 at decode: one new row per slot, two slots all-sentinel.
         dk = torch.randn((8, 1, KVH, HD), generator=gen,
                          device="cuda").to(torch.bfloat16)
@@ -384,20 +442,8 @@ def kernel_phase() -> dict:
               f"{same} (max_abs_err {k2_err})", flush=True)
         check(same, f"K2 {tag}: pool bytes differ from paged_store")
         attend = (qp, *pools, *scales, ptables, pst)
-        got = pa.paged_flash_decode(*attend)
-        want = pa.paged_flash_decode_plain(*attend)
-        torch.cuda.synchronize()
-        perr = float((got - want).abs().max())
-        print(f"K1 prefill {tag} t={t}: max_abs_err={perr:.3e} "
-              f"(tol {KERNEL_ATOL})", flush=True)
-        check(perr <= KERNEL_ATOL, f"K1 prefill {tag} disagrees: {perr}")
-        k1p_ms = time_ms(lambda: pa.paged_flash_decode(*attend))
-        k1p_plain = time_ms(lambda: pa.paged_flash_decode_plain(*attend))
-        k1p_lib = sdpa_yardstick(qp, pools[0], scales[0], ptables, pst, 0)
-        pbnd, pby = decode_bound(qp, pools[0], scales[0], ptables, pst, 0)
-        print(f"K1 prefill {tag} B=2 t={t}: {k1p_ms:.4f} ms (plain "
-              f"{k1p_plain:.4f}, sdpa {k1p_lib:.4f}, bound {pbnd:.5f} by "
-              f"{pby}) [{SMI}]", flush=True)
+        k1_phase(f"prefill {tag} B=2 t={t}", pa, attend, slice(0, 0),
+                 PREFILL_SPLITS, (0, 256))
         k2_ms = time_ms(lambda: pa.paged_kv_store(*store))
         k2_plain = time_ms(lambda: pa.paged_kv_store_plain(*store))
         k2_bnd, k2_by = store_bound(k_new, pools[0], scales[0], ptables, pst)
@@ -626,30 +672,32 @@ def check_flash(tag, q, k, v, do, window, seg) -> dict:
     return errs
 
 
-def backward_determinism(bwd) -> None:
-    """Two launches of dq and of dkv on the same inputs give the same
-    bits: no float atomics, every sum in a fixed order (the checkpoint
-    phase's bit-equal resume relies on it)."""
+def flash_determinism(bwd) -> None:
+    """Two launches of the forward, of dq and of dkv on the same inputs
+    give the same bits: no float atomics, every sum in a fixed order
+    (the checkpoint phase's bit-equal resume relies on it)."""
     from oim_tpu_torch.ops import flash_attention as fa
 
-    first = (fa.flash_dq(*bwd),) + fa.flash_dkv(*bwd)
-    again = (fa.flash_dq(*bwd),) + fa.flash_dkv(*bwd)
+    fwd = (*bwd[:3], *bwd[6:])  # q, k, v, causal, window, segments
+    first = fa.flash_fwd(*fwd) + (fa.flash_dq(*bwd),) + fa.flash_dkv(*bwd)
+    again = fa.flash_fwd(*fwd) + (fa.flash_dq(*bwd),) + fa.flash_dkv(*bwd)
     torch.cuda.synchronize()
     same = [bool(torch.equal(a, b)) for a, b in zip(first, again)]
-    print(f"flash backward determinism bf16 B={TRAIN_B} T={TRAIN_T}: two "
-          f"launches bit-equal dq/dk/dv {same}", flush=True)
-    check(all(same), f"flash backward differs between launches: {same}")
+    print(f"flash determinism bf16 B={TRAIN_B} T={TRAIN_T}: two launches "
+          f"bit-equal out/lse/dq/dk/dv {same}", flush=True)
+    check(all(same), f"flash kernels differ between launches: {same}")
 
 
 def dkv_split_times(bwd, pairs) -> None:
     """flash_dkv's time at the main path's case for each split of the
     group of H / KVH q heads, beside the split dkv_split chooses."""
+    from oim_tpu_torch.ops import _build
     from oim_tpu_torch.ops import flash_attention as fa
 
     q = bwd[0]
     group = H // KVH
     chosen = fa.dkv_split(TRAIN_B * KVH, group, TRAIN_T,
-                          fa._sm_count(q.device))
+                          _build.sm_count(q.device))
     times = {}
     for split in (d for d in range(1, group + 1) if group % d == 0):
         times[split] = time_ms(lambda: fa.flash_dkv(*bwd, split=split))
@@ -753,7 +801,7 @@ def train_kernel_phase() -> dict:
     print(f"flash_dq + flash_dkv bf16: {pair_ms:.4f} ms, "
           f"{14 * HD * pairs / pair_ms / 1e9:.1f} TFLOP/s, "
           f"{pair_ms / lib_bwd:.2f}x SDPA backward [{SMI}]", flush=True)
-    backward_determinism(bwd)
+    flash_determinism(bwd)
     dkv_split_times(bwd, pairs)
     del q, k, v, do, qh, kh, vh, doh, qg, kg, vg, out_g, out, lse, delta
     torch.cuda.empty_cache()
@@ -1173,18 +1221,40 @@ def ptxas_lines(log: str) -> list[str]:
             for name, parts in report.values() if parts]
 
 
-def main() -> int:
+def parse_args(argv):
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--kernel-phase-only", action="store_true",
+        help="build the kernels and run the K1/K2 kernel phase only, "
+             "printing its record as the last line")
+    parser.add_argument(
+        "--package", default=HERE, metavar="DIR",
+        help="the checkout whose oim_tpu_torch to load (default: this "
+             "one); with --kernel-phase-only, another checkout's kernels "
+             "are timed on the same inputs")
+    args = parser.parse_args(argv)
+    if args.package != HERE and not args.kernel_phase_only:
+        parser.error("--package needs --kernel-phase-only")
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    package = os.path.abspath(args.package)
+    sys.path.insert(0, package)
     try:
         import oim_tpu_torch
     except ImportError as exc:
         print(f"chip_smoke: the port's package is missing: {exc}",
               file=sys.stderr)
         return 3
-    if os.path.dirname(os.path.dirname(oim_tpu_torch.__file__)) != HERE:
-        print("chip_smoke: oim_tpu_torch must come from this checkout",
+    if os.path.dirname(os.path.dirname(oim_tpu_torch.__file__)) != package:
+        print(f"chip_smoke: oim_tpu_torch must come from {package}",
               file=sys.stderr)
         return 3
     from oim_tpu_torch.ops import _build
@@ -1202,6 +1272,10 @@ def main() -> int:
     for line in ptxas_lines(_build.build_log):
         print(line, flush=True)
     record = kernel_phase()
+    if args.kernel_phase_only:
+        print(json.dumps({"package": package, "kernel_phase": record}),
+              flush=True)
+        return 0
     record.update(train_kernel_phase())
     record.update(fused_ce_phase())
     counts = serve_phase()

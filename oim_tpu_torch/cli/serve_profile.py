@@ -19,8 +19,9 @@ tokens longer than the timed ones (at the command below, about 2 % more
 K1 work), so the idle share slightly understates the device's idle
 time.  It prints the wall, the device
 time summed over kernels, the device's idle share (one minus their
-ratio) and the kernels that took the most device time; the last line is
-one JSON object with those numbers.  Run on the machine with the GPU:
+ratio), the device time by family (K1 with its merge, K2, cuBLAS GEMMs,
+the rest) and the kernels that took the most device time; the last line
+is one JSON object with those numbers.  Run on the machine with the GPU:
 
     python -m oim_tpu_torch.cli.serve_profile \\
         --vocab-size 151936 --d-model 1536 --n-layers 28 --n-heads 12 \\
@@ -45,6 +46,11 @@ from oim_tpu_torch.serve.engine import GenRequest
 
 DECODE_STEPS = 3  # engine steps in the decode window
 TOP = 12  # kernels listed per window
+FAMILIES = {
+    "K1": ("paged_decode_kernel", "paged_merge_kernel"),
+    "K2": ("paged_store_kernel",),
+    "gemm (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass"),
+}
 
 
 def _device_us(event) -> float:
@@ -149,16 +155,21 @@ def main(argv=None) -> int:
     wave(args.chunk)
     wall_ms = _timed(engine, 1)
     wave(args.chunk)
-    admit = profiled(engine.step, 1, wall_ms)
+    admit = profiled(engine.step, 1, wall_ms, FAMILIES)
     wave(budget)
     engine.step()
     wall_ms = _timed(engine, DECODE_STEPS)
-    decode = profiled(engine.step, DECODE_STEPS, wall_ms)
+    decode = profiled(engine.step, DECODE_STEPS, wall_ms, FAMILIES)
     counts = paged_attention.counters()
     print(f"{smi}; prompts {lengths.tolist()}, chunk {args.chunk}")
     print_window("admission wave + one decode chunk", admit)
     print_window(f"decode ({DECODE_STEPS} steps of {args.chunk} "
                   f"passes)", decode)
+    for title, w in (("admission", admit), ("decode", decode)):
+        for family, ms in sorted((w["families_ms"] or {}).items(),
+                                 key=lambda kv: -kv[1]):
+            print(f"  {title} family {family}: {ms:.3f} ms "
+                  f"({ms / w['device_ms']:.1%} of device time)")
     print(json.dumps({"device": smi, "prompts": lengths.tolist(),
                       "admit": admit, "decode": decode,
                       "kernel_counts": counts}))

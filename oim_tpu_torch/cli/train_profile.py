@@ -40,7 +40,7 @@ from oim_tpu_torch.serve.engine import resolve_device
 WARMUP = 2  # steps before the windows (allocator and cuBLAS warm-up)
 STEPS = 2  # steps in each window
 FAMILIES = {
-    "flash_fwd": ("flash_fwd_kernel",),
+    "flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel"),
     "flash_dq": ("flash_dq_kernel", "flash_dq_tc_kernel"),
     "flash_dkv": ("flash_dkv_kernel", "flash_dkv_tc_kernel", "dkv_sum_kernel"),
     "rmsnorm": ("rmsnorm_kernel",),

@@ -1,7 +1,8 @@
 // Flash attention for Hopper (sm_90a), written by hand in CUDA C++:
 // forward, dq and dkv.
 //
-// flash_fwd_kernel replaces oim_tpu/ops/flash_attention.py _fwd_kernel;
+// flash_fwd_tc_kernel (bf16) and flash_fwd_kernel (f32) replace
+// oim_tpu/ops/flash_attention.py _fwd_kernel;
 // flash_dq_tc_kernel (bf16) and flash_dq_kernel (f32) replace _dq_kernel;
 // flash_dkv_tc_kernel (bf16, with dkv_sum_kernel) and flash_dkv_kernel
 // (f32) replace _dkv_kernel.  They compute what the TPU kernels compute,
@@ -30,19 +31,23 @@
 // q/k/v/dO once (a few MB).  In bf16 against the tensor cores' 989
 // TFLOP/s the bounds are 13, 20 and 26 microseconds.
 //
-// The bf16 backward (the training path) runs on the tensor cores:
+// The bf16 route (the training path: forward and backward) runs on the
+// tensor cores:
 //
 //   - Every product is mma.sync m16n8k16 on bf16 fragments with f32
 //     accumulators (common.cuh), operands fetched with ldmatrix (.trans
 //     where the product needs the tile transposed).  P and dS are
 //     rounded to bf16 only as operands of the next product, as the TPU's
 //     MXU rounds f32 operands at default precision; the scores, the
-//     softmax and dS are f32.  wgmma on 64-row warpgroup tiles (with TMA
-//     and a producer warp) is the route to the full rate and is left for
-//     a later change: both kernels run at about 160 TFLOP/s.
+//     softmax, its row sums and dS are f32.  wgmma on 64-row warpgroup
+//     tiles (with TMA and a producer warp) is the route to the full rate
+//     and is left for a later change: dq and dkv run at about 160
+//     TFLOP/s.
 //   - 4 warps (128 threads), each owning 16 rows of the block's output,
-//     so P and dS never leave registers: in dq the accumulator layout of
-//     S and dP is the A-fragment layout of dS K; dkv computes the
+//     so P and dS never leave registers: in the forward and in dq the
+//     accumulator layout of S (and dP) is the A-fragment layout of P V
+//     (and dS K), and the forward holds Q's A fragments for the whole
+//     walk; dkv computes the
 //     transposed scores S^T = K Q^T and dP^T = V dO^T with keys as the
 //     fragment rows, so P^T and dS^T are the A operands of dV and dK
 //     straight from the accumulators, and lse and delta are per column.
@@ -50,44 +55,48 @@
 //     within the parity test's limits (the k-bias gradient, the residue
 //     of sum_j dS_ij = 0, is the closest), so dK takes no extra
 //     precision.
-//   - Tiles: dq owns 64 q rows and streams 32-key K/V tiles; dkv owns 64
-//     keys and streams 32-row q/dO tiles (with their lse, delta and
-//     segment ids).  A warp holds its 16 x hd output accumulators (64 f32
-//     registers at hd 128; dkv holds dK and dV, 128) plus a 16 x 32
-//     score and dP tile (32): ptxas gives dq 200 registers and dkv 246 at
-//     hd 128, no spill, so two blocks (8 warps) fit an SM's 65,536.
-//     Larger tiles would spill dkv or drop to one block an SM.  Operands
-//     stay bf16 in shared memory with rows padded to hd + 8 elements (272
-//     bytes at hd 128), so the eight row addresses of an ldmatrix fall in
-//     distinct banks.
-//   - A three-stage ring filled with cp.async: the streamed tiles of
-//     step i + 2 load while step i is multiplied, with one __syncthreads
-//     a step (the stage being refilled was last read a step earlier).
-//     Shared memory: 2 x 64 rows resident + 3 stages x 2 x 32 rows =
-//     86 KB at hd 128, two blocks an SM.
-//   - dkv's grid is (B * KVH * split, key tiles), key tiles slowest, so
-//     the blocks of key tile 0 (under causal attention the heaviest: they
-//     see every q tile) launch first; dq's q tiles launch last-first for
-//     the same reason.  `split` cuts each kv head's group of q heads into
-//     partitions of group / split heads: a block walks only its
-//     partition's heads, so no block owns a long chain while the others
+//   - Tiles: the forward and dq own 64 q rows and stream 32-key K/V tiles;
+//     dkv owns 64 keys and streams 32-row q/dO tiles (with their lse, delta
+//     and segment ids).  The forward's online softmax runs on the
+//     accumulators in base 2 (max and sum over a quad's four lanes).  A
+//     warp holds its 16 x hd output accumulators (64 f32 registers at hd
+//     128; dkv holds dK and dV, 128) plus a 16 x 32 score and dP tile (32),
+//     and the forward also holds Q's A fragments for all of hd (32): ptxas
+//     gives the forward and dq 200 registers and dkv 246 at hd 128, no
+//     spill, so two blocks (8 warps) fit an SM's 65,536.  Larger tiles
+//     would spill dkv or drop to one block an SM.  Operands stay bf16 in
+//     shared memory with rows padded to hd + 8 elements (272 bytes at hd
+//     128), so the eight row addresses of an ldmatrix fall in distinct
+//     banks.
+//   - A three-stage ring filled with cp.async: the streamed tiles of step i
+//     + 2 load while step i is multiplied, with one __syncthreads a step
+//     (the stage being refilled was last read a step earlier).  Shared
+//     memory at hd 128: 2 x 64 rows resident + 3 stages x 2 x 32 rows = 86
+//     KB for dq and dkv, 69 KB for the forward (one resident tile), two
+//     blocks an SM.
+//   - dkv's grid is (B * KVH * split, key tiles), key tiles slowest, so the
+//     blocks of key tile 0 (under causal attention the heaviest: they see
+//     every q tile) launch first; the forward's and dq's q tiles launch
+//     last-first for the same reason.  `split` cuts each kv head's group of
+//     q heads into partitions of group / split heads: a block walks only
+//     its partition's heads, so no block owns a long chain while the others
 //     idle (at the training shape the key-tile-0 block of the whole group
-//     walks 6 x 32 q tiles, the mean block 102).  With split > 1 each
-//     block writes f32 partial dk/dv and dkv_sum_kernel adds the split
-//     partials in partition order and casts to k's dtype; with split 1
-//     the block writes dk/dv directly.  The wrapper chooses split
+//     walks 6 x 32 q tiles, the mean block 102).  With split > 1 each block
+//     writes f32 partial dk/dv and dkv_sum_kernel adds the split partials
+//     in partition order and casts to k's dtype; with split 1 the block
+//     writes dk/dv directly.  The wrapper chooses split
 //     (ops/flash_attention.py dkv_split: the smallest that gives 4 blocks
 //     an SM, 6 at the training shape, 768 blocks).  There splits 3 and 6
 //     time the same and 2 and 1 take 1.3 and 2.1 times as long: split 6's
-//     50 MB of f32 partials, written and read back, cost less than the
-//     idle tail of a grid with fewer, longer blocks (PERF.md).
+//     50 MB of f32 partials, written and read back, cost less than the idle
+//     tail of a grid with fewer, longer blocks (PERF.md).
 //
-// The f32 route keeps exact f32 arithmetic (no TF32): flash_dq_kernel and
-// flash_dkv_kernel on CUDA cores, 256 threads as a 16 x 16 grid, each
-// thread holding a register tile of scores and of its output rows;
-// operand tiles staged in shared memory as f32 with rows padded to hd + 1
-// floats; dkv walks the whole group in one block (split 1).  The forward
-// (both dtypes) is still that CUDA-core design.
+// The f32 route keeps exact f32 arithmetic (no TF32): flash_fwd_kernel,
+// flash_dq_kernel and flash_dkv_kernel on CUDA cores, 256 threads as a
+// 16 x 16 grid, each thread holding a register tile of scores and of its
+// output rows; operand tiles staged in shared memory as f32 with rows
+// padded to hd + 1 floats; dkv walks the whole group in one block
+// (split 1).
 #include "flash_attention.cuh"
 
 #include <math.h>
@@ -190,7 +199,8 @@ __device__ __forceinline__ float row16_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one block per (64-row q tile, b*H + h).  Thread (ty, tx) owns
+// Forward on the CUDA cores (the f32 route): one block per (64-row q
+// tile, b*H + h).  Thread (ty, tx) owns
 // q rows ty + 16i (i < 4): scores of keys tx + 16j (j < 2) and output
 // columns tx + 16c (c < hd / 16).
 
@@ -565,7 +575,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 backward on the tensor cores (design in the note at the top).
+// The bf16 route on the tensor cores (design in the note at the top).
 
 using bf16 = __nv_bfloat16;
 
@@ -574,6 +584,7 @@ constexpr int kTcRows = 64;      // rows a block owns: dq's q, dkv's keys
 constexpr int kTcStep = 32;      // rows a stage streams: dq's keys, dkv's q
 constexpr int kStages = 3;       // cp.async ring depth
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // A bf16 tile row in shared memory: hd + 8 elements, so the 8 rows of
 // an ldmatrix start 16 bytes apart in the 32 banks.
@@ -699,6 +710,172 @@ __device__ __forceinline__ void out_product(const uint32_t (&a)[4],
     const uint32_t b0[2] = {fb[0], fb[1]}, b1[2] = {fb[2], fb[3]};
     mma_bf16(acc[2 * np], a, b0);
     mma_bf16(acc[2 * np + 1], a, b1);
+  }
+}
+
+// Shared-memory bytes of the forward: the q tile, the ring's K and V
+// tiles, and the segment ids of each stage's keys and of the q rows.
+template <int HD>
+constexpr size_t fwd_tc_smem_bytes() {
+  return sizeof(bf16) * kRowStride<HD> * (kTcRows + kStages * 2 * kTcStep) +
+         sizeof(int) * (kStages * kTcStep + kTcRows);
+}
+
+// Forward: one block per (b*H + h, 64-row q tile), q tiles last-first
+// under causal attention (the heaviest start first); warp w owns q rows
+// 16w ... 16w + 15.  Q's A fragments are loaded once; per 32-key step S =
+// Q K^T lands in f32 accumulators, the online softmax runs on them in
+// base 2 (row max and sum over the four lanes of a quad, masked pairs
+// exactly 0), and O += P V takes P rounded to bf16 as its A operand, V
+// through ldmatrix .trans.  The row sum l is of the f32 probabilities.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 2) flash_fwd_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int32_t* __restrict__ seg,
+    bf16* __restrict__ out, float* __restrict__ lse, int T, int H, int KVH,
+    int causal, int window, float scale) {
+  constexpr int BQ = kTcRows, BK = kTcStep, RS = kRowStride<HD>;
+  constexpr int NT = BK / 8, ND = HD / 8, KK = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][RS]
+  bf16* ring = qs + BQ * RS;  // stage s: K, V [BK][RS] at ring + 2 s BK RS
+  int* segk_ring = reinterpret_cast<int*>(ring + kStages * 2 * BK * RS);
+  int* segq = segk_ring + kStages * BK;  // [BQ]
+  const bool segmented = seg != nullptr;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int kvh = h / (H / KVH);
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BQ;
+
+  copy_tile<HD, BQ>(qs, q, b, q0, T, H, h);
+  if (segmented) copy_words(segq, seg + static_cast<size_t>(b) * T, q0, BQ, T);
+
+  int k_begin, k_end;
+  key_range(q0, BQ, T, causal, window, &k_begin, &k_end);
+  const int kt0 = k_begin / BK;
+  const int n = (k_end + BK - 1) / BK - kt0;
+  auto prefetch = [&](int i) {  // start step i's copies; one group a step
+    if (i < n) {
+      const int st = i % kStages, k0 = (kt0 + i) * BK;
+      bf16* ks = ring + st * 2 * BK * RS;
+      copy_tile<HD, BK>(ks, k, b, k0, T, KVH, kvh);
+      copy_tile<HD, BK>(ks + BK * RS, v, b, k0, T, KVH, kvh);
+      if (segmented)
+        copy_words(segk_ring + st * BK, seg + static_cast<size_t>(b) * T, k0,
+                   BK, T);
+    }
+    cp_async_commit();
+  };
+  prefetch(0);  // the same group as the q tile
+  prefetch(1);
+
+  // Q's A fragments for the warp's 16 rows, all of hd, once.
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qa[KK][4];
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+    ldmatrix_x4(qa[kk], qs + (r0 + lane % 16) * RS + (lane / 16) * 8 + kk * 16);
+
+  float acc[ND][4];
+#pragma unroll
+  for (int c = 0; c < ND; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  // Rows r0 + g and r0 + g + 8: running max (of scores times scale·log2 e)
+  // and this lane's share of the row sum.
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
+  const float c2 = scale * kLog2e;
+  const int b_off = (lane % 8 + 8 * (lane / 16)) * RS + 8 * ((lane / 8) % 2);
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<1>();  // step i's tiles landed
+    __syncthreads();     // ... for every thread; step i - 1's reads done
+    prefetch(i + 2);     // into the stage step i - 1 read
+    const int st = i % kStages, k0 = (kt0 + i) * BK;
+    const bf16* ks = ring + st * 2 * BK * RS;
+    const bf16* vs = ks + BK * RS;
+    const int* segk = segk_ring + st * BK;
+
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t fb[4];
+        ldmatrix_x4(fb, ks + np * 16 * RS + b_off + kk * 16);
+        const uint32_t b0[2] = {fb[0], fb[1]}, b1[2] = {fb[2], fb[3]};
+        mma_bf16(s[2 * np], qa[kk], b0);
+        mma_bf16(s[2 * np + 1], qa[kk], b1);
+      }
+    }
+
+    // Scores in base 2, masked pairs at kNegBig; the rows' new maxima.
+    const bool unmasked =
+        !segmented && tile_unmasked(q0 + r0, 16, k0, BK, T, causal, window);
+    float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int iq = r0 + g + 8 * (e / 2), ik = j * 8 + 2 * t + (e % 2);
+        const bool ok =
+            unmasked || attends(q0 + iq, k0 + ik, T, causal, window,
+                                segmented ? segq : nullptr, segk, iq, ik);
+        s[j][e] = ok ? s[j][e] * c2 : kNegBig;
+        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_next = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_next);
+      m[r] = m_next;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            s[j][e] == kNegBig ? 0.f : exp2f(s[j][e] - m[e / 2]);
+        s[j][e] = p;
+        l[e / 2] += p;
+      }
+#pragma unroll
+    for (int c = 0; c < ND; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] *= alpha[e / 2];
+    // O += P V, P as bf16 A fragments straight from the accumulators.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      acc_to_a(s, kk, a);
+      out_product<HD>(a, vs, kk, acc);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + r0 + g + 8 * r;
+    if (row >= T) continue;
+    const float lv = fmaxf(l[r], 1e-30f);
+    bf16* o = out + ((static_cast<size_t>(b) * T + row) * H + h) * HD + 2 * t;
+#pragma unroll
+    for (int c = 0; c < ND; ++c)
+      *reinterpret_cast<uint32_t*>(o + c * 8) =
+          pack_bf16(acc[c][2 * r] / lv, acc[c][2 * r + 1] / lv);
+    if (t == 0)
+      lse[static_cast<size_t>(bh) * T + row] = (m[r] + log2f(lv)) * kLn2;
   }
 }
 
@@ -1003,15 +1180,27 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int32_t* seg, void* out, float* lse, int B,
                        int T, int H, int KVH, int causal, int window,
                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * fwd_floats<HD>();
-  auto kernel = flash_fwd_kernel<HD, DT>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + kFwdBQ - 1) / kFwdBQ, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const DT*>(q), static_cast<const DT*>(k),
-      static_cast<const DT*>(v), seg, static_cast<DT*>(out), lse, T, H, KVH,
-      causal, window, softmax_scale(HD));
+  if constexpr (std::is_same_v<DT, bf16>) {
+    const size_t smem = fwd_tc_smem_bytes<HD>();
+    auto kernel = flash_fwd_tc_kernel<HD>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(B * H, (T + kTcRows - 1) / kTcRows);
+    kernel<<<grid, kTcThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), seg, static_cast<bf16*>(out), lse, T, H,
+        KVH, causal, window, softmax_scale(HD));
+  } else {
+    const size_t smem = sizeof(float) * fwd_floats<HD>();
+    auto kernel = flash_fwd_kernel<HD, DT>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((T + kFwdBQ - 1) / kFwdBQ, B * H);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const DT*>(q), static_cast<const DT*>(k),
+        static_cast<const DT*>(v), seg, static_cast<DT*>(out), lse, T, H, KVH,
+        causal, window, softmax_scale(HD));
+  }
   return cudaGetLastError();
 }
 

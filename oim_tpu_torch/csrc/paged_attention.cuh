@@ -17,13 +17,16 @@ extern "C" {
 // _decode_kernel).  q [B, t, H, hd]; pools [n_blocks, block_size, KVH,
 // hd]; scales [n_blocks, block_size, KVH] f32 (int8 pools only, else
 // null); tables [B, n_tables] int32; starts [B] int32; out [B, t, H, hd]
-// f32.  Query row i of slot b sits at position starts[b] + i.
+// f32.  Query row i of slot b sits at position starts[b] + i.  Each
+// split walks `entries` table entries; with n_splits = ceil(n_tables /
+// entries) > 1, `partials` holds n_splits * B * t * H * (hd + 2) f32 of
+// scratch (else it may be null), and a second launch merges the splits.
 int oim_paged_flash_decode(
     const void* q, int q_dtype, const void* k_pool, const void* v_pool,
     int kv_dtype, const float* k_scale, const float* v_scale,
-    const int32_t* tables, const int32_t* starts, float* out, int B, int t,
-    int H, int KVH, int hd, int n_blocks, int block_size, int n_tables,
-    int window, void* stream);
+    const int32_t* tables, const int32_t* starts, float* out,
+    float* partials, int B, int t, int H, int KVH, int hd, int n_blocks,
+    int block_size, int n_tables, int window, int entries, void* stream);
 
 // K2 — prefill K/V store with fused int8 quant (replaces
 // _prefill_stage_kernel plus its paged_store_blocks landing).  Writes

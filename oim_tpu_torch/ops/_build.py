@@ -18,6 +18,7 @@ naming the kernel, since a refused launch never runs and a later
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,11 +46,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # q, q_dtype, k_pool, v_pool, kv_dtype, k_scale, v_scale, tables,
-    # starts, out, B, t, H, KVH, hd, n_blocks, block_size, n_tables,
-    # window, stream
+    # starts, out, partials, B, t, H, KVH, hd, n_blocks, block_size,
+    # n_tables, window, entries, stream
     "oim_paged_flash_decode": (
-        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # k_new, v_new, new_dtype, k_pool, v_pool, pool_dtype, k_scale,
     # v_scale, tables, starts, B, t, KVH, hd, n_blocks, block_size,
@@ -198,6 +199,13 @@ def gpu_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors: what the split rules size
+    their grids against."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -5,9 +5,10 @@ differentiable ``flash_attention`` the training forward calls.
 Kernels (``csrc/flash_attention.cu``), each replacing one TPU kernel of
 ``oim_tpu/ops/flash_attention.py``:
 
-- ``flash_fwd`` → ``flash_fwd_kernel`` (``_fwd_kernel``): causal
-  online-softmax attention with GQA, sliding window and segment ids;
-  returns the output and the per-row logsumexp ``lse`` [B·H, T] f32.
+- ``flash_fwd`` → ``flash_fwd_tc_kernel`` in bf16, ``flash_fwd_kernel``
+  in f32 (``_fwd_kernel``): causal online-softmax attention with GQA,
+  sliding window and segment ids; returns the output and the per-row
+  logsumexp ``lse`` [B·H, T] f32.
 - ``flash_dq`` → ``flash_dq_tc_kernel`` in bf16, ``flash_dq_kernel`` in
   f32 (``_dq_kernel``): dq, recomputing the probabilities from (q, k,
   lse).
@@ -15,8 +16,9 @@ Kernels (``csrc/flash_attention.cu``), each replacing one TPU kernel of
   bf16, ``flash_dkv_kernel`` in f32 (``_dkv_kernel``): dk and dv
   together, summed over each kv head's group of q heads.
 
-The bf16 backward (the training path) runs on the tensor cores; f32
-keeps exact f32 arithmetic on the CUDA cores.  The bf16 dkv cuts each kv
+The bf16 route (the training path: forward and backward) runs on the
+tensor cores, rounding P (and dS) to bf16 only as operands of their
+products; f32 keeps exact f32 arithmetic on the CUDA cores.  The bf16 dkv cuts each kv
 head's group into ``split`` partitions of q heads, one block each, and
 sums their f32 partials in a fixed order (``dkv_split`` chooses
 ``split``).
@@ -33,8 +35,6 @@ k``; masked pairs get probability 0 (the reference's ``-1e30``).
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -336,11 +336,6 @@ def dkv_split(batch_kv: int, group: int, t: int, sms: int) -> int:
     return group
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def flash_dkv(q, k, v, dout, lse, delta, causal=True, window=0,
               segments=None, split=None):
     """(dk, dv) [B, T, KVH, D] in k's dtype, each summed over its kv
@@ -367,7 +362,7 @@ def flash_dkv(q, k, v, dout, lse, delta, causal=True, window=0,
             raise ValueError("flash_dkv: the f32 kernel takes no split")
         split = 1
     elif split is None:
-        split = dkv_split(b * kvh, group, t, _sm_count(q.device))
+        split = dkv_split(b * kvh, group, t, _build.sm_count(q.device))
     dk = torch.empty_like(ops["k"])
     dv = torch.empty_like(ops["v"])
     partials = None

@@ -2,12 +2,15 @@
 of the serving path and their plain PyTorch versions.
 
 ``paged_flash_decode`` (kernel K1, ``csrc/paged_attention.cu``
-``paged_decode_kernel``) replaces ``oim_tpu/ops/paged_attention.py``
-``_decode_kernel``: attention for q rows at per-slot positions, reading
-K/V through each slot's block table with no gathered view, online
-softmax in f32, GQA folded into the row axis, int8 dequant fused at the
-load.  ``paged_kv_store`` (kernel K2, ``paged_store_kernel``) replaces
-``_prefill_stage_kernel`` together with its ``paged_store_blocks``
+``paged_decode_kernel`` and ``paged_merge_kernel``) replaces
+``oim_tpu/ops/paged_attention.py`` ``_decode_kernel``: attention for q
+rows at per-slot positions, reading K/V through each slot's block table
+with no gathered view, online softmax in f32, GQA folded into the row
+axis, int8 dequant fused where the values are consumed.  The kernel
+splits each slot's table into ranges of ``decode_split`` entries that
+run as separate blocks and merges their partial softmax states in a
+fixed order.  ``paged_kv_store`` (kernel K2, ``paged_store_kernel``)
+replaces ``_prefill_stage_kernel`` together with its ``paged_store_blocks``
 landing: a segment's fresh K/V rows are written into the slot's blocks
 in place, quantized exactly as ``quantize_int8`` does.
 ``paged_flash_prefill`` is K2 then K1 over the updated pool — a
@@ -43,6 +46,11 @@ HEAD_DIMS = (64, 128)
 MAX_BLOCK_SIZE = 64
 # K2 runs one warp per kv head in a block of at most 1024 threads.
 MAX_KV_HEADS = 32
+# K1: a slot's q rows (t x group, flattened) fall in ceil(t·group /
+# Q_TILE_ROWS) tiles, one block each; decode_split aims for
+# DECODE_BLOCKS_PER_SM blocks an SM.
+Q_TILE_ROWS = 16
+DECODE_BLOCKS_PER_SM = 2
 
 
 def supported_block_size(block_size: int, head_dim: int) -> bool:
@@ -169,8 +177,26 @@ def paged_flash_decode_plain(
 paged_flash_decode_plain.calls = 0
 
 
+def decode_split(batch_kv: int, tiles: int, n_tables: int, sms: int) -> int:
+    """Table entries each split of K1 walks, given B·KVH, the q-row
+    tiles of a slot (``ceil(t·group / Q_TILE_ROWS)``), the table's
+    entries and the card's SM count — host-known sizes only, so the
+    engine's decode pass never syncs to size the grid.  The fewest
+    splits whose grid (tiles × B·KVH × splits) reaches
+    ``DECODE_BLOCKS_PER_SM`` blocks an SM, at most one a table entry,
+    then the entries that cut the table into that many ranges.  At
+    decode a slot's walk is otherwise one serial chain on a near-empty
+    card; a prefill's tiles already fill it, and it keeps one split."""
+    if n_tables < 1:
+        return 1
+    per_split = max(1, batch_kv * tiles)
+    splits = max(1, min(n_tables, -(-DECODE_BLOCKS_PER_SM * sms // per_split)))
+    return -(-n_tables // splits)
+
+
 def paged_flash_decode(
-    q, k_pool, v_pool, k_scale, v_scale, tables, starts, *, window: int = 0
+    q, k_pool, v_pool, k_scale, v_scale, tables, starts, *, window: int = 0,
+    splits: int | None = None,
 ):
     """Attention for q rows straight off the paged pool.
 
@@ -180,8 +206,13 @@ def paged_flash_decode(
     [B, n_tables] int32, sentinel entry ``n_blocks``; starts: [B] int32
     — q row i of slot b sits at position ``starts[b] + i`` and attends
     positions ``<=`` it (within ``window`` when > 0).  Returns [B, t, H,
-    hd] float32.  CUDA tensors launch K1; CPU tensors run the plain
-    version."""
+    hd] float32.  ``splits`` asks K1 to cut each table into that many
+    ranges of ``ceil(n_tables / splits)`` entries (None: ``decode_split``'s
+    choice); it shapes only the kernel's grid, not the result.  CUDA
+    tensors launch K1 (one launch counted a call, the merge of the
+    splits included); CPU tensors run the plain version."""
+    if splits is not None and splits < 1:
+        raise ValueError(f"paged_flash_decode: splits {splits} must be >= 1")
     b, t, h, hd = q.shape
     _check_shapes("paged_flash_decode", b, k_pool, v_pool, k_scale,
                   v_scale, tables, starts)
@@ -201,14 +232,26 @@ def paged_flash_decode(
                            v_scale, tables, starts)
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("K1 reads the pools in 16-byte chunks: align them")
+    n_tables = tables.shape[1]
+    if splits is None:
+        tiles = -(-t * (h // kvh) // Q_TILE_ROWS)
+        entries = decode_split(b * kvh, tiles, n_tables,
+                               _build.sm_count(q.device))
+    else:
+        entries = max(1, -(-n_tables // splits))
+    n_splits = max(1, -(-n_tables // entries))
     out = torch.empty((b, t, h, hd), dtype=torch.float32, device=q.device)
+    partials = None
+    if n_splits > 1:
+        partials = torch.empty(n_splits * b * t * h * (hd + 2),
+                               dtype=torch.float32, device=q.device)
     code = _build.library().oim_paged_flash_decode(
         _build.ptr(q), _code("q", q.dtype),
         _build.ptr(k_pool), _build.ptr(v_pool), _code("pool", k_pool.dtype),
         _build.ptr(k_scale), _build.ptr(v_scale),
         _build.ptr(tables), _build.ptr(starts), _build.ptr(out),
-        b, t, h, kvh, hd, n_blocks, block_size, tables.shape[1],
-        int(window), _build.stream_of(q),
+        _build.ptr(partials), b, t, h, kvh, hd, n_blocks, block_size,
+        n_tables, int(window), entries, _build.stream_of(q),
     )
     _build.check(code, "paged_flash_decode")
     paged_flash_decode.launches += 1

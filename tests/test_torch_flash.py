@@ -226,3 +226,64 @@ def test_flash_dkv_split_is_checked_and_leaves_the_plain_result_alone():
     for split in (0, 2, 4):
         with pytest.raises(ValueError, match="must divide"):
             tfa.flash_dkv(q, k, v, do, lse, delta, split=split)
+
+
+def _fwd_tc_emulation(q, k, v, window, segments, block_keys=32):
+    """The bf16 tensor-core forward's arithmetic in plain PyTorch: raw
+    q·k scores in f32 from bf16 operands, an online softmax in base 2
+    over 32-key tiles with masked pairs exactly 0, P rounded to bf16 as
+    the operand of P·V while the row sum takes the f32 probabilities,
+    and one rounding of the output to bf16."""
+    b, t, h, hd = q.shape
+    group = h // k.shape[2]
+    kf = torch.repeat_interleave(k.float(), group, dim=2)
+    vt = torch.repeat_interleave(v.float(), group, dim=2).transpose(1, 2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf)
+    keep = tfa._keep(t, True, window, segments, q.device).expand(
+        b, h, t, t)
+    s2 = torch.where(keep, s * ((1.0 / hd**0.5) * 1.4426950408889634),
+                     tfa.NEG_BIG)
+    m = torch.full((b, h, t, 1), tfa.NEG_BIG)
+    l = torch.zeros((b, h, t, 1))
+    acc = torch.zeros((b, h, t, hd))
+    for k0 in range(0, t, block_keys):
+        tile = s2[..., k0:k0 + block_keys]
+        m_next = torch.maximum(m, tile.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_next)
+        p = torch.where(keep[..., k0:k0 + block_keys],
+                        torch.exp2(tile - m_next), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vt[:, :, k0:k0 + block_keys]
+        m = m_next
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).bfloat16()
+
+
+@pytest.mark.parametrize("segmented", [False, True], ids=["nosegs", "segs"])
+@pytest.mark.parametrize("t", [200, 1024])
+def test_bf16_forward_rounding_fits_the_kernel_tolerances(t, segmented):
+    """The bf16 forward rounds P to bf16 as the A operand of P·V (as
+    the TPU's MXU rounds f32 operands at default precision).  Emulated
+    on the CPU at the kernel tests' shapes (B=2, 12 q heads on 2 kv
+    heads, hd 128, window 64), that arithmetic stays within the limits
+    the card's tests hold the kernel to: one bf16 step (2**-7 + 1e-5 of
+    the max) of the plain version, and the autograd test's 2**-8 + 1e-5
+    of the max of the f32 reference formula."""
+    rng = np.random.default_rng(t + segmented)
+    q = _t(rng.standard_normal((2, t, 12, 128), np.float32)).bfloat16()
+    k, v = (_t(rng.standard_normal((2, t, 2, 128), np.float32)).bfloat16()
+            for _ in range(2))
+    seg = None
+    if segmented:
+        seg = _t(np.cumsum(rng.random((2, t)) < 0.03, axis=1,
+                           dtype=np.int32))
+    got = _fwd_tc_emulation(q, k, v, 64, seg)
+    plain, _ = tfa.flash_fwd_plain(q, k, v, True, 64, seg)
+    ref = tfa.reference_attention(q.float(), k.float(), v.float(), True,
+                                  seg, 64)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    assert rel(got, plain) <= 2.0**-7 + 1e-5
+    assert rel(got, ref) <= 2.0**-8 + 1e-5

@@ -13,9 +13,11 @@ installed ``tests`` package can shadow; these tests need none of it.)
 
 Tolerances: K2 writes the pool bytes ``paged_store`` writes, bit for
 bit.  K1 and the plain version compute in f32 from the same (bf16, f32
-or dequantized int8) values and differ only in summation order over at
-most 149 keys of unit-scale data: 1e-4 covers that, while a wrong block,
-mask or scale moves outputs by O(0.1).
+or dequantized int8) values and differ only in summation order (and K1
+merges split and warp partial sums by their maxima) over at most 2048
+keys of unit-scale data, whose softmax weights sum to one: 1e-4 covers
+that, while a wrong block, mask, split or scale moves outputs by
+O(0.1).
 """
 
 import pytest
@@ -129,6 +131,93 @@ def test_windowed_row_over_a_hole_emits_zeros(dtype):
     assert float((out - want).abs().max()) <= ATOL
 
 
+def _decode_case(dtype, t, seed=0, n_tables=128, bs=16):
+    """The serving decode shape at a small pool: 8 slots, 12 q heads on
+    2 kv heads, hd 128, 16-row blocks, 128 table entries; contexts from
+    0 to the whole table, one slot whose table turns sentinel partway
+    (so its later splits hold only sentinels), one all-sentinel slot.
+    At t > 1 the rows run from ``starts`` on (a tall prefill)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_blocks = 8 * n_tables
+    shape = (n_blocks, bs, 2, 128)
+    if dtype == torch.int8:
+        pools = [torch.randint(-127, 128, shape, generator=gen,
+                               device="cuda", dtype=torch.int8)
+                 for _ in range(2)]
+        pools += [torch.rand(shape[:-1], generator=gen, device="cuda") * 0.04
+                  + 0.005 for _ in range(2)]
+        qdt = torch.bfloat16
+    else:
+        pools = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for _ in range(2)] + [None, None]
+        qdt = dtype
+    ends = [0, 16, 299, 999, n_tables * bs - 1, 776, 1500, -1]
+    perm = torch.randperm(n_blocks, generator=gen, device="cuda").int()
+    tables = torch.full((8, n_tables), n_blocks, dtype=torch.int32,
+                        device="cuda")
+    starts = []
+    for b, end in enumerate(ends):
+        if end < 0:
+            starts.append(5)
+            continue
+        start = max(0, end - t + 1)
+        live = min(n_tables, (start + t - 1) // bs + 1)
+        if b == 6:
+            live = 40  # positions past 640 fall in sentinel entries
+        tables[b, :live] = perm[b * n_tables:b * n_tables + live]
+        starts.append(start)
+    starts = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    q = torch.randn((8, t, 12, 128), generator=gen, device="cuda").to(qdt)
+    return q, pools, tables, starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1, 2, 3, 8, 16, 128],
+                         ids=lambda s: f"splits{s}")
+@pytest.mark.parametrize("window", [0, 256])
+@pytest.mark.parametrize("t", [1, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=["f32", "bf16", "int8"])
+def test_decode_split_sweep_matches_plain(dtype, t, window, splits):
+    """K1 at every split of the table — one range, a few, one entry
+    each, and decode_split's choice — agrees with the plain version,
+    the all-sentinel slot emits zeros, two launches give the same bits,
+    and one wrapper call counts one launch, the merge included."""
+    _need_gpu()
+    q, pools, tables, starts = _decode_case(dtype, t)
+    args = (q, *pools, tables, starts)
+    before = pa.counters()["paged_flash_decode"]
+    got = pa.paged_flash_decode(*args, window=window, splits=splits)
+    again = pa.paged_flash_decode(*args, window=window, splits=splits)
+    want = pa.paged_flash_decode_plain(*args, window=window)
+    torch.cuda.synchronize()
+    assert pa.counters()["paged_flash_decode"] == before + 2
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert not got[7].any()
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1, 4], ids=lambda s: f"splits{s}")
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_tall_prefill_split_matches_plain(dtype, splits):
+    """The tall route at t = 512 (the smoke's prefill bucket) over the
+    same slots: every split agrees with the plain version, bit-equal
+    twice."""
+    _need_gpu()
+    q, pools, tables, starts = _decode_case(dtype, 512, seed=1)
+    args = (q, *pools, tables, starts)
+    got = pa.paged_flash_decode(*args, splits=splits)
+    again = pa.paged_flash_decode(*args, splits=splits)
+    want = pa.paged_flash_decode_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert not got[7].any()
+    assert float((got - want).abs().max()) <= ATOL
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     _need_gpu()
@@ -141,6 +230,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="head_dim"):
         pa.paged_flash_decode(q[..., :96].contiguous(), *bad, None, None,
                               tables, starts)
+    with pytest.raises(ValueError, match="splits"):
+        pa.paged_flash_decode(q, *pools, tables, starts, splits=0)
     with pytest.raises(ValueError, match="on cpu"):
         pa.paged_kv_store(kn, vn, pools[0].cpu(), pools[1], None, None,
                           tables, starts)
@@ -332,6 +423,25 @@ def test_flash_backward_is_deterministic(segmented, split):
     want = (fa.flash_dq_plain(*bwd),) + fa.flash_dkv_plain(*bwd)
     for got, ref in zip(first, want):
         assert _rel(got, ref) <= TRAIN_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1024, 1000])
+@pytest.mark.parametrize("window", [0, 256])
+@pytest.mark.parametrize("segmented", [False, True], ids=["nosegs", "segs"])
+def test_flash_forward_is_deterministic(segmented, window, t):
+    """The bf16 forward (tensor cores) launched twice on the same inputs
+    gives the same bits, output and lse, and agrees with the plain
+    version."""
+    _need_gpu()
+    q, k, v, _, seg = _flash_case(torch.bfloat16, 128, t, 6, segmented)
+    out, lse = fa.flash_fwd(q, k, v, True, window, seg)
+    out2, lse2 = fa.flash_fwd(q, k, v, True, window, seg)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, True, window, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert _rel(out, ref_out) <= TRAIN_TOL[torch.bfloat16]
+    assert _rel(lse, ref_lse) <= TRAIN_TOL[torch.float32]
 
 
 @pytest.mark.cuda
