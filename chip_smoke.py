@@ -12,10 +12,17 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-``--kernel-phase-only [--package DIR]`` runs only the K1/K2 kernel
-phase, with the port's package loaded from DIR (another checkout, such
-as a parent commit unpacked beside this one), so that two versions of
-the kernels are timed on the same inputs in one run of the card.
+``--kernel-phase-only [--package DIR]`` runs only the kernel phases
+that time two builds against each other — K1/K2, then RMSNorm and the
+fused-CE entries at the training shape with digests of their outputs,
+the host's time to enqueue each, and a full step's fused-CE backward by
+scratch width — with the port's package loaded from DIR (another
+checkout, such as a parent commit unpacked beside this one), so that two
+versions of the kernels are timed on the same inputs in one run of the
+card.  ``--train-phase-only [--package DIR]`` likewise runs only the
+training configuration's steps and prints their wall times and peak
+memory; run both builds in turns (parent, change, change, parent) to
+compare their steps in one call.
 
 It exits non-zero without a result line when no GPU is visible, when the
 port's package is not beside it, or when any phase fails.  Every number
@@ -127,6 +134,10 @@ LORA_RANK = 8
 # table cut into 1 ... 64 ranges) and at the 512-token prefill.
 DECODE_SPLITS = (1, 2, 4, 8, 16, 32, 64)
 PREFILL_SPLITS = (1, 2, 4)
+# Vocabulary columns per chunk at which --kernel-phase-only times a full
+# step's fused-CE backward (chunk_columns gives 32768 at the training
+# shape on the wgmma route).
+CE_CHUNKS = (8192, 16384, 32768, 65536)
 # Device sleep that every timed series queues behind: 2e8 cycles, about
 # 0.1 s at the H100's clocks, covers the host's enqueue of the series.
 SLEEP_CYCLES = 200_000_000
@@ -168,6 +179,23 @@ def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def host_ms(fn, runs: int = 10, warmup: int = 3) -> float:
+    """Median host time in ms to enqueue one ``fn`` call, every call
+    issued behind a long device sleep so that the host never waits for
+    the device (a call that synchronises inside waits out the sleep)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    spent = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        spent.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(spent)) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -540,6 +568,11 @@ def serve_phase() -> dict:
         check(counts["paged_flash_decode"] == args.n_layers * passes
               and counts["paged_kv_store"] == args.n_layers * passes,
               f"launches {counts} != {args.n_layers} x {passes} passes")
+        print(f"serve: K1's tall route (admission prefill, 16-row tiles) "
+              f"launched {stats['prefill_dispatches'] * args.n_layers} "
+              f"times ({stats['prefill_dispatches']} admission dispatches x "
+              f"{args.n_layers} layers), K1 at decode "
+              f"{stats['decode_passes'] * args.n_layers}", flush=True)
         # Time to first token of a lone 512-token prompt (client wall,
         # HTTP included), and the engine's decode rate.
         t0 = time.monotonic()
@@ -746,8 +779,12 @@ def train_kernel_phase() -> dict:
                 moved = 2 * x.numel() * x.element_size() + w.numel() * 4
                 bnd, by = bound(moved, 4 * x.numel(), torch.float32)
                 print(f"rmsnorm {tag}: {ms:.4f} ms (plain {plain_ms:.4f}, "
-                      f"F.rms_norm {lib_ms:.4f}, bound {bnd:.5f} by {by}) "
-                      f"[{SMI}]", flush=True)
+                      f"F.rms_norm {lib_ms:.4f}, bound {bnd:.5f} by {by}; "
+                      f"{ms / lib_ms:.2f}x F.rms_norm, {bnd / ms:.0%} of the "
+                      f"byte bound) [{SMI}]", flush=True)
+                again = rn.rmsnorm_fwd(x, w, 1e-6)
+                check(torch.equal(again, got),
+                      f"rmsnorm {tag}: two launches give other bits")
                 record["rmsnorm"] = dict(max_abs_err=err, ms=ms,
                                          plain_ms=plain_ms, bound_ms=bnd,
                                          bound_by=by, library_ms=lib_ms)
@@ -812,18 +849,25 @@ def train_kernel_phase() -> dict:
 # Fused-CE kernel phase
 
 
+# Operations of each fused-CE entry in units of N·D·V: the forward's
+# scores (2); dx or dw alone, the scores then the product (4); the joint
+# backward, the scores once then both products (6).
+CE_OPS = {"fwd": 2, "dx": 4, "dw": 4, "bwd": 6}
+
+
 def ce_bound(n: int, d: int, v: int, dtype, kind: str) -> tuple[float, str]:
-    """Least time for one fused-CE kernel on [n, d] x and [d, v] w of
+    """Least time for one fused-CE entry on [n, d] x and [d, v] w of
     ``dtype``: x, w, labels (int32) and the per-row f32 inputs read once
-    and the outputs written once; 2·n·d·v operations for the forward's
-    scores, twice that for dx and dw (the scores, then the product)."""
+    and the outputs written once; ``CE_OPS[kind]``·n·d·v operations."""
     e = torch.tensor([], dtype=dtype).element_size()
     inputs = (n * d + d * v) * e + 4 * n
+    ops = CE_OPS[kind] * n * d * v
     if kind == "fwd":  # -> lse, target
-        return bound(inputs + 2 * 4 * n, 2 * n * d * v, dtype)
+        return bound(inputs + 2 * 4 * n, ops, dtype)
     inputs += 2 * 4 * n  # lse, g
-    out = n * d * e if kind == "dx" else d * v * 4
-    return bound(inputs + out, 4 * n * d * v, dtype)
+    out = (n * d * e if kind in ("dx", "bwd") else 0) + (
+        d * v * 4 if kind in ("dw", "bwd") else 0)
+    return bound(inputs + out, ops, dtype)
 
 
 def ce_case(gen, dtype, n, d=D_MODEL, v=VOCAB, masked_every=1024):
@@ -850,9 +894,16 @@ def check_ce(tag, x, w, labels, g) -> dict:
     ref_dx = fc.fused_ce_dx_plain(x, w, labels, ref_lse, g)
     dw = fc.fused_ce_dw(x, w, labels, ref_lse, g)
     ref_dw = fc.fused_ce_dw_plain(x, w, labels, ref_lse, g)
+    joint = fc.fused_ce_bwd(x, w, labels, ref_lse, g)
     torch.cuda.synchronize()
     check(dx.dtype == x.dtype and dw.dtype == torch.float32,
           f"fused_ce {tag}: dx {dx.dtype}, dw {dw.dtype}")
+    same = [bool(torch.equal(a, b)) for a, b in zip(joint, (dx, dw))]
+    print(f"fused_ce_bwd {tag} ({fc.route(x, w)} route): the joint "
+          f"backward's dx and dw bit-equal to dx and dw launched apart: "
+          f"{same}", flush=True)
+    check(all(same), f"fused_ce_bwd {tag}: joint differs from apart {same}")
+    del joint
     check(not bool(dx[g == 0].any()), f"fused_ce_dx {tag}: masked rows")
     errs = {}
     for name, got, want, limit in (
@@ -868,6 +919,8 @@ def check_ce(tag, x, w, labels, g) -> dict:
         check(rel <= limit, f"{name} {tag} disagrees: {rel:.3e} of max")
         key = name.split()[0]
         errs[key] = max(errs.get(key, 0.0), err)
+    # The joint backward's outputs are dx's and dw's bits (checked above).
+    errs["fused_ce_bwd"] = max(errs["fused_ce_dx"], errs["fused_ce_dw"])
     del ref_dx, ref_dw, dx, dw
     return errs
 
@@ -894,12 +947,33 @@ def unfused_ms(x, w, labels, g) -> tuple[float, float]:
     return time_ms(fwd), time_ms(bwd)
 
 
+def ce_determinism(tag, x, w, labels, lse, g) -> None:
+    """Two launches of the forward and of the joint backward on the same
+    inputs give the same bits (no float atomics; sums in a fixed
+    order)."""
+    from oim_tpu_torch.ops import fused_ce as fc
+
+    first = fc.fused_ce_fwd(x, w, labels) + fc.fused_ce_bwd(x, w, labels,
+                                                            lse, g)
+    again = fc.fused_ce_fwd(x, w, labels) + fc.fused_ce_bwd(x, w, labels,
+                                                            lse, g)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, again)]
+    print(f"fused_ce determinism {tag}: two launches bit-equal "
+          f"lse/target/dx/dw {same}", flush=True)
+    check(all(same), f"fused-CE kernels differ between launches: {same}")
+
+
 def fused_ce_phase() -> dict:
     """The fused-CE kernels at the training shape (N = 4096, D = 1536,
-    V = 151936, bf16 x, the f32 master w cast to bf16) and at a ragged
-    N = 1000 in bf16 and f32, held against their plain versions; then
-    timed at the training shape beside their bound and the unfused
-    path's time.  Returns the record per kernel."""
+    V = 151936, bf16 x, the f32 master w cast to bf16: the wgmma route)
+    and at a ragged N = 1000 in bf16 and f32 (the f32 case takes the
+    mma.sync route), held against their plain versions; then timed at
+    the training shape beside their bound, cuBLAS's bf16 ``x @ w`` (a
+    rate yardstick: no one PyTorch call computes CE without logits) and
+    the unfused path.  Returns the record per kernel: the forward, dx
+    alone (a LoRA step's backward) and the joint backward (a full
+    step's); dw alone runs on no path and is printed only."""
     from oim_tpu_torch.ops import fused_ce as fc
 
     gen = torch.Generator(device=DEV).manual_seed(2)
@@ -910,8 +984,17 @@ def fused_ce_phase() -> dict:
         del case
     x, w, labels, g = ce_case(gen, torch.bfloat16, n)
     tag = f"bf16 N={n} D={D_MODEL} V={VOCAB}"
+    check(fc.route(x, w) == "wgmma", f"the training shape takes the "
+          f"{fc.route(x, w)} route")
+    before = fc.counters()
     errs = check_ce(tag, x, w, labels, g)
+    after = fc.counters()
+    check(after["fused_ce_wgmma"] - before["fused_ce_wgmma"] == 4
+          and after["fused_ce_mma_sync"] == before["fused_ce_mma_sync"],
+          f"fused-CE route counts at the training shape: {before} -> "
+          f"{after}")
     lse, _ = fc.fused_ce_fwd_plain(x, w, labels)
+    ce_determinism(tag, x, w, labels, lse, g)
     timed = {
         "fused_ce_fwd": (lambda: fc.fused_ce_fwd(x, w, labels),
                          lambda: fc.fused_ce_fwd_plain(x, w, labels)),
@@ -919,14 +1002,26 @@ def fused_ce_phase() -> dict:
                         lambda: fc.fused_ce_dx_plain(x, w, labels, lse, g)),
         "fused_ce_dw": (lambda: fc.fused_ce_dw(x, w, labels, lse, g),
                         lambda: fc.fused_ce_dw_plain(x, w, labels, lse, g)),
+        "fused_ce_bwd": (lambda: fc.fused_ce_bwd(x, w, labels, lse, g),
+                         lambda: fc.fused_ce_bwd_plain(x, w, labels, lse, g)),
     }
+    nv = n * D_MODEL * VOCAB
+    cublas = time_ms(lambda: x @ w)
+    print(f"fused_ce {tag}: cuBLAS bf16 x @ w {cublas:.4f} ms, "
+          f"{2 * nv / cublas / 1e9:.1f} TFLOP/s (yardstick of the rate) "
+          f"[{SMI}]", flush=True)
     record = {}
     for name, (kernel, plain) in timed.items():
+        kind = name.split("_")[-1]
         ms = time_ms(kernel)
-        plain_ms = time_ms(plain)
-        bnd, by = ce_bound(n, D_MODEL, VOCAB, x.dtype, name.split("_")[-1])
-        print(f"{name} {tag}: {ms:.4f} ms (plain {plain_ms:.4f}, bound "
-              f"{bnd:.5f} by {by}; no one PyTorch call) [{SMI}]", flush=True)
+        plain_ms = time_ms(plain, runs=5)
+        bnd, by = ce_bound(n, D_MODEL, VOCAB, x.dtype, kind)
+        print(f"{name} {tag}: {ms:.4f} ms, {CE_OPS[kind] * nv / ms / 1e9:.1f}"
+              f" TFLOP/s (plain {plain_ms:.4f}, bound {bnd:.5f} by {by}; "
+              f"{ms / cublas:.2f}x cuBLAS x @ w; no one PyTorch call) "
+              f"[{SMI}]", flush=True)
+        if kind == "dw":  # no path runs dw alone
+            continue
         record[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                             bound_ms=bnd, bound_by=by, library_ms=None)
     fwd_ms, bwd_ms = unfused_ms(x, w, labels, g)
@@ -936,6 +1031,77 @@ def fused_ce_phase() -> dict:
     del x, w, labels, g, lse
     torch.cuda.empty_cache()
     return record
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of a tensor's bytes' SHA-256."""
+    import hashlib
+
+    raw = t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(raw).hexdigest()[:16]
+
+
+def compare_phase() -> dict:
+    """RMSNorm at [4096, 1536] (bf16 x, f32 w) and the fused-CE entries
+    at the training shape, on inputs drawn from fixed seeds, by whichever
+    package is loaded (``--package``): digests of their outputs, so that
+    two builds are compared bit for bit across runs; each entry's device
+    time and the host's time to enqueue it; and a full step's fused-CE
+    backward through ``fused_linear_ce``'s autograd (whatever backward
+    the package runs there) at each of ``CE_CHUNKS`` columns a chunk."""
+    from oim_tpu_torch.ops import fused_ce as fc
+    from oim_tpu_torch.ops import rmsnorm as rn
+
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    n = TRAIN_B * TRAIN_T
+    x = torch.randn((n, D_MODEL), generator=gen,
+                    device=DEV).to(torch.bfloat16)
+    w = torch.rand(D_MODEL, generator=gen, device=DEV) + 0.5
+    out = {"rmsnorm": rn.rmsnorm_fwd(x, w, 1e-6)}
+    times = {"rmsnorm": time_ms(lambda: rn.rmsnorm_fwd(x, w, 1e-6))}
+    host = {"rmsnorm": host_ms(lambda: rn.rmsnorm_fwd(x, w, 1e-6))}
+    x, w, labels, g = ce_case(gen, torch.bfloat16, n)
+    lse, target = fc.fused_ce_fwd(x, w, labels)
+    out.update(fused_ce_lse=lse, fused_ce_target=target,
+               fused_ce_dx=fc.fused_ce_dx(x, w, labels, lse, g),
+               fused_ce_dw=fc.fused_ce_dw(x, w, labels, lse, g))
+    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+    nll = fc.fused_linear_ce(xl, wl, labels)
+
+    def step_backward():
+        return torch.autograd.grad(nll, (xl, wl), g, retain_graph=True)
+
+    entries = {"fused_ce_fwd": lambda: fc.fused_ce_fwd(x, w, labels),
+               "fused_ce_dx": lambda: fc.fused_ce_dx(x, w, labels, lse, g),
+               "fused_ce_dw": lambda: fc.fused_ce_dw(x, w, labels, lse, g),
+               "full-step backward": step_backward}
+    for name, fn in entries.items():
+        times[name], host[name] = time_ms(fn, runs=10), host_ms(fn)
+    default, columns = fc.SCRATCH_ELEMENTS, fc.chunk_columns(n, VOCAB)
+    chunks = {}
+    try:
+        for c in CE_CHUNKS:
+            fc.SCRATCH_ELEMENTS = c * n
+            chunks[c] = time_ms(step_backward, runs=10)
+    finally:
+        fc.SCRATCH_ELEMENTS = default
+    torch.cuda.synchronize()
+    digests = {name: digest(t) for name, t in out.items()}
+    print(f"compare: output digests {digests}", flush=True)
+    print("compare: device " + ", ".join(f"{k} {v:.4f} ms"
+                                         for k, v in times.items())
+          + f" [{SMI}]", flush=True)
+    print("compare: host enqueue " + ", ".join(f"{k} {v:.4f} ms"
+                                               for k, v in host.items()),
+          flush=True)
+    print(f"compare: full-step backward by chunk width (default "
+          f"{columns} columns): "
+          + ", ".join(f"{c} {v:.4f} ms" for c, v in chunks.items())
+          + f" [{SMI}]", flush=True)
+    del x, w, labels, g, lse, target, out, xl, wl, nll
+    torch.cuda.empty_cache()
+    return {"digests": digests, "ms": times, "host_ms": host,
+            "backward_ms_by_chunk": chunks}
 
 
 # ---------------------------------------------------------------------------
@@ -1002,12 +1168,11 @@ def step_parity(args) -> None:
     torch.cuda.empty_cache()
 
 
-def train_phase(record: dict) -> dict:
-    """Train Qwen2.5-1.5B at full width for ``TRAIN_STEPS`` steps through
-    the port's train_main entry and check the losses, the kernels'
-    launch counts (every layer of every forward, recompute and backward
-    went through them; no plain version ran) and the first step against
-    a plain f32 path.  Returns the main path's launch counts."""
+def train_steps():
+    """(args, result, the kernels' launch counts) of ``TRAIN_STEPS``
+    steps of the training configuration through the loaded package's
+    train_main entry, the counts set to 0 just before; prints the
+    steps' walls and the peak memory."""
     from oim_tpu_torch.cli import train_main
     from oim_tpu_torch.ops import flash_attention as fa
     from oim_tpu_torch.ops import fused_ce as fc
@@ -1023,10 +1188,27 @@ def train_phase(record: dict) -> dict:
     wall = time.monotonic() - t0
     counts = {**rn.counters(), **fa.counters(), **fc.counters()}
     losses = result["losses"]
+    steps_ms = [round(t * 1e3, 1) for t in result["step_seconds"]]
+    mem = torch.cuda.memory_stats()
     print(f"train: {len(losses)} steps in {wall:.1f} s (setup included); "
-          f"losses {[round(x, 4) for x in losses]}; kernel counts {counts}; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
-          f"GiB", flush=True)
+          f"losses {[round(x, 4) for x in losses]}; step walls {steps_ms} "
+          f"ms; kernel counts {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; allocator "
+          f"cudaMalloc {mem.get('num_device_alloc')}, cudaFree "
+          f"{mem.get('num_device_free')}, retries "
+          f"{mem.get('num_alloc_retries')} (since the process began)",
+          flush=True)
+    return args, result, counts
+
+
+def train_phase(record: dict) -> dict:
+    """Train Qwen2.5-1.5B at full width for ``TRAIN_STEPS`` steps through
+    the port's train_main entry and check the losses, the kernels'
+    launch counts (every layer of every forward, recompute and backward
+    went through them; no plain version ran) and the first step against
+    a plain f32 path.  Returns the main path's launch counts."""
+    args, result, counts = train_steps()
+    losses = result["losses"]
     check(len(losses) == TRAIN_STEPS, f"{len(losses)} steps ran")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -1034,24 +1216,29 @@ def train_phase(record: dict) -> dict:
     # Per step: the forward and the remat recompute each run both norms
     # and the attention of every layer; the final norm runs once; the
     # backward runs dq and dkv once per layer; the loss runs the fused
-    # unembed+CE forward, dx and dw once per microbatch.
+    # unembed+CE forward and the joint backward (dx and dw from one
+    # dlogits pass) once per microbatch, and never dx or dw apart.
     micro = TRAIN_STEPS * args.grad_accum
     want = {"rmsnorm": TRAIN_STEPS * (4 * n_layers + 1),
             "flash_fwd": TRAIN_STEPS * 2 * n_layers,
             "flash_dq": TRAIN_STEPS * n_layers,
             "flash_dkv": TRAIN_STEPS * n_layers,
-            "fused_ce_fwd": micro, "fused_ce_dx": micro,
-            "fused_ce_dw": micro}
+            "fused_ce_fwd": micro, "fused_ce_bwd": micro,
+            "fused_ce_dx": 0, "fused_ce_dw": 0}
     for name, n in want.items():
         check(counts[name] == n, f"{name} launched {counts[name]} times, "
               f"expected {n}")
         check(counts[f"{name}_plain"] == 0,
               f"{name}'s plain version ran on the training path")
+    check(counts["fused_ce_wgmma"] == 2 * micro
+          and counts["fused_ce_mma_sync"] == 0,
+          f"fused-CE routes {counts}: the training shape must take wgmma")
     # Steady steps (the first pays warm-up); the kernels' share of one.
     steady = result["step_seconds"][1:]
     step_s = float(np.median(steady))
-    share = {name: want[name] / TRAIN_STEPS * record[name]["ms"] / 1e3
-             / step_s for name in want}
+    per_step = {name: n / TRAIN_STEPS * record[name]["ms"]
+                for name, n in want.items() if n}
+    share = {name: ms / 1e3 / step_s for name, ms in per_step.items()}
     print(f"train: step {step_s * 1e3:.1f} ms (median of steps 2-"
           f"{TRAIN_STEPS}; first {result['step_seconds'][0] * 1e3:.1f} ms), "
           f"{result['tokens_per_step'] / step_s:.0f} tokens/s; kernel share "
@@ -1091,12 +1278,13 @@ def run_train(argv) -> dict:
     return train_main.train(train_main.build_parser().parse_args(argv))
 
 
-def ckpt_lora_phase(work: str) -> None:
+def ckpt_lora_phase(work: str) -> dict:
     """Under ``work``: an uninterrupted 5-step run; the same run
     interrupted after 3 steps (checkpoint every 3) and resumed to 5, whose
     steps 4-5 give the uninterrupted losses; the same command again with
     ``--export-dir``; a LoRA fine-tune on that export with its merged
-    export; the merged weights served through ``serve_main``."""
+    export; the merged weights served through ``serve_main``.  Returns
+    the LoRA run's fused-CE launch counts."""
     from oim_tpu_torch.checkpoint import (
         Checkpointer,
         directory_bytes,
@@ -1147,11 +1335,12 @@ def ckpt_lora_phase(work: str) -> None:
           f"{counts}; adapter checkpoint {lora_bytes / 2**20:.1f} MiB vs "
           f"base checkpoint {base_bytes / 2**20:.1f} MiB", flush=True)
     check(counts["fused_ce_fwd"] == counts["fused_ce_dx"] == 3
-          and counts["fused_ce_dw"] == 0,
+          and counts["fused_ce_dw"] == counts["fused_ce_bwd"] == 0,
           f"LoRA steps must launch fused-CE fwd and dx, never dw: {counts}")
     check(not any(counts[f"{k}_plain"] for k in ("fused_ce_fwd",
                                                  "fused_ce_dx",
-                                                 "fused_ce_dw")),
+                                                 "fused_ce_dw",
+                                                 "fused_ce_bwd")),
           "a fused-CE plain version ran on the LoRA path")
     check(lora_bytes < 0.5 * base_bytes, "adapter checkpoint too large")
 
@@ -1191,6 +1380,7 @@ def ckpt_lora_phase(work: str) -> None:
           f"the merged model was not served through K1/K2: {pcounts}")
     del engine
     torch.cuda.empty_cache()
+    return counts
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -1225,18 +1415,26 @@ def parse_args(argv):
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument(
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument(
         "--kernel-phase-only", action="store_true",
-        help="build the kernels and run the K1/K2 kernel phase only, "
-             "printing its record as the last line")
+        help="build the kernels and run only the K1/K2 kernel phase and "
+             "the RMSNorm and fused-CE timings with output digests, "
+             "printing their record as the last line")
+    only.add_argument(
+        "--train-phase-only", action="store_true",
+        help="build the kernels and run only the training configuration's "
+             "steps, printing their walls and peak memory as the last line")
     parser.add_argument(
         "--package", default=HERE, metavar="DIR",
         help="the checkout whose oim_tpu_torch to load (default: this "
-             "one); with --kernel-phase-only, another checkout's kernels "
-             "are timed on the same inputs")
+             "one); with --kernel-phase-only or --train-phase-only, "
+             "another checkout's build is run on the same inputs")
     args = parser.parse_args(argv)
-    if args.package != HERE and not args.kernel_phase_only:
-        parser.error("--package needs --kernel-phase-only")
+    if args.package != HERE and not (args.kernel_phase_only
+                                     or args.train_phase_only):
+        parser.error("--package needs --kernel-phase-only or "
+                     "--train-phase-only")
     return args
 
 
@@ -1271,10 +1469,22 @@ def main(argv=None) -> int:
           flush=True)
     for line in ptxas_lines(_build.build_log):
         print(line, flush=True)
+    if args.train_phase_only:
+        _, result, _ = train_steps()
+        steady = float(np.median(result["step_seconds"][1:])) * 1e3
+        print(f"train-only: steady step {steady:.1f} ms (median of steps "
+              f"2-{TRAIN_STEPS}) [{SMI}]", flush=True)
+        print(json.dumps({"package": package, "train": {
+            "step_ms": [t * 1e3 for t in result["step_seconds"]],
+            "steady_ms": steady,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}}),
+            flush=True)
+        return 0
     record = kernel_phase()
     if args.kernel_phase_only:
-        print(json.dumps({"package": package, "kernel_phase": record}),
-              flush=True)
+        compared = compare_phase()
+        print(json.dumps({"package": package, "kernel_phase": record,
+                          "compare": compared}), flush=True)
         return 0
     record.update(train_kernel_phase())
     record.update(fused_ce_phase())
@@ -1285,7 +1495,8 @@ def main(argv=None) -> int:
         free = shutil.disk_usage(work).free
         print(f"ckpt: working in {os.path.basename(work)}, "
               f"{free / 2**30:.0f} GiB free", flush=True)
-        ckpt_lora_phase(work)
+        # dx alone runs on LoRA steps (a full step runs the joint).
+        counts["fused_ce_dx"] = ckpt_lora_phase(work)["fused_ce_dx"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     sources = {"rmsnorm": ("oim_tpu_torch/csrc/rmsnorm.cu",
@@ -1300,8 +1511,10 @@ def main(argv=None) -> int:
                                 "oim_tpu/ops/fused_ce.py:94"),
                "fused_ce_dx": ("oim_tpu_torch/csrc/fused_ce.cu",
                                "oim_tpu/ops/fused_ce.py:148"),
-               "fused_ce_dw": ("oim_tpu_torch/csrc/fused_ce.cu",
-                               "oim_tpu/ops/fused_ce.py:168")}
+               # dx and dw of a full step from one dlogits pass: the
+               # only path on which the dw kernel's work runs.
+               "fused_ce_bwd": ("oim_tpu_torch/csrc/fused_ce.cu",
+                                "oim_tpu/ops/fused_ce.py:168")}
     kernels = [
         dict(name="paged_flash_decode (K1)", route="cuda",
              source="oim_tpu_torch/csrc/paged_attention.cu",

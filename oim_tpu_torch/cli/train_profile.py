@@ -45,7 +45,7 @@ FAMILIES = {
     "flash_dkv": ("flash_dkv_kernel", "flash_dkv_tc_kernel", "dkv_sum_kernel"),
     "rmsnorm": ("rmsnorm_kernel",),
     # Before cuBLAS's family: "gemm" is in the fused-CE product's name.
-    "fused_ce": ("ce_gemm_kernel", "ce_lse_kernel"),
+    "fused_ce": ("ce_tc_kernel", "ce_gemm_kernel", "ce_lse_kernel"),
     "gemm (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass"),
     "optimizer (multi-tensor)": ("multi_tensor",),
 }

@@ -88,6 +88,12 @@ _SIGNATURES = {
     "oim_fused_ce_dw": (
         _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
     ),
+    # x, w, labels, lse, target, partial, N, D, V, stream
+    "oim_fused_ce_tc_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, w, labels, lse, g, dlogits, acc, dx, dw, N, D, V, chunk_v, stream
+    "oim_fused_ce_tc_bwd": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+    ),
 }
 
 _lock = threading.Lock()

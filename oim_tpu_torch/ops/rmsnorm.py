@@ -63,8 +63,9 @@ def _check_kernel_operands(x, w) -> None:
             f"{MAX_ROW_BYTES} bytes; got {d} x {x.dtype}")
     if w.device != x.device:
         raise ValueError(f"rmsnorm: w on {w.device}, expected {x.device}")
-    if x.data_ptr() % 16:
-        raise ValueError("rmsnorm kernel reads x in 16-byte chunks: align it")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(
+            "rmsnorm kernel reads x and w in 16-byte chunks: align them")
 
 
 def rmsnorm_fwd(x, w, eps: float = 1e-6):

@@ -223,6 +223,7 @@ class _Sampling:
     press: torch.Tensor
     freqs: torch.Tensor
     seeds: list[int]
+    bases: list[int]  # sample_base: the offset of every noise index
     sampled: list[bool]  # temperature > 0, per row
     truncate_p: bool  # some row has top_p < 1 or min_p > 0
 
@@ -241,6 +242,7 @@ class _Sampling:
             press=col([r.presence_penalty for r in reqs]),
             freqs=col([r.frequency_penalty for r in reqs]),
             seeds=[r.seed for r in reqs],
+            bases=[r.sample_base for r in reqs],
             sampled=[r.temperature > 0.0 for r in reqs],
             truncate_p=any(p < 1.0 for p in top_ps) or any(
                 m > 0.0 for m in min_ps
@@ -249,15 +251,17 @@ class _Sampling:
 
     def noise(self, indices, vocab: int, device):
         """Gumbel noise [S, V] for token ``indices[r]`` of each sampled
-        row (zeros for greedy rows), or None when every row is greedy."""
+        row, counted from its request's ``sample_base`` (zeros for greedy
+        rows), or None when every row is greedy."""
         if not any(self.sampled):
             return None
         noise = torch.zeros(
             (len(self.seeds), vocab), dtype=torch.float32, device=device
         )
-        for r, (seed, index) in enumerate(zip(self.seeds, indices)):
+        for r, (seed, base, index) in enumerate(
+                zip(self.seeds, self.bases, indices)):
             if self.sampled[r]:
-                noise[r] = sampling_noise(seed, index, vocab, device)
+                noise[r] = sampling_noise(seed, base + index, vocab, device)
         return noise
 
 
@@ -292,10 +296,10 @@ def _admit_batch(params, cache: PagedCache, row_tables, prompts, starts,
     dispatch and sample each one's first token.  prompts [S, bucket]
     (each row's prompt, zero-padded); starts [S] int32; true_tails [S]
     valid lengths; row_tables [S, n_tables] int32.  The first token is
-    each request's token 0 (its sampling key).  Padding positions past a
-    row's true length are written into its own reserved blocks and
-    masked until decode overwrites them.  Returns (tokens [S], logprobs
-    [S])."""
+    each request's token 0 (its sampling key, offset by its
+    ``sample_base``).  Padding positions past a row's true length are
+    written into its own reserved blocks and masked until decode
+    overwrites them.  Returns (tokens [S], logprobs [S])."""
     x = _hidden_slots(params, prompts, cache, starts, row_tables, cfg)
     rows = torch.arange(x.shape[0], device=x.device)
     last = x[rows, true_tails.long() - 1]
@@ -309,7 +313,8 @@ def _decode_chunk(params, cache: PagedCache, tables, tokens, starts,
                   chunk: int, top_k: int, max_len: int, counts):
     """Advance every row ``chunk`` tokens: tokens [S] (each row's latest
     token), starts [S] int32 (where it is written), indices [S] the
-    global emission index of the step's token (the sampling key).
+    emission index of the step's token (the sampling key, which
+    ``s.noise`` offsets by each request's ``sample_base``).
     ``counts`` (tok_counts, gen_counts) [S, V] are updated in place.
     Returns (tokens [S, chunk], logprobs [S, chunk]) on the device; a
     row past its budget keeps computing and its position clamps at the
@@ -339,7 +344,10 @@ class GenRequest:
     """One generation request.  ``tokens`` are prompt token ids;
     sampling parameters are per request except top-k, which is
     engine-static.  ``deadline`` is an absolute ``time.monotonic()``
-    instant (None = none).  ``cache_prefix``,
+    instant (None = none).  ``sample_base`` offsets every sampled
+    token's noise index: a continuation that resends the prompt plus the
+    k tokens a client already holds, with ``sample_base = k``, draws the
+    uninterrupted stream's noise from token k on.  ``cache_prefix``,
     ``hold_kv`` and ``kv_import`` belong to features not ported yet and
     are refused at submission when set."""
 
@@ -358,6 +366,7 @@ class GenRequest:
     deadline: float | None = None
     hold_kv: bool = False
     kv_import: int | None = None
+    sample_base: int = 0
 
 
 class QueueFullError(RuntimeError):
@@ -592,6 +601,8 @@ class Engine:
             raise ValueError("empty prompt")
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if req.sample_base < 0:
+            raise ValueError("sample_base must be >= 0")
         if len(req.tokens) > self.prompt_buckets[-1]:
             raise ValueError(
                 f"prompt length {len(req.tokens)} exceeds largest bucket "

@@ -4,8 +4,8 @@ step thread that runs the engine.
 The counterpart of ``oim_tpu/serve/server.py``'s core surface, with the
 same JSON bodies: ``GET /healthz``, ``GET /v1/stats``, ``GET /v1/info``
 and non-streaming ``POST /v1/generate`` (``tokens``, ``max_new_tokens``,
-``temperature``, ``seed``, ``top_p``, ``stop_ids`` and the other
-per-request sampling fields).  Streaming, text, embeddings, beam search,
+``temperature``, ``seed``, ``top_p``, ``stop_ids``, ``sample_base`` and
+the other per-request sampling fields).  Streaming, text, embeddings, beam search,
 the OpenAI surface, KV shipping, profiling and the stall watchdog come
 with later slices (ROADMAP Queue A: the rest of server.py).
 """
@@ -67,6 +67,7 @@ def _parse_generate(body: dict) -> GenRequest:
             else None
         ),
         deadline=deadline,
+        sample_base=int(body.get("sample_base", 0)),
     )
 
 

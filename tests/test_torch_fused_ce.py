@@ -89,8 +89,9 @@ def test_fused_linear_ce_matches_jax_kernels(n, v, dtype):
     got = _port(x, w, labels, g, tdt)
     assert fc.counters() == {
         "fused_ce_fwd": 0, "fused_ce_dx": 0, "fused_ce_dw": 0,
-        "fused_ce_fwd_plain": 1, "fused_ce_dx_plain": 1,
-        "fused_ce_dw_plain": 1}
+        "fused_ce_bwd": 0, "fused_ce_fwd_plain": 1, "fused_ce_dx_plain": 0,
+        "fused_ce_dw_plain": 0, "fused_ce_bwd_plain": 1,
+        "fused_ce_wgmma": 0, "fused_ce_mma_sync": 0}
     np.testing.assert_allclose(got[0], want[0], rtol=0, atol=NLL_ATOL)
     _close(got[1], want[1], DX_REL[dtype], "dx")
     _close(got[2], want[2], DW_REL, "dw")
@@ -146,7 +147,7 @@ def test_ragged_shapes_match_the_reference_formula(dtype):
 
 def test_frozen_w_skips_the_dw_kernel():
     """A LoRA step freezes the unembedding: the backward launches dx and
-    never dw."""
+    never dw, alone or in the joint backward."""
     x, w, labels, g = _data(16, 32, 128, jnp.bfloat16)
     xt = torch.tensor(x).to(torch.bfloat16).requires_grad_()
     fc.reset_counters()
@@ -154,6 +155,7 @@ def test_frozen_w_skips_the_dw_kernel():
     nll.backward(torch.tensor(g))
     counts = fc.counters()
     assert counts["fused_ce_dx_plain"] == 1 and counts["fused_ce_dw_plain"] == 0
+    assert counts["fused_ce_bwd_plain"] == 0
     assert xt.grad is not None
 
 
@@ -172,10 +174,96 @@ def test_wrappers_refuse_mismatched_operands():
 
 
 def test_chunk_columns_cover_any_vocabulary():
-    assert fc.chunk_columns(4096, 151936) == 8192
+    assert fc.chunk_columns(4096, 151936) == 32768
     assert fc.chunk_columns(64, 100) == 128
     assert fc.chunk_columns(10**7, 151936) == 128
+    assert fc.chunk_columns(4096, 151936, "mma_sync") == 8192
     for n, v in ((4096, 151936), (1000, 100), (3, 129)):
         c = fc.chunk_columns(n, v)
         assert c % fc.TILE_V == 0 and c * n <= max(
             fc.SCRATCH_ELEMENTS, fc.TILE_V * n)
+        c = fc.chunk_columns(n, v, "mma_sync")
+        assert c % fc.TILE_V == 0 and c * n <= max(
+            fc.MMA_SYNC_SCRATCH_ELEMENTS, fc.TILE_V * n)
+
+
+def _torch_operands(x, w, labels, g, dtype):
+    """The kernels' operands: x and w in ``dtype``, int32 labels, f32 g,
+    and the plain forward's lse."""
+    xt = torch.tensor(x).to(dtype)
+    wt = torch.tensor(w).to(dtype)
+    lt = torch.tensor(labels)
+    lse, _ = fc.fused_ce_fwd_plain(xt, wt, lt)
+    return xt, wt, lt, lse, torch.tensor(g)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n,v", [(64, 384), (33, 100)])
+def test_joint_backward_plain_equals_the_separate_gradients(n, v, dtype):
+    """One dlogits pass for both gradients gives exactly what dx and dw
+    give apart (the same dlogits, the same products), and counts a call
+    of its own alone."""
+    jdt, tdt = DTYPES[dtype]
+    ops = _torch_operands(*_data(n, 64, v, jdt), tdt)
+    fc.reset_counters()
+    dx, dw = fc.fused_ce_bwd(*ops)
+    assert fc.counters()["fused_ce_dx_plain"] == 0
+    assert torch.equal(dx, fc.fused_ce_dx_plain(*ops))
+    assert torch.equal(dw, fc.fused_ce_dw_plain(*ops))
+    assert dx.dtype == tdt and dw.dtype == torch.float32
+    counts = fc.counters()
+    assert counts["fused_ce_bwd_plain"] == 1
+    assert counts["fused_ce_dx_plain"] == counts["fused_ce_dw_plain"] == 1
+    assert counts["fused_ce_bwd"] == 0  # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n,v", [(64, 384), (256, 640)])
+def test_joint_backward_plain_matches_jax_kernels(n, v, dtype):
+    """The joint backward against the reference's dx and dw Pallas
+    kernels in interpret mode, with the same limits as the autograd
+    path."""
+    jdt, tdt = DTYPES[dtype]
+    x, w, labels, g = _data(n, 128, v, jdt, seed=3)
+    xj, wj = jnp.asarray(x, jdt), jnp.asarray(w)
+    lj = jnp.asarray(labels)
+    _, vjp = jax.vjp(lambda a, b: jfc.fused_linear_ce(a, b, lj, 8, 128),
+                     xj, wj)
+    want_dx, want_dw = vjp(jnp.asarray(g))
+    dx, dw = fc.fused_ce_bwd(*_torch_operands(x, w, labels, g, tdt))
+    _close(dx.float().numpy(), np.asarray(want_dx.astype(jnp.float32)),
+           DX_REL[dtype], "dx")
+    _close(dw.numpy(), np.asarray(want_dw), DW_REL, "dw")
+
+
+def test_full_step_runs_the_joint_backward():
+    """A step that trains w and x takes the joint backward; one that
+    trains w alone runs dw only."""
+    x, w, labels, g = _data(16, 32, 128, jnp.bfloat16)
+    fc.reset_counters()
+    xt = torch.tensor(x).to(torch.bfloat16).requires_grad_()
+    wt = torch.tensor(w).requires_grad_()
+    fc.fused_linear_ce(xt, wt, torch.tensor(labels)).backward(
+        torch.tensor(g))
+    assert fc.counters()["fused_ce_bwd_plain"] == 1
+    fc.reset_counters()
+    wt = torch.tensor(w).requires_grad_()
+    fc.fused_linear_ce(torch.tensor(x).to(torch.bfloat16), wt,
+                       torch.tensor(labels)).backward(torch.tensor(g))
+    counts = fc.counters()
+    assert counts["fused_ce_bwd_plain"] == counts["fused_ce_dx_plain"] == 0
+    assert counts["fused_ce_dw_plain"] == 1 and wt.grad is not None
+
+
+def test_route_follows_the_shape():
+    """bf16 rows of whole 16-byte chunks take the wgmma route; f32, odd
+    widths and unaligned bases the mma.sync route."""
+    x = torch.zeros((4, 64), dtype=torch.bfloat16)
+    w = torch.zeros((64, 384), dtype=torch.bfloat16)
+    assert fc.route(x, w) == "wgmma"
+    assert fc.route(x.float(), w.float()) == "mma_sync"
+    assert fc.route(x, w[:, :100]) == "mma_sync"
+    assert fc.route(x[:, :60], w[:60]) == "mma_sync"
+    shifted = torch.zeros(4 * 64 + 4, dtype=torch.bfloat16)[4:].view(4, 64)
+    assert shifted.data_ptr() % 16 == 8
+    assert fc.route(shifted, w) == "mma_sync"

@@ -554,8 +554,9 @@ def test_fused_ce_kernels_are_deterministic():
 
 @pytest.mark.cuda
 def test_fused_linear_ce_autograd_runs_the_kernels():
-    """The differentiable wrapper launches fwd, dx and dw, skips dw for a
-    frozen w, and matches the logits reference's autograd in f32."""
+    """The differentiable wrapper launches fwd and the joint dx and dw,
+    skips dw for a frozen w, and matches the logits reference's autograd
+    in f32."""
     _need_gpu()
     x, w, labels, g = _ce_case(torch.float32, 300, 128, 1000)
     xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -568,8 +569,10 @@ def test_fused_linear_ce_autograd_runs_the_kernels():
     assert _rel(nll, ref) <= 1e-5
     assert _rel(dx, ref_dx) <= 1e-4 and _rel(dw, ref_dw) <= 1e-4
     after = fc.counters()
-    for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
-        assert after[name] == before[name] + 1
+    for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw",
+                 "fused_ce_bwd"):
+        launched = name in ("fused_ce_fwd", "fused_ce_bwd")
+        assert after[name] == before[name] + launched
         assert after[f"{name}_plain"] == before[f"{name}_plain"]
     xl = x.clone().requires_grad_()
     fc.fused_linear_ce(xl, w, labels).backward(g)
@@ -590,3 +593,169 @@ def test_fused_ce_wrappers_refuse_what_the_kernels_do_not_take():
     lse, _ = fc.fused_ce_fwd(x, w, labels)
     with pytest.raises(ValueError, match="lse"):
         fc.fused_ce_dw(x, w, labels, lse[:10], g)
+
+
+# The wgmma route (bf16 with D and V multiples of 8): the same limits as
+# the mma.sync route above, since both compute the scores in f32 from
+# the same bf16 products and round the dlogits once.
+
+
+def _ce_all(x, w, labels, g):
+    """(lse, target, dx, dw) of the kernels: the forward, then the joint
+    backward on the plain version's lse."""
+    lse, target = fc.fused_ce_fwd(x, w, labels)
+    ref_lse, _ = fc.fused_ce_fwd_plain(x, w, labels)
+    dx, dw = fc.fused_ce_bwd(x, w, labels, ref_lse, g)
+    return lse, target, dx, dw
+
+
+def _chunk_width(monkeypatch, n, chunk):
+    """Make the wgmma route's backward take ``chunk`` vocabulary columns
+    a chunk at N = n (None: the default width)."""
+    if chunk is not None:
+        monkeypatch.setattr(fc, "SCRATCH_ELEMENTS", chunk * n)
+        assert fc.chunk_columns(n, 10**6) == chunk
+
+
+def _ce_against_plain(x, w, labels, g):
+    ref_lse, ref_target = fc.fused_ce_fwd_plain(x, w, labels)
+    ref_dx, ref_dw = fc.fused_ce_bwd_plain(x, w, labels, ref_lse, g)
+    lse, target, dx, dw = _ce_all(x, w, labels, g)
+    torch.cuda.synchronize()
+    assert dx.dtype == x.dtype and dw.dtype == torch.float32
+    assert _rel(lse, ref_lse) <= CE_TOL["lse"]
+    assert _rel(target, ref_target) <= CE_TOL["target"]
+    assert _rel(dx, ref_dx) <= CE_TOL["dx"][x.dtype]
+    assert _rel(dw, ref_dw) <= CE_TOL["dw"]
+    assert not dx[g == 0].any()  # masked rows
+    return lse, target, dx, dw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [None, 256, 384], ids=lambda c: f"chunk{c}")
+@pytest.mark.parametrize("n", [1, 37, 128, 1000])
+def test_wgmma_route_matches_plain(n, chunk, monkeypatch):
+    """Ragged N (a partial 128-row tile, a single row), one and several
+    vocabulary chunks (384 = three 128-column steps of a 256-wide tile),
+    masked rows, and the route's own launch count."""
+    _need_gpu()
+    x, w, labels, g = _ce_case(torch.bfloat16, n, 256, 1288, seed=n)
+    g[0] = 0.5  # a single row must carry a gradient
+    assert fc.route(x, w) == "wgmma"
+    _chunk_width(monkeypatch, n, chunk)
+    before = fc.counters()
+    _ce_against_plain(x, w, labels, g)
+    after = fc.counters()
+    assert after["fused_ce_wgmma"] == before["fused_ce_wgmma"] + 2
+    assert after["fused_ce_mma_sync"] == before["fused_ce_mma_sync"]
+    assert after["fused_ce_bwd"] == before["fused_ce_bwd"] + 1
+
+
+@pytest.mark.cuda
+def test_wgmma_route_labels_on_tile_and_chunk_edges(monkeypatch):
+    """Labels on every 256-column tile edge and 384-column chunk edge hit
+    the target once, and their dlogits subtract the one-hot once."""
+    _need_gpu()
+    v = 1536
+    x, w, labels, g = _ce_case(torch.bfloat16, 64, 512, v)
+    _chunk_width(monkeypatch, 64, 384)
+    edges = sorted({e + o for e in range(0, v + 1, 128) for o in (-1, 0)
+                    if 0 <= e + o < v})
+    labels[: len(edges)] = torch.tensor(edges, device="cuda")
+    g[: len(edges)] = 1.0
+    _ce_against_plain(x, w, labels, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,v", [(8, 1288), (40, 256), (1536, 8200)])
+def test_wgmma_route_odd_depths_and_widths(d, v):
+    """D below one 64-deep K step or not a multiple of it, and V not a
+    multiple of the 256-wide tile: the TMA boxes past the edge read
+    zeros."""
+    _need_gpu()
+    x, w, labels, g = _ce_case(torch.bfloat16, 200, d, v)
+    _ce_against_plain(x, w, labels, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,v", [(torch.bfloat16, 100),
+                                     (torch.float32, 1288)],
+                         ids=["bf16_odd_v", "f32"])
+def test_other_shapes_take_the_mma_sync_route(dtype, v):
+    _need_gpu()
+    x, w, labels, g = _ce_case(dtype, 100, 256, v)
+    assert fc.route(x, w) == "mma_sync"
+    before = fc.counters()
+    _ce_against_plain(x, w, labels, g)
+    after = fc.counters()
+    assert after["fused_ce_mma_sync"] == before["fused_ce_mma_sync"] + 2
+    assert after["fused_ce_wgmma"] == before["fused_ce_wgmma"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [1288, 151936])
+def test_wgmma_route_is_deterministic_and_joint_equals_apart(v):
+    """Two launches give the same bits, and the joint backward gives the
+    bits of dx and dw launched apart (one dlogits definition, the same
+    products in the same order)."""
+    _need_gpu()
+    x, w, labels, g = _ce_case(torch.bfloat16, 1000, 512, v)
+    first = _ce_all(x, w, labels, g)
+    again = _ce_all(x, w, labels, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    lse = fc.fused_ce_fwd_plain(x, w, labels)[0]
+    assert torch.equal(fc.fused_ce_dx(x, w, labels, lse, g), first[2])
+    assert torch.equal(fc.fused_ce_dw(x, w, labels, lse, g), first[3])
+
+
+@pytest.mark.cuda
+def test_fused_linear_ce_full_step_runs_the_joint_backward():
+    """bf16 autograd on the wgmma route: a full step launches the joint
+    backward (and neither dx nor dw apart), a frozen w launches dx
+    alone."""
+    _need_gpu()
+    x, w, labels, g = _ce_case(torch.bfloat16, 300, 128, 1000)
+    w32 = w.float()
+    before = fc.counters()
+    xl, wl = x.clone().requires_grad_(), w32.clone().requires_grad_()
+    nll = fc.fused_linear_ce(xl, wl, labels)
+    dx, dw = torch.autograd.grad(nll, (xl, wl), g)
+    after = fc.counters()
+    assert dw.dtype == torch.float32 and dx.dtype == torch.bfloat16
+    for name in ("fused_ce_fwd", "fused_ce_bwd"):
+        assert after[name] == before[name] + 1
+    for name in ("fused_ce_dx", "fused_ce_dw"):
+        assert after[name] == before[name]
+    assert after["fused_ce_wgmma"] == before["fused_ce_wgmma"] + 2
+    lse = fc.fused_ce_fwd_plain(x, w, labels)[0]
+    ref_dx, ref_dw = fc.fused_ce_bwd_plain(x, w, labels, lse, g)
+    assert _rel(dx, ref_dx) <= CE_TOL["dx"][torch.bfloat16]
+    assert _rel(dw, ref_dw) <= CE_TOL["dw"]
+    xl = x.clone().requires_grad_()
+    fc.fused_linear_ce(xl, w32, labels).backward(g)
+    last = fc.counters()
+    assert last["fused_ce_dw"] == after["fused_ce_dw"]
+    assert last["fused_ce_bwd"] == after["fused_ce_bwd"]
+    assert last["fused_ce_dx"] == after["fused_ce_dx"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1536, 1544, 1000, 72])
+@pytest.mark.parametrize("rows", [1, 37, 4096, 9000])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16],
+                         ids=["x_f32", "x_bf16"])
+def test_rmsnorm_walks_rows(xdt, rows, d):
+    """Widths that fill a lane's chunks exactly (1536 bf16: 6 a lane) or
+    leave the last lanes a chunk short (1544, 1000, 72), rows fewer than
+    the warps or many per warp: the plain version's numbers, and the
+    same bits on every launch."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(rows + d)
+    x = (torch.randn((rows, d), generator=gen, device="cuda") * 3).to(xdt)
+    w = torch.rand(d, generator=gen, device="cuda") + 0.5
+    want = rn.rmsnorm_plain(x, w, 1e-6)
+    outs = [rn.rmsnorm_fwd(x, w, 1e-6) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert _rel(outs[0], want) <= TRAIN_TOL[xdt]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
