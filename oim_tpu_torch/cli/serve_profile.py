@@ -47,7 +47,8 @@ from oim_tpu_torch.serve.engine import GenRequest
 DECODE_STEPS = 3  # engine steps in the decode window
 TOP = 12  # kernels listed per window
 FAMILIES = {
-    "K1": ("paged_decode_kernel", "paged_merge_kernel"),
+    "K1": ("paged_decode_kernel", "paged_prefill_tc_kernel",
+           "paged_merge_kernel"),
     "K2": ("paged_store_kernel",),
     "gemm (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass"),
 }

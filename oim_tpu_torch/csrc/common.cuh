@@ -2,7 +2,8 @@
 // oim_tpu_torch/ops/_build.py mirrors, the reference's mask constant,
 // conversions between the storage dtypes and f32, 16-byte chunk loads,
 // warp reductions, and the tensor-core fragment helpers (mma.sync,
-// ldmatrix, cp.async) that the bf16 products share.
+// ldmatrix, cp.async, the P V product of an online softmax) that the
+// bf16 attention kernels share.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -114,6 +115,57 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+
+// Online softmax runs in base 2 (exp2f is one instruction): scores are
+// scaled by log2(e), and ln(2) takes a base-2 maximum back.
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x by the hardware's approximation (a relative error near 2^-22, and
+// 0 for x below -126): the online softmax's exponent.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A bf16 tile row in shared memory: hd + 8 elements, so the 8 rows of
+// an ldmatrix start 16 bytes apart in the 32 banks.
+template <int HD>
+constexpr int kRowStride = HD + 8;
+
+// The A fragment of k step kk (columns 16 kk ... 16 kk + 15) of a warp's
+// 16-row tile held in accumulator layout, rounded to bf16.
+template <int NT>
+__device__ __forceinline__ void acc_to_a(const float (&c)[NT][4], int kk,
+                                         uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// acc[16 x HD] += a (16 x 16, k rows kk*16 ... of B) @ B[16 x HD], B a
+// [.][HD + 8] tile read transposed: the output-shaped products (O = P V,
+// dQ = dS K, dV = P^T dO, dK = dS^T Q).
+template <int HD>
+__device__ __forceinline__ void out_product(const uint32_t (&a)[4],
+                                            const __nv_bfloat16* b, int kk,
+                                            float (&acc)[HD / 8][4]) {
+  constexpr int RS = kRowStride<HD>;
+  const int lane = threadIdx.x % 32;
+  // Matrices (k 0-7 | 8-15) x (n 0-7 | 8-15), k-major: two n tiles' b0, b1.
+  const __nv_bfloat16* base =
+      b + (kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * RS + 8 * (lane / 16);
+#pragma unroll
+  for (int np = 0; np < HD / 16; ++np) {
+    uint32_t fb[4];
+    ldmatrix_x4_trans(fb, base + np * 16);
+    const uint32_t b0[2] = {fb[0], fb[1]}, b1[2] = {fb[2], fb[3]};
+    mma_bf16(acc[2 * np], a, b0);
+    mma_bf16(acc[2 * np + 1], a, b1);
+  }
 }
 
 // Asynchronous copies from device to shared memory: 16 bytes (`src`

@@ -583,13 +583,6 @@ constexpr int kTcThreads = 128;  // 4 warps, 16 output rows each
 constexpr int kTcRows = 64;      // rows a block owns: dq's q, dkv's keys
 constexpr int kTcStep = 32;      // rows a stage streams: dq's keys, dkv's q
 constexpr int kStages = 3;       // cp.async ring depth
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// A bf16 tile row in shared memory: hd + 8 elements, so the 8 rows of
-// an ldmatrix start 16 bytes apart in the 32 banks.
-template <int HD>
-constexpr int kRowStride = HD + 8;
 
 // Shared-memory bytes of either kernel: two resident row tiles, the
 // ring's two streamed tiles per stage, and 32-bit words: per stage three
@@ -644,17 +637,6 @@ __device__ __forceinline__ bool tile_unmasked(int q0, int nq, int k0, int nk,
   return all;
 }
 
-// The A fragment of k step kk (columns 16 kk ... 16 kk + 15) of a warp's
-// 16-row tile held in accumulator layout, rounded to bf16.
-template <int NT>
-__device__ __forceinline__ void acc_to_a(const float (&c)[NT][4], int kk,
-                                         uint32_t (&a)[4]) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
 // acc[16 x NT*8] += A (16 rows x HD, rows `a` of a [.][HD + 8] tile) @
 // B^T, B the NT*8 rows at `b` of such a tile: the score-shaped products
 // (S = Q K^T, dP = dO V^T and their transposes).  Two products that share
@@ -688,28 +670,6 @@ __device__ __forceinline__ void rows_product(const bf16* a0, const bf16* b0,
       mma_bf16(c1[2 * np], fa1, b10);
       mma_bf16(c1[2 * np + 1], fa1, b11);
     }
-  }
-}
-
-// acc[16 x HD] += a (16 x 16, k rows kk*16 ... of B) @ B[16 x HD], B a
-// [.][HD + 8] tile read transposed: the output-shaped products (dQ = dS
-// K, dV = P^T dO, dK = dS^T Q).
-template <int HD>
-__device__ __forceinline__ void out_product(const uint32_t (&a)[4],
-                                            const bf16* b, int kk,
-                                            float (&acc)[HD / 8][4]) {
-  constexpr int RS = kRowStride<HD>;
-  const int lane = threadIdx.x % 32;
-  // Matrices (k 0-7 | 8-15) x (n 0-7 | 8-15), k-major: two n tiles' b0, b1.
-  const bf16* base =
-      b + (kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * RS + 8 * (lane / 16);
-#pragma unroll
-  for (int np = 0; np < HD / 16; ++np) {
-    uint32_t fb[4];
-    ldmatrix_x4_trans(fb, base + np * 16);
-    const uint32_t b0[2] = {fb[0], fb[1]}, b1[2] = {fb[2], fb[3]};
-    mma_bf16(acc[2 * np], a, b0);
-    mma_bf16(acc[2 * np + 1], a, b1);
   }
 }
 

@@ -725,12 +725,6 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Merge two (max, sum of exp) pairs.
 __device__ __forceinline__ void merge_stats2(float* m, float* l, float om,
                                              float ol) {

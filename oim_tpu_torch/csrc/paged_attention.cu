@@ -1,68 +1,120 @@
 // Paged-attention kernels for Hopper (sm_90a), written by hand in CUDA C++.
 //
-// K1  paged_decode_kernel + paged_merge_kernel  replace
-//     oim_tpu/ops/paged_attention.py _decode_kernel (paged_flash_decode).
-//     Attention straight off the block pool through the slot's block
-//     table, online softmax in f32, GQA folded into the row axis.
+// K1  replaces oim_tpu/ops/paged_attention.py _decode_kernel
+//     (paged_flash_decode, and the attend of paged_flash_prefill):
+//     attention straight off the block pool through each slot's block
+//     table, online softmax in f32, GQA folded into the row axis (a
+//     tile's rows are the flattened t x group query rows of one kv head,
+//     so each staged K/V row serves every q head of its group).  Three
+//     routes, picked by the wrapper from host-known sizes
+//     (ops/paged_attention.py decode_route): at most 8 flattened rows (a
+//     decode step) take paged_decode_kernel<ROWS=8>; more rows take
+//     paged_prefill_tc_kernel for bf16 q and paged_decode_kernel<ROWS=16>
+//     for f32 q (the f32 reference route, exact f32 arithmetic).
 //
-//     Bound on this card: the K/V bytes it reads.  Each (slot, kv-head)
-//     reads its slot's live blocks once per q-row tile; at decode
-//     (t = 1, GQA group 6 → 6 rows, one tile) that is exactly once, so
-//     the bound is context_rows × KVH × hd × 2 (K and V) × payload bytes
-//     over 3.35 TB/s: about a microsecond at the serving shape, where
-//     the time is set by latency, not bytes.
+//     Shared by the routes: split-K over the block table.  Split s walks
+//     the table entries [s·E, min((s+1)·E, n_tables)), E chosen by the
+//     wrapper (decode_split: about two blocks an SM); a block whose keys
+//     lie wholly past its rows' causal frontier, wholly left of the
+//     window, or only in sentinel entries returns at once and reads no
+//     pool block.  Keys are staged in a three-stage cp.async ring, each
+//     key's pool row looked up through the table (any block_size <= 64),
+//     sentinel keys zero-filled and never read.  With one split a block
+//     writes the output; otherwise f32 partials (m, l and the
+//     unnormalised acc per row), which paged_merge_kernel combines in
+//     split order: M = max m_s, out = Σ e^(m_s−M) acc_s / Σ e^(m_s−M) l_s,
+//     splits with l_s = 0 skipped.  No atomics: two launches give the
+//     same bits.  Rows with no valid key emit zeros.
 //
-//     Design: split-K over the block table.  One thread block per (q-row
-//     tile of 8 or 16 rows, split, slot × kv-head); split s walks the table
-//     entries [s·E, min((s+1)·E, n_tables)), E chosen by the wrapper from
-//     host-known sizes (ops/paged_attention.py decode_split: about two
-//     blocks an SM at decode), so a long slot's walk is cut into many short
-//     ones that run side by side instead of one serial chain.  A split
-//     whose keys lie wholly past its rows' causal frontier, wholly left of
-//     the window, or only in sentinel entries returns at once and reads no
-//     pool block.  The block stages 64 keys a step — each key's pool row
-//     looked up through the table, sentinel keys zero-filled and never read
-//     — in a three-stage cp.async ring in the pool's own dtype (one
-//     __syncthreads a step, no blocking stage per entry); int8 is
-//     dequantised with its f32 scale where it is consumed, so the
-//     arithmetic is dequantize_int8's.  Each warp scores its own 16 keys of
-//     the step against every row of the tile (lane = key × half of hd; the
-//     halves meet by one shuffle), so no warp holds only padding rows, and
-//     keeps its own (m, l, acc) per row, acc with hd/32 contiguous dims a
-//     lane; the tile's row count is a template constant, so the rows run
-//     without branches and their chains of dependent operations interleave,
-//     and p reaches the product with V through shared memory as a broadcast
-//     read.  At the end the four warps' states merge in shared memory in
-//     warp order.  With one split the block writes the output; otherwise it
-//     writes f32 partials (m, l and the unnormalised acc per row) and
-//     paged_merge_kernel combines the splits of each row in split order: M
-//     = max m_s, out = Σ e^(m_s−M) acc_s / Σ e^(m_s−M) l_s, splits with l_s
-//     = 0 skipped.  No atomics: two launches give the same bits.  Rows with
-//     no valid key emit zeros.  Tall q from prefill (t = prompt bucket) is
-//     tiled across blocks along grid.x and takes the split dimension too
-//     (the wrapper gives it one split when its tiles already fill the
-//     card).
+//     Decode route (ROWS = 8; bound: the K/V bytes, read once per (slot,
+//     kv head), about a microsecond at the serving shape, where latency
+//     sets the time): one block per (8-row tile, split, slot × kv head),
+//     64 keys a step; each warp scores its own 16 keys against every row
+//     on CUDA cores (lane = key × half of hd, the halves meeting by one
+//     shuffle), keeps its own (m, l, acc) per row and passes p to the
+//     product with V through shared memory; the four warps' states merge
+//     in warp order.  int8 is dequantised with its f32 scale where it is
+//     consumed, so the arithmetic is dequantize_int8's.  At the serving
+//     decode shape decode_split's 16 splits time best (PERF.md).
 //
-//     At the serving decode shape decode_split's 16 splits time best;
-//     fewer take time in proportion to the longest slot's walk, more pay
-//     for blocks and partials (PERF.md).  Left on the table: the scores
-//     run on CUDA cores in f32 (tensor cores for the tall route are later
-//     work), the merge is a second launch, and a prefill tile re-reads
-//     the slot's K/V once per 16 rows.
+//     Tall route on the tensor cores (paged_prefill_tc_kernel; bound: the
+//     4·hd operations of each attended (query head, key) pair, e.g. 4.9
+//     GFLOP at a 512-token prefill of the serving model, 5 µs at 989
+//     TFLOP/s): the structure of flash_fwd_tc_kernel
+//     (flash_attention.cu).  One block per (slot × kv head, split,
+//     64-row q tile), the tiles last-first (the tile with the most keys
+//     starts first); warp w owns flattened rows 16w ... 16w + 15, so a
+//     tile reads each K/V row once per 64 q rows.  Per 32-key step S = Q
+//     Kᵀ on mma.sync m16n8k16 (Q's A fragments held for the whole walk,
+//     K through ldmatrix), the online softmax in f32 in base 2 on the
+//     accumulators, then O += P V with P rounded to bf16 as the A operand
+//     and V through ldmatrix .trans.  The causal frontier of flattened
+//     row r is starts[b] + r / group; the window keeps q_pos − k_pos <
+//     window.  Lane l of every warp resolves key kb + l of a step through
+//     the table (one division and one table read a lane, the read a step
+//     ahead; the copying threads take the pool row by shuffle), and the
+//     warp's ballot is the step's validity mask, held in registers and
+//     the same in every warp: a step with no valid key is never staged, a
+//     step whose keys every row of a warp attends skips the per-pair mask
+//     (a branch, not a select), and a warp skips the products of a step
+//     wholly past its rows' frontier or left of their window.  The
+//     softmax reduces its row maximum and sum as trees (not 8-deep
+//     chains), takes 2^x from the hardware's approximation, and needs no
+//     per-pair test for masked pairs: a masked score is kNegBig, and
+//     2^(kNegBig − m) is 0 once m is real (m is taken as 0 while a row
+//     has no valid key).  int8 pools are not rounded: values in [−127,
+//     127] are exact in bf16, so each staged step is widened to bf16 in
+//     shared memory and the f32 scales stay out of the products —
+//     k_scale[j] multiplies score column j after Q Kᵀ, and v_scale[j] is
+//     folded into P's column j before P is rounded for P V (the row sum l
+//     is of the unscaled f32 p).  Shared-memory rows are padded to hd + 8
+//     elements so ldmatrix and ldmatrix .trans fall in distinct banks.
 //
-// K2  paged_store_kernel  replaces _prefill_stage_kernel together with
-//     its paged_store_blocks landing.  One warp per (row, slot, kv-head)
-//     writes the row into the slot's pool block IN PLACE, quantizing
-//     exactly as quantize_int8 does: amax over hd, scale = max(amax / 127,
-//     1e-8), q = rintf(x / scale) with a true division and round-half-to-
-//     even.  The TPU version staged into separate buffers only because of
-//     Mosaic's double-buffered prefetch race; here rows outside the write
-//     window are simply never touched, and sentinel rows are dropped.
+//     A block is latency-bound: at two blocks an SM each scheduler holds
+//     one warp, so a step's dependent chains (the table read, the copies'
+//     issue, S, the softmax, P V; about 1750 cycles a step for a lone
+//     block, cli/paged_variants.py --stamps) are exposed.  Kept: the
+//     table read a step ahead, the branch-free softmax with tree
+//     reductions and approximate 2^x, four blocks an SM in the wrapper's
+//     split rule.  Timed beside it and dropped (cli/paged_variants.py;
+//     PERF.md): a deeper ring (4 or 5 stages: no change, the copies land
+//     in time, cold or warm), the precise 2^x, the next step's copies
+//     issued among the S products and S over two accumulator sets (each
+//     slightly slower), and three blocks an SM (registers capped at 168,
+//     Q reloaded each step: faster at a 512-token prefill, slower at a
+//     ragged 100-token one).
 //
-//     Bound on this card: the K/V bytes it reads and writes (new rows in,
-//     payload + scales out).  Left on the table: one 32-lane warp per
-//     128-wide row leaves a block of KVH warps small; rows could be
-//     batched per block.
+//     Left on the table: the decode route's merge is a second launch and
+//     most of its time is fixed cost; the tall route runs on mma.sync,
+//     not wgmma with TMA and warp specialisation (which would let copies
+//     and products of different warps overlap), and widens int8 through
+//     shared memory (one more barrier a step).
+//
+// K2  paged_store_kernel replaces _prefill_stage_kernel together with its
+//     paged_store_blocks landing: a segment's new K/V rows written into
+//     the slot's pool blocks IN PLACE, quantizing exactly as quantize_int8
+//     does: amax over hd, scale = max(amax / 127, 1e-8), q = rintf(x /
+//     scale) with a true division and round-half-to-even.  The TPU
+//     version staged into separate buffers only because of Mosaic's
+//     double-buffered prefetch race; here rows outside the write window
+//     are never touched, and sentinel rows and rows past the table are
+//     dropped.
+//
+//     Bound: the bytes (new rows in, payload and scales out: 2 MiB at a
+//     512-token prefill of the serving model, 0.6 µs), so at every shape
+//     on the path the time is set by latency: the launch, then the
+//     dependent reads of starts and the table entry.  Design: a flat
+//     grid over the B·t·KVH (position, kv head) rows, sized from that
+//     count, so a prefill fills the card and a decode step is one block.
+//     A row is carried by a group of hd·sizeof/16 lanes, each moving one
+//     16-byte vector (8 bf16) of K and of V, both loaded before the
+//     table lookup and any store.  The row's starts entry and table entry
+//     are read once (one broadcast address a group); the amax reduces
+//     over the group's lanes by shuffles, and int8 leaves as one packed
+//     8-byte store a lane.
+//
+//     Left on the table: K2 is a launch of its own before K1's (folding
+//     it into K1 would save the fixed cost of one launch a layer).
 #include "paged_attention.cuh"
 
 #include <math.h>
@@ -455,6 +507,26 @@ __global__ void __launch_bounds__(kThreads) paged_merge_kernel(
     out[row * HD + lane * kDims + dd] = num[dd] / denom;
 }
 
+// Merge a launch's split partials into `out` (R rows, in out's order).
+template <int HD>
+cudaError_t launch_merge(const float* part, float* out, int n_splits,
+                         size_t R, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((R + kWarps - 1) / kWarps);
+  paged_merge_kernel<HD><<<blocks, kThreads, 0, stream>>>(part, out,
+                                                          n_splits, R);
+  return cudaGetLastError();
+}
+
+// Raise the kernel's dynamic shared-memory limit where it needs more
+// than the default 48 KB.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <int HD, typename QT, typename KVT, bool QUANT, int ROWS>
 cudaError_t launch_decode(const void* q, const void* k_pool,
                           const void* v_pool, const float* k_scale,
@@ -470,26 +542,18 @@ cudaError_t launch_decode(const void* q, const void* k_pool,
   if (n_splits > 1 && part == nullptr) return cudaErrorInvalidValue;
   const size_t smem = decode_smem_bytes<HD, KVT, ROWS>();
   auto kernel = paged_decode_kernel<HD, QT, KVT, QUANT, ROWS>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(tiles, n_splits, B * KVH);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),
       static_cast<const KVT*>(v_pool), k_scale, v_scale, tables, starts, out,
       n_splits > 1 ? part : nullptr, t, H, KVH, group, n_blocks, bs, n_tables,
       entries, window, static_cast<float>(sqrt(static_cast<double>(HD))));
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return err;
-  const size_t R = static_cast<size_t>(B) * t * H;
-  const unsigned merge_blocks =
-      static_cast<unsigned>((R + kWarps - 1) / kWarps);
-  paged_merge_kernel<HD><<<merge_blocks, kThreads, 0, stream>>>(
-      part, out, n_splits, R);
-  return cudaGetLastError();
+  return launch_merge<HD>(part, out, n_splits,
+                          static_cast<size_t>(B) * t * H, stream);
 }
 
 template <int HD>
@@ -501,82 +565,534 @@ cudaError_t dispatch_decode(const void* q, int q_dtype, const void* k_pool,
                             int KVH, int n_blocks, int bs, int n_tables,
                             int entries, int window, cudaStream_t stream) {
   // ROWS, the q rows (t x group, flattened) a block owns: 8 when they
-  // all fit (a decode step: t = 1 and a GQA group of at most 8), else
-  // 16.  Every row of a tile is computed without a branch, so the rows'
-  // dot products and softmax updates interleave; padding rows hold q = 0
-  // and are masked.  Either way a slot has ceil(t·group / 16) tiles.
-#define OIM_DECODE(QT, KVT, QUANT)                                          \
-  return t * (H / KVH) <= 8                                                 \
-             ? launch_decode<HD, QT, KVT, QUANT, 8>(                        \
-                   q, k_pool, v_pool, k_scale, v_scale, tables, starts,     \
-                   out, part, B, t, H, KVH, n_blocks, bs, n_tables,         \
-                   entries, window, stream)                                 \
-             : launch_decode<HD, QT, KVT, QUANT, 16>(                       \
-                   q, k_pool, v_pool, k_scale, v_scale, tables, starts,     \
-                   out, part, B, t, H, KVH, n_blocks, bs, n_tables,         \
-                   entries, window, stream)
-  if (q_dtype == kOimF32 && kv_dtype == kOimF32) OIM_DECODE(float, float, false);
-  if (q_dtype == kOimF32 && kv_dtype == kOimI8) OIM_DECODE(float, int8_t, true);
+  // all fit (a decode step: t = 1 and a GQA group of at most 8), else 16
+  // — reached by f32 q only: bf16 q with more than 8 rows takes the
+  // tensor-core route (oim_paged_prefill_tc).  Every row of a tile is
+  // computed without a branch, so the rows' dot products and softmax
+  // updates interleave; padding rows hold q = 0 and are masked.
+  const bool rows8 = t * (H / KVH) <= 8;
+#define OIM_DECODE(QT, KVT, QUANT, ROWS)                                      \
+  return launch_decode<HD, QT, KVT, QUANT, ROWS>(                             \
+      q, k_pool, v_pool, k_scale, v_scale, tables, starts, out, part, B, t,   \
+      H, KVH, n_blocks, bs, n_tables, entries, window, stream)
+  if (q_dtype == kOimF32 && kv_dtype == kOimF32) {
+    if (rows8) OIM_DECODE(float, float, false, 8);
+    OIM_DECODE(float, float, false, 16);
+  }
+  if (q_dtype == kOimF32 && kv_dtype == kOimI8) {
+    if (rows8) OIM_DECODE(float, int8_t, true, 8);
+    OIM_DECODE(float, int8_t, true, 16);
+  }
+  if (!rows8) return cudaErrorInvalidValue;  // the tensor-core route's
   if (q_dtype == kOimBF16 && kv_dtype == kOimBF16)
-    OIM_DECODE(__nv_bfloat16, __nv_bfloat16, false);
+    OIM_DECODE(__nv_bfloat16, __nv_bfloat16, false, 8);
   if (q_dtype == kOimBF16 && kv_dtype == kOimI8)
-    OIM_DECODE(__nv_bfloat16, int8_t, true);
+    OIM_DECODE(__nv_bfloat16, int8_t, true, 8);
 #undef OIM_DECODE
   return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
-// K2: prefill K/V store with fused quant
+// K1, tall route: paged flash-prefill on the tensor cores
 
-template <int HD, typename NT, typename PT, bool QUANT>
-__device__ __forceinline__ void store_row(const NT* __restrict__ src,
-                                          PT* __restrict__ dst,
-                                          float* __restrict__ scale_dst,
-                                          int lane) {
-  constexpr int kDimsPerLane = HD / 32;
-  float x[kDimsPerLane];
+constexpr int kTcRows = 64;   // flattened q rows (t x group) a block owns
+constexpr int kTcKeys = 32;   // keys a step stages: one a lane
+constexpr int kTcStages = 3;  // cp.async ring depth
+
+// Shared memory of paged_prefill_tc_kernel: the bf16 q tile; for int8
+// pools the step's K and V widened to bf16; the ring (per stage the K
+// then the V rows in the pool's dtype, then per key its k and v scale).
+// Every part is a multiple of 16 bytes.
+template <int HD, typename KVT>
+constexpr size_t prefill_tc_smem_bytes() {
+  constexpr bool kQuant = std::is_same_v<KVT, int8_t>;
+  return sizeof(__nv_bfloat16) * kRowStride<HD> *
+             (kTcRows + (kQuant ? 2 * kTcKeys : 0)) +
+         static_cast<size_t>(kTcStages) * kTcKeys *
+             (2 * kRowBytes<HD, KVT> + 2 * sizeof(float));
+}
+
+// Grid (B * KVH, splits, tiles); `part` as paged_decode_kernel's.  `c2`
+// is log2(e) / sqrt(hd): scores in base 2.
+template <int HD, typename KVT, bool QUANT>
+__global__ void __launch_bounds__(kThreads, 2) paged_prefill_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ k_pool,
+    const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
+    const int32_t* __restrict__ starts, float* __restrict__ out,
+    float* __restrict__ part, int t, int H, int KVH, int group,
+    int n_blocks, int bs, int n_tables, int entries, int window, float c2) {
+  using bf16 = __nv_bfloat16;
+  constexpr int BK = kTcKeys, RS = kRowStride<HD>, RB = kRowBytes<HD, KVT>;
+  constexpr int NT = BK / 8, ND = HD / 8, KK = HD / 16;
+  constexpr int kE = kChunk<KVT>, kRowChunks = HD / kE;
+  static_assert(BK == 32 && NT == 4, "a step's keys are a warp's lanes");
+  static_assert(BK * kRowChunks % kThreads == 0, "whole chunks a thread");
+  static_assert(kTcRows * (HD / 8) % kThreads == 0, "whole q chunks");
+  static_assert(QUANT || RB == 2 * RS, "bf16 ring rows are ldmatrix rows");
+  const int b = blockIdx.x / KVH, h = blockIdx.x % KVH, split = blockIdx.y;
+  const int tile = gridDim.z - 1 - blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4, r0 = warp * 16;
+  const int tg = t * group, row0 = tile * kTcRows;
+  const int nrows = min(kTcRows, tg - row0);
+  const size_t R = static_cast<size_t>(gridDim.x / KVH) * t * H;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kTcRows][RS]
+  bf16* wide = qs + kTcRows * RS;  // int8: the step's K, V [BK][RS] each
+  unsigned char* ring =
+      reinterpret_cast<unsigned char*>(wide + (QUANT ? 2 * BK * RS : 0));
+  // stage st: K rows at ring + st·2·BK·RB, V rows after them; then per
+  // stage the keys' k scales and v scales.
+  float* scales = reinterpret_cast<float*>(ring + kTcStages * 2 * BK * RB);
+
+  // The q tile, copied first so that its latency overlaps the table
+  // reads (rows past the tile's last are zero-filled).
 #pragma unroll
-  for (int dd = 0; dd < kDimsPerLane; ++dd) x[dd] = to_f32(src[lane + 32 * dd]);
-  if constexpr (QUANT) {
-    float amax = 0.f;
+  for (int u = 0; u < kTcRows * (HD / 8) / kThreads; ++u) {
+    const int idx = threadIdx.x + u * kThreads;
+    const int r = idx / (HD / 8), c = idx % (HD / 8);
+    const bool ok = r < nrows;
+    const bf16* src =
+        ok ? q + q_row(b, row0 + r, t, H, h, group) * HD + c * 8 : q;
+    cp_async16(qs + r * RS + c * 8, src, ok);
+  }
+
+  // The positions this tile's rows query and the keys its split may
+  // attend: [k_lo, k_hi), walked in steps of BK keys.
+  const int start = starts[b];
+  const int pos_lo = start + row0 / group;
+  const int pos_hi = start + (row0 + nrows - 1) / group;
+  const int e_lo = split * entries, e_hi = min(e_lo + entries, n_tables);
+  int k_lo = e_lo * bs;
+  const int k_hi = min(e_hi * bs, pos_hi + 1);
+  if (window > 0) k_lo = max(k_lo, pos_lo - window + 1);
+  const int n_steps = k_lo < k_hi ? (k_hi - k_lo + BK - 1) / BK : 0;
+  const int32_t* table = tables + static_cast<size_t>(b) * n_tables;
+
+  // The key base of the next step that holds a valid key, or -1.  Lane l
+  // of every warp resolves the step's key kb + l through the table: its
+  // pool row (-1 past k_hi or in a sentinel entry, never read) into
+  // *row; the warp's ballot is the step's validity mask, the same in
+  // every warp, so all agree without a barrier, and a step without a
+  // valid key is never staged.  A lane reads its table entry of the
+  // following step as it resolves one (`ahead`, the entry and the key's
+  // offset in its block), so the read's latency hides behind a step.
+  int cursor = 0;
+  int2 ahead;
+  auto read_entry = [&](int c) {
+    const int kp = k_lo + BK * c + lane, e = kp / bs;
+    ahead = make_int2(c < n_steps && kp < k_hi ? table[e] : -1, kp - e * bs);
+  };
+  read_entry(0);
+  auto next_step = [&](unsigned* valid, int* row) -> int {
+    while (cursor < n_steps) {
+      const int kb = k_lo + BK * cursor++;
+      const int2 entry = ahead;
+      read_entry(cursor);
+      const int r = entry.x >= 0 && entry.x < n_blocks
+                        ? (entry.x * bs + entry.y) * KVH + h
+                        : -1;
+      *valid = __ballot_sync(0xffffffffu, r >= 0);
+      *row = r;
+      if (*valid) return kb;
+    }
+    return -1;
+  };
+  unsigned valid_first;
+  int row_first;
+  const int kb_first = next_step(&valid_first, &row_first);
+  if (kb_first < 0) {
+    // Nothing here to attend: zeros (or an empty state), no pool read.
+    cp_async_commit();
+    cp_async_wait<0>();
+    if (part == nullptr) {
+      for (int idx = threadIdx.x; idx < nrows * HD; idx += kThreads)
+        out[q_row(b, row0 + idx / HD, t, H, h, group) * HD + idx % HD] = 0.f;
+    } else {
+      for (int r = threadIdx.x; r < nrows; r += kThreads) {
+        const size_t row = q_row(b, row0 + r, t, H, h, group);
+        float* ml = part + static_cast<size_t>(gridDim.y) * R * HD +
+                    (split * R + row) * 2;
+        ml[0] = kNegBig;
+        ml[1] = 0.f;
+      }
+    }
+    return;
+  }
+
+  // Start the copies of the step at key base kb into stage st (one group
+  // a call; an empty group past the last step): each key's K and V row
+  // from the pool row its lane resolved (`row`, shuffled to the threads
+  // that copy it); invalid keys zero-filled, their pool bytes never read.
+  auto prefetch = [&](int kb, int row, int st) {
+    if (kb >= 0) {
+      unsigned char* ks = ring + st * 2 * BK * RB;
 #pragma unroll
-    for (int dd = 0; dd < kDimsPerLane; ++dd) amax = fmaxf(amax, fabsf(x[dd]));
-    amax = warp_max(amax);
-    const float scale = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+      for (int u = 0; u < BK * kRowChunks / kThreads; ++u) {
+        const int idx = threadIdx.x + u * kThreads;
+        const int key = idx / kRowChunks, c = idx % kRowChunks;
+        const int r = __shfl_sync(0xffffffffu, row, key);
+        const size_t src = r >= 0 ? static_cast<size_t>(r) * HD + c * kE : 0;
+        cp_async16(ks + key * RB + c * 16, k_pool + src, r >= 0);
+        cp_async16(ks + (BK + key) * RB + c * 16, v_pool + src, r >= 0);
+      }
+      if constexpr (QUANT) {
+        if (warp == 0) {
+          float* w = scales + st * 2 * BK;
+          cp_async4(w + lane, k_scale + max(row, 0), row >= 0);
+          cp_async4(w + BK + lane, v_scale + max(row, 0), row >= 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // The key bases and validity masks of steps i ... i + kTcStages - 2,
+  // whose copies are in flight (-1 past the last step); step 0's share
+  // the q tile's group.
+  int pending[kTcStages - 1];
+  unsigned pending_valid[kTcStages - 1];
 #pragma unroll
-    for (int dd = 0; dd < kDimsPerLane; ++dd)
-      dst[lane + 32 * dd] =
-          static_cast<int8_t>(rintf(__fdiv_rn(x[dd], scale)));
-    if (lane == 0) *scale_dst = scale;
-  } else {
+  for (int st = 0; st < kTcStages - 1; ++st) {
+    int row = row_first;
+    pending_valid[st] = valid_first;
+    pending[st] = st == 0 ? kb_first : next_step(&pending_valid[st], &row);
+    prefetch(pending[st], row, st);
+  }
+
+  // Q's A fragments for the warp's 16 rows, all of hd, once.
+  cp_async_wait<kTcStages - 2>();
+  __syncthreads();
+  uint32_t qa[KK][4];
 #pragma unroll
-    for (int dd = 0; dd < kDimsPerLane; ++dd) from_f32(x[dd], dst + lane + 32 * dd);
+  for (int kk = 0; kk < KK; ++kk)
+    ldmatrix_x4(qa[kk], qs + (r0 + lane % 16) * RS + (lane / 16) * 8 + kk * 16);
+
+  float acc[ND][4];
+#pragma unroll
+  for (int c = 0; c < ND; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  // Rows r0 + g and r0 + g + 8: running max (of scores in base 2), this
+  // lane's share of the row sum, and the position; a padding row's
+  // position lies below every key, so it attends nothing.
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
+  int q_pos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    q_pos[r] = row < nrows ? start + (row0 + row) / group : -1;
+  }
+  // The positions of the warp's first and last rows (a warp of padding
+  // rows alone has w_rows <= 0 and computes nothing).
+  const int w_rows = min(16, nrows - r0);
+  const int w_lo = start + (row0 + r0) / group;
+  const int w_hi = start + (row0 + r0 + max(w_rows, 1) - 1) / group;
+  const int b_off = (lane % 8 + 8 * (lane / 16)) * RS + 8 * ((lane / 8) % 2);
+  for (int i = 0; pending[0] >= 0; ++i) {
+    const int kb = pending[0];
+    const unsigned valid = pending_valid[0];
+    unsigned valid_after = 0;
+    int row_after = -1;
+    const int kb_after = next_step(&valid_after, &row_after);
+    cp_async_wait<kTcStages - 2>();  // step i's rows landed
+    __syncthreads();  // ... for every thread; step i - 1's reads done
+    // Into the stage step i - 1 read.
+    prefetch(kb_after, row_after, (i + kTcStages - 1) % kTcStages);
+    const int st = i % kTcStages;
+    const unsigned char* stage = ring + st * 2 * BK * RB;
+    const float* w = scales + st * 2 * BK;
+    const bf16* ks = reinterpret_cast<const bf16*>(stage);
+    if constexpr (QUANT) {
+      // Widen the step's int8 K and V rows to bf16: exact for |x| <= 127.
+      for (int idx = threadIdx.x; idx < 2 * BK * (HD / 16); idx += kThreads) {
+        const int r = idx / (HD / 16), c = idx % (HD / 16);
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(stage + r * RB + c * 16);
+        const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+        uint32_t packed[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          packed[j] = pack_bf16(static_cast<float>(e[2 * j]),
+                                static_cast<float>(e[2 * j + 1]));
+        uint4* dst = reinterpret_cast<uint4*>(wide + r * RS + c * 16);
+        dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+        dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+      }
+      __syncthreads();
+      ks = wide;
+    }
+    const bf16* vs = ks + BK * RS;
+
+    const bool idle = w_rows <= 0 || kb > w_hi ||
+                      (window > 0 && kb + BK - 1 <= w_lo - window);
+    if (!idle) {
+      float s[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t fb[4];
+          ldmatrix_x4(fb, ks + np * 16 * RS + b_off + kk * 16);
+          const uint32_t b0[2] = {fb[0], fb[1]}, b1[2] = {fb[2], fb[3]};
+          mma_bf16(s[2 * np], qa[kk], b0);
+          mma_bf16(s[2 * np + 1], qa[kk], b1);
+        }
+      }
+
+      // Scores in base 2 (int8: times the key's scale); masked pairs at
+      // kNegBig, unless every key is valid and every row of the warp
+      // attends all of them.
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float2 ksc = make_float2(c2, c2);
+        if constexpr (QUANT) {
+          ksc = *reinterpret_cast<const float2*>(w + j * 8 + 2 * tq);
+          ksc = make_float2(ksc.x * c2, ksc.y * c2);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= e % 2 ? ksc.y : ksc.x;
+      }
+      const bool every = valid == 0xffffffffu && kb + BK - 1 <= w_lo &&
+                         (window == 0 || kb > w_hi - window);
+      if (!every) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = j * 8 + 2 * tq + (e % 2), kp = kb + col;
+            const int qp = q_pos[e / 2];
+            const bool ok = ((valid >> col) & 1u) && kp <= qp &&
+                            (window == 0 || qp - kp < window);
+            if (!ok) s[j][e] = kNegBig;
+          }
+      }
+      // Per row: the new maximum (a tree over the lane's 8 scores, then
+      // the quad), the rescale of the running state, and p = 2^(s − m)
+      // in f32 into the row sum (a masked pair gives exactly 0: its
+      // kNegBig less a real maximum, or less 0 while the row has none).
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = fmaxf(
+            fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                  fmaxf(s[1][2 * r], s[1][2 * r + 1])),
+            fmaxf(fmaxf(s[2][2 * r], s[2][2 * r + 1]),
+                  fmaxf(s[3][2 * r], s[3][2 * r + 1])));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_next = fmaxf(m[r], mx);
+        alpha[r] = ex2(m[r] - m_next);
+        m[r] = m_next;
+        const float mu = m_next == kNegBig ? 0.f : m_next;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          s[j][2 * r] = ex2(s[j][2 * r] - mu);
+          s[j][2 * r + 1] = ex2(s[j][2 * r + 1] - mu);
+        }
+        l[r] = l[r] * alpha[r] +
+               ((s[0][2 * r] + s[0][2 * r + 1]) +
+                (s[1][2 * r] + s[1][2 * r + 1])) +
+               ((s[2][2 * r] + s[2][2 * r + 1]) +
+                (s[3][2 * r] + s[3][2 * r + 1]));
+      }
+      // The P V operand is p (int8: times the key's v scale), rounded to
+      // bf16 by acc_to_a.
+      if constexpr (QUANT) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float2 vsc =
+              *reinterpret_cast<const float2*>(w + BK + j * 8 + 2 * tq);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= e % 2 ? vsc.y : vsc.x;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < ND; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][e] *= alpha[e / 2];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[4];
+        acc_to_a(s, kk, a);
+        out_product<HD>(a, vs, kk, acc);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j + 1 < kTcStages - 1; ++j) {
+      pending[j] = pending[j + 1];
+      pending_valid[j] = pending_valid[j + 1];
+    }
+    pending[kTcStages - 2] = kb_after;
+    pending_valid[kTcStages - 2] = valid_after;
+  }
+  cp_async_wait<0>();  // only empty groups remain
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + g + 8 * r;
+    if (row >= nrows) continue;
+    const size_t orow = q_row(b, row0 + row, t, H, h, group);
+    if (part == nullptr) {
+      // A row with no valid key has l == 0 and acc == 0: zeros.
+      const float lv = fmaxf(l[r], 1e-30f);
+      float* o = out + orow * HD + 2 * tq;
+#pragma unroll
+      for (int c = 0; c < ND; ++c)
+        *reinterpret_cast<float2*>(o + c * 8) =
+            make_float2(acc[c][2 * r] / lv, acc[c][2 * r + 1] / lv);
+    } else {
+      float* o = part + (split * R + orow) * HD + 2 * tq;
+#pragma unroll
+      for (int c = 0; c < ND; ++c)
+        *reinterpret_cast<float2*>(o + c * 8) =
+            make_float2(acc[c][2 * r], acc[c][2 * r + 1]);
+      if (tq == 0) {
+        // The merge weighs splits by e^(m_s − M): m back to base e.
+        float* ml = part + static_cast<size_t>(gridDim.y) * R * HD +
+                    (split * R + orow) * 2;
+        ml[0] = m[r] * kLn2;
+        ml[1] = l[r];
+      }
+    }
   }
 }
 
+template <int HD, typename KVT, bool QUANT>
+cudaError_t launch_prefill_tc(const void* q, const void* k_pool,
+                              const void* v_pool, const float* k_scale,
+                              const float* v_scale, const int32_t* tables,
+                              const int32_t* starts, float* out, float* part,
+                              int B, int t, int H, int KVH, int n_blocks,
+                              int bs, int n_tables, int entries, int window,
+                              cudaStream_t stream) {
+  const int tiles = (t * (H / KVH) + kTcRows - 1) / kTcRows;
+  const int n_splits = n_tables > 0 ? (n_tables + entries - 1) / entries : 1;
+  if (n_splits > 65535 || tiles > 65535) return cudaErrorInvalidValue;
+  if (n_splits > 1 && part == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = prefill_tc_smem_bytes<HD, KVT>();
+  auto kernel = paged_prefill_tc_kernel<HD, KVT, QUANT>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * KVH, n_splits, tiles);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KVT*>(k_pool),
+      static_cast<const KVT*>(v_pool), k_scale, v_scale, tables, starts, out,
+      n_splits > 1 ? part : nullptr, t, H, KVH, H / KVH, n_blocks, bs,
+      n_tables, entries, window,
+      static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(HD))));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return err;
+  return launch_merge<HD>(part, out, n_splits,
+                          static_cast<size_t>(B) * t * H, stream);
+}
+
+template <int HD>
+cudaError_t dispatch_prefill_tc(const void* q, const void* k_pool,
+                                const void* v_pool, int kv_dtype,
+                                const float* k_scale, const float* v_scale,
+                                const int32_t* tables, const int32_t* starts,
+                                float* out, float* part, int B, int t, int H,
+                                int KVH, int n_blocks, int bs, int n_tables,
+                                int entries, int window, cudaStream_t stream) {
+  if (kv_dtype == kOimBF16)
+    return launch_prefill_tc<HD, __nv_bfloat16, false>(
+        q, k_pool, v_pool, k_scale, v_scale, tables, starts, out, part, B, t,
+        H, KVH, n_blocks, bs, n_tables, entries, window, stream);
+  if (kv_dtype == kOimI8)
+    return launch_prefill_tc<HD, int8_t, true>(
+        q, k_pool, v_pool, k_scale, v_scale, tables, starts, out, part, B, t,
+        H, KVH, n_blocks, bs, n_tables, entries, window, stream);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// K2: K/V store with fused quant
+
+constexpr int kStoreThreads = 128;
+
+// Grid ceil(n_rows / groups a block) over the n_rows = B·t·KVH rows of
+// k_new/v_new [B, t, KVH, hd], in memory order: lane group q of block x
+// carries row x·groups + q.
 template <int HD, typename NT, typename PT, bool QUANT>
-__global__ void paged_store_kernel(
+__global__ void __launch_bounds__(kStoreThreads) paged_store_kernel(
     const NT* __restrict__ k_new, const NT* __restrict__ v_new,
     PT* __restrict__ k_pool, PT* __restrict__ v_pool,
     float* __restrict__ k_scale, float* __restrict__ v_scale,
     const int32_t* __restrict__ tables, const int32_t* __restrict__ starts,
-    int t, int KVH, int n_blocks, int bs, int n_tables) {
-  const int i = blockIdx.x;
-  const int b = blockIdx.y;
-  const int h = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int pos = starts[b] + i;
-  if (pos < 0) return;  // before the slot: dropped
-  const int entry = pos / bs;
-  if (entry >= n_tables) return;  // past the table: dropped
-  const int blk = tables[static_cast<size_t>(b) * n_tables + entry];
-  if (blk < 0 || blk >= n_blocks) return;  // sentinel: dropped
-  const size_t src = ((static_cast<size_t>(b) * t + i) * KVH + h) * HD;
-  const size_t row_id = (static_cast<size_t>(blk) * bs + pos % bs) * KVH + h;
-  store_row<HD, NT, PT, QUANT>(k_new + src, k_pool + row_id * HD,
-                               QUANT ? k_scale + row_id : nullptr, lane);
-  store_row<HD, NT, PT, QUANT>(v_new + src, v_pool + row_id * HD,
-                               QUANT ? v_scale + row_id : nullptr, lane);
+    int n_rows, int t, int KVH, int n_blocks, int bs, int n_tables) {
+  constexpr int kV = 16 / static_cast<int>(sizeof(NT));  // values a lane
+  constexpr int kLanes = HD / kV;                          // lanes a row
+  constexpr int kGroups = kStoreThreads / kLanes;
+  static_assert(kLanes <= 32 && 32 % kLanes == 0, "a group inside a warp");
+  static_assert(QUANT || std::is_same_v<NT, PT>, "fp rows copy as bits");
+  const int sub = threadIdx.x % kLanes;
+  const int rr = blockIdx.x * kGroups + threadIdx.x / kLanes;
+  const bool in = rr < n_rows;
+  // Both loads first (their addresses need no lookup), then the table
+  // entry, then the stores.
+  const size_t src = static_cast<size_t>(in ? rr : 0) * HD + sub * kV;
+  const uint4 raws[2] = {
+      in ? *reinterpret_cast<const uint4*>(k_new + src) : uint4{},
+      in ? *reinterpret_cast<const uint4*>(v_new + src) : uint4{}};
+  int64_t dst = -1;  // the pool row, or -1: dropped
+  if (in) {
+    const int h = rr % KVH, bi = rr / KVH;
+    const int b = bi / t, pos = starts[b] + bi % t;
+    // Rows before the slot, past its table or in a sentinel entry drop.
+    if (pos >= 0 && pos / bs < n_tables) {
+      const int blk = tables[static_cast<size_t>(b) * n_tables + pos / bs];
+      if (blk >= 0 && blk < n_blocks)
+        dst = (static_cast<int64_t>(blk) * bs + pos % bs) * KVH + h;
+    }
+  }
+#pragma unroll
+  for (int kv = 0; kv < 2; ++kv) {
+    PT* pool = kv ? v_pool : k_pool;
+    if constexpr (QUANT) {
+      const NT* e = reinterpret_cast<const NT*>(&raws[kv]);
+      float x[kV], amax = 0.f;
+#pragma unroll
+      for (int j = 0; j < kV; ++j) {
+        x[j] = to_f32(e[j]);
+        amax = fmaxf(amax, fabsf(x[j]));
+      }
+      // The row's amax over its group's lanes (every lane shuffles,
+      // dropped rows too, so the warp stays converged).
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      const float scale = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+      if (dst < 0) continue;
+      uint32_t packed[kV / 4];
+#pragma unroll
+      for (int j = 0; j < kV / 4; ++j) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int qv = static_cast<int>(rintf(__fdiv_rn(x[4 * j + k], scale)));
+          word |= static_cast<uint32_t>(qv & 0xff) << (8 * k);
+        }
+        packed[j] = word;
+      }
+      int8_t* row = reinterpret_cast<int8_t*>(pool) + dst * HD + sub * kV;
+      if constexpr (kV == 8)
+        *reinterpret_cast<uint2*>(row) = make_uint2(packed[0], packed[1]);
+      else
+        *reinterpret_cast<uint32_t*>(row) = packed[0];
+      if (sub == 0) (kv ? v_scale : k_scale)[dst] = scale;
+    } else {
+      if (dst < 0) continue;
+      *reinterpret_cast<uint4*>(pool + dst * HD + sub * kV) = raws[kv];
+    }
+  }
 }
 
 template <int HD, typename NT, typename PT, bool QUANT>
@@ -585,11 +1101,16 @@ cudaError_t launch_store(const void* k_new, const void* v_new, void* k_pool,
                          const int32_t* tables, const int32_t* starts, int B,
                          int t, int KVH, int n_blocks, int bs, int n_tables,
                          cudaStream_t stream) {
-  const dim3 grid(t, B);
-  paged_store_kernel<HD, NT, PT, QUANT><<<grid, KVH * 32, 0, stream>>>(
+  constexpr int kRowsABlock = kStoreThreads / (HD * sizeof(NT) / 16);
+  const int64_t n_rows = static_cast<int64_t>(B) * t * KVH;
+  if (n_rows > (int64_t{1} << 30)) return cudaErrorInvalidValue;
+  const unsigned blocks =
+      static_cast<unsigned>((n_rows + kRowsABlock - 1) / kRowsABlock);
+  paged_store_kernel<HD, NT, PT, QUANT><<<blocks, kStoreThreads, 0, stream>>>(
       static_cast<const NT*>(k_new), static_cast<const NT*>(v_new),
       static_cast<PT*>(k_pool), static_cast<PT*>(v_pool), k_scale, v_scale,
-      tables, starts, t, KVH, n_blocks, bs, n_tables);
+      tables, starts, static_cast<int>(n_rows), t, KVH, n_blocks, bs,
+      n_tables);
   return cudaGetLastError();
 }
 
@@ -641,13 +1162,37 @@ extern "C" int oim_paged_flash_decode(
   return cudaErrorInvalidValue;
 }
 
+extern "C" int oim_paged_prefill_tc(
+    const void* q, int q_dtype, const void* k_pool, const void* v_pool,
+    int kv_dtype, const float* k_scale, const float* v_scale,
+    const int32_t* tables, const int32_t* starts, float* out,
+    float* partials, int B, int t, int H, int KVH, int hd, int n_blocks,
+    int block_size, int n_tables, int window, int entries, void* stream) {
+  if (B == 0 || t == 0) return cudaSuccess;
+  if (q_dtype != kOimBF16 || block_size < 1 ||
+      block_size > kMaxBlockSize || H % KVH != 0 || entries < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return dispatch_prefill_tc<64>(q, k_pool, v_pool, kv_dtype, k_scale,
+                                   v_scale, tables, starts, out, partials, B,
+                                   t, H, KVH, n_blocks, block_size, n_tables,
+                                   entries, window, s);
+  if (hd == 128)
+    return dispatch_prefill_tc<128>(q, k_pool, v_pool, kv_dtype, k_scale,
+                                    v_scale, tables, starts, out, partials, B,
+                                    t, H, KVH, n_blocks, block_size, n_tables,
+                                    entries, window, s);
+  return cudaErrorInvalidValue;
+}
+
 extern "C" int oim_paged_kv_store(
     const void* k_new, const void* v_new, int new_dtype, void* k_pool,
     void* v_pool, int pool_dtype, float* k_scale, float* v_scale,
     const int32_t* tables, const int32_t* starts, int B, int t, int KVH,
     int hd, int n_blocks, int block_size, int n_tables, void* stream) {
   if (B == 0 || t == 0) return cudaSuccess;
-  if (block_size < 1 || KVH < 1 || KVH > 32) return cudaErrorInvalidValue;
+  if (block_size < 1 || KVH < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return dispatch_store<64>(k_new, v_new, new_dtype, k_pool, v_pool,

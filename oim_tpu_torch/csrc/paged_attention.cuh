@@ -28,6 +28,18 @@ int oim_paged_flash_decode(
     float* partials, int B, int t, int H, int KVH, int hd, int n_blocks,
     int block_size, int n_tables, int window, int entries, void* stream);
 
+// K1's tall route on the tensor cores, for bf16 q (q_dtype must be
+// bf16) over bf16 or int8 pools: the same arguments and result as
+// oim_paged_flash_decode, tiles of 64 flattened q rows.  The wrapper
+// sends bf16 q with more than 8 rows (t x group) a slot here;
+// oim_paged_flash_decode refuses them.
+int oim_paged_prefill_tc(
+    const void* q, int q_dtype, const void* k_pool, const void* v_pool,
+    int kv_dtype, const float* k_scale, const float* v_scale,
+    const int32_t* tables, const int32_t* starts, float* out,
+    float* partials, int B, int t, int H, int KVH, int hd, int n_blocks,
+    int block_size, int n_tables, int window, int entries, void* stream);
+
 // K2 — prefill K/V store with fused int8 quant (replaces
 // _prefill_stage_kernel plus its paged_store_blocks landing).  Writes
 // k_new/v_new [B, t, KVH, hd] into positions [starts[b], starts[b] + t)

@@ -52,6 +52,11 @@ _SIGNATURES = {
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    # the same arguments: K1's tall route on the tensor cores
+    "oim_paged_prefill_tc": (
+        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
     # k_new, v_new, new_dtype, k_pool, v_pool, pool_dtype, k_scale,
     # v_scale, tables, starts, B, t, KVH, hd, n_blocks, block_size,
     # n_tables, stream

@@ -1,31 +1,39 @@
-"""Paged attention straight off the block pool: the two Hopper kernels
-of the serving path and their plain PyTorch versions.
+"""Paged attention straight off the block pool: the Hopper kernels of
+the serving path and their plain PyTorch versions.
 
-``paged_flash_decode`` (kernel K1, ``csrc/paged_attention.cu``
-``paged_decode_kernel`` and ``paged_merge_kernel``) replaces
+``paged_flash_decode`` (kernel K1, ``csrc/paged_attention.cu``) replaces
 ``oim_tpu/ops/paged_attention.py`` ``_decode_kernel``: attention for q
 rows at per-slot positions, reading K/V through each slot's block table
 with no gathered view, online softmax in f32, GQA folded into the row
-axis, int8 dequant fused where the values are consumed.  The kernel
-splits each slot's table into ranges of ``decode_split`` entries that
-run as separate blocks and merges their partial softmax states in a
-fixed order.  ``paged_kv_store`` (kernel K2, ``paged_store_kernel``)
-replaces ``_prefill_stage_kernel`` together with its ``paged_store_blocks``
-landing: a segment's fresh K/V rows are written into the slot's blocks
-in place, quantized exactly as ``quantize_int8`` does.
-``paged_flash_prefill`` is K2 then K1 over the updated pool — a
-prompt segment's causal prefill is a tall decode.
+axis, int8 dequant fused where the values are consumed.  It has three
+routes, picked by ``decode_route`` from host-known sizes: a decode step
+(at most 8 flattened q rows) takes ``paged_decode_kernel`` with 8-row
+tiles; a taller bf16 q (a prompt segment) takes
+``paged_prefill_tc_kernel`` on the tensor cores with 64-row tiles; a
+taller f32 q takes ``paged_decode_kernel`` with 16-row tiles, in exact
+f32.  Each splits the slot's table into ranges of ``decode_split``
+entries that run as separate blocks and merges their partial softmax
+states in a fixed order (``paged_merge_kernel``).  ``paged_kv_store``
+(kernel K2, ``paged_store_kernel``) replaces ``_prefill_stage_kernel``
+together with its ``paged_store_blocks`` landing: a segment's fresh K/V
+rows are written into the slot's blocks in place, quantized exactly as
+``quantize_int8`` does.  ``paged_flash_prefill`` is K2 then K1 over the
+updated pool — a prompt segment's causal prefill is a tall decode.
 
 Semantics the kernels and the plain versions share (the reference's
 exactness contract): sentinel table entries (``>= n_blocks``) are never
 read; scores are ``dot / sqrt(hd)``; masked scores take ``NEG_BIG``
 (``-1e30``, not ``-inf``); the window keeps ``q_pos - k_pos < window``;
-a row with no valid key outputs zeros.
+a row with no valid key outputs zeros.  The tensor-core route rounds the
+softmax weights (times the v scale, for int8) to bf16 as the operand of
+its product with V, as the reference's MXU rounds f32 operands at
+default precision; the other routes compute in f32 throughout.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version only for CPU tensors.  ``<wrapper>.launches`` counts
-kernel launches and ``<plain>.calls`` counts plain runs — plain
-integers that a run reads to show which path it went through.
+kernel launches, ``ROUTE_LAUNCHES`` K1's launches by route and
+``<plain>.calls`` plain runs — plain integers that a run reads to show
+which path it went through.
 """
 
 from __future__ import annotations
@@ -39,18 +47,25 @@ from oim_tpu_torch.ops.quant import dequantize_int8
 # The reference's mask constant (oim_tpu/ops/flash_attention.py
 # _NEG_BIG): a fully masked row then yields zeros, never NaN.
 NEG_BIG = -1e30
-# What the CUDA kernels take: head_dim is a template parameter (one
-# register slice of hd/32 values per lane), and a pool block is scored
-# by at most two 32-lane passes.
+# What the CUDA kernels take: head_dim is a template parameter, and a
+# pool block is at most one step of K1's ring.
 HEAD_DIMS = (64, 128)
 MAX_BLOCK_SIZE = 64
-# K2 runs one warp per kv head in a block of at most 1024 threads.
-MAX_KV_HEADS = 32
-# K1: a slot's q rows (t x group, flattened) fall in ceil(t·group /
-# Q_TILE_ROWS) tiles, one block each; decode_split aims for
-# DECODE_BLOCKS_PER_SM blocks an SM.
-Q_TILE_ROWS = 16
+# K1's routes and the flattened q rows (t x group) of one tile of each:
+# a slot's rows fall in ceil(t·group / ROUTE_ROWS[route]) tiles, one
+# block each.
+ROUTE_ROWS = {"rows8": 8, "tc": 64, "rows16": 16}
+# decode_split aims for ROUTE_BLOCKS_PER_SM[route] blocks an SM: two on
+# the CUDA-core routes; four on the tensor-core route, whose blocks are
+# latency-bound (one warp a scheduler at two blocks an SM) and whose
+# causal tiles differ in length, so more, shorter blocks overlap better
+# (at the smoke's 512- and 100-token prefills 3-6 and 6-8 splits time
+# best; PERF.md).
 DECODE_BLOCKS_PER_SM = 2
+ROUTE_BLOCKS_PER_SM = {"rows8": DECODE_BLOCKS_PER_SM, "tc": 4,
+                       "rows16": DECODE_BLOCKS_PER_SM}
+# Wrapper launches of K1 by route (see ``decode_route``).
+ROUTE_LAUNCHES = {route: 0 for route in ROUTE_ROWS}
 
 
 def supported_block_size(block_size: int, head_dim: int) -> bool:
@@ -60,13 +75,13 @@ def supported_block_size(block_size: int, head_dim: int) -> bool:
     return head_dim in HEAD_DIMS and 1 <= block_size <= MAX_BLOCK_SIZE
 
 
-def _check_kernel_geometry(what: str, block_size: int, head_dim: int,
-                           kvh: int) -> None:
-    if not supported_block_size(block_size, head_dim) or kvh > MAX_KV_HEADS:
+def _check_kernel_geometry(what: str, block_size: int,
+                           head_dim: int) -> None:
+    if not supported_block_size(block_size, head_dim):
         raise ValueError(
-            f"{what} kernel needs head_dim in {HEAD_DIMS}, block_size in "
-            f"[1, {MAX_BLOCK_SIZE}] and kv_heads <= {MAX_KV_HEADS}; got "
-            f"head_dim={head_dim}, block_size={block_size}, kv_heads={kvh}"
+            f"{what} kernel needs head_dim in {HEAD_DIMS} and block_size in "
+            f"[1, {MAX_BLOCK_SIZE}]; got head_dim={head_dim}, "
+            f"block_size={block_size}"
         )
 
 
@@ -103,9 +118,10 @@ def _check_kernel_operands(what: str, x, k_pool, v_pool, k_scale, v_scale,
     """Raise unless a kernel takes these operands as they are: its
     geometry, int8 pools with f32 scales or fp pools of ``x``'s dtype
     (``x`` is q or the new K, ``v_new`` the new V) with none, int32
-    tables and starts, and every tensor contiguous on ``x``'s device."""
-    _, block_size, kvh, hd = k_pool.shape
-    _check_kernel_geometry(what, block_size, hd, kvh)
+    tables and starts, every tensor contiguous on ``x``'s device, and
+    those moved in 16-byte vectors aligned to 16 bytes."""
+    _, block_size, _, hd = k_pool.shape
+    _check_kernel_geometry(what, block_size, hd)
     quantized = k_scale is not None
     if quantized != (k_pool.dtype == torch.int8):
         raise ValueError(f"{what}: int8 pools take f32 scales; fp pools "
@@ -130,6 +146,12 @@ def _check_kernel_operands(what: str, x, k_pool, v_pool, k_scale, v_scale,
             raise ValueError(f"{what}: {name} must be contiguous")
     if tables.dtype != torch.int32 or starts.dtype != torch.int32:
         raise ValueError(f"{what}: tables and starts must be int32")
+    if any(t.data_ptr() % 16 for t in (x, v_new, k_pool, v_pool)
+           if t is not None):
+        raise ValueError(f"{what}: the kernels move q, the new rows and "
+                         f"the pools in 16-byte vectors: align them")
+    if k_pool.numel() // hd >= 2**31:
+        raise ValueError(f"{what}: the kernels index pool rows in 32 bits")
 
 
 def _code(what: str, dtype) -> int:
@@ -177,21 +199,48 @@ def paged_flash_decode_plain(
 paged_flash_decode_plain.calls = 0
 
 
-def decode_split(batch_kv: int, tiles: int, n_tables: int, sms: int) -> int:
+def decode_split(batch_kv: int, tiles: int, n_tables: int, sms: int,
+                 per_sm: int = DECODE_BLOCKS_PER_SM) -> int:
     """Table entries each split of K1 walks, given B·KVH, the q-row
-    tiles of a slot (``ceil(t·group / Q_TILE_ROWS)``), the table's
-    entries and the card's SM count — host-known sizes only, so the
-    engine's decode pass never syncs to size the grid.  The fewest
-    splits whose grid (tiles × B·KVH × splits) reaches
-    ``DECODE_BLOCKS_PER_SM`` blocks an SM, at most one a table entry,
-    then the entries that cut the table into that many ranges.  At
-    decode a slot's walk is otherwise one serial chain on a near-empty
-    card; a prefill's tiles already fill it, and it keeps one split."""
+    tiles of a slot on the route K1 launches (``ceil(t·group /
+    ROUTE_ROWS[route])``), the table's entries and the card's SM count
+    — host-known sizes only, so the engine's passes never sync to size
+    the grid.  The fewest splits whose grid (tiles × B·KVH × splits)
+    reaches ``per_sm`` blocks an SM (the route's ``ROUTE_BLOCKS_PER_SM``),
+    at most one a table entry, then the entries that cut the table into
+    that many ranges.  At decode a slot's walk is otherwise one serial
+    chain on a near-empty card; a prefill whose tiles already fill the
+    card keeps one split."""
     if n_tables < 1:
         return 1
     per_split = max(1, batch_kv * tiles)
-    splits = max(1, min(n_tables, -(-DECODE_BLOCKS_PER_SM * sms // per_split)))
+    splits = max(1, min(n_tables, -(-per_sm * sms // per_split)))
     return -(-n_tables // splits)
+
+
+def decode_route(dtype, t: int, group: int) -> str:
+    """K1's route for q of ``dtype`` with ``t`` rows a slot and a GQA
+    group of ``group``: ``"rows8"`` when the t·group flattened rows fit
+    one 8-row tile (every decode step), else ``"tc"`` for bf16 q (the
+    tensor cores) and ``"rows16"`` for f32 q (CUDA cores, exact f32)."""
+    if t * group <= ROUTE_ROWS["rows8"]:
+        return "rows8"
+    return "tc" if dtype == torch.bfloat16 else "rows16"
+
+
+def decode_plan(dtype, b: int, t: int, h: int, kvh: int, n_tables: int,
+                sms: int, splits: int | None = None) -> tuple[str, int]:
+    """(route, table entries a split) of one K1 launch, from host-known
+    sizes only: the route by ``decode_route``; the entries by
+    ``decode_split`` over that route's tiles and blocks an SM, or the
+    ones that cut the table into ``splits`` ranges when the caller forces
+    a count."""
+    route = decode_route(dtype, t, h // kvh)
+    if splits is not None:
+        return route, max(1, -(-n_tables // splits))
+    tiles = -(-t * (h // kvh) // ROUTE_ROWS[route])
+    return route, decode_split(b * kvh, tiles, n_tables, sms,
+                               ROUTE_BLOCKS_PER_SM[route])
 
 
 def paged_flash_decode(
@@ -207,10 +256,11 @@ def paged_flash_decode(
     — q row i of slot b sits at position ``starts[b] + i`` and attends
     positions ``<=`` it (within ``window`` when > 0).  Returns [B, t, H,
     hd] float32.  ``splits`` asks K1 to cut each table into that many
-    ranges of ``ceil(n_tables / splits)`` entries (None: ``decode_split``'s
+    ranges of ``ceil(n_tables / splits)`` entries (None: ``decode_plan``'s
     choice); it shapes only the kernel's grid, not the result.  CUDA
-    tensors launch K1 (one launch counted a call, the merge of the
-    splits included); CPU tensors run the plain version."""
+    tensors launch K1 on the route ``decode_route`` picks (one launch
+    counted a call, the merge of the splits included); CPU tensors run
+    the plain version."""
     if splits is not None and splits < 1:
         raise ValueError(f"paged_flash_decode: splits {splits} must be >= 1")
     b, t, h, hd = q.shape
@@ -230,22 +280,19 @@ def paged_flash_decode(
     q = q.contiguous()
     _check_kernel_operands("paged_flash_decode", q, k_pool, v_pool, k_scale,
                            v_scale, tables, starts)
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("K1 reads the pools in 16-byte chunks: align them")
     n_tables = tables.shape[1]
-    if splits is None:
-        tiles = -(-t * (h // kvh) // Q_TILE_ROWS)
-        entries = decode_split(b * kvh, tiles, n_tables,
-                               _build.sm_count(q.device))
-    else:
-        entries = max(1, -(-n_tables // splits))
+    route, entries = decode_plan(q.dtype, b, t, h, kvh, n_tables,
+                                 _build.sm_count(q.device), splits)
     n_splits = max(1, -(-n_tables // entries))
     out = torch.empty((b, t, h, hd), dtype=torch.float32, device=q.device)
     partials = None
     if n_splits > 1:
         partials = torch.empty(n_splits * b * t * h * (hd + 2),
                                dtype=torch.float32, device=q.device)
-    code = _build.library().oim_paged_flash_decode(
+    lib = _build.library()
+    launch = (lib.oim_paged_prefill_tc if route == "tc"
+              else lib.oim_paged_flash_decode)
+    code = launch(
         _build.ptr(q), _code("q", q.dtype),
         _build.ptr(k_pool), _build.ptr(v_pool), _code("pool", k_pool.dtype),
         _build.ptr(k_scale), _build.ptr(v_scale),
@@ -253,8 +300,9 @@ def paged_flash_decode(
         _build.ptr(partials), b, t, h, kvh, hd, n_blocks, block_size,
         n_tables, int(window), entries, _build.stream_of(q),
     )
-    _build.check(code, "paged_flash_decode")
+    _build.check(code, f"paged_flash_decode ({route} route)")
     paged_flash_decode.launches += 1
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 
@@ -317,9 +365,12 @@ def paged_kv_store(k_new, v_new, k_pool, v_pool, k_scale, v_scale, tables,
     )
     _build.check(code, "paged_kv_store")
     paged_kv_store.launches += 1
+    if t == 1:
+        paged_kv_store.decode_launches += 1
 
 
 paged_kv_store.launches = 0
+paged_kv_store.decode_launches = 0  # of them, t = 1 (a decode step)
 
 
 def paged_flash_prefill(
@@ -342,18 +393,24 @@ def paged_flash_prefill(
 
 
 def reset_counters() -> None:
-    """Zero every launch and plain-call count."""
+    """Zero every launch, route and plain-call count."""
     paged_flash_decode.launches = 0
     paged_kv_store.launches = 0
+    paged_kv_store.decode_launches = 0
+    for route in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[route] = 0
     paged_flash_decode_plain.calls = 0
     paged_kv_store_plain.calls = 0
 
 
 def counters() -> dict:
-    """Current launch and plain-call counts by name."""
+    """Current launch, route and plain-call counts by name."""
     return {
         "paged_flash_decode": paged_flash_decode.launches,
+        **{f"paged_flash_decode_{route}": n
+           for route, n in ROUTE_LAUNCHES.items()},
         "paged_kv_store": paged_kv_store.launches,
+        "paged_kv_store_t1": paged_kv_store.decode_launches,
         "paged_flash_decode_plain": paged_flash_decode_plain.calls,
         "paged_kv_store_plain": paged_kv_store_plain.calls,
     }

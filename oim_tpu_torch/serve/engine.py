@@ -60,7 +60,6 @@ from oim_tpu_torch.models.transformer import (
 from oim_tpu_torch.models.weights import n_params, to_device
 from oim_tpu_torch.ops import paged_attention
 from oim_tpu_torch.ops.paged_attention import (
-    MAX_KV_HEADS,
     paged_flash_prefill,
     supported_block_size,
 )
@@ -485,17 +484,14 @@ class Engine:
                 f"kv_block={kv_block} must divide max_len={max_len} "
                 f"(the block table covers the region exactly)"
             )
-        if self.device.type == "cuda" and not (
-            supported_block_size(kv_block, cfg.head_dim)
-            and cfg.kv_heads <= MAX_KV_HEADS
-        ):
+        if self.device.type == "cuda" and not supported_block_size(
+                kv_block, cfg.head_dim):
             # Fail here, with the constraint named, rather than in the
             # first launch on the step thread.
             raise ValueError(
-                f"the paged-attention kernels need head_dim in (64, 128), "
-                f"kv_block in [1, 64] and kv_heads <= {MAX_KV_HEADS}; got "
-                f"head_dim={cfg.head_dim}, kv_block={kv_block}, "
-                f"kv_heads={cfg.kv_heads}"
+                f"the paged-attention kernels need head_dim in (64, 128) "
+                f"and kv_block in [1, 64]; got head_dim={cfg.head_dim}, "
+                f"kv_block={kv_block}"
             )
         if kv_blocks < 0:
             raise ValueError(f"need kv_blocks >= 0, got {kv_blocks}")

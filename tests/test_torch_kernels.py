@@ -12,12 +12,17 @@ daemons and imports the ``tests`` package by name, which another
 installed ``tests`` package can shadow; these tests need none of it.)
 
 Tolerances: K2 writes the pool bytes ``paged_store`` writes, bit for
-bit.  K1 and the plain version compute in f32 from the same (bf16, f32
-or dequantized int8) values and differ only in summation order (and K1
-merges split and warp partial sums by their maxima) over at most 2048
-keys of unit-scale data, whose softmax weights sum to one: 1e-4 covers
-that, while a wrong block, mask, split or scale moves outputs by
-O(0.1).
+bit.  On its decode and f32 routes K1 and the plain version compute in
+f32 from the same (bf16, f32 or dequantized int8) values and differ only
+in summation order (and K1 merges split and warp partial sums by their
+maxima) over at most 2048 keys of unit-scale data, whose softmax weights
+sum to one: 1e-4 covers that, while a wrong block, mask, split or scale
+moves outputs by O(0.1).  K1's tensor-core route (bf16 q, more than 8
+flattened rows a slot) rounds each softmax weight (times the v scale,
+for int8) to bf16 as the operand of P V, as the flash forward rounds P:
+an output then moves by at most 2**-8 of the largest V value, which the
+rows attending few keys carry into the output's max; it is held, as the
+flash forward is, at 2**-7 + 1e-4 of the output's max.
 """
 
 import pytest
@@ -26,12 +31,21 @@ import torch
 from oim_tpu_torch.ops import paged_attention as pa
 
 ATOL = 1e-4
+TC_RTOL = 2.0**-7 + 1e-4
 N_BLOCKS, KVH, H, N_TABLES = 20, 2, 6, 6
 
 
 def _need_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+
+
+def _k1_tol(q, want):
+    """K1's tolerance on ``q`` (module docstring): the tensor-core
+    route's share of the output's max, ATOL on the other routes."""
+    if pa.decode_route(q.dtype, q.shape[1], q.shape[2] // KVH) == "tc":
+        return TC_RTOL * float(want.abs().max())
+    return ATOL
 
 
 def _pools(dtype, hd, bs, gen):
@@ -96,8 +110,8 @@ def test_prefill_store_and_attend_match_plain(dtype, hd, bs, t, window):
             assert torch.equal(got_pool, want_pool)
     assert out.dtype == torch.float32
     assert torch.isfinite(out).all()
-    assert float((out - want).abs().max()) <= ATOL
     assert not out[2].any()  # the all-sentinel row emits zeros
+    assert float((out - want).abs().max()) <= _k1_tol(q, want)
     assert after["paged_flash_decode"] == before["paged_flash_decode"] + 1
     assert after["paged_kv_store"] == before["paged_kv_store"] + 1
 
@@ -128,7 +142,7 @@ def test_windowed_row_over_a_hole_emits_zeros(dtype):
     assert not want[0, 5].any()
     assert not out[0, 5].any()
     assert out[0, :5].abs().amax(-1).min() > 0  # live rows attend
-    assert float((out - want).abs().max()) <= ATOL
+    assert float((out - want).abs().max()) <= _k1_tol(q, want)
 
 
 def _decode_case(dtype, t, seed=0, n_tables=128, bs=16):
@@ -195,7 +209,7 @@ def test_decode_split_sweep_matches_plain(dtype, t, window, splits):
     assert torch.isfinite(got).all()
     assert torch.equal(got, again)
     assert not got[7].any()
-    assert float((got - want).abs().max()) <= ATOL
+    assert float((got - want).abs().max()) <= _k1_tol(q, want)
 
 
 @pytest.mark.cuda
@@ -215,7 +229,156 @@ def test_tall_prefill_split_matches_plain(dtype, splits):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     assert not got[7].any()
-    assert float((got - want).abs().max()) <= ATOL
+    assert float((got - want).abs().max()) <= _k1_tol(q, want)
+
+
+def _tc_case(dtype, hd, bs, t, seed=0):
+    """Four slots over a pool of ``bs``-row blocks, tables long enough
+    for ``t`` rows from a start past two blocks: slot 0 fully live from a
+    start mid-block; slot 1 live for its first four entries, then
+    sentinel (its later rows attend only those); slot 2 all sentinel;
+    slot 3 live but for a sentinel hole at entry 2.  q bf16 [4, t, 12,
+    hd] on 2 kv heads (a group of 6, as the serving model)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_tables = -(-(2 * bs + t) // bs) + 1
+    n_blocks = 4 * n_tables
+    shape = (n_blocks, bs, KVH, hd)
+    if dtype == torch.int8:
+        pools = [torch.randint(-127, 128, shape, generator=gen,
+                               device="cuda", dtype=torch.int8)
+                 for _ in range(2)]
+        pools += [torch.rand(shape[:-1], generator=gen, device="cuda") * 0.04
+                  + 0.005 for _ in range(2)]
+    else:
+        pools = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for _ in range(2)] + [None, None]
+    perm = torch.randperm(n_blocks, generator=gen, device="cuda").int()
+    tables = perm.reshape(4, n_tables).clone()
+    tables[1, 4:] = n_blocks
+    tables[2] = n_blocks
+    tables[3, 2] = n_blocks
+    starts = torch.tensor([bs + 3, bs + 3, 1, bs - 2], dtype=torch.int32,
+                          device="cuda")
+    q = torch.randn((4, t, 12, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    return q, pools, tables, starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1, 2, 5], ids=lambda s: f"splits{s}")
+@pytest.mark.parametrize("window", [0, 37])
+@pytest.mark.parametrize("t", [7, 100])
+@pytest.mark.parametrize("bs", [16, 24])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_tc_route_matches_plain(dtype, hd, bs, t, window, splits):
+    """K1's tensor-core route at both head dims, a block size that
+    divides its 32-key steps and one that does not, ragged row counts
+    (t·group = 42 and 600: not multiples of the 64-row tile), a window
+    shorter than the segment (steps left of a tile's window skipped),
+    every split from one range to one entry each: within the route's
+    tolerance of the plain version, the all-sentinel slot zeros, two
+    launches bit-equal, and every launch on the tc route."""
+    _need_gpu()
+    q, pools, tables, starts = _tc_case(dtype, hd, bs, t)
+    args = (q, *pools, tables, starts)
+    assert pa.decode_route(q.dtype, t, 6) == "tc"
+    before = pa.counters()
+    got = pa.paged_flash_decode(*args, window=window, splits=splits)
+    again = pa.paged_flash_decode(*args, window=window, splits=splits)
+    want = pa.paged_flash_decode_plain(*args, window=window)
+    torch.cuda.synchronize()
+    after = pa.counters()
+    assert after["paged_flash_decode_tc"] == before["paged_flash_decode_tc"] + 2
+    assert after["paged_flash_decode"] == before["paged_flash_decode"] + 2
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert not got[2].any()
+    assert float((got - want).abs().max()) <= _k1_tol(q, want)
+
+
+@pytest.mark.cuda
+def test_k1_routes_by_dtype_and_rows():
+    """Decode steps (t·group <= 8) take the 8-row route in either dtype,
+    taller bf16 q the tensor cores, taller f32 q the CUDA-core route;
+    the decode entry point refuses tall bf16 q (no route falls back to
+    another)."""
+    _need_gpu()
+    from oim_tpu_torch.ops import _build
+
+    q, pools, tables, starts = _tc_case(torch.bfloat16, 128, 16, 7)
+    f32_pools = [p.float() for p in pools[:2]] + [None, None]
+    cases = [(q[:, :1], pools, "rows8"), (q, pools, "tc"),
+             (q[:, :1].float(), f32_pools, "rows8"),
+             (q.float(), f32_pools, "rows16")]
+    for qq, pp, route in cases:
+        before = pa.counters()[f"paged_flash_decode_{route}"]
+        pa.paged_flash_decode(qq.contiguous(), *pp, tables, starts)
+        assert pa.counters()[f"paged_flash_decode_{route}"] == before + 1
+    out = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+    n_blocks, bs = pools[0].shape[:2]
+    code = _build.library().oim_paged_flash_decode(
+        q.data_ptr(), _build.DTYPE_CODES[torch.bfloat16],
+        pools[0].data_ptr(), pools[1].data_ptr(),
+        _build.DTYPE_CODES[torch.bfloat16], None, None, tables.data_ptr(),
+        starts.data_ptr(), out.data_ptr(), None, 4, q.shape[1], 12, KVH,
+        128, n_blocks, bs, tables.shape[1], 0, tables.shape[1],
+        _build.stream_of(q))
+    assert code != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 7, 512])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=["f32", "bf16", "int8"])
+def test_k2_store_bit_equal_to_paged_store(dtype, hd, t):
+    """K2's flat grid writes the pool bytes (and int8 scales)
+    ``paged_store`` writes, bit for bit, at a decode step, a short and a
+    512-row segment: slot 0's rows all land; slot 1's rows past its
+    fourth entry fall in sentinel entries and drop; slot 2 (all
+    sentinel) writes nothing; slot 3's rows past the table drop; no
+    other pool byte moves.  At t = 1 the count of decode launches
+    moves."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(t + hd)
+    bs, n_tables = 16, 40
+    n_blocks = 4 * n_tables
+    shape = (n_blocks, bs, KVH, hd)
+    if dtype == torch.int8:
+        pools = [torch.randint(-127, 128, shape, generator=gen,
+                               device="cuda", dtype=torch.int8)
+                 for _ in range(2)]
+        pools += [torch.rand(shape[:-1], generator=gen, device="cuda")
+                  for _ in range(2)]
+        ndt = torch.bfloat16
+    else:
+        pools = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for _ in range(2)] + [None, None]
+        ndt = dtype
+    perm = torch.randperm(n_blocks, generator=gen, device="cuda").int()
+    tables = perm.reshape(4, n_tables).clone()
+    tables[1, 4:] = n_blocks
+    tables[2] = n_blocks
+    starts = torch.tensor([3, 2 * bs + 5, 0, n_tables * bs - t // 2 - 1],
+                          dtype=torch.int32, device="cuda")
+    kn = torch.randn((4, t, KVH, hd), generator=gen, device="cuda") * 3
+    vn = torch.randn((4, t, KVH, hd), generator=gen, device="cuda") * 3
+    kn, vn = kn.to(ndt), vn.to(ndt)
+    kn[0, 0] = 0.0  # an all-zero row: the 1e-8 scale floor, zeros out
+    ref = [None if x is None else x.clone() for x in pools]
+    before = pa.counters()
+    pa.paged_kv_store(kn, vn, *pools, tables, starts)
+    pa.paged_kv_store_plain(kn, vn, *ref, tables, starts)
+    torch.cuda.synchronize()
+    after = pa.counters()
+    for got, want in zip(pools, ref):
+        if got is not None:
+            assert torch.equal(got, want)
+    assert after["paged_kv_store"] == before["paged_kv_store"] + 1
+    assert (after["paged_kv_store_t1"]
+            == before["paged_kv_store_t1"] + (t == 1))
 
 
 @pytest.mark.cuda

@@ -4,11 +4,14 @@ The CUDA kernel cuts each slot's block table into ranges of
 ``decode_split`` entries, runs each range as its own thread block and
 merges the ranges' partial softmax states in a fixed order.  The kernel
 runs only on the card (``tests/test_torch_kernels.py``), so this file
-pins the two things around it that the CPU can check:
+pins the two things around it that the CPU can check (the tensor-core
+route's own arithmetic is ``tests/test_torch_paged_tc.py``'s):
 
 - ``decode_split``'s rule, from host-known sizes only;
-- the split-and-merge arithmetic, emulated in plain PyTorch exactly as
-  the kernel does it — per 16-row q tile and split, the key range
+- the split-and-merge arithmetic of the CUDA-core routes, emulated in
+  plain PyTorch exactly as the kernel does it — per 16-row q tile (the
+  f32 route's; a decode step's 8-row tile holds all its rows) and
+  split, the key range
   clipped to the tile's causal frontier and window, a range wholly
   masked or wholly sentinel skipped with ``m = NEG_BIG, l = 0``, the
   others reduced to ``(m, l, acc)``, then merged in split order with
@@ -42,8 +45,9 @@ N_BLOCKS, BS, KVH, HD, N_TABLES, H = 16, 4, 2, 16, 6, 6
     # 128-entry table; 2 blocks an SM of 132 asks for 17 splits, which
     # 8 entries a split makes 16 (256 blocks).
     (16, 1, 128, 132, 8),
-    # Its 512-token prefill: 2 slots x 2 kv heads x 192 tiles = 768
-    # blocks already fill the card: one split over the whole table.
+    # A 512-token prefill on the f32 route: 2 slots x 2 kv heads x 192
+    # 16-row tiles = 768 blocks already fill the card: one split over
+    # the whole table.
     (4, 192, 128, 132, 128),
     # A short table: at most one split an entry.
     (16, 1, 4, 132, 1),
@@ -129,8 +133,8 @@ def _emulate(q, k_pool, v_pool, k_scale, v_scale, tables, starts, window,
             qr = q[slot, :, kh * group:(kh + 1) * group].reshape(rows, hd)
             qr = qr.float()
             o = torch.zeros((rows, hd))
-            for r0 in range(0, rows, tpa.Q_TILE_ROWS):
-                r1 = min(rows, r0 + tpa.Q_TILE_ROWS)
+            for r0 in range(0, rows, tpa.ROUTE_ROWS["rows16"]):
+                r1 = min(rows, r0 + tpa.ROUTE_ROWS["rows16"])
                 q_pos = start + torch.arange(r0, r1) // group
                 states = []
                 for split in range(n_splits):
