@@ -1,8 +1,11 @@
 """Chip smoke for the PyTorch/CUDA port: build the Hopper kernels, hold
 each against its plain PyTorch version at the shapes its path gives it,
 then drive the paths through the port's own entry points at
-Qwen2.5-1.5B's full width — serve six requests (paged-attention kernels
-K1 on its decode and tensor-core routes, K2), train a few steps in the trainer's usual configuration
+Qwen2.5-1.5B's full width — serve six requests at ``serve_main``'s
+defaults (the dense cache, pipeline depth 2, each decode chunk one CUDA
+graph replay) and again on the paged engine at depth 1 (paged-attention
+kernels K1 on its decode and tensor-core routes, K2, in both), train a
+few steps in the trainer's usual configuration
 (RMSNorm, flash attention forward, dq, dkv, and the fused unembed+CE
 forward, dx and dw), then checkpoint, resume, export, fine-tune LoRA on
 the export and serve the merged weights — and check what comes back.
@@ -21,10 +24,11 @@ checkout, such as a parent commit unpacked beside this one), so that two
 versions of the kernels are timed on the same inputs in one run of the
 card.  ``--train-phase-only [--package DIR]`` likewise runs only the
 training configuration's steps and prints their wall times and peak
-memory, and ``--serve-phase-only [--package DIR]`` only the serve phase
-(its checks, the lone 512-token prompt's time to first token and the
-concurrent p50); run both builds in turns (parent, change, change,
-parent) to compare them in one call.
+memory, and ``--serve-phase-only [--package DIR]`` only the serve phases
+(their checks, the lone 512-token prompt's time to first token, the
+concurrent p50 and the decode rate; the default-configuration phase
+only where the package serves it); run both builds in turns (parent,
+change, change, parent) to compare them in one call.
 
 It exits non-zero without a result line when no GPU is visible, when the
 port's package is not beside it, or when any phase fails.  Every number
@@ -54,16 +58,25 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
 # Serving configuration: Qwen2.5-1.5B at its published widths
-# (huggingface.co/Qwen/Qwen2.5-1.5B config.json), random weights.
+# (huggingface.co/Qwen/Qwen2.5-1.5B config.json), random weights, and
+# serve_main's engine defaults: the dense cache, pipeline depth 2, each
+# decode chunk one CUDA graph replay.
 SERVE_ARGS = [
     "--vocab-size", "151936", "--d-model", "1536", "--n-layers", "28",
     "--n-heads", "12", "--n-kv-heads", "2", "--d-ff", "8960",
     "--rope-theta", "1000000", "--norm-eps", "1e-6", "--attn-bias",
-    "--dtype", "bfloat16", "--kv-block", "16", "--n-slots", "8",
+    "--dtype", "bfloat16", "--n-slots", "8",
     "--max-len", "2048", "--chunk", "8", "--port", "0", "--seed", "0",
 ]
+# The same model on the paged engine and the serial loop, eager: the
+# serving path of the earlier slices.
+PAGED_SERVE_ARGS = SERVE_ARGS + ["--kv-block", "16", "--pipeline-depth",
+                                 "1"]
 H, KVH, HD, BS = 12, 2, 128, 16
 MAX_LEN = 2048
+# The dense cache's block: the largest that divides MAX_LEN and one step
+# of K1's ring holds (serve/engine.py dense_block_size).
+DENSE_BS = 64
 
 # The train phases' device (the smoke needs a GPU; a constant so the
 # phases can be rehearsed on the CPU at a tiny size).
@@ -227,8 +240,8 @@ def make_tables(rng, n_rows, positions, n_blocks, reserve=2):
     return tables
 
 
-def make_pool(gen, n_blocks, quant):
-    shape = (n_blocks, BS, KVH, HD)
+def make_pool(gen, n_blocks, quant, bs=BS):
+    shape = (n_blocks, bs, KVH, HD)
     if quant:
         k = torch.randint(-127, 128, shape, generator=gen, device="cuda",
                           dtype=torch.int8)
@@ -251,13 +264,14 @@ def row_bytes(pool, scale) -> int:
     return per_row
 
 
-def attend_work(starts, t, tables, n_blocks, window):
-    """What K1 must touch at these inputs: ``pairs``, the (query
-    position, key position) pairs its rows attend, and ``rows``, the
-    distinct live key positions they read, both summed over slots."""
+def attend_work(starts, t, tables, n_blocks, window, bs=BS):
+    """What K1 must touch at these inputs (blocks of ``bs`` rows):
+    ``pairs``, the (query position, key position) pairs its rows attend,
+    and ``rows``, the distinct live key positions they read, both summed
+    over slots."""
     pairs = rows = 0
     for b in range(len(starts)):
-        live = np.repeat(tables[b] < n_blocks, BS)
+        live = np.repeat(tables[b] < n_blocks, bs)
         read = np.zeros_like(live)
         for i in range(t):
             p = int(starts[b]) + i
@@ -284,7 +298,7 @@ def decode_bound(q, pool, scale, tables, starts, window):
     read once; 4·hd operations (q·k and p·v) per (query head, key)."""
     b, t, h, hd = q.shape
     pairs, rows = attend_work(starts.cpu().numpy(), t, tables.cpu().numpy(),
-                              pool.shape[0], window)
+                              pool.shape[0], window, pool.shape[1])
     moved = (q.numel() * q.element_size() + 2 * rows * row_bytes(pool, scale)
              + b * t * h * hd * 4 + tables.numel() * 4 + b * 4)
     return bound(moved, 4 * hd * h * pairs, q.dtype)
@@ -298,7 +312,7 @@ def store_bound(k_new, pool, scale, tables, starts):
     live = 0
     for r in range(b):
         pos = st[r] + np.arange(t)
-        entry = pos // BS
+        entry = pos // pool.shape[1]
         ok = entry < tab.shape[1]
         live += int((tab[r, entry[ok]] < pool.shape[0]).sum())
     moved = (2 * k_new.numel() * k_new.element_size()
@@ -323,7 +337,7 @@ def sdpa_yardstick(q, pool, scale, tables, starts, window):
     n_keys = kv.shape[2]
     q_pos = starts.long()[:, None] + torch.arange(t, device=q.device)
     k_pos = torch.arange(n_keys, device=q.device)
-    live = (tables < pool.shape[0]).repeat_interleave(BS, dim=1)
+    live = (tables < pool.shape[0]).repeat_interleave(pool.shape[1], dim=1)
     mask = (k_pos[None, None] <= q_pos[:, :, None]) & live[:, None]
     if window:
         mask &= q_pos[:, :, None] - k_pos[None, None] < window
@@ -461,8 +475,10 @@ def k2_phase(tag, pa, k_new, v_new, pools, scales, tables, starts) -> dict:
 def kernel_phase() -> dict:
     """K1 at the decode shape, K2 at t=1, and K2+K1 at a 512-token
     prefill and at a ragged 100-token one (with an all-sentinel slot),
-    for bf16 and int8 pools; returns the measured record per kernel and
-    shape (bf16 — the served configuration)."""
+    for bf16 and int8 pools of 16-row blocks (the paged engine), then
+    the same at the dense cache's shapes (``dense_kernel_phase``);
+    returns the measured record per kernel and shape (bf16 — the served
+    configuration)."""
     from oim_tpu_torch.ops import paged_attention as pa
 
     rng = np.random.RandomState(0)
@@ -524,7 +540,51 @@ def kernel_phase() -> dict:
             del pools, scales
         del k_pool, v_pool, ks, vs
         torch.cuda.empty_cache()
+    record.update(dense_kernel_phase(pa, gen))
     return record
+
+
+def dense_kernel_phase(pa, gen) -> dict:
+    """K1 and K2 at the main path's shapes: the dense cache of 8 slots x
+    2048 rows, which the engine hands the kernels as blocks of
+    ``DENSE_BS`` rows through a fixed identity table — every slot live
+    at decode, contexts 0 to 2047; a 512-token segment for two slots at
+    the prefill.  bf16; returns the records."""
+    n_blocks = 8 * (MAX_LEN // DENSE_BS)
+    k_pool, v_pool, _, _ = make_pool(gen, n_blocks, False, DENSE_BS)
+    tables = torch.arange(n_blocks, dtype=torch.int32,
+                          device="cuda").reshape(8, -1)
+    starts = torch.tensor([0, 16, 299, 999, 2047, 776, 1500, 40],
+                          dtype=torch.int32, device="cuda")
+    q = torch.randn((8, 1, H, HD), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    none = slice(0, 0)  # no all-sentinel slot in a dense cache
+    k1 = k1_phase("decode bf16 dense B=8 t=1", pa,
+                  (q, k_pool, v_pool, None, None, tables, starts), none,
+                  (1, 4, 16, 32), (0, 256))
+    dk = torch.randn((8, 1, KVH, HD), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    k2d = k2_phase("bf16 dense B=8 t=1", pa, dk, dk.clone(),
+                   [k_pool.clone(), v_pool.clone()], [None, None], tables,
+                   starts)
+    t, slots = 512, [2, 5]
+    ptables = tables[slots].contiguous()
+    pst = torch.tensor([37, 1000], dtype=torch.int32, device="cuda")
+    k_new, v_new = (torch.randn((2, t, KVH, HD), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+    qp = torch.randn((2, t, H, HD), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    pools = [k_pool.clone(), v_pool.clone()]
+    k2 = k2_phase(f"bf16 dense B=2 t={t}", pa, k_new, v_new, pools,
+                  [None, None], ptables, pst)
+    k1t = k1_phase(f"prefill bf16 dense B=2 t={t}", pa,
+                   (qp, *pools, None, None, ptables, pst), none,
+                   PREFILL_SPLITS, (0, 256))
+    del k_pool, v_pool, pools
+    torch.cuda.empty_cache()
+    return {"K1_dense": k1, "K1t_dense": k1t, "K2_dense": k2,
+            "K2d_dense": k2d}
 
 
 # ---------------------------------------------------------------------------
@@ -547,21 +607,31 @@ def get(port: int, path: str) -> dict:
         return json.loads(resp.read())
 
 
-def serve_phase() -> dict:
+def serve_phase(argv, tag: str) -> dict:
     """Serve six concurrent requests through the port's serve_main entry
-    and check lengths, drain, kernel counters and a teacher-forced f32
-    reference.  Returns the main path's kernel launch counts."""
+    with ``argv`` and check lengths, drain, kernel counters (reset just
+    before the requests, read just after) and a teacher-forced f32
+    reference; on an engine that replays CUDA graphs, also that every
+    decode dispatch was one replay, then ``graph_check``.  Returns the
+    run's kernel launch counts with its times to first token and decode
+    rate."""
     from oim_tpu_torch.cli import serve_main
     from oim_tpu_torch.models.decode import prefill
     from oim_tpu_torch.models.weights import recast
     from oim_tpu_torch.ops import paged_attention as pa
 
-    args = serve_main.build_parser().parse_args(SERVE_ARGS)
+    args = serve_main.build_parser().parse_args(argv)
     t0 = time.monotonic()
     server = serve_main.start_server(args)
+    engine = server.engine
+    info = engine.info()["engine"]
+    graphs = bool(info.get("cuda_graphs"))
     try:
-        print(f"serve: started in {time.monotonic() - t0:.1f} s "
-              f"(weights, warmup)", flush=True)
+        print(f"serve {tag}: started in {time.monotonic() - t0:.1f} s "
+              f"(weights, warmup{', graph capture' if graphs else ''}); "
+              f"paged {info['paged']}, kv_block {info['kv_block']}, "
+              f"pipeline depth {info.get('pipeline_depth', 1)}, cuda graphs "
+              f"{graphs}", flush=True)
         vocab = args.vocab_size
         rng = np.random.RandomState(1)
         lens = [16, 100, 300, 513, 777, 1000]
@@ -594,10 +664,11 @@ def serve_phase() -> dict:
         check(stats["active_slots"] == 0 and stats["queued"] == 0,
               f"engine did not drain: {stats}")
         passes = stats["prefill_dispatches"] + stats["decode_passes"]
-        print(f"serve: {len(bodies)} concurrent requests in {wall:.2f} s; "
-              f"kernel counts {counts} over {stats['prefill_dispatches']} "
-              f"admission dispatches and {stats['decode_passes']} decode "
-              f"passes of {args.n_layers} layers", flush=True)
+        print(f"serve {tag}: {len(bodies)} concurrent requests in "
+              f"{wall:.2f} s; kernel counts {counts} over "
+              f"{stats['prefill_dispatches']} admission dispatches and "
+              f"{stats['decode_passes']} decode passes dispatched, of "
+              f"{args.n_layers} layers", flush=True)
         check(counts["paged_flash_decode"] > 0, "K1 never launched")
         check(counts["paged_kv_store"] > 0, "K2 never launched")
         check(counts["paged_flash_decode_plain"] == 0
@@ -620,13 +691,26 @@ def serve_phase() -> dict:
             check(counts["paged_kv_store_t1"] == want["rows8"],
                   f"K2 at t=1 launched {counts['paged_kv_store_t1']} times, "
                   f"not {want['rows8']}")
-            print(f"serve: K1's tensor-core route (admission prefill, 64-row "
-                  f"tiles) launched {routes['tc']} times "
+            print(f"serve {tag}: K1's tensor-core route (admission prefill, "
+                  f"64-row tiles) launched {routes['tc']} times "
                   f"({stats['prefill_dispatches']} admission dispatches x "
                   f"{args.n_layers} layers), its decode route "
                   f"{routes['rows8']} ({stats['decode_passes']} passes), its "
                   f"f32 route 0; K2 at t=1 {counts['paged_kv_store_t1']}",
                   flush=True)
+        if "decode_dispatches" in stats:
+            # A chunk dispatched and dropped unread (the pipeline's tail)
+            # still ran: its passes are in decode_passes above.
+            print(f"serve {tag}: {stats['decode_dispatches']} decode chunks "
+                  f"dispatched, {stats['readbacks']} read back "
+                  f"({stats['decode_dispatches'] - stats['readbacks']} "
+                  f"dropped unread at a tail), {stats['graph_replays']} as "
+                  f"graph replays; {stats['tail_elisions']} tail elisions; "
+                  f"overlap ratio {stats['overlap_ratio']:.3f}", flush=True)
+        if graphs:
+            check(stats["graph_replays"] == stats["decode_dispatches"] > 0,
+                  f"{stats['decode_dispatches']} decode dispatches but "
+                  f"{stats['graph_replays']} graph replays")
         # Time to first token of a lone 512-token prompt (client wall,
         # HTTP included), and the engine's decode rate.
         t0 = time.monotonic()
@@ -634,15 +718,14 @@ def serve_phase() -> dict:
                            "max_new_tokens": 1})
         ttft = time.monotonic() - t0
         dec_rate = stats["decode_tokens"] / max(stats["decode_seconds"], 1e-9)
-        print(f"serve: lone 512-token TTFT {ttft * 1e3:.1f} ms; concurrent "
-              f"TTFT p50 {stats['ttft_p50_s'] * 1e3:.1f} ms; decode "
-              f"{dec_rate:.1f} tok/s over {stats['decode_tokens']} tokens "
-              f"in {stats['decode_seconds']:.3f} s; prefill "
+        print(f"serve {tag}: lone 512-token TTFT {ttft * 1e3:.1f} ms; "
+              f"concurrent TTFT p50 {stats['ttft_p50_s'] * 1e3:.1f} ms; "
+              f"decode {dec_rate:.1f} tok/s over {stats['decode_tokens']} "
+              f"tokens in {stats['decode_seconds']:.3f} s; prefill "
               f"{stats['prefill_seconds']:.3f} s [{SMI}]", flush=True)
         # Teacher-forced f32 reference over the served weights.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        engine = server.engine
         params32, cfg32 = recast(engine.params, engine.cfg, "float32")
         n_delta = n_pos = 0
         worst_lp = 0.0
@@ -668,16 +751,52 @@ def serve_phase() -> dict:
             del logits
         check(worst_lp <= LOGPROB_ATOL,
               f"engine logprobs off the f32 reference by {worst_lp:.3f}")
-        print(f"serve: teacher-forced f32 check over {n_pos} positions: "
-              f"{n_delta} needed δ={DELTA} (rest exact argmax); max "
-              f"|logprob - ref| {worst_lp:.4f} (tol {LOGPROB_ATOL})",
+        print(f"serve {tag}: teacher-forced f32 check over {n_pos} "
+              f"positions: {n_delta} needed δ={DELTA} (rest exact argmax); "
+              f"max |logprob - ref| {worst_lp:.4f} (tol {LOGPROB_ATOL})",
               flush=True)
         del params32
         counts["ttft_ms"] = {"lone_512": ttft * 1e3,
                              "concurrent_p50": stats["ttft_p50_s"] * 1e3}
-        return counts
+        counts["decode_tok_s"] = dec_rate
     finally:
         server.stop()
+    if graphs:
+        graph_check(engine, vocab, rng)
+    del engine, server
+    torch.cuda.empty_cache()
+    return counts
+
+
+def graph_check(engine, vocab: int, rng) -> None:
+    """One decode chunk of every slot seated (greedy, sampled with top-p
+    and penalised rows, contexts 16 to 1500), from copies of one cache
+    state, run eagerly and by its CUDA graph's replay: the same kernels
+    on the same inputs, so tokens, logprobs, the token carry, the cache
+    and the penalty counts must be bit-equal."""
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    engine.set_pipeline_depth(1)
+    lens = [16, 100, 300, 513, 777, 1000, 40, 1500]
+    for i, n in enumerate(lens[: engine.n_slots]):
+        kw = {}
+        if i % 3 == 1:
+            kw = dict(temperature=0.8, seed=100 + i, top_p=0.9)
+        elif i % 3 == 2:
+            kw = dict(repetition_penalty=1.2)
+        engine.submit(GenRequest(tokens=rng.randint(0, vocab, n).tolist(),
+                                 max_new_tokens=64, **kw))
+    engine.step()  # admit every slot and decode one chunk
+    eager, replayed = engine.chunk_twice()
+    same = {name: torch.equal(eager[name], replayed[name])
+            for name in ("out", "lps", "carry")}
+    same["cache and counts"] = all(
+        torch.equal(a, b) for a, b in zip(eager["state"], replayed["state"]))
+    print(f"serve graph check: one decode chunk of {engine.n_slots} slots "
+          f"from copies of one state, eager vs graph replay bit-equal: "
+          f"{same}", flush=True)
+    check(all(same.values()), f"graph replay differs from eager: {same}")
+    engine.abort("graph check done")
 
 
 # ---------------------------------------------------------------------------
@@ -1543,8 +1662,16 @@ def main(argv=None) -> int:
             flush=True)
         return 0
     if args.serve_phase_only:
-        print(json.dumps({"package": package, "serve": serve_phase()}),
-              flush=True)
+        from oim_tpu_torch.cli import serve_main
+
+        served = {}
+        if "pipeline_depth" in vars(serve_main.build_parser().parse_args([])):
+            served["default"] = serve_phase(SERVE_ARGS, "default")
+            served["paged"] = serve_phase(PAGED_SERVE_ARGS, "paged")
+        else:  # a package from before depth 2: paged, serial, eager only
+            served["paged"] = serve_phase(SERVE_ARGS + ["--kv-block", "16"],
+                                          "paged")
+        print(json.dumps({"package": package, "serve": served}), flush=True)
         return 0
     record = kernel_phase()
     if args.kernel_phase_only:
@@ -1554,7 +1681,10 @@ def main(argv=None) -> int:
         return 0
     record.update(train_kernel_phase())
     record.update(fused_ce_phase())
-    counts = serve_phase()
+    # The main path: serve_main's defaults.  Then the paged engine's
+    # serial loop, with its own counts.
+    counts = serve_phase(SERVE_ARGS, "default")
+    paged_counts = serve_phase(PAGED_SERVE_ARGS, "paged")
     counts.update(train_phase(record))
     work = tempfile.mkdtemp(prefix=".smoke-ckpt-", dir=HERE)
     try:
@@ -1581,29 +1711,44 @@ def main(argv=None) -> int:
                # only path on which the dw kernel's work runs.
                "fused_ce_bwd": ("oim_tpu_torch/csrc/fused_ce.cu",
                                 "oim_tpu/ops/fused_ce.py:168")}
-    k2_prefill = counts["paged_kv_store"] - counts["paged_kv_store_t1"]
-    kernels = [
-        dict(name="paged_flash_decode (K1, decode route: "
-                  "paged_decode_kernel<8> + merge)", route="cuda",
-             source="oim_tpu_torch/csrc/paged_attention.cu",
-             replaces="oim_tpu/ops/paged_attention.py:93",
-             launches=counts["paged_flash_decode_rows8"], **record["K1"]),
-        dict(name="paged_flash_decode (K1, tall route: "
-                  "paged_prefill_tc_kernel on tensor cores; admission "
-                  "segments, timed at t=512)",
-             route="cuda", source="oim_tpu_torch/csrc/paged_attention.cu",
-             replaces="oim_tpu/ops/paged_attention.py:93",
-             launches=counts["paged_flash_decode_tc"], **record["K1t"]),
-        dict(name="paged_kv_store (K2, admission segments, timed at "
-                  "t=512)", route="cuda",
-             source="oim_tpu_torch/csrc/paged_attention.cu",
-             replaces="oim_tpu/ops/paged_attention.py:265",
-             launches=k2_prefill, **record["K2"]),
-        dict(name="paged_kv_store (K2, decode steps, t=1)", route="cuda",
-             source="oim_tpu_torch/csrc/paged_attention.cu",
-             replaces="oim_tpu/ops/paged_attention.py:265",
-             launches=counts["paged_kv_store_t1"], **record["K2d"]),
-    ] + [
+    def paged_rows(where: str, phase: dict, suffix: str) -> list[dict]:
+        """K1's two routes and K2's two shapes, timed at ``where``'s
+        shapes, with the launches of the serve phase ``phase``."""
+        src = "oim_tpu_torch/csrc/paged_attention.cu"
+        return [
+            dict(name=f"paged_flash_decode (K1, decode route: "
+                      f"paged_decode_kernel<8> + merge; {where})",
+                 route="cuda", source=src,
+                 replaces="oim_tpu/ops/paged_attention.py:93",
+                 launches=phase["paged_flash_decode_rows8"],
+                 **record["K1" + suffix]),
+            dict(name=f"paged_flash_decode (K1, tall route: "
+                      f"paged_prefill_tc_kernel on tensor cores; admission "
+                      f"segments, timed at t=512; {where})",
+                 route="cuda", source=src,
+                 replaces="oim_tpu/ops/paged_attention.py:93",
+                 launches=phase["paged_flash_decode_tc"],
+                 **record["K1t" + suffix]),
+            dict(name=f"paged_kv_store (K2, admission segments, timed at "
+                      f"t=512; {where})", route="cuda", source=src,
+                 replaces="oim_tpu/ops/paged_attention.py:265",
+                 launches=(phase["paged_kv_store"]
+                           - phase["paged_kv_store_t1"]),
+                 **record["K2" + suffix]),
+            dict(name=f"paged_kv_store (K2, decode steps, t=1; {where})",
+                 route="cuda", source=src,
+                 replaces="oim_tpu/ops/paged_attention.py:265",
+                 launches=phase["paged_kv_store_t1"],
+                 **record["K2d" + suffix]),
+        ]
+
+    kernels = paged_rows(
+        "dense cache, 64-row blocks: serve_main's defaults", counts,
+        "_dense",
+    ) + paged_rows(
+        "paged pool, 16-row blocks: --kv-block 16 --pipeline-depth 1",
+        paged_counts, "",
+    ) + [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=counts[name], **record[name])
         for name, (source, replaces) in sources.items()

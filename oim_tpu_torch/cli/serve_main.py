@@ -1,14 +1,17 @@
 """oim-serve for the port: weights from a params export
 (``--params-dir``), a training checkpoint (``--checkpoint-dir``) or a
-seed, the paged engine, and the HTTP server, on the GPU unless
-``--device cpu``.
+seed, the continuous-batching engine, and the HTTP server, on the GPU
+unless ``--device cpu``.  With no engine flags it serves as the
+reference's ``oim-serve`` does: the dense per-slot KV cache
+(``--kv-block 0``), pipeline depth 2 (each decode chunk one CUDA graph
+replay on the GPU) and sampling penalties on.
 
 Usage (full-width Qwen2.5-1.5B geometry on one H100):
     python -m oim_tpu_torch.cli.serve_main \\
         --vocab-size 151936 --d-model 1536 --n-layers 28 --n-heads 12 \\
         --n-kv-heads 2 --d-ff 8960 --rope-theta 1000000 --norm-eps 1e-6 \\
-        --attn-bias --dtype bfloat16 --kv-block 16 --n-slots 8 \\
-        --max-len 2048 --chunk 8 --port 8000
+        --attn-bias --dtype bfloat16 --n-slots 8 --max-len 2048 \\
+        --chunk 8 --port 8000
 Then:
     curl -s localhost:8000/v1/generate -d \\
         '{"tokens": [1,2,3], "max_new_tokens": 8}'
@@ -60,10 +63,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-kv-heads", type=int, default=0)
     p.add_argument("--d-ff", type=int, default=0)
     p.add_argument("--rope-theta", type=float, default=10000.0)
-    p.add_argument("--norm-eps", type=float, default=1e-6)
+    p.add_argument(
+        "--sliding-window", type=int, default=0,
+        help="sliding-window attention (Mistral-family); 0 = full causal",
+    )
+    p.add_argument(
+        "--rope-scaling", type=float, nargs=4, default=[],
+        metavar=("FACTOR", "LOW", "HIGH", "ORIG_MAX"),
+        help="Llama-3.1 RoPE frequency remap (factor low_freq_factor "
+        "high_freq_factor original_max_position); omit for plain RoPE",
+    )
+    p.add_argument(
+        "--norm-eps", type=float, default=1e-6,
+        help="RMSNorm epsilon (imported HF Llama checkpoints use 1e-5)",
+    )
     p.add_argument(
         "--attn-bias", action="store_true",
         help="q/k/v projection biases (the Qwen2 family)",
+    )
+    p.add_argument(
+        "--mlp-act", default="silu", choices=["silu", "gelu_tanh"],
+        help="MLP gate activation (gelu_tanh = Gemma GeGLU)",
+    )
+    p.add_argument(
+        "--norm-offset", action="store_true",
+        help="RMSNorm scales by (1 + weight) (Gemma family)",
+    )
+    p.add_argument(
+        "--embed-scale", action="store_true",
+        help="scale embeddings by sqrt(d_model) (Gemma family)",
     )
     p.add_argument("--dtype", default="bfloat16")
     # Engine shape.
@@ -71,17 +99,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-len", type=int, default=1024)
     p.add_argument("--chunk", type=int, default=8)
     p.add_argument(
-        "--kv-block", type=int, default=16,
-        help="paged KV block size in tokens (must divide --max-len)",
+        "--pipeline-depth", type=int, default=2, choices=(1, 2),
+        help="decode pipeline depth: 2 (default) dispatches chunk N+1 "
+        "before chunk N's readback so device compute overlaps host "
+        "emission; 1 is the serial dispatch-then-readback loop",
     )
     p.add_argument(
-        "--kv-blocks", type=int, default=0,
-        help="pool size in blocks (0 = n_slots x max_len / kv_block)",
+        "--kv-block", type=int, default=0, metavar="T",
+        help="paged KV cache with T-token blocks (0 = dense per-slot "
+        "regions): memory is reserved per request's worst case instead "
+        "of n_slots x max_len, and admission backpressures on block "
+        "exhaustion; T must divide --max-len",
+    )
+    p.add_argument(
+        "--kv-blocks", type=int, default=0, metavar="N",
+        help="paged pool size in blocks (0 = the dense cache's "
+        "footprint, n_slots x max_len / --kv-block)",
     )
     p.add_argument("--kv-int8", action="store_true",
                    help="int8 KV cache with per-(token, head) scales")
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--top-p", type=float, default=1.0)
+    p.add_argument(
+        "--no-penalties", action="store_true",
+        help="disable sampling-penalty support (repetition/presence/"
+        "frequency): skips the per-slot [n_slots, vocab] occurrence "
+        "state - worth it at big vocab x many slots when no client "
+        "penalizes",
+    )
     p.add_argument(
         "--max-queue", type=int, default=64,
         help="admission queue bound (HTTP 429 beyond it; 0 = unbounded)",
@@ -108,9 +153,11 @@ def load_weights(args, cfg: TransformerConfig, device) -> dict:
     return recast(params, cfg, cfg.dtype)[0]
 
 
-def make_engine(args) -> Engine:
+def make_engine(args, cuda_graphs: bool = True) -> Engine:
     """The engine from parsed args: device first (no GPU and no
-    ``--device cpu`` fails before any work), then weights and engine."""
+    ``--device cpu`` fails before any work), then weights and engine.
+    ``cuda_graphs=False`` dispatches decode chunks eagerly: a
+    measurement's A/B control, deliberately not a serving flag."""
     device = resolve_device(args.device)
     cfg = TransformerConfig(
         vocab_size=args.vocab_size,
@@ -119,8 +166,13 @@ def make_engine(args) -> Engine:
         n_heads=args.n_heads,
         n_kv_heads=args.n_kv_heads,
         attn_bias=args.attn_bias,
+        mlp_act=args.mlp_act,
+        norm_offset=args.norm_offset,
+        embed_scale=args.embed_scale,
         d_ff=args.d_ff or 4 * args.d_model,
         rope_theta=args.rope_theta,
+        rope_scaling=tuple(args.rope_scaling),
+        sliding_window=args.sliding_window,
         norm_eps=args.norm_eps,
         dtype=args.dtype,
     )
@@ -133,10 +185,13 @@ def make_engine(args) -> Engine:
         top_k=args.top_k,
         top_p=args.top_p,
         kv_int8=args.kv_int8,
+        penalties=not args.no_penalties,
         max_queue=args.max_queue,
+        pipeline_depth=args.pipeline_depth,
         kv_block=args.kv_block,
         kv_blocks=args.kv_blocks,
         device=device,
+        cuda_graphs=cuda_graphs,
     )
 
 
@@ -147,6 +202,7 @@ def start_server(args) -> ServeServer:
     print(
         f"oim-serve listening host={server.host!r} port={server.port} "
         f"n_slots={args.n_slots} max_len={args.max_len} "
+        f"kv_block={args.kv_block} pipeline_depth={args.pipeline_depth} "
         f"device={engine.device}",
         file=sys.stderr, flush=True,
     )

@@ -1,14 +1,19 @@
 """Where a serving step's time goes on the GPU: the port's engine at a
 served model's full width, profiled with ``torch.profiler``.
 
-Builds the engine as ``serve_main`` does (same geometry flags, random
-weights from ``--seed``) and warms it.  Prompt lengths are spread over
-the slots up to ``--max-len``.  Two windows:
+Builds the engine as ``serve_main`` does (same geometry and engine
+flags — ``--kv-block``, ``--pipeline-depth`` — and random weights from
+``--seed``) and warms it; ``--eager`` dispatches each decode chunk
+eagerly instead of replaying its CUDA graph (the A/B control, a switch
+of this tool only).  Prompt lengths are spread over the slots up to
+``--max-len``.  Two windows:
 
 - admission: one wave of one request per slot, admitted in one
-  ``step()`` that also decodes one chunk;
-- decode: every slot seated, ``DECODE_STEPS`` steps of ``--chunk``
-  passes.
+  ``step()`` that also dispatches one decode chunk (at depth 2 the step
+  first reads back the chunk the wave before left in flight);
+- decode: every slot seated, ``DECODE_STEPS`` steps, each dispatching
+  one chunk of ``--chunk`` passes (at depth 2 while reading back the
+  one before).
 
 Each window runs twice, back to back: once under the host clock (ended
 by a synchronise), once under the profiler, whose own host cost would
@@ -19,14 +24,16 @@ tokens longer than the timed ones (at the command below, about 2 % more
 K1 work), so the idle share slightly understates the device's idle
 time.  It prints the wall, the device
 time summed over kernels, the device's idle share (one minus their
-ratio), the device time by family (K1 with its merge, K2, cuBLAS GEMMs,
+ratio), the wall and device time per decode chunk, the device time by
+family (K1 with its merge, K2, cuBLAS GEMMs,
 the rest) and the kernels that took the most device time; the last line
 is one JSON object with those numbers.  Run on the machine with the GPU:
 
     python -m oim_tpu_torch.cli.serve_profile \\
         --vocab-size 151936 --d-model 1536 --n-layers 28 --n-heads 12 \\
         --n-kv-heads 2 --d-ff 8960 --rope-theta 1000000 --attn-bias \\
-        --max-len 2048 --n-slots 8 --kv-block 16 --chunk 8
+        --max-len 2048 --n-slots 8 --chunk 8 [--kv-block 16] \\
+        [--pipeline-depth 1] [--eager]
 """
 
 from __future__ import annotations
@@ -71,8 +78,8 @@ def _annotation(event) -> bool:
 
 
 def _timed(engine, steps: int) -> float:
-    """Host wall in ms of ``steps`` engine steps, unprofiled (each step
-    ends in a device readback, so the wall covers the device work)."""
+    """Host wall in ms of ``steps`` engine steps, unprofiled, ended by a
+    synchronise (which covers a chunk the last step left in flight)."""
     torch.cuda.synchronize()
     t0 = time.monotonic()
     for _ in range(steps):
@@ -130,9 +137,20 @@ def print_window(title: str, w: dict) -> None:
               f"{k['name']}")
 
 
+def build_parser():
+    p = serve_main.build_parser()
+    p.prog = "serve_profile"
+    p.add_argument(
+        "--eager", action="store_true",
+        help="dispatch each decode chunk eagerly, not as a CUDA graph "
+        "replay (the A/B control)",
+    )
+    return p
+
+
 def main(argv=None) -> int:
-    args = serve_main.build_parser().parse_args(argv)
-    engine = serve_main.make_engine(args)
+    args = build_parser().parse_args(argv)
+    engine = serve_main.make_engine(args, cuda_graphs=not args.eager)
     if engine.device.type != "cuda":
         raise SystemExit("serve_profile measures the GPU: run it there")
     smi = _build.gpu_line()
@@ -162,17 +180,30 @@ def main(argv=None) -> int:
     wall_ms = _timed(engine, DECODE_STEPS)
     decode = profiled(engine.step, DECODE_STEPS, wall_ms, FAMILIES)
     counts = paged_attention.counters()
-    print(f"{smi}; prompts {lengths.tolist()}, chunk {args.chunk}")
+    config = {"kv_block": args.kv_block,
+              "pipeline_depth": args.pipeline_depth,
+              "cuda_graphs": engine.cuda_graphs}
+    per_chunk = {"wall_ms": decode["wall_ms"] / DECODE_STEPS,
+                 "device_ms": (None if decode["device_ms"] is None
+                               else decode["device_ms"] / DECODE_STEPS),
+                 "idle_share": decode["idle_share"]}
+    print(f"{smi}; prompts {lengths.tolist()}, chunk {args.chunk}; "
+          f"{config}")
     print_window("admission wave + one decode chunk", admit)
     print_window(f"decode ({DECODE_STEPS} steps of {args.chunk} "
                   f"passes)", decode)
+    device_txt = ("not measured" if per_chunk["device_ms"] is None
+                  else f"{per_chunk['device_ms']:.3f} ms")
+    print(f"per decode chunk: wall {per_chunk['wall_ms']:.3f} ms, device "
+          f"{device_txt}")
     for title, w in (("admission", admit), ("decode", decode)):
         for family, ms in sorted((w["families_ms"] or {}).items(),
                                  key=lambda kv: -kv[1]):
             print(f"  {title} family {family}: {ms:.3f} ms "
                   f"({ms / w['device_ms']:.1%} of device time)")
     print(json.dumps({"device": smi, "prompts": lengths.tolist(),
-                      "admit": admit, "decode": decode,
+                      "config": config, "admit": admit, "decode": decode,
+                      "decode_per_chunk": per_chunk,
                       "kernel_counts": counts}))
     engine.run()
     return 0

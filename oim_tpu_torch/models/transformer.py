@@ -285,8 +285,10 @@ def embed_lookup(wte, tokens, cfg: TransformerConfig):
     compute dtype)."""
     x = F.embedding(tokens, wte).to(cfg.compute_dtype)
     if cfg.embed_scale:
-        x = x * torch.tensor(
-            math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device
+        # A fill on the device, not a copy from the host: the serving
+        # engine captures this in a CUDA graph.
+        x = x * torch.full(
+            (), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device
         )
     return x
 

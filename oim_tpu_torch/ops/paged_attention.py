@@ -33,10 +33,15 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version only for CPU tensors.  ``<wrapper>.launches`` counts
 kernel launches, ``ROUTE_LAUNCHES`` K1's launches by route and
 ``<plain>.calls`` plain runs — plain integers that a run reads to show
-which path it went through.
+which path it went through.  A CUDA graph runs the wrappers' Python once,
+at capture, and none of it at replay: ``recording`` takes back what a
+captured region counted and keeps it, and ``replay_counts`` adds it at
+each replay, so the counts stay launches on the device.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -394,13 +399,7 @@ def paged_flash_prefill(
 
 def reset_counters() -> None:
     """Zero every launch, route and plain-call count."""
-    paged_flash_decode.launches = 0
-    paged_kv_store.launches = 0
-    paged_kv_store.decode_launches = 0
-    for route in ROUTE_LAUNCHES:
-        ROUTE_LAUNCHES[route] = 0
-    paged_flash_decode_plain.calls = 0
-    paged_kv_store_plain.calls = 0
+    replay_counts({name: -n for name, n in counters().items()})
 
 
 def counters() -> dict:
@@ -414,3 +413,35 @@ def counters() -> dict:
         "paged_flash_decode_plain": paged_flash_decode_plain.calls,
         "paged_kv_store_plain": paged_kv_store_plain.calls,
     }
+
+
+def replay_counts(delta: dict) -> None:
+    """Add ``delta`` (counts by ``counters()``'s names) to the counts: a
+    replay of a captured region adds what ``recording`` kept for it."""
+    paged_flash_decode.launches += delta["paged_flash_decode"]
+    for route in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[route] += delta[f"paged_flash_decode_{route}"]
+    paged_kv_store.launches += delta["paged_kv_store"]
+    paged_kv_store.decode_launches += delta["paged_kv_store_t1"]
+    paged_flash_decode_plain.calls += delta["paged_flash_decode_plain"]
+    paged_kv_store_plain.calls += delta["paged_kv_store_plain"]
+
+
+@contextlib.contextmanager
+def recording():
+    """Around a CUDA graph's capture: yields a dict that, on exit, holds
+    the counts the region's wrappers added (the launches one replay
+    makes), and takes them back off the counts, since a capture launches
+    nothing.  A plain call inside the region raises: the plain versions
+    run on the host, where a replay would not repeat them."""
+    before = counters()
+    delta: dict = {}
+    yield delta
+    after = counters()
+    delta.update({name: after[name] - n for name, n in before.items()})
+    replay_counts({name: -n for name, n in delta.items()})
+    plain = {name: n for name, n in delta.items() if name.endswith("_plain")
+             and n}
+    if plain:
+        raise RuntimeError(f"plain versions ran in a captured region: "
+                           f"{plain}")

@@ -1,33 +1,48 @@
-"""Continuous-batching inference engine over the paged KV pool.
+"""Continuous-batching inference engine over a dense or a paged KV cache.
 
-The counterpart of ``oim_tpu/serve/engine.py`` on its paged path:
+The counterpart of ``oim_tpu/serve/engine.py`` on its dense and paged
+paths:
 
-- **Paged cache.**  One global pool of fixed-size blocks
-  ``[n_layers, n_blocks, block_size, kv_heads, head_dim]`` (``PagedCache``)
-  plus a host-side allocator and per-slot block table; sentinel entries
-  (``n_blocks``) mark unallocated blocks.  An admission reserves its
-  worst case (bucketed prompt vs prompt + budget), block-rounded and
-  all-or-nothing: a pool that cannot cover the head of the queue leaves
-  it queued.
+- **Two cache layouts, one pair of kernels.**  The dense ``SlotCache``
+  (``kv_block=0``, the default) keeps one ``max_len`` region per slot,
+  ``[n_layers, n_slots, max_len, kv_heads, head_dim]``.  The paged
+  ``PagedCache`` keeps one pool of fixed-size blocks ``[n_layers,
+  n_blocks, block_size, kv_heads, head_dim]`` plus a host-side allocator
+  and per-slot block table; sentinel entries (``n_blocks``) mark
+  unallocated blocks, and an admission reserves its worst case
+  (bucketed prompt vs prompt + budget), block-rounded and
+  all-or-nothing.  The kernels see a dense layer's regions as a pool of
+  blocks too (a reshape, no copy) through a fixed identity table, so
+  both layouts run the same kernels.
 - **Attention in the Hopper kernels.**  Every layer of every admission
-  and decode step stores the new K/V rows into the pool and attends
+  and decode step stores the new K/V rows into the cache and attends
   straight off it through ``paged_flash_prefill`` — kernel K2 (store,
   fused int8 quant) then kernel K1 (flash decode) on the GPU, their
   plain versions on the CPU.
-- **Continuous batching, chunked decode.**  Admissions are prefilled in
-  one dispatch per prompt bucket; active slots advance ``chunk`` tokens
-  per dispatch with one host readback per chunk.  EOS lags by at most
-  one chunk (bounded waste, never wrong tokens: the host truncates).
+- **Continuous batching, chunked decode, a two-deep pipeline.**
+  Admissions are prefilled in one dispatch per prompt bucket; every
+  slot's row advances ``chunk`` tokens per decode dispatch with one
+  readback per chunk.  At ``pipeline_depth=2`` (the default) chunk N+1
+  is dispatched before chunk N is read back: it takes its tokens from
+  chunk N's device-side carry, and its positions and sampling keys from
+  the host, ``chunk`` further on.  Admissions join at pipeline
+  boundaries.  EOS lags by at most one chunk (two at depth 2): bounded
+  waste, never wrong tokens, since the host truncates.
+- **One CUDA graph per decode chunk.**  On the GPU a decode chunk — its
+  ``chunk`` passes through every layer and the sampling — is one
+  ``torch.cuda.CUDAGraph`` replay over inputs and outputs at fixed
+  device addresses, fed from and read into pinned host buffers without
+  a synchronising copy.  Admission runs eagerly.
 - **Exactness.**  Each slot attends only its own positions and each
   sampled token draws noise keyed by ``(request seed, token index)``
   (``models/decode.py``), so results never depend on the slot, the
-  batch or the chunk size: greedy streams equal the solo ``generate``
-  and the reference's, sampled streams the port's solo ``generate``.
+  batch, the chunk size or the pipeline depth: greedy streams equal the
+  solo ``generate`` and the reference's, sampled streams the port's solo
+  ``generate``.
 
-The engine is host-side Python driving eager PyTorch; it runs serially
-(pipeline depth 1).  Features of the reference engine this slice does
-not port are refused at construction or submission with the ROADMAP
-item that will bring them.
+Features of the reference engine this slice does not port are refused
+at construction or submission with the ROADMAP item that will bring
+them.
 """
 
 from __future__ import annotations
@@ -60,6 +75,7 @@ from oim_tpu_torch.models.transformer import (
 from oim_tpu_torch.models.weights import n_params, to_device
 from oim_tpu_torch.ops import paged_attention
 from oim_tpu_torch.ops.paged_attention import (
+    MAX_BLOCK_SIZE,
     paged_flash_prefill,
     supported_block_size,
 )
@@ -88,7 +104,7 @@ def _not_ported(option: str, item: str) -> ValueError:
 
 
 # ---------------------------------------------------------------------------
-# Cache and allocator
+# Caches and allocator
 
 
 @dataclass
@@ -120,6 +136,54 @@ class PagedCache:
         ks = None if self.k_scale is None else self.k_scale[i]
         vs = None if self.v_scale is None else self.v_scale[i]
         return self.k[i], self.v[i], ks, vs
+
+
+def dense_block_size(max_len: int) -> int:
+    """The block size the kernels see a dense region in: the largest
+    that divides ``max_len`` and one step of K1's ring holds."""
+    return max(b for b in range(1, MAX_BLOCK_SIZE + 1) if max_len % b == 0)
+
+
+@dataclass
+class SlotCache:
+    """Dense KV cache, one region per slot (the reference's layout):
+    ``k``/``v`` [n_layers, n_slots, max_len, kv_heads, head_dim];
+    ``k_scale``/``v_scale`` [n_layers, n_slots, max_len, kv_heads] f32
+    for int8 payloads, else None.  ``layer`` hands the kernels each
+    layer's regions as a pool of ``n_slots · max_len / block_size``
+    blocks of ``block_size`` rows (a reshape, no copy): slot ``s``'s
+    region is blocks ``s · n_tables … (s + 1) · n_tables − 1``, the
+    engine's fixed table row for it.  K1 stops at each row's causal
+    frontier, so a slot's attention reads its live rows only."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    block_size: int
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @classmethod
+    def create(cls, cfg: TransformerConfig, n_slots: int, max_len: int,
+               block_size: int, quantized: bool = False,
+               device=None) -> "SlotCache":
+        shape = (cfg.n_layers, n_slots, max_len, cfg.kv_heads, cfg.head_dim)
+        k, v, ks, vs = make_kv_buffers(
+            shape, cfg.compute_dtype, quantized, device=device
+        )
+        return cls(k=k, v=v, block_size=block_size, k_scale=ks, v_scale=vs)
+
+    def layer(self, i: int) -> tuple:
+        """Layer ``i``'s (k, v, k_scale, v_scale) as pool views."""
+        n_slots, max_len = self.k.shape[1:3]
+        blocks = n_slots * max_len // self.block_size
+
+        def pool(t):
+            if t is None:
+                return None
+            return t[i].reshape(blocks, self.block_size, *t.shape[3:])
+
+        return (pool(self.k), pool(self.v), pool(self.k_scale),
+                pool(self.v_scale))
 
 
 class BlockAllocator:
@@ -170,13 +234,13 @@ class BlockAllocator:
 # Device functions
 
 
-def _slot_attention(x, lp, cache: PagedCache, layer: int, starts, tables,
+def _slot_attention(x, lp, cache, layer: int, starts, tables,
                     cfg: TransformerConfig):
-    """Cached attention for rows at per-slot positions through the paged
-    pool: x [B, t, D]; starts [B] int32 (row b's token i sits at
-    ``starts[b] + i``); tables [B, n_tables] int32.  The new K/V rows
-    land in the pool in place (sentinel entries drop) and the rows
-    attend off the updated pool — one kernel pair per layer, for a
+    """Cached attention for rows at per-slot positions through the
+    cache's pool views: x [B, t, D]; starts [B] int32 (row b's token i
+    sits at ``starts[b] + i``); tables [B, n_tables] int32.  The new K/V
+    rows land in the cache in place (sentinel entries drop) and the rows
+    attend off the updated cache — one kernel pair per layer, for a
     prompt segment and a decode step alike.  The attention output comes
     back f32 and is cast to the compute dtype before ``wo``, as in the
     reference."""
@@ -194,10 +258,10 @@ def _slot_attention(x, lp, cache: PagedCache, layer: int, starts, tables,
     return x + (out @ lp["wo"]).to(x.dtype)
 
 
-def _hidden_slots(params, tokens, cache: PagedCache, starts, tables,
+def _hidden_slots(params, tokens, cache, starts, tables,
                   cfg: TransformerConfig):
     """tokens [B, t] at per-slot positions ``starts`` → final-norm hidden
-    states [B, t, D], extending the pool in place (a Python loop over
+    states [B, t, D], extending the cache in place (a Python loop over
     layers; no unembedding, so prefill unembeds one position per row).
     The Pallas switch is off here, as in the reference's engine: serving
     normalizes with the plain formula."""
@@ -209,59 +273,61 @@ def _hidden_slots(params, tokens, cache: PagedCache, starts, tables,
     return _rmsnorm(x, params["final_norm"], cfg)
 
 
+# A dispatch's per-row sampling columns, in this order, and each one's
+# value for a row with no request (neutral: no truncation, no penalty).
+_COLUMNS = ("temperature", "top_p", "min_p", "repetition_penalty",
+            "presence_penalty", "frequency_penalty")
+_NEUTRAL = np.asarray([0.0, 1.0, 0.0, 1.0, 0.0, 0.0], np.float32)
+
+
+def _columns(reqs, default_top_p: float) -> np.ndarray:
+    """The sampling columns [6, len(reqs)] f32 of ``reqs``."""
+    cols = np.empty((len(_COLUMNS), len(reqs)), np.float32)
+    for r, req in enumerate(reqs):
+        cols[:, r] = (
+            req.temperature,
+            default_top_p if req.top_p is None else req.top_p,
+            req.min_p, req.repetition_penalty, req.presence_penalty,
+            req.frequency_penalty,
+        )
+    return cols
+
+
+def _sampling_key(cols: np.ndarray) -> tuple[bool, bool]:
+    """(some row samples, some sampled row truncates by top-p or min-p):
+    the host-side facts that decide which sampling work runs at all, and
+    the key of a decode chunk's graph."""
+    sampled = cols[0] > 0.0
+    truncates = (cols[1] < 1.0) | (cols[2] > 0.0)
+    return bool(sampled.any()), bool((sampled & truncates).any())
+
+
 @dataclass
 class _Sampling:
-    """Per-row sampling inputs of one dispatch: device tensors [S] plus
-    the host-side facts that decide which work runs at all (no device
-    sync on the decision)."""
+    """Per-row sampling inputs of one dispatch: the columns as a device
+    tensor [6, S] (``_COLUMNS``' order) and the ``_sampling_key`` facts
+    (no device sync on the decision)."""
 
-    temps: torch.Tensor
-    top_ps: torch.Tensor
-    min_ps: torch.Tensor
-    reps: torch.Tensor
-    press: torch.Tensor
-    freqs: torch.Tensor
-    seeds: list[int]
-    bases: list[int]  # sample_base: the offset of every noise index
-    sampled: list[bool]  # temperature > 0, per row
-    truncate_p: bool  # some row has top_p < 1 or min_p > 0
+    cols: torch.Tensor
+    sampled: bool
+    truncate_p: bool
 
-    @classmethod
-    def build(cls, reqs, default_top_p: float, device) -> "_Sampling":
-        def col(values):
-            return torch.tensor(values, dtype=torch.float32, device=device)
 
-        top_ps = [default_top_p if r.top_p is None else r.top_p for r in reqs]
-        min_ps = [r.min_p for r in reqs]
-        return cls(
-            temps=col([r.temperature for r in reqs]),
-            top_ps=col(top_ps),
-            min_ps=col(min_ps),
-            reps=col([r.repetition_penalty for r in reqs]),
-            press=col([r.presence_penalty for r in reqs]),
-            freqs=col([r.frequency_penalty for r in reqs]),
-            seeds=[r.seed for r in reqs],
-            bases=[r.sample_base for r in reqs],
-            sampled=[r.temperature > 0.0 for r in reqs],
-            truncate_p=any(p < 1.0 for p in top_ps) or any(
-                m > 0.0 for m in min_ps
-            ),
-        )
-
-    def noise(self, indices, vocab: int, device):
-        """Gumbel noise [S, V] for token ``indices[r]`` of each sampled
-        row, counted from its request's ``sample_base`` (zeros for greedy
-        rows), or None when every row is greedy."""
-        if not any(self.sampled):
-            return None
-        noise = torch.zeros(
-            (len(self.seeds), vocab), dtype=torch.float32, device=device
-        )
-        for r, (seed, base, index) in enumerate(
-                zip(self.seeds, self.bases, indices)):
-            if self.sampled[r]:
-                noise[r] = sampling_noise(seed, base + index, vocab, device)
-        return noise
+def _noise(seeds, indices, sampled, steps: int, vocab: int, device,
+           out=None):
+    """Gumbel noise [steps, S, V] f32: row r of step i is the noise of
+    token ``indices[r] + i`` of row r's request (an index counted from
+    its ``sample_base``) for each ``sampled`` row.  ``out`` is filled in
+    place when given (other rows keep what they hold: greedy rows never
+    read theirs), else a new tensor of zeros."""
+    if out is None:
+        out = torch.zeros((steps, len(seeds), vocab), dtype=torch.float32,
+                          device=device)
+    for r in np.flatnonzero(sampled):
+        for i in range(steps):
+            out[i, r] = sampling_noise(int(seeds[r]), int(indices[r]) + i,
+                                       vocab, device)
+    return out
 
 
 def _sample_batched(logits, s: _Sampling, noise, top_k: int, counts):
@@ -269,69 +335,150 @@ def _sample_batched(logits, s: _Sampling, noise, top_k: int, counts):
     is 0, else the Gumbel-max draw over the temperature-scaled logits
     truncated by the engine-static top-k and the per-row top-p/min-p.
     ``counts`` = (tok_counts, gen_counts) [S, V] feed the penalties,
-    applied first (neutral rows are exact no-ops).  Returns ``(tokens [S] int64,
-    logprobs [S])`` — the logprob under the penalty-adjusted,
-    temperature-1, untruncated distribution."""
-    logits = apply_penalties(
-        logits, counts[0], counts[1], s.reps, s.press, s.freqs
-    )
+    applied first (neutral rows are exact no-ops; None: the engine runs
+    without penalties).  Returns ``(tokens [S] int64, logprobs [S])`` —
+    the logprob under the penalty-adjusted, temperature-1, untruncated
+    distribution."""
+    temps, top_ps, min_ps, reps, press, freqs = s.cols
+    if counts is not None:
+        logits = apply_penalties(logits, counts[0], counts[1], reps, press,
+                                 freqs)
     tokens = torch.argmax(logits, dim=-1)
     if noise is not None:
         scaled = truncate_logits(
-            logits / torch.clamp_min(s.temps, 1e-6)[:, None], top_k
+            logits / torch.clamp_min(temps, 1e-6)[:, None], top_k
         )
         if s.truncate_p:
-            scaled = nucleus_min_p_mask(scaled, s.top_ps, s.min_ps)
+            scaled = nucleus_min_p_mask(scaled, top_ps, min_ps)
         sampled = torch.argmax(scaled + noise, dim=-1)
-        tokens = torch.where(s.temps > 0, sampled, tokens)
+        tokens = torch.where(temps > 0, sampled, tokens)
     chosen = torch.gather(logits, 1, tokens[:, None])[:, 0]
     return tokens, chosen - torch.logsumexp(logits, dim=-1)
 
 
-def _admit_batch(params, cache: PagedCache, row_tables, prompts, starts,
-                 true_tails, s: _Sampling, cfg: TransformerConfig,
-                 top_k: int, counts):
+def _admit_batch(params, cache, row_tables, prompts, starts, true_tails,
+                 s: _Sampling, noise, cfg: TransformerConfig, top_k: int,
+                 counts):
     """Prefill a group of admissions sharing a prompt bucket in one
     dispatch and sample each one's first token.  prompts [S, bucket]
     (each row's prompt, zero-padded); starts [S] int32; true_tails [S]
-    valid lengths; row_tables [S, n_tables] int32.  The first token is
-    each request's token 0 (its sampling key, offset by its
-    ``sample_base``).  Padding positions past a row's true length are
-    written into its own reserved blocks and masked until decode
-    overwrites them.  Returns (tokens [S], logprobs [S])."""
+    valid lengths; row_tables [S, n_tables] int32; noise [S, V] (each
+    request's token 0, offset by its ``sample_base``) or None.  Padding
+    positions past a row's true length are written into the slot's own
+    rows and masked until decode overwrites them.  Returns (tokens [S],
+    logprobs [S])."""
     x = _hidden_slots(params, prompts, cache, starts, row_tables, cfg)
     rows = torch.arange(x.shape[0], device=x.device)
     last = x[rows, true_tails.long() - 1]
     logits = _unembed(last, params["wlm"], cfg)
-    noise = s.noise([0] * x.shape[0], cfg.vocab_size, x.device)
     return _sample_batched(logits, s, noise, top_k, counts)
 
 
-def _decode_chunk(params, cache: PagedCache, tables, tokens, starts,
-                  s: _Sampling, indices, cfg: TransformerConfig, *,
+def _decode_chunk(params, cache, tables, tokens, starts, live,
+                  s: _Sampling, noise, cfg: TransformerConfig, *,
                   chunk: int, top_k: int, max_len: int, counts):
-    """Advance every row ``chunk`` tokens: tokens [S] (each row's latest
-    token), starts [S] int32 (where it is written), indices [S] the
-    emission index of the step's token (the sampling key, which
-    ``s.noise`` offsets by each request's ``sample_base``).
-    ``counts`` (tok_counts, gen_counts) [S, V] are updated in place.
-    Returns (tokens [S, chunk], logprobs [S, chunk]) on the device; a
-    row past its budget keeps computing and its position clamps at the
-    cache edge (the host truncates)."""
+    """Advance every row ``chunk`` tokens: tokens [S] int64 (each row's
+    latest token), starts [S] int32 (where it is written), live [S]
+    int32 (1 for a row with a request), noise [chunk, S, V] or None.  A
+    row that is not live keeps its token, its position and its counts;
+    a live row past its budget keeps computing and its position clamps
+    at the cache edge (the host truncates).  ``counts`` (tok_counts,
+    gen_counts) [S, V] are updated in place.  Returns (tokens [S, chunk],
+    logprobs [S, chunk], the last tokens [S]) on the device."""
     rows = torch.arange(tokens.shape[0], device=tokens.device)
+    active = live > 0
     outs, lps = [], []
     for i in range(chunk):
         x = _hidden_slots(params, tokens[:, None], cache, starts, tables, cfg)
         logits = _unembed(x[:, -1], params["wlm"], cfg)
-        noise = s.noise([n + i for n in indices], cfg.vocab_size, x.device)
-        nxt, lp = _sample_batched(logits, s, noise, top_k, counts)
-        counts[0][rows, nxt] += 1
-        counts[1][rows, nxt] += 1
-        starts = torch.clamp_max(starts + 1, max_len - 1)
+        nxt, lp = _sample_batched(
+            logits, s, None if noise is None else noise[i], top_k, counts
+        )
+        nxt = torch.where(active, nxt, tokens)
+        if counts is not None:
+            for c in counts:
+                c[rows, nxt] += live
+        starts = torch.clamp_max(starts + live, max_len - 1)
         tokens = nxt
         outs.append(nxt)
         lps.append(lp)
-    return torch.stack(outs, dim=1), torch.stack(lps, dim=1)
+    return torch.stack(outs, dim=1), torch.stack(lps, dim=1), tokens
+
+
+# The keys of a decode chunk's graphs: (some row samples, some sampled
+# row truncates).  Truncation matters only to sampled rows.
+_GRAPH_KEYS = ((False, False), (True, False), (True, True))
+
+
+class _ChunkBuffers:
+    """A decode chunk's inputs and outputs at fixed device addresses —
+    what a captured graph reads and writes — and the host buffers around
+    them.  Inputs: ``tokens`` [S] int64 (also the carry: the chunk's last
+    tokens are written back), ``meta`` [2, S] int32 (starts, live),
+    ``cols`` [6, S], ``tables`` [S, n_tables], ``noise`` [chunk, S, V];
+    outputs ``out`` [S, chunk] and ``lps`` [S, chunk].  Two sets of host
+    staging for the inputs and two of host outputs, taken in turn, one
+    per chunk in flight: pinned on the GPU, so copies between them and
+    the device do not wait for the device, and a staging set is not
+    rewritten before the copies from it are done (``staged``)."""
+
+    _STAGED = ("tokens", "meta", "cols", "tables")
+
+    def __init__(self, n_slots: int, n_tables: int, chunk: int, vocab: int,
+                 device):
+        def dev(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.tokens = dev((n_slots,), torch.int64)
+        self.meta = dev((2, n_slots), torch.int32)
+        self.cols = dev((len(_COLUMNS), n_slots), torch.float32)
+        self.tables = dev((n_slots, n_tables), torch.int32)
+        self.noise = dev((chunk, n_slots, vocab), torch.float32)
+        self.out = dev((n_slots, chunk), torch.int64)
+        self.lps = dev((n_slots, chunk), torch.float32)
+        pin = torch.device(device).type == "cuda"
+
+        def host(t):
+            return torch.zeros(t.shape, dtype=t.dtype, pin_memory=pin)
+
+        self.stages = [{name: host(getattr(self, name))
+                        for name in self._STAGED} for _ in range(2)]
+        self.staged: list = [None, None]
+        self.results = [(host(self.out), host(self.lps)) for _ in range(2)]
+        self.turn = 0
+
+
+@dataclass
+class _ChunkInputs:
+    """The host side of a fresh dispatch, reused verbatim by the chained
+    dispatches after it: which rows are live, their sampling columns,
+    seeds and graph key."""
+
+    live: np.ndarray  # [S] int32
+    cols: np.ndarray  # [6, S] f32
+    seeds: list[int]
+    key: tuple[bool, bool]
+
+
+@dataclass
+class _InFlightChunk:
+    """One dispatched decode chunk, read back by ``_process_chunk`` or
+    dropped unread (``abort``, the all-slots-finished tail).
+    ``snapshot`` maps slot → the state that owned it at dispatch, so
+    processing never gives a chunk's tokens to a later occupant;
+    ``starts`` and ``indices`` [S] are this dispatch's positions and
+    sampling keys, from which a chained dispatch takes its own
+    (``+ chunk``); ``out``/``lps`` are the host buffers its results land
+    in once ``done`` (a CUDA event; None on the CPU) has passed."""
+
+    snapshot: dict
+    inputs: _ChunkInputs
+    starts: np.ndarray
+    indices: np.ndarray
+    out: torch.Tensor
+    lps: torch.Tensor
+    done: object
+    t_dispatch: float
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +571,12 @@ class Engine:
     number of threads call ``submit``/``result`` (the HTTP server's
     usage).  ``device`` defaults to CUDA; without a GPU the caller must
     ask for ``"cpu"``, where the kernel wrappers run their plain
-    versions."""
+    versions.  On the GPU each decode chunk replays a CUDA graph,
+    captured at ``warmup`` (or at the first decode dispatch);
+    ``cuda_graphs=False`` dispatches the same chunk eagerly instead, the
+    A/B control for measurements.  A capture or replay that fails
+    raises: the engine never falls back to eager dispatch by itself.
+    """
 
     def __init__(
         self,
@@ -441,20 +593,39 @@ class Engine:
         kv_int4: bool = False,
         prefix_cache_size: int = 0,
         spec_decode: int = 0,
+        penalties: bool = True,
         max_queue: int = 0,
         prefill_chunk: int = 0,
-        pipeline_depth: int = 1,
-        kv_block: int = 16,
+        pipeline_depth: int = 2,
+        kv_block: int = 0,
         kv_blocks: int = 0,
         kv_host_bytes: int = 0,
         qos=None,
         device=None,
+        cuda_graphs: bool = True,
     ):
         self.device = resolve_device(device)
         require_dense(cfg)
-        if kv_block <= 0:
-            raise _not_ported(
-                "the dense SlotCache (kv_block=0)", "dense SlotCache"
+        if pipeline_depth not in (1, 2):
+            raise ValueError(
+                f"pipeline_depth must be 1 (serial) or 2 (dispatch-ahead "
+                f"double buffering), got {pipeline_depth}"
+            )
+        if kv_block < 0 or kv_blocks < 0:
+            raise ValueError(
+                f"need kv_block>=0 and kv_blocks>=0; got {kv_block}, "
+                f"{kv_blocks}"
+            )
+        self.paged = kv_block > 0
+        if not self.paged and kv_blocks:
+            raise ValueError("kv_blocks needs kv_block > 0")
+        if kv_int8 and kv_int4:
+            raise ValueError("kv_int8 and kv_int4 are mutually exclusive")
+        if kv_int4 and not self.paged:
+            raise ValueError(
+                "kv_int4 needs the paged cache (kv_block > 0): only the "
+                "block pool carries the per-block scales the fused "
+                "dequant reads"
             )
         if kv_int4:
             raise _not_ported("kv_int4", "kv_int4 with packed nibbles")
@@ -464,10 +635,6 @@ class Engine:
             raise _not_ported("spec_decode", "spec decode")
         if prefill_chunk:
             raise _not_ported("prefill_chunk", "prefill_chunk segments")
-        if pipeline_depth != 1:
-            raise _not_ported(
-                f"pipeline_depth={pipeline_depth}", "pipeline depth 2"
-            )
         if kv_host_bytes:
             raise _not_ported(
                 "the host-RAM KV tier", "lifecycle surfaces (host tier)"
@@ -479,22 +646,22 @@ class Engine:
                 f"need n_slots>=1, max_len>=2, chunk>=1; got {n_slots}, "
                 f"{max_len}, {chunk}"
             )
-        if max_len % kv_block:
+        if self.paged and max_len % kv_block:
             raise ValueError(
                 f"kv_block={kv_block} must divide max_len={max_len} "
                 f"(the block table covers the region exactly)"
             )
+        block_size = kv_block if self.paged else dense_block_size(max_len)
         if self.device.type == "cuda" and not supported_block_size(
-                kv_block, cfg.head_dim):
+                block_size, cfg.head_dim):
             # Fail here, with the constraint named, rather than in the
             # first launch on the step thread.
             raise ValueError(
                 f"the paged-attention kernels need head_dim in (64, 128) "
-                f"and kv_block in [1, 64]; got head_dim={cfg.head_dim}, "
-                f"kv_block={kv_block}"
+                f"and blocks of 1 to 64 rows; got head_dim={cfg.head_dim}, "
+                f"{'kv_block' if self.paged else 'a dense block'}="
+                f"{block_size}"
             )
-        if kv_blocks < 0:
-            raise ValueError(f"need kv_blocks >= 0, got {kv_blocks}")
         if max_queue < 0:
             raise ValueError(f"max_queue must be >= 0, got {max_queue}")
         _validate_truncation(top_k, top_p, cfg.vocab_size)
@@ -507,10 +674,11 @@ class Engine:
         self.top_k = top_k
         self.default_top_p = top_p
         self.kv_int8 = kv_int8
+        self.penalties = penalties
         self.max_queue = max_queue
+        self.pipeline_depth = pipeline_depth
         self.kv_block = kv_block
-        self._n_tables = max_len // kv_block
-        self.kv_blocks = kv_blocks or n_slots * self._n_tables
+        self._n_tables = max_len // block_size
         if prompt_buckets is None:
             prompt_buckets, b = [], 16
             while b < max_len:
@@ -524,20 +692,45 @@ class Engine:
                 f"prompt_buckets must fit 1..{max_len - 1} (each admitted "
                 f"prompt needs >= 1 generated token): {bad}"
             )
-        self._cache = PagedCache.create(
-            cfg, self.kv_blocks, kv_block, quantized=kv_int8,
-            device=self.device,
-        )
-        self._alloc = BlockAllocator(self.kv_blocks)
-        self._tables_host = np.full(
-            (n_slots, self._n_tables), self.kv_blocks, np.int32
-        )
+        if self.paged:
+            self.kv_blocks = kv_blocks or n_slots * self._n_tables
+            self._cache = PagedCache.create(
+                cfg, self.kv_blocks, kv_block, quantized=kv_int8,
+                device=self.device,
+            )
+            self._alloc = BlockAllocator(self.kv_blocks)
+            # Sentinel rows until an admission reserves blocks.
+            self._sentinel = self.kv_blocks
+            self._tables_host = np.full(
+                (n_slots, self._n_tables), self._sentinel, np.int32
+            )
+        else:
+            self.kv_blocks = 0
+            self._cache = SlotCache.create(
+                cfg, n_slots, max_len, block_size, quantized=kv_int8,
+                device=self.device,
+            )
+            self._alloc = None
+            # The identity table: slot s's region is its own blocks.
+            self._sentinel = n_slots * self._n_tables
+            self._tables_host = np.arange(
+                self._sentinel, dtype=np.int32
+            ).reshape(n_slots, self._n_tables)
         # Per-slot token counts for the penalties: prompt + generated,
-        # and generated only.
-        self._tok_counts = torch.zeros(
-            (n_slots, cfg.vocab_size), dtype=torch.int32, device=self.device
-        )
-        self._gen_counts = torch.zeros_like(self._tok_counts)
+        # and generated only (none without penalties).
+        self._tok_counts = self._gen_counts = None
+        if penalties:
+            self._tok_counts = torch.zeros(
+                (n_slots, cfg.vocab_size), dtype=torch.int32,
+                device=self.device,
+            )
+            self._gen_counts = torch.zeros_like(self._tok_counts)
+        self._buf = _ChunkBuffers(n_slots, self._n_tables, chunk,
+                                  cfg.vocab_size, self.device)
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self._graphs: dict | None = None
+        self._graph_counts: dict = {}
+        self._inflight: _InFlightChunk | None = None
         self._lock = threading.Lock()
         self._queue: deque = deque()  # (rid, req, t_submit)
         self._free: list[int] = list(range(n_slots))
@@ -558,13 +751,35 @@ class Engine:
         self.tokens_generated = 0
         self.kv_admit_deferrals = 0
         self.prefill_seconds = 0.0
+        # Decode wall: each processed chunk's from its dispatch, or from
+        # the previous chunk's readback when it overlapped it, to its
+        # own readback.
         self.decode_seconds = 0.0
         self.decode_tokens = 0
         # Forward passes through the layer stack: one per admission
-        # group and one per decode step (each runs both kernels once
-        # per layer).
+        # group and one per decode step dispatched (each runs both
+        # kernels once per layer) — a chunk dropped unread included.
         self.prefill_dispatches = 0
         self.decode_passes = 0
+        self.decode_dispatches = 0
+        self.graph_replays = 0
+        self.readbacks = 0
+        # The pipeline's split of step() walls, under the reference's
+        # names: readback_seconds is the wall blocked on a chunk's
+        # results, overlap_seconds the part of it spent while the next
+        # chunk was already dispatched, dispatch_seconds the wall
+        # enqueueing chunks, device_idle_seconds the wall between a
+        # readback with nothing dispatched behind it and the next
+        # dispatch.
+        self.readback_seconds = 0.0
+        self.overlap_seconds = 0.0
+        self.dispatch_seconds = 0.0
+        self.device_idle_seconds = 0.0
+        # Chained dispatches skipped because the chunk in flight already
+        # covers every slot's remaining budget.
+        self.tail_elisions = 0
+        self._t_device_free: float | None = None
+        self._t_last_chunk_done: float | None = None
         self._ttfts: deque[float] = deque(maxlen=256)
 
     # -- submission and results ---------------------------------------------
@@ -583,6 +798,10 @@ class Engine:
                                      n_tokens + max_new))
 
     def _pool_blocks_needed(self, n_tokens: int, max_new: int) -> int:
+        """Pool blocks a request reserves (0 on the dense layout, whose
+        slots own their regions)."""
+        if not self.paged:
+            return 0
         return -(-self._worst_case_rows(n_tokens, max_new) // self.kv_block)
 
     def _validate(self, req: GenRequest) -> None:
@@ -625,6 +844,16 @@ class Engine:
             raise ValueError(
                 f"repetition_penalty must be > 0, got "
                 f"{req.repetition_penalty}"
+            )
+        wants_penalties = (
+            req.repetition_penalty != 1.0
+            or req.presence_penalty != 0.0
+            or req.frequency_penalty != 0.0
+        )
+        if not self.penalties and wants_penalties:
+            raise ValueError(
+                "this engine was built with penalties=False "
+                "(oim-serve --no-penalties); restart without it"
             )
         bad = [t for t in req.tokens if not 0 <= t < self.cfg.vocab_size]
         if bad:
@@ -716,8 +945,12 @@ class Engine:
 
     def abort(self, message: str) -> None:
         """Fail every queued, admitting and active request and reclaim
-        their slots and blocks (the crash path of ``step``)."""
+        their slots and blocks (the crash path of ``step``).  A chunk in
+        flight is dropped unread: it references only the requests failed
+        here, and the device finishes it before any later work."""
         with self._lock:
+            self._inflight = None
+            self._t_device_free = None
             rids = [rid for rid, _, _ in self._queue]
             rids += list(self._admitting)
             rids += [s.rid for s in self._slots.values()]
@@ -732,7 +965,8 @@ class Engine:
             self._cancelled.clear()
 
     def drain(self) -> None:
-        """Stop admitting; queued and active requests run to the end."""
+        """Stop admitting; queued and active requests, and a chunk in
+        flight, run to the end."""
         with self._lock:
             self._draining = True
 
@@ -743,6 +977,20 @@ class Engine:
     def pending(self) -> bool:
         with self._lock:
             return bool(self._queue or self._slots)
+
+    def set_pipeline_depth(self, depth: int) -> None:
+        """Switch between serial (1) and dispatch-ahead (2) decode on a
+        warm engine: the same graphs, only the step loop's overlap
+        changes.  Legal only with no chunk in flight (an idle engine)."""
+        if depth not in (1, 2):
+            raise ValueError(f"pipeline_depth must be 1 or 2, got {depth}")
+        with self._lock:
+            if self._inflight is not None:
+                raise RuntimeError(
+                    "set_pipeline_depth needs an idle engine (a decode "
+                    "chunk is in flight; drain or finish run() first)"
+                )
+            self.pipeline_depth = depth
 
     # -- introspection ------------------------------------------------------
 
@@ -774,15 +1022,16 @@ class Engine:
                 "top_k": self.top_k,
                 "default_top_p": self.default_top_p,
                 "kv_int8": self.kv_int8,
-                "penalties": True,
-                "pipeline_depth": 1,
-                "paged": True,
+                "penalties": self.penalties,
+                "pipeline_depth": self.pipeline_depth,
+                "paged": self.paged,
                 "kv_block": self.kv_block,
                 "kv_blocks": self.kv_blocks,
                 "device": str(self.device),
                 "attention": (
                     "cuda-kernels" if self.device.type == "cuda" else "plain"
                 ),
+                "cuda_graphs": self.cuda_graphs,
             },
         }
 
@@ -797,8 +1046,12 @@ class Engine:
                 "tokens_generated": self.tokens_generated,
                 "kv_block_size": self.kv_block,
                 "kv_blocks_total": self.kv_blocks,
-                "kv_blocks_free": self._alloc.free_blocks,
-                "kv_blocks_used": self._alloc.used_blocks,
+                "kv_blocks_free": (
+                    self._alloc.free_blocks if self.paged else 0
+                ),
+                "kv_blocks_used": (
+                    self._alloc.used_blocks if self.paged else 0
+                ),
                 "kv_admit_deferrals": self.kv_admit_deferrals,
                 "kv_quant": "int8" if self.kv_int8 else "",
                 # Host clock around work that ends in a device readback,
@@ -808,6 +1061,20 @@ class Engine:
                 "decode_tokens": self.decode_tokens,
                 "prefill_dispatches": self.prefill_dispatches,
                 "decode_passes": self.decode_passes,
+                "decode_dispatches": self.decode_dispatches,
+                "graph_replays": self.graph_replays,
+                "readbacks": self.readbacks,
+                "readback_seconds": self.readback_seconds,
+                "dispatch_seconds": self.dispatch_seconds,
+                "overlap_seconds": self.overlap_seconds,
+                "overlap_ratio": (
+                    self.overlap_seconds / self.readback_seconds
+                    if self.readback_seconds > 0 else 0.0
+                ),
+                "device_idle_seconds": self.device_idle_seconds,
+                "tail_elisions": self.tail_elisions,
+                "pipeline_depth": self.pipeline_depth,
+                "inflight_dispatches": int(self._inflight is not None),
                 "ttft_p50_s": statistics.median(ttfts) if ttfts else 0.0,
                 "kernel_counts": paged_attention.counters(),
                 "fatal": self._fatal,
@@ -816,16 +1083,12 @@ class Engine:
     # -- engine loop (one step thread) --------------------------------------
 
     def step(self) -> None:
-        """Reap, admit whatever fits, then decode one chunk for the
-        active slots.  A crash latches the engine and fails every
+        """Reconcile the pipeline, reap, admit, dispatch and emit (see
+        ``_step_inner``).  A crash latches the engine and fails every
         waiter before re-raising."""
+        acc = [0.0, 0.0, 0.0]  # readback wait, dispatch wall, overlapped
         try:
-            self._reap()
-            self._admit_wave()
-            with self._lock:
-                active = bool(self._slots)
-            if active:
-                self._decode_round()
+            self._step_inner(acc)
             if not self._warming:
                 self.steps += 1
         except Exception as exc:
@@ -835,6 +1098,12 @@ class Engine:
                     self._fatal = message
             self.abort(message)
             raise
+        finally:
+            if not self._warming:
+                with self._lock:
+                    self.readback_seconds += acc[0]
+                    self.dispatch_seconds += acc[1]
+                    self.overlap_seconds += acc[2]
 
     def run(self) -> dict[int, list[int]]:
         """Drain the queue and all active slots; returns {rid: tokens}
@@ -848,7 +1117,8 @@ class Engine:
     def warmup(self) -> "Engine":
         """Run one dummy request per prompt bucket (each that fits the
         pool): builds the kernels on first use and touches every prefill
-        shape once before live traffic."""
+        shape once before live traffic; on the GPU, captures the decode
+        chunk's graphs."""
         self._warming = True
         try:
             rids = []
@@ -862,18 +1132,23 @@ class Engine:
             self.run()
             for rid in rids:
                 self.result(rid, timeout=0)
+            if self.cuda_graphs and self._graphs is None:
+                self._capture_graphs()
         finally:
             self._warming = False
         return self
 
     def _release_slot_locked(self, slot: int) -> None:
-        """Return ``slot`` and its blocks, and reset its table row to the
-        sentinel (lock held)."""
-        row = self._tables_host[slot]
-        live = row[row < self.kv_blocks]
-        if live.size:
-            self._alloc.decref(live.tolist())
-        row[:] = self.kv_blocks
+        """Return ``slot`` and, paged, its blocks, resetting its table
+        row to the sentinel (lock held).  A dispatch copies the table
+        into its own staging, so a chunk already queued keeps the row it
+        was given."""
+        if self.paged:
+            row = self._tables_host[slot]
+            live = row[row < self.kv_blocks]
+            if live.size:
+                self._alloc.decref(live.tolist())
+            row[:] = self.kv_blocks
         self._free.append(slot)
 
     def _finish_locked(self, slot: int, state: _SlotState) -> None:
@@ -902,7 +1177,8 @@ class Engine:
 
     def _reap(self) -> None:
         """Fail cancelled and deadline-expired requests: queued ones
-        before they touch a slot, active ones at this chunk boundary."""
+        before they touch a slot, active ones at this step (a chunk in
+        flight skips their rows when it is read back)."""
         now = time.monotonic()
         with self._lock:
             if not self._cancelled and not any(
@@ -937,31 +1213,97 @@ class Engine:
                 self._fail_locked(state.rid, kind, msg)
 
     @torch.no_grad()
+    def _step_inner(self, acc: list) -> None:
+        """One step: reap, reconcile the pipeline, admit, dispatch, emit.
+
+        At ``pipeline_depth`` 2 the step dispatches chunk N+1 before
+        reading back chunk N, so the device computes while the host reads
+        back and emits.  Admissions join at pipeline boundaries: a step
+        with queued work and a free slot first completes the chunk in
+        flight (it still references every slot), then admits; queued
+        work with no free slot forces no boundary.  Tail elision: when
+        the chunk in flight already covers every slot's remaining
+        budget, a chained dispatch would be pure waste, so the step
+        takes a boundary instead.  Depth 1 is the serial loop (every
+        step is a boundary), token for token equal to depth 2."""
+        self._reap()
+        with self._lock:
+            elide_tail = (
+                self._inflight is not None
+                and self.pipeline_depth >= 2
+                and all(st.req.max_new_tokens - len(st.emitted) <= self.chunk
+                        for st in self._slots.values())
+            )
+            admit_boundary = bool(self._queue) and bool(self._free)
+            boundary = admit_boundary or self.pipeline_depth < 2 or elide_tail
+            if elide_tail and not admit_boundary and not self._warming:
+                self.tail_elisions += 1
+        if boundary and self._inflight is not None:
+            prev, self._inflight = self._inflight, None
+            self._process_chunk(prev, acc)
+        self._admit_wave()
+        with self._lock:
+            have_slots = bool(self._slots)
+        if not have_slots:
+            # Every request finished while a chunk was in flight: it
+            # references finished slots only, so it is dropped unread.
+            self._inflight = None
+            self._clear_idle_clock_if_drained()
+            return
+        prev = self._inflight
+        handle = self._dispatch_chunk(acc, prev)
+        if self.pipeline_depth >= 2:
+            self._inflight = handle
+            if prev is not None:
+                self._process_chunk(prev, acc)
+            with self._lock:
+                empty = not self._slots
+            if empty:
+                self._inflight = None  # the tail chunk: dead slots only
+        else:
+            self._process_chunk(handle, acc)
+        self._clear_idle_clock_if_drained()
+
+    def _clear_idle_clock_if_drained(self) -> None:
+        """With no work at all the device is idle for want of it, not
+        because the host held it up: stop the device-idle clock."""
+        if self._inflight is not None:
+            return
+        with self._lock:
+            if not self._slots and not self._queue:
+                self._t_device_free = None
+
     def _admit_wave(self) -> None:
-        """Admit whatever fits into free slots: reserve each request's
-        worst case from the pool (head-of-line: a shortage leaves it
-        queued), then prefill one dispatch per prompt bucket and read
-        every first token back at once."""
+        """Admit whatever fits into free slots — only with no chunk in
+        flight (the pipeline-boundary rule): paged, reserve each
+        request's worst case from the pool (head-of-line: a shortage
+        leaves it queued); then prefill one dispatch per prompt bucket
+        and read every first token back at once."""
+        if self._inflight is not None:
+            return
         with self._lock:
             admissions = []
             while self._queue and self._free:
                 rid, req, t_submit = self._queue[0]
-                blocks = self._alloc.alloc(self._pool_blocks_needed(
-                    len(req.tokens), req.max_new_tokens
-                ))
-                if blocks is None:
-                    if not self._warming:
-                        self.kv_admit_deferrals += 1
-                    break
+                if self.paged:
+                    blocks = self._alloc.alloc(self._pool_blocks_needed(
+                        len(req.tokens), req.max_new_tokens
+                    ))
+                    if blocks is None:
+                        if not self._warming:
+                            self.kv_admit_deferrals += 1
+                        break
                 self._queue.popleft()
                 slot = self._free.pop(0)
-                self._tables_host[slot, : len(blocks)] = blocks
+                if self.paged:
+                    self._tables_host[slot, : len(blocks)] = blocks
                 self._admitting[rid] = slot
                 admissions.append((slot, rid, req, t_submit))
         if not admissions:
             return
         t0 = time.monotonic()
         dev = self.device
+        vocab = self.cfg.vocab_size
         groups = []  # (rows, tokens, logprobs) per bucket
         for bucket in sorted({self._bucket(len(a[2].tokens))
                               for a in admissions}):
@@ -972,25 +1314,35 @@ class Engine:
             for i, req in enumerate(reqs):
                 prompts[i, : len(req.tokens)] = req.tokens
             slot_ids = [slot for slot, _, _, _ in rows]
-            s = _Sampling.build(reqs, self.default_top_p, dev)
-            prompt_counts = torch.from_numpy(np.stack([
-                np.bincount(req.tokens, minlength=self.cfg.vocab_size)
-                for req in reqs
-            ]).astype(np.int32)).to(dev)
-            counts = (prompt_counts, torch.zeros_like(prompt_counts))
+            cols = _columns(reqs, self.default_top_p)
+            s = _Sampling(torch.from_numpy(cols).to(dev),
+                          *_sampling_key(cols))
+            noise = None
+            if s.sampled:
+                noise = _noise([r.seed for r in reqs],
+                               [r.sample_base for r in reqs], cols[0] > 0,
+                               1, vocab, dev)[0]
+            counts = None
+            if self.penalties:
+                prompt_counts = torch.from_numpy(np.stack([
+                    np.bincount(req.tokens, minlength=vocab)
+                    for req in reqs
+                ]).astype(np.int32)).to(dev)
+                counts = (prompt_counts, torch.zeros_like(prompt_counts))
             tokens, lps = _admit_batch(
                 self.params, self._cache,
                 torch.from_numpy(self._tables_host[slot_ids]).to(dev),
                 torch.from_numpy(prompts).to(dev),
                 torch.zeros(len(rows), dtype=torch.int32, device=dev),
                 torch.tensor([len(r.tokens) for r in reqs], device=dev),
-                s, self.cfg, self.top_k, counts,
+                s, noise, self.cfg, self.top_k, counts,
             )
-            idx = torch.tensor(slot_ids, device=dev)
-            onehot = torch.zeros_like(prompt_counts)
-            onehot[torch.arange(len(rows), device=dev), tokens] = 1
-            self._tok_counts[idx] = prompt_counts + onehot
-            self._gen_counts[idx] = onehot
+            if self.penalties:
+                idx = torch.tensor(slot_ids, device=dev)
+                onehot = torch.zeros_like(prompt_counts)
+                onehot[torch.arange(len(rows), device=dev), tokens] = 1
+                self._tok_counts[idx] = prompt_counts + onehot
+                self._gen_counts[idx] = onehot
             groups.append((rows, tokens, lps))
         # One readback for every admission of the wave.
         fetched = torch.cat(
@@ -1025,49 +1377,249 @@ class Engine:
                     else:
                         self._slots[slot] = state
 
-    @torch.no_grad()
-    def _decode_round(self) -> None:
-        """Decode one chunk for every active slot (one dispatch, one
-        readback), then emit with EOS/stop/budget truncation."""
-        with self._lock:
-            snapshot = sorted(self._slots.items())
-        dev = self.device
-        slot_ids = [slot for slot, _ in snapshot]
-        states = [state for _, state in snapshot]
-        reqs = [state.req for state in states]
-        s = _Sampling.build(reqs, self.default_top_p, dev)
-        idx = torch.tensor(slot_ids, device=dev)
-        counts = (self._tok_counts[idx], self._gen_counts[idx])
-        t0 = time.monotonic()
-        out, lps = _decode_chunk(
-            self.params, self._cache,
-            torch.from_numpy(self._tables_host[slot_ids]).to(dev),
-            torch.tensor([st.last_token for st in states], device=dev),
-            torch.tensor([st.length for st in states], dtype=torch.int32,
-                         device=dev),
-            s,
-            [len(st.emitted) for st in states],
+    # -- decode chunks --------------------------------------------------------
+
+    def _fresh_inputs(self, slots: dict):
+        """A fresh dispatch's host inputs from the slots' states:
+        (``_ChunkInputs``, tokens, starts, indices), every array over all
+        ``n_slots`` rows.  A row with no request is not live, keeps the
+        neutral columns and starts at 0, so that K1 walks none of a
+        stale region."""
+        n = self.n_slots
+        live = np.zeros(n, np.int32)
+        tokens = np.zeros(n, np.int64)
+        starts = np.zeros(n, np.int32)
+        indices = np.zeros(n, np.int64)
+        cols = np.repeat(_NEUTRAL[:, None], n, axis=1)
+        seeds = [0] * n
+        for slot, st in slots.items():
+            live[slot] = 1
+            tokens[slot] = st.last_token
+            starts[slot] = st.length
+            # The global emission index: a continuation's sample_base
+            # offsets every key to where the uninterrupted stream's was.
+            indices[slot] = len(st.emitted) + st.req.sample_base
+            cols[:, slot] = _columns([st.req], self.default_top_p)[:, 0]
+            seeds[slot] = st.req.seed
+        inputs = _ChunkInputs(live=live, cols=cols, seeds=seeds,
+                              key=_sampling_key(cols))
+        return inputs, tokens, starts, indices
+
+    def _run_chunk(self, key: tuple[bool, bool]) -> None:
+        """One decode chunk over the static buffers, eagerly — or, under
+        a capture, the work that graph ``key`` replays: outputs into
+        ``out``/``lps``, the last tokens back into ``tokens``."""
+        b = self._buf
+        counts = None
+        if self.penalties:
+            counts = (self._tok_counts, self._gen_counts)
+        out, lps, last = _decode_chunk(
+            self.params, self._cache, b.tables, b.tokens, b.meta[0],
+            b.meta[1], _Sampling(b.cols, *key), b.noise if key[0] else None,
             self.cfg, chunk=self.chunk, top_k=self.top_k,
             max_len=self.max_len, counts=counts,
         )
-        self._tok_counts[idx] = counts[0]
-        self._gen_counts[idx] = counts[1]
-        out_host = out.cpu().numpy()
-        lps_host = lps.cpu().numpy()
+        b.out.copy_(out)
+        b.lps.copy_(lps)
+        b.tokens.copy_(last)
+
+    def _capture_graphs(self) -> None:
+        """Capture one CUDA graph of ``_run_chunk`` per ``_GRAPH_KEYS``
+        key, into one memory pool (replays never overlap: one stream).
+        The static inputs are made harmless first — every table entry
+        the sentinel (K2 writes nothing, K1 reads nothing) and no row
+        live (no count moves) — so that the eager chunk run before each
+        capture, which builds the kernels and sets their attributes
+        outside it, changes nothing a slot owns.  The launch counts each
+        capture records are what its replays add (``recording``)."""
+        b = self._buf
+        b.tables.fill_(self._sentinel)
+        b.meta.zero_()
+        b.tokens.zero_()
+        b.cols.copy_(torch.from_numpy(
+            np.repeat(_NEUTRAL[:, None], self.n_slots, axis=1)))
+        b.noise.zero_()
+        pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream(self.device)
+        graphs, counts = {}, {}
+        for key in _GRAPH_KEYS:
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._run_chunk(key)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with paged_attention.recording() as delta, torch.cuda.graph(
+                    graph, pool=pool, capture_error_mode="thread_local"):
+                self._run_chunk(key)
+            graphs[key], counts[key] = graph, delta
+        torch.cuda.synchronize(self.device)
+        self._graphs, self._graph_counts = graphs, counts
+
+    def _enqueue_chunk(self, inputs: _ChunkInputs, tokens, starts, indices,
+                       graph: bool):
+        """Stage one chunk's inputs into the device buffers (``tokens``
+        None: keep the device-side carry), fill its noise, run it — by
+        its graph's replay or eagerly — and queue the copy of its
+        results to host buffers.  Returns (host out, host lps, the event
+        that marks them done or None on the CPU).  Nothing here waits
+        for the device."""
+        b = self._buf
+        turn = b.turn
+        b.turn ^= 1
+        if b.staged[turn] is not None:
+            b.staged[turn].synchronize()  # its last copies are done
+        stage = b.stages[turn]
+        stage["meta"][0] = torch.from_numpy(starts)
+        stage["meta"][1] = torch.from_numpy(inputs.live)
+        stage["tables"].copy_(torch.from_numpy(self._tables_host))
+        names = ["meta", "tables"]
+        if tokens is not None:
+            stage["tokens"].copy_(torch.from_numpy(tokens))
+            stage["cols"].copy_(torch.from_numpy(inputs.cols))
+            names += ["tokens", "cols"]
+        for name in names:
+            getattr(b, name).copy_(stage[name], non_blocking=True)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            b.staged[turn] = torch.cuda.Event()
+            b.staged[turn].record()
+        if inputs.key[0]:
+            _noise(inputs.seeds, indices, inputs.cols[0] > 0, self.chunk,
+                   self.cfg.vocab_size, self.device, out=b.noise)
+        if graph:
+            self._graphs[inputs.key].replay()
+            paged_attention.replay_counts(self._graph_counts[inputs.key])
+        else:
+            self._run_chunk(inputs.key)
+        out, lps = b.results[turn]
+        out.copy_(b.out, non_blocking=True)
+        lps.copy_(b.lps, non_blocking=True)
+        done = None
+        if cuda:
+            done = torch.cuda.Event()
+            done.record()
+        return out, lps, done
+
+    def _dispatch_chunk(self, acc: list,
+                        chained: _InFlightChunk | None) -> _InFlightChunk:
+        """Dispatch one decode chunk over all ``n_slots`` rows; returns
+        its in-flight handle without reading anything back.
+
+        Fresh (``chained`` None, always the dispatch after a boundary):
+        every input comes from the slots' host states.  Chained: the
+        tokens are the previous chunk's device-side carry, the positions
+        and sampling keys the previous dispatch's ``+ chunk`` (clamped at
+        the cache edge, live rows only), and the live rows and sampling
+        columns are reused verbatim — a slot that finished meanwhile
+        keeps computing inside its own rows (dense) or into dropped
+        writes (paged: its table row is the sentinel by now) and is
+        skipped at readback.  The table is the current one either way."""
+        with self._lock:
+            slots = dict(self._slots)
+        t0 = time.monotonic()
+        if chained is None:
+            if self.cuda_graphs and self._graphs is None:
+                self._capture_graphs()
+            inputs, tokens, starts, indices = self._fresh_inputs(slots)
+        else:
+            inputs, tokens = chained.inputs, None
+            starts = np.minimum(
+                chained.starts + self.chunk * inputs.live, self.max_len - 1
+            ).astype(np.int32)
+            indices = chained.indices + self.chunk
+        out, lps, done = self._enqueue_chunk(
+            inputs, tokens, starts, indices, graph=self.cuda_graphs
+        )
+        self._mark_dispatch(t0, acc)
+        if not self._warming:
+            self.decode_passes += self.chunk
+            self.decode_dispatches += 1
+            self.graph_replays += int(self.cuda_graphs)
+        return _InFlightChunk(
+            snapshot=slots, inputs=inputs, starts=starts, indices=indices,
+            out=out, lps=lps, done=done, t_dispatch=t0,
+        )
+
+    def _mark_dispatch(self, t0: float, acc: list) -> None:
+        """Close one dispatch window: its wall is dispatch time, and an
+        open device-idle window ends at ``t0``."""
+        acc[1] += time.monotonic() - t0
+        if self._t_device_free is not None:
+            if not self._warming:
+                self.device_idle_seconds += max(
+                    0.0, t0 - self._t_device_free)
+            self._t_device_free = None
+
+    def _process_chunk(self, handle: _InFlightChunk, acc: list) -> None:
+        """Wait for one dispatched chunk's results (its event only, not
+        the chunk dispatched behind it) and emit them with EOS, stop and
+        budget truncation."""
+        overlapped = self._inflight is not None
+        t0 = time.monotonic()
+        if handle.done is not None:
+            handle.done.synchronize()
+        out = handle.out.numpy()
+        lps = handle.lps.numpy()
+        t1 = time.monotonic()
+        acc[0] += t1 - t0
+        if overlapped:
+            acc[2] += t1 - t0
+        else:
+            self._t_device_free = t1
         emitted = 0
         with self._lock:
-            for r, (slot, state) in enumerate(snapshot):
+            for slot, state in handle.snapshot.items():
+                if self._slots.get(slot) is not state:
+                    continue  # finished, failed or aborted meanwhile
                 state.length = min(state.length + self.chunk,
                                    self.max_len - 1)
-                if self._slots.get(slot) is not state:
-                    continue  # failed by abort/reap meanwhile
                 for i in range(self.chunk):
                     emitted += 1
-                    if self._emit(state, int(out_host[r, i]),
-                                  float(lps_host[r, i])):
+                    if self._emit(state, int(out[slot, i]),
+                                  float(lps[slot, i])):
                         self._finish_locked(slot, state)
                         break
             if not self._warming:
-                self.decode_seconds += time.monotonic() - t0
+                self.readbacks += 1
+                start = handle.t_dispatch
+                if self._t_last_chunk_done is not None:
+                    start = max(start, self._t_last_chunk_done)
+                self.decode_seconds += t1 - start
                 self.decode_tokens += emitted
-                self.decode_passes += self.chunk
+        self._t_last_chunk_done = t1
+
+    @torch.no_grad()
+    def chunk_twice(self) -> list[dict]:
+        """For checks on the card: one decode chunk for the seated slots
+        (as a fresh dispatch would make it), run from the same state
+        twice — eagerly, then by its graph's replay — returning what each
+        left: ``out``, ``lps``, the token carry, the cache and the
+        penalty counts, as tensors.  Needs the graphs and no chunk in
+        flight; afterwards the cache and counts are as they were before
+        either run."""
+        if self._graphs is None or self._inflight is not None:
+            raise RuntimeError("chunk_twice needs captured graphs and no "
+                               "chunk in flight")
+        with self._lock:
+            slots = dict(self._slots)
+        inputs, tokens, starts, indices = self._fresh_inputs(slots)
+        cache = self._cache
+        state = [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale,
+                             self._tok_counts, self._gen_counts)
+                 if t is not None]
+        saved = [t.clone() for t in state]
+        runs = []
+        for graph in (False, True):
+            for t, s in zip(state, saved):
+                t.copy_(s)
+            _, _, done = self._enqueue_chunk(inputs, tokens, starts,
+                                             indices, graph)
+            if done is not None:
+                done.synchronize()
+            b = self._buf
+            runs.append({"out": b.out.clone(), "lps": b.lps.clone(),
+                         "carry": b.tokens.clone(),
+                         "state": [t.clone() for t in state]})
+        for t, s in zip(state, saved):
+            t.copy_(s)
+        return runs

@@ -5,7 +5,12 @@ The counterpart of ``oim_tpu/serve/server.py``'s core surface, with the
 same JSON bodies: ``GET /healthz``, ``GET /v1/stats``, ``GET /v1/info``
 and non-streaming ``POST /v1/generate`` (``tokens``, ``max_new_tokens``,
 ``temperature``, ``seed``, ``top_p``, ``stop_ids``, ``sample_base`` and
-the other per-request sampling fields).  Streaming, text, embeddings, beam search,
+the other per-request sampling fields).  ``/v1/info`` and ``/v1/stats``
+carry the engine's layout and pipeline fields under the reference's
+names (``paged``, ``kv_block``, ``pipeline_depth``, ``penalties``;
+``readback_seconds``, ``overlap_seconds``, ``overlap_ratio``,
+``tail_elisions``, ``inflight_dispatches``).  Streaming, text,
+embeddings, beam search,
 the OpenAI surface, KV shipping, profiling and the stall watchdog come
 with later slices (ROADMAP Queue A: the rest of server.py).
 """

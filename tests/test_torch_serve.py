@@ -315,8 +315,6 @@ def test_engine_deadlines(model):
     (dict(prefix_cache_size=2), "prefix cache"),
     (dict(spec_decode=2), "spec decode"),
     (dict(prefill_chunk=8), "prefill_chunk"),
-    (dict(pipeline_depth=2), "pipeline depth 2"),
-    (dict(kv_block=0), "dense SlotCache"),
     (dict(kv_host_bytes=1 << 20), "host tier"),
     (dict(qos=object()), "QoS"),
 ])
