@@ -9,6 +9,9 @@ few steps in the trainer's usual configuration
 (RMSNorm, flash attention forward, dq, dkv, and the fused unembed+CE
 forward, dx and dw), then checkpoint, resume, export, fine-tune LoRA on
 the export and serve the merged weights — and check what comes back.
+Then an exact-routing MoE model at Mixtral-8x7B's widths: served on
+``serve_main``'s defaults with its depth cut to fit the card, and
+trained at two layers with capacity routing and the aux and z losses.
 
 Run from the repository root on a machine with one NVIDIA GPU and the
 CUDA toolkit:
@@ -22,7 +25,13 @@ the host's time to enqueue each, and a full step's fused-CE backward by
 scratch width — with the port's package loaded from DIR (another
 checkout, such as a parent commit unpacked beside this one), so that two
 versions of the kernels are timed on the same inputs in one run of the
-card.  ``--train-phase-only [--package DIR]`` likewise runs only the
+card.  ``--moe-phase-only`` runs only the MoE phases (K1/K2 at the MoE
+model's heads, its serve phase and its train phase).
+``--route-control bf16|swap`` plants a router fault in the MoE serve
+phase's engine and the MoE training's kernel path (the references kept
+sound) and runs those two checks, which must fail: a control of the
+routing checks' tolerance.
+``--train-phase-only [--package DIR]`` likewise runs only the
 training configuration's steps and prints their wall times and peak
 memory, and ``--serve-phase-only [--package DIR]`` only the serve phases
 (their checks, the lone 512-token prompt's time to first token, the
@@ -78,6 +87,38 @@ MAX_LEN = 2048
 # of K1's ring holds (serve/engine.py dense_block_size).
 DENSE_BS = 64
 
+# MoE configuration: Mixtral-8x7B-v0.1 at its published widths
+# (huggingface.co/mistralai/Mixtral-8x7B-v0.1 config.json: hidden 4096,
+# MLP 14336, 32 / 8 kv heads, head_dim 128, 8 experts, top 2, vocab
+# 32000, rope_theta 1e6, RMSNorm eps 1e-5, no biases, no window), the
+# repo's untied wlm, random weights from seed 0.  Served depth cut to
+# 24 of 32 layers: in bf16 a layer is 2.90 GB (experts 2.82, attention
+# 0.08) plus 0.067 GB of dense cache (8 slots x 2048 rows), wte and the
+# f32 wlm add 0.79 GB — 71 GB (66 GiB) at 24 layers, which leaves the
+# 8 GiB of headroom on an 80 GB card that ``MOE_FREE_GIB`` checks at the
+# serving peak (admission transients, graph pool).  Trained at 2 layers:
+# f32 masters, grads and AdamW moments of 3.2 B parameters, ~51 GB.
+MOE_GEOMETRY = [
+    "--vocab-size", "32000", "--d-model", "4096", "--n-heads", "32",
+    "--n-kv-heads", "8", "--d-ff", "14336", "--n-experts", "8",
+    "--moe-top-k", "2", "--rope-theta", "1000000", "--norm-eps", "1e-5",
+    "--dtype", "bfloat16",
+]
+MOE_LAYERS = 24
+MOE_SERVE_ARGS = MOE_GEOMETRY + [
+    "--n-layers", str(MOE_LAYERS), "--n-slots", "8", "--max-len",
+    str(MAX_LEN), "--chunk", "8", "--port", "0", "--seed", "0",
+]
+MOE_H, MOE_KVH, MOE_D, MOE_VOCAB = 32, 8, 4096, 32000
+MOE_FREE_GIB = 8.0
+MOE_TRAIN_STEPS, MOE_TRAIN_B = 3, 2
+MOE_TRAIN_ARGS = MOE_GEOMETRY + [
+    "--synthetic", "400000", "--steps", str(MOE_TRAIN_STEPS),
+    "--batch-global", str(MOE_TRAIN_B), "--seq", "1024", "--seed", "0",
+    "--n-layers", "2", "--router-z-loss", "1e-3", "--lr", "3e-4",
+    "--log-every", "1",
+]
+
 # The train phases' device (the smoke needs a GPU; a constant so the
 # phases can be rehearsed on the CPU at a tiny size).
 DEV = "cuda"
@@ -116,6 +157,18 @@ KERNEL_ATOL = 1e-3
 # (wrong positions, wrong cache rows) moves logits by O(1).
 DELTA = 0.2
 LOGPROB_ATOL = 0.2
+# MoE routing in that check: the served bf16 path's expert choices are
+# teacher-forced into the f32 forward.  Where they differ from the f32
+# router's own top-k, the f32 probability the served choice gives up
+# must be a near tie's.  Measured on an H100 (``--route-control``): sound
+# runs give up at most 0.0032-0.0070, and so does the router rounded to
+# bf16 (0.0043-0.0074: inside the bf16 path's own noise), while one
+# layer routed by another layer's router gives up 0.80-0.83.  0.02
+# leaves ~3x room above the first and 40x below the second.
+ROUTE_TIE = 0.02
+# ``--route-control``: a router fault planted on purpose ("bf16" or
+# "swap", ``plant_route_control``), which the MoE checks must catch.
+ROUTE_CONTROL = None
 # Training kernels vs their plain versions, as max |got - want| over
 # max |want|: both sides compute in f32 from the same inputs and round
 # once to the output dtype, so in bf16 they differ by at most one
@@ -240,8 +293,8 @@ def make_tables(rng, n_rows, positions, n_blocks, reserve=2):
     return tables
 
 
-def make_pool(gen, n_blocks, quant, bs=BS):
-    shape = (n_blocks, bs, KVH, HD)
+def make_pool(gen, n_blocks, quant, bs=BS, kvh=KVH):
+    shape = (n_blocks, bs, kvh, HD)
     if quant:
         k = torch.randint(-127, 128, shape, generator=gen, device="cuda",
                           dtype=torch.int8)
@@ -258,9 +311,10 @@ def make_pool(gen, n_blocks, quant, bs=BS):
 def row_bytes(pool, scale) -> int:
     """Bytes of one position's K (or V) row in the pool: every kv head's
     payload plus, for int8, its f32 scale."""
-    per_row = KVH * HD * pool.element_size()
+    kvh = pool.shape[2]
+    per_row = kvh * HD * pool.element_size()
     if scale is not None:
-        per_row += KVH * 4
+        per_row += kvh * 4
     return per_row
 
 
@@ -332,7 +386,8 @@ def sdpa_yardstick(q, pool, scale, tables, starts, window):
     b, t, h, hd = q.shape
     view, sview = paged_view(pool, scale, tables)
     kv = view.float() if sview is None else dequantize_int8(view, sview)
-    kv = kv.to(q.dtype).repeat_interleave(h // KVH, dim=2).transpose(1, 2)
+    kv = kv.to(q.dtype).repeat_interleave(h // pool.shape[2],
+                                          dim=2).transpose(1, 2)
     kv = kv.contiguous()
     n_keys = kv.shape[2]
     q_pos = starts.long()[:, None] + torch.arange(t, device=q.device)
@@ -360,18 +415,19 @@ def k1_split_kw(pa, splits) -> dict:
     return {"splits": splits}
 
 
-def k1_route(pa, q) -> str:
-    """The route K1 takes for ``q`` in package ``pa`` ("cuda cores" for
-    a package from before the routes had names)."""
+def k1_route(pa, q, kvh) -> str:
+    """The route K1 takes for ``q`` over ``kvh`` kv heads in package
+    ``pa`` ("cuda cores" for a package from before the routes had
+    names)."""
     if not hasattr(pa, "decode_route"):
         return "cuda cores"
-    return pa.decode_route(q.dtype, q.shape[1], q.shape[2] // KVH)
+    return pa.decode_route(q.dtype, q.shape[1], q.shape[2] // kvh)
 
 
-def k1_tol(pa, q, want) -> float:
+def k1_tol(pa, q, kvh, want) -> float:
     """K1's tolerance on ``q``: TRAIN_TOL[bf16] of the output's max on
     the tensor-core route, KERNEL_ATOL on the others."""
-    if k1_route(pa, q) == "tc":
+    if k1_route(pa, q, kvh) == "tc":
         return TRAIN_TOL[torch.bfloat16] * float(want.abs().max())
     return KERNEL_ATOL
 
@@ -388,7 +444,7 @@ def k1_check(tag, pa, args, window, zero_rows, splits=None) -> float:
     want = pa.paged_flash_decode_plain(*args, window=window)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    tol = k1_tol(pa, args[0], want)
+    tol = k1_tol(pa, args[0], args[1].shape[2], want)
     what = f"K1 {tag} window={window} splits={splits or 'chosen'}"
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
     check(not bool(got[zero_rows].any()),
@@ -404,26 +460,28 @@ def k1_phase(tag, pa, args, zero_rows, sweep, windows) -> dict:
     prints one line per window and one of times, and returns the
     record of the wrapper's split."""
     q, pool, _, scale, _, tables, starts = args
+    kvh = pool.shape[2]
     sweep = sweep if hasattr(pa, "decode_split") else ()
     chosen = ""
     if sweep:
         b, t, h, _ = q.shape
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         if hasattr(pa, "decode_plan"):  # tiles of the route it launches
-            _, entries = pa.decode_plan(q.dtype, b, t, h, KVH,
+            _, entries = pa.decode_plan(q.dtype, b, t, h, kvh,
                                         tables.shape[1], sms)
         else:
-            tiles = -(-t * (h // KVH) // pa.Q_TILE_ROWS)
-            entries = pa.decode_split(b * KVH, tiles, tables.shape[1], sms)
+            tiles = -(-t * (h // kvh) // pa.Q_TILE_ROWS)
+            entries = pa.decode_split(b * kvh, tiles, tables.shape[1], sms)
         chosen = (f"; decode_split: {entries} entries a split, "
                   f"{-(-tables.shape[1] // entries)} splits")
-    route = k1_route(pa, q)
+    route = k1_route(pa, q, kvh)
     err = 0.0
     for window in windows:
         errs = [k1_check(tag, pa, args, window, zero_rows, s)
                 for s in (None, *sweep)]
         err = max(err, errs[0])
-        tol = k1_tol(pa, q, pa.paged_flash_decode_plain(*args, window=window))
+        tol = k1_tol(pa, q, kvh,
+                     pa.paged_flash_decode_plain(*args, window=window))
         print(f"K1 {tag} window={window} ({route} route): max_abs_err="
               f"{errs[0]:.3e} at the wrapper's split, {max(errs):.3e} over "
               f"splits {list(sweep)} (tol {tol:.3e}); two launches "
@@ -544,47 +602,61 @@ def kernel_phase() -> dict:
     return record
 
 
-def dense_kernel_phase(pa, gen) -> dict:
-    """K1 and K2 at the main path's shapes: the dense cache of 8 slots x
+def dense_kernel_phase(pa, gen, h=H, kvh=KVH, tag="dense",
+                       suffix="_dense") -> dict:
+    """K1 and K2 at a main path's shapes: the dense cache of 8 slots x
     2048 rows, which the engine hands the kernels as blocks of
     ``DENSE_BS`` rows through a fixed identity table — every slot live
     at decode, contexts 0 to 2047; a 512-token segment for two slots at
-    the prefill.  bf16; returns the records."""
+    the prefill — with ``h`` query and ``kvh`` kv heads.  bf16; returns
+    the records, keyed with ``suffix``."""
     n_blocks = 8 * (MAX_LEN // DENSE_BS)
-    k_pool, v_pool, _, _ = make_pool(gen, n_blocks, False, DENSE_BS)
+    k_pool, v_pool, _, _ = make_pool(gen, n_blocks, False, DENSE_BS, kvh)
     tables = torch.arange(n_blocks, dtype=torch.int32,
                           device="cuda").reshape(8, -1)
     starts = torch.tensor([0, 16, 299, 999, 2047, 776, 1500, 40],
                           dtype=torch.int32, device="cuda")
-    q = torch.randn((8, 1, H, HD), generator=gen,
+    q = torch.randn((8, 1, h, HD), generator=gen,
                     device="cuda").to(torch.bfloat16)
     none = slice(0, 0)  # no all-sentinel slot in a dense cache
-    k1 = k1_phase("decode bf16 dense B=8 t=1", pa,
+    k1 = k1_phase(f"decode bf16 {tag} B=8 t=1", pa,
                   (q, k_pool, v_pool, None, None, tables, starts), none,
                   (1, 4, 16, 32), (0, 256))
-    dk = torch.randn((8, 1, KVH, HD), generator=gen,
+    dk = torch.randn((8, 1, kvh, HD), generator=gen,
                      device="cuda").to(torch.bfloat16)
-    k2d = k2_phase("bf16 dense B=8 t=1", pa, dk, dk.clone(),
+    k2d = k2_phase(f"bf16 {tag} B=8 t=1", pa, dk, dk.clone(),
                    [k_pool.clone(), v_pool.clone()], [None, None], tables,
                    starts)
     t, slots = 512, [2, 5]
     ptables = tables[slots].contiguous()
     pst = torch.tensor([37, 1000], dtype=torch.int32, device="cuda")
-    k_new, v_new = (torch.randn((2, t, KVH, HD), generator=gen,
+    k_new, v_new = (torch.randn((2, t, kvh, HD), generator=gen,
                                 device="cuda").to(torch.bfloat16)
                     for _ in range(2))
-    qp = torch.randn((2, t, H, HD), generator=gen,
+    qp = torch.randn((2, t, h, HD), generator=gen,
                      device="cuda").to(torch.bfloat16)
     pools = [k_pool.clone(), v_pool.clone()]
-    k2 = k2_phase(f"bf16 dense B=2 t={t}", pa, k_new, v_new, pools,
+    k2 = k2_phase(f"bf16 {tag} B=2 t={t}", pa, k_new, v_new, pools,
                   [None, None], ptables, pst)
-    k1t = k1_phase(f"prefill bf16 dense B=2 t={t}", pa,
+    k1t = k1_phase(f"prefill bf16 {tag} B=2 t={t}", pa,
                    (qp, *pools, None, None, ptables, pst), none,
                    PREFILL_SPLITS, (0, 256))
     del k_pool, v_pool, pools
     torch.cuda.empty_cache()
-    return {"K1_dense": k1, "K1t_dense": k1t, "K2_dense": k2,
-            "K2d_dense": k2d}
+    return {"K1" + suffix: k1, "K1t" + suffix: k1t, "K2" + suffix: k2,
+            "K2d" + suffix: k2d}
+
+
+def moe_kernel_phase() -> dict:
+    """K1 and K2 at the MoE serve phase's shapes: the dense cache's
+    64-row blocks with Mixtral's 32 query and 8 kv heads (group 4: K1's
+    decode route holds t·group = 4 of its 8 rows a (slot, kv head), the
+    tall route 2048 rows a (slot, kv head) at t=512)."""
+    from oim_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    return dense_kernel_phase(pa, gen, MOE_H, MOE_KVH,
+                              f"dense H={MOE_H} KVH={MOE_KVH}", "_moe")
 
 
 # ---------------------------------------------------------------------------
@@ -607,31 +679,317 @@ def get(port: int, path: str) -> dict:
         return json.loads(resp.read())
 
 
-def serve_phase(argv, tag: str) -> dict:
+def gib(n_bytes: float) -> float:
+    return n_bytes / 2**30
+
+
+def release() -> None:
+    """Return a finished phase's device memory to the card: what its
+    dropped objects held goes back to the allocator at once (the smoke
+    collects no reference cycles), and the allocator's cache is
+    emptied."""
+    torch.cuda.empty_cache()
+
+
+def free_at_peak() -> float:
+    """GiB of the card free at the allocator's peak since its last reset:
+    free now, plus what the allocator holds now, less what it held at
+    the peak."""
+    free, _ = torch.cuda.mem_get_info()
+    return gib(free + torch.cuda.memory_reserved()
+               - torch.cuda.max_memory_reserved())
+
+
+class WidenedLayers:
+    """The served layers widened to f32 as a forward reaches each one,
+    into one set of f32 buffers reused layer after layer: the f32
+    reference forward over a model too large to copy whole in f32.
+    Widening bf16 to f32 is exact, so the forward computes what it would
+    over a whole f32 copy."""
+
+    def __init__(self, layers):
+        self.layers, self.buffers = layers, {}
+
+    def __len__(self):
+        return len(self.layers)
+
+    def __iter__(self):
+        for lp in self.layers:
+            for name, t in lp.items():
+                if name not in self.buffers:
+                    self.buffers[name] = torch.empty(
+                        t.shape, dtype=torch.float32, device=t.device)
+                self.buffers[name].copy_(t)
+            yield self.buffers
+
+
+def widened(params, cfg):
+    """(params, cfg) of the f32 reference forward over served ``params``:
+    the embedding, final norm and unembedding recast, the layers
+    widened one at a time (``WidenedLayers``)."""
+    from dataclasses import replace
+
+    from oim_tpu_torch.models.transformer import prepare_param
+
+    cfg32 = replace(cfg, dtype="float32")
+    out = {name: prepare_param(name, params[name], cfg32)
+           for name in ("wte", "final_norm", "wlm")}
+    out["layers"] = WidenedLayers(params["layers"])
+    return out, cfg32
+
+
+class RoutingTap:
+    """Within ``with``, every ``_router_gates`` call through ``module``
+    (``models.decode`` for inference, ``models.transformer`` for
+    training) appends its top-k expert choices [G, k], in rank order, to
+    ``choices``.  Given ``forced`` (such a list from another run making
+    the same calls in the same order), call i routes to ``forced[i]``
+    instead, gated from its own probs by the reference's rule, and
+    ``lost[i]`` [G] is the router probability its own top-k holds
+    beyond the forced experts' (0 where they agree, small at a near
+    tie).  A package without MoE has no ``_router_gates``: nothing is
+    recorded."""
+
+    def __init__(self, module, forced=None):
+        self.module, self.forced = module, forced
+        self.choices, self.own, self.lost = [], [], []
+        self.record = getattr(module, "_router_gates", None)
+
+    def __call__(self, probs, k):
+        out = self.record(probs, k)
+        if self.forced is None:
+            self.choices.append(out[1])
+            return out
+        idx = self.forced[len(self.choices)]
+        top = probs.gather(-1, idx)
+        self.choices.append(idx)
+        self.own.append(out[1])
+        self.lost.append((out[0].sum(-1) - top.sum(-1)).detach())
+        return top, idx, top if k == 1 else top / top.sum(-1, keepdim=True)
+
+    def differing(self) -> int:
+        """Rows whose own top-k set is not the forced one."""
+        return sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                   for a, b in zip(self.own, self.choices))
+
+    def most_lost(self) -> float:
+        return max((float(x.max()) for x in self.lost), default=0.0)
+
+    def __enter__(self):
+        if self.record is not None:
+            self.module._router_gates = self
+        return self
+
+    def __exit__(self, *exc):
+        if self.record is not None:
+            self.module._router_gates = self.record
+
+
+def emitted_gap(params, cfg, prompt, gen_toks, forced=None):
+    """Teacher-forced prefill over prompt + emitted tokens (all but the
+    last, which no position reads): (each emitted token's logit below
+    its position's max, its log probability, the ``RoutingTap``)."""
+    from oim_tpu_torch.models import decode as dec
+
+    seq = torch.tensor([prompt + gen_toks[:-1]], device=DEV)
+    with RoutingTap(dec, forced) as tap, torch.no_grad():
+        logits, _ = dec.prefill(params, seq, cfg, seq.shape[1])
+    logits = logits[0, len(prompt) - 1:]  # predicts gen_toks
+    chosen = logits[torch.arange(len(gen_toks)), torch.tensor(gen_toks)]
+    gap = logits.max(dim=-1).values - chosen
+    lp = chosen - torch.logsumexp(logits, dim=-1)
+    return gap.cpu().numpy(), lp.cpu().numpy(), tap
+
+
+class ServedRouting:
+    """The served path's own expert choices, recorded while it serves the
+    phase's requests, so that the f32 forward can be teacher-forced them.
+    Between ``install()`` and ``remove()`` every ``_router_gates`` call
+    through ``models.decode`` is recorded.  An admission's calls (eager:
+    one a layer inside ``_admit_batch``) are kept with its prompts.  A
+    decode pass's calls run inside a chunk's CUDA graph, where a replay
+    runs no Python, so each writes its [S, k] choices into a device log
+    at a device-side counter: three small kernels a layer a pass, which
+    the chunk's capture records (so ``install()`` comes before the engine
+    starts, and the log outlives its graphs).  ``watch(engine)``, after
+    the warmup, sets the counter to 0 and records each decode dispatch
+    (which request sits in which slot, at which position) until
+    ``remove()``; ``choices`` maps the log back to one request."""
+
+    LOG_ROWS = 8192
+
+    def __init__(self, n_slots: int, top_k: int):
+        self.log = torch.zeros((self.LOG_ROWS, n_slots, top_k),
+                               dtype=torch.int64, device=DEV)
+        self.counter = torch.zeros(1, dtype=torch.int64, device=DEV)
+        self.admissions, self.dispatches = [], []
+        self.admitting = None
+
+    def __call__(self, probs, k):
+        out = self.record(probs, k)
+        if self.admitting is not None:
+            self.admitting.append(out[1])
+        else:
+            self.log.index_copy_(0, self.counter.remainder(self.LOG_ROWS),
+                                 out[1][None])
+            self.counter.add_(1)
+        return out
+
+    def _admit_batch(self, params, cache, row_tables, prompts, starts,
+                     true_tails, *rest):
+        self.admitting = []
+        try:
+            return self.admit(params, cache, row_tables, prompts, starts,
+                              true_tails, *rest)
+        finally:
+            self.admissions.append((prompts, true_tails, self.admitting))
+            self.admitting = None
+
+    def install(self) -> None:
+        from oim_tpu_torch.models import decode as dec
+        from oim_tpu_torch.serve import engine as eng
+
+        self.record, dec._router_gates = dec._router_gates, self
+        self.admit, eng._admit_batch = eng._admit_batch, self._admit_batch
+
+    def watch(self, engine) -> None:
+        dispatch = engine._dispatch_chunk
+
+        def recorded(acc, chained):
+            handle = dispatch(acc, chained)
+            self.dispatches.append(handle)
+            return handle
+
+        self.chunk, self.n_layers = engine.chunk, engine.cfg.n_layers
+        self.admissions.clear()
+        self.counter.zero_()
+        engine._dispatch_chunk = recorded
+
+    def remove(self, engine=None) -> None:
+        from oim_tpu_torch.models import decode as dec
+        from oim_tpu_torch.serve import engine as eng
+
+        dec._router_gates, eng._admit_batch = self.record, self.admit
+        if engine is not None and "_dispatch_chunk" in vars(engine):
+            del engine._dispatch_chunk  # the closure holds the engine
+        self.rows = int(self.counter)
+        self.logged = self.log[:min(self.rows, self.LOG_ROWS)].cpu()
+
+    def choices(self, prompt, n: int) -> list:
+        """The served choices of the request with ``prompt`` and ``n``
+        emitted tokens: layer i's [P + n - 1, k] over the prompt (its
+        admission's rows) and the emitted tokens but the last (each read
+        by one decode pass of the request's slot), in layer order."""
+        L, chunk, p = self.n_layers, self.chunk, len(prompt)
+        check(self.rows == len(self.dispatches) * chunk * L
+              and self.rows <= self.LOG_ROWS,
+              f"the decode log holds {self.rows} rows, not "
+              f"{len(self.dispatches)} dispatches x {chunk} x {L} layers")
+        admitted = None
+        for prompts, tails, calls in self.admissions:
+            prompts, tails = prompts.cpu(), tails.cpu()
+            for i in range(prompts.shape[0]):
+                if (int(tails[i]) == p
+                        and prompts[i, :p].tolist() == list(prompt)):
+                    bucket = prompts.shape[1]
+                    admitted = [c[i * bucket:i * bucket + p].cpu()
+                                for c in calls]
+        check(admitted is not None and len(admitted) == L,
+              f"no admission of {L} layers recorded for a {p}-token prompt")
+        rows = {}
+        for d, handle in enumerate(self.dispatches):
+            for slot, state in handle.snapshot.items():
+                if list(state.req.tokens) != list(prompt):
+                    continue
+                for i in range(chunk):
+                    pos = int(handle.starts[slot]) + i
+                    if p <= pos < p + n - 1:
+                        check(pos not in rows, f"position {pos} decoded twice")
+                        base = (d * chunk + i) * L
+                        rows[pos] = self.logged[base:base + L, slot]
+        missing = [q for q in range(p, p + n - 1) if q not in rows]
+        check(not missing, f"no decode pass recorded for positions {missing}")
+        decoded = [torch.stack([rows[q][layer] for q in range(p, p + n - 1)])
+                   if n > 1 else admitted[layer][:0] for layer in range(L)]
+        return [torch.cat([a, d_]).to(DEV)
+                for a, d_ in zip(admitted, decoded)]
+
+    def decode_passes(self) -> int:
+        return self.rows // max(self.n_layers, 1)
+
+
+def plant_route_control(layers) -> list | None:
+    """With ``--route-control``, plant a router fault into ``layers`` in
+    place (the router widened from bf16, or layer 0 routed by layer 1's
+    router) and return the routers as they were, to be put back with
+    ``restore_routers``; without it, None."""
+    if ROUTE_CONTROL is None:
+        return None
+    saved = [lp["router"].detach().clone() for lp in layers]
+    with torch.no_grad():
+        if ROUTE_CONTROL == "bf16":
+            for lp, router in zip(layers, saved):
+                lp["router"].copy_(router.to(torch.bfloat16))
+        else:
+            layers[0]["router"].copy_(saved[1])
+    return saved
+
+
+def restore_routers(layers, saved) -> None:
+    if saved is not None:
+        with torch.no_grad():
+            for lp, router in zip(layers, saved):
+                lp["router"].copy_(router)
+
+
+def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
     """Serve six concurrent requests through the port's serve_main entry
     with ``argv`` and check lengths, drain, kernel counters (reset just
     before the requests, read just after) and a teacher-forced f32
-    reference; on an engine that replays CUDA graphs, also that every
-    decode dispatch was one replay, then ``graph_check``.  Returns the
-    run's kernel launch counts with its times to first token and decode
-    rate."""
+    reference (``teacher_check``); on an engine that replays CUDA graphs,
+    also that
+    every decode dispatch was one replay, then ``graph_check``.  Prints
+    the memory the card had free at the serving peak (weights, cache,
+    admission transients, graph pool), which must reach ``min_free_gib``
+    when given.  Returns the run's kernel launch counts with its times
+    to first token, decode rate and memory."""
     from oim_tpu_torch.cli import serve_main
-    from oim_tpu_torch.models.decode import prefill
-    from oim_tpu_torch.models.weights import recast
     from oim_tpu_torch.ops import paged_attention as pa
 
     args = serve_main.build_parser().parse_args(argv)
+    moe = bool(getattr(args, "n_experts", 0))
+    routing = ServedRouting(args.n_slots, args.moe_top_k) if moe else None
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    server = serve_main.start_server(args)
+    if routing is not None:
+        routing.install()  # before the engine captures its graphs
+    try:
+        server = serve_main.start_server(args)
+    except BaseException:
+        if routing is not None:
+            routing.remove()
+        raise
     engine = server.engine
     info = engine.info()["engine"]
     graphs = bool(info.get("cuda_graphs"))
+    planted = None
+    if routing is not None:
+        routing.watch(engine)
+        planted = plant_route_control(engine.params["layers"])
     try:
+        started = engine.stats()
         print(f"serve {tag}: started in {time.monotonic() - t0:.1f} s "
-              f"(weights, warmup{', graph capture' if graphs else ''}); "
-              f"paged {info['paged']}, kv_block {info['kv_block']}, "
+              f"(weights, warmup{', graph capture' if graphs else ''}; "
+              f"warmup {started.get('warmup_seconds', float('nan')):.1f} s "
+              f"of which graph capture "
+              f"{started.get('graph_capture_seconds', float('nan')):.1f} s);"
+              f" paged {info['paged']}, kv_block {info['kv_block']}, "
               f"pipeline depth {info.get('pipeline_depth', 1)}, cuda graphs "
-              f"{graphs}", flush=True)
+              f"{graphs}; {args.n_layers} layers, "
+              f"{engine.n_params / 1e9:.2f} B parameters, "
+              f"{gib(torch.cuda.memory_allocated()):.1f} GiB allocated",
+              flush=True)
         vocab = args.vocab_size
         rng = np.random.RandomState(1)
         lens = [16, 100, 300, 513, 777, 1000]
@@ -723,49 +1081,115 @@ def serve_phase(argv, tag: str) -> dict:
               f"decode {dec_rate:.1f} tok/s over {stats['decode_tokens']} "
               f"tokens in {stats['decode_seconds']:.3f} s; prefill "
               f"{stats['prefill_seconds']:.3f} s [{SMI}]", flush=True)
-        # Teacher-forced f32 reference over the served weights.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        params32, cfg32 = recast(engine.params, engine.cfg, "float32")
-        n_delta = n_pos = 0
-        worst_lp = 0.0
-        for body, (_, reply) in zip(bodies[:2] + bodies[3:4],
-                                    replies[:2] + replies[3:4]):
-            prompt, gen_toks = body["tokens"], reply["tokens"]
-            seq = torch.tensor([prompt + gen_toks], device="cuda")
-            with torch.no_grad():
-                logits, _ = prefill(params32, seq, cfg32, seq.shape[1])
-            logits = logits[0, len(prompt) - 1: -1]  # predicts gen_toks
-            lse = torch.logsumexp(logits, dim=-1)
-            top = logits.max(dim=-1).values
-            chosen = logits[torch.arange(len(gen_toks)), torch.tensor(gen_toks)]
-            gap = (top - chosen).cpu().numpy()
-            check(bool((gap <= DELTA).all()),
-                  f"emitted token's reference logit {gap.max():.3f} below "
-                  f"the max (δ {DELTA})")
-            n_delta += int((gap > 0).sum())
-            n_pos += len(gen_toks)
-            lp_ref = (chosen - lse).cpu().numpy()
-            worst_lp = max(worst_lp, float(np.abs(
-                lp_ref - np.asarray(reply["logprobs"])).max()))
-            del logits
-        check(worst_lp <= LOGPROB_ATOL,
-              f"engine logprobs off the f32 reference by {worst_lp:.3f}")
-        print(f"serve {tag}: teacher-forced f32 check over {n_pos} "
-              f"positions: {n_delta} needed δ={DELTA} (rest exact argmax); "
-              f"max |logprob - ref| {worst_lp:.4f} (tol {LOGPROB_ATOL})",
-              flush=True)
-        del params32
+        serving_peak = torch.cuda.max_memory_allocated()
+        serving_free = free_at_peak()
         counts["ttft_ms"] = {"lone_512": ttft * 1e3,
                              "concurrent_p50": stats["ttft_p50_s"] * 1e3}
         counts["decode_tok_s"] = dec_rate
+        counts["warmup_s"] = stats.get("warmup_seconds")
+        counts["capture_s"] = stats.get("graph_capture_seconds")
     finally:
+        if routing is not None:
+            routing.remove(engine)
+            restore_routers(engine.params["layers"], planted)
         server.stop()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"serve {tag}: serving peak {gib(serving_peak):.1f} GiB allocated "
+          f"of {gib(total):.1f} GiB; {serving_free:.1f} GiB of the card free "
+          f"at the peak (weights, cache, admission transients, graph pool) "
+          f"[{SMI}]", flush=True)
+    checked = [(body, reply) for i, (body, (_, reply)) in
+               enumerate(zip(bodies, replies)) if i != 2]  # greedy ones
+    counts["routing_differences"] = teacher_check(engine, checked, tag,
+                                                  routing)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     if graphs:
         graph_check(engine, vocab, rng)
+        print(f"serve {tag}: the graph check's peak "
+              f"{gib(torch.cuda.max_memory_allocated()):.1f} GiB allocated, "
+              f"{free_at_peak():.1f} GiB free", flush=True)
+    if min_free_gib is not None:
+        check(serving_free >= min_free_gib,
+              f"{serving_free:.1f} GiB free at the serving peak, under "
+              f"{min_free_gib} GiB")
+    counts["peak_gib"] = gib(serving_peak)
+    counts["free_at_peak_gib"] = serving_free
+    held = torch.cuda.memory_allocated()
     del engine, server
-    torch.cuda.empty_cache()
+    release()
+    print(f"serve {tag}: {gib(held):.1f} GiB allocated with the server "
+          f"stopped, {gib(torch.cuda.memory_allocated()):.2f} GiB once it "
+          f"and its engine are dropped", flush=True)
+    check(torch.cuda.memory_allocated() - base < 2**30,
+          "a stopped server kept its engine's memory")
     return counts
+
+
+def teacher_check(engine, checked, tag: str, routing=None) -> list:
+    """Each greedy reply of ``checked`` (body, reply), as served,
+    teacher-forced through an f32 forward over the served weights
+    (widened one layer at a time): every emitted token within δ of its
+    position's max logit, logprobs within ``LOGPROB_ATOL``.  An MoE
+    model's routing is discontinuous — a near tie that rounds the other
+    way in bf16 changes a token's experts, and that token's logits by
+    O(0.1-1) — so the f32 forward is also teacher-forced the served
+    path's own expert choices (``routing``, a ``ServedRouting``: the
+    admissions' and the graph-replayed decode passes'), which must be the
+    f32 router's own or a near tie's (at most ``ROUTE_TIE`` of router
+    probability from its top-k).  The f32 forward routing freely is
+    reported beside.  Returns [pairs whose choices differ from the f32
+    router's, (layer, position) pairs]."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params32, cfg32 = widened(engine.params, engine.cfg)
+    n_delta = n_pos = n_flips = n_choices = n_free = 0
+    worst_lp = worst_lost = worst_gap = free_gap = 0.0
+    for body, reply in checked:
+        prompt, forced = body["tokens"], None
+        gen_toks, lps = reply["tokens"], reply["logprobs"]
+        if routing is not None:
+            forced = routing.choices(prompt, len(gen_toks))
+            free = emitted_gap(params32, cfg32, prompt, gen_toks)[0]
+            n_free += int((free > DELTA).sum())
+            free_gap = max(free_gap, float(free.max()))
+        gap, lp_ref, tap = emitted_gap(params32, cfg32, prompt, gen_toks,
+                                       forced)
+        n_flips += tap.differing()
+        n_choices += sum(c.shape[0] for c in tap.choices)
+        worst_lost = max(worst_lost, tap.most_lost())
+        worst_gap = max(worst_gap, float(gap.max()))
+        n_delta += int((gap > 0).sum())
+        n_pos += len(gen_toks)
+        worst_lp = max(worst_lp, float(np.abs(lp_ref - np.asarray(lps)).max()))
+    routed = ""
+    if routing is not None:
+        routed = (f"; the served path's own expert choices (its admissions' "
+                  f"and {routing.decode_passes()} graph-replayed decode "
+                  f"passes', recorded as it served) teacher-forced: they "
+                  f"differ from the f32 router's own in {n_flips} of "
+                  f"{n_choices} (layer, position) pairs, giving up at most "
+                  f"{worst_lost:.4f} of router probability (tol "
+                  f"{ROUTE_TIE}); routing freely, the f32 forward puts "
+                  f"{n_free} emitted tokens over δ (the largest "
+                  f"{free_gap:.3f} below its max)")
+    print(f"serve {tag}: teacher-forced f32 check of {len(checked)} replies "
+          f"as served, {n_pos} positions (the f32 forward widening one "
+          f"layer at a time): {n_delta} needed δ={DELTA} (rest exact "
+          f"argmax), the largest {worst_gap:.3f}; max |logprob - ref| "
+          f"{worst_lp:.4f} (tol {LOGPROB_ATOL}){routed}; its peak "
+          f"{gib(torch.cuda.max_memory_allocated()):.1f} GiB allocated",
+          flush=True)
+    check(worst_gap <= DELTA,
+          f"an emitted token's reference logit is {worst_gap:.3f} below "
+          f"the max (δ {DELTA}); expert choices differing {n_flips} of "
+          f"{n_choices}, most router probability given up {worst_lost:.4f}")
+    check(worst_lp <= LOGPROB_ATOL,
+          f"engine logprobs off the f32 reference by {worst_lp:.3f}")
+    check(worst_lost <= ROUTE_TIE,
+          f"the served path routes {worst_lost:.4f} of router probability "
+          f"away from the f32 top-k: not a near tie")
+    return [n_flips, n_choices]
 
 
 def graph_check(engine, vocab: int, rng) -> None:
@@ -1294,21 +1718,45 @@ def step_grads(params, tokens, cfg):
     return float(obj.detach()), grads
 
 
-def step_parity(args) -> None:
-    """The kernel path's first step (bf16, then f32) against a plain f32
-    path (``use_pallas=False``: the reference formulas) on the same
-    weights and batch: the loss gap and each gradient's relative error
-    within the stated tolerances."""
+def grad_gap(names, grads, ref_grads) -> tuple[float, str]:
+    """(the largest ||g - g_ref|| / ||g_ref|| over the tensors, its
+    name); every gradient must be finite."""
+    worst, worst_name = 0.0, ""
+    for tname, g, g_ref in zip(names, grads, ref_grads):
+        check(bool(torch.isfinite(g).all()), f"{tname} grad non-finite")
+        rel = float(torch.linalg.vector_norm(g.float() - g_ref)
+                    / torch.linalg.vector_norm(g_ref).clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, tname
+    return worst, worst_name
+
+
+def step_parity(args, tag: str = "train",
+                dtypes=(torch.bfloat16, torch.float32)) -> None:
+    """The kernel path's first step (in each of ``dtypes``) against a
+    plain f32 path (``use_pallas=False``: the reference formulas) on the
+    same weights and batch: the loss gap and each gradient's relative
+    error (an MoE model's router and experts included) within the stated
+    tolerances.  An MoE model's routing is discontinuous (a near tie
+    that rounds the other way moves a token to other experts, and with
+    capacity shifts the queue behind it), so the plain path is
+    teacher-forced the kernel path's expert choices (``RoutingTap``),
+    which must be its own or a near tie's (``ROUTE_TIE``); the plain
+    path routing freely is reported beside.  No optimizer exists
+    meanwhile: the masters and at most four sets of gradients are all
+    it holds."""
     from dataclasses import replace
 
     from oim_tpu_torch.cli import train_main
     from oim_tpu_torch.data.loader import TokenBatches
+    from oim_tpu_torch.models import transformer
     from oim_tpu_torch.models.train import named_parameters
     from oim_tpu_torch.models.transformer import init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = train_main.make_config(args)
+    moe = bool(getattr(cfg, "n_experts", 0))
     batches = TokenBatches(train_main._load_corpus(args), args.batch_global,
                            args.seq, seed=args.seed)
     tokens = torch.from_numpy(batches.batch_at(0)[:, :args.seq]).long().to(DEV)
@@ -1317,29 +1765,43 @@ def step_parity(args) -> None:
     for _, value in named_parameters(params):
         value.requires_grad_(True)
     plain_cfg = replace(cfg, dtype="float32", use_pallas=False)
-    ref_loss, ref_grads = step_grads(params, tokens, plain_cfg)
-    for dtype, name in ((torch.bfloat16, "bfloat16"),
-                        (torch.float32, "float32")):
-        loss, grads = step_grads(params, tokens, replace(cfg, dtype=name))
-        worst, worst_name = 0.0, ""
-        for tname, g, g_ref in zip(names, grads, ref_grads):
-            check(bool(torch.isfinite(g).all()), f"{tname} grad non-finite")
-            rel = float(torch.linalg.vector_norm(g.float() - g_ref)
-                        / torch.linalg.vector_norm(g_ref).clamp_min(1e-30))
-            if rel > worst:
-                worst, worst_name = rel, tname
+    free_loss, free_grads = step_grads(params, tokens, plain_cfg)
+    for dtype in dtypes:
+        name = str(dtype).removeprefix("torch.")
+        planted = plant_route_control(params["layers"]) if moe else None
+        with RoutingTap(transformer) as tap:
+            loss, grads = step_grads(params, tokens, replace(cfg, dtype=name))
+        restore_routers(params["layers"], planted)
+        routed = ""
+        ref_loss, ref_grads = free_loss, free_grads
+        if moe:
+            free = grad_gap(names, grads, free_grads)
+            with RoutingTap(transformer, tap.choices) as forced:
+                ref_loss, ref_grads = step_grads(params, tokens, plain_cfg)
+            rows = sum(c.shape[0] for c in forced.choices)
+            routed = (f"; the plain path teacher-forced the kernel path's "
+                      f"expert choices, which differ from its own in "
+                      f"{forced.differing()} of {rows} (call, token) rows, "
+                      f"giving up at most {forced.most_lost():.4f} of router "
+                      f"probability (tol {ROUTE_TIE}); routing freely: loss "
+                      f"|diff| {abs(loss - free_loss):.2e}, worst gradient "
+                      f"{free[0]:.3e} at {free[1]}")
+            check(forced.most_lost() <= ROUTE_TIE,
+                  f"{name} kernel path routes {forced.most_lost():.4f} of "
+                  f"router probability away from the plain top-k")
+        worst, worst_name = grad_gap(names, grads, ref_grads)
         gap = abs(loss - ref_loss)
-        print(f"train: first step, {name} kernel path vs plain f32: loss "
+        print(f"{tag}: first step, {name} kernel path vs plain f32: loss "
               f"{loss:.5f} vs {ref_loss:.5f} (|diff| {gap:.2e}, tol "
               f"{STEP_LOSS_ATOL[dtype]}); worst gradient "
               f"||g - g_ref||/||g_ref|| {worst:.3e} at {worst_name} (tol "
-              f"{STEP_GRAD_RTOL[dtype]})", flush=True)
+              f"{STEP_GRAD_RTOL[dtype]}){routed}", flush=True)
         check(gap <= STEP_LOSS_ATOL[dtype], f"{name} first-step loss gap "
               f"{gap:.3e}")
         check(worst <= STEP_GRAD_RTOL[dtype], f"{name} gradient of "
               f"{worst_name} off by {worst:.3e}")
-        del grads
-    del params, ref_grads
+        del grads, ref_grads
+    del params, free_grads
     torch.cuda.empty_cache()
 
 
@@ -1376,6 +1838,32 @@ def train_steps():
     return args, result, counts
 
 
+def check_train_counts(counts: dict, steps: int, args) -> dict:
+    """Check a training run's kernel launches against its formulas and
+    return them.  Per step: the forward and the remat recompute each run
+    both norms and the attention of every layer (an MoE layer's norm
+    too); the final norm runs once; the backward runs dq and dkv once per
+    layer; the loss runs the fused unembed+CE forward and the joint
+    backward (dx and dw from one dlogits pass) once per microbatch, on
+    the wgmma route, and never dx or dw apart; no plain version runs."""
+    n_layers, micro = args.n_layers, steps * args.grad_accum
+    want = {"rmsnorm": steps * (4 * n_layers + 1),
+            "flash_fwd": steps * 2 * n_layers,
+            "flash_dq": steps * n_layers,
+            "flash_dkv": steps * n_layers,
+            "fused_ce_fwd": micro, "fused_ce_bwd": micro,
+            "fused_ce_dx": 0, "fused_ce_dw": 0}
+    for name, n in want.items():
+        check(counts[name] == n, f"{name} launched {counts[name]} times, "
+              f"expected {n}")
+        check(counts[f"{name}_plain"] == 0,
+              f"{name}'s plain version ran on the training path")
+    check(counts["fused_ce_wgmma"] == 2 * micro
+          and counts["fused_ce_mma_sync"] == 0,
+          f"fused-CE routes {counts}: the training shape must take wgmma")
+    return want
+
+
 def train_phase(record: dict) -> dict:
     """Train Qwen2.5-1.5B at full width for ``TRAIN_STEPS`` steps through
     the port's train_main entry and check the losses, the kernels'
@@ -1387,27 +1875,7 @@ def train_phase(record: dict) -> dict:
     check(len(losses) == TRAIN_STEPS, f"{len(losses)} steps ran")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    n_layers = args.n_layers
-    # Per step: the forward and the remat recompute each run both norms
-    # and the attention of every layer; the final norm runs once; the
-    # backward runs dq and dkv once per layer; the loss runs the fused
-    # unembed+CE forward and the joint backward (dx and dw from one
-    # dlogits pass) once per microbatch, and never dx or dw apart.
-    micro = TRAIN_STEPS * args.grad_accum
-    want = {"rmsnorm": TRAIN_STEPS * (4 * n_layers + 1),
-            "flash_fwd": TRAIN_STEPS * 2 * n_layers,
-            "flash_dq": TRAIN_STEPS * n_layers,
-            "flash_dkv": TRAIN_STEPS * n_layers,
-            "fused_ce_fwd": micro, "fused_ce_bwd": micro,
-            "fused_ce_dx": 0, "fused_ce_dw": 0}
-    for name, n in want.items():
-        check(counts[name] == n, f"{name} launched {counts[name]} times, "
-              f"expected {n}")
-        check(counts[f"{name}_plain"] == 0,
-              f"{name}'s plain version ran on the training path")
-    check(counts["fused_ce_wgmma"] == 2 * micro
-          and counts["fused_ce_mma_sync"] == 0,
-          f"fused-CE routes {counts}: the training shape must take wgmma")
+    want = check_train_counts(counts, TRAIN_STEPS, args)
     # Steady steps (the first pays warm-up); the kernels' share of one.
     steady = result["step_seconds"][1:]
     step_s = float(np.median(steady))
@@ -1423,6 +1891,165 @@ def train_phase(record: dict) -> dict:
     del result
     torch.cuda.empty_cache()
     step_parity(args)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# MoE phases
+
+
+def moe_train_kernels() -> None:
+    """RMSNorm, the three flash kernels and fused CE at the MoE training
+    shapes (bf16: rows 2 x 1024 of width 4096; flash B=2, T=1024, 32 / 8
+    heads, group 4, so dkv sums 4 q heads a kv head; fused CE at V =
+    32000, one partial chunk of the wgmma route's 32768 columns), held
+    against their plain versions (and flash once in f32), then timed."""
+    import torch.nn.functional as F
+
+    from oim_tpu_torch.ops import flash_attention as fa
+    from oim_tpu_torch.ops import fused_ce as fc
+    from oim_tpu_torch.ops import rmsnorm as rn
+
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    b, t = MOE_TRAIN_B, TRAIN_T
+    rows = b * t
+    x = torch.randn((rows, MOE_D), generator=gen,
+                    device=DEV).to(torch.bfloat16)
+    w = torch.rand(MOE_D, generator=gen, device=DEV) + 0.5
+    err, rel = rel_err(rn.rmsnorm_fwd(x, w, 1e-5), rn.rmsnorm_plain(x, w,
+                                                                   1e-5))
+    check(rel <= TRAIN_TOL[torch.bfloat16], f"rmsnorm MoE disagrees: {rel}")
+    print(f"rmsnorm MoE bf16 [{rows}, {MOE_D}]: max_abs_err={err:.3e} "
+          f"rel={rel:.3e}; {time_ms(lambda: rn.rmsnorm_fwd(x, w, 1e-5)):.4f}"
+          f" ms (F.rms_norm {time_ms(lambda: F.rms_norm(x, (MOE_D,), w.to(x.dtype), 1e-5)):.4f}) [{SMI}]",
+          flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, do = (torch.randn((b, t, MOE_H, HD), generator=gen,
+                             device=DEV).to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, t, MOE_KVH, HD), generator=gen,
+                            device=DEV).to(dtype) for _ in range(2))
+        check_flash(f"{str(dtype)[6:]} MoE B={b} T={t} H={MOE_H} "
+                    f"KVH={MOE_KVH}", q, k, v, do, 0, None)
+    out, lse = fa.flash_fwd_plain(q, k, v, True, 0, None)
+    bwd = (q, k, v, do, lse, fa.flash_delta(out, do), True, 0, None)
+    qh, kh, vh = (x_.transpose(1, 2).contiguous() for x_ in (q, k, v))
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True))
+    print(f"flash MoE bf16 B={b} T={t} H={MOE_H} KVH={MOE_KVH}: fwd "
+          f"{time_ms(lambda: fa.flash_fwd(q, k, v, True, 0, None)):.4f} ms "
+          f"(SDPA forward {sdpa:.4f}), dq "
+          f"{time_ms(lambda: fa.flash_dq(*bwd)):.4f}, dkv "
+          f"{time_ms(lambda: fa.flash_dkv(*bwd)):.4f} [{SMI}]", flush=True)
+    del q, k, v, do, out, lse, bwd, qh, kh, vh
+    xc, wc, labels, g = ce_case(gen, torch.bfloat16, rows, MOE_D, MOE_VOCAB)
+    check(fc.route(xc, wc) == "wgmma"
+          and fc.chunk_columns(rows, MOE_VOCAB) >= MOE_VOCAB,
+          "fused CE at the MoE shape must take wgmma in one chunk")
+    before = fc.counters()["fused_ce_wgmma"]
+    tag = f"bf16 MoE N={rows} D={MOE_D} V={MOE_VOCAB}"
+    check_ce(tag, xc, wc, labels, g)
+    check(fc.counters()["fused_ce_wgmma"] - before == 4,
+          "fused CE at the MoE shape left the wgmma route")
+    lse, _ = fc.fused_ce_fwd_plain(xc, wc, labels)
+    print(f"fused_ce {tag}: fwd "
+          f"{time_ms(lambda: fc.fused_ce_fwd(xc, wc, labels)):.4f} ms, joint "
+          f"backward {time_ms(lambda: fc.fused_ce_bwd(xc, wc, labels, lse, g)):.4f}"
+          f" ms (cuBLAS x @ w {time_ms(lambda: xc @ wc):.4f}) [{SMI}]",
+          flush=True)
+    del xc, wc, labels, g, lse
+    torch.cuda.empty_cache()
+
+
+def moe_train_phase() -> dict:
+    """Train the MoE model at Mixtral's widths, 2 layers, batch 2 x 1024,
+    f32 masters with bf16 compute and the router z-loss on, through the
+    port's train_main entry: finite losses, an aux above 0 every step,
+    the launch formulas at L = 2, and the first step against a plain f32
+    path.  Returns the run's launch counts."""
+    from oim_tpu_torch.cli import train_main
+    from oim_tpu_torch.ops import flash_attention as fa
+    from oim_tpu_torch.ops import fused_ce as fc
+    from oim_tpu_torch.ops import rmsnorm as rn
+
+    moe_train_kernels()
+    args = train_main.build_parser().parse_args(MOE_TRAIN_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (rn, fa, fc):
+        mod.reset_counters()
+    t0 = time.monotonic()
+    result = train_main.train(args)
+    wall = time.monotonic() - t0
+    counts = {**rn.counters(), **fa.counters(), **fc.counters()}
+    losses, aux = result["losses"], result["aux"]
+    print(f"moe train: {len(losses)} steps of {args.batch_global}x{args.seq}"
+          f" at {args.n_layers} layers in {wall:.1f} s (setup included); "
+          f"losses {[round(x_, 4) for x_ in losses]}; aux "
+          f"{[round(a, 4) for a in aux]}; step walls "
+          f"{[round(t_ * 1e3, 1) for t_ in result['step_seconds']]} ms; "
+          f"kernel counts {counts}; peak memory "
+          f"{gib(torch.cuda.max_memory_allocated()):.1f} GiB [{SMI}]",
+          flush=True)
+    check(len(losses) == MOE_TRAIN_STEPS, f"{len(losses)} MoE steps ran")
+    check(all(np.isfinite(losses)), f"non-finite MoE loss: {losses}")
+    check(all(np.isfinite(aux)) and min(aux) > 0, f"MoE aux {aux}")
+    check_train_counts(counts, MOE_TRAIN_STEPS, args)
+    del result
+    torch.cuda.empty_cache()
+    # bf16 compute only: in f32 a 4096-wide row is 16384 bytes, over the
+    # RMSNorm kernel's 8192 (ops/rmsnorm.py MAX_ROW_BYTES; ROADMAP Queue
+    # C2), so the f32 kernel path does not run at this width.
+    print(f"moe train: the f32 kernel path is not checked: a row of "
+          f"{MOE_D} f32 is {4 * MOE_D} bytes, over the RMSNorm kernel's "
+          f"{rn.MAX_ROW_BYTES}", flush=True)
+    step_parity(args, "moe train", (torch.bfloat16,))
+    return counts
+
+
+def route_control(control: str) -> int:
+    """The MoE serve phase and the MoE training's first-step parity with
+    the router fault ``control`` planted (``plant_route_control``) on the
+    served and the kernel path only: each must fail its checks.  Prints
+    what each failure read; 1 when both failed, 0 when one passed."""
+    from oim_tpu_torch.cli import train_main
+
+    global ROUTE_CONTROL
+    ROUTE_CONTROL = control
+    caught = {}
+    try:
+        serve_phase(MOE_SERVE_ARGS, f"moe, router control {control}")
+    except SmokeFailure as exc:
+        caught["serve"] = str(exc)
+    release()
+    check(torch.cuda.memory_allocated() < 2**30,
+          "the failed serve phase still holds its engine")
+    args = train_main.build_parser().parse_args(MOE_TRAIN_ARGS)
+    try:
+        step_parity(args, f"moe train, router control {control}",
+                    (torch.bfloat16,))
+    except SmokeFailure as exc:
+        caught["train"] = str(exc)
+    for phase in ("serve", "train"):
+        print(f"router control {control}: the {phase} check "
+              f"{'failed: ' + caught[phase] if phase in caught else 'PASSED'}",
+              flush=True)
+    return int(len(caught) == 2)
+
+
+def moe_phases(record: dict) -> dict:
+    """K1/K2 at the MoE model's heads (into ``record``), then its serve
+    and train phases, on a card the earlier phases left empty.  Returns
+    the serve phase's counts."""
+    release()
+    held = torch.cuda.memory_allocated()
+    print(f"moe: {gib(held):.2f} GiB allocated before the MoE phases",
+          flush=True)
+    check(held < 2**30, f"earlier phases still hold {gib(held):.1f} GiB")
+    record.update(moe_kernel_phase())
+    counts = serve_phase(MOE_SERVE_ARGS, "moe", MOE_FREE_GIB)
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"the MoE serve phase still holds {gib(held):.1f} "
+          f"GiB")
+    counts["train"] = moe_train_phase()
     return counts
 
 
@@ -1601,6 +2228,18 @@ def parse_args(argv):
         help="build the kernels and run only the training configuration's "
              "steps, printing their walls and peak memory as the last line")
     only.add_argument(
+        "--moe-phase-only", action="store_true",
+        help="build the kernels and run only the MoE phases (K1/K2 at the "
+             "MoE model's heads, its serve and train phases), printing "
+             "their counts as the last line")
+    only.add_argument(
+        "--route-control", choices=("bf16", "swap"),
+        help="plant a router fault in the MoE serve phase's engine and the "
+             "MoE training's kernel path (the router rounded to bf16, or "
+             "layer 0 routed by layer 1's router), run those two checks "
+             "with the references left sound, and fail as the smoke must: "
+             "exit 1 when both checks caught it, 0 when one passed")
+    only.add_argument(
         "--serve-phase-only", action="store_true",
         help="build the kernels and run only the serve phase, printing its "
              "kernel counts and times to first token as the last line")
@@ -1673,6 +2312,14 @@ def main(argv=None) -> int:
                                           "paged")
         print(json.dumps({"package": package, "serve": served}), flush=True)
         return 0
+    if args.route_control:
+        return route_control(args.route_control)
+    if args.moe_phase_only:
+        record = {}
+        moe = moe_phases(record)
+        print(json.dumps({"package": package, "moe": moe,
+                          "kernel_phase": record}), flush=True)
+        return 0
     record = kernel_phase()
     if args.kernel_phase_only:
         compared = compare_phase()
@@ -1695,6 +2342,7 @@ def main(argv=None) -> int:
         counts["fused_ce_dx"] = ckpt_lora_phase(work)["fused_ce_dx"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    moe_counts = moe_phases(record)
     sources = {"rmsnorm": ("oim_tpu_torch/csrc/rmsnorm.cu",
                            "oim_tpu/ops/rmsnorm.py:27"),
                "flash_fwd": ("oim_tpu_torch/csrc/flash_attention.cu",
@@ -1748,6 +2396,10 @@ def main(argv=None) -> int:
     ) + paged_rows(
         "paged pool, 16-row blocks: --kv-block 16 --pipeline-depth 1",
         paged_counts, "",
+    ) + paged_rows(
+        f"dense cache, 64-row blocks, H {MOE_H} / KVH {MOE_KVH}: the MoE "
+        f"serve phase, Mixtral-8x7B widths at {MOE_LAYERS} layers",
+        moe_counts, "_moe",
     ) + [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=counts[name], **record[name])

@@ -15,6 +15,16 @@ Usage (full-width Qwen2.5-1.5B geometry on one H100):
 Then:
     curl -s localhost:8000/v1/generate -d \\
         '{"tokens": [1,2,3], "max_new_tokens": 8}'
+
+An MoE model (``--n-experts E --moe-top-k k``: every token drop-free
+through its top-k of E experts) serves the same way, e.g. Mixtral-8x7B's
+widths with 24 of its 32 layers (one H100's worth):
+    python -m oim_tpu_torch.cli.serve_main \\
+        --vocab-size 32000 --d-model 4096 --n-layers 24 --n-heads 32 \\
+        --n-kv-heads 8 --d-ff 14336 --n-experts 8 --moe-top-k 2 \\
+        --rope-theta 1000000 --norm-eps 1e-5 --dtype bfloat16 \\
+        --n-slots 8 --max-len 2048 --chunk 8 --port 8000
+``--tp``/``--ep`` above 1 (sharded serving) are refused.
 """
 
 from __future__ import annotations
@@ -62,6 +72,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-heads", type=int, default=8)
     p.add_argument("--n-kv-heads", type=int, default=0)
     p.add_argument("--d-ff", type=int, default=0)
+    p.add_argument("--n-experts", type=int, default=0,
+                   help="MoE experts per layer (0 = a dense MLP)")
+    p.add_argument("--moe-top-k", type=int, default=1,
+                   help="experts per token (k >= 2 renormalises the gates "
+                   "over the chosen experts)")
     p.add_argument("--rope-theta", type=float, default=10000.0)
     p.add_argument(
         "--sliding-window", type=int, default=0,
@@ -95,6 +110,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--dtype", default="bfloat16")
     # Engine shape.
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ways (refused above 1: one device)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel ways for MoE serving (refused "
+                   "above 1: one device)")
     p.add_argument("--n-slots", type=int, default=8)
     p.add_argument("--max-len", type=int, default=1024)
     p.add_argument("--chunk", type=int, default=8)
@@ -158,6 +178,12 @@ def make_engine(args, cuda_graphs: bool = True) -> Engine:
     ``--device cpu`` fails before any work), then weights and engine.
     ``cuda_graphs=False`` dispatches decode chunks eagerly: a
     measurement's A/B control, deliberately not a serving flag."""
+    for axis in ("tp", "ep"):
+        if getattr(args, axis) > 1:
+            raise ValueError(
+                f"--{axis} {getattr(args, axis)}: sharded serving is not "
+                "ported yet (ROADMAP Queue A12: parallelism); the port "
+                "serves on one device")
     device = resolve_device(args.device)
     cfg = TransformerConfig(
         vocab_size=args.vocab_size,
@@ -170,6 +196,8 @@ def make_engine(args, cuda_graphs: bool = True) -> Engine:
         norm_offset=args.norm_offset,
         embed_scale=args.embed_scale,
         d_ff=args.d_ff or 4 * args.d_model,
+        n_experts=args.n_experts,
+        moe_top_k=args.moe_top_k,
         rope_theta=args.rope_theta,
         rope_scaling=tuple(args.rope_scaling),
         sliding_window=args.sliding_window,

@@ -23,9 +23,19 @@ Usage (full-width Qwen2.5-1.5B geometry on one H100):
         --d-ff 8960 --attn-bias --rope-theta 1000000 --norm-eps 1e-6 \\
         --dtype bfloat16 --log-every 1
 
-Flags of the reference this slice does not port (mesh axes above 1,
-bootstrap, ZeRO-1, MoE) are accepted and refused with the ROADMAP item
-that ports them.
+An MoE model (``--n-experts E --moe-top-k k``, optionally
+``--router-z-loss``) trains with the reference's capacity routing; each
+step logs its aux loss beside the loss.  Mixtral-8x7B's widths with its
+depth cut to 2 layers:
+    python -m oim_tpu_torch.cli.train_main --synthetic 400000 \\
+        --steps 3 --batch-global 2 --seq 1024 --vocab-size 32000 \\
+        --d-model 4096 --n-layers 2 --n-heads 32 --n-kv-heads 8 \\
+        --d-ff 14336 --n-experts 8 --moe-top-k 2 --router-z-loss 1e-3 \\
+        --rope-theta 1000000 --norm-eps 1e-5 --dtype bfloat16
+
+Flags of the reference this slice does not port (mesh axes above 1, so
+expert parallelism too; bootstrap; ZeRO-1) are accepted and refused with
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -97,6 +107,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-kv-heads", type=int, default=0)
     p.add_argument("--d-ff", type=int, default=0)
     p.add_argument("--n-experts", type=int, default=0)
+    p.add_argument("--moe-top-k", type=int, default=1)
+    p.add_argument(
+        "--router-z-loss", type=float, default=0.0,
+        help="ST-MoE router z-loss coefficient (paper value 1e-3); "
+        "keeps router logits small on long MoE runs (0 = off)",
+    )
     p.add_argument("--rope-theta", type=float, default=10000.0)
     p.add_argument("--sliding-window", type=int, default=0)
     p.add_argument("--doc-sep-id", type=int, default=-1)
@@ -142,7 +158,7 @@ def _check_flags(args) -> None:
     """Raise for each reference flag this slice does not port, naming the
     ROADMAP item that does, and for flags that need another (checked
     before any work, as the reference does)."""
-    parallel = "ROADMAP Queue A: parallelism"
+    parallel = "ROADMAP Queue A12: parallelism"
     for axis in ("dp", "pp", "sp", "tp", "ep"):
         if getattr(args, axis) > 1:
             raise ValueError(
@@ -151,8 +167,6 @@ def _check_flags(args) -> None:
     refused = [
         (args.bootstrap, "--bootstrap", f"{parallel}, coordinator.py"),
         (args.zero1, "--zero1", f"{parallel}, sharding.py"),
-        (args.n_experts, "--n-experts",
-         "ROADMAP Queue A: MoE, _switch_moe"),
     ]
     for given, flag, item in refused:
         if given:
@@ -190,6 +204,9 @@ def make_config(args) -> TransformerConfig:
         norm_offset=args.norm_offset,
         embed_scale=args.embed_scale,
         d_ff=args.d_ff,
+        n_experts=args.n_experts,
+        moe_top_k=args.moe_top_k,
+        router_z_loss=args.router_z_loss,
         rope_theta=args.rope_theta,
         rope_scaling=tuple(args.rope_scaling),
         norm_eps=args.norm_eps,
@@ -246,9 +263,10 @@ def _eval_fn(args, cfg, tokens, device):
 
 def train(args) -> dict:
     """Run the training the args describe; returns ``{"losses": [per
-    step run], "step_seconds": [...], "tokens_per_step", "eval_ce":
-    [...], "start_step", "state"}``.  Step times are host walls that end
-    in a device sync (the loss readback)."""
+    step run], "aux": [per step run], "step_seconds": [...],
+    "tokens_per_step", "eval_ce": [...], "start_step", "state"}``.  Step
+    times are host walls that end in a device sync (the loss
+    readback)."""
     _check_flags(args)
     device = resolve_device(args.device)
     cfg = make_config(args)
@@ -309,7 +327,7 @@ def train(args) -> dict:
             # the [b, seq] input itself, as in the reference.
             yield batches.batch_at(step)[:, : args.seq]
 
-    out = {"losses": [], "step_seconds": [], "eval_ce": [],
+    out = {"losses": [], "aux": [], "step_seconds": [], "eval_ce": [],
            "tokens_per_step": args.batch_global * args.seq,
            "start_step": start_step}
     step = start_step
@@ -321,10 +339,13 @@ def train(args) -> dict:
             loss = float(metrics["loss"])  # syncs: the step's wall ends here
             now = time.perf_counter()
             out["losses"].append(loss)
+            out["aux"].append(float(metrics["aux"]))
             out["step_seconds"].append(now - t0)
             t0 = now
             if step % args.log_every == 0 or step == args.steps:
                 _log("step", step=step, loss=f"{loss:.4f}",
+                     ce=f"{float(metrics['ce']):.4f}",
+                     aux=f"{out['aux'][-1]:.4f}",
                      tok_per_s=round(out["tokens_per_step"]
                                      / out["step_seconds"][-1]))
             if eval_fn is not None and (step % args.eval_every == 0

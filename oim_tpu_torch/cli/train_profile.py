@@ -11,8 +11,11 @@ the same work.  It prints the wall, the device time summed over kernels,
 the device's idle share (one minus their ratio), the device time by
 family (the port's training kernels, cuBLAS GEMMs, the optimizer's
 fused multi-tensor updates, the rest) and the kernels that took the most
-device time; the last line is one JSON object with those numbers.  Run
-on the machine with the GPU:
+device time.  For an MoE model it also times one layer's expert
+products alone (``expert_products_ms``), as the trainer runs them (f32
+masters, TF32 off) and with bf16 operands, and their share of the step.
+The last line is one JSON object with those numbers.  Run on the
+machine with the GPU:
 
     python -m oim_tpu_torch.cli.train_profile --synthetic 400000 \\
         --steps 1 --batch-global 4 --seq 1024 --vocab-size 151936 \\
@@ -33,7 +36,7 @@ from oim_tpu_torch.cli import train_main
 from oim_tpu_torch.cli.serve_profile import print_window, profiled
 from oim_tpu_torch.data.loader import TokenBatches
 from oim_tpu_torch.models.train import TrainState, make_train_step
-from oim_tpu_torch.models.transformer import init_params
+from oim_tpu_torch.models.transformer import _mlp_act, init_params
 from oim_tpu_torch.ops import _build
 from oim_tpu_torch.serve.engine import resolve_device
 
@@ -49,6 +52,45 @@ FAMILIES = {
     "gemm (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass"),
     "optimizer (multi-tensor)": ("multi_tensor",),
 }
+
+
+def expert_products_ms(cfg, tokens: int, dtype, runs: int = 5) -> dict:
+    """Milliseconds of one layer's expert products (gate, up, SwiGLU,
+    down) over a microbatch of ``tokens`` tokens at ``_switch_moe``'s
+    capacity, forward alone and forward with backward, their operands in
+    ``dtype``: CUDA events around ``runs`` calls after one warm call."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    capacity = max(int(cfg.expert_capacity_factor * cfg.moe_top_k * tokens
+                       / e), 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=dtype).requires_grad_(True)
+
+    x = draw(e, capacity, d)
+    w_gate, w_in, w_out = draw(e, d, f), draw(e, d, f), draw(e, f, d)
+
+    def forward():
+        return (_mlp_act(x @ w_gate, cfg) * (x @ w_in)) @ w_out
+
+    def both():
+        forward().backward(dy)
+
+    dy = torch.randn(e, capacity, d, generator=gen, device="cuda",
+                     dtype=dtype)
+    out = {}
+    for name, fn in (("forward", forward), ("forward_backward", both)):
+        fn()
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        end.synchronize()
+        out[name] = start.elapsed_time(end) / runs
+    out["capacity"] = capacity
+    return out
 
 
 def main(argv=None) -> int:
@@ -88,8 +130,25 @@ def main(argv=None) -> int:
                              key=lambda kv: -kv[1]):
         print(f"  family {family}: {ms:.3f} ms "
               f"({ms / window['device_ms']:.1%} of device time)")
+    experts = {}
+    if cfg.n_experts:
+        # Per step: each layer's products forward, again under remat, and
+        # backward, once a microbatch.
+        micro = args.batch_global // cfg.grad_accum
+        passes = cfg.n_layers * cfg.grad_accum
+        for dtype in (torch.float32, torch.bfloat16):
+            ms = expert_products_ms(cfg, micro * args.seq, dtype)
+            ms["step_ms"] = passes * (ms["forward_backward"]
+                                      + ms["forward"] * cfg.remat)
+            experts[str(dtype).removeprefix("torch.")] = ms
+            print(f"expert products, {dtype}: one layer's forward "
+                  f"{ms['forward']:.3f} ms, forward and backward "
+                  f"{ms['forward_backward']:.3f} ms at capacity "
+                  f"{ms['capacity']}; {ms['step_ms']:.1f} ms a step "
+                  f"({ms['step_ms'] * STEPS / wall_ms:.1%} of its wall)")
     print(json.dumps({"device": smi, "train": window,
-                      "peak_memory_bytes": torch.cuda.max_memory_allocated()}))
+                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                      "expert_products": experts}))
     return 0
 
 

@@ -28,17 +28,25 @@ from oim_tpu_torch.models.transformer import (
     LAYER_NAMES,
     TransformerConfig,
     _dense_mlp,
+    _expert_mask,
+    _mlp_act,
     _qkv,
     _rmsnorm,
+    _router_gates,
+    _router_probs,
     _unembed,
     embed_lookup,
-    require_dense,
 )
 from oim_tpu_torch.ops.quant import dequantize_int8, make_kv_buffers, quantize_int8
 from oim_tpu_torch.ops.rope import apply_rope
 
 NEG_BIG = -1e30
 _MASK64 = (1 << 64) - 1
+# Tokens per pass through the experts in ``_moe_exact``: bounds its
+# [E, tokens, d_ff] transients (at Mixtral's widths 0.23 GB each in
+# bf16) when an admission brings thousands of tokens.  Routing is per
+# token, so the split changes no token's result.
+MOE_TOKENS = 1024
 
 
 @dataclass
@@ -134,12 +142,50 @@ def _cached_attention(x, lp, k_cache, v_cache, k_scale, v_scale, start: int,
     return x + (out @ lp["wo"]).to(x.dtype)
 
 
+def _moe_exact(x, lp, cfg: TransformerConfig):
+    """Drop-free MoE for the whole inference path (prefill and decode),
+    as the reference's: every token runs through its top-k experts with
+    no capacity, so results never depend on batch packing, padding or
+    prompt length.  Routing is f32 (``_router_probs``, ``_router_gates``);
+    each token's weight per expert is the gate of the choice that picked
+    it (0 for the rest).  Every token goes through all E experts (E/k
+    times the routed work, but no data-dependent shape: a decode chunk
+    stays one CUDA graph) as batched products over the experts on the
+    compute-dtype weights, like ``_dense_mlp``'s, in passes of at most
+    ``MOE_TOKENS`` tokens; the weighted combine is f32."""
+    b, t, d = x.shape
+    g = b * t
+    normed = _rmsnorm(x, lp["mlp_norm"], cfg).reshape(g, d)
+    _, probs = _router_probs(normed, lp["router"])
+    _, top_idx, gates = _router_gates(probs, cfg.moe_top_k)
+    weights = torch.sum(
+        _expert_mask(top_idx, cfg.n_experts) * gates[..., None], dim=1
+    )  # [G, E]
+    out = []
+    for lo in range(0, g, MOE_TOKENS):
+        h = normed[lo:lo + MOE_TOKENS]
+        gate = _mlp_act(torch.matmul(h, lp["w_gate"]), cfg)  # [E, n, F]
+        up = torch.matmul(h, lp["w_in"])
+        down = torch.matmul(gate * up, lp["w_out"])  # [E, n, D]
+        out.append(torch.einsum("egd,ge->gd", down.float(),
+                                weights[lo:lo + MOE_TOKENS]))
+    out = out[0] if len(out) == 1 else torch.cat(out)
+    return x + out.reshape(b, t, d).to(x.dtype)
+
+
+def _mlp(x, lp, cfg: TransformerConfig):
+    """An inference layer's MLP block: ``_moe_exact`` for MoE layers,
+    else the dense MLP."""
+    if cfg.n_experts:
+        return _moe_exact(x, lp, cfg)
+    return _dense_mlp(x, lp, cfg)
+
+
 def _hidden_cached(params, tokens, cache: KVCache, cfg: TransformerConfig):
     """Run ``tokens`` (positions cache.length..+t) through every layer,
     extending the cache in place; returns the final-norm hidden states
     [b, t, d].  The Pallas switch is off here, as in the reference's
     decode: inference normalizes with the plain formula."""
-    require_dense(cfg)
     cfg = replace(cfg, use_pallas=False)
     t = tokens.shape[1]
     if cache.length + t > cache.max_len:
@@ -156,7 +202,7 @@ def _hidden_cached(params, tokens, cache: KVCache, cfg: TransformerConfig):
             None if cache.v_scale is None else cache.v_scale[layer],
             start, cfg,
         )
-        x = _dense_mlp(x, lp, cfg)
+        x = _mlp(x, lp, cfg)
     cache.length = start + t
     return _rmsnorm(x, params["final_norm"], cfg)
 

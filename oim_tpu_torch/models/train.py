@@ -85,12 +85,15 @@ def _fused_ce_sum(hidden, wlm, labels, valid, cfg: TransformerConfig):
     return torch.sum(nll * validf), torch.sum(validf)
 
 
-def _local_objective(params, tokens, cfg: TransformerConfig):
-    """The training objective on a [b, t] batch and its CE terms:
-    ``(obj, (ce_sum, ce_count))``.  ``obj`` divides by the STATIC count
+def _objective_terms(params, tokens, cfg: TransformerConfig):
+    """The training objective on a [b, t] batch and its terms: ``(obj,
+    ce_sum, ce_count, aux)``.  ``obj`` divides by the STATIC count
     ``b·(t-1)`` — with sequence packing the separator labels drop out of
     ``ce_sum`` but not of the denominator, so per-token weights do not
-    depend on how many documents a batch packs."""
+    depend on how many documents a batch packs — and adds
+    ``AUX_LOSS_WEIGHT · aux``, the MoE layers' summed aux (0 for a dense
+    model): the reference's objective on one device, where its aux
+    divisor ``dp · sp`` is 1."""
     labels, valid, _ = _shifted_labels(tokens, cfg.doc_sep_id)
     if cfg.use_pallas and cfg.fused_ce:
         hidden, aux = forward_hidden(params, tokens, cfg)
@@ -101,6 +104,13 @@ def _local_objective(params, tokens, cfg: TransformerConfig):
         ce_sum, ce_count = _masked_ce_sum(logits, labels, valid)
     b, t = tokens.shape
     obj = ce_sum / float(b * (t - 1)) + AUX_LOSS_WEIGHT * aux
+    return obj, ce_sum, ce_count, aux
+
+
+def _local_objective(params, tokens, cfg: TransformerConfig):
+    """``(obj, (ce_sum, ce_count))`` of ``_objective_terms``: the
+    reference's signature."""
+    obj, ce_sum, ce_count, _ = _objective_terms(params, tokens, cfg)
     return obj, (ce_sum, ce_count)
 
 
@@ -212,10 +222,11 @@ class TrainState:
 
 
 def make_train_step(cfg: TransformerConfig, model_params=None):
-    """``step(state, tokens [b, t], *extra) -> (state, {"loss", "ce"})``:
-    the objective's gradient, averaged over ``cfg.grad_accum`` equal
-    sequential microbatches, then one optimizer update, in place.
-    ``loss`` and ``ce`` are 0-d device tensors.  The objective reads
+    """``step(state, tokens [b, t], *extra) -> (state, {"loss", "ce",
+    "aux"})``: the objective's gradient, averaged over ``cfg.grad_accum``
+    equal sequential microbatches, then one optimizer update, in place.
+    ``loss``, ``ce`` and the MoE ``aux`` (each a mean over the
+    microbatches) are 0-d device tensors.  The objective reads
     ``state.params``, or ``model_params(state.params, *extra)`` when
     given (LoRA: the adapters merged into a frozen base)."""
 
@@ -230,13 +241,16 @@ def make_train_step(cfg: TransformerConfig, model_params=None):
             value.grad = None
         loss = torch.zeros((), device=tokens.device)
         ce = torch.zeros((), device=tokens.device)
+        aux = torch.zeros((), device=tokens.device)
         for micro in tokens.reshape(accum, b // accum, -1):
             params = (state.params if model_params is None
                       else model_params(state.params, *extra))
-            obj, (ce_sum, ce_count) = _local_objective(params, micro, cfg)
+            obj, ce_sum, ce_count, micro_aux = _objective_terms(
+                params, micro, cfg)
             (obj / accum).backward()
             loss += obj.detach()
             ce += ce_sum.detach() / ce_count
+            aux += micro_aux.detach()
         if state.opt.grad_clip > 0:
             clip_by_global_norm([v.grad for v in leaves], state.opt.grad_clip)
         lr = state.opt.learning_rate(state.step)
@@ -244,7 +258,8 @@ def make_train_step(cfg: TransformerConfig, model_params=None):
             group["lr"] = lr
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss / accum, "ce": ce / accum}
+        return state, {"loss": loss / accum, "ce": ce / accum,
+                       "aux": aux / accum}
 
     return step
 

@@ -16,9 +16,15 @@ pipeline stage on one device: ``use_pallas`` routes RMSNorm and
 attention through the Hopper kernels' differentiable wrappers
 (``ops/rmsnorm.py``, ``ops/flash_attention.py``), ``remat`` recomputes
 each layer in the backward (``torch.utils.checkpoint``).  The serving
-paths force ``use_pallas=False``, as the reference's engine does.  MoE
-layers and pipeline stages are refused with the ROADMAP item that ports
-them.
+paths force ``use_pallas=False``, as the reference's engine does.
+
+MoE layers (``n_experts > 0``) keep ``router [d, E]`` and the expert
+weights ``w_gate``/``w_in [E, d, f]``, ``w_out [E, f, d]`` under the
+dense MLP's names.  Training routes with capacity (``_switch_moe``:
+``_router_gates``, ``_capacity_dispatch``, the load-balance aux and the
+router z-loss); inference routes every token drop-free
+(``models/decode.py::_moe_exact``).  Pipeline stages are refused with
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ class TransformerConfig:
     and validation, so a config moves between the packages unchanged.
     ``use_pallas`` selects the Hopper kernels in the training forward,
     and with ``fused_ce`` the loss runs the fused unembed+CE kernels
-    (``models/train.py``); pipeline, MoE and sequence-parallel fields are
+    (``models/train.py``); pipeline and sequence-parallel fields are
     carried for parity and refused where they would take effect."""
 
     vocab_size: int = 32000
@@ -164,23 +170,8 @@ class TransformerConfig:
         return _DTYPES[self.dtype]
 
 
-def require_dense(cfg: TransformerConfig) -> None:
-    """Refuse configs the port does not serve yet."""
-    if cfg.n_experts:
-        raise ValueError(
-            "MoE layers are not ported yet (ROADMAP Queue A: MoE, "
-            "_moe_exact); serve a dense config"
-        )
-
-
 def require_trainable(cfg: TransformerConfig) -> None:
-    """Refuse configs the port does not train yet: MoE (``_switch_moe``)
-    and pipeline stages."""
-    if cfg.n_experts:
-        raise ValueError(
-            "MoE training is not ported yet (ROADMAP Queue A: training, "
-            "_switch_moe/_capacity_dispatch); train a dense config"
-        )
+    """Refuse configs the port does not train yet: pipeline stages."""
     if cfg.n_stages != 1:
         raise ValueError(
             f"n_stages={cfg.n_stages}: pipeline parallelism is not ported "
@@ -192,18 +183,23 @@ def require_trainable(cfg: TransformerConfig) -> None:
 # Parameters
 
 LAYER_NAMES = (
-    "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_in",
-    "w_out", "bq", "bk", "bv",
+    "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "router", "w_gate",
+    "w_in", "w_out", "bq", "bk", "bv",
 )
-_NORMS = ("attn_norm", "mlp_norm", "final_norm")
+# Kept in f32 wherever they are read: the norm scales, and the MoE
+# router, whose logits, softmax and top-k the reference computes in f32
+# on purpose (a bf16 router flips expert choices near ties).
+_F32 = ("attn_norm", "mlp_norm", "final_norm", "router")
+_EXPERTS = ("w_gate", "w_in", "w_out")
 
 
 def prepare_param(name: str, value, cfg: TransformerConfig):
-    """One parameter in the layout the forward reads: norm scales f32,
-    ``wlm`` as compute-dtype values widened to f32 (see ``_unembed``),
-    every other weight in the compute dtype.  Differentiable, so the
-    training forward casts its f32 masters through it."""
-    if name in _NORMS:
+    """One parameter in the layout the forward reads: norm scales and
+    the router f32, ``wlm`` as compute-dtype values widened to f32 (see
+    ``_unembed``), every other weight in the compute dtype.
+    Differentiable, so the training forward casts its f32 masters
+    through it."""
+    if name in _F32:
         return value.float()
     if name == "wlm":
         return value.to(cfg.compute_dtype).float()
@@ -216,8 +212,9 @@ def init_params(seed: int, cfg: TransformerConfig, device=None,
     from ``torch.Generator(device).manual_seed(seed)``, one tensor at a
     time so the peak is one f32 tensor beyond the model.  Returns
     ``{"wte", "final_norm", "wlm", "layers": [per-layer dict]}`` in
-    serving's layout, or as f32 training masters when ``master``."""
-    require_dense(cfg)
+    serving's layout, or as f32 training masters when ``master``.  MoE
+    layers draw the router ``[d, E]`` and the experts ``[E, d, f]`` /
+    ``[E, f, d]`` (the reference's shapes and fan-ins)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     d, n = cfg.d_model, cfg.n_heads * cfg.head_dim
     kvn, f = cfg.kv_heads * cfg.head_dim, cfg.ff_dim
@@ -240,6 +237,7 @@ def init_params(seed: int, cfg: TransformerConfig, device=None,
         "wlm": dense("wlm", d, cfg.vocab_size, fan_in=d),
         "layers": [],
     }
+    e = (cfg.n_experts,) if cfg.n_experts else ()
     for _ in range(cfg.n_layers):
         lp = {
             "attn_norm": const("attn_norm", 1.0, d),
@@ -248,10 +246,14 @@ def init_params(seed: int, cfg: TransformerConfig, device=None,
             "wv": dense("wv", d, kvn, fan_in=d),
             "wo": dense("wo", n, d, fan_in=n),
             "mlp_norm": const("mlp_norm", 1.0, d),
-            "w_gate": dense("w_gate", d, f, fan_in=d),
-            "w_in": dense("w_in", d, f, fan_in=d),
-            "w_out": dense("w_out", f, d, fan_in=f),
         }
+        if cfg.n_experts:
+            lp["router"] = dense("router", d, cfg.n_experts, fan_in=d)
+        lp.update(
+            w_gate=dense("w_gate", *e, d, f, fan_in=d),
+            w_in=dense("w_in", *e, d, f, fan_in=d),
+            w_out=dense("w_out", *e, f, d, fan_in=f),
+        )
         if cfg.attn_bias:
             lp.update(
                 bq=const("bq", 0.0, n),
@@ -308,6 +310,90 @@ def _dense_mlp(x, lp, cfg: TransformerConfig):
     return x + ((gate * up) @ lp["w_out"]).to(x.dtype)
 
 
+def _router_probs(normed, router):
+    """f32 router logits and their softmax [G, E] of normed tokens [G, D]
+    (the reference's deliberate f32 routing)."""
+    logits = normed.float() @ router.float()
+    return logits, torch.softmax(logits, dim=-1)
+
+
+def _router_gates(probs, top_k: int):
+    """(top-k probs [G, K], indices [G, K], gates [G, K]) of router probs
+    [G, E].  Equal probs rank the lower expert index first, as
+    ``jax.lax.top_k`` does (a stable descending sort; ``torch.topk``
+    promises no order among ties).  k = 1: the gate is the raw prob
+    (switch transformer); k >= 2: the gates renormalised over the
+    chosen experts (GShard, Mixtral)."""
+    top_probs, top_idx = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+    top_probs, top_idx = top_probs[..., :top_k], top_idx[..., :top_k]
+    if top_k == 1:
+        return top_probs, top_idx, top_probs
+    return top_probs, top_idx, top_probs / torch.sum(
+        top_probs, dim=-1, keepdim=True)
+
+
+def _expert_mask(idx, e: int):
+    """``idx == arange(e)`` as f32 over a new last axis: a one-hot built
+    by comparison, so an index of -1 gives a zero row and nothing checks
+    its range on the device (capturable in a CUDA graph)."""
+    return (idx[..., None] == torch.arange(e, device=idx.device)).float()
+
+
+def _capacity_dispatch(top_idx, gates, e: int, capacity: int):
+    """Queue tokens into expert slots with choice-rank priority, as the
+    reference does: top_idx/gates [G, K] → (dispatch, combine), both
+    [G, E, capacity] f32.  Rank r tokens queue after every rank < r
+    assignment to the same expert (first choices never lose a slot to
+    second choices); an assignment past the capacity is dropped (an
+    all-zero row: the token keeps its residual)."""
+    k = top_idx.shape[1]
+    dispatch = combine = 0.0
+    prior = torch.zeros(e, device=top_idx.device)  # per-expert count so far
+    for rank in range(k):
+        assign = _expert_mask(top_idx[:, rank], e)  # [G, E]
+        position = (torch.cumsum(assign, dim=0) - 1.0 + prior) * assign
+        position = torch.where(assign > 0, position, -1.0)
+        prior = prior + torch.sum(assign, dim=0)
+        keep = (position >= 0) & (position < capacity)
+        d_rank = _expert_mask(torch.where(keep, position, -1.0).long(),
+                              capacity)  # [G, E, C]
+        dispatch = dispatch + d_rank
+        combine = combine + d_rank * gates[:, rank, None, None]
+    return dispatch, combine
+
+
+def _switch_moe(x, lp, cfg: TransformerConfig):
+    """Top-k expert routing with capacity (the reference's training MoE):
+    tokens are queued into ``max(int(factor·k·g/e), 1)`` slots per expert
+    by ``_capacity_dispatch``, each expert's SwiGLU runs over its slots
+    in f32 (the experts' f32 masters, as the reference keeps them), and
+    the combine weights each slot's output by its gate.  Returns ``(x +
+    out, aux)``: the load-balance loss over first choices, ``e ·
+    Σ density · mean prob``, plus the router z-loss ``mean(lse²)``
+    pre-divided by ``AUX_LOSS_WEIGHT`` (the objective multiplies it
+    back, so the term is exactly ``router_z_loss · mean(z²)``)."""
+    b, t, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    g = b * t
+    capacity = max(int(cfg.expert_capacity_factor * k * g / e), 1)
+    normed = _rmsnorm(x, lp["mlp_norm"], cfg).reshape(g, d).float()
+    logits, probs = _router_probs(normed, lp["router"])
+    _, top_idx, gates = _router_gates(probs, k)
+    dispatch, combine = _capacity_dispatch(top_idx, gates, e, capacity)
+    expert_in = torch.einsum("gec,gd->ecd", dispatch, normed)
+    gate = _mlp_act(expert_in @ lp["w_gate"], cfg)
+    up = expert_in @ lp["w_in"]
+    expert_out = (gate * up) @ lp["w_out"]
+    out = torch.einsum("gec,ecd->gd", combine, expert_out).reshape(b, t, d)
+    density = torch.mean(_expert_mask(top_idx[:, 0], e), dim=0)
+    aux = e * torch.sum(density * torch.mean(probs, dim=0))
+    if cfg.router_z_loss:
+        z = torch.logsumexp(logits, dim=-1)
+        aux = aux + (cfg.router_z_loss / AUX_LOSS_WEIGHT) * torch.mean(z * z)
+    return x + out.to(x.dtype), aux
+
+
 def _qkv(x, lp, cfg: TransformerConfig):
     """Pre-norm q/k/v projections (plus the Qwen biases) reshaped to
     [b, t, heads, head_dim] — shared by solo decode and the engine."""
@@ -343,9 +429,12 @@ def _unembed(x, wlm, cfg: TransformerConfig):
 
 def _cast_matmul_weights(lp: dict, cfg: TransformerConfig) -> dict:
     """A layer's f32 masters as the forward reads them: matmul weights
-    and biases in the compute dtype, norm scales f32 (``prepare_param``,
-    differentiable, so gradients reach the masters)."""
-    return {name: prepare_param(name, value, cfg)
+    and biases in the compute dtype, norm scales and the router f32
+    (``prepare_param``, differentiable, so gradients reach the masters).
+    Under MoE the expert weights stay f32 masters too, as in the
+    reference: ``_switch_moe`` feeds them f32 slots."""
+    return {name: value if cfg.n_experts and name in _EXPERTS
+            else prepare_param(name, value, cfg)
             for name, value in lp.items()}
 
 
@@ -366,10 +455,14 @@ def _attention(x, lp, positions, cfg: TransformerConfig, segments=None):
 
 
 def _layer(x, lp, positions, cfg: TransformerConfig, segments=None):
-    """One dense layer over f32 master weights."""
+    """One layer over f32 master weights → (x, its aux loss): a dense
+    MLP adds 0 to the aux channel, an MoE layer its ``_switch_moe``
+    aux."""
     lp = _cast_matmul_weights(lp, cfg)
     x = _attention(x, lp, positions, cfg, segments)
-    return _dense_mlp(x, lp, cfg)
+    if cfg.n_experts:
+        return _switch_moe(x, lp, cfg)
+    return _dense_mlp(x, lp, cfg), torch.zeros((), device=x.device)
 
 
 def _doc_segments(tokens, cfg: TransformerConfig):
@@ -381,21 +474,22 @@ def _doc_segments(tokens, cfg: TransformerConfig):
 
 def forward_hidden(params: dict, tokens, cfg: TransformerConfig):
     """tokens [b, t] → (final-norm hidden [b, t, D] in the compute
-    dtype, aux loss 0.0) over f32 master ``params``; each layer is
-    recomputed in the backward when ``cfg.remat``."""
+    dtype, the layers' summed aux loss, f32) over f32 master ``params``;
+    each layer is recomputed in the backward when ``cfg.remat``."""
     require_trainable(cfg)
     t = tokens.shape[1]
     x = embed_lookup(params["wte"], tokens, cfg)
     positions = torch.arange(t, device=tokens.device)
     segments = _doc_segments(tokens, cfg) if cfg.doc_sep_id >= 0 else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
         if cfg.remat:
-            x = checkpoint(_layer, x, lp, positions, cfg, segments,
-                           use_reentrant=False)
+            x, layer_aux = checkpoint(_layer, x, lp, positions, cfg,
+                                      segments, use_reentrant=False)
         else:
-            x = _layer(x, lp, positions, cfg, segments)
-    x = _rmsnorm(x, params["final_norm"], cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, layer_aux = _layer(x, lp, positions, cfg, segments)
+        aux = aux + layer_aux
+    return _rmsnorm(x, params["final_norm"], cfg), aux
 
 
 def forward_local(params: dict, tokens, cfg: TransformerConfig):

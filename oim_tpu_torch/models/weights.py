@@ -21,11 +21,7 @@ import torch
 
 from oim_tpu_torch.models.decode import _flat_layer_params
 from oim_tpu_torch.models.train import named_parameters
-from oim_tpu_torch.models.transformer import (
-    TransformerConfig,
-    prepare_param,
-    require_dense,
-)
+from oim_tpu_torch.models.transformer import TransformerConfig, prepare_param
 
 
 def from_jax_params(tree: dict, cfg: TransformerConfig, device=None,
@@ -33,9 +29,9 @@ def from_jax_params(tree: dict, cfg: TransformerConfig, device=None,
     """Reference parameter dict (numpy arrays, layer weights stacked
     ``[n_stages, layers_per_stage, ...]``) → the port's serving layout on
     ``device``, or, when ``master``, every tensor f32 as training's
-    masters (the reference's ``param_dtype``).  Weight-quantized trees
-    (``*_wscale``) are refused."""
-    require_dense(cfg)
+    masters (the reference's ``param_dtype``).  MoE trees carry
+    ``router`` and ``[E, ...]`` experts per layer.  Weight-quantized
+    trees (``*_wscale``) are refused."""
     if any(name.endswith("_wscale") for name in tree):
         raise ValueError(
             "weight-quantized parameters are not ported yet; pass the "
@@ -96,9 +92,12 @@ def param_shapes(cfg: TransformerConfig) -> dict:
     for ``cfg`` (layers as ``layers.<i>.<name>``)."""
     d, v, f = cfg.d_model, cfg.vocab_size, cfg.ff_dim
     n, kvn = cfg.n_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    e = (cfg.n_experts,) if cfg.n_experts else ()
     layer = {"attn_norm": (d,), "wq": (d, n), "wk": (d, kvn),
              "wv": (d, kvn), "wo": (n, d), "mlp_norm": (d,),
-             "w_gate": (d, f), "w_in": (d, f), "w_out": (f, d)}
+             "w_gate": (*e, d, f), "w_in": (*e, d, f), "w_out": (*e, f, d)}
+    if cfg.n_experts:
+        layer["router"] = (d, cfg.n_experts)
     if cfg.attn_bias:
         layer.update(bq=(n,), bk=(kvn,), bv=(kvn,))
     shapes = {"wte": (v, d), "final_norm": (d,), "wlm": (d, v)}

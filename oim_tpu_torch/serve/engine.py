@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from oim_tpu_torch.models.decode import (
+    _mlp,
     _validate_truncation,
     apply_penalties,
     nucleus_min_p_mask,
@@ -65,12 +66,10 @@ from oim_tpu_torch.models.decode import (
 )
 from oim_tpu_torch.models.transformer import (
     TransformerConfig,
-    _dense_mlp,
     _qkv,
     _rmsnorm,
     _unembed,
     embed_lookup,
-    require_dense,
 )
 from oim_tpu_torch.models.weights import n_params, to_device
 from oim_tpu_torch.ops import paged_attention
@@ -263,13 +262,15 @@ def _hidden_slots(params, tokens, cache, starts, tables,
     """tokens [B, t] at per-slot positions ``starts`` → final-norm hidden
     states [B, t, D], extending the cache in place (a Python loop over
     layers; no unembedding, so prefill unembeds one position per row).
-    The Pallas switch is off here, as in the reference's engine: serving
+    MoE layers route every token drop-free (``_moe_exact``), so a row's
+    result never depends on its batchmates or its padding.  The Pallas
+    switch is off here, as in the reference's engine: serving
     normalizes with the plain formula."""
     cfg = replace(cfg, use_pallas=False)
     x = embed_lookup(params["wte"], tokens, cfg)
     for layer, lp in enumerate(params["layers"]):
         x = _slot_attention(x, lp, cache, layer, starts, tables, cfg)
-        x = _dense_mlp(x, lp, cfg)
+        x = _mlp(x, lp, cfg)
     return _rmsnorm(x, params["final_norm"], cfg)
 
 
@@ -605,7 +606,6 @@ class Engine:
         cuda_graphs: bool = True,
     ):
         self.device = resolve_device(device)
-        require_dense(cfg)
         if pipeline_depth not in (1, 2):
             raise ValueError(
                 f"pipeline_depth must be 1 (serial) or 2 (dispatch-ahead "
@@ -778,6 +778,10 @@ class Engine:
         # Chained dispatches skipped because the chunk in flight already
         # covers every slot's remaining budget.
         self.tail_elisions = 0
+        # Host walls of warmup() (its graph capture included) and of the
+        # capture alone.
+        self.warmup_seconds = 0.0
+        self.graph_capture_seconds = 0.0
         self._t_device_free: float | None = None
         self._t_last_chunk_done: float | None = None
         self._ttfts: deque[float] = deque(maxlen=256)
@@ -1005,6 +1009,8 @@ class Engine:
                 "n_heads": cfg.n_heads,
                 "n_kv_heads": cfg.kv_heads,
                 "d_ff": cfg.ff_dim,
+                "n_experts": cfg.n_experts,
+                "moe_top_k": cfg.moe_top_k if cfg.n_experts else 0,
                 "rope_theta": cfg.rope_theta,
                 "rope_scaling": list(cfg.rope_scaling),
                 "sliding_window": cfg.sliding_window,
@@ -1073,6 +1079,8 @@ class Engine:
                 ),
                 "device_idle_seconds": self.device_idle_seconds,
                 "tail_elisions": self.tail_elisions,
+                "warmup_seconds": self.warmup_seconds,
+                "graph_capture_seconds": self.graph_capture_seconds,
                 "pipeline_depth": self.pipeline_depth,
                 "inflight_dispatches": int(self._inflight is not None),
                 "ttft_p50_s": statistics.median(ttfts) if ttfts else 0.0,
@@ -1119,6 +1127,7 @@ class Engine:
         pool): builds the kernels on first use and touches every prefill
         shape once before live traffic; on the GPU, captures the decode
         chunk's graphs."""
+        t0 = time.monotonic()
         self._warming = True
         try:
             rids = []
@@ -1136,6 +1145,7 @@ class Engine:
                 self._capture_graphs()
         finally:
             self._warming = False
+        self.warmup_seconds = time.monotonic() - t0
         return self
 
     def _release_slot_locked(self, slot: int) -> None:
@@ -1432,6 +1442,7 @@ class Engine:
         capture, which builds the kernels and sets their attributes
         outside it, changes nothing a slot owns.  The launch counts each
         capture records are what its replays add (``recording``)."""
+        t0 = time.monotonic()
         b = self._buf
         b.tables.fill_(self._sentinel)
         b.meta.zero_()
@@ -1454,6 +1465,7 @@ class Engine:
             graphs[key], counts[key] = graph, delta
         torch.cuda.synchronize(self.device)
         self._graphs, self._graph_counts = graphs, counts
+        self.graph_capture_seconds = time.monotonic() - t0
 
     def _enqueue_chunk(self, inputs: _ChunkInputs, tokens, starts, indices,
                        graph: bool):

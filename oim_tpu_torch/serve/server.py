@@ -20,6 +20,7 @@ from __future__ import annotations
 import json
 import threading
 import time
+import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from oim_tpu_torch.serve.engine import (
@@ -76,6 +77,75 @@ def _parse_generate(body: dict) -> GenRequest:
     )
 
 
+class _Handler(BaseHTTPRequestHandler):
+    """One request against the ``ServeServer`` that ``self.server.owner``
+    names: a weak proxy, so that the listener does not keep a stopped
+    server, and through it the engine, alive."""
+
+    def log_message(self, *args):  # per-request stderr noise off
+        pass
+
+    def _json(self, code: int, payload: dict) -> None:
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        outer = self.server.owner
+        if self.path == "/healthz":
+            if outer.error is not None:
+                self._json(503, {"ok": False, "error": outer.error})
+            else:
+                self._json(200, {"ok": True})
+        elif self.path == "/v1/stats":
+            self._json(200, outer.engine.stats())
+        elif self.path == "/v1/info":
+            self._json(200, outer.engine.info())
+        else:
+            self._json(404, {"error": f"no such path {self.path}"})
+
+    def do_POST(self):
+        outer = self.server.owner
+        if self.path != "/v1/generate":
+            self._json(404, {"error": f"no such path {self.path}"})
+            return
+        if outer.error is not None:
+            self._json(503, {"error": outer.error})
+            return
+        try:
+            length = int(self.headers.get("Content-Length", "0"))
+            body = json.loads(self.rfile.read(length) or b"{}")
+            req = _parse_generate(body)
+            rid = outer.engine.submit(req)
+        except (QueueFullError, DeadlineExpiredError) as exc:
+            self._json(429, {"error": str(exc)})
+            return
+        except (DrainingError, EngineFailedError) as exc:
+            self._json(503, {"error": str(exc)})
+            return
+        except (KeyError, TypeError, ValueError) as exc:
+            self._json(400, {"error": str(exc)})
+            return
+        try:
+            tokens, lps = outer.engine.result_full(rid, timeout=600)
+        except TimeoutError:
+            outer.engine.cancel(rid, "server-side wait timed out")
+            outer.engine.forget(rid)
+            self._json(503, {"error": f"request {rid} timed out"})
+            return
+        except RequestFailedError as exc:
+            self._json(_FAILED_STATUS.get(exc.kind, 500),
+                       {"error": str(exc)})
+            return
+        payload = {"tokens": tokens, "request_id": rid}
+        if body.get("logprobs"):
+            payload["logprobs"] = lps
+        self._json(200, payload)
+
+
 class ServeServer:
     """Owns the engine's step thread and the HTTP listener.  ``start()``
     returns self; ``port`` is the bound port (0 → ephemeral)."""
@@ -85,71 +155,8 @@ class ServeServer:
         self.engine = engine
         self.error: str | None = None  # set when the step thread dies
         self._stop = threading.Event()
-        outer = self
-
-        class Handler(BaseHTTPRequestHandler):
-            def log_message(self, *args):  # per-request stderr noise off
-                pass
-
-            def _json(self, code: int, payload: dict) -> None:
-                body = json.dumps(payload).encode()
-                self.send_response(code)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
-
-            def do_GET(self):
-                if self.path == "/healthz":
-                    if outer.error is not None:
-                        self._json(503, {"ok": False, "error": outer.error})
-                    else:
-                        self._json(200, {"ok": True})
-                elif self.path == "/v1/stats":
-                    self._json(200, outer.engine.stats())
-                elif self.path == "/v1/info":
-                    self._json(200, outer.engine.info())
-                else:
-                    self._json(404, {"error": f"no such path {self.path}"})
-
-            def do_POST(self):
-                if self.path != "/v1/generate":
-                    self._json(404, {"error": f"no such path {self.path}"})
-                    return
-                if outer.error is not None:
-                    self._json(503, {"error": outer.error})
-                    return
-                try:
-                    length = int(self.headers.get("Content-Length", "0"))
-                    body = json.loads(self.rfile.read(length) or b"{}")
-                    req = _parse_generate(body)
-                    rid = outer.engine.submit(req)
-                except (QueueFullError, DeadlineExpiredError) as exc:
-                    self._json(429, {"error": str(exc)})
-                    return
-                except (DrainingError, EngineFailedError) as exc:
-                    self._json(503, {"error": str(exc)})
-                    return
-                except (KeyError, TypeError, ValueError) as exc:
-                    self._json(400, {"error": str(exc)})
-                    return
-                try:
-                    tokens, lps = outer.engine.result_full(rid, timeout=600)
-                except TimeoutError:
-                    outer.engine.cancel(rid, "server-side wait timed out")
-                    outer.engine.forget(rid)
-                    self._json(503, {"error": f"request {rid} timed out"})
-                    return
-                except RequestFailedError as exc:
-                    self._json(_FAILED_STATUS.get(exc.kind, 500),
-                               {"error": str(exc)})
-                    return
-                payload = {"tokens": tokens, "request_id": rid}
-                if body.get("logprobs"):
-                    payload["logprobs"] = lps
-                self._json(200, payload)
-
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd = ThreadingHTTPServer((host, port), _Handler)
+        self._httpd.owner = weakref.proxy(self)
         self.host, self.port = self._httpd.server_address[:2]
         self._http_thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True

@@ -405,6 +405,29 @@ def test_graph_chunk_equals_eager_chunk(layout, kv_int8):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_moe_graph_chunk_equals_eager_chunk(layout):
+    """An MoE decode chunk (drop-free routing over every expert: f32
+    router, a stable sort for the top-k, no data-dependent shape)
+    captures as one graph, and its replay is bit-equal to the eager
+    chunk from a copy of the same state."""
+    _need_gpu()
+    cfg = TransformerConfig(**{**CARD_CFG, "n_experts": 4, "moe_top_k": 2})
+    engine = Engine(init_params(0, cfg), cfg, **CARD_ENGINE,
+                    kv_block=LAYOUTS[layout] * 2).warmup()
+    engine.set_pipeline_depth(1)
+    for req in _card_requests()[:4]:
+        engine.submit(req)
+    engine.step()
+    eager, replayed = engine.chunk_twice()
+    for name in ("out", "lps", "carry"):
+        assert torch.equal(eager[name], replayed[name]), name
+    for a, b in zip(eager["state"], replayed["state"]):
+        assert torch.equal(a, b)
+    engine.abort("done")
+
+
+@pytest.mark.cuda
 def test_graph_engine_serves_the_eager_engines_streams():
     """The default engine (dense, depth 2, graphs) and one dispatching
     the same chunks eagerly serve the same streams; every decode

@@ -16,11 +16,13 @@ so both packages compute the same function:
 - the HTTP server and ``serve_main`` answer the JAX server's JSON.
 """
 
+import gc
 import json
 import threading
 import time
 import urllib.error
 import urllib.request
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -325,10 +327,13 @@ def test_engine_refuses_unported_options(model, option, match):
 
 
 def test_engine_refuses_moe_and_cache_prefix(model):
+    """MoE configs are served now (the name is the test's earlier one):
+    an engine builds on MoE weights and reports its experts;
+    ``cache_prefix`` stays refused."""
     _, _, tcfg, params = model
-    moe = TransformerConfig(**{**CFG, "n_experts": 4})
-    with pytest.raises(ValueError, match="MoE"):
-        Engine(params, moe, **ENGINE)
+    moe = TransformerConfig(**{**CFG, "n_experts": 4, "moe_top_k": 2})
+    info = Engine(init_params(0, moe), moe, **ENGINE).info()["model"]
+    assert (info["n_experts"], info["moe_top_k"]) == (4, 2)
     engine = Engine(params, tcfg, **ENGINE)
     with pytest.raises(ValueError, match="prefix cache"):
         engine.submit(GenRequest(tokens=[1, 2], max_new_tokens=2,
@@ -435,3 +440,30 @@ def test_serve_main_on_cpu(model):
         assert server.engine.stats()["tokens_generated"] == 5  # no warmup
     finally:
         server.stop()
+
+
+def test_server_stop_releases_engine():
+    """A stopped server holds its engine in no reference cycle: dropping
+    the server frees the engine (and on the card its memory) at once,
+    with the cyclic collector off."""
+    args = serve_main.build_parser().parse_args([
+        "--vocab-size", "101", "--d-model", "64", "--n-layers", "2",
+        "--n-heads", "4", "--n-kv-heads", "2", "--d-ff", "96",
+        "--dtype", "float32", "--max-len", "64", "--n-slots", "2",
+        "--chunk", "4", "--port", "0", "--seed", "5", "--device", "cpu",
+    ])
+    gc.collect()
+    gc.disable()
+    try:
+        server = serve_main.start_server(args)
+        try:
+            status, _ = _post(server.port, {"tokens": [3, 1, 4],
+                                            "max_new_tokens": 5})
+            assert status == 200
+        finally:
+            server.stop()
+        engine = weakref.ref(server.engine)
+        del server
+        assert engine() is None
+    finally:
+        gc.enable()

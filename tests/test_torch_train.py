@@ -273,7 +273,9 @@ def test_train_main_cpu_drive(source, tmp_path, capsys):
                  id="flag3-lora.py"),
     pytest.param(["--export-dir", "x"], "requires --checkpoint-dir",
                  id="flag4-checkpoint/manager.py"),
-    (["--n-experts", "4"], "_switch_moe"),
+    # MoE trains now: what stays refused is expert parallelism.
+    pytest.param(["--n-experts", "4", "--ep", "2"], "Queue A12: parallelism",
+                 id="flag5-_switch_moe"),
     (["--lora-base", "x"], "requires --lora-rank"),
 ])
 def test_train_main_refuses_unported_flags(flag, item):
