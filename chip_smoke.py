@@ -9,9 +9,16 @@ few steps in the trainer's usual configuration
 (RMSNorm, flash attention forward, dq, dkv, and the fused unembed+CE
 forward, dx and dw), then checkpoint, resume, export, fine-tune LoRA on
 the export and serve the merged weights — and check what comes back.
-Then an exact-routing MoE model at Mixtral-8x7B's widths: served on
-``serve_main``'s defaults with its depth cut to fit the card, and
-trained at two layers with capacity routing and the aux and z losses.
+Then the prefix cache and chunked prefill on both cache layouts
+(``--prefix-cache 8 --prefill-chunk 256``: a cached 1008-token system
+prompt, five prompts sharing it, one a copy-on-write on the paged pool,
+and an 1800-token miss admitted in segments while the others decode),
+each beside a control run without the flags, with K1's tall route and
+K2 also timed at a segment's shape.  Then an exact-routing MoE model at
+Mixtral-8x7B's widths: served on ``serve_main``'s defaults with its
+depth cut to fit the card, and trained at two layers with capacity
+routing and the aux and z losses, its first step checked in bf16 and
+in f32 (RMSNorm's wide route, for rows past one warp's registers).
 
 Run from the repository root on a machine with one NVIDIA GPU and the
 CUDA toolkit:
@@ -38,6 +45,7 @@ memory, and ``--serve-phase-only [--package DIR]`` only the serve phases
 concurrent p50 and the decode rate; the default-configuration phase
 only where the package serves it); run both builds in turns (parent,
 change, change, parent) to compare them in one call.
+``--prefix-phase-only [--package DIR]`` runs only the prefix phase.
 
 It exits non-zero without a result line when no GPU is visible, when the
 port's package is not beside it, or when any phase fails.  Every number
@@ -659,6 +667,57 @@ def moe_kernel_phase() -> dict:
                               f"dense H={MOE_H} KVH={MOE_KVH}", "_moe")
 
 
+# A chunked prefill's segment: 256 tokens (--prefill-chunk 256), timed
+# at these starts (the prefix phase's hits write from 1008 on, its long
+# miss from 0 to 1792 in steps of 256).
+SEGMENT_T = 256
+SEGMENT_STARTS = (768, 1536)
+
+
+def segment_kernel_phase() -> dict:
+    """K2 then K1's tall route at a segment's shape — one slot, t = 256
+    new rows at each of ``SEGMENT_STARTS``, bf16 — on the dense cache's
+    64-row blocks (the slot's identity table row) and on the paged
+    pool's 16-row blocks (a table covering the segment's end plus a
+    reserve, as an admission's plan does): K2 bit-equal to
+    ``paged_store``, K1 against its plain version, each timed with its
+    bound (and K1 with SDPA on the gathered view).  Returns the records
+    keyed ``K1s<start>_<layout>`` and ``K2s<start>_<layout>``."""
+    from oim_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.RandomState(7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    record = {}
+    for layout, bs in (("dense", DENSE_BS), ("paged", BS)):
+        n_blocks = 8 * (MAX_LEN // bs)
+        k_pool, v_pool, _, _ = make_pool(gen, n_blocks, False, bs)
+        for start in SEGMENT_STARTS:
+            if layout == "dense":
+                tables = torch.arange(n_blocks, dtype=torch.int32,
+                                      device="cuda").reshape(8, -1)[3:4]
+            else:
+                tables = torch.from_numpy(make_tables(
+                    rng, 1, [start + SEGMENT_T - 1], n_blocks,
+                    reserve=4)).cuda()
+            starts = torch.tensor([start], dtype=torch.int32, device="cuda")
+            k_new, v_new = (torch.randn((1, SEGMENT_T, KVH, HD),
+                                        generator=gen, device="cuda")
+                            .to(torch.bfloat16) for _ in range(2))
+            q = torch.randn((1, SEGMENT_T, H, HD), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            pools = [k_pool.clone(), v_pool.clone()]
+            tag = f"segment {layout} t={SEGMENT_T} start={start}"
+            record[f"K2s{start}_{layout}"] = k2_phase(
+                tag, pa, k_new, v_new, pools, [None, None], tables, starts)
+            record[f"K1s{start}_{layout}"] = k1_phase(
+                tag, pa, (q, *pools, None, None, tables, starts),
+                slice(0, 0), (), (0,))
+            del pools
+        del k_pool, v_pool
+        torch.cuda.empty_cache()
+    return record
+
+
 # ---------------------------------------------------------------------------
 # Serve phase
 
@@ -1221,6 +1280,287 @@ def graph_check(engine, vocab: int, rng) -> None:
           f"{same}", flush=True)
     check(all(same.values()), f"graph replay differs from eager: {same}")
     engine.abort("graph check done")
+
+
+# The prefix phase's engine flags, added to SERVE_ARGS (and with
+# --kv-block 16 for the paged pool), and its traffic: a 1008-token
+# system prompt (63 blocks of 16: a paged entry keeps the blocks a
+# prompt fully covers, so a block-aligned seed makes the repeated seed
+# hit 1007 rows, inside the entry's last block: a copy-on-write), four
+# prompts sharing it with tails of 24, 200, 400 and 700 tokens, the seed
+# itself again, and an unrelated 1800-token prompt (a miss in 8
+# segments) sent once the others are seated; 32 new tokens each.
+PREFIX_FLAGS = ["--prefix-cache", "8", "--prefill-chunk", "256"]
+PREFIX_SYSTEM = 1008
+PREFIX_TAILS = (24, 200, 400, 700)
+PREFIX_LONG = 1800
+PREFIX_NEW = 32
+
+
+def prefix_traffic(vocab: int) -> tuple[list, list, list]:
+    """(seed prompt, the five prompts sharing it, the long prompt)."""
+    rng = np.random.RandomState(5)
+    system = rng.randint(0, vocab, PREFIX_SYSTEM).tolist()
+    hits = [system + rng.randint(0, vocab, n).tolist() for n in PREFIX_TAILS]
+    return system, hits + [list(system)], rng.randint(
+        0, vocab, PREFIX_LONG).tolist()
+
+
+def segments_wanted(start: int, n: int, chunk: int) -> int:
+    """Prompt segments of an n-token prompt whose tail is written from
+    ``start``: one for a one-shot tail, else one per ``chunk`` tokens of
+    the tail (the final one padded to its bucket; no prompt here needs
+    un-chunking at max_len 2048)."""
+    tail = n - start
+    return max(1, -(-tail // chunk)) if chunk else 1
+
+
+class ServeTrace:
+    """What an engine does while it serves, recorded from the step
+    thread by wrapping three of its methods: the host time each decode
+    chunk's results were read back with the prompt lengths of the live
+    streams it carried, each dispatch's (graph replay?, how many prompts
+    were mid-prefill), and each request's first-token time after its
+    submission."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.readbacks, self.dispatches, self.first = [], [], {}
+        process, enqueue, emit = (engine._process_chunk,
+                                  engine._enqueue_chunk, engine._emit)
+
+        def processed(handle, acc):
+            live = {(st.rid, len(st.req.tokens))
+                    for slot, st in handle.snapshot.items()
+                    if engine._slots.get(slot) is st}
+            process(handle, acc)
+            self.readbacks.append((time.monotonic(), live))
+
+        def enqueued(inputs, tokens, starts, indices, graph):
+            self.dispatches.append((graph, len(engine._prefilling)))
+            return enqueue(inputs, tokens, starts, indices, graph)
+
+        def emitted(state, token, logprob):
+            if not state.emitted:
+                now = time.monotonic()
+                self.first[len(state.req.tokens)] = (state.t_submit, now)
+            return emit(state, token, logprob)
+
+        engine._process_chunk = processed
+        engine._enqueue_chunk = enqueued
+        engine._emit = emitted
+
+    def remove(self) -> None:
+        for name in ("_process_chunk", "_enqueue_chunk", "_emit"):
+            vars(self.engine).pop(name, None)
+
+    def ttft_ms(self, n_tokens: int) -> float:
+        t_submit, t_first = self.first[n_tokens]
+        return (t_first - t_submit) * 1e3
+
+    def largest_gap_ms(self, n_tokens: int) -> float:
+        """The largest gap between two consecutive decode chunks of one
+        live stream (two readbacks that both carried it) that overlaps
+        the admission of the ``n_tokens`` prompt (from its submission to
+        its first token); 0 when no stream decoded meanwhile."""
+        t_submit, t_first = self.first[n_tokens]
+        last, gaps = {}, [0.0]
+        for t, live in self.readbacks:
+            for rid, n in live:
+                if n != n_tokens and rid in last and (
+                        t_submit < t and last[rid] <= t_first):
+                    gaps.append(t - last[rid])
+                last[rid] = t
+        return max(gaps) * 1e3
+
+
+def entry_digest(engine) -> str:
+    """Digest of the paged pool's blocks that the one prefix entry
+    holds, K and V over every layer."""
+    (blocks, _), = engine._prefix_cache.values()
+    ids = list(blocks)
+    return digest(torch.stack([engine._cache.k[:, ids],
+                               engine._cache.v[:, ids]]))
+
+
+def prefix_serve(argv, tag: str, cached: bool) -> dict:
+    """Serve the prefix traffic through serve_main with ``argv``: the
+    seed, then five prompts sharing it concurrently and, once they are
+    all seated, the long prompt; then the first of the five again, alone.  Checks replies (200, the asked length),
+    drain, K1's and K2's launches over the concurrent traffic (reset
+    just before it, read just after): the tall route and K2 at t > 1
+    ``layers × (admission dispatches + non-final segments)``, the decode
+    route and K2 at t = 1 ``layers × decode passes``, no plain call; on
+    a graph engine every decode dispatch a replay, and at least one of
+    them while a prompt was mid-prefill.  With ``cached``: 5 hits,
+    ``segments_wanted`` segments, and on the paged pool the entry's
+    blocks bit-equal across the traffic and alone held after drain.
+    Returns the replies, the trace's times and the counts; the engine
+    under ``engine`` for the teacher check."""
+    from oim_tpu_torch.cli import serve_main
+    from oim_tpu_torch.ops import paged_attention as pa
+
+    args = serve_main.build_parser().parse_args(argv)
+    server = serve_main.start_server(args)
+    engine = server.engine
+    info = engine.info()["engine"]
+    trace = ServeTrace(engine)
+    try:
+        system, shared, long = prefix_traffic(args.vocab_size)
+        status, _ = post(server.port, {"tokens": system,
+                                       "max_new_tokens": PREFIX_NEW,
+                                       "cache_prefix": True})
+        check(status == 200, f"prefix {tag}: seed status {status}")
+        before = get(server.port, "/v1/stats")
+        entry = entry_digest(engine) if cached and engine.paged else None
+        pa.reset_counters()
+        bodies = [{"tokens": p, "max_new_tokens": PREFIX_NEW,
+                   "logprobs": True} for p in shared + [long]]
+        first_rid = engine._next_rid
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            futures = [pool.submit(post, server.port, b) for b in bodies[:-1]]
+            for _ in range(10000):  # every shared prompt seated
+                if (engine._next_rid >= first_rid + len(shared)
+                        and not (engine._queue or engine._admitting)):
+                    break
+                time.sleep(0.001)
+            futures.append(pool.submit(post, server.port, bodies[-1]))
+            replies = [f.result() for f in futures]
+        counts = pa.counters()
+        stats = get(server.port, "/v1/stats")
+        for _ in range(100):
+            if stats["active_slots"] == 0 and stats["prefilling"] == 0:
+                break
+            time.sleep(0.05)
+            stats = get(server.port, "/v1/stats")
+        check(stats["active_slots"] == 0 and stats["queued"] == 0
+              and stats["prefilling"] == 0,
+              f"prefix {tag}: engine did not drain: {stats}")
+        for body, (status, reply) in zip(bodies, replies):
+            check(status == 200, f"prefix {tag}: status {status}")
+            check(len(reply["tokens"]) == PREFIX_NEW,
+                  f"prefix {tag}: reply length {len(reply['tokens'])}")
+        delta = {k: stats[k] - before[k] for k in (
+            "prefill_dispatches", "prefill_segments", "decode_passes",
+            "decode_dispatches", "graph_replays", "prefix_hits",
+            "prefix_misses")}
+        chunk = info["prefill_chunk"]
+        starts = [0] * len(bodies)
+        if cached:
+            starts = [PREFIX_SYSTEM] * len(PREFIX_TAILS) + [
+                PREFIX_SYSTEM - 1, 0]
+        want_segments = sum(segments_wanted(s, len(b["tokens"]), chunk)
+                            for s, b in zip(starts, bodies))
+        non_final = delta["prefill_segments"] - len(bodies)
+        tall = args.n_layers * (delta["prefill_dispatches"] + non_final)
+        steps = args.n_layers * delta["decode_passes"]
+        print(f"prefix {tag}: {len(bodies)} requests after the seed; "
+              f"{delta}; prefix entries {stats['prefix_entries']}, blocks "
+              f"used {stats['kv_blocks_used']}, shared "
+              f"{stats['kv_blocks_shared']}; kernel counts {counts}",
+              flush=True)
+        check(delta["prefill_segments"] == want_segments,
+              f"prefix {tag}: {delta['prefill_segments']} segments, the "
+              f"formula gives {want_segments}")
+        check(counts["paged_flash_decode_tc"] == tall
+              and counts["paged_kv_store"] - counts["paged_kv_store_t1"]
+              == tall,
+              f"prefix {tag}: tall-route/K2 t>1 launches {counts} != "
+              f"{args.n_layers} x ({delta['prefill_dispatches']} admission "
+              f"dispatches + {non_final} segments)")
+        check(counts["paged_flash_decode_rows8"] == steps
+              and counts["paged_kv_store_t1"] == steps
+              and counts["paged_flash_decode_rows16"] == 0,
+              f"prefix {tag}: decode launches {counts} != {steps}")
+        check(counts["paged_flash_decode_plain"] == 0
+              and counts["paged_kv_store_plain"] == 0,
+              f"prefix {tag}: a plain version ran on the serving path")
+        if info["cuda_graphs"]:
+            while_pending = [g for g, n in trace.dispatches if n > 0]
+            check(all(g for g, _ in trace.dispatches)
+                  and delta["graph_replays"] == delta["decode_dispatches"],
+                  f"prefix {tag}: a decode dispatch ran eagerly")
+            check(len(while_pending) > 0 or not cached,
+                  f"prefix {tag}: no decode dispatch while a prompt was "
+                  f"mid-prefill")
+            print(f"prefix {tag}: {len(trace.dispatches)} decode "
+                  f"dispatches, all graph replays, {len(while_pending)} of "
+                  f"them while a prompt was mid-prefill", flush=True)
+        if cached:
+            check(delta["prefix_hits"] == len(shared),
+                  f"prefix {tag}: {delta['prefix_hits']} hits, not "
+                  f"{len(shared)}")
+        if entry is not None:
+            after = entry_digest(engine)
+            (blocks, _), = engine._prefix_cache.values()
+            print(f"prefix {tag}: the seed entry's {len(blocks)} blocks, "
+                  f"digest {entry} before the traffic, {after} after",
+                  flush=True)
+            check(after == entry, f"prefix {tag}: a shared block changed")
+            check(stats["kv_blocks_used"] == len(set(blocks)),
+                  f"prefix {tag}: {stats['kv_blocks_used']} blocks used "
+                  f"after drain, the entry holds {len(set(blocks))}")
+        out = {"replies": [r for _, r in replies], "bodies": bodies,
+               "ttft_ms": trace.ttft_ms(len(shared[0])),
+               "gap_ms": trace.largest_gap_ms(PREFIX_LONG),
+               "counts": counts, "delta": delta, "engine": engine}
+        # The first hit again, alone on the idle engine: its time to first
+        # token (client wall, HTTP included) without the concurrent
+        # traffic's arrival order in it.
+        t0 = time.monotonic()
+        post(server.port, {"tokens": shared[0], "max_new_tokens": 1})
+        out["lone_ms"] = (time.monotonic() - t0) * 1e3
+    finally:
+        trace.remove()
+        server.stop()
+    return out
+
+
+def prefix_phase() -> dict:
+    """The prefix cache and chunked prefill at Qwen2.5-1.5B's widths, on
+    serve_main's defaults (dense, depth 2, graphs) and with --kv-block 16
+    (paged, depth 2, graphs): each layout serves the prefix traffic with
+    ``PREFIX_FLAGS`` and again with neither flag (the control), prints
+    the 24-token-tail hit's time to first token on both, the largest gap
+    between decode chunks while the long prompt admits on both, and how
+    many replies the two runs share token for token, and teacher-checks
+    every reply the cached run served.  Returns the cached runs' K1/K2
+    counts and those times by layout."""
+    counts = {}
+    for layout, extra in (("dense", []), ("paged", ["--kv-block", "16"])):
+        cached = prefix_serve(SERVE_ARGS + extra + PREFIX_FLAGS,
+                              f"{layout} cached", True)
+        plain = prefix_serve(SERVE_ARGS + extra, f"{layout} control", False)
+        same = sum(a["tokens"] == b["tokens"]
+                   for a, b in zip(cached["replies"], plain["replies"]))
+        print(f"prefix {layout}: hit TTFT (the {PREFIX_TAILS[0]}-token "
+              f"tail) alone {cached['lone_ms']:.1f} ms cached vs "
+              f"{plain['lone_ms']:.1f} ms with no prefix cache, in the "
+              f"concurrent traffic {cached['ttft_ms']:.1f} vs "
+              f"{plain['ttft_ms']:.1f} ms; largest gap "
+              f"between decode chunks while the {PREFIX_LONG}-token prompt "
+              f"admits {cached['gap_ms']:.1f} ms with "
+              f"{' '.join(PREFIX_FLAGS[2:])}, {plain['gap_ms']:.1f} ms "
+              f"without; {same} of "
+              f"{len(plain['replies'])} replies token-identical to the "
+              f"control run [{SMI}]", flush=True)
+        plain.pop("engine")
+        engine = cached.pop("engine")
+        checked = list(zip(cached["bodies"], cached["replies"]))
+        teacher_check(engine, checked, f"prefix {layout}")
+        del engine
+        release()
+        check(torch.cuda.memory_allocated() < 2**30,
+              f"the prefix phase still holds "
+              f"{gib(torch.cuda.memory_allocated()):.1f} GiB")
+        counts[layout] = dict(cached["counts"], ttft_ms=cached["ttft_ms"],
+                              control_ttft_ms=plain["ttft_ms"],
+                              lone_ttft_ms=cached["lone_ms"],
+                              control_lone_ttft_ms=plain["lone_ms"],
+                              gap_ms=cached["gap_ms"],
+                              control_gap_ms=plain["gap_ms"],
+                              identical=same)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1898,12 +2238,67 @@ def train_phase(record: dict) -> dict:
 # MoE phases
 
 
-def moe_train_kernels() -> None:
+# RMSNorm's wide route (rows past one warp's registers), held against
+# plain at these (dtype, width) pairs: the first is the MoE training's
+# f32 first step, where the main path launches it.
+WIDE_NORMS = ((torch.float32, 4096), (torch.float32, 8192),
+              (torch.bfloat16, 8192))
+
+
+def rmsnorm_wide_phase(gen, rows: int) -> dict:
+    """RMSNorm's wide route on [rows, d] at ``WIDE_NORMS``: the route the
+    wrapper picks, the plain version's numbers within the register
+    route's tolerance, two launches bit-equal, then timed beside the
+    plain version, ``F.rms_norm`` and the byte bound.  Returns the
+    record at the first pair."""
+    import torch.nn.functional as F
+
+    from oim_tpu_torch.ops import rmsnorm as rn
+
+    record = None
+    for xdt, d in WIDE_NORMS:
+        x = (torch.randn((rows, d), generator=gen, device=DEV) * 3).to(xdt)
+        w = torch.rand(d, generator=gen, device=DEV) + 0.5
+        tag = f"x {str(xdt)[6:]} w float32 [{rows}, {d}]"
+        check(rn.rmsnorm_route(d, xdt) == "wide",
+              f"rmsnorm {tag} does not take the wide route")
+        before = rn.counters()
+        got = rn.rmsnorm_fwd(x, w, 1e-5)
+        again = rn.rmsnorm_fwd(x, w, 1e-5)
+        want = rn.rmsnorm_plain(x, w, 1e-5)
+        torch.cuda.synchronize()
+        check(rn.counters()["rmsnorm_wide"] - before["rmsnorm_wide"] == 2,
+              f"rmsnorm {tag}: the wide kernel did not launch")
+        err, rel = rel_err(got, want)
+        check(rel <= TRAIN_TOL[xdt], f"rmsnorm {tag} disagrees: {rel}")
+        check(torch.equal(got, again),
+              f"rmsnorm {tag}: two launches give other bits")
+        ms = time_ms(lambda: rn.rmsnorm_fwd(x, w, 1e-5))
+        plain_ms = time_ms(lambda: rn.rmsnorm_plain(x, w, 1e-5))
+        wl = w.to(xdt)
+        lib_ms = time_ms(lambda: F.rms_norm(x, (d,), wl, 1e-5))
+        moved = 2 * x.numel() * x.element_size() + w.numel() * 4
+        bnd, by = bound(moved, 4 * x.numel(), torch.float32)
+        print(f"rmsnorm wide route {tag}: max_abs_err={err:.3e} rel="
+              f"{rel:.3e} (tol {TRAIN_TOL[xdt]:.3e} of max); two launches "
+              f"bit-equal; {ms:.4f} ms (plain {plain_ms:.4f}, F.rms_norm "
+              f"{lib_ms:.4f}, bound {bnd:.5f} by {by}; {ms / lib_ms:.2f}x "
+              f"F.rms_norm, {bnd / ms:.0%} of the byte bound) [{SMI}]",
+              flush=True)
+        if record is None:
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+    return record
+
+
+def moe_train_kernels() -> dict:
     """RMSNorm, the three flash kernels and fused CE at the MoE training
     shapes (bf16: rows 2 x 1024 of width 4096; flash B=2, T=1024, 32 / 8
     heads, group 4, so dkv sums 4 q heads a kv head; fused CE at V =
     32000, one partial chunk of the wgmma route's 32768 columns), held
-    against their plain versions (and flash once in f32), then timed."""
+    against their plain versions (and flash once in f32), then timed;
+    RMSNorm's wide route at the same rows (``rmsnorm_wide_phase``),
+    whose record it returns."""
     import torch.nn.functional as F
 
     from oim_tpu_torch.ops import flash_attention as fa
@@ -1923,6 +2318,7 @@ def moe_train_kernels() -> None:
           f"rel={rel:.3e}; {time_ms(lambda: rn.rmsnorm_fwd(x, w, 1e-5)):.4f}"
           f" ms (F.rms_norm {time_ms(lambda: F.rms_norm(x, (MOE_D,), w.to(x.dtype), 1e-5)):.4f}) [{SMI}]",
           flush=True)
+    wide = rmsnorm_wide_phase(gen, rows)
     for dtype in (torch.float32, torch.bfloat16):
         q, do = (torch.randn((b, t, MOE_H, HD), generator=gen,
                              device=DEV).to(dtype) for _ in range(2))
@@ -1958,20 +2354,24 @@ def moe_train_kernels() -> None:
           flush=True)
     del xc, wc, labels, g, lse
     torch.cuda.empty_cache()
+    return wide
 
 
-def moe_train_phase() -> dict:
+def moe_train_phase(record: dict) -> dict:
     """Train the MoE model at Mixtral's widths, 2 layers, batch 2 x 1024,
     f32 masters with bf16 compute and the router z-loss on, through the
     port's train_main entry: finite losses, an aux above 0 every step,
-    the launch formulas at L = 2, and the first step against a plain f32
-    path.  Returns the run's launch counts."""
+    the launch formulas at L = 2, and the first step in bf16 and in f32
+    against a plain f32 path (in f32, each 4096-wide row, 16384 bytes,
+    takes RMSNorm's wide route).  Puts the wide route's record into
+    ``record``; returns the run's launch counts, with the wide route's
+    launches of the f32 first step under ``rmsnorm_wide``."""
     from oim_tpu_torch.cli import train_main
     from oim_tpu_torch.ops import flash_attention as fa
     from oim_tpu_torch.ops import fused_ce as fc
     from oim_tpu_torch.ops import rmsnorm as rn
 
-    moe_train_kernels()
+    record["rmsnorm_wide"] = moe_train_kernels()
     args = train_main.build_parser().parse_args(MOE_TRAIN_ARGS)
     torch.cuda.reset_peak_memory_stats()
     for mod in (rn, fa, fc):
@@ -1995,13 +2395,22 @@ def moe_train_phase() -> dict:
     check_train_counts(counts, MOE_TRAIN_STEPS, args)
     del result
     torch.cuda.empty_cache()
-    # bf16 compute only: in f32 a 4096-wide row is 16384 bytes, over the
-    # RMSNorm kernel's 8192 (ops/rmsnorm.py MAX_ROW_BYTES; ROADMAP Queue
-    # C2), so the f32 kernel path does not run at this width.
-    print(f"moe train: the f32 kernel path is not checked: a row of "
-          f"{MOE_D} f32 is {4 * MOE_D} bytes, over the RMSNorm kernel's "
-          f"{rn.MAX_ROW_BYTES}", flush=True)
-    step_parity(args, "moe train", (torch.bfloat16,))
+    # Memory of the first-step parity, f32 included: the f32 masters of
+    # 2 layers (12.7 GB), three sets of gradients at once (the plain
+    # path's routing freely, the kernel path's, the plain path's forced;
+    # 38 GB) and one forward's activations, under 4 GB in f32 at 2 x
+    # 1024: batch 2 fits the card.
+    rn.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    step_parity(args, "moe train", (torch.bfloat16, torch.float32))
+    norms = rn.counters()
+    print(f"moe train: first-step parity in bf16 and f32, peak "
+          f"{gib(torch.cuda.max_memory_allocated()):.1f} GiB; RMSNorm "
+          f"launches {norms} (the wide route: the f32 step's 4096-wide "
+          f"rows)", flush=True)
+    check(norms["rmsnorm_wide"] > 0 and norms["rmsnorm_plain"] == 0,
+          f"the f32 first step did not take RMSNorm's wide route: {norms}")
+    counts["rmsnorm_wide"] = norms["rmsnorm_wide"]
     return counts
 
 
@@ -2049,7 +2458,7 @@ def moe_phases(record: dict) -> dict:
     held = torch.cuda.memory_allocated()
     check(held < 2**30, f"the MoE serve phase still holds {gib(held):.1f} "
           f"GiB")
-    counts["train"] = moe_train_phase()
+    counts["train"] = moe_train_phase(record)
     return counts
 
 
@@ -2240,21 +2649,28 @@ def parse_args(argv):
              "with the references left sound, and fail as the smoke must: "
              "exit 1 when both checks caught it, 0 when one passed")
     only.add_argument(
+        "--prefix-phase-only", action="store_true",
+        help="build the kernels and run only the prefix phase (the prefix "
+             "cache and chunked prefill on both layouts, each beside its "
+             "control run), printing its counts and times as the last line")
+    only.add_argument(
         "--serve-phase-only", action="store_true",
         help="build the kernels and run only the serve phase, printing its "
              "kernel counts and times to first token as the last line")
     parser.add_argument(
         "--package", default=HERE, metavar="DIR",
         help="the checkout whose oim_tpu_torch to load (default: this "
-             "one); with --kernel-phase-only, --train-phase-only or "
-             "--serve-phase-only, another checkout's build is run on the "
-             "same inputs")
+             "one); with --kernel-phase-only, --train-phase-only, "
+             "--serve-phase-only or --prefix-phase-only, another "
+             "checkout's build is run on the same inputs")
     args = parser.parse_args(argv)
     if args.package != HERE and not (args.kernel_phase_only
                                      or args.train_phase_only
-                                     or args.serve_phase_only):
+                                     or args.serve_phase_only
+                                     or args.prefix_phase_only):
         parser.error("--package needs --kernel-phase-only, "
-                     "--train-phase-only or --serve-phase-only")
+                     "--train-phase-only, --serve-phase-only or "
+                     "--prefix-phase-only")
     return args
 
 
@@ -2320,18 +2736,32 @@ def main(argv=None) -> int:
         print(json.dumps({"package": package, "moe": moe,
                           "kernel_phase": record}), flush=True)
         return 0
+    if args.prefix_phase_only:
+        from oim_tpu_torch.cli import serve_main
+
+        if "prefix_cache" not in vars(serve_main.build_parser().parse_args(
+                [])):
+            print("chip_smoke: this package serves no prefix cache",
+                  file=sys.stderr)
+            return 3
+        print(json.dumps({"package": package, "prefix": prefix_phase()}),
+              flush=True)
+        return 0
     record = kernel_phase()
     if args.kernel_phase_only:
         compared = compare_phase()
         print(json.dumps({"package": package, "kernel_phase": record,
                           "compare": compared}), flush=True)
         return 0
+    record.update(segment_kernel_phase())
     record.update(train_kernel_phase())
     record.update(fused_ce_phase())
     # The main path: serve_main's defaults.  Then the paged engine's
-    # serial loop, with its own counts.
+    # serial loop, and the prefix cache with chunked prefill on both
+    # layouts, each with its own counts.
     counts = serve_phase(SERVE_ARGS, "default")
     paged_counts = serve_phase(PAGED_SERVE_ARGS, "paged")
+    prefix_counts = prefix_phase()
     counts.update(train_phase(record))
     work = tempfile.mkdtemp(prefix=".smoke-ckpt-", dir=HERE)
     try:
@@ -2401,9 +2831,36 @@ def main(argv=None) -> int:
         f"serve phase, Mixtral-8x7B widths at {MOE_LAYERS} layers",
         moe_counts, "_moe",
     ) + [
+        dict(name=f"{kernel} at a chunked-prefill segment (t="
+                  f"{SEGMENT_T} from start {start}; {layout}: the prefix "
+                  f"phase's cached run, its launches at every segment and "
+                  f"admission)",
+             route="cuda", source="oim_tpu_torch/csrc/paged_attention.cu",
+             replaces=replaces,
+             launches=(prefix_counts[layout]["paged_flash_decode_tc"]
+                       if key == "K1s" else
+                       prefix_counts[layout]["paged_kv_store"]
+                       - prefix_counts[layout]["paged_kv_store_t1"]),
+             **record[f"{key}{start}_{layout}"])
+        for layout in ("dense", "paged") for start in SEGMENT_STARTS
+        for key, kernel, replaces in (
+            ("K1s", "paged_flash_decode (K1, tall route: "
+                    "paged_prefill_tc_kernel)",
+             "oim_tpu/ops/paged_attention.py:93"),
+            ("K2s", "paged_kv_store (K2)",
+             "oim_tpu/ops/paged_attention.py:265"))
+    ] + [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=counts[name], **record[name])
         for name, (source, replaces) in sources.items()
+    ] + [
+        dict(name=f"rmsnorm (wide route: rmsnorm_wide_kernel, rows past a "
+                  f"warp's registers; f32 [{MOE_TRAIN_B * TRAIN_T}, "
+                  f"{MOE_D}]: the MoE training's f32 first step)",
+             route="cuda", source="oim_tpu_torch/csrc/rmsnorm.cu",
+             replaces="oim_tpu/ops/rmsnorm.py:27",
+             launches=moe_counts["train"]["rmsnorm_wide"],
+             **record["rmsnorm_wide"])
     ]
     print(SMI, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

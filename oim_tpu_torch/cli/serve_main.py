@@ -141,6 +141,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--top-p", type=float, default=1.0)
     p.add_argument(
+        "--prefill-chunk", type=int, default=0, metavar="T",
+        help="chunked prefill: admit long prompts in T-token KV-write "
+        "segments, one an admission wave, so decode chunks of live "
+        "streams run between them (T one of the prompt buckets; 0 = "
+        "one-shot prefill)",
+    )
+    p.add_argument(
+        "--prefix-cache", type=int, default=0, metavar="N",
+        help="cache up to N prompt-KV entries (requests marked "
+        "cache_prefix); later prompts sharing a cached prefix skip "
+        "re-prefilling it",
+    )
+    p.add_argument(
         "--no-penalties", action="store_true",
         help="disable sampling-penalty support (repetition/presence/"
         "frequency): skips the per-slot [n_slots, vocab] occurrence "
@@ -213,6 +226,8 @@ def make_engine(args, cuda_graphs: bool = True) -> Engine:
         top_k=args.top_k,
         top_p=args.top_p,
         kv_int8=args.kv_int8,
+        prefix_cache_size=args.prefix_cache,
+        prefill_chunk=args.prefill_chunk,
         penalties=not args.no_penalties,
         max_queue=args.max_queue,
         pipeline_depth=args.pipeline_depth,
@@ -231,7 +246,8 @@ def start_server(args) -> ServeServer:
         f"oim-serve listening host={server.host!r} port={server.port} "
         f"n_slots={args.n_slots} max_len={args.max_len} "
         f"kv_block={args.kv_block} pipeline_depth={args.pipeline_depth} "
-        f"device={engine.device}",
+        f"prefix_cache={args.prefix_cache} "
+        f"prefill_chunk={args.prefill_chunk} device={engine.device}",
         file=sys.stderr, flush=True,
     )
     return server

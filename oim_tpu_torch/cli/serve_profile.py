@@ -2,15 +2,19 @@
 served model's full width, profiled with ``torch.profiler``.
 
 Builds the engine as ``serve_main`` does (same geometry and engine
-flags — ``--kv-block``, ``--pipeline-depth`` — and random weights from
-``--seed``) and warms it; ``--eager`` dispatches each decode chunk
-eagerly instead of replaying its CUDA graph (the A/B control, a switch
-of this tool only).  Prompt lengths are spread over the slots up to
-``--max-len``.  Two windows:
+flags — ``--kv-block``, ``--pipeline-depth``, ``--prefix-cache``,
+``--prefill-chunk`` — and random weights from ``--seed``) and warms
+it; ``--eager`` dispatches each decode chunk eagerly instead of
+replaying its CUDA graph (the A/B control, a switch of this tool
+only).  Prompt lengths are spread over the slots up to ``--max-len``.
+Two windows:
 
 - admission: one wave of one request per slot, admitted in one
   ``step()`` that also dispatches one decode chunk (at depth 2 the step
-  first reads back the chunk the wave before left in flight);
+  first reads back the chunk the wave before left in flight); with
+  ``--prefill-chunk T`` a prompt longer than T writes one T-token
+  segment in the wave and the profiled wave also advances the timed
+  wave's pending prompts by one segment each;
 - decode: every slot seated, ``DECODE_STEPS`` steps, each dispatching
   one chunk of ``--chunk`` passes (at depth 2 while reading back the
   one before).
@@ -33,7 +37,7 @@ is one JSON object with those numbers.  Run on the machine with the GPU:
         --vocab-size 151936 --d-model 1536 --n-layers 28 --n-heads 12 \\
         --n-kv-heads 2 --d-ff 8960 --rope-theta 1000000 --attn-bias \\
         --max-len 2048 --n-slots 8 --chunk 8 [--kv-block 16] \\
-        [--pipeline-depth 1] [--eager]
+        [--pipeline-depth 1] [--prefill-chunk 256] [--eager]
 """
 
 from __future__ import annotations
@@ -182,6 +186,8 @@ def main(argv=None) -> int:
     counts = paged_attention.counters()
     config = {"kv_block": args.kv_block,
               "pipeline_depth": args.pipeline_depth,
+              "prefix_cache": args.prefix_cache,
+              "prefill_chunk": args.prefill_chunk,
               "cuda_graphs": engine.cuda_graphs}
     per_chunk = {"wall_ms": decode["wall_ms"] / DECODE_STEPS,
                  "device_ms": (None if decode["device_ms"] is None

@@ -24,6 +24,18 @@
 // then a butterfly over the warp), so the outputs are unchanged bit for
 // bit.  The TPU kernel's 256-row VMEM tile becomes a warp's walk; the
 // walk covers the rows, so a ragged row count needs no padding.
+//
+// Rows wider than a lane's registers hold (more than 16 chunks a lane:
+// f32 past 2048, bf16 past 4096) take rmsnorm_wide_kernel, which
+// ops/rmsnorm.py picks from the row width: one block of kWideThreads
+// threads a row walks it twice, 16-byte loads in both passes.  The
+// first pass sums squares in f32 in a fixed order (each thread over
+// its chunks tid, tid + kWideThreads, ... in turn, a butterfly over its
+// warp, then the warps' sums in warp order, which every thread reads
+// alike), so the bits do not change from launch to launch; the second
+// reads the row again (from L2: a row is at most a few tens of KB),
+// scales it, multiplies by the weight and stores.  Still bound by
+// bytes: the second read is the one cost over the register route.
 #include "rmsnorm.cuh"
 
 #include <math.h>
@@ -34,6 +46,8 @@ using namespace oim;
 
 constexpr int kWarps = 8;
 constexpr int kBlocksPerSm = 2;
+constexpr int kWideThreads = 256;
+constexpr int kWideBlocksPerSm = 8;
 
 // The kE weights of one chunk of x, widened to f32, from 16-byte (or,
 // for 4 bf16 weights, 8-byte) loads.
@@ -159,6 +173,65 @@ cudaError_t dispatch_chunks(const void* x, const void* w, void* out,
   }
 }
 
+template <typename XT, typename WT>
+__global__ void __launch_bounds__(kWideThreads) rmsnorm_wide_kernel(
+    const XT* __restrict__ x, const WT* __restrict__ w, XT* __restrict__ out,
+    int rows, int d, float eps) {
+  constexpr int kE = kChunk<XT>;
+  constexpr int kWideWarps = kWideThreads / 32;
+  __shared__ float partial[kWideWarps];
+  const int n_chunks = d / kE;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const XT* xr = x + static_cast<size_t>(row) * d;
+    float ss = 0.f;
+    for (int c = threadIdx.x; c < n_chunks; c += kWideThreads) {
+      float v[kE];
+      unpack_chunk<XT>(load_chunk(xr + c * kE), 1.f, v);
+#pragma unroll
+      for (int i = 0; i < kE; ++i) ss += v[i] * v[i];
+    }
+    ss = warp_sum(ss);
+    if (threadIdx.x % 32 == 0) partial[threadIdx.x / 32] = ss;
+    __syncthreads();
+    float total = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWideWarps; ++i) total += partial[i];
+    __syncthreads();  // every thread has read partial before the next row
+    const float inv = rsqrtf(total / static_cast<float>(d) + eps);
+    XT* outr = out + static_cast<size_t>(row) * d;
+    for (int c = threadIdx.x; c < n_chunks; c += kWideThreads) {
+      float v[kE], wv[kE];
+      unpack_chunk<XT>(load_chunk(xr + c * kE), 1.f, v);
+      load_weights<WT, kE>(w + c * kE, wv);
+      uint4 packed;
+      XT* e = reinterpret_cast<XT*>(&packed);
+#pragma unroll
+      for (int i = 0; i < kE; ++i) from_f32(v[i] * inv * wv[i], e + i);
+      *reinterpret_cast<uint4*>(outr + c * kE) = packed;
+    }
+  }
+}
+
+template <typename XT, typename WT>
+cudaError_t launch_wide(const void* x, const void* w, void* out, int rows,
+                        int d, float eps, int sms, cudaStream_t stream) {
+  const int blocks =
+      rows < kWideBlocksPerSm * sms ? rows : kWideBlocksPerSm * sms;
+  rmsnorm_wide_kernel<XT, WT><<<blocks, kWideThreads, 0, stream>>>(
+      static_cast<const XT*>(x), static_cast<const WT*>(w),
+      static_cast<XT*>(out), rows, d, eps);
+  return cudaGetLastError();
+}
+
+// The SM count of the current device, or the error that stopped the
+// query.
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
 }  // namespace
 
 extern "C" int oim_rmsnorm(const void* x, int x_dtype, const void* w,
@@ -168,10 +241,8 @@ extern "C" int oim_rmsnorm(const void* x, int x_dtype, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int elems = x_dtype == kOimF32 ? kChunk<float> : kChunk<__nv_bfloat16>;
   if (d <= 0 || d % elems != 0) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int want = (rows + kWarps - 1) / kWarps;
   const int blocks =
@@ -187,5 +258,27 @@ extern "C" int oim_rmsnorm(const void* x, int x_dtype, const void* w,
   if (x_dtype == kOimBF16 && w_dtype == kOimBF16)
     return dispatch_chunks<__nv_bfloat16, __nv_bfloat16>(x, w, out, rows, d,
                                                          eps, blocks, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int oim_rmsnorm_wide(const void* x, int x_dtype, const void* w,
+                                int w_dtype, void* out, int rows, int d,
+                                float eps, void* stream) {
+  if (rows == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int elems = x_dtype == kOimF32 ? kChunk<float> : kChunk<__nv_bfloat16>;
+  if (d <= 0 || d % elems != 0) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  if (x_dtype == kOimF32 && w_dtype == kOimF32)
+    return launch_wide<float, float>(x, w, out, rows, d, eps, sms, s);
+  if (x_dtype == kOimF32 && w_dtype == kOimBF16)
+    return launch_wide<float, __nv_bfloat16>(x, w, out, rows, d, eps, sms, s);
+  if (x_dtype == kOimBF16 && w_dtype == kOimF32)
+    return launch_wide<__nv_bfloat16, float>(x, w, out, rows, d, eps, sms, s);
+  if (x_dtype == kOimBF16 && w_dtype == kOimBF16)
+    return launch_wide<__nv_bfloat16, __nv_bfloat16>(x, w, out, rows, d, eps,
+                                                     sms, s);
   return cudaErrorInvalidValue;
 }

@@ -18,6 +18,12 @@ extern "C" {
 int oim_rmsnorm(const void* x, int x_dtype, const void* w, int w_dtype,
                 void* out, int rows, int d, float eps, void* stream);
 
+// The same function for rows of any width (d a multiple of 16 bytes'
+// worth of x's elements): one 256-thread block a row, two passes over
+// it.  The grid is at most eight blocks an SM, each walking rows.
+int oim_rmsnorm_wide(const void* x, int x_dtype, const void* w, int w_dtype,
+                     void* out, int rows, int d, float eps, void* stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -66,6 +66,8 @@ _SIGNATURES = {
     ),
     # x, x_dtype, w, w_dtype, out, rows, d, eps, stream
     "oim_rmsnorm": (_P, _I, _P, _I, _P, _I, _I, ctypes.c_float, _P),
+    # the same arguments: rows too wide for one warp's registers
+    "oim_rmsnorm_wide": (_P, _I, _P, _I, _P, _I, _I, ctypes.c_float, _P),
     # q, k, v, dtype, segments, out, lse, B, T, H, KVH, hd, causal,
     # window, stream
     "oim_flash_fwd": (

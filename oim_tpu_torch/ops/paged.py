@@ -14,6 +14,10 @@ Stores update the pool IN PLACE (the JAX versions return new arrays):
 the engine owns one pool and never needs the old contents back, so a
 functional copy would only cost a second pool's worth of memory.
 
+``copy_block``, ``write_block`` and ``read_block`` move whole blocks of
+a stacked pool [n_layers, n_blocks, ...]: copy-on-write of a shared
+prefix block, and the block movements of later features.
+
 Pool contents must stay finite: attention masks the weight of a
 position, and ``0 × NaN`` would still poison the output.
 """
@@ -91,3 +95,27 @@ def paged_view(cache, scale, tables):
         return view, None
     sview = scale[idx].reshape(b, n_tables * scale.shape[1], *scale.shape[2:])
     return view, sview
+
+
+def copy_block(pool, src: int, dst: int):
+    """Copy block ``src`` of a stacked pool [n_layers, n_blocks, ...] to
+    block ``dst``, in place — the device half of copy-on-write: the
+    allocator picks ``dst`` fresh and the engine repoints the diverging
+    slot's table at it, so the shared ``src`` is never written again.
+    Returns ``pool``."""
+    pool[:, dst].copy_(pool[:, src])
+    return pool
+
+
+def write_block(pool, row, dst: int):
+    """Write one block's rows ``row`` [n_layers, block_size, ...] at block
+    ``dst`` of a stacked pool [n_layers, n_blocks, ...], in place.
+    Returns ``pool``."""
+    pool[:, dst].copy_(row)
+    return pool
+
+
+def read_block(pool, src: int):
+    """A copy of block ``src``'s rows [n_layers, block_size, ...] of a
+    stacked pool [n_layers, n_blocks, ...]."""
+    return pool[:, src].clone()

@@ -3,16 +3,19 @@ differentiable ``rmsnorm`` the training forward calls.
 
 ``rmsnorm_fwd`` launches ``csrc/rmsnorm.cu`` ``rmsnorm_kernel``, which
 replaces ``oim_tpu/ops/rmsnorm.py`` ``_kernel``, for CUDA tensors (or
-raises) and runs ``rmsnorm_plain`` only for CPU tensors.  ``rmsnorm``
+raises) and runs ``rmsnorm_plain`` only for CPU tensors.  Like the
+reference's kernel it takes rows of any width: ``rmsnorm_route`` sends
+rows that fit one warp's registers to ``rmsnorm_kernel`` and wider ones
+to ``rmsnorm_wide_kernel`` (a block a row, two passes).  ``rmsnorm``
 is a ``torch.autograd.Function`` like the reference's custom_vjp: the
 forward goes through ``rmsnorm_fwd``, the backward recomputes through
 ``reference_rmsnorm`` (no backward kernel; RMSNorm is cheap to redo).
 The serving path calls ``reference_rmsnorm`` directly, as the
 reference's engine forces ``use_pallas=False``.
 
-``rmsnorm_fwd.launches`` counts kernel launches and
-``rmsnorm_plain.calls`` plain runs in its place; the backward's
-recompute is neither.
+``rmsnorm_fwd.launches`` counts kernel launches (``.wide_launches``
+those of the wide route among them) and ``rmsnorm_plain.calls`` plain
+runs in its place; the backward's recompute is neither.
 """
 
 from __future__ import annotations
@@ -21,9 +24,17 @@ import torch
 
 from oim_tpu_torch.ops import _build
 
-# The kernel keeps a row in registers: at most 16 chunks of 16 bytes per
-# lane of one warp.
+# The register route keeps a row in one warp's registers: at most 16
+# chunks of 16 bytes a lane.  Wider rows take the wide route.
 MAX_ROW_BYTES = 16 * 16 * 32
+
+
+def rmsnorm_route(d: int, dtype) -> str:
+    """The kernel a row of ``d`` elements of ``dtype`` takes: "rows"
+    (``rmsnorm_kernel``, the row in a warp's registers) when it fits
+    ``MAX_ROW_BYTES``, else "wide" (``rmsnorm_wide_kernel``)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return "rows" if d * itemsize <= MAX_ROW_BYTES else "wide"
 
 
 def reference_rmsnorm(x, w, eps: float = 1e-6):
@@ -46,9 +57,9 @@ rmsnorm_plain.calls = 0
 
 
 def _check_kernel_operands(x, w) -> None:
-    """Raise unless the kernel takes these operands: x f32/bf16 [..., D]
-    with rows of whole 16-byte chunks, at most ``MAX_ROW_BYTES`` long,
-    16-byte aligned; w [D] f32/bf16 on x's device."""
+    """Raise unless the kernels take these operands: x f32/bf16 [..., D]
+    with rows of whole 16-byte chunks, 16-byte aligned; w [D] f32/bf16
+    on x's device."""
     d = x.shape[-1]
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype not in (
             torch.float32, torch.bfloat16):
@@ -57,10 +68,10 @@ def _check_kernel_operands(x, w) -> None:
     if tuple(w.shape) != (d,):
         raise ValueError(f"rmsnorm: w {tuple(w.shape)} must be [{d}]")
     row_bytes = d * x.element_size()
-    if row_bytes % 16 or row_bytes > MAX_ROW_BYTES:
+    if row_bytes % 16:
         raise ValueError(
-            f"rmsnorm kernel needs rows of whole 16-byte chunks, at most "
-            f"{MAX_ROW_BYTES} bytes; got {d} x {x.dtype}")
+            f"rmsnorm kernel needs rows of whole 16-byte chunks; got {d} x "
+            f"{x.dtype}")
     if w.device != x.device:
         raise ValueError(f"rmsnorm: w on {w.device}, expected {x.device}")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
@@ -78,17 +89,22 @@ def rmsnorm_fwd(x, w, eps: float = 1e-6):
     _check_kernel_operands(x, w)
     out = torch.empty_like(x)
     d = x.shape[-1]
-    code = _build.library().oim_rmsnorm(
+    wide = rmsnorm_route(d, x.dtype) == "wide"
+    lib = _build.library()
+    entry = lib.oim_rmsnorm_wide if wide else lib.oim_rmsnorm
+    code = entry(
         _build.ptr(x), _build.DTYPE_CODES[x.dtype],
         _build.ptr(w), _build.DTYPE_CODES[w.dtype],
         _build.ptr(out), x.numel() // d, d, float(eps), _build.stream_of(x),
     )
-    _build.check(code, "rmsnorm")
+    _build.check(code, "rmsnorm_wide" if wide else "rmsnorm")
     rmsnorm_fwd.launches += 1
+    rmsnorm_fwd.wide_launches += int(wide)
     return out
 
 
 rmsnorm_fwd.launches = 0
+rmsnorm_fwd.wide_launches = 0
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -122,10 +138,12 @@ def rmsnorm(x, w, eps: float = 1e-6):
 def reset_counters() -> None:
     """Zero the launch and plain-call counts."""
     rmsnorm_fwd.launches = 0
+    rmsnorm_fwd.wide_launches = 0
     rmsnorm_plain.calls = 0
 
 
 def counters() -> dict:
     """Current launch and plain-call counts by name."""
     return {"rmsnorm": rmsnorm_fwd.launches,
+            "rmsnorm_wide": rmsnorm_fwd.wide_launches,
             "rmsnorm_plain": rmsnorm_plain.calls}

@@ -28,6 +28,17 @@ paths:
   the host, ``chunk`` further on.  Admissions join at pipeline
   boundaries.  EOS lags by at most one chunk (two at depth 2): bounded
   waste, never wrong tokens, since the host truncates.
+- **A prefix cache and chunked prefill.**  ``prefix_cache_size`` keeps
+  the prompt KV of requests marked ``cache_prefix`` (LRU): a later
+  prompt sharing one starts its prefill at the shared length — on the
+  dense layout from a copy of the entry's rows, on the paged pool by
+  aliasing the entry's full blocks (refcounts) and copying the one
+  block a hit ends inside (copy-on-write).  ``prefill_chunk`` writes a
+  long prompt's KV in segments of that many tokens, one a wave, so
+  decode chunks of the live slots run between them.  A row that is not
+  live in a decode chunk reads and writes no KV (its table row is the
+  sentinel), so a pending prefill's rows and a shared block stay as
+  they were.
 - **One CUDA graph per decode chunk.**  On the GPU a decode chunk — its
   ``chunk`` passes through every layer and the sampling — is one
   ``torch.cuda.CUDAGraph`` replay over inputs and outputs at fixed
@@ -50,7 +61,7 @@ from __future__ import annotations
 import statistics
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -73,6 +84,7 @@ from oim_tpu_torch.models.transformer import (
 )
 from oim_tpu_torch.models.weights import n_params, to_device
 from oim_tpu_torch.ops import paged_attention
+from oim_tpu_torch.ops.paged import copy_block
 from oim_tpu_torch.ops.paged_attention import (
     MAX_BLOCK_SIZE,
     paged_flash_prefill,
@@ -188,7 +200,10 @@ class SlotCache:
 class BlockAllocator:
     """Host-side refcounted allocator over the pool's block ids.  Pure
     bookkeeping under the engine's lock; ``alloc`` is all-or-nothing
-    (a shortage is queue backpressure, never a partial slot)."""
+    (a shortage is queue backpressure, never a partial slot).  A prefix
+    entry and every slot aliasing it each hold one ref on the shared
+    blocks; the last ``decref`` frees a block, so a shared block (ref >
+    1) is never on the free list.  Copy-on-write is the engine's."""
 
     def __init__(self, n_blocks: int):
         if n_blocks < 1:
@@ -204,6 +219,22 @@ class BlockAllocator:
     @property
     def used_blocks(self) -> int:
         return self.n_blocks - len(self._free)
+
+    @property
+    def shared_blocks(self) -> int:
+        """Blocks with more than one owner."""
+        return int(np.sum(self._refs > 1))
+
+    def exclusive(self, ids) -> int:
+        """How many of ``ids`` have exactly one owner: what one decref
+        of them would return to the pool."""
+        return int(sum(1 for b in ids if self._refs[b] == 1))
+
+    def incref(self, ids) -> None:
+        for b in ids:
+            if self._refs[b] <= 0:
+                raise ValueError(f"incref of free block {b}")
+            self._refs[b] += 1
 
     def alloc(self, n: int) -> list[int] | None:
         """``n`` fresh blocks at ref 1, or None (all-or-nothing)."""
@@ -494,9 +525,10 @@ class GenRequest:
     instant (None = none).  ``sample_base`` offsets every sampled
     token's noise index: a continuation that resends the prompt plus the
     k tokens a client already holds, with ``sample_base = k``, draws the
-    uninterrupted stream's noise from token k on.  ``cache_prefix``,
-    ``hold_kv`` and ``kv_import`` belong to features not ported yet and
-    are refused at submission when set."""
+    uninterrupted stream's noise from token k on.  ``cache_prefix``
+    stores the prompt's KV in the prefix cache (ignored when the engine
+    has none).  ``hold_kv`` and ``kv_import`` belong to features not
+    ported yet and are refused at submission when set."""
 
     tokens: list[int]
     max_new_tokens: int
@@ -552,6 +584,24 @@ class RequestFailedError(RuntimeError):
         )
         self.rid = rid
         self.kind = kind
+
+
+@dataclass
+class _PendingPrefill:
+    """A long prompt mid-way through chunked prefill: its slot is
+    assigned and, paged, its blocks committed; ``segs`` are the
+    segments still to write, one an admission wave, and ``tail`` is the
+    final one, which joins a wave's group dispatch for the first token.
+    Its rid stays in ``_admitting`` throughout, so ``abort`` reclaims
+    the slot as for a one-shot admission."""
+
+    rid: int
+    req: GenRequest
+    slot: int
+    segs: list
+    tail: list
+    start: int  # the next segment's first position
+    t_submit: float
 
 
 @dataclass
@@ -629,12 +679,8 @@ class Engine:
             )
         if kv_int4:
             raise _not_ported("kv_int4", "kv_int4 with packed nibbles")
-        if prefix_cache_size:
-            raise _not_ported("the prefix cache", "prefix cache/CoW")
         if spec_decode:
             raise _not_ported("spec_decode", "spec decode")
-        if prefill_chunk:
-            raise _not_ported("prefill_chunk", "prefill_chunk segments")
         if kv_host_bytes:
             raise _not_ported(
                 "the host-RAM KV tier", "lifecycle surfaces (host tier)"
@@ -664,6 +710,14 @@ class Engine:
             )
         if max_queue < 0:
             raise ValueError(f"max_queue must be >= 0, got {max_queue}")
+        if prefix_cache_size < 0:
+            raise ValueError(
+                f"prefix_cache_size must be >= 0, got {prefix_cache_size}"
+            )
+        if prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk must be >= 0, got {prefill_chunk}"
+            )
         _validate_truncation(top_k, top_p, cfg.vocab_size)
         self.cfg = cfg
         self.params = to_device(params, self.device)
@@ -692,6 +746,15 @@ class Engine:
                 f"prompt_buckets must fit 1..{max_len - 1} (each admitted "
                 f"prompt needs >= 1 generated token): {bad}"
             )
+        if prefill_chunk and prefill_chunk not in self.prompt_buckets:
+            # A bucket-exact chunk keeps every non-final segment's window
+            # exactly [p, p + chunk): only the final one is padded.
+            raise ValueError(
+                f"prefill_chunk={prefill_chunk} must be one of the "
+                f"prompt buckets {self.prompt_buckets}"
+            )
+        self.prefix_cache_size = prefix_cache_size
+        self.prefill_chunk = prefill_chunk
         if self.paged:
             self.kv_blocks = kv_blocks or n_slots * self._n_tables
             self._cache = PagedCache.create(
@@ -725,6 +788,18 @@ class Engine:
                 device=self.device,
             )
             self._gen_counts = torch.zeros_like(self._tok_counts)
+        # Bytes of one cached row over every layer (K, V and scales).
+        self._kv_row_bytes = sum(
+            t[0, 0, 0].numel() * t.element_size() * cfg.n_layers
+            for t in (self._cache.k, self._cache.v, self._cache.k_scale,
+                      self._cache.v_scale) if t is not None
+        )
+        # Prompt tokens → (entry, rows it covers), least recently used
+        # first.  Dense: copies (k, v, k_scale, v_scale) of a slot's first
+        # rows, [n_layers, rows, ...]; paged: the ids of the blocks the
+        # prompt fully covers, one ref each.
+        self._prefix_cache: OrderedDict = OrderedDict()
+        self._prefilling: dict[int, _PendingPrefill] = {}
         self._buf = _ChunkBuffers(n_slots, self._n_tables, chunk,
                                   cfg.vocab_size, self.device)
         self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
@@ -750,6 +825,14 @@ class Engine:
         self.steps = 0
         self.tokens_generated = 0
         self.kv_admit_deferrals = 0
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_injects = 0
+        self.prefix_evictions = 0
+        self.prefix_bytes_saved = 0
+        # Prompt segments dispatched: one for a one-shot admission, one
+        # per segment of a chunked one.
+        self.prefill_segments = 0
         self.prefill_seconds = 0.0
         # Decode wall: each processed chunk's from its dispatch, or from
         # the previous chunk's readback when it overlapped it, to its
@@ -794,23 +877,23 @@ class Engine:
                 return b
         raise AssertionError("submit() bounds prompt length")
 
-    def _worst_case_rows(self, n_tokens: int, max_new: int) -> int:
+    def _worst_case_rows(self, n_tokens: int, max_new: int,
+                         start: int = 0) -> int:
         """The most slot rows a request can touch: its bucketed prefill
-        window or prompt + budget, whichever is larger — the one bound
-        the submit-time fit check, warmup and admission share."""
-        return min(self.max_len, max(self._bucket(n_tokens),
+        window from ``start`` (0 with no prefix hit) or prompt + budget,
+        whichever is larger — the one bound the submit-time fit check,
+        warmup and the admission planner share."""
+        return min(self.max_len, max(start + self._bucket(n_tokens - start),
                                      n_tokens + max_new))
 
     def _pool_blocks_needed(self, n_tokens: int, max_new: int) -> int:
-        """Pool blocks a request reserves (0 on the dense layout, whose
-        slots own their regions)."""
+        """Pool blocks a request reserves with no prefix hit (0 on the
+        dense layout, whose slots own their regions)."""
         if not self.paged:
             return 0
         return -(-self._worst_case_rows(n_tokens, max_new) // self.kv_block)
 
     def _validate(self, req: GenRequest) -> None:
-        if req.cache_prefix:
-            raise _not_ported("cache_prefix", "prefix cache/CoW")
         if req.hold_kv or req.kv_import is not None:
             raise _not_ported(
                 "KV shipping (hold_kv/kv_import)",
@@ -955,6 +1038,7 @@ class Engine:
         with self._lock:
             self._inflight = None
             self._t_device_free = None
+            self._prefilling.clear()  # their rids are in _admitting
             rids = [rid for rid, _, _ in self._queue]
             rids += list(self._admitting)
             rids += [s.rid for s in self._slots.values()]
@@ -980,7 +1064,9 @@ class Engine:
 
     def pending(self) -> bool:
         with self._lock:
-            return bool(self._queue or self._slots)
+            # A prompt mid-way through chunked prefill keeps the loop
+            # stepping: its segments dispatch from admission waves.
+            return bool(self._queue or self._slots or self._prefilling)
 
     def set_pipeline_depth(self, depth: int) -> None:
         """Switch between serial (1) and dispatch-ahead (2) decode on a
@@ -1029,6 +1115,8 @@ class Engine:
                 "default_top_p": self.default_top_p,
                 "kv_int8": self.kv_int8,
                 "penalties": self.penalties,
+                "prefix_cache_size": self.prefix_cache_size,
+                "prefill_chunk": self.prefill_chunk,
                 "pipeline_depth": self.pipeline_depth,
                 "paged": self.paged,
                 "kv_block": self.kv_block,
@@ -1050,6 +1138,14 @@ class Engine:
                 "queued": len(self._queue),
                 "steps": self.steps,
                 "tokens_generated": self.tokens_generated,
+                "prefix_hits": self.prefix_hits,
+                "prefix_misses": self.prefix_misses,
+                "prefix_injects": self.prefix_injects,
+                "prefix_entries": len(self._prefix_cache),
+                "prefix_evictions": self.prefix_evictions,
+                # KV bytes of the aliased full blocks (paged hits): what a
+                # dense engine copies into the slot.  0 on a dense engine.
+                "prefix_bytes_saved": self.prefix_bytes_saved,
                 "kv_block_size": self.kv_block,
                 "kv_blocks_total": self.kv_blocks,
                 "kv_blocks_free": (
@@ -1058,14 +1154,21 @@ class Engine:
                 "kv_blocks_used": (
                     self._alloc.used_blocks if self.paged else 0
                 ),
+                "kv_blocks_shared": (
+                    self._alloc.shared_blocks if self.paged else 0
+                ),
                 "kv_admit_deferrals": self.kv_admit_deferrals,
                 "kv_quant": "int8" if self.kv_int8 else "",
                 # Host clock around work that ends in a device readback,
-                # so these are device-inclusive walls.
+                # so these are device-inclusive walls (but for a wave
+                # that only writes segments, which reads nothing back).
                 "prefill_seconds": self.prefill_seconds,
                 "decode_seconds": self.decode_seconds,
                 "decode_tokens": self.decode_tokens,
                 "prefill_dispatches": self.prefill_dispatches,
+                "prefill_chunk": self.prefill_chunk,
+                "prefill_segments": self.prefill_segments,
+                "prefilling": len(self._prefilling),
                 "decode_passes": self.decode_passes,
                 "decode_dispatches": self.decode_dispatches,
                 "graph_replays": self.graph_replays,
@@ -1149,7 +1252,8 @@ class Engine:
         return self
 
     def _release_slot_locked(self, slot: int) -> None:
-        """Return ``slot`` and, paged, its blocks, resetting its table
+        """Return ``slot`` and, paged, its refs on its blocks (an aliased
+        prefix block stays with its other owners), resetting its table
         row to the sentinel (lock held).  A dispatch copies the table
         into its own staging, so a chunk already queued keeps the row it
         was given."""
@@ -1244,7 +1348,11 @@ class Engine:
                 and all(st.req.max_new_tokens - len(st.emitted) <= self.chunk
                         for st in self._slots.values())
             )
-            admit_boundary = bool(self._queue) and bool(self._free)
+            # A prompt mid-way through chunked prefill forces a boundary
+            # too: its next segment dispatches only from an admission
+            # wave, which never runs with a chunk in flight.
+            admit_boundary = (bool(self._queue) and bool(self._free)
+                              or bool(self._prefilling))
             boundary = admit_boundary or self.pipeline_depth < 2 or elide_tail
             if elide_tail and not admit_boundary and not self._warming:
                 self.tail_elisions += 1
@@ -1257,6 +1365,7 @@ class Engine:
         if not have_slots:
             # Every request finished while a chunk was in flight: it
             # references finished slots only, so it is dropped unread.
+            # A pending prefill advances at the next step's wave.
             self._inflight = None
             self._clear_idle_clock_if_drained()
             return
@@ -1283,47 +1392,330 @@ class Engine:
             if not self._slots and not self._queue:
                 self._t_device_free = None
 
+    # -- prefix cache ---------------------------------------------------------
+
+    def _best_prefix_locked(self, req: GenRequest) -> tuple:
+        """THE prefix matching rule (lock held): the longest entry usable
+        for ``req``, as (key, usable rows) or (None, 0).  Usable is the
+        entry's rows capped at ``len(req.tokens) - 1`` (one token must
+        be prefilled to sample from), and the tail, bucketed, must still
+        fit the slot's region."""
+        best_key, best_usable = None, 0
+        for key, (_, rows) in self._prefix_cache.items():
+            usable = min(rows, len(req.tokens) - 1)
+            if usable <= best_usable:
+                continue
+            if tuple(req.tokens[:usable]) == key[:usable]:
+                tail_bucket = self._bucket(len(req.tokens) - usable)
+                if usable + tail_bucket <= self.max_len:
+                    best_key, best_usable = key, usable
+        return best_key, best_usable
+
+    def _count_prefix_locked(self, usable: int) -> None:
+        """Count one admission's lookup as a hit or a miss."""
+        if self._warming or not self.prefix_cache_size:
+            return
+        if usable:
+            self.prefix_hits += 1
+        else:
+            self.prefix_misses += 1
+
+    def _try_prefix_inject(self, slot: int, req: GenRequest) -> int:
+        """Dense: copy the longest usable entry's rows into the head of
+        ``slot``'s region; returns where the tail prefill starts (0: no
+        hit).  Exact, for MoE too: a KV row depends only on the tokens
+        before it, and ``_moe_exact`` routes each token alone."""
+        if not self.prefix_cache_size:
+            return 0
+        with self._lock:
+            key, usable = self._best_prefix_locked(req)
+            self._count_prefix_locked(usable)
+            if key is None:
+                return 0
+            self._prefix_cache.move_to_end(key)  # LRU touch
+            entry, _ = self._prefix_cache[key]
+        cache = self._cache
+        for dst, src in zip((cache.k, cache.v, cache.k_scale, cache.v_scale),
+                            entry):
+            if src is not None:
+                dst[:, slot, : src.shape[1]].copy_(src)
+        return usable
+
+    def _store_prefix(self, slot: int, tokens: list[int]) -> None:
+        """Cache ``slot``'s freshly prefilled prompt KV under ``tokens``.
+        Dense: a copy of the slot's bucketed rows (only the first
+        ``len(tokens)`` are ever used).  Paged: one more ref on the
+        blocks the prompt fully covers, no copy; never the partial last
+        block, which this slot's decode writes next."""
+        key = tuple(tokens)
+        if self.paged:
+            full = len(tokens) // self.kv_block
+            if full == 0:
+                return  # nothing block-aligned to share
+            with self._lock:
+                blocks = tuple(int(b) for b in self._tables_host[slot][:full])
+                if any(b >= self.kv_blocks for b in blocks):
+                    return  # the slot was reclaimed meanwhile
+                old = self._prefix_cache.pop(key, None)
+                if old is not None:
+                    self._alloc.decref(old[0])
+                self._alloc.incref(blocks)
+                self._prefix_cache[key] = (blocks, full * self.kv_block)
+                self._trim_prefix_cache_locked()
+            return
+        rows = self._bucket(len(tokens))
+        cache = self._cache
+        entry = tuple(None if t is None else t[:, slot, :rows].clone()
+                      for t in (cache.k, cache.v, cache.k_scale,
+                                cache.v_scale))
+        with self._lock:
+            self._prefix_cache[key] = (entry, len(tokens))
+            self._prefix_cache.move_to_end(key)
+            self._trim_prefix_cache_locked()
+
+    def _trim_prefix_cache_locked(self) -> None:
+        """Count a store and evict least recently used entries past the
+        size cap (lock held)."""
+        if not self._warming:
+            self.prefix_injects += 1
+        while len(self._prefix_cache) > self.prefix_cache_size:
+            key = next(iter(self._prefix_cache))
+            self._retire_prefix_entry_locked(key)
+
+    def _retire_prefix_entry_locked(self, key: tuple) -> None:
+        """Drop one entry (lock held), and with it, paged, its refs.  The
+        host tier it could be demoted to is not ported (ROADMAP Queue
+        A10), so retiring is evicting."""
+        entry, _ = self._prefix_cache.pop(key)
+        if self.paged:
+            self._alloc.decref(entry)
+        if not self._warming:
+            self.prefix_evictions += 1
+
+    def _clear_prefix_cache_locked(self) -> None:
+        """Drop every entry (lock held)."""
+        for key in list(self._prefix_cache):
+            self._retire_prefix_entry_locked(key)
+
+    def _evict_prefix_for_locked(self, fresh_needed: int, keep_key) -> None:
+        """Evict idle entries least recently used first (never
+        ``keep_key``) until ``fresh_needed`` blocks are free — but only
+        when that can cover the shortfall now: entries whose blocks
+        running slots or other entries still hold free nothing, and
+        flushing them would trade future hits for no admission."""
+        victims = [key for key in self._prefix_cache if key != keep_key]
+        reclaimable = self._alloc.free_blocks + sum(
+            self._alloc.exclusive(self._prefix_cache[key][0])
+            for key in victims
+        )
+        if reclaimable < fresh_needed:
+            return
+        for key in victims:
+            if fresh_needed <= self._alloc.free_blocks:
+                break
+            if self._alloc.exclusive(self._prefix_cache[key][0]):
+                self._retire_prefix_entry_locked(key)
+
+    def _plan_paged_admission_locked(self, req: GenRequest, idle: bool):
+        """Reserve what ``req``'s admission needs from the pool (lock
+        held): alias the longest usable entry's full blocks (one ref
+        each), plan a copy-on-write of the entry block a hit ends inside
+        (the tail prefill writes into it) into the first fresh block, and
+        allocate fresh blocks for the rest of the worst case.
+        All-or-nothing: None when the pool cannot cover it after evicting
+        idle entries, and the request stays queued.  ``idle`` (no slot
+        running or admitting) means only prefix entries can ever free a
+        block: then a plan that still does not fit flushes the whole
+        cache and re-plans prefix-free, which the submit-time fit check
+        guarantees fits, so cached prompts never wedge the queue."""
+        bs = self.kv_block
+        key, usable = (None, 0)
+        if self.prefix_cache_size:
+            key, usable = self._best_prefix_locked(req)
+        aliased: list[int] = []
+        cow_src = None
+        if key is not None:
+            entry_blocks, _ = self._prefix_cache[key]
+            full = usable // bs
+            aliased = list(entry_blocks[:full])
+            if usable % bs:
+                cow_src = entry_blocks[full]
+        rows = self._worst_case_rows(len(req.tokens), req.max_new_tokens,
+                                     usable)
+        fresh_needed = -(-rows // bs) - len(aliased)
+        if fresh_needed > self._alloc.free_blocks:
+            self._evict_prefix_for_locked(fresh_needed, keep_key=key)
+        fresh = self._alloc.alloc(fresh_needed)
+        if fresh is None and idle and self._prefix_cache:
+            self._clear_prefix_cache_locked()
+            key, usable, aliased, cow_src = None, 0, [], None
+            fresh = self._alloc.alloc(self._pool_blocks_needed(
+                len(req.tokens), req.max_new_tokens))
+        if fresh is None:
+            if not self._warming:
+                self.kv_admit_deferrals += 1
+            return None
+        self._alloc.incref(aliased)
+        if key is not None:
+            self._prefix_cache.move_to_end(key)  # LRU touch
+        self._count_prefix_locked(usable)
+        if usable and not self._warming:
+            self.prefix_bytes_saved += len(aliased) * bs * self._kv_row_bytes
+        # Table order is the position map: the copy of the partly
+        # covered entry block goes right after the aliased run.
+        return {"start": usable, "blocks": aliased + fresh,
+                "cow": None if cow_src is None else (cow_src, fresh[0])}
+
+    # -- admission ----------------------------------------------------------
+
+    def _prefill_segment(self, slot: int, seg: list[int], start: int) -> None:
+        """One non-final segment of a chunked prefill: write ``seg``'s KV
+        rows into ``slot`` from position ``start`` (a one-row dispatch
+        through the layers; no unembedding, nothing read back).  The
+        segment is ``prefill_chunk`` long, a bucket, so nothing is
+        padded."""
+        dev = self.device
+        _hidden_slots(
+            self.params, torch.tensor([seg], dtype=torch.int64, device=dev),
+            self._cache, torch.tensor([start], dtype=torch.int32, device=dev),
+            torch.from_numpy(self._tables_host[slot: slot + 1]).to(dev),
+            self.cfg,
+        )
+        if not self._warming:
+            self.prefill_segments += 1
+
+    def _split_segments(self, tail: list[int], start: int) -> tuple:
+        """(segments, final tail) of a prompt tail written from
+        ``start``: ``prefill_chunk``-token segments while the tail is
+        longer than one, then un-chunked from the back until the final
+        bucketed window fits the region."""
+        segs = []
+        chunk = self.prefill_chunk
+        if not chunk:
+            return segs, tail
+        while len(tail) > chunk:
+            segs.append(tail[:chunk])
+            tail = tail[chunk:]
+        while segs and (start + len(segs) * chunk + self._bucket(len(tail))
+                        > self.max_len):
+            tail = segs.pop() + tail
+        return segs, tail
+
+    def _advance_prefills(self) -> list[_PendingPrefill]:
+        """One admission wave's step of every pending prefill: fail the
+        cancelled and deadline-expired ones (slot and blocks freed), then
+        dispatch ONE further segment of each — the unit that bounds how
+        much prefill lands between two decode chunks.  Returns the
+        pendings with no segment left: they join this wave's group
+        dispatch for their first token (and stay in ``_admitting`` until
+        then)."""
+        now = time.monotonic()
+        with self._lock:
+            for rid in list(self._prefilling):
+                pend = self._prefilling[rid]
+                if rid in self._cancelled:
+                    kind, msg = "cancelled", "client went away mid-prefill"
+                elif (pend.req.deadline is not None
+                      and now >= pend.req.deadline):
+                    kind, msg = "deadline", "expired mid-prefill"
+                else:
+                    continue
+                del self._prefilling[rid]
+                del self._admitting[rid]
+                self._release_slot_locked(pend.slot)
+                self._fail_locked(rid, kind, msg)
+            advancing = list(self._prefilling.values())
+        joining = []
+        for pend in advancing:
+            if not pend.segs:
+                joining.append(pend)
+                continue
+            seg = pend.segs.pop(0)
+            self._prefill_segment(pend.slot, seg, pend.start)
+            pend.start += len(seg)
+        with self._lock:
+            for pend in joining:
+                self._prefilling.pop(pend.rid, None)
+        return joining
+
     def _admit_wave(self) -> None:
         """Admit whatever fits into free slots — only with no chunk in
-        flight (the pipeline-boundary rule): paged, reserve each
-        request's worst case from the pool (head-of-line: a shortage
-        leaves it queued); then prefill one dispatch per prompt bucket
-        and read every first token back at once."""
+        flight (the pipeline-boundary rule).  Pending chunked prefills
+        advance one segment first.  Paged, each request's plan reserves
+        its worst case from the pool, aliasing a cached prefix
+        (head-of-line: a shortage leaves it queued); dense, a cached
+        prefix is copied in.  A tail longer than ``prefill_chunk``
+        dispatches its first segment and waits; the rest, and the
+        pendings whose last segment is written, prefill one dispatch per
+        tail bucket, prefixes marked ``cache_prefix`` are stored, and
+        every first token is read back at once."""
         if self._inflight is not None:
             return
+        t0 = time.monotonic()
+        advanced = bool(self._prefilling)
+        joins = self._advance_prefills() if advanced else []
         with self._lock:
             admissions = []
             while self._queue and self._free:
                 rid, req, t_submit = self._queue[0]
+                plan = None
                 if self.paged:
-                    blocks = self._alloc.alloc(self._pool_blocks_needed(
-                        len(req.tokens), req.max_new_tokens
-                    ))
-                    if blocks is None:
-                        if not self._warming:
-                            self.kv_admit_deferrals += 1
+                    plan = self._plan_paged_admission_locked(
+                        req, idle=not (self._slots or self._admitting
+                                       or admissions))
+                    if plan is None:
                         break
                 self._queue.popleft()
                 slot = self._free.pop(0)
-                if self.paged:
-                    self._tables_host[slot, : len(blocks)] = blocks
+                if plan is not None:
+                    self._tables_host[slot, : len(plan["blocks"])] = (
+                        plan["blocks"])
                 self._admitting[rid] = slot
-                admissions.append((slot, rid, req, t_submit))
-        if not admissions:
+                admissions.append((slot, rid, req, t_submit, plan))
+        if not admissions and not joins:
+            if advanced and not self._warming:
+                self.prefill_seconds += time.monotonic() - t0
             return
-        t0 = time.monotonic()
+        # (slot, rid, req, t_submit, start, tail) of each final dispatch.
+        rows = [(p.slot, p.rid, p.req, p.t_submit, p.start, p.tail)
+                for p in joins]
+        for slot, rid, req, t_submit, plan in admissions:
+            if plan is None:
+                start = self._try_prefix_inject(slot, req)
+            else:
+                start = plan["start"]
+                if plan["cow"] is not None:
+                    # Stream-ordered before the tail writes into it; the
+                    # shared source block is never written.
+                    src, dst = plan["cow"]
+                    cache = self._cache
+                    for pool in (cache.k, cache.v, cache.k_scale,
+                                 cache.v_scale):
+                        if pool is not None:
+                            copy_block(pool, src, dst)
+            segs, tail = self._split_segments(req.tokens[start:], start)
+            if segs:
+                seg = segs.pop(0)
+                self._prefill_segment(slot, seg, start)
+                with self._lock:
+                    self._prefilling[rid] = _PendingPrefill(
+                        rid=rid, req=req, slot=slot, segs=segs, tail=tail,
+                        start=start + len(seg), t_submit=t_submit,
+                    )
+                continue
+            rows.append((slot, rid, req, t_submit, start, tail))
+        if not self._warming:
+            self.prefill_segments += len(rows)
         dev = self.device
         vocab = self.cfg.vocab_size
-        groups = []  # (rows, tokens, logprobs) per bucket
-        for bucket in sorted({self._bucket(len(a[2].tokens))
-                              for a in admissions}):
-            rows = [a for a in admissions
-                    if self._bucket(len(a[2].tokens)) == bucket]
-            reqs = [req for _, _, req, _ in rows]
-            prompts = np.zeros((len(rows), bucket), np.int64)
-            for i, req in enumerate(reqs):
-                prompts[i, : len(req.tokens)] = req.tokens
-            slot_ids = [slot for slot, _, _, _ in rows]
+        groups = []  # (rows, tokens, logprobs) per tail bucket
+        for bucket in sorted({self._bucket(len(r[5])) for r in rows}):
+            group = [r for r in rows if self._bucket(len(r[5])) == bucket]
+            reqs = [r[2] for r in group]
+            prompts = np.zeros((len(group), bucket), np.int64)
+            for i, r in enumerate(group):
+                prompts[i, : len(r[5])] = r[5]
+            slot_ids = [r[0] for r in group]
             cols = _columns(reqs, self.default_top_p)
             s = _Sampling(torch.from_numpy(cols).to(dev),
                           *_sampling_key(cols))
@@ -1343,29 +1735,35 @@ class Engine:
                 self.params, self._cache,
                 torch.from_numpy(self._tables_host[slot_ids]).to(dev),
                 torch.from_numpy(prompts).to(dev),
-                torch.zeros(len(rows), dtype=torch.int32, device=dev),
-                torch.tensor([len(r.tokens) for r in reqs], device=dev),
+                torch.tensor([r[4] for r in group], dtype=torch.int32,
+                             device=dev),
+                torch.tensor([len(r[5]) for r in group], device=dev),
                 s, noise, self.cfg, self.top_k, counts,
             )
             if self.penalties:
                 idx = torch.tensor(slot_ids, device=dev)
                 onehot = torch.zeros_like(prompt_counts)
-                onehot[torch.arange(len(rows), device=dev), tokens] = 1
+                onehot[torch.arange(len(group), device=dev), tokens] = 1
                 self._tok_counts[idx] = prompt_counts + onehot
                 self._gen_counts[idx] = onehot
-            groups.append((rows, tokens, lps))
-        # One readback for every admission of the wave.
-        fetched = torch.cat(
-            [torch.stack([t.double(), lp.double()]) for _, t, lp in groups],
-            dim=1,
-        ).cpu().numpy()
+            groups.append((group, tokens, lps))
+        if self.prefix_cache_size:
+            for slot, _, req, _, _, _ in rows:
+                if req.cache_prefix:
+                    self._store_prefix(slot, req.tokens)
+        fetched = None
+        if groups:  # one readback for every first token of the wave
+            fetched = torch.cat(
+                [torch.stack([t.double(), lp.double()])
+                 for _, t, lp in groups], dim=1,
+            ).cpu().numpy()
         if not self._warming:
             self.prefill_seconds += time.monotonic() - t0
             self.prefill_dispatches += len(groups)
         with self._lock:
             col = 0
-            for rows, _, _ in groups:
-                for slot, rid, req, t_submit in rows:
+            for group, _, _ in groups:
+                for slot, rid, req, t_submit, _, _ in group:
                     token = int(fetched[0, col])
                     lp = float(fetched[1, col])
                     col += 1
@@ -1393,8 +1791,10 @@ class Engine:
         """A fresh dispatch's host inputs from the slots' states:
         (``_ChunkInputs``, tokens, starts, indices), every array over all
         ``n_slots`` rows.  A row with no request is not live, keeps the
-        neutral columns and starts at 0, so that K1 walks none of a
-        stale region."""
+        neutral columns and starts at 0, and its staged table row is the
+        sentinel (``_enqueue_chunk``), so that it reads and writes no KV:
+        a pending prefill's rows and a shared prefix block stay as they
+        were."""
         n = self.n_slots
         live = np.zeros(n, np.int32)
         tokens = np.zeros(n, np.int64)
@@ -1483,7 +1883,9 @@ class Engine:
         stage = b.stages[turn]
         stage["meta"][0] = torch.from_numpy(starts)
         stage["meta"][1] = torch.from_numpy(inputs.live)
-        stage["tables"].copy_(torch.from_numpy(self._tables_host))
+        tables = self._tables_host.copy()
+        tables[inputs.live == 0] = self._sentinel  # K2 drops, K1 skips
+        stage["tables"].copy_(torch.from_numpy(tables))
         names = ["meta", "tables"]
         if tokens is not None:
             stage["tokens"].copy_(torch.from_numpy(tokens))

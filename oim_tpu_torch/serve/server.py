@@ -9,10 +9,13 @@ the other per-request sampling fields).  ``/v1/info`` and ``/v1/stats``
 carry the engine's layout and pipeline fields under the reference's
 names (``paged``, ``kv_block``, ``pipeline_depth``, ``penalties``;
 ``readback_seconds``, ``overlap_seconds``, ``overlap_ratio``,
-``tail_elisions``, ``inflight_dispatches``).  Streaming, text,
-embeddings, beam search,
-the OpenAI surface, KV shipping, profiling and the stall watchdog come
-with later slices (ROADMAP Queue A: the rest of server.py).
+``tail_elisions``, ``inflight_dispatches``; the prefix cache's and
+chunked prefill's ``prefix_*``, ``prefill_segments``, ``prefilling``).
+A request's ``cache_prefix`` stores its prompt's KV when the engine has
+a prefix cache.  Streaming, text, embeddings, beam search, the OpenAI
+surface, KV shipping (``/v1/kv``: held KV and prefix export or install),
+profiling and the stall watchdog come with later slices (ROADMAP Queue
+A: the rest of server.py); ``/v1/kv`` answers 501 naming them.
 """
 
 from __future__ import annotations
@@ -35,6 +38,12 @@ from oim_tpu_torch.serve.engine import (
 
 # Per-kind HTTP status of a request that failed without a result.
 _FAILED_STATUS = {"deadline_queue": 429, "deadline": 504}
+# The KV shipping routes: held-KV and prefix export (GET) and install
+# (POST), with the fleet's prefix digests.
+_KV_NOT_PORTED = (
+    "/v1/kv (KV shipping, prefix export and install, prefix_digests) is "
+    "not ported to oim_tpu_torch yet (ROADMAP Queue A: A11 and A16)"
+)
 
 
 def _parse_generate(body: dict) -> GenRequest:
@@ -64,9 +73,9 @@ def _parse_generate(body: dict) -> GenRequest:
         repetition_penalty=float(body.get("repetition_penalty", 1.0)),
         presence_penalty=float(body.get("presence_penalty", 0.0)),
         frequency_penalty=float(body.get("frequency_penalty", 0.0)),
+        cache_prefix=bool(body.get("cache_prefix")),
         # Read so that the engine refuses what the port cannot do yet,
         # rather than serving such a request as if the field were absent.
-        cache_prefix=bool(body.get("cache_prefix")),
         hold_kv=bool(body.get("hold_kv")),
         kv_import=(
             int(body["kv_import"]) if body.get("kv_import") is not None
@@ -104,11 +113,16 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(200, outer.engine.stats())
         elif self.path == "/v1/info":
             self._json(200, outer.engine.info())
+        elif self.path.split("?")[0] == "/v1/kv":
+            self._json(501, {"error": _KV_NOT_PORTED})
         else:
             self._json(404, {"error": f"no such path {self.path}"})
 
     def do_POST(self):
         outer = self.server.owner
+        if self.path.split("?")[0] == "/v1/kv":
+            self._json(501, {"error": _KV_NOT_PORTED})
+            return
         if self.path != "/v1/generate":
             self._json(404, {"error": f"no such path {self.path}"})
             return

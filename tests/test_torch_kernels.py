@@ -427,7 +427,7 @@ def _rel(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 1536])
+@pytest.mark.parametrize("d", [64, 1536, 4096, 8192])
 @pytest.mark.parametrize("rows", [1, 37, 4096])
 @pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16],
                          ids=["w_f32", "w_bf16"])
@@ -613,9 +613,10 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take():
     x = torch.randn((4, 96), device="cuda")
     with pytest.raises(ValueError, match="16-byte chunks"):
         rn.rmsnorm_fwd(x[:, :95].contiguous(), torch.ones(95, device="cuda"))
-    with pytest.raises(ValueError, match="at most"):
-        rn.rmsnorm_fwd(torch.randn((2, 4096), device="cuda"),
-                       torch.ones(4096, device="cuda"))
+    wide = torch.randn((2, 4096), device="cuda")  # past the registers
+    assert _rel(rn.rmsnorm_fwd(wide, torch.ones(4096, device="cuda")),
+                rn.rmsnorm_plain(wide, torch.ones(4096, device="cuda"))
+                ) <= TRAIN_TOL[torch.float32]
     with pytest.raises(ValueError, match="f32/bf16"):
         rn.rmsnorm_fwd(x.half(), torch.ones(96, device="cuda"))
     with pytest.raises(ValueError, match="expected cuda"):
@@ -904,15 +905,17 @@ def test_fused_linear_ce_full_step_runs_the_joint_backward():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1536, 1544, 1000, 72])
+@pytest.mark.parametrize("d", [1536, 1544, 1000, 72, 4096, 8192, 8200])
 @pytest.mark.parametrize("rows", [1, 37, 4096, 9000])
 @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16],
                          ids=["x_f32", "x_bf16"])
 def test_rmsnorm_walks_rows(xdt, rows, d):
     """Widths that fill a lane's chunks exactly (1536 bf16: 6 a lane) or
-    leave the last lanes a chunk short (1544, 1000, 72), rows fewer than
-    the warps or many per warp: the plain version's numbers, and the
-    same bits on every launch."""
+    leave the last lanes a chunk short (1544, 1000, 72), and widths past
+    one warp's registers on the wide route (4096 f32, 8192, and 8200,
+    whose last chunks leave some threads of the block idle), rows fewer
+    than the warps or many per warp: the plain version's numbers, and
+    the same bits on every launch."""
     _need_gpu()
     gen = torch.Generator(device="cuda").manual_seed(rows + d)
     x = (torch.randn((rows, d), generator=gen, device="cuda") * 3).to(xdt)

@@ -393,3 +393,29 @@ def test_rmsnorm_matches_jax(dtype):
         got.float().numpy(), _np(want.astype(jnp.float32)),
         rtol=1e-6 if dtype == "float32" else 2.0 ** -8, atol=1e-6,
     )
+
+
+@pytest.mark.parametrize("d,dtype,route", [
+    (1536, torch.bfloat16, "rows"), (4096, torch.bfloat16, "rows"),
+    (8192, torch.bfloat16, "wide"), (2048, torch.float32, "rows"),
+    (2052, torch.float32, "wide"), (4096, torch.float32, "wide"),
+    (8192, torch.float32, "wide"),
+])
+def test_rmsnorm_route_by_row_width(d, dtype, route):
+    """Rows that fit one warp's registers (16 chunks of 16 bytes a lane)
+    take the register kernel; wider ones, which the kernel used to
+    refuse, the wide kernel."""
+    assert trms.rmsnorm_route(d, dtype) == route
+
+
+def test_rmsnorm_wide_rows_run_plain_on_the_cpu():
+    """A CPU tensor of any width takes the plain version, counted as
+    such, with no launch counted."""
+    rng = np.random.RandomState(8)
+    x = _t(rng.randn(3, 8192).astype(np.float32))
+    w = _t(rng.rand(8192).astype(np.float32) + 0.5)
+    trms.reset_counters()
+    got = trms.rmsnorm_fwd(x, w, 1e-5)
+    assert trms.counters() == {"rmsnorm": 0, "rmsnorm_wide": 0,
+                               "rmsnorm_plain": 1}
+    assert torch.equal(got, trms.reference_rmsnorm(x, w, 1e-5))

@@ -25,7 +25,8 @@ The tests marked ``cuda`` need an NVIDIA GPU and skip without one
 
 runs them: a decode chunk replayed from its CUDA graph equals the same
 chunk run eagerly from copies of one state, bit for bit, and an engine
-on graphs serves the streams of an engine on eager dispatch.
+on graphs serves the streams of an engine on eager dispatch, with the
+prefix cache and chunked prefill too.
 """
 
 import numpy as np
@@ -452,6 +453,57 @@ def test_graph_engine_serves_the_eager_engines_streams():
             "paged_kv_store_t1"] == cfg.n_layers * st["decode_passes"]
         assert counts["paged_flash_decode_tc"] == (
             cfg.n_layers * st["prefill_dispatches"])
+        assert counts["paged_flash_decode_plain"] == 0
+        assert counts["paged_kv_store_plain"] == 0
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_graph_engine_with_prefix_cache_and_segments(layout, depth):
+    """With ``prefix_cache_size`` and ``prefill_chunk`` on, an engine on
+    graphs serves the streams of one on eager dispatch: a cached 32-token
+    prompt (two full blocks of the paged pool), prompts sharing it (one
+    the prompt itself, whose 31 usable rows end inside the entry's last
+    block: a copy-on-write on the paged pool; one whose tail is
+    segmented) and a 60-token miss written in 16-token segments while
+    they decode.  Every decode dispatch of the graph engine is a
+    replay, K1's tall route and K2 at t > 1 launch once per layer per
+    group dispatch and non-final segment, and no plain version runs."""
+    _need_gpu()
+    cfg = TransformerConfig(**CARD_CFG)
+    params = init_params(0, cfg)
+    system = _prompt(210, 32)
+    reqs = [GenRequest(tokens=system + _prompt(211, 5), max_new_tokens=12),
+            GenRequest(tokens=list(system), max_new_tokens=9),
+            GenRequest(tokens=system + _prompt(212, 20), max_new_tokens=7,
+                       temperature=0.8, seed=5),
+            GenRequest(tokens=_prompt(213, 60), max_new_tokens=10)]
+    streams = []
+    for graphs in (True, False):
+        engine = Engine(params, cfg, **CARD_ENGINE, pipeline_depth=depth,
+                        kv_block=LAYOUTS[layout] * 2, prefix_cache_size=2,
+                        prefill_chunk=16, cuda_graphs=graphs).warmup()
+        tpa.reset_counters()
+        engine.submit(GenRequest(tokens=system, max_new_tokens=3,
+                                 cache_prefix=True))
+        engine.run()
+        rids = [engine.submit(req) for req in reqs]
+        engine.run()
+        streams.append([engine.result(rid) for rid in rids])
+        st = engine.stats()
+        counts = tpa.counters()
+        assert st["prefix_hits"] == 3 and st["prefilling"] == 0
+        assert st["graph_replays"] == (st["decode_dispatches"] if graphs
+                                       else 0)
+        segments = st["prefill_segments"] - (len(reqs) + 1)
+        assert segments > 0
+        tall = cfg.n_layers * (st["prefill_dispatches"] + segments)
+        assert counts["paged_flash_decode_tc"] == tall
+        assert counts["paged_kv_store"] - counts["paged_kv_store_t1"] == tall
+        assert counts["paged_flash_decode_rows8"] == counts[
+            "paged_kv_store_t1"] == cfg.n_layers * st["decode_passes"]
         assert counts["paged_flash_decode_plain"] == 0
         assert counts["paged_kv_store_plain"] == 0
     assert streams[0] == streams[1]

@@ -314,9 +314,12 @@ def test_engine_deadlines(model):
 
 @pytest.mark.parametrize("option,match", [
     (dict(kv_int4=True), "kv_int4"),
-    (dict(prefix_cache_size=2), "prefix cache"),
+    # The prefix cache is served; the host tier it demotes entries to
+    # in the reference is not.
+    (dict(prefix_cache_size=2, kv_host_bytes=1 << 20), "host tier"),
     (dict(spec_decode=2), "spec decode"),
-    (dict(prefill_chunk=8), "prefill_chunk"),
+    # Chunked prefill is served; spec decode beside it is not.
+    (dict(prefill_chunk=8, spec_decode=2), "spec decode"),
     (dict(kv_host_bytes=1 << 20), "host tier"),
     (dict(qos=object()), "QoS"),
 ])
@@ -327,17 +330,22 @@ def test_engine_refuses_unported_options(model, option, match):
 
 
 def test_engine_refuses_moe_and_cache_prefix(model):
-    """MoE configs are served now (the name is the test's earlier one):
-    an engine builds on MoE weights and reports its experts;
-    ``cache_prefix`` stays refused."""
+    """MoE configs and ``cache_prefix`` are served now (the name is the
+    test's earlier one): an engine builds on MoE weights and reports its
+    experts; ``cache_prefix`` is ignored with the prefix cache off, as
+    in the reference, and honoured with it on."""
     _, _, tcfg, params = model
     moe = TransformerConfig(**{**CFG, "n_experts": 4, "moe_top_k": 2})
     info = Engine(init_params(0, moe), moe, **ENGINE).info()["model"]
     assert (info["n_experts"], info["moe_top_k"]) == (4, 2)
-    engine = Engine(params, tcfg, **ENGINE)
-    with pytest.raises(ValueError, match="prefix cache"):
-        engine.submit(GenRequest(tokens=[1, 2], max_new_tokens=2,
-                                 cache_prefix=True))
+    for size in (0, 2):
+        engine = Engine(params, tcfg, **ENGINE, prefix_cache_size=size)
+        # Nine tokens: one full block of the paged pool to share.
+        rid = engine.submit(GenRequest(tokens=list(range(1, 10)),
+                                       max_new_tokens=2, cache_prefix=True))
+        engine.run()
+        assert len(engine.result(rid)) == 2
+        assert engine.stats()["prefix_entries"] == (0 if size == 0 else 1)
 
 
 def test_block_allocator():
@@ -407,9 +415,13 @@ def test_server_generate_roundtrip(model):
         assert info["model"]["n_kv_heads"] == 2
         status, reply = _post(server.port, {"tokens": [1], "stream": True})
         assert status == 400 and "stream" in reply["error"]
+        # The prefix cache is off: cache_prefix is ignored, as in the
+        # reference, not refused.
         status, reply = _post(server.port, {"tokens": [1],
+                                            "max_new_tokens": 2,
                                             "cache_prefix": True})
-        assert status == 400 and "ROADMAP" in reply["error"]
+        assert status == 200 and len(reply["tokens"]) == 2
+        assert _get(server.port, "/v1/stats")["prefix_entries"] == 0
         status, _ = _post(server.port, {"max_new_tokens": 3})
         assert status == 400
         status, _ = _post(server.port, {"tokens": [1] * 70})
