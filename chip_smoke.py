@@ -2,8 +2,10 @@
 each against its plain PyTorch version at the shapes its path gives it,
 then drive the paths through the port's own entry points at
 Qwen2.5-1.5B's full width — serve six requests at ``serve_main``'s
-defaults (the dense cache, pipeline depth 2, each decode chunk one CUDA
-graph replay) and again on the paged engine at depth 1 (paged-attention
+defaults (the dense cache, pipeline depth 2, each decode chunk and each
+admission dispatch one CUDA graph replay; an admission wave run eagerly
+and by replays from one state must agree bit for bit) and again on the
+paged engine at depth 1 (paged-attention
 kernels K1 on its decode and tensor-core routes, K2, in both), train a
 few steps in the trainer's usual configuration
 (RMSNorm, flash attention forward, dq, dkv, and the fused unembed+CE
@@ -750,6 +752,13 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
+def graph_pool_gib() -> float:
+    """GiB of the card the allocator holds in private pools: the CUDA
+    graphs' memory."""
+    return gib(sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)))
+
+
 def free_at_peak() -> float:
     """GiB of the card free at the allocator's peak since its last reset:
     free now, plus what the allocator holds now, less what it held at
@@ -864,75 +873,117 @@ class ServedRouting:
     """The served path's own expert choices, recorded while it serves the
     phase's requests, so that the f32 forward can be teacher-forced them.
     Between ``install()`` and ``remove()`` every ``_router_gates`` call
-    through ``models.decode`` is recorded.  An admission's calls (eager:
-    one a layer inside ``_admit_batch``) are kept with its prompts.  A
-    decode pass's calls run inside a chunk's CUDA graph, where a replay
-    runs no Python, so each writes its [S, k] choices into a device log
-    at a device-side counter: three small kernels a layer a pass, which
-    the chunk's capture records (so ``install()`` comes before the engine
-    starts, and the log outlives its graphs).  ``watch(engine)``, after
-    the warmup, sets the counter to 0 and records each decode dispatch
-    (which request sits in which slot, at which position) until
-    ``remove()``; ``choices`` maps the log back to one request."""
+    through ``models.decode`` is recorded.  Admissions and decode passes
+    both run inside CUDA graphs, where a replay runs no Python, so each
+    call writes its choices into a device log at a device-side counter:
+    a decode pass's [S, k] rows into ``log``, an admission's (inside
+    ``serve.engine._admit_logits``) flattened [rows x bucket, k] into
+    ``admit_log``.  These are small kernels a layer that the graphs'
+    captures record, so ``install()`` comes before the engine starts, and
+    the logs outlive its graphs.  ``watch(engine)``, after the warmup,
+    sets the counters to 0 and records each decode dispatch (which
+    request sits in which slot, at which position) and each admission
+    dispatch (its bucket, rows and staged inputs) until ``remove()``;
+    ``choices`` maps the logs back to one request."""
 
     LOG_ROWS = 8192
+    ADMIT_ENTRIES = 1 << 22
 
     def __init__(self, n_slots: int, top_k: int):
         self.log = torch.zeros((self.LOG_ROWS, n_slots, top_k),
                                dtype=torch.int64, device=DEV)
         self.counter = torch.zeros(1, dtype=torch.int64, device=DEV)
+        self.admit_log = torch.zeros(self.ADMIT_ENTRIES, dtype=torch.int64,
+                                     device=DEV)
+        self.admit_counter = torch.zeros(1, dtype=torch.int64, device=DEV)
+        self.top_k = top_k
         self.admissions, self.dispatches = [], []
-        self.admitting = None
+        self.admitting = False
 
     def __call__(self, probs, k):
         out = self.record(probs, k)
-        if self.admitting is not None:
-            self.admitting.append(out[1])
+        if self.admitting:
+            flat = out[1].reshape(-1)
+            at = self.admit_counter + torch.arange(flat.numel(), device=DEV)
+            self.admit_log.index_copy_(0, at.remainder(self.ADMIT_ENTRIES),
+                                       flat)
+            self.admit_counter.add_(flat.numel())
         else:
             self.log.index_copy_(0, self.counter.remainder(self.LOG_ROWS),
                                  out[1][None])
             self.counter.add_(1)
         return out
 
-    def _admit_batch(self, params, cache, row_tables, prompts, starts,
-                     true_tails, *rest):
-        self.admitting = []
+    def _admit_logits(self, *args):
+        self.admitting = True
         try:
-            return self.admit(params, cache, row_tables, prompts, starts,
-                              true_tails, *rest)
+            return self.admit(*args)
         finally:
-            self.admissions.append((prompts, true_tails, self.admitting))
-            self.admitting = None
+            self.admitting = False
 
     def install(self) -> None:
         from oim_tpu_torch.models import decode as dec
         from oim_tpu_torch.serve import engine as eng
 
         self.record, dec._router_gates = dec._router_gates, self
-        self.admit, eng._admit_batch = eng._admit_batch, self._admit_batch
+        self.admit, eng._admit_logits = eng._admit_logits, self._admit_logits
 
     def watch(self, engine) -> None:
-        dispatch = engine._dispatch_chunk
+        dispatch, admit = engine._dispatch_chunk, engine._dispatch_admission
 
         def recorded(acc, chained):
             handle = dispatch(acc, chained)
             self.dispatches.append(handle)
             return handle
 
+        def admitted(bucket, rows, prompts, ints):
+            self.admissions.append((bucket, rows, prompts.copy(),
+                                    ints.copy()))
+            return admit(bucket, rows, prompts, ints)
+
         self.chunk, self.n_layers = engine.chunk, engine.cfg.n_layers
         self.admissions.clear()
         self.counter.zero_()
+        self.admit_counter.zero_()
         engine._dispatch_chunk = recorded
+        engine._dispatch_admission = admitted
 
     def remove(self, engine=None) -> None:
         from oim_tpu_torch.models import decode as dec
         from oim_tpu_torch.serve import engine as eng
 
-        dec._router_gates, eng._admit_batch = self.record, self.admit
-        if engine is not None and "_dispatch_chunk" in vars(engine):
-            del engine._dispatch_chunk  # the closure holds the engine
+        dec._router_gates, eng._admit_logits = self.record, self.admit
+        for name in ("_dispatch_chunk", "_dispatch_admission"):
+            if engine is not None and name in vars(engine):
+                delattr(engine, name)  # the closures hold the engine
         self.rows = int(self.counter)
         self.logged = self.log[:min(self.rows, self.LOG_ROWS)].cpu()
+        self.admit_entries = int(self.admit_counter)
+        self.admit_logged = self.admit_log[:min(
+            self.admit_entries, self.ADMIT_ENTRIES)].cpu()
+
+    def admitted(self, prompt) -> list | None:
+        """Layer i's [P, k] choices over ``prompt`` from the admission
+        dispatch that prefilled it whole (start 0, tail P), or None.
+        Dispatch d of (bucket, rows) wrote, layer by layer, rows x bucket
+        x k entries after those of the dispatches before it."""
+        L, k, p = self.n_layers, self.top_k, len(prompt)
+        offset, found = 0, None
+        for bucket, rows, prompts, ints in self.admissions:
+            size = rows * bucket * k
+            meta = ints[:2 * rows].reshape(2, rows)
+            for i in range(rows):
+                if (meta[0, i] == 0 and meta[1, i] == p
+                        and prompts[i, :p].tolist() == list(prompt)):
+                    found = [self.admit_logged[offset + layer * size:
+                                               offset + (layer + 1) * size]
+                             .view(rows * bucket, k)[i * bucket:i * bucket + p]
+                             for layer in range(L)]
+            offset += L * size
+        check(offset == self.admit_entries <= self.ADMIT_ENTRIES,
+              f"the admission log holds {self.admit_entries} entries, the "
+              f"{len(self.admissions)} recorded dispatches wrote {offset}")
+        return found
 
     def choices(self, prompt, n: int) -> list:
         """The served choices of the request with ``prompt`` and ``n``
@@ -944,15 +995,7 @@ class ServedRouting:
               and self.rows <= self.LOG_ROWS,
               f"the decode log holds {self.rows} rows, not "
               f"{len(self.dispatches)} dispatches x {chunk} x {L} layers")
-        admitted = None
-        for prompts, tails, calls in self.admissions:
-            prompts, tails = prompts.cpu(), tails.cpu()
-            for i in range(prompts.shape[0]):
-                if (int(tails[i]) == p
-                        and prompts[i, :p].tolist() == list(prompt)):
-                    bucket = prompts.shape[1]
-                    admitted = [c[i * bucket:i * bucket + p].cpu()
-                                for c in calls]
+        admitted = self.admitted(prompt)
         check(admitted is not None and len(admitted) == L,
               f"no admission of {L} layers recorded for a {p}-token prompt")
         rows = {}
@@ -1036,6 +1079,7 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
     if routing is not None:
         routing.watch(engine)
         planted = plant_route_control(engine.params["layers"])
+    trace = ServeTrace(engine)
     try:
         started = engine.stats()
         print(f"serve {tag}: started in {time.monotonic() - t0:.1f} s "
@@ -1047,8 +1091,8 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
               f"pipeline depth {info.get('pipeline_depth', 1)}, cuda graphs "
               f"{graphs}; {args.n_layers} layers, "
               f"{engine.n_params / 1e9:.2f} B parameters, "
-              f"{gib(torch.cuda.memory_allocated()):.1f} GiB allocated",
-              flush=True)
+              f"{gib(torch.cuda.memory_allocated()):.1f} GiB allocated, "
+              f"graph pool {graph_pool_gib():.2f} GiB", flush=True)
         vocab = args.vocab_size
         rng = np.random.RandomState(1)
         lens = [16, 100, 300, 513, 777, 1000]
@@ -1128,6 +1172,9 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
             check(stats["graph_replays"] == stats["decode_dispatches"] > 0,
                   f"{stats['decode_dispatches']} decode dispatches but "
                   f"{stats['graph_replays']} graph replays")
+        if graphs and "admission_replays" in stats:
+            check_admission_graphs(stats, started, len(bodies), f"serve {tag}")
+        counts["admission_waves"] = trace.wave_lines(f"serve {tag}")
         # Time to first token of a lone 512-token prompt (client wall,
         # HTTP included), and the engine's decode rate.
         t0 = time.monotonic()
@@ -1142,19 +1189,25 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
               f"{stats['prefill_seconds']:.3f} s [{SMI}]", flush=True)
         serving_peak = torch.cuda.max_memory_allocated()
         serving_free = free_at_peak()
+        peak_reserved = torch.cuda.max_memory_reserved()
         counts["ttft_ms"] = {"lone_512": ttft * 1e3,
                              "concurrent_p50": stats["ttft_p50_s"] * 1e3}
         counts["decode_tok_s"] = dec_rate
         counts["warmup_s"] = stats.get("warmup_seconds")
         counts["capture_s"] = stats.get("graph_capture_seconds")
+        counts["admission_capture_s"] = stats.get(
+            "admission_capture_seconds")
+        counts["graph_pool_gib"] = graph_pool_gib()
     finally:
+        trace.remove()
         if routing is not None:
             routing.remove(engine)
             restore_routers(engine.params["layers"], planted)
         server.stop()
     total = torch.cuda.get_device_properties(0).total_memory
     print(f"serve {tag}: serving peak {gib(serving_peak):.1f} GiB allocated "
-          f"of {gib(total):.1f} GiB; {serving_free:.1f} GiB of the card free "
+          f"({gib(peak_reserved):.2f} GiB held by the allocator) of "
+          f"{gib(total):.1f} GiB; {serving_free:.1f} GiB of the card free "
           f"at the peak (weights, cache, admission transients, graph pool) "
           f"[{SMI}]", flush=True)
     checked = [(body, reply) for i, (body, (_, reply)) in
@@ -1175,7 +1228,7 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
     counts["peak_gib"] = gib(serving_peak)
     counts["free_at_peak_gib"] = serving_free
     held = torch.cuda.memory_allocated()
-    del engine, server
+    del engine, server, trace
     release()
     print(f"serve {tag}: {gib(held):.1f} GiB allocated with the server "
           f"stopped, {gib(torch.cuda.memory_allocated()):.2f} GiB once it "
@@ -1183,6 +1236,57 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
     check(torch.cuda.memory_allocated() - base < 2**30,
           "a stopped server kept its engine's memory")
     return counts
+
+
+def check_admission_graphs(stats: dict, before: dict, requests: int,
+                           tag: str) -> None:
+    """On an engine that replays graphs: every admission dispatch since
+    ``before`` (stats taken after warmup) — each first-token group
+    dispatch and each non-final segment of ``requests`` requests — was
+    one replay, and no graph was captured after warmup."""
+    delta = {k: stats[k] - before[k] for k in (
+        "admission_replays", "prefill_dispatches", "prefill_segments")}
+    non_final = delta["prefill_segments"] - requests
+    check(delta["admission_replays"] == delta["prefill_dispatches"]
+          + non_final > 0,
+          f"{tag}: {delta['admission_replays']} admission replays, not "
+          f"{delta['prefill_dispatches']} group dispatches + {non_final} "
+          f"segments")
+    check(stats["admission_graphs"] == before["admission_graphs"] > 0
+          and stats["graph_capture_seconds"]
+          == before["graph_capture_seconds"],
+          f"{tag}: graphs captured after warmup ({before['admission_graphs']}"
+          f" admission graphs then, {stats['admission_graphs']} now)")
+    print(f"{tag}: {delta['admission_replays']} admission dispatches, all "
+          f"graph replays ({delta['prefill_dispatches']} first-token groups "
+          f"+ {non_final} segments); {stats['admission_graphs']} admission "
+          f"graphs, all captured at warmup in "
+          f"{stats['admission_capture_seconds']:.1f} s", flush=True)
+
+
+def admit_check(engine, tag: str, what: str, seated: int,
+                pending: int) -> None:
+    """The engine's next admission wave (``what``), run eagerly and by
+    graph replays from one state (``Engine.admit_twice``): first tokens
+    and logprobs, the prompts left mid-prefill, the cache and the
+    penalty counts bit-equal, with ``seated`` requests seated and
+    ``pending`` mid-prefill."""
+    eager, replayed = engine.admit_twice()
+    same = {"first tokens and logprobs": eager["first"] == replayed["first"],
+            "mid-prefill": eager["pending"] == replayed["pending"],
+            "cache and counts": all(torch.equal(a, b) for a, b in zip(
+                eager["state"], replayed["state"]))}
+    print(f"{tag}: one admission wave ({what}) eager vs graph replays from "
+          f"one state: {len(replayed['first'])} seated, "
+          f"{len(replayed['pending'])} mid-prefill; bit-equal: {same}",
+          flush=True)
+    check(all(same.values()), f"{tag}: admission replay differs from eager: "
+          f"{same}")
+    check(len(replayed["first"]) == seated
+          and len(replayed["pending"]) == pending,
+          f"{tag}: the wave seated {len(replayed['first'])} and left "
+          f"{len(replayed['pending'])} mid-prefill, not {seated} and "
+          f"{pending}")
 
 
 def teacher_check(engine, checked, tag: str, routing=None) -> list:
@@ -1251,14 +1355,43 @@ def teacher_check(engine, checked, tag: str, routing=None) -> list:
     return [n_flips, n_choices]
 
 
+def class_times(engine, bucket: int, runs: int = 5) -> dict:
+    """Device time of one replay of each admission graph at ``bucket``,
+    by row class, on inert rows (the sentinel table: every product runs,
+    attention reads and writes nothing, so a row's time here is a lower
+    bound of a real one's): what a padding row costs.  CUDA events
+    around ``runs`` replays each, on an idle engine."""
+    times = {}
+    for rows in engine._admit_classes[bucket]:
+        engine._adm.stage(*engine._admission_inputs(bucket, rows, []))
+        graph, _ = engine._admit_graphs[bucket, rows]
+        graph.replay()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(runs):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        times[rows] = start.elapsed_time(end) / runs
+    print(f"serve graph check: one admission replay at bucket {bucket}, by "
+          f"row class (inert rows): "
+          + ", ".join(f"{rows} rows {ms:.2f} ms" for rows, ms in times.items())
+          + f" [{SMI}]", flush=True)
+    return times
+
+
 def graph_check(engine, vocab: int, rng) -> None:
-    """One decode chunk of every slot seated (greedy, sampled with top-p
-    and penalised rows, contexts 16 to 1500), from copies of one cache
-    state, run eagerly and by its CUDA graph's replay: the same kernels
-    on the same inputs, so tokens, logprobs, the token carry, the cache
-    and the penalty counts must be bit-equal."""
+    """Every slot seated (greedy, sampled with top-p and penalised rows,
+    prompts 16 to 1500 tokens) by one admission wave run eagerly and by
+    graph replays from one state (``admit_check``), then one decode
+    chunk of them, from copies of one cache state, run eagerly and by
+    its CUDA graph's replay: the same kernels on the same inputs, so
+    tokens, logprobs, the token carry, the cache and the penalty counts
+    must be bit-equal."""
     from oim_tpu_torch.serve.engine import GenRequest
 
+    if hasattr(engine, "admit_twice"):  # a parent package has none
+        class_times(engine, 1024)
     engine.set_pipeline_depth(1)
     lens = [16, 100, 300, 513, 777, 1000, 40, 1500]
     for i, n in enumerate(lens[: engine.n_slots]):
@@ -1269,7 +1402,12 @@ def graph_check(engine, vocab: int, rng) -> None:
             kw = dict(repetition_penalty=1.2)
         engine.submit(GenRequest(tokens=rng.randint(0, vocab, n).tolist(),
                                  max_new_tokens=64, **kw))
-    engine.step()  # admit every slot and decode one chunk
+    n = min(len(lens), engine.n_slots)
+    if hasattr(engine, "admit_twice"):  # a parent package has none
+        admit_check(engine, "serve graph check",
+                    f"{n} prompts of {lens[0]} to {max(lens[:n])} tokens, "
+                    f"greedy, sampled and penalised", n, 0)
+    engine.step()  # (admit every slot and) decode one chunk
     eager, replayed = engine.chunk_twice()
     same = {name: torch.equal(eager[name], replayed[name])
             for name in ("out", "lps", "carry")}
@@ -1317,17 +1455,23 @@ def segments_wanted(start: int, n: int, chunk: int) -> int:
 
 class ServeTrace:
     """What an engine does while it serves, recorded from the step
-    thread by wrapping three of its methods: the host time each decode
+    thread by wrapping five of its methods: the host time each decode
     chunk's results were read back with the prompt lengths of the live
-    streams it carried, each dispatch's (graph replay?, how many prompts
-    were mid-prefill), and each request's first-token time after its
-    submission."""
+    streams it carried, each decode dispatch's (graph replay?, how many
+    prompts were mid-prefill), each request's first-token time after its
+    submission, and each admission wave that dispatched anything: its
+    host wall (to its first-token readback, when it has one), its
+    dispatches' device time (CUDA events around each: a replay's kernels
+    run back to back) and whether it read first tokens back."""
 
     def __init__(self, engine):
         self.engine = engine
         self.readbacks, self.dispatches, self.first = [], [], {}
+        self.waves, self._spans = [], []
         process, enqueue, emit = (engine._process_chunk,
                                   engine._enqueue_chunk, engine._emit)
+        admit_wave = engine._admit_wave
+        dispatch_admission = getattr(engine, "_dispatch_admission", None)
 
         def processed(handle, acc):
             live = {(st.rid, len(st.req.tokens))
@@ -1346,13 +1490,52 @@ class ServeTrace:
                 self.first[len(state.req.tokens)] = (state.t_submit, now)
             return emit(state, token, logprob)
 
+        def waved():
+            self._spans = spans = []
+            groups = engine.prefill_dispatches
+            t0 = time.monotonic()
+            admit_wave()
+            wall = time.monotonic() - t0
+            if spans:
+                self.waves.append((wall, spans,
+                                   engine.prefill_dispatches > groups))
+
+        def dispatched(bucket, rows, prompts, ints):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            dispatch_admission(bucket, rows, prompts, ints)
+            end.record()
+            self._spans.append((start, end))
+
         engine._process_chunk = processed
         engine._enqueue_chunk = enqueued
         engine._emit = emitted
+        if dispatch_admission is not None:  # a parent package has none
+            engine._admit_wave = waved
+            engine._dispatch_admission = dispatched
 
     def remove(self) -> None:
-        for name in ("_process_chunk", "_enqueue_chunk", "_emit"):
+        for name in ("_process_chunk", "_enqueue_chunk", "_emit",
+                     "_admit_wave", "_dispatch_admission"):
             vars(self.engine).pop(name, None)
+
+    def wave_lines(self, tag: str) -> list[dict]:
+        """Print each admission wave's wall against its dispatches'
+        device time; return them as dicts."""
+        torch.cuda.synchronize()
+        out = []
+        for wall, spans, read in self.waves:
+            device = sum(a.elapsed_time(b) for a, b in spans)
+            out.append({"wall_ms": wall * 1e3, "device_ms": device,
+                        "dispatches": len(spans), "readback": read})
+        for w in out:
+            print(f"{tag}: admission wave of {w['dispatches']} dispatches: "
+                  f"wall {w['wall_ms']:.2f} ms "
+                  f"({'to its first-token readback' if w['readback'] else 'segments only, no readback'}"
+                  f"), its dispatches' device time {w['device_ms']:.2f} ms "
+                  f"[{SMI}]", flush=True)
+        return out
 
     def ttft_ms(self, n_tokens: int) -> float:
         t_submit, t_first = self.first[n_tokens]
@@ -1486,6 +1669,9 @@ def prefix_serve(argv, tag: str, cached: bool) -> dict:
             print(f"prefix {tag}: {len(trace.dispatches)} decode "
                   f"dispatches, all graph replays, {len(while_pending)} of "
                   f"them while a prompt was mid-prefill", flush=True)
+            if "admission_replays" in stats:
+                check_admission_graphs(stats, before, len(bodies),
+                                       f"prefix {tag}")
         if cached:
             check(delta["prefix_hits"] == len(shared),
                   f"prefix {tag}: {delta['prefix_hits']} hits, not "
@@ -1503,6 +1689,7 @@ def prefix_serve(argv, tag: str, cached: bool) -> dict:
         out = {"replies": [r for _, r in replies], "bodies": bodies,
                "ttft_ms": trace.ttft_ms(len(shared[0])),
                "gap_ms": trace.largest_gap_ms(PREFIX_LONG),
+               "waves": trace.wave_lines(f"prefix {tag}"),
                "counts": counts, "delta": delta, "engine": engine}
         # The first hit again, alone on the idle engine: its time to first
         # token (client wall, HTTP included) without the concurrent
@@ -1514,6 +1701,23 @@ def prefix_serve(argv, tag: str, cached: bool) -> dict:
         trace.remove()
         server.stop()
     return out
+
+
+def prefix_admit_check(engine, layout: str) -> None:
+    """On the cached run's engine, stopped: the seed again (a hit at
+    ``PREFIX_SYSTEM - 1`` rows, inside the entry's last block: a
+    copy-on-write on the paged pool) and a 600-token miss, whose wave
+    writes its first segment, admitted eagerly and by graph replays from
+    one state (``admit_check``)."""
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    system, _, long = prefix_traffic(engine.cfg.vocab_size)
+    engine.submit(GenRequest(tokens=list(system), max_new_tokens=8))
+    engine.submit(GenRequest(tokens=long[:600], max_new_tokens=8))
+    admit_check(engine, f"prefix {layout}", f"a {PREFIX_SYSTEM - 1}-row "
+                f"prefix hit{', a copy-on-write' if engine.paged else ''} "
+                f"and a 600-token miss's first segment", 1, 1)
+    engine.abort("admission check done")
 
 
 def prefix_phase() -> dict:
@@ -1548,6 +1752,8 @@ def prefix_phase() -> dict:
         engine = cached.pop("engine")
         checked = list(zip(cached["bodies"], cached["replies"]))
         teacher_check(engine, checked, f"prefix {layout}")
+        if engine.cuda_graphs and hasattr(engine, "admit_twice"):
+            prefix_admit_check(engine, layout)
         del engine
         release()
         check(torch.cuda.memory_allocated() < 2**30,
@@ -1559,6 +1765,8 @@ def prefix_phase() -> dict:
                               control_lone_ttft_ms=plain["lone_ms"],
                               gap_ms=cached["gap_ms"],
                               control_gap_ms=plain["gap_ms"],
+                              waves=cached["waves"],
+                              control_waves=plain["waves"],
                               identical=same)
     return counts
 

@@ -189,8 +189,9 @@ def load_weights(args, cfg: TransformerConfig, device) -> dict:
 def make_engine(args, cuda_graphs: bool = True) -> Engine:
     """The engine from parsed args: device first (no GPU and no
     ``--device cpu`` fails before any work), then weights and engine.
-    ``cuda_graphs=False`` dispatches decode chunks eagerly: a
-    measurement's A/B control, deliberately not a serving flag."""
+    ``cuda_graphs=False`` dispatches decode chunks and admissions
+    eagerly: a measurement's A/B control, deliberately not a serving
+    flag."""
     for axis in ("tp", "ep"):
         if getattr(args, axis) > 1:
             raise ValueError(

@@ -4,9 +4,9 @@ served model's full width, profiled with ``torch.profiler``.
 Builds the engine as ``serve_main`` does (same geometry and engine
 flags — ``--kv-block``, ``--pipeline-depth``, ``--prefix-cache``,
 ``--prefill-chunk`` — and random weights from ``--seed``) and warms
-it; ``--eager`` dispatches each decode chunk eagerly instead of
-replaying its CUDA graph (the A/B control, a switch of this tool
-only).  Prompt lengths are spread over the slots up to ``--max-len``.
+it; ``--eager`` dispatches each decode chunk and each admission
+dispatch eagerly instead of replaying its CUDA graph (the A/B control,
+a switch of this tool only).  Prompt lengths are spread over the slots up to ``--max-len``.
 Two windows:
 
 - admission: one wave of one request per slot, admitted in one
@@ -30,8 +30,9 @@ time.  It prints the wall, the device
 time summed over kernels, the device's idle share (one minus their
 ratio), the wall and device time per decode chunk, the device time by
 family (K1 with its merge, K2, cuBLAS GEMMs,
-the rest) and the kernels that took the most device time; the last line
-is one JSON object with those numbers.  Run on the machine with the GPU:
+the rest), the kernels that took the most device time and the host ops
+that took the most host time; the last line is one JSON object with
+those numbers.  Run on the machine with the GPU:
 
     python -m oim_tpu_torch.cli.serve_profile \\
         --vocab-size 151936 --d-model 1536 --n-layers 28 --n-heads 12 \\
@@ -109,6 +110,9 @@ def profiled(step, steps: int, wall_ms: float, families=None) -> dict:
                and not _annotation(e)]
     busy_ms = sum(us for _, us, _ in kernels) / 1e3
     kernels.sort(key=lambda e: -e[1])
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), key=lambda e: -e[1])
     by_family = {}
     for name, us, _ in kernels:
         family = next((f for f, keys in (families or {}).items()
@@ -125,6 +129,8 @@ def profiled(step, steps: int, wall_ms: float, families=None) -> dict:
             for name, us, count in kernels[:TOP]
         ],
         "families_ms": by_family if families else None,
+        "host_top": [{"name": name[:90], "ms": ms, "calls": count}
+                     for name, ms, count in host[:TOP]],
     }
 
 
@@ -139,6 +145,10 @@ def print_window(title: str, w: dict) -> None:
     for k in w["top"]:
         print(f"  {k['ms']:9.3f} ms {k['share']:6.1%} x{k['calls']:<6} "
               f"{k['name']}")
+    print("  host ops by their own host time (under the profiler, which "
+          "inflates them):")
+    for k in w["host_top"]:
+        print(f"  {k['ms']:9.3f} ms x{k['calls']:<6} {k['name']}")
 
 
 def build_parser():
@@ -146,8 +156,8 @@ def build_parser():
     p.prog = "serve_profile"
     p.add_argument(
         "--eager", action="store_true",
-        help="dispatch each decode chunk eagerly, not as a CUDA graph "
-        "replay (the A/B control)",
+        help="dispatch each decode chunk and admission eagerly, not as "
+        "CUDA graph replays (the A/B control)",
     )
     return p
 

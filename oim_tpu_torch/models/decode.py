@@ -43,10 +43,11 @@ from oim_tpu_torch.ops.rope import apply_rope
 NEG_BIG = -1e30
 _MASK64 = (1 << 64) - 1
 # Tokens per pass through the experts in ``_moe_exact``: bounds its
-# [E, tokens, d_ff] transients (at Mixtral's widths 0.23 GB each in
-# bf16) when an admission brings thousands of tokens.  Routing is per
-# token, so the split changes no token's result.
-MOE_TOKENS = 1024
+# [E, tokens, d_ff] transients (at Mixtral's widths 0.12 GB each in
+# bf16) when an admission brings thousands of tokens, and so what an
+# admission graph's pool keeps.  Routing is per token, so the split
+# changes no token's result.
+MOE_TOKENS = 512
 
 
 @dataclass

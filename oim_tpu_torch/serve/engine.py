@@ -39,11 +39,20 @@ paths:
   live in a decode chunk reads and writes no KV (its table row is the
   sentinel), so a pending prefill's rows and a shared block stay as
   they were.
-- **One CUDA graph per decode chunk.**  On the GPU a decode chunk — its
-  ``chunk`` passes through every layer and the sampling — is one
-  ``torch.cuda.CUDAGraph`` replay over inputs and outputs at fixed
+- **Decode chunks and admissions as CUDA graphs.**  On the GPU a decode
+  chunk — its ``chunk`` passes through every layer and the sampling — is
+  one ``torch.cuda.CUDAGraph`` replay over inputs and outputs at fixed
   device addresses, fed from and read into pinned host buffers without
-  a synchronising copy.  Admission runs eagerly.
+  a synchronising copy.  So is each admission dispatch (the reference
+  compiles its admission once per prompt bucket): a group sharing a
+  bucket is padded to a row class — a power of two up to ``n_slots`` —
+  with inert rows (the sentinel table row, start 0, tail 1), split into
+  several dispatches past ``ADMIT_TOKENS`` tokens, and its prefill up to
+  the last real position's logits replays the (bucket, class) graph;
+  the first tokens are sampled eagerly from those logits.  A segment of
+  a chunked prefill replays the (``prefill_chunk``, 1) graph.  Every
+  graph is captured at warmup; the eager route (``cuda_graphs=False``,
+  and the CPU) pads the same way, so it runs the same shapes.
 - **Exactness.**  Each slot attends only its own positions and each
   sampled token draws noise keyed by ``(request seed, token index)``
   (``models/decode.py``), so results never depend on the slot, the
@@ -58,6 +67,7 @@ them.
 
 from __future__ import annotations
 
+import copy
 import statistics
 import threading
 import time
@@ -388,22 +398,20 @@ def _sample_batched(logits, s: _Sampling, noise, top_k: int, counts):
     return tokens, chosen - torch.logsumexp(logits, dim=-1)
 
 
-def _admit_batch(params, cache, row_tables, prompts, starts, true_tails,
-                 s: _Sampling, noise, cfg: TransformerConfig, top_k: int,
-                 counts):
+def _admit_logits(params, cache, row_tables, prompts, starts, true_tails,
+                  cfg: TransformerConfig):
     """Prefill a group of admissions sharing a prompt bucket in one
-    dispatch and sample each one's first token.  prompts [S, bucket]
-    (each row's prompt, zero-padded); starts [S] int32; true_tails [S]
-    valid lengths; row_tables [S, n_tables] int32; noise [S, V] (each
-    request's token 0, offset by its ``sample_base``) or None.  Padding
-    positions past a row's true length are written into the slot's own
-    rows and masked until decode overwrites them.  Returns (tokens [S],
-    logprobs [S])."""
+    dispatch: prompts [R, bucket] (each row's prompt tail, zero-padded)
+    from starts [R] int32, true_tails [R] valid lengths, row_tables [R,
+    n_tables] int32.  Padding positions past a row's true length are
+    written into the slot's own rows and masked until decode overwrites
+    them.  Returns the f32 logits [R, V] of each row's last real
+    position, from which its first token is sampled (or nothing, for a
+    segment of a chunked prefill)."""
     x = _hidden_slots(params, prompts, cache, starts, row_tables, cfg)
     rows = torch.arange(x.shape[0], device=x.device)
     last = x[rows, true_tails.long() - 1]
-    logits = _unembed(last, params["wlm"], cfg)
-    return _sample_batched(logits, s, noise, top_k, counts)
+    return _unembed(last, params["wlm"], cfg)
 
 
 def _decode_chunk(params, cache, tables, tokens, starts, live,
@@ -478,6 +486,87 @@ class _ChunkBuffers:
         self.staged: list = [None, None]
         self.results = [(host(self.out), host(self.lps)) for _ in range(2)]
         self.turn = 0
+
+
+# The cap on an admission dispatch's tokens (row class × bucket): a group
+# past it runs as several dispatches of fewer rows.  It bounds the
+# transients of one dispatch, which a graph pool keeps for good: at
+# Mixtral-8x7B's widths served at 24 layers on an 80 GB H100 the pool
+# is most of what stands between the card and the 8 GiB free at the
+# serving peak that ``chip_smoke.py`` requires (PERF.md §6).
+ADMIT_TOKENS = 4096
+
+
+def _row_classes(n_slots: int) -> tuple[int, ...]:
+    """The row counts an admission dispatch is padded to: the powers of
+    two below ``n_slots``, then ``n_slots``."""
+    classes, c = [], 1
+    while c < n_slots:
+        classes.append(c)
+        c *= 2
+    return (*classes, n_slots)
+
+
+class _AdmitBuffers:
+    """An admission dispatch's inputs and output at fixed device
+    addresses — what an admission graph reads and writes.  For ``rows``
+    rows at ``bucket`` (``views``): ``prompts`` [rows, bucket] int64
+    (each row's prompt tail, zero-padded), ``meta`` [2, rows] int32
+    (starts, true tails) and ``tables`` [rows, n_tables] int32, views at
+    the head of two flat buffers, staged as one int64 and one int32 copy
+    (``pack``); ``logits`` [rows, V] f32, each row's last real position
+    unembedded."""
+
+    def __init__(self, max_tokens: int, max_rows: int, n_tables: int,
+                 vocab: int, device):
+        def dev(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.n_tables = n_tables
+        self.prompts = dev((max_tokens,), torch.int64)
+        self.ints = dev((max_rows * (2 + n_tables),), torch.int32)
+        self.logits = dev((max_rows, vocab), torch.float32)
+
+    def views(self, bucket: int, rows: int) -> tuple:
+        """(prompts, meta, tables) of a dispatch of ``rows`` at
+        ``bucket``."""
+        n = rows * (2 + self.n_tables)
+        return (self.prompts[: rows * bucket].view(rows, bucket),
+                self.ints[: 2 * rows].view(2, rows),
+                self.ints[2 * rows: n].view(rows, self.n_tables))
+
+    def stage(self, prompts: np.ndarray, ints: np.ndarray) -> None:
+        """Copy one dispatch's host inputs (``pack``) into the buffers'
+        heads without waiting for the device."""
+        _stage(prompts.reshape(-1), self.prompts[: prompts.size])
+        _stage(ints, self.ints[: ints.size])
+
+    @staticmethod
+    def pack(meta: np.ndarray, tables: np.ndarray) -> np.ndarray:
+        """The int32 buffer's head for meta [2, rows] and tables [rows,
+        n_tables]."""
+        return np.concatenate([meta.ravel(), tables.ravel()]).astype(np.int32)
+
+
+def _pinned(host: np.ndarray, cuda: bool) -> torch.Tensor:
+    """``host`` as a CPU tensor to copy to the device from: on the GPU a
+    pinned copy, which the host allocator holds until a non-blocking
+    transfer from it is done, so the host does not wait for the device
+    (a pageable copy would)."""
+    src = torch.from_numpy(np.ascontiguousarray(host))
+    return src.pin_memory() if cuda else src
+
+
+def _stage(host: np.ndarray, dst: torch.Tensor) -> None:
+    """Copy ``host`` into ``dst`` without waiting for the device."""
+    dst.copy_(_pinned(host, dst.is_cuda), non_blocking=dst.is_cuda)
+
+
+def _to_device(host: np.ndarray, device) -> torch.Tensor:
+    """``host`` as a new tensor on ``device``, copied as ``_stage``
+    does."""
+    cuda = torch.device(device).type == "cuda"
+    return _pinned(host, cuda).to(device, non_blocking=cuda)
 
 
 @dataclass
@@ -622,11 +711,12 @@ class Engine:
     number of threads call ``submit``/``result`` (the HTTP server's
     usage).  ``device`` defaults to CUDA; without a GPU the caller must
     ask for ``"cpu"``, where the kernel wrappers run their plain
-    versions.  On the GPU each decode chunk replays a CUDA graph,
-    captured at ``warmup`` (or at the first decode dispatch);
-    ``cuda_graphs=False`` dispatches the same chunk eagerly instead, the
-    A/B control for measurements.  A capture or replay that fails
-    raises: the engine never falls back to eager dispatch by itself.
+    versions.  On the GPU each decode chunk and each admission dispatch
+    replays a CUDA graph, all captured at ``warmup`` (or at the first
+    dispatch); ``cuda_graphs=False`` dispatches the same work eagerly
+    instead, the A/B control for measurements.  A capture or replay that
+    fails, or an admission shape with no graph, raises: the engine never
+    falls back to eager dispatch by itself.
     """
 
     def __init__(
@@ -802,6 +892,19 @@ class Engine:
         self._prefilling: dict[int, _PendingPrefill] = {}
         self._buf = _ChunkBuffers(n_slots, self._n_tables, chunk,
                                   cfg.vocab_size, self.device)
+        # Each bucket's admission row classes within the token cap (one
+        # row always: a prompt is never split).
+        self._admit_classes = {
+            b: tuple(c for c in _row_classes(n_slots)
+                     if c == 1 or c * b <= ADMIT_TOKENS)
+            for b in self.prompt_buckets
+        }
+        self._adm = _AdmitBuffers(
+            max(b * c[-1] for b, c in self._admit_classes.items()),
+            max(c[-1] for c in self._admit_classes.values()),
+            self._n_tables, cfg.vocab_size, self.device,
+        )
+        self._admit_graphs: dict = {}  # (bucket, rows) → (graph, counts)
         self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
         self._graphs: dict | None = None
         self._graph_counts: dict = {}
@@ -839,13 +942,17 @@ class Engine:
         # own readback.
         self.decode_seconds = 0.0
         self.decode_tokens = 0
-        # Forward passes through the layer stack: one per admission
-        # group and one per decode step dispatched (each runs both
-        # kernels once per layer) — a chunk dropped unread included.
+        # Forward passes through the layer stack: one per first-token
+        # admission dispatch (a group past the token cap makes several)
+        # and one per decode step dispatched (each runs both kernels
+        # once per layer) — a chunk dropped unread included.
         self.prefill_dispatches = 0
         self.decode_passes = 0
         self.decode_dispatches = 0
-        self.graph_replays = 0
+        self.graph_replays = 0  # decode chunks replayed
+        # Admission dispatches (first-token groups and non-final
+        # segments) replayed from their graphs.
+        self.admission_replays = 0
         self.readbacks = 0
         # The pipeline's split of step() walls, under the reference's
         # names: readback_seconds is the wall blocked on a chunk's
@@ -861,10 +968,11 @@ class Engine:
         # Chained dispatches skipped because the chunk in flight already
         # covers every slot's remaining budget.
         self.tail_elisions = 0
-        # Host walls of warmup() (its graph capture included) and of the
-        # capture alone.
+        # Host walls of warmup() (its graph capture included), of the
+        # capture of every graph, and of the admission graphs' share.
         self.warmup_seconds = 0.0
         self.graph_capture_seconds = 0.0
+        self.admission_capture_seconds = 0.0
         self._t_device_free: float | None = None
         self._t_last_chunk_done: float | None = None
         self._ttfts: deque[float] = deque(maxlen=256)
@@ -1172,6 +1280,8 @@ class Engine:
                 "decode_passes": self.decode_passes,
                 "decode_dispatches": self.decode_dispatches,
                 "graph_replays": self.graph_replays,
+                "admission_replays": self.admission_replays,
+                "admission_graphs": len(self._admit_graphs),
                 "readbacks": self.readbacks,
                 "readback_seconds": self.readback_seconds,
                 "dispatch_seconds": self.dispatch_seconds,
@@ -1184,6 +1294,7 @@ class Engine:
                 "tail_elisions": self.tail_elisions,
                 "warmup_seconds": self.warmup_seconds,
                 "graph_capture_seconds": self.graph_capture_seconds,
+                "admission_capture_seconds": self.admission_capture_seconds,
                 "pipeline_depth": self.pipeline_depth,
                 "inflight_dispatches": int(self._inflight is not None),
                 "ttft_p50_s": statistics.median(ttfts) if ttfts else 0.0,
@@ -1228,8 +1339,10 @@ class Engine:
     def warmup(self) -> "Engine":
         """Run one dummy request per prompt bucket (each that fits the
         pool): builds the kernels on first use and touches every prefill
-        shape once before live traffic; on the GPU, captures the decode
-        chunk's graphs."""
+        shape once before live traffic; on the GPU, captures every graph
+        first (``_capture_graphs``: the decode chunk's, and admission's
+        for every bucket and row class), so that no graph is captured
+        after it."""
         t0 = time.monotonic()
         self._warming = True
         try:
@@ -1244,8 +1357,7 @@ class Engine:
             self.run()
             for rid in rids:
                 self.result(rid, timeout=0)
-            if self.cuda_graphs and self._graphs is None:
-                self._capture_graphs()
+            self._ensure_graphs()
         finally:
             self._warming = False
         self.warmup_seconds = time.monotonic() - t0
@@ -1568,19 +1680,110 @@ class Engine:
 
     # -- admission ----------------------------------------------------------
 
+    def _admission_inputs(self, bucket: int, rows: int, entries) -> tuple:
+        """Host inputs of one admission dispatch of ``rows`` rows at
+        ``bucket`` (``_AdmitBuffers.stage``'s arguments): row i from
+        ``entries[i]`` = (prompt tail, start, table row); every row past
+        them pads, inert as the reference's padding rows are — start 0,
+        tail 1 and the sentinel table row, so that K2 drops its writes and
+        K1 reads nothing — and its logits are discarded."""
+        prompts = np.zeros((rows, bucket), np.int64)
+        meta = np.zeros((2, rows), np.int32)
+        meta[1] = 1
+        tables = np.full((rows, self._n_tables), self._sentinel, np.int32)
+        for i, (tail, start, table) in enumerate(entries):
+            prompts[i, : len(tail)] = tail
+            meta[:, i] = start, len(tail)
+            tables[i] = table
+        return prompts, _AdmitBuffers.pack(meta, tables)
+
+    def _pieces(self, n: int, bucket: int) -> list[tuple[int, int]]:
+        """(rows taken, row class) of each dispatch of an ``n``-row group
+        at ``bucket``: as many rows as the largest class within the token
+        cap, the last dispatch padded to the smallest class that holds
+        its rows."""
+        classes = self._admit_classes[bucket]
+        pieces = []
+        while n > 0:
+            take = min(n, classes[-1])
+            pieces.append((take, next(c for c in classes if c >= take)))
+            n -= take
+        return pieces
+
+    def _run_admission(self, bucket: int, rows: int) -> None:
+        """One admission dispatch over the static buffers' ``rows`` rows
+        at ``bucket``, eagerly — or, under a capture, the work that graph
+        (bucket, rows) replays: the logits into ``_adm.logits[:rows]``."""
+        prompts, meta, tables = self._adm.views(bucket, rows)
+        self._adm.logits[:rows].copy_(_admit_logits(
+            self.params, self._cache, tables, prompts, meta[0], meta[1],
+            self.cfg,
+        ))
+
+    def _dispatch_admission(self, bucket: int, rows: int, prompts,
+                            ints) -> None:
+        """Stage one admission dispatch's host inputs
+        (``_admission_inputs``) and run it — by its graph's replay, or
+        eagerly with graphs off.  Nothing here waits for the device.  On
+        graphs a (bucket, rows) with no graph raises: admission never
+        runs eagerly by itself."""
+        self._ensure_graphs()
+        self._adm.stage(prompts, ints)
+        if not self.cuda_graphs:
+            self._run_admission(bucket, rows)
+            return
+        if (bucket, rows) not in self._admit_graphs:
+            raise RuntimeError(
+                f"no admission graph for bucket {bucket} x {rows} rows "
+                f"(captured: {sorted(self._admit_graphs)})"
+            )
+        graph, counts = self._admit_graphs[bucket, rows]
+        graph.replay()
+        paged_attention.replay_counts(counts)
+        if not self._warming:
+            self.admission_replays += 1
+
+    def _sample_first(self, piece) -> tuple:
+        """Sample the first token of each real row of the admission
+        dispatch just run (its logits at the head of ``_adm.logits``),
+        eagerly, and seat the rows' penalty counts.  ``piece`` is its
+        rows' (slot, rid, req, ...) tuples.  Returns (tokens, logprobs)
+        [len(piece)] on the device."""
+        dev, vocab = self.device, self.cfg.vocab_size
+        reqs = [r[2] for r in piece]
+        slot_ids = np.asarray([r[0] for r in piece], np.int64)
+        cols = _columns(reqs, self.default_top_p)
+        s = _Sampling(_to_device(cols, dev), *_sampling_key(cols))
+        noise = None
+        if s.sampled:
+            noise = _noise([r.seed for r in reqs],
+                           [r.sample_base for r in reqs], cols[0] > 0, 1,
+                           vocab, dev)[0]
+        counts = None
+        if self.penalties:
+            prompt_counts = _to_device(np.stack([
+                np.bincount(req.tokens, minlength=vocab) for req in reqs
+            ]).astype(np.int32), dev)
+            counts = (prompt_counts, torch.zeros_like(prompt_counts))
+        tokens, lps = _sample_batched(self._adm.logits[: len(piece)], s,
+                                      noise, self.top_k, counts)
+        if self.penalties:
+            idx = _to_device(slot_ids, dev)
+            onehot = torch.zeros_like(prompt_counts)
+            onehot[torch.arange(len(piece), device=dev), tokens] = 1
+            self._tok_counts[idx] = prompt_counts + onehot
+            self._gen_counts[idx] = onehot
+        return tokens, lps
+
     def _prefill_segment(self, slot: int, seg: list[int], start: int) -> None:
         """One non-final segment of a chunked prefill: write ``seg``'s KV
-        rows into ``slot`` from position ``start`` (a one-row dispatch
-        through the layers; no unembedding, nothing read back).  The
+        rows into ``slot`` from position ``start`` — one dispatch of the
+        (``prefill_chunk``, 1) admission, whose logits nobody reads.  The
         segment is ``prefill_chunk`` long, a bucket, so nothing is
         padded."""
-        dev = self.device
-        _hidden_slots(
-            self.params, torch.tensor([seg], dtype=torch.int64, device=dev),
-            self._cache, torch.tensor([start], dtype=torch.int32, device=dev),
-            torch.from_numpy(self._tables_host[slot: slot + 1]).to(dev),
-            self.cfg,
-        )
+        bucket = len(seg)
+        self._dispatch_admission(bucket, 1, *self._admission_inputs(
+            bucket, 1, [(seg, start, self._tables_host[slot])]))
         if not self._warming:
             self.prefill_segments += 1
 
@@ -1706,47 +1909,15 @@ class Engine:
             rows.append((slot, rid, req, t_submit, start, tail))
         if not self._warming:
             self.prefill_segments += len(rows)
-        dev = self.device
-        vocab = self.cfg.vocab_size
-        groups = []  # (rows, tokens, logprobs) per tail bucket
+        groups = []  # (rows, tokens, logprobs) per dispatch
         for bucket in sorted({self._bucket(len(r[5])) for r in rows}):
             group = [r for r in rows if self._bucket(len(r[5])) == bucket]
-            reqs = [r[2] for r in group]
-            prompts = np.zeros((len(group), bucket), np.int64)
-            for i, r in enumerate(group):
-                prompts[i, : len(r[5])] = r[5]
-            slot_ids = [r[0] for r in group]
-            cols = _columns(reqs, self.default_top_p)
-            s = _Sampling(torch.from_numpy(cols).to(dev),
-                          *_sampling_key(cols))
-            noise = None
-            if s.sampled:
-                noise = _noise([r.seed for r in reqs],
-                               [r.sample_base for r in reqs], cols[0] > 0,
-                               1, vocab, dev)[0]
-            counts = None
-            if self.penalties:
-                prompt_counts = torch.from_numpy(np.stack([
-                    np.bincount(req.tokens, minlength=vocab)
-                    for req in reqs
-                ]).astype(np.int32)).to(dev)
-                counts = (prompt_counts, torch.zeros_like(prompt_counts))
-            tokens, lps = _admit_batch(
-                self.params, self._cache,
-                torch.from_numpy(self._tables_host[slot_ids]).to(dev),
-                torch.from_numpy(prompts).to(dev),
-                torch.tensor([r[4] for r in group], dtype=torch.int32,
-                             device=dev),
-                torch.tensor([len(r[5]) for r in group], device=dev),
-                s, noise, self.cfg, self.top_k, counts,
-            )
-            if self.penalties:
-                idx = torch.tensor(slot_ids, device=dev)
-                onehot = torch.zeros_like(prompt_counts)
-                onehot[torch.arange(len(group), device=dev), tokens] = 1
-                self._tok_counts[idx] = prompt_counts + onehot
-                self._gen_counts[idx] = onehot
-            groups.append((group, tokens, lps))
+            for take, cls in self._pieces(len(group), bucket):
+                piece, group = group[:take], group[take:]
+                self._dispatch_admission(bucket, cls, *self._admission_inputs(
+                    bucket, cls, [(r[5], r[4], self._tables_host[r[0]])
+                                  for r in piece]))
+                groups.append((piece, *self._sample_first(piece)))
         if self.prefix_cache_size:
             for slot, _, req, _, _, _ in rows:
                 if req.cache_prefix:
@@ -1833,15 +2004,29 @@ class Engine:
         b.lps.copy_(lps)
         b.tokens.copy_(last)
 
+    def _ensure_graphs(self) -> None:
+        """On graphs, capture them all at the first dispatch of either
+        kind (``warmup``'s first, on a warmed engine)."""
+        if self.cuda_graphs and self._graphs is None:
+            self._capture_graphs()
+
     def _capture_graphs(self) -> None:
         """Capture one CUDA graph of ``_run_chunk`` per ``_GRAPH_KEYS``
-        key, into one memory pool (replays never overlap: one stream).
-        The static inputs are made harmless first — every table entry
-        the sentinel (K2 writes nothing, K1 reads nothing) and no row
-        live (no count moves) — so that the eager chunk run before each
-        capture, which builds the kernels and sets their attributes
-        outside it, changes nothing a slot owns.  The launch counts each
-        capture records are what its replays add (``recording``)."""
+        key and one of ``_run_admission`` per bucket and row class within
+        the token cap, all into one memory pool (replays never overlap:
+        one stream; every graph's inputs and outputs live outside it).
+        First each decode key and each bucket at one row runs eagerly on
+        inert inputs — every table entry the sentinel (K2 writes nothing,
+        K1 reads nothing), no decode row live (no count moves) — which
+        builds the kernels and sets their attributes outside a capture
+        and changes nothing a slot owns (a row class changes only the
+        products' row count).  All eager runs come before the first
+        capture, and their cached memory goes back to the card before
+        it, so their share and the pool's never add up; the largest
+        dispatch is captured first, so that the smaller ones reuse its
+        pool blocks and the pool holds about one dispatch's transients.
+        The launch counts each capture records are what its replays add
+        (``recording``)."""
         t0 = time.monotonic()
         b = self._buf
         b.tables.fill_(self._sentinel)
@@ -1850,22 +2035,41 @@ class Engine:
         b.cols.copy_(torch.from_numpy(
             np.repeat(_NEUTRAL[:, None], self.n_slots, axis=1)))
         b.noise.zero_()
-        pool = torch.cuda.graph_pool_handle()
+        keys = sorted(((bucket, rows) for bucket, classes in
+                       self._admit_classes.items() for rows in classes),
+                      key=lambda key: -key[0] * key[1])
+        current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
-        graphs, counts = {}, {}
-        for key in _GRAPH_KEYS:
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for key in _GRAPH_KEYS:
                 self._run_chunk(key)
-            torch.cuda.current_stream(self.device).wait_stream(side)
+            for bucket in self.prompt_buckets:
+                self._adm.stage(*self._admission_inputs(bucket, 1, []))
+                self._run_admission(bucket, 1)
+        current.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        pool = torch.cuda.graph_pool_handle()
+
+        def capture(run, *key):
             graph = torch.cuda.CUDAGraph()
             with paged_attention.recording() as delta, torch.cuda.graph(
                     graph, pool=pool, capture_error_mode="thread_local"):
-                self._run_chunk(key)
-            graphs[key], counts[key] = graph, delta
+                run(*key)
+            return graph, delta
+
+        t1 = time.monotonic()
+        self._admit_graphs = {key: capture(self._run_admission, *key)
+                              for key in keys}
+        t2 = time.monotonic()
+        graphs, counts = {}, {}
+        for key in _GRAPH_KEYS:
+            graphs[key], counts[key] = capture(self._run_chunk, key)
         torch.cuda.synchronize(self.device)
         self._graphs, self._graph_counts = graphs, counts
         self.graph_capture_seconds = time.monotonic() - t0
+        self.admission_capture_seconds = t2 - t1
 
     def _enqueue_chunk(self, inputs: _ChunkInputs, tokens, starts, indices,
                        graph: bool):
@@ -1932,8 +2136,7 @@ class Engine:
             slots = dict(self._slots)
         t0 = time.monotonic()
         if chained is None:
-            if self.cuda_graphs and self._graphs is None:
-                self._capture_graphs()
+            self._ensure_graphs()
             inputs, tokens, starts, indices = self._fresh_inputs(slots)
         else:
             inputs, tokens = chained.inputs, None
@@ -2036,4 +2239,62 @@ class Engine:
                          "state": [t.clone() for t in state]})
         for t, s in zip(state, saved):
             t.copy_(s)
+        return runs
+
+    # What one admission wave changes on the host, restored by
+    # ``admit_twice`` between its runs.
+    _WAVE_STATE = ("_queue", "_free", "_slots", "_admitting", "_prefilling",
+                   "_tables_host", "_alloc", "_prefix_cache", "_results",
+                   "_errors", "_cancelled", "_forgotten")
+
+    @torch.no_grad()
+    def admit_twice(self) -> list[dict]:
+        """For checks on the card: the next admission wave (the queued
+        requests that fit, the pending prefills' next segments) run from
+        one state twice — eagerly, then by graph replays from that state
+        restored — returning what each run left: ``first`` {rid: (token,
+        logprob)} of the requests it seated, ``pending`` {rid: next
+        segment start} of the prompts mid-prefill, and ``state``, the
+        cache and the penalty counts, as tensors.  Needs the graphs and
+        no chunk in flight; the engine is left as the replayed wave left
+        it.  The check's work is not counted in ``stats()``."""
+        if self._graphs is None or self._inflight is not None:
+            raise RuntimeError("admit_twice needs captured graphs and no "
+                               "chunk in flight")
+        cache = self._cache
+        state = [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale,
+                             self._tok_counts, self._gen_counts)
+                 if t is not None]
+        saved = [t.clone() for t in state]
+        with self._lock:
+            host = copy.deepcopy({name: getattr(self, name)
+                                  for name in self._WAVE_STATE})
+        known = set(host["_results"]) | {st.rid for st in
+                                         host["_slots"].values()}
+        runs = []
+        self._warming = True
+        try:
+            for graphs in (False, True):
+                for t, s in zip(state, saved):
+                    t.copy_(s)
+                with self._lock:
+                    for name, value in copy.deepcopy(host).items():
+                        setattr(self, name, value)
+                self.cuda_graphs = graphs
+                self._admit_wave()
+                with self._lock:
+                    first = {st.rid: (st.emitted[0], st.logprobs[0])
+                             for st in self._slots.values()}
+                    first.update({rid: (toks[0], lps[0]) for rid, (toks, lps)
+                                  in self._results.items()})
+                    runs.append({
+                        "first": {rid: v for rid, v in first.items()
+                                  if rid not in known},
+                        "pending": {rid: p.start for rid, p in
+                                    self._prefilling.items()},
+                        "state": [t.clone() for t in state],
+                    })
+        finally:
+            self.cuda_graphs = True
+            self._warming = False
         return runs

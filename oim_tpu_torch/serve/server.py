@@ -12,7 +12,9 @@ names (``paged``, ``kv_block``, ``pipeline_depth``, ``penalties``;
 ``tail_elisions``, ``inflight_dispatches``; the prefix cache's and
 chunked prefill's ``prefix_*``, ``prefill_segments``, ``prefilling``).
 A request's ``cache_prefix`` stores its prompt's KV when the engine has
-a prefix cache.  Streaming, text, embeddings, beam search, the OpenAI
+a prefix cache.  A deadline comes as the body's ``deadline_ms`` or, when
+the body has none, the ``x-oim-deadline-ms`` header (how a router sends
+a routed budget), as in the reference.  Streaming, text, embeddings, beam search, the OpenAI
 surface, KV shipping (``/v1/kv``: held KV and prefix export or install),
 profiling and the stall watchdog come with later slices (ROADMAP Queue
 A: the rest of server.py); ``/v1/kv`` answers 501 naming them.
@@ -46,17 +48,28 @@ _KV_NOT_PORTED = (
 )
 
 
-def _parse_generate(body: dict) -> GenRequest:
-    """A ``/v1/generate`` JSON body → GenRequest (KeyError, TypeError or
-    ValueError on a malformed body)."""
+def _deadline(body: dict, headers) -> float | None:
+    """A request's deadline on the engine's clock: ``deadline_ms`` in the
+    body (wins) or the ``x-oim-deadline-ms`` header — the one a router
+    forwards a routed budget in — as a relative millisecond budget, made
+    absolute here so that client and server clocks never meet.  A budget
+    of 0 or less is a ValueError (400)."""
+    ms = body.get("deadline_ms")
+    if ms is None:
+        ms = headers.get("x-oim-deadline-ms")
+    if ms is None:
+        return None
+    ms = float(ms)
+    if ms <= 0:
+        raise ValueError(f"deadline_ms must be > 0, got {ms}")
+    return time.monotonic() + ms / 1000.0
+
+
+def _parse_generate(body: dict, headers) -> GenRequest:
+    """A ``/v1/generate`` JSON body and its request headers → GenRequest
+    (KeyError, TypeError or ValueError on a malformed request)."""
     if body.get("stream"):
         raise ValueError("streaming is not ported yet; send stream=false")
-    deadline = None
-    if body.get("deadline_ms") is not None:
-        ms = float(body["deadline_ms"])
-        if ms <= 0:
-            raise ValueError(f"deadline_ms must be > 0, got {ms}")
-        deadline = time.monotonic() + ms / 1000.0
     return GenRequest(
         tokens=[int(t) for t in body["tokens"]],
         max_new_tokens=int(body.get("max_new_tokens", 16)),
@@ -81,7 +94,7 @@ def _parse_generate(body: dict) -> GenRequest:
             int(body["kv_import"]) if body.get("kv_import") is not None
             else None
         ),
-        deadline=deadline,
+        deadline=_deadline(body, headers),
         sample_base=int(body.get("sample_base", 0)),
     )
 
@@ -132,7 +145,7 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             length = int(self.headers.get("Content-Length", "0"))
             body = json.loads(self.rfile.read(length) or b"{}")
-            req = _parse_generate(body)
+            req = _parse_generate(body, self.headers)
             rid = outer.engine.submit(req)
         except (QueueFullError, DeadlineExpiredError) as exc:
             self._json(429, {"error": str(exc)})
