@@ -9,8 +9,12 @@ paged engine at depth 1 (paged-attention
 kernels K1 on its decode and tensor-core routes, K2, in both), train a
 few steps in the trainer's usual configuration
 (RMSNorm, flash attention forward, dq, dkv, and the fused unembed+CE
-forward, dx and dw), then checkpoint, resume, export, fine-tune LoRA on
-the export and serve the merged weights — and check what comes back.
+forward, dx and dw; every step after the first one CUDA graph replay
+of the whole step, which must be bit-equal to the eager step, and the
+fused AdamW held against the per-tensor update), then checkpoint,
+resume (graphed, and eagerly from a graphed run's checkpoint), export,
+fine-tune LoRA on the export and serve the merged weights — and check
+what comes back.
 Then the prefix cache and chunked prefill on both cache layouts
 (``--prefix-cache 8 --prefill-chunk 256``: a cached 1008-token system
 prompt, five prompts sharing it, one a copy-on-write on the paged pool,
@@ -41,8 +45,9 @@ phase's engine and the MoE training's kernel path (the references kept
 sound) and runs those two checks, which must fail: a control of the
 routing checks' tolerance.
 ``--train-phase-only [--package DIR]`` likewise runs only the
-training configuration's steps and prints their wall times and peak
-memory, and ``--serve-phase-only [--package DIR]`` only the serve phases
+training configuration's steps and prints their wall times, the
+replays' device time and peak memory, and ``--serve-phase-only
+[--package DIR]`` only the serve phases
 (their checks, the lone 512-token prompt's time to first token, the
 concurrent p50 and the decode rate; the default-configuration phase
 only where the package serves it); run both builds in turns (parent,
@@ -2353,11 +2358,42 @@ def step_parity(args, tag: str = "train",
     torch.cuda.empty_cache()
 
 
+def graph_report(tag: str, result: dict) -> dict | None:
+    """Print a training run's step walls beside its replays' device time
+    (CUDA events around each replay), the graph pool, the capture's
+    seconds and the peak allocated; returns the run's graph stats (None
+    for a package whose trainer has no graph)."""
+    graph = result.get("graph")
+    walls = [round(t * 1e3, 1) for t in result["step_seconds"]]
+    if graph is None:
+        print(f"{tag}: step walls {walls} ms (no graph in this package); "
+              f"peak allocated {gib(torch.cuda.max_memory_allocated()):.2f} "
+              f"GiB [{SMI}]", flush=True)
+        return None
+    print(f"{tag}: step walls {walls} ms; the replays' device time "
+          f"{[round(ms, 1) for ms in graph['replay_ms']]} ms (steps 2-); "
+          f"{graph['captures']} capture in {graph['capture_seconds']:.2f} s, "
+          f"{graph['replays']} replays; graph pool "
+          f"{gib(graph['pool_bytes']):.2f} GiB; peak allocated "
+          f"{gib(torch.cuda.max_memory_allocated()):.2f} GiB [{SMI}]",
+          flush=True)
+    return graph
+
+
+def check_graph(graph: dict, steps: int, tag: str) -> None:
+    """Every step after a trainer's first was one replay of its one
+    graph."""
+    check(graph is not None and graph["graphed"] and graph["captures"] == 1
+          and graph["replays"] == steps - 1,
+          f"{tag}: {steps} steps must be one eager step, one capture and "
+          f"{steps - 1} replays: {graph}")
+
+
 def train_steps():
     """(args, result, the kernels' launch counts) of ``TRAIN_STEPS``
     steps of the training configuration through the loaded package's
     train_main entry, the counts set to 0 just before; prints the
-    steps' walls and the peak memory."""
+    steps' walls, the replays' device time and the peak memory."""
     from oim_tpu_torch.cli import train_main
     from oim_tpu_torch.ops import flash_attention as fa
     from oim_tpu_torch.ops import fused_ce as fc
@@ -2373,16 +2409,15 @@ def train_steps():
     wall = time.monotonic() - t0
     counts = {**rn.counters(), **fa.counters(), **fc.counters()}
     losses = result["losses"]
-    steps_ms = [round(t * 1e3, 1) for t in result["step_seconds"]]
     mem = torch.cuda.memory_stats()
     print(f"train: {len(losses)} steps in {wall:.1f} s (setup included); "
-          f"losses {[round(x, 4) for x in losses]}; step walls {steps_ms} "
-          f"ms; kernel counts {counts}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; allocator "
-          f"cudaMalloc {mem.get('num_device_alloc')}, cudaFree "
-          f"{mem.get('num_device_free')}, retries "
+          f"losses {[round(x, 4) for x in losses]}; kernel counts {counts}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB; allocator cudaMalloc {mem.get('num_device_alloc')}, "
+          f"cudaFree {mem.get('num_device_free')}, retries "
           f"{mem.get('num_alloc_retries')} (since the process began)",
           flush=True)
+    graph_report("train", result)
     return args, result, counts
 
 
@@ -2424,6 +2459,7 @@ def train_phase(record: dict) -> dict:
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     want = check_train_counts(counts, TRAIN_STEPS, args)
+    check_graph(result.get("graph"), TRAIN_STEPS, "train")
     # Steady steps (the first pays warm-up); the kernels' share of one.
     steady = result["step_seconds"][1:]
     step_s = float(np.median(steady))
@@ -2438,8 +2474,153 @@ def train_phase(record: dict) -> dict:
           flush=True)
     del result
     torch.cuda.empty_cache()
+    train_twice(args)
+    adamw_phase(args, "train")
     step_parity(args)
     return counts
+
+
+def train_twice(args, steps: int = 3) -> None:
+    """The training configuration from its seed-0 masters on its first
+    ``steps`` batches, three times through ``make_train_step``: eagerly,
+    graphed (an eager first step, the capture, replays) and eagerly with
+    the per-tensor AdamW.  Graphed and eager must be bit-equal (losses,
+    ce, every parameter and both moments): the replay runs the eager
+    step's kernels on the same inputs.  The per-tensor update's losses
+    and largest parameter difference from the fused update's are
+    printed, not gated: from the second step on they carry the bf16
+    forward's amplification of the updates' last-bit differences
+    (``adamw_phase`` holds the updates themselves to each other on the
+    same gradients).  One state besides the eager one exists at a
+    time."""
+    from oim_tpu_torch.cli import train_main
+    from oim_tpu_torch.data.loader import TokenBatches
+    from oim_tpu_torch.models.train import (
+        TrainState,
+        make_train_step,
+        named_parameters,
+    )
+    from oim_tpu_torch.models.transformer import init_params
+
+    cfg = train_main.make_config(args)
+    opt = train_main.make_optimizer_config(args)
+    corpus = TokenBatches(train_main._load_corpus(args), args.batch_global,
+                          args.seq, seed=args.seed)
+    batches = [torch.from_numpy(corpus.batch_at(i)[:, :args.seq]).long()
+               .to(DEV) for i in range(steps)]
+    runs, ref = {}, None
+    for name, kind, graphed in (("eager", "fused", False),
+                                ("graphed", "fused", True),
+                                ("per_tensor", "per_tensor", False)):
+        state = TrainState.create(
+            init_params(args.seed, cfg, device=DEV, master=True), opt, kind)
+        step = make_train_step(cfg, cuda_graph=graphed)
+        metrics = [step(state, tokens)[1] for tokens in batches]
+        runs[name] = {"loss": [float(m["loss"]) for m in metrics],
+                      "ce": [float(m["ce"]) for m in metrics],
+                      "stats": step.stats()}
+        named = list(named_parameters(state.params))
+        for _, value in named:
+            value.grad = None
+        if ref is None:
+            ref = state
+            continue
+        pairs = [(n, a, b) for (n, a), (_, b) in zip(
+            named, named_parameters(ref.params))]
+        runs[name]["max_abs_diff"] = max(
+            float((a - b).detach().abs().max()) for _, a, b in pairs)
+        runs[name]["differ"] = [n for n, a, b in pairs if not torch.equal(
+            a, b)] + [f"{n}.{key}" for n, a, b in pairs
+                      for key in ("exp_avg", "exp_avg_sq", "step")
+                      if not torch.equal(state.optimizer.state[a][key],
+                                         ref.optimizer.state[b][key])]
+        del state, step, named, pairs
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+    eager, graphed, per_tensor = (runs[k] for k in ("eager", "graphed",
+                                                    "per_tensor"))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(per_tensor["loss"],
+                                                  eager["loss"]))
+    print(f"train_twice: {steps} steps from one seed, eager losses "
+          f"{eager['loss']}, graphed {graphed['loss']} (captures "
+          f"{graphed['stats']['captures']}, replays "
+          f"{graphed['stats']['replays']}); bit-equal: "
+          f"{eager['loss'] == graphed['loss'] and not graphed['differ']} "
+          f"(largest parameter difference {graphed['max_abs_diff']:.3e}); "
+          f"per-tensor AdamW losses {per_tensor['loss']} (relative "
+          f"difference from the fused update's at most {rel:.2e}), largest "
+          f"parameter difference {per_tensor['max_abs_diff']:.3e} [{SMI}]",
+          flush=True)
+    check(graphed["stats"]["captures"] == 1
+          and graphed["stats"]["replays"] == steps - 1,
+          f"train_twice: graphed run {graphed['stats']}")
+    check(eager["loss"] == graphed["loss"] and eager["ce"] == graphed["ce"],
+          f"graphed losses {graphed['loss']} / ce {graphed['ce']} differ "
+          f"from eager {eager['loss']} / {eager['ce']}")
+    check(not graphed["differ"],
+          f"graphed state differs from eager in {graphed['differ'][:8]} "
+          f"(largest parameter difference {graphed['max_abs_diff']:.3e})")
+
+
+def adamw_phase(args, tag: str, steps: int = 3, runs: int = 10) -> dict:
+    """AdamW fused against the capturable per-tensor update over the
+    masters of ``args``' model (seed-0 values, fixed random gradients):
+    ``steps`` updates from the same start compared (the largest
+    parameter difference), then each update's device time (median of
+    ``runs``) and its transient memory (the allocator's peak during the
+    timed updates over what it held before).  Returns the numbers."""
+    from oim_tpu_torch.cli import train_main
+    from oim_tpu_torch.models.train import make_optimizer, named_parameters
+    from oim_tpu_torch.models.transformer import init_params
+
+    cfg = train_main.make_config(args)
+    opt = train_main.make_optimizer_config(args)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    grads, fused, out = None, None, {}
+    for kind in ("fused", "per_tensor"):
+        params = init_params(args.seed, cfg, device=DEV, master=True)
+        leaves = [v.requires_grad_(True) for _, v in named_parameters(params)]
+        if grads is None:
+            grads = [torch.randn(v.shape, generator=gen, device=DEV) * 1e-3
+                     for v in leaves]
+        for value, g in zip(leaves, grads):
+            value.grad = g
+        optimizer = make_optimizer(params, opt, kind)
+        for _ in range(steps):
+            optimizer.step()
+        if fused is None:  # the fused update's parameters after ``steps``
+            fused = [v.detach().clone() for v in leaves]
+        else:
+            worst = max(float((a - b).detach().abs().max())
+                        for a, b in zip(fused, leaves))
+            del fused
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        optimizer.step()
+        torch.cuda.synchronize()
+        transient = torch.cuda.max_memory_allocated() - held
+        out[kind] = {"ms": time_ms(optimizer.step, runs=runs, warmup=0),
+                     "transient_gib": gib(transient)}
+        del optimizer, params, leaves
+        torch.cuda.empty_cache()
+    n = sum(v.numel() for v in grads)
+    print(f"{tag} adamw: {n / 1e9:.3f} B parameters; after {steps} updates "
+          f"from one start the fused and per-tensor parameters differ by at "
+          f"most {worst:.3e}; an update takes {out['fused']['ms']:.3f} ms "
+          f"fused ({out['fused']['transient_gib']:.3f} GiB transient) and "
+          f"{out['per_tensor']['ms']:.3f} ms per-tensor "
+          f"({out['per_tensor']['transient_gib']:.3f} GiB transient); 28 "
+          f"bytes a parameter at {HBM_BYTES_PER_S / 1e12:.2f} TB/s bound it "
+          f"at {28 * n / HBM_BYTES_PER_S * 1e3:.3f} ms [{SMI}]", flush=True)
+    check(worst <= 1e-5, f"{tag}: fused AdamW is {worst:.3e} from the "
+          f"per-tensor update after {steps} steps")
+    check(out["fused"]["transient_gib"] <= out["per_tensor"]["transient_gib"],
+          f"{tag}: the fused update's transient memory is the higher: {out}")
+    del grads
+    torch.cuda.empty_cache()
+    return {"max_abs_diff": worst, **out}
 
 
 # ---------------------------------------------------------------------------
@@ -2597,12 +2778,15 @@ def moe_train_phase(record: dict) -> dict:
           f"kernel counts {counts}; peak memory "
           f"{gib(torch.cuda.max_memory_allocated()):.1f} GiB [{SMI}]",
           flush=True)
+    graph = graph_report("moe train", result)
     check(len(losses) == MOE_TRAIN_STEPS, f"{len(losses)} MoE steps ran")
     check(all(np.isfinite(losses)), f"non-finite MoE loss: {losses}")
     check(all(np.isfinite(aux)) and min(aux) > 0, f"MoE aux {aux}")
     check_train_counts(counts, MOE_TRAIN_STEPS, args)
+    check_graph(graph, MOE_TRAIN_STEPS, "moe train")
     del result
     torch.cuda.empty_cache()
+    adamw_phase(args, "moe train")
     # Memory of the first-step parity, f32 included: the f32 masters of
     # 2 layers (12.7 GB), three sets of gradients at once (the plain
     # path's routing freely, the kernel path's, the plain path's forced;
@@ -2658,8 +2842,12 @@ def moe_phases(record: dict) -> dict:
     the serve phase's counts."""
     release()
     held = torch.cuda.memory_allocated()
-    print(f"moe: {gib(held):.2f} GiB allocated before the MoE phases",
-          flush=True)
+    blocks = sorted((b["size"] for seg in torch.cuda.memory_snapshot()
+                     for b in seg["blocks"]
+                     if b["state"] == "active_allocated"), reverse=True)
+    print(f"moe: {gib(held):.2f} GiB allocated before the MoE phases, in "
+          f"{len(blocks)} blocks; the largest (MiB) "
+          f"{[round(b / 2**20, 1) for b in blocks[:24]]}", flush=True)
     check(held < 2**30, f"earlier phases still hold {gib(held):.1f} GiB")
     record.update(moe_kernel_phase())
     counts = serve_phase(MOE_SERVE_ARGS, "moe", MOE_FREE_GIB)
@@ -2691,16 +2879,19 @@ def serve_args(*flags) -> list[str]:
     return args + list(flags)
 
 
-def run_train(argv) -> dict:
+def run_train(argv, cuda_graph: bool = True) -> dict:
     from oim_tpu_torch.cli import train_main
 
-    return train_main.train(train_main.build_parser().parse_args(argv))
+    return train_main.train(train_main.build_parser().parse_args(argv),
+                            cuda_graph=cuda_graph)
 
 
 def ckpt_lora_phase(work: str) -> dict:
     """Under ``work``: an uninterrupted 5-step run; the same run
-    interrupted after 3 steps (checkpoint every 3) and resumed to 5, whose
-    steps 4-5 give the uninterrupted losses; the same command again with
+    interrupted after 3 steps (checkpoint every 3) and resumed to 5 twice
+    from that checkpoint, by the graphed step and by the eager one, each
+    of whose steps 4-5 must give the uninterrupted losses bit for bit
+    (every run graphed unless named); the same command again with
     ``--export-dir``; a LoRA fine-tune on that export with its merged
     export; the merged weights served through ``serve_main``.  Returns
     the LoRA run's fused-CE launch counts."""
@@ -2719,22 +2910,36 @@ def ckpt_lora_phase(work: str) -> dict:
 
     base, export = os.path.join(work, "base"), os.path.join(work, "export")
     lora, merged_dir = os.path.join(work, "lora"), os.path.join(work, "merged")
-    full = run_train(ckpt_args(5))["losses"]
+    torch.cuda.reset_peak_memory_stats()
+    uninterrupted = run_train(ckpt_args(5))
+    full = uninterrupted["losses"]
+    check_graph(graph_report("ckpt uninterrupted", uninterrupted), 5,
+                "ckpt uninterrupted")
     t0 = time.monotonic()
     first = run_train(ckpt_args(3, "--checkpoint-dir", base,
                                 "--save-every", "3"))
+    eager = run_train(ckpt_args(5, "--checkpoint-dir", base,
+                                "--save-every", "3"), cuda_graph=False)
+    # The eager resume saved step 5; resume from step 3 again, graphed.
+    shutil.rmtree(os.path.join(base, "5"))
     resumed = run_train(ckpt_args(5, "--checkpoint-dir", base,
                                   "--save-every", "3"))
     steps = Checkpointer(base).all_steps()
-    got = first["losses"] + resumed["losses"]
-    print(f"ckpt: {CKPT_LAYERS}-layer full-width runs; uninterrupted losses "
-          f"{[round(x, 6) for x in full]}; interrupted at 3 and resumed at "
-          f"{resumed['start_step']}: {[round(x, 6) for x in got]}; "
-          f"bit-equal: {got == full}; checkpoints on disk {steps} "
-          f"({time.monotonic() - t0:.1f} s with saves)", flush=True)
-    check(resumed["start_step"] == 3 and len(got) == 5, "resume cursor")
-    check(bool(np.allclose(got, full, rtol=RESUME_RTOL, atol=0)),
-          f"resumed losses {got} differ from uninterrupted {full}")
+    for name, run in (("graphed", resumed), ("eager", eager)):
+        got = first["losses"] + run["losses"]
+        print(f"ckpt: {CKPT_LAYERS}-layer full-width runs; uninterrupted "
+              f"losses {[round(x, 6) for x in full]}; interrupted at 3 and "
+              f"resumed at {run['start_step']} by the {name} step: "
+              f"{[round(x, 6) for x in got]}; bit-equal: {got == full}; "
+              f"checkpoints on disk {steps} ({time.monotonic() - t0:.1f} s "
+              f"with saves)", flush=True)
+        check(run["start_step"] == 3 and len(got) == 5, "resume cursor")
+        check(bool(np.allclose(got, full, rtol=RESUME_RTOL, atol=0)),
+              f"{name} resumed losses {got} differ from uninterrupted {full}")
+        check(got == full, f"{name} resumed losses {got} are not the "
+              f"uninterrupted run's {full} bit for bit")
+    check(resumed["graph"]["replays"] == 1 and not eager["graph"]["graphed"],
+          f"resumed runs' graphs: {resumed['graph']}, {eager['graph']}")
     check(steps == [3, 5], f"checkpoint steps {steps}")
     base_bytes = directory_bytes(os.path.join(base, "5"))
     run_train(ckpt_args(5, "--checkpoint-dir", base,
@@ -2753,6 +2958,7 @@ def ckpt_lora_phase(work: str) -> dict:
           f"{[round(x, 4) for x in tuned['losses']]}; fused-CE counts "
           f"{counts}; adapter checkpoint {lora_bytes / 2**20:.1f} MiB vs "
           f"base checkpoint {base_bytes / 2**20:.1f} MiB", flush=True)
+    check_graph(graph_report("lora", tuned), 3, "lora")
     check(counts["fused_ce_fwd"] == counts["fused_ce_dx"] == 3
           and counts["fused_ce_dw"] == counts["fused_ce_bwd"] == 0,
           f"LoRA steps must launch fused-CE fwd and dx, never dw: {counts}")
@@ -2921,8 +3127,8 @@ def main(argv=None) -> int:
         print(json.dumps({"package": package, "train": {
             "step_ms": [t * 1e3 for t in result["step_seconds"]],
             "steady_ms": steady,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}}),
-            flush=True)
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "graph": result.get("graph")}}), flush=True)
         return 0
     if args.serve_phase_only:
         from oim_tpu_torch.cli import serve_main

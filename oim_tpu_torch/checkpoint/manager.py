@@ -26,8 +26,9 @@ the reference's has:
   step when one exists, else ``init_fn()``.  A restore builds the state
   with ``init_fn`` (the restore target: names and shapes must match)
   and copies the saved values into it, so the optimizer keeps the
-  caller's configuration and the update after a resume is bit for bit
-  the one an uninterrupted run takes.
+  caller's configuration (``load_optimizer_state``: a checkpoint of the
+  per-tensor update restores into the fused one) and the update after a
+  resume is bit for bit the one an uninterrupted run takes.
 
 Peer loading and the checkpoint metrics of the reference wait for the
 server's peer routes and ``/metrics`` (ROADMAP Queue A 11).
@@ -45,7 +46,11 @@ from typing import Callable
 
 import torch
 
-from oim_tpu_torch.models.train import TrainState, named_parameters
+from oim_tpu_torch.models.train import (
+    TrainState,
+    load_optimizer_state,
+    named_parameters,
+)
 
 PARAMS = "params.pt"
 OPTIMIZER = "optimizer.pt"
@@ -227,7 +232,7 @@ class Checkpointer:
                         f"{tuple(value.shape)}")
                 value.copy_(saved[name])
         opt = _load(path / OPTIMIZER)
-        state.optimizer.load_state_dict(opt["optimizer"])
+        load_optimizer_state(state.optimizer, opt["optimizer"])
         state.step = int(opt["step"])
         return state, json.loads((path / DATA).read_text())
 

@@ -6,7 +6,8 @@ Synthetic (or ``.npy``) tokens → deterministic batches
 f32 master weights from a seed, with RMSNorm, flash attention and the
 fused unembed+CE loss in the Hopper kernels (the configuration's
 defaults: no [B, T, V] logits are built).  It runs on the GPU unless
-``--device cpu``.
+``--device cpu``; there every step after the first is one CUDA graph
+replay of the whole step, as the reference jits it.
 
 ``--checkpoint-dir`` saves every ``--save-every`` steps (asynchronously)
 and resumes from the latest step with its data cursor, so re-running the
@@ -261,12 +262,15 @@ def _eval_fn(args, cfg, tokens, device):
     return tokens[: len(tokens) - n_eval], eval_fn
 
 
-def train(args) -> dict:
+def train(args, cuda_graph: bool = True) -> dict:
     """Run the training the args describe; returns ``{"losses": [per
     step run], "aux": [per step run], "step_seconds": [...],
-    "tokens_per_step", "eval_ce": [...], "start_step", "state"}``.  Step
-    times are host walls that end in a device sync (the loss
-    readback)."""
+    "tokens_per_step", "eval_ce": [...], "start_step", "graph": the step
+    function's ``stats()``, "state"}``.  Step times are host walls that
+    end in a device sync (the loss readback).  On the GPU every step
+    after the first is a replay of the step's CUDA graph (as the
+    reference jits its step); ``cuda_graph=False`` runs them eagerly
+    (the A/B control, no flag)."""
     _check_flags(args)
     device = resolve_device(args.device)
     cfg = make_config(args)
@@ -274,7 +278,8 @@ def train(args) -> dict:
     _log("start", device=device, fused_ce=cfg.fused_ce,
          use_pallas=cfg.use_pallas, remat=cfg.remat, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
-         batch=f"{args.batch_global}x{args.seq}")
+         batch=f"{args.batch_global}x{args.seq}",
+         graphed=cuda_graph and device.type == "cuda")
     lora_base = None
     if args.lora_rank:
         lora_base = load_params(args.lora_base, device=device)
@@ -314,12 +319,16 @@ def train(args) -> dict:
     batches = TokenBatches(tokens, args.batch_global, args.seq, ShardSpec(),
                            seed=args.seed)
     if args.lora_rank:
-        lora_step = make_lora_train_step(cfg, args.lora_alpha, args.lora_rank)
+        lora_step = make_lora_train_step(cfg, args.lora_alpha,
+                                         args.lora_rank, cuda_graph)
 
         def step_fn(state, batch):
             return lora_step(state, lora_base, batch)
+
+        step_stats = lora_step.stats
     else:
-        step_fn = make_train_step(cfg)
+        step_fn = make_train_step(cfg, cuda_graph=cuda_graph)
+        step_stats = step_fn.stats
 
     def batch_stream():
         for step in range(start_step, args.steps):
@@ -378,6 +387,7 @@ def train(args) -> dict:
                         _log("params exported", dir=args.export_dir)
             finally:
                 checkpointer.close()  # always await the queued save
+    out["graph"] = step_stats()
     _log("done", steps=step)
     out["state"] = state
     return out

@@ -3,17 +3,22 @@ model's full width, profiled with ``torch.profiler``.
 
 Builds the model, optimizer and step as ``train_main`` does (same flags,
 f32 master weights from ``--seed``, the first batch of its corpus), runs
-``WARMUP`` steps, then ``STEPS`` steps twice, back to back: once under
-the host clock (ended by a synchronise), once under the profiler, whose
-own host cost would inflate a wall taken under it.  Both runs train on
-the same batch from where the previous run left the weights, so they do
-the same work.  It prints the wall, the device time summed over kernels,
-the device's idle share (one minus their ratio), the device time by
-family (the port's training kernels, cuBLAS GEMMs, the optimizer's
-fused multi-tensor updates, the rest) and the kernels that took the most
-device time.  For an MoE model it also times one layer's expert
-products alone (``expert_products_ms``), as the trainer runs them (f32
-masters, TF32 off) and with bf16 operands, and their share of the step.
+``WARMUP`` steps (the first eager, the second the graph's capture and
+first replay), then ``STEPS`` steps twice, back to back: once under the
+host clock (ended by a synchronise), once under the profiler, whose own
+host cost would inflate a wall taken under it.  Both runs train on the
+same batch from where the previous run left the weights, so they do
+the same work.  Each step is one replay of the step's CUDA graph, as
+``train_main`` runs it; ``--eager`` runs the same steps op by op (the
+A/B control: run both in one call).  It prints the wall, the device
+time summed over kernels, the device's idle share (one minus their
+ratio), each replay's device time by CUDA events around it, the graph
+pool's GiB and the capture's seconds, the device time by family (the
+port's training kernels, cuBLAS GEMMs, the optimizer's fused updates,
+the rest) and the kernels that took the most device time.  For an MoE
+model it also times one layer's expert products alone
+(``expert_products_ms``), as the trainer runs them (f32 masters, TF32
+off) and with bf16 operands, and their share of the step.
 The last line is one JSON object with those numbers.  Run on the
 machine with the GPU:
 
@@ -21,7 +26,7 @@ machine with the GPU:
         --steps 1 --batch-global 4 --seq 1024 --vocab-size 151936 \\
         --d-model 1536 --n-layers 28 --n-heads 12 --n-kv-heads 2 \\
         --d-ff 8960 --attn-bias --rope-theta 1000000 --norm-eps 1e-6 \\
-        --dtype bfloat16
+        --dtype bfloat16 [--eager]
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ FAMILIES = {
     # Before cuBLAS's family: "gemm" is in the fused-CE product's name.
     "fused_ce": ("ce_tc_kernel", "ce_gemm_kernel", "ce_lse_kernel"),
     "gemm (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass"),
-    "optimizer (multi-tensor)": ("multi_tensor",),
+    "optimizer (fused, multi-tensor)": ("multi_tensor",),
 }
 
 
@@ -93,8 +98,19 @@ def expert_products_ms(cfg, tokens: int, dtype, runs: int = 5) -> dict:
     return out
 
 
+def build_parser():
+    p = train_main.build_parser()
+    p.prog = "train_profile"
+    p.add_argument(
+        "--eager", action="store_true",
+        help="run each step op by op, not as the replay of its CUDA graph "
+        "(the A/B control)",
+    )
+    return p
+
+
 def main(argv=None) -> int:
-    args = train_main.build_parser().parse_args(argv)
+    args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     if device.type != "cuda":
         raise SystemExit("train_profile measures the GPU: run it there")
@@ -103,7 +119,7 @@ def main(argv=None) -> int:
     state = TrainState.create(
         init_params(args.seed, cfg, device=device, master=True),
         train_main.make_optimizer_config(args))
-    step_fn = make_train_step(cfg)
+    step_fn = make_train_step(cfg, cuda_graph=not args.eager)
     batches = TokenBatches(train_main._load_corpus(args), args.batch_global,
                            args.seq, seed=args.seed)
     batch = torch.from_numpy(batches.batch_at(0)[:, :args.seq]).long()
@@ -120,12 +136,20 @@ def main(argv=None) -> int:
         step()
     torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3
+    graph = step_fn.stats()
     window = profiled(step, STEPS, wall_ms, FAMILIES)
     tokens = args.batch_global * args.seq
-    print(f"{smi}; batch {args.batch_global}x{args.seq}, "
+    route = "eager" if args.eager else "graphed"
+    print(f"{smi}; batch {args.batch_global}x{args.seq}, {route}, "
           f"{wall_ms / STEPS:.1f} ms a step, "
           f"{tokens * STEPS / wall_ms * 1e3:.0f} tokens/s")
-    print_window(f"train ({STEPS} steps)", window)
+    if graph["graphed"]:
+        print(f"graph: the timed window's replays took "
+              f"{[round(ms, 2) for ms in graph['replay_ms'][-STEPS:]]} ms "
+              f"of device time (CUDA events) against {wall_ms / STEPS:.2f} "
+              f"ms of wall a step; pool {graph['pool_bytes'] / 2**30:.2f} "
+              f"GiB; capture {graph['capture_seconds']:.2f} s")
+    print_window(f"train ({STEPS} steps, {route})", window)
     for family, ms in sorted((window["families_ms"] or {}).items(),
                              key=lambda kv: -kv[1]):
         print(f"  family {family}: {ms:.3f} ms "
@@ -146,7 +170,8 @@ def main(argv=None) -> int:
                   f"{ms['forward_backward']:.3f} ms at capacity "
                   f"{ms['capacity']}; {ms['step_ms']:.1f} ms a step "
                   f"({ms['step_ms'] * STEPS / wall_ms:.1%} of its wall)")
-    print(json.dumps({"device": smi, "train": window,
+    print(json.dumps({"device": smi, "route": route, "train": window,
+                      "graph": graph,
                       "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                       "expert_products": experts}))
     return 0

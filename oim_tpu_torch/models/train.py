@@ -16,21 +16,33 @@ every ``*_norm`` parameter, and a constant, linear-warmup or
 warmup-cosine learning rate with optax's count semantics (the first
 update uses ``schedule(0)``).  It is ``torch.optim.AdamW`` with two
 parameter groups — the same update, decoupled decay on the pre-update
-value — whose learning rate is set from the schedule before each step.
-It updates one tensor at a time (``foreach=False``, PyTorch's default
-on the CPU): the multi-tensor update holds a temporary the size of every
-parameter at once (the second moment's square root, 6.6 GiB at 1.78 B
-parameters), which set the training step's peak memory on the GPU.
+value — with ``fused=True``: one pass reads each parameter, gradient and
+both moments and writes the three back, and holds no temporary (the
+multi-tensor update holds one the size of every parameter, 6.6 GiB at
+1.78 B parameters; the per-tensor update makes ~6 passes).  Its step
+counts and its learning rate are device tensors (``capturable`` on the
+GPU), so the update runs inside the step's CUDA graph: the schedule is
+computed on the host, as optax's, and written into the rate's tensor
+before each step (``set_learning_rate``).  ``make_optimizer(...,
+kind="per_tensor")`` is the capturable per-tensor update, the A/B
+control.
 
 With ``use_pallas and fused_ce`` (the configuration's default, as in
 the reference) the loss takes the fused unembed+CE branch: the
 final-norm hidden states go straight into ``ops/fused_ce.py``'s kernels
 and the [b, t, V] logits are never built.
+
+The reference jits its step; on the GPU ``make_train_step`` replays it
+as one CUDA graph (forward, backward, clip, update and metrics), and
+``make_train_loop`` is the reference's N-step loop over it.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
 import math
+import time
 from dataclasses import dataclass
 
 import torch
@@ -41,6 +53,7 @@ from oim_tpu_torch.models.transformer import (
     forward_hidden,
     forward_local,
 )
+from oim_tpu_torch.ops import counts
 from oim_tpu_torch.ops.fused_ce import fused_linear_ce
 
 
@@ -178,18 +191,62 @@ def named_parameters(params: dict):
             yield name, value
 
 
-def make_optimizer(params: dict, opt: OptimizerConfig):
+# ``make_optimizer``'s constructions: the trainer's, then the control.
+OPTIMIZER_KINDS = ("fused", "per_tensor")
+
+
+def make_optimizer(params: dict, opt: OptimizerConfig, kind: str = "fused"):
     """AdamW over the master ``params`` in two groups: decay on every
-    parameter, except those named ``*_norm`` (the reference's mask)."""
+    parameter, except those named ``*_norm`` (the reference's mask).
+    ``kind`` "fused" is the trainer's update; "per_tensor" updates one
+    tensor at a time.  The learning rate is a 0-d f32 tensor on the
+    parameters' device; on the GPU both are capturable."""
+    if kind not in OPTIMIZER_KINDS:
+        raise ValueError(f"optimizer kind {kind!r} not in {OPTIMIZER_KINDS}")
     decay, no_decay = [], []
     for name, value in named_parameters(params):
         (no_decay if name.endswith("_norm") else decay).append(value)
+    device = (decay + no_decay)[0].device
+    lr = torch.tensor(opt.learning_rate(0), dtype=torch.float32,
+                      device=device)
     return torch.optim.AdamW(
         [dict(params=decay, weight_decay=opt.weight_decay),
          dict(params=no_decay, weight_decay=0.0)],
-        lr=opt.learning_rate(0), betas=(0.9, 0.999), eps=1e-8,
-        foreach=False,
+        lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        fused=kind == "fused", foreach=None if kind == "fused" else False,
+        capturable=device.type == "cuda",
     )
+
+
+def set_learning_rate(optimizer, lr: float) -> None:
+    """Write ``lr`` into the optimizer's learning-rate tensor in place: a
+    fill on its device (no copy, no sync), which the next update reads,
+    a replayed one too."""
+    for group in optimizer.param_groups:
+        group["lr"].fill_(lr)
+
+
+def load_optimizer_state(optimizer, saved: dict) -> None:
+    """``optimizer.load_state_dict(saved)`` that keeps ``optimizer``'s
+    own construction.  ``load_state_dict`` takes each group's settings
+    from ``saved``, so a state written by another construction (the
+    per-tensor update of earlier checkpoints, its step counts on the
+    host) would switch the update; here the moments and step counts are
+    restored, every group keeps its settings (the learning-rate tensor,
+    fused, capturable), and a fused or capturable update's step counts
+    move to their parameters' device in f32."""
+    settings = [{k: v for k, v in group.items() if k != "params"}
+                for group in optimizer.param_groups]
+    optimizer.load_state_dict(saved)
+    for group, kept in zip(optimizer.param_groups, settings):
+        group.update(kept)
+        if not (group["fused"] or group["capturable"]):
+            continue
+        for value in group["params"]:
+            state = optimizer.state.get(value)
+            if state and "step" in state:
+                state["step"] = state["step"].to(device=value.device,
+                                                 dtype=torch.float32)
 
 
 def clip_by_global_norm(grads: list, max_norm: float) -> None:
@@ -214,54 +271,213 @@ class TrainState:
     step: int = 0
 
     @classmethod
-    def create(cls, params: dict, opt: OptimizerConfig) -> "TrainState":
+    def create(cls, params: dict, opt: OptimizerConfig,
+               kind: str = "fused") -> "TrainState":
         for _, value in named_parameters(params):
             value.requires_grad_(True)
-        return cls(params=params, optimizer=make_optimizer(params, opt),
-                   opt=opt)
+        return cls(params=params,
+                   optimizer=make_optimizer(params, opt, kind), opt=opt)
 
 
-def make_train_step(cfg: TransformerConfig, model_params=None):
+def _step_body(state: TrainState, tokens, cfg: TransformerConfig,
+               model_params, extra) -> tuple:
+    """One step's device work on ``tokens`` [b, t]: every microbatch's
+    objective and backward (gradients summed into ``.grad``), the
+    optional clip, the update.  Returns the 0-d (loss, ce, aux)."""
+    accum = cfg.grad_accum
+    b = tokens.shape[0]
+    leaves = [value for _, value in named_parameters(state.params)]
+    loss = torch.zeros((), device=tokens.device)
+    ce = torch.zeros((), device=tokens.device)
+    aux = torch.zeros((), device=tokens.device)
+    for micro in tokens.reshape(accum, b // accum, -1):
+        params = (state.params if model_params is None
+                  else model_params(state.params, *extra))
+        obj, ce_sum, ce_count, micro_aux = _objective_terms(params, micro,
+                                                            cfg)
+        (obj / accum).backward()
+        loss += obj.detach()
+        ce += ce_sum.detach() / ce_count
+        aux += micro_aux.detach()
+    if state.opt.grad_clip > 0:
+        clip_by_global_norm([v.grad for v in leaves], state.opt.grad_clip)
+    state.optimizer.step()
+    return loss / accum, ce / accum, aux / accum
+
+
+# Replays whose CUDA events a step function keeps (``replay_ms``).
+REPLAY_EVENTS = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(device: torch.device):
+    """The side stream every step function on ``device`` warms up and
+    captures on.  One for all: each (cuBLAS handle, stream) pair keeps a
+    workspace in the allocator for the life of the process, so a stream
+    per step function would leave one more behind each."""
+    return torch.cuda.Stream(device)
+
+
+class _TrainStep:
+    """``make_train_step``'s step function; see there."""
+
+    def __init__(self, cfg: TransformerConfig, model_params, cuda_graph):
+        self.cfg, self.model_params = cfg, model_params
+        self.cuda_graph = cuda_graph
+        self.captures = self.replays = 0
+        self.capture_seconds = 0.0
+        self.pool_bytes = 0  # what the capture added to the reserved memory
+        self._bound = None  # (state, extra, shape, dtype, device)
+        self._stream = self._graph = self._tokens = None
+        self._metrics: dict = {}
+        self._delta: dict = {}
+        self._events = collections.deque(maxlen=REPLAY_EVENTS)
+
+    def __call__(self, state: TrainState, tokens, *extra):
+        b = tokens.shape[0]
+        if b % self.cfg.grad_accum:
+            raise ValueError(f"global batch {b} not divisible by "
+                             f"grad_accum={self.cfg.grad_accum}")
+        if not (self.cuda_graph and tokens.is_cuda):
+            return self._eager(state, tokens, extra)
+        if self._bound is None:
+            return self._first(state, tokens, extra)
+        bound = self._bound
+        if (state is not bound[0] or len(extra) != len(bound[1])
+                or any(a is not c for a, c in zip(extra, bound[1]))
+                or (tokens.shape, tokens.dtype, tokens.device) != bound[2:]):
+            raise ValueError(
+                "this step function's graph is bound to the state, extra "
+                f"arguments and batch {tuple(bound[2])} {bound[3]} of its "
+                f"first call; got {tuple(tokens.shape)} {tokens.dtype} "
+                "(make another step function for another state)")
+        if self._graph is None:
+            self._capture(state, tokens, extra)
+        self._tokens.copy_(tokens)
+        set_learning_rate(state.optimizer,
+                          state.opt.learning_rate(state.step))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self._graph.replay()
+        end.record()
+        self._events.append((start, end))
+        counts.replay_counts(self._delta)
+        self.replays += 1
+        state.step += 1
+        # Fresh tensors: the next replay rewrites the graph's own.
+        return state, {name: t.clone() for name, t in self._metrics.items()}
+
+    def _eager(self, state: TrainState, tokens, extra):
+        for _, value in named_parameters(state.params):
+            value.grad = None
+        set_learning_rate(state.optimizer,
+                          state.opt.learning_rate(state.step))
+        loss, ce, aux = _step_body(state, tokens, self.cfg,
+                                   self.model_params, extra)
+        state.step += 1
+        return state, {"loss": loss, "ce": ce, "aux": aux}
+
+    def _first(self, state: TrainState, tokens, extra):
+        """The first step, eagerly on the side stream the graph will be
+        captured on, so that what a stream sets up at first use (cuBLAS
+        workspaces, the optimizer's state) exists before the capture."""
+        self._bound = (state, extra, tokens.shape, tokens.dtype,
+                       tokens.device)
+        current = torch.cuda.current_stream(tokens.device)
+        self._stream = _side_stream(tokens.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            out = self._eager(state, tokens, extra)
+        current.wait_stream(self._stream)
+        return out
+
+    def _capture(self, state: TrainState, tokens, extra) -> None:
+        """Capture the whole step over a static token buffer, once.  The
+        gradients are dropped first, so that the captured backward
+        allocates them in the graph's pool; from here on nothing outside
+        the graph touches them.  The allocator's cache is emptied before
+        the capture, so the eager step's cached blocks do not stay
+        reserved beside the pool, and what the capture reserves is the
+        pool.  A failure raises: there is no eager fallback."""
+        t0 = time.monotonic()
+        for _, value in named_parameters(state.params):
+            value.grad = None
+        self._tokens = torch.empty_like(tokens)
+        torch.cuda.synchronize(tokens.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(tokens.device)
+        graph = torch.cuda.CUDAGraph()
+        with counts.recording() as delta, torch.cuda.graph(
+                graph, stream=self._stream,
+                capture_error_mode="thread_local"):
+            loss, ce, aux = _step_body(state, self._tokens, self.cfg,
+                                       self.model_params, extra)
+        self._graph, self._delta = graph, delta
+        self._metrics = {"loss": loss, "ce": ce, "aux": aux}
+        self.captures += 1
+        self.capture_seconds = time.monotonic() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(tokens.device) - reserved
+
+    def replay_ms(self) -> list:
+        """Device milliseconds of the last ``REPLAY_EVENTS`` replays, by
+        CUDA events around each (waits for the last one to finish)."""
+        if self._events:
+            self._events[-1][1].synchronize()
+        return [start.elapsed_time(end) for start, end in self._events]
+
+    def stats(self) -> dict:
+        """``{"graphed": a graph exists, "captures", "replays",
+        "capture_seconds", "pool_bytes", "replay_ms"}``."""
+        return {"graphed": self._graph is not None,
+                "captures": self.captures, "replays": self.replays,
+                "capture_seconds": self.capture_seconds,
+                "pool_bytes": self.pool_bytes,
+                "replay_ms": self.replay_ms()}
+
+
+def make_train_step(cfg: TransformerConfig, model_params=None,
+                    cuda_graph: bool = True):
     """``step(state, tokens [b, t], *extra) -> (state, {"loss", "ce",
     "aux"})``: the objective's gradient, averaged over ``cfg.grad_accum``
     equal sequential microbatches, then one optimizer update, in place.
     ``loss``, ``ce`` and the MoE ``aux`` (each a mean over the
     microbatches) are 0-d device tensors.  The objective reads
     ``state.params``, or ``model_params(state.params, *extra)`` when
-    given (LoRA: the adapters merged into a frozen base)."""
+    given (LoRA: the adapters merged into a frozen base).
 
-    def step(state: TrainState, tokens, *extra):
-        accum = cfg.grad_accum
-        b = tokens.shape[0]
-        if b % accum:
-            raise ValueError(
-                f"global batch {b} not divisible by grad_accum={accum}")
-        leaves = [value for _, value in named_parameters(state.params)]
-        for value in leaves:
-            value.grad = None
-        loss = torch.zeros((), device=tokens.device)
-        ce = torch.zeros((), device=tokens.device)
-        aux = torch.zeros((), device=tokens.device)
-        for micro in tokens.reshape(accum, b // accum, -1):
-            params = (state.params if model_params is None
-                      else model_params(state.params, *extra))
-            obj, ce_sum, ce_count, micro_aux = _objective_terms(
-                params, micro, cfg)
-            (obj / accum).backward()
-            loss += obj.detach()
-            ce += ce_sum.detach() / ce_count
-            aux += micro_aux.detach()
-        if state.opt.grad_clip > 0:
-            clip_by_global_norm([v.grad for v in leaves], state.opt.grad_clip)
-        lr = state.opt.learning_rate(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        state.step += 1
-        return state, {"loss": loss / accum, "ce": ce / accum,
-                       "aux": aux / accum}
+    On a CUDA batch with ``cuda_graph`` (the reference jits its step) the
+    first call is a real step run eagerly; the second captures the whole
+    step — every microbatch's forward and backward, the clip, the update
+    and the metrics — as one CUDA graph, and from then on each call
+    copies its batch into the graph's token buffer, writes the learning
+    rate and replays it, returning the metrics as fresh tensors.  The
+    graph holds the first call's state, ``extra`` and batch shape by
+    address: a call with others raises, and so does a failed capture.
+    The kernels' launch counts include the replays (``ops/counts.py``).
+    On the CPU, or without ``cuda_graph``, every call runs eagerly.
+    ``step.stats()`` reports the captures, replays and their device
+    time."""
+    return _TrainStep(cfg, model_params, cuda_graph)
 
-    return step
+
+def make_train_loop(cfg: TransformerConfig, model_params=None,
+                    cuda_graph: bool = True):
+    """``loop(state, token_batches [n, b, t], *extra) -> (state, {"loss",
+    "ce", "aux"} each [n])``: the reference's ``make_train_loop``, n
+    steps of one ``make_train_step`` over the batches in order, the
+    metrics stacked on the device.  On the GPU every step after the
+    loop's first is a replay of the step's graph, n of them queued with
+    no sync between them; on the CPU n eager steps."""
+    step = make_train_step(cfg, model_params, cuda_graph)
+
+    def loop(state: TrainState, token_batches, *extra):
+        metrics = [step(state, tokens, *extra)[1] for tokens in token_batches]
+        return state, {name: torch.stack([m[name] for m in metrics])
+                       for name in ("loss", "ce", "aux")}
+
+    loop.stats = step.stats
+    return loop
 
 
 def make_eval_step(cfg: TransformerConfig):

@@ -484,8 +484,12 @@ def forward_hidden(params: dict, tokens, cfg: TransformerConfig):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
         if cfg.remat:
+            # The layer draws no random numbers, so the recompute needs no
+            # saved RNG state (reading the CUDA RNG state would break a
+            # CUDA graph's capture of the step).
             x, layer_aux = checkpoint(_layer, x, lp, positions, cfg,
-                                      segments, use_reentrant=False)
+                                      segments, use_reentrant=False,
+                                      preserve_rng_state=False)
         else:
             x, layer_aux = _layer(x, lp, positions, cfg, segments)
         aux = aux + layer_aux

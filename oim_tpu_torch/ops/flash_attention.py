@@ -423,10 +423,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
 
 def reset_counters() -> None:
     """Zero every launch and plain-call count."""
-    for fn in (flash_fwd, flash_dq, flash_dkv):
-        fn.launches = 0
-    for fn in (flash_fwd_plain, flash_dq_plain, flash_dkv_plain):
-        fn.calls = 0
+    replay_counts({name: -n for name, n in counters().items()})
 
 
 def counters() -> dict:
@@ -439,3 +436,13 @@ def counters() -> dict:
         "flash_dq_plain": flash_dq_plain.calls,
         "flash_dkv_plain": flash_dkv_plain.calls,
     }
+
+
+def replay_counts(delta: dict) -> None:
+    """Add ``delta``'s counts under ``counters()``'s names (others are
+    ignored): what a replay of a captured region launched
+    (``ops/counts.py``)."""
+    for fn in (flash_fwd, flash_dq, flash_dkv):
+        fn.launches += delta[fn.__name__]
+    for fn in (flash_fwd_plain, flash_dq_plain, flash_dkv_plain):
+        fn.calls += delta[fn.__name__]

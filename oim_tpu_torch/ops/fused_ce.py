@@ -356,13 +356,7 @@ def fused_linear_ce(x, w, labels):
 
 def reset_counters() -> None:
     """Zero every launch, route and plain-call count."""
-    for fn in (fused_ce_fwd, fused_ce_dx, fused_ce_dw, fused_ce_bwd):
-        fn.launches = 0
-    for fn in (fused_ce_fwd_plain, fused_ce_dx_plain, fused_ce_dw_plain,
-               fused_ce_bwd_plain):
-        fn.calls = 0
-    for way in ROUTE_LAUNCHES:
-        ROUTE_LAUNCHES[way] = 0
+    replay_counts({name: -n for name, n in counters().items()})
 
 
 def counters() -> dict:
@@ -378,3 +372,16 @@ def counters() -> dict:
         "fused_ce_bwd_plain": fused_ce_bwd_plain.calls,
         **{f"fused_ce_{way}": n for way, n in ROUTE_LAUNCHES.items()},
     }
+
+
+def replay_counts(delta: dict) -> None:
+    """Add ``delta``'s counts under ``counters()``'s names (others are
+    ignored): what a replay of a captured region launched
+    (``ops/counts.py``)."""
+    for fn in (fused_ce_fwd, fused_ce_dx, fused_ce_dw, fused_ce_bwd):
+        fn.launches += delta[fn.__name__]
+    for fn in (fused_ce_fwd_plain, fused_ce_dx_plain, fused_ce_dw_plain,
+               fused_ce_bwd_plain):
+        fn.calls += delta[fn.__name__]
+    for way in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[way] += delta[f"fused_ce_{way}"]

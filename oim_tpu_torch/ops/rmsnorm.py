@@ -137,9 +137,7 @@ def rmsnorm(x, w, eps: float = 1e-6):
 
 def reset_counters() -> None:
     """Zero the launch and plain-call counts."""
-    rmsnorm_fwd.launches = 0
-    rmsnorm_fwd.wide_launches = 0
-    rmsnorm_plain.calls = 0
+    replay_counts({name: -n for name, n in counters().items()})
 
 
 def counters() -> dict:
@@ -147,3 +145,12 @@ def counters() -> dict:
     return {"rmsnorm": rmsnorm_fwd.launches,
             "rmsnorm_wide": rmsnorm_fwd.wide_launches,
             "rmsnorm_plain": rmsnorm_plain.calls}
+
+
+def replay_counts(delta: dict) -> None:
+    """Add ``delta``'s counts under ``counters()``'s names (others are
+    ignored): what a replay of a captured region launched
+    (``ops/counts.py``)."""
+    rmsnorm_fwd.launches += delta["rmsnorm"]
+    rmsnorm_fwd.wide_launches += delta["rmsnorm_wide"]
+    rmsnorm_plain.calls += delta["rmsnorm_plain"]

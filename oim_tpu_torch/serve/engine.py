@@ -93,6 +93,7 @@ from oim_tpu_torch.models.transformer import (
     embed_lookup,
 )
 from oim_tpu_torch.models.weights import n_params, to_device
+from oim_tpu_torch.ops import counts as kernel_counts
 from oim_tpu_torch.ops import paged_attention
 from oim_tpu_torch.ops.paged import copy_block
 from oim_tpu_torch.ops.paged_attention import (
@@ -1737,9 +1738,9 @@ class Engine:
                 f"no admission graph for bucket {bucket} x {rows} rows "
                 f"(captured: {sorted(self._admit_graphs)})"
             )
-        graph, counts = self._admit_graphs[bucket, rows]
+        graph, delta = self._admit_graphs[bucket, rows]
         graph.replay()
-        paged_attention.replay_counts(counts)
+        kernel_counts.replay_counts(delta)
         if not self._warming:
             self.admission_replays += 1
 
@@ -2054,7 +2055,7 @@ class Engine:
 
         def capture(run, *key):
             graph = torch.cuda.CUDAGraph()
-            with paged_attention.recording() as delta, torch.cuda.graph(
+            with kernel_counts.recording() as delta, torch.cuda.graph(
                     graph, pool=pool, capture_error_mode="thread_local"):
                 run(*key)
             return graph, delta
@@ -2106,7 +2107,7 @@ class Engine:
                    self.cfg.vocab_size, self.device, out=b.noise)
         if graph:
             self._graphs[inputs.key].replay()
-            paged_attention.replay_counts(self._graph_counts[inputs.key])
+            kernel_counts.replay_counts(self._graph_counts[inputs.key])
         else:
             self._run_chunk(inputs.key)
         out, lps = b.results[turn]

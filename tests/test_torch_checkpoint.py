@@ -178,8 +178,8 @@ def test_incomplete_run_exports_nothing_and_rescue_saves(tmp_path,
     real = train_main.make_train_step
     calls = []
 
-    def failing(cfg):
-        step = real(cfg)
+    def failing(cfg, **kwargs):
+        step = real(cfg, **kwargs)
 
         def wrapped(state, tokens):
             calls.append(1)
@@ -187,6 +187,7 @@ def test_incomplete_run_exports_nothing_and_rescue_saves(tmp_path,
                 raise RuntimeError("preempted")
             return step(state, tokens)
 
+        wrapped.stats = step.stats
         return wrapped
 
     monkeypatch.setattr(train_main, "make_train_step", failing)

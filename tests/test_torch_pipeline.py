@@ -36,6 +36,7 @@ import torch
 from oim_tpu_torch.models import decode as tdecode
 from oim_tpu_torch.models.transformer import TransformerConfig, init_params
 from oim_tpu_torch.models.weights import from_jax_params
+from oim_tpu_torch.ops import counts as kernel_counts
 from oim_tpu_torch.ops import paged_attention as tpa
 from oim_tpu_torch.serve.engine import (
     DrainingError,
@@ -303,27 +304,28 @@ def test_dropped_tail_chunk_is_counted(model):
 def test_recording_keeps_a_regions_counts_for_replay():
     """A stub region standing for a capture: its counts are taken back
     (a capture launches nothing) and kept; each replay adds them again;
-    a plain call inside a region raises."""
-    tpa.reset_counters()
+    a plain call inside a region raises.  The engine's graphs record
+    through ``ops/counts.py``, whose delta covers every kernel module."""
+    kernel_counts.reset_counters()
     tpa.paged_kv_store.launches += 1  # a launch before the region
-    with tpa.recording() as delta:
+    with kernel_counts.recording() as delta:
         tpa.paged_flash_decode.launches += 2
         tpa.ROUTE_LAUNCHES["rows8"] += 2
         tpa.paged_kv_store.launches += 2
         tpa.paged_kv_store.decode_launches += 2
-    assert delta == {**{name: 0 for name in tpa.counters()},
+    assert delta == {**{name: 0 for name in kernel_counts.counters()},
                      "paged_flash_decode": 2, "paged_flash_decode_rows8": 2,
                      "paged_kv_store": 2, "paged_kv_store_t1": 2}
     assert tpa.counters() == {**{name: 0 for name in tpa.counters()},
                               "paged_kv_store": 1}
     for _ in range(3):
-        tpa.replay_counts(delta)
+        kernel_counts.replay_counts(delta)
     counts = tpa.counters()
     assert counts["paged_flash_decode"] == counts[
         "paged_flash_decode_rows8"] == 6
     assert counts["paged_kv_store"] == 7 and counts["paged_kv_store_t1"] == 6
     with pytest.raises(RuntimeError, match="plain versions ran"):
-        with tpa.recording():
+        with kernel_counts.recording():
             tpa.paged_kv_store_plain.calls += 1
     tpa.reset_counters()
     assert not any(tpa.counters().values())

@@ -8,7 +8,8 @@ the reference's fused-CE Pallas kernels in interpret mode): the reference's
 trainer builds (global-norm clip, adamw with the ``*_norm`` mask, a
 warmup-cosine schedule), its Pallas RMSNorm and flash kernels in
 interpret mode; the port's ``make_train_step`` over f32 masters with the
-plain versions its kernel wrappers take for CPU tensors.  Around it:
+plain versions its kernel wrappers take for CPU tensors, once with the
+trainer's fused AdamW and once with the per-tensor update.  Around it:
 the schedules, the clip, the data loader, the prefetcher, and the
 ``train_main`` entry point.
 
@@ -19,6 +20,8 @@ Adam divides by sqrt(v), so an element whose gradient is near zero
 takes a step whose size depends on its last bits; 2e-5 (0.2 % of one
 step) bounds that (observed 2.6e-6).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -80,9 +83,14 @@ def _flat(tree: dict, n_layers: int) -> dict:
     return out
 
 
-def _three_steps_match_jax(geometry: dict):
+@functools.lru_cache(maxsize=None)
+def _jax_three_steps(geometry: tuple):
+    """The reference's side of ``_three_steps_match_jax``, once per
+    geometry (the port's optimizers are held against the same run):
+    ``(batches, initial params on the host, per-step (loss, ce), final
+    params by the port's names)``."""
+    geometry = dict(geometry)
     jcfg = JConfig(**geometry)
-    cfg = TransformerConfig(**geometry)
     args = train_main.build_parser().parse_args(
         ["--synthetic", "4000", "--steps", "3", "--vocab-size",
          str(geometry["vocab_size"])])
@@ -94,7 +102,7 @@ def _three_steps_match_jax(geometry: dict):
 
     tree = j_init_params(jax.random.PRNGKey(0), jcfg)
     # Host copies first: the reference's step donates its state buffers.
-    params = from_jax_params(jax.device_get(tree), cfg, master=True)
+    host = jax.device_get(tree)
     mesh = build_mesh(devices=jax.devices()[:1])
     chain = _optax_chain(OPT)
     jstate = shard_state(JTrainState.create(tree, chain), jcfg, mesh)
@@ -104,8 +112,19 @@ def _three_steps_match_jax(geometry: dict):
     for tok in tokens:
         jstate, metrics = jstep(jstate, jax.device_put(tok, sharding))
         want.append((float(metrics["loss"]), float(metrics["ce"])))
+    return (tokens, host, want,
+            _flat(jax.device_get(jstate.params), jcfg.n_layers))
 
-    state = ttrain.TrainState.create(params, ttrain.OptimizerConfig(**OPT))
+
+def _three_steps_match_jax(geometry: dict, kind: str):
+    """Three steps of the port's trainer with optimizer ``kind`` against
+    the reference's ``make_train_step`` with the optax chain."""
+    cfg = TransformerConfig(**geometry)
+    tokens, host, want, want_params = _jax_three_steps(
+        tuple(sorted(geometry.items())))
+    params = from_jax_params(host, cfg, master=True)
+    state = ttrain.TrainState.create(params, ttrain.OptimizerConfig(**OPT),
+                                     kind)
     step = ttrain.make_train_step(cfg)
     got = []
     for tok in tokens:
@@ -114,7 +133,6 @@ def _three_steps_match_jax(geometry: dict):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     assert state.step == STEPS
 
-    want_params = _flat(jax.device_get(jstate.params), cfg.n_layers)
     got_params = dict(ttrain.named_parameters(state.params))
     assert set(got_params) == set(want_params)
     for name, value in got_params.items():
@@ -122,11 +140,14 @@ def _three_steps_match_jax(geometry: dict):
                                    rtol=0, atol=2e-5, err_msg=name)
 
 
-def test_three_train_steps_match_jax():
-    _three_steps_match_jax(GEOMETRY)
+@pytest.mark.parametrize("kind", ttrain.OPTIMIZER_KINDS)
+def test_three_train_steps_match_jax(kind):
+    """The trainer's fused AdamW, and the per-tensor update beside it."""
+    _three_steps_match_jax(GEOMETRY, kind)
 
 
-def test_three_fused_ce_train_steps_match_jax():
+@pytest.mark.parametrize("kind", ttrain.OPTIMIZER_KINDS)
+def test_three_fused_ce_train_steps_match_jax(kind):
     """The usual configuration, fused unembed+CE on: the reference's
     objective runs its three fused-CE Pallas kernels in interpret mode
     (vocab 256 and 256-token microbatches are tiles it takes, so it does
@@ -135,7 +156,8 @@ def test_three_fused_ce_train_steps_match_jax():
     numerics (f32 scores, dlogits rounded to the f32 compute dtype) are
     the same function in another summation order."""
     fused_ce.reset_counters()
-    _three_steps_match_jax({**GEOMETRY, "vocab_size": 256, "fused_ce": True})
+    _three_steps_match_jax({**GEOMETRY, "vocab_size": 256, "fused_ce": True},
+                           kind)
     counts = fused_ce.counters()
     # Two microbatches a step; the plain versions ran in the kernels' place,
     # the backward as the joint dx and dw of a full step.
@@ -188,6 +210,9 @@ def test_weight_decay_skips_norm_scales():
     assert no_decay["weight_decay"] == 0.0
     assert decay["weight_decay"] == 1e-4
     assert opt.defaults["betas"] == (0.9, 0.999) and opt.defaults["eps"] == 1e-8
+    # The trainer's update is the fused one; its rate a tensor the step
+    # writes before each update.
+    assert opt.defaults["fused"] and torch.is_tensor(opt.defaults["lr"])
 
 
 @pytest.mark.parametrize("shard", [(0, 1), (1, 2)])
