@@ -20,11 +20,19 @@ Then the prefix cache and chunked prefill on both cache layouts
 prompt, five prompts sharing it, one a copy-on-write on the paged pool,
 and an 1800-token miss admitted in segments while the others decode),
 each beside a control run without the flags, with K1's tall route and
-K2 also timed at a segment's shape.  Then an exact-routing MoE model at
-Mixtral-8x7B's widths: served on ``serve_main``'s defaults with its
-depth cut to fit the card, and trained at two layers with capacity
-routing and the aux and z losses, its first step checked in bf16 and
-in f32 (RMSNorm's wide route, for rows past one warp's registers).
+K2 also timed at a segment's shape.  The quantization ladder: K1 and K2
+on packed int4 pools, ``quant_matmul`` (weight-only int8 and int4) at
+the served models' weight shapes, and Qwen served with ``--kv-block 16
+--kv-int4 --weights-int4`` (its teacher check attends over the served
+int4 K/V, each value held within one step of the f32 forward's own).
+Then an exact-routing MoE model at Mixtral-8x7B's widths: served on
+``serve_main``'s defaults in bf16 with its depth cut to fit the card,
+then whole, all 32 layers, with ``--weights-int8``, and trained at two
+layers with capacity routing and the aux and z losses, its first step
+checked in bf16 and in f32 (RMSNorm's wide route, for rows past one
+warp's registers).  Each graphed serve phase prints one decode chunk's
+device time and its weight products' share and rate
+(``decode_profile``).
 
 Run from the repository root on a machine with one NVIDIA GPU and the
 CUDA toolkit:
@@ -38,8 +46,9 @@ the host's time to enqueue each, and a full step's fused-CE backward by
 scratch width — with the port's package loaded from DIR (another
 checkout, such as a parent commit unpacked beside this one), so that two
 versions of the kernels are timed on the same inputs in one run of the
-card.  ``--moe-phase-only`` runs only the MoE phases (K1/K2 at the MoE
-model's heads, its serve phase and its train phase).
+card (and ``quant_matmul``'s phase, where the package has it).
+``--moe-phase-only`` runs only the MoE phases (K1/K2 at the MoE model's
+heads, its two serve phases and its train phase).
 ``--route-control bf16|swap`` plants a router fault in the MoE serve
 phase's engine and the MoE training's kernel path (the references kept
 sound) and runs those two checks, which must fail: a control of the
@@ -49,8 +58,8 @@ training configuration's steps and prints their wall times, the
 replays' device time and peak memory, and ``--serve-phase-only
 [--package DIR]`` only the serve phases
 (their checks, the lone 512-token prompt's time to first token, the
-concurrent p50 and the decode rate; the default-configuration phase
-only where the package serves it); run both builds in turns (parent,
+concurrent p50 and the decode rate; the default-configuration and int4
+phases only where the package serves them); run both builds in turns (parent,
 change, change, parent) to compare them in one call.
 ``--prefix-phase-only [--package DIR]`` runs only the prefix phase.
 
@@ -63,6 +72,7 @@ it prints is measured in this run; the second-to-last line is the
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -96,6 +106,11 @@ SERVE_ARGS = [
 # serving path of the earlier slices.
 PAGED_SERVE_ARGS = SERVE_ARGS + ["--kv-block", "16", "--pipeline-depth",
                                  "1"]
+# The quantization ladder's top rung on the same model: packed int4
+# weights in groups of 64 and a packed int4 paged pool, at serve_main's
+# default depth 2.
+QUANT_SERVE_ARGS = SERVE_ARGS + ["--kv-block", "16", "--kv-int4",
+                                 "--weights-int4", "--int4-group", "64"]
 H, KVH, HD, BS = 12, 2, 128, 16
 MAX_LEN = 2048
 # The dense cache's block: the largest that divides MAX_LEN and one step
@@ -123,6 +138,14 @@ MOE_LAYERS = 24
 MOE_SERVE_ARGS = MOE_GEOMETRY + [
     "--n-layers", str(MOE_LAYERS), "--n-slots", "8", "--max-len",
     str(MAX_LEN), "--chunk", "8", "--port", "0", "--seed", "0",
+]
+# Mixtral-8x7B whole: all 32 layers with weight-only int8 (a layer 1.45
+# GB: 46.4 GB of layers, 49 GB with the embedding, the int8 unembedding
+# and the dense cache), on the default engine.
+MOE_INT8_LAYERS = 32
+MOE_INT8_ARGS = MOE_GEOMETRY + [
+    "--n-layers", str(MOE_INT8_LAYERS), "--weights-int8", "--n-slots", "8",
+    "--max-len", str(MAX_LEN), "--chunk", "8", "--port", "0", "--seed", "0",
 ]
 MOE_H, MOE_KVH, MOE_D, MOE_VOCAB = 32, 8, 4096, 32000
 MOE_FREE_GIB = 8.0
@@ -309,12 +332,17 @@ def make_tables(rng, n_rows, positions, n_blocks, reserve=2):
 
 
 def make_pool(gen, n_blocks, quant, bs=BS, kvh=KVH):
+    """K/V pools and scales: bf16 (``quant`` falsy), int8 (truthy) or
+    packed int4 (``"int4"``: values in [-7, 7], two a byte)."""
+    from oim_tpu_torch.ops.quant import pack_int4
+
     shape = (n_blocks, bs, kvh, HD)
     if quant:
-        k = torch.randint(-127, 128, shape, generator=gen, device="cuda",
-                          dtype=torch.int8)
-        v = torch.randint(-127, 128, shape, generator=gen, device="cuda",
-                          dtype=torch.int8)
+        lo, hi = (-7, 8) if quant == "int4" else (-127, 128)
+        k, v = (torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                              dtype=torch.int8) for _ in range(2))
+        if quant == "int4":
+            k, v = pack_int4(k), pack_int4(v)
         ks = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.04 + 0.005
         vs = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.04 + 0.005
         return k, v, ks, vs
@@ -325,9 +353,10 @@ def make_pool(gen, n_blocks, quant, bs=BS, kvh=KVH):
 
 def row_bytes(pool, scale) -> int:
     """Bytes of one position's K (or V) row in the pool: every kv head's
-    payload plus, for int8, its f32 scale."""
+    payload (hd / 2 bytes packed int4) plus, for int8 and int4, its f32
+    scale."""
     kvh = pool.shape[2]
-    per_row = kvh * HD * pool.element_size()
+    per_row = kvh * pool.shape[-1] * pool.element_size()
     if scale is not None:
         per_row += kvh * 4
     return per_row
@@ -386,7 +415,8 @@ def store_bound(k_new, pool, scale, tables, starts):
         live += int((tab[r, entry[ok]] < pool.shape[0]).sum())
     moved = (2 * k_new.numel() * k_new.element_size()
              + 2 * live * row_bytes(pool, scale) + tables.numel() * 4 + b * 4)
-    # int8: an abs-max, a division and a rounding per element, in f32.
+    # int8 and int4: an abs-max, a division and a rounding per element,
+    # in f32.
     ops = 3 * 2 * k_new.numel() if scale is not None else 0
     return bound(moved, ops, torch.float32)
 
@@ -396,11 +426,12 @@ def sdpa_yardstick(q, pool, scale, tables, starts, window):
     dequantized view with the same mask — the library time beside K1
     (timed only; the port never calls it)."""
     from oim_tpu_torch.ops.paged import paged_view
-    from oim_tpu_torch.ops.quant import dequantize_int8
+    from oim_tpu_torch.ops.quant import dequantize_int8, kv_values
 
     b, t, h, hd = q.shape
     view, sview = paged_view(pool, scale, tables)
-    kv = view.float() if sview is None else dequantize_int8(view, sview)
+    kv = (view.float() if sview is None
+          else dequantize_int8(kv_values(view), sview))
     kv = kv.to(q.dtype).repeat_interleave(h // pool.shape[2],
                                           dim=2).transpose(1, 2)
     kv = kv.contiguous()
@@ -548,10 +579,11 @@ def k2_phase(tag, pa, k_new, v_new, pools, scales, tables, starts) -> dict:
 def kernel_phase() -> dict:
     """K1 at the decode shape, K2 at t=1, and K2+K1 at a 512-token
     prefill and at a ragged 100-token one (with an all-sentinel slot),
-    for bf16 and int8 pools of 16-row blocks (the paged engine), then
-    the same at the dense cache's shapes (``dense_kernel_phase``);
-    returns the measured record per kernel and shape (bf16 — the served
-    configuration)."""
+    for bf16, int8 and packed int4 pools of 16-row blocks (the paged
+    engine), then the same at the dense cache's shapes
+    (``dense_kernel_phase``); returns the measured record per kernel and
+    shape (bf16 — the served configuration — and int4, the
+    ``--kv-int4`` serve phase's pool)."""
     from oim_tpu_torch.ops import paged_attention as pa
 
     rng = np.random.RandomState(0)
@@ -563,8 +595,8 @@ def kernel_phase() -> dict:
     record = {"floor_ms": time_ms(tiny.zero_)}
     print(f"timing floor: a one-element fill takes {record['floor_ms']:.4f} "
           f"ms under the kernels' timing [{SMI}]", flush=True)
-    for quant in (False, True):
-        tag = "int8" if quant else "bf16"
+    for quant in (False, True, "int4"):
+        tag = quant if quant == "int4" else "int8" if quant else "bf16"
         k_pool, v_pool, ks, vs = make_pool(gen, n_blocks, quant)
         # -- K1 at decode: B=8, t=1, mixed contexts, two all-sentinel rows.
         positions = [0, 16, 299, 999, 2047, 776, -1, -1]
@@ -610,6 +642,8 @@ def kernel_phase() -> dict:
                            slice(2, None), PREFILL_SPLITS, (0, 256))
             if not quant and t == 512:
                 record.update(K1=k1, K1t=k1t, K2=k2, K2d=k2d)
+            if quant == "int4" and t == 512:
+                record.update(K1_i4=k1, K1t_i4=k1t, K2_i4=k2, K2d_i4=k2d)
             del pools, scales
         del k_pool, v_pool, ks, vs
         torch.cuda.empty_cache()
@@ -672,6 +706,122 @@ def moe_kernel_phase() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     return dense_kernel_phase(pa, gen, MOE_H, MOE_KVH,
                               f"dense H={MOE_H} KVH={MOE_KVH}", "_moe")
+
+
+# The weight-quantized product (``ops/wquant.py``): the distinct weight
+# shapes ([E,] K, N) of the quantized serve phases, by the weights that
+# have them — Qwen2.5-1.5B's eight targets and Mixtral-8x7B's (attention,
+# the experts, the unembedding) — each at the decode batch of 8 rows
+# (w_out's experts one input an expert).  Qwen's run int4 (the
+# ``--weights-int4`` serve phase) and int8, Mixtral's int8 (the 32-layer
+# ``--weights-int8`` serve phase), its experts also int4; the rows of the
+# serve phases' modes go on the ``kernels`` line.
+QMM_ROWS = 8
+QWEN_MATS = (("wq, wo", (1536, 1536)), ("wk, wv", (1536, 256)),
+             ("w_gate, w_in", (1536, 8960)), ("w_out", (8960, 1536)),
+             ("wlm", (1536, VOCAB)))
+MIXTRAL_MATS = (("wq, wo", (4096, 4096)), ("wk, wv", (4096, 1024)),
+                ("w_gate, w_in", (8, 4096, 14336)),
+                ("w_out", (8, 14336, 4096)), ("wlm", (4096, MOE_VOCAB)))
+QMM_CASES = (("qwen", "int4", QWEN_MATS), ("qwen", "int8", QWEN_MATS),
+             ("mixtral", "int8", MIXTRAL_MATS),
+             ("mixtral", "int4", MIXTRAL_MATS[2:4]))
+# The tall route (the dequantized weight, then torch.matmul) at an
+# admission's rows: Qwen's w_gate at a 1024-token bucket, Mixtral's
+# experts at one 512-token MoE pass.
+QMM_TALL = (("qwen", "int4", "w_gate, w_in", (1536, 8960), 1024),
+            ("mixtral", "int8", "w_gate, w_in", (8, 4096, 14336), 512))
+# quant_matmul against its plain version, as max |got - want| over max
+# |want|: both read the same dequantized weights and sum in f32 in
+# another order, and a bf16 output rounds once (one step, 2**-7 of a
+# value); f32 outputs (the unembedding) differ by order noise over up
+# to 14336 terms.  A wrong row, group or scale moves outputs by O(1).
+QMM_TOL = {torch.bfloat16: 2.0**-7 + 1e-4, torch.float32: 1e-4}
+
+
+def qmm_operands(gen, mode, shape, rows, per_expert):
+    """A random weight of ``shape`` quantized under ``mode`` (int4 in
+    groups of 64), its plain dequantized bf16 values, and bf16 x of
+    ``rows`` rows ([E, rows, K] when ``per_expert``)."""
+    from oim_tpu_torch.ops.quant import dequantize_weight, quantize_weight
+
+    w = torch.randn(shape, generator=gen, device="cuda") * 0.02
+    q, scale = quantize_weight(w, mode, 64)
+    del w
+    deq = dequantize_weight(q, scale, din=shape[-2]).to(torch.bfloat16)
+    xs = (shape[0], rows, shape[-2]) if per_expert else (rows, shape[-2])
+    x = torch.randn(xs, generator=gen, device="cuda").to(torch.bfloat16)
+    return q, scale, deq, x
+
+
+def qmm_case(tag, gen, mode, shape, rows, per_expert, out_dtype) -> dict:
+    """``quant_matmul`` on one shape against its plain version: finite,
+    within ``QMM_TOL``, two launches bit-equal, on the route
+    ``quant_route`` names; then timed beside the plain version (the
+    two-call dequantize-then-``torch.matmul``), one ``torch.matmul`` on
+    the dequantized bf16 weight (what unquantized weights cost) and the
+    bound (payload, scales, x and output moved once; 2·E·M·K·N
+    operations at the bf16 rate).  Returns its record."""
+    from oim_tpu_torch.ops import wquant as wq
+
+    q, scale, deq, x = qmm_operands(gen, mode, shape, rows, per_expert)
+    kw = dict(dtype=torch.bfloat16, out_dtype=out_dtype)
+    e = shape[0] if len(shape) == 3 else 1
+    route = wq.quant_route(torch.bfloat16, rows, shape[-2], shape[-1],
+                           64 if mode == "int4" else 0)
+    before = wq.counters()[f"quant_matmul_{route}"]
+    got = wq.quant_matmul(x, q, scale, **kw)
+    again = wq.quant_matmul(x, q, scale, **kw)
+    want = wq.quant_matmul_plain(x, q, scale, **kw)
+    torch.cuda.synchronize()
+    check(wq.counters()[f"quant_matmul_{route}"] == before + 2,
+          f"quant_matmul {tag}: not on its {route} route")
+    err = float((got.float() - want.float()).abs().max())
+    tol = QMM_TOL[got.dtype] * float(want.float().abs().max())
+    check(bool(torch.isfinite(got).all()), f"quant_matmul {tag}: non-finite")
+    check(torch.equal(got, again), f"quant_matmul {tag}: two launches differ")
+    check(err <= tol, f"quant_matmul {tag} disagrees: {err} > {tol}")
+    ms = time_ms(lambda: wq.quant_matmul(x, q, scale, **kw))
+    plain_ms = time_ms(lambda: wq.quant_matmul_plain(x, q, scale, **kw))
+    odt = out_dtype or torch.bfloat16
+    xo, wo = x.to(odt), deq.to(odt)
+    lib_ms = time_ms(lambda: torch.matmul(xo, wo))
+    moved = (q.numel() + scale.numel() * 4 + x.numel() * 2
+             + got.numel() * got.element_size())
+    bnd, by = bound(moved, 2 * e * rows * shape[-2] * shape[-1],
+                    torch.bfloat16)
+    print(f"quant_matmul {tag} ({route} route): max_abs_err={err:.3e} "
+          f"(tol {tol:.3e}); two launches bit-equal; {ms:.4f} ms (plain "
+          f"{plain_ms:.4f}, torch.matmul on the dequantized bf16 weight "
+          f"{lib_ms:.4f}, bound {bnd:.5f} by {by}; {q.numel() / ms / 1e9:.2f}"
+          f" TB/s of payload, {bnd / ms:.0%} of the bound) [{SMI}]",
+          flush=True)
+    del q, scale, deq, x, got, again, want, xo, wo
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=lib_ms, route=route,
+                key=wq.shape_key(route, shape))
+
+
+def quant_kernel_phase() -> dict:
+    """``quant_matmul`` at ``QMM_CASES``' shapes (8 rows) and the tall
+    route at ``QMM_TALL``'s (``qmm_case``).  Returns the records keyed
+    ``QMM <model> <mode> <weights>`` (``QMM tall ...`` for the tall
+    route)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    record = {}
+    for model, mode, mats in QMM_CASES:
+        for names, shape in mats:
+            out = torch.float32 if names == "wlm" else None
+            tag = f"{model} {mode} {names} {list(shape)} x {QMM_ROWS} rows"
+            experts = names == "w_out" and len(shape) == 3
+            record[f"QMM {model} {mode} {names}"] = qmm_case(
+                tag, gen, mode, shape, QMM_ROWS, experts, out)
+    for model, mode, names, shape, rows in QMM_TALL:
+        tag = f"{model} {mode} {names} {list(shape)} x {rows} rows"
+        record[f"QMM tall {model} {mode} {names}"] = qmm_case(
+            tag, gen, mode, shape, rows, False, None)
+    return record
 
 
 # A chunked prefill's segment: 256 tokens (--prefill-chunk 256), timed
@@ -778,37 +928,120 @@ class WidenedLayers:
     into one set of f32 buffers reused layer after layer: the f32
     reference forward over a model too large to copy whole in f32.
     Widening bf16 to f32 is exact, so the forward computes what it would
-    over a whole f32 copy."""
+    over a whole f32 copy.  A weight-quantized weight is widened from
+    its dequantized values rounded to the served compute dtype
+    (``dtype``): the values the served product reads."""
 
-    def __init__(self, layers):
-        self.layers, self.buffers = layers, {}
+    def __init__(self, layers, dtype):
+        self.layers, self.dtype, self.buffers = layers, dtype, {}
 
     def __len__(self):
         return len(self.layers)
 
     def __iter__(self):
+        from oim_tpu_torch.ops.quant import dequantize_named
+
         for lp in self.layers:
-            for name, t in lp.items():
+            for name in lp:
+                if name.endswith("_wscale"):
+                    continue
+                t = dequantize_named(lp, name, self.dtype)
                 if name not in self.buffers:
                     self.buffers[name] = torch.empty(
                         t.shape, dtype=torch.float32, device=t.device)
                 self.buffers[name].copy_(t)
+                del t
             yield self.buffers
 
 
 def widened(params, cfg):
     """(params, cfg) of the f32 reference forward over served ``params``:
-    the embedding, final norm and unembedding recast, the layers
+    the embedding, final norm and unembedding recast (a quantized
+    unembedding dequantized to the compute dtype first), the layers
     widened one at a time (``WidenedLayers``)."""
     from dataclasses import replace
 
     from oim_tpu_torch.models.transformer import prepare_param
+    from oim_tpu_torch.ops.quant import dequantize_named
 
     cfg32 = replace(cfg, dtype="float32")
-    out = {name: prepare_param(name, params[name], cfg32)
+    out = {name: prepare_param(name, dequantize_named(
+               params, name, cfg.compute_dtype), cfg32)
            for name in ("wte", "final_norm", "wlm")}
-    out["layers"] = WidenedLayers(params["layers"])
+    out["layers"] = WidenedLayers(params["layers"], cfg.compute_dtype)
     return out, cfg32
+
+
+class ServedKV:
+    """The K/V rows a packed int4 pool holds for each request served
+    while watched: at a request's finish, before its blocks go back to
+    the allocator, the rows of its prompt and emitted tokens but the
+    last (every layer, values and scales) are copied out by its table
+    row, keyed by its prompt.  On the engine's stream, after every
+    chunk that wrote them."""
+
+    def __init__(self):
+        self.kv = {}
+
+    def watch(self, engine) -> None:
+        finish = engine._finish_locked
+
+        def recorded(slot, state):
+            n = len(state.req.tokens) + len(state.emitted) - 1
+            blocks = torch.as_tensor(
+                engine._tables_host[slot][: -(-n // engine.kv_block)]
+                .astype(np.int64), device=engine.device)
+            cache = engine._cache
+            self.kv[tuple(state.req.tokens)] = tuple(
+                t[:, blocks].flatten(1, 2)[:, :n].clone()
+                for t in (cache.k, cache.v, cache.k_scale, cache.v_scale))
+            return finish(slot, state)
+
+        engine._finish_locked = recorded
+
+    @staticmethod
+    def remove(engine) -> None:
+        if "_finish_locked" in vars(engine):
+            del engine._finish_locked  # the closure holds the engine
+
+
+@contextlib.contextmanager
+def served_kv(kv, seen: dict):
+    """Around the f32 forward of one reply of an int4-KV engine (``kv``:
+    ``ServedKV``'s rows for its prompt): each K/V row the forward stores
+    is the served pool's own, dequantized, so that its attention reads
+    what the served kernels read and δ judges the kernels.  First each
+    served int4 value is held against the forward's own ``quantize_int4``
+    of the same row: bf16 noise may move a value across a rounding edge
+    (one step, counted in ``seen``), a row stored at another position or
+    with another scale moves many values by several."""
+    from oim_tpu_torch.models import decode as dec
+    from oim_tpu_torch.ops.quant import (
+        dequantize_int8,
+        quantize_int4,
+        unpack_int4,
+    )
+
+    store, calls = dec._store_kv, [0]
+
+    def served(cache, scale, new, start):
+        layer, which = divmod(calls[0], 2)
+        calls[0] += 1
+        t = new.shape[1]
+        values = unpack_int4(kv[which][layer, start:start + t])
+        own, _ = quantize_int4(new[0])
+        steps = (values.int() - own.int()).abs()
+        seen["max_step"] = max(seen["max_step"], int(steps.max()))
+        seen["moved"] += int((steps > 0).sum())
+        seen["values"] += steps.numel()
+        store(cache, scale, dequantize_int8(
+            values, kv[2 + which][layer, start:start + t])[None], start)
+
+    dec._store_kv = served
+    try:
+        yield
+    finally:
+        dec._store_kv = store
 
 
 class RoutingTap:
@@ -1063,7 +1296,10 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
     from oim_tpu_torch.cli import serve_main
     from oim_tpu_torch.ops import paged_attention as pa
 
+    wq = quant_module()
     args = serve_main.build_parser().parse_args(argv)
+    mode = (serve_main.weight_quant(args)
+            if hasattr(serve_main, "weight_quant") else "")
     moe = bool(getattr(args, "n_experts", 0))
     routing = ServedRouting(args.n_slots, args.moe_top_k) if moe else None
     base = torch.cuda.memory_allocated()
@@ -1080,6 +1316,10 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
     engine = server.engine
     info = engine.info()["engine"]
     graphs = bool(info.get("cuda_graphs"))
+    kv = None
+    if info.get("kv_quant") == "int4":
+        kv = ServedKV()
+        kv.watch(engine)
     planted = None
     if routing is not None:
         routing.watch(engine)
@@ -1110,11 +1350,15 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
                 body.update(temperature=0.8, seed=1234)
             bodies.append(body)
         pa.reset_counters()
+        if wq is not None:
+            wq.reset_counters()
         t0 = time.monotonic()
         with ThreadPoolExecutor(len(bodies)) as pool:
             replies = list(pool.map(lambda b: post(server.port, b), bodies))
         wall = time.monotonic() - t0
         counts = pa.counters()
+        if wq is not None:
+            counts.update(wq.counters())
         for body, (status, reply) in zip(bodies, replies):
             check(status == 200, f"status {status}")
             toks = reply["tokens"]
@@ -1140,6 +1384,8 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
         check(counts["paged_flash_decode_plain"] == 0
               and counts["paged_kv_store_plain"] == 0,
               "a plain version ran on the serving path")
+        if mode:
+            quant_check(counts, stats, args.n_layers, mode, f"serve {tag}")
         # Every layer of every forward pass went through both kernels.
         check(counts["paged_flash_decode"] == args.n_layers * passes
               and counts["paged_kv_store"] == args.n_layers * passes,
@@ -1208,6 +1454,8 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
         if routing is not None:
             routing.remove(engine)
             restore_routers(engine.params["layers"], planted)
+        if kv is not None:
+            kv.remove(engine)
         server.stop()
     total = torch.cuda.get_device_properties(0).total_memory
     print(f"serve {tag}: serving peak {gib(serving_peak):.1f} GiB allocated "
@@ -1218,11 +1466,12 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
     checked = [(body, reply) for i, (body, (_, reply)) in
                enumerate(zip(bodies, replies)) if i != 2]  # greedy ones
     counts["routing_differences"] = teacher_check(engine, checked, tag,
-                                                  routing)
+                                                  routing, kv)
+    del kv
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     if graphs:
-        graph_check(engine, vocab, rng)
+        counts["decode_profile"] = graph_check(engine, vocab, rng, tag)
         print(f"serve {tag}: the graph check's peak "
               f"{gib(torch.cuda.max_memory_allocated()):.1f} GiB allocated, "
               f"{free_at_peak():.1f} GiB free", flush=True)
@@ -1241,6 +1490,38 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
     check(torch.cuda.memory_allocated() - base < 2**30,
           "a stopped server kept its engine's memory")
     return counts
+
+
+def quant_module():
+    """The port's ``ops.wquant`` module, or None in a package from before
+    weight quantization (a parent checkout timed beside this one)."""
+    try:
+        from oim_tpu_torch.ops import wquant
+    except ImportError:
+        return None
+    return wquant
+
+
+def quant_check(counts: dict, stats: dict, n_layers: int, mode: str,
+                tag: str) -> None:
+    """A weight-quantized serve phase's launches: no plain product ran,
+    and every decode pass ran each layer's seven products and the
+    unembedding through the fused kernel (admissions add theirs on
+    either route)."""
+    per_pass = 7 * n_layers + 1
+    shapes = {k: n for k, n in counts.items()
+              if k.startswith("quant_matmul[") and n}
+    print(f"{tag}: quant_matmul ({mode} weights) launched "
+          f"{counts['quant_matmul']} times, {counts['quant_matmul_gemv']} on "
+          f"the fused route and {counts['quant_matmul_dequant']} on the "
+          f"dequantize-then-matmul route, by shape {shapes}; "
+          f"{stats['decode_passes']} decode passes x {per_pass} products",
+          flush=True)
+    check(counts["quant_matmul_plain"] == 0,
+          f"{tag}: a plain quant_matmul ran on the serving path")
+    check(counts["quant_matmul_gemv"] >= stats["decode_passes"] * per_pass
+          > 0, f"{tag}: {counts['quant_matmul_gemv']} fused launches for "
+          f"{stats['decode_passes']} decode passes of {per_pass} products")
 
 
 def check_admission_graphs(stats: dict, before: dict, requests: int,
@@ -1294,7 +1575,8 @@ def admit_check(engine, tag: str, what: str, seated: int,
           f"{pending}")
 
 
-def teacher_check(engine, checked, tag: str, routing=None) -> list:
+def teacher_check(engine, checked, tag: str, routing=None,
+                  kv=None) -> list:
     """Each greedy reply of ``checked`` (body, reply), as served,
     teacher-forced through an f32 forward over the served weights
     (widened one layer at a time): every emitted token within δ of its
@@ -1306,23 +1588,38 @@ def teacher_check(engine, checked, tag: str, routing=None) -> list:
     admissions' and the graph-replayed decode passes'), which must be the
     f32 router's own or a near tie's (at most ``ROUTE_TIE`` of router
     probability from its top-k).  The f32 forward routing freely is
-    reported beside.  Returns [pairs whose choices differ from the f32
-    router's, (layer, position) pairs]."""
+    reported beside.  Quantized weights enter the f32 forward as the
+    served product reads them (``widened``).  With int4 KV (``kv``, a
+    ``ServedKV``) the f32 forward attends over the served pool's own K/V
+    rows, each first held within one int4 step of the forward's own
+    quantization of it (``served_kv``): an int4 step is 1/7 of a row's
+    max, so bf16 noise that moves a value across a rounding edge moves
+    the logits by more than δ allows on its own.  Returns [pairs whose
+    choices differ from the f32 router's, (layer, position) pairs]."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     params32, cfg32 = widened(engine.params, engine.cfg)
     n_delta = n_pos = n_flips = n_choices = n_free = 0
     worst_lp = worst_lost = worst_gap = free_gap = 0.0
+    seen = {"max_step": 0, "moved": 0, "values": 0}
     for body, reply in checked:
         prompt, forced = body["tokens"], None
         gen_toks, lps = reply["tokens"], reply["logprobs"]
+        served = None if kv is None else kv.kv[tuple(prompt)]
+
+        def rows():
+            return (contextlib.nullcontext() if served is None
+                    else served_kv(served, seen))
+
         if routing is not None:
             forced = routing.choices(prompt, len(gen_toks))
-            free = emitted_gap(params32, cfg32, prompt, gen_toks)[0]
+            with rows():
+                free = emitted_gap(params32, cfg32, prompt, gen_toks)[0]
             n_free += int((free > DELTA).sum())
             free_gap = max(free_gap, float(free.max()))
-        gap, lp_ref, tap = emitted_gap(params32, cfg32, prompt, gen_toks,
-                                       forced)
+        with rows():
+            gap, lp_ref, tap = emitted_gap(params32, cfg32, prompt,
+                                           gen_toks, forced)
         n_flips += tap.differing()
         n_choices += sum(c.shape[0] for c in tap.choices)
         worst_lost = max(worst_lost, tap.most_lost())
@@ -1357,6 +1654,15 @@ def teacher_check(engine, checked, tag: str, routing=None) -> list:
     check(worst_lost <= ROUTE_TIE,
           f"the served path routes {worst_lost:.4f} of router probability "
           f"away from the f32 top-k: not a near tie")
+    if kv is not None:
+        print(f"serve {tag}: the served int4 K/V the f32 forward attended "
+              f"over: {seen['moved']} of {seen['values']} values one step "
+              f"from its own quantization of them (bf16 noise across a "
+              f"rounding edge), none further: max {seen['max_step']} "
+              f"step(s)", flush=True)
+        check(seen["values"] > 0 and seen["max_step"] <= 1,
+              f"serve {tag}: a served int4 K/V value lies "
+              f"{seen['max_step']} steps from the f32 forward's own")
     return [n_flips, n_choices]
 
 
@@ -1385,14 +1691,15 @@ def class_times(engine, bucket: int, runs: int = 5) -> dict:
     return times
 
 
-def graph_check(engine, vocab: int, rng) -> None:
+def graph_check(engine, vocab: int, rng, tag: str = "") -> dict:
     """Every slot seated (greedy, sampled with top-p and penalised rows,
     prompts 16 to 1500 tokens) by one admission wave run eagerly and by
     graph replays from one state (``admit_check``), then one decode
     chunk of them, from copies of one cache state, run eagerly and by
     its CUDA graph's replay: the same kernels on the same inputs, so
     tokens, logprobs, the token carry, the cache and the penalty counts
-    must be bit-equal."""
+    must be bit-equal.  Then ``decode_profile`` of that chunk, whose
+    record it returns."""
     from oim_tpu_torch.serve.engine import GenRequest
 
     if hasattr(engine, "admit_twice"):  # a parent package has none
@@ -1422,7 +1729,70 @@ def graph_check(engine, vocab: int, rng) -> None:
           f"from copies of one state, eager vs graph replay bit-equal: "
           f"{same}", flush=True)
     check(all(same.values()), f"graph replay differs from eager: {same}")
+    profile = decode_profile(engine, tag)
     engine.abort("graph check done")
+    return profile
+
+
+def weight_bytes(params) -> int:
+    """Bytes a decode pass reads of the matmul weights: every
+    ``WEIGHT_QUANT_TARGETS`` entry (its payload and scales when
+    quantized; the f32-widened unembedding when not)."""
+    from oim_tpu_torch.ops.quant import WEIGHT_QUANT_TARGETS
+
+    total = 0
+    for tree in (params, *params["layers"]):
+        for name, t in tree.items():
+            base = name.removesuffix("_wscale")
+            if base in WEIGHT_QUANT_TARGETS:
+                total += t.numel() * t.element_size()
+    return total
+
+
+def decode_profile(engine, tag: str, replays: int = 3) -> dict:
+    """One decode chunk of the seated slots, its greedy graph replayed
+    ``replays`` times: its device time (CUDA events), its tokens a
+    second at that time, and, from ``torch.profiler`` over the replays
+    (``cli/serve_profile.py``'s families), the weight products' share
+    — ``quant_matmul``'s kernels on quantized weights, cuBLAS's on bf16
+    ones — and the rate at which they read the weights (``weight_bytes``
+    once a pass).  The replays rewrite the chunk's own cache rows."""
+    from oim_tpu_torch.cli.serve_profile import FAMILIES, profiled
+
+    graph = engine._graphs[(False, False)]
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    chunk_ms = start.elapsed_time(end) / replays
+    window = profiled(graph.replay, replays, chunk_ms * replays, FAMILIES)
+    family = ("quant_matmul" if getattr(engine, "weight_quant", "")
+              else "gemm (cuBLAS)")
+    prod_ms = (window["families_ms"] or {}).get(family, 0.0) / replays
+    moved = weight_bytes(engine.params) * engine.chunk
+    out = {"chunk_ms": chunk_ms,
+           "tok_s": engine.n_slots * engine.chunk / chunk_ms * 1e3,
+           "products_ms": prod_ms,
+           "products_share": prod_ms / chunk_ms,
+           "weights_tb_s": moved / (prod_ms * 1e-3) / 1e12 if prod_ms else
+           None, "families_ms": {k: v / replays for k, v in
+                                 (window["families_ms"] or {}).items()}}
+    rate = ("not measured" if out["weights_tb_s"] is None
+            else f"{out['weights_tb_s']:.2f} TB/s "
+                 f"({out['weights_tb_s'] * 1e12 / HBM_BYTES_PER_S:.0%} of "
+                 f"the HBM rate)")
+    print(f"serve {tag}: one decode chunk ({engine.n_slots} slots x "
+          f"{engine.chunk} passes, graph replay) {chunk_ms:.2f} ms of device "
+          f"time, {out['tok_s']:.1f} tok/s at that time; the weight "
+          f"products ({family}) {prod_ms:.2f} ms a chunk, "
+          f"{out['products_share']:.1%} of it, reading "
+          f"{moved / 2**30:.2f} GiB of weights a chunk at {rate}; by family "
+          f"{ {k: round(v, 3) for k, v in out['families_ms'].items()} } "
+          f"[{SMI}]", flush=True)
+    return out
 
 
 # The prefix phase's engine flags, added to SERVE_ARGS (and with
@@ -1588,7 +1958,10 @@ def prefix_serve(argv, tag: str, cached: bool) -> dict:
     from oim_tpu_torch.cli import serve_main
     from oim_tpu_torch.ops import paged_attention as pa
 
+    wq = quant_module()
     args = serve_main.build_parser().parse_args(argv)
+    mode = (serve_main.weight_quant(args)
+            if hasattr(serve_main, "weight_quant") else "")
     server = serve_main.start_server(args)
     engine = server.engine
     info = engine.info()["engine"]
@@ -2838,8 +3211,10 @@ def route_control(control: str) -> int:
 
 def moe_phases(record: dict) -> dict:
     """K1/K2 at the MoE model's heads (into ``record``), then its serve
-    and train phases, on a card the earlier phases left empty.  Returns
-    the serve phase's counts."""
+    phases (bf16 at ``MOE_LAYERS`` layers, then int8 weights at all
+    ``MOE_INT8_LAYERS``) and its train phase, on a card the earlier
+    phases left empty.  Returns the bf16 serve phase's counts, with the
+    int8 one's under ``int8``."""
     release()
     held = torch.cuda.memory_allocated()
     blocks = sorted((b["size"] for seg in torch.cuda.memory_snapshot()
@@ -2854,6 +3229,12 @@ def moe_phases(record: dict) -> dict:
     held = torch.cuda.memory_allocated()
     check(held < 2**30, f"the MoE serve phase still holds {gib(held):.1f} "
           f"GiB")
+    counts["int8"] = serve_phase(MOE_INT8_ARGS,
+                                 f"moe int8 {MOE_INT8_LAYERS} layers",
+                                 MOE_FREE_GIB)
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"the MoE int8 serve phase still holds "
+          f"{gib(held):.1f} GiB")
     counts["train"] = moe_train_phase(record)
     return counts
 
@@ -3008,6 +3389,39 @@ def ckpt_lora_phase(work: str) -> dict:
     return counts
 
 
+def quant_rows(record: dict, phases: dict) -> list[dict]:
+    """The ``kernels`` rows of ``quant_matmul``: for each (model, mode)
+    of ``phases`` (the serve phase that ran it), one row a weight shape
+    of ``quant_kernel_phase`` at 8 rows, and the tall route's row, each
+    with the launches of that shape and route in that phase, which must
+    be some."""
+    rows = []
+    for (model, mode), phase in phases.items():
+        keys = [(f"QMM {model} {mode} {names}", names, shape, QMM_ROWS)
+                for m, md, mats in QMM_CASES if (m, md) == (model, mode)
+                for names, shape in mats]
+        keys += [(f"QMM tall {model} {mode} {names}", names, shape, rows_)
+                 for m, md, names, shape, rows_ in QMM_TALL
+                 if (m, md) == (model, mode)]
+        for key, names, shape, n_rows in keys:
+            rec = dict(record[key])
+            route, count_key = rec.pop("route"), rec.pop("key")
+            launches = phase.get(count_key, 0)
+            check(launches > 0, f"{key}: its shape was launched on no "
+                  f"{route} route in its serve phase")
+            kernel = ("quant_matmul_kernel" if route == "gemv" else
+                      "dequant_kernel, then torch.matmul")
+            rows.append(dict(
+                name=f"quant_matmul ({route} route: {kernel}; {mode} "
+                     f"{model} {names} {list(shape)}, timed at {n_rows} "
+                     f"rows)",
+                route="cuda", source="oim_tpu_torch/csrc/wquant.cu",
+                replaces="oim_tpu/ops/quant.py:53 (no Pallas kernel: XLA's "
+                         "fused convert+scale in the product)",
+                launches=launches, **rec))
+    return rows
+
+
 def ptxas_lines(log: str) -> list[str]:
     """ptxas's register and spill report, one line per kernel, each
     named by its (demangled enough) function name."""
@@ -3137,6 +3551,8 @@ def main(argv=None) -> int:
         if "pipeline_depth" in vars(serve_main.build_parser().parse_args([])):
             served["default"] = serve_phase(SERVE_ARGS, "default")
             served["paged"] = serve_phase(PAGED_SERVE_ARGS, "paged")
+            if "kv_int4" in vars(serve_main.build_parser().parse_args([])):
+                served["quant"] = serve_phase(QUANT_SERVE_ARGS, "int4")
         else:  # a package from before depth 2: paged, serial, eager only
             served["paged"] = serve_phase(SERVE_ARGS + ["--kv-block", "16"],
                                           "paged")
@@ -3163,11 +3579,14 @@ def main(argv=None) -> int:
         return 0
     record = kernel_phase()
     if args.kernel_phase_only:
+        if quant_module() is not None:
+            record.update(quant_kernel_phase())
         compared = compare_phase()
         print(json.dumps({"package": package, "kernel_phase": record,
                           "compare": compared}), flush=True)
         return 0
     record.update(segment_kernel_phase())
+    record.update(quant_kernel_phase())
     record.update(train_kernel_phase())
     record.update(fused_ce_phase())
     # The main path: serve_main's defaults.  Then the paged engine's
@@ -3175,6 +3594,7 @@ def main(argv=None) -> int:
     # layouts, each with its own counts.
     counts = serve_phase(SERVE_ARGS, "default")
     paged_counts = serve_phase(PAGED_SERVE_ARGS, "paged")
+    quant_counts = serve_phase(QUANT_SERVE_ARGS, "int4")
     prefix_counts = prefix_phase()
     counts.update(train_phase(record))
     work = tempfile.mkdtemp(prefix=".smoke-ckpt-", dir=HERE)
@@ -3275,7 +3695,11 @@ def main(argv=None) -> int:
              replaces="oim_tpu/ops/rmsnorm.py:27",
              launches=moe_counts["train"]["rmsnorm_wide"],
              **record["rmsnorm_wide"])
-    ]
+    ] + paged_rows(
+        "packed int4 paged pool, 16-row blocks: --kv-block 16 --kv-int4 "
+        "--weights-int4", quant_counts, "_i4",
+    ) + quant_rows(record, {("qwen", "int4"): quant_counts,
+                            ("mixtral", "int8"): moe_counts["int8"]})
     print(SMI, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,13 @@ widths with 24 of its 32 layers (one H100's worth):
         --n-kv-heads 8 --d-ff 14336 --n-experts 8 --moe-top-k 2 \\
         --rope-theta 1000000 --norm-eps 1e-5 --dtype bfloat16 \\
         --n-slots 8 --max-len 2048 --chunk 8 --port 8000
+With ``--weights-int8`` all 32 of Mixtral-8x7B's layers fit one H100
+(1.45 GB a layer, against 2.90 in bf16); ``--weights-int4 [--int4-group
+G]`` stores the weights as packed int4 with group-wise scales, and
+``--kv-int4 --kv-block N`` the paged KV pool as packed int4.  Weights
+are quantized from their f32 values: as each is drawn from ``--seed``,
+or after a ``--params-dir``/``--checkpoint-dir`` restore, layer by
+layer.
 ``--tp``/``--ep`` above 1 (sharded serving) are refused.
 """
 
@@ -40,8 +47,13 @@ from oim_tpu_torch.checkpoint import (
     CheckpointerOptions,
     load_params,
 )
-from oim_tpu_torch.models.transformer import TransformerConfig, init_params
+from oim_tpu_torch.models.transformer import (
+    TransformerConfig,
+    init_params,
+    prepare_param,
+)
 from oim_tpu_torch.models.weights import check_params, recast
+from oim_tpu_torch.ops.quant import WEIGHT_QUANT_TARGETS, quantize_weight
 from oim_tpu_torch.serve.engine import Engine, resolve_device
 from oim_tpu_torch.serve.server import ServeServer
 
@@ -136,8 +148,37 @@ def build_parser() -> argparse.ArgumentParser:
         help="paged pool size in blocks (0 = the dense cache's "
         "footprint, n_slots x max_len / --kv-block)",
     )
-    p.add_argument("--kv-int8", action="store_true",
-                   help="int8 KV cache with per-(token, head) scales")
+    quant = p.add_mutually_exclusive_group()
+    quant.add_argument(
+        "--weights-int8", action="store_true",
+        help="weight-only int8 for the matmul weights (per-output-channel "
+        "scales) — halves weight bytes, the small-batch decode bottleneck",
+    )
+    quant.add_argument(
+        "--weights-int4", action="store_true",
+        help="weight-only int4 with group-wise scales (--int4-group) — "
+        "~0.56 bytes/weight; the next decode lever once GQA + int8 KV "
+        "shrink the cache",
+    )
+    p.add_argument(
+        "--int4-group", type=int, default=64,
+        help="int4 scale group along the reduction axis (gcd-clamped to "
+        "each layer's geometry)",
+    )
+    kvq = p.add_mutually_exclusive_group()
+    kvq.add_argument(
+        "--kv-int8", action="store_true",
+        help="int8-quantized KV cache (half the cache bandwidth decode "
+        "pays; per-token/head scales)",
+    )
+    kvq.add_argument(
+        "--kv-int4", action="store_true",
+        help="int4-quantized KV cache (kv4: half int8's cache bytes "
+        "again, packed two values a byte, dequantized in the paged "
+        "attention kernels' operand read) — requires --kv-block; dense "
+        "layouts reject it because only the paged pool carries the block "
+        "scales",
+    )
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--top-p", type=float, default=1.0)
     p.add_argument(
@@ -167,11 +208,37 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def weight_quant(args) -> str:
+    """The weight quant mode the flags ask for: "int8", "int4" or ""."""
+    if getattr(args, "weights_int8", False):
+        return "int8"
+    return "int4" if getattr(args, "weights_int4", False) else ""
+
+
+def quantize_served(params: dict, cfg: TransformerConfig, mode: str,
+                    group: int) -> dict:
+    """Restored f32 ``params`` in serving's layout with every target
+    weight quantized under ``mode`` from its f32 values, in place, one
+    tensor at a time (each f32 tensor is dropped as its payload lands),
+    as the reference quantizes a restored tree."""
+    for tree in (params, *params["layers"]):
+        for name in [n for n in tree if n != "layers"]:
+            if name in WEIGHT_QUANT_TARGETS:
+                tree[name], tree[f"{name}_wscale"] = quantize_weight(
+                    tree[name], mode, group)
+            else:
+                tree[name] = prepare_param(name, tree[name], cfg)
+    return params
+
+
 def load_weights(args, cfg: TransformerConfig, device) -> dict:
     """The served parameters in serving's layout: the export or the
     checkpoint's f32 params (checked against the flags' geometry, cast to
-    the compute dtype), else random from ``--seed``.  A missing export or
-    checkpoint raises: a server never quietly serves random weights."""
+    the compute dtype, or quantized with ``--weights-int8``/``-int4``),
+    else random from ``--seed`` (quantized as drawn).  A missing export
+    or checkpoint raises: a server never quietly serves random
+    weights."""
+    mode = weight_quant(args)
     if args.params_dir:
         what = f"--params-dir {args.params_dir}"
         params = load_params(args.params_dir, device=device)
@@ -181,8 +248,11 @@ def load_weights(args, cfg: TransformerConfig, device) -> dict:
                           CheckpointerOptions(create=False)) as ckpt:
             params = ckpt.restore_params(device=device)
     else:
-        return init_params(args.seed, cfg, device=device)
+        return init_params(args.seed, cfg, device=device, weight_quant=mode,
+                           int4_group=args.int4_group)
     check_params(params, cfg, what)
+    if mode:
+        return quantize_served(params, cfg, mode, args.int4_group)
     return recast(params, cfg, cfg.dtype)[0]
 
 
@@ -227,6 +297,7 @@ def make_engine(args, cuda_graphs: bool = True) -> Engine:
         top_k=args.top_k,
         top_p=args.top_p,
         kv_int8=args.kv_int8,
+        kv_int4=args.kv_int4,
         prefix_cache_size=args.prefix_cache,
         prefill_chunk=args.prefill_chunk,
         penalties=not args.no_penalties,
@@ -248,7 +319,9 @@ def start_server(args) -> ServeServer:
         f"n_slots={args.n_slots} max_len={args.max_len} "
         f"kv_block={args.kv_block} pipeline_depth={args.pipeline_depth} "
         f"prefix_cache={args.prefix_cache} "
-        f"prefill_chunk={args.prefill_chunk} device={engine.device}",
+        f"prefill_chunk={args.prefill_chunk} "
+        f"weight_quant={engine.weight_quant or 'none'} "
+        f"kv_quant={engine.kv_quant or 'none'} device={engine.device}",
         file=sys.stderr, flush=True,
     )
     return server

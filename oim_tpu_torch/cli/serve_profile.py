@@ -29,8 +29,8 @@ K1 work), so the idle share slightly understates the device's idle
 time.  It prints the wall, the device
 time summed over kernels, the device's idle share (one minus their
 ratio), the wall and device time per decode chunk, the device time by
-family (K1 with its merge, K2, cuBLAS GEMMs,
-the rest), the kernels that took the most device time and the host ops
+family (K1 with its merge, K2, the weight-quantized product, cuBLAS
+GEMMs, the rest), the kernels that took the most device time and the host ops
 that took the most host time; the last line is one JSON object with
 those numbers.  Run on the machine with the GPU:
 
@@ -62,6 +62,8 @@ FAMILIES = {
     "K1": ("paged_decode_kernel", "paged_prefill_tc_kernel",
            "paged_merge_kernel"),
     "K2": ("paged_store_kernel",),
+    "quant_matmul": ("quant_matmul_kernel", "quant_merge_kernel",
+                     "dequant_kernel"),
     "gemm (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass"),
 }
 

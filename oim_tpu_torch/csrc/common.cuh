@@ -1,6 +1,7 @@
 // What every Hopper kernel of the port shares: the dtype codes that
 // oim_tpu_torch/ops/_build.py mirrors, the reference's mask constant,
-// conversions between the storage dtypes and f32, 16-byte chunk loads,
+// conversions between the storage dtypes and f32 (packed int4 nibbles
+// included), 16-byte chunk loads,
 // warp reductions, and the tensor-core fragment helpers (mma.sync,
 // ldmatrix, cp.async, the P V product of an online softmax) that the
 // bf16 attention kernels share.
@@ -10,8 +11,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// dtype codes, mirrored by DTYPE_CODES in ops/_build.py.
-enum OimDType : int { kOimF32 = 0, kOimBF16 = 1, kOimI8 = 2 };
+#include <type_traits>
+
+// dtype codes, mirrored by DTYPE_CODES in ops/_build.py.  kOimI4 is
+// packed int4 (torch.uint8 storage, two values a byte).
+enum OimDType : int { kOimF32 = 0, kOimBF16 = 1, kOimI8 = 2, kOimI4 = 3 };
 
 #ifdef __CUDACC__
 namespace oim {
@@ -28,14 +32,38 @@ __device__ __forceinline__ float to_f32(int8_t v) {
   return static_cast<float>(v);
 }
 
+// Packed int4 (ops/quant.py pack_int4): a byte holds two values, the
+// lower index in the low nibble, each sign-extended from 4 bits.  The
+// type tags a pool or weight payload; its values are read in pairs.
+struct int4x2 {
+  uint8_t bits;
+};
+
+template <typename T>
+constexpr bool kIsInt4 = std::is_same_v<T, int4x2>;
+
+// Bytes that n values of T take (n even for packed int4).
+template <typename T>
+__host__ __device__ constexpr int value_bytes(int n) {
+  return kIsInt4<T> ? n / 2 : n * static_cast<int>(sizeof(T));
+}
+
+// The low and high values of a packed byte, as f32.
+__device__ __forceinline__ float int4_lo(uint32_t byte) {
+  return static_cast<float>(static_cast<int32_t>(byte << 28) >> 28);
+}
+__device__ __forceinline__ float int4_hi(uint32_t byte) {
+  return static_cast<float>(static_cast<int32_t>(byte << 24) >> 28);
+}
+
 __device__ __forceinline__ void from_f32(float v, float* dst) { *dst = v; }
 __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* dst) {
   *dst = __float2bfloat16_rn(v);
 }
 
-// One 16-byte chunk of a row: kChunk<T> elements of T.
+// One 16-byte chunk of a row: kChunk<T> elements of T (32 int4 values).
 template <typename T>
-constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
+constexpr int kChunk = kIsInt4<T> ? 32 : 16 / static_cast<int>(sizeof(T));
 
 template <typename T>
 __device__ __forceinline__ uint4 load_chunk(const T* src) {
@@ -46,9 +74,19 @@ __device__ __forceinline__ uint4 load_chunk(const T* src) {
 template <typename T>
 __device__ __forceinline__ void unpack_chunk(const uint4& raw, float scale,
                                              float* dst) {
-  const T* e = reinterpret_cast<const T*>(&raw);
+  if constexpr (kIsInt4<T>) {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-  for (int i = 0; i < kChunk<T>; ++i) dst[i] = to_f32(e[i]) * scale;
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t byte = (w[i / 4] >> (8 * (i % 4))) & 0xffu;
+      dst[2 * i] = int4_lo(byte) * scale;
+      dst[2 * i + 1] = int4_hi(byte) * scale;
+    }
+  } else {
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < kChunk<T>; ++i) dst[i] = to_f32(e[i]) * scale;
+  }
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -33,7 +33,10 @@
 //     on CUDA cores (lane = key × half of hd, the halves meeting by one
 //     shuffle), keeps its own (m, l, acc) per row and passes p to the
 //     product with V through shared memory; the four warps' states merge
-//     in warp order.  int8 is dequantised with its f32 scale where it is
+//     in warp order.  int8 and packed int4 (two values a byte, the lower
+//     dim in the low nibble: ops/quant.py pack_int4; a row is hd / 2
+//     bytes, so a 16-byte chunk holds 32 values and K1 reads half of
+//     int8's payload) are dequantised with their f32 scale where they are
 //     consumed, so the arithmetic is dequantize_int8's.  At the serving
 //     decode shape decode_split's 16 splits time best (PERF.md).
 //
@@ -62,9 +65,12 @@
 //     chains), takes 2^x from the hardware's approximation, and needs no
 //     per-pair test for masked pairs: a masked score is kNegBig, and
 //     2^(kNegBig − m) is 0 once m is real (m is taken as 0 while a row
-//     has no valid key).  int8 pools are not rounded: values in [−127,
-//     127] are exact in bf16, so each staged step is widened to bf16 in
-//     shared memory and the f32 scales stay out of the products —
+//     has no valid key).  int8 and int4 pools are not rounded: values in
+//     [−127, 127] are exact in bf16, so each staged step is widened to
+//     bf16 in shared memory (int4 unpacked from its nibbles there: the
+//     ring stages packed rows of hd / 2 bytes, 2 or 4 16-byte chunks, so a
+//     step's copies take half or all of the block's threads) and the f32
+//     scales stay out of the products —
 //     k_scale[j] multiplies score column j after Q Kᵀ, and v_scale[j] is
 //     folded into P's column j before P is rounded for P V (the row sum l
 //     is of the unscaled f32 p).  Shared-memory rows are padded to hd + 8
@@ -94,7 +100,9 @@
 //     paged_store_blocks landing: a segment's new K/V rows written into
 //     the slot's pool blocks IN PLACE, quantizing exactly as quantize_int8
 //     does: amax over hd, scale = max(amax / 127, 1e-8), q = rintf(x /
-//     scale) with a true division and round-half-to-even.  The TPU
+//     scale) with a true division and round-half-to-even; into a packed
+//     int4 pool as quantize_int4 then pack_int4 do (amax / 7, q clipped
+//     to ±7, two values a byte).  The TPU
 //     version staged into separate buffers only because of Mosaic's
 //     double-buffered prefetch race; here rows outside the write window
 //     are never touched, and sentinel rows and rows past the table are
@@ -111,7 +119,7 @@
 //     table lookup and any store.  The row's starts entry and table entry
 //     are read once (one broadcast address a group); the amax reduces
 //     over the group's lanes by shuffles, and int8 leaves as one packed
-//     8-byte store a lane.
+//     8-byte store a lane (int4: 4 bytes).
 //
 //     Left on the table: K2 is a launch of its own before K1's (folding
 //     it into K1 would save the fixed cost of one launch a layer).
@@ -135,10 +143,17 @@ constexpr int kStepKeys = kWarps * kWarpKeys;  // keys the block stages a step
 constexpr int kStages = 3;                     // cp.async ring depth
 constexpr int kMaxBlockSize = 64;
 
-// A staged key row: hd values in the pool's dtype plus 16 bytes, so that
-// the 16-byte reads of eight neighbouring rows fall in distinct banks.
+// A pool row's bytes: hd values in the pool's dtype (hd / 2 bytes packed
+// int4).  A staged key row is that plus 16 bytes, so that the 16-byte
+// reads of eight neighbouring rows fall in distinct banks.
 template <int HD, typename KVT>
-constexpr int kRowBytes = HD * static_cast<int>(sizeof(KVT)) + 16;
+constexpr int kPoolRow = value_bytes<KVT>(HD);
+template <int HD, typename KVT>
+constexpr int kRowBytes = kPoolRow<HD, KVT> + 16;
+
+// An int8 or packed int4 pool: f32 scales beside the payload.
+template <typename KVT>
+constexpr bool kQuantKV = std::is_same_v<KVT, int8_t> || kIsInt4<KVT>;
 
 // A q row in shared memory: two halves of hd/2 f32, each padded by four,
 // so the two halves a warp reads at once sit in distinct banks.
@@ -158,15 +173,27 @@ constexpr size_t decode_smem_bytes() {
          (ring > merge ? ring : merge);
 }
 
-// N values of T at p (aligned to their total size when that is 4, 8 or
-// 16 bytes) widened to f32 and multiplied by `scale` (1 for fp data:
-// exact), read as one vector where the size allows: a lane's hd/32 dims
-// of a V row.
+// N values of T at byte address p (aligned to their total size when that
+// is 2, 4, 8 or 16 bytes) widened to f32 and multiplied by `scale` (1 for
+// fp data: exact), read as one vector where the size allows: a lane's
+// hd/32 dims of a V row.
 template <typename T, int N>
-__device__ __forceinline__ void load_widen(const T* p, float scale,
-                                           float (&dst)[N]) {
-  constexpr int kBytes = N * static_cast<int>(sizeof(T));
-  if constexpr (kBytes == 16 || kBytes == 8 || kBytes == 4) {
+__device__ __forceinline__ void load_widen(const unsigned char* bytes,
+                                           float scale, float (&dst)[N]) {
+  constexpr int kBytes = value_bytes<T>(N);
+  if constexpr (kIsInt4<T>) {
+    static_assert(kBytes == 1 || kBytes == 2, "a lane's packed dims");
+    const uint32_t raw = kBytes == 2
+                             ? *reinterpret_cast<const uint16_t*>(bytes)
+                             : *bytes;
+#pragma unroll
+    for (int i = 0; i < kBytes; ++i) {
+      const uint32_t byte = (raw >> (8 * i)) & 0xffu;
+      dst[2 * i] = int4_lo(byte) * scale;
+      dst[2 * i + 1] = int4_hi(byte) * scale;
+    }
+  } else if constexpr (kBytes == 16 || kBytes == 8 || kBytes == 4) {
+    const T* p = reinterpret_cast<const T*>(bytes);
     using V = std::conditional_t<
         kBytes == 16, uint4, std::conditional_t<kBytes == 8, uint2, uint32_t>>;
     const V raw = *reinterpret_cast<const V*>(p);
@@ -174,6 +201,7 @@ __device__ __forceinline__ void load_widen(const T* p, float scale,
 #pragma unroll
     for (int i = 0; i < N; ++i) dst[i] = to_f32(e[i]) * scale;
   } else {
+    const T* p = reinterpret_cast<const T*>(bytes);
 #pragma unroll
     for (int i = 0; i < N; ++i) dst[i] = to_f32(p[i]) * scale;
   }
@@ -303,9 +331,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
         const bool ok = blk >= 0 && blk < n_blocks;
         const size_t row_id =
             ok ? (static_cast<size_t>(blk) * bs + kp % bs) * KVH + h : 0;
-        cp_async16(ks + key * kRB + c * 16, k_pool + row_id * HD + c * kE, ok);
+        const size_t src = row_id * kPoolRow<HD, KVT> + c * 16;
+        cp_async16(ks + key * kRB + c * 16,
+                   reinterpret_cast<const unsigned char*>(k_pool) + src, ok);
         cp_async16(ks + (kStepKeys + key) * kRB + c * 16,
-                   v_pool + row_id * HD + c * kE, ok);
+                   reinterpret_cast<const unsigned char*>(v_pool) + src, ok);
         if (c == 0) {
           if constexpr (QUANT) {
             cp_async4(w + key, k_scale + row_id, ok);
@@ -353,13 +383,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     float s[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) s[r] = 0.f;
-    const KVT* krow = reinterpret_cast<const KVT*>(ks + slot * kRB) +
-                      half * (HD / 2);
+    const unsigned char* krow =
+        ks + slot * kRB + half * value_bytes<KVT>(HD / 2);
     const float ksc = QUANT ? w[slot] : 1.f;
 #pragma unroll
     for (int j = 0; j < kRowChunks / 2; ++j) {
       float kf[kE];
-      unpack_chunk<KVT>(load_chunk(krow + j * kE), ksc, kf);
+      unpack_chunk<KVT>(*reinterpret_cast<const uint4*>(krow + j * 16), ksc,
+                        kf);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const float4* qr = reinterpret_cast<const float4*>(
@@ -403,7 +434,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       const int vslot = warp * kWarpKeys + c;
       float vf[kDims];
       load_widen<KVT, kDims>(
-          reinterpret_cast<const KVT*>(vs + vslot * kRB) + lane * kDims,
+          vs + vslot * kRB + value_bytes<KVT>(lane * kDims),
           QUANT ? w[kStepKeys + vslot] : 1.f, vf);
       const float4* pr = reinterpret_cast<const float4*>(pw + c * ROWS);
 #pragma unroll
@@ -583,11 +614,17 @@ cudaError_t dispatch_decode(const void* q, int q_dtype, const void* k_pool,
     if (rows8) OIM_DECODE(float, int8_t, true, 8);
     OIM_DECODE(float, int8_t, true, 16);
   }
+  if (q_dtype == kOimF32 && kv_dtype == kOimI4) {
+    if (rows8) OIM_DECODE(float, int4x2, true, 8);
+    OIM_DECODE(float, int4x2, true, 16);
+  }
   if (!rows8) return cudaErrorInvalidValue;  // the tensor-core route's
   if (q_dtype == kOimBF16 && kv_dtype == kOimBF16)
     OIM_DECODE(__nv_bfloat16, __nv_bfloat16, false, 8);
   if (q_dtype == kOimBF16 && kv_dtype == kOimI8)
     OIM_DECODE(__nv_bfloat16, int8_t, true, 8);
+  if (q_dtype == kOimBF16 && kv_dtype == kOimI4)
+    OIM_DECODE(__nv_bfloat16, int4x2, true, 8);
 #undef OIM_DECODE
   return cudaErrorInvalidValue;
 }
@@ -605,7 +642,7 @@ constexpr int kTcStages = 3;  // cp.async ring depth
 // Every part is a multiple of 16 bytes.
 template <int HD, typename KVT>
 constexpr size_t prefill_tc_smem_bytes() {
-  constexpr bool kQuant = std::is_same_v<KVT, int8_t>;
+  constexpr bool kQuant = kQuantKV<KVT>;
   return sizeof(__nv_bfloat16) * kRowStride<HD> *
              (kTcRows + (kQuant ? 2 * kTcKeys : 0)) +
          static_cast<size_t>(kTcStages) * kTcKeys *
@@ -627,7 +664,8 @@ __global__ void __launch_bounds__(kThreads, 2) paged_prefill_tc_kernel(
   constexpr int NT = BK / 8, ND = HD / 8, KK = HD / 16;
   constexpr int kE = kChunk<KVT>, kRowChunks = HD / kE;
   static_assert(BK == 32 && NT == 4, "a step's keys are a warp's lanes");
-  static_assert(BK * kRowChunks % kThreads == 0, "whole chunks a thread");
+  constexpr int kCopies = BK * kRowChunks;  // 16-byte chunks a stage's K
+  static_assert(kCopies % 32 == 0, "whole warps copy");
   static_assert(kTcRows * (HD / 8) % kThreads == 0, "whole q chunks");
   static_assert(QUANT || RB == 2 * RS, "bf16 ring rows are ldmatrix rows");
   const int b = blockIdx.x / KVH, h = blockIdx.x % KVH, split = blockIdx.y;
@@ -730,13 +768,21 @@ __global__ void __launch_bounds__(kThreads, 2) paged_prefill_tc_kernel(
     if (kb >= 0) {
       unsigned char* ks = ring + st * 2 * BK * RB;
 #pragma unroll
-      for (int u = 0; u < BK * kRowChunks / kThreads; ++u) {
+      for (int u = 0; u < (kCopies + kThreads - 1) / kThreads; ++u) {
         const int idx = threadIdx.x + u * kThreads;
         const int key = idx / kRowChunks, c = idx % kRowChunks;
-        const int r = __shfl_sync(0xffffffffu, row, key);
-        const size_t src = r >= 0 ? static_cast<size_t>(r) * HD + c * kE : 0;
-        cp_async16(ks + key * RB + c * 16, k_pool + src, r >= 0);
-        cp_async16(ks + (BK + key) * RB + c * 16, v_pool + src, r >= 0);
+        const int r = __shfl_sync(0xffffffffu, row, key % 32);
+        if (idx < kCopies) {  // whole warps: kCopies is a multiple of 32
+          const size_t src =
+              r >= 0 ? static_cast<size_t>(r) * kPoolRow<HD, KVT> + c * 16
+                     : 0;
+          cp_async16(ks + key * RB + c * 16,
+                     reinterpret_cast<const unsigned char*>(k_pool) + src,
+                     r >= 0);
+          cp_async16(ks + (BK + key) * RB + c * 16,
+                     reinterpret_cast<const unsigned char*>(v_pool) + src,
+                     r >= 0);
+        }
       }
       if constexpr (QUANT) {
         if (warp == 0) {
@@ -805,20 +851,20 @@ __global__ void __launch_bounds__(kThreads, 2) paged_prefill_tc_kernel(
     const float* w = scales + st * 2 * BK;
     const bf16* ks = reinterpret_cast<const bf16*>(stage);
     if constexpr (QUANT) {
-      // Widen the step's int8 K and V rows to bf16: exact for |x| <= 127.
-      for (int idx = threadIdx.x; idx < 2 * BK * (HD / 16); idx += kThreads) {
-        const int r = idx / (HD / 16), c = idx % (HD / 16);
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(stage + r * RB + c * 16);
-        const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-        uint32_t packed[8];
+      // Widen the step's int8 or int4 K and V rows to bf16: exact for
+      // |x| <= 127.  A 16-byte chunk holds kE values (16 int8, 32 int4).
+      for (int idx = threadIdx.x; idx < 2 * kCopies; idx += kThreads) {
+        const int r = idx / kRowChunks, c = idx % kRowChunks;
+        float e[kE];
+        unpack_chunk<KVT>(
+            *reinterpret_cast<const uint4*>(stage + r * RB + c * 16), 1.f, e);
+        uint4* dst = reinterpret_cast<uint4*>(wide + r * RS + c * kE);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          packed[j] = pack_bf16(static_cast<float>(e[2 * j]),
-                                static_cast<float>(e[2 * j + 1]));
-        uint4* dst = reinterpret_cast<uint4*>(wide + r * RS + c * 16);
-        dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-        dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+        for (int j = 0; j < kE / 8; ++j)
+          dst[j] = make_uint4(pack_bf16(e[8 * j], e[8 * j + 1]),
+                              pack_bf16(e[8 * j + 2], e[8 * j + 3]),
+                              pack_bf16(e[8 * j + 4], e[8 * j + 5]),
+                              pack_bf16(e[8 * j + 6], e[8 * j + 7]));
       }
       __syncthreads();
       ks = wide;
@@ -1010,6 +1056,10 @@ cudaError_t dispatch_prefill_tc(const void* q, const void* k_pool,
     return launch_prefill_tc<HD, int8_t, true>(
         q, k_pool, v_pool, k_scale, v_scale, tables, starts, out, part, B, t,
         H, KVH, n_blocks, bs, n_tables, entries, window, stream);
+  if (kv_dtype == kOimI4)
+    return launch_prefill_tc<HD, int4x2, true>(
+        q, k_pool, v_pool, k_scale, v_scale, tables, starts, out, part, B, t,
+        H, KVH, n_blocks, bs, n_tables, entries, window, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1033,6 +1083,8 @@ __global__ void __launch_bounds__(kStoreThreads) paged_store_kernel(
   constexpr int kGroups = kStoreThreads / kLanes;
   static_assert(kLanes <= 32 && 32 % kLanes == 0, "a group inside a warp");
   static_assert(QUANT || std::is_same_v<NT, PT>, "fp rows copy as bits");
+  constexpr bool kInt4 = kIsInt4<PT>;
+  constexpr float kQMax = kInt4 ? 7.f : 127.f;  // the scheme's range
   const int sub = threadIdx.x % kLanes;
   const int rr = blockIdx.x * kGroups + threadIdx.x / kLanes;
   const bool in = rr < n_rows;
@@ -1069,8 +1121,28 @@ __global__ void __launch_bounds__(kStoreThreads) paged_store_kernel(
 #pragma unroll
       for (int off = kLanes / 2; off > 0; off >>= 1)
         amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-      const float scale = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+      const float scale = fmaxf(__fdiv_rn(amax, kQMax), 1e-8f);
       if (dst < 0) continue;
+      if constexpr (kInt4) {
+        // Round half to even, clip to +-7, two values a byte (the lower
+        // dim in the low nibble): kV / 2 bytes a lane.
+        uint32_t word = 0;
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          const float r = fminf(fmaxf(rintf(__fdiv_rn(x[j], scale)), -7.f),
+                                7.f);
+          word |= (static_cast<uint32_t>(static_cast<int>(r)) & 0xfu)
+                  << (4 * j);
+        }
+        unsigned char* row = reinterpret_cast<unsigned char*>(pool) +
+                             dst * (HD / 2) + sub * (kV / 2);
+        if constexpr (kV == 8)
+          *reinterpret_cast<uint32_t*>(row) = word;
+        else
+          *reinterpret_cast<uint16_t*>(row) = static_cast<uint16_t>(word);
+        if (sub == 0) (kv ? v_scale : k_scale)[dst] = scale;
+        continue;
+      }
       uint32_t packed[kV / 4];
 #pragma unroll
       for (int j = 0; j < kV / 4; ++j) {
@@ -1132,6 +1204,10 @@ cudaError_t dispatch_store(const void* k_new, const void* v_new,
     OIM_STORE(__nv_bfloat16, __nv_bfloat16, false);
   if (new_dtype == kOimBF16 && pool_dtype == kOimI8)
     OIM_STORE(__nv_bfloat16, int8_t, true);
+  if (new_dtype == kOimF32 && pool_dtype == kOimI4)
+    OIM_STORE(float, int4x2, true);
+  if (new_dtype == kOimBF16 && pool_dtype == kOimI4)
+    OIM_STORE(__nv_bfloat16, int4x2, true);
 #undef OIM_STORE
   return cudaErrorInvalidValue;
 }

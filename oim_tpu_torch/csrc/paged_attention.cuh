@@ -15,7 +15,8 @@ extern "C" {
 
 // K1 — paged flash-decode (replaces oim_tpu/ops/paged_attention.py
 // _decode_kernel).  q [B, t, H, hd]; pools [n_blocks, block_size, KVH,
-// hd]; scales [n_blocks, block_size, KVH] f32 (int8 pools only, else
+// hd] (kv_dtype kOimI4: packed int4, hd / 2 bytes a row); scales
+// [n_blocks, block_size, KVH] f32 (int8 and int4 pools only, else
 // null); tables [B, n_tables] int32; starts [B] int32; out [B, t, H, hd]
 // f32.  Query row i of slot b sits at position starts[b] + i.  Each
 // split walks `entries` table entries; with n_splits = ceil(n_tables /
@@ -29,7 +30,7 @@ int oim_paged_flash_decode(
     int block_size, int n_tables, int window, int entries, void* stream);
 
 // K1's tall route on the tensor cores, for bf16 q (q_dtype must be
-// bf16) over bf16 or int8 pools: the same arguments and result as
+// bf16) over bf16, int8 or packed int4 pools: the same arguments and result as
 // oim_paged_flash_decode, tiles of 64 flattened q rows.  The wrapper
 // sends bf16 q with more than 8 rows (t x group) a slot here;
 // oim_paged_flash_decode refuses them.
@@ -40,7 +41,7 @@ int oim_paged_prefill_tc(
     float* partials, int B, int t, int H, int KVH, int hd, int n_blocks,
     int block_size, int n_tables, int window, int entries, void* stream);
 
-// K2 — prefill K/V store with fused int8 quant (replaces
+// K2 — prefill K/V store with fused int8 or packed int4 quant (replaces
 // _prefill_stage_kernel plus its paged_store_blocks landing).  Writes
 // k_new/v_new [B, t, KVH, hd] into positions [starts[b], starts[b] + t)
 // of each slot's blocks, in place; rows whose table entry is the

@@ -32,13 +32,21 @@ from oim_tpu_torch.models.transformer import (
     _mlp_act,
     _qkv,
     _rmsnorm,
+    _EXPERTS,
     _router_gates,
     _router_probs,
-    _unembed,
     embed_lookup,
+    linear,
+    unembed,
 )
-from oim_tpu_torch.ops.quant import dequantize_int8, make_kv_buffers, quantize_int8
+from oim_tpu_torch.ops.quant import (
+    WEIGHT_QUANT_TARGETS,
+    dequantize_int8,
+    make_kv_buffers,
+    quantize_int8,
+)
 from oim_tpu_torch.ops.rope import apply_rope
+from oim_tpu_torch.ops.wquant import GEMV_ROWS, dequantize_weights
 
 NEG_BIG = -1e30
 _MASK64 = (1 << 64) - 1
@@ -77,16 +85,24 @@ class KVCache:
         return self.k.shape[2]
 
 
+# Layer entries: the weights, and the weight-only quantization scales of
+# the quantizable ones.
+_LAYER_ENTRIES = LAYER_NAMES + tuple(
+    f"{name}_wscale" for name in LAYER_NAMES if name in WEIGHT_QUANT_TARGETS
+)
+
+
 def _flat_layer_params(tree: dict, cfg: TransformerConfig) -> dict:
     """The reference's stacked ``[n_stages, layers_per_stage, ...]``
-    layer weights (numpy arrays, by name) collapsed to ``[n_layers,
-    ...]`` — decode runs plain layers; pipeline staging is a training
+    layer entries (numpy arrays, by name; ``<name>_wscale`` scales of a
+    weight-quantized tree included) collapsed to ``[n_layers, ...]`` —
+    decode runs plain layers; pipeline staging is a training
     construct."""
     return {
         name: np.asarray(tree[name]).reshape(
             cfg.n_layers, *np.shape(tree[name])[2:]
         )
-        for name in LAYER_NAMES
+        for name in _LAYER_ENTRIES
         if name in tree
     }
 
@@ -140,7 +156,7 @@ def _cached_attention(x, lp, k_cache, v_cache, k_scale, v_scale, start: int,
         "bhgqk,bkhd->bqhgd", probs, _load_kv(v_cache, v_scale)
     ).to(x.dtype)
     out = out.reshape(b, t, h * hd)
-    return x + (out @ lp["wo"]).to(x.dtype)
+    return x + linear(out, lp, "wo", cfg).to(x.dtype)
 
 
 def _moe_exact(x, lp, cfg: TransformerConfig):
@@ -152,7 +168,9 @@ def _moe_exact(x, lp, cfg: TransformerConfig):
     it (0 for the rest).  Every token goes through all E experts (E/k
     times the routed work, but no data-dependent shape: a decode chunk
     stays one CUDA graph) as batched products over the experts on the
-    compute-dtype weights, like ``_dense_mlp``'s, in passes of at most
+    compute-dtype weights, like ``_dense_mlp``'s (weight-quantized
+    experts through ``linear``; for more than ``GEMV_ROWS`` tokens
+    dequantized once for all passes), in passes of at most
     ``MOE_TOKENS`` tokens; the weighted combine is f32."""
     b, t, d = x.shape
     g = b * t
@@ -162,12 +180,16 @@ def _moe_exact(x, lp, cfg: TransformerConfig):
     weights = torch.sum(
         _expert_mask(top_idx, cfg.n_experts) * gates[..., None], dim=1
     )  # [G, E]
+    if g > GEMV_ROWS:
+        # Weight-quantized experts meet tall inputs (an admission's tokens)
+        # as dequantized weights: dequantize each once for every pass.
+        lp = dequantize_weights(lp, _EXPERTS, cfg.compute_dtype)
     out = []
     for lo in range(0, g, MOE_TOKENS):
         h = normed[lo:lo + MOE_TOKENS]
-        gate = _mlp_act(torch.matmul(h, lp["w_gate"]), cfg)  # [E, n, F]
-        up = torch.matmul(h, lp["w_in"])
-        down = torch.matmul(gate * up, lp["w_out"])  # [E, n, D]
+        gate = _mlp_act(linear(h, lp, "w_gate", cfg), cfg)  # [E, n, F]
+        up = linear(h, lp, "w_in", cfg)
+        down = linear(gate * up, lp, "w_out", cfg)  # [E, n, D]
         out.append(torch.einsum("egd,ge->gd", down.float(),
                                 weights[lo:lo + MOE_TOKENS]))
     out = out[0] if len(out) == 1 else torch.cat(out)
@@ -219,14 +241,14 @@ def prefill(params, tokens, cfg: TransformerConfig, max_len: int,
     cache = KVCache.create(cfg, b, max_len, quantized=kv_int8,
                            device=tokens.device)
     x = _hidden_cached(params, tokens, cache, cfg)
-    return _unembed(x, params["wlm"], cfg), cache
+    return unembed(x, params, cfg), cache
 
 
 def decode_step(params, cache: KVCache, tokens, cfg: TransformerConfig):
     """One autoregressive step: tokens [batch, 1] → logits [batch, vocab]
     (the cache grows by one position, in place)."""
     x = _hidden_cached(params, tokens, cache, cfg)
-    return _unembed(x, params["wlm"], cfg)[:, -1, :], cache
+    return unembed(x, params, cfg)[:, -1, :], cache
 
 
 # ---------------------------------------------------------------------------

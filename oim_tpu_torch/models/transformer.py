@@ -25,6 +25,13 @@ dense MLP's names.  Training routes with capacity (``_switch_moe``:
 router z-loss); inference routes every token drop-free
 (``models/decode.py::_moe_exact``).  Pipeline stages are refused with
 the ROADMAP item that ports them.
+
+Serving params may be weight-quantized (``ops/quant.py``: a target
+weight's int8 or packed int4 payload under its name plus a
+``<name>_wscale`` companion); ``linear`` and ``unembed`` read them
+through ``ops/wquant.py::quant_matmul``, which dequantizes each weight to
+the compute dtype where the product reads it.  Training never sees
+quantized params.
 """
 
 from __future__ import annotations
@@ -40,8 +47,10 @@ from oim_tpu_torch.ops.flash_attention import (
     flash_attention,
     reference_attention,
 )
+from oim_tpu_torch.ops.quant import WEIGHT_QUANT_TARGETS, quantize_weight
 from oim_tpu_torch.ops.rmsnorm import reference_rmsnorm, rmsnorm
 from oim_tpu_torch.ops.rope import apply_rope
+from oim_tpu_torch.ops.wquant import quant_matmul
 
 # Weight on the MoE auxiliary channel in the train objective (the
 # reference's AUX_LOSS_WEIGHT); dense layers add 0 to the channel.
@@ -207,59 +216,66 @@ def prepare_param(name: str, value, cfg: TransformerConfig):
 
 
 def init_params(seed: int, cfg: TransformerConfig, device=None,
-                master: bool = False) -> dict:
+                master: bool = False, weight_quant: str = "",
+                int4_group: int = 64) -> dict:
     """Truncated-normal init (±2 sigma, scaled by 1/sqrt(fan_in)) drawn
     from ``torch.Generator(device).manual_seed(seed)``, one tensor at a
     time so the peak is one f32 tensor beyond the model.  Returns
     ``{"wte", "final_norm", "wlm", "layers": [per-layer dict]}`` in
     serving's layout, or as f32 training masters when ``master``.  MoE
     layers draw the router ``[d, E]`` and the experts ``[E, d, f]`` /
-    ``[E, f, d]`` (the reference's shapes and fan-ins)."""
+    ``[E, f, d]`` (the reference's shapes and fan-ins).
+
+    ``weight_quant`` ("int8" or "int4", serving only) quantizes each
+    ``WEIGHT_QUANT_TARGETS`` weight from its f32 draw as it is drawn, so
+    the float model never has to fit whole: the same values as
+    ``quantize_params_int8``/``_int4`` of the master params, since the
+    draws come from one generator in one order."""
+    if weight_quant and master:
+        raise ValueError("training masters are never quantized")
     gen = torch.Generator(device=device).manual_seed(seed)
     d, n = cfg.d_model, cfg.n_heads * cfg.head_dim
     kvn, f = cfg.kv_heads * cfg.head_dim, cfg.ff_dim
     lo = 0.5 * math.erfc(2.0 / math.sqrt(2.0))  # standard normal CDF at -2
 
-    def dense(name, *shape, fan_in):
+    def dense(tree, name, *shape, fan_in):
         t = torch.empty(shape, dtype=torch.float32, device=device)
         t.uniform_(lo, 1.0 - lo, generator=gen)
         t.mul_(2.0).sub_(1.0).erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
         t.div_(math.sqrt(fan_in))
-        return t if master else prepare_param(name, t, cfg)
+        if weight_quant and name in WEIGHT_QUANT_TARGETS:
+            tree[name], tree[f"{name}_wscale"] = quantize_weight(
+                t, weight_quant, int4_group)
+        else:
+            tree[name] = t if master else prepare_param(name, t, cfg)
 
-    def const(name, fill, *shape):
+    def const(tree, name, fill, *shape):
         t = torch.full(shape, fill, dtype=torch.float32, device=device)
-        return t if master else prepare_param(name, t, cfg)
+        tree[name] = t if master else prepare_param(name, t, cfg)
 
-    params = {
-        "wte": dense("wte", cfg.vocab_size, d, fan_in=d),
-        "final_norm": const("final_norm", 1.0, d),
-        "wlm": dense("wlm", d, cfg.vocab_size, fan_in=d),
-        "layers": [],
-    }
+    params = {}
+    dense(params, "wte", cfg.vocab_size, d, fan_in=d)
+    const(params, "final_norm", 1.0, d)
+    dense(params, "wlm", d, cfg.vocab_size, fan_in=d)
+    params["layers"] = []
     e = (cfg.n_experts,) if cfg.n_experts else ()
     for _ in range(cfg.n_layers):
-        lp = {
-            "attn_norm": const("attn_norm", 1.0, d),
-            "wq": dense("wq", d, n, fan_in=d),
-            "wk": dense("wk", d, kvn, fan_in=d),
-            "wv": dense("wv", d, kvn, fan_in=d),
-            "wo": dense("wo", n, d, fan_in=n),
-            "mlp_norm": const("mlp_norm", 1.0, d),
-        }
+        lp = {}
+        const(lp, "attn_norm", 1.0, d)
+        dense(lp, "wq", d, n, fan_in=d)
+        dense(lp, "wk", d, kvn, fan_in=d)
+        dense(lp, "wv", d, kvn, fan_in=d)
+        dense(lp, "wo", n, d, fan_in=n)
+        const(lp, "mlp_norm", 1.0, d)
         if cfg.n_experts:
-            lp["router"] = dense("router", d, cfg.n_experts, fan_in=d)
-        lp.update(
-            w_gate=dense("w_gate", *e, d, f, fan_in=d),
-            w_in=dense("w_in", *e, d, f, fan_in=d),
-            w_out=dense("w_out", *e, f, d, fan_in=f),
-        )
+            dense(lp, "router", d, cfg.n_experts, fan_in=d)
+        dense(lp, "w_gate", *e, d, f, fan_in=d)
+        dense(lp, "w_in", *e, d, f, fan_in=d)
+        dense(lp, "w_out", *e, f, d, fan_in=f)
         if cfg.attn_bias:
-            lp.update(
-                bq=const("bq", 0.0, n),
-                bk=const("bk", 0.0, kvn),
-                bv=const("bv", 0.0, kvn),
-            )
+            const(lp, "bq", 0.0, n)
+            const(lp, "bk", 0.0, kvn)
+            const(lp, "bv", 0.0, kvn)
         params["layers"].append(lp)
     return params
 
@@ -302,12 +318,22 @@ def _mlp_act(x, cfg: TransformerConfig):
     return F.silu(x)
 
 
+def linear(x, tree, name: str, cfg: TransformerConfig):
+    """``x @ tree[name]``: a weight-quantized entry (one with a
+    ``<name>_wscale`` companion) through ``quant_matmul``, its weight
+    dequantized to the compute dtype where the product reads it."""
+    scale = tree.get(f"{name}_wscale")
+    if scale is None:
+        return torch.matmul(x, tree[name])
+    return quant_matmul(x, tree[name], scale, dtype=cfg.compute_dtype)
+
+
 def _dense_mlp(x, lp, cfg: TransformerConfig):
     """Pre-norm gated MLP with its residual."""
     normed = _rmsnorm(x, lp["mlp_norm"], cfg)
-    gate = _mlp_act(normed @ lp["w_gate"], cfg)
-    up = normed @ lp["w_in"]
-    return x + ((gate * up) @ lp["w_out"]).to(x.dtype)
+    gate = _mlp_act(linear(normed, lp, "w_gate", cfg), cfg)
+    up = linear(normed, lp, "w_in", cfg)
+    return x + linear(gate * up, lp, "w_out", cfg).to(x.dtype)
 
 
 def _router_probs(normed, router):
@@ -399,9 +425,9 @@ def _qkv(x, lp, cfg: TransformerConfig):
     [b, t, heads, head_dim] — shared by solo decode and the engine."""
     b, t, _ = x.shape
     normed = _rmsnorm(x, lp["attn_norm"], cfg)
-    q = normed @ lp["wq"]
-    k = normed @ lp["wk"]
-    v = normed @ lp["wv"]
+    q = linear(normed, lp, "wq", cfg)
+    k = linear(normed, lp, "wk", cfg)
+    v = linear(normed, lp, "wv", cfg)
     if "bq" in lp:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -421,6 +447,18 @@ def _unembed(x, wlm, cfg: TransformerConfig):
     accumulator and f32 output — which a bf16 matmul here, rounding its
     output to bf16, would not be."""
     return x.to(cfg.compute_dtype).float() @ wlm
+
+
+def unembed(x, params: dict, cfg: TransformerConfig):
+    """f32 logits from compute-dtype hidden states through the served
+    ``wlm`` (``_unembed``): a weight-quantized one dequantized to the
+    compute dtype inside the f32 product, as the reference's
+    ``_unembed(x, dequantize_named(params, "wlm"), cfg)`` casts it."""
+    scale = params.get("wlm_wscale")
+    if scale is None:
+        return _unembed(x, params["wlm"], cfg)
+    return quant_matmul(x.to(cfg.compute_dtype), params["wlm"], scale,
+                        dtype=cfg.compute_dtype, out_dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ the first onto the second (``from_jax_lora`` does the same for LoRA
 adapters) — it is how the parity tests make both
 packages compute (and train) the same function — and
 ``recast`` re-prepares a port dict for another compute dtype (the f32
-reference forward over a bf16 model's weights).
+reference forward over a bf16 model's weights).  Weight-quantized trees
+(``ops/quant.py``: int8 or packed int4 payloads with ``<name>_wscale``
+companions) carry their payloads and f32 scales unchanged.
 """
 
 from __future__ import annotations
@@ -22,6 +24,14 @@ import torch
 from oim_tpu_torch.models.decode import _flat_layer_params
 from oim_tpu_torch.models.train import named_parameters
 from oim_tpu_torch.models.transformer import TransformerConfig, prepare_param
+from oim_tpu_torch.ops.quant import (
+    INT4_DTYPE,
+    WEIGHT_QUANT_TARGETS,
+    _int4_group,
+    int4_din,
+    pack_weight_int4,
+    weight_quant_mode,
+)
 
 
 def from_jax_params(tree: dict, cfg: TransformerConfig, device=None,
@@ -30,25 +40,38 @@ def from_jax_params(tree: dict, cfg: TransformerConfig, device=None,
     ``[n_stages, layers_per_stage, ...]``) → the port's serving layout on
     ``device``, or, when ``master``, every tensor f32 as training's
     masters (the reference's ``param_dtype``).  MoE trees carry
-    ``router`` and ``[E, ...]`` experts per layer.  Weight-quantized
-    trees (``*_wscale``) are refused."""
-    if any(name.endswith("_wscale") for name in tree):
-        raise ValueError(
-            "weight-quantized parameters are not ported yet; pass the "
-            "float tree"
-        )
+    ``router`` and ``[E, ...]`` experts per layer.  A weight-quantized
+    tree (``quantize_params_int8``/``_int4``'s: ``<name>_wscale``
+    companions) keeps its int8 payloads and f32 scales as they are;
+    ``jnp.int4`` payloads (numpy arrays of dtype int4) are widened with
+    ``astype(np.int8)`` and packed (``pack_weight_int4``).  Serving only:
+    ``master`` refuses them."""
+    quantized = any(name.endswith("_wscale") for name in tree)
+    if quantized and master:
+        raise ValueError("training masters are never weight-quantized")
 
-    def tensor(name, value):
+    def tensor(source, name, value):
+        if f"{name}_wscale" in source:
+            arr = np.asarray(value)
+            if str(arr.dtype) == "int4":
+                return pack_weight_int4(
+                    torch.from_numpy(arr.astype(np.int8))).to(device)
+            return torch.tensor(arr.astype(np.int8), device=device)
+        if name.endswith("_wscale"):
+            return torch.tensor(np.asarray(value, dtype=np.float32),
+                                device=device)
         arr = torch.tensor(np.asarray(value, dtype=np.float32), device=device)
         return arr if master else prepare_param(name, arr, cfg)
 
     params = {
-        name: tensor(name, tree[name])
-        for name in ("wte", "final_norm", "wlm")
+        name: tensor(tree, name, tree[name])
+        for name in ("wte", "final_norm", "wlm", "wlm_wscale")
+        if name in tree
     }
     stacked = _flat_layer_params(tree, cfg)
     params["layers"] = [
-        {name: tensor(name, value[i]) for name, value in stacked.items()}
+        {name: tensor(stacked, name, value[i])
+         for name, value in stacked.items()}
         for i in range(cfg.n_layers)
     ]
     return params
@@ -72,24 +95,41 @@ def from_jax_lora(adapters: dict, cfg: TransformerConfig,
 def recast(params: dict, cfg: TransformerConfig, dtype: str) -> tuple:
     """(params, cfg) with the compute dtype switched to ``dtype`` — a
     copy of every tensor (the f32 reference forward reads the served
-    bf16 values widened to f32)."""
+    bf16 values widened to f32); weight-quantized payloads and their
+    scales are kept as they are (the product rounds them to the new
+    compute dtype)."""
     new_cfg = replace(cfg, dtype=dtype)
 
-    def cast(name, t):
+    def cast(tree, name):
+        t = tree[name]
+        if name.endswith("_wscale") or f"{name}_wscale" in tree:
+            return t.clone()
         return prepare_param(name, t, new_cfg)
 
-    out = {name: cast(name, params[name])
-           for name in ("wte", "final_norm", "wlm")}
-    out["layers"] = [
-        {name: cast(name, t) for name, t in lp.items()}
-        for lp in params["layers"]
-    ]
+    out = {name: cast(params, name) for name in params if name != "layers"}
+    out["layers"] = [{name: cast(lp, name) for name in lp}
+                     for lp in params["layers"]]
     return out, new_cfg
 
 
-def param_shapes(cfg: TransformerConfig) -> dict:
+def _quant_shapes(name: str, shape: tuple, mode: str,
+                  int4_group: int) -> dict:
+    """``{name: payload shape, name_wscale: scale shape}`` of a weight
+    of ``shape`` [..., din, dout] under weight quant ``mode``."""
+    *lead, din, dout = shape
+    if mode == "int8":
+        return {name: shape, f"{name}_wscale": (*lead, dout)}
+    g = _int4_group(din, int4_group)
+    return {name: (*lead, -(-din // 2), dout),
+            f"{name}_wscale": (*lead, din // g, dout)}
+
+
+def param_shapes(cfg: TransformerConfig, weight_quant: str = "",
+                 int4_group: int = 64) -> dict:
     """``{dotted name: shape}`` of every parameter ``init_params`` makes
-    for ``cfg`` (layers as ``layers.<i>.<name>``)."""
+    for ``cfg`` (layers as ``layers.<i>.<name>``): under ``weight_quant``
+    ("int8" or "int4") each target weight's payload and its
+    ``_wscale``."""
     d, v, f = cfg.d_model, cfg.vocab_size, cfg.ff_dim
     n, kvn = cfg.n_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
     e = (cfg.n_experts,) if cfg.n_experts else ()
@@ -101,16 +141,24 @@ def param_shapes(cfg: TransformerConfig) -> dict:
     if cfg.attn_bias:
         layer.update(bq=(n,), bk=(kvn,), bv=(kvn,))
     shapes = {"wte": (v, d), "final_norm": (d,), "wlm": (d, v)}
+    if weight_quant:
+        for tree in (shapes, layer):
+            for name in [n for n in tree if n in WEIGHT_QUANT_TARGETS]:
+                tree.update(_quant_shapes(name, tree[name], weight_quant,
+                                          int4_group))
     for i in range(cfg.n_layers):
         shapes.update({f"layers.{i}.{k}": s for k, s in layer.items()})
     return shapes
 
 
-def check_params(params: dict, cfg: TransformerConfig, what: str) -> None:
+def check_params(params: dict, cfg: TransformerConfig, what: str,
+                 int4_group: int = 64) -> None:
     """Raise unless ``params`` (loaded from ``what``) hold exactly the
-    parameters ``cfg`` describes, at their shapes."""
+    parameters ``cfg`` describes, at their shapes (weight-quantized ones
+    as ``param_shapes`` lays them out, int4 in groups of
+    ``int4_group``)."""
     got = {name: tuple(t.shape) for name, t in named_parameters(params)}
-    want = param_shapes(cfg)
+    want = param_shapes(cfg, weight_quant_mode(params), int4_group)
     if got != want:
         bad = sorted(name for name in set(got) | set(want)
                      if got.get(name) != want.get(name))
@@ -119,19 +167,32 @@ def check_params(params: dict, cfg: TransformerConfig, what: str) -> None:
             f"{[(got.get(b), want.get(b)) for b in bad[:6]]}")
 
 
-def n_params(params: dict) -> int:
-    """Parameter count of a port parameter dict."""
-    total = sum(params[name].numel() for name in ("wte", "final_norm", "wlm"))
-    for lp in params["layers"]:
-        total += sum(t.numel() for t in lp.values())
+def _count(tree: dict) -> int:
+    """Weights in ``tree``, each at its logical size (a packed int4
+    payload counts its values, ``_wscale`` scales are not counted)."""
+    total = 0
+    for name, t in tree.items():
+        if name == "layers" or name.endswith("_wscale"):
+            continue
+        if t.dtype == INT4_DTYPE and f"{name}_wscale" in tree:
+            scale = tree[f"{name}_wscale"]
+            total += t.numel() // t.shape[-2] * int4_din(t, scale)
+        else:
+            total += t.numel()
     return total
+
+
+def n_params(params: dict) -> int:
+    """Parameter count of a port parameter dict (the reference's: a
+    quantized weight counts its values, its scales not at all)."""
+    return _count(params) + sum(_count(lp) for lp in params["layers"])
 
 
 def to_device(params: dict, device) -> dict:
     """The same parameters on ``device`` (tensors already there are
     reused, not copied)."""
-    out = {name: params[name].to(device)
-           for name in ("wte", "final_norm", "wlm")}
+    out = {name: t.to(device) for name, t in params.items()
+           if name != "layers"}
     out["layers"] = [
         {name: t.to(device) for name, t in lp.items()}
         for lp in params["layers"]

@@ -31,16 +31,18 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("paged_attention.cu", "rmsnorm.cu", "flash_attention.cu",
-           "fused_ce.cu")
+           "fused_ce.cu", "wquant.cu")
 HEADERS = ("common.cuh", "paged_attention.cuh", "rmsnorm.cuh",
-           "flash_attention.cuh", "fused_ce.cuh")
+           "flash_attention.cuh", "fused_ce.cuh", "wquant.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Dtype codes shared with csrc/common.cuh (enum OimDType).
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# Dtype codes shared with csrc/common.cuh (enum OimDType); uint8 is
+# packed int4, two values a byte (ops/quant.py).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.uint8: 3}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -101,6 +103,14 @@ _SIGNATURES = {
     "oim_fused_ce_tc_bwd": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
     ),
+    # x, x_dtype, x_expert_stride, q, q_dtype, scale, out, out_dtype,
+    # partials, E, M, K, N, group, splits, stream
+    "oim_quant_matmul": (
+        _P, _I, ctypes.c_longlong, _P, _I, _P, _P, _I, _P,
+        _I, _I, _I, _I, _I, _I, _P,
+    ),
+    # q, q_dtype, scale, w, w_dtype, E, K, N, group, stream
+    "oim_dequant_weight": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -2,8 +2,9 @@
 that keeps them true across CUDA graph replays.
 
 Each kernel module (``rmsnorm``, ``flash_attention``, ``fused_ce``,
-``paged_attention``) counts its wrappers' launches, its routes and its
-plain versions' runs under names of its own (``<module>.counters()``).
+``paged_attention``, ``wquant``) counts its wrappers' launches, its
+routes and its plain versions' runs under names of its own
+(``<module>.counters()``).
 A CUDA graph runs the wrappers' Python once, at capture, and none of it
 at replay: ``recording`` takes back what a captured region counted and
 keeps it, and ``replay_counts`` adds it again at each replay, so the
@@ -16,9 +17,9 @@ from __future__ import annotations
 import contextlib
 
 from oim_tpu_torch.ops import flash_attention, fused_ce, paged_attention
-from oim_tpu_torch.ops import rmsnorm
+from oim_tpu_torch.ops import rmsnorm, wquant
 
-MODULES = (rmsnorm, flash_attention, fused_ce, paged_attention)
+MODULES = (rmsnorm, flash_attention, fused_ce, paged_attention, wquant)
 
 
 def counters() -> dict:
@@ -54,7 +55,9 @@ def recording():
     delta: dict = {}
     yield delta
     after = counters()
-    delta.update({name: after[name] - n for name, n in before.items()})
+    # Counts by name that the region's first launch of a kind created
+    # (``wquant``'s by shape) start from 0.
+    delta.update({name: n - before.get(name, 0) for name, n in after.items()})
     replay_counts({name: -n for name, n in delta.items()})
     plain = {name: n for name, n in delta.items() if name.endswith("_plain")
              and n}

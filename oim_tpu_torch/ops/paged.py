@@ -16,7 +16,9 @@ functional copy would only cost a second pool's worth of memory.
 
 ``copy_block``, ``write_block`` and ``read_block`` move whole blocks of
 a stacked pool [n_layers, n_blocks, ...]: copy-on-write of a shared
-prefix block, and the block movements of later features.
+prefix block, and the block movements of later features.  They move
+bytes, so a packed int4 pool (``torch.uint8``, ``[..., head_dim / 2]``)
+and its scale planes move as any other pool does.
 
 Pool contents must stay finite: attention masks the weight of a
 position, and ``0 × NaN`` would still poison the output.
@@ -26,7 +28,12 @@ from __future__ import annotations
 
 import torch
 
-from oim_tpu_torch.ops.quant import quantize_int8
+from oim_tpu_torch.ops.quant import (
+    INT4_DTYPE,
+    pack_int4,
+    quantize_int4,
+    quantize_int8,
+)
 
 
 def _flat_rows(tables, starts, t: int, block_size: int, n_blocks: int):
@@ -51,9 +58,11 @@ def paged_store(cache, scale, new, tables, starts):
     """Write ``new`` [B, t, KVH, hd] at logical positions ``starts``
     [B] .. ``starts + t - 1`` through ``tables`` [B, n_tables] into the
     one-layer pool ``cache`` [n_blocks, block_size, KVH, hd], in place —
-    quantizing to int8 when ``scale`` [n_blocks, block_size, KVH] is not
-    None.  Rows whose entry is the sentinel (or past the table) are
-    dropped.  Returns ``(cache, scale)``."""
+    quantizing when ``scale`` [n_blocks, block_size, KVH] is not None:
+    the pool's dtype selects the scheme, int8, or packed int4 (a
+    ``torch.uint8`` pool of ``hd / 2`` bytes a row).  Rows whose entry is
+    the sentinel (or past the table) are dropped.  Returns ``(cache,
+    scale)``."""
     n_blocks, block_size = cache.shape[0], cache.shape[1]
     flat, live = _flat_rows(tables, starts, new.shape[1], block_size, n_blocks)
     idx = flat[live]
@@ -61,7 +70,11 @@ def paged_store(cache, scale, new, tables, starts):
     if scale is None:
         rows[idx] = new[live].to(cache.dtype)
         return cache, None
-    q, s = quantize_int8(new)
+    if cache.dtype == INT4_DTYPE:
+        q, s = quantize_int4(new)
+        q = pack_int4(q)
+    else:
+        q, s = quantize_int8(new)
     rows[idx] = q[live]
     scale.view(n_blocks * block_size, *scale.shape[2:])[idx] = s[live]
     return cache, scale
@@ -70,7 +83,8 @@ def paged_store(cache, scale, new, tables, starts):
 def paged_store_blocks(cache, scale, blocks, block_scales, ids):
     """Land whole blocks in the pool, in place: ``blocks`` [N,
     block_size, KVH, hd] (already-quantized VALUES for an int8 pool, so
-    the cast is exact) at pool blocks ``ids`` [N], with ``block_scales``
+    the cast is exact; packed bytes for an int4 pool) at pool blocks
+    ``ids`` [N], with ``block_scales``
     [N, block_size, KVH] landing in ``scale`` (or None for fp pools).
     Sentinel ids (``>= n_blocks``) drop.  Returns ``(cache, scale)``."""
     live = ids < cache.shape[0]

@@ -5,10 +5,10 @@ the serving path and their plain PyTorch versions.
 ``oim_tpu/ops/paged_attention.py`` ``_decode_kernel``: attention for q
 rows at per-slot positions, reading K/V through each slot's block table
 with no gathered view, online softmax in f32, GQA folded into the row
-axis, int8 dequant fused where the values are consumed.  It has three
-routes, picked by ``decode_route`` from host-known sizes: a decode step
-(at most 8 flattened q rows) takes ``paged_decode_kernel`` with 8-row
-tiles; a taller bf16 q (a prompt segment) takes
+axis, int8 and packed int4 dequant fused where the values are consumed.
+It has three routes, picked by ``decode_route`` from host-known sizes:
+a decode step (at most 8 flattened q rows) takes ``paged_decode_kernel``
+with 8-row tiles; a taller bf16 q (a prompt segment) takes
 ``paged_prefill_tc_kernel`` on the tensor cores with 64-row tiles; a
 taller f32 q takes ``paged_decode_kernel`` with 16-row tiles, in exact
 f32.  Each splits the slot's table into ranges of ``decode_split``
@@ -17,8 +17,11 @@ states in a fixed order (``paged_merge_kernel``).  ``paged_kv_store``
 (kernel K2, ``paged_store_kernel``) replaces ``_prefill_stage_kernel``
 together with its ``paged_store_blocks`` landing: a segment's fresh K/V
 rows are written into the slot's blocks in place, quantized exactly as
-``quantize_int8`` does.  ``paged_flash_prefill`` is K2 then K1 over the
-updated pool — a prompt segment's causal prefill is a tall decode.
+``quantize_int8`` (an int8 pool) or ``quantize_int4`` then ``pack_int4``
+(a packed int4 pool, ``torch.uint8``) do: the pool's dtype selects the
+scheme, as ``jnp.int4`` does in the reference.  ``paged_flash_prefill``
+is K2 then K1 over the updated pool — a prompt segment's causal prefill
+is a tall decode.
 
 Semantics the kernels and the plain versions share (the reference's
 exactness contract): sentinel table entries (``>= n_blocks``) are never
@@ -45,7 +48,7 @@ import torch
 
 from oim_tpu_torch.ops import _build
 from oim_tpu_torch.ops.paged import paged_store, paged_view
-from oim_tpu_torch.ops.quant import dequantize_int8
+from oim_tpu_torch.ops.quant import INT4_DTYPE, dequantize_int8, kv_values
 
 # The reference's mask constant (oim_tpu/ops/flash_attention.py
 # _NEG_BIG): a fully masked row then yields zeros, never NaN.
@@ -78,6 +81,12 @@ def supported_block_size(block_size: int, head_dim: int) -> bool:
     return head_dim in HEAD_DIMS and 1 <= block_size <= MAX_BLOCK_SIZE
 
 
+def pool_head_dim(pool) -> int:
+    """The head_dim of a pool [n_blocks, block_size, kv_heads, ...]: its
+    last dimension, twice that for packed int4 (two values a byte)."""
+    return pool.shape[-1] * (2 if pool.dtype == INT4_DTYPE else 1)
+
+
 def _check_kernel_geometry(what: str, block_size: int,
                            head_dim: int) -> None:
     if not supported_block_size(block_size, head_dim):
@@ -91,15 +100,20 @@ def _check_kernel_geometry(what: str, block_size: int,
 def _check_shapes(what: str, rows: int, k_pool, v_pool, k_scale, v_scale,
                   tables, starts) -> None:
     """Raise unless the operands agree: pools [n_blocks, block_size,
-    kv_heads, head_dim] alike, scales [n_blocks, block_size, kv_heads]
-    (both or neither), tables [rows, n_tables], starts [rows].  The
-    kernels index with these shapes, so a mismatch would read or write
-    out of bounds."""
-    if k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+    kv_heads, head_dim] alike (``head_dim / 2`` bytes for packed int4),
+    scales [n_blocks, block_size, kv_heads] (both or neither), tables
+    [rows, n_tables], starts [rows].  The kernels index with these
+    shapes, so a mismatch would read or write out of bounds."""
+    if (k_pool.dim() != 4 or v_pool.shape != k_pool.shape
+            or v_pool.dtype != k_pool.dtype):
         raise ValueError(
-            f"{what}: pools {tuple(k_pool.shape)} and {tuple(v_pool.shape)} "
-            f"must both be [n_blocks, block_size, kv_heads, head_dim]"
+            f"{what}: pools {tuple(k_pool.shape)} {k_pool.dtype} and "
+            f"{tuple(v_pool.shape)} {v_pool.dtype} must both be "
+            f"[n_blocks, block_size, kv_heads, head_dim] of one dtype "
+            f"(head_dim / 2 bytes for packed int4)"
         )
+    if k_pool.dtype == INT4_DTYPE and k_scale is None:
+        raise ValueError(f"{what}: a packed int4 pool takes f32 scales")
     if (k_scale is None) != (v_scale is None):
         raise ValueError(f"{what}: pass both scale planes or neither")
     for scale in (k_scale, v_scale):
@@ -119,16 +133,16 @@ def _check_shapes(what: str, rows: int, k_pool, v_pool, k_scale, v_scale,
 def _check_kernel_operands(what: str, x, k_pool, v_pool, k_scale, v_scale,
                            tables, starts, v_new=None) -> None:
     """Raise unless a kernel takes these operands as they are: its
-    geometry, int8 pools with f32 scales or fp pools of ``x``'s dtype
-    (``x`` is q or the new K, ``v_new`` the new V) with none, int32
-    tables and starts, every tensor contiguous on ``x``'s device, and
-    those moved in 16-byte vectors aligned to 16 bytes."""
-    _, block_size, _, hd = k_pool.shape
+    geometry, int8 or packed int4 pools with f32 scales or fp pools of
+    ``x``'s dtype (``x`` is q or the new K, ``v_new`` the new V) with
+    none, int32 tables and starts, every tensor contiguous on ``x``'s
+    device, and those moved in 16-byte vectors aligned to 16 bytes."""
+    block_size, hd = k_pool.shape[1], pool_head_dim(k_pool)
     _check_kernel_geometry(what, block_size, hd)
     quantized = k_scale is not None
-    if quantized != (k_pool.dtype == torch.int8):
-        raise ValueError(f"{what}: int8 pools take f32 scales; fp pools "
-                         f"take none")
+    if quantized != (k_pool.dtype in (torch.int8, INT4_DTYPE)):
+        raise ValueError(f"{what}: int8 and int4 pools take f32 scales; "
+                         f"fp pools take none")
     if not quantized and k_pool.dtype != x.dtype:
         raise ValueError(
             f"{what}: {x.dtype} operand and fp pool {k_pool.dtype} must "
@@ -136,7 +150,7 @@ def _check_kernel_operands(what: str, x, k_pool, v_pool, k_scale, v_scale,
         )
     if quantized and (k_scale.dtype != torch.float32
                       or v_scale.dtype != torch.float32):
-        raise ValueError(f"{what}: int8 pool scales must be float32")
+        raise ValueError(f"{what}: pool scales must be float32")
     for name, t in dict(x=x, v_new=v_new, k_pool=k_pool, v_pool=v_pool,
                         k_scale=k_scale, v_scale=v_scale, tables=tables,
                         starts=starts).items():
@@ -153,7 +167,7 @@ def _check_kernel_operands(what: str, x, k_pool, v_pool, k_scale, v_scale,
            if t is not None):
         raise ValueError(f"{what}: the kernels move q, the new rows and "
                          f"the pools in 16-byte vectors: align them")
-    if k_pool.numel() // hd >= 2**31:
+    if k_pool.numel() // k_pool.shape[-1] >= 2**31:
         raise ValueError(f"{what}: the kernels index pool rows in 32 bits")
 
 
@@ -177,12 +191,14 @@ def paged_flash_decode_plain(
     in f32.  Rows with no valid key emit zeros, as the kernel does."""
     paged_flash_decode_plain.calls += 1
     b, t, h, hd = q.shape
-    n_blocks, block_size, kvh, _ = k_pool.shape
+    n_blocks, block_size, kvh = k_pool.shape[:3]
     group = h // kvh
     k_view, ks_view = paged_view(k_pool, k_scale, tables)
     v_view, vs_view = paged_view(v_pool, v_scale, tables)
-    k = k_view.float() if ks_view is None else dequantize_int8(k_view, ks_view)
-    v = v_view.float() if vs_view is None else dequantize_int8(v_view, vs_view)
+    k = (k_view.float() if ks_view is None
+         else dequantize_int8(kv_values(k_view), ks_view))
+    v = (v_view.float() if vs_view is None
+         else dequantize_int8(kv_values(v_view), vs_view))
     qg = q.float().reshape(b, t, kvh, group, hd)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / (hd**0.5)
     n_keys = k.shape[1]
@@ -253,8 +269,9 @@ def paged_flash_decode(
     """Attention for q rows straight off the paged pool.
 
     q: [B, t, H, hd] (f32 or bf16); k_pool/v_pool: [n_blocks,
-    block_size, KVH, hd] (f32, bf16 or int8); k_scale/v_scale:
-    [n_blocks, block_size, KVH] f32 for int8 pools, else None; tables:
+    block_size, KVH, hd] (f32, bf16 or int8; packed int4: ``torch.uint8``
+    of hd / 2 bytes); k_scale/v_scale: [n_blocks, block_size, KVH] f32
+    for int8 and int4 pools, else None; tables:
     [B, n_tables] int32, sentinel entry ``n_blocks``; starts: [B] int32
     — q row i of slot b sits at position ``starts[b] + i`` and attends
     positions ``<=`` it (within ``window`` when > 0).  Returns [B, t, H,
@@ -269,7 +286,8 @@ def paged_flash_decode(
     b, t, h, hd = q.shape
     _check_shapes("paged_flash_decode", b, k_pool, v_pool, k_scale,
                   v_scale, tables, starts)
-    n_blocks, block_size, kvh, pool_hd = k_pool.shape
+    n_blocks, block_size, kvh = k_pool.shape[:3]
+    pool_hd = pool_head_dim(k_pool)
     if h % kvh or hd != pool_hd:
         raise ValueError(
             f"paged_flash_decode: q {tuple(q.shape)} needs a multiple of "
@@ -334,18 +352,20 @@ def paged_kv_store(k_new, v_new, k_pool, v_pool, k_scale, v_scale, tables,
     """Write a segment's ``k_new``/``v_new`` [B, t, KVH, hd] at
     positions ``starts[b] .. starts[b] + t - 1`` of each slot's blocks,
     IN PLACE — int8 pools quantize each [position, kv-head] row exactly
-    as ``quantize_int8`` does.  Rows whose table entry is the sentinel
+    as ``quantize_int8`` does, packed int4 pools as ``quantize_int4``
+    then ``pack_int4`` do.  Rows whose table entry is the sentinel
     or lies past the table are dropped; rows outside the window are not
     touched.  The pool bytes afterwards equal ``paged_store``'s.  CUDA
     tensors launch K2; CPU tensors run the plain version."""
     b, t, kvh, hd = k_new.shape
     _check_shapes("paged_kv_store", b, k_pool, v_pool, k_scale, v_scale,
                   tables, starts)
-    if k_new.shape[2:] != k_pool.shape[2:] or v_new.shape != k_new.shape:
+    if (tuple(k_new.shape[2:]) != (k_pool.shape[2], pool_head_dim(k_pool))
+            or v_new.shape != k_new.shape):
         raise ValueError(
             f"paged_kv_store: new K/V {tuple(k_new.shape)} and "
             f"{tuple(v_new.shape)} must be [{b}, t, "
-            f"{k_pool.shape[2]}, {k_pool.shape[3]}]"
+            f"{k_pool.shape[2]}, {pool_head_dim(k_pool)}]"
         )
     if not k_new.is_cuda:
         paged_kv_store_plain(

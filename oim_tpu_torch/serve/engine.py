@@ -17,8 +17,10 @@ paths:
 - **Attention in the Hopper kernels.**  Every layer of every admission
   and decode step stores the new K/V rows into the cache and attends
   straight off it through ``paged_flash_prefill`` — kernel K2 (store,
-  fused int8 quant) then kernel K1 (flash decode) on the GPU, their
-  plain versions on the CPU.
+  fused int8 or packed int4 quant) then kernel K1 (flash decode) on the
+  GPU, their plain versions on the CPU.  Weight-quantized params (int8
+  or packed int4, ``ops/quant.py``) are read through
+  ``ops/wquant.py::quant_matmul`` (``models/transformer.py::linear``).
 - **Continuous batching, chunked decode, a two-deep pipeline.**
   Admissions are prefilled in one dispatch per prompt bucket; every
   slot's row advances ``chunk`` tokens per decode dispatch with one
@@ -89,8 +91,9 @@ from oim_tpu_torch.models.transformer import (
     TransformerConfig,
     _qkv,
     _rmsnorm,
-    _unembed,
     embed_lookup,
+    linear,
+    unembed,
 )
 from oim_tpu_torch.models.weights import n_params, to_device
 from oim_tpu_torch.ops import counts as kernel_counts
@@ -101,7 +104,7 @@ from oim_tpu_torch.ops.paged_attention import (
     paged_flash_prefill,
     supported_block_size,
 )
-from oim_tpu_torch.ops.quant import make_kv_buffers
+from oim_tpu_torch.ops.quant import make_kv_buffers, weight_quant_mode
 from oim_tpu_torch.ops.rope import apply_rope
 
 
@@ -132,8 +135,9 @@ def _not_ported(option: str, item: str) -> ValueError:
 @dataclass
 class PagedCache:
     """Paged KV pool: ``k``/``v`` [n_layers, n_blocks, block_size,
-    kv_heads, head_dim]; ``k_scale``/``v_scale`` [n_layers, n_blocks,
-    block_size, kv_heads] f32 for int8 payloads, else None.  Which
+    kv_heads, head_dim] (packed int4: ``torch.uint8`` of head_dim / 2
+    bytes); ``k_scale``/``v_scale`` [n_layers, n_blocks, block_size,
+    kv_heads] f32 for int8 and int4 payloads, else None.  Which
     blocks belong to which slot lives outside, in the engine's block
     table.  The kernels write into these tensors in place."""
 
@@ -144,7 +148,9 @@ class PagedCache:
 
     @classmethod
     def create(cls, cfg: TransformerConfig, n_blocks: int, block_size: int,
-               quantized: bool = False, device=None) -> "PagedCache":
+               quantized: bool | str = False, device=None) -> "PagedCache":
+        """``quantized``: falsy, truthy or "int8" (int8), or "int4"
+        (packed int4, ``ops/quant.py::make_kv_buffers``)."""
         shape = (
             cfg.n_layers, n_blocks, block_size, cfg.kv_heads, cfg.head_dim
         )
@@ -296,7 +302,7 @@ def _slot_attention(x, lp, cache, layer: int, starts, tables,
         window=cfg.sliding_window,
     )
     out = out.to(x.dtype).reshape(b, t, cfg.n_heads * cfg.head_dim)
-    return x + (out @ lp["wo"]).to(x.dtype)
+    return x + linear(out, lp, "wo", cfg).to(x.dtype)
 
 
 def _hidden_slots(params, tokens, cache, starts, tables,
@@ -412,7 +418,7 @@ def _admit_logits(params, cache, row_tables, prompts, starts, true_tails,
     x = _hidden_slots(params, prompts, cache, starts, row_tables, cfg)
     rows = torch.arange(x.shape[0], device=x.device)
     last = x[rows, true_tails.long() - 1]
-    return _unembed(last, params["wlm"], cfg)
+    return unembed(last, params, cfg)
 
 
 def _decode_chunk(params, cache, tables, tokens, starts, live,
@@ -431,7 +437,7 @@ def _decode_chunk(params, cache, tables, tokens, starts, live,
     outs, lps = [], []
     for i in range(chunk):
         x = _hidden_slots(params, tokens[:, None], cache, starts, tables, cfg)
-        logits = _unembed(x[:, -1], params["wlm"], cfg)
+        logits = unembed(x[:, -1], params, cfg)
         nxt, lp = _sample_batched(
             logits, s, None if noise is None else noise[i], top_k, counts
         )
@@ -768,8 +774,6 @@ class Engine:
                 "block pool carries the per-block scales the fused "
                 "dequant reads"
             )
-        if kv_int4:
-            raise _not_ported("kv_int4", "kv_int4 with packed nibbles")
         if spec_decode:
             raise _not_ported("spec_decode", "spec decode")
         if kv_host_bytes:
@@ -819,6 +823,12 @@ class Engine:
         self.top_k = top_k
         self.default_top_p = top_p
         self.kv_int8 = kv_int8
+        self.kv_int4 = kv_int4
+        # The KV quant ladder's rung, and the served weights' (from the
+        # params: a `_wscale` companion's payload dtype).
+        self.kv_quant = "int4" if kv_int4 else ("int8" if kv_int8 else "")
+        self.weight_quant = weight_quant_mode(self.params)
+        self.weights_int8 = self.weight_quant == "int8"
         self.penalties = penalties
         self.max_queue = max_queue
         self.pipeline_depth = pipeline_depth
@@ -849,7 +859,7 @@ class Engine:
         if self.paged:
             self.kv_blocks = kv_blocks or n_slots * self._n_tables
             self._cache = PagedCache.create(
-                cfg, self.kv_blocks, kv_block, quantized=kv_int8,
+                cfg, self.kv_blocks, kv_block, quantized=self.kv_quant,
                 device=self.device,
             )
             self._alloc = BlockAllocator(self.kv_blocks)
@@ -1223,6 +1233,10 @@ class Engine:
                 "top_k": self.top_k,
                 "default_top_p": self.default_top_p,
                 "kv_int8": self.kv_int8,
+                "kv_int4": self.kv_int4,
+                "kv_quant": self.kv_quant,
+                "weights_int8": self.weights_int8,
+                "weight_quant": self.weight_quant,
                 "penalties": self.penalties,
                 "prefix_cache_size": self.prefix_cache_size,
                 "prefill_chunk": self.prefill_chunk,
@@ -1267,7 +1281,7 @@ class Engine:
                     self._alloc.shared_blocks if self.paged else 0
                 ),
                 "kv_admit_deferrals": self.kv_admit_deferrals,
-                "kv_quant": "int8" if self.kv_int8 else "",
+                "kv_quant": self.kv_quant,
                 # Host clock around work that ends in a device readback,
                 # so these are device-inclusive walls (but for a wave
                 # that only writes segments, which reads nothing back).

@@ -13,9 +13,9 @@ installed ``tests`` package can shadow; these tests need none of it.)
 
 Tolerances: K2 writes the pool bytes ``paged_store`` writes, bit for
 bit.  On its decode and f32 routes K1 and the plain version compute in
-f32 from the same (bf16, f32 or dequantized int8) values and differ only
-in summation order (and K1 merges split and warp partial sums by their
-maxima) over at most 2048 keys of unit-scale data, whose softmax weights
+f32 from the same (bf16, f32, or dequantized int8 or packed int4) values
+and differ only in summation order (and K1 merges split and warp partial
+sums by their maxima) over at most 2048 keys of unit-scale data, whose softmax weights
 sum to one: 1e-4 covers that, while a wrong block, mask, split or scale
 moves outputs by O(0.1).  K1's tensor-core route (bf16 q, more than 8
 flattened rows a slot) rounds each softmax weight (times the v scale,
@@ -23,12 +23,20 @@ for int8) to bf16 as the operand of P V, as the flash forward rounds P:
 an output then moves by at most 2**-8 of the largest V value, which the
 rows attending few keys carry into the output's max; it is held, as the
 flash forward is, at 2**-7 + 1e-4 of the output's max.
+
+``quant_matmul`` (``ops/wquant.py``) and its plain version read the same
+dequantized weights (rounded to x's dtype) and sum in f32 in another
+order; a bf16 output is then rounded once, so they differ by one bf16
+rounding step (2**-8 of a value) plus f32 order noise: 2**-7 + 1e-4 of
+the output's max, and 1e-4 of it for f32 outputs (sums of up to 14336
+terms), while a wrong row, group or scale moves outputs by O(1).
 """
 
 import pytest
 import torch
 
 from oim_tpu_torch.ops import paged_attention as pa
+from oim_tpu_torch.ops.quant import pack_int4
 
 ATOL = 1e-4
 TC_RTOL = 2.0**-7 + 1e-4
@@ -48,14 +56,28 @@ def _k1_tol(q, want):
     return ATOL
 
 
+# Quantized pools: int8, and packed int4 (torch.uint8, two values a byte).
+QUANT_KV = (torch.int8, torch.uint8)
+
+
+def _payload(shape, dtype, gen):
+    """A random quantized pool payload on the card: int8 values in
+    [-127, 127], or int4 values in [-7, 7] packed along head_dim."""
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+    values = torch.randint(-7, 8, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+    return pack_int4(values)
+
+
 def _pools(dtype, hd, bs, gen):
     """K/V pools and their scales (int8) or None (fp) on the card, and
     the dtype of q and the new rows that go with them."""
     dev = "cuda"
     shape = (N_BLOCKS, bs, KVH, hd)
-    if dtype == torch.int8:
-        k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev,
-                              dtype=torch.int8) for _ in range(2))
+    if dtype in QUANT_KV:
+        k, v = (_payload(shape, dtype, gen) for _ in range(2))
         ks, vs = (torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
                   for _ in range(2))
         return [k, v, ks, vs], torch.bfloat16
@@ -92,7 +114,8 @@ def _case(dtype, hd, bs, t, seed=0):
 @pytest.mark.parametrize("bs", [16, 64])
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.int8], ids=["f32", "bf16", "int8"])
+                                   torch.int8, torch.uint8],
+                         ids=["f32", "bf16", "int8", "int4"])
 def test_prefill_store_and_attend_match_plain(dtype, hd, bs, t, window):
     _need_gpu()
     q, kn, vn, pools, tables, starts = _case(dtype, hd, bs, t)
@@ -118,7 +141,8 @@ def test_prefill_store_and_attend_match_plain(dtype, hd, bs, t, window):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.int8], ids=["f32", "bf16", "int8"])
+                                   torch.int8, torch.uint8],
+                         ids=["f32", "bf16", "int8", "int4"])
 def test_windowed_row_over_a_hole_emits_zeros(dtype):
     """A tile of 16 rows walks from its earliest row's window edge, so a
     later row can meet live blocks wholly left of its own window.  Here
@@ -154,10 +178,8 @@ def _decode_case(dtype, t, seed=0, n_tables=128, bs=16):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n_blocks = 8 * n_tables
     shape = (n_blocks, bs, 2, 128)
-    if dtype == torch.int8:
-        pools = [torch.randint(-127, 128, shape, generator=gen,
-                               device="cuda", dtype=torch.int8)
-                 for _ in range(2)]
+    if dtype in QUANT_KV:
+        pools = [_payload(shape, dtype, gen) for _ in range(2)]
         pools += [torch.rand(shape[:-1], generator=gen, device="cuda") * 0.04
                   + 0.005 for _ in range(2)]
         qdt = torch.bfloat16
@@ -191,7 +213,8 @@ def _decode_case(dtype, t, seed=0, n_tables=128, bs=16):
 @pytest.mark.parametrize("window", [0, 256])
 @pytest.mark.parametrize("t", [1, 40])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.int8], ids=["f32", "bf16", "int8"])
+                                   torch.int8, torch.uint8],
+                         ids=["f32", "bf16", "int8", "int4"])
 def test_decode_split_sweep_matches_plain(dtype, t, window, splits):
     """K1 at every split of the table — one range, a few, one entry
     each, and decode_split's choice — agrees with the plain version,
@@ -214,8 +237,8 @@ def test_decode_split_sweep_matches_plain(dtype, t, window, splits):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("splits", [None, 1, 4], ids=lambda s: f"splits{s}")
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
-                         ids=["bf16", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8,
+                                   torch.uint8], ids=["bf16", "int8", "int4"])
 def test_tall_prefill_split_matches_plain(dtype, splits):
     """The tall route at t = 512 (the smoke's prefill bucket) over the
     same slots: every split agrees with the plain version, bit-equal
@@ -243,10 +266,8 @@ def _tc_case(dtype, hd, bs, t, seed=0):
     n_tables = -(-(2 * bs + t) // bs) + 1
     n_blocks = 4 * n_tables
     shape = (n_blocks, bs, KVH, hd)
-    if dtype == torch.int8:
-        pools = [torch.randint(-127, 128, shape, generator=gen,
-                               device="cuda", dtype=torch.int8)
-                 for _ in range(2)]
+    if dtype in QUANT_KV:
+        pools = [_payload(shape, dtype, gen) for _ in range(2)]
         pools += [torch.rand(shape[:-1], generator=gen, device="cuda") * 0.04
                   + 0.005 for _ in range(2)]
     else:
@@ -270,8 +291,8 @@ def _tc_case(dtype, hd, bs, t, seed=0):
 @pytest.mark.parametrize("t", [7, 100])
 @pytest.mark.parametrize("bs", [16, 24])
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
-                         ids=["bf16", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8,
+                                   torch.uint8], ids=["bf16", "int8", "int4"])
 def test_tc_route_matches_plain(dtype, hd, bs, t, window, splits):
     """K1's tensor-core route at both head dims, a block size that
     divides its 32-key steps and one that does not, ragged row counts
@@ -332,7 +353,8 @@ def test_k1_routes_by_dtype_and_rows():
 @pytest.mark.parametrize("t", [1, 7, 512])
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.int8], ids=["f32", "bf16", "int8"])
+                                   torch.int8, torch.uint8],
+                         ids=["f32", "bf16", "int8", "int4"])
 def test_k2_store_bit_equal_to_paged_store(dtype, hd, t):
     """K2's flat grid writes the pool bytes (and int8 scales)
     ``paged_store`` writes, bit for bit, at a decode step, a short and a
@@ -346,10 +368,8 @@ def test_k2_store_bit_equal_to_paged_store(dtype, hd, t):
     bs, n_tables = 16, 40
     n_blocks = 4 * n_tables
     shape = (n_blocks, bs, KVH, hd)
-    if dtype == torch.int8:
-        pools = [torch.randint(-127, 128, shape, generator=gen,
-                               device="cuda", dtype=torch.int8)
-                 for _ in range(2)]
+    if dtype in QUANT_KV:
+        pools = [_payload(shape, dtype, gen) for _ in range(2)]
         pools += [torch.rand(shape[:-1], generator=gen, device="cuda")
                   for _ in range(2)]
         ndt = torch.bfloat16
@@ -925,3 +945,100 @@ def test_rmsnorm_walks_rows(xdt, rows, d):
     torch.cuda.synchronize()
     assert _rel(outs[0], want) <= TRAIN_TOL[xdt]
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+# ---------------------------------------------------------------------------
+# The weight-quantized product
+
+
+def _quant_case(mode, e, m, k, n, xdt, per_expert, group=64, seed=0):
+    """x, the quantized weight and its scale on the card: x [m, k] (or
+    [e, m, k] one input an expert), a weight [k, n] (or [e, k, n])."""
+    from oim_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lead = (e,) if e else ()
+    w = torch.randn((*lead, k, n), generator=gen, device="cuda") * 0.05
+    q, scale = (tq.quantize_weight_int8(w) if mode == "int8"
+                else tq.quantize_weight_int4(w, group))
+    xshape = (e, m, k) if per_expert else (m, k)
+    x = torch.randn(xshape, generator=gen, device="cuda").to(xdt)
+    return x, q.contiguous(), scale.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 17, 64, 100])
+@pytest.mark.parametrize("mode,k,group", [("int8", 1536, 64),
+                                          ("int4", 1536, 64),
+                                          ("int4", 96, 32),
+                                          ("int4", 37, 37)],
+                         ids=["int8", "int4-g64", "int4-g32", "int4-odd"])
+@pytest.mark.parametrize("xdt,odt", [(torch.bfloat16, None),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float32, None)],
+                         ids=["bf16", "bf16-f32out", "f32"])
+def test_quant_matmul_matches_plain(xdt, odt, mode, k, group, m):
+    """Both routes (the fused kernel for bf16 x up to 64 rows over a
+    reduction and int4 groups of a multiple of 16; the dequantized weight
+    and torch.matmul otherwise: f32 x, an odd reduction with int4's
+    padding row, more rows) against the plain version; two launches
+    bit-equal; one launch counted a call, on the route ``quant_route``
+    names."""
+    _need_gpu()
+    from oim_tpu_torch.ops import wquant
+
+    x, q, scale = _quant_case(mode, 0, m, k, 256, xdt, False, group)
+    route = wquant.quant_route(xdt, m, k, 256, group if mode == "int4"
+                               else 0)
+    before = wquant.counters()
+    got = wquant.quant_matmul(x, q, scale, dtype=xdt, out_dtype=odt)
+    again = wquant.quant_matmul(x, q, scale, dtype=xdt, out_dtype=odt)
+    want = wquant.quant_matmul_plain(x, q, scale, dtype=xdt, out_dtype=odt)
+    torch.cuda.synchronize()
+    after = wquant.counters()
+    assert got.dtype == (odt or xdt) and got.shape == want.shape
+    assert torch.equal(got, again)
+    tol = (2.0**-7 + 1e-4) if got.dtype == torch.bfloat16 else 1e-4
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * float(want.float().abs().max())
+    name = f"quant_matmul_{route}"
+    assert after[name] == before[name] + 2
+    fits = xdt == torch.bfloat16 and k % 16 == 0 and (
+        mode == "int8" or group % 16 == 0)
+    assert route == ("gemv" if m <= 64 and fits else "dequant")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_expert", [False, True], ids=["shared", "own"])
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("m", [2, 8, 200])
+def test_quant_matmul_experts_match_plain(m, mode, per_expert):
+    """The expert axis as ``_moe_exact`` uses it: w_gate/w_in [E, d, f]
+    over an input all experts share, w_out [E, f, d] over one input an
+    expert; bf16."""
+    _need_gpu()
+    from oim_tpu_torch.ops import wquant
+
+    k, n = (512, 768) if not per_expert else (768, 512)
+    x, q, scale = _quant_case(mode, 4, m, k, n, torch.bfloat16, per_expert)
+    got = wquant.quant_matmul(x, q, scale, dtype=torch.bfloat16)
+    want = wquant.quant_matmul_plain(x, q, scale, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.shape == (4, m, n) == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= (2.0**-7 + 1e-4) * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_quant_matmul_refuses_what_the_kernel_does_not_take():
+    _need_gpu()
+    from oim_tpu_torch.ops import wquant
+
+    x, q, scale = _quant_case("int8", 0, 4, 256, 256, torch.bfloat16, False)
+    with pytest.raises(ValueError, match="compute dtype"):
+        wquant.quant_matmul(x, q, scale, dtype=torch.float32)
+    with pytest.raises(ValueError, match="rows must be"):
+        wquant.quant_matmul(x[:, :128], q, scale, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        wquant.quant_matmul(x, q.t().contiguous().t(), scale,
+                            dtype=torch.bfloat16)

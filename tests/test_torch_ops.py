@@ -112,9 +112,22 @@ def test_make_kv_buffers_layout(quantized):
         np.testing.assert_array_equal(_np(a), b.numpy())
 
 
-def test_make_kv_buffers_refuses_int4():
-    with pytest.raises(ValueError, match="kv_int4"):
-        tquant.make_kv_buffers((1, 8, 2, 16), torch.float32, "int4")
+def test_make_kv_buffers_int4_layout():
+    """int4 buffers: packed ``torch.uint8`` payloads of head_dim / 2
+    bytes whose unpacked values are the reference's ``jnp.int4`` zeros,
+    and its f32 scale planes (ones); an odd head_dim cannot pack."""
+    shape = (2, 3, 8, 2, 16)
+    kj = jquant.make_kv_buffers(shape, jnp.float32, "int4")
+    kt = tquant.make_kv_buffers(shape, torch.float32, "int4")
+    for a, b in zip(kj[:2], kt[:2]):
+        assert b.dtype == torch.uint8 and tuple(b.shape) == (2, 3, 8, 2, 8)
+        np.testing.assert_array_equal(_np(a).astype(np.int8),
+                                      tquant.unpack_int4(b).numpy())
+    for a, b in zip(kj[2:], kt[2:]):
+        np.testing.assert_array_equal(_np(a), b.numpy())
+    assert kt[2] is not kt[3]
+    with pytest.raises(ValueError, match="even"):
+        tquant.make_kv_buffers((1, 8, 2, 15), torch.float32, "int4")
 
 
 # ---------------------------------------------------------------------------

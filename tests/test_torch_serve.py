@@ -313,7 +313,6 @@ def test_engine_deadlines(model):
 
 
 @pytest.mark.parametrize("option,match", [
-    (dict(kv_int4=True), "kv_int4"),
     # The prefix cache is served; the host tier it demotes entries to
     # in the reference is not.
     (dict(prefix_cache_size=2, kv_host_bytes=1 << 20), "host tier"),
