@@ -111,6 +111,33 @@ PAGED_SERVE_ARGS = SERVE_ARGS + ["--kv-block", "16", "--pipeline-depth",
 # default depth 2.
 QUANT_SERVE_ARGS = SERVE_ARGS + ["--kv-block", "16", "--kv-int4",
                                  "--weights-int4", "--int4-group", "64"]
+# Speculative decoding on the same model (``--spec-decode 4``): prompt
+# lookup on serve_main's defaults otherwise; the same with a draft model
+# at Qwen2.5-0.5B's published widths (huggingface.co/Qwen/Qwen2.5-0.5B
+# config.json: hidden 896, 24 layers, 14 / 2 kv heads of 64, MLP 4864,
+# the same 151936 vocabulary — the family's usual draft), random weights
+# from DRAFT_SEED written by the port's own exporter; as the reference
+# builds a draft, it takes the target's vocabulary, RoPE base, norm
+# epsilon and dtype, and no biases.
+SPEC = 4
+SPEC_ARGS = SERVE_ARGS + ["--spec-decode", str(SPEC)]
+DRAFT_FLAGS = ["--draft-n-layers", "24", "--draft-d-model", "896",
+               "--draft-n-heads", "14", "--draft-n-kv-heads", "2",
+               "--draft-d-ff", "4864"]
+DRAFT_H, DRAFT_KVH, DRAFT_HD = 14, 2, 64
+DRAFT_SEED = 1
+# The self-draft engines (the draft is the target, at full width):
+# (kv_block, spec_decode) — the verify shapes the two serve phases do not
+# run — and the acceptance each must reach (the reference's bar,
+# tests/test_serve.py).
+SELF_DRAFT = ((0, 2), (16, 2), (16, 4))
+SELF_ACCEPT = 0.8
+# Two echo-heavy prompts beside the six: a 32-token span repeated.
+ECHO_SPAN, ECHO_REPEATS = 32, (4, 8)
+# /v1/beam at beam 4 against beam 1 (the same generation length, so the
+# normalized scores compare): no worse, within bf16 rounding of the
+# batched forward's logprobs.
+BEAM_TOL = 0.01
 H, KVH, HD, BS = 12, 2, 128, 16
 MAX_LEN = 2048
 # The dense cache's block: the largest that divides MAX_LEN and one step
@@ -331,12 +358,12 @@ def make_tables(rng, n_rows, positions, n_blocks, reserve=2):
     return tables
 
 
-def make_pool(gen, n_blocks, quant, bs=BS, kvh=KVH):
+def make_pool(gen, n_blocks, quant, bs=BS, kvh=KVH, hd=HD):
     """K/V pools and scales: bf16 (``quant`` falsy), int8 (truthy) or
     packed int4 (``"int4"``: values in [-7, 7], two a byte)."""
     from oim_tpu_torch.ops.quant import pack_int4
 
-    shape = (n_blocks, bs, kvh, HD)
+    shape = (n_blocks, bs, kvh, hd)
     if quant:
         lo, hi = (-7, 8) if quant == "int4" else (-127, 128)
         k, v = (torch.randint(lo, hi, shape, generator=gen, device="cuda",
@@ -652,26 +679,27 @@ def kernel_phase() -> dict:
 
 
 def dense_kernel_phase(pa, gen, h=H, kvh=KVH, tag="dense",
-                       suffix="_dense") -> dict:
+                       suffix="_dense", hd=HD) -> dict:
     """K1 and K2 at a main path's shapes: the dense cache of 8 slots x
     2048 rows, which the engine hands the kernels as blocks of
     ``DENSE_BS`` rows through a fixed identity table — every slot live
     at decode, contexts 0 to 2047; a 512-token segment for two slots at
-    the prefill — with ``h`` query and ``kvh`` kv heads.  bf16; returns
-    the records, keyed with ``suffix``."""
+    the prefill — with ``h`` query and ``kvh`` kv heads of ``hd``.
+    bf16; returns the records, keyed with ``suffix``."""
     n_blocks = 8 * (MAX_LEN // DENSE_BS)
-    k_pool, v_pool, _, _ = make_pool(gen, n_blocks, False, DENSE_BS, kvh)
+    k_pool, v_pool, _, _ = make_pool(gen, n_blocks, False, DENSE_BS, kvh,
+                                     hd)
     tables = torch.arange(n_blocks, dtype=torch.int32,
                           device="cuda").reshape(8, -1)
     starts = torch.tensor([0, 16, 299, 999, 2047, 776, 1500, 40],
                           dtype=torch.int32, device="cuda")
-    q = torch.randn((8, 1, h, HD), generator=gen,
+    q = torch.randn((8, 1, h, hd), generator=gen,
                     device="cuda").to(torch.bfloat16)
     none = slice(0, 0)  # no all-sentinel slot in a dense cache
     k1 = k1_phase(f"decode bf16 {tag} B=8 t=1", pa,
                   (q, k_pool, v_pool, None, None, tables, starts), none,
                   (1, 4, 16, 32), (0, 256))
-    dk = torch.randn((8, 1, kvh, HD), generator=gen,
+    dk = torch.randn((8, 1, kvh, hd), generator=gen,
                      device="cuda").to(torch.bfloat16)
     k2d = k2_phase(f"bf16 {tag} B=8 t=1", pa, dk, dk.clone(),
                    [k_pool.clone(), v_pool.clone()], [None, None], tables,
@@ -679,10 +707,10 @@ def dense_kernel_phase(pa, gen, h=H, kvh=KVH, tag="dense",
     t, slots = 512, [2, 5]
     ptables = tables[slots].contiguous()
     pst = torch.tensor([37, 1000], dtype=torch.int32, device="cuda")
-    k_new, v_new = (torch.randn((2, t, kvh, HD), generator=gen,
+    k_new, v_new = (torch.randn((2, t, kvh, hd), generator=gen,
                                 device="cuda").to(torch.bfloat16)
                     for _ in range(2))
-    qp = torch.randn((2, t, h, HD), generator=gen,
+    qp = torch.randn((2, t, h, hd), generator=gen,
                      device="cuda").to(torch.bfloat16)
     pools = [k_pool.clone(), v_pool.clone()]
     k2 = k2_phase(f"bf16 {tag} B=2 t={t}", pa, k_new, v_new, pools,
@@ -706,6 +734,65 @@ def moe_kernel_phase() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     return dense_kernel_phase(pa, gen, MOE_H, MOE_KVH,
                               f"dense H={MOE_H} KVH={MOE_KVH}", "_moe")
+
+
+def spec_kernel_phase() -> dict:
+    """K1 and K2 at the speculative paths' shapes.  A verify writes and
+    attends ``t = spec + 1`` rows a slot: t = 3 and t = 5 (spec 2 and 4)
+    at Qwen's 12 / 2 heads — 18 and 30 rows a (slot, kv head), K1's
+    tensor-core route — from decode contexts, on the dense cache's
+    64-row blocks (every slot live) and on the paged pool's 16-row
+    blocks (two all-sentinel slots).  Then the draft model's shapes on
+    its dense cache: Qwen2.5-0.5B's 14 / 2 heads of 64 at t = 1 (group
+    7: K1's 8-row route) and at its prefill (``dense_kernel_phase``).
+    bf16; returns the records (``K1v{t}_{layout}``, ``K2v{t}_{layout}``
+    and the ``_draft`` ones)."""
+    from oim_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.RandomState(14)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    record = {}
+    contexts = [0, 16, 299, 999, 2040, 776, 1500, 40]
+    for layout in ("dense", "paged"):
+        if layout == "dense":
+            n_blocks = 8 * (MAX_LEN // DENSE_BS)
+            k_pool, v_pool, _, _ = make_pool(gen, n_blocks, False, DENSE_BS)
+            zero_rows = slice(0, 0)
+        else:
+            n_blocks = 8 * (MAX_LEN // BS)
+            k_pool, v_pool, _, _ = make_pool(gen, n_blocks, False)
+            zero_rows = slice(6, None)
+        starts = torch.tensor(contexts, dtype=torch.int32, device="cuda")
+        for t in (3, 5):
+            if layout == "dense":
+                tables = torch.arange(n_blocks, dtype=torch.int32,
+                                      device="cuda").reshape(8, -1)
+            else:
+                ends = [c + t - 1 for c in contexts[:6]] + [-1, -1]
+                tables = torch.from_numpy(make_tables(
+                    rng, 8, ends, n_blocks)).cuda()
+            k_new, v_new = (torch.randn((8, t, KVH, HD), generator=gen,
+                                        device="cuda").to(torch.bfloat16)
+                            for _ in range(2))
+            q = torch.randn((8, t, H, HD), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            pools = [k_pool.clone(), v_pool.clone()]
+            tag = f"verify bf16 {layout} B=8 t={t}"
+            record[f"K2v{t}_{layout}"] = k2_phase(
+                tag, pa, k_new, v_new, pools, [None, None], tables, starts)
+            record[f"K1v{t}_{layout}"] = k1_phase(
+                tag, pa, (q, *pools, None, None, tables, starts), zero_rows,
+                PREFILL_SPLITS, (0, 256))
+            check(k1_route(pa, q, KVH) == "tc",
+                  f"K1 {tag}: not on the tensor-core route")
+            del pools
+        del k_pool, v_pool
+        torch.cuda.empty_cache()
+    record.update(dense_kernel_phase(
+        pa, gen, DRAFT_H, DRAFT_KVH,
+        f"dense H={DRAFT_H} KVH={DRAFT_KVH} hd={DRAFT_HD} (the draft)",
+        "_draft", hd=DRAFT_HD))
+    return record
 
 
 # The weight-quantized product (``ops/wquant.py``): the distinct weight
@@ -879,9 +966,10 @@ def segment_kernel_phase() -> dict:
 # Serve phase
 
 
-def post(port: int, body: dict) -> tuple[int, dict]:
+def post(port: int, body: dict,
+         path: str = "/v1/generate") -> tuple[int, dict]:
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/v1/generate",
+        f"http://127.0.0.1:{port}{path}",
         data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json"},
     )
@@ -902,8 +990,15 @@ def gib(n_bytes: float) -> float:
 def release() -> None:
     """Return a finished phase's device memory to the card: what its
     dropped objects held goes back to the allocator at once (the smoke
-    collects no reference cycles), and the allocator's cache is
+    collects no reference cycles), cuBLAS's workspaces — 32 MiB for each
+    stream a phase ran products on, such as a graph capture's side
+    stream, kept for the process's life — are dropped (a captured graph
+    keeps its own, in its pool), and the allocator's cache is
     emptied."""
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
     torch.cuda.empty_cache()
 
 
@@ -1282,8 +1377,11 @@ def restore_routers(layers, saved) -> None:
                 lp["router"].copy_(router)
 
 
-def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
-    """Serve six concurrent requests through the port's serve_main entry
+def serve_phase(argv, tag: str, min_free_gib: float | None = None,
+                echo: bool = False, beam_embed: bool = False,
+                plain_rate: float | None = None) -> dict:
+    """Serve six concurrent requests (with ``echo``, two echo-heavy ones
+    too) through the port's serve_main entry
     with ``argv`` and check lengths, drain, kernel counters (reset just
     before the requests, read just after) and a teacher-forced f32
     reference (``teacher_check``); on an engine that replays CUDA graphs,
@@ -1291,8 +1389,14 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
     every decode dispatch was one replay, then ``graph_check``.  Prints
     the memory the card had free at the serving peak (weights, cache,
     admission transients, graph pool), which must reach ``min_free_gib``
-    when given.  Returns the run's kernel launch counts with its times
-    to first token, decode rate and memory."""
+    when given.  A speculative engine's launches are counted by route
+    with its verify passes and a draft model's forwards, its drafts must
+    have been made (its acceptance share and decode rate are printed
+    beside ``plain_rate``, a plain engine's on the same traffic), and its
+    greedy requests served again at depth 2 and 1 must be token-identical
+    (``depth_check``).  ``beam_embed``: ``beam_embed_check`` on the
+    running server.  Returns the run's kernel launch counts with its
+    times to first token, decode rate, memory and forward passes."""
     from oim_tpu_torch.cli import serve_main
     from oim_tpu_torch.ops import paged_attention as pa
 
@@ -1349,6 +1453,15 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
             if i == 2:
                 body.update(temperature=0.8, seed=1234)
             bodies.append(body)
+        if echo:
+            erng = np.random.RandomState(2)
+            for repeats in ECHO_REPEATS:
+                span = erng.randint(0, vocab, ECHO_SPAN).tolist()
+                bodies.append({"tokens": span * repeats,
+                               "max_new_tokens": 64, "logprobs": True})
+        spec = info.get("spec_decode", 0)
+        draft_layers = args.draft_n_layers if info.get(
+            "spec_draft_model") else 0
         pa.reset_counters()
         if wq is not None:
             wq.reset_counters()
@@ -1374,11 +1487,18 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
         check(stats["active_slots"] == 0 and stats["queued"] == 0,
               f"engine did not drain: {stats}")
         passes = stats["prefill_dispatches"] + stats["decode_passes"]
+        # A draft model's forwards: its prefill dispatches and t = 1
+        # passes, each through its own layers.
+        dprefill = stats.get("draft_prefill_dispatches", 0)
+        dpasses = stats.get("draft_passes", 0)
         print(f"serve {tag}: {len(bodies)} concurrent requests in "
               f"{wall:.2f} s; kernel counts {counts} over "
               f"{stats['prefill_dispatches']} admission dispatches and "
               f"{stats['decode_passes']} decode passes dispatched, of "
-              f"{args.n_layers} layers", flush=True)
+              f"{args.n_layers} layers"
+              + (f", and {dprefill} draft prefill dispatches and {dpasses} "
+                 f"draft passes of {draft_layers}" if draft_layers else ""),
+              flush=True)
         check(counts["paged_flash_decode"] > 0, "K1 never launched")
         check(counts["paged_kv_store"] > 0, "K2 never launched")
         check(counts["paged_flash_decode_plain"] == 0
@@ -1387,17 +1507,26 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
         if mode:
             quant_check(counts, stats, args.n_layers, mode, f"serve {tag}")
         # Every layer of every forward pass went through both kernels.
-        check(counts["paged_flash_decode"] == args.n_layers * passes
-              and counts["paged_kv_store"] == args.n_layers * passes,
-              f"launches {counts} != {args.n_layers} x {passes} passes")
+        launches = args.n_layers * passes + draft_layers * (dprefill
+                                                            + dpasses)
+        check(counts["paged_flash_decode"] == launches
+              and counts["paged_kv_store"] == launches,
+              f"launches {counts} != {args.n_layers} x {passes} passes"
+              + (f" + {draft_layers} x {dprefill + dpasses} draft passes"
+                 if draft_layers else ""))
         if hasattr(pa, "ROUTE_ROWS"):  # a parent checkout has one route
             # Admissions took K1's tensor-core route and decode passes its
             # 8-row route, each layer once; K2 ran at t = 1 on decode
-            # passes.
+            # passes.  A speculative engine's verify passes (t = spec + 1
+            # rows a slot) take the tensor-core route too, as does a draft
+            # model's prefill; its t = 1 draft passes the 8-row route.
             routes = {route: counts[f"paged_flash_decode_{route}"]
                       for route in pa.ROUTE_ROWS}
-            want = {"tc": stats["prefill_dispatches"] * args.n_layers,
-                    "rows8": stats["decode_passes"] * args.n_layers,
+            verify = stats["decode_passes"] if spec else 0
+            want = {"tc": (stats["prefill_dispatches"] + verify)
+                    * args.n_layers + dprefill * draft_layers,
+                    "rows8": (stats["decode_passes"] - verify)
+                    * args.n_layers + dpasses * draft_layers,
                     "rows16": 0}
             check(routes == want, f"K1 launches by route {routes} != {want}")
             check(counts["paged_kv_store_t1"] == want["rows8"],
@@ -1405,11 +1534,17 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
                   f"not {want['rows8']}")
             print(f"serve {tag}: K1's tensor-core route (admission prefill, "
                   f"64-row tiles) launched {routes['tc']} times "
-                  f"({stats['prefill_dispatches']} admission dispatches x "
-                  f"{args.n_layers} layers), its decode route "
-                  f"{routes['rows8']} ({stats['decode_passes']} passes), its "
-                  f"f32 route 0; K2 at t=1 {counts['paged_kv_store_t1']}",
-                  flush=True)
+                  f"({stats['prefill_dispatches']} admission dispatches"
+                  + (f" + {verify} verify passes at t={spec + 1}"
+                     if spec else "")
+                  + f" x {args.n_layers} layers"
+                  + (f"; + {dprefill} draft prefills x {draft_layers}"
+                     if draft_layers else "")
+                  + f"), its decode route {routes['rows8']} ("
+                  + (f"{dpasses} draft passes x {draft_layers}"
+                     if spec else f"{stats['decode_passes']} passes")
+                  + f"), its f32 route 0; K2 at t=1 "
+                  f"{counts['paged_kv_store_t1']}", flush=True)
         if "decode_dispatches" in stats:
             # A chunk dispatched and dropped unread (the pipeline's tail)
             # still ran: its passes are in decode_passes above.
@@ -1425,6 +1560,44 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
                   f"{stats['graph_replays']} graph replays")
         if graphs and "admission_replays" in stats:
             check_admission_graphs(stats, started, len(bodies), f"serve {tag}")
+        if graphs and draft_layers:
+            check(stats["draft_admission_replays"]
+                  == stats["draft_prefill_dispatches"] > 0
+                  and stats["draft_admission_graphs"]
+                  == started["draft_admission_graphs"] > 0,
+                  f"serve {tag}: {stats['draft_prefill_dispatches']} draft "
+                  f"prefill dispatches, {stats['draft_admission_replays']} "
+                  f"replays; {started['draft_admission_graphs']} draft "
+                  f"graphs at warmup, {stats['draft_admission_graphs']} now")
+            print(f"serve {tag}: {stats['draft_prefill_dispatches']} draft "
+                  f"prefill dispatches, all graph replays (keyed by the "
+                  f"full prompt's bucket); {stats['draft_admission_graphs']} "
+                  f"draft prefill graphs, all captured at warmup", flush=True)
+        if spec:
+            check(stats["spec_drafted"] > 0, f"serve {tag}: nothing drafted")
+            share = stats["spec_accepted"] / stats["spec_drafted"]
+            rate = stats["decode_tokens"] / max(stats["decode_seconds"],
+                                                1e-9)
+            beside = ("" if plain_rate is None else
+                      f" against {plain_rate:.1f} for the plain engine on "
+                      f"the same traffic in this run ({rate / plain_rate:.2f}"
+                      f"x)")
+            print(f"serve {tag}: {stats['spec_accepted']} of "
+                  f"{stats['spec_drafted']} greedy drafts accepted "
+                  f"({share:.3f}); {stats['decode_tokens']} tokens from "
+                  f"{stats['decode_passes']} verify passes "
+                  f"({stats['decode_tokens'] / max(stats['decode_passes'], 1):.2f}"
+                  f" a pass over {len(bodies)} requests); decode "
+                  f"{rate:.1f} tok/s{beside} [{SMI}]", flush=True)
+            counts["spec"] = {"drafted": stats["spec_drafted"],
+                              "accepted": stats["spec_accepted"],
+                              "share": share, "decode_tok_s": rate,
+                              "plain_tok_s": plain_rate}
+        counts["passes"] = {k: stats.get(k, 0) for k in (
+            "prefill_dispatches", "decode_passes", "draft_prefill_dispatches",
+            "draft_passes")}
+        if beam_embed:
+            counts["beam_embed"] = beam_embed_check(server, vocab, rng, tag)
         counts["admission_waves"] = trace.wave_lines(f"serve {tag}")
         # Time to first token of a lone 512-token prompt (client wall,
         # HTTP included), and the engine's decode rate.
@@ -1467,6 +1640,8 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
                enumerate(zip(bodies, replies)) if i != 2]  # greedy ones
     counts["routing_differences"] = teacher_check(engine, checked, tag,
                                                   routing, kv)
+    if spec:
+        depth_check(engine, [b for b, _ in checked], tag)
     del kv
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1490,6 +1665,117 @@ def serve_phase(argv, tag: str, min_free_gib: float | None = None) -> dict:
     check(torch.cuda.memory_allocated() - base < 2**30,
           "a stopped server kept its engine's memory")
     return counts
+
+
+def self_draft_phase() -> dict:
+    """Engines whose draft model is the target itself, at Qwen2.5-1.5B's
+    full width (``SERVE_ARGS``' weights), one for each ``SELF_DRAFT``
+    (kv_block, spec): four greedy prompts that do not echo, 48 new tokens
+    each.  Greedy drafts of the same model must be accepted above
+    ``SELF_ACCEPT`` (the two routes' bf16 rounding may differ only at
+    near ties); every verify pass's K1 took the tensor-core route (t =
+    spec + 1 rows a slot at group 6) and every draft forward the 8-row
+    route, each through every layer, with no plain call.  The engines
+    dispatch eagerly (``cuda_graphs=False``: the same kernels; the serve
+    phases hold the graphs), which spares three captures of chunks of
+    (spec + 2) × 28 layer passes a sub-step.  Counts are reset before and
+    read after each engine's requests.  Returns per engine its counts,
+    passes and acceptance."""
+    from oim_tpu_torch.cli import serve_main
+    from oim_tpu_torch.ops import paged_attention as pa
+    from oim_tpu_torch.serve.engine import Engine, GenRequest
+
+    args = serve_main.build_parser().parse_args(SERVE_ARGS)
+    cfg = serve_main.model_config(args)
+    params = serve_main.load_weights(args, cfg, DEV)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, args.vocab_size, n).tolist()
+               for n in (50, 100, 200, 250)]
+    out = {}
+    for kv_block, spec in SELF_DRAFT:
+        tag = f"self-draft kv_block={kv_block} spec={spec}"
+        t0 = time.monotonic()
+        engine = Engine(params, cfg, n_slots=4, max_len=1024, chunk=4,
+                        prompt_buckets=(64, 256), kv_block=kv_block,
+                        spec_decode=spec, draft_params=params,
+                        draft_cfg=cfg, cuda_graphs=False).warmup()
+        started = time.monotonic() - t0
+        pa.reset_counters()
+        rids = [engine.submit(GenRequest(tokens=p, max_new_tokens=48))
+                for p in prompts]
+        engine.run()
+        counts = pa.counters()
+        st = engine.stats()
+        for rid in rids:
+            check(len(engine.result(rid)) == 48, f"{tag}: short reply")
+        share = st["spec_accepted"] / max(st["spec_drafted"], 1)
+        layers = cfg.n_layers
+        verify = st["prefill_dispatches"] + st["decode_passes"]
+        want = {"tc": layers * (verify + st["draft_prefill_dispatches"]),
+                "rows8": layers * st["draft_passes"], "rows16": 0}
+        routes = {r: counts[f"paged_flash_decode_{r}"] for r in want}
+        print(f"{tag}: warmup {started:.1f} s; {st['spec_accepted']} of "
+              f"{st['spec_drafted']} greedy drafts accepted ({share:.3f}, "
+              f"bar {SELF_ACCEPT}); {st['decode_passes']} verify passes at "
+              f"t={spec + 1}, {st['draft_passes']} draft passes; K1 by route "
+              f"{routes}, K2 at t=1 {counts['paged_kv_store_t1']} [{SMI}]",
+              flush=True)
+        check(st["spec_drafted"] > 0 and share > SELF_ACCEPT,
+              f"{tag}: acceptance {share:.3f} not above {SELF_ACCEPT}")
+        check(routes == want and counts["paged_kv_store_t1"]
+              == want["rows8"] and counts["paged_flash_decode_plain"] == 0
+              and counts["paged_kv_store_plain"] == 0,
+              f"{tag}: K1 by route {routes} != {want}, or a plain call")
+        out[f"{kv_block}_{spec}"] = {
+            "share": share, "decode_passes": st["decode_passes"],
+            "draft_passes": st["draft_passes"], "routes": routes}
+        del engine
+        release()
+    del params
+    release()
+    return out
+
+
+def draft_serve_phase(plain_rate: float | None) -> dict:
+    """``serve_main --spec-decode 4 --draft-params-dir D`` with the draft
+    geometry ``DRAFT_FLAGS`` on ``SERVE_ARGS``: D holds random weights
+    from ``DRAFT_SEED`` written by the port's exporter
+    (``Checkpointer.export_params``) into a scratch directory of the
+    checkout, deleted afterwards; then ``serve_phase``'s gates."""
+    from types import SimpleNamespace
+
+    from oim_tpu_torch.checkpoint import Checkpointer, CheckpointerOptions
+    from oim_tpu_torch.cli import serve_main
+    from oim_tpu_torch.models.transformer import init_params
+
+    work = tempfile.mkdtemp(prefix=".smoke-ckpt-draft-", dir=HERE)
+    try:
+        export = os.path.join(work, "draft")
+        argv = SPEC_ARGS + ["--draft-params-dir", export, *DRAFT_FLAGS]
+        dcfg = serve_main.draft_config(
+            serve_main.build_parser().parse_args(argv))
+        t0 = time.monotonic()
+        params = init_params(DRAFT_SEED, dcfg, device=DEV, master=True)
+        Checkpointer(os.path.join(work, "ckpt"),
+                     CheckpointerOptions()).export_params(
+            SimpleNamespace(params=params), export)
+        del params
+        release()
+        print(f"serve draft: the draft model's random weights exported in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        return serve_phase(argv, "draft", echo=True, plain_rate=plain_rate)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def spec_phases(plain_rate: float | None) -> dict:
+    """This slice's serving paths: prompt lookup (``SPEC_ARGS``, with
+    ``/v1/beam`` and ``/v1/embed`` on its server), the self-draft engines
+    and the draft model, each beside ``plain_rate``."""
+    return {"lookup": serve_phase(SPEC_ARGS, "spec", echo=True,
+                                  beam_embed=True, plain_rate=plain_rate),
+            "self": self_draft_phase(),
+            "draft": draft_serve_phase(plain_rate)}
 
 
 def quant_module():
@@ -1692,17 +1978,23 @@ def class_times(engine, bucket: int, runs: int = 5) -> dict:
 
 
 def graph_check(engine, vocab: int, rng, tag: str = "") -> dict:
-    """Every slot seated (greedy, sampled with top-p and penalised rows,
-    prompts 16 to 1500 tokens) by one admission wave run eagerly and by
-    graph replays from one state (``admit_check``), then one decode
-    chunk of them, from copies of one cache state, run eagerly and by
-    its CUDA graph's replay: the same kernels on the same inputs, so
-    tokens, logprobs, the token carry, the cache and the penalty counts
-    must be bit-equal.  Then ``decode_profile`` of that chunk, whose
-    record it returns."""
+    """Every slot seated (greedy, sampled with top-p and penalised rows —
+    on a speculative engine, which refuses penalties, sampled at another
+    temperature instead — prompts 16 to 1500 tokens) by one admission
+    wave run eagerly and by graph replays from one state
+    (``admit_check``), then one decode chunk of them, from copies of one
+    cache state, run eagerly and by its CUDA graph's replay: the same
+    kernels on the same inputs, so tokens, logprobs, the token carry,
+    the cache and the penalty counts (a speculative chunk's ``n_emit``,
+    lengths carry, history or draft cache too) must be bit-equal.  Then
+    ``decode_profile`` of that chunk (``spec_profile`` on a speculative
+    engine), whose record it returns."""
     from oim_tpu_torch.serve.engine import GenRequest
 
-    if hasattr(engine, "admit_twice"):  # a parent package has none
+    spec = getattr(engine, "spec_decode", 0)
+    if hasattr(engine, "admit_twice") and not spec:
+        # A parent package has no admission graphs; a speculative
+        # engine's are the default phase's.
         class_times(engine, 1024)
     engine.set_pipeline_depth(1)
     lens = [16, 100, 300, 513, 777, 1000, 40, 1500]
@@ -1711,27 +2003,186 @@ def graph_check(engine, vocab: int, rng, tag: str = "") -> dict:
         if i % 3 == 1:
             kw = dict(temperature=0.8, seed=100 + i, top_p=0.9)
         elif i % 3 == 2:
-            kw = dict(repetition_penalty=1.2)
+            kw = (dict(temperature=1.1, seed=100 + i) if spec
+                  else dict(repetition_penalty=1.2))
         engine.submit(GenRequest(tokens=rng.randint(0, vocab, n).tolist(),
                                  max_new_tokens=64, **kw))
     n = min(len(lens), engine.n_slots)
     if hasattr(engine, "admit_twice"):  # a parent package has none
         admit_check(engine, "serve graph check",
                     f"{n} prompts of {lens[0]} to {max(lens[:n])} tokens, "
-                    f"greedy, sampled and penalised", n, 0)
+                    f"greedy, sampled and "
+                    f"{'sampled hotter' if spec else 'penalised'}", n, 0)
     engine.step()  # (admit every slot and) decode one chunk
     eager, replayed = engine.chunk_twice()
-    same = {name: torch.equal(eager[name], replayed[name])
-            for name in ("out", "lps", "carry")}
+    names = ("out", "lps", "carry") + (("n_emit", "lengths") if spec else ())
+    same = {name: torch.equal(eager[name], replayed[name]) for name in names}
     same["cache and counts"] = all(
         torch.equal(a, b) for a, b in zip(eager["state"], replayed["state"]))
-    print(f"serve graph check: one decode chunk of {engine.n_slots} slots "
-          f"from copies of one state, eager vs graph replay bit-equal: "
-          f"{same}", flush=True)
+    print(f"serve graph check: one {'speculative ' if spec else ''}decode "
+          f"chunk of {engine.n_slots} slots from copies of one state, eager "
+          f"vs graph replay bit-equal: {same}", flush=True)
     check(all(same.values()), f"graph replay differs from eager: {same}")
-    profile = decode_profile(engine, tag)
+    profile = (spec_profile(engine, tag) if spec
+               else decode_profile(engine, tag))
     engine.abort("graph check done")
     return profile
+
+
+def replay_ms(graph, replays: int = 3) -> float:
+    """Device time of one replay of ``graph``: CUDA events around
+    ``replays`` replays after one more (a replay's kernels run back to
+    back, so the events time the device)."""
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def graphed_ms(fn, replays: int = 10) -> float:
+    """Device time of ``fn`` (many kernels, which an eager run would
+    launch slower than the device runs them): run once on a side stream,
+    captured as a CUDA graph, then ``replay_ms``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return replay_ms(graph, replays)
+
+
+def spec_profile(engine, tag: str, replays: int = 3) -> dict:
+    """A speculative decode chunk of the seated slots (its greedy graph
+    replayed ``replays`` times: CUDA events) and its split by part, each
+    part on the chunk's own inputs captured as a graph of its own and
+    timed by its replays (``graphed_ms``): the drafting (prompt lookup
+    over the history, or the draft model's spec + 1 forwards), the
+    verify forward (the target's (L+1)-row pass and its unembedding) and
+    the acceptance and sampling (``_accept``), each once a sub-step (a
+    sub-step also writes the history and the carries).  The replays
+    rewrite rows past each slot's length only (dead rows)."""
+    from oim_tpu_torch.serve import engine as em
+
+    chunk_ms = replay_ms(engine._graphs[(False, False)], replays)
+    b = engine._buf
+    tokens, lengths, live = b.tokens, b.meta[0], b.meta[1]
+    if engine._draft_cache is not None:
+        dtables = torch.where(live[:, None] > 0, engine._draft_identity,
+                              engine._draft_sentinel)
+        draft = (engine.draft_params, engine.draft_cfg, engine._draft_cache,
+                 dtables)
+
+        def drafting():
+            return em._model_drafts(draft, tokens, lengths,
+                                    engine.spec_decode)
+    else:
+        def drafting():
+            return em._draft_lookup(engine._history, lengths,
+                                    engine.spec_decode, engine.spec_ngram,
+                                    engine.max_len)
+    with torch.no_grad():
+        drafts = drafting()
+        s = em._Sampling(b.cols, False, False)
+
+        def verify():
+            return em._verify_logits(engine.params, engine._cache, b.tables,
+                                     lengths, tokens, drafts, engine.cfg)
+
+        logits = verify()
+
+        def accept():
+            return em._accept(logits, lengths, tokens, drafts, live, s, None,
+                              top_k=engine.top_k, max_len=engine.max_len)
+
+        parts = {"drafting": graphed_ms(drafting),
+                 "verify": graphed_ms(verify), "accept": graphed_ms(accept)}
+    step_ms = chunk_ms / engine.chunk
+    total = sum(parts.values())
+    print(f"serve {tag}: one speculative decode chunk ({engine.n_slots} slots "
+          f"x {engine.chunk} sub-steps at spec {engine.spec_decode}, graph "
+          f"replay) {chunk_ms:.2f} ms of device time, {step_ms:.3f} ms a "
+          f"sub-step; parts replayed alone, a sub-step: drafting "
+          f"({'draft model' if engine.draft_cfg else 'prompt lookup'}) "
+          f"{parts['drafting']:.3f} ms ({parts['drafting'] / total:.1%}), "
+          f"verify forward {parts['verify']:.3f} "
+          f"({parts['verify'] / total:.1%}), acceptance and sampling "
+          f"{parts['accept']:.3f} ({parts['accept'] / total:.1%}); their sum "
+          f"{total:.3f} against the replayed sub-step's {step_ms:.3f} (alone, "
+          f"each part starts with a cold L2) [{SMI}]", flush=True)
+    return {"chunk_ms": chunk_ms, "sub_step_ms": step_ms, "parts_ms": parts}
+
+
+def depth_check(engine, bodies, tag: str) -> None:
+    """``bodies`` (greedy) served again on the stopped server's engine,
+    submitted together (one admission pattern), at pipeline depth 2 and
+    then 1: the same tokens.  The engine is left at depth 2."""
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    runs = []
+    for depth in (2, 1):
+        engine.set_pipeline_depth(depth)
+        rids = [engine.submit(GenRequest(tokens=b["tokens"],
+                                         max_new_tokens=b["max_new_tokens"]))
+                for b in bodies]
+        engine.run()
+        runs.append([engine.result(rid) for rid in rids])
+    engine.set_pipeline_depth(2)
+    same = runs[0] == runs[1]
+    print(f"serve {tag}: {len(bodies)} greedy requests served again at "
+          f"pipeline depth 2 and 1 ({sum(map(len, runs[0]))} tokens): "
+          f"token-identical {same}", flush=True)
+    check(same, f"serve {tag}: depth 1 and depth 2 tokens differ")
+
+
+def beam_embed_check(server, vocab: int, rng, tag: str) -> dict:
+    """``/v1/beam`` and ``/v1/embed`` on the running server (slot-free
+    work on the plain solo path): beam 1 is the solo ``generate``'s
+    greedy tokens on the served weights, beam 4's normalized score is no
+    worse than beam 1's (``BEAM_TOL``: the batched forward's bf16
+    rounding), and the embedding is ``d_model`` finite values of unit
+    norm."""
+    from oim_tpu_torch.models import decode as dec
+
+    engine = server.engine
+    prompt, new = rng.randint(0, vocab, 24).tolist(), 12
+    beams = {}
+    for k in (1, 4):
+        status, reply = post(server.port, {"tokens": prompt,
+                                           "max_new_tokens": new,
+                                           "beam_size": k}, "/v1/beam")
+        check(status == 200 and len(reply["tokens"]) == new,
+              f"serve {tag}: /v1/beam at {k}: {status}")
+        beams[k] = reply
+    with torch.no_grad():
+        solo = dec.generate(engine.params, torch.tensor([prompt], device=DEV),
+                            engine.cfg, new)[0, len(prompt):].tolist()
+    t0 = time.monotonic()
+    status, reply = post(server.port, {"tokens": prompt}, "/v1/embed")
+    embed_ms = (time.monotonic() - t0) * 1e3
+    vec = np.asarray(reply["embedding"])
+    norm = float(np.linalg.norm(vec))
+    print(f"serve {tag}: /v1/beam beam 1 {'=' if beams[1]['tokens'] == solo else '!='}"
+          f" the solo generate's greedy tokens; normalized score beam 4 "
+          f"{beams[4]['score']:.4f} vs beam 1 {beams[1]['score']:.4f}; "
+          f"/v1/embed {vec.size} values, norm {norm:.6f}, in "
+          f"{embed_ms:.1f} ms", flush=True)
+    check(beams[1]["tokens"] == solo,
+          f"serve {tag}: beam 1 {beams[1]['tokens']} != generate {solo}")
+    check(beams[4]["score"] >= beams[1]["score"] - BEAM_TOL,
+          f"serve {tag}: beam 4 scores {beams[4]['score']} under beam 1's "
+          f"{beams[1]['score']}")
+    check(status == 200 and vec.size == engine.cfg.d_model
+          and bool(np.isfinite(vec).all()) and abs(norm - 1.0) < 1e-4,
+          f"serve {tag}: /v1/embed gave {vec.size} values of norm {norm}")
+    return {"beam1": beams[1]["score"], "beam4": beams[4]["score"],
+            "embed_norm": norm, "embed_ms": embed_ms}
 
 
 def weight_bytes(params) -> int:
@@ -1760,14 +2211,7 @@ def decode_profile(engine, tag: str, replays: int = 3) -> dict:
     from oim_tpu_torch.cli.serve_profile import FAMILIES, profiled
 
     graph = engine._graphs[(False, False)]
-    graph.replay()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    chunk_ms = start.elapsed_time(end) / replays
+    chunk_ms = replay_ms(graph, replays)
     window = profiled(graph.replay, replays, chunk_ms * replays, FAMILIES)
     family = ("quant_matmul" if getattr(engine, "weight_quant", "")
               else "gemm (cuBLAS)")
@@ -3422,6 +3866,68 @@ def quant_rows(record: dict, phases: dict) -> list[dict]:
     return rows
 
 
+def spec_rows(record: dict, spec: dict) -> list[dict]:
+    """The ``kernels`` rows of the speculative paths: K1 and K2 at a
+    verify's t = 3 and t = 5 rows a slot on each layout, their launches
+    those of the phases that ran the shape (every layer of every verify
+    pass), and at the draft model's shapes, with its phase's draft passes
+    (t = 1) and draft prefills."""
+    src = "oim_tpu_torch/csrc/paged_attention.cu"
+    k1, k2 = ("oim_tpu/ops/paged_attention.py:93",
+              "oim_tpu/ops/paged_attention.py:265")
+    layers = int(SERVE_ARGS[SERVE_ARGS.index("--n-layers") + 1])
+    dlayers = int(DRAFT_FLAGS[DRAFT_FLAGS.index("--draft-n-layers") + 1])
+    verifies = {
+        (5, "dense"): ("serve_main --spec-decode 4, prompt lookup and the "
+                       "0.5B-width draft",
+                       spec["lookup"]["passes"]["decode_passes"]
+                       + spec["draft"]["passes"]["decode_passes"]),
+        (3, "dense"): ("the self-draft engine, spec 2",
+                       spec["self"]["0_2"]["decode_passes"]),
+        (3, "paged"): ("the self-draft engine, spec 2, --kv-block 16",
+                       spec["self"]["16_2"]["decode_passes"]),
+        (5, "paged"): ("the self-draft engine, spec 4, --kv-block 16",
+                       spec["self"]["16_4"]["decode_passes"]),
+    }
+    rows = []
+    for (t, layout), (where, passes) in verifies.items():
+        blocks = "64-row blocks" if layout == "dense" else "16-row blocks"
+        rows += [
+            dict(name=f"paged_flash_decode (K1, tall route: "
+                      f"paged_prefill_tc_kernel; a verify's t={t} rows a "
+                      f"slot, 12 / 2 heads; {layout}, {blocks}: {where})",
+                 route="cuda", source=src, replaces=k1,
+                 launches=layers * passes, **record[f"K1v{t}_{layout}"]),
+            dict(name=f"paged_kv_store (K2, a verify's t={t} rows a slot; "
+                      f"{layout}, {blocks}: {where})",
+                 route="cuda", source=src, replaces=k2,
+                 launches=layers * passes, **record[f"K2v{t}_{layout}"]),
+        ]
+    draft = spec["draft"]["passes"]
+    where = (f"the draft model's dense cache, 64-row blocks, H {DRAFT_H} / "
+             f"KVH {DRAFT_KVH}, head_dim {DRAFT_HD}: --draft-params-dir")
+    return rows + [
+        dict(name=f"paged_flash_decode (K1, decode route: "
+                  f"paged_decode_kernel<8> + merge; draft passes, t=1; "
+                  f"{where})", route="cuda", source=src, replaces=k1,
+             launches=dlayers * draft["draft_passes"],
+             **record["K1_draft"]),
+        dict(name=f"paged_flash_decode (K1, tall route: "
+                  f"paged_prefill_tc_kernel; draft prefills, timed at "
+                  f"t=512; {where})", route="cuda", source=src, replaces=k1,
+             launches=dlayers * draft["draft_prefill_dispatches"],
+             **record["K1t_draft"]),
+        dict(name=f"paged_kv_store (K2, draft prefills, timed at t=512; "
+                  f"{where})", route="cuda", source=src, replaces=k2,
+             launches=dlayers * draft["draft_prefill_dispatches"],
+             **record["K2_draft"]),
+        dict(name=f"paged_kv_store (K2, draft passes, t=1; {where})",
+             route="cuda", source=src, replaces=k2,
+             launches=dlayers * draft["draft_passes"],
+             **record["K2d_draft"]),
+    ]
+
+
 def ptxas_lines(log: str) -> list[str]:
     """ptxas's register and spill report, one line per kernel, each
     named by its (demangled enough) function name."""
@@ -3483,8 +3989,17 @@ def parse_args(argv):
              "control run), printing its counts and times as the last line")
     only.add_argument(
         "--serve-phase-only", action="store_true",
-        help="build the kernels and run only the serve phase, printing its "
-             "kernel counts and times to first token as the last line")
+        help="build the kernels and run only the serve phases (with the "
+             "speculative ones where the package serves them), printing "
+             "their kernel counts and times to first token as the last "
+             "line")
+    only.add_argument(
+        "--spec-phase-only", action="store_true",
+        help="build the kernels and run only the speculative paths: K1/K2 "
+             "at the verify and draft shapes, the default serve phase (the "
+             "plain engine on the same traffic), prompt lookup with beam "
+             "and embed, the self-draft engines and the draft model, "
+             "printing their counts as the last line")
     parser.add_argument(
         "--package", default=HERE, metavar="DIR",
         help="the checkout whose oim_tpu_torch to load (default: this "
@@ -3544,15 +4059,27 @@ def main(argv=None) -> int:
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "graph": result.get("graph")}}), flush=True)
         return 0
+    if args.spec_phase_only:
+        record = spec_kernel_phase()
+        plain = serve_phase(SERVE_ARGS, "default", echo=True)
+        spec = spec_phases(plain["decode_tok_s"])
+        print(json.dumps({"package": package, "kernel_phase": record,
+                          "default": plain, "spec": spec},
+                         default=str), flush=True)
+        return 0
     if args.serve_phase_only:
         from oim_tpu_torch.cli import serve_main
 
         served = {}
-        if "pipeline_depth" in vars(serve_main.build_parser().parse_args([])):
+        flags = vars(serve_main.build_parser().parse_args([]))
+        if "pipeline_depth" in flags:
+            # The six requests alone, as a parent package serves them.
             served["default"] = serve_phase(SERVE_ARGS, "default")
             served["paged"] = serve_phase(PAGED_SERVE_ARGS, "paged")
-            if "kv_int4" in vars(serve_main.build_parser().parse_args([])):
+            if "kv_int4" in flags:
                 served["quant"] = serve_phase(QUANT_SERVE_ARGS, "int4")
+            if "spec_decode" in flags:
+                served["spec"] = spec_phases(None)
         else:  # a package from before depth 2: paged, serial, eager only
             served["paged"] = serve_phase(SERVE_ARGS + ["--kv-block", "16"],
                                           "paged")
@@ -3586,16 +4113,18 @@ def main(argv=None) -> int:
                           "compare": compared}), flush=True)
         return 0
     record.update(segment_kernel_phase())
+    record.update(spec_kernel_phase())
     record.update(quant_kernel_phase())
     record.update(train_kernel_phase())
     record.update(fused_ce_phase())
     # The main path: serve_main's defaults.  Then the paged engine's
     # serial loop, and the prefix cache with chunked prefill on both
     # layouts, each with its own counts.
-    counts = serve_phase(SERVE_ARGS, "default")
+    counts = serve_phase(SERVE_ARGS, "default", echo=True)
     paged_counts = serve_phase(PAGED_SERVE_ARGS, "paged")
     quant_counts = serve_phase(QUANT_SERVE_ARGS, "int4")
     prefix_counts = prefix_phase()
+    spec_counts = spec_phases(counts["decode_tok_s"])
     counts.update(train_phase(record))
     work = tempfile.mkdtemp(prefix=".smoke-ckpt-", dir=HERE)
     try:
@@ -3699,7 +4228,8 @@ def main(argv=None) -> int:
         "packed int4 paged pool, 16-row blocks: --kv-block 16 --kv-int4 "
         "--weights-int4", quant_counts, "_i4",
     ) + quant_rows(record, {("qwen", "int4"): quant_counts,
-                            ("mixtral", "int8"): moe_counts["int8"]})
+                            ("mixtral", "int8"): moe_counts["int8"]}
+    ) + spec_rows(record, spec_counts)
     print(SMI, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,15 @@ are quantized from their f32 values: as each is drawn from ``--seed``,
 or after a ``--params-dir``/``--checkpoint-dir`` restore, layer by
 layer.
 ``--tp``/``--ep`` above 1 (sharded serving) are refused.
+
+Speculative decoding: ``--spec-decode N`` drafts N tokens a slot a
+decode step by prompt lookup (``--spec-ngram``) and verifies them in one
+forward; with ``--draft-params-dir D --draft-n-layers ... --draft-d-model
+... --draft-n-heads ...`` a small draft model drafts them instead, e.g.
+Qwen2.5-0.5B's widths beside Qwen2.5-1.5B:
+    ... --spec-decode 4 --draft-params-dir D --draft-n-layers 24 \\
+        --draft-d-model 896 --draft-n-heads 14 --draft-n-kv-heads 2 \\
+        --draft-d-ff 4864
 """
 
 from __future__ import annotations
@@ -179,6 +188,27 @@ def build_parser() -> argparse.ArgumentParser:
         "layouts reject it because only the paged pool carries the block "
         "scales",
     )
+    p.add_argument(
+        "--spec-decode", type=int, default=0,
+        help="speculative decoding draft length (0 = off): prompt-lookup "
+        "drafts verified draft_len+1 positions per slot per step, exact "
+        "for greedy and sampled output alike",
+    )
+    p.add_argument(
+        "--spec-ngram", type=int, default=2,
+        help="n-gram length the prompt-lookup drafter matches on",
+    )
+    p.add_argument(
+        "--draft-params-dir", default="",
+        help="params-only export of a small DRAFT model (oim-train "
+        "--export-dir): model-drafted speculation instead of prompt "
+        "lookup (requires --spec-decode and the --draft-* geometry)",
+    )
+    p.add_argument("--draft-n-layers", type=int, default=0)
+    p.add_argument("--draft-d-model", type=int, default=0)
+    p.add_argument("--draft-n-heads", type=int, default=0)
+    p.add_argument("--draft-n-kv-heads", type=int, default=0)
+    p.add_argument("--draft-d-ff", type=int, default=0)
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--top-p", type=float, default=1.0)
     p.add_argument(
@@ -256,20 +286,44 @@ def load_weights(args, cfg: TransformerConfig, device) -> dict:
     return recast(params, cfg, cfg.dtype)[0]
 
 
-def make_engine(args, cuda_graphs: bool = True) -> Engine:
-    """The engine from parsed args: device first (no GPU and no
-    ``--device cpu`` fails before any work), then weights and engine.
-    ``cuda_graphs=False`` dispatches decode chunks and admissions
-    eagerly: a measurement's A/B control, deliberately not a serving
-    flag."""
-    for axis in ("tp", "ep"):
-        if getattr(args, axis) > 1:
-            raise ValueError(
-                f"--{axis} {getattr(args, axis)}: sharded serving is not "
-                "ported yet (ROADMAP Queue A12: parallelism); the port "
-                "serves on one device")
-    device = resolve_device(args.device)
-    cfg = TransformerConfig(
+def draft_config(args) -> TransformerConfig:
+    """The draft model's config from the ``--draft-*`` flags and the
+    target's vocabulary, RoPE base, norm epsilon and dtype, as the
+    reference's ``serve_main`` builds it."""
+    if not (args.draft_n_layers and args.draft_d_model
+            and args.draft_n_heads):
+        raise SystemExit(
+            "--draft-params-dir needs --draft-n-layers, "
+            "--draft-d-model and --draft-n-heads"
+        )
+    return TransformerConfig(
+        vocab_size=args.vocab_size,
+        d_model=args.draft_d_model,
+        n_layers=args.draft_n_layers,
+        n_heads=args.draft_n_heads,
+        n_kv_heads=args.draft_n_kv_heads,
+        d_ff=args.draft_d_ff,
+        rope_theta=args.rope_theta,
+        norm_eps=args.norm_eps,
+        dtype=args.dtype,
+    )
+
+
+def load_draft(args, device):
+    """(draft params, draft config) from ``--draft-params-dir``
+    (``draft_config``), or (None, None)."""
+    if not args.draft_params_dir:
+        return None, None
+    draft_cfg = draft_config(args)
+    what = f"--draft-params-dir {args.draft_params_dir}"
+    params = load_params(args.draft_params_dir, device=device)
+    check_params(params, draft_cfg, what)
+    return recast(params, draft_cfg, draft_cfg.dtype)[0], draft_cfg
+
+
+def model_config(args) -> TransformerConfig:
+    """The served model's config from the geometry flags."""
+    return TransformerConfig(
         vocab_size=args.vocab_size,
         d_model=args.d_model,
         n_layers=args.n_layers,
@@ -288,7 +342,24 @@ def make_engine(args, cuda_graphs: bool = True) -> Engine:
         norm_eps=args.norm_eps,
         dtype=args.dtype,
     )
+
+
+def make_engine(args, cuda_graphs: bool = True) -> Engine:
+    """The engine from parsed args: device first (no GPU and no
+    ``--device cpu`` fails before any work), then weights and engine.
+    ``cuda_graphs=False`` dispatches decode chunks and admissions
+    eagerly: a measurement's A/B control, deliberately not a serving
+    flag."""
+    for axis in ("tp", "ep"):
+        if getattr(args, axis) > 1:
+            raise ValueError(
+                f"--{axis} {getattr(args, axis)}: sharded serving is not "
+                "ported yet (ROADMAP Queue A12: parallelism); the port "
+                "serves on one device")
+    device = resolve_device(args.device)
+    cfg = model_config(args)
     params = load_weights(args, cfg, device)
+    draft_params, draft_cfg = load_draft(args, device)
     return Engine(
         params, cfg,
         n_slots=args.n_slots,
@@ -300,6 +371,10 @@ def make_engine(args, cuda_graphs: bool = True) -> Engine:
         kv_int4=args.kv_int4,
         prefix_cache_size=args.prefix_cache,
         prefill_chunk=args.prefill_chunk,
+        spec_decode=args.spec_decode,
+        spec_ngram=args.spec_ngram,
+        draft_params=draft_params,
+        draft_cfg=draft_cfg,
         penalties=not args.no_penalties,
         max_queue=args.max_queue,
         pipeline_depth=args.pipeline_depth,
@@ -320,6 +395,8 @@ def start_server(args) -> ServeServer:
         f"kv_block={args.kv_block} pipeline_depth={args.pipeline_depth} "
         f"prefix_cache={args.prefix_cache} "
         f"prefill_chunk={args.prefill_chunk} "
+        f"spec_decode={args.spec_decode} "
+        f"draft={'model' if engine.draft_cfg else 'none'} "
         f"weight_quant={engine.weight_quant or 'none'} "
         f"kv_quant={engine.kv_quant or 'none'} device={engine.device}",
         file=sys.stderr, flush=True,

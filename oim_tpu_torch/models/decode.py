@@ -251,6 +251,24 @@ def decode_step(params, cache: KVCache, tokens, cfg: TransformerConfig):
     return unembed(x, params, cfg)[:, -1, :], cache
 
 
+def embed_tokens(params, tokens, true_lens, cfg: TransformerConfig):
+    """Mean-pooled, L2-normalized final hidden states: an embeddings
+    surface over the causal LM (last-layer mean pooling).  tokens [b, t]
+    right-padded, true_lens [b] valid lengths: the pads sit after the
+    valid positions, so causal attention keeps every valid hidden state
+    independent of them and the masked mean is exact at any padding
+    bucket.  Returns f32 [b, d_model] rows of unit norm."""
+    b, t = tokens.shape
+    cache = KVCache.create(cfg, b, t, device=tokens.device)
+    x = _hidden_cached(params, tokens, cache, cfg)
+    mask = (torch.arange(t, device=tokens.device)[None, :]
+            < true_lens.to(tokens.device)[:, None]).float()[..., None]
+    pooled = torch.sum(x.float() * mask, dim=1) / torch.clamp_min(
+        torch.sum(mask, dim=1), 1.0)
+    return pooled / torch.clamp_min(
+        torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), 1e-9)
+
+
 # ---------------------------------------------------------------------------
 # Sampling
 

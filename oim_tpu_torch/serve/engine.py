@@ -55,12 +55,25 @@ paths:
   a chunked prefill replays the (``prefill_chunk``, 1) graph.  Every
   graph is captured at warmup; the eager route (``cuda_graphs=False``,
   and the CPU) pads the same way, so it runs the same shapes.
+- **Speculative decoding.**  ``spec_decode = L`` drafts L tokens a slot
+  each decode step — by prompt lookup over a device-side token history,
+  or from a small draft model with its own dense cache — and verifies
+  all L+1 positions in one target forward (K2 then K1 per layer at t =
+  L+1), emitting the longest accepted prefix plus the bonus token for
+  greedy rows and one token for sampled ones.  A chunk's rows advance by
+  counts only the device knows, so a chained dispatch takes positions,
+  like tokens, from the chunk before it, and the host learns each row's
+  advance from ``n_emit`` at readback.  Its chunks and the draft's
+  prefill are graph replays too.
+- **Slot-free work.**  ``embed`` and ``beam`` run the plain solo path
+  (``models/decode.py::embed_tokens``, ``models/beam.py``) on the
+  caller's thread, refused while draining.
 - **Exactness.**  Each slot attends only its own positions and each
   sampled token draws noise keyed by ``(request seed, token index)``
   (``models/decode.py``), so results never depend on the slot, the
-  batch, the chunk size or the pipeline depth: greedy streams equal the
-  solo ``generate`` and the reference's, sampled streams the port's solo
-  ``generate``.
+  batch, the chunk size, the pipeline depth or speculation: greedy
+  streams equal the solo ``generate`` and the reference's, sampled
+  streams the port's solo ``generate``.
 
 Features of the reference engine this slice does not port are refused
 at construction or submission with the ROADMAP item that will bring
@@ -70,19 +83,23 @@ them.
 from __future__ import annotations
 
 import copy
+import math
 import statistics
 import threading
 import time
 from collections import OrderedDict, deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
+from oim_tpu_torch.models.beam import make_beam_search_fn
 from oim_tpu_torch.models.decode import (
     _mlp,
     _validate_truncation,
     apply_penalties,
+    embed_tokens,
     nucleus_min_p_mask,
     sampling_noise,
     truncate_logits,
@@ -119,6 +136,15 @@ def resolve_device(device=None) -> torch.device:
             "to run the plain PyTorch path on the CPU"
         )
     return dev
+
+
+# Beam search's bounds on client-chosen state (``Engine.beam``): the beam
+# width (the cache replicates across the beams), the search functions
+# kept, one per (beam_size, alpha, eos_id), and the (configuration,
+# prompt length, max_new) shapes seen before both are cleared.
+_MAX_BEAM_SIZE = 32
+_MAX_BEAM_PROGRAMS = 8
+_MAX_BEAM_TRACES = 64
 
 
 def _not_ported(option: str, item: str) -> ValueError:
@@ -452,6 +478,163 @@ def _decode_chunk(params, cache, tables, tokens, starts, live,
     return torch.stack(outs, dim=1), torch.stack(lps, dim=1), tokens
 
 
+def _draft_lookup(hist, lengths, draft_len: int, ngram: int, max_len: int):
+    """Prompt-lookup drafting for every slot at once, with no host sync:
+    hist [S, max_len] (each slot's token history, its newest decided
+    token just written at position ``lengths``), lengths [S] → drafts
+    [S, draft_len], the tokens that followed the most recent earlier
+    occurrence of each slot's last ``ngram`` decided tokens.  No match
+    drafts zeros: a wrong draft is rejection-safe (the verify emits the
+    true token), so it costs acceptance, never a token.
+
+    The most recent match whose continuation lies wholly inside the
+    decided region ``[0, length]`` wins: rows past ``length`` hold the
+    previous sub-step's rejected drafts, and a slot in a repetition cycle
+    that matched at the edge would draft ``[real, stale, stale, ...]``.
+    Without such a match (early in a short history), the freshest edge
+    match drafts with its undecided positions masked to 0."""
+    dev = hist.device
+    lengths = lengths.long()[:, None]  # [S, 1]
+    steps = torch.arange(ngram, device=dev)
+    query_start = lengths - ngram + 1
+    query = torch.gather(hist, 1, (query_start + steps).clamp(0, max_len - 1))
+    positions = torch.arange(max_len, device=dev)
+    idx = (positions[:, None] + steps[None, :]).clamp_max(max_len - 1)
+    windows = hist[:, idx]  # [S, max_len, ngram]
+    ok = torch.all(windows == query[:, None, :], dim=2) & (query_start >= 0)
+    window_end = positions[None, :] + ngram - 1
+    none = torch.full_like(ok, -1, dtype=torch.long)
+    w_full = torch.where(ok & (window_end + draft_len <= lengths),
+                         positions, none).amax(dim=1)
+    w_edge = torch.where(ok & (window_end < lengths), positions,
+                         none).amax(dim=1)
+    w = torch.where(w_full >= 0, w_full, w_edge)[:, None]
+    cont = w + ngram + torch.arange(draft_len, device=dev)
+    drafts = torch.gather(hist, 1, cont.clamp(0, max_len - 1))
+    drafts = torch.where(cont <= lengths, drafts, 0)
+    return torch.where(w >= 0, drafts, 0)
+
+
+def _verify_logits(params, cache, tables, lengths, tokens, drafts,
+                   cfg: TransformerConfig):
+    """A verify's forward: one (L+1)-row target forward over [tokens,
+    drafts] from ``lengths`` (K2 then K1 per layer, each slot's L+1 rows
+    at once) → f32 logits [S, L+1, V]."""
+    inputs = torch.cat([tokens[:, None], drafts], dim=1)
+    x = _hidden_slots(params, inputs, cache, lengths, tables, cfg)
+    return unembed(x, params, cfg)
+
+
+def _accept(logits, lengths, tokens, drafts, live, s: _Sampling, noise, *,
+            top_k: int, max_len: int):
+    """A verify's emission from its logits: the longest accepted prefix
+    plus the bonus token for greedy rows (``cumprod`` of draft ==
+    argmax), exactly one token for sampled rows, drawn from the
+    position-0 logits with ``noise`` (the plain chunk's noise of this
+    sub-step, keyed by the same token index).  Logprobs as the plain path
+    takes them.  Lengths advance by the emitted count, clamped at
+    ``max_len - 1 - L`` so that the next verify's L+1 writes stay inside
+    the slot's rows.  Returns (lengths, the next tokens, emitted [S,
+    L+1], logprobs [S, L+1], n_emit [S])."""
+    n_drafts = drafts.shape[1]
+    greedy = torch.argmax(logits, dim=-1)
+    accepted = torch.cumprod((drafts == greedy[:, :n_drafts]).to(torch.int32),
+                             dim=1).sum(dim=1)
+    first, first_lp = _sample_batched(logits[:, 0], s, noise, top_k, None)
+    emitted = torch.cat([first[:, None], greedy[:, 1:]], dim=1)
+    lps = (torch.gather(logits, 2, emitted[..., None])[..., 0]
+           - torch.logsumexp(logits, dim=-1))
+    lps = torch.cat([first_lp[:, None], lps[:, 1:]], dim=1)
+    active = live > 0
+    n_emit = torch.where(active, torch.where(s.cols[0] <= 0.0, accepted + 1,
+                                             1), 0).to(torch.int32)
+    last = torch.gather(emitted, 1, torch.clamp_min(n_emit - 1, 0).long()
+                        [:, None])[:, 0]
+    tokens = torch.where(active, last, tokens)
+    lengths = torch.clamp_max(lengths + n_emit, max_len - 1 - n_drafts)
+    return lengths, tokens, emitted, lps, n_emit
+
+
+def _verify_emit(params, cache, tables, lengths, tokens, drafts, live,
+                 s: _Sampling, noise, cfg: TransformerConfig, *, top_k: int,
+                 max_len: int):
+    """The exactness-critical verify-and-emit core of both drafting
+    sources: ``_verify_logits`` then ``_accept``."""
+    logits = _verify_logits(params, cache, tables, lengths, tokens, drafts,
+                            cfg)
+    return _accept(logits, lengths, tokens, drafts, live, s, noise,
+                   top_k=top_k, max_len=max_len)
+
+
+def _model_drafts(draft, tokens, lengths, draft_len: int):
+    """``draft_len`` greedy tokens a slot from the draft model: ``draft``
+    = (params, cfg, cache, tables).  ``draft_len + 1`` sequential t = 1
+    forwards from ``tokens`` at ``lengths`` write the draft cache's rows
+    at ``lengths … lengths + L``, exactly the rows the verify writes in
+    the target's, so a fully accepted sub-step leaves no gap; the last
+    forward exists only for its row (nothing is unembedded for it)."""
+    dparams, dcfg, dcache, dtables = draft
+    cur, drafted = tokens, []
+    for j in range(draft_len + 1):
+        x = _hidden_slots(dparams, cur[:, None], dcache, lengths + j,
+                          dtables, dcfg)
+        if j == draft_len:
+            break
+        cur = torch.argmax(unembed(x[:, -1], dparams, dcfg), dim=-1)
+        drafted.append(cur)
+    return torch.stack(drafted, dim=1)
+
+
+def _decode_chunk_spec(params, cache, tables, tokens, starts, live,
+                       s: _Sampling, noise, cfg: TransformerConfig, *,
+                       chunk: int, draft_len: int, top_k: int, max_len: int,
+                       history=None, ngram: int = 2, draft=None):
+    """``_decode_chunk`` with speculative decoding: each of ``chunk``
+    sub-steps drafts ``draft_len`` tokens a slot — by prompt lookup over
+    ``history`` [S, max_len] (updated in place: the newest decided token
+    at its position, then the drafts after it), or from the draft model
+    ``draft`` (``_model_drafts``, its cache dense, its lengths the
+    target's) — and verifies all ``draft_len + 1`` positions in one
+    forward (``_verify_emit``).  Decode is bound by reading the cache and
+    the weights, so the (L+1)-row forward costs about one step while it
+    emits up to L+1 tokens.
+
+    Exactness: greedy emission is unchanged by construction (position
+    j's logits condition on a draft prefix that is only consumed when it
+    equals the true greedy continuation); sampled rows emit one token a
+    sub-step with the plain chunk's noise, so they are the plain path's
+    tokens too.  Rejected rows (KV and history) sit past the slot's
+    length, dead until overwritten.  No penalty counts are read or
+    moved: a speculative engine refuses penalised requests.  Returns
+    (tokens [S, chunk, L+1], logprobs [S, chunk, L+1], n_emit [S, chunk]
+    — the host consumes ``n_emit[s, i]`` tokens of sub-step i — the last
+    tokens [S] and the lengths [S]), all on the device."""
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    offsets = torch.arange(draft_len, device=tokens.device)
+    lengths = starts
+    outs, lps, n_emits = [], [], []
+    for i in range(chunk):
+        if draft is None:
+            history[rows, torch.clamp_max(lengths, max_len - 1).long()] = (
+                tokens)
+            drafts = _draft_lookup(history, lengths, draft_len, ngram,
+                                   max_len)
+            at = torch.clamp_max(lengths + 1, max_len - draft_len).long()
+            history[rows[:, None], at[:, None] + offsets] = drafts
+        else:
+            drafts = _model_drafts(draft, tokens, lengths, draft_len)
+        lengths, tokens, out, lp, n_emit = _verify_emit(
+            params, cache, tables, lengths, tokens, drafts, live, s,
+            None if noise is None else noise[i], cfg, top_k=top_k,
+            max_len=max_len,
+        )
+        outs.append(out)
+        lps.append(lp)
+        n_emits.append(n_emit)
+    return (torch.stack(outs, dim=1), torch.stack(lps, dim=1),
+            torch.stack(n_emits, dim=1), tokens, lengths)
+
+
 # The keys of a decode chunk's graphs: (some row samples, some sampled
 # row truncates).  Truncation matters only to sampled rows.
 _GRAPH_KEYS = ((False, False), (True, False), (True, True))
@@ -461,28 +644,36 @@ class _ChunkBuffers:
     """A decode chunk's inputs and outputs at fixed device addresses —
     what a captured graph reads and writes — and the host buffers around
     them.  Inputs: ``tokens`` [S] int64 (also the carry: the chunk's last
-    tokens are written back), ``meta`` [2, S] int32 (starts, live),
-    ``cols`` [6, S], ``tables`` [S, n_tables], ``noise`` [chunk, S, V];
-    outputs ``out`` [S, chunk] and ``lps`` [S, chunk].  Two sets of host
-    staging for the inputs and two of host outputs, taken in turn, one
-    per chunk in flight: pinned on the GPU, so copies between them and
-    the device do not wait for the device, and a staging set is not
-    rewritten before the copies from it are done (``staged``)."""
+    tokens are written back), ``meta`` [2, S] int32 (starts, live; on a
+    speculative engine the starts are a carry too, the chunk's final
+    lengths written back), ``cols`` [6, S], ``tables`` [S, n_tables],
+    ``noise`` [chunk, S, V]; outputs ``out`` and ``lps`` [S, chunk], or
+    on a speculative engine [S, chunk, spec + 1] with ``n_emit`` [S,
+    chunk] int32 (``outputs`` lists them).  Two sets of host staging for
+    the inputs and two of host outputs, taken in turn, one per chunk in
+    flight: pinned on the GPU, so copies between them and the device do
+    not wait for the device, and a staging set is not rewritten before
+    the copies from it are done (``staged``)."""
 
     _STAGED = ("tokens", "meta", "cols", "tables")
 
     def __init__(self, n_slots: int, n_tables: int, chunk: int, vocab: int,
-                 device):
+                 device, spec: int = 0):
         def dev(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=device)
 
+        rows = (n_slots, chunk, spec + 1) if spec else (n_slots, chunk)
         self.tokens = dev((n_slots,), torch.int64)
         self.meta = dev((2, n_slots), torch.int32)
         self.cols = dev((len(_COLUMNS), n_slots), torch.float32)
         self.tables = dev((n_slots, n_tables), torch.int32)
         self.noise = dev((chunk, n_slots, vocab), torch.float32)
-        self.out = dev((n_slots, chunk), torch.int64)
-        self.lps = dev((n_slots, chunk), torch.float32)
+        self.out = dev(rows, torch.int64)
+        self.lps = dev(rows, torch.float32)
+        self.outputs = [self.out, self.lps]
+        if spec:
+            self.n_emit = dev((n_slots, chunk), torch.int32)
+            self.outputs.append(self.n_emit)
         pin = torch.device(device).type == "cuda"
 
         def host(t):
@@ -491,7 +682,8 @@ class _ChunkBuffers:
         self.stages = [{name: host(getattr(self, name))
                         for name in self._STAGED} for _ in range(2)]
         self.staged: list = [None, None]
-        self.results = [(host(self.out), host(self.lps)) for _ in range(2)]
+        self.results = [tuple(host(t) for t in self.outputs)
+                        for _ in range(2)]
         self.turn = 0
 
 
@@ -532,6 +724,7 @@ class _AdmitBuffers:
         self.n_tables = n_tables
         self.prompts = dev((max_tokens,), torch.int64)
         self.ints = dev((max_rows * (2 + n_tables),), torch.int32)
+        # A draft model's prefill unembeds nothing: vocab 0.
         self.logits = dev((max_rows, vocab), torch.float32)
 
     def views(self, bucket: int, rows: int) -> tuple:
@@ -596,15 +789,17 @@ class _InFlightChunk:
     processing never gives a chunk's tokens to a later occupant;
     ``starts`` and ``indices`` [S] are this dispatch's positions and
     sampling keys, from which a chained dispatch takes its own
-    (``+ chunk``); ``out``/``lps`` are the host buffers its results land
-    in once ``done`` (a CUDA event; None on the CPU) has passed."""
+    (``+ chunk``; a speculative chunk advances each row by a count only
+    the device knows, so its chained dispatch takes the positions from
+    the device-side carry and ``starts`` is None there); ``results`` are
+    the host buffers its outputs land in (``_ChunkBuffers.outputs``'
+    order) once ``done`` (a CUDA event; None on the CPU) has passed."""
 
     snapshot: dict
     inputs: _ChunkInputs
-    starts: np.ndarray
+    starts: np.ndarray | None
     indices: np.ndarray
-    out: torch.Tensor
-    lps: torch.Tensor
+    results: tuple
     done: object
     t_dispatch: float
 
@@ -741,6 +936,9 @@ class Engine:
         kv_int4: bool = False,
         prefix_cache_size: int = 0,
         spec_decode: int = 0,
+        spec_ngram: int = 2,
+        draft_params=None,
+        draft_cfg: TransformerConfig | None = None,
         penalties: bool = True,
         max_queue: int = 0,
         prefill_chunk: int = 0,
@@ -774,8 +972,34 @@ class Engine:
                 "block pool carries the per-block scales the fused "
                 "dequant reads"
             )
-        if spec_decode:
-            raise _not_ported("spec_decode", "spec decode")
+        if spec_decode < 0 or (spec_decode and spec_ngram < 1):
+            raise ValueError(
+                f"need spec_decode>=0 and spec_ngram>=1; got "
+                f"{spec_decode}, {spec_ngram}"
+            )
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError(
+                "draft_params and draft_cfg come together or not at all"
+            )
+        if draft_cfg is not None:
+            if not spec_decode:
+                raise ValueError(
+                    "a draft model needs spec_decode >= 1 (draft length)"
+                )
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != target "
+                    f"vocab {cfg.vocab_size}"
+                )
+        # A speculative engine reserves spec_decode + 1 rows a slot, so
+        # that a verify's L+1 writes always fit inside the region, even
+        # past EOS (a clamped start never slides back over live rows).
+        self._usable_len = max_len - (spec_decode + 1 if spec_decode else 0)
+        if self._usable_len < 2:
+            raise ValueError(
+                f"max_len={max_len} leaves no usable room after the "
+                f"spec_decode={spec_decode} headroom reserve"
+            )
         if kv_host_bytes:
             raise _not_ported(
                 "the host-RAM KV tier", "lifecycle surfaces (host tier)"
@@ -793,16 +1017,21 @@ class Engine:
                 f"(the block table covers the region exactly)"
             )
         block_size = kv_block if self.paged else dense_block_size(max_len)
-        if self.device.type == "cuda" and not supported_block_size(
-                block_size, cfg.head_dim):
-            # Fail here, with the constraint named, rather than in the
-            # first launch on the step thread.
-            raise ValueError(
-                f"the paged-attention kernels need head_dim in (64, 128) "
-                f"and blocks of 1 to 64 rows; got head_dim={cfg.head_dim}, "
-                f"{'kv_block' if self.paged else 'a dense block'}="
-                f"{block_size}"
-            )
+        geometries = [(cfg.head_dim, block_size,
+                       "kv_block" if self.paged else "a dense block")]
+        if draft_cfg is not None:
+            geometries.append((draft_cfg.head_dim, dense_block_size(max_len),
+                               "the draft's dense block"))
+        for head_dim, block, what in geometries:
+            if self.device.type == "cuda" and not supported_block_size(
+                    block, head_dim):
+                # Fail here, with the constraint named, rather than in
+                # the first launch on the step thread.
+                raise ValueError(
+                    f"the paged-attention kernels need head_dim in (64, "
+                    f"128) and blocks of 1 to 64 rows; got head_dim="
+                    f"{head_dim}, {what}={block}"
+                )
         if max_queue < 0:
             raise ValueError(f"max_queue must be >= 0, got {max_queue}")
         if prefix_cache_size < 0:
@@ -836,16 +1065,18 @@ class Engine:
         self._n_tables = max_len // block_size
         if prompt_buckets is None:
             prompt_buckets, b = [], 16
-            while b < max_len:
+            while b < self._usable_len:
                 prompt_buckets.append(b)
                 b *= 2
-            prompt_buckets.append(max_len - 1)
+            prompt_buckets.append(self._usable_len - 1)
         self.prompt_buckets = tuple(sorted(set(prompt_buckets)))
-        bad = [b for b in self.prompt_buckets if not 1 <= b <= max_len - 1]
+        bad = [b for b in self.prompt_buckets
+               if not 1 <= b <= self._usable_len - 1]
         if bad:
             raise ValueError(
-                f"prompt_buckets must fit 1..{max_len - 1} (each admitted "
-                f"prompt needs >= 1 generated token): {bad}"
+                f"prompt_buckets must fit 1..{self._usable_len - 1} (each "
+                f"admitted prompt needs >= 1 generated token, and "
+                f"speculative mode reserves spec_decode+1 rows): {bad}"
             )
         if prefill_chunk and prefill_chunk not in self.prompt_buckets:
             # A bucket-exact chunk keeps every non-final segment's window
@@ -901,8 +1132,38 @@ class Engine:
         # prompt fully covers, one ref each.
         self._prefix_cache: OrderedDict = OrderedDict()
         self._prefilling: dict[int, _PendingPrefill] = {}
+        self.spec_decode = spec_decode
+        self.spec_ngram = spec_ngram
+        self.draft_cfg = draft_cfg
+        self.draft_params = None
+        self._history = None
+        self._draft_cache = None
+        if draft_cfg is not None:
+            # Model-drafted speculation: the draft keeps its own dense,
+            # unquantized slot cache (it is small) in lockstep with the
+            # target's lengths, behind the identity table of its regions
+            # (a decode chunk's row with no request gets the sentinel).
+            self.draft_params = to_device(draft_params, self.device)
+            dbs = dense_block_size(max_len)
+            self._draft_cache = SlotCache.create(
+                draft_cfg, n_slots, max_len, dbs, device=self.device)
+            self._draft_n_tables = max_len // dbs
+            self._draft_sentinel = n_slots * self._draft_n_tables
+            self._draft_identity_host = np.arange(
+                self._draft_sentinel, dtype=np.int32,
+            ).reshape(n_slots, self._draft_n_tables)
+            self._draft_identity = torch.from_numpy(
+                self._draft_identity_host).to(self.device)
+        elif spec_decode:
+            # Prompt lookup's draft source: each slot's tokens (admission
+            # writes the whole prompt, decode the decided tokens and the
+            # drafts after them).
+            self._history = torch.zeros((n_slots, max_len),
+                                        dtype=torch.int64,
+                                        device=self.device)
         self._buf = _ChunkBuffers(n_slots, self._n_tables, chunk,
-                                  cfg.vocab_size, self.device)
+                                  cfg.vocab_size, self.device,
+                                  spec=spec_decode)
         # Each bucket's admission row classes within the token cap (one
         # row always: a prompt is never split).
         self._admit_classes = {
@@ -916,6 +1177,16 @@ class Engine:
             self._n_tables, cfg.vocab_size, self.device,
         )
         self._admit_graphs: dict = {}  # (bucket, rows) → (graph, counts)
+        # A draft engine's draft prefill: its own dispatches over the full
+        # prompts, keyed by the full prompt's bucket and a row class.
+        self._dadm = None
+        self._draft_graphs: dict = {}
+        if draft_cfg is not None:
+            self._dadm = _AdmitBuffers(
+                max(b * c[-1] for b, c in self._admit_classes.items()),
+                max(c[-1] for c in self._admit_classes.values()),
+                self._draft_n_tables, 0, self.device,
+            )
         self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
         self._graphs: dict | None = None
         self._graph_counts: dict = {}
@@ -934,6 +1205,15 @@ class Engine:
         self._draining = False
         self._fatal: str | None = None
         self._warming = False
+        # Slot-free work (embed, beam) running on handler threads, and
+        # beam's bounded per-configuration state: (beam_size, alpha,
+        # eos_id) → search function, FIFO-evicted past
+        # _MAX_BEAM_PROGRAMS; (config, prompt length, max_new) shapes
+        # seen, all cleared past _MAX_BEAM_TRACES.
+        self._aux_active = 0
+        self._beam_lock = threading.Lock()
+        self._beam_fns: dict = {}
+        self._beam_traces: set = set()
         # Host-side accounting (stats()); warmup's dummies are not
         # counted.
         self.steps = 0
@@ -964,6 +1244,17 @@ class Engine:
         # Admission dispatches (first-token groups and non-final
         # segments) replayed from their graphs.
         self.admission_replays = 0
+        # A draft engine's draft forwards: the prefill dispatches of its
+        # admissions (each through the whole draft stack) and their
+        # replays, and the t = 1 passes of its decode chunks, spec_decode
+        # + 1 a sub-step.
+        self.draft_prefill_dispatches = 0
+        self.draft_admission_replays = 0
+        self.draft_passes = 0
+        # Greedy rows' drafts: spec_decode a sub-step consumed, and the
+        # accepted ones consumed.
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         self.readbacks = 0
         # The pipeline's split of step() walls, under the reference's
         # names: readback_seconds is the wall blocked on a chunk's
@@ -999,11 +1290,13 @@ class Engine:
     def _worst_case_rows(self, n_tokens: int, max_new: int,
                          start: int = 0) -> int:
         """The most slot rows a request can touch: its bucketed prefill
-        window from ``start`` (0 with no prefix hit) or prompt + budget,
-        whichever is larger — the one bound the submit-time fit check,
-        warmup and the admission planner share."""
+        window from ``start`` (0 with no prefix hit) or prompt + budget +
+        the speculative headroom (a verify's rows), whichever is larger —
+        the one bound the submit-time fit check, warmup and the admission
+        planner share."""
+        headroom = self.spec_decode + 1 if self.spec_decode else 0
         return min(self.max_len, max(start + self._bucket(n_tokens - start),
-                                     n_tokens + max_new))
+                                     n_tokens + max_new + headroom))
 
     def _pool_blocks_needed(self, n_tokens: int, max_new: int) -> int:
         """Pool blocks a request reserves with no prefix hit (0 on the
@@ -1029,10 +1322,12 @@ class Engine:
                 f"prompt length {len(req.tokens)} exceeds largest bucket "
                 f"{self.prompt_buckets[-1]}"
             )
-        if len(req.tokens) + req.max_new_tokens > self.max_len:
+        if len(req.tokens) + req.max_new_tokens > self._usable_len:
             raise ValueError(
                 f"prompt {len(req.tokens)} + max_new_tokens "
                 f"{req.max_new_tokens} exceeds max_len {self.max_len}"
+                + (f" minus the spec_decode+1={self.spec_decode + 1} "
+                   f"headroom reserve" if self.spec_decode else "")
             )
         need = self._pool_blocks_needed(len(req.tokens), req.max_new_tokens)
         if need > self.kv_blocks:
@@ -1056,6 +1351,14 @@ class Engine:
             or req.presence_penalty != 0.0
             or req.frequency_penalty != 0.0
         )
+        if self.spec_decode and wants_penalties:
+            # A verify samples L+1 positions from one forward; penalties
+            # move the counts within that block, so exactness would need
+            # a per-position count replay.  Refuse rather than approximate.
+            raise ValueError(
+                "sampling penalties are not supported on a speculative "
+                "engine (start oim-serve without --spec-decode)"
+            )
         if not self.penalties and wants_penalties:
             raise ValueError(
                 "this engine was built with penalties=False "
@@ -1179,7 +1482,8 @@ class Engine:
 
     def in_flight(self) -> int:
         with self._lock:
-            return len(self._queue) + len(self._admitting) + len(self._slots)
+            return (len(self._queue) + len(self._admitting) + len(self._slots)
+                    + self._aux_active)
 
     def pending(self) -> bool:
         with self._lock:
@@ -1200,6 +1504,130 @@ class Engine:
                     "chunk is in flight; drain or finish run() first)"
                 )
             self.pipeline_depth = depth
+
+    # -- slot-free work: embeddings and beam search ---------------------------
+
+    @contextmanager
+    def _aux_request(self):
+        """Drain-aware guard for slot-free work (embed, beam): refused
+        while draining or after a crash, counted in ``in_flight`` while
+        it runs."""
+        with self._lock:
+            if self._fatal is not None:
+                raise EngineFailedError(f"engine failed: {self._fatal}")
+            if self._draining:
+                raise DrainingError("engine is draining; not admitting")
+            self._aux_active += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._aux_active -= 1
+
+    def _fetch_aux(self, tensor: torch.Tensor) -> np.ndarray:
+        """One readback of slot-free work, counted with the chunks'."""
+        host = tensor.cpu().numpy()
+        if not self._warming:
+            with self._lock:
+                self.readbacks += 1
+        return host
+
+    @torch.no_grad()
+    def embed(self, tokens: list[int]) -> list[float]:
+        """Mean-pooled, L2-normalized final hidden state of ``tokens``
+        (``models/decode.py::embed_tokens``), padded to its prompt
+        bucket.  Stateless and slot-free: it touches neither the cache
+        nor the queue, so any thread may call it while the step thread
+        runs; it runs the plain solo path, as the reference's does."""
+        with self._aux_request():
+            self._validate(GenRequest(tokens=tokens, max_new_tokens=1))
+            bucket = self._bucket(len(tokens))
+            padded = torch.zeros((1, bucket), dtype=torch.int64,
+                                 device=self.device)
+            padded[0, : len(tokens)] = torch.as_tensor(tokens)
+            vec = embed_tokens(
+                self.params, padded,
+                torch.tensor([len(tokens)], device=self.device), self.cfg,
+            )
+            return [float(x) for x in self._fetch_aux(vec[0])]
+
+    def beam(self, tokens: list[int], max_new_tokens: int,
+             beam_size: int = 4, alpha: float = 0.6,
+             eos_id: int | None = None) -> tuple[list[int], float]:
+        """Latency-mode beam search on the engine's model: (generated
+        tokens of the best hypothesis, its normalized score).  Beam-k
+        keeps k interdependent hypotheses whose cache rows reorder every
+        step, so it runs ``models/beam.py`` on the plain solo path, not
+        the slot machinery; like ``embed`` it is stateless and slot-free.
+        Beam-1 is the engine's greedy output.
+
+        Validation is beam-specific: the slot engine's prompt buckets
+        and speculative headroom do not apply (beam builds its own cache
+        of ``len(tokens) + max_new_tokens`` rows), but ``max_len`` still
+        bounds the total as the server's memory policy, ``beam_size`` is
+        capped (the cache replicates across the beams), and the
+        per-configuration state is bounded as the reference bounds its
+        compiled programs: a FIFO of ``_MAX_BEAM_PROGRAMS`` search
+        functions over client-chosen (beam_size, alpha, eos_id), and a
+        budget of ``_MAX_BEAM_TRACES`` (configuration, prompt length,
+        max_new) shapes, past which both are cleared."""
+        with self._aux_request():
+            return self._beam_inner(tokens, max_new_tokens, beam_size,
+                                    alpha, eos_id)
+
+    def _beam_inner(self, tokens, max_new_tokens, beam_size, alpha,
+                    eos_id) -> tuple[list[int], float]:
+        if not tokens:
+            raise ValueError("prompt must be non-empty")
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"need max_new_tokens >= 1, got {max_new_tokens}"
+            )
+        bad = [t for t in tokens if not 0 <= t < self.cfg.vocab_size]
+        if bad:
+            raise ValueError(
+                f"token ids out of range [0, {self.cfg.vocab_size}): "
+                f"{bad[:5]}"
+            )
+        if len(tokens) + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt {len(tokens)} + max_new_tokens {max_new_tokens} "
+                f"exceeds max_len {self.max_len}"
+            )
+        if not 1 <= beam_size <= _MAX_BEAM_SIZE:
+            raise ValueError(
+                f"beam_size must be in [1, {_MAX_BEAM_SIZE}], "
+                f"got {beam_size}"
+            )
+        alpha = float(alpha)
+        if not math.isfinite(alpha):
+            # NaN would also poison the cache key (nan != nan).
+            raise ValueError(f"alpha must be finite, got {alpha}")
+        key = (beam_size, alpha, eos_id)
+        with self._beam_lock:
+            if len(self._beam_traces) >= _MAX_BEAM_TRACES:
+                self._beam_fns.clear()
+                self._beam_traces.clear()
+            fn = self._beam_fns.get(key)
+            if fn is None:
+                while len(self._beam_fns) >= _MAX_BEAM_PROGRAMS:
+                    evicted = next(iter(self._beam_fns))
+                    self._beam_fns.pop(evicted)
+                    self._beam_traces = {t for t in self._beam_traces
+                                         if t[0] != evicted}
+                fn = self._beam_fns[key] = make_beam_search_fn(
+                    self.cfg, beam_size=beam_size, alpha=alpha,
+                    eos_id=eos_id,
+                )
+            self._beam_traces.add((key, len(tokens), max_new_tokens))
+        prompt = torch.as_tensor([tokens], device=self.device)
+        out, stats = fn(self.params, prompt, max_new_tokens=max_new_tokens)
+        generated = [int(t) for t in self._fetch_aux(out[0, len(tokens):])]
+        if eos_id is not None:
+            # Past the winner's EOS come 0-pads: trim to the generation,
+            # the EOS included (GenRequest's eos semantics).
+            generated = generated[: stats["length"]]
+        return generated, stats["normalized_score"]
 
     # -- introspection ------------------------------------------------------
 
@@ -1227,6 +1655,7 @@ class Engine:
             "engine": {
                 "n_slots": self.n_slots,
                 "max_len": self.max_len,
+                "usable_len": self._usable_len,
                 "chunk": self.chunk,
                 "prompt_buckets": list(self.prompt_buckets),
                 "max_queue": self.max_queue,
@@ -1237,6 +1666,14 @@ class Engine:
                 "kv_quant": self.kv_quant,
                 "weights_int8": self.weights_int8,
                 "weight_quant": self.weight_quant,
+                "spec_decode": self.spec_decode,
+                "spec_draft_model": self.draft_cfg is not None,
+                "draft_n_layers": (
+                    self.draft_cfg.n_layers if self.draft_cfg else 0
+                ),
+                "draft_d_model": (
+                    self.draft_cfg.d_model if self.draft_cfg else 0
+                ),
                 "penalties": self.penalties,
                 "prefix_cache_size": self.prefix_cache_size,
                 "prefill_chunk": self.prefill_chunk,
@@ -1297,6 +1734,12 @@ class Engine:
                 "graph_replays": self.graph_replays,
                 "admission_replays": self.admission_replays,
                 "admission_graphs": len(self._admit_graphs),
+                "spec_drafted": self.spec_drafted,
+                "spec_accepted": self.spec_accepted,
+                "draft_passes": self.draft_passes,
+                "draft_prefill_dispatches": self.draft_prefill_dispatches,
+                "draft_admission_replays": self.draft_admission_replays,
+                "draft_admission_graphs": len(self._draft_graphs),
                 "readbacks": self.readbacks,
                 "readback_seconds": self.readback_seconds,
                 "dispatch_seconds": self.dispatch_seconds,
@@ -1363,7 +1806,7 @@ class Engine:
         try:
             rids = []
             for b in self.prompt_buckets:
-                max_new = min(2 * self.chunk, self.max_len - b)
+                max_new = min(2 * self.chunk, self._usable_len - b)
                 if self._pool_blocks_needed(b, max_new) > self.kv_blocks:
                     continue
                 rids.append(self.submit(
@@ -1695,17 +2138,22 @@ class Engine:
 
     # -- admission ----------------------------------------------------------
 
-    def _admission_inputs(self, bucket: int, rows: int, entries) -> tuple:
+    def _admission_inputs(self, bucket: int, rows: int, entries,
+                          draft: bool = False) -> tuple:
         """Host inputs of one admission dispatch of ``rows`` rows at
         ``bucket`` (``_AdmitBuffers.stage``'s arguments): row i from
         ``entries[i]`` = (prompt tail, start, table row); every row past
         them pads, inert as the reference's padding rows are — start 0,
         tail 1 and the sentinel table row, so that K2 drops its writes and
-        K1 reads nothing — and its logits are discarded."""
+        K1 reads nothing — and its logits are discarded.  ``draft``: the
+        draft model's cache tables."""
+        n_tables, sentinel = self._n_tables, self._sentinel
+        if draft:
+            n_tables, sentinel = self._draft_n_tables, self._draft_sentinel
         prompts = np.zeros((rows, bucket), np.int64)
         meta = np.zeros((2, rows), np.int32)
         meta[1] = 1
-        tables = np.full((rows, self._n_tables), self._sentinel, np.int32)
+        tables = np.full((rows, n_tables), sentinel, np.int32)
         for i, (tail, start, table) in enumerate(entries):
             prompts[i, : len(tail)] = tail
             meta[:, i] = start, len(tail)
@@ -1757,6 +2205,59 @@ class Engine:
         kernel_counts.replay_counts(delta)
         if not self._warming:
             self.admission_replays += 1
+
+    def _run_draft_admission(self, bucket: int, rows: int) -> None:
+        """The draft model's prefill of ``rows`` full prompts at
+        ``bucket`` from position 0 over the draft buffers, eagerly or
+        under a capture: it writes the draft cache's rows and unembeds
+        nothing."""
+        prompts, meta, tables = self._dadm.views(bucket, rows)
+        _hidden_slots(self.draft_params, prompts, self._draft_cache, meta[0],
+                      tables, self.draft_cfg)
+
+    def _seat_drafting(self, rows) -> None:
+        """The speculative half of an admission wave, for the ``rows``
+        (slot, rid, req, ...) given their first token: prompt lookup's
+        history rows get each whole prompt (a prefix-cache hit's injected
+        part included), zero-padded; a draft model's cache is prefilled
+        from position 0 over each whole prompt (the prefix cache holds
+        target rows only), grouped by the full prompt's bucket — its own
+        dispatches, graph replays on graphs as the target's are."""
+        if not rows:
+            return
+        if self._history is not None:
+            full = np.zeros((len(rows), self.max_len), np.int64)
+            for i, r in enumerate(rows):
+                full[i, : len(r[2].tokens)] = r[2].tokens
+            slots = np.asarray([r[0] for r in rows], np.int64)
+            self._history[_to_device(slots, self.device)] = _to_device(
+                full, self.device)
+            return
+        identity = self._draft_identity_host
+        for bucket in sorted({self._bucket(len(r[2].tokens)) for r in rows}):
+            group = [r for r in rows if self._bucket(len(r[2].tokens))
+                     == bucket]
+            for take, cls in self._pieces(len(group), bucket):
+                piece, group = group[:take], group[take:]
+                prompts, ints = self._admission_inputs(
+                    bucket, cls, [(r[2].tokens, 0, identity[r[0]])
+                                  for r in piece], draft=True)
+                self._dadm.stage(prompts, ints)
+                if not self._warming:
+                    self.draft_prefill_dispatches += 1
+                if not self.cuda_graphs:
+                    self._run_draft_admission(bucket, cls)
+                    continue
+                if (bucket, cls) not in self._draft_graphs:
+                    raise RuntimeError(
+                        f"no draft admission graph for bucket {bucket} x "
+                        f"{cls} rows (captured: {sorted(self._draft_graphs)})"
+                    )
+                graph, delta = self._draft_graphs[bucket, cls]
+                graph.replay()
+                kernel_counts.replay_counts(delta)
+                if not self._warming:
+                    self.draft_admission_replays += 1
 
     def _sample_first(self, piece) -> tuple:
         """Sample the first token of each real row of the admission
@@ -1933,6 +2434,8 @@ class Engine:
                     bucket, cls, [(r[5], r[4], self._tables_host[r[0]])
                                   for r in piece]))
                 groups.append((piece, *self._sample_first(piece)))
+        if self.spec_decode:
+            self._seat_drafting(rows)
         if self.prefix_cache_size:
             for slot, _, req, _, _, _ in rows:
                 if req.cache_prefix:
@@ -2004,17 +2507,39 @@ class Engine:
     def _run_chunk(self, key: tuple[bool, bool]) -> None:
         """One decode chunk over the static buffers, eagerly — or, under
         a capture, the work that graph ``key`` replays: outputs into
-        ``out``/``lps``, the last tokens back into ``tokens``."""
+        ``out``/``lps``, the last tokens back into ``tokens``; on a
+        speculative engine (``_decode_chunk_spec``) also ``n_emit``, and
+        the lengths back into the starts (a draft model's rows with no
+        request get its cache's sentinel table row)."""
         b = self._buf
-        counts = None
-        if self.penalties:
-            counts = (self._tok_counts, self._gen_counts)
-        out, lps, last = _decode_chunk(
-            self.params, self._cache, b.tables, b.tokens, b.meta[0],
-            b.meta[1], _Sampling(b.cols, *key), b.noise if key[0] else None,
-            self.cfg, chunk=self.chunk, top_k=self.top_k,
-            max_len=self.max_len, counts=counts,
-        )
+        s = _Sampling(b.cols, *key)
+        noise = b.noise if key[0] else None
+        if self.spec_decode:
+            draft = None
+            if self._draft_cache is not None:
+                tables = torch.where(b.meta[1][:, None] > 0,
+                                     self._draft_identity,
+                                     self._draft_sentinel)
+                draft = (self.draft_params, self.draft_cfg,
+                         self._draft_cache, tables)
+            out, lps, n_emit, last, lengths = _decode_chunk_spec(
+                self.params, self._cache, b.tables, b.tokens, b.meta[0],
+                b.meta[1], s, noise, self.cfg, chunk=self.chunk,
+                draft_len=self.spec_decode, top_k=self.top_k,
+                max_len=self.max_len, history=self._history,
+                ngram=self.spec_ngram, draft=draft,
+            )
+            b.n_emit.copy_(n_emit)
+            b.meta[0].copy_(lengths)
+        else:
+            counts = None
+            if self.penalties:
+                counts = (self._tok_counts, self._gen_counts)
+            out, lps, last = _decode_chunk(
+                self.params, self._cache, b.tables, b.tokens, b.meta[0],
+                b.meta[1], s, noise, self.cfg, chunk=self.chunk,
+                top_k=self.top_k, max_len=self.max_len, counts=counts,
+            )
         b.out.copy_(out)
         b.lps.copy_(lps)
         b.tokens.copy_(last)
@@ -2053,6 +2578,7 @@ class Engine:
         keys = sorted(((bucket, rows) for bucket, classes in
                        self._admit_classes.items() for rows in classes),
                       key=lambda key: -key[0] * key[1])
+        draft = self._dadm is not None
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
@@ -2062,6 +2588,10 @@ class Engine:
             for bucket in self.prompt_buckets:
                 self._adm.stage(*self._admission_inputs(bucket, 1, []))
                 self._run_admission(bucket, 1)
+                if draft:
+                    self._dadm.stage(*self._admission_inputs(
+                        bucket, 1, [], draft=True))
+                    self._run_draft_admission(bucket, 1)
         current.wait_stream(side)
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
@@ -2077,6 +2607,9 @@ class Engine:
         t1 = time.monotonic()
         self._admit_graphs = {key: capture(self._run_admission, *key)
                               for key in keys}
+        if draft:
+            self._draft_graphs = {key: capture(self._run_draft_admission,
+                                               *key) for key in keys}
         t2 = time.monotonic()
         graphs, counts = {}, {}
         for key in _GRAPH_KEYS:
@@ -2089,23 +2622,30 @@ class Engine:
     def _enqueue_chunk(self, inputs: _ChunkInputs, tokens, starts, indices,
                        graph: bool):
         """Stage one chunk's inputs into the device buffers (``tokens``
-        None: keep the device-side carry), fill its noise, run it — by
-        its graph's replay or eagerly — and queue the copy of its
-        results to host buffers.  Returns (host out, host lps, the event
-        that marks them done or None on the CPU).  Nothing here waits
-        for the device."""
+        None: keep the device-side carry; ``starts`` None too, on a
+        speculative engine, whose chained chunk takes its positions from
+        the carry), fill its noise, run it — by its graph's replay or
+        eagerly — and queue the copy of its results to host buffers.
+        Returns (the host results in ``_ChunkBuffers.outputs``' order,
+        the event that marks them done or None on the CPU).  Nothing here
+        waits for the device."""
         b = self._buf
         turn = b.turn
         b.turn ^= 1
         if b.staged[turn] is not None:
             b.staged[turn].synchronize()  # its last copies are done
         stage = b.stages[turn]
-        stage["meta"][0] = torch.from_numpy(starts)
-        stage["meta"][1] = torch.from_numpy(inputs.live)
         tables = self._tables_host.copy()
         tables[inputs.live == 0] = self._sentinel  # K2 drops, K1 skips
         stage["tables"].copy_(torch.from_numpy(tables))
-        names = ["meta", "tables"]
+        names = ["tables"]
+        if starts is not None:
+            # The live rows are reused verbatim by a chained dispatch, so
+            # a speculative one leaves the meta (its starts the carry) as
+            # the chunk before it left it.
+            stage["meta"][0] = torch.from_numpy(starts)
+            stage["meta"][1] = torch.from_numpy(inputs.live)
+            names.append("meta")
         if tokens is not None:
             stage["tokens"].copy_(torch.from_numpy(tokens))
             stage["cols"].copy_(torch.from_numpy(inputs.cols))
@@ -2124,14 +2664,14 @@ class Engine:
             kernel_counts.replay_counts(self._graph_counts[inputs.key])
         else:
             self._run_chunk(inputs.key)
-        out, lps = b.results[turn]
-        out.copy_(b.out, non_blocking=True)
-        lps.copy_(b.lps, non_blocking=True)
+        results = b.results[turn]
+        for host, dev in zip(results, b.outputs):
+            host.copy_(dev, non_blocking=True)
         done = None
         if cuda:
             done = torch.cuda.Event()
             done.record()
-        return out, lps, done
+        return results, done
 
     def _dispatch_chunk(self, acc: list,
                         chained: _InFlightChunk | None) -> _InFlightChunk:
@@ -2142,7 +2682,9 @@ class Engine:
         every input comes from the slots' host states.  Chained: the
         tokens are the previous chunk's device-side carry, the positions
         and sampling keys the previous dispatch's ``+ chunk`` (clamped at
-        the cache edge, live rows only), and the live rows and sampling
+        the cache edge, live rows only; a speculative chunk's positions
+        are the device-side carry as its tokens are, since only the
+        device knows how far each row went), and the live rows and sampling
         columns are reused verbatim — a slot that finished meanwhile
         keeps computing inside its own rows (dense) or into dropped
         writes (paged: its table row is the sentinel by now) and is
@@ -2154,12 +2696,16 @@ class Engine:
             self._ensure_graphs()
             inputs, tokens, starts, indices = self._fresh_inputs(slots)
         else:
-            inputs, tokens = chained.inputs, None
-            starts = np.minimum(
-                chained.starts + self.chunk * inputs.live, self.max_len - 1
-            ).astype(np.int32)
+            inputs, tokens, starts = chained.inputs, None, None
+            if not self.spec_decode:
+                starts = np.minimum(
+                    chained.starts + self.chunk * inputs.live,
+                    self.max_len - 1,
+                ).astype(np.int32)
+            # A speculative sampled row emits one token a sub-step, so its
+            # keys advance by ``chunk`` too (greedy rows read none).
             indices = chained.indices + self.chunk
-        out, lps, done = self._enqueue_chunk(
+        results, done = self._enqueue_chunk(
             inputs, tokens, starts, indices, graph=self.cuda_graphs
         )
         self._mark_dispatch(t0, acc)
@@ -2167,9 +2713,11 @@ class Engine:
             self.decode_passes += self.chunk
             self.decode_dispatches += 1
             self.graph_replays += int(self.cuda_graphs)
+            if self._draft_cache is not None:
+                self.draft_passes += self.chunk * (self.spec_decode + 1)
         return _InFlightChunk(
             snapshot=slots, inputs=inputs, starts=starts, indices=indices,
-            out=out, lps=lps, done=done, t_dispatch=t0,
+            results=results, done=done, t_dispatch=t0,
         )
 
     def _mark_dispatch(self, t0: float, acc: list) -> None:
@@ -2185,13 +2733,22 @@ class Engine:
     def _process_chunk(self, handle: _InFlightChunk, acc: list) -> None:
         """Wait for one dispatched chunk's results (its event only, not
         the chunk dispatched behind it) and emit them with EOS, stop and
-        budget truncation."""
+        budget truncation.  A speculative chunk's row consumes
+        ``n_emit[slot, i]`` tokens of sub-step i, and its length advances
+        by their sum, clamped as the device clamps it; greedy rows count
+        their drafts (``spec_decode`` a sub-step consumed) and the
+        accepted drafts consumed."""
         overlapped = self._inflight is not None
         t0 = time.monotonic()
         if handle.done is not None:
             handle.done.synchronize()
-        out = handle.out.numpy()
-        lps = handle.lps.numpy()
+        out, lps, *rest = (t.numpy() for t in handle.results)
+        spec = self.spec_decode
+        if spec:
+            n_emit = rest[0]
+        else:  # one token a pass: a [S, chunk, 1] view of each
+            out, lps = out[..., None], lps[..., None]
+            n_emit = np.ones(out.shape[:2], np.int32)
         t1 = time.monotonic()
         acc[0] += t1 - t0
         if overlapped:
@@ -2199,17 +2756,30 @@ class Engine:
         else:
             self._t_device_free = t1
         emitted = 0
+        edge = self.max_len - 1 - spec  # the device's clamp
         with self._lock:
             for slot, state in handle.snapshot.items():
                 if self._slots.get(slot) is not state:
                     continue  # finished, failed or aborted meanwhile
-                state.length = min(state.length + self.chunk,
-                                   self.max_len - 1)
+                state.length = min(state.length + int(n_emit[slot].sum()),
+                                   edge)
+                count = bool(spec) and state.req.temperature <= 0.0 and (
+                    not self._warming)
+                done = False
                 for i in range(self.chunk):
-                    emitted += 1
-                    if self._emit(state, int(out[slot, i]),
-                                  float(lps[slot, i])):
-                        self._finish_locked(slot, state)
+                    nem = int(n_emit[slot, i])
+                    if count:
+                        self.spec_drafted += spec
+                    for j in range(nem):
+                        emitted += 1
+                        if count and j < nem - 1:
+                            self.spec_accepted += 1
+                        if self._emit(state, int(out[slot, i, j]),
+                                      float(lps[slot, i, j])):
+                            self._finish_locked(slot, state)
+                            done = True
+                            break
+                    if done:
                         break
             if not self._warming:
                 self.readbacks += 1
@@ -2225,36 +2795,50 @@ class Engine:
         """For checks on the card: one decode chunk for the seated slots
         (as a fresh dispatch would make it), run from the same state
         twice — eagerly, then by its graph's replay — returning what each
-        left: ``out``, ``lps``, the token carry, the cache and the
-        penalty counts, as tensors.  Needs the graphs and no chunk in
-        flight; afterwards the cache and counts are as they were before
-        either run."""
+        left: ``out``, ``lps``, the token carry, the device state
+        (``_device_state``) as tensors, and on a speculative engine
+        ``n_emit`` and the lengths carry.  Needs the graphs and no chunk
+        in flight; afterwards the device state is as it was before either
+        run."""
         if self._graphs is None or self._inflight is not None:
             raise RuntimeError("chunk_twice needs captured graphs and no "
                                "chunk in flight")
         with self._lock:
             slots = dict(self._slots)
         inputs, tokens, starts, indices = self._fresh_inputs(slots)
-        cache = self._cache
-        state = [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale,
-                             self._tok_counts, self._gen_counts)
-                 if t is not None]
+        state = self._device_state()
         saved = [t.clone() for t in state]
         runs = []
         for graph in (False, True):
             for t, s in zip(state, saved):
                 t.copy_(s)
-            _, _, done = self._enqueue_chunk(inputs, tokens, starts,
-                                             indices, graph)
+            _, done = self._enqueue_chunk(inputs, tokens, starts, indices,
+                                          graph)
             if done is not None:
                 done.synchronize()
             b = self._buf
-            runs.append({"out": b.out.clone(), "lps": b.lps.clone(),
-                         "carry": b.tokens.clone(),
-                         "state": [t.clone() for t in state]})
+            run = {"out": b.out.clone(), "lps": b.lps.clone(),
+                   "carry": b.tokens.clone(),
+                   "state": [t.clone() for t in state]}
+            if self.spec_decode:
+                run.update(n_emit=b.n_emit.clone(),
+                           lengths=b.meta[0].clone())
+            runs.append(run)
         for t, s in zip(state, saved):
             t.copy_(s)
         return runs
+
+    def _device_state(self) -> list[torch.Tensor]:
+        """What a decode chunk or an admission wave changes on the
+        device: the cache, the penalty counts, prompt lookup's history and
+        a draft model's cache."""
+        caches = [self._cache]
+        if self._draft_cache is not None:
+            caches.append(self._draft_cache)
+        return [t for t in (
+            *(t for c in caches for t in (c.k, c.v, c.k_scale, c.v_scale)),
+            self._tok_counts, self._gen_counts, self._history,
+        ) if t is not None]
 
     # What one admission wave changes on the host, restored by
     # ``admit_twice`` between its runs.
@@ -2270,16 +2854,13 @@ class Engine:
         restored — returning what each run left: ``first`` {rid: (token,
         logprob)} of the requests it seated, ``pending`` {rid: next
         segment start} of the prompts mid-prefill, and ``state``, the
-        cache and the penalty counts, as tensors.  Needs the graphs and
+        device state (``_device_state``) as tensors.  Needs the graphs and
         no chunk in flight; the engine is left as the replayed wave left
         it.  The check's work is not counted in ``stats()``."""
         if self._graphs is None or self._inflight is not None:
             raise RuntimeError("admit_twice needs captured graphs and no "
                                "chunk in flight")
-        cache = self._cache
-        state = [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale,
-                             self._tok_counts, self._gen_counts)
-                 if t is not None]
+        state = self._device_state()
         saved = [t.clone() for t in state]
         with self._lock:
             host = copy.deepcopy({name: getattr(self, name)

@@ -10,14 +10,20 @@ carry the engine's layout and pipeline fields under the reference's
 names (``paged``, ``kv_block``, ``pipeline_depth``, ``penalties``;
 ``readback_seconds``, ``overlap_seconds``, ``overlap_ratio``,
 ``tail_elisions``, ``inflight_dispatches``; the prefix cache's and
-chunked prefill's ``prefix_*``, ``prefill_segments``, ``prefilling``).
+chunked prefill's ``prefix_*``, ``prefill_segments``, ``prefilling``;
+speculative decoding's ``spec_drafted``, ``spec_accepted``).
+``POST /v1/embed`` (``{"tokens": [...]}`` → ``{"embedding": [...],
+"dim": d}``) and ``POST /v1/beam`` (``{"tokens", "max_new_tokens",
+"beam_size", "alpha", "eos_id"}`` → ``{"tokens": [...], "score": s}``)
+answer from ``Engine.embed`` and ``Engine.beam``, with token prompts.
 A request's ``cache_prefix`` stores its prompt's KV when the engine has
 a prefix cache.  A deadline comes as the body's ``deadline_ms`` or, when
 the body has none, the ``x-oim-deadline-ms`` header (how a router sends
-a routed budget), as in the reference.  Streaming, text, embeddings, beam search, the OpenAI
-surface, KV shipping (``/v1/kv``: held KV and prefix export or install),
-profiling and the stall watchdog come with later slices (ROADMAP Queue
-A: the rest of server.py); ``/v1/kv`` answers 501 naming them.
+a routed budget), as in the reference.  Streaming, text prompts, the
+OpenAI surface, KV shipping (``/v1/kv``: held KV and prefix export or
+install), profiling and the stall watchdog come with later slices
+(ROADMAP Queue A: the rest of server.py); ``/v1/kv`` answers 501 naming
+them.
 """
 
 from __future__ import annotations
@@ -99,6 +105,17 @@ def _parse_generate(body: dict, headers) -> GenRequest:
     )
 
 
+def _prompt_tokens(body: dict) -> list[int]:
+    """A body's prompt ids: ``tokens`` (a ``text`` prompt needs the
+    tokenizer, which the port does not have yet)."""
+    if "text" in body:
+        raise ValueError(
+            "'text' prompts are not ported to oim_tpu_torch yet (ROADMAP "
+            "Queue A11: texttok); send 'tokens'"
+        )
+    return [int(t) for t in body["tokens"]]
+
+
 class _Handler(BaseHTTPRequestHandler):
     """One request against the ``ServeServer`` that ``self.server.owner``
     names: a weak proxy, so that the listener does not keep a stopped
@@ -136,11 +153,14 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path.split("?")[0] == "/v1/kv":
             self._json(501, {"error": _KV_NOT_PORTED})
             return
-        if self.path != "/v1/generate":
+        if self.path not in ("/v1/generate", "/v1/embed", "/v1/beam"):
             self._json(404, {"error": f"no such path {self.path}"})
             return
         if outer.error is not None:
             self._json(503, {"error": outer.error})
+            return
+        if self.path != "/v1/generate":
+            self._slot_free(outer.engine)
             return
         try:
             length = int(self.headers.get("Content-Length", "0"))
@@ -170,6 +190,35 @@ class _Handler(BaseHTTPRequestHandler):
         payload = {"tokens": tokens, "request_id": rid}
         if body.get("logprobs"):
             payload["logprobs"] = lps
+        self._json(200, payload)
+
+
+    def _slot_free(self, engine: Engine) -> None:
+        """``/v1/embed`` or ``/v1/beam``: slot-free work run on this
+        handler thread."""
+        try:
+            length = int(self.headers.get("Content-Length", "0"))
+            body = json.loads(self.rfile.read(length) or b"{}")
+            tokens = _prompt_tokens(body)
+            if self.path == "/v1/embed":
+                vec = engine.embed(tokens)
+                payload = {"embedding": vec, "dim": len(vec)}
+            else:
+                toks, score = engine.beam(
+                    tokens,
+                    max_new_tokens=int(body.get("max_new_tokens", 16)),
+                    beam_size=int(body.get("beam_size", 4)),
+                    alpha=float(body.get("alpha", 0.6)),
+                    eos_id=(int(body["eos_id"])
+                            if body.get("eos_id") is not None else None),
+                )
+                payload = {"tokens": toks, "score": score}
+        except (DrainingError, EngineFailedError) as exc:
+            self._json(503, {"error": str(exc)})
+            return
+        except (KeyError, TypeError, ValueError) as exc:
+            self._json(400, {"error": str(exc)})
+            return
         self._json(200, payload)
 
 

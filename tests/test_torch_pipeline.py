@@ -26,7 +26,8 @@ The tests marked ``cuda`` need an NVIDIA GPU and skip without one
 runs them: a decode chunk replayed from its CUDA graph equals the same
 chunk run eagerly from copies of one state, bit for bit, and an engine
 on graphs serves the streams of an engine on eager dispatch, with the
-prefix cache and chunked prefill too.
+prefix cache and chunked prefill too, and a speculative engine's chunk
+(prompt lookup or a draft model) replays bit-equal to its eager run.
 """
 
 import numpy as np
@@ -509,3 +510,61 @@ def test_graph_engine_with_prefix_cache_and_segments(layout, depth):
         assert counts["paged_flash_decode_plain"] == 0
         assert counts["paged_kv_store_plain"] == 0
     assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["lookup", "draft"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_spec_graph_chunk_equals_eager_chunk(layout, source):
+    """A speculative engine on the card (spec 4; prompt lookup, or a
+    draft model with 64-wide heads on its own dense cache): depth 1 and
+    depth 2 serve the same tokens; each verify pass's K1 takes the
+    tensor-core route and each draft forward the 8-row route, once per
+    layer, with no plain call; and one speculative chunk, from copies of
+    one state, eager and replayed is bit-equal — tokens, logprobs,
+    n_emit, the token and length carries, the cache, the history or the
+    draft cache."""
+    _need_gpu()
+    cfg = TransformerConfig(**CARD_CFG)
+    params = init_params(0, cfg)
+    # t = 5 verify rows a slot at group 2: 10 rows, past the 8-row route.
+    kw = dict(spec_decode=4, kv_block=LAYOUTS[layout] * 2)
+    dlayers = 0
+    if source == "draft":
+        dcfg = TransformerConfig(**{**CARD_CFG, "d_model": 128, "n_heads": 2,
+                                    "n_kv_heads": 1, "n_layers": 1})
+        kw.update(draft_params=init_params(1, dcfg), draft_cfg=dcfg)
+        dlayers = dcfg.n_layers
+    reqs = [dict(tokens=_prompt(200 + i, 9 + 13 * i), max_new_tokens=20)
+            for i in range(3)]
+    reqs.append(dict(tokens=_prompt(210, 30), max_new_tokens=17,
+                     temperature=0.8, seed=3, top_p=0.9))
+    streams = []
+    for depth in (1, 2):
+        engine = Engine(params, cfg, **CARD_ENGINE, pipeline_depth=depth,
+                        **kw).warmup()
+        tpa.reset_counters()
+        rids = [engine.submit(GenRequest(**r)) for r in reqs]
+        engine.run()
+        streams.append([engine.result(rid) for rid in rids])
+        st, counts = engine.stats(), tpa.counters()
+        assert st["spec_drafted"] > 0
+        assert st["graph_replays"] == st["decode_dispatches"]
+        assert counts["paged_flash_decode_tc"] == cfg.n_layers * (
+            st["prefill_dispatches"] + st["decode_passes"]) + dlayers * st[
+            "draft_prefill_dispatches"]
+        assert counts["paged_flash_decode_rows8"] == counts[
+            "paged_kv_store_t1"] == dlayers * st["draft_passes"]
+        assert counts["paged_flash_decode_plain"] == 0
+        assert counts["paged_kv_store_plain"] == 0
+    assert streams[0] == streams[1]
+    engine.set_pipeline_depth(1)
+    for r in reqs:
+        engine.submit(GenRequest(**r))
+    engine.step()
+    eager, replayed = engine.chunk_twice()
+    for name in ("out", "lps", "carry", "n_emit", "lengths"):
+        assert torch.equal(eager[name], replayed[name]), name
+    for a, b in zip(eager["state"], replayed["state"]):
+        assert torch.equal(a, b)
+    engine.abort("done")

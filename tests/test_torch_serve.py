@@ -316,16 +316,26 @@ def test_engine_deadlines(model):
     # The prefix cache is served; the host tier it demotes entries to
     # in the reference is not.
     (dict(prefix_cache_size=2, kv_host_bytes=1 << 20), "host tier"),
+    # Served since their ports (the cases keep their ids): the engine
+    # builds, alone and beside chunked prefill.
     (dict(spec_decode=2), "spec decode"),
-    # Chunked prefill is served; spec decode beside it is not.
     (dict(prefill_chunk=8, spec_decode=2), "spec decode"),
     (dict(kv_host_bytes=1 << 20), "host tier"),
     (dict(qos=object()), "QoS"),
 ])
 def test_engine_refuses_unported_options(model, option, match):
     _, _, tcfg, params = model
+    if match in _PORTED:
+        engine = Engine(params, tcfg, **{**ENGINE, **option})
+        info = engine.info()["engine"]
+        assert {k: info[k] for k in option} == option
+        return
     with pytest.raises(ValueError, match=f"ROADMAP.*{match}"):
         Engine(params, tcfg, **{**ENGINE, **option})
+
+
+# Options the cases above once refused, served since.
+_PORTED = {"spec decode"}
 
 
 def test_engine_refuses_moe_and_cache_prefix(model):
