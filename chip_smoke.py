@@ -62,6 +62,17 @@ concurrent p50 and the decode rate; the default-configuration and int4
 phases only where the package serves them); run both builds in turns (parent,
 change, change, parent) to compare them in one call.
 ``--prefix-phase-only [--package DIR]`` runs only the prefix phase.
+``--kv-phase-only`` runs only the KV block I/O phase (``kv_io_phase``):
+two engines at the same width share one copy of the weights; held KV
+(four prompt legs with ``hold_kv``), the 1008-token prefix entry and
+eight live slots suspended by ``begin_migrate_out`` ship from A to B
+through the wire's bytes, and a third engine with a small pool and the
+host tier demotes and promotes the entry and parks and restores a slot;
+every stream must be its unbroken run (or part from it only at a bf16
+near tie of the f32 forward), every continuation on B A's own
+continuation of the same bytes, K1 and K2 launched by route with no
+plain call, every dispatch a graph replay, and no block left behind.
+It runs in the full smoke and with ``--serve-phase-only`` too.
 
 It exits non-zero without a result line when no GPU is visible, when the
 port's package is not beside it, or when any phase fails.  Every number
@@ -2594,6 +2605,600 @@ def prefix_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# KV block I/O phase: the host tier, parking, and KV shipping
+
+# Engines A and B: serve_main with --kv-block 16 and a prefix cache at
+# serve_main's defaults otherwise (bf16 KV, depth 2, graphs); C the same
+# weights on a 4-slot engine whose pool is small enough that storing the
+# 1008-token entry and serving beside it demotes, with the host tier.
+KV_IO_ARGS = SERVE_ARGS + ["--kv-block", "16", "--prefix-cache", "8"]
+KV_HOLD_PROMPTS = (512, 700, 850, 1000)  # two greedy, two sampled
+KV_HOLD_FIRST, KV_HOLD_CONT = 8, 56
+KV_MIGRATE_PROMPTS = (40, 96, 160, 256, 320, 400, 480, 512)
+KV_MIGRATE_BUDGET, KV_MIGRATE_AFTER = 256, 64
+KV_TEMP = 0.8
+KV_TIER_BLOCKS = 160
+KV_TIER_HOST = 256 * 2**20
+KV_TIER_BUCKETS = (32, 1024, 2047)
+KV_TIER_PRESSURE = (700, 740)  # two 64-block worst cases
+KV_PARK_PROMPTS = (700, 760, 800)  # 64 new each
+KV_PARK_NEW = 400
+
+
+class TierClock:
+    """CUDA events around an engine's block I/O, recorded as it serves
+    (on the stream the engine enqueues it on): each copy down (a
+    demotion's or park's gather and copy into pinned memory) and each
+    restore's copies up, beside the host wall of each park and restore.
+    Wraps the engine's methods; ``remove`` unwraps."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.down, self.up, self.parks, self.restores = [], [], [], []
+        read, park = engine._read_blocks_dispatch, engine._try_park_locked
+        write = engine._write_host_payload
+
+        def reading(blocks):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            staged, done = read(blocks)
+            end.record()
+            self.down.append((start, end, sum(t.nbytes for t in staged)))
+            return staged, done
+
+        def parking():
+            t0 = time.monotonic()
+            parked = park()
+            if parked:
+                self.parks.append(time.monotonic() - t0)
+            return parked
+
+        def writing(host_blocks, dev_blocks):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            t0 = time.monotonic()
+            start.record()
+            write(host_blocks, dev_blocks)
+            end.record()
+            self.restores.append(time.monotonic() - t0)
+            self.up.append((start, end, len(dev_blocks)
+                            * engine._block_bytes))
+
+        engine._read_blocks_dispatch = reading
+        engine._try_park_locked = parking
+        engine._write_host_payload = writing
+
+    def remove(self) -> None:
+        for name in ("_read_blocks_dispatch", "_try_park_locked",
+                     "_write_host_payload"):
+            vars(self.engine).pop(name, None)
+
+    @staticmethod
+    def rates(spans) -> list[tuple[float, float]]:
+        """(device ms, GB/s) of each span."""
+        torch.cuda.synchronize()
+        out = []
+        for start, end, nbytes in spans:
+            ms = start.elapsed_time(end)
+            out.append((ms, nbytes / ms / 1e6))
+        return out
+
+
+def sync_ms(fn, runs: int = 7) -> float:
+    """Median device time in ms of one ``fn`` call by CUDA events around
+    it, the device idle before each (a call that allocates pinned host
+    memory must not find the device busy: a pinned block is reused only
+    once its copy is done)."""
+    fn()
+    spent = []
+    for _ in range(runs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        spent.append(start.elapsed_time(end))
+    return float(np.median(spent))
+
+
+def kv_engines():
+    """(A, B, C) sharing one copy of the weights, warmed (every graph
+    captured), and the f32 reference forward's (params, cfg)."""
+    from oim_tpu_torch.cli import serve_main
+    from oim_tpu_torch.serve.engine import Engine
+
+    args = serve_main.build_parser().parse_args(KV_IO_ARGS)
+    t0 = time.monotonic()
+    a = serve_main.make_engine(args).warmup()
+    kw = dict(n_slots=args.n_slots, max_len=args.max_len, chunk=args.chunk,
+              kv_block=args.kv_block, prefix_cache_size=args.prefix_cache,
+              device=a.device)
+    b = Engine(a.params, a.cfg, **kw).warmup()
+    c = Engine(a.params, a.cfg, **{
+        **kw, "n_slots": 4, "kv_blocks": KV_TIER_BLOCKS,
+        "prefix_cache_size": 2, "kv_host_bytes": KV_TIER_HOST,
+        "prompt_buckets": KV_TIER_BUCKETS}).warmup()
+    print(f"kv io: engines A and B ({args.n_slots} slots, --kv-block "
+          f"{args.kv_block}, {a.kv_blocks} blocks), C (4 slots, "
+          f"{KV_TIER_BLOCKS} blocks, host tier {c.stats()['kv_host_blocks_total']}"
+          f" blocks of {c._block_bytes / 2**20:.2f} MiB) warmed in "
+          f"{time.monotonic() - t0:.1f} s; weights shared: "
+          f"{a.params['wte'] is b.params['wte'] is c.params['wte']}",
+          flush=True)
+    check(a.params["wte"] is b.params["wte"] is c.params["wte"],
+          "kv io: the engines do not share the weight tensors")
+    return a, b, c, widened(a.params, a.cfg)
+
+
+def kv_run(engine, reqs) -> list[tuple[list, list]]:
+    """Submit ``reqs`` (GenRequest keyword dicts) together, run the
+    engine, return each (tokens, logprobs)."""
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    rids = [engine.submit(GenRequest(**r)) for r in reqs]
+    engine.run()
+    return [tuple(map(list, engine.result_full(rid, timeout=0)))
+            for rid in rids]
+
+
+def kv_ref_logits(ref, tokens) -> torch.Tensor:
+    """The f32 forward's logits [V] after ``tokens``."""
+    from oim_tpu_torch.models import decode as dec
+
+    params32, cfg32 = ref
+    seq = torch.tensor([tokens], device=DEV)
+    with torch.no_grad():
+        logits, _ = dec.prefill(params32, seq, cfg32, seq.shape[1])
+    return logits[0, -1].float()
+
+
+def kv_same(ref, req: dict, want: list,
+            got: list) -> tuple[bool, str, float]:
+    """Whether a stream ``got`` is ``want``, the same request's stream on
+    another route: token for token, or diverging first where the two
+    tokens are a bf16 near tie of the f32 forward — both within δ of its
+    max logit after the common prefix (for a sampled request, of its
+    Gumbel-max score, δ / temperature: the noise of that token index is
+    a function of the request alone).  Returns (ok, what, the gap)."""
+    from oim_tpu_torch.models.decode import sampling_noise
+
+    if want == got:
+        return True, "equal", 0.0
+    if len(want) != len(got):
+        return False, f"length {len(got)} != {len(want)}", float("inf")
+    i = next(j for j, (x, y) in enumerate(zip(want, got)) if x != y)
+    score, tol = kv_ref_logits(ref, req["tokens"] + want[:i]), DELTA
+    temp = req.get("temperature", 0.0)
+    if temp > 0:
+        score = score / temp + sampling_noise(
+            req["seed"], req.get("sample_base", 0) + i, score.numel(), DEV)
+        tol = DELTA / temp
+    gap = float(score.max() - torch.minimum(score[want[i]], score[got[i]]))
+    return (gap <= tol, f"diverges at token {i}, a gap of {gap:.3f} (tol "
+            f"{tol:.3f})", gap)
+
+
+def kv_gate(ref, tag: str, reqs, wants, gots) -> dict:
+    """``kv_same`` over streams; fails on any divergence past a near tie.
+    Returns how many are equal token for token and the largest gap of
+    those that part."""
+    equal, worst = 0, 0.0
+    for req, want, got in zip(reqs, wants, gots):
+        ok, what, gap = kv_same(ref, req, want, got)
+        equal += what == "equal"
+        worst = max(worst, gap)
+        if what != "equal":
+            print(f"kv io {tag}: a {len(req['tokens'])}-token "
+                  f"{'sampled' if req.get('temperature') else 'greedy'} "
+                  f"stream {what}", flush=True)
+        check(ok, f"kv io {tag}: a stream {what}")
+    return {"equal": equal, "of": len(reqs), "worst_gap": worst}
+
+
+def kv_hold_ship(a, b, ref) -> dict:
+    """Held KV, A to B: four prefill legs on A with ``hold_kv`` (8
+    tokens), exported, packed, unpacked and imported on B, which
+    continues each for 56 tokens with ``sample_base`` 8.  Gates: B's
+    continuations are A's own continuations of the same imported bytes,
+    token for token and logprob for logprob (the wire is invisible); and
+    each whole stream is A's unbroken run (``kv_same``)."""
+    from oim_tpu_torch.serve import disagg
+
+    rng = np.random.RandomState(11)
+    base = [dict(tokens=rng.randint(0, VOCAB, n).tolist(), seed=i,
+                 temperature=KV_TEMP if i % 2 else 0.0)
+            for i, n in enumerate(KV_HOLD_PROMPTS)]
+    total = KV_HOLD_FIRST + KV_HOLD_CONT
+    unbroken = kv_run(a, [dict(r, max_new_tokens=total) for r in base])
+    legs = kv_run(a, [dict(r, max_new_tokens=KV_HOLD_FIRST, hold_kv=True)
+                      for r in base])
+    rids = sorted(a._kv_holds)
+    check(len(rids) == len(base), f"kv io hold: {len(rids)} holds")
+    walls = {"export": 0.0, "pack": 0.0, "unpack": 0.0, "import": 0.0}
+    shipped, nbytes = [], 0
+    for rid in rids:
+        t0 = time.monotonic()
+        manifest, arrays = a.export_kv(rid)
+        t1 = time.monotonic()
+        body = disagg.pack_transfer(manifest, arrays)
+        t2 = time.monotonic()
+        unpacked = disagg.unpack_transfer(body)
+        t3 = time.monotonic()
+        shipped.append((b.import_kv(*unpacked)[0], a.import_kv(*unpacked)[0]))
+        t4 = time.monotonic()
+        walls["export"] += t1 - t0
+        walls["pack"] += t2 - t1
+        walls["unpack"] += t3 - t2
+        walls["import"] += t4 - t3
+        nbytes += sum(x.nbytes for x in arrays)
+        check(manifest["geometry"]["dtype"] == "bfloat16"
+              and all(leaf["dtype"] == "bfloat16"
+                      for leaf in manifest["leaves"]),
+              f"kv io hold: manifest dtypes {manifest['geometry']}")
+        check(a.release_kv_hold(rid), f"kv io hold: hold {rid} gone")
+    conts = {}
+    for name, engine, which in (("B", b, 0), ("A", a, 1)):
+        conts[name] = kv_run(engine, [
+            dict(r, tokens=r["tokens"] + first, max_new_tokens=KV_HOLD_CONT,
+                 kv_import=ids[which], sample_base=KV_HOLD_FIRST)
+            for r, (first, _), ids in zip(base, legs, shipped)])
+    check(conts["B"] == conts["A"],
+          "kv io hold: B's continuations differ from A's own continuations "
+          "of the same imported bytes")
+    gate = kv_gate(ref, "hold", base, [t for t, _ in unbroken],
+                   [first + t for (first, _), (t, _) in
+                    zip(legs, conts["B"])])
+    equal = gate["equal"]
+    mb = nbytes / 1e6
+    out = {"streams": len(base), "unbroken": gate, "mb": mb,
+           **{f"{k}_ms_per_mb": v * 1e3 / mb for k, v in walls.items()}}
+    print(f"kv io hold: {len(base)} streams (2 greedy, 2 sampled) of "
+          f"{KV_HOLD_FIRST} + {KV_HOLD_CONT} tokens shipped A → B, "
+          f"{mb:.1f} MB; B's continuations = A's own, bit for bit; "
+          f"{equal} of {len(base)} whole streams token-identical to the "
+          f"unbroken runs, the rest parting at a near tie (the largest gap "
+          f"{gate['worst_gap']:.3f}); walls per "
+          f"MB: export_kv {out['export_ms_per_mb']:.3f} ms, pack_transfer "
+          f"{out['pack_ms_per_mb']:.3f}, unpack_transfer "
+          f"{out['unpack_ms_per_mb']:.3f}, import_kv "
+          f"{out['import_ms_per_mb']:.3f} [{SMI}]", flush=True)
+    return out
+
+
+def kv_prefix_ship(a, b) -> dict:
+    """The prefix phase's 1008-token system prompt stored on A, exported
+    by digest, imported and installed on B; a prompt sharing it hits on
+    B with the shared rows aliased (B's hit, install and bytes-saved
+    counters), its tokens A's hit's, and its time to first token beside
+    a same-length miss's."""
+    from oim_tpu_torch.serve import disagg
+
+    system, shared, _ = prefix_traffic(VOCAB)
+    kv_run(a, [dict(tokens=system, max_new_tokens=1, cache_prefix=True)])
+    digest_ = disagg.prefix_digest(system)
+    t0 = time.monotonic()
+    manifest, arrays = a.export_kv_prefix(digest_)
+    body = disagg.pack_transfer(manifest, arrays)
+    _, rows = b.import_kv_prefix(*disagg.unpack_transfer(body))
+    installed = b.install_prefix_imports()
+    wall = time.monotonic() - t0
+    check(rows == PREFIX_SYSTEM and installed == 1,
+          f"kv io prefix: shipped {rows} rows, installed {installed}")
+    rng = np.random.RandomState(12)
+    miss = rng.randint(0, VOCAB, len(shared[0])).tolist()
+    before = b.stats()
+    (b_miss, _), = kv_run(b, [dict(tokens=miss, max_new_tokens=8)])
+    miss_ms = b._ttfts[-1] * 1e3
+    (b_hit, b_lps), = kv_run(b, [dict(tokens=shared[0], max_new_tokens=8)])
+    hit_ms = b._ttfts[-1] * 1e3
+    after = b.stats()
+    (a_hit, a_lps), = kv_run(a, [dict(tokens=shared[0], max_new_tokens=8)])
+    saved = after["prefix_bytes_saved"] - before["prefix_bytes_saved"]
+    blocks = PREFIX_SYSTEM // b.kv_block
+    check(after["prefix_hits"] - before["prefix_hits"] == 1
+          and after["prefix_fetch_installs"] == 1
+          and saved == blocks * b._block_bytes,
+          f"kv io prefix: B's hit aliased {saved} bytes, hits "
+          f"{after['prefix_hits'] - before['prefix_hits']}, installs "
+          f"{after['prefix_fetch_installs']}")
+    check(b_hit == a_hit and b_lps == a_lps,
+          "kv io prefix: B's hit on the shipped entry differs from A's hit "
+          "on its own")
+    print(f"kv io prefix: the {PREFIX_SYSTEM}-token entry ({blocks} blocks, "
+          f"{manifest['rows']} rows, {sum(x.nbytes for x in arrays) / 1e6:.1f}"
+          f" MB) exported, shipped and installed on B in {wall * 1e3:.1f} "
+          f"ms; B's hit aliased all {blocks} blocks (no recompute of the "
+          f"shared rows) and equals A's own hit; TTFT of the hit "
+          f"{hit_ms:.1f} ms vs a {len(miss)}-token miss {miss_ms:.1f} ms "
+          f"[{SMI}]", flush=True)
+    return {"install_ms": wall * 1e3, "hit_ttft_ms": hit_ms,
+            "miss_ttft_ms": miss_ms}
+
+
+def kv_migrate(a, b, ref) -> dict:
+    """Eight streams on A (four greedy, four sampled, 256-token budgets)
+    suspended by ``begin_migrate_out`` after about 64 tokens, their slots
+    exported and imported on B, which continues each with its
+    ``sample_base``.  Gates: B's continuations are A's own continuations
+    of the same bytes, and each whole stream is the unbroken run
+    (``kv_same``)."""
+    from oim_tpu_torch.serve import disagg
+    from oim_tpu_torch.serve.engine import GenRequest, RequestFailedError
+
+    rng = np.random.RandomState(13)
+    base = [dict(tokens=rng.randint(0, VOCAB, n).tolist(), seed=20 + i,
+                 temperature=KV_TEMP if i % 2 else 0.0)
+            for i, n in enumerate(KV_MIGRATE_PROMPTS)]
+    unbroken = kv_run(a, [dict(r, max_new_tokens=KV_MIGRATE_BUDGET)
+                          for r in base])
+    rids = [a.submit(GenRequest(**r, max_new_tokens=KV_MIGRATE_BUDGET))
+            for r in base]
+    start = a.stats()["tokens_generated"]
+    while a.stats()["tokens_generated"] - start < (
+            KV_MIGRATE_AFTER * len(base)):
+        a.step()
+    a.begin_migrate_out()
+    a.run()
+    manifests, imports, wall = [], [], 0.0
+    for rid in rids:
+        kind = None
+        try:
+            a.result(rid, timeout=0)
+        except RequestFailedError as exc:
+            kind = exc.kind
+        check(kind == "migrated", f"kv io migrate: request {rid} ended "
+              f"{kind or 'with a result'}, not suspended")
+        t0 = time.monotonic()
+        manifest, arrays = a.export_slot(rid)
+        unpacked = disagg.unpack_transfer(
+            disagg.pack_transfer(manifest, arrays))
+        imports.append((b.import_slot(*unpacked)[0],
+                        a.import_slot(*unpacked)[0]))
+        wall += time.monotonic() - t0
+        manifests.append(manifest)
+        check(a.release_migrated(rid), "kv io migrate: record gone")
+    # A serves again, to continue the same bytes itself: the exact gate.
+    a._draining = a._migrate_out = False
+    priors = [m["tokens"] for m in manifests]
+    check(all(0 < len(p) < KV_MIGRATE_BUDGET for p in priors),
+          f"kv io migrate: suspensions at {[len(p) for p in priors]}")
+    conts = {}
+    for name, engine, which in (("B", b, 0), ("A", a, 1)):
+        conts[name] = kv_run(engine, [
+            dict(r, tokens=r["tokens"] + m["tokens"],
+                 max_new_tokens=KV_MIGRATE_BUDGET - len(m["tokens"]),
+                 kv_import=ids[which], sample_base=m["slot"]["sample_base"])
+            for r, m, ids in zip(base, manifests, imports)])
+    check(conts["B"] == conts["A"],
+          "kv io migrate: B's continuations differ from A's own")
+    gate = kv_gate(ref, "migrate", base, [t for t, _ in unbroken],
+                   [p + t for p, (t, _) in zip(priors, conts["B"])])
+    equal = gate["equal"]
+    print(f"kv io migrate: {len(base)} streams (4 greedy, 4 sampled) "
+          f"suspended after {min(map(len, priors))}–{max(map(len, priors))}"
+          f" tokens, exported, shipped and imported in {wall * 1e3:.1f} ms "
+          f"all told; B's continuations = A's own, bit for bit; {equal} of "
+          f"{len(base)} whole streams token-identical to the unbroken runs, "
+          f"the rest parting at a near tie (the largest gap "
+          f"{gate['worst_gap']:.3f}) [{SMI}]", flush=True)
+    return {"streams": len(base), "unbroken": gate, "ship_ms": wall * 1e3,
+            "suspended_at": [len(p) for p in priors]}
+
+
+def kv_tier(c, ref) -> dict:
+    """The host tier on C: the 1008-token entry served (the local hit),
+    demoted by three admissions that need its blocks, then promoted by
+    the same hit (bit-equal blocks, A's local hit's tokens, the promote's
+    TTFT beside the recompute's); then an admission that cannot fit parks
+    the coldest slot, whose restored stream is the same request run alone
+    (``kv_same``).  Afterwards the pool holds only the entries' blocks and
+    the host tier only the demoted entries'."""
+    system, shared, _ = prefix_traffic(VOCAB)
+    hit = [dict(tokens=shared[0], max_new_tokens=32)]
+    clock = TierClock(c)
+    try:
+        (recompute, _), = kv_run(c, hit)
+        recompute_ms = c._ttfts[-1] * 1e3
+        kv_run(c, [dict(tokens=system, max_new_tokens=1, cache_prefix=True)])
+        (local, _), = kv_run(c, hit)
+        (blocks, _), = c._prefix_cache.values()
+        ids = torch.as_tensor(blocks, device=DEV)
+        before = digest(torch.stack([c._cache.k[:, ids], c._cache.v[:, ids]]))
+        s0 = c.stats()
+        rng = np.random.RandomState(14)
+        kv_run(c, [dict(tokens=rng.randint(0, VOCAB, n).tolist(),
+                        max_new_tokens=64) for n in KV_TIER_PRESSURE])
+        s1 = c.stats()
+        check(s1["prefix_demotions"] > s0["prefix_demotions"]
+              and s1["host_prefix_entries"] == 1,
+              f"kv io tier: the pressure did not demote the entry: {s1}")
+        (promoted, _), = kv_run(c, hit)
+        promote_ms = c._ttfts[-1] * 1e3
+        s2 = c.stats()
+        (blocks, _), = c._prefix_cache.values()
+        ids = torch.as_tensor(blocks, device=DEV)
+        after = digest(torch.stack([c._cache.k[:, ids], c._cache.v[:, ids]]))
+        check(s2["kv_promotions"] - s1["kv_promotions"] == len(blocks)
+              and s2["prefix_hits"] == s1["prefix_hits"] + 1,
+              f"kv io tier: the hit did not promote: {s2}")
+        check(after == before, "kv io tier: the promoted blocks are not the "
+              "demoted ones")
+        check(promoted == local, "kv io tier: the promoted hit differs from "
+              "the hit before demotion")
+        promote_gate = kv_gate(ref, "promote", hit, [recompute], [promoted])
+        demote_n = len(clock.down)
+        # Parking: three staggered admissions, each alone in its wave;
+        # the third cannot fit beside the first two and parks one.
+        with c._lock:
+            c._clear_prefix_cache_locked()
+            c._flush_host_tier_locked()
+        rng = np.random.RandomState(15)
+        reqs = [dict(tokens=rng.randint(0, VOCAB, n).tolist(),
+                     max_new_tokens=KV_PARK_NEW, seed=30 + i,
+                     temperature=KV_TEMP if i == 1 else 0.0)
+                for i, n in enumerate(KV_PARK_PROMPTS)]
+        alone = [kv_run(c, [r])[0][0] for r in reqs]
+        from oim_tpu_torch.serve.engine import GenRequest
+
+        p0 = c.stats()
+        rids = []
+        for r in reqs:
+            rids.append(c.submit(GenRequest(**r)))
+            for _ in range(3):
+                c.step()
+        c.run()
+        together = [list(c.result(rid, timeout=0)) for rid in rids]
+        p1 = c.stats()
+        parks = p1["kv_parks"] - p0["kv_parks"]
+        check(parks > 0 and p1["kv_unparks"] - p0["kv_unparks"] == parks,
+              f"kv io tier: {parks} parks, "
+              f"{p1['kv_unparks'] - p0['kv_unparks']} restores")
+        gate = kv_gate(ref, "park", reqs, alone, together)
+        equal = gate["equal"]
+        downs = TierClock.rates(clock.down)
+        ups = TierClock.rates(clock.up)
+    finally:
+        clock.remove()
+    # The yardsticks: the entry's bytes moved by the tier's own calls,
+    # idle, against plain pinned copies of as many bytes.
+    with c._lock:
+        c._clear_prefix_cache_locked()
+    kv_run(c, [dict(tokens=system, max_new_tokens=1, cache_prefix=True)])
+    (blocks, _), = c._prefix_cache.values()
+    staged, _ = c._read_blocks_dispatch(blocks)
+    torch.cuda.synchronize()
+    nbytes = sum(t.nbytes for t in staged)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=DEV)
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    yard = {
+        "demote": sync_ms(lambda: c._read_blocks_dispatch(blocks)),
+        "promote": sync_ms(lambda: c._write_blocks(blocks, staged)),
+        "d2h": sync_ms(lambda: host.copy_(dev, non_blocking=True)),
+        "h2d": sync_ms(lambda: dev.copy_(host, non_blocking=True)),
+    }
+    gbs = {k: nbytes / ms / 1e6 for k, ms in yard.items()}
+    out = {"recompute_ttft_ms": recompute_ms, "promote_ttft_ms": promote_ms,
+           "bytes": nbytes, "ms": yard, "gb_s": gbs, "parks": parks,
+           "promote_recompute": promote_gate,
+           "park_alone": gate, "park_wall_ms": [w * 1e3 for w in
+                                                 clock.parks],
+           "restore_wall_ms": [w * 1e3 for w in clock.restores],
+           "in_engine_down": downs, "in_engine_up": ups,
+           "demotions": demote_n}
+    print(f"kv io tier: the {PREFIX_SYSTEM}-token entry demoted and "
+          f"promoted bit-equal; its promoted hit = the hit before demotion, "
+          f"and {'=' if promote_gate['equal'] else 'at a near tie of'} the "
+          f"recompute; its TTFT {promote_ms:.1f} ms promoted "
+          f"vs {recompute_ms:.1f} ms recomputed; {parks} park(s) and as many "
+          f"restores, {equal} of {len(reqs)} streams token-identical to "
+          f"their runs alone (largest near-tie gap "
+          f"{gate['worst_gap']:.3f}); park walls {out['park_wall_ms']} ms, restore "
+          f"walls {out['restore_wall_ms']} ms [{SMI}]", flush=True)
+    print(f"kv io tier: {nbytes / 1e6:.1f} MB ({len(blocks)} blocks): "
+          f"demote (gather + copy down) {yard['demote']:.3f} ms = "
+          f"{gbs['demote']:.1f} GB/s vs a plain pinned copy down "
+          f"{yard['d2h']:.3f} ms = {gbs['d2h']:.1f} GB/s; promote (copy up "
+          f"+ scatter) {yard['promote']:.3f} ms = {gbs['promote']:.1f} GB/s "
+          f"vs a plain pinned copy up {yard['h2d']:.3f} ms = "
+          f"{gbs['h2d']:.1f} GB/s; in the engine, each copy down "
+          f"{[f'{ms:.3f} ms {r:.1f} GB/s' for ms, r in downs]}, each "
+          f"restore's copies up "
+          f"{[f'{ms:.3f} ms {r:.1f} GB/s' for ms, r in ups]} [{SMI}]",
+          flush=True)
+    return out
+
+
+def kv_no_leaks(engine, tag: str) -> None:
+    """No device block beyond the prefix entries', no host block beyond
+    the demoted entries', nothing held, staged, parked or migrated."""
+    s = engine.stats()
+    entry = {b for blocks, _ in engine._prefix_cache.values() for b in blocks}
+    host = {b for blocks, _ in engine._host_prefix.values() for b in blocks}
+    check(s["kv_blocks_used"] == len(entry)
+          and s["kv_host_blocks_used"] == len(host)
+          and not (s["parked_slots"] or s["kv_holds"]
+                   or s["kv_imports_staged"] or s["migrated_slots"]
+                   or s["prefix_installs_staged"] or s["active_slots"]),
+          f"kv io {tag}: blocks left behind: {s['kv_blocks_used']} device "
+          f"({len(entry)} the entries'), {s['kv_host_blocks_used']} host "
+          f"({len(host)}), {s['parked_slots']} parked, {s['kv_holds']} "
+          f"held, {s['kv_imports_staged']} staged, {s['migrated_slots']} "
+          f"migrated")
+
+
+def kv_io_phase() -> dict:
+    """KV blocks leave the pool and come back, at Qwen2.5-1.5B's widths:
+    held KV, a prefix entry and live slots shipped A → B through the
+    wire's bytes, and the host tier's demotion, promotion and parking on
+    C (``kv_hold_ship``, ``kv_prefix_ship``, ``kv_migrate``,
+    ``kv_tier``).  Across the phase: K1 and K2 launched by route as the
+    engines' passes and dispatches say (the decode route and K2 at t = 1
+    ``layers × decode passes``, the tall route and K2 at t > 1 ``layers ×
+    admission dispatches`` — restored, imported and promoted slots
+    included), no plain call; every decode chunk and admission a graph
+    replay, none captured after warmup; no block left behind in either
+    tier.  Then the engines go and their memory with them."""
+    from oim_tpu_torch.ops import paged_attention as pa
+
+    t0 = time.monotonic()
+    a, b, c, ref = kv_engines()
+    engines = {"A": a, "B": b, "C": c}
+    before = {name: e.stats() for name, e in engines.items()}
+    pa.reset_counters()
+    out = {"hold": kv_hold_ship(a, b, ref)}
+    out["prefix"] = kv_prefix_ship(a, b)
+    out["migrate"] = kv_migrate(a, b, ref)
+    counts = pa.counters()  # before the tier phase's yardsticks
+    after_ab = {name: engines[name].stats() for name in ("A", "B")}
+    out["tier"] = kv_tier(c, ref)
+    tier_counts = pa.counters()
+    after = dict(after_ab, C=c.stats())
+    layers = a.cfg.n_layers
+    passes = dispatches = 0
+    for name in engines:
+        s, s0 = after[name], before[name]
+        d = {k: s[k] - s0[k] for k in (
+            "decode_passes", "decode_dispatches", "graph_replays",
+            "prefill_dispatches", "admission_replays")}
+        passes += d["decode_passes"]
+        dispatches += d["prefill_dispatches"]
+        check(d["graph_replays"] == d["decode_dispatches"] > 0
+              and d["admission_replays"] == d["prefill_dispatches"] > 0,
+              f"kv io {name}: not every dispatch a replay: {d}")
+        check(s["admission_graphs"] == s0["admission_graphs"]
+              and s["graph_capture_seconds"] == s0["graph_capture_seconds"],
+              f"kv io {name}: a graph captured after warmup")
+    check(tier_counts["paged_flash_decode_rows8"] == layers * passes
+          and tier_counts["paged_kv_store_t1"] == layers * passes
+          and tier_counts["paged_flash_decode_tc"] == layers * dispatches
+          and tier_counts["paged_kv_store"]
+          - tier_counts["paged_kv_store_t1"] == layers * dispatches,
+          f"kv io: K1/K2 launches {tier_counts} != {layers} x "
+          f"({passes} decode passes, {dispatches} admission dispatches)")
+    check(tier_counts["paged_flash_decode_plain"] == 0
+          and tier_counts["paged_kv_store_plain"] == 0
+          and tier_counts["paged_flash_decode_rows16"] == 0,
+          f"kv io: a plain version or another route ran: {tier_counts}")
+    for name, engine in engines.items():
+        kv_no_leaks(engine, name)
+    out["counts"] = {"ab": counts, "all": tier_counts}
+    out["seconds"] = time.monotonic() - t0
+    print(f"kv io: K1/K2 {tier_counts} over {passes} decode passes and "
+          f"{dispatches} admission dispatches of the three engines, every "
+          f"one a graph replay, no plain call, no capture after warmup, no "
+          f"block left in either tier; the phase took {out['seconds']:.1f} "
+          f"s [{SMI}]", flush=True)
+    del a, b, c, engine, engines, ref
+    release()
+    check(torch.cuda.memory_allocated() < 2**30,
+          f"the kv io phase still holds "
+          f"{gib(torch.cuda.memory_allocated()):.1f} GiB")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Train-kernel phase
 
 
@@ -3994,6 +4599,12 @@ def parse_args(argv):
              "their kernel counts and times to first token as the last "
              "line")
     only.add_argument(
+        "--kv-phase-only", action="store_true",
+        help="build the kernels and run only the KV block I/O phase (held "
+             "KV, a prefix entry and live slots shipped between two "
+             "engines, the host tier's demotion, promotion and parking), "
+             "printing its gates, walls and rates as the last line")
+    only.add_argument(
         "--spec-phase-only", action="store_true",
         help="build the kernels and run only the speculative paths: K1/K2 "
              "at the verify and draft shapes, the default serve phase (the "
@@ -4080,10 +4691,16 @@ def main(argv=None) -> int:
                 served["quant"] = serve_phase(QUANT_SERVE_ARGS, "int4")
             if "spec_decode" in flags:
                 served["spec"] = spec_phases(None)
+            if "kv_host_bytes" in flags:
+                served["kv_io"] = kv_io_phase()
         else:  # a package from before depth 2: paged, serial, eager only
             served["paged"] = serve_phase(SERVE_ARGS + ["--kv-block", "16"],
                                           "paged")
         print(json.dumps({"package": package, "serve": served}), flush=True)
+        return 0
+    if args.kv_phase_only:
+        print(json.dumps({"package": package, "kv_io": kv_io_phase()},
+                         default=str), flush=True)
         return 0
     if args.route_control:
         return route_control(args.route_control)
@@ -4125,6 +4742,7 @@ def main(argv=None) -> int:
     quant_counts = serve_phase(QUANT_SERVE_ARGS, "int4")
     prefix_counts = prefix_phase()
     spec_counts = spec_phases(counts["decode_tok_s"])
+    kv_io_phase()
     counts.update(train_phase(record))
     work = tempfile.mkdtemp(prefix=".smoke-ckpt-", dir=HERE)
     try:

@@ -33,6 +33,11 @@ or after a ``--params-dir``/``--checkpoint-dir`` restore, layer by
 layer.
 ``--tp``/``--ep`` above 1 (sharded serving) are refused.
 
+The host-RAM KV tier: ``--kv-host-bytes B --kv-block N`` demotes prefix
+entries to a pinned host pool of B bytes instead of evicting them, and
+parks the coldest slot there when an admission cannot fit
+(``--no-kv-park`` keeps demotion and turns parking off).
+
 Speculative decoding: ``--spec-decode N`` drafts N tokens a slot a
 decode step by prompt lookup (``--spec-ngram``) and verifies them in one
 forward; with ``--draft-params-dir D --draft-n-layers ... --draft-d-model
@@ -156,6 +161,22 @@ def build_parser() -> argparse.ArgumentParser:
         "--kv-blocks", type=int, default=0, metavar="N",
         help="paged pool size in blocks (0 = the dense cache's "
         "footprint, n_slots x max_len / --kv-block)",
+    )
+    p.add_argument(
+        "--kv-host-bytes", type=int, default=0, metavar="B",
+        help="host-RAM KV overflow tier budget in bytes (0 = off; "
+        "requires --kv-block): prefix shortfalls DEMOTE idle entries "
+        "to host RAM instead of destroying them (a later hit promotes "
+        "the blocks back — no recompute prefill), and admissions that "
+        "cannot fit can park the coldest slot's table there and "
+        "restore it exactly when blocks free",
+    )
+    p.add_argument(
+        "--no-kv-park", action="store_true",
+        help="with --kv-host-bytes: disable swap-based slot parking "
+        "(demote/promote of idle prefix entries stays on) — parking "
+        "trades a mid-stream victim's latency for the head-of-line "
+        "admission, which latency-floor deployments may not want",
     )
     quant = p.add_mutually_exclusive_group()
     quant.add_argument(
@@ -380,6 +401,8 @@ def make_engine(args, cuda_graphs: bool = True) -> Engine:
         pipeline_depth=args.pipeline_depth,
         kv_block=args.kv_block,
         kv_blocks=args.kv_blocks,
+        kv_host_bytes=args.kv_host_bytes,
+        kv_park=not args.no_kv_park,
         device=device,
         cuda_graphs=cuda_graphs,
     )
@@ -398,7 +421,9 @@ def start_server(args) -> ServeServer:
         f"spec_decode={args.spec_decode} "
         f"draft={'model' if engine.draft_cfg else 'none'} "
         f"weight_quant={engine.weight_quant or 'none'} "
-        f"kv_quant={engine.kv_quant or 'none'} device={engine.device}",
+        f"kv_quant={engine.kv_quant or 'none'} "
+        f"kv_host_bytes={engine.kv_host_bytes} kv_park={engine.kv_park} "
+        f"device={engine.device}",
         file=sys.stderr, flush=True,
     )
     return server

@@ -16,9 +16,11 @@ functional copy would only cost a second pool's worth of memory.
 
 ``copy_block``, ``write_block`` and ``read_block`` move whole blocks of
 a stacked pool [n_layers, n_blocks, ...]: copy-on-write of a shared
-prefix block, and the block movements of later features.  They move
-bytes, so a packed int4 pool (``torch.uint8``, ``[..., head_dim / 2]``)
-and its scale planes move as any other pool does.
+prefix block.  ``read_blocks`` and ``write_blocks`` move a batch of
+blocks in one gather or one scatter a leaf: the KV tier's demotions,
+promotions, parks and restores, and KV shipping's exports and imports.
+They move bytes, so a packed int4 pool (``torch.uint8``, ``[...,
+head_dim / 2]``) and its scale planes move as any other pool does.
 
 Pool contents must stay finite: attention masks the weight of a
 position, and ``0 × NaN`` would still poison the output.
@@ -133,3 +135,18 @@ def read_block(pool, src: int):
     """A copy of block ``src``'s rows [n_layers, block_size, ...] of a
     stacked pool [n_layers, n_blocks, ...]."""
     return pool[:, src].clone()
+
+
+def read_blocks(pool, ids):
+    """Blocks ``ids`` [N] (int64, on the pool's device) of a stacked pool
+    [n_layers, n_blocks, ...] as one new tensor [n_layers, N, ...]: one
+    gather, the batched ``read_block``."""
+    return pool.index_select(1, ids)
+
+
+def write_blocks(pool, rows, ids):
+    """Write ``rows`` [n_layers, N, ...] at blocks ``ids`` [N] (int64, on
+    the pool's device) of a stacked pool [n_layers, n_blocks, ...], in
+    place: one scatter, the batched ``write_block``.  Returns ``pool``."""
+    pool.index_copy_(1, ids, rows)
+    return pool

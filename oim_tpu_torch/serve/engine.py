@@ -65,6 +65,20 @@ paths:
   like tokens, from the chunk before it, and the host learns each row's
   advance from ``n_emit`` at readback.  Its chunks and the draft's
   prefill are graph replays too.
+- **KV blocks leave the pool and come back.**  With ``kv_host_bytes``
+  a pinned host pool of the device pool's layout takes prefix entries
+  that would be evicted (demotion) and hands them back on a later hit
+  (promotion), and an admission that cannot fit parks the coldest
+  slot's blocks there and restores them, exactly, when blocks free.
+  ``hold_kv``/``export_kv``/``import_kv``/``kv_import``,
+  ``export_kv_prefix``/``import_kv_prefix`` and
+  ``begin_migrate_out``/``export_slot``/``import_slot`` ship held KV,
+  prefix entries and live slots on the reference's wire
+  (``serve/disagg.py``).  Blocks go down as one gather a leaf and a
+  non-blocking copy into pinned memory, and come up as one copy a leaf
+  and one scatter, all on the stream every replay runs on, so stream
+  order does what the reference's XLA order does; a restored, imported
+  or promoted slot admits through the prefix-hit route's graphs.
 - **Slot-free work.**  ``embed`` and ``beam`` run the plain solo path
   (``models/decode.py::embed_tokens``, ``models/beam.py``) on the
   caller's thread, refused while draining.
@@ -115,7 +129,7 @@ from oim_tpu_torch.models.transformer import (
 from oim_tpu_torch.models.weights import n_params, to_device
 from oim_tpu_torch.ops import counts as kernel_counts
 from oim_tpu_torch.ops import paged_attention
-from oim_tpu_torch.ops.paged import copy_block
+from oim_tpu_torch.ops.paged import copy_block, read_blocks, write_blocks
 from oim_tpu_torch.ops.paged_attention import (
     MAX_BLOCK_SIZE,
     paged_flash_prefill,
@@ -123,6 +137,28 @@ from oim_tpu_torch.ops.paged_attention import (
 )
 from oim_tpu_torch.ops.quant import make_kv_buffers, weight_quant_mode
 from oim_tpu_torch.ops.rope import apply_rope
+from oim_tpu_torch.qos.policy import DEFAULT_POLICY as _QOS_DEFAULT
+from oim_tpu_torch.serve.disagg import (
+    KV_HOLD_MAX,
+    KV_HOLD_TTL_S,
+    KV_IMPORT_MAX,
+    KV_IMPORT_TTL_S,
+    MIGRATE_TTL_S,
+    PREFIX_DIGEST_CAP,
+    PREFIX_IMPORT_MAX,
+    PREFIX_IMPORT_TTL_S,
+    KvCapacityError,
+    KvGeometryError,
+    KvHold,
+    KvImport,
+    KvIneligibleError,
+    SlotRecord,
+    build_manifest,
+    dtype_name,
+    leaf_table,
+    prefix_digest,
+    validate_geometry,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -190,6 +226,14 @@ class PagedCache:
         ks = None if self.k_scale is None else self.k_scale[i]
         vs = None if self.v_scale is None else self.v_scale[i]
         return self.k[i], self.v[i], ks, vs
+
+    def leaves(self) -> list[tuple[str, torch.Tensor]]:
+        """(leaf name, pool) pairs, the scale planes included when the
+        pool has them: the one leaf order every block movement shares."""
+        out = [("k", self.k), ("v", self.v)]
+        if self.k_scale is not None:
+            out += [("k_scale", self.k_scale), ("v_scale", self.v_scale)]
+        return out
 
 
 def dense_block_size(max_len: int) -> int:
@@ -303,6 +347,91 @@ class BlockAllocator:
         return freed
 
 
+class HostBlockPool:
+    """The host-RAM tier of the paged pool: one host tensor per pool leaf
+    of the device pool's layout ``[n_layers, n_blocks, block_size, ...]``
+    (a packed int4 pool's ``uint8`` bytes and the f32 scale planes
+    included), allocated once, pinned on the GPU, plus its own
+    refcounted allocator.  A block's bytes here are a copy of the device
+    block's, so demote then promote, and park then restore, are exact by
+    construction.  Its rows are written only by the step thread
+    (``Engine._complete_host_writes``) into blocks a pending write owns,
+    and its allocator is used under the engine's lock."""
+
+    def __init__(self, cache: PagedCache, n_blocks: int, pin: bool):
+        if n_blocks < 1:
+            raise ValueError(f"need n_blocks >= 1, got {n_blocks}")
+        self._leaves = [
+            (name, torch.zeros((pool.shape[0], n_blocks, *pool.shape[2:]),
+                               dtype=pool.dtype, pin_memory=pin))
+            for name, pool in cache.leaves()
+        ]
+        self.alloc = BlockAllocator(n_blocks)
+
+    @property
+    def n_blocks(self) -> int:
+        return self._leaves[0][1].shape[1]
+
+    def pools(self) -> list[tuple[str, torch.Tensor]]:
+        """(leaf name, host tensor) pairs in ``PagedCache.leaves``'
+        order."""
+        return list(self._leaves)
+
+    def gather(self, blocks, pin: bool) -> list[torch.Tensor]:
+        """Host blocks ``blocks`` of every leaf as new tensors [n_layers,
+        N, ...] (pinned when ``pin``, so a copy to the device from them
+        does not wait for it)."""
+        idx = torch.as_tensor(list(blocks), dtype=torch.int64)
+        out = []
+        for _, pool in self._leaves:
+            rows = torch.empty((pool.shape[0], len(idx), *pool.shape[2:]),
+                               dtype=pool.dtype, pin_memory=pin)
+            out.append(torch.index_select(pool, 1, idx, out=rows))
+        return out
+
+
+@dataclass
+class _HostWrite:
+    """One dispatched demotion: the pinned host tensors its blocks' bytes
+    land in (``HostBlockPool.pools``' order), the event that marks the
+    copies done (None on the CPU), and where the bytes go in the host
+    pool.  ``kind`` "prefix" registers a host prefix entry once done;
+    "park" marks the parked slot restorable.  The copies were enqueued
+    on the step thread's stream BEFORE the source blocks were decref'd, so
+    whatever reuses those blocks is enqueued after them and cannot
+    overtake them."""
+
+    kind: str  # "prefix" | "park"
+    host_blocks: tuple[int, ...]
+    staged: list
+    done: object
+    key: tuple = ()  # prefix: the covered-token entry key
+    rows: int = 0  # prefix: covered rows
+    meta: dict | None = None  # prefix: the residency record it carries
+    rid: int = -1  # park: the parked request
+
+
+@dataclass
+class _ParkedSlot:
+    """A mid-stream request swapped out to the host tier: its host slot
+    state and the host blocks holding its KV through the frontier.
+    ``ready`` flips when the demotion's copies are done; ``n_live`` is
+    the original reservation's block count, which restore re-reserves;
+    ``restoring`` is set while ``_unpark_wave`` writes the payload back
+    with the lock released (the record stays in ``_parked``, visible to
+    cancel, reap, abort and ``in_flight``, and whoever pops it owns the
+    host-block decref)."""
+
+    state: "_SlotState"
+    host_blocks: tuple[int, ...]
+    n_cov: int  # leading blocks that carry live rows (the payload)
+    n_live: int  # total blocks the original plan reserved
+    rows: int  # valid KV rows (len(prompt) + len(emitted) - 1)
+    ready: bool = False
+    restoring: bool = False
+    t_parked: float = field(default_factory=time.monotonic)
+
+
 # ---------------------------------------------------------------------------
 # Device functions
 
@@ -366,6 +495,12 @@ def _columns(reqs, default_top_p: float) -> np.ndarray:
             req.frequency_penalty,
         )
     return cols
+
+
+def _sampling(req) -> dict:
+    """The sampling state a shipped manifest carries for ``req``."""
+    return {"seed": req.seed, "temperature": req.temperature,
+            "top_p": req.top_p, "min_p": req.min_p}
 
 
 def _sampling_key(cols: np.ndarray) -> tuple[bool, bool]:
@@ -635,6 +770,21 @@ def _decode_chunk_spec(params, cache, tables, tokens, starts, live,
             torch.stack(n_emits, dim=1), tokens, lengths)
 
 
+def _restore_slot(history, tok_counts, gen_counts, slot: int, hist_row,
+                  tok_row, gen_row) -> None:
+    """The device half of un-parking: put one slot's per-slot device
+    state back, in place — prompt lookup's token history row and the
+    penalty occurrence rows (None where the engine keeps none), each
+    rebuilt from host truth (prompt + emitted tokens), so the restored
+    slot is indistinguishable from one that never left.  The cache
+    frontier and the sampling index are host state (``_SlotState``)."""
+    if history is not None:
+        history[slot] = hist_row
+    if tok_counts is not None:
+        tok_counts[slot] = tok_row
+        gen_counts[slot] = gen_row
+
+
 # The keys of a decode chunk's graphs: (some row samples, some sampled
 # row truncates).  Truncation matters only to sampled rows.
 _GRAPH_KEYS = ((False, False), (True, False), (True, True))
@@ -818,8 +968,13 @@ class GenRequest:
     k tokens a client already holds, with ``sample_base = k``, draws the
     uninterrupted stream's noise from token k on.  ``cache_prefix``
     stores the prompt's KV in the prefix cache (ignored when the engine
-    has none).  ``hold_kv`` and ``kv_import`` belong to features not
-    ported yet and are refused at submission when set."""
+    has none).  ``hold_kv`` retains the finished request's KV blocks for
+    ``export_kv`` (one ref each, TTL'd; a no-op on a dense engine).
+    ``kv_import`` admits from a staged ``import_kv``/``import_slot``: the
+    prompt must start with the import's token record, and decode resumes
+    at its frontier (an expired import falls back to the recompute
+    prefill).  ``tenant`` is the caller's identity ("" is "anon"); it
+    ranks park victims and stamps a migrated slot's manifest."""
 
     tokens: list[int]
     max_new_tokens: int
@@ -837,6 +992,7 @@ class GenRequest:
     hold_kv: bool = False
     kv_import: int | None = None
     sample_base: int = 0
+    tenant: str = ""
 
 
 class QueueFullError(RuntimeError):
@@ -861,13 +1017,15 @@ _KIND_TEXT = {
     "cancelled": "cancelled",
     "deadline": "deadline exceeded",
     "deadline_queue": "shed (deadline expired in queue)",
+    "migrated": "suspended for migration (resume on a sibling)",
 }
 
 
 class RequestFailedError(RuntimeError):
     """One request failed without a result; ``kind`` tells the HTTP
     layer which status to answer: "aborted" (500), "cancelled",
-    "deadline" (504), "deadline_queue" (429)."""
+    "deadline" (504), "deadline_queue" (429), "migrated" (503: suspended
+    by ``begin_migrate_out``, its state in ``export_slot``)."""
 
     def __init__(self, rid: int, kind: str, message: str):
         super().__init__(
@@ -904,6 +1062,10 @@ class _SlotState:
     emitted: list[int] = field(default_factory=list)
     logprobs: list[float] = field(default_factory=list)
     last_token: int = 0
+    # Set when the slot was just restored from the host tier, cleared at
+    # its next emitted token: a restored slot makes progress before it
+    # can be parked again, or a saturated queue ping-pongs one victim.
+    park_immune: bool = False
 
 
 class Engine:
@@ -946,6 +1108,7 @@ class Engine:
         kv_block: int = 0,
         kv_blocks: int = 0,
         kv_host_bytes: int = 0,
+        kv_park: bool = True,
         qos=None,
         device=None,
         cuda_graphs: bool = True,
@@ -1000,12 +1163,20 @@ class Engine:
                 f"max_len={max_len} leaves no usable room after the "
                 f"spec_decode={spec_decode} headroom reserve"
             )
-        if kv_host_bytes:
-            raise _not_ported(
-                "the host-RAM KV tier", "lifecycle surfaces (host tier)"
+        if kv_host_bytes < 0:
+            raise ValueError(
+                f"kv_host_bytes must be >= 0, got {kv_host_bytes}"
+            )
+        if kv_host_bytes and not self.paged:
+            raise ValueError(
+                "kv_host_bytes needs the paged cache (kv_block > 0): "
+                "only the block pool has a block-granular unit to "
+                "demote/promote"
             )
         if qos is not None:
-            raise _not_ported("QoS policies", "lifecycle surfaces (QoS)")
+            raise _not_ported(
+                "QoS policies", "A10, the rest of the lifecycle surfaces "
+                "(QoS)")
         if n_slots < 1 or max_len < 2 or chunk < 1:
             raise ValueError(
                 f"need n_slots>=1, max_len>=2, chunk>=1; got {n_slots}, "
@@ -1126,11 +1297,69 @@ class Engine:
             for t in (self._cache.k, self._cache.v, self._cache.k_scale,
                       self._cache.v_scale) if t is not None
         )
+        # Bytes in one pool block (0 on dense): the tier-flow and ship
+        # byte counters are blocks times this.
+        self._block_bytes = self._kv_row_bytes * kv_block
+        # The host-RAM tier: a second block pool under a byte budget.
+        # Prefix shortfalls demote idle entries to it instead of
+        # destroying them, a later hit promotes them back (a staged
+        # install, landed at the next admission boundary), and an
+        # admission that cannot fit can park the coldest slot there and
+        # restore it exactly when blocks free.
+        self.kv_host_bytes = kv_host_bytes
+        self._host = None
+        if kv_host_bytes:
+            n_host = kv_host_bytes // self._block_bytes
+            if n_host < 1:
+                raise ValueError(
+                    f"kv_host_bytes={kv_host_bytes} holds no block "
+                    f"(one {kv_block}-token block is {self._block_bytes} "
+                    f"bytes here)"
+                )
+            self._host = HostBlockPool(self._cache, n_host,
+                                       pin=self.device.type == "cuda")
+        # Parking needs a per-slot state that host truth rebuilds: a
+        # draft model's dense cache is device state a restore cannot
+        # rebuild without a draft prefill, so a draft engine does not
+        # park (it still demotes and promotes prefix entries).
+        self.kv_park = bool(
+            self._host is not None and kv_park and draft_cfg is None
+        )
+        # Host-tier state, under self._lock like the device allocator:
+        # demoted prefix entries (covered-token key → (host block ids,
+        # rows)) and their residency records, parked slots (rid →
+        # _ParkedSlot, restored oldest first), demotions dispatched but
+        # not landed, and promotions planned whose payload copy runs off
+        # the lock.  _h2d holds the pinned sources of the copies up to
+        # the device, each beside the event after which it may go.
+        self._host_prefix: OrderedDict = OrderedDict()
+        self._host_meta: dict[tuple, dict] = {}
+        self._parked: OrderedDict = OrderedDict()
+        self._pending_host_writes: list[_HostWrite] = []
+        self._promote_staging: set[tuple] = set()
+        self._h2d: deque = deque()
+        # Held KV (rid → KvHold, one extra ref a block) and staged
+        # imports (import id → KvImport, reserved blocks and the host
+        # payload the step thread writes at admission), both TTL'd and
+        # count-capped; staged prefix installs (digest, KvImport,
+        # promote key — the host entry a promotion clears, or None for
+        # a shipped entry); migrated-slot records (rid → SlotRecord).
+        self._kv_holds: dict[int, KvHold] = {}
+        self._kv_imports: dict[int, KvImport] = {}
+        self._next_import_id = 0
+        self._prefix_installs: list[tuple] = []
+        self._migrated: dict[int, SlotRecord] = {}
+        self._migrate_out = False
         # Prompt tokens → (entry, rows it covers), least recently used
         # first.  Dense: copies (k, v, k_scale, v_scale) of a slot's first
         # rows, [n_layers, rows, ...]; paged: the ids of the blocks the
         # prompt fully covers, one ref each.
         self._prefix_cache: OrderedDict = OrderedDict()
+        # One residency record an entry (same key): the digest of the
+        # covered tokens (its fleet identity), covered rows, hits, last
+        # hit, origin ("local", or "fetched" for an installed ship) and
+        # its owner's tenant and tier.
+        self._prefix_meta: dict[tuple, dict] = {}
         self._prefilling: dict[int, _PendingPrefill] = {}
         self.spec_decode = spec_decode
         self.spec_ngram = spec_ngram
@@ -1224,6 +1453,33 @@ class Engine:
         self.prefix_injects = 0
         self.prefix_evictions = 0
         self.prefix_bytes_saved = 0
+        # The host tier's movements: blocks and bytes each way, the
+        # step thread's walls for them (a demotion's copy to the host overlaps
+        # decode, so its wall is the landing in the host pool; a
+        # promotion's or restore's is its copies up and scatter
+        # enqueued), slots parked and restored, and the prefix
+        # shortfall's split: moved to the host tier (demotions) or
+        # destroyed (evictions).
+        self.kv_demotions = 0
+        self.kv_promotions = 0
+        self.kv_demote_bytes = 0
+        self.kv_promote_bytes = 0
+        self.kv_demote_seconds = 0.0
+        self.kv_promote_seconds = 0.0
+        self._promote_walls: deque[float] = deque(maxlen=64)
+        self.kv_parks = 0
+        self.kv_unparks = 0
+        self.prefix_demotions = 0
+        # KV shipping: exports served, imports staged, bytes both ways;
+        # prefix entries exported and shipped entries installed; slots
+        # exported and imported.
+        self.kv_exports = 0
+        self.kv_imports_total = 0
+        self.kv_ship_bytes = 0
+        self.prefix_exports = 0
+        self.prefix_fetch_installs = 0
+        self.slot_exports = 0
+        self.slot_imports = 0
         # Prompt segments dispatched: one for a one-shot admission, one
         # per segment of a chunked one.
         self.prefill_segments = 0
@@ -1306,11 +1562,6 @@ class Engine:
         return -(-self._worst_case_rows(n_tokens, max_new) // self.kv_block)
 
     def _validate(self, req: GenRequest) -> None:
-        if req.hold_kv or req.kv_import is not None:
-            raise _not_ported(
-                "KV shipping (hold_kv/kv_import)",
-                "lifecycle surfaces (disaggregation)",
-            )
         if not req.tokens:
             raise ValueError("empty prompt")
         if req.max_new_tokens < 1:
@@ -1337,6 +1588,26 @@ class Engine:
                 f"request needs {need} KV blocks worst-case but the pool "
                 f"holds only {self.kv_blocks} blocks of {self.kv_block}"
             )
+        if req.kv_import is not None:
+            if not self.paged:
+                raise ValueError(
+                    "kv_import needs a paged engine (oim-serve "
+                    "--kv-block); this engine runs the dense cache"
+                )
+            with self._lock:
+                imp = self._kv_imports.get(req.kv_import)
+            # The import may expire before admission (the planner then
+            # falls back to the recompute prefill), but a present import
+            # whose token record does not start this prompt would decode
+            # against another request's KV.
+            if imp is not None and (
+                len(imp.tokens) > len(req.tokens)
+                or list(req.tokens[: len(imp.tokens)]) != list(imp.tokens)
+            ):
+                raise ValueError(
+                    f"kv_import {req.kv_import} token record does not "
+                    f"prefix this request's prompt"
+                )
         if req.top_p is not None and not 0.0 < req.top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {req.top_p}")
         if not 0.0 <= req.min_p < 1.0:
@@ -1392,6 +1663,15 @@ class Engine:
             self._next_rid += 1
             self._queue.append((rid, req, now))
             self._events[rid] = threading.Event()
+            # A demoted entry that covers this prompt better than any
+            # resident one: reserve its promotion now, copy its payload
+            # once the lock drops, and the step thread lands it at this
+            # request's admission boundary (recompute is the fallback).
+            promote = (self._plan_promote_locked(req)
+                       if self._host is not None and not self._warming
+                       else None)
+        if promote is not None:
+            self._stage_promote(promote)
         return rid
 
     def result(self, rid: int, timeout: float | None = None) -> list[int]:
@@ -1435,10 +1715,10 @@ class Engine:
                     del self._queue[i]
                     self._fail_locked(rid, "cancelled", message)
                     return True
-            if rid in self._admitting or any(
+            if rid in self._admitting or rid in self._parked or any(
                 s.rid == rid for s in self._slots.values()
             ):
-                self._cancelled.add(rid)
+                self._cancelled.add(rid)  # reaped at the next step
                 return True
             return False
 
@@ -1453,10 +1733,12 @@ class Engine:
             self._events[rid].set()
 
     def abort(self, message: str) -> None:
-        """Fail every queued, admitting and active request and reclaim
-        their slots and blocks (the crash path of ``step``).  A chunk in
-        flight is dropped unread: it references only the requests failed
-        here, and the device finishes it before any later work."""
+        """Fail every queued, admitting, active and parked request and
+        reclaim their slots and blocks in both tiers (the crash path of
+        ``step``).  A chunk in flight is dropped unread: it references
+        only the requests failed here, and the device finishes it before
+        any later work.  A park whose copy to the host is still in
+        flight returns its host blocks when the copy lands."""
         with self._lock:
             self._inflight = None
             self._t_device_free = None
@@ -1464,6 +1746,9 @@ class Engine:
             rids = [rid for rid, _, _ in self._queue]
             rids += list(self._admitting)
             rids += [s.rid for s in self._slots.values()]
+            rids += list(self._parked)
+            for rid in list(self._parked):
+                self._drop_parked_locked(rid)
             for slot in sorted(set(self._slots) | set(
                     self._admitting.values())):
                 self._release_slot_locked(slot)
@@ -1481,15 +1766,23 @@ class Engine:
             self._draining = True
 
     def in_flight(self) -> int:
+        """Queued + admitting + active + parked + slot-free requests: what
+        a drain waits on (a parked request still owes its client
+        tokens)."""
         with self._lock:
             return (len(self._queue) + len(self._admitting) + len(self._slots)
-                    + self._aux_active)
+                    + len(self._parked) + self._aux_active)
 
     def pending(self) -> bool:
         with self._lock:
             # A prompt mid-way through chunked prefill keeps the loop
-            # stepping: its segments dispatch from admission waves.
-            return bool(self._queue or self._slots or self._prefilling)
+            # stepping (its segments dispatch from admission waves), as
+            # do staged prefix installs, parked slots and demotions in
+            # flight: the step lands installs, completes demotions and
+            # restores parked slots.
+            return bool(self._queue or self._slots or self._prefilling
+                        or self._prefix_installs or self._parked
+                        or self._pending_host_writes)
 
     def set_pipeline_depth(self, depth: int) -> None:
         """Switch between serial (1) and dispatch-ahead (2) decode on a
@@ -1681,6 +1974,11 @@ class Engine:
                 "paged": self.paged,
                 "kv_block": self.kv_block,
                 "kv_blocks": self.kv_blocks,
+                "kv_host_bytes": self.kv_host_bytes,
+                "kv_host_blocks": (
+                    self._host.n_blocks if self._host else 0
+                ),
+                "kv_park": self.kv_park,
                 "device": str(self.device),
                 "attention": (
                     "cuda-kernels" if self.device.type == "cuda" else "plain"
@@ -1718,6 +2016,59 @@ class Engine:
                     self._alloc.shared_blocks if self.paged else 0
                 ),
                 "kv_admit_deferrals": self.kv_admit_deferrals,
+                # Fleet prefix residency: the resident digests (hottest
+                # first, capped), entries installed from shipped
+                # exports, exports served, installs still staged.
+                "prefix_digests": self._prefix_digest_summary_locked(
+                    PREFIX_DIGEST_CAP
+                ),
+                "prefix_fetch_installs": self.prefix_fetch_installs,
+                "prefix_exports": self.prefix_exports,
+                "prefix_installs_staged": len(self._prefix_installs),
+                # The host-RAM tier (zeros without kv_host_bytes): its
+                # occupancy, movements each way in blocks, bytes and
+                # walls, parks and restores, and the prefix shortfall's
+                # demote-or-evict split.
+                "kv_host_bytes": self.kv_host_bytes,
+                "kv_host_blocks_total": (
+                    self._host.n_blocks if self._host else 0
+                ),
+                "kv_host_blocks_free": (
+                    self._host.alloc.free_blocks if self._host else 0
+                ),
+                "kv_host_blocks_used": (
+                    self._host.alloc.used_blocks if self._host else 0
+                ),
+                "kv_host_fragmentation": (
+                    self._kv_host_fragmentation_locked()
+                ),
+                "host_prefix_entries": len(self._host_prefix),
+                "parked_slots": len(self._parked),
+                "kv_park": self.kv_park,
+                "kv_demotions": self.kv_demotions,
+                "kv_promotions": self.kv_promotions,
+                "kv_parks": self.kv_parks,
+                "kv_unparks": self.kv_unparks,
+                "kv_demote_bytes": self.kv_demote_bytes,
+                "kv_promote_bytes": self.kv_promote_bytes,
+                "kv_demote_seconds": self.kv_demote_seconds,
+                "kv_promote_seconds": self.kv_promote_seconds,
+                "kv_promote_wall_p50": (
+                    statistics.median(self._promote_walls)
+                    if self._promote_walls else 0.0
+                ),
+                "prefix_demotions": self.prefix_demotions,
+                # KV shipping (zeros on a dense engine) and live-slot
+                # migration: records awaiting export pin their blocks
+                # until shipped, released or swept.
+                "kv_holds": len(self._kv_holds),
+                "kv_imports_staged": len(self._kv_imports),
+                "kv_exports": self.kv_exports,
+                "kv_imports": self.kv_imports_total,
+                "kv_ship_bytes": self.kv_ship_bytes,
+                "migrated_slots": len(self._migrated),
+                "slot_exports": self.slot_exports,
+                "slot_imports": self.slot_imports,
                 "kv_quant": self.kv_quant,
                 # Host clock around work that ends in a device readback,
                 # so these are device-inclusive walls (but for a wave
@@ -1816,6 +2167,8 @@ class Engine:
             for rid in rids:
                 self.result(rid, timeout=0)
             self._ensure_graphs()
+            with self._lock:  # nothing of the dummies stays in the tier
+                self._flush_host_tier_locked()
         finally:
             self._warming = False
         self.warmup_seconds = time.monotonic() - t0
@@ -1837,6 +2190,10 @@ class Engine:
 
     def _finish_locked(self, slot: int, state: _SlotState) -> None:
         self._slots.pop(slot, None)
+        # A hold_kv request's blocks are retained for export BEFORE the
+        # release decrefs them: the hold's own ref keeps them alive.
+        if state.req.hold_kv and self.paged and not self._warming:
+            self._hold_kv_locked(slot, state)
         self._release_slot_locked(slot)
         self._cancelled.discard(state.rid)
         if state.rid in self._forgotten:
@@ -1852,6 +2209,7 @@ class Engine:
             self._ttfts.append(time.monotonic() - state.t_submit)
         state.emitted.append(token)
         state.logprobs.append(logprob)
+        state.park_immune = False  # progress made: parkable again
         if not self._warming:
             self.tokens_generated += 1
         if token == state.req.eos_id or token in state.req.stop_ids:
@@ -1862,13 +2220,25 @@ class Engine:
     def _reap(self) -> None:
         """Fail cancelled and deadline-expired requests: queued ones
         before they touch a slot, active ones at this step (a chunk in
-        flight skips their rows when it is read back)."""
+        flight skips their rows when it is read back), parked ones with
+        their host blocks returned.  The KV-transfer TTLs are swept here
+        too, so a ship whose orchestrator died returns its blocks without
+        waiting for the next export or import."""
         now = time.monotonic()
         with self._lock:
+            if self.paged and (self._kv_holds or self._kv_imports
+                               or self._prefix_installs or self._migrated):
+                self._sweep_kv_holds_locked(now)
+                self._sweep_kv_imports_locked(now)
+                self._sweep_prefix_installs_locked(now)
+                self._sweep_migrated_locked(now)
             if not self._cancelled and not any(
                 r.deadline is not None for _, r, _ in self._queue
             ) and not any(
                 s.req.deadline is not None for s in self._slots.values()
+            ) and not any(
+                p.state.req.deadline is not None
+                for p in self._parked.values()
             ):
                 return
             keep = deque()
@@ -1895,6 +2265,21 @@ class Engine:
                 self._slots.pop(slot)
                 self._release_slot_locked(slot)
                 self._fail_locked(state.rid, kind, msg)
+            # A parked request keeps its deadline and can be cancelled:
+            # a swap-out is invisible to the failure taxonomy.
+            for rid in list(self._parked):
+                state = self._parked[rid].state
+                if rid in self._cancelled:
+                    kind, msg = "cancelled", "client went away while parked"
+                elif (state.req.deadline is not None
+                      and now >= state.req.deadline):
+                    kind = "deadline"
+                    msg = (f"expired after {len(state.emitted)} tokens "
+                           f"(parked in the host tier)")
+                else:
+                    continue
+                self._drop_parked_locked(rid)
+                self._fail_locked(rid, kind, msg)
 
     @torch.no_grad()
     def _step_inner(self, acc: list) -> None:
@@ -1909,8 +2294,13 @@ class Engine:
         the chunk in flight already covers every slot's remaining
         budget, a chained dispatch would be pure waste, so the step
         takes a boundary instead.  Depth 1 is the serial loop (every
-        step is a boundary), token for token equal to depth 2."""
+        step is a boundary), token for token equal to depth 2.  First
+        the demotions whose copies have landed become promotable entries
+        and restorable parked slots; after the reap, a migrate-out drain
+        suspends everything (``_migrate_wave``)."""
+        self._complete_host_writes()
         self._reap()
+        self._migrate_wave()
         with self._lock:
             elide_tail = (
                 self._inflight is not None
@@ -1964,14 +2354,16 @@ class Engine:
 
     # -- prefix cache ---------------------------------------------------------
 
-    def _best_prefix_locked(self, req: GenRequest) -> tuple:
-        """THE prefix matching rule (lock held): the longest entry usable
-        for ``req``, as (key, usable rows) or (None, 0).  Usable is the
-        entry's rows capped at ``len(req.tokens) - 1`` (one token must
-        be prefilled to sample from), and the tail, bucketed, must still
-        fit the slot's region."""
+    def _best_match_locked(self, entries, req: GenRequest) -> tuple:
+        """THE prefix matching rule (lock held): the longest of
+        ``entries`` — (key, (payload, rows)) pairs — usable for ``req``,
+        as (key, usable rows) or (None, 0).  Usable is the entry's rows
+        capped at ``len(req.tokens) - 1`` (one token must be prefilled to
+        sample from), and the tail, bucketed, must still fit the slot's
+        region.  One rule for both tiers, so promotion and aliasing hit
+        on the same traffic."""
         best_key, best_usable = None, 0
-        for key, (_, rows) in self._prefix_cache.items():
+        for key, (_, rows) in entries:
             usable = min(rows, len(req.tokens) - 1)
             if usable <= best_usable:
                 continue
@@ -1980,6 +2372,10 @@ class Engine:
                 if usable + tail_bucket <= self.max_len:
                     best_key, best_usable = key, usable
         return best_key, best_usable
+
+    def _best_prefix_locked(self, req: GenRequest) -> tuple:
+        """The longest device-resident entry usable for ``req``."""
+        return self._best_match_locked(self._prefix_cache.items(), req)
 
     def _count_prefix_locked(self, usable: int) -> None:
         """Count one admission's lookup as a hit or a miss."""
@@ -2003,6 +2399,7 @@ class Engine:
             if key is None:
                 return 0
             self._prefix_cache.move_to_end(key)  # LRU touch
+            self._touch_prefix_meta_locked(key)
             entry, _ = self._prefix_cache[key]
         cache = self._cache
         for dst, src in zip((cache.k, cache.v, cache.k_scale, cache.v_scale),
@@ -2011,12 +2408,14 @@ class Engine:
                 dst[:, slot, : src.shape[1]].copy_(src)
         return usable
 
-    def _store_prefix(self, slot: int, tokens: list[int]) -> None:
-        """Cache ``slot``'s freshly prefilled prompt KV under ``tokens``.
-        Dense: a copy of the slot's bucketed rows (only the first
-        ``len(tokens)`` are ever used).  Paged: one more ref on the
-        blocks the prompt fully covers, no copy; never the partial last
-        block, which this slot's decode writes next."""
+    def _store_prefix(self, slot: int, req: GenRequest) -> None:
+        """Cache ``slot``'s freshly prefilled prompt KV under
+        ``req.tokens``.  Dense: a copy of the slot's bucketed rows (only
+        the first ``len(tokens)`` are ever used).  Paged: one more ref on
+        the blocks the prompt fully covers, no copy; never the partial
+        last block, which this slot's decode writes next."""
+        tokens = req.tokens
+        tenant = req.tenant or "anon"
         key = tuple(tokens)
         if self.paged:
             full = len(tokens) // self.kv_block
@@ -2031,6 +2430,8 @@ class Engine:
                     self._alloc.decref(old[0])
                 self._alloc.incref(blocks)
                 self._prefix_cache[key] = (blocks, full * self.kv_block)
+                self._set_prefix_meta_locked(key, full * self.kv_block,
+                                             "local", tenant)
                 self._trim_prefix_cache_locked()
             return
         rows = self._bucket(len(tokens))
@@ -2041,38 +2442,116 @@ class Engine:
         with self._lock:
             self._prefix_cache[key] = (entry, len(tokens))
             self._prefix_cache.move_to_end(key)
+            self._set_prefix_meta_locked(key, len(tokens), "local", tenant)
             self._trim_prefix_cache_locked()
 
     def _trim_prefix_cache_locked(self) -> None:
-        """Count a store and evict least recently used entries past the
-        size cap (lock held)."""
+        """Count a store and retire least recently used entries past the
+        size cap (lock held): demoted to the host tier where there is
+        one, so a cache sized for hot entries keeps its warm tail
+        promotable."""
         if not self._warming:
             self.prefix_injects += 1
+        self._trim_to_size_locked()
+
+    def _trim_to_size_locked(self) -> None:
         while len(self._prefix_cache) > self.prefix_cache_size:
-            key = next(iter(self._prefix_cache))
-            self._retire_prefix_entry_locked(key)
+            self._retire_prefix_entry_locked(next(iter(self._prefix_cache)))
 
-    def _retire_prefix_entry_locked(self, key: tuple) -> None:
-        """Drop one entry (lock held), and with it, paged, its refs.  The
-        host tier it could be demoted to is not ported (ROADMAP Queue
-        A10), so retiring is evicting."""
-        entry, _ = self._prefix_cache.pop(key)
+    def _retire_prefix_entry_locked(self, key: tuple,
+                                    demote: bool = True) -> None:
+        """Drop one entry (lock held): paged, its blocks are first
+        demoted to the host tier when ``demote`` and the tier can take
+        them (the copies enqueued before the refs drop), and destroyed
+        otherwise.  The one retirement path of the shortfall planners,
+        the size cap and the flushes, so the demotion/eviction counts
+        cannot drift between them."""
+        entry, rows = self._prefix_cache[key]
+        demoted = False
         if self.paged:
+            demoted = demote and self._demote_entry_locked(key, entry, rows)
             self._alloc.decref(entry)
+        del self._prefix_cache[key]
+        self._prefix_meta.pop(key, None)
         if not self._warming:
-            self.prefix_evictions += 1
+            if demoted:
+                self.prefix_demotions += 1
+            else:
+                self.prefix_evictions += 1
 
-    def _clear_prefix_cache_locked(self) -> None:
-        """Drop every entry (lock held)."""
+    def _clear_prefix_cache_locked(self, demote: bool = False) -> None:
+        """Drop every entry (lock held); ``demote`` (the planners' idle
+        fallback) moves each to the host tier first where it can, so the
+        flush pages the cache's prefill out instead of burning it."""
         for key in list(self._prefix_cache):
-            self._retire_prefix_entry_locked(key)
+            self._retire_prefix_entry_locked(key, demote)
 
-    def _evict_prefix_for_locked(self, fresh_needed: int, keep_key) -> None:
-        """Evict idle entries least recently used first (never
+    def _set_prefix_meta_locked(self, key: tuple, covered: int, origin: str,
+                                tenant: str = "") -> None:
+        """Create or refresh one entry's residency record (lock held).
+        The digest hashes the covered tokens only: for a paged entry the
+        block-aligned prefix, which is what an export ships.  An entry
+        whose owner is unknown (fetched or promoted) ranks at the default
+        tier."""
+        self._prefix_meta[key] = {
+            "digest": prefix_digest(key[:covered]),
+            "covered": covered,
+            "hits": 0,
+            "last_hit": time.monotonic(),
+            "origin": origin,
+            "tenant": tenant,
+            "tier": (_QOS_DEFAULT.lookup(tenant).tier if tenant
+                     else _QOS_DEFAULT.default_tier),
+        }
+
+    def _touch_prefix_meta_locked(self, key: tuple) -> str:
+        """Record one hit on an entry (lock held); returns its origin."""
+        meta = self._prefix_meta.get(key)
+        if meta is None:
+            return "local"
+        meta["hits"] += 1
+        meta["last_hit"] = time.monotonic()
+        return meta["origin"]
+
+    def prefix_digest_summary(self, cap: int = PREFIX_DIGEST_CAP) -> list:
+        """The ``cap`` hottest resident entries (most recent hit first),
+        each as {digest, tokens covered, blocks, age since last hit,
+        hits, origin}: what a fleet publishes of its prefix residency."""
+        with self._lock:
+            return self._prefix_digest_summary_locked(cap)
+
+    def _prefix_digest_summary_locked(self, cap: int) -> list:
+        now = time.monotonic()
+        entries = []
+        for key, (entry, _) in self._prefix_cache.items():
+            meta = self._prefix_meta.get(key)
+            if meta is None:
+                continue
+            entries.append((meta["last_hit"], meta["hits"], {
+                "digest": meta["digest"],
+                "tokens": meta["covered"],
+                # Dense entries report 0 blocks: routable, but export is
+                # paged-only.
+                "blocks": len(entry) if self.paged else 0,
+                "age_s": round(now - meta["last_hit"], 1),
+                "hits": meta["hits"],
+                "origin": meta["origin"],
+            }))
+        # Hottest first on the raw instant (rounded ages tie), hits
+        # breaking exact ties.
+        entries.sort(key=lambda e: (-e[0], -e[1]))
+        return [doc for _, _, doc in entries[: max(0, cap)]]
+
+    def _evict_prefix_for_locked(self, fresh_needed: int,
+                                 keep_key=None) -> None:
+        """Retire idle entries least recently used first (never
         ``keep_key``) until ``fresh_needed`` blocks are free — but only
         when that can cover the shortfall now: entries whose blocks
         running slots or other entries still hold free nothing, and
-        flushing them would trade future hits for no admission."""
+        flushing them would trade future hits for no admission.  Each
+        victim is demoted to the host tier where it can be
+        (``_retire_prefix_entry_locked``).  Shared by the prefix,
+        import and restore planners and the prefix ingest."""
         victims = [key for key in self._prefix_cache if key != keep_key]
         reclaimable = self._alloc.free_blocks + sum(
             self._alloc.exclusive(self._prefix_cache[key][0])
@@ -2117,7 +2596,9 @@ class Engine:
             self._evict_prefix_for_locked(fresh_needed, keep_key=key)
         fresh = self._alloc.alloc(fresh_needed)
         if fresh is None and idle and self._prefix_cache:
-            self._clear_prefix_cache_locked()
+            # With the host tier on, the flush demotes what it can: the
+            # shortage clears either way, but the prefill survives.
+            self._clear_prefix_cache_locked(demote=True)
             key, usable, aliased, cow_src = None, 0, [], None
             fresh = self._alloc.alloc(self._pool_blocks_needed(
                 len(req.tokens), req.max_new_tokens))
@@ -2128,6 +2609,8 @@ class Engine:
         self._alloc.incref(aliased)
         if key is not None:
             self._prefix_cache.move_to_end(key)  # LRU touch
+            if usable:
+                self._touch_prefix_meta_locked(key)
         self._count_prefix_locked(usable)
         if usable and not self._warming:
             self.prefix_bytes_saved += len(aliased) * bs * self._kv_row_bytes
@@ -2135,6 +2618,970 @@ class Engine:
         # covered entry block goes right after the aliased run.
         return {"start": usable, "blocks": aliased + fresh,
                 "cow": None if cow_src is None else (cow_src, fresh[0])}
+
+    # -- block I/O: the host tier, KV shipping, migration ---------------------
+
+    @contextmanager
+    def _step_stream(self):
+        """Run block I/O on the stream every replay and eager dispatch of
+        the step thread runs on: the device's default stream (the step
+        thread never leaves it; graphs are captured on side streams at
+        warmup only).  Handler threads (``export_*``, an ingest's
+        shortfall demotion) enter it too, so their copies are ordered
+        with the step thread's work by the time they were enqueued: a copy
+        down sees every row that a replay enqueued before it wrote, and
+        anything enqueued after it (a reuse of the blocks) cannot
+        overtake it."""
+        if self.device.type != "cuda":
+            yield
+            return
+        with torch.cuda.stream(torch.cuda.default_stream(self.device)):
+            yield
+
+    def _read_blocks_dispatch(self, blocks) -> tuple[list, object]:
+        """Enqueue the copy of pool blocks ``blocks`` of every leaf to the
+        host (any thread, lock held or not): one gather a leaf, then one
+        non-blocking copy into pinned memory, on the step thread's stream.
+        Returns (host tensors [n_layers, N, ...] in ``PagedCache.leaves``'
+        order, the event recorded after the copies — None on the CPU,
+        where they are done).  Every later write to these blocks is
+        enqueued behind the copies, so they read the blocks as they are
+        now and the caller may decref the blocks as soon as this returns;
+        the host tensors are complete once the event has passed."""
+        cuda = self.device.type == "cuda"
+        staged, done = [], None
+        with self._step_stream():
+            ids = _to_device(np.asarray(blocks, np.int64), self.device)
+            for _, pool in self._cache.leaves():
+                rows = read_blocks(pool, ids)
+                if cuda:
+                    host = torch.empty(rows.shape, dtype=rows.dtype,
+                                       pin_memory=True)
+                    host.copy_(rows, non_blocking=True)
+                    rows = host
+                staged.append(rows)
+            if cuda:
+                done = torch.cuda.Event()
+                done.record()
+        return staged, done
+
+    def _write_blocks(self, blocks, leaves) -> None:
+        """Land ``leaves`` (host tensors [n_layers, N, ...] in
+        ``PagedCache.leaves``' order) in pool blocks ``blocks`` (step
+        thread): one copy up a leaf from pinned memory, then one scatter,
+        on the step thread's stream, so the admission replay or decode chunk
+        that reads the blocks is enqueued behind them.  Nothing waits for
+        the device: each pinned source stays referenced in ``_h2d`` until
+        an event recorded after its copy has passed."""
+        cuda = self.device.type == "cuda"
+        with self._step_stream():
+            ids = _to_device(np.asarray(blocks, np.int64), self.device)
+            sources = []
+            for (_, pool), rows in zip(self._cache.leaves(), leaves):
+                src = rows.pin_memory() if cuda and not rows.is_pinned() \
+                    else rows
+                write_blocks(pool, src.to(self.device, non_blocking=cuda),
+                             ids)
+                sources.append(src)
+            if cuda:
+                done = torch.cuda.Event()
+                done.record()
+                self._h2d.append((done, sources))
+
+    def _demote_entry_locked(self, key: tuple, blocks, rows: int) -> bool:
+        """Move one idle prefix entry's blocks to the host tier (lock
+        held): allocate host blocks (host-LRU entries go under budget
+        pressure), enqueue the copies down, and queue the landing for
+        ``_complete_host_writes`` — the entry is promotable only once its
+        bytes are there.  False (the caller destroys the entry) when there
+        is no tier or it cannot make room."""
+        if self._host is None or not blocks:
+            return False
+        n = len(blocks)
+        if n > self._host.alloc.free_blocks:
+            self._evict_host_for_locked(n)
+        host_blocks = self._host.alloc.alloc(n)
+        if host_blocks is None:
+            return False
+        staged, done = self._read_blocks_dispatch(blocks)
+        meta = self._prefix_meta.get(key)
+        self._pending_host_writes.append(_HostWrite(
+            kind="prefix", host_blocks=tuple(host_blocks), staged=staged,
+            done=done, key=tuple(key[:rows]), rows=rows,
+            meta=dict(meta) if meta else None,
+        ))
+        if not self._warming:
+            self.kv_demotions += n
+            self.kv_demote_bytes += n * self._block_bytes
+        return True
+
+    def _evict_host_for_locked(self, need: int) -> None:
+        """Drop demoted entries host-LRU first until ``need`` host blocks
+        are free (lock held), but only when that can cover the need: an
+        entry pinned by a promotion's payload copy frees nothing and is
+        neither counted nor dropped.  A host eviction is prefill lost for
+        good, counted with the device-side evictions."""
+        victims = list(self._host_prefix.items())
+        reclaimable = self._host.alloc.free_blocks + sum(
+            self._host.alloc.exclusive(blocks) for _, (blocks, _) in victims
+        )
+        if reclaimable < need:
+            return
+        for key, (blocks, _) in victims:
+            if self._host.alloc.free_blocks >= need:
+                break
+            if not self._host.alloc.exclusive(blocks):
+                continue  # pinned by a promotion's copy
+            self._host_prefix.pop(key)
+            self._host_meta.pop(key, None)
+            self._host.alloc.decref(blocks)
+            if not self._warming:
+                self.prefix_evictions += 1
+
+    def _flush_host_tier_locked(self) -> None:
+        """Drop every demoted entry (lock held, counter-silent): warmup's
+        cleanup and a measurement's reset.  Blocks pinned by a promotion's
+        copy free when the copy is done."""
+        if self._host is None:
+            return
+        for blocks, _ in self._host_prefix.values():
+            self._host.alloc.decref(blocks)
+        self._host_prefix.clear()
+        self._host_meta.clear()
+
+    def _kv_host_fragmentation_locked(self) -> float:
+        """Allocated-but-idle share of the host tier's block rows (lock
+        held): live rows are demoted entries' rows and parked frontiers."""
+        if self._host is None or not self._host.alloc.used_blocks:
+            return 0.0
+        live = sum(rows for _, rows in self._host_prefix.values()) + sum(
+            p.rows for p in self._parked.values())
+        used_rows = self._host.alloc.used_blocks * self.kv_block
+        return round(max(0.0, 1.0 - live / used_rows), 4)
+
+    def _complete_host_writes(self) -> None:
+        """Land the demotions whose copies are done in the host pool,
+        oldest first, and make them visible: prefix entries promotable,
+        parked slots restorable (step thread, step start).  Never waits
+        for the device: a demotion whose event has not passed lands at a
+        later step.  Also lets go of the pinned sources of copies up that
+        are done."""
+        while self._h2d and self._h2d[0][0].query():
+            self._h2d.popleft()
+        with self._lock:
+            ready = []
+            pending = self._pending_host_writes
+            while pending and (pending[0].done is None
+                               or pending[0].done.query()):
+                ready.append(pending.pop(0))
+        if not ready:
+            return
+        t0 = time.monotonic()
+        # The pool rows a pending write owns are written by nobody else
+        # and read by nobody before it registers, so no lock is needed.
+        pools = self._host.pools()
+        for w in ready:
+            ids = torch.as_tensor(w.host_blocks, dtype=torch.int64)
+            for (_, pool), rows in zip(pools, w.staged):
+                pool.index_copy_(1, ids, rows)
+        with self._lock:
+            for w in ready:
+                if w.kind == "prefix":
+                    old = self._host_prefix.pop(w.key, None)
+                    if old is not None:  # re-demoted: keep the fresh copy
+                        self._host.alloc.decref(old[0])
+                    self._host_prefix[w.key] = (w.host_blocks, w.rows)
+                    self._host_meta[w.key] = w.meta or {
+                        "digest": prefix_digest(w.key), "covered": w.rows,
+                        "hits": 0, "last_hit": time.monotonic(),
+                        "origin": "local",
+                    }
+                elif w.rid in self._parked:
+                    self._parked[w.rid].ready = True
+                else:
+                    # Reaped, cancelled or aborted while its copy was in
+                    # flight: nothing to restore, the blocks go home.
+                    self._host.alloc.decref(w.host_blocks)
+            if not self._warming:
+                self.kv_demote_seconds += time.monotonic() - t0
+
+    def _plan_promote_locked(self, req: GenRequest) -> dict | None:
+        """If a demoted entry covers more of ``req`` than any resident
+        one, reserve its promotion (lock held, submit path, any thread):
+        device blocks from free space only (a tier under enough pressure
+        to demote must not thrash; a shortfall degrades to recompute) and
+        one pin ref on the host blocks, so ``_stage_promote`` can copy
+        the payload off the lock."""
+        if not self.prefix_cache_size or not self._host_prefix:
+            return None
+        host_key, host_usable = self._best_match_locked(
+            self._host_prefix.items(), req)
+        if host_key is None:
+            return None
+        _, dev_usable = self._best_prefix_locked(req)
+        if host_usable <= dev_usable:
+            return None  # the device tier already covers as much
+        if (host_key in self._prefix_cache
+                or host_key in self._promote_staging
+                or any(tuple(st.tokens) == host_key
+                       for _, st, _ in self._prefix_installs)):
+            return None  # already resident or staged
+        blocks, rows = self._host_prefix[host_key]
+        self._sweep_prefix_installs_locked(time.monotonic())
+        if (len(self._prefix_installs) >= PREFIX_IMPORT_MAX
+                or len(blocks) > self._alloc.free_blocks):
+            return None
+        dev_blocks = self._alloc.alloc(len(blocks))
+        self._host.alloc.incref(blocks)
+        self._promote_staging.add(host_key)
+        return {
+            "key": host_key,
+            "digest": self._host_meta.get(host_key, {}).get(
+                "digest", prefix_digest(host_key)),
+            "host_blocks": tuple(blocks),
+            "dev_blocks": tuple(dev_blocks),
+            "rows": rows,
+        }
+
+    def _stage_promote(self, plan: dict) -> None:
+        """Copy a planned promotion's payload out of the host pool into
+        pinned staging (lock not held: the copy is the expensive part)
+        and stage it as a prefix install for the step thread's next admission
+        boundary.  The host entry stays resident and evictable while the
+        install is staged."""
+        try:
+            leaves = self._host.gather(plan["host_blocks"],
+                                       pin=self.device.type == "cuda")
+        except BaseException:
+            with self._lock:
+                self._promote_staging.discard(plan["key"])
+                self._host.alloc.decref(plan["host_blocks"])
+                self._alloc.decref(plan["dev_blocks"])
+            raise
+        data = {name: rows for (name, _), rows in
+                zip(self._host.pools(), leaves)}
+        with self._lock:
+            self._promote_staging.discard(plan["key"])
+            self._host.alloc.decref(plan["host_blocks"])
+            self._prefix_installs.append((plan["digest"], KvImport(
+                import_id=-1, blocks=plan["dev_blocks"], rows=plan["rows"],
+                tokens=list(plan["key"]), data=data,
+                t_created=time.monotonic(),
+            ), plan["key"]))
+
+    def _pick_park_victim_locked(self):
+        """The park victim (lock held, admission boundary: no chunk in
+        flight): the lowest preemption priority of its tenant's tier
+        under the default policy, then the largest remaining budget, ties
+        to the youngest stream — the slot that would pin its blocks
+        longest.  A slot that has not emitted since its own restore is
+        immune.  Returns (slot, rid, state) or None."""
+        best, best_key = None, None
+        for slot, state in self._slots.items():
+            if state.park_immune:
+                continue
+            rem = state.req.max_new_tokens - len(state.emitted)
+            if rem < 1:
+                continue  # finishing anyway
+            prio = _QOS_DEFAULT.lookup(state.req.tenant or "anon").priority
+            key = (-prio, rem, state.t_submit)
+            if best_key is None or key > best_key:
+                best, best_key = (slot, state.rid, state), key
+        return best
+
+    def _try_park_locked(self) -> bool:
+        """Park the coldest slot to make room for the head request's
+        admission (lock held, step thread): copy its live blocks to the
+        host tier, free its device blocks and its slot, and keep what a
+        restore needs.  True when a victim was parked (the caller
+        re-plans).  The victim's stream pauses: its waiter stays, its
+        deadline runs, and restore is exact (block bytes are copies,
+        every other per-slot input is rebuilt from host truth)."""
+        if not self.kv_park:
+            return False
+        pick = self._pick_park_victim_locked()
+        if pick is None:
+            return False
+        slot, rid, state = pick
+        rows = len(state.req.tokens) + len(state.emitted) - 1
+        if rows < 1:
+            return False
+        n_cov = -(-rows // self.kv_block)
+        row = self._tables_host[slot]
+        n_live = int(np.sum(row < self.kv_blocks))
+        if n_cov > n_live:
+            return False
+        if n_cov > self._host.alloc.free_blocks:
+            self._evict_host_for_locked(n_cov)
+        host_blocks = self._host.alloc.alloc(n_cov)
+        if host_blocks is None:
+            return False
+        staged, done = self._read_blocks_dispatch(
+            [int(b) for b in row[:n_cov]])
+        self._pending_host_writes.append(_HostWrite(
+            kind="park", host_blocks=tuple(host_blocks), staged=staged,
+            done=done, rid=rid,
+        ))
+        self._parked[rid] = _ParkedSlot(
+            state=state, host_blocks=tuple(host_blocks), n_cov=n_cov,
+            n_live=n_live, rows=rows,
+        )
+        self._slots.pop(slot)
+        self._release_slot_locked(slot)
+        if not self._warming:
+            self.kv_parks += 1
+            self.kv_demotions += n_cov
+            self.kv_demote_bytes += n_cov * self._block_bytes
+        return True
+
+    def _drop_parked_locked(self, rid: int) -> "_ParkedSlot | None":
+        """Forget one parked request and return its host blocks (lock
+        held): the reap, cancel and abort path.  While its copy down is in
+        flight the landing owns the blocks and returns them itself."""
+        parked = self._parked.pop(rid, None)
+        if parked is not None and parked.ready:
+            self._host.alloc.decref(parked.host_blocks)
+        return parked
+
+    def _unpark_wave(self) -> None:
+        """Restore parked slots whose KV fits the pool again (step
+        thread, admission boundary, lock not held for the device writes):
+        oldest first, stopping at the first that does not fit.  Restores
+        park nothing; they only retire idle prefix entries, so a restore
+        cannot cascade."""
+        while True:
+            with self._lock:
+                target = next(iter(self._parked.items()), None)
+                if target is None or not target[1].ready or not self._free:
+                    return
+                rid, parked = target
+                if parked.n_live > self._alloc.free_blocks:
+                    self._evict_prefix_for_locked(parked.n_live)
+                blocks = self._alloc.alloc(parked.n_live)
+                if blocks is None and not (self._slots or self._admitting
+                                           or self._queue):
+                    # Otherwise idle: only prefix entries hold blocks.
+                    # The parked reservation fit this pool once, so an
+                    # emptied pool covers it.
+                    self._clear_prefix_cache_locked(demote=True)
+                    blocks = self._alloc.alloc(parked.n_live)
+                if blocks is None:
+                    return
+                parked.restoring = True
+                slot = self._free.pop(0)
+                state = parked.state
+            t0 = time.monotonic()
+            self._write_host_payload(parked.host_blocks,
+                                     blocks[: parked.n_cov])
+            self._restore_slot_state(slot, state)
+            with self._lock:
+                if self._parked.pop(rid, None) is None:
+                    # Aborted during the writes: the request is failed
+                    # and its host blocks returned; undo the reservation.
+                    self._alloc.decref(blocks)
+                    self._free.append(slot)
+                    continue
+                row = self._tables_host[slot]
+                row[:] = self.kv_blocks
+                row[: parked.n_live] = blocks
+                self._host.alloc.decref(parked.host_blocks)
+                state.park_immune = True
+                self._slots[slot] = state
+                if not self._warming:
+                    dt = time.monotonic() - t0
+                    self.kv_unparks += 1
+                    self.kv_promotions += parked.n_cov
+                    self.kv_promote_bytes += parked.n_cov * self._block_bytes
+                    self.kv_promote_seconds += dt
+                    self._promote_walls.append(dt)
+
+    def _write_host_payload(self, host_blocks, dev_blocks) -> None:
+        """Write host-tier blocks back into the device pool (step
+        thread): a gather into pinned staging, then ``_write_blocks``."""
+        self._write_blocks(dev_blocks, self._host.gather(
+            host_blocks, pin=self.device.type == "cuda"))
+
+    def _restore_slot_state(self, slot: int, state: _SlotState) -> None:
+        """Rebuild a restored slot's per-slot device state from host truth
+        (step thread, stream-ordered before the next dispatch): prompt
+        lookup's history row and the penalty occurrence rows.  Sampling
+        needs nothing: the noise key is (seed, sample_base + emitted
+        count), all host state."""
+        tokens = list(state.req.tokens) + list(state.emitted)
+        vocab = self.cfg.vocab_size
+        with self._step_stream():
+            hist_row = tok_row = gen_row = None
+            if self._history is not None:
+                hist = np.zeros((self.max_len,), np.int64)
+                hist[: len(tokens)] = tokens
+                hist_row = _to_device(hist, self.device)
+            if self.penalties:
+                tok_row = _to_device(np.bincount(
+                    tokens, minlength=vocab).astype(np.int32), self.device)
+                gen_row = _to_device(np.bincount(
+                    state.emitted, minlength=vocab).astype(np.int32),
+                    self.device)
+            _restore_slot(self._history, self._tok_counts, self._gen_counts,
+                          slot, hist_row, tok_row, gen_row)
+
+    # -- KV shipping: held KV, imports, prefix entries ------------------------
+
+    def kv_geometry(self) -> dict:
+        """The geometry a ship must match exactly, under the reference's
+        names (``validate_geometry``): refused at the manifest, before
+        any payload moves."""
+        return {
+            "n_layers": self.cfg.n_layers,
+            "kv_heads": self.cfg.kv_heads,
+            "head_dim": self.cfg.head_dim,
+            "block_size": self.kv_block,
+            "kv_int8": self.kv_int8,
+            "dtype": "int4" if self.kv_int4 else dtype_name(
+                self._cache.k.dtype),
+        }
+
+    def _hold_kv_locked(self, slot: int, state: _SlotState) -> None:
+        """Retain a finishing ``hold_kv`` request's KV for export (lock
+        held, before the slot's blocks are released): one extra ref on
+        every block its valid rows cover, under its rid, with a TTL.  The
+        frontier is ``tokens - 1`` rows: the last emitted token has no
+        row yet, which is what a continuation's prefill extends.  A
+        chained chunk still in flight writes only at or past it."""
+        if self.kv_int4:
+            return  # packed int4 pools do not ship
+        tokens = list(state.req.tokens) + list(state.emitted)
+        rows = len(tokens) - 1
+        if rows < 1:
+            return
+        blocks = tuple(int(b) for b in
+                       self._tables_host[slot][: -(-rows // self.kv_block)])
+        if any(b >= self.kv_blocks for b in blocks):
+            return  # abort() reclaimed the row meanwhile
+        now = time.monotonic()
+        self._sweep_kv_holds_locked(now)
+        while len(self._kv_holds) >= KV_HOLD_MAX:
+            old = min(self._kv_holds.values(), key=lambda h: h.t_created)
+            self._release_kv_hold_locked(old.rid)
+        self._alloc.incref(blocks)
+        req = state.req
+        self._kv_holds[state.rid] = KvHold(
+            rid=state.rid, blocks=blocks, rows=rows,
+            prompt_tokens=list(req.tokens), tokens=list(state.emitted),
+            sampling=_sampling(req), t_created=now,
+        )
+
+    def _release_kv_hold_locked(self, rid: int) -> bool:
+        hold = self._kv_holds.pop(rid, None)
+        if hold is None:
+            return False
+        self._alloc.decref(hold.blocks)
+        return True
+
+    def _sweep_kv_holds_locked(self, now: float) -> None:
+        for rid in [r for r, h in self._kv_holds.items()
+                    if now - h.t_created > KV_HOLD_TTL_S]:
+            self._release_kv_hold_locked(rid)
+
+    def _sweep_kv_imports_locked(self, now: float) -> None:
+        for iid in [i for i, imp in self._kv_imports.items()
+                    if now - imp.t_created > KV_IMPORT_TTL_S]:
+            self._release_kv_import_locked(iid)
+
+    def _release_kv_import_locked(self, import_id: int) -> bool:
+        imp = self._kv_imports.pop(import_id, None)
+        if imp is None:
+            return False
+        self._alloc.decref(imp.blocks)
+        return True
+
+    def release_kv_hold(self, rid: int) -> bool:
+        """Drop a held export (after the ship, or never shipped);
+        idempotent."""
+        if not self.paged:
+            return False
+        with self._lock:
+            return self._release_kv_hold_locked(rid)
+
+    def release_kv_import(self, import_id: int) -> bool:
+        """Drop a staged import nobody will consume; idempotent."""
+        if not self.paged:
+            return False
+        with self._lock:
+            return self._release_kv_import_locked(import_id)
+
+    def _gather_blocks(self, blocks) -> tuple[list, list]:
+        """Read pool ``blocks`` to the host: (leaf names, tensors
+        [n_layers, N, ...]), the payload of every device-side export.  Any
+        thread: the caller holds a ref on the blocks and nothing writes
+        their valid rows.  The copies run on the step thread's stream
+        (``_step_stream``), so they see every row written by a replay
+        enqueued before them; this waits for them on their event with no
+        lock held, and counts one readback as ``_fetch_aux`` does."""
+        staged, done = self._read_blocks_dispatch(blocks)
+        if done is not None:
+            done.synchronize()
+        if not self._warming:
+            with self._lock:
+                self.readbacks += 1
+        return [name for name, _ in self._cache.leaves()], staged
+
+    def _refuse_ship(self, what: str) -> None:
+        """The ship-ineligible guard: dense and packed-int4 engines."""
+        if not self.paged:
+            raise KvIneligibleError(
+                f"{what} needs a paged engine (oim-serve --kv-block)")
+        if self.kv_int4:
+            raise KvIneligibleError(f"{what} unsupported on kv_int4")
+
+    def _manifest(self, rows: int, prompt_tokens, tokens, sampling,
+                  names, arrays) -> dict:
+        return build_manifest(
+            geometry=self.kv_geometry(), rows=rows,
+            prompt_tokens=prompt_tokens, tokens=tokens, sampling=sampling,
+            leaves=leaf_table(names, arrays),
+        )
+
+    def export_kv(self, rid: int):
+        """One held request's KV as (manifest, leaf tensors in manifest
+        order), the reference's wire (``disagg.pack_transfer``).  Any
+        thread: held blocks belong to no slot and their valid rows are
+        never written again.  ``KvIneligibleError`` on a dense or
+        packed-int4 engine, or an unknown or expired rid."""
+        self._refuse_ship("KV export")
+        with self._lock:
+            self._sweep_kv_holds_locked(time.monotonic())
+            hold = self._kv_holds.get(rid)
+            if hold is None:
+                raise KvIneligibleError(f"no held KV for request {rid}")
+        names, arrays = self._gather_blocks(hold.blocks)
+        manifest = self._manifest(hold.rows, hold.prompt_tokens, hold.tokens,
+                                  hold.sampling, names, arrays)
+        with self._lock:
+            self.kv_exports += 1
+            self.kv_ship_bytes += sum(a.nbytes for a in arrays)
+        return manifest, arrays
+
+    def import_kv(self, manifest: dict, data: dict) -> tuple[int, int]:
+        """Stage one shipped KV state for a continuation: validate the
+        manifest's geometry and every leaf's shape and dtype, reserve the
+        shipped blocks (all-or-nothing: ``KvCapacityError`` is
+        backpressure), and keep the host payload for the step thread to write
+        at the continuation's admission.  Returns (import_id, rows).  Any
+        thread: nothing here touches the device."""
+        self._refuse_ship("KV ingest")
+        validate_geometry(manifest, self.kv_geometry())
+        rows = int(manifest["rows"])
+        tokens = [int(t) for t in manifest["prompt_tokens"]] + [
+            int(t) for t in manifest["tokens"]]
+        if rows >= self.max_len:
+            raise KvGeometryError(
+                f"shipped rows {rows} exceed max_len {self.max_len}")
+        leaves = self._validate_ship_leaves(data, -(-rows // self.kv_block))
+        total = sum(t.nbytes for t in leaves.values())
+        with self._lock:
+            now = time.monotonic()
+            self._sweep_kv_imports_locked(now)
+            while len(self._kv_imports) >= KV_IMPORT_MAX:
+                old = min(self._kv_imports.values(),
+                          key=lambda imp: imp.t_created)
+                self._release_kv_import_locked(old.import_id)
+            n_ship = -(-rows // self.kv_block)
+            blocks = self._alloc.alloc(n_ship)
+            if blocks is None:
+                raise KvCapacityError(
+                    f"pool cannot reserve {n_ship} blocks for the shipped "
+                    f"KV ({self._alloc.free_blocks} free) — retry or fall "
+                    f"back to recompute")
+            import_id = self._next_import_id
+            self._next_import_id += 1
+            self._kv_imports[import_id] = KvImport(
+                import_id=import_id, blocks=tuple(blocks), rows=rows,
+                tokens=tokens, data=leaves, t_created=now,
+            )
+            self.kv_imports_total += 1
+            self.kv_ship_bytes += total
+        return import_id, rows
+
+    def _validate_ship_leaves(self, data: dict, n_ship: int) -> dict:
+        """Every leaf of a shipped payload, checked for exact shape and
+        dtype, as host tensors in manifest order: a bad transfer dies
+        here as the 409 the protocol promises, never in the step
+        thread's write."""
+        cfg = self.cfg
+        kv_shape = (cfg.n_layers, n_ship, self.kv_block, cfg.kv_heads,
+                    cfg.head_dim)
+        want = {"k": (kv_shape, self._cache.k.dtype),
+                "v": (kv_shape, self._cache.v.dtype)}
+        if self.kv_int8:
+            want["k_scale"] = (kv_shape[:-1], torch.float32)
+            want["v_scale"] = (kv_shape[:-1], torch.float32)
+        out = {}
+        for name, (shape, dtype) in want.items():
+            leaf = data.get(name)
+            if (not isinstance(leaf, torch.Tensor)
+                    or tuple(leaf.shape) != shape or leaf.dtype != dtype):
+                got = ("nothing" if leaf is None else
+                       f"{tuple(leaf.shape)} {leaf.dtype}")
+                raise KvGeometryError(
+                    f"leaf {name} missing or mis-shaped/typed: want "
+                    f"{shape} {dtype_name(dtype)}, got {got}")
+            out[name] = leaf
+        return out
+
+    def export_kv_prefix(self, digest: str):
+        """One resident prefix entry's KV as (manifest, leaf tensors):
+        the block-aligned entry a sibling installs without recomputing
+        its prefill.  The entry's blocks are pinned by a ref for the
+        read.  ``KvIneligibleError`` on dense or packed-int4 engines or
+        an unknown digest."""
+        self._refuse_ship("prefix export")
+        with self._lock:
+            for key, (blocks, _) in self._prefix_cache.items():
+                meta = self._prefix_meta.get(key)
+                if meta is not None and meta["digest"] == digest:
+                    covered = meta["covered"]
+                    entry_blocks = tuple(blocks)
+                    tokens = [int(t) for t in key[:covered]]
+                    break
+            else:
+                raise KvIneligibleError(f"no resident prefix {digest!r}")
+            self._alloc.incref(entry_blocks)  # pinned for the read
+        try:
+            names, arrays = self._gather_blocks(entry_blocks)
+        finally:
+            with self._lock:
+                self._alloc.decref(entry_blocks)
+        manifest = self._manifest(covered, tokens, [], {}, names, arrays)
+        manifest["prefix"] = digest
+        with self._lock:
+            self.prefix_exports += 1
+            self.kv_ship_bytes += sum(a.nbytes for a in arrays)
+        return manifest, arrays
+
+    def import_kv_prefix(self, manifest: dict,
+                         data: dict) -> tuple[str, int]:
+        """Stage one shipped prefix entry for installation: validate,
+        reserve its blocks all-or-nothing (idle entries retired first),
+        and keep the payload for the step thread to land at the next admission
+        boundary (``install_prefix_imports``).  Returns (digest, rows);
+        rows 0 when the entry is already resident or staged."""
+        self._refuse_ship("prefix ingest")
+        if not self.prefix_cache_size:
+            raise KvIneligibleError(
+                "no prefix cache on this backend (oim-serve --prefix-cache)")
+        digest = manifest.get("prefix")
+        if not digest:
+            raise KvGeometryError("manifest is not a prefix transfer")
+        validate_geometry(manifest, self.kv_geometry())
+        rows = int(manifest["rows"])
+        if rows % self.kv_block:
+            raise KvGeometryError(
+                f"prefix rows {rows} not block-aligned "
+                f"(block_size {self.kv_block})")
+        if rows >= self.max_len:
+            raise KvGeometryError(
+                f"shipped rows {rows} exceed max_len {self.max_len}")
+        tokens = [int(t) for t in manifest["prompt_tokens"]]
+        n_ship = rows // self.kv_block
+        leaves = self._validate_ship_leaves(data, n_ship)
+        with self._lock:
+            key = tuple(tokens)
+            if key in self._prefix_cache or any(
+                    tuple(st.tokens) == key
+                    for _, st, _ in self._prefix_installs):
+                return digest, 0
+            now = time.monotonic()
+            self._sweep_prefix_installs_locked(now)
+            while len(self._prefix_installs) >= PREFIX_IMPORT_MAX:
+                _, old, _ = self._prefix_installs.pop(0)
+                self._alloc.decref(old.blocks)
+            if n_ship > self._alloc.free_blocks:
+                self._evict_prefix_for_locked(n_ship)
+            blocks = self._alloc.alloc(n_ship)
+            if blocks is None:
+                raise KvCapacityError(
+                    f"pool cannot reserve {n_ship} blocks for the shipped "
+                    f"prefix ({self._alloc.free_blocks} free) — retry or "
+                    f"fall back to recompute")
+            self._prefix_installs.append((digest, KvImport(
+                import_id=-1, blocks=tuple(blocks), rows=rows,
+                tokens=tokens, data=leaves, t_created=now,
+            ), None))
+            self.kv_ship_bytes += sum(t.nbytes for t in leaves.values())
+        return digest, rows
+
+    def _sweep_prefix_installs_locked(self, now: float) -> None:
+        """TTL the staged prefix installs (lock held).  A swept promotion
+        loses only its staged copy; the entry stays in the host tier."""
+        keep = []
+        for item in self._prefix_installs:
+            if now - item[1].t_created > PREFIX_IMPORT_TTL_S:
+                self._alloc.decref(item[1].blocks)
+            else:
+                keep.append(item)
+        self._prefix_installs = keep
+
+    def install_prefix_imports(self) -> int:
+        """Land every staged prefix payload in the pool and make the
+        entries visible; returns how many were installed.  On the thread
+        that owns the device cache: the step thread's admission boundary, or
+        before the step loop starts.  The writes are stream-ordered
+        before any later prefill that aliases the entry."""
+        if not self.paged:
+            return 0
+        with self._lock:
+            if not self._prefix_installs:
+                return 0
+            staged, self._prefix_installs = self._prefix_installs, []
+        installed = 0
+        for digest, st, promote_key in staged:
+            t0 = time.monotonic()
+            self._write_import_blocks(st)
+            with self._lock:
+                key = tuple(st.tokens)
+                if key in self._prefix_cache:
+                    # A local store of the same prompt won the race.
+                    self._alloc.decref(st.blocks)
+                else:
+                    self._prefix_cache[key] = (tuple(st.blocks), st.rows)
+                    origin = "fetched"
+                    if promote_key is not None:  # a promotion keeps its
+                        origin = self._host_meta.get(  # entry's origin
+                            promote_key, {}).get("origin", "local")
+                    self._set_prefix_meta_locked(key, st.rows, origin)
+                    self._trim_to_size_locked()
+                    if promote_key is None:
+                        self.prefix_fetch_installs += 1
+                    installed += 1
+                if promote_key is not None:
+                    # The prefix is device-resident: the host copy frees
+                    # its budget for the next demotion.
+                    host = self._host_prefix.pop(promote_key, None)
+                    if host is not None:
+                        self._host_meta.pop(promote_key, None)
+                        self._host.alloc.decref(host[0])
+                    if not self._warming:
+                        dt = time.monotonic() - t0
+                        n = len(st.blocks)
+                        self.kv_promotions += n
+                        self.kv_promote_bytes += n * self._block_bytes
+                        self.kv_promote_seconds += dt
+                        self._promote_walls.append(dt)
+        return installed
+
+    def _write_import_blocks(self, imp: KvImport) -> None:
+        """Land a consumed import's or install's payload in its blocks
+        (step thread), stream-ordered before the admission that reads
+        them: ship ingests carry k, v and int8's scales; promotions every
+        leaf of the pool, a packed int4 one's included."""
+        self._write_blocks(imp.blocks, [imp.data[name] for name, _ in
+                                        self._cache.leaves()])
+
+    def _plan_import_admission_locked(self, req: GenRequest,
+                                      imp: KvImport):
+        """The admission plan of an import's continuation (lock held):
+        the shipped blocks become the slot's leading table entries (their
+        refs move to the slot: no aliasing, no copy-on-write), the tail
+        prefill starts at the shipped frontier, and fresh blocks cover
+        the rest of the worst case.  All-or-nothing: a shortfall leaves
+        the request queued and the import staged (its TTL bounds the
+        wait)."""
+        bs = self.kv_block
+        start = imp.rows
+        rows = self._worst_case_rows(len(req.tokens), req.max_new_tokens,
+                                     start)
+        fresh_needed = max(0, -(-rows // bs) - len(imp.blocks))
+        if fresh_needed > self._alloc.free_blocks:
+            self._evict_prefix_for_locked(fresh_needed)
+        fresh = self._alloc.alloc(fresh_needed)
+        if fresh is None:
+            if not self._warming:
+                self.kv_admit_deferrals += 1
+            return None
+        self._kv_imports.pop(imp.import_id, None)
+        return {"start": start, "blocks": list(imp.blocks) + fresh,
+                "cow": None, "ingest": imp}
+
+    # -- live-slot migration ----------------------------------------------------
+
+    def begin_migrate_out(self) -> None:
+        """Enter migrate-out drain: stop admitting (``submit`` raises
+        DrainingError) and have the step thread suspend every queued, active
+        and parked request at its next step into "migrated" failures,
+        active and parked ones leaving a record for ``export_slot``.
+        Idempotent; any thread."""
+        with self._lock:
+            self._draining = True
+            self._migrate_out = True
+
+    def _slot_meta_locked(self, state: _SlotState, now: float) -> dict:
+        """The manifest's ``"slot"`` branch (lock held): the global
+        sampling offset (this backend's emitted count on top of the
+        request's own base), the deadline remainder in ms, tenant and
+        tier, and trace context (none: the port records no spans yet).
+        Prompt lookup's history needs no field: admission rebuilds it
+        from the token record."""
+        req = state.req
+        tenant = req.tenant or "anon"
+        return {
+            "sample_base": len(state.emitted) + req.sample_base,
+            "deadline_ms": (int(max(0.0, req.deadline - now) * 1000)
+                            if req.deadline is not None else None),
+            "tenant": tenant,
+            "tier": _QOS_DEFAULT.lookup(tenant).tier,
+            "trace": None,
+        }
+
+    def _capture_slot_locked(self, slot: int, state: _SlotState,
+                             now: float) -> bool:
+        """Mint one active slot's migration record (lock held, step
+        thread, before the slot's blocks are released): one extra ref on
+        every block its valid rows cover — the hold's frontier and its
+        argument: a chained chunk in flight writes only at or past the
+        frontier, the refs keep the blocks from reuse, and the importer
+        overwrites what lies past ``rows``.  False when ineligible (dense,
+        packed int4, a reclaimed table row, nothing decoded)."""
+        if not self.paged or self.kv_int4:
+            return False
+        rows = len(state.req.tokens) + len(state.emitted) - 1
+        if rows < 1:
+            return False
+        blocks = tuple(int(b) for b in
+                       self._tables_host[slot][: -(-rows // self.kv_block)])
+        if any(b >= self.kv_blocks for b in blocks):
+            return False
+        self._alloc.incref(blocks)
+        self._migrated[state.rid] = SlotRecord(
+            rid=state.rid, blocks=blocks, host_blocks=(), rows=rows,
+            prompt_tokens=list(state.req.tokens),
+            tokens=list(state.emitted), sampling=_sampling(state.req),
+            meta=self._slot_meta_locked(state, now), t_created=now,
+        )
+        return True
+
+    def _migrate_wave(self) -> None:
+        """Suspend everything for migrate-out (step thread, step start,
+        right after ``_reap``).  Queued and mid-prefill requests fail
+        "migrated" with no record (a sibling recomputes them exactly).
+        Active slots are captured, oldest first by tier, then freed and
+        failed.  Ready parked slots hand their host payload to a record
+        with no device traffic; one whose copy down is still in flight
+        stays parked until a later step."""
+        now = time.monotonic()
+        with self._lock:
+            if not self._migrate_out or not (
+                    self._queue or self._slots or self._parked
+                    or self._prefilling):
+                return
+            for rid, _, _ in self._queue:
+                self._fail_locked(rid, "migrated",
+                                  "backend draining before admission")
+            self._queue.clear()
+            for rid in list(self._prefilling):
+                pend = self._prefilling.pop(rid)
+                self._admitting.pop(rid, None)
+                self._release_slot_locked(pend.slot)
+                self._fail_locked(rid, "migrated",
+                                  "backend draining mid-prefill (recompute "
+                                  "on a sibling)")
+            order = sorted(self._slots.items(), key=lambda kv: (
+                -_QOS_DEFAULT.lookup(kv[1].req.tenant or "anon").priority,
+                kv[1].t_submit))
+            for slot, state in order:
+                captured = self._capture_slot_locked(slot, state, now)
+                self._slots.pop(slot)
+                self._release_slot_locked(slot)
+                self._fail_locked(
+                    state.rid, "migrated",
+                    f"suspended after {len(state.emitted)} tokens "
+                    + ("(KV captured for export_slot)" if captured else
+                       "(no capture: recompute on a sibling)"))
+            for rid in [r for r, p in self._parked.items()
+                        if p.ready and not p.restoring]:
+                parked = self._parked.pop(rid)
+                state = parked.state
+                if not self.kv_int4:
+                    # The record takes over the parked host blocks and
+                    # their refs: export reads them off the host pool.
+                    self._migrated[rid] = SlotRecord(
+                        rid=rid, blocks=(), host_blocks=parked.host_blocks,
+                        rows=parked.rows,
+                        prompt_tokens=list(state.req.tokens),
+                        tokens=list(state.emitted),
+                        sampling=_sampling(state.req),
+                        meta=self._slot_meta_locked(state, now),
+                        t_created=now,
+                    )
+                    msg = (f"suspended while parked ({len(state.emitted)} "
+                           f"tokens; host payload captured for export_slot)")
+                else:
+                    self._host.alloc.decref(parked.host_blocks)
+                    msg = (f"suspended while parked ({len(state.emitted)} "
+                           f"tokens; packed int4 payload not shippable)")
+                self._fail_locked(rid, "migrated", msg)
+
+    def _sweep_migrated_locked(self, now: float) -> None:
+        for rid in [r for r, rec in self._migrated.items()
+                    if now - rec.t_created > MIGRATE_TTL_S]:
+            self._release_migrated_locked(rid)
+
+    def _release_migrated_locked(self, rid: int) -> bool:
+        rec = self._migrated.pop(rid, None)
+        if rec is None:
+            return False
+        if rec.blocks:
+            self._alloc.decref(rec.blocks)
+        if rec.host_blocks and self._host is not None:
+            self._host.alloc.decref(rec.host_blocks)
+        return True
+
+    def release_migrated(self, rid: int) -> bool:
+        """Drop a suspended-slot record (after the ship, or never
+        shipped); idempotent."""
+        if not self.paged:
+            return False
+        with self._lock:
+            return self._release_migrated_locked(rid)
+
+    def export_slot(self, rid: int):
+        """One suspended slot's state as (manifest, leaf tensors): the KV
+        wire plus the manifest's ``"slot"`` branch.  A captured record
+        reads its device blocks (``_gather_blocks``); a parked one reads
+        the host pool, with no device traffic.  ``KvIneligibleError`` on
+        a dense or packed-int4 engine, or an unknown or expired rid."""
+        self._refuse_ship("slot export")
+        with self._lock:
+            self._sweep_migrated_locked(time.monotonic())
+            rec = self._migrated.get(rid)
+            if rec is None:
+                raise KvIneligibleError(f"no migrated slot for request {rid}")
+        if rec.host_blocks:
+            # The record's refs keep these host blocks allocated, and
+            # only the step thread writes host rows, into blocks it owns.
+            names = [name for name, _ in self._host.pools()]
+            arrays = self._host.gather(rec.host_blocks, pin=False)
+        else:
+            names, arrays = self._gather_blocks(rec.blocks)
+        manifest = self._manifest(rec.rows, rec.prompt_tokens, rec.tokens,
+                                  rec.sampling, names, arrays)
+        manifest["slot"] = dict(rec.meta)
+        with self._lock:
+            self.slot_exports += 1
+            self.kv_ship_bytes += sum(a.nbytes for a in arrays)
+        return manifest, arrays
+
+    def import_slot(self, manifest: dict, data: dict):
+        """Stage one shipped slot: ``import_kv`` plus the slot branch's
+        check; the continuation admits through ``kv_import`` with the
+        branch's ``sample_base``.  Returns (import_id, rows, slot
+        branch)."""
+        slot_meta = manifest.get("slot")
+        if not isinstance(slot_meta, dict):
+            raise KvGeometryError("not a slot manifest (no slot branch)")
+        import_id, rows = self.import_kv(manifest, data)
+        with self._lock:
+            self.slot_imports += 1
+        return import_id, rows, slot_meta
 
     # -- admission ----------------------------------------------------------
 
@@ -2371,6 +3818,13 @@ class Engine:
         if self._inflight is not None:
             return
         t0 = time.monotonic()
+        # The admission boundary is the device-write window: staged
+        # prefix installs (shipped entries and promotions) land first, so
+        # a request of this wave can alias them; then parked slots come
+        # back, before new admissions, since they were admitted first.
+        self.install_prefix_imports()
+        if self._parked:
+            self._unpark_wave()
         advanced = bool(self._prefilling)
         joins = self._advance_prefills() if advanced else []
         with self._lock:
@@ -2379,9 +3833,23 @@ class Engine:
                 rid, req, t_submit = self._queue[0]
                 plan = None
                 if self.paged:
-                    plan = self._plan_paged_admission_locked(
-                        req, idle=not (self._slots or self._admitting
-                                       or admissions))
+                    imp = (self._kv_imports.get(req.kv_import)
+                           if req.kv_import is not None else None)
+                    if imp is not None:
+                        # A shipped continuation resumes at the shipped
+                        # frontier; an expired import falls through to
+                        # the recompute plan.
+                        plan = self._plan_import_admission_locked(req, imp)
+                    else:
+                        plan = self._plan_paged_admission_locked(
+                            req, idle=not (self._slots or self._admitting
+                                           or admissions))
+                        if plan is None and self._try_park_locked():
+                            # The coldest slot went to the host tier,
+                            # freeing its blocks and its slot: re-plan
+                            # once (one victim a wave keeps it gradual).
+                            plan = self._plan_paged_admission_locked(
+                                req, idle=False)
                     if plan is None:
                         break
                 self._queue.popleft()
@@ -2403,6 +3871,11 @@ class Engine:
                 start = self._try_prefix_inject(slot, req)
             else:
                 start = plan["start"]
+                ingest = plan.pop("ingest", None)
+                if ingest is not None:
+                    # A continuation's imported blocks land before its
+                    # tail prefill, which reads them, on the same stream.
+                    self._write_import_blocks(ingest)
                 if plan["cow"] is not None:
                     # Stream-ordered before the tail writes into it; the
                     # shared source block is never written.
@@ -2439,7 +3912,7 @@ class Engine:
         if self.prefix_cache_size:
             for slot, _, req, _, _, _ in rows:
                 if req.cache_prefix:
-                    self._store_prefix(slot, req.tokens)
+                    self._store_prefix(slot, req)
         fetched = None
         if groups:  # one readback for every first token of the wave
             fetched = torch.cat(
@@ -2843,8 +4316,8 @@ class Engine:
     # What one admission wave changes on the host, restored by
     # ``admit_twice`` between its runs.
     _WAVE_STATE = ("_queue", "_free", "_slots", "_admitting", "_prefilling",
-                   "_tables_host", "_alloc", "_prefix_cache", "_results",
-                   "_errors", "_cancelled", "_forgotten")
+                   "_tables_host", "_alloc", "_prefix_cache", "_prefix_meta",
+                   "_results", "_errors", "_cancelled", "_forgotten")
 
     @torch.no_grad()
     def admit_twice(self) -> list[dict]:

@@ -20,10 +20,12 @@ A request's ``cache_prefix`` stores its prompt's KV when the engine has
 a prefix cache.  A deadline comes as the body's ``deadline_ms`` or, when
 the body has none, the ``x-oim-deadline-ms`` header (how a router sends
 a routed budget), as in the reference.  Streaming, text prompts, the
-OpenAI surface, KV shipping (``/v1/kv``: held KV and prefix export or
-install), profiling and the stall watchdog come with later slices
-(ROADMAP Queue A: the rest of server.py); ``/v1/kv`` answers 501 naming
-them.
+OpenAI surface, KV shipping over HTTP (``/v1/kv``: held KV and prefix
+export or install; ``/v1/slot``, ``/v1/drain``), profiling and the stall
+watchdog come with later slices (ROADMAP Queue A: the rest of
+server.py); ``/v1/kv`` answers 501 naming them.  A request's
+``hold_kv`` and ``kv_import`` reach the engine, whose ``export_kv`` and
+``import_kv`` speak the reference's wire in process.
 """
 
 from __future__ import annotations
@@ -45,12 +47,14 @@ from oim_tpu_torch.serve.engine import (
 )
 
 # Per-kind HTTP status of a request that failed without a result.
-_FAILED_STATUS = {"deadline_queue": 429, "deadline": 504}
+_FAILED_STATUS = {"deadline_queue": 429, "deadline": 504, "migrated": 503}
 # The KV shipping routes: held-KV and prefix export (GET) and install
-# (POST), with the fleet's prefix digests.
+# (POST).  The engine ships (``Engine.export_kv`` and the rest); the
+# routes wait for the streaming surfaces the router's ship flows ride.
 _KV_NOT_PORTED = (
-    "/v1/kv (KV shipping, prefix export and install, prefix_digests) is "
-    "not ported to oim_tpu_torch yet (ROADMAP Queue A: A11 and A16)"
+    "/v1/kv (KV shipping over HTTP: held-KV and prefix export and "
+    "install) is not ported to oim_tpu_torch yet (ROADMAP Queue A: A11 "
+    "and A16); the engine's export_kv/import_kv carry the wire"
 )
 
 
@@ -93,8 +97,6 @@ def _parse_generate(body: dict, headers) -> GenRequest:
         presence_penalty=float(body.get("presence_penalty", 0.0)),
         frequency_penalty=float(body.get("frequency_penalty", 0.0)),
         cache_prefix=bool(body.get("cache_prefix")),
-        # Read so that the engine refuses what the port cannot do yet,
-        # rather than serving such a request as if the field were absent.
         hold_kv=bool(body.get("hold_kv")),
         kv_import=(
             int(body["kv_import"]) if body.get("kv_import") is not None

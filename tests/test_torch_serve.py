@@ -313,11 +313,10 @@ def test_engine_deadlines(model):
 
 
 @pytest.mark.parametrize("option,match", [
-    # The prefix cache is served; the host tier it demotes entries to
-    # in the reference is not.
+    # Served since their ports (the cases keep their ids): the host tier
+    # beside the prefix cache whose entries it takes, and alone; spec
+    # decode alone and beside chunked prefill.
     (dict(prefix_cache_size=2, kv_host_bytes=1 << 20), "host tier"),
-    # Served since their ports (the cases keep their ids): the engine
-    # builds, alone and beside chunked prefill.
     (dict(spec_decode=2), "spec decode"),
     (dict(prefill_chunk=8, spec_decode=2), "spec decode"),
     (dict(kv_host_bytes=1 << 20), "host tier"),
@@ -329,13 +328,19 @@ def test_engine_refuses_unported_options(model, option, match):
         engine = Engine(params, tcfg, **{**ENGINE, **option})
         info = engine.info()["engine"]
         assert {k: info[k] for k in option} == option
+        if match in _PAGED_ONLY:
+            # The reference's refusal on the dense cache, message and all.
+            with pytest.raises(ValueError, match=_PAGED_ONLY[match]):
+                Engine(params, tcfg, **{**ENGINE, **option, "kv_block": 0})
         return
     with pytest.raises(ValueError, match=f"ROADMAP.*{match}"):
         Engine(params, tcfg, **{**ENGINE, **option})
 
 
-# Options the cases above once refused, served since.
-_PORTED = {"spec decode"}
+# Options the cases above once refused, served since, and those of them
+# that need the paged pool (the reference's ValueError on a dense one).
+_PORTED = {"spec decode", "host tier"}
+_PAGED_ONLY = {"host tier": "kv_host_bytes needs the paged cache"}
 
 
 def test_engine_refuses_moe_and_cache_prefix(model):
