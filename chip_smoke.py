@@ -73,6 +73,20 @@ near tie of the f32 forward), every continuation on B A's own
 continuation of the same bytes, K1 and K2 launched by route with no
 plain call, every dispatch a graph replay, and no block left behind.
 It runs in the full smoke and with ``--serve-phase-only`` too.
+``--qos-phase-only`` runs only the QoS phase (``qos_phase``): an engine
+with a tenant policy (one premium, one best-effort tenant) and the host
+tier, whose eight slots a best-effort flood fills before two premium
+requests arrive — each parks one best-effort slot, both premium first
+tokens come before any best-effort stream ends, the parked streams
+equal their runs alone, and premium TTFT is recorded beside the same
+traffic with QoS off; two standard tenants, one with a skewed backlog,
+share the first finishers; a second engine sheds through the HTTP
+server (brownout clamps, a full queue and an expired deadline answer
+429 with ``Retry-After``); and across them every request is in the
+ring with phases that partition its wall, one span tree each, one slow
+capture, and the path gates of the kv io phase, with no device wait
+the engine did not already have.  It runs in the full smoke and with
+``--serve-phase-only`` too.
 
 It exits non-zero without a result line when no GPU is visible, when the
 port's package is not beside it, or when any phase fails.  Every number
@@ -90,6 +104,7 @@ import shutil
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2647,9 +2662,9 @@ class TierClock:
             self.down.append((start, end, sum(t.nbytes for t in staged)))
             return staged, done
 
-        def parking():
+        def parking(*args, **kw):
             t0 = time.monotonic()
-            parked = park()
+            parked = park(*args, **kw)
             if parked:
                 self.parks.append(time.monotonic() - t0)
             return parked
@@ -3194,6 +3209,529 @@ def kv_io_phase() -> dict:
     release()
     check(torch.cuda.memory_allocated() < 2**30,
           f"the kv io phase still holds "
+          f"{gib(torch.cuda.memory_allocated()):.1f} GiB")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# QoS, shedding and request observation
+
+# Engine Q: serve_main's model with the paged pool and a host tier that
+# holds two parked slots of the preemption leg many times over, a policy
+# with one premium and one best-effort tenant (unlisted tenants are
+# standard), and a slow-capture threshold every request passes, at one
+# capture an hour.  Engine S (the shedding leg, through the HTTP server)
+# shares Q's weights: a queue bound of 8, brownout at 16 tokens with no
+# hold, prompt buckets up to the leg's prompts.
+QOS_HOST = 64 * 2**20
+QOS_ARGS = SERVE_ARGS + ["--kv-block", "16", "--kv-host-bytes",
+                         str(QOS_HOST), "--slow-capture-e2e", "0.001",
+                         "--slow-capture-interval", "3600"]
+QOS_POLICY = {"tenants": {"user.gold": {"tier": "premium"},
+                          "user.bulk": {"tier": "best_effort"}}}
+QOS_BULK_PROMPTS = (128, 176, 224, 272, 320, 368, 416, 512)
+QOS_BULK_NEW, QOS_BULK_AFTER = 384, 32
+QOS_PREMIUM = (256, 64)  # prompt, budget; two requests
+QOS_FAIR = (12, 64, 32)  # requests a tenant, prompt, budget
+QOS_FAIR_FIRST = 8  # the first finishers, of which each tenant has >= 3
+SHED_QUEUE, SHED_BROWNOUT = 8, 16
+SHED_BUCKETS = (16, 32, 64)
+SHED_LONG = (8, 32, 512)  # requests filling the slots, prompt, budget
+SHED_NEW = 64
+SHED_DEADLINE_MS = 1500
+
+
+class SyncCensus:
+    """Counts the calls that make the host wait on the device while it
+    is on — ``torch.cuda.Event.synchronize``, ``torch.cuda.synchronize``
+    and ``Tensor.cpu``/``item``/``tolist`` — and, on ``engine``, the
+    chunks read back (``_process_chunk``) and the admission waves that
+    dispatched (whose first tokens one ``.cpu()`` reads back).  The
+    engine's own waits are one event a chunk read back and one a decode
+    dispatch (its staging buffer's last copy), and one ``.cpu()`` a wave:
+    any other call is a wait the engine added."""
+
+    NAMES = (("Event.synchronize", torch.cuda.Event, "synchronize"),
+             ("cuda.synchronize", torch.cuda, "synchronize"),
+             ("Tensor.cpu", torch.Tensor, "cpu"),
+             ("Tensor.item", torch.Tensor, "item"),
+             ("Tensor.tolist", torch.Tensor, "tolist"))
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.calls = dict.fromkeys([n for n, _, _ in self.NAMES], 0)
+        self.chunks = self.waves = 0
+        self.saved = []
+
+    def __enter__(self) -> "SyncCensus":
+        for name, owner, attr in self.NAMES:
+            fn = getattr(owner, attr)
+            self.saved.append((owner, attr, fn))
+            setattr(owner, attr, self._counting(name, fn))
+        e = self.engine
+        process, admit = e._process_chunk, e._admit_wave
+
+        def processing(*args, **kw):
+            self.chunks += 1
+            return process(*args, **kw)
+
+        def admitting(*args, **kw):
+            n = e.prefill_dispatches
+            out = admit(*args, **kw)
+            self.waves += e.prefill_dispatches > n
+            return out
+
+        e._process_chunk, e._admit_wave = processing, admitting
+        self.before = e.stats()
+        return self
+
+    def _counting(self, name, fn):
+        def counted(*args, **kw):
+            self.calls[name] += 1
+            return fn(*args, **kw)
+        return counted
+
+    def __exit__(self, *exc) -> None:
+        for owner, attr, fn in self.saved:
+            setattr(owner, attr, fn)
+        for name in ("_process_chunk", "_admit_wave"):
+            vars(self.engine).pop(name, None)
+
+    def check(self, tag: str) -> dict:
+        d = self.engine.stats()["decode_dispatches"] - self.before[
+            "decode_dispatches"]
+        want = {"Event.synchronize": d + self.chunks, "cuda.synchronize": 0,
+                "Tensor.cpu": self.waves, "Tensor.item": 0,
+                "Tensor.tolist": 0}
+        reads = self.engine.stats()["readbacks"] - self.before["readbacks"]
+        check(self.calls == want and reads == self.chunks,
+              f"qos {tag}: device waits {self.calls} != {want} for {d} "
+              f"dispatches, {self.chunks} chunks read back ({reads} counted) "
+              f"and {self.waves} admission waves")
+        return {"waits": dict(self.calls), "dispatches": d,
+                "chunks_read": self.chunks, "waves": self.waves}
+
+
+def qos_entries(engine, rids) -> dict:
+    """The ring entries of ``rids``, by rid."""
+    wanted = set(rids)
+    return {e["rid"]: e for e in engine.requests()["requests"]
+            if e["rid"] in wanted}
+
+
+def ttft_ms(entry: dict) -> float:
+    return (entry["queue_s"] + entry["admit_s"] + entry["prefill_s"]) * 1e3
+
+
+def qos_drive(q, bulk, premium):
+    """The preemption traffic on Q: the bulk requests fill every slot
+    and, once each has ``QOS_BULK_AFTER`` tokens, the premium requests
+    arrive; returns (bulk rids, premium rids, each (tokens, logprobs))."""
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    rids = [q.submit(GenRequest(**r)) for r in bulk]
+    while not (len(q._slots) == len(bulk) and all(
+            len(s.emitted) >= QOS_BULK_AFTER for s in q._slots.values())):
+        q.step()
+    prids = [q.submit(GenRequest(**r)) for r in premium]
+    q.run()
+    return rids, prids, [tuple(map(list, q.result_full(rid, timeout=0)))
+                         for rid in rids + prids]
+
+
+def qos_preempt(q, ref) -> dict:
+    """Preemption: a bulk best-effort tenant saturates Q's eight slots
+    and a paying tenant's two requests arrive.  Each parks one bulk slot
+    (``qos_preemptions`` 2), both premium first tokens come before any
+    bulk stream ends, the two parked streams equal their runs alone and
+    their unbroken runs (the same traffic with QoS off), and the tenant
+    rows count the traffic.  Returns premium TTFT with QoS and without,
+    and the leg's device-wait census."""
+    from oim_tpu_torch.common import events
+
+    vocab = q.cfg.vocab_size
+    rng = np.random.RandomState(16)
+    bulk = [dict(tokens=rng.randint(0, vocab, n).tolist(),
+                 max_new_tokens=QOS_BULK_NEW, seed=40 + i,
+                 tenant="user.bulk")
+            for i, n in enumerate(QOS_BULK_PROMPTS)]
+    premium = [dict(tokens=rng.randint(0, vocab, QOS_PREMIUM[0]).tolist(),
+                    max_new_tokens=QOS_PREMIUM[1], seed=50 + i,
+                    tenant="user.gold") for i in range(2)]
+    rows0, preempts0 = q.stats()["tenants"], q.qos_preemptions
+    seen = max((e.seq for e in events.all_events()
+                if e.kind == "qos.preempt"), default=0)
+    with SyncCensus(q) as census:
+        rids, prids, served = qos_drive(q, bulk, premium)
+    waits = census.check("preempt")
+    preempts = q.qos_preemptions - preempts0
+    victims = [e.fields["victim_rid"] for e in events.all_events()
+               if e.kind == "qos.preempt" and e.seq > seen]
+    check(preempts == 2 and len(victims) == 2
+          and set(victims) <= set(rids),
+          f"qos preempt: {preempts} preemptions, victims {victims}")
+    entries = qos_entries(q, rids + prids)
+    check(len(entries) == len(rids) + len(prids)
+          and all(e["outcome"] == "ok" for e in entries.values()),
+          "qos preempt: a request is missing from the ring or failed")
+    first = [entries[r]["ts"] - entries[r]["e2e_s"]
+             + ttft_ms(entries[r]) / 1e3 for r in prids]
+    ends = [entries[r]["ts"] for r in rids]
+    check(max(first) < min(ends),
+          f"qos preempt: a premium first token came "
+          f"{max(first) - min(ends):.3f} s after a bulk stream ended")
+    rows = q.stats()["tenants"]
+
+    def moved(name, key):
+        return rows[name][key] - rows0.get(name, {}).get(key, 0)
+
+    want = {("user.gold", "admitted"): 2, ("user.gold", "requests"): 2,
+            ("user.gold", "tokens_out"): 2 * QOS_PREMIUM[1],
+            ("user.gold", "preempted"): 2,
+            ("user.bulk", "admitted"): len(bulk),
+            ("user.bulk", "requests"): len(bulk),
+            ("user.bulk", "tokens_out"): len(bulk) * QOS_BULK_NEW,
+            ("user.bulk", "parked_victim"): 2}
+    got = {k: moved(*k) for k in want}
+    check(got == want, f"qos preempt: tenant rows moved {got} != {want}")
+    check(rows["user.gold"]["tier"] == "premium"
+          and rows["user.bulk"]["tier"] == "best_effort",
+          f"qos preempt: tiers {rows}")
+    qos_ttft = [ttft_ms(entries[r]) for r in prids]
+    # The same traffic with QoS off: FIFO, nothing parks.
+    saved = q._qos_policy
+    q.set_qos_policy(None)
+    try:
+        with SyncCensus(q) as plain_census:
+            off_rids, off_prids, unbroken = qos_drive(q, bulk, premium)
+        plain_waits = plain_census.check("preempt, QoS off")
+    finally:
+        q.set_qos_policy(saved)
+    check(q.qos_preemptions == preempts0 + preempts,
+          "qos preempt: a preemption with QoS off")
+    off_entries = qos_entries(q, off_rids + off_prids)
+    fifo_ttft = [ttft_ms(off_entries[r]) for r in off_prids]
+    index = [rids.index(v) for v in victims]
+    reqs = [bulk[i] for i in index]
+    alone = [kv_run(q, [r])[0][0] for r in reqs]
+    parked = [served[i][0] for i in index]
+    gate_alone = kv_gate(ref, "qos park alone", reqs, alone, parked)
+    gate_unbroken = kv_gate(ref, "qos park unbroken", reqs,
+                            [unbroken[i][0] for i in index], parked)
+    gate_premium = kv_gate(ref, "qos premium", premium,
+                           [t for t, _ in unbroken[len(bulk):]],
+                           [t for t, _ in served[len(bulk):]])
+    print(f"qos preempt: {len(bulk)} best-effort streams ({QOS_BULK_NEW} "
+          f"new each) filled the {q.n_slots} slots, 2 premium requests "
+          f"({QOS_PREMIUM[0]}-token prompts) arrived after "
+          f"{QOS_BULK_AFTER} tokens: {preempts} preemptions (victims "
+          f"{index} of the bulk), premium TTFT "
+          f"{[round(t, 1) for t in qos_ttft]} ms with QoS vs "
+          f"{[round(t, 1) for t in fifo_ttft]} ms without; "
+          f"the parked streams: {gate_alone['equal']} of 2 token-identical "
+          f"to their runs alone, {gate_unbroken['equal']} of 2 to their "
+          f"unbroken runs (largest near-tie gap "
+          f"{max(gate_alone['worst_gap'], gate_unbroken['worst_gap']):.3f}); "
+          f"premium {gate_premium['equal']} of 2 equal to QoS off; device "
+          f"waits {waits['waits']} with QoS, {plain_waits['waits']} without "
+          f"[{SMI}]", flush=True)
+    return {"preemptions": preempts, "victims": index,
+            "premium_ttft_ms": qos_ttft, "premium_ttft_fifo_ms": fifo_ttft,
+            "alone": gate_alone, "unbroken": gate_unbroken,
+            "premium": gate_premium, "waits": waits,
+            "waits_qos_off": plain_waits,
+            "rids": rids + prids + off_rids + off_prids}
+
+
+def qos_fair(q) -> dict:
+    """Fair share on Q: two standard tenants, one with a skewed backlog
+    (user.x queues all its requests first); each tenant has at least 3
+    of the first 8 finishers, read from the request ring."""
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    n, prompt, new = QOS_FAIR
+    vocab = q.cfg.vocab_size
+    rng = np.random.RandomState(17)
+    rids = []
+    with SyncCensus(q) as census:
+        for tenant in ("user.x", "user.y"):
+            rids += [q.submit(GenRequest(
+                tokens=rng.randint(0, vocab, prompt).tolist(),
+                max_new_tokens=new, tenant=tenant)) for _ in range(n)]
+        q.run()
+    waits = census.check("fair")
+    for rid in rids:
+        q.result(rid, timeout=0)
+    wanted = set(rids)
+    order = [e["tenant"] for e in q.requests()["requests"]
+             if e["rid"] in wanted]
+    first = order[:QOS_FAIR_FIRST]
+    check(len(order) == len(rids) and first.count("user.x") >= 3
+          and first.count("user.y") >= 3,
+          f"qos fair: the first {QOS_FAIR_FIRST} finishers {first}")
+    print(f"qos fair: user.x queued {n} requests, then user.y {n}; the "
+          f"first {QOS_FAIR_FIRST} finishers {first} [{SMI}]", flush=True)
+    return {"first": first, "waits": waits, "rids": rids}
+
+
+def qos_shed(s) -> dict:
+    """Shedding through the port's HTTP server in process, on S: long
+    requests fill the slots, a request with a deadline and five more
+    queue, the next two queue at the brownout threshold and come back
+    clamped to ``SHED_BROWNOUT`` tokens, one more finds the queue full
+    (429), and the deadline expires in the queue (429); both 429s carry
+    a ``Retry-After`` in [1, 120]."""
+    import threading
+
+    from oim_tpu_torch.serve.server import ServeServer
+
+    vocab = s.cfg.vocab_size
+    rng = np.random.RandomState(18)
+    s0 = s.stats()
+    server = ServeServer(s).start()
+    results, threads = {}, []
+
+    def send(name, body, want_queued=None, want_active=None):
+        def go():
+            results[name] = post_status(server.port, body)
+        t = threading.Thread(target=go)
+        t.start()
+        threads.append(t)
+        deadline = time.monotonic() + 60
+        while True:
+            st = s.stats()
+            if ((want_queued is None or st["queued"] >= want_queued)
+                    and (want_active is None
+                         or st["active_slots"] >= want_active)):
+                return
+            check(time.monotonic() < deadline,
+                  f"qos shed: {name} never queued ({st['queued']} queued)")
+            time.sleep(0.002)
+
+    def prompt(n):
+        return rng.randint(0, vocab, n).tolist()
+
+    try:
+        n_long, long_prompt, long_new = SHED_LONG
+        for i in range(n_long):
+            send(f"long{i}", {"tokens": prompt(long_prompt),
+                              "max_new_tokens": long_new},
+                 want_active=i + 1)
+        send("deadline", {"tokens": prompt(16), "max_new_tokens": SHED_NEW,
+                          "deadline_ms": SHED_DEADLINE_MS}, want_queued=1)
+        for i in range(5):
+            send(f"normal{i}", {"tokens": prompt(16),
+                                "max_new_tokens": SHED_NEW},
+                 want_queued=2 + i)
+        for i in range(2):
+            send(f"clamped{i}", {"tokens": prompt(16),
+                                 "max_new_tokens": SHED_NEW},
+                 want_queued=7 + i)
+        full = post_status(server.port, {"tokens": prompt(16),
+                                         "max_new_tokens": SHED_NEW})
+        for t in threads:
+            t.join(300)
+    finally:
+        server.stop()
+    s1 = s.stats()
+
+    def retry(reply) -> int:
+        value = int(reply[2].get("Retry-After", 0))
+        check(1 <= value <= 120, f"qos shed: Retry-After {value}")
+        return value
+
+    code, body, _ = full
+    check(code == 429 and "queue full" in body.get("error", ""),
+          f"qos shed: a full queue answered {code} {body}")
+    code, body, _ = results["deadline"]
+    check(code == 429 and "deadline" in body.get("error", ""),
+          f"qos shed: the expired deadline answered {code} {body}")
+    clamped = [len(results[f"clamped{i}"][1]["tokens"]) for i in range(2)]
+    normal = [len(results[f"normal{i}"][1]["tokens"]) for i in range(5)]
+    check(clamped == [SHED_BROWNOUT] * 2 and normal == [SHED_NEW] * 5,
+          f"qos shed: clamped replies {clamped}, the others {normal}")
+    shed = {k: s1[k] - s0[k] for k in ("shed_queue_full", "shed_deadline",
+                                       "shed_brownout")}
+    check(shed == {"shed_queue_full": 1, "shed_deadline": 1,
+                   "shed_brownout": 2}, f"qos shed: counters {shed}")
+    after = {"queue_full": retry(full),
+             "deadline": retry(results["deadline"])}
+    print(f"qos shed: queue bound {SHED_QUEUE}, brownout at "
+          f"{SHED_BROWNOUT} tokens: 2 replies clamped to {clamped}, a full "
+          f"queue and an expired deadline each 429 with Retry-After "
+          f"{after} s; counters {shed} [{SMI}]", flush=True)
+    rids = [r[1]["request_id"] for name, r in results.items()
+            if r[0] == 200]
+    return {"clamped": clamped, "retry_after_s": after, "counters": shed,
+            "rids": rids}
+
+
+def post_status(port: int, body: dict) -> tuple[int, dict, dict]:
+    """POST /v1/generate: (status, JSON body, headers), errors too."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/generate",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read()), dict(resp.headers)
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read()), dict(exc.headers)
+
+
+def qos_observed(engines, rids: dict, captures: int, work: str) -> dict:
+    """Observation across the legs: every request in its engine's ring
+    with its outcome, its phases summing to at most e2e + 1 ms and at
+    least half of it, one ``engine.request`` span and one decode span a
+    chunk; one slow capture in the flight dir; the watchdog idle."""
+    from oim_tpu_torch.common import events, tracing
+
+    spans = tracing.collector().spans()
+    by_trace: dict = {}
+    for span in spans:
+        if span.component == "engine":
+            by_trace.setdefault(span.trace_id, []).append(span)
+    checked = 0
+    for name, engine in engines.items():
+        entries = qos_entries(engine, rids[name])
+        check(len(entries) == len(rids[name]),
+              f"qos observe {name}: {len(rids[name]) - len(entries)} "
+              f"requests missing from the ring")
+        for rid, e in entries.items():
+            check(e["outcome"] == "ok", f"qos observe {name}: rid {rid} "
+                  f"{e['outcome']}")
+            total = sum(e[f"{p}_s"] for p in ("queue", "admit", "prefill",
+                                              "decode", "stream"))
+            check(0.5 * e["e2e_s"] <= total <= e["e2e_s"] + 1e-3,
+                  f"qos observe {name}: rid {rid}'s phases sum to {total} "
+                  f"of e2e {e['e2e_s']}")
+            tree = by_trace.get(e["trace"], [])
+            n_root = sum(s.name == "engine.request" for s in tree)
+            n_decode = sum(s.name == "engine.decode" for s in tree)
+            check(n_root == 1 and n_decode == e["chunks"],
+                  f"qos observe {name}: rid {rid} has {n_root} request "
+                  f"spans and {n_decode} decode spans for {e['chunks']} "
+                  f"chunks")
+            checked += 1
+        waiting, ewma = engine.watchdog_state()
+        check(waiting is None and ewma is not None and ewma > 0,
+              f"qos observe {name}: watchdog_state ({waiting}, {ewma}) at "
+              f"idle")
+    files = [f for f in os.listdir(work) if f.startswith("oim-slowcap-")]
+    new = len([e for e in events.all_events()
+               if e.kind == "serve.slow_capture"]) - captures
+    check(len(files) == 1 and new == 1,
+          f"qos observe: {len(files)} slow-capture files, {new} events "
+          f"(one an interval)")
+    with open(os.path.join(work, files[0])) as f:
+        doc = json.load(f)
+    check({"kind", "trigger", "thresholds", "entry", "chunks", "stats",
+           "ring"} <= set(doc), f"qos observe: slow capture keys {set(doc)}")
+    return {"requests": checked, "spans": len(spans),
+            "slow_capture": files[0]}
+
+
+def qos_phase() -> dict:
+    """Multi-tenant QoS, shedding and request observation at
+    Qwen2.5-1.5B's widths (``qos_preempt``, ``qos_fair`` on Q,
+    ``qos_shed`` on S through the HTTP server, ``qos_observed``).
+    Across the phase, as the kv io phase: K1 and K2 launched by route as
+    the engines' passes and dispatches say (restores included), no
+    plain call, every dispatch a graph replay and none captured after
+    warmup, the device waits of every leg on Q the engine's own
+    (``SyncCensus``, with QoS and without), no block left in either
+    tier, and the memory back under 1 GiB."""
+    from oim_tpu_torch.cli import serve_main
+    from oim_tpu_torch.common import events, tracing
+    from oim_tpu_torch.ops import paged_attention as pa
+    from oim_tpu_torch.serve.engine import Engine
+
+    t0 = time.monotonic()
+    work = tempfile.mkdtemp(prefix=".smoke-qos-", dir=HERE)
+    flight = os.environ.get("OIM_FLIGHT_DIR")
+    os.environ["OIM_FLIGHT_DIR"] = work
+    try:
+        policy = os.path.join(work, "policy.json")
+        with open(policy, "w") as f:
+            json.dump(QOS_POLICY, f)
+        args = serve_main.build_parser().parse_args(
+            QOS_ARGS + ["--qos-policy", policy])
+        q = serve_main.make_engine(args).warmup()
+        s = Engine(q.params, q.cfg, n_slots=args.n_slots,
+                   max_len=args.max_len, chunk=args.chunk, kv_block=16,
+                   prompt_buckets=SHED_BUCKETS, max_queue=SHED_QUEUE,
+                   brownout_max_tokens=SHED_BROWNOUT, brownout_hold_s=0.0,
+                   device=q.device).warmup()
+        ref = widened(q.params, q.cfg)
+        print(f"qos: engines Q ({args.n_slots} slots, {q.kv_blocks} blocks "
+              f"of 16, host tier {q.stats()['kv_host_blocks_total']} blocks, "
+              f"policy {QOS_POLICY}) and S (max_queue {SHED_QUEUE}, "
+              f"brownout {SHED_BROWNOUT}) warmed in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        engines = {"Q": q, "S": s}
+        before = {name: e.stats() for name, e in engines.items()}
+        tracing.collector().clear()
+        captures = len([e for e in events.all_events()
+                        if e.kind == "serve.slow_capture"])
+        pa.reset_counters()
+        out = {"preempt": qos_preempt(q, ref)}
+        out["fair"] = qos_fair(q)
+        out["shed"] = qos_shed(s)
+        counts = pa.counters()
+        after = {name: e.stats() for name, e in engines.items()}
+        rids = {"Q": out["preempt"].pop("rids") + out["fair"].pop("rids"),
+                "S": out["shed"].pop("rids")}
+        out["observed"] = qos_observed(engines, rids, captures, work)
+    finally:
+        if flight is None:
+            os.environ.pop("OIM_FLIGHT_DIR", None)
+        else:
+            os.environ["OIM_FLIGHT_DIR"] = flight
+        shutil.rmtree(work, ignore_errors=True)
+    layers = q.cfg.n_layers
+    passes = dispatches = 0
+    for name in engines:
+        st, st0 = after[name], before[name]
+        d = {k: st[k] - st0[k] for k in (
+            "decode_passes", "decode_dispatches", "graph_replays",
+            "prefill_dispatches", "admission_replays")}
+        passes += d["decode_passes"]
+        dispatches += d["prefill_dispatches"]
+        check(d["graph_replays"] == d["decode_dispatches"] > 0
+              and d["admission_replays"] == d["prefill_dispatches"] > 0,
+              f"qos {name}: not every dispatch a replay: {d}")
+        check(st["admission_graphs"] == st0["admission_graphs"]
+              and st["graph_capture_seconds"] == st0["graph_capture_seconds"],
+              f"qos {name}: a graph captured after warmup")
+    check(counts["paged_flash_decode_rows8"] == layers * passes
+          and counts["paged_kv_store_t1"] == layers * passes
+          and counts["paged_flash_decode_tc"] == layers * dispatches
+          and counts["paged_kv_store"] - counts["paged_kv_store_t1"]
+          == layers * dispatches,
+          f"qos: K1/K2 launches {counts} != {layers} x ({passes} decode "
+          f"passes, {dispatches} admission dispatches)")
+    check(counts["paged_flash_decode_plain"] == 0
+          and counts["paged_kv_store_plain"] == 0
+          and counts["paged_flash_decode_rows16"] == 0,
+          f"qos: a plain version or another route ran: {counts}")
+    check(after["Q"]["kv_parks"] - before["Q"]["kv_parks"]
+          == after["Q"]["kv_unparks"] - before["Q"]["kv_unparks"] == 2,
+          f"qos: parks and restores {after['Q']['kv_parks']}, "
+          f"{after['Q']['kv_unparks']}")
+    for name, engine in engines.items():
+        kv_no_leaks(engine, name)
+    out["counts"] = counts
+    out["seconds"] = time.monotonic() - t0
+    print(f"qos: K1/K2 {counts} over {passes} decode passes and "
+          f"{dispatches} admission dispatches of the two engines (2 parks, "
+          f"2 restores), every one a graph replay, no plain call, no "
+          f"capture after warmup, no block left in either tier; "
+          f"{out['observed']['requests']} requests observed; the phase "
+          f"took {out['seconds']:.1f} s [{SMI}]", flush=True)
+    del q, s, engine, engines, ref
+    release()
+    check(torch.cuda.memory_allocated() < 2**30,
+          f"the qos phase still holds "
           f"{gib(torch.cuda.memory_allocated()):.1f} GiB")
     return out
 
@@ -4605,6 +5143,12 @@ def parse_args(argv):
              "engines, the host tier's demotion, promotion and parking), "
              "printing its gates, walls and rates as the last line")
     only.add_argument(
+        "--qos-phase-only", action="store_true",
+        help="build the kernels and run only the QoS phase (preemption, "
+             "fair share, shedding through the HTTP server, and the "
+             "request observation across them), printing its gates, "
+             "TTFTs and counts as the last line")
+    only.add_argument(
         "--spec-phase-only", action="store_true",
         help="build the kernels and run only the speculative paths: K1/K2 "
              "at the verify and draft shapes, the default serve phase (the "
@@ -4693,6 +5237,8 @@ def main(argv=None) -> int:
                 served["spec"] = spec_phases(None)
             if "kv_host_bytes" in flags:
                 served["kv_io"] = kv_io_phase()
+            if "qos_policy" in flags:
+                served["qos"] = qos_phase()
         else:  # a package from before depth 2: paged, serial, eager only
             served["paged"] = serve_phase(SERVE_ARGS + ["--kv-block", "16"],
                                           "paged")
@@ -4700,6 +5246,10 @@ def main(argv=None) -> int:
         return 0
     if args.kv_phase_only:
         print(json.dumps({"package": package, "kv_io": kv_io_phase()},
+                         default=str), flush=True)
+        return 0
+    if args.qos_phase_only:
+        print(json.dumps({"package": package, "qos": qos_phase()},
                          default=str), flush=True)
         return 0
     if args.route_control:
@@ -4743,6 +5293,7 @@ def main(argv=None) -> int:
     prefix_counts = prefix_phase()
     spec_counts = spec_phases(counts["decode_tok_s"])
     kv_io_phase()
+    qos_phase()
     counts.update(train_phase(record))
     work = tempfile.mkdtemp(prefix=".smoke-ckpt-", dir=HERE)
     try:

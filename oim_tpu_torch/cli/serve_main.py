@@ -38,6 +38,15 @@ entries to a pinned host pool of B bytes instead of evicting them, and
 parks the coldest slot there when an admission cannot fit
 (``--no-kv-park`` keeps demotion and turns parking off).
 
+Multi-tenant QoS and overload: ``--qos-policy FILE`` (a tenant policy
+document, ``qos/policy.py``) admits by weighted fair share and lets a
+premium tenant's admission park a lower tier's slot (with the host
+tier); ``--brownout-max-tokens N`` clamps budgets under sustained queue
+pressure; ``--request-ring N`` sizes the completed-request ring, and
+``--slow-capture-e2e``/``--slow-capture-tpot-mult``/
+``--slow-capture-interval`` dump slow requests' stories to
+``$OIM_FLIGHT_DIR``.
+
 Speculative decoding: ``--spec-decode N`` drafts N tokens a slot a
 decode step by prompt lookup (``--spec-ngram``) and verifies them in one
 forward; with ``--draft-params-dir D --draft-n-layers ... --draft-d-model
@@ -68,6 +77,7 @@ from oim_tpu_torch.models.transformer import (
 )
 from oim_tpu_torch.models.weights import check_params, recast
 from oim_tpu_torch.ops.quant import WEIGHT_QUANT_TARGETS, quantize_weight
+from oim_tpu_torch.qos.policy import load_policy_file
 from oim_tpu_torch.serve.engine import Engine, resolve_device
 from oim_tpu_torch.serve.server import ServeServer
 
@@ -256,6 +266,48 @@ def build_parser() -> argparse.ArgumentParser:
         "--max-queue", type=int, default=64,
         help="admission queue bound (HTTP 429 beyond it; 0 = unbounded)",
     )
+    p.add_argument(
+        "--brownout-max-tokens", type=int, default=0, metavar="N",
+        help="brownout: under sustained queue pressure (queue >= 75%% of "
+        "--max-queue for over a second), clamp incoming requests' "
+        "max_new_tokens to N instead of letting the backlog grow to the "
+        "hard 429 — degraded answers beat errors (0 = off)",
+    )
+    p.add_argument(
+        "--request-ring", type=int, default=256, metavar="N",
+        help="recently-completed-request ring size: per-request phase "
+        "breakdowns (queue/admit/prefill/decode/stream) served at "
+        "GET /debugz/requests and merged fleet-wide by the router at "
+        "/v1/requests (`oimctl requests`); drop-oldest beyond N",
+    )
+    p.add_argument(
+        "--slow-capture-e2e", type=float, default=0.0, metavar="S",
+        help="tail-latency auto-capture: any request whose end-to-end "
+        "latency reaches S seconds dumps its full phase trace, an "
+        "engine stats snapshot, and the ring neighborhood to the "
+        "flight dir ($OIM_FLIGHT_DIR) as a `serve.slow_capture` "
+        "artifact (0 = off)",
+    )
+    p.add_argument(
+        "--slow-capture-tpot-mult", type=float, default=0.0, metavar="M",
+        help="relative slow-capture trigger: capture when a request's "
+        "time-per-output-token exceeds M times the engine's token-rate "
+        "EWMA — catches regressions without an absolute threshold "
+        "(0 = off)",
+    )
+    p.add_argument(
+        "--slow-capture-interval", type=float, default=60.0, metavar="S",
+        help="minimum seconds between slow-capture dumps (rate limit: "
+        "one bad burst must not fill the flight dir)",
+    )
+    p.add_argument(
+        "--qos-policy", default="", metavar="FILE",
+        help="tenant QoS policy JSON (doc/serving.md 'Multi-tenant "
+        "QoS'): the engine admits by weighted fair share instead of "
+        "FIFO and may preempt (park, never kill) a lower-tier tenant's "
+        "slot for a higher-priority admission; empty = QoS off (pure "
+        "FIFO, the pre-QoS behavior)",
+    )
     return p
 
 
@@ -378,6 +430,9 @@ def make_engine(args, cuda_graphs: bool = True) -> Engine:
                 "ported yet (ROADMAP Queue A12: parallelism); the port "
                 "serves on one device")
     device = resolve_device(args.device)
+    # Tolerant load (defaults on a missing or torn file): a bad policy
+    # document degrades to FIFO and never blocks serving.
+    qos = load_policy_file(args.qos_policy) if args.qos_policy else None
     cfg = model_config(args)
     params = load_weights(args, cfg, device)
     draft_params, draft_cfg = load_draft(args, device)
@@ -403,6 +458,12 @@ def make_engine(args, cuda_graphs: bool = True) -> Engine:
         kv_blocks=args.kv_blocks,
         kv_host_bytes=args.kv_host_bytes,
         kv_park=not args.no_kv_park,
+        brownout_max_tokens=args.brownout_max_tokens,
+        request_ring=args.request_ring,
+        qos=qos,
+        slow_capture_e2e_s=args.slow_capture_e2e,
+        slow_capture_tpot_mult=args.slow_capture_tpot_mult,
+        slow_capture_interval_s=args.slow_capture_interval,
         device=device,
         cuda_graphs=cuda_graphs,
     )

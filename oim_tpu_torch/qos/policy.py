@@ -2,12 +2,11 @@
 
 The port's own copy of ``oim_tpu/qos/policy.py`` (pure Python, so the
 copy is verbatim but for this paragraph
-and two phrases).  The engine reads only
-:data:`DEFAULT_POLICY` so far: the tier and preemption priority a
-request's tenant has with no policy loaded, which order park victims
-and stamp a migrated slot's manifest.  Loading a policy
-(``Engine(qos=...)``, ``set_qos_policy``) comes with the rest of QoS
-(ROADMAP Queue A10).
+and two phrases).  The engine takes a policy as ``Engine(qos=...)`` or
+``set_qos_policy`` (``serve_main --qos-policy FILE`` through
+:func:`load_policy_file`); with none loaded it reads
+:data:`DEFAULT_POLICY`'s tiers, which order park victims and stamp a
+migrated slot's manifest.
 
 One policy document answers every "may this tenant ..." question the
 serving plane asks:

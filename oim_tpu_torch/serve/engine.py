@@ -79,6 +79,22 @@ paths:
   and one scatter, all on the stream every replay runs on, so stream
   order does what the reference's XLA order does; a restored, imported
   or promoted slot admits through the prefix-hit route's graphs.
+- **Tenants and overload.**  Under a QoS policy (``qos``,
+  ``set_qos_policy``) admission is weighted fair share by stride
+  scheduling over tenants' virtual times, and a higher tier's head with
+  no free slot parks a strictly lower tier's slot (the host tier's
+  parking) and admits; premium prefix entries demote last.  Brownout
+  clamps budgets under sustained queue pressure, and ``retry_after_s``
+  estimates when the backlog drains.
+- **Request observation.**  Each request keeps a phase clock on host
+  instants the step loop already takes (queue, admit, prefill, one
+  record a decode chunk, stream); at its end it becomes an
+  ``engine.request`` span tree under the caller's ``span``, an entry of
+  the completed-request ring (``requests``), per-tenant histograms and,
+  when slow, a capture in the flight dir.  ``load()`` is the live
+  pressure snapshot and ``watchdog_state()`` the step thread's current
+  device wait beside the typical chunk wall.  None of it reads the
+  device.
 - **Slot-free work.**  ``embed`` and ``beam`` run the plain solo path
   (``models/decode.py::embed_tokens``, ``models/beam.py``) on the
   caller's thread, refused while draining.
@@ -89,15 +105,17 @@ paths:
   streams equal the solo ``generate`` and the reference's, sampled
   streams the port's solo ``generate``.
 
-Features of the reference engine this slice does not port are refused
-at construction or submission with the ROADMAP item that will bring
-them.
+The reference's sharded serving (``mesh``) and its switches between
+kernel and XLA paths (``paged_kernel``, ``prefill_kernel``) are not
+options here (ROADMAP Queue A11, A12).
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import math
+import os
 import statistics
 import threading
 import time
@@ -108,6 +126,9 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
+from oim_tpu_torch.common import events as _events
+from oim_tpu_torch.common import metrics as _metrics
+from oim_tpu_torch.common import tracing as _tracing
 from oim_tpu_torch.models.beam import make_beam_search_fn
 from oim_tpu_torch.models.decode import (
     _mlp,
@@ -138,6 +159,7 @@ from oim_tpu_torch.ops.paged_attention import (
 from oim_tpu_torch.ops.quant import make_kv_buffers, weight_quant_mode
 from oim_tpu_torch.ops.rope import apply_rope
 from oim_tpu_torch.qos.policy import DEFAULT_POLICY as _QOS_DEFAULT
+from oim_tpu_torch.qos.policy import TIER_PRIORITY as _QOS_TIER_PRIORITY
 from oim_tpu_torch.serve.disagg import (
     KV_HOLD_MAX,
     KV_HOLD_TTL_S,
@@ -183,11 +205,9 @@ _MAX_BEAM_PROGRAMS = 8
 _MAX_BEAM_TRACES = 64
 
 
-def _not_ported(option: str, item: str) -> ValueError:
-    return ValueError(
-        f"{option} is not ported to oim_tpu_torch yet (ROADMAP Queue A: "
-        f"{item})"
-    )
+# Tenant accounting rows kept before the least recently touched goes
+# (advisory accounting must not become a cardinality leak).
+_MAX_TENANT_ROWS = 256
 
 
 # ---------------------------------------------------------------------------
@@ -943,7 +963,9 @@ class _InFlightChunk:
     the device knows, so its chained dispatch takes the positions from
     the device-side carry and ``starts`` is None there); ``results`` are
     the host buffers its outputs land in (``_ChunkBuffers.outputs``'
-    order) once ``done`` (a CUDA event; None on the CPU) has passed."""
+    order) once ``done`` (a CUDA event; None on the CPU) has passed.
+    ``seq`` numbers the engine's dispatches, and ``dispatch_wall`` is
+    the host wall its enqueue took (a decode span's attributes)."""
 
     snapshot: dict
     inputs: _ChunkInputs
@@ -952,6 +974,8 @@ class _InFlightChunk:
     results: tuple
     done: object
     t_dispatch: float
+    seq: int = 0
+    dispatch_wall: float = 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -973,8 +997,11 @@ class GenRequest:
     ``kv_import`` admits from a staged ``import_kv``/``import_slot``: the
     prompt must start with the import's token record, and decode resumes
     at its frontier (an expired import falls back to the recompute
-    prefill).  ``tenant`` is the caller's identity ("" is "anon"); it
-    ranks park victims and stamps a migrated slot's manifest."""
+    prefill).  ``tenant`` is the caller's identity ("" is "anon"): its
+    QoS tier orders admission and park victims, labels the per-tenant
+    histograms and ring entries, and stamps a migrated slot's manifest.
+    ``span`` is the caller's span context: the engine records the
+    request's phase spans as its children (None mints a fresh trace)."""
 
     tokens: list[int]
     max_new_tokens: int
@@ -993,6 +1020,7 @@ class GenRequest:
     kv_import: int | None = None
     sample_base: int = 0
     tenant: str = ""
+    span: "_tracing.SpanContext | None" = None
 
 
 class QueueFullError(RuntimeError):
@@ -1036,6 +1064,38 @@ class RequestFailedError(RuntimeError):
 
 
 @dataclass
+class _PhaseTrace:
+    """One request's phase clock, on host instants the step loop already
+    takes: the substrate of its spans, its ring entry and the per-tenant
+    histograms.  Recording never touches the device.
+
+    The boundaries partition the request's life: queue = [t_submit,
+    t_admitted], admit = [t_admitted, t_prefill] (the wave's scheduling
+    slice before its first device work), prefill = [t_prefill, t_first]
+    (to the first-token readback; a chunked prefill's segments fall
+    inside it), decode = one interval per chunk the request took tokens
+    from (clipped to the previous chunk's completion, so the pipeline's
+    dispatch-ahead lag is not counted twice), stream = [last chunk done,
+    finalize].  A parked slot's time in the host tier is in none of
+    them."""
+
+    t_submit: float
+    t_admitted: float = 0.0
+    t_prefill: float = 0.0
+    t_first: float = 0.0
+    # Which path produced the leading KV rows: a "local" or "fetched"
+    # prefix entry, or a "recomputed" prefill.
+    prefix_source: str = "recomputed"
+    # Prompt segment dispatches (1 = one shot) and the host wall of each
+    # non-final one.
+    prefill_segments: int = 0
+    segment_walls: list[float] = field(default_factory=list)
+    # (chunk seq, span start, done, tokens, dispatch wall, fetch wall)
+    # per decode chunk the request took tokens from.
+    chunks: list[tuple] = field(default_factory=list)
+
+
+@dataclass
 class _PendingPrefill:
     """A long prompt mid-way through chunked prefill: its slot is
     assigned and, paged, its blocks committed; ``segs`` are the
@@ -1051,6 +1111,7 @@ class _PendingPrefill:
     tail: list
     start: int  # the next segment's first position
     t_submit: float
+    trace: _PhaseTrace
 
 
 @dataclass
@@ -1066,6 +1127,7 @@ class _SlotState:
     # its next emitted token: a restored slot makes progress before it
     # can be parked again, or a saturated queue ping-pongs one victim.
     park_immune: bool = False
+    phases: _PhaseTrace | None = None
 
 
 class Engine:
@@ -1082,6 +1144,9 @@ class Engine:
     fails, or an admission shape with no graph, raises: the engine never
     falls back to eager dispatch by itself.
     """
+
+    _instance_lock = threading.Lock()
+    _instance_count = 0
 
     def __init__(
         self,
@@ -1105,11 +1170,18 @@ class Engine:
         max_queue: int = 0,
         prefill_chunk: int = 0,
         pipeline_depth: int = 2,
+        brownout_max_tokens: int = 0,
+        brownout_queue_fraction: float = 0.75,
+        brownout_hold_s: float = 1.0,
+        request_ring: int = 256,
         kv_block: int = 0,
         kv_blocks: int = 0,
         kv_host_bytes: int = 0,
         kv_park: bool = True,
         qos=None,
+        slow_capture_e2e_s: float = 0.0,
+        slow_capture_tpot_mult: float = 0.0,
+        slow_capture_interval_s: float = 60.0,
         device=None,
         cuda_graphs: bool = True,
     ):
@@ -1173,10 +1245,6 @@ class Engine:
                 "only the block pool has a block-granular unit to "
                 "demote/promote"
             )
-        if qos is not None:
-            raise _not_ported(
-                "QoS policies", "A10, the rest of the lifecycle surfaces "
-                "(QoS)")
         if n_slots < 1 or max_len < 2 or chunk < 1:
             raise ValueError(
                 f"need n_slots>=1, max_len>=2, chunk>=1; got {n_slots}, "
@@ -1205,6 +1273,24 @@ class Engine:
                 )
         if max_queue < 0:
             raise ValueError(f"max_queue must be >= 0, got {max_queue}")
+        if (brownout_max_tokens < 0
+                or not 0.0 < brownout_queue_fraction <= 1.0):
+            raise ValueError(
+                f"need brownout_max_tokens>=0 and brownout_queue_fraction "
+                f"in (0, 1]; got {brownout_max_tokens}, "
+                f"{brownout_queue_fraction}"
+            )
+        if request_ring < 0:
+            raise ValueError(
+                f"request_ring must be >= 0, got {request_ring}"
+            )
+        if (slow_capture_e2e_s < 0 or slow_capture_tpot_mult < 0
+                or slow_capture_interval_s < 0):
+            raise ValueError(
+                "slow-capture knobs must be >= 0; got "
+                f"e2e={slow_capture_e2e_s}, mult={slow_capture_tpot_mult}, "
+                f"interval={slow_capture_interval_s}"
+            )
         if prefix_cache_size < 0:
             raise ValueError(
                 f"prefix_cache_size must be >= 0, got {prefix_cache_size}"
@@ -1231,6 +1317,16 @@ class Engine:
         self.weights_int8 = self.weight_quant == "int8"
         self.penalties = penalties
         self.max_queue = max_queue
+        # Brownout: under sustained queue pressure (the queue at or above
+        # a fraction of max_queue for brownout_hold_s), clamp incoming
+        # budgets to brownout_max_tokens instead of letting the backlog
+        # grow to the hard 429 (0 = off; pressure needs max_queue).
+        self.brownout_max_tokens = brownout_max_tokens
+        self.brownout_hold_s = brownout_hold_s
+        self._brownout_at = max(
+            1, int(round(max_queue * brownout_queue_fraction))
+        ) if max_queue else 0
+        self._pressure_since: float | None = None
         self.pipeline_depth = pipeline_depth
         self.kv_block = kv_block
         self._n_tables = max_len // block_size
@@ -1534,6 +1630,49 @@ class Engine:
         self._t_device_free: float | None = None
         self._t_last_chunk_done: float | None = None
         self._ttfts: deque[float] = deque(maxlen=256)
+        self._step_count = 0  # decode dispatches, numbering their spans
+        # The recently completed request ring: one record a finished or
+        # failed request (phases, tokens, outcome), drop-oldest with the
+        # drops counted; under its own lock, which never nests inside
+        # the engine's.  Failures are recorded under the engine lock
+        # into _fail_obs and finalized after it drops
+        # (_drain_fail_obs): spans and histograms run off the lock.
+        self._ring: deque[dict] = deque(maxlen=request_ring)
+        self.ring_dropped = 0
+        self._ring_lock = threading.Lock()
+        self._fail_obs: list[tuple] = []
+        # The stall watchdog's read surface: the instant the step thread
+        # began its current wait on the device (None when not waiting),
+        # and the typical chunk wall, dispatch to readback.  Beside it,
+        # the marginal token rate (tokens/s over processed chunks) that
+        # Retry-After hints divide the backlog by.
+        self._device_wait_since: float | None = None
+        self._chunk_wall_ewma: float | None = None
+        self._token_rate_ewma: float | None = None
+        # This engine's own shed totals (the shared counter cannot be
+        # read back per engine).
+        self._shed_counts = {"queue_full": 0, "deadline": 0, "brownout": 0}
+        # Multi-tenant QoS: a ``qos/policy.py::QosPolicy``, or None for
+        # none (FIFO admission, no preemption).  Tenant accounting (the
+        # fair-share virtual times, admissions, preemptions, tokens)
+        # runs either way, under self._lock.
+        self._qos_policy = qos
+        self._tenants: dict[str, dict] = {}
+        self.qos_preemptions = 0  # admissions that parked a victim
+        # Tail-latency auto-capture: an absolute e2e threshold and/or a
+        # multiple of the marginal token rate EWMA (0 = that trigger
+        # off), at most one artifact an interval.
+        self._slow_e2e_s = float(slow_capture_e2e_s)
+        self._slow_tpot_mult = float(slow_capture_tpot_mult)
+        self._slow_interval_s = float(slow_capture_interval_s)
+        self._slow_last_capture = 0.0  # monotonic; 0 = never
+        self.slow_captures = 0
+        # Shared instruments (``common/metrics.py``): cumulative counters
+        # and histograms shared by every engine of the process, gauges
+        # per engine under its index.
+        with Engine._instance_lock:
+            self._engine_label = str(Engine._instance_count)
+            Engine._instance_count += 1
 
     # -- submission and results ---------------------------------------------
 
@@ -1647,6 +1786,12 @@ class Engine:
         self._validate(req)
         now = time.monotonic()
         if req.deadline is not None and now >= req.deadline:
+            # Dead on arrival: shed before it costs anything.
+            if not self._warming:
+                _metrics.SERVE_SHED.inc("deadline")
+                _metrics.SERVE_DEADLINE_EXPIRED.inc()
+                with self._lock:
+                    self._shed_counts["deadline"] += 1
             raise DeadlineExpiredError(
                 "request deadline already expired at submission"
             )
@@ -1655,10 +1800,30 @@ class Engine:
                 raise EngineFailedError(f"engine failed: {self._fatal}")
             if self._draining:
                 raise DrainingError("engine is draining; not admitting")
-            if self.max_queue and len(self._queue) >= self.max_queue:
+            if (self.max_queue and not self._warming
+                    and len(self._queue) >= self.max_queue):
+                _metrics.SERVE_SHED.inc("queue_full")
+                self._shed_counts["queue_full"] += 1
                 raise QueueFullError(
                     f"admission queue full ({self.max_queue}); retry later"
                 )
+            if self.max_queue and not self._warming:
+                # Brownout: pressure is the queue at or above its
+                # threshold, sustained across submissions; clamp only
+                # once it has held for brownout_hold_s.
+                if len(self._queue) >= self._brownout_at:
+                    if self._pressure_since is None:
+                        self._pressure_since = now
+                else:
+                    self._pressure_since = None
+                if (self.brownout_max_tokens
+                        and self._pressure_since is not None
+                        and now - self._pressure_since >= self.brownout_hold_s
+                        and req.max_new_tokens > self.brownout_max_tokens):
+                    req = replace(req,
+                                  max_new_tokens=self.brownout_max_tokens)
+                    _metrics.SERVE_SHED.inc("brownout")
+                    self._shed_counts["brownout"] += 1
             rid = self._next_rid
             self._next_rid += 1
             self._queue.append((rid, req, now))
@@ -1710,19 +1875,40 @@ class Engine:
         with self._lock:
             if rid in self._results or rid in self._errors:
                 return False
-            for i, (qrid, _, _) in enumerate(self._queue):
+            for i, (qrid, qreq, qt) in enumerate(self._queue):
                 if qrid == rid:
                     del self._queue[i]
-                    self._fail_locked(rid, "cancelled", message)
-                    return True
-            if rid in self._admitting or rid in self._parked or any(
-                s.rid == rid for s in self._slots.values()
-            ):
+                    self._fail_locked(rid, "cancelled", message, req=qreq,
+                                      t_submit=qt)
+                    break
+            else:
+                if not (rid in self._admitting or rid in self._parked or any(
+                        s.rid == rid for s in self._slots.values())):
+                    return False
                 self._cancelled.add(rid)  # reaped at the next step
-                return True
-            return False
+        self._drain_fail_obs()
+        return True
 
-    def _fail_locked(self, rid: int, kind: str, message: str) -> None:
+    def _fail_locked(self, rid: int, kind: str, message: str, *,
+                     req: GenRequest | None = None,
+                     t_submit: float | None = None,
+                     state: _SlotState | None = None) -> None:
+        """Record a failed request's error and wake its waiter (lock
+        held).  ``req`` and ``t_submit`` (a queued or mid-prefill
+        request) or ``state`` (a seated or parked one) carry what the
+        caller knows of it, so that its ring entry, spans and e2e
+        observation exist for failures too; the caller finalizes them
+        with ``_drain_fail_obs`` once the lock is dropped."""
+        if not self._warming:
+            if state is not None:
+                req = state.req
+                phases = state.phases or _PhaseTrace(t_submit=state.t_submit)
+                tokens_out = len(state.emitted)
+            else:
+                phases = (_PhaseTrace(t_submit=t_submit)
+                          if t_submit is not None else None)
+                tokens_out = 0
+            self._fail_obs.append((rid, req, phases, kind, tokens_out))
         self._cancelled.discard(rid)
         if rid in self._forgotten:
             self._forgotten.discard(rid)
@@ -1742,11 +1928,17 @@ class Engine:
         with self._lock:
             self._inflight = None
             self._t_device_free = None
-            self._prefilling.clear()  # their rids are in _admitting
-            rids = [rid for rid, _, _ in self._queue]
-            rids += list(self._admitting)
-            rids += [s.rid for s in self._slots.values()]
-            rids += list(self._parked)
+            # (rid, req, t_submit, state): what is known of each request,
+            # for its ring entry.  Mid-prefill rids are in _admitting too.
+            pending = [(rid, req, t, None) for rid, req, t in self._queue]
+            pending += [(rid, None, None, None) for rid in self._admitting
+                        if rid not in self._prefilling]
+            pending += [(p.rid, p.req, p.t_submit, None)
+                        for p in self._prefilling.values()]
+            pending += [(s.rid, None, None, s) for s in self._slots.values()]
+            pending += [(p.state.rid, None, None, p.state)
+                        for p in self._parked.values()]
+            self._prefilling.clear()
             for rid in list(self._parked):
                 self._drop_parked_locked(rid)
             for slot in sorted(set(self._slots) | set(
@@ -1755,9 +1947,11 @@ class Engine:
             self._queue.clear()
             self._slots.clear()
             self._admitting.clear()
-            for rid in rids:
-                self._fail_locked(rid, "aborted", message)
+            for rid, req, t_sub, state in pending:
+                self._fail_locked(rid, "aborted", message, req=req,
+                                  t_submit=t_sub, state=state)
             self._cancelled.clear()
+        self._drain_fail_obs()
 
     def drain(self) -> None:
         """Stop admitting; queued and active requests, and a chunk in
@@ -1979,6 +2173,9 @@ class Engine:
                     self._host.n_blocks if self._host else 0
                 ),
                 "kv_park": self.kv_park,
+                # Whether a tenant policy is loaded: without one,
+                # admission is FIFO and nothing preempts.
+                "qos": self._qos_policy is not None,
                 "device": str(self.device),
                 "attention": (
                     "cuda-kernels" if self.device.type == "cuda" else "plain"
@@ -2108,8 +2305,542 @@ class Engine:
                 "inflight_dispatches": int(self._inflight is not None),
                 "ttft_p50_s": statistics.median(ttfts) if ttfts else 0.0,
                 "kernel_counts": paged_attention.counters(),
+                # Overload forensics: the watchdog's baseline, the
+                # Retry-After denominator, the sheds by reason and the
+                # live brownout state (with traffic stopped the pressure
+                # clock resets only at the next submit, so the queue is
+                # read here too).
+                "chunk_wall_ewma": round(self._chunk_wall_ewma or 0.0, 6),
+                "token_rate": round(self._token_rate_ewma or 0.0, 2),
+                "shed_queue_full": self._shed_counts["queue_full"],
+                "shed_deadline": self._shed_counts["deadline"],
+                "shed_brownout": self._shed_counts["brownout"],
+                "brownout_active": self._brownout_locked(),
+                "ring_dropped": self.ring_dropped,
+                "slow_captures": self.slow_captures,
+                "kv_fragmentation": self._kv_fragmentation_locked(),
+                # Multi-tenant QoS: whether a policy is enforced, the
+                # admissions that parked a victim, and the per-tenant
+                # live and cumulative rows.
+                "qos": self._qos_policy is not None,
+                "qos_preemptions": self.qos_preemptions,
+                "tenants": self._tenant_snapshot_locked(),
                 "fatal": self._fatal,
             }
+
+    def _brownout_locked(self) -> bool:
+        """Whether brownout clamps submissions now (lock held)."""
+        return bool(self.brownout_max_tokens
+                    and self._pressure_since is not None
+                    and len(self._queue) >= self._brownout_at)
+
+    def _kv_fragmentation_locked(self) -> float:
+        """Allocated-but-idle share of the used pool rows (lock held):
+        0.0 when every used block row holds live KV, 1.0 when all are
+        padding.  Approximate under sharing (an aliased row counts once a
+        reader); a block-size tuning signal."""
+        if not self.paged or not self._alloc.used_blocks:
+            return 0.0
+        live = sum(len(s.req.tokens) + len(s.emitted)
+                   for s in self._slots.values()) + sum(
+            rows for _, rows in self._prefix_cache.values())
+        used_rows = self._alloc.used_blocks * self.kv_block
+        return round(max(0.0, 1.0 - live / used_rows), 4)
+
+    def load(self) -> dict:
+        """The live-pressure snapshot under the reference's keys (its
+        ``load/<id>`` registry value and ``/v1/info``'s ``load``): busy
+        work is ``queue_depth + active_slots`` over ``total_slots``, the
+        ``kv_blocks_*`` the pool's headroom (zeros on the dense cache),
+        then the host tier's, the ships', the prefix residency, the sheds,
+        the tenants and the drain and brownout states."""
+        cuda = self.device.type == "cuda"
+        with self._lock:
+            return {
+                "queue_depth": len(self._queue),
+                "active_slots": len(self._slots),
+                "total_slots": self.n_slots,
+                "kv_blocks_total": self.kv_blocks,
+                "kv_blocks_free": (
+                    self._alloc.free_blocks if self.paged else 0
+                ),
+                "kv_blocks_shared": (
+                    self._alloc.shared_blocks if self.paged else 0
+                ),
+                "kv_fragmentation": self._kv_fragmentation_locked(),
+                "kv_host_blocks_total": (
+                    self._host.n_blocks if self._host else 0
+                ),
+                "kv_host_blocks_free": (
+                    self._host.alloc.free_blocks if self._host else 0
+                ),
+                "kv_host_fragmentation": (
+                    self._kv_host_fragmentation_locked()
+                ),
+                "kv_demotions": self.kv_demotions,
+                "kv_promotions": self.kv_promotions,
+                "parked_slots": len(self._parked),
+                "prefix_demotions": self.prefix_demotions,
+                "prefix_evictions": self.prefix_evictions,
+                "kv_parks": self.kv_parks,
+                "kv_unparks": self.kv_unparks,
+                "kv_demote_seconds": round(self.kv_demote_seconds, 6),
+                "kv_promote_seconds": round(self.kv_promote_seconds, 6),
+                "kv_demote_bytes": self.kv_demote_bytes,
+                "kv_promote_bytes": self.kv_promote_bytes,
+                # The paged-attention and prefill kernels run wherever
+                # the engine runs on the card (their plain versions on
+                # the CPU).
+                "paged_kernel": cuda,
+                "kv_int4": self.kv_int4,
+                "prefill_kernel": cuda,
+                "prefill_chunk": self.prefill_chunk,
+                "prefill_segments": self.prefill_segments,
+                "kv_exports": self.kv_exports,
+                "kv_imports": self.kv_imports_total,
+                "kv_ship_bytes": self.kv_ship_bytes,
+                "prefix_digests": self._prefix_digest_summary_locked(
+                    PREFIX_DIGEST_CAP
+                ),
+                "prefix_hits": self.prefix_hits,
+                "prefix_misses": self.prefix_misses,
+                "token_rate": round(self._token_rate_ewma or 0.0, 2),
+                "shed_queue_full": self._shed_counts["queue_full"],
+                "shed_deadline": self._shed_counts["deadline"],
+                "shed_brownout": self._shed_counts["brownout"],
+                "tenants": self._tenant_snapshot_locked(),
+                "qos_preemptions": self.qos_preemptions,
+                "draining": bool(self._draining),
+                "brownout": self._brownout_locked(),
+                "ts": time.time(),
+            }
+
+    def _update_load_gauges_locked(self) -> None:
+        """The per-engine load gauges from ground truth (lock held):
+        active slots, queue depth and, paged, the pool by block state."""
+        label = self._engine_label
+        _metrics.SERVE_ACTIVE_SLOTS.set(float(len(self._slots)), label)
+        _metrics.SERVE_QUEUE_DEPTH.set(float(len(self._queue)), label)
+        if self.paged:
+            for state, n in (("free", self._alloc.free_blocks),
+                             ("used", self._alloc.used_blocks),
+                             ("shared", self._alloc.shared_blocks)):
+                _metrics.SERVE_KV_BLOCKS.set(float(n), label, state)
+            if self._host is not None:
+                _metrics.SERVE_KV_BLOCKS.set(
+                    float(self._host.alloc.used_blocks), label, "host")
+
+    # -- request observation --------------------------------------------------
+
+    def requests(self) -> dict:
+        """The recently completed request ring, oldest first, each entry
+        with its phase durations, and the drop-oldest eviction count."""
+        with self._ring_lock:
+            return {
+                "requests": [dict(e) for e in self._ring],
+                "dropped": self.ring_dropped,
+            }
+
+    def _finalize_request(self, rid: int, req: GenRequest | None,
+                          phases: _PhaseTrace | None, outcome: str,
+                          tokens_out: int, t_end: float) -> None:
+        """Record one request's story: the ``engine.request`` span (a
+        child of ``req.span``) with a child a phase and one
+        ``engine.decode`` span a chunk, the ring entry, the per-tenant
+        histograms and tokens, and a slow capture where due.  Never with
+        the engine lock held; host clock arithmetic only, nothing of the
+        device.  ``t_end`` is the last chunk's completion (the stream
+        phase runs from it to now)."""
+        if self._warming:
+            return
+        t_fin = time.monotonic()
+        tenant = (req.tenant if req is not None else "") or "anon"
+        parent = req.span if req is not None else None
+        # Phase instants ride the monotonic clock; one offset converts
+        # them to the wall-clock nanoseconds spans carry.
+        off = time.time_ns() - int(time.monotonic() * 1e9)
+
+        def ns(t: float) -> int:
+            return int(t * 1e9) + off
+
+        t0 = phases.t_submit if phases is not None else t_fin
+        root = _tracing.record_span(
+            "engine.request",
+            component="engine",
+            trace_id=parent.trace_id if parent else "",
+            parent_id=parent.span_id if parent else "",
+            start_ns=ns(t0),
+            end_ns=ns(t_fin),
+            status="ok" if outcome == "ok" else f"error: {outcome}",
+            rid=rid,
+            tenant=tenant,
+            outcome=outcome,
+            tokens_in=len(req.tokens) if req is not None else 0,
+            tokens_out=tokens_out,
+        )
+
+        def child(name: str, a: float, b: float, **attrs) -> None:
+            _tracing.record_span(
+                name, component="engine", trace_id=root.trace_id,
+                parent_id=root.span_id, start_ns=ns(a), end_ns=ns(b),
+                **attrs,
+            )
+
+        queue_s = admit_s = prefill_s = decode_s = stream_s = 0.0
+        chunk_count = 0
+        if phases is not None:
+            t_admit = phases.t_admitted or t_fin
+            queue_s = max(0.0, t_admit - phases.t_submit)
+            child("engine.queue", phases.t_submit, t_admit)
+            if phases.t_admitted and phases.t_prefill:
+                admit_s = max(0.0, phases.t_prefill - phases.t_admitted)
+                child("engine.admit", phases.t_admitted, phases.t_prefill)
+            if phases.t_prefill and phases.t_first:
+                prefill_s = max(0.0, phases.t_first - phases.t_prefill)
+                child("engine.prefill", phases.t_prefill, phases.t_first)
+            for seq, a, b, ntok, disp, fetch in phases.chunks:
+                decode_s += max(0.0, b - a)
+                child("engine.decode", a, b, chunk=seq, tokens=ntok,
+                      dispatch_wait_s=round(disp, 6),
+                      fetch_wait_s=round(fetch, 6))
+            chunk_count = len(phases.chunks)
+            if outcome == "ok" and phases.t_first:
+                stream_s = max(0.0, t_fin - t_end)
+                child("engine.stream", t_end, t_fin)
+        e2e_s = max(0.0, t_fin - t0)
+        entry = {
+            "rid": rid,
+            "tenant": tenant,
+            "tier": self._qos_lookup(tenant).tier,
+            "trace": root.trace_id,
+            "outcome": outcome,
+            "queue_s": round(queue_s, 6),
+            "admit_s": round(admit_s, 6),
+            "prefill_s": round(prefill_s, 6),
+            "decode_s": round(decode_s, 6),
+            "stream_s": round(stream_s, 6),
+            "e2e_s": round(e2e_s, 6),
+            "chunks": chunk_count,
+            "tokens_in": len(req.tokens) if req is not None else 0,
+            "tokens_out": tokens_out,
+            "prefix": (phases.prefix_source if phases is not None
+                       else "recomputed"),
+            "prefill_segments": (phases.prefill_segments
+                                 if phases is not None else 0),
+            "segment_walls": ([round(w, 6) for w in phases.segment_walls]
+                              if phases is not None else []),
+            "ts": time.time(),
+        }
+        with self._ring_lock:
+            if self._ring.maxlen == 0 or len(self._ring) == self._ring.maxlen:
+                self.ring_dropped += 1
+                _metrics.SERVE_REQUEST_RING_DROPPED.inc(self._engine_label)
+            if self._ring.maxlen:
+                self._ring.append(entry)
+        _metrics.SERVE_E2E.observe(e2e_s, tenant, outcome)
+        if tokens_out:
+            _metrics.SERVE_TENANT_TOKENS.inc(tenant, by=float(tokens_out))
+        with self._lock:
+            row = self._tenant_row_locked(tenant)
+            row["requests"] += 1
+            row["tokens_out"] += tokens_out
+            row["ts"] = time.time()
+        if phases is not None and phases.t_admitted:
+            _metrics.SERVE_QUEUE_WAIT.observe(queue_s, tenant)
+        if prefill_s > 0.0:
+            _metrics.SERVE_PREFILL.observe(prefill_s, tenant)
+        if chunk_count and tokens_out > 1:
+            _metrics.SERVE_TPOT.observe(decode_s / (tokens_out - 1), tenant)
+        self._maybe_slow_capture(entry, phases)
+
+    def _maybe_slow_capture(self, entry: dict,
+                            phases: _PhaseTrace | None) -> None:
+        """Dump a slow request's story to the flight dir before anyone
+        asks: its ring entry, per-chunk phase records, a ``stats()``
+        snapshot and the ring it finished among.  Triggers: the e2e
+        threshold, or a marginal TPOT past a multiple of the token-rate
+        EWMA.  At most one artifact an interval, and best-effort: a full
+        disk never fails a request that was merely slow."""
+        trigger = ""
+        if self._slow_e2e_s and entry["e2e_s"] >= self._slow_e2e_s:
+            trigger = "e2e"
+        elif self._slow_tpot_mult and entry["chunks"]:
+            tokens_out = entry["tokens_out"]
+            rate = self._token_rate_ewma or 0.0
+            if tokens_out > 1 and rate > 0.0:
+                tpot = entry["decode_s"] / (tokens_out - 1)
+                if tpot * rate >= self._slow_tpot_mult:
+                    trigger = "tpot"
+        if not trigger:
+            return
+        now = time.monotonic()
+        if (self._slow_last_capture
+                and now - self._slow_last_capture < self._slow_interval_s):
+            return
+        self._slow_last_capture = now
+        with self._ring_lock:
+            neighborhood = list(self._ring)[-16:]
+        artifact = {
+            "kind": "slow_capture",
+            "trigger": trigger,
+            "thresholds": {
+                "e2e_s": self._slow_e2e_s,
+                "tpot_mult": self._slow_tpot_mult,
+                "token_rate_ewma": round(self._token_rate_ewma or 0.0, 2),
+            },
+            "entry": entry,
+            "chunks": [
+                {"seq": seq, "wall_s": round(max(0.0, b - a), 6),
+                 "tokens": ntok, "dispatch_wait_s": round(disp, 6),
+                 "fetch_wait_s": round(fetch, 6)}
+                for seq, a, b, ntok, disp, fetch in (
+                    phases.chunks if phases is not None else ())
+            ],
+            "stats": self.stats(),
+            "ring": neighborhood,
+        }
+        path = os.path.join(
+            _events.flight_dir(),
+            f"oim-slowcap-{os.getpid()}-{entry['rid']}-"
+            f"{int(time.time())}.json",
+        )
+        try:
+            tmp = f"{path}.tmp"
+            with open(tmp, "w") as f:
+                json.dump(artifact, f, indent=1)
+            os.replace(tmp, path)
+        except OSError:
+            return
+        self.slow_captures += 1
+        _metrics.SERVE_SLOW_CAPTURES.inc(self._engine_label, trigger)
+        _events.emit(
+            "serve.slow_capture",
+            component="serve",
+            severity=_events.WARNING,
+            subject=str(entry["rid"]),
+            trigger=trigger,
+            tenant=entry["tenant"],
+            e2e_s=entry["e2e_s"],
+            decode_s=entry["decode_s"],
+            tokens_out=entry["tokens_out"],
+            path=path,
+        )
+
+    def _drain_fail_obs(self) -> None:
+        """Finalize the failures ``_fail_locked`` queued: every failure
+        site calls this right after it drops the engine lock."""
+        with self._lock:
+            if not self._fail_obs:
+                return
+            pending, self._fail_obs = self._fail_obs, []
+        now = time.monotonic()
+        for rid, req, phases, kind, tokens_out in pending:
+            self._finalize_request(rid, req, phases, kind, tokens_out, now)
+
+    def _finalize_done(self, finished: list[_SlotState]) -> None:
+        """Finalize this step's completed requests (off the lock, after
+        their results were published)."""
+        for state in finished:
+            phases = state.phases
+            t_end = 0.0
+            if phases is not None:
+                t_end = (phases.chunks[-1][2] if phases.chunks
+                         else phases.t_first) or phases.t_submit
+            self._finalize_request(state.rid, state.req, phases, "ok",
+                                   len(state.emitted), t_end)
+
+    def _watch_begin(self) -> None:
+        """Open a device-wait window: the step thread is about to block
+        on the device (a chunk's or an admission's readback)."""
+        with self._lock:
+            self._device_wait_since = time.monotonic()
+
+    def _watch_end(self) -> None:
+        with self._lock:
+            self._device_wait_since = None
+
+    def watchdog_state(self) -> tuple[float | None, float | None]:
+        """(seconds the step thread has waited on the device in its
+        current wait, None when not waiting; the typical chunk wall EWMA,
+        None before the first chunk).  The stall watchdog's read
+        surface; any thread."""
+        now = time.monotonic()
+        with self._lock:
+            since = self._device_wait_since
+            return (None if since is None else max(0.0, now - since),
+                    self._chunk_wall_ewma)
+
+    def retry_after_s(self) -> int:
+        """Back-off hint for 429 and 503 answers: seconds until the
+        backlog (queued budgets and the active and parked slots'
+        remaining ones) drains at the observed marginal token rate; 5
+        before any chunk, clamped to [1, 120]."""
+        with self._lock:
+            backlog = sum(req.max_new_tokens for _, req, _ in self._queue)
+            backlog += sum(max(0, s.req.max_new_tokens - len(s.emitted))
+                           for s in self._slots.values())
+            backlog += sum(max(0, p.state.req.max_new_tokens
+                               - len(p.state.emitted))
+                           for p in self._parked.values())
+            rate = self._token_rate_ewma
+        if rate is None or rate <= 0.0:
+            return 5
+        return max(1, min(120, int(backlog / rate) + 1))
+
+    # -- multi-tenant QoS -----------------------------------------------------
+
+    def set_qos_policy(self, policy) -> None:
+        """Swap the tenant policy (None turns QoS off).  Accounting rows
+        take their new tier and weight; virtual times carry over, so a
+        reload does not reset the fairness ledger mid-backlog."""
+        with self._lock:
+            self._qos_policy = policy
+            for name, row in self._tenants.items():
+                pol = self._qos_lookup(name)
+                row["tier"] = pol.tier
+                row["weight"] = pol.effective_weight
+
+    def _qos_lookup(self, tenant: str):
+        return (self._qos_policy or _QOS_DEFAULT).lookup(tenant)
+
+    def _tenant_row_locked(self, tenant: str) -> dict:
+        """``tenant``'s accounting row (lock held), made on first
+        contact at the lowest virtual time there is (starting at zero
+        would give a tenant that stayed idle unbounded credit)."""
+        row = self._tenants.get(tenant)
+        if row is None:
+            pol = self._qos_lookup(tenant)
+            floor = min((r["vtime"] for r in self._tenants.values()),
+                        default=0.0)
+            if len(self._tenants) >= _MAX_TENANT_ROWS:
+                stale = min(self._tenants,
+                            key=lambda t: self._tenants[t]["ts"])
+                del self._tenants[stale]
+            row = {
+                "tier": pol.tier,
+                "weight": pol.effective_weight,
+                "vtime": floor,
+                "admitted": 0,
+                "preempted": 0,
+                "parked_victim": 0,
+                "requests": 0,
+                "tokens_out": 0,
+                "ts": time.time(),
+            }
+            self._tenants[tenant] = row
+        return row
+
+    def _qos_head_locked(self) -> int:
+        """Index in ``self._queue`` of the next admission candidate: 0
+        with no policy (FIFO); with one, stride scheduling — each
+        tenant's requests stay FIFO among themselves, and the tenant
+        whose virtual time lags most admits next (ties to arrival).  The
+        admission loop keeps head-of-line backpressure on the head it
+        picks.  Warmup's dummies (all anon) admit FIFO and touch no
+        accounting row: the reference's head pick makes an anon row at
+        virtual time 0 there, which then floors every newcomer's."""
+        if (self._qos_policy is None or self._warming
+                or len(self._queue) < 2):
+            return 0
+        best_i, best_key = 0, None
+        seen: set[str] = set()
+        for i, (rid, req, t_sub) in enumerate(self._queue):
+            tenant = req.tenant or "anon"
+            if tenant in seen:
+                continue  # only each tenant's own head competes
+            seen.add(tenant)
+            row = self._tenant_row_locked(tenant)
+            key = (row["vtime"], t_sub, rid)
+            if best_key is None or key < best_key:
+                best_i, best_key = i, key
+        return best_i
+
+    def _qos_charge_locked(self, req: GenRequest) -> None:
+        """Account one granted admission (lock held, the request off the
+        queue): its worst-case tokens over its tenant's weight advance
+        the tenant's virtual time, from no lower than the backlog's
+        lowest (an idle tenant banks no credit, carries no debt).
+        Warmup's dummies touch nothing."""
+        if self._warming:
+            return
+        tenant = req.tenant or "anon"
+        row = self._tenant_row_locked(tenant)
+        if self._qos_policy is not None:
+            backlog = {r.tenant or "anon" for _, r, _ in self._queue}
+            floor = min((self._tenants[t]["vtime"] for t in backlog
+                         if t in self._tenants), default=row["vtime"])
+            charge = float(max(1, len(req.tokens) + req.max_new_tokens))
+            row["vtime"] = (max(row["vtime"], floor)
+                            + charge / max(row["weight"], 1e-9))
+        row["admitted"] += 1
+        row["ts"] = time.time()
+        _metrics.SERVE_QOS.inc(row["tier"], "admitted")
+
+    def _qos_preempt_pending_locked(self) -> bool:
+        """Would the slot-shortage preemption act now (lock held)?  The
+        pipeline-boundary predicate asks: queued work with no free slot
+        forces no boundary, except when the fair-share head could park a
+        lower-priority slot — else a saturated engine pipelines past
+        every preemption and premium waits out the flood.  A pure read:
+        ``_qos_preempt_locked``'s checks without the park."""
+        if self._qos_policy is None or not self._queue or self._free:
+            return False
+        if not self.kv_park:
+            return False
+        _, req, _ = self._queue[self._qos_head_locked()]
+        prio = self._qos_lookup(req.tenant or "anon").priority
+        if prio <= 0:
+            return False
+        return self._pick_park_victim_locked(prio) is not None
+
+    def _qos_preempt_locked(self) -> bool:
+        """Slot-shortage priority preemption (lock held, admission
+        boundary, no free slot): park one slot of strictly lower priority
+        than the fair-share head's tenant, so that the admission loop can
+        run.  Equal tiers never preempt each other.  True when a victim
+        was parked."""
+        if not self._queue or self._free:
+            return False
+        _, req, _ = self._queue[self._qos_head_locked()]
+        prio = self._qos_lookup(req.tenant or "anon").priority
+        if prio <= 0:
+            return False
+        return self._try_park_locked(req, below_priority=prio)
+
+    def _tenant_snapshot_locked(self) -> dict:
+        """Per-tenant live and cumulative rows (lock held): queued,
+        active and parked counted from the queue, the slots and the
+        parked set, the counters from the accounting rows."""
+        queued: dict[str, int] = {}
+        for _, req, _ in self._queue:
+            t = req.tenant or "anon"
+            queued[t] = queued.get(t, 0) + 1
+        active: dict[str, int] = {}
+        for state in self._slots.values():
+            t = state.req.tenant or "anon"
+            active[t] = active.get(t, 0) + 1
+        parked: dict[str, int] = {}
+        for rec in self._parked.values():
+            t = rec.state.req.tenant or "anon"
+            parked[t] = parked.get(t, 0) + 1
+        out: dict[str, dict] = {}
+        for name in set(self._tenants) | set(queued) | set(active) | set(
+                parked):
+            row = self._tenants.get(name, {})
+            pol = self._qos_lookup(name)
+            out[name] = {
+                "tier": pol.tier,
+                "weight": pol.effective_weight,
+                "queued": queued.get(name, 0),
+                "active": active.get(name, 0),
+                "parked": parked.get(name, 0),
+                "admitted": row.get("admitted", 0),
+                "preempted": row.get("preempted", 0),
+                "parked_victim": row.get("parked_victim", 0),
+                "requests": row.get("requests", 0),
+                "tokens_out": row.get("tokens_out", 0),
+            }
+        return out
 
     # -- engine loop (one step thread) --------------------------------------
 
@@ -2124,6 +2855,9 @@ class Engine:
                 self.steps += 1
         except Exception as exc:
             message = f"engine step failed: {type(exc).__name__}: {exc}"
+            # The raise may have left a device-wait window open: close
+            # it, or the watchdog would read a wait that already ended.
+            self._watch_end()
             with self._lock:
                 if self._fatal is None:
                     self._fatal = message
@@ -2135,6 +2869,7 @@ class Engine:
                     self.readback_seconds += acc[0]
                     self.dispatch_seconds += acc[1]
                     self.overlap_seconds += acc[2]
+                    self._update_load_gauges_locked()
 
     def run(self) -> dict[int, list[int]]:
         """Drain the queue and all active slots; returns {rid: tokens}
@@ -2244,11 +2979,17 @@ class Engine:
             keep = deque()
             for rid, req, t_sub in self._queue:
                 if rid in self._cancelled:
-                    self._fail_locked(rid, "cancelled", "client went away")
+                    self._fail_locked(rid, "cancelled", "client went away",
+                                      req=req, t_submit=t_sub)
                 elif req.deadline is not None and now >= req.deadline:
+                    if not self._warming:
+                        _metrics.SERVE_SHED.inc("deadline")
+                        _metrics.SERVE_DEADLINE_EXPIRED.inc()
+                        self._shed_counts["deadline"] += 1
                     self._fail_locked(
                         rid, "deadline_queue",
                         f"expired after {now - t_sub:.1f}s queued",
+                        req=req, t_submit=t_sub,
                     )
                 else:
                     keep.append((rid, req, t_sub))
@@ -2260,11 +3001,13 @@ class Engine:
                       and now >= state.req.deadline):
                     kind = "deadline"
                     msg = f"expired after {len(state.emitted)} tokens"
+                    if not self._warming:
+                        _metrics.SERVE_DEADLINE_EXPIRED.inc()
                 else:
                     continue
                 self._slots.pop(slot)
                 self._release_slot_locked(slot)
-                self._fail_locked(state.rid, kind, msg)
+                self._fail_locked(state.rid, kind, msg, state=state)
             # A parked request keeps its deadline and can be cancelled:
             # a swap-out is invisible to the failure taxonomy.
             for rid in list(self._parked):
@@ -2276,10 +3019,13 @@ class Engine:
                     kind = "deadline"
                     msg = (f"expired after {len(state.emitted)} tokens "
                            f"(parked in the host tier)")
+                    if not self._warming:
+                        _metrics.SERVE_DEADLINE_EXPIRED.inc()
                 else:
                     continue
                 self._drop_parked_locked(rid)
-                self._fail_locked(rid, kind, msg)
+                self._fail_locked(rid, kind, msg, state=state)
+        self._drain_fail_obs()
 
     @torch.no_grad()
     def _step_inner(self, acc: list) -> None:
@@ -2290,7 +3036,8 @@ class Engine:
         back and emits.  Admissions join at pipeline boundaries: a step
         with queued work and a free slot first completes the chunk in
         flight (it still references every slot), then admits; queued
-        work with no free slot forces no boundary.  Tail elision: when
+        work with no free slot forces no boundary, unless the fair-share
+        head could preempt a lower-tier slot.  Tail elision: when
         the chunk in flight already covers every slot's remaining
         budget, a chained dispatch would be pure waste, so the step
         takes a boundary instead.  Depth 1 is the serial loop (every
@@ -2311,8 +3058,12 @@ class Engine:
             # A prompt mid-way through chunked prefill forces a boundary
             # too: its next segment dispatches only from an admission
             # wave, which never runs with a chunk in flight.
-            admit_boundary = (bool(self._queue) and bool(self._free)
-                              or bool(self._prefilling))
+            # A pending priority preemption is an admission opportunity
+            # too: the wave parks a lower-tier slot to make the free one.
+            admit_boundary = (
+                bool(self._queue) and (bool(self._free)
+                                       or self._qos_preempt_pending_locked())
+                or bool(self._prefilling))
             boundary = admit_boundary or self.pipeline_depth < 2 or elide_tail
             if elide_tail and not admit_boundary and not self._warming:
                 self.tail_elisions += 1
@@ -2386,27 +3137,28 @@ class Engine:
         else:
             self.prefix_misses += 1
 
-    def _try_prefix_inject(self, slot: int, req: GenRequest) -> int:
+    def _try_prefix_inject(self, slot: int, req: GenRequest) -> tuple:
         """Dense: copy the longest usable entry's rows into the head of
-        ``slot``'s region; returns where the tail prefill starts (0: no
-        hit).  Exact, for MoE too: a KV row depends only on the tokens
+        ``slot``'s region; returns (where the tail prefill starts, the
+        rows' source): (0, "recomputed") with no hit, else the entry's
+        origin.  Exact, for MoE too: a KV row depends only on the tokens
         before it, and ``_moe_exact`` routes each token alone."""
         if not self.prefix_cache_size:
-            return 0
+            return 0, "recomputed"
         with self._lock:
             key, usable = self._best_prefix_locked(req)
             self._count_prefix_locked(usable)
             if key is None:
-                return 0
+                return 0, "recomputed"
             self._prefix_cache.move_to_end(key)  # LRU touch
-            self._touch_prefix_meta_locked(key)
+            source = self._touch_prefix_meta_locked(key)
             entry, _ = self._prefix_cache[key]
         cache = self._cache
         for dst, src in zip((cache.k, cache.v, cache.k_scale, cache.v_scale),
                             entry):
             if src is not None:
                 dst[:, slot, : src.shape[1]].copy_(src)
-        return usable
+        return usable, source
 
     def _store_prefix(self, slot: int, req: GenRequest) -> None:
         """Cache ``slot``'s freshly prefilled prompt KV under
@@ -2490,9 +3242,11 @@ class Engine:
                                 tenant: str = "") -> None:
         """Create or refresh one entry's residency record (lock held).
         The digest hashes the covered tokens only: for a paged entry the
-        block-aligned prefix, which is what an export ships.  An entry
-        whose owner is unknown (fetched or promoted) ranks at the default
+        block-aligned prefix, which is what an export ships.  The owner's
+        tier decides the entry's demotion rank; an entry whose owner is
+        unknown (fetched or promoted) ranks at the policy's default
         tier."""
+        policy = self._qos_policy or _QOS_DEFAULT
         self._prefix_meta[key] = {
             "digest": prefix_digest(key[:covered]),
             "covered": covered,
@@ -2500,8 +3254,8 @@ class Engine:
             "last_hit": time.monotonic(),
             "origin": origin,
             "tenant": tenant,
-            "tier": (_QOS_DEFAULT.lookup(tenant).tier if tenant
-                     else _QOS_DEFAULT.default_tier),
+            "tier": (policy.lookup(tenant).tier if tenant
+                     else policy.default_tier),
         }
 
     def _touch_prefix_meta_locked(self, key: tuple) -> str:
@@ -2551,8 +3305,15 @@ class Engine:
         flushing them would trade future hits for no admission.  Each
         victim is demoted to the host tier where it can be
         (``_retire_prefix_entry_locked``).  Shared by the prefix,
-        import and restore planners and the prefix ingest."""
+        import and restore planners and the prefix ingest.  Under a QoS
+        policy the order is tier, then LRU: best-effort entries go first,
+        premium last — a soft pin, since with only premium entries left
+        they retire too (an unadmittable queue serves no tier)."""
         victims = [key for key in self._prefix_cache if key != keep_key]
+        if self._qos_policy is not None and len(victims) > 1:
+            victims.sort(key=lambda key: _QOS_TIER_PRIORITY.get(
+                (self._prefix_meta.get(key) or {}).get("tier", "standard"),
+                0))  # stable: LRU order kept within a tier
         reclaimable = self._alloc.free_blocks + sum(
             self._alloc.exclusive(self._prefix_cache[key][0])
             for key in victims
@@ -2607,17 +3368,19 @@ class Engine:
                 self.kv_admit_deferrals += 1
             return None
         self._alloc.incref(aliased)
+        source = "recomputed"
         if key is not None:
             self._prefix_cache.move_to_end(key)  # LRU touch
             if usable:
-                self._touch_prefix_meta_locked(key)
+                source = self._touch_prefix_meta_locked(key)
         self._count_prefix_locked(usable)
         if usable and not self._warming:
             self.prefix_bytes_saved += len(aliased) * bs * self._kv_row_bytes
         # Table order is the position map: the copy of the partly
         # covered entry block goes right after the aliased run.
         return {"start": usable, "blocks": aliased + fresh,
-                "cow": None if cow_src is None else (cow_src, fresh[0])}
+                "cow": None if cow_src is None else (cow_src, fresh[0]),
+                "source": source}
 
     # -- block I/O: the host tier, KV shipping, migration ---------------------
 
@@ -2869,12 +3632,14 @@ class Engine:
                 t_created=time.monotonic(),
             ), plan["key"]))
 
-    def _pick_park_victim_locked(self):
+    def _pick_park_victim_locked(self, below_priority: int | None = None):
         """The park victim (lock held, admission boundary: no chunk in
         flight): the lowest preemption priority of its tenant's tier
-        under the default policy, then the largest remaining budget, ties
-        to the youngest stream — the slot that would pin its blocks
-        longest.  A slot that has not emitted since its own restore is
+        (with no policy loaded, the default policy's), then the largest
+        remaining budget, ties to the youngest stream — the slot that
+        would pin its blocks longest.  ``below_priority`` (the
+        slot-shortage preemption) admits only victims of strictly lower
+        priority.  A slot that has not emitted since its own restore is
         immune.  Returns (slot, rid, state) or None."""
         best, best_key = None, None
         for slot, state in self._slots.items():
@@ -2883,23 +3648,27 @@ class Engine:
             rem = state.req.max_new_tokens - len(state.emitted)
             if rem < 1:
                 continue  # finishing anyway
-            prio = _QOS_DEFAULT.lookup(state.req.tenant or "anon").priority
+            prio = self._qos_lookup(state.req.tenant or "anon").priority
+            if below_priority is not None and prio >= below_priority:
+                continue
             key = (-prio, rem, state.t_submit)
             if best_key is None or key > best_key:
                 best, best_key = (slot, state.rid, state), key
         return best
 
-    def _try_park_locked(self) -> bool:
-        """Park the coldest slot to make room for the head request's
-        admission (lock held, step thread): copy its live blocks to the
-        host tier, free its device blocks and its slot, and keep what a
-        restore needs.  True when a victim was parked (the caller
-        re-plans).  The victim's stream pauses: its waiter stays, its
-        deadline runs, and restore is exact (block bytes are copies,
-        every other per-slot input is rebuilt from host truth)."""
+    def _try_park_locked(self, req: GenRequest,
+                         below_priority: int | None = None) -> bool:
+        """Park the coldest slot to make room for ``req``'s admission
+        (lock held, step thread): copy its live blocks to the host tier,
+        free its device blocks and its slot, and keep what a restore
+        needs.  True when a victim was parked (the caller re-plans).  The
+        victim's stream pauses: its waiter stays, its deadline runs, and
+        restore is exact (block bytes are copies, every other per-slot
+        input is rebuilt from host truth).  Under a policy every park is
+        a QoS decision, counted on both tenants' rows."""
         if not self.kv_park:
             return False
-        pick = self._pick_park_victim_locked()
+        pick = self._pick_park_victim_locked(below_priority)
         if pick is None:
             return False
         slot, rid, state = pick
@@ -2932,6 +3701,27 @@ class Engine:
             self.kv_parks += 1
             self.kv_demotions += n_cov
             self.kv_demote_bytes += n_cov * self._block_bytes
+            if self._qos_policy is not None:
+                preemptor = req.tenant or "anon"
+                victim = state.req.tenant or "anon"
+                prow = self._tenant_row_locked(preemptor)
+                vrow = self._tenant_row_locked(victim)
+                prow["preempted"] += 1
+                vrow["parked_victim"] += 1
+                self.qos_preemptions += 1
+                _metrics.SERVE_QOS.inc(prow["tier"], "preempted")
+                _metrics.SERVE_QOS.inc(vrow["tier"], "parked_victim")
+                _events.emit(
+                    "qos.preempt",
+                    component="oim-serve",
+                    severity=_events.WARNING,
+                    subject=victim,
+                    preemptor=preemptor,
+                    preemptor_tier=prow["tier"],
+                    victim_tier=vrow["tier"],
+                    victim_rid=rid,
+                    blocks=n_cov,
+                )
         return True
 
     def _drop_parked_locked(self, rid: int) -> "_ParkedSlot | None":
@@ -3418,9 +4208,9 @@ class Engine:
         """The manifest's ``"slot"`` branch (lock held): the global
         sampling offset (this backend's emitted count on top of the
         request's own base), the deadline remainder in ms, tenant and
-        tier, and trace context (none: the port records no spans yet).
-        Prompt lookup's history needs no field: admission rebuilds it
-        from the token record."""
+        tier, and the caller's trace context as a ``traceparent`` (None
+        without one).  Prompt lookup's history needs no field: admission
+        rebuilds it from the token record."""
         req = state.req
         tenant = req.tenant or "anon"
         return {
@@ -3428,8 +4218,8 @@ class Engine:
             "deadline_ms": (int(max(0.0, req.deadline - now) * 1000)
                             if req.deadline is not None else None),
             "tenant": tenant,
-            "tier": _QOS_DEFAULT.lookup(tenant).tier,
-            "trace": None,
+            "tier": self._qos_lookup(tenant).tier,
+            "trace": req.span.traceparent() if req.span else None,
         }
 
     def _capture_slot_locked(self, slot: int, state: _SlotState,
@@ -3473,19 +4263,25 @@ class Engine:
                     self._queue or self._slots or self._parked
                     or self._prefilling):
                 return
-            for rid, _, _ in self._queue:
+            for rid, req, t_sub in self._queue:
                 self._fail_locked(rid, "migrated",
-                                  "backend draining before admission")
+                                  "backend draining before admission",
+                                  req=req, t_submit=t_sub)
             self._queue.clear()
             for rid in list(self._prefilling):
                 pend = self._prefilling.pop(rid)
                 self._admitting.pop(rid, None)
                 self._release_slot_locked(pend.slot)
-                self._fail_locked(rid, "migrated",
-                                  "backend draining mid-prefill (recompute "
-                                  "on a sibling)")
+                self._fail_locked(
+                    rid, "migrated",
+                    f"backend draining mid-prefill "
+                    f"({pend.trace.prefill_segments} segments written; "
+                    f"recompute on a sibling)",
+                    req=pend.req, t_submit=pend.t_submit)
+            # Premium first: a router sees premium markers first and
+            # ships them first.
             order = sorted(self._slots.items(), key=lambda kv: (
-                -_QOS_DEFAULT.lookup(kv[1].req.tenant or "anon").priority,
+                -self._qos_lookup(kv[1].req.tenant or "anon").priority,
                 kv[1].t_submit))
             for slot, state in order:
                 captured = self._capture_slot_locked(slot, state, now)
@@ -3495,7 +4291,8 @@ class Engine:
                     state.rid, "migrated",
                     f"suspended after {len(state.emitted)} tokens "
                     + ("(KV captured for export_slot)" if captured else
-                       "(no capture: recompute on a sibling)"))
+                       "(no capture: recompute on a sibling)"),
+                    state=state)
             for rid in [r for r, p in self._parked.items()
                         if p.ready and not p.restoring]:
                 parked = self._parked.pop(rid)
@@ -3518,7 +4315,8 @@ class Engine:
                     self._host.alloc.decref(parked.host_blocks)
                     msg = (f"suspended while parked ({len(state.emitted)} "
                            f"tokens; packed int4 payload not shippable)")
-                self._fail_locked(rid, "migrated", msg)
+                self._fail_locked(rid, "migrated", msg, state=state)
+        self._drain_fail_obs()
 
     def _sweep_migrated_locked(self, now: float) -> None:
         for rid in [r for r, rec in self._migrated.items()
@@ -3783,21 +4581,31 @@ class Engine:
                     kind, msg = "cancelled", "client went away mid-prefill"
                 elif (pend.req.deadline is not None
                       and now >= pend.req.deadline):
-                    kind, msg = "deadline", "expired mid-prefill"
+                    kind = "deadline"
+                    msg = (f"expired mid-prefill "
+                           f"({pend.trace.prefill_segments} segments "
+                           f"written)")
+                    if not self._warming:
+                        _metrics.SERVE_DEADLINE_EXPIRED.inc()
                 else:
                     continue
                 del self._prefilling[rid]
                 del self._admitting[rid]
                 self._release_slot_locked(pend.slot)
-                self._fail_locked(rid, kind, msg)
+                self._fail_locked(rid, kind, msg, req=pend.req,
+                                  t_submit=pend.t_submit)
             advancing = list(self._prefilling.values())
+        self._drain_fail_obs()
         joining = []
         for pend in advancing:
             if not pend.segs:
                 joining.append(pend)
                 continue
             seg = pend.segs.pop(0)
+            t0 = time.monotonic()
             self._prefill_segment(pend.slot, seg, pend.start)
+            pend.trace.segment_walls.append(time.monotonic() - t0)
+            pend.trace.prefill_segments += 1
             pend.start += len(seg)
         with self._lock:
             for pend in joining:
@@ -3807,14 +4615,16 @@ class Engine:
     def _admit_wave(self) -> None:
         """Admit whatever fits into free slots — only with no chunk in
         flight (the pipeline-boundary rule).  Pending chunked prefills
-        advance one segment first.  Paged, each request's plan reserves
-        its worst case from the pool, aliasing a cached prefix
-        (head-of-line: a shortage leaves it queued); dense, a cached
-        prefix is copied in.  A tail longer than ``prefill_chunk``
-        dispatches its first segment and waits; the rest, and the
-        pendings whose last segment is written, prefill one dispatch per
-        tail bucket, prefixes marked ``cache_prefix`` are stored, and
-        every first token is read back at once."""
+        advance one segment first.  With every slot busy, a QoS head may
+        first park one strictly-lower-priority slot.  The queue's head
+        (FIFO, or the fair-share pick under a policy) admits next.
+        Paged, each request's plan reserves its worst case from the pool,
+        aliasing a cached prefix (head-of-line: a shortage leaves it
+        queued); dense, a cached prefix is copied in.  A tail longer than
+        ``prefill_chunk`` dispatches its first segment and waits; the
+        rest, and the pendings whose last segment is written, prefill one
+        dispatch per tail bucket, prefixes marked ``cache_prefix`` are
+        stored, and every first token is read back at once."""
         if self._inflight is not None:
             return
         t0 = time.monotonic()
@@ -3829,8 +4639,12 @@ class Engine:
         joins = self._advance_prefills() if advanced else []
         with self._lock:
             admissions = []
+            if self._qos_policy is not None and self._queue and not self._free:
+                # Slot-shortage preemption: one victim a wave.
+                self._qos_preempt_locked()
             while self._queue and self._free:
-                rid, req, t_submit = self._queue[0]
+                qi = self._qos_head_locked()
+                rid, req, t_submit = self._queue[qi]
                 plan = None
                 if self.paged:
                     imp = (self._kv_imports.get(req.kv_import)
@@ -3844,7 +4658,7 @@ class Engine:
                         plan = self._plan_paged_admission_locked(
                             req, idle=not (self._slots or self._admitting
                                            or admissions))
-                        if plan is None and self._try_park_locked():
+                        if plan is None and self._try_park_locked(req):
                             # The coldest slot went to the host tier,
                             # freeing its blocks and its slot: re-plan
                             # once (one victim a wave keeps it gradual).
@@ -3852,7 +4666,8 @@ class Engine:
                                 req, idle=False)
                     if plan is None:
                         break
-                self._queue.popleft()
+                del self._queue[qi]
+                self._qos_charge_locked(req)
                 slot = self._free.pop(0)
                 if plan is not None:
                     self._tables_host[slot, : len(plan["blocks"])] = (
@@ -3863,14 +4678,22 @@ class Engine:
             if advanced and not self._warming:
                 self.prefill_seconds += time.monotonic() - t0
             return
-        # (slot, rid, req, t_submit, start, tail) of each final dispatch.
-        rows = [(p.slot, p.rid, p.req, p.t_submit, p.start, p.tail)
-                for p in joins]
+        # One boundary instant for the wave: every admission left the
+        # queue at the pop above, and its prefill work starts here.
+        t_admitted = t_pf = time.monotonic()
+        # (slot, rid, req, t_submit, start, tail, trace) of each final
+        # dispatch; a joining pending keeps its first wave's trace.
+        rows = []
+        for p in joins:
+            p.trace.prefill_segments += 1
+            rows.append((p.slot, p.rid, p.req, p.t_submit, p.start, p.tail,
+                         p.trace))
         for slot, rid, req, t_submit, plan in admissions:
             if plan is None:
-                start = self._try_prefix_inject(slot, req)
+                start, source = self._try_prefix_inject(slot, req)
             else:
-                start = plan["start"]
+                start, source = plan["start"], plan.get("source",
+                                                        "recomputed")
                 ingest = plan.pop("ingest", None)
                 if ingest is not None:
                     # A continuation's imported blocks land before its
@@ -3885,17 +4708,23 @@ class Engine:
                                  cache.v_scale):
                         if pool is not None:
                             copy_block(pool, src, dst)
+            trace = _PhaseTrace(t_submit=t_submit, t_admitted=t_admitted,
+                                t_prefill=t_pf, prefix_source=source,
+                                prefill_segments=1)
             segs, tail = self._split_segments(req.tokens[start:], start)
             if segs:
                 seg = segs.pop(0)
+                t_seg = time.monotonic()
                 self._prefill_segment(slot, seg, start)
+                trace.segment_walls.append(time.monotonic() - t_seg)
                 with self._lock:
                     self._prefilling[rid] = _PendingPrefill(
                         rid=rid, req=req, slot=slot, segs=segs, tail=tail,
                         start=start + len(seg), t_submit=t_submit,
+                        trace=trace,
                     )
                 continue
-            rows.append((slot, rid, req, t_submit, start, tail))
+            rows.append((slot, rid, req, t_submit, start, tail, trace))
         if not self._warming:
             self.prefill_segments += len(rows)
         groups = []  # (rows, tokens, logprobs) per dispatch
@@ -3910,42 +4739,52 @@ class Engine:
         if self.spec_decode:
             self._seat_drafting(rows)
         if self.prefix_cache_size:
-            for slot, _, req, _, _, _ in rows:
+            for slot, _, req, *_ in rows:
                 if req.cache_prefix:
                     self._store_prefix(slot, req)
         fetched = None
         if groups:  # one readback for every first token of the wave
+            self._watch_begin()
             fetched = torch.cat(
                 [torch.stack([t.double(), lp.double()])
                  for _, t, lp in groups], dim=1,
             ).cpu().numpy()
+            self._watch_end()
+        # The combined readback is every admission's first token.
+        t_first = time.monotonic()
         if not self._warming:
-            self.prefill_seconds += time.monotonic() - t0
+            self.prefill_seconds += t_first - t0
             self.prefill_dispatches += len(groups)
+        finished = []
         with self._lock:
             col = 0
             for group, _, _ in groups:
-                for slot, rid, req, t_submit, _, _ in group:
+                for slot, rid, req, t_submit, _, _, trace in group:
                     token = int(fetched[0, col])
                     lp = float(fetched[1, col])
                     col += 1
                     if self._admitting.pop(rid, None) is None:
                         continue  # abort() already failed it
+                    trace.t_first = t_first
                     state = _SlotState(
                         rid=rid, req=req, t_submit=t_submit,
-                        length=len(req.tokens),
+                        length=len(req.tokens), phases=trace,
                     )
                     if rid in self._cancelled:
                         self._release_slot_locked(slot)
                         self._fail_locked(
                             rid, "cancelled",
                             "client went away during admission",
+                            state=state,
                         )
                         continue
                     if self._emit(state, token, lp):
                         self._finish_locked(slot, state)
+                        finished.append(state)
                     else:
                         self._slots[slot] = state
+        self._finalize_done(finished)
+        self._drain_fail_obs()
 
     # -- decode chunks --------------------------------------------------------
 
@@ -4182,6 +5021,7 @@ class Engine:
             inputs, tokens, starts, indices, graph=self.cuda_graphs
         )
         self._mark_dispatch(t0, acc)
+        self._step_count += 1
         if not self._warming:
             self.decode_passes += self.chunk
             self.decode_dispatches += 1
@@ -4190,7 +5030,8 @@ class Engine:
                 self.draft_passes += self.chunk * (self.spec_decode + 1)
         return _InFlightChunk(
             snapshot=slots, inputs=inputs, starts=starts, indices=indices,
-            results=results, done=done, t_dispatch=t0,
+            results=results, done=done, t_dispatch=t0, seq=self._step_count,
+            dispatch_wall=time.monotonic() - t0,
         )
 
     def _mark_dispatch(self, t0: float, acc: list) -> None:
@@ -4214,7 +5055,9 @@ class Engine:
         overlapped = self._inflight is not None
         t0 = time.monotonic()
         if handle.done is not None:
+            self._watch_begin()
             handle.done.synchronize()
+            self._watch_end()
         out, lps, *rest = (t.numpy() for t in handle.results)
         spec = self.spec_decode
         if spec:
@@ -4228,8 +5071,11 @@ class Engine:
             acc[2] += t1 - t0
         else:
             self._t_device_free = t1
-        emitted = 0
+        # Tokens taken, and tokens the chunk made for live rows (the
+        # token rate's numerator, the reference's: truncation aside).
+        emitted = produced = 0
         edge = self.max_len - 1 - spec  # the device's clamp
+        finished = []
         with self._lock:
             for slot, state in handle.snapshot.items():
                 if self._slots.get(slot) is not state:
@@ -4239,29 +5085,59 @@ class Engine:
                 count = bool(spec) and state.req.temperature <= 0.0 and (
                     not self._warming)
                 done = False
+                taken = 0
                 for i in range(self.chunk):
                     nem = int(n_emit[slot, i])
                     if count:
                         self.spec_drafted += spec
                     for j in range(nem):
-                        emitted += 1
+                        taken += 1
                         if count and j < nem - 1:
                             self.spec_accepted += 1
                         if self._emit(state, int(out[slot, i, j]),
                                       float(lps[slot, i, j])):
-                            self._finish_locked(slot, state)
                             done = True
                             break
                     if done:
                         break
+                emitted += taken
+                produced += int(n_emit[slot].sum())
+                if state.phases is not None:
+                    # One decode record a chunk the request took tokens
+                    # from, clipped to its previous chunk's completion.
+                    prev = (state.phases.chunks[-1][2] if state.phases.chunks
+                            else state.phases.t_first)
+                    state.phases.chunks.append((
+                        handle.seq, max(handle.t_dispatch,
+                                        prev or handle.t_dispatch),
+                        t1, taken, handle.dispatch_wall, t1 - t0,
+                    ))
+                if done:
+                    self._finish_locked(slot, state)
+                    finished.append(state)
+            start = handle.t_dispatch
+            if self._t_last_chunk_done is not None:
+                start = max(start, self._t_last_chunk_done)
             if not self._warming:
                 self.readbacks += 1
-                start = handle.t_dispatch
-                if self._t_last_chunk_done is not None:
-                    start = max(start, self._t_last_chunk_done)
                 self.decode_seconds += t1 - start
                 self.decode_tokens += emitted
+                if produced:
+                    # The watchdog's baseline and Retry-After's token
+                    # rate.  A chunk no live request took (its slots
+                    # reaped or aborted) would fold a stall's own wall
+                    # into the baseline, so it does not count.
+                    wall = t1 - handle.t_dispatch
+                    self._chunk_wall_ewma = (
+                        wall if self._chunk_wall_ewma is None
+                        else 0.7 * self._chunk_wall_ewma + 0.3 * wall)
+                    if t1 > start:
+                        rate = produced / (t1 - start)
+                        self._token_rate_ewma = (
+                            rate if self._token_rate_ewma is None
+                            else 0.7 * self._token_rate_ewma + 0.3 * rate)
         self._t_last_chunk_done = t1
+        self._finalize_done(finished)
 
     @torch.no_grad()
     def chunk_twice(self) -> list[dict]:

@@ -19,7 +19,12 @@ answer from ``Engine.embed`` and ``Engine.beam``, with token prompts.
 A request's ``cache_prefix`` stores its prompt's KV when the engine has
 a prefix cache.  A deadline comes as the body's ``deadline_ms`` or, when
 the body has none, the ``x-oim-deadline-ms`` header (how a router sends
-a routed budget), as in the reference.  Streaming, text prompts, the
+a routed budget), as in the reference.  The tenant is the
+``x-oim-tenant`` header (this listener is plain HTTP, the trusted
+perimeter behind a router), and a ``traceparent`` header parents the
+``serve.generate`` span, under which the engine records the request's
+phase spans.  Every 429 and 503 carries ``Retry-After``: the engine's
+estimate of when its backlog drains.  Streaming, text prompts, the
 OpenAI surface, KV shipping over HTTP (``/v1/kv``: held KV and prefix
 export or install; ``/v1/slot``, ``/v1/drain``), profiling and the stall
 watchdog come with later slices (ROADMAP Queue A: the rest of
@@ -36,6 +41,7 @@ import time
 import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from oim_tpu_torch.common import tracing
 from oim_tpu_torch.serve.engine import (
     DeadlineExpiredError,
     DrainingError,
@@ -75,9 +81,18 @@ def _deadline(body: dict, headers) -> float | None:
     return time.monotonic() + ms / 1000.0
 
 
-def _parse_generate(body: dict, headers) -> GenRequest:
+def _tenant(headers) -> str:
+    """The requesting tenant: the ``x-oim-tenant`` header, as the
+    reference reads it on a plain-HTTP listener (a router in front
+    resolves the real identity and forwards it); "" (anon) without
+    one."""
+    return (headers.get("x-oim-tenant") or "").strip()[:128]
+
+
+def _parse_generate(body: dict, headers, span=None) -> GenRequest:
     """A ``/v1/generate`` JSON body and its request headers → GenRequest
-    (KeyError, TypeError or ValueError on a malformed request)."""
+    (KeyError, TypeError or ValueError on a malformed request); ``span``
+    is the server span the engine's phase spans go under."""
     if body.get("stream"):
         raise ValueError("streaming is not ported yet; send stream=false")
     return GenRequest(
@@ -104,6 +119,9 @@ def _parse_generate(body: dict, headers) -> GenRequest:
         ),
         deadline=_deadline(body, headers),
         sample_base=int(body.get("sample_base", 0)),
+        tenant=_tenant(headers),
+        span=(tracing.SpanContext(span.trace_id, span.span_id)
+              if span is not None else None),
     )
 
 
@@ -131,6 +149,10 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        if code in (429, 503):
+            # Every shed and every unavailable answer says when to retry.
+            engine = self.server.owner.engine
+            self.send_header("Retry-After", str(engine.retry_after_s()))
         self.end_headers()
         self.wfile.write(body)
 
@@ -164,28 +186,42 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path != "/v1/generate":
             self._slot_free(outer.engine)
             return
+        # Join the caller's W3C trace: the engine's phase spans go under
+        # this server span.
+        parent = tracing.parse_traceparent(
+            self.headers.get(tracing.TRACEPARENT_KEY, ""))
+        with tracing.start_span("serve.generate", component="oim-serve",
+                                parent=parent) as span:
+            self._generate(outer.engine, span)
+
+    def _generate(self, engine: Engine, span) -> None:
         try:
             length = int(self.headers.get("Content-Length", "0"))
             body = json.loads(self.rfile.read(length) or b"{}")
-            req = _parse_generate(body, self.headers)
-            rid = outer.engine.submit(req)
+            req = _parse_generate(body, self.headers, span)
+            rid = engine.submit(req)
         except (QueueFullError, DeadlineExpiredError) as exc:
+            span.status = "error: shed"
             self._json(429, {"error": str(exc)})
             return
         except (DrainingError, EngineFailedError) as exc:
+            span.status = "error: unavailable"
             self._json(503, {"error": str(exc)})
             return
         except (KeyError, TypeError, ValueError) as exc:
+            span.status = "error: bad request"
             self._json(400, {"error": str(exc)})
             return
         try:
-            tokens, lps = outer.engine.result_full(rid, timeout=600)
+            tokens, lps = engine.result_full(rid, timeout=600)
         except TimeoutError:
-            outer.engine.cancel(rid, "server-side wait timed out")
-            outer.engine.forget(rid)
+            engine.cancel(rid, "server-side wait timed out")
+            engine.forget(rid)
+            span.status = "error: timeout"
             self._json(503, {"error": f"request {rid} timed out"})
             return
         except RequestFailedError as exc:
+            span.status = f"error: {exc.kind}"
             self._json(_FAILED_STATUS.get(exc.kind, 500),
                        {"error": str(exc)})
             return

@@ -24,6 +24,7 @@ from oim_tpu_torch.models import train as ttrain
 from oim_tpu_torch.models.transformer import TransformerConfig, init_params
 from oim_tpu_torch.models.weights import recast
 from oim_tpu_torch.serve.engine import GenRequest
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 GEOMETRY = ["--vocab-size", "101", "--d-model", "32", "--n-layers", "2",
             "--n-heads", "4", "--n-kv-heads", "2", "--d-ff", "48",

@@ -31,6 +31,7 @@ from oim_tpu_torch.models.transformer import TransformerConfig
 from oim_tpu_torch.models.weights import from_jax_params
 from oim_tpu_torch.serve.engine import Engine
 from oim_tpu_torch.serve.server import ServeServer
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(vocab_size=61, d_model=32, n_layers=1, n_heads=2, n_kv_heads=1,
            d_ff=48, dtype="float32")

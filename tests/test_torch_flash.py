@@ -28,6 +28,7 @@ from oim_tpu.ops.rmsnorm import rmsnorm as j_rmsnorm
 
 from oim_tpu_torch.ops import flash_attention as tfa
 from oim_tpu_torch.ops import rmsnorm as trms
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 # The package re-exports the function under the module's name.
 jfa = importlib.import_module("oim_tpu.ops.flash_attention")

@@ -28,6 +28,7 @@ import torch
 from oim_tpu.ops import fused_ce as jfc
 
 from oim_tpu_torch.ops import fused_ce as fc
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 NLL_ATOL = 1e-5
 DX_REL = {"bf16": 2.0**-7, "f32": 1e-5}

@@ -40,6 +40,7 @@ from oim_tpu_torch.cli import serve_main
 from oim_tpu_torch.models.transformer import TransformerConfig, init_params
 from oim_tpu_torch.models.weights import from_jax_params
 from oim_tpu_torch.serve.engine import Engine, GenRequest, RequestFailedError
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(
     vocab_size=101, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,

@@ -3,6 +3,7 @@
 - No module of ``oim_tpu_torch`` and not ``chip_smoke.py`` imports JAX
   (``jax``, ``jaxlib``, ``flax``, ``optax``) or anything of the JAX
   package ``oim_tpu``: the port keeps its own copy of what it needs.
+  Nor ``grpc``, which the card's machine does not have.
 - Every port module carries a docstring, imports nothing it does not
   use, and prints only from ``cli/`` (the gates ``tests/test_quality.py``
   holds ``oim_tpu`` to).
@@ -22,6 +23,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "oim_tpu_torch"
@@ -51,6 +53,14 @@ def _imported_roots(tree):
 @pytest.mark.parametrize("path", SCRIPTS, ids=SCRIPT_IDS)
 def test_no_jax_imports(path):
     bad = sorted(set(_imported_roots(_tree(path))) & FORBIDDEN)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=SCRIPT_IDS)
+def test_no_grpc_imports(path):
+    """The card's machine has no ``grpc``: the port's observability
+    copies (``common/``) and everything else must not need it."""
+    bad = sorted(set(_imported_roots(_tree(path))) & {"grpc"})
     assert not bad, f"{path.name} imports {bad}"
 
 

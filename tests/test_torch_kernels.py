@@ -676,6 +676,7 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take():
 # few dlogits whose last f32 bit rounds the other way.
 
 from oim_tpu_torch.ops import fused_ce as fc  # noqa: E402
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 CE_TOL = {"lse": 1e-5, "target": 1e-5, "dw": 1e-4,
           "dx": {torch.float32: 1e-4, torch.bfloat16: 2.0**-7 + 1e-4}}

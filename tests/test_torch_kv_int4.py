@@ -13,11 +13,15 @@ seeded numpy generator and go through both packages:
 - the engine with ``kv_int4`` on the paged pool, at depth 1 and 2 and
   with the prefix cache and chunked prefill: greedy tokens identical to
   the JAX engine's, and the unpacked pool equal to its ``jnp.int4``
-  pool after the same traffic at the same pipeline depth (a chunk
-  dispatched ahead writes rows past a finished request's budget, which
-  the blocks keep for their next owner).  The engines' K/V projections
-  differ in f32 summation order, so the scales agree to 1e-5 relative
-  (a few ulps) and the quantized values exactly.
+  pool after the same traffic, wherever both engines determine it:
+  each block's rows below the frontier of the last request whose block
+  table held it (its prompt and the tokens it emitted but the last),
+  found by reading both engines' tables after every step.  Past a
+  frontier, a chunk dispatched ahead writes rows past a finished
+  request's budget, and the JAX engine writes those differently from
+  run to run.  The engines' K/V projections differ in f32 summation
+  order, so the scales agree to 1e-5 relative (a few ulps) and the
+  quantized values exactly.
 """
 
 import jax
@@ -40,6 +44,7 @@ from oim_tpu_torch.ops import paged as tpaged
 from oim_tpu_torch.ops import paged_attention as tpa
 from oim_tpu_torch.ops import quant as tquant
 from oim_tpu_torch.serve.engine import Engine, GenRequest
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 ATTN_ATOL = 1e-5
 N_BLOCKS, BS, KVH, HD, N_TABLES, H = 12, 8, 2, 16, 4, 4
@@ -217,11 +222,29 @@ TRAFFIC = [(SHARED + _prompt(1, 3), 7), (_prompt(2, 20), 6),
 
 
 def _serve(engine, request_cls, **kw):
+    """Serve TRAFFIC; returns (each request's tokens, the pool rows the
+    run determines: a bool mask [n_blocks, block_size])."""
     rids = [engine.submit(request_cls(tokens=p, max_new_tokens=m,
                                       cache_prefix=True, **kw))
             for p, m in TRAFFIC]
-    engine.run()
-    return [engine.result(rid) for rid in rids]
+    owner = {}  # block → (rid, its index in the rid's table)
+    while engine.pending():  # what run() does, reading tables between
+        engine.step()
+        with engine._lock:
+            seated = [(s.rid, slot) for slot, s in engine._slots.items()]
+            seated += [(p.rid, p.slot) for p in engine._prefilling.values()]
+            for rid, slot in seated:
+                for i, block in enumerate(engine._tables_host[slot]):
+                    if block < engine.kv_blocks:
+                        owner[int(block)] = (rid, i)
+    tokens = [engine.result(rid) for rid in rids]
+    frontier = {rid: len(p) + len(out) - 1
+                for rid, (p, _), out in zip(rids, TRAFFIC, tokens)}
+    bs = engine.kv_block
+    mask = np.zeros((engine.kv_blocks, bs), bool)
+    for block, (rid, i) in owner.items():
+        mask[block] = i * bs + np.arange(bs) < frontier[rid]
+    return tokens, mask
 
 
 @pytest.fixture(scope="module")
@@ -235,8 +258,8 @@ def reference(model):
         key = tuple(sorted(kw.items()))
         if key not in cache:
             engine = JaxEngine(jparams, jcfg, **ENGINE, **kw)
-            tokens = _serve(engine, JaxRequest)
-            cache[key] = tokens, engine._cache
+            tokens, mask = _serve(engine, JaxRequest)
+            cache[key] = tokens, mask, engine._cache
         return cache[key]
 
     return run
@@ -248,9 +271,9 @@ def reference(model):
 ], ids=["depth2", "depth1-prefix-chunked"])
 def test_engine_kv_int4_matches_jax(model, reference, extra):
     _, _, tcfg, params = model
-    want, jcache = reference(**extra)
+    want, want_mask, jcache = reference(**extra)
     engine = Engine(params, tcfg, **ENGINE, **extra, device="cpu")
-    got = _serve(engine, GenRequest)
+    got, mask = _serve(engine, GenRequest)
     assert got == want
     info = engine.info()["engine"]
     assert (info["kv_int4"], info["kv_quant"], info["kv_int8"]) == (
@@ -258,12 +281,19 @@ def test_engine_kv_int4_matches_jax(model, reference, extra):
     cache = engine._cache
     assert cache.k.dtype == torch.uint8
     assert cache.k.shape[-1] == tcfg.head_dim // 2
+    # The same blocks hold the same requests' rows in both engines, and
+    # what they determine covers every request's prompt.
+    np.testing.assert_array_equal(mask, want_mask)
+    assert mask.sum() >= sum(len(p) for p, _ in TRAFFIC) - len(SHARED)
+    # The pools [layers, blocks, rows, ...] there, exact.
     for mine, theirs in ((cache.k, jcache.k), (cache.v, jcache.v)):
-        np.testing.assert_array_equal(tquant.unpack_int4(mine).numpy(),
-                                      _values(theirs))
+        np.testing.assert_array_equal(
+            tquant.unpack_int4(mine).numpy()[:, mask],
+            _values(theirs)[:, mask])
     for mine, theirs in ((cache.k_scale, jcache.k_scale),
                          (cache.v_scale, jcache.v_scale)):
-        np.testing.assert_allclose(mine.numpy(), np.asarray(theirs),
+        np.testing.assert_allclose(mine.numpy()[:, mask],
+                                   np.asarray(theirs)[:, mask],
                                    rtol=1e-5, atol=0)
     if "prefix_cache_size" in extra:
         assert engine.stats()["prefix_hits"] >= 1

@@ -48,6 +48,7 @@ from oim_tpu_torch.models.transformer import TransformerConfig
 from oim_tpu_torch.models.weights import from_jax_lora, from_jax_params
 from oim_tpu_torch.ops import fused_ce
 from oim_tpu_torch.serve.engine import GenRequest
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 GEOMETRY = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
                 n_kv_heads=2, d_ff=96, attn_bias=True, dtype="float32",

@@ -51,6 +51,7 @@ from oim_tpu_torch.models.weights import (
     recast,
 )
 from oim_tpu_torch.serve.engine import Engine, GenRequest
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 BASE = dict(vocab_size=101, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
             d_ff=96, dtype="float32")

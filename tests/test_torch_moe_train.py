@@ -47,6 +47,7 @@ from oim_tpu_torch.models import transformer as ttransformer
 from oim_tpu_torch.models.transformer import TransformerConfig
 from oim_tpu_torch.models.weights import from_jax_params, recast
 from oim_tpu_torch.serve.engine import GenRequest
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 BASE = dict(vocab_size=101, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
             d_ff=96, dtype="float32", n_experts=4, moe_top_k=2,

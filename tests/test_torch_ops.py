@@ -30,6 +30,7 @@ from oim_tpu_torch.ops import paged_attention as tpa
 from oim_tpu_torch.ops import quant as tquant
 from oim_tpu_torch.ops import rmsnorm as trms
 from oim_tpu_torch.ops import rope as trope
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 ATTN_ATOL = 1e-5
 

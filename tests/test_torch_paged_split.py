@@ -35,6 +35,7 @@ import torch
 
 from oim_tpu_torch.ops import paged_attention as tpa
 from oim_tpu_torch.ops.quant import dequantize_int8
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 N_BLOCKS, BS, KVH, HD, N_TABLES, H = 16, 4, 2, 16, 6, 6

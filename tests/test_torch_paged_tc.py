@@ -44,6 +44,7 @@ import torch
 from oim_tpu.ops import paged_attention as jpa
 from oim_tpu_torch.ops import paged_attention as tpa
 from oim_tpu_torch.ops.quant import dequantize_int8
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 N_BLOCKS, BS, KVH, HD, H, N_TABLES = 80, 4, 2, 16, 6, 16
 GROUP = H // KVH

@@ -45,6 +45,7 @@ from oim_tpu_torch.serve.engine import (
     GenRequest,
     RequestFailedError,
 )
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(
     vocab_size=101, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,

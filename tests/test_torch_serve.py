@@ -40,6 +40,7 @@ from oim_tpu_torch.models.transformer import TransformerConfig
 from oim_tpu_torch.models.transformer import init_params
 from oim_tpu_torch.models.weights import from_jax_params, n_params
 from oim_tpu_torch.ops import paged_attention as tpa
+from oim_tpu_torch.qos.policy import QosPolicy
 from oim_tpu_torch.serve.engine import (
     BlockAllocator,
     DeadlineExpiredError,
@@ -48,6 +49,7 @@ from oim_tpu_torch.serve.engine import (
     RequestFailedError,
 )
 from oim_tpu_torch.serve.server import ServeServer
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(
     vocab_size=101, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -315,19 +317,21 @@ def test_engine_deadlines(model):
 @pytest.mark.parametrize("option,match", [
     # Served since their ports (the cases keep their ids): the host tier
     # beside the prefix cache whose entries it takes, and alone; spec
-    # decode alone and beside chunked prefill.
+    # decode alone and beside chunked prefill; a QoS policy (``info``
+    # reports whether one is loaded).
     (dict(prefix_cache_size=2, kv_host_bytes=1 << 20), "host tier"),
     (dict(spec_decode=2), "spec decode"),
     (dict(prefill_chunk=8, spec_decode=2), "spec decode"),
     (dict(kv_host_bytes=1 << 20), "host tier"),
-    (dict(qos=object()), "QoS"),
+    (dict(qos=QosPolicy()), "QoS"),
 ])
 def test_engine_refuses_unported_options(model, option, match):
     _, _, tcfg, params = model
     if match in _PORTED:
         engine = Engine(params, tcfg, **{**ENGINE, **option})
         info = engine.info()["engine"]
-        assert {k: info[k] for k in option} == option
+        assert {k: info[k] for k in option} == {
+            k: True if k == "qos" else v for k, v in option.items()}
         if match in _PAGED_ONLY:
             # The reference's refusal on the dense cache, message and all.
             with pytest.raises(ValueError, match=_PAGED_ONLY[match]):
@@ -339,7 +343,7 @@ def test_engine_refuses_unported_options(model, option, match):
 
 # Options the cases above once refused, served since, and those of them
 # that need the paged pool (the reference's ValueError on a dense one).
-_PORTED = {"spec decode", "host tier"}
+_PORTED = {"spec decode", "host tier", "QoS"}
 _PAGED_ONLY = {"host tier": "kv_host_bytes needs the paged cache"}
 
 

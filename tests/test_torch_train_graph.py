@@ -44,6 +44,7 @@ from oim_tpu_torch.ops import flash_attention as tfa
 from oim_tpu_torch.ops import fused_ce as tce
 from oim_tpu_torch.ops import paged_attention as tpa
 from oim_tpu_torch.ops import rmsnorm as trn
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 # f32 and the plain formulas on both sides: the loop is what is tested.
 LOOP_GEOMETRY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4,
