@@ -87,6 +87,20 @@ ring with phases that partition its wall, one span tree each, one slow
 capture, and the path gates of the kv io phase, with no device wait
 the engine did not already have.  It runs in the full smoke and with
 ``--serve-phase-only`` too.
+``--http-phase-only`` runs only the HTTP phase (``http_phase``): two
+port servers A and B at the served widths (``--kv-block 16
+--prefix-cache 8``, a host tier; B on A's weights) and an engine C
+restored from A over ``GET /v1/weights``, the smoke playing the
+router's part with the port's own ship clients: streams against their
+plain replies (the first line's latency beside the plain TTFT), a client
+that hangs up, a drain with ``/v1/slot`` shipping (B's continuations
+A's own, the spliced streams their unbroken runs or parting at a near
+tie, a non-stream request 503), ``/v1/kv`` and prefix shipping with the
+404, 409 and 429 faults, the weights' GB/s against a ``--params-dir``
+export, a stall (503 "stalled", ``/healthz`` 503 then 200), and the
+observation routes; with the kv io phase's path gates and no device
+wait beyond the engines', the exports' and the weight copies'.  It runs
+in the full smoke and with ``--serve-phase-only`` too.
 
 It exits non-zero without a result line when no GPU is visible, when the
 port's package is not beside it, or when any phase fails.  Every number
@@ -103,6 +117,7 @@ import os
 import shutil
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -3244,12 +3259,15 @@ SHED_DEADLINE_MS = 1500
 class SyncCensus:
     """Counts the calls that make the host wait on the device while it
     is on — ``torch.cuda.Event.synchronize``, ``torch.cuda.synchronize``
-    and ``Tensor.cpu``/``item``/``tolist`` — and, on ``engine``, the
-    chunks read back (``_process_chunk``) and the admission waves that
-    dispatched (whose first tokens one ``.cpu()`` reads back).  The
-    engine's own waits are one event a chunk read back and one a decode
-    dispatch (its staging buffer's last copy), and one ``.cpu()`` a wave:
-    any other call is a wait the engine added."""
+    and ``Tensor.cpu``/``item``/``tolist`` — and, on ``engines`` (one
+    engine or a list), the chunks read back (``_process_chunk``) and the
+    admission waves that dispatched (whose first tokens one ``.cpu()``
+    reads back).  The engine's own waits are one event a chunk read back
+    and one a decode dispatch (its staging buffer's last copy), and one
+    ``.cpu()`` a wave; the HTTP routes' are one event an export
+    (``_gather_blocks``, which also counts a readback) and one a
+    ``/v1/weights`` bounce-buffer copy (``weight_chunks``, given): any
+    other call is a wait the engine added."""
 
     NAMES = (("Event.synchronize", torch.cuda.Event, "synchronize"),
              ("cuda.synchronize", torch.cuda, "synchronize"),
@@ -3257,8 +3275,10 @@ class SyncCensus:
              ("Tensor.item", torch.Tensor, "item"),
              ("Tensor.tolist", torch.Tensor, "tolist"))
 
-    def __init__(self, engine):
-        self.engine = engine
+    def __init__(self, engines, weight_chunks: int = 0):
+        self.engines = (list(engines) if isinstance(engines, (list, tuple))
+                        else [engines])
+        self.weight_chunks = weight_chunks
         self.calls = dict.fromkeys([n for n, _, _ in self.NAMES], 0)
         self.chunks = self.waves = 0
         self.saved = []
@@ -3268,21 +3288,21 @@ class SyncCensus:
             fn = getattr(owner, attr)
             self.saved.append((owner, attr, fn))
             setattr(owner, attr, self._counting(name, fn))
-        e = self.engine
-        process, admit = e._process_chunk, e._admit_wave
+        for e in self.engines:
+            process, admit = e._process_chunk, e._admit_wave
 
-        def processing(*args, **kw):
-            self.chunks += 1
-            return process(*args, **kw)
+            def processing(*args, _process=process, **kw):
+                self.chunks += 1
+                return _process(*args, **kw)
 
-        def admitting(*args, **kw):
-            n = e.prefill_dispatches
-            out = admit(*args, **kw)
-            self.waves += e.prefill_dispatches > n
-            return out
+            def admitting(*args, _admit=admit, _e=e, **kw):
+                n = _e.prefill_dispatches
+                out = _admit(*args, **kw)
+                self.waves += _e.prefill_dispatches > n
+                return out
 
-        e._process_chunk, e._admit_wave = processing, admitting
-        self.before = e.stats()
+            e._process_chunk, e._admit_wave = processing, admitting
+        self.befores = [e.stats() for e in self.engines]
         return self
 
     def _counting(self, name, fn):
@@ -3294,22 +3314,30 @@ class SyncCensus:
     def __exit__(self, *exc) -> None:
         for owner, attr, fn in self.saved:
             setattr(owner, attr, fn)
-        for name in ("_process_chunk", "_admit_wave"):
-            vars(self.engine).pop(name, None)
+        for e in self.engines:
+            for name in ("_process_chunk", "_admit_wave"):
+                vars(e).pop(name, None)
 
     def check(self, tag: str) -> dict:
-        d = self.engine.stats()["decode_dispatches"] - self.before[
-            "decode_dispatches"]
-        want = {"Event.synchronize": d + self.chunks, "cuda.synchronize": 0,
+        d = exports = reads = 0
+        for e, s0 in zip(self.engines, self.befores):
+            s = e.stats()
+            d += s["decode_dispatches"] - s0["decode_dispatches"]
+            reads += s["readbacks"] - s0["readbacks"]
+            exports += sum(s[k] - s0[k] for k in (
+                "kv_exports", "prefix_exports", "slot_exports"))
+        want = {"Event.synchronize": d + self.chunks + exports
+                + self.weight_chunks, "cuda.synchronize": 0,
                 "Tensor.cpu": self.waves, "Tensor.item": 0,
                 "Tensor.tolist": 0}
-        reads = self.engine.stats()["readbacks"] - self.before["readbacks"]
-        check(self.calls == want and reads == self.chunks,
-              f"qos {tag}: device waits {self.calls} != {want} for {d} "
-              f"dispatches, {self.chunks} chunks read back ({reads} counted) "
-              f"and {self.waves} admission waves")
+        check(self.calls == want and reads == self.chunks + exports,
+              f"{tag}: device waits {self.calls} != {want} for {d} "
+              f"dispatches, {self.chunks} chunks read back ({reads} "
+              f"readbacks counted), {self.waves} admission waves, "
+              f"{exports} exports and {self.weight_chunks} weight copies")
         return {"waits": dict(self.calls), "dispatches": d,
-                "chunks_read": self.chunks, "waves": self.waves}
+                "chunks_read": self.chunks, "waves": self.waves,
+                "exports": exports, "weight_chunks": self.weight_chunks}
 
 
 def qos_entries(engine, rids) -> dict:
@@ -3363,7 +3391,7 @@ def qos_preempt(q, ref) -> dict:
                 if e.kind == "qos.preempt"), default=0)
     with SyncCensus(q) as census:
         rids, prids, served = qos_drive(q, bulk, premium)
-    waits = census.check("preempt")
+    waits = census.check("qos preempt")
     preempts = q.qos_preemptions - preempts0
     victims = [e.fields["victim_rid"] for e in events.all_events()
                if e.kind == "qos.preempt" and e.seq > seen]
@@ -3404,7 +3432,7 @@ def qos_preempt(q, ref) -> dict:
     try:
         with SyncCensus(q) as plain_census:
             off_rids, off_prids, unbroken = qos_drive(q, bulk, premium)
-        plain_waits = plain_census.check("preempt, QoS off")
+        plain_waits = plain_census.check("qos preempt, QoS off")
     finally:
         q.set_qos_policy(saved)
     check(q.qos_preemptions == preempts0 + preempts,
@@ -3436,6 +3464,7 @@ def qos_preempt(q, ref) -> dict:
           f"waits {waits['waits']} with QoS, {plain_waits['waits']} without "
           f"[{SMI}]", flush=True)
     return {"preemptions": preempts, "victims": index,
+            "victim_rids": victims,
             "premium_ttft_ms": qos_ttft, "premium_ttft_fifo_ms": fifo_ttft,
             "alone": gate_alone, "unbroken": gate_unbroken,
             "premium": gate_premium, "waits": waits,
@@ -3459,7 +3488,7 @@ def qos_fair(q) -> dict:
                 tokens=rng.randint(0, vocab, prompt).tolist(),
                 max_new_tokens=new, tenant=tenant)) for _ in range(n)]
         q.run()
-    waits = census.check("fair")
+    waits = census.check("qos fair")
     for rid in rids:
         q.result(rid, timeout=0)
     wanted = set(rids)
@@ -3481,8 +3510,6 @@ def qos_shed(s) -> dict:
     clamped to ``SHED_BROWNOUT`` tokens, one more finds the queue full
     (429), and the deadline expires in the queue (429); both 429s carry
     a ``Retry-After`` in [1, 120]."""
-    import threading
-
     from oim_tpu_torch.serve.server import ServeServer
 
     vocab = s.cfg.vocab_size
@@ -3579,11 +3606,15 @@ def post_status(port: int, body: dict) -> tuple[int, dict, dict]:
         return exc.code, json.loads(exc.read()), dict(exc.headers)
 
 
-def qos_observed(engines, rids: dict, captures: int, work: str) -> dict:
+def qos_observed(engines, rids: dict, captures: int, work: str,
+                 parked=frozenset()) -> dict:
     """Observation across the legs: every request in its engine's ring
-    with its outcome, its phases summing to at most e2e + 1 ms and at
-    least half of it, one ``engine.request`` span and one decode span a
-    chunk; one slow capture in the flight dir; the watchdog idle."""
+    with its outcome, its phases summing to at most e2e + 1 ms and, but
+    for the ``parked`` rids, at least half of it (the phase clock, the
+    reference's, gives a parked interval to no phase, and a preemption's
+    victim may wait out most of its life in the host tier), one
+    ``engine.request`` span and one decode span a chunk; one slow
+    capture in the flight dir; the watchdog idle."""
     from oim_tpu_torch.common import events, tracing
 
     spans = tracing.collector().spans()
@@ -3602,7 +3633,8 @@ def qos_observed(engines, rids: dict, captures: int, work: str) -> dict:
                   f"{e['outcome']}")
             total = sum(e[f"{p}_s"] for p in ("queue", "admit", "prefill",
                                               "decode", "stream"))
-            check(0.5 * e["e2e_s"] <= total <= e["e2e_s"] + 1e-3,
+            low = 0.0 if rid in parked else 0.5 * e["e2e_s"]
+            check(low <= total <= e["e2e_s"] + 1e-3,
                   f"qos observe {name}: rid {rid}'s phases sum to {total} "
                   f"of e2e {e['e2e_s']}")
             tree = by_trace.get(e["trace"], [])
@@ -3681,7 +3713,9 @@ def qos_phase() -> dict:
         after = {name: e.stats() for name, e in engines.items()}
         rids = {"Q": out["preempt"].pop("rids") + out["fair"].pop("rids"),
                 "S": out["shed"].pop("rids")}
-        out["observed"] = qos_observed(engines, rids, captures, work)
+        out["observed"] = qos_observed(
+            engines, rids, captures, work,
+            parked=set(out["preempt"].pop("victim_rids")))
     finally:
         if flight is None:
             os.environ.pop("OIM_FLIGHT_DIR", None)
@@ -3732,6 +3766,700 @@ def qos_phase() -> dict:
     release()
     check(torch.cuda.memory_allocated() < 2**30,
           f"the qos phase still holds "
+          f"{gib(torch.cuda.memory_allocated()):.1f} GiB")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The HTTP surfaces a router drives
+
+# Servers A and B: serve_main's model with the paged pool, a prefix cache
+# and a host tier; B shares A's weights.  C is brought up from A over
+# /v1/weights.  Traffic (the legs' prompts and budgets) is the only cut.
+HTTP_HOST = 64 * 2**20
+HTTP_STREAM_PROMPTS = (128, 256, 384, 512)
+HTTP_STREAM_NEW = 128
+HTTP_DISCONNECT = (64, 1024, 8)  # prompt, budget, tokens read
+HTTP_DRAIN_PROMPTS = (256, 320, 448, 512)
+HTTP_DRAIN_NEW, HTTP_DRAIN_AFTER = 256, 32
+HTTP_HOLD_PROMPTS = (700, 850)  # one greedy, one sampled
+HTTP_HOLD_FIRST, HTTP_HOLD_CONT = 8, 56
+HTTP_SYSTEMS = (512, 384)  # prefix entries on A: the prewarm's two
+HTTP_STALL_FLOOR = HTTP_STALL_MULT = 1e-3
+
+
+def http_args() -> list[str]:
+    return SERVE_ARGS + ["--kv-block", "16", "--prefix-cache", "8",
+                         "--kv-host-bytes", str(HTTP_HOST)]
+
+
+def http_call(port: int, path: str, body=None, method=None,
+              timeout: float = 600):
+    """(status, headers, JSON or raw bytes) of one request to the
+    server on ``port``; an HTTP error answers the same way."""
+    data = (body if isinstance(body, (bytes, bytearray)) or body is None
+            else json.dumps(body).encode())
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data, method=method,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, headers, raw = resp.status, resp.headers, resp.read()
+    except urllib.error.HTTPError as exc:
+        status, headers, raw = exc.code, exc.headers, exc.read()
+    if "json" in headers.get("Content-Type", ""):
+        return status, headers, json.loads(raw)
+    return status, headers, raw
+
+
+def http_stream(port: int, body: dict, lines: list) -> float:
+    """Stream one generate into ``lines`` (parsed NDJSON, in order);
+    returns the wall from the request to its first line, in ms."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/generate",
+        data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    first = None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        check(resp.headers["Content-Type"] == "application/x-ndjson"
+              and resp.headers["traceparent"].startswith("00-"),
+              f"http stream: headers {dict(resp.headers)}")
+        for raw in resp:
+            if raw.strip():
+                if first is None:
+                    first = (time.monotonic() - t0) * 1e3
+                lines.append(json.loads(raw))
+    return first
+
+
+def ring_entry(engine, rid: int) -> dict:
+    """``rid``'s ring entry, waiting for it: the step thread finalizes a
+    request a moment after its reply is out."""
+    deadline = time.monotonic() + 10
+    while True:
+        entry = qos_entries(engine, [rid]).get(rid)
+        if entry is not None:
+            return entry
+        check(time.monotonic() < deadline, f"http: rid {rid} not in the ring")
+        time.sleep(0.002)
+
+
+def http_ok(port: int, body: dict) -> dict:
+    status, _, reply = http_call(port, "/v1/generate", body)
+    check(status == 200, f"http: generate answered {status} {reply}")
+    return reply
+
+
+def http_streams(a_port: int, a) -> dict:
+    """Each request alone (the same admission and decode shapes both
+    times): the plain reply, then the stream.  Gates: the NDJSON tokens
+    and logprobs are the plain reply's, one line a token in order, one
+    done line last.  Records the lone 512-token prompt's first-line
+    latency beside its plain reply's time to first token."""
+    rng = np.random.RandomState(31)
+    out = {}
+    for n in HTTP_STREAM_PROMPTS:
+        body = {"tokens": rng.randint(0, VOCAB, n).tolist(),
+                "max_new_tokens": HTTP_STREAM_NEW, "logprobs": True}
+        plain = http_ok(a_port, body)
+        plain_ttft = ttft_ms(ring_entry(a, plain["request_id"]))
+        lines = []
+        first = http_stream(a_port, body, lines)
+        tokens = [ln["token"] for ln in lines[:-1]]
+        lps = [ln["logprob"] for ln in lines[:-1]]
+        done = lines[-1]
+        check(all("token" in ln for ln in lines[:-1])
+              and sum("done" in ln for ln in lines) == 1 and done["done"],
+              f"http stream {n}: lines {lines[-2:]}")
+        check(tokens == plain["tokens"] == done["tokens"]
+              and lps == plain["logprobs"] == done["logprobs"],
+              f"http stream {n}: the NDJSON differs from the plain reply")
+        out[n] = {"first_line_ms": first, "plain_ttft_ms": plain_ttft,
+                  "stream_ttft_ms": ttft_ms(ring_entry(a, done["request_id"])),
+                  "rids": [plain["request_id"], done["request_id"]]}
+    lone = out[max(HTTP_STREAM_PROMPTS)]
+    print(f"http stream: {len(out)} greedy requests, each alone, streamed "
+          f"and not: the NDJSON tokens and logprobs are the plain replies'; "
+          f"the lone {max(HTTP_STREAM_PROMPTS)}-token prompt's first line "
+          f"after {lone['first_line_ms']:.1f} ms at the client (its engine "
+          f"TTFT {lone['stream_ttft_ms']:.1f} ms) against the plain reply's "
+          f"TTFT {lone['plain_ttft_ms']:.1f} ms [{SMI}]", flush=True)
+    return out
+
+
+def http_disconnect(a_port: int, a) -> dict:
+    """A stream closed by its client after 8 tokens: within 2 s the slot
+    is free, its blocks are back and the cancel is counted."""
+    import socket
+
+    from oim_tpu_torch.common import metrics
+
+    n, budget, read = HTTP_DISCONNECT
+    cancelled = metrics.SERVE_REQUESTS.value("cancelled")
+    used = a.stats()["kv_blocks_used"]
+    body = json.dumps({"tokens": list(range(1, n + 1)),
+                       "max_new_tokens": budget, "stream": True}).encode()
+    sock = socket.create_connection(("127.0.0.1", a_port), timeout=60)
+    sock.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\nContent-Type: "
+                 b"application/json\r\nContent-Length: "
+                 + str(len(body)).encode() + b"\r\n\r\n" + body)
+    got = b""
+    while got.count(b'"token"') < read:
+        got += sock.recv(65536)
+    sock.close()
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < 2.0:
+        s = a.stats()
+        if (s["active_slots"] == 0 and s["kv_blocks_used"] == used
+                and metrics.SERVE_REQUESTS.value("cancelled")
+                == cancelled + 1):
+            break
+        time.sleep(0.005)
+    wall = time.monotonic() - t0
+    s = a.stats()
+    check(s["active_slots"] == 0 and s["kv_blocks_used"] == used
+          and metrics.SERVE_REQUESTS.value("cancelled") == cancelled + 1,
+          f"http disconnect: after 2 s {s['active_slots']} active, "
+          f"{s['kv_blocks_used']} blocks used (was {used}), cancels "
+          f"{metrics.SERVE_REQUESTS.value('cancelled') - cancelled}")
+    print(f"http disconnect: a {budget}-token stream closed after {read} "
+          f"tokens; slot and blocks back, cancel counted, {wall * 1e3:.0f} "
+          f"ms after the close ({s['tokens_generated']} tokens made all "
+          f"told) [{SMI}]", flush=True)
+    return {"free_ms": wall * 1e3}
+
+
+def http_continue(ports, bodies) -> list[dict]:
+    """Each (port, body) generate; the requests of one port one after
+    another (one admission shape each), the ports' side by side."""
+    out = [None] * len(bodies)
+
+    def run(port):
+        for i, (p, body) in enumerate(zip(ports, bodies)):
+            if p == port:
+                out[i] = http_ok(port, body)
+
+    threads = [threading.Thread(target=run, args=(p,)) for p in set(ports)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def http_drain(a_port: int, b_port: int, a, b) -> dict:
+    """Four streams on A; once each has shown 32 tokens (of 256) A is
+    drained, and a non-stream request in flight with them answers 503
+    with ``Retry-After``.  Per stream: its migrate line, ``GET /v1/slot``
+    off A, ``PUT /v1/slot`` on B (and on A, undrained: the same bytes),
+    the continuation on B and on A, ``DELETE /v1/slot`` on A.  Gates: B's
+    continuations are A's own, bit for bit; and (``kv_gate``, once the
+    phase's census is over) each spliced stream is its unbroken run or
+    parts from it only at a near tie."""
+    rng = np.random.RandomState(32)
+    base = [dict(tokens=rng.randint(0, VOCAB, n).tolist(), seed=40 + i,
+                 temperature=KV_TEMP if i % 2 else 0.0)
+            for i, n in enumerate(HTTP_DRAIN_PROMPTS)]
+    unbroken = http_continue([a_port] * len(base), [
+        dict(r, max_new_tokens=HTTP_DRAIN_NEW) for r in base])
+    streams = [[] for _ in base]
+    threads = [threading.Thread(target=http_stream, args=(
+        a_port, dict(r, max_new_tokens=HTTP_DRAIN_NEW), lines))
+        for r, lines in zip(base, streams)]
+    plain = []
+    threads.append(threading.Thread(target=lambda: plain.append(http_call(
+        a_port, "/v1/generate", dict(base[0], max_new_tokens=HTTP_DRAIN_NEW,
+                                     seed=99)))))
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 120
+    while min(len(s) for s in streams) < HTTP_DRAIN_AFTER:
+        check(time.monotonic() < deadline, "http drain: streams stalled")
+        time.sleep(0.001)
+    status, _, reply = http_call(a_port, "/v1/drain", {})
+    check(status == 200 and reply["draining"] is True,
+          f"http drain: POST /v1/drain answered {status} {reply}")
+    for t in threads:
+        t.join(600)
+    status, headers, _ = plain[0]
+    check(status == 503 and 1 <= int(headers.get("Retry-After", 0)) <= 120,
+          f"http drain: the non-stream request answered {status} "
+          f"{dict(headers)}")
+    marks = [s[-1] for s in streams]
+    check(all(m.get("migrate") is True for m in marks),
+          f"http drain: stream ends {[m.get('error') for m in marks]}")
+    rids = [int(m["request_id"]) for m in marks]
+    with a._lock:  # the non-stream request's record: no router ships it
+        others = [r for r in a._migrated if r not in rids]
+    for rid in others:
+        check(http_call(a_port, f"/v1/slot?rid={rid}",
+                        method="DELETE")[2]["ok"] is True,
+              "http drain: a record would not release")
+    a._draining = a._migrate_out = False
+    priors = [[ln["token"] for ln in s[:-1]] for s in streams]
+    check(all(HTTP_DRAIN_AFTER <= len(p) < HTTP_DRAIN_NEW for p in priors),
+          f"http drain: suspended at {[len(p) for p in priors]}")
+    ships, nbytes, wall = [], 0, 0.0
+    for rid in rids:
+        t0 = time.monotonic()
+        status, _, body = http_call(a_port, f"/v1/slot?rid={rid}")
+        check(status == 200, f"http drain: GET /v1/slot answered {status}")
+        staged = []
+        for port in (b_port, a_port):
+            status, headers, reply = http_call(port, "/v1/slot", body,
+                                               method="PUT")
+            check(status == 200, f"http drain: PUT /v1/slot answered "
+                  f"{status} {reply}")
+            staged.append(reply)
+            if port == b_port:
+                wall += time.monotonic() - t0
+        nbytes += len(body)
+        ships.append(staged)
+        for want in (True, False):
+            check(http_call(a_port, f"/v1/slot?rid={rid}", method="DELETE")[
+                2]["ok"] is want, "http drain: DELETE /v1/slot")
+    conts = http_continue(
+        [b_port] * len(base) + [a_port] * len(base),
+        [dict(r, tokens=r["tokens"] + p, logprobs=True,
+              max_new_tokens=HTTP_DRAIN_NEW - len(p),
+              kv_import=staged[which]["import_id"],
+              sample_base=staged[which]["slot"]["sample_base"])
+         for which in (0, 1)
+         for r, p, staged in zip(base, priors, ships)])
+    on_b, on_a = conts[:len(base)], conts[len(base):]
+    check([(c["tokens"], c["logprobs"]) for c in on_b]
+          == [(c["tokens"], c["logprobs"]) for c in on_a],
+          "http drain: B's continuations differ from A's own continuations "
+          "of the same bytes")
+    mb = nbytes / 1e6
+    print(f"http drain: {len(base)} streams (2 greedy, 2 sampled) drained "
+          f"after {min(map(len, priors))}–{max(map(len, priors))} tokens, "
+          f"each ended in its migrate line; a non-stream request answered "
+          f"503 with Retry-After; {mb:.1f} MB of slots shipped A → B over "
+          f"HTTP at {wall * 1e3 / mb:.3f} ms per MB (GET + PUT); B's "
+          f"continuations = A's own, bit for bit [{SMI}]", flush=True)
+    return {"slot_ms_per_mb": wall * 1e3 / mb, "mb": mb,
+            "suspended_at": [len(p) for p in priors],
+            "gate": (base, [u["tokens"] for u in unbroken],
+                     [p + c["tokens"] for p, c in zip(priors, on_b)]),
+            "rids_a": [u["request_id"] for u in unbroken] + rids,
+            "rids_b": [c["request_id"] for c in on_b]}
+
+
+def http_kv(a_port: int, b_port: int, a, b) -> dict:
+    """Disaggregated prefill over HTTP: ``hold_kv`` legs on A, ``GET
+    /v1/kv?rid`` off A, ``PUT /v1/kv`` on B (and on A), the continuation
+    with ``kv_import`` on B and on A, ``DELETE /v1/kv`` on A; a prefix
+    entry exported by digest, installed on B and hit there; a 404 for an
+    unknown rid, a 409 for a geometry mismatch, a 429 with
+    ``Retry-After`` while B's pool cannot reserve the blocks."""
+    import struct
+
+    from oim_tpu_torch.serve import disagg
+
+    rng = np.random.RandomState(33)
+    base = [dict(tokens=rng.randint(0, VOCAB, n).tolist(), seed=50 + i,
+                 temperature=KV_TEMP if i % 2 else 0.0)
+            for i, n in enumerate(HTTP_HOLD_PROMPTS)]
+    total = HTTP_HOLD_FIRST + HTTP_HOLD_CONT
+    unbroken = http_continue([a_port] * len(base),
+                             [dict(r, max_new_tokens=total) for r in base])
+    legs = http_continue([a_port] * len(base), [
+        dict(r, max_new_tokens=HTTP_HOLD_FIRST, hold_kv=True) for r in base])
+    staged, nbytes, wall, body = [], 0, 0.0, b""
+    for leg in legs:
+        t0 = time.monotonic()
+        status, _, body = http_call(a_port, f"/v1/kv?rid={leg['request_id']}")
+        check(status == 200, f"http kv: GET /v1/kv answered {status}")
+        ids = []
+        for port in (b_port, a_port):
+            status, _, reply = http_call(port, "/v1/kv", body, method="PUT")
+            check(status == 200, f"http kv: PUT /v1/kv answered {status}")
+            ids.append(reply["import_id"])
+            if port == b_port:
+                wall += time.monotonic() - t0
+        nbytes += len(body)
+        staged.append(ids)
+        check(http_call(a_port, f"/v1/kv?rid={leg['request_id']}",
+                        method="DELETE")[2]["ok"] is True,
+              "http kv: DELETE /v1/kv")
+    conts = http_continue(
+        [b_port] * len(base) + [a_port] * len(base),
+        [dict(r, tokens=r["tokens"] + leg["tokens"], logprobs=True,
+              max_new_tokens=HTTP_HOLD_CONT, kv_import=ids[which],
+              sample_base=HTTP_HOLD_FIRST)
+         for which in (0, 1) for r, leg, ids in zip(base, legs, staged)])
+    on_b, on_a = conts[:len(base)], conts[len(base):]
+    check([(c["tokens"], c["logprobs"]) for c in on_b]
+          == [(c["tokens"], c["logprobs"]) for c in on_a],
+          "http kv: B's continuations differ from A's own")
+    # The faults: an unknown rid, a geometry B does not have, a full pool.
+    status = http_call(a_port, "/v1/kv?rid=999999")[0]
+    check(status == 404, f"http kv: an unknown rid answered {status}")
+    (length,) = struct.unpack(">Q", body[:8])
+    manifest = json.loads(body[8:8 + length])
+    manifest["geometry"] = dict(manifest["geometry"], block_size=8)
+    head = json.dumps(manifest).encode()
+    foreign = struct.pack(">Q", len(head)) + head + body[8 + length:]
+    status, _, reply = http_call(b_port, "/v1/kv", foreign, method="PUT")
+    check(status == 409 and "block_size" in reply["error"],
+          f"http kv: a geometry mismatch answered {status} {reply}")
+    with b._lock:  # B's pool held full by the smoke itself
+        held = b._alloc.alloc(b._alloc.free_blocks)
+    try:
+        status, headers, reply = http_call(b_port, "/v1/kv", body,
+                                           method="PUT")
+    finally:
+        with b._lock:
+            b._alloc.decref(held)
+    check(status == 429 and 1 <= int(headers.get("Retry-After", 0)) <= 120,
+          f"http kv: a full pool answered {status} {reply}")
+    # A prefix entry: stored on A, exported by digest, installed on B.
+    systems = [rng.randint(0, VOCAB, n).tolist() for n in HTTP_SYSTEMS]
+    http_continue([a_port] * len(systems), [
+        dict(tokens=s, max_new_tokens=1, cache_prefix=True)
+        for s in systems])
+    digest = disagg.prefix_digest(systems[0])
+    hits = b.stats()["prefix_hits"]
+    t0 = time.monotonic()
+    status, _, entry = http_call(a_port, f"/v1/kv?prefix={digest}")
+    status2, _, reply = http_call(b_port, "/v1/kv", entry, method="PUT")
+    prefix_wall = time.monotonic() - t0
+    check(status == status2 == 200 and reply["rows"] == HTTP_SYSTEMS[0],
+          f"http kv: the prefix ship answered {status}, {status2} {reply}")
+    hit = systems[0] + rng.randint(0, VOCAB, 40).tolist()
+    got = http_continue([b_port, a_port], [dict(tokens=hit,
+                                                max_new_tokens=8)] * 2)
+    check(b.stats()["prefix_hits"] == hits + 1
+          and got[0]["tokens"] == got[1]["tokens"],
+          f"http kv: B's hit on the shipped entry: hits "
+          f"{b.stats()['prefix_hits'] - hits}, tokens {got[0]['tokens']} vs "
+          f"A's {got[1]['tokens']}")
+    mb = nbytes / 1e6
+    print(f"http kv: {len(base)} held legs ({mb:.1f} MB) shipped A → B over "
+          f"HTTP at {wall * 1e3 / mb:.3f} ms per MB (GET + PUT); B's "
+          f"continuations = A's own, bit for bit; the "
+          f"{HTTP_SYSTEMS[0]}-token prefix entry ({len(entry) / 1e6:.1f} MB) "
+          f"shipped and installed in {prefix_wall * 1e3:.1f} ms and hit on "
+          f"B; 404, 409 and 429 with Retry-After as the reference answers "
+          f"[{SMI}]", flush=True)
+    return {"kv_ms_per_mb": wall * 1e3 / mb, "mb": mb,
+            "prefix_ms": prefix_wall * 1e3,
+            "gate": (base, [u["tokens"] for u in unbroken],
+                     [leg["tokens"] + c["tokens"]
+                      for leg, c in zip(legs, on_b)]),
+            "rids_a": [r["request_id"] for r in unbroken + legs + got[1:]]
+            + [c["request_id"] for c in on_a],
+            "rids_b": [c["request_id"] for c in on_b] + [got[0]["request_id"]]}
+
+
+def peer_bytes() -> float:
+    """The bytes peer restores have read so far (``oim_checkpoint_bytes_
+    total{op="restore-peer"}``)."""
+    from oim_tpu_torch.checkpoint.manager import _CKPT_BYTES
+
+    return _CKPT_BYTES.value("restore-peer")
+
+
+def weight_chunk_count(engine) -> int:
+    """The bounce-buffer copies one ``GET /v1/weights`` of ``engine``
+    makes."""
+    from oim_tpu_torch.models.weights import jax_leaves
+    from oim_tpu_torch.serve.server import WEIGHTS_BOUNCE_BYTES
+
+    n = 0
+    for leaf in jax_leaves(engine.params, engine.cfg):
+        for part in leaf.parts:
+            t = part()
+            n += -(-t.numel() * t.element_size() // WEIGHTS_BOUNCE_BYTES)
+    return n
+
+
+def http_weights(a_port: int, a, args) -> tuple[dict, object]:
+    """C restores from A over ``/v1/weights`` (under its own census: the
+    stream's only waits are its bounce-buffer copies), bit-equal to A's
+    parameters, then installs A's two hottest prefix entries
+    (``prewarm_from_peer``, as ``--prefix-prewarm 2`` does).  Records
+    the stream's GB/s beside reading the same weights from a
+    ``--params-dir`` export (written here, read warm from the page
+    cache).  Returns (the record, C)."""
+    from oim_tpu_torch.checkpoint import load_params_from_peer
+    from oim_tpu_torch.checkpoint.manager import PARAMS, flatten_params
+    from oim_tpu_torch.cli import serve_main
+    from oim_tpu_torch.models.train import named_parameters
+    from oim_tpu_torch.serve.disagg import prewarm_from_peer
+    from oim_tpu_torch.serve.engine import Engine
+    from oim_tpu_torch.serve.server import WEIGHTS_BOUNCE_BYTES
+
+    url = f"http://127.0.0.1:{a_port}"
+    chunks = weight_chunk_count(a)
+    moved = peer_bytes()
+    with SyncCensus(a, weight_chunks=chunks) as census:
+        t0 = time.monotonic()
+        params = load_params_from_peer(url, a.cfg, a.device)
+        torch.cuda.current_stream().synchronize()  # the copies up, landed
+        wall = time.monotonic() - t0
+    waits = census.check("http weights")
+    nbytes = peer_bytes() - moved
+    theirs, ours = dict(named_parameters(a.params)), dict(
+        named_parameters(params))
+    check(theirs.keys() == ours.keys() and all(
+        ours[k].dtype == v.dtype and torch.equal(ours[k], v)
+        for k, v in theirs.items()),
+        "http weights: C's parameters differ from A's")
+    c = Engine(params, a.cfg, n_slots=a.n_slots, max_len=a.max_len,
+               chunk=a.chunk, kv_block=a.kv_block,
+               prefix_cache_size=a.prefix_cache_size, device=a.device)
+    hottest = [e["digest"] for e in a.prefix_digest_summary()][:2]
+    installed = prewarm_from_peer(c, url, 2)
+    resident = [e["digest"] for e in c.prefix_digest_summary()]
+    check(installed == 2 and sorted(resident) == sorted(hottest),
+          f"http weights: prewarm installed {installed}: {resident} of A's "
+          f"hottest {hottest}")
+    work = tempfile.mkdtemp(prefix=".smoke-ckpt-http-", dir=HERE)
+    try:
+        export = os.path.join(work, "export")
+        os.makedirs(export)
+        torch.save({k: v.float().cpu() for k, v in flatten_params(
+            a.params).items()}, os.path.join(export, PARAMS))
+        dir_args = serve_main.build_parser().parse_args(
+            http_args() + ["--params-dir", export])
+        t0 = time.monotonic()
+        loaded = serve_main.load_weights(dir_args, a.cfg, a.device)
+        torch.cuda.synchronize()
+        dir_wall = time.monotonic() - t0
+        del loaded
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gb = nbytes / 1e9
+    print(f"http weights: C restored from A over GET /v1/weights, {gb:.2f} "
+          f"GB in {wall:.2f} s = {gb / wall:.2f} GB/s ({chunks} copies "
+          f"through one pinned {WEIGHTS_BOUNCE_BYTES >> 20} MiB buffer, the "
+          f"census's only waits), "
+          f"bit-equal to A's parameters; the same weights from a "
+          f"--params-dir export (f32, read warm from the page cache) took "
+          f"{dir_wall:.2f} s; prewarm installed A's two hottest prefix "
+          f"entries [{SMI}]", flush=True)
+    return {"gb": gb, "seconds": wall, "gb_s": gb / wall,
+            "params_dir_seconds": dir_wall, "census": waits,
+            "prewarmed": installed}, c
+
+
+def http_stall(server, a_port: int, a) -> dict:
+    """A second watchdog whose floor and multiplier any device wait
+    exceeds, while the step thread is held inside an admission's wait:
+    the in-flight requests end with 503, kind "stalled", and
+    ``Retry-After``; ``/healthz`` reads 503, then 200 once the wait
+    returns; ``oim_serve_stalls_total`` moves by the verdicts."""
+    from oim_tpu_torch.common import metrics
+    from oim_tpu_torch.serve.server import StallWatchdog
+
+    stalls = metrics.SERVE_STALLS.value(a._engine_label)
+    wedged, go = threading.Event(), threading.Event()
+    begin = a._watch_begin
+
+    def wedge():
+        begin()
+        wedged.set()
+        go.wait(60)
+
+    a._watch_begin = wedge
+    wd = StallWatchdog(a, on_stall=server._on_stall,
+                       on_clear=server._on_stall_clear, interval=0.05,
+                       multiplier=HTTP_STALL_MULT,
+                       floor_s=HTTP_STALL_FLOOR).start()
+    results = []
+    threads = [threading.Thread(target=lambda i=i: results.append(http_call(
+        a_port, "/v1/generate", {"tokens": list(range(1, 65 + i)),
+                                 "max_new_tokens": 32})))
+        for i in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        check(wedged.wait(60), "http stall: no device wait began")
+        for t in threads:
+            t.join(60)
+        sick = http_call(a_port, "/healthz")[0]
+    finally:
+        del a._watch_begin
+        go.set()
+    t0 = time.monotonic()
+    while http_call(a_port, "/healthz")[0] != 200:
+        check(time.monotonic() - t0 < 10, "http stall: /healthz stays 503")
+        time.sleep(0.01)
+    wd.stop()
+    codes = sorted((r[0], "stall" in r[2].get("error", ""),
+                    1 <= int(r[1].get("Retry-After", 0)) <= 120)
+                   for r in results)
+    check(codes == [(503, True, True)] * 2 and sick == 503,
+          f"http stall: replies {codes}, /healthz {sick}")
+    moved = metrics.SERVE_STALLS.value(a._engine_label) - stalls
+    check(moved == wd.stalls >= 1,
+          f"http stall: stalls_total moved {moved} for {wd.stalls} verdicts")
+    print(f"http stall: {wd.stalls} verdict(s) while the step thread was "
+          f"held in a device wait; both in-flight requests 503 'stalled' "
+          f"with Retry-After, /healthz 503 then 200 once the wait returned "
+          f"[{SMI}]", flush=True)
+    return {"verdicts": wd.stalls}
+
+
+def http_observed(servers, rids: dict) -> dict:
+    """``/metrics`` is Prometheus text with the serving and checkpoint
+    families; ``/debugz`` and ``/debugz/requests`` are JSON with every
+    request of the phase in the ring; ``/v1/info``'s ``load`` is
+    ``engine.load()`` plus the pool."""
+    import re
+
+    status, headers, text = http_call(servers["A"].port, "/metrics")
+    text = text.decode()
+    check(status == 200 and headers["Content-Type"].startswith(
+        "text/plain; version=0.0.4"), f"http observe: /metrics {status}")
+    for line in text.splitlines():
+        check(not line or line.startswith("# ") or re.fullmatch(
+            r"[a-zA-Z_:][\w:]*(\{[^}]*\})? \S+", line) is not None,
+              f"http observe: not exposition text: {line!r}")
+    for family in ("oim_serve_requests_total", "oim_serve_tokens_total",
+                   "oim_serve_stalls_total", "oim_serve_shed_total",
+                   "oim_serve_e2e_seconds", "oim_serve_kv_blocks",
+                   "oim_checkpoint_seconds", "oim_checkpoint_bytes_total"):
+        check(f"# TYPE {family} " in text,
+              f"http observe: /metrics lacks {family}")
+    found = 0
+    for name, server in servers.items():
+        port, engine = server.port, server.engine
+        debugz = http_call(port, "/debugz")[2]
+        check({"generated_at", "pid", "events"} <= set(debugz),
+              f"http observe {name}: /debugz {set(debugz)}")
+        ring = {e["rid"]: e for e in http_call(port, "/debugz/requests")[2][
+            "requests"]}
+        for rid, outcome in rids[name].items():
+            check(rid in ring and ring[rid]["outcome"] == outcome,
+                  f"http observe {name}: rid {rid} "
+                  f"{ring.get(rid, {}).get('outcome')} not {outcome}")
+            found += 1
+        info = http_call(port, "/v1/info")[2]
+        load = dict(engine.load(), pool=server.pool)
+        check({k: v for k, v in info["load"].items() if k != "ts"}
+              == {k: v for k, v in load.items() if k != "ts"}
+              and info["pool"] == server.pool,
+              f"http observe {name}: /v1/info's load is not load() + pool")
+    return {"ring_checked": found}
+
+
+def http_phase() -> dict:
+    """The HTTP surfaces a router drives, at Qwen2.5-1.5B's widths: two
+    port servers A and B (B on A's weights) and an engine C restored from
+    A over ``/v1/weights``; the smoke plays the router's part with the
+    port's own ship clients.  Legs: token streaming, a client
+    disconnect, a migrate-out drain with slot shipping, KV and prefix
+    shipping with the faults, the weights, and a stall; then the
+    observation routes.  Across the phase, as the kv io phase: K1 and
+    K2 launched by route as the servers' passes and dispatches say
+    (continuations included), no plain call, every dispatch a graph
+    replay and none captured after warmup, no device wait beyond the
+    engines' own, the exports' and the weight copies' (``SyncCensus``),
+    A's default watchdog silent, no block left in either tier, and the
+    memory back under 1 GiB."""
+    from oim_tpu_torch.cli import serve_main
+    from oim_tpu_torch.ops import paged_attention as pa
+    from oim_tpu_torch.serve.engine import Engine
+    from oim_tpu_torch.serve.server import ServeServer
+
+    t0 = time.monotonic()
+    args = serve_main.build_parser().parse_args(http_args())
+    a = serve_main.make_engine(args).warmup()
+    b = Engine(a.params, a.cfg, n_slots=args.n_slots, max_len=args.max_len,
+               chunk=args.chunk, kv_block=args.kv_block,
+               prefix_cache_size=args.prefix_cache,
+               kv_host_bytes=args.kv_host_bytes, device=a.device).warmup()
+    ref = widened(a.params, a.cfg)
+    # A's watchdog: the reference's defaults, polled every 50 ms.
+    servers = {"A": ServeServer(a, watchdog_interval=0.05).start(),
+               "B": ServeServer(b).start()}
+    a_port, b_port = servers["A"].port, servers["B"].port
+    print(f"http: servers A (watchdog every 50 ms, multiplier 8, floor 10 "
+          f"s) and B, {args.n_slots} slots, {a.kv_blocks} blocks of "
+          f"{args.kv_block}, host tier {a.stats()['kv_host_blocks_total']} "
+          f"blocks, warmed in {time.monotonic() - t0:.1f} s", flush=True)
+    engines = {"A": a, "B": b}
+    c = None
+    try:
+        before = {name: e.stats() for name, e in engines.items()}
+        pa.reset_counters()
+        with SyncCensus([a, b]) as census:
+            out = {"stream": http_streams(a_port, a)}
+            out["disconnect"] = http_disconnect(a_port, a)
+            out["drain"] = http_drain(a_port, b_port, a, b)
+            out["kv"] = http_kv(a_port, b_port, a, b)
+        out["census"] = census.check("http legs")
+        for leg in ("drain", "kv"):
+            out[leg]["unbroken"] = kv_gate(ref, f"http {leg}",
+                                           *out[leg].pop("gate"))
+            print(f"http {leg}: {out[leg]['unbroken']['equal']} of "
+                  f"{out[leg]['unbroken']['of']} whole streams "
+                  f"token-identical to the unbroken runs, the rest parting "
+                  f"at a near tie (the largest gap "
+                  f"{out[leg]['unbroken']['worst_gap']:.3f})", flush=True)
+        counts = pa.counters()
+        after = {name: e.stats() for name, e in engines.items()}
+        out["weights"], c = http_weights(a_port, a, args)
+        check(servers["A"].watchdog.stalls == 0,
+              f"http: A's default watchdog gave "
+              f"{servers['A'].watchdog.stalls} verdicts")
+        out["stall"] = http_stall(servers["A"], a_port, a)
+        rids = {"A": {r: "ok" for r in out["drain"]["rids_a"][:4]
+                      + out["kv"]["rids_a"]},
+                "B": {r: "ok" for r in out["drain"]["rids_b"]
+                      + out["kv"]["rids_b"]}}
+        rids["A"].update({r: "migrated" for r in out["drain"]["rids_a"][4:]})
+        for stream in out["stream"].values():
+            rids["A"].update({r: "ok" for r in stream.pop("rids")})
+        out["observed"] = http_observed(servers, rids)
+    finally:
+        for server in servers.values():
+            server.stop()
+    layers = a.cfg.n_layers
+    passes = dispatches = 0
+    for name in engines:
+        s, s0 = after[name], before[name]
+        d = {k: s[k] - s0[k] for k in (
+            "decode_passes", "decode_dispatches", "graph_replays",
+            "prefill_dispatches", "admission_replays")}
+        passes += d["decode_passes"]
+        dispatches += d["prefill_dispatches"]
+        check(d["graph_replays"] == d["decode_dispatches"] > 0
+              and d["admission_replays"] == d["prefill_dispatches"] > 0,
+              f"http {name}: not every dispatch a replay: {d}")
+        check(s["admission_graphs"] == s0["admission_graphs"]
+              and s["graph_capture_seconds"] == s0["graph_capture_seconds"],
+              f"http {name}: a graph captured after warmup")
+    check(counts["paged_flash_decode_rows8"] == layers * passes
+          and counts["paged_kv_store_t1"] == layers * passes
+          and counts["paged_flash_decode_tc"] == layers * dispatches
+          and counts["paged_kv_store"] - counts["paged_kv_store_t1"]
+          == layers * dispatches,
+          f"http: K1/K2 launches {counts} != {layers} x ({passes} decode "
+          f"passes, {dispatches} admission dispatches)")
+    check(counts["paged_flash_decode_plain"] == 0
+          and counts["paged_kv_store_plain"] == 0
+          and counts["paged_flash_decode_rows16"] == 0,
+          f"http: a plain version or another route ran: {counts}")
+    for name, engine in (("A", a), ("B", b), ("C", c)):
+        kv_no_leaks(engine, name)
+    out["counts"] = counts
+    out["seconds"] = time.monotonic() - t0
+    print(f"http: K1/K2 {counts} over {passes} decode passes and "
+          f"{dispatches} admission dispatches of A and B, every one a graph "
+          f"replay, no plain call, no capture after warmup, device waits "
+          f"{out['census']['waits']} all the engines', the exports' and the "
+          f"weight copies', no block left in either tier; the phase took "
+          f"{out['seconds']:.1f} s [{SMI}]", flush=True)
+    # The census and the last server of the loop above hold engines too.
+    del a, b, c, engine, engines, ref, servers, server, census
+    release()
+    check(torch.cuda.memory_allocated() < 2**30,
+          f"the http phase still holds "
           f"{gib(torch.cuda.memory_allocated()):.1f} GiB")
     return out
 
@@ -5149,6 +5877,13 @@ def parse_args(argv):
              "request observation across them), printing its gates, "
              "TTFTs and counts as the last line")
     only.add_argument(
+        "--http-phase-only", action="store_true",
+        help="build the kernels and run only the HTTP phase (streaming, "
+             "a disconnect, drain and slot shipping, KV and prefix "
+             "shipping, weights from a sibling, a stall, and the "
+             "observation routes, on two servers at the served widths), "
+             "printing its gates, latencies and rates as the last line")
+    only.add_argument(
         "--spec-phase-only", action="store_true",
         help="build the kernels and run only the speculative paths: K1/K2 "
              "at the verify and draft shapes, the default serve phase (the "
@@ -5239,6 +5974,8 @@ def main(argv=None) -> int:
                 served["kv_io"] = kv_io_phase()
             if "qos_policy" in flags:
                 served["qos"] = qos_phase()
+            if "watchdog_interval" in flags:
+                served["http"] = http_phase()
         else:  # a package from before depth 2: paged, serial, eager only
             served["paged"] = serve_phase(SERVE_ARGS + ["--kv-block", "16"],
                                           "paged")
@@ -5250,6 +5987,10 @@ def main(argv=None) -> int:
         return 0
     if args.qos_phase_only:
         print(json.dumps({"package": package, "qos": qos_phase()},
+                         default=str), flush=True)
+        return 0
+    if args.http_phase_only:
+        print(json.dumps({"package": package, "http": http_phase()},
                          default=str), flush=True)
         return 0
     if args.route_control:
@@ -5294,6 +6035,7 @@ def main(argv=None) -> int:
     spec_counts = spec_phases(counts["decode_tok_s"])
     kv_io_phase()
     qos_phase()
+    http_phase()
     counts.update(train_phase(record))
     work = tempfile.mkdtemp(prefix=".smoke-ckpt-", dir=HERE)
     try:

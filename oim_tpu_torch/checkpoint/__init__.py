@@ -5,7 +5,8 @@ from oim_tpu_torch.checkpoint.manager import (
     CheckpointerOptions,
     directory_bytes,
     load_params,
+    load_params_from_peer,
 )
 
 __all__ = ["Checkpointer", "CheckpointerOptions", "directory_bytes",
-           "load_params"]
+           "load_params", "load_params_from_peer"]

@@ -30,8 +30,12 @@ the reference's has:
   per-tensor update restores into the fused one) and the update after a
   resume is bit for bit the one an uninterrupted run takes.
 
-Peer loading and the checkpoint metrics of the reference wait for the
-server's peer routes and ``/metrics`` (ROADMAP Queue A 11).
+``load_params_from_peer`` restores a server's weights from a serving
+sibling's ``GET /v1/weights`` stream (either package's: the reference's
+framing and its flat parameter dict), checked against this replica's
+geometry before a byte of payload moves.  Saves, restores and peer
+restores are observed as the reference observes them:
+``oim_checkpoint_seconds{op}`` and ``oim_checkpoint_bytes_total{op}``.
 """
 
 from __future__ import annotations
@@ -39,17 +43,46 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import struct
 import threading
+import time
+import urllib.request
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable
 
+import numpy as np
 import torch
 
+from oim_tpu_torch.common import metrics
 from oim_tpu_torch.models.train import (
     TrainState,
     load_optimizer_state,
     named_parameters,
+)
+from oim_tpu_torch.models.transformer import TransformerConfig
+from oim_tpu_torch.models.weights import (
+    _quant_shapes,
+    from_jax_params,
+    int4_values,
+    param_shapes,
+)
+from oim_tpu_torch.ops.quant import WEIGHT_QUANT_TARGETS
+from oim_tpu_torch.serve.disagg import torch_dtype
+
+# Checkpoint observability, the reference's families: save latency is
+# the host snapshot (the part that holds the train loop), restore the
+# full read.
+_CKPT_SECONDS = metrics.registry().histogram(
+    "oim_checkpoint_seconds",
+    "Checkpoint operation latency by op (save = async enqueue + device "
+    "snapshot, i.e. the train-loop stall; restore = full read).",
+    ("op",),
+)
+_CKPT_BYTES = metrics.registry().counter(
+    "oim_checkpoint_bytes_total",
+    "Array bytes moved through the checkpoint manager, by op.",
+    ("op",),
 )
 
 PARAMS = "params.pt"
@@ -128,6 +161,17 @@ def _write_atomic(directory: Path, files: dict) -> None:
         raise
 
 
+def _tensor_bytes(value) -> int:
+    """Bytes of every tensor in ``value`` (nested dicts, lists, tuples)."""
+    if isinstance(value, torch.Tensor):
+        return value.numel() * value.element_size()
+    if isinstance(value, dict):
+        return sum(_tensor_bytes(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in value)
+    return 0
+
+
 def _load(path: Path):
     return torch.load(path, map_location="cpu", weights_only=True)
 
@@ -160,12 +204,15 @@ class Checkpointer:
         if step in self.all_steps() or step == self._pending:
             return False
         self.wait()  # one write in flight; surfaces the last one's error
+        t0 = time.perf_counter()
         files = {
             PARAMS: _host_copy(flatten_params(state.params)),
             OPTIMIZER: {"step": step,
                         "optimizer": _host_copy(state.optimizer.state_dict())},
             DATA: json.dumps(data_state or {}),
         }
+        _CKPT_SECONDS.observe(time.perf_counter() - t0, "save")
+        _CKPT_BYTES.inc("save", by=float(_tensor_bytes(files)))
         if not self._options.async_save:
             self._write(step, files)
             return True
@@ -216,6 +263,7 @@ class Checkpointer:
         state: every parameter, the optimizer's moments and step counts,
         and ``TrainState.step``.  Returns ``(state, data_state)``."""
         path = self._step_dir(step)
+        t0 = time.perf_counter()
         state = init_fn()
         saved = _load(path / PARAMS)
         target = flatten_params(state.params)
@@ -234,6 +282,8 @@ class Checkpointer:
         opt = _load(path / OPTIMIZER)
         load_optimizer_state(state.optimizer, opt["optimizer"])
         state.step = int(opt["step"])
+        _CKPT_SECONDS.observe(time.perf_counter() - t0, "restore")
+        _CKPT_BYTES.inc("restore", by=float(_tensor_bytes((saved, opt))))
         return state, json.loads((path / DATA).read_text())
 
     def restore_or_init(self, init_fn: Callable[[], TrainState]
@@ -299,3 +349,115 @@ def load_params(directory, device=None) -> dict:
 def directory_bytes(path) -> int:
     """Bytes of every file under ``path``."""
     return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+# ---------------------------------------------------------------------------
+# Weights from a serving sibling
+
+_FLOATS = ("bfloat16", "float16", "float32")
+
+
+def _peer_specs(cfg: TransformerConfig, weight_quant: str,
+                int4_group: int) -> dict:
+    """{name: (shape, allowed dtypes, stacked)} of the reference's flat
+    dict for ``cfg``: float leaves in any float dtype (a reference peer
+    serves f32, a port peer its compute dtype), quantized payloads in
+    ``weight_quant``'s dtype with f32 scales; a stacked layer entry's
+    shape without its leading ``[n_stages, layers_per_stage]``."""
+    shapes = param_shapes(cfg)
+    layer = {n.split(".", 2)[2]: s for n, s in shapes.items()
+             if n.startswith("layers.0.")}
+    top = {n: s for n, s in shapes.items() if not n.startswith("layers.")}
+    specs = {}
+    for tree, stacked in ((top, False), (layer, True)):
+        for name, shape in tree.items():
+            if weight_quant and name in WEIGHT_QUANT_TARGETS:
+                scale = _quant_shapes(name, shape, weight_quant,
+                                      int4_group)[f"{name}_wscale"]
+                specs[name] = (shape, (weight_quant,), stacked)
+                specs[f"{name}_wscale"] = (scale, ("float32",), stacked)
+            else:
+                specs[name] = (shape, _FLOATS, stacked)
+    return specs
+
+
+def _check_manifest(manifest, specs: dict, cfg: TransformerConfig,
+                    url: str) -> None:
+    """Refuse a peer manifest that is not ``specs``' model: names,
+    shapes (stacked layers split any way over ``n_layers``) and dtypes."""
+    bad = []
+    got = {entry["name"]: entry for entry in manifest}
+    for name in sorted(set(got) | set(specs)):
+        if name not in got or name not in specs:
+            bad.append((name, "missing" if name in specs else "extra"))
+            continue
+        shape, dtypes, stacked = specs[name]
+        have = tuple(int(d) for d in got[name]["shape"])
+        ok_shape = (len(have) == len(shape) + 2
+                    and have[0] * have[1] == cfg.n_layers
+                    and have[2:] == shape) if stacked else have == shape
+        if not ok_shape or got[name]["dtype"] not in dtypes:
+            bad.append((name, have, got[name]["dtype"]))
+    if bad:
+        raise ValueError(f"peer {url} serves a different model geometry; "
+                         f"first mismatches: {bad[:4]}")
+
+
+def _read_exact(resp, n: int) -> bytearray:
+    """Exactly ``n`` bytes of ``resp`` (a short read means the peer died
+    mid-stream: never restore a truncated tensor)."""
+    out = bytearray(n)
+    view, got = memoryview(out), 0
+    while got < n:
+        k = resp.readinto(view[got:got + (8 << 20)])
+        if not k:
+            raise IOError(f"peer weight stream truncated: wanted {n} bytes, "
+                          f"short by {n - got}")
+        got += k
+    return out
+
+
+def _peer_leaf(raw: bytearray, dtype: str, shape: tuple) -> torch.Tensor:
+    """One leaf's bytes as a host tensor: bf16 through its 2-byte words
+    (no ``ml_dtypes``), int4 as its int8 values."""
+    if dtype == "int4":
+        return int4_values(torch.frombuffer(raw, dtype=torch.uint8)
+                           ).reshape(shape)
+    want = torch_dtype(dtype)
+    wire = torch.int16 if want == torch.bfloat16 else want
+    return torch.frombuffer(raw, dtype=wire).view(want).reshape(shape)
+
+
+def load_params_from_peer(url: str, cfg: TransformerConfig, device=None, *,
+                          weight_quant: str = "", int4_group: int = 64,
+                          timeout: float = 600.0) -> dict:
+    """A serving sibling's weights (``GET <url>/v1/weights``, the
+    reference's framing: an 8-byte big-endian manifest length, a JSON
+    manifest ``[{"name", "dtype", "shape"}...]``, each leaf's raw bytes
+    in manifest order) as the port's serving params on ``device``.  The
+    manifest is checked against ``cfg`` (and ``weight_quant``'s payloads,
+    int4 in groups of ``int4_group``) before a byte of payload moves; each
+    leaf then goes to ``device`` as it arrives, so the host holds one at
+    a time, and ``from_jax_params`` lays them out.  Either package's
+    peer: a reference peer streams f32 leaves, a port peer its compute
+    dtype, both exact in the result."""
+    t0 = time.perf_counter()
+    tree, moved = {}, 0
+    request = urllib.request.Request(url.rstrip("/") + "/v1/weights")
+    with urllib.request.urlopen(request, timeout=timeout) as resp:
+        (length,) = struct.unpack(">Q", bytes(_read_exact(resp, 8)))
+        manifest = json.loads(bytes(_read_exact(resp, length)))
+        _check_manifest(manifest,
+                        _peer_specs(cfg, weight_quant, int4_group), cfg, url)
+        for entry in manifest:
+            shape = tuple(int(d) for d in entry["shape"])
+            itemsize = (1 if entry["dtype"] == "int4"
+                        else torch_dtype(entry["dtype"]).itemsize)
+            raw = _read_exact(resp, int(np.prod(shape)) * itemsize)
+            moved += len(raw)
+            tree[entry["name"]] = _peer_leaf(raw, entry["dtype"],
+                                             shape).to(device)
+    params = from_jax_params(tree, cfg, device=device)
+    _CKPT_SECONDS.observe(time.perf_counter() - t0, "restore-peer")
+    _CKPT_BYTES.inc("restore-peer", by=float(moved))
+    return params

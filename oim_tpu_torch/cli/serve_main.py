@@ -47,6 +47,18 @@ pressure; ``--request-ring N`` sizes the completed-request ring, and
 ``--slow-capture-interval`` dump slow requests' stories to
 ``$OIM_FLIGHT_DIR``.
 
+A fleet member: ``--pool prefill|decode|mixed`` is the role a router
+partitions on; ``--params-peer URL`` takes the weights from a serving
+sibling's ``GET /v1/weights`` (either package's) instead of storage, and
+with ``--prefix-cache`` also installs the sibling's ``--prefix-prewarm``
+hottest prefix entries before serving.  A stall watchdog
+(``--watchdog-interval``, ``--stall-multiplier``, ``--stall-floor``)
+fails in-flight requests fast and turns ``/healthz`` 503 while a device
+wait is wedged.  SIGTERM or Ctrl-C drains by migration: the server stops
+admitting and suspends in-flight requests into ``/v1/slot`` records for
+a router to ship, waits up to ``--drain-timeout`` for them to leave and
+settles for ``min(2, timeout)`` s; a second Ctrl-C stops at once.
+
 Speculative decoding: ``--spec-decode N`` drafts N tokens a slot a
 decode step by prompt lookup (``--spec-ngram``) and verifies them in one
 forward; with ``--draft-params-dir D --draft-n-layers ... --draft-d-model
@@ -69,6 +81,7 @@ from oim_tpu_torch.checkpoint import (
     Checkpointer,
     CheckpointerOptions,
     load_params,
+    load_params_from_peer,
 )
 from oim_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -78,6 +91,7 @@ from oim_tpu_torch.models.transformer import (
 from oim_tpu_torch.models.weights import check_params, recast
 from oim_tpu_torch.ops.quant import WEIGHT_QUANT_TARGETS, quantize_weight
 from oim_tpu_torch.qos.policy import load_policy_file
+from oim_tpu_torch.serve.disagg import POOLS, prewarm_from_peer
 from oim_tpu_torch.serve.engine import Engine, resolve_device
 from oim_tpu_torch.serve.server import ServeServer
 
@@ -100,6 +114,63 @@ def build_parser() -> argparse.ArgumentParser:
     weights.add_argument(
         "--checkpoint-dir", default="",
         help="train_main checkpoint directory: the latest step's params",
+    )
+    weights.add_argument(
+        "--params-peer", default="", metavar="URL",
+        help="restore weights from a serving sibling's streamed "
+        "GET /v1/weights instead of storage (scale-out fast bring-up: "
+        "bounded by network, not checkpoint cold-start); validated "
+        "against this instance's --vocab-size/--d-model/... geometry",
+    )
+    p.add_argument(
+        "--prefix-prewarm", type=int, default=4, metavar="K",
+        help="with --params-peer and --prefix-cache: also pull the "
+        "weight-donor's K hottest resident prefix entries "
+        "(GET /v1/kv?prefix=) and install them before serving, so the "
+        "replica joins the fleet with its cohort's system prompts "
+        "already resident; strictly best-effort — any failure degrades "
+        "to normal bring-up (0 = off)",
+    )
+    p.add_argument(
+        "--pool", default="mixed", choices=POOLS,
+        help="disaggregation pool role: prefill = take long-prompt "
+        "admissions and serve GET /v1/kv exports (pair with --kv-block; "
+        "a dense prefill backend makes every ship fall back to "
+        "recompute), decode = ingest shipped KV (PUT /v1/kv) and stream "
+        "continuations, mixed (default) = serve everything, no ships; "
+        "surfaced via /v1/info so a router partitions the fleet",
+    )
+    p.add_argument(
+        "--watchdog-interval", type=float, default=1.0, metavar="S",
+        help="stall-watchdog poll interval: a decode chunk blocking the "
+        "driver past max(--stall-floor, --stall-multiplier x its EWMA "
+        "wall) fails in-flight requests fast and flips /healthz "
+        "(0 = watchdog off)",
+    )
+    p.add_argument(
+        "--stall-multiplier", type=float, default=8.0,
+        help="stall verdict: device wait exceeding this multiple of the "
+        "chunk-wall EWMA",
+    )
+    p.add_argument(
+        "--stall-floor", type=float, default=30.0, metavar="S",
+        help="never call a stall before this many seconds of device "
+        "wait (headroom for one-off recompiles)",
+    )
+    p.add_argument(
+        "--drain-timeout", type=float, default=120.0,
+        help="seconds to let in-flight requests finish on SIGTERM before "
+        "exiting",
+    )
+    p.add_argument(
+        "--warmup-embed", action="store_true",
+        help="also pre-compile the /v1/embed path at every bucket "
+        "(one forward compile per bucket; skip unless serving embeds)",
+    )
+    p.add_argument(
+        "--no-warmup", action="store_true",
+        help="skip pre-compiling admit buckets + decode (first live "
+        "requests then pay the 20-40s TPU compiles)",
     )
     # Model geometry.
     p.add_argument("--vocab-size", type=int, default=32768)
@@ -342,6 +413,12 @@ def load_weights(args, cfg: TransformerConfig, device) -> dict:
     or checkpoint raises: a server never quietly serves random
     weights."""
     mode = weight_quant(args)
+    if args.params_peer:
+        # The sibling streams what it serves, quantized or not: checked
+        # against the flags' geometry and weight quant, never requantized.
+        return load_params_from_peer(args.params_peer, cfg, device,
+                                     weight_quant=mode,
+                                     int4_group=args.int4_group)
     if args.params_dir:
         what = f"--params-dir {args.params_dir}"
         params = load_params(args.params_dir, device=device)
@@ -470,9 +547,25 @@ def make_engine(args, cuda_graphs: bool = True) -> Engine:
 
 
 def start_server(args) -> ServeServer:
-    """Build, warm and start the server; prints the listening line."""
-    engine = make_engine(args).warmup()
-    server = ServeServer(engine, host=args.host, port=args.port).start()
+    """Build and warm the engine (unless ``--no-warmup``), install the
+    weight donor's hottest prefix entries (``--params-peer`` with
+    ``--prefix-cache``: after warmup, before the step thread starts, so
+    this thread writes the pool), then start the server; prints the
+    listening line."""
+    engine = make_engine(args)
+    if not args.no_warmup:
+        engine.warmup(embed=args.warmup_embed)
+    if args.params_peer and args.prefix_prewarm > 0 and args.prefix_cache:
+        installed = prewarm_from_peer(engine, args.params_peer.rstrip("/"),
+                                      args.prefix_prewarm)
+        print(f"oim-serve prefix pre-warm peer={args.params_peer!r} "
+              f"installed={installed}", file=sys.stderr, flush=True)
+    server = ServeServer(
+        engine, host=args.host, port=args.port,
+        watchdog_interval=args.watchdog_interval,
+        stall_multiplier=args.stall_multiplier,
+        stall_floor_s=args.stall_floor, pool=args.pool,
+    ).start()
     print(
         f"oim-serve listening host={server.host!r} port={server.port} "
         f"n_slots={args.n_slots} max_len={args.max_len} "
@@ -484,24 +577,45 @@ def start_server(args) -> ServeServer:
         f"weight_quant={engine.weight_quant or 'none'} "
         f"kv_quant={engine.kv_quant or 'none'} "
         f"kv_host_bytes={engine.kv_host_bytes} kv_park={engine.kv_park} "
-        f"device={engine.device}",
+        f"pool={server.pool} device={engine.device}",
         file=sys.stderr, flush=True,
     )
     return server
 
 
 def main(argv=None) -> int:
-    server = start_server(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    server = start_server(args)
+    engine = server.engine
     stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    signal.signal(signal.SIGINT, lambda *_: stop.set())
+
+    # Ctrl-C drains as SIGTERM does; a second one is the default
+    # handler's KeyboardInterrupt: a hard stop mid-drain.
+    def request_stop(*_):
+        signal.signal(signal.SIGINT, signal.default_int_handler)
+        stop.set()
+
+    signal.signal(signal.SIGTERM, request_stop)
+    signal.signal(signal.SIGINT, request_stop)
     try:
         stop.wait()
-        # Graceful drain: stop admitting, let in-flight requests finish.
-        server.engine.drain()
-        deadline = time.monotonic() + 120.0
-        while server.engine.in_flight() and time.monotonic() < deadline:
+        # Migrate-out drain: stop admitting and suspend in-flight slots
+        # into /v1/slot records for a router to ship to siblings, so the
+        # wait below ends as soon as they are suspended.
+        server.begin_drain()
+        print(f"oim-serve draining in_flight={engine.in_flight()} "
+              f"timeout_s={args.drain_timeout}", file=sys.stderr,
+              flush=True)
+        deadline = time.monotonic() + args.drain_timeout
+        while engine.in_flight() and time.monotonic() < deadline:
             time.sleep(0.2)
+        # Settle: the last slot frees before its handler thread has
+        # written the reply; exiting at once would cut that reply.
+        time.sleep(min(2.0, args.drain_timeout))
+        print(f"oim-serve drained remaining={engine.in_flight()}",
+              file=sys.stderr, flush=True)
+    except KeyboardInterrupt:
+        pass
     finally:
         server.stop()
     return 0

@@ -3,11 +3,12 @@
 The port's own copy of the instrument half of ``oim_tpu/common/metrics.py``:
 counters, gauges and histograms with labels, a per-process registry,
 the text rendering (Prometheus exposition format 0.0.4), and the serving
-families the engine writes, under the reference's series names so that
-one scrape config and one set of queries covers both packages.  The
-HTTP endpoint, the gRPC interceptor and the process self-telemetry are
-not here: ``/metrics`` comes with the rest of the server (ROADMAP Queue
-A11).
+families the engine and the server write, under the reference's series
+names so that one scrape config and one set of queries covers both
+packages.  The server's ``GET /metrics`` renders this registry
+(``EXPOSITION_CONTENT_TYPE``).  The standalone ``MetricsServer``, the
+gRPC interceptor and the process self-telemetry are not here (ROADMAP
+Queue A11, second part).
 
 Design notes:
 - Metric instruments are cheap under concurrency: one lock per metric,
@@ -231,6 +232,9 @@ class MetricsRegistry:
 
 _registry = MetricsRegistry()
 
+# The Prometheus text exposition's content type (format 0.0.4).
+EXPOSITION_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
 
 def registry() -> MetricsRegistry:
     return _registry
@@ -240,6 +244,25 @@ def registry() -> MetricsRegistry:
 # Serving instruments, the engine's: shared definitions, so that every
 # engine in the fleet (of either package) exports one series shape.
 
+SERVE_REQUESTS = _registry.counter(
+    "oim_serve_requests_total",
+    "Generation requests by outcome: completed, rejected at submission "
+    "(malformed, shed, draining or failed engine), or the kind a "
+    "request failed with (cancelled, deadline, deadline_queue, "
+    "migrated, aborted, stalled).",
+    ("outcome",),
+)
+SERVE_TOKENS = _registry.counter(
+    "oim_serve_tokens_total", "Tokens generated (after truncation).",
+)
+SERVE_STALLS = _registry.counter(
+    "oim_serve_stalls_total",
+    "Decode stalls detected by the driver-side watchdog: a dispatched "
+    "chunk exceeded a multiple of its EWMA wall time (device hang / XLA "
+    "wedge).  Each one failed the in-flight requests fast and flipped "
+    "/healthz unhealthy.",
+    ("engine",),
+)
 SERVE_SHED = _registry.counter(
     "oim_serve_shed_total",
     "Requests shed (or clamped) by overload protection, by reason: "

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-import numpy as np
 import torch
 
 from oim_tpu_torch.models.transformer import (
@@ -90,21 +89,6 @@ class KVCache:
 _LAYER_ENTRIES = LAYER_NAMES + tuple(
     f"{name}_wscale" for name in LAYER_NAMES if name in WEIGHT_QUANT_TARGETS
 )
-
-
-def _flat_layer_params(tree: dict, cfg: TransformerConfig) -> dict:
-    """The reference's stacked ``[n_stages, layers_per_stage, ...]``
-    layer entries (numpy arrays, by name; ``<name>_wscale`` scales of a
-    weight-quantized tree included) collapsed to ``[n_layers, ...]`` —
-    decode runs plain layers; pipeline staging is a training
-    construct."""
-    return {
-        name: np.asarray(tree[name]).reshape(
-            cfg.n_layers, *np.shape(tree[name])[2:]
-        )
-        for name in _LAYER_ENTRIES
-        if name in tree
-    }
 
 
 def _store_kv(cache, scale, new, start: int) -> None:

@@ -16,9 +16,15 @@ moves as raw 2-byte words (``view(torch.int16)`` out,
 ``torch.frombuffer`` in).  An unknown name is a malformed manifest
 (``KvGeometryError``).
 
-The router-side clients (``ship_kv``, ``ship_slot``, ``release_slot``,
-``ship_prefix``, ``prewarm_from_peer``, ``release_kv``) come with the
-HTTP routes (ROADMAP Queue A11 and A16).
+The HTTP clients of the server's ship routes are the reference's too:
+``ship_kv`` (held KV, ``GET /v1/kv?rid=`` → ``PUT /v1/kv``),
+``ship_slot`` (a suspended slot, ``GET /v1/slot?rid=`` → ``PUT
+/v1/slot``), ``ship_prefix`` (a prefix entry, ``GET /v1/kv?prefix=`` →
+``PUT /v1/kv``), the best-effort ``release_slot`` and ``release_kv``
+(``DELETE``), and ``prewarm_from_peer`` (a new replica installs a
+sibling's hottest prefix entries before it serves).  Each relays the
+bytes verbatim and raises on any failure, for the caller to fall back to
+recompute; the release calls and the prewarm never raise.
 """
 
 from __future__ import annotations
@@ -27,10 +33,17 @@ import hashlib
 import json
 import struct
 import time
+import urllib.request
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+# Pool roles (serve_main --pool): "prefill" backends take long-prompt
+# admissions and serve /v1/kv exports; "decode" backends ingest shipped
+# KV and stream the continuation; "mixed" (the default) does both and
+# never takes part in a ship.
+POOLS = ("prefill", "decode", "mixed")
 
 # Hold/import bounds: a KV hold (exporter) or staged import (importer)
 # pins pool blocks, so both are TTL'd and count-capped — an
@@ -307,3 +320,120 @@ def validate_geometry(manifest: dict, geometry: dict) -> None:
                 f"slot sample_base {base!r} inconsistent with "
                 f"{len(manifest.get('tokens', ()))} emitted tokens"
             )
+
+
+# ---------------------------------------------------------------------------
+# HTTP clients of the ship routes
+
+
+def _relay(opener, get_url: str, put_url: str, what: str,
+           timeout: float) -> tuple[dict, int]:
+    """GET a transfer off one backend and PUT the same bytes into
+    another's ingest; returns (the ingest's JSON reply, bytes relayed).
+    A short read (the source died mid-body) raises."""
+    with opener(get_url, timeout=timeout) as resp:
+        clen = int(resp.headers.get("Content-Length", "0"))
+        body = resp.read()
+    if clen and len(body) != clen:
+        raise OSError(f"{what} fetch truncated: {len(body)} of {clen} bytes "
+                      f"(the source backend died mid-ship)")
+    req = urllib.request.Request(
+        put_url, data=body,
+        headers={"Content-Type": "application/octet-stream"}, method="PUT")
+    with opener(req, timeout=timeout) as resp:
+        return json.loads(resp.read()), len(body)
+
+
+def ship_kv(opener, prefill_url: str, rid: int, decode_url: str,
+            timeout: float = 30.0) -> tuple[int, int, int]:
+    """Move one held KV state from the prefill backend into the decode
+    backend's ingest: (import_id, rows, bytes shipped).  Raises on any
+    failure (the caller recomputes); releases nothing (the caller
+    releases the hold either way)."""
+    reply, n = _relay(opener, f"{prefill_url}/v1/kv?rid={int(rid)}",
+                      f"{decode_url}/v1/kv", "KV", timeout)
+    return int(reply["import_id"]), int(reply["rows"]), n
+
+
+def ship_slot(opener, src_url: str, rid: int, dst_url: str,
+              timeout: float = 30.0) -> tuple[int, int, dict, int]:
+    """Move one suspended live slot from the draining backend into the
+    target's staging ingest: (import_id, rows, the slot branch, bytes
+    shipped).  Raises on any failure (404 record gone, 409 geometry, 429
+    capacity, a short read) for the caller's recompute; releases
+    nothing."""
+    reply, n = _relay(opener, f"{src_url}/v1/slot?rid={int(rid)}",
+                      f"{dst_url}/v1/slot", "slot", timeout)
+    slot = reply.get("slot")
+    return (int(reply["import_id"]), int(reply["rows"]),
+            slot if isinstance(slot, dict) else {}, n)
+
+
+def ship_prefix(opener, src_url: str, digest: str, dst_url: str,
+                timeout: float = 30.0) -> tuple[int, int]:
+    """Move one resident prefix entry into the target's ingest, which
+    installs it: (rows, bytes shipped).  Raises on any failure (the
+    caller recomputes the prefill); nothing is held on the source."""
+    reply, n = _relay(opener, f"{src_url}/v1/kv?prefix={digest}",
+                      f"{dst_url}/v1/kv", "prefix", timeout)
+    return int(reply["rows"]), n
+
+
+def _delete(opener, url: str, timeout: float) -> None:
+    """A best-effort DELETE: the TTL sweep is the backstop."""
+    try:
+        with opener(urllib.request.Request(url, method="DELETE"),
+                    timeout=timeout):
+            pass
+    except Exception:
+        pass
+
+
+def release_slot(opener, url: str, rid: int, timeout: float = 5.0) -> None:
+    """Best-effort release of a suspended-slot record on the draining
+    source."""
+    _delete(opener, f"{url}/v1/slot?rid={int(rid)}", timeout)
+
+
+def release_kv(opener, url: str, *, rid: int | None = None,
+               import_id: int | None = None, timeout: float = 5.0) -> None:
+    """Best-effort release of a hold (``rid``, the prefill side) or a
+    staged import (``import_id``, the decode side)."""
+    query = (f"rid={int(rid)}" if rid is not None
+             else f"import={int(import_id)}")
+    _delete(opener, f"{url}/v1/kv?{query}", timeout)
+
+
+def prewarm_from_peer(engine, peer_url: str, top_k: int, opener=None,
+                      timeout: float = 30.0) -> int:
+    """Install the ``top_k`` hottest prefix entries that the sibling at
+    ``peer_url`` advertises (``/v1/info``'s ``load.prefix_digests``) on
+    ``engine``, and land them in its pool; returns how many were
+    installed.  Best-effort: any failure leaves the engine serving cold,
+    never blocks it.  Call before the step thread starts: this thread
+    writes the pool."""
+    if top_k <= 0 or not getattr(engine, "paged", False):
+        return 0
+    opener = opener or urllib.request.urlopen
+    try:
+        with opener(f"{peer_url}/v1/info", timeout=timeout) as resp:
+            info = json.loads(resp.read())
+    except Exception:
+        return 0
+    digests = (info.get("load") or {}).get("prefix_digests") or []
+    installed = 0
+    for entry in digests[:max(0, int(top_k))]:
+        digest = entry.get("digest") if isinstance(entry, dict) else None
+        if not digest:
+            continue
+        try:
+            with opener(f"{peer_url}/v1/kv?prefix={digest}",
+                        timeout=timeout) as resp:
+                body = resp.read()
+            engine.import_kv_prefix(*unpack_transfer(body))
+            installed += 1
+        except Exception:
+            continue  # per entry: the rest may still land
+    if installed:
+        engine.install_prefix_imports()
+    return installed

@@ -1641,6 +1641,13 @@ class Engine:
         self.ring_dropped = 0
         self._ring_lock = threading.Lock()
         self._fail_obs: list[tuple] = []
+        # Token streams: rid → on_token, called on the step thread as
+        # on_token(token, logprob) for each token in order and once as
+        # (None, None) at the end.  A failed request's callback is queued
+        # in _ended under the engine lock and called once it drops, by
+        # _drain_fail_obs.
+        self._callbacks: dict[int, object] = {}
+        self._ended: list = []
         # The stall watchdog's read surface: the instant the step thread
         # began its current wait on the device (None when not waiting),
         # and the typical chunk wall, dispatch to readback.  Beside it,
@@ -1781,13 +1788,25 @@ class Engine:
                 f"{bad[:5]}"
             )
 
-    def submit(self, req: GenRequest) -> int:
-        """Queue a request; returns its id."""
-        self._validate(req)
+    def submit(self, req: GenRequest, on_token=None) -> int:
+        """Queue a request; returns its id.  ``on_token`` (optional)
+        streams the generation: called as ``on_token(token, logprob)``
+        once per emitted token, in order, then once with ``(None, None)``
+        at the end, whatever the end (finish, EOS or stop id, cancel,
+        abort, deadline, migration).  Callbacks run on the step thread
+        (or the thread that failed the request) and must not block: hand
+        off to a queue, as the HTTP stream does."""
+        try:
+            self._validate(req)
+        except ValueError:
+            if not self._warming:
+                _metrics.SERVE_REQUESTS.inc("rejected")
+            raise
         now = time.monotonic()
         if req.deadline is not None and now >= req.deadline:
             # Dead on arrival: shed before it costs anything.
             if not self._warming:
+                _metrics.SERVE_REQUESTS.inc("rejected")
                 _metrics.SERVE_SHED.inc("deadline")
                 _metrics.SERVE_DEADLINE_EXPIRED.inc()
                 with self._lock:
@@ -1797,11 +1816,16 @@ class Engine:
             )
         with self._lock:
             if self._fatal is not None:
+                if not self._warming:
+                    _metrics.SERVE_REQUESTS.inc("rejected")
                 raise EngineFailedError(f"engine failed: {self._fatal}")
             if self._draining:
+                if not self._warming:
+                    _metrics.SERVE_REQUESTS.inc("rejected")
                 raise DrainingError("engine is draining; not admitting")
             if (self.max_queue and not self._warming
                     and len(self._queue) >= self.max_queue):
+                _metrics.SERVE_REQUESTS.inc("rejected")
                 _metrics.SERVE_SHED.inc("queue_full")
                 self._shed_counts["queue_full"] += 1
                 raise QueueFullError(
@@ -1828,6 +1852,8 @@ class Engine:
             self._next_rid += 1
             self._queue.append((rid, req, now))
             self._events[rid] = threading.Event()
+            if on_token is not None:
+                self._callbacks[rid] = on_token
             # A demoted entry that covers this prompt better than any
             # resident one: reserve its promotion now, copy its payload
             # once the lock drops, and the step thread lands it at this
@@ -1868,6 +1894,7 @@ class Engine:
                 self._errors.pop(rid, None)
             elif rid in self._events:
                 self._forgotten.add(rid)
+            self._callbacks.pop(rid, None)  # the stream's reader left
 
     def cancel(self, rid: int, message: str = "cancelled by client") -> bool:
         """Cancel one request: a queued one fails now, an admitting or
@@ -1898,8 +1925,13 @@ class Engine:
         request) or ``state`` (a seated or parked one) carry what the
         caller knows of it, so that its ring entry, spans and e2e
         observation exist for failures too; the caller finalizes them
-        with ``_drain_fail_obs`` once the lock is dropped."""
+        with ``_drain_fail_obs`` once the lock is dropped, which also
+        ends the request's token stream."""
+        ended = self._callbacks.pop(rid, None)
+        if ended is not None:
+            self._ended.append(ended)
         if not self._warming:
+            _metrics.SERVE_REQUESTS.inc(kind)
             if state is not None:
                 req = state.req
                 phases = state.phases or _PhaseTrace(t_submit=state.t_submit)
@@ -1918,12 +1950,14 @@ class Engine:
         if rid in self._events:
             self._events[rid].set()
 
-    def abort(self, message: str) -> None:
-        """Fail every queued, admitting, active and parked request and
-        reclaim their slots and blocks in both tiers (the crash path of
-        ``step``).  A chunk in flight is dropped unread: it references
-        only the requests failed here, and the device finishes it before
-        any later work.  A park whose copy to the host is still in
+    def abort(self, message: str, *, kind: str = "aborted") -> None:
+        """Fail every queued, admitting, active and parked request with
+        ``kind`` and reclaim their slots and blocks in both tiers (the
+        crash path of ``step``; the stall watchdog's verdict passes
+        "stalled", which the server answers 503, retryable elsewhere).
+        A chunk in flight is dropped unread: it references only the
+        requests failed here, and the device finishes it before any
+        later work.  A park whose copy to the host is still in
         flight returns its host blocks when the copy lands."""
         with self._lock:
             self._inflight = None
@@ -1948,7 +1982,7 @@ class Engine:
             self._slots.clear()
             self._admitting.clear()
             for rid, req, t_sub, state in pending:
-                self._fail_locked(rid, "aborted", message, req=req,
+                self._fail_locked(rid, kind, message, req=req,
                                   t_submit=t_sub, state=state)
             self._cancelled.clear()
         self._drain_fail_obs()
@@ -2630,12 +2664,26 @@ class Engine:
         """Finalize the failures ``_fail_locked`` queued: every failure
         site calls this right after it drops the engine lock."""
         with self._lock:
-            if not self._fail_obs:
+            if not (self._fail_obs or self._ended):
                 return
             pending, self._fail_obs = self._fail_obs, []
+            ended, self._ended = self._ended, []
         now = time.monotonic()
         for rid, req, phases, kind, tokens_out in pending:
             self._finalize_request(rid, req, phases, kind, tokens_out, now)
+        for on_token in ended:  # the end of each failed request's stream
+            on_token(None, None)
+
+    @staticmethod
+    def _deliver(notices) -> None:
+        """Stream emitted tokens, off the lock: ``notices`` holds
+        (on_token, [(token, logprob), ...], done) in emission order; a
+        done stream's end follows its last token."""
+        for on_token, fresh, done in notices:
+            for token, logprob in fresh:
+                on_token(token, logprob)
+            if done:
+                on_token(None, None)
 
     def _finalize_done(self, finished: list[_SlotState]) -> None:
         """Finalize this step's completed requests (off the lock, after
@@ -2880,13 +2928,14 @@ class Engine:
             return {rid: list(t) for rid, (t, _) in self._results.items()}
 
     @torch.no_grad()
-    def warmup(self) -> "Engine":
+    def warmup(self, embed: bool = False) -> "Engine":
         """Run one dummy request per prompt bucket (each that fits the
         pool): builds the kernels on first use and touches every prefill
         shape once before live traffic; on the GPU, captures every graph
         first (``_capture_graphs``: the decode chunk's, and admission's
         for every bucket and row class), so that no graph is captured
-        after it."""
+        after it.  ``embed`` also runs ``/v1/embed``'s forward once per
+        bucket."""
         t0 = time.monotonic()
         self._warming = True
         try:
@@ -2901,6 +2950,10 @@ class Engine:
             self.run()
             for rid in rids:
                 self.result(rid, timeout=0)
+            if embed:
+                for b in self.prompt_buckets:
+                    if b < self._usable_len:
+                        self.embed([0] * b)
             self._ensure_graphs()
             with self._lock:  # nothing of the dummies stays in the tier
                 self._flush_host_tier_locked()
@@ -2931,6 +2984,9 @@ class Engine:
             self._hold_kv_locked(slot, state)
         self._release_slot_locked(slot)
         self._cancelled.discard(state.rid)
+        if not self._warming:
+            _metrics.SERVE_REQUESTS.inc("completed")
+            _metrics.SERVE_TOKENS.inc(by=float(len(state.emitted)))
         if state.rid in self._forgotten:
             self._forgotten.discard(state.rid)
             self._events.pop(state.rid, None)
@@ -4755,7 +4811,7 @@ class Engine:
         if not self._warming:
             self.prefill_seconds += t_first - t0
             self.prefill_dispatches += len(groups)
-        finished = []
+        finished, notices = [], []
         with self._lock:
             col = 0
             for group, _, _ in groups:
@@ -4778,11 +4834,17 @@ class Engine:
                             state=state,
                         )
                         continue
-                    if self._emit(state, token, lp):
+                    done = self._emit(state, token, lp)
+                    if done:
                         self._finish_locked(slot, state)
                         finished.append(state)
                     else:
                         self._slots[slot] = state
+                    on_token = (self._callbacks.pop(rid, None) if done
+                                else self._callbacks.get(rid))
+                    if on_token is not None:
+                        notices.append((on_token, [(token, lp)], done))
+        self._deliver(notices)
         self._finalize_done(finished)
         self._drain_fail_obs()
 
@@ -5075,7 +5137,7 @@ class Engine:
         # token rate's numerator, the reference's: truncation aside).
         emitted = produced = 0
         edge = self.max_len - 1 - spec  # the device's clamp
-        finished = []
+        finished, notices = [], []
         with self._lock:
             for slot, state in handle.snapshot.items():
                 if self._slots.get(slot) is not state:
@@ -5086,6 +5148,7 @@ class Engine:
                     not self._warming)
                 done = False
                 taken = 0
+                seen = len(state.emitted)
                 for i in range(self.chunk):
                     nem = int(n_emit[slot, i])
                     if count:
@@ -5112,6 +5175,11 @@ class Engine:
                                         prev or handle.t_dispatch),
                         t1, taken, handle.dispatch_wall, t1 - t0,
                     ))
+                on_token = (self._callbacks.pop(state.rid, None) if done
+                            else self._callbacks.get(state.rid))
+                if on_token is not None:
+                    notices.append((on_token, list(zip(
+                        state.emitted[seen:], state.logprobs[seen:])), done))
                 if done:
                     self._finish_locked(slot, state)
                     finished.append(state)
@@ -5137,6 +5205,7 @@ class Engine:
                             rate if self._token_rate_ewma is None
                             else 0.7 * self._token_rate_ewma + 0.3 * rate)
         self._t_last_chunk_done = t1
+        self._deliver(notices)
         self._finalize_done(finished)
 
     @torch.no_grad()

@@ -1,47 +1,68 @@
-"""HTTP front end for the engine: a stdlib threading HTTP server plus one
-step thread that runs the engine.
+"""HTTP front end for the engine: a stdlib threading HTTP server, one step
+thread that runs the engine, and an optional stall watchdog.
 
-The counterpart of ``oim_tpu/serve/server.py``'s core surface, with the
-same JSON bodies: ``GET /healthz``, ``GET /v1/stats``, ``GET /v1/info``
-and non-streaming ``POST /v1/generate`` (``tokens``, ``max_new_tokens``,
-``temperature``, ``seed``, ``top_p``, ``stop_ids``, ``sample_base`` and
-the other per-request sampling fields).  ``/v1/info`` and ``/v1/stats``
-carry the engine's layout and pipeline fields under the reference's
-names (``paged``, ``kv_block``, ``pipeline_depth``, ``penalties``;
-``readback_seconds``, ``overlap_seconds``, ``overlap_ratio``,
-``tail_elisions``, ``inflight_dispatches``; the prefix cache's and
-chunked prefill's ``prefix_*``, ``prefill_segments``, ``prefilling``;
-speculative decoding's ``spec_drafted``, ``spec_accepted``).
-``POST /v1/embed`` (``{"tokens": [...]}`` → ``{"embedding": [...],
-"dim": d}``) and ``POST /v1/beam`` (``{"tokens", "max_new_tokens",
-"beam_size", "alpha", "eos_id"}`` → ``{"tokens": [...], "score": s}``)
-answer from ``Engine.embed`` and ``Engine.beam``, with token prompts.
-A request's ``cache_prefix`` stores its prompt's KV when the engine has
-a prefix cache.  A deadline comes as the body's ``deadline_ms`` or, when
-the body has none, the ``x-oim-deadline-ms`` header (how a router sends
-a routed budget), as in the reference.  The tenant is the
-``x-oim-tenant`` header (this listener is plain HTTP, the trusted
-perimeter behind a router), and a ``traceparent`` header parents the
-``serve.generate`` span, under which the engine records the request's
-phase spans.  Every 429 and 503 carries ``Retry-After``: the engine's
-estimate of when its backlog drains.  Streaming, text prompts, the
-OpenAI surface, KV shipping over HTTP (``/v1/kv``: held KV and prefix
-export or install; ``/v1/slot``, ``/v1/drain``), profiling and the stall
-watchdog come with later slices (ROADMAP Queue A: the rest of
-server.py); ``/v1/kv`` answers 501 naming them.  A request's
-``hold_kv`` and ``kv_import`` reach the engine, whose ``export_kv`` and
-``import_kv`` speak the reference's wire in process.
+The counterpart of ``oim_tpu/serve/server.py``, with its routes, status
+codes and JSON bodies:
+
+- ``POST /v1/generate``: ``tokens``, ``max_new_tokens``, ``temperature``,
+  ``seed``, ``top_p``, ``stop_ids``, ``sample_base``, the other sampling
+  fields, ``cache_prefix``, ``hold_kv`` and ``kv_import``.  Without
+  ``stream`` it answers ``{"tokens", "request_id", "traceparent"}`` (plus
+  ``logprobs`` when asked).  With ``"stream": true`` the reply is NDJSON:
+  one ``{"token"}`` line a generated token as its chunk is read back
+  (``"logprob"`` added when asked), a ``traceparent`` response header, and
+  a last line ``{"done": true, "tokens", "request_id"}``; a request that a
+  migrate-out drain suspends ends in ``{"error", "migrate": true,
+  "request_id"}`` (the router ships its ``/v1/slot`` record and splices
+  the continuation), any other failure in ``{"error"}``.  A client that
+  disconnects cancels and forgets its request.  A deadline comes as
+  ``deadline_ms`` or the ``x-oim-deadline-ms`` header, the tenant as the
+  ``x-oim-tenant`` header (this listener is plain HTTP, the trusted
+  perimeter behind a router), and a ``traceparent`` header parents the
+  ``serve.generate`` span.
+- ``POST /v1/embed``, ``POST /v1/beam``: slot-free work on token prompts.
+- ``GET /v1/kv?rid=N`` (a ``hold_kv`` request's KV) or ``?prefix=D`` (a
+  resident prefix entry), ``PUT /v1/kv`` (stage a shipped state: a
+  continuation's ``kv_import``, or a prefix entry to install), ``DELETE
+  /v1/kv?rid=|import=``; ``POST /v1/drain`` (stop admitting and suspend
+  in-flight work into slot records), ``GET``/``PUT``/``DELETE
+  /v1/slot``.  The KV wire is ``serve/disagg.py``'s; 404 when nothing is
+  there to export, 409 on a geometry mismatch or an ineligible engine,
+  429 with ``Retry-After`` when the pool cannot reserve the blocks.
+- ``GET /v1/weights``: the served weights in the reference's framing and
+  flat layout (``models/weights.py::jax_leaves``), leaf by leaf off the
+  card through one pinned bounce buffer, for a sibling's
+  ``load_params_from_peer``.
+- ``GET /healthz``, ``/v1/stats``, ``/v1/info`` (with the server's
+  ``pool`` and the live ``load``), ``/metrics`` (the Prometheus text of
+  ``common/metrics.py``'s registry), ``/debugz`` (the flight recorder)
+  and ``/debugz/requests`` (the engine's request ring).
+
+Every 429 and 503 carries ``Retry-After``, the engine's estimate of when
+its backlog drains.  With ``watchdog_interval`` > 0 a ``StallWatchdog``
+fails in-flight requests fast (503, kind "stalled") and turns
+``/healthz`` 503 while a device wait is wedged, and back once it
+returns.  Text prompts, the OpenAI surface, TLS and ``/debugz/profile``
+are not ported yet (ROADMAP Queue A11, second part).
 """
 
 from __future__ import annotations
 
 import json
+import math
+import queue
+import struct
 import threading
 import time
 import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs
 
-from oim_tpu_torch.common import tracing
+import torch
+
+from oim_tpu_torch.common import events, metrics, tracing
+from oim_tpu_torch.models.weights import jax_leaves
+from oim_tpu_torch.serve import disagg
 from oim_tpu_torch.serve.engine import (
     DeadlineExpiredError,
     DrainingError,
@@ -53,15 +74,85 @@ from oim_tpu_torch.serve.engine import (
 )
 
 # Per-kind HTTP status of a request that failed without a result.
-_FAILED_STATUS = {"deadline_queue": 429, "deadline": 504, "migrated": 503}
-# The KV shipping routes: held-KV and prefix export (GET) and install
-# (POST).  The engine ships (``Engine.export_kv`` and the rest); the
-# routes wait for the streaming surfaces the router's ship flows ride.
-_KV_NOT_PORTED = (
-    "/v1/kv (KV shipping over HTTP: held-KV and prefix export and "
-    "install) is not ported to oim_tpu_torch yet (ROADMAP Queue A: A11 "
-    "and A16); the engine's export_kv/import_kv carry the wire"
-)
+_FAILED_STATUS = {"deadline_queue": 429, "deadline": 504, "stalled": 503,
+                  "migrated": 503}
+# Bytes of the pinned buffer each leaf of /v1/weights passes through.
+WEIGHTS_BOUNCE_BYTES = 32 << 20
+
+
+class StallWatchdog:
+    """Step-thread stall detector.
+
+    Polls ``engine.watchdog_state()`` every ``interval`` seconds: when the
+    step thread has waited on the device, in one wait, longer than
+    ``max(floor_s, multiplier × chunk-wall EWMA)``, the device is
+    presumed wedged.  Then ``on_stall(message)`` runs (the server fails
+    in-flight requests with kind "stalled" and turns ``/healthz`` 503),
+    an ERROR ``serve.stall`` event is recorded, and
+    ``oim_serve_stalls_total`` counts it.  No verdict before the first
+    chunk is read back (no EWMA yet).  If the wait later returns,
+    ``on_clear`` runs once."""
+
+    def __init__(self, engine: Engine, on_stall, on_clear=None,
+                 interval: float = 1.0, multiplier: float = 8.0,
+                 floor_s: float = 10.0):
+        if interval <= 0 or multiplier <= 0 or floor_s <= 0:
+            raise ValueError(
+                f"need interval, multiplier, floor_s > 0; got "
+                f"{interval}, {multiplier}, {floor_s}")
+        self.engine = engine
+        self.on_stall = on_stall
+        self.on_clear = on_clear
+        self.interval = interval
+        self.multiplier = multiplier
+        self.floor_s = floor_s
+        self.stalls = 0
+        self._fired = False
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def check(self) -> bool:
+        """One poll; True while a stall verdict stands (tests call it
+        directly)."""
+        wait, ewma = self.engine.watchdog_state()
+        if wait is None:
+            if self._fired:  # the wedged wait returned after all
+                self._fired = False
+                if self.on_clear is not None:
+                    self.on_clear()
+            return False
+        if ewma is None or self._fired:
+            return self._fired
+        limit = max(self.floor_s, self.multiplier * ewma)
+        if wait <= limit:
+            return False
+        self._fired = True
+        self.stalls += 1
+        message = (
+            f"decode stall: device wait {wait:.1f}s exceeds {limit:.1f}s "
+            f"(chunk EWMA {ewma:.4f}s x {self.multiplier:g}, floor "
+            f"{self.floor_s:g}s) — device hang")
+        metrics.SERVE_STALLS.inc(self.engine._engine_label)
+        events.emit("serve.stall", component="oim-serve",
+                    severity=events.ERROR, wait_s=round(wait, 1),
+                    limit_s=round(limit, 1), chunk_ewma_s=round(ewma, 4))
+        self.on_stall(message)
+        return True
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            self.check()
+
+    def start(self) -> "StallWatchdog":
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
 
 
 def _deadline(body: dict, headers) -> float | None:
@@ -93,10 +184,8 @@ def _parse_generate(body: dict, headers, span=None) -> GenRequest:
     """A ``/v1/generate`` JSON body and its request headers → GenRequest
     (KeyError, TypeError or ValueError on a malformed request); ``span``
     is the server span the engine's phase spans go under."""
-    if body.get("stream"):
-        raise ValueError("streaming is not ported yet; send stream=false")
     return GenRequest(
-        tokens=[int(t) for t in body["tokens"]],
+        tokens=_prompt_tokens(body),
         max_new_tokens=int(body.get("max_new_tokens", 16)),
         temperature=float(body.get("temperature", 0.0)),
         seed=int(body.get("seed", 0)),
@@ -136,10 +225,69 @@ def _prompt_tokens(body: dict) -> list[int]:
     return [int(t) for t in body["tokens"]]
 
 
+def _leaf_views(tensor: torch.Tensor):
+    """A host tensor's C-order bytes as a memoryview (bf16 through its
+    2-byte words), without a copy when it is contiguous."""
+    t = tensor.detach().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return memoryview(t.numpy()).cast("B")
+
+
+def _weight_chunks(device: torch.device, parts):
+    """The bytes of ``parts`` (callables returning tensors where the
+    served weights lie), in order, as memoryviews valid until the next
+    is taken.  On the GPU each part is made and copied down on a side
+    stream that first waits for the step thread's stream, through one
+    pinned buffer of ``WEIGHTS_BOUNCE_BYTES``, waiting only on that
+    copy's event: never on the whole device."""
+    if device.type != "cuda":
+        for part in parts:
+            yield _leaf_views(part().cpu())
+        return
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.default_stream(device))
+    bounce = torch.empty(WEIGHTS_BOUNCE_BYTES, dtype=torch.uint8,
+                         pin_memory=True)
+    host = memoryview(bounce.numpy())
+    copied = torch.cuda.Event()
+    with torch.cuda.stream(side):
+        for part in parts:
+            flat = part().contiguous().view(-1).view(torch.uint8)
+            for off in range(0, flat.numel(), WEIGHTS_BOUNCE_BYTES):
+                n = min(WEIGHTS_BOUNCE_BYTES, flat.numel() - off)
+                bounce[:n].copy_(flat[off:off + n], non_blocking=True)
+                copied.record(side)
+                copied.synchronize()
+                yield host[:n]
+
+
+def _send_transfer(handler, manifest, chunks_total: int, chunks) -> None:
+    """Answer 200 with the wire's framing: an 8-byte big-endian manifest
+    length, the JSON manifest, then ``chunks`` (``chunks_total`` bytes).
+    A client that goes away mid-body ends the answer; nothing here holds
+    state to clean up."""
+    mb = json.dumps(manifest, separators=(",", ":")).encode()
+    handler.send_response(200)
+    handler.send_header("Content-Type", "application/octet-stream")
+    handler.send_header("Content-Length", str(8 + len(mb) + chunks_total))
+    handler.end_headers()
+    try:
+        handler.wfile.write(struct.pack(">Q", len(mb)))
+        handler.wfile.write(mb)
+        for chunk in chunks:
+            handler.wfile.write(chunk)
+        handler.wfile.flush()
+    except (BrokenPipeError, ConnectionResetError):
+        return  # the caller's fallback owns recovery
+
+
 class _Handler(BaseHTTPRequestHandler):
     """One request against the ``ServeServer`` that ``self.server.owner``
     names: a weak proxy, so that the listener does not keep a stopped
     server, and through it the engine, alive."""
+
+    want_logprobs = False
 
     def log_message(self, *args):  # per-request stderr noise off
         pass
@@ -156,9 +304,24 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def _body(self) -> bytes:
+        return self.rfile.read(int(self.headers.get("Content-Length", "0")))
+
     def do_GET(self):
         outer = self.server.owner
-        if self.path == "/healthz":
+        path = self.path.split("?", 1)[0]
+        if path == "/metrics":
+            body = metrics.registry().render().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", metrics.EXPOSITION_CONTENT_TYPE)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        elif path == "/debugz":
+            self._json(200, events.snapshot())
+        elif path == "/debugz/requests":
+            self._json(200, outer.engine.requests())
+        elif self.path == "/healthz":
             if outer.error is not None:
                 self._json(503, {"ok": False, "error": outer.error})
             else:
@@ -166,21 +329,70 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/v1/stats":
             self._json(200, outer.engine.stats())
         elif self.path == "/v1/info":
-            self._json(200, outer.engine.info())
-        elif self.path.split("?")[0] == "/v1/kv":
-            self._json(501, {"error": _KV_NOT_PORTED})
+            info = outer.engine.info()
+            info["tokenizer"] = None  # token ids only, as yet
+            info["pool"] = outer.pool
+            info["load"] = outer.load_snapshot()
+            self._json(200, info)
+        elif self.path == "/v1/weights":
+            outer._stream_weights(self)
+        elif path == "/v1/kv":
+            outer._stream_kv(self)
+        elif path == "/v1/slot":
+            outer._stream_slot(self)
         else:
             self._json(404, {"error": f"no such path {self.path}"})
 
+    def do_PUT(self):
+        outer = self.server.owner
+        path = self.path.split("?", 1)[0]
+        if path not in ("/v1/kv", "/v1/slot"):
+            self._json(404, {"error": f"no such path {self.path}"})
+            return
+        if outer.error is not None:
+            # Nothing would ever admit the continuation.
+            self._json(503, {"error": outer.error})
+            return
+        outer._ingest(self, slot=path == "/v1/slot")
+
+    def do_DELETE(self):
+        """Release a hold, a staged import or a suspended-slot record:
+        the router's cleanup after a ship.  Idempotent: an unknown id
+        answers ``{"ok": false}`` (the TTL may have swept it)."""
+        engine = self.server.owner.engine
+        path, _, query = self.path.partition("?")
+        if path not in ("/v1/kv", "/v1/slot"):
+            self._json(404, {"error": f"no such path {self.path}"})
+            return
+        params = parse_qs(query)
+        try:
+            if path == "/v1/slot":
+                ok = engine.release_migrated(int(params["rid"][0]))
+            elif "rid" in params:
+                ok = engine.release_kv_hold(int(params["rid"][0]))
+            else:
+                ok = engine.release_kv_import(int(params["import"][0]))
+        except (KeyError, ValueError):
+            self._json(400, {"error": "need ?rid=" if path == "/v1/slot"
+                             else "need ?rid= or ?import="})
+            return
+        self._json(200, {"ok": bool(ok)})
+
     def do_POST(self):
         outer = self.server.owner
-        if self.path.split("?")[0] == "/v1/kv":
-            self._json(501, {"error": _KV_NOT_PORTED})
+        if self.path == "/v1/drain":
+            # Before the error latch: draining a wedged backend is legal
+            # and idempotent (there is just nothing left to migrate).
+            outer.begin_drain()
+            self._json(200, {"ok": True, "draining": True,
+                             "in_flight": outer.engine.in_flight()})
             return
         if self.path not in ("/v1/generate", "/v1/embed", "/v1/beam"):
             self._json(404, {"error": f"no such path {self.path}"})
             return
         if outer.error is not None:
+            # A dead step thread or a standing stall verdict: fail fast
+            # instead of queueing work nothing will drive.
             self._json(503, {"error": outer.error})
             return
         if self.path != "/v1/generate":
@@ -196,9 +408,15 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _generate(self, engine: Engine, span) -> None:
         try:
-            length = int(self.headers.get("Content-Length", "0"))
-            body = json.loads(self.rfile.read(length) or b"{}")
+            body = json.loads(self._body() or b"{}")
             req = _parse_generate(body, self.headers, span)
+            span.attrs.update(prompt_tokens=len(req.tokens),
+                              max_new_tokens=req.max_new_tokens,
+                              stream=bool(body.get("stream")))
+            self.want_logprobs = bool(body.get("logprobs"))
+            if body.get("stream"):
+                self._stream(engine, req, span)
+                return
             rid = engine.submit(req)
         except (QueueFullError, DeadlineExpiredError) as exc:
             span.status = "error: shed"
@@ -225,18 +443,96 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(_FAILED_STATUS.get(exc.kind, 500),
                        {"error": str(exc)})
             return
-        payload = {"tokens": tokens, "request_id": rid}
-        if body.get("logprobs"):
+        span.attrs["generated"] = len(tokens)
+        payload = {
+            "tokens": tokens, "request_id": rid,
+            "traceparent": tracing.SpanContext(
+                span.trace_id, span.span_id).traceparent(),
+        }
+        if self.want_logprobs:
             payload["logprobs"] = lps
         self._json(200, payload)
 
+    def _line(self, obj: dict) -> None:
+        self.wfile.write((json.dumps(obj) + "\n").encode())
+
+    def _stream(self, engine: Engine, req: GenRequest, span) -> None:
+        """NDJSON token stream: the engine's callback only puts into a
+        queue (it runs on the step thread), and this handler drains the
+        queue onto the socket.  Tokens come in dispatch order, a chunk at
+        a time, and the ``(None, None)`` end exactly once, as the serial
+        engine would deliver them (one chunk later at depth 2)."""
+        tokens_q: queue.Queue = queue.Queue()
+        try:
+            rid = engine.submit(
+                req, on_token=lambda t, lp: tokens_q.put((t, lp)))
+        except (QueueFullError, DeadlineExpiredError) as exc:
+            span.status = "error: shed"
+            self._json(429, {"error": str(exc)})
+            return
+        except (DrainingError, EngineFailedError) as exc:
+            span.status = "error: unavailable"
+            self._json(503, {"error": str(exc)})
+            return
+        try:
+            # The headers inside the try: a client gone at once raises
+            # here, and its request must still be cancelled and forgotten.
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("traceparent", tracing.SpanContext(
+                span.trace_id, span.span_id).traceparent())
+            self.end_headers()  # HTTP/1.0: the body ends on close
+            while True:
+                try:
+                    token, logprob = tokens_q.get(timeout=600)
+                except queue.Empty:
+                    engine.cancel(rid, "stream timed out")
+                    engine.forget(rid)
+                    span.status = "error: timeout"
+                    self._line({"error": f"request {rid} timed out"})
+                    return
+                if token is None:
+                    break
+                line = {"token": token}
+                if self.want_logprobs:
+                    line["logprob"] = logprob
+                self._line(line)
+                self.wfile.flush()
+            try:
+                tokens, lps = engine.result_full(rid, timeout=30)
+            except RequestFailedError as exc:
+                engine.forget(rid)
+                if exc.kind == "migrated":
+                    # A migrate-out drain: the router ships this rid's
+                    # /v1/slot record and splices the continuation.
+                    span.status = "migrated"
+                    self._line({"error": str(exc), "migrate": True,
+                                "request_id": rid})
+                else:
+                    span.status = f"error: {exc.kind}"
+                    self._line({"error": str(exc)})
+                return
+            except (RuntimeError, TimeoutError) as exc:
+                engine.forget(rid)
+                span.status = "error: aborted"
+                self._line({"error": str(exc)})
+                return
+            span.attrs["generated"] = len(tokens)
+            final = {"done": True, "tokens": tokens, "request_id": rid}
+            if self.want_logprobs:
+                final["logprobs"] = lps
+            self._line(final)
+        except (BrokenPipeError, ConnectionResetError):
+            # The client went away: stop decoding for nobody.
+            engine.cancel(rid, "client disconnected")
+            engine.forget(rid)
+            span.status = "error: client disconnected"
 
     def _slot_free(self, engine: Engine) -> None:
         """``/v1/embed`` or ``/v1/beam``: slot-free work run on this
         handler thread."""
         try:
-            length = int(self.headers.get("Content-Length", "0"))
-            body = json.loads(self.rfile.read(length) or b"{}")
+            body = json.loads(self._body() or b"{}")
             tokens = _prompt_tokens(body)
             if self.path == "/v1/embed":
                 vec = engine.embed(tokens)
@@ -261,22 +557,190 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class ServeServer:
-    """Owns the engine's step thread and the HTTP listener.  ``start()``
-    returns self; ``port`` is the bound port (0 → ephemeral)."""
+    """Owns the engine's step thread, the HTTP listener and, with
+    ``watchdog_interval`` > 0, a ``StallWatchdog``.  ``start()`` returns
+    self; ``port`` is the bound port (0 → ephemeral).  ``pool`` is the
+    instance's disaggregation role (``prefill``, ``decode`` or
+    ``mixed``), shown in ``/v1/info`` and its ``load`` for the router."""
 
     def __init__(self, engine: Engine, host: str = "127.0.0.1",
-                 port: int = 0):
+                 port: int = 0, watchdog_interval: float = 0.0,
+                 stall_multiplier: float = 8.0, stall_floor_s: float = 10.0,
+                 pool: str = "mixed"):
+        if pool not in disagg.POOLS:
+            raise ValueError(
+                f"pool must be one of {disagg.POOLS}, got {pool!r}")
+        self.pool = pool
         self.engine = engine
-        self.error: str | None = None  # set when the step thread dies
+        # Set when the step thread dies (for good) or while a stall
+        # verdict stands (cleared when the wait returns); the watchdog
+        # and the step thread change it under _error_lock, handlers read
+        # it bare.
+        self.error: str | None = None
+        self._error_lock = threading.Lock()
+        self._stall_error = False
         self._stop = threading.Event()
+        # The listener and the watchdog reach the server through a weak
+        # proxy: a stopped server holds its engine in no reference cycle.
+        owner = weakref.proxy(self)
+        self.watchdog = (
+            StallWatchdog(engine,
+                          on_stall=lambda message: owner._on_stall(message),
+                          on_clear=lambda: owner._on_stall_clear(),
+                          interval=watchdog_interval,
+                          multiplier=stall_multiplier,
+                          floor_s=stall_floor_s)
+            if watchdog_interval > 0 else None
+        )
         self._httpd = ThreadingHTTPServer((host, port), _Handler)
-        self._httpd.owner = weakref.proxy(self)
+        self._httpd.owner = owner
         self.host, self.port = self._httpd.server_address[:2]
         self._http_thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True
         )
         self._step_thread = threading.Thread(target=self._step_loop,
-                                               daemon=True)
+                                             daemon=True)
+
+    # -- the stall watchdog's verdicts ----------------------------------------
+
+    def _on_stall(self, message: str) -> None:
+        """Fail in-flight requests fast with the retryable "stalled" kind
+        (503 with Retry-After) and turn ``/healthz`` 503."""
+        with self._error_lock:
+            if self.error is None:
+                self.error = message
+                self._stall_error = True
+        self.engine.abort(message, kind="stalled")
+
+    def _on_stall_clear(self) -> None:
+        """The wedged wait returned: ``/healthz`` is 200 again, unless
+        the step thread died meanwhile (that error stays)."""
+        with self._error_lock:
+            if self._stall_error:
+                self.error = None
+                self._stall_error = False
+
+    # -- shipping -------------------------------------------------------------
+
+    def load_snapshot(self) -> dict:
+        """The engine's live pressure plus this instance's pool role:
+        ``/v1/info``'s ``load``."""
+        return dict(self.engine.load(), pool=self.pool)
+
+    def begin_drain(self) -> None:
+        """Migrate-out drain (``POST /v1/drain``): stop admitting, and
+        have the step thread suspend every in-flight request into a
+        ``/v1/slot`` record at its next step.  Idempotent; any thread."""
+        self.engine.begin_migrate_out()
+
+    def _unavailable(self, handler, what: str) -> bool:
+        """Refuse (503) a route that reads the device while the error
+        latch stands: against a wedged card the read would hang this
+        handler thread."""
+        if self.error is None:
+            return False
+        handler._json(503, {"error": f"{what} unavailable: {self.error}"})
+        return True
+
+    def _stream_weights(self, handler) -> None:
+        """``GET /v1/weights``: the reference's flat parameter dict in
+        its framing — manifest, then each leaf's bytes in manifest order,
+        each made and copied down as it is sent."""
+        if self._unavailable(handler, "weights"):
+            return
+        leaves = jax_leaves(self.engine.params, self.engine.cfg)
+        manifest = [{"name": leaf.name, "dtype": leaf.dtype,
+                     "shape": list(leaf.shape)} for leaf in leaves]
+        total = sum(math.prod(leaf.shape) * (
+            1 if leaf.dtype == "int4"
+            else disagg.torch_dtype(leaf.dtype).itemsize) for leaf in leaves)
+        parts = [part for leaf in leaves for part in leaf.parts]
+        _send_transfer(handler, manifest, total,
+                       _weight_chunks(self.engine.device, parts))
+
+    def _send_export(self, handler, manifest, arrays) -> None:
+        total = sum(a.numel() * a.element_size() for a in arrays)
+        _send_transfer(handler, manifest, total,
+                       (_leaf_views(a) for a in arrays))
+
+    def _stream_kv(self, handler) -> None:
+        """``GET /v1/kv?rid=N`` (held KV) or ``?prefix=D`` (a resident
+        prefix entry): 404 when there is nothing of that name, 409 when
+        this engine cannot ship (dense, packed int4)."""
+        if self._unavailable(handler, "KV export"):
+            return
+        params = parse_qs(handler.path.partition("?")[2])
+        prefix = (params.get("prefix") or [""])[0]
+        try:
+            if prefix:
+                manifest, arrays = self.engine.export_kv_prefix(prefix)
+            else:
+                manifest, arrays = self.engine.export_kv(
+                    int(params["rid"][0]))
+        except (KeyError, ValueError):
+            handler._json(400, {"error": "need ?rid=<request id> or "
+                                         "?prefix=<digest>"})
+            return
+        except disagg.KvIneligibleError as exc:
+            missing = ("no held KV" in str(exc)
+                       or "no resident prefix" in str(exc))
+            handler._json(404 if missing else 409, {"error": str(exc)})
+            return
+        self._send_export(handler, manifest, arrays)
+
+    def _stream_slot(self, handler) -> None:
+        """``GET /v1/slot?rid=N``: one suspended slot's record (the KV
+        wire with its ``"slot"`` branch); 404 when the rid has no record
+        (released, swept or never suspended here), 409 when it cannot
+        ship."""
+        if self._unavailable(handler, "slot export"):
+            return
+        params = parse_qs(handler.path.partition("?")[2])
+        try:
+            rid = int(params["rid"][0])
+        except (KeyError, ValueError):
+            handler._json(400, {"error": "need ?rid=<request id>"})
+            return
+        try:
+            manifest, arrays = self.engine.export_slot(rid)
+        except disagg.KvIneligibleError as exc:
+            code = 404 if "no migrated slot" in str(exc) else 409
+            handler._json(code, {"error": str(exc)})
+            return
+        self._send_export(handler, manifest, arrays)
+
+    def _ingest(self, handler, slot: bool) -> None:
+        """``PUT /v1/kv`` or ``PUT /v1/slot``: stage a shipped state
+        (validated against this engine, blocks reserved all-or-nothing):
+        a hold becomes a continuation's ``kv_import`` (``{"import_id",
+        "rows"}``), a prefix entry is installed (``{"prefix", "rows"}``,
+        rows 0 when already resident), a slot echoes its branch
+        (``{"import_id", "rows", "slot"}``).  409 on a mismatch, 429 on
+        pool exhaustion, 400 on a malformed body."""
+        engine = self.engine
+        try:
+            manifest, data = disagg.unpack_transfer(handler._body())
+            if slot:
+                import_id, rows, meta = engine.import_slot(manifest, data)
+                reply = {"import_id": import_id, "rows": rows, "slot": meta}
+            elif manifest.get("prefix"):
+                digest, rows = engine.import_kv_prefix(manifest, data)
+                reply = {"prefix": digest, "rows": rows}
+            else:
+                import_id, rows = engine.import_kv(manifest, data)
+                reply = {"import_id": import_id, "rows": rows}
+        except disagg.KvCapacityError as exc:
+            handler._json(429, {"error": str(exc)})
+            return
+        except (disagg.KvGeometryError, disagg.KvIneligibleError) as exc:
+            handler._json(409, {"error": str(exc)})
+            return
+        except (KeyError, TypeError, ValueError) as exc:
+            handler._json(400, {"error": str(exc)})
+            return
+        handler._json(200, reply)
+
+    # -- lifecycle -------------------------------------------------------------
 
     def _step_loop(self) -> None:
         while not self._stop.is_set():
@@ -286,19 +750,28 @@ class ServeServer:
                 else:
                     time.sleep(0.005)
             except Exception as exc:  # step-thread death = service death
-                self.error = f"{type(exc).__name__}: {exc}"
+                message = f"{type(exc).__name__}: {exc}"
+                with self._error_lock:
+                    # Over a stall verdict too: a dead step thread is the
+                    # stronger condition, and permanent.
+                    self.error = message
+                    self._stall_error = False
                 # step() already latched the crash and failed every
                 # waiter; this abort is a backstop.
-                self.engine.abort(self.error)
+                self.engine.abort(message)
                 return
 
     def start(self) -> "ServeServer":
         self._http_thread.start()
         self._step_thread.start()
+        if self.watchdog is not None:
+            self.watchdog.start()
         return self
 
     def stop(self) -> None:
         self._stop.set()
+        if self.watchdog is not None:
+            self.watchdog.stop()
         self._httpd.shutdown()
         self._httpd.server_close()
         self._http_thread.join(timeout=10)

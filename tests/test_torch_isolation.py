@@ -3,7 +3,9 @@
 - No module of ``oim_tpu_torch`` and not ``chip_smoke.py`` imports JAX
   (``jax``, ``jaxlib``, ``flax``, ``optax``) or anything of the JAX
   package ``oim_tpu``: the port keeps its own copy of what it needs.
-  Nor ``grpc``, which the card's machine does not have.
+  Nor ``grpc``, which the card's machine does not have.  Importing what
+  a serving process runs — ``serve_main``, the server, the ship clients
+  of ``serve/disagg.py``, the checkpoint manager — loads none of them.
 - Every port module carries a docstring, imports nothing it does not
   use, and prints only from ``cli/`` (the gates ``tests/test_quality.py``
   holds ``oim_tpu`` to).
@@ -103,6 +105,23 @@ def test_no_unused_imports(path):
     }
     unused = sorted(set(imported) - used)
     assert not unused, f"unused imports: {unused}"
+
+
+# The modules a serving process imports, the HTTP ship clients among
+# them: importing them (in a fresh interpreter) loads nothing forbidden.
+RUNTIME = ("oim_tpu_torch.cli.serve_main", "oim_tpu_torch.serve.server",
+           "oim_tpu_torch.serve.disagg", "oim_tpu_torch.checkpoint")
+
+
+def test_runtime_imports_stay_out():
+    forbidden = sorted(FORBIDDEN | {"grpc"})
+    code = (f"import sys, {', '.join(RUNTIME)}; print(sorted("
+            f"{{m.split('.')[0] for m in sys.modules}} & set({forbidden!r})))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
 
 
 def _tiny():

@@ -335,10 +335,11 @@ def test_pending_steps_a_prefill_to_its_end(model):
     assert engine.result(rid) == _oracle(model, prompt, 3)
 
 
-def _http(port, path, body=None):
+def _http(port, path, body=None, method=None):
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json"},
+                                 method=method)
     try:
         with urllib.request.urlopen(req, timeout=120) as resp:
             return resp.status, json.loads(resp.read())
@@ -385,8 +386,14 @@ def test_serve_main_prefix_cache_and_prefill_chunk(layout):
         assert stats["prefill_segments"] == 4
         info = _http(server.port, "/v1/info")[1]["engine"]
         assert (info["prefix_cache_size"], info["prefill_chunk"]) == (2, 16)
-        for path, body in (("/v1/kv?prefix=abc", None), ("/v1/kv", {})):
-            status, reply = _http(server.port, path, body)
-            assert status == 501 and "A11" in reply["error"]
+        # The KV routes answer as the reference's: an unknown digest is
+        # 404 on the paged pool and 409 on the dense cache (it cannot
+        # ship), and a PUT whose body is no transfer is 409.
+        status, reply = _http(server.port, "/v1/kv?prefix=abc")
+        assert status == (404 if engine.paged else 409)
+        assert ("no resident prefix" if engine.paged
+                else "paged engine") in reply["error"]
+        status, reply = _http(server.port, "/v1/kv", {}, method="PUT")
+        assert status == 409 and "malformed KV transfer" in reply["error"]
     finally:
         server.stop()

@@ -431,8 +431,19 @@ def test_server_generate_roundtrip(model):
         info = _get(server.port, "/v1/info")
         assert info["engine"]["paged"] and info["engine"]["device"] == "cpu"
         assert info["model"]["n_kv_heads"] == 2
-        status, reply = _post(server.port, {"tokens": [1], "stream": True})
-        assert status == 400 and "stream" in reply["error"]
+        # A stream answers NDJSON: the solo oracle's tokens, one line
+        # each, then the done line.
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/v1/generate",
+            data=json.dumps({"tokens": prompts[0], "max_new_tokens": 7,
+                             "stream": True}).encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert resp.headers["Content-Type"] == "application/x-ndjson"
+            lines = [json.loads(ln) for ln in resp.read().splitlines()]
+        want = tdecode.generate(params, torch.tensor([prompts[0]]), tcfg, 7)
+        want = want[0, len(prompts[0]):].tolist()
+        assert [ln["token"] for ln in lines[:-1]] == want
+        assert lines[-1]["done"] is True and lines[-1]["tokens"] == want
         # The prefix cache is off: cache_prefix is ignored, as in the
         # reference, not refused.
         status, reply = _post(server.port, {"tokens": [1],

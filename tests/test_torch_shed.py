@@ -232,6 +232,14 @@ def test_server_retry_after_tenant_and_trace(model):
         code, body, headers = results["late"]
         assert code == 429 and "deadline" in body["error"]
         _retry_after(headers)
+        # The step thread finalizes a request (spans, ring entry, then
+        # its tenant row) just after its reply is out: wait for the row,
+        # the last of them, rather than race it.
+        deadline = time.monotonic() + 10
+        while engine.stats()["tenants"].get("user.hdr", {}).get(
+                "tokens_out") != 8:
+            assert time.monotonic() < deadline, "user.hdr never finalized"
+            time.sleep(0.005)
         entry = next(e for e in engine.requests()["requests"]
                      if e["tenant"] == "user.hdr")
         assert entry["trace"] == parent.trace_id
