@@ -101,6 +101,25 @@ export, a stall (503 "stalled", ``/healthz`` 503 then 200), and the
 observation routes; with the kv io phase's path gates and no device
 wait beyond the engines', the exports' and the weight copies'.  It runs
 in the full smoke and with ``--serve-phase-only`` too.
+``--front-phase-only`` runs only the front phase (``front_phase``): the
+operator's front door at the served widths with ``--kv-block 16``.
+Server A has a byte-level stand-in tokenizer (``ByteTokenizer``; the
+card's machine serves without an HF tokenizer directory): text prompts
+against their ids, NDJSON text deltas, ``/v1/completions`` (n = 2
+sampled choices against ``/v1/generate`` with seed s + i, a stop string,
+SSE) and ``/v1/chat/completions``; A' (A's weights) over mTLS with
+certificates ``openssl`` makes (good, certless, evil-CA and non-serving
+clients, the CN as the tenant, the weights over https against http);
+the kernel switch's A/B, engine K (the kernels) against P (both
+switches off), K P P K on eight concurrent requests and a lone
+512-token prompt; a 2 s ``/debugz/profile`` capture during four
+streams; the recompile sentinel (silent after warmup, and an unwarmed
+engine armed by hand charged its first dispatch's captures while a
+sibling's warmup fires nothing); a mixed engine (decode on the
+kernels, admissions plain); and ``serve_main`` as its own process with
+``--trace-file --log-level debug --paged-kernel on``.  It runs in the
+full smoke and with ``--serve-phase-only`` when the package has
+``--tokenizer-dir``.
 
 It exits non-zero without a result line when no GPU is visible, when the
 port's package is not beside it, or when any phase fails.  Every number
@@ -3280,6 +3299,11 @@ class SyncCensus:
                         else [engines])
         self.weight_chunks = weight_chunks
         self.calls = dict.fromkeys([n for n, _, _ in self.NAMES], 0)
+        # Where each counted call came from (its three callers), named in
+        # a failure's message; every count is taken under the lock, since
+        # several engines' step threads and handlers count at once.
+        self.sites: dict = {}
+        self.lock = threading.Lock()
         self.chunks = self.waves = 0
         self.saved = []
 
@@ -3292,13 +3316,15 @@ class SyncCensus:
             process, admit = e._process_chunk, e._admit_wave
 
             def processing(*args, _process=process, **kw):
-                self.chunks += 1
+                with self.lock:
+                    self.chunks += 1
                 return _process(*args, **kw)
 
             def admitting(*args, _admit=admit, _e=e, **kw):
                 n = _e.prefill_dispatches
                 out = _admit(*args, **kw)
-                self.waves += _e.prefill_dispatches > n
+                with self.lock:
+                    self.waves += _e.prefill_dispatches > n
                 return out
 
             e._process_chunk, e._admit_wave = processing, admitting
@@ -3307,7 +3333,16 @@ class SyncCensus:
 
     def _counting(self, name, fn):
         def counted(*args, **kw):
-            self.calls[name] += 1
+            with self.lock:
+                self.calls[name] += 1
+            frame, site = sys._getframe(1), []
+            while frame is not None and len(site) < 3:
+                site.append(f"{os.path.basename(frame.f_code.co_filename)}:"
+                            f"{frame.f_lineno}")
+                frame = frame.f_back
+            key = (name, " < ".join(site))
+            with self.lock:
+                self.sites[key] = self.sites.get(key, 0) + 1
             return fn(*args, **kw)
         return counted
 
@@ -3334,7 +3369,8 @@ class SyncCensus:
               f"{tag}: device waits {self.calls} != {want} for {d} "
               f"dispatches, {self.chunks} chunks read back ({reads} "
               f"readbacks counted), {self.waves} admission waves, "
-              f"{exports} exports and {self.weight_chunks} weight copies")
+              f"{exports} exports and {self.weight_chunks} weight copies; "
+              f"from {self.sites}")
         return {"waits": dict(self.calls), "dispatches": d,
                 "chunks_read": self.chunks, "waves": self.waves,
                 "exports": exports, "weight_chunks": self.weight_chunks}
@@ -4461,6 +4497,937 @@ def http_phase() -> dict:
     check(torch.cuda.memory_allocated() < 2**30,
           f"the http phase still holds "
           f"{gib(torch.cuda.memory_allocated()):.1f} GiB")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Front phase: the operator's front door (text, OpenAI, mTLS, profiling,
+# the recompile sentinel, the kernel switch, the daemon's init)
+
+FRONT_ARGS = SERVE_ARGS + ["--kv-block", "16"]
+FRONT_TEXT_BYTES = (128, 256, 384, 512)
+FRONT_NEW = 128
+FRONT_SAMPLED = (0.8, 77)  # temperature, seed of the n = 2 completions
+FRONT_SWITCH_PROMPTS = (128, 176, 224, 272, 320, 368, 416, 512)
+FRONT_PROFILE_PROMPTS, FRONT_PROFILE_NEW = (128, 192, 256, 320), 1536
+FRONT_PROFILE_S = 2.0
+# Qwen2.5's <|endoftext|>, the stand-in tokenizer's EOS.
+QWEN_EOS = 151643
+
+
+class ByteTokenizer:
+    """A byte-level stand-in for ``TextTokenizer`` (the card's machine
+    serves without an HF tokenizer directory): text is its UTF-8 bytes,
+    one id a byte; an id decodes to one byte, ids past 255 folded into
+    bytes, so that the model's random ids split characters across
+    tokens; the EOS is skipped as a special token; the chat template
+    joins the contents.  Its stream decoder is the port's own."""
+
+    path = "byte-level stand-in"
+    eos_id = QWEN_EOS
+
+    def encode(self, text: str) -> list[int]:
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids) -> str:
+        return bytes(i % 256 for i in ids if i != QWEN_EOS).decode(
+            "utf-8", errors="replace")
+
+    def apply_chat_template(self, messages) -> list[int]:
+        return self.encode("".join(m["content"] for m in messages))
+
+    def stream_decoder(self):
+        from oim_tpu_torch.serve.texttok import StreamDecoder
+
+        return StreamDecoder(self)
+
+
+def front_text(rng, n: int) -> str:
+    """``n`` bytes of ASCII text."""
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz .,", np.uint8)
+    return bytes(rng.choice(letters, n)).decode()
+
+
+def sse_events(port: int, path: str, body: dict, opener=None,
+               scheme: str = "http") -> tuple[list, float]:
+    """The SSE payloads of one streamed OpenAI call (``[DONE]`` as the
+    string) and the wall to the first, in ms."""
+    req = urllib.request.Request(
+        f"{scheme}://127.0.0.1:{port}{path}",
+        data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    out, first = [], None
+    t0 = time.monotonic()
+    with (opener or urllib.request.urlopen)(req, timeout=600) as resp:
+        check(resp.headers["Content-Type"] == "text/event-stream",
+              f"front sse: headers {dict(resp.headers)}")
+        for raw in resp:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                if first is None:
+                    first = (time.monotonic() - t0) * 1e3
+                payload = line[len("data: "):]
+                out.append(payload if payload == "[DONE]"
+                           else json.loads(payload))
+    return out, first
+
+
+def front_text_leg(port: int, a, tok) -> dict:
+    """Text prompts beside the same ids, each request alone (one shape):
+    equal tokens, ``text`` the decode of the tokens, the NDJSON text
+    deltas joined the final text.  Records the lone 512-byte prompt's
+    plain TTFT and first NDJSON line."""
+    rng = np.random.RandomState(41)
+    out = {}
+    for n in FRONT_TEXT_BYTES:
+        text = front_text(rng, n)
+        by_text = http_ok(port, {"text": text, "max_new_tokens": FRONT_NEW})
+        by_ids = http_ok(port, {"tokens": tok.encode(text),
+                                "max_new_tokens": FRONT_NEW,
+                                "eos_id": QWEN_EOS})
+        lines = []
+        first = http_stream(port, {"text": text,
+                                   "max_new_tokens": FRONT_NEW}, lines)
+        done = lines[-1]
+        streamed = "".join(ln["text"] for ln in lines[:-1]) + done.get(
+            "text", "")
+        check(by_text["tokens"] == by_ids["tokens"] == done["tokens"],
+              f"front text {n}: text and token prompts differ")
+        check(by_text["text"] == by_ids["text"] == streamed
+              == tok.decode(by_text["tokens"]),
+              f"front text {n}: the text is not the decode of the tokens, "
+              f"or the NDJSON deltas do not join to it")
+        out[n] = {"first_line_ms": first,
+                  "plain_ttft_ms": ttft_ms(ring_entry(
+                      a, by_text["request_id"])),
+                  "tokens": by_text["tokens"], "text": text}
+    return out
+
+
+def front_openai_leg(port: int, engine, texts: dict, tok) -> dict:
+    """``/v1/completions``: n = 2 sampled choices, each ``/v1/generate``
+    with seed s + i (or parting from it at a near tie: the two choices
+    admit as one two-row dispatch, the generate alone); a stop string
+    from a greedy reply's own text cuts it by the reference's rule with
+    ``usage`` unchanged; SSE deltas join to the non-streamed text, one
+    ``[DONE]``.  ``/v1/chat/completions``, streamed and not, equals
+    ``/v1/completions`` on the rendered prompt.  Records the first SSE
+    chunk's latency; returns the sampled choices' gate inputs
+    (``kv_gate``, taken after the census)."""
+    temp, seed = FRONT_SAMPLED
+    text = texts[256]["text"]
+    body = {"prompt": text, "max_tokens": 64, "temperature": temp,
+            "seed": seed, "n": 2}
+    # The choices carry text, which the stand-in's decode folds: the
+    # tokens behind each are read off the engine's results as the
+    # handler takes them.
+    taken = {}
+    result = engine.result
+
+    def recording(rid, *args, **kw):
+        out = result(rid, *args, **kw)
+        taken[rid] = list(out)
+        return out
+
+    engine.result = recording
+    try:
+        status, _, reply = http_call(port, "/v1/completions", body)
+    finally:
+        vars(engine).pop("result", None)
+    check(status == 200 and [c["index"] for c in reply["choices"]] == [0, 1]
+          and 0 < reply["usage"]["completion_tokens"] <= 128,
+          f"front completions n=2: {status} {reply}")
+    first = int(reply["id"].rsplit("-", 1)[1])
+    reqs, wants, gots = [], [], []
+    for i, choice in enumerate(reply["choices"]):
+        native = http_ok(port, {"text": text, "max_new_tokens": 64,
+                                "temperature": temp, "seed": seed + i})
+        got = taken[first + i]
+        check(choice["text"] == tok.decode(got),
+              f"front completions: choice {i}'s text is not its decode")
+        reqs.append({"tokens": tok.encode(text), "temperature": temp,
+                     "seed": seed + i})
+        wants.append(native["tokens"])
+        gots.append(got)
+    greedy = {"prompt": texts[512]["text"], "max_tokens": 64,
+              "temperature": 0.0}
+    full = http_call(port, "/v1/completions", greedy)[2]
+    whole = full["choices"][0]["text"]
+    mid = len(whole) // 2
+    stop = whole[mid:mid + 2]
+    cut = http_call(port, "/v1/completions", dict(greedy, stop=stop))[2]
+    check(cut["choices"][0]["text"] == whole[:whole.find(stop)]
+          and cut["choices"][0]["finish_reason"] == "stop"
+          and cut["usage"] == full["usage"],
+          f"front completions: stop {stop!r} cut {cut['choices'][0]!r}")
+    events_, first_sse = sse_events(port, "/v1/completions", greedy)
+    check(events_.count("[DONE]") == 1 and events_[-1] == "[DONE]"
+          and "".join(e["choices"][0]["text"] for e in events_[:-1])
+          == whole, "front completions: the SSE deltas differ")
+    chat_body = {"messages": [{"role": "user", "content": texts[512][
+        "text"]}], "max_tokens": 64, "temperature": 0.0}
+    chat = http_call(port, "/v1/chat/completions", chat_body)[2]
+    chat_events, _ = sse_events(port, "/v1/chat/completions", chat_body)
+    check(chat["choices"][0]["message"]["content"] == whole
+          and chat["usage"] == full["usage"]
+          and "".join(e["choices"][0]["delta"].get("content", "")
+                      for e in chat_events[:-1]) == whole
+          and chat_events[-1] == "[DONE]",
+          "front chat: not the completion of the rendered prompt")
+    for refused in ({"stop": "x"}, {"n": 2}):
+        status, _, _ = http_call(port, "/v1/completions", dict(
+            greedy, stream=True, **refused))
+        check(status == 400, f"front completions: stream with {refused} "
+              f"answered {status}")
+    return {"gate": (reqs, wants, gots), "stop": stop,
+            "first_sse_ms": first_sse}
+
+
+def make_certs(work: str) -> dict:
+    """A CA and certificates for ``serve.a``, ``user.t1`` and
+    ``controller.x``, and an evil CA with its own ``user.t1``, made with
+    ``openssl`` in ``work``: {name: (ca, cert, key)}."""
+    import subprocess
+
+    ext = os.path.join(work, "leaf.cnf")
+    with open(ext, "w") as f:
+        f.write("basicConstraints=CA:FALSE\nkeyUsage=digitalSignature\n"
+                "extendedKeyUsage=serverAuth,clientAuth\n")
+    ec = ["-newkey", "ec", "-pkeyopt", "ec_paramgen_curve:prime256v1",
+          "-nodes"]
+
+    def run(*cmd):
+        proc = subprocess.run(["openssl", *cmd], cwd=work,
+                              capture_output=True, text=True)
+        check(proc.returncode == 0, f"openssl {cmd[0]}: {proc.stderr}")
+
+    for ca in ("good", "evil"):
+        run("req", "-x509", *ec, "-keyout", f"{ca}-ca.key", "-out",
+            f"{ca}-ca.crt", "-subj", f"/CN={ca} CA", "-days", "2")
+    out = {}
+    for name, ca, cn in (("serve.a", "good", "serve.a"),
+                         ("user.t1", "good", "user.t1"),
+                         ("controller.x", "good", "controller.x"),
+                         ("evil", "evil", "user.t1")):
+        run("req", *ec, "-keyout", f"{name}.key", "-out", f"{name}.csr",
+            "-subj", f"/CN={cn}")
+        run("x509", "-req", "-in", f"{name}.csr", "-CA", f"{ca}-ca.crt",
+            "-CAkey", f"{ca}-ca.key", "-CAcreateserial", "-out",
+            f"{name}.crt", "-days", "2", "-extfile", ext)
+        out[name] = tuple(os.path.join(work, f) for f in (
+            "good-ca.crt", f"{name}.crt", f"{name}.key"))
+    return out
+
+
+def front_tls_leg(a, a2, a_port: int, tls_port: int, tls_server,
+                  certs: dict) -> dict:
+    """Server A' (A's weights) over mTLS: a ``user.t1`` client gets A's
+    tokens and is the ring entry's tenant whatever ``x-oim-tenant`` says;
+    certless and evil-CA clients fail the handshake (counted);
+    ``controller.x`` gets 403; ``load_params_from_peer`` over https
+    restores A''s parameters bit for bit.  Records ``/v1/weights`` GB/s
+    over TLS against plain HTTP, and a stream's first line over both."""
+    import ssl
+
+    from oim_tpu_torch.checkpoint import load_params_from_peer
+    from oim_tpu_torch.models.train import named_parameters
+    from oim_tpu_torch.serve import httptls
+
+    def client(name):
+        ca, crt, key = certs[name]
+        return httptls.client_ssl_context(ca, crt, key)
+
+    def tls_call(context, body, headers=None):
+        req = urllib.request.Request(
+            f"https://127.0.0.1:{tls_port}/v1/generate",
+            data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json", **(headers or {})})
+        with httptls.opener(context).open(req, timeout=600) as resp:
+            return json.loads(resp.read())
+
+    rng = np.random.RandomState(43)
+    body = {"tokens": rng.randint(0, VOCAB, 512).tolist(),
+            "max_new_tokens": 64}
+    plain = http_ok(a_port, body)
+    got = tls_call(client("user.t1"), body,
+                   {"x-oim-tenant": "premium-forged"})
+    check(got["tokens"] == plain["tokens"],
+          "front tls: A' over mTLS differs from A")
+    check(ring_entry(a2, got["request_id"])["tenant"] == "user.t1",
+          "front tls: the tenant is not the peer's CN")
+    before = tls_server._httpd.handshake_failures
+    for context in (httptls.client_ssl_context(certs["user.t1"][0]),
+                    client("evil")):
+        try:
+            tls_call(context, body)
+            check(False, "front tls: a client without a good cert served")
+        except (ssl.SSLError, urllib.error.URLError, OSError):
+            pass
+    deadline = time.monotonic() + 10
+    while (tls_server._httpd.handshake_failures < before + 2
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+    check(tls_server._httpd.handshake_failures == before + 2,
+          f"front tls: {tls_server._httpd.handshake_failures - before} "
+          f"handshake failures counted, not 2")
+    try:
+        tls_call(client("controller.x"), body)
+        check(False, "front tls: controller.x served")
+    except urllib.error.HTTPError as exc:
+        check(exc.code == 403, f"front tls: controller.x got {exc.code}")
+    # A stream's first line over mTLS against plain HTTP.
+    firsts = {}
+    for scheme, port, opener in (
+            ("http", a_port, None),
+            ("https", tls_port, httptls.opener(client("user.t1")).open)):
+        req = urllib.request.Request(
+            f"{scheme}://127.0.0.1:{port}/v1/generate",
+            data=json.dumps(dict(body, stream=True)).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.monotonic()
+        with (opener or urllib.request.urlopen)(req, timeout=600) as resp:
+            resp.readline()
+            firsts[scheme] = (time.monotonic() - t0) * 1e3
+            resp.read()
+    # The weights over both.
+    rates = {}
+    theirs = dict(named_parameters(a2.params))
+    for scheme, port, context in (("http", a_port, None),
+                                  ("https", tls_port, client("user.t1"))):
+        t0 = time.monotonic()
+        params = load_params_from_peer(f"{scheme}://127.0.0.1:{port}",
+                                       a2.cfg, a2.device,
+                                       ssl_context=context)
+        torch.cuda.current_stream().synchronize()
+        wall = time.monotonic() - t0
+        ours = dict(named_parameters(params))
+        check(ours.keys() == theirs.keys() and all(
+            ours[k].dtype == v.dtype and torch.equal(ours[k], v)
+            for k, v in theirs.items()),
+            f"front tls: weights over {scheme} differ from A''s")
+        nbytes = sum(v.numel() * v.element_size() for v in theirs.values())
+        rates[scheme] = {"seconds": wall, "gb_s": nbytes / 1e9 / wall}
+        del params, ours
+    print(f"front tls: A' over mTLS serves user.t1 A's tokens as tenant "
+          f"user.t1 (a forged x-oim-tenant ignored); a certless and an "
+          f"evil-CA client failed the handshake (2 counted); controller.x "
+          f"403; weights over https {rates['https']['gb_s']:.2f} GB/s "
+          f"against {rates['http']['gb_s']:.2f} over http, bit-equal; a "
+          f"512-token stream's first line {firsts['https']:.1f} ms over "
+          f"mTLS, {firsts['http']:.1f} ms plain [{SMI}]", flush=True)
+    return {"weights": rates, "first_line_ms": firsts}
+
+
+def front_traffic(port: int, seed: int) -> tuple[list, list]:
+    """Eight greedy requests at once (one a slot), then a lone 512-token
+    prompt: (the eight requests' GenRequest bodies and token lists, the
+    lone prompt's client TTFT in ms as the last item)."""
+    rng = np.random.RandomState(seed)
+    bodies = [{"tokens": rng.randint(0, VOCAB, n).tolist(),
+               "max_new_tokens": FRONT_NEW}
+              for n in FRONT_SWITCH_PROMPTS]
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        replies = list(pool.map(lambda b: http_ok(port, b), bodies))
+    t0 = time.monotonic()
+    http_ok(port, {"tokens": rng.randint(0, VOCAB, 512).tolist(),
+                   "max_new_tokens": 1})
+    return bodies, [r["tokens"] for r in replies] + [
+        (time.monotonic() - t0) * 1e3]
+
+
+def front_switch_leg(servers: dict, engines: dict) -> dict:
+    """Engine K (the defaults: the kernels) and engine P (both switches
+    off), one weights copy, both graphed at depth 2, serve the same eight
+    concurrent requests and a lone 512-token prompt in the order K P P
+    K.  Gates: K's K1/K2 launches by route are its layers x passes, P
+    launches neither and runs the plain versions as many times, every
+    dispatch of both a replay, the greedy tokens equal or parting at a
+    near tie (``kv_gate`` on the returned inputs, after the census),
+    ``load()`` each engine's path.  Records each run's decode tok/s and
+    lone-512 TTFT."""
+    from oim_tpu_torch.ops import paged_attention as pa
+
+    runs, tokens = [], {}
+    totals = {name: dict.fromkeys(pa.counters(), 0) for name in "KP"}
+    for name in "KPPK":
+        engine = engines[name]
+        s0 = engine.stats()
+        pa.reset_counters()
+        bodies, got = front_traffic(servers[name].port, 51)
+        counts = pa.counters()
+        s = engine.stats()
+        d = {k: s[k] - s0[k] for k in (
+            "decode_passes", "decode_dispatches", "graph_replays",
+            "prefill_dispatches", "admission_replays", "decode_tokens",
+            "decode_seconds")}
+        rate = d["decode_tokens"] / max(d["decode_seconds"], 1e-9)
+        runs.append({"engine": name, "decode_tok_s": rate,
+                     "lone_512_ttft_ms": got[-1]})
+        tokens.setdefault(name, got[:-1])
+        check(d["graph_replays"] == d["decode_dispatches"] > 0
+              and d["admission_replays"] == d["prefill_dispatches"] > 0,
+              f"front switch {name}: not every dispatch a replay: {d}")
+        layers = engine.cfg.n_layers
+        if name == "K":
+            check(counts["paged_flash_decode_rows8"]
+                  == counts["paged_kv_store_t1"]
+                  == layers * d["decode_passes"]
+                  and counts["paged_flash_decode_tc"]
+                  == counts["paged_kv_store"] - counts["paged_kv_store_t1"]
+                  == layers * d["prefill_dispatches"]
+                  and counts["paged_flash_decode_plain"]
+                  == counts["paged_kv_store_plain"] == 0,
+                  f"front switch K: {counts} over {d}")
+        else:
+            passes = d["decode_passes"] + d["prefill_dispatches"]
+            check(counts["paged_flash_decode"] == counts["paged_kv_store"]
+                  == 0 and counts["paged_flash_decode_plain"]
+                  == counts["paged_kv_store_plain"] == layers * passes,
+                  f"front switch P: {counts} over {d}")
+        for k, v in counts.items():
+            totals[name][k] += v
+    check(tokens["K"] and len(tokens["K"]) == len(tokens["P"]),
+          "front switch: runs missing")
+    for name, want in (("K", (True, True)), ("P", (False, False))):
+        load = engines[name].load()
+        check((load["paged_kernel"], load["prefill_kernel"]) == want,
+              f"front switch {name}: load() reports {load['paged_kernel']}, "
+              f"{load['prefill_kernel']}")
+    rate = {n: [r["decode_tok_s"] for r in runs if r["engine"] == n]
+            for n in "KP"}
+    ttft = {n: [r["lone_512_ttft_ms"] for r in runs if r["engine"] == n]
+            for n in "KP"}
+    print("front switch: K P P K decode "
+          + ", ".join(f"{r['decode_tok_s']:.1f}" for r in runs)
+          + " tok/s, lone-512 TTFT "
+          + ", ".join(f"{r['lone_512_ttft_ms']:.1f}" for r in runs)
+          + f" ms; K launched K1/K2 by route as its passes say, P the plain "
+          f"versions only, every dispatch a replay [{SMI}]", flush=True)
+    return {"runs": runs, "gate": (bodies, tokens["K"], tokens["P"]),
+            "counts": totals, "decode_tok_s": rate,
+            "lone_512_ttft_ms": ttft}
+
+
+def front_decode_rate(port: int, engine, seed: int) -> float:
+    """The engine's decode tok/s over four concurrent 256-token requests
+    (its own counters)."""
+    rng = np.random.RandomState(seed)
+    s0 = engine.stats()
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(lambda n: http_ok(port, {
+            "tokens": rng.randint(0, VOCAB, n).tolist(),
+            "max_new_tokens": 256}), (128, 192, 256, 320)))
+    s = engine.stats()
+    return ((s["decode_tokens"] - s0["decode_tokens"])
+            / max(s["decode_seconds"] - s0["decode_seconds"], 1e-9))
+
+
+def front_profile_leg(port: int, engine) -> dict:
+    """Four greedy streams on A, first unprofiled, then again with a
+    2 s ``POST /debugz/profile`` taken in their middle: a second POST
+    gets 409, the status is polled until done, the download's tarball
+    holds a Chrome trace naming the step thread's kernels or its graph
+    launches (which is recorded); returns the profiled and unprofiled
+    streams for ``kv_gate``.  Records the decode rate the
+    clients saw inside the window against before and after it."""
+    import io
+    import tarfile
+
+    rng = np.random.RandomState(47)
+    bodies = [{"tokens": rng.randint(0, VOCAB, n).tolist(),
+               "max_new_tokens": FRONT_PROFILE_NEW}
+              for n in FRONT_PROFILE_PROMPTS]
+
+    def streams(stamps):
+        def one(body):
+            lines = []
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/generate",
+                data=json.dumps(dict(body, stream=True)).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                for raw in resp:
+                    if raw.strip():
+                        lines.append(json.loads(raw))
+                        stamps.append(time.time())
+            return lines[-1]["tokens"]
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            return list(pool.map(one, bodies))
+
+    # A first capture, alone: it pays the tracer's start-up (reported as
+    # init_s), so that the measured one's window is the card's work.
+    status, _, reply = http_call(port, "/debugz/profile", {"seconds": 0.05})
+    check(status == 202, f"front profile: the first POST answered {status}")
+    while True:
+        first_doc = http_call(port, "/debugz/profile")[2]["profile"]
+        if first_doc["state"] != "running":
+            break
+        time.sleep(0.02)
+    check(first_doc["state"] == "done", f"front profile: {first_doc}")
+    shutil.rmtree(first_doc["dir"], ignore_errors=True)
+    os.remove(first_doc["tar"])
+    quiet = streams([])
+    before = front_decode_rate(port, engine, 61)
+    stamps, window = [], {}
+
+    def profile():
+        try:
+            capture()
+        except BaseException as exc:  # re-raised on the leg's thread
+            window["error"] = exc
+
+    def capture():
+        while len(stamps) < 400:  # the streams are decoding
+            time.sleep(0.005)
+        status, _, reply = http_call(port, "/debugz/profile",
+                                     {"seconds": FRONT_PROFILE_S})
+        check(status == 202, f"front profile: POST answered {status}")
+        status, _, _ = http_call(port, "/debugz/profile", {"seconds": 1})
+        check(status == 409, f"front profile: a second POST got {status}")
+        deadline = time.monotonic() + 300
+        while True:
+            doc = http_call(port, "/debugz/profile")[2]["profile"]
+            if doc["state"] != "running":
+                break
+            check(time.monotonic() < deadline,
+                  f"front profile: the capture still runs after 300 s: {doc}")
+            time.sleep(0.02)
+        window["doc"] = doc
+
+    watcher = threading.Thread(target=profile)
+    watcher.start()
+    loud = streams(stamps)
+    watcher.join()
+    if "error" in window:
+        raise window["error"]
+    doc = window["doc"]
+    check(doc["state"] == "done", f"front profile: {doc}")
+    status, _, raw = http_call(port, "/debugz/profile?download=1")
+    check(status == 200, f"front profile: download answered {status}")
+    with tarfile.open(fileobj=io.BytesIO(raw), mode="r:gz") as tar:
+        member = next(m for m in tar.getmembers()
+                      if m.name.endswith("trace.json"))
+        trace = json.loads(tar.extractfile(member).read())
+    cats: dict = {}
+    for e in trace["traceEvents"]:
+        cats[str(e.get("cat"))] = cats.get(str(e.get("cat")), 0) + 1
+    names = {str(e.get("name", "")) for e in trace["traceEvents"]}
+    kernels = sorted(n for n in names if "paged_" in n and "kernel" in n)
+    launches = sum(e.get("name") == "cudaGraphLaunch"
+                   for e in trace["traceEvents"])
+    cpu_ops = sorted(n for n in names if n.startswith("aten::"))[:5]
+    first = min(stamps)
+    ends = {"window_s": [round(t - first, 3) for t in doc["window_ts"]],
+            "streams_end_s": round(max(stamps) - first, 3),
+            "init_s": (first_doc["init_s"], doc["init_s"])}
+    print(f"front profile: the trace holds {len(trace['traceEvents'])} "
+          f"events by category {cats}; some names "
+          f"{sorted(names)[:12]}; {ends}", flush=True)
+
+    def rate(t0, t1):
+        # The stamps are the streams' lines at the client: one a token.
+        return sum(t0 <= t < t1 for t in stamps) / max(t1 - t0, 1e-9)
+
+    t0, t1 = doc["window_ts"]
+    span = FRONT_PROFILE_S
+    done = doc["done_ts"]
+    rates = {"before": rate(t0 - span, t0), "inside": rate(t0, t1),
+             "stop_export": rate(t1, done),
+             "engine_before": before,
+             "engine_after": front_decode_rate(port, engine, 61)}
+    check(rates["engine_after"] >= 0.9 * before,
+          f"front profile: decode after the capture {rates['engine_after']:.1f}"
+          f" tok/s, before it {before:.1f}: the tracer stayed on")
+    shutil.rmtree(doc["dir"], ignore_errors=True)
+    os.remove(doc["tar"])
+    print(f"front profile: a {doc['seconds']:g} s torch.profiler capture "
+          f"({doc['tar_bytes']} bytes) during 4 streams, a second POST "
+          f"409; its trace names {len(kernels)} paged kernels "
+          f"({', '.join(kernels[:3])}) and {launches} cudaGraphLaunch "
+          f"calls, CPU ops like {cpu_ops[:3]}; "
+          f"the clients read {rates['before']:.1f} tok/s before the "
+          f"window, {rates['inside']:.1f} inside it ({t1 - t0:.2f} s: the "
+          f"tracer's stop included), {rates['stop_export']:.1f} while the "
+          f"trace was written ({done - t1:.2f} s); the engine decoded "
+          f"{before:.1f} tok/s on four 256-token requests before the "
+          f"capture, {rates['engine_after']:.1f} after it; the tracer's "
+          f"start-up {first_doc['init_s']:.2f} s at the first capture, "
+          f"{doc['init_s']:.2f} s at this one [{SMI}]", flush=True)
+    return {"kernels_named": kernels, "graph_launches": launches,
+            "cpu_ops": cpu_ops, "categories": cats,
+            "init_s": [first_doc["init_s"], doc["init_s"]],
+            "gate": (bodies, quiet, loud), "tok_s": rates}
+
+
+def front_sentinel_leg(a, make_sibling) -> tuple[dict, object]:
+    """An engine that skipped warmup, armed by hand; a sibling warms
+    meanwhile (its captures counted, fired against no one); then the
+    cold engine serves one request, and its first dispatch's captures
+    fire ``serve.recompile`` with that request's admission context, its
+    ``recompiles`` and the compile counter moving by their number.
+    Returns (the record, the sibling)."""
+    from oim_tpu_torch.common import events, metrics
+    from oim_tpu_torch.serve import sentinel
+    from oim_tpu_torch.serve.engine import Engine, GenRequest
+
+    cold = Engine(a.params, a.cfg, n_slots=a.n_slots, max_len=a.max_len,
+                  chunk=a.chunk, kv_block=a.kv_block, device=a.device)
+    sentinel.arm(cold)
+
+    since = time.time()
+
+    def fired(label=None):
+        """The serve.recompile events since the leg began (of engine
+        ``label``; every armed engine gets one a capture)."""
+        return [e for e in events.all_events() if e.kind == "serve.recompile"
+                and e.ts >= since and label in (None, e.subject)]
+
+    already = len(fired())
+    compiles = metrics.XLA_COMPILES.value()
+    sibling = make_sibling()
+    sibling_captures = len(sibling._admit_graphs) + len(sibling._graphs
+                                                        or {})
+    check(len(fired()) == already == 0 and cold.recompiles == 0
+          and metrics.XLA_COMPILES.value() == compiles + sibling_captures,
+          f"front sentinel: the sibling's warmup fired "
+          f"{len(fired()) - already} events, counted "
+          f"{metrics.XLA_COMPILES.value() - compiles} captures of "
+          f"{sibling_captures}")
+    compiles = metrics.XLA_COMPILES.value()
+    rid = cold.submit(GenRequest(tokens=list(range(1, 200)),
+                                 max_new_tokens=16))
+    cold.run()
+    check(len(cold.result(rid, timeout=0)) == 16, "front sentinel: reply")
+    captures = len(cold._admit_graphs) + len(cold._graphs or {})
+    new = fired(cold._engine_label)
+    check(len(new) == captures == cold.recompiles
+          == metrics.XLA_COMPILES.value() - compiles > 0
+          and all(e.fields.get("phase") == "admit"
+                  and e.fields.get("rids") == (rid,) for e in new),
+          f"front sentinel: {len(new)} events for {captures} captures, "
+          f"recompiles {cold.recompiles}, contexts "
+          f"{[e.fields for e in new[:2]]}")
+    seconds = sum(e.fields["duration_s"] for e in new)
+    sentinel.disarm(cold)
+    kv_no_leaks(cold, "front sentinel")
+    others = len(fired()) - len(new)
+    print(f"front sentinel: a sibling warmed in the armed process: "
+          f"{sibling_captures} captures counted, no event; the unwarmed "
+          f"engine's first dispatch captured {captures} graphs in "
+          f"{seconds:.2f} s, each a serve.recompile WARNING naming rid "
+          f"{rid} in its admission (and {others} for the other armed "
+          f"engines of the process, charged as the reference charges "
+          f"them) [{SMI}]", flush=True)
+    return {"sibling_captures": sibling_captures, "captures": captures,
+            "capture_seconds": seconds}, sibling
+
+
+def front_mixed_leg(mixed, server) -> dict:
+    """The mixed engine (decode on the kernels, admissions plain): K1's
+    decode route and K2 at t = 1 on every decode pass, K1's tall route
+    never, the plain versions once a layer an admission dispatch."""
+    from oim_tpu_torch.ops import paged_attention as pa
+
+    s0 = mixed.stats()
+    pa.reset_counters()
+    bodies, got = front_traffic(server.port, 51)  # the switch's traffic
+    counts = pa.counters()
+    s = mixed.stats()
+    layers = mixed.cfg.n_layers
+    passes = s["decode_passes"] - s0["decode_passes"]
+    admits = s["prefill_dispatches"] - s0["prefill_dispatches"]
+    check(counts["paged_flash_decode_rows8"] == counts["paged_flash_decode"]
+          == counts["paged_kv_store"] == counts["paged_kv_store_t1"]
+          == layers * passes and counts["paged_flash_decode_tc"] == 0
+          and counts["paged_flash_decode_plain"]
+          == counts["paged_kv_store_plain"] == layers * admits,
+          f"front mixed: {counts} over {passes} passes, {admits} admissions")
+    load = mixed.load()
+    check((load["paged_kernel"], load["prefill_kernel"]) == (True, False),
+          f"front mixed: load() reports {load['paged_kernel']}, "
+          f"{load['prefill_kernel']}")
+    print(f"front mixed: decode on K1's decode route and K2 at t=1 "
+          f"({counts['paged_flash_decode_rows8']} launches = {layers} x "
+          f"{passes} passes), admissions plain ({admits} dispatches); "
+          f"lone-512 TTFT {got[-1]:.1f} ms [{SMI}]", flush=True)
+    return {"counts": counts, "lone_512_ttft_ms": got[-1],
+            "tokens": got[:-1]}
+
+
+def front_daemon_leg() -> dict:
+    """``serve_main`` as its own process on the card with
+    ``--trace-file``, ``--log-level debug`` and ``--paged-kernel on``,
+    two requests: the trace file holds a ``serve.generate`` span a
+    request with the engine's phase spans under it, ``/metrics`` carries
+    ``oim_process_*``, the log is at debug level; then a
+    ``MetricsServer`` here on port 0 serves ``/metrics`` and
+    ``/debugz``."""
+    import re
+    import signal
+    import subprocess
+
+    from oim_tpu_torch.common import metrics
+
+    import oim_tpu_torch
+
+    root = os.path.dirname(os.path.dirname(oim_tpu_torch.__file__))
+    work = tempfile.mkdtemp(prefix=".smoke-front-", dir=HERE)
+    trace = os.path.join(work, "spans.jsonl")
+    argv = [sys.executable, "-m", "oim_tpu_torch.cli.serve_main",
+            *FRONT_ARGS, "--trace-file", trace, "--log-level", "debug",
+            "--paged-kernel", "on", "--watchdog-interval", "0",
+            "--drain-timeout", "0"]
+    env = dict(os.environ, PYTHONPATH=root, OIM_FLIGHT_DIR=work)
+    t0 = time.monotonic()
+    proc = subprocess.Popen(argv, cwd=root, env=env, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    lines, listening = [], threading.Event()
+
+    def read():  # stderr to its end, the listening line flagged
+        for line in proc.stderr:
+            lines.append(line)
+            if re.search(r"oim-serve listening .* port=(\d+)", line):
+                listening.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        listening.wait(300)
+        match = next((re.search(r"oim-serve listening .* port=(\d+)", ln)
+                      for ln in lines if "oim-serve listening" in ln), None)
+        check(match is not None, "front daemon: serve_main never listened: "
+              + "".join(lines[-5:]))
+        port = int(match.group(1))
+        up = time.monotonic() - t0
+        rng = np.random.RandomState(59)
+        for n in (256, 512):
+            http_ok(port, {"tokens": rng.randint(0, VOCAB, n).tolist(),
+                           "max_new_tokens": 32})
+        _, _, scrape = http_call(port, "/metrics")
+        info = http_call(port, "/v1/info")[2]["engine"]
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=60) == 0, "front daemon: exit code")
+        reader.join(timeout=10)
+        spans = [json.loads(ln) for ln in open(trace) if ln.strip()]
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        proc.stderr.close()
+        shutil.rmtree(work, ignore_errors=True)
+    text = "".join(lines)
+    check(b"oim_process_resident_bytes" in scrape
+          and b"oim_process_cpu_seconds" in scrape,
+          "front daemon: /metrics lacks the process families")
+    check(info["paged_kernel"] is True and info["attention"]
+          == "cuda-kernels", f"front daemon: engine {info}")
+    check(" I warming up " in text and " I drained " in text,
+          f"front daemon: log lines {text[-400:]}")
+    generate = [s for s in spans if s["name"] == "serve.generate"]
+    check(len(generate) == 2, f"front daemon: {len(generate)} serve.generate "
+          f"spans")
+    for root in generate:
+        request = [s for s in spans if s["name"] == "engine.request"
+                   and s["parent_id"] == root["span_id"]]
+        check(len(request) == 1, "front daemon: engine.request missing")
+        phases = {s["name"] for s in spans
+                  if s["parent_id"] == request[0]["span_id"]}
+        check({"engine.queue", "engine.prefill", "engine.decode"} <= phases,
+              f"front daemon: phases {phases}")
+    server = metrics.MetricsServer("127.0.0.1:0").start()
+    try:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/metrics", timeout=10).read()
+        doc = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/debugz", timeout=10).read())
+    finally:
+        server.stop()
+    check(b"oim_process_threads" in body and "events" in doc,
+          "front daemon: MetricsServer")
+    print(f"front daemon: serve_main --trace-file --log-level debug "
+          f"--paged-kernel on listened after {up:.1f} s; 2 requests, "
+          f"{len(spans)} spans (serve.generate > engine.request > phases), "
+          f"/metrics with oim_process_*, a MetricsServer on port 0 "
+          f"[{SMI}]", flush=True)
+    return {"listen_s": up, "spans": len(spans)}
+
+
+def front_phase() -> dict:
+    """The operator's front door at Qwen2.5-1.5B's widths (``--kv-block
+    16``, 8 slots, max_len 2048): server A with a byte-level stand-in
+    tokenizer, A' over mTLS, engine P with both kernel switches off and
+    a mixed engine, all on one copy of A's weights, and ``serve_main``
+    as its own process.  Legs: text and the OpenAI surfaces, mTLS, the
+    kernel switch's A/B (K = A, P; K P P K), an on-demand profile, the
+    recompile sentinel, the mixed engine, the daemon's init.  Path
+    gates: K1/K2 launched by route as A's and A''s passes and
+    dispatches say with no plain call, the plain versions only on P and
+    the mixed engine, every dispatch a replay and nothing captured after
+    warmup outside the sentinel leg (``oim_xla_compiles_total`` still),
+    no device wait beyond the engines' own and the weight copies'
+    (``SyncCensus`` over the text, OpenAI, mTLS and switch legs), no
+    block left, and the memory back under 1 GiB."""
+    from oim_tpu_torch.cli import serve_main
+    from oim_tpu_torch.common import metrics
+    from oim_tpu_torch.ops import paged_attention as pa
+    from oim_tpu_torch.serve import httptls, sentinel
+    from oim_tpu_torch.serve.engine import Engine
+    from oim_tpu_torch.serve.server import ServeServer
+
+    t0 = time.monotonic()
+    base = torch.cuda.memory_allocated()
+    sentinel.install()  # before any of the phase's engines warms
+    args = serve_main.build_parser().parse_args(FRONT_ARGS)
+    a = serve_main.make_engine(args).warmup()
+    kw = dict(n_slots=args.n_slots, max_len=args.max_len, chunk=args.chunk,
+              kv_block=args.kv_block, device=a.device)
+    a2 = Engine(a.params, a.cfg, **kw).warmup()
+    p = Engine(a.params, a.cfg, **kw, paged_kernel=False,
+               prefill_kernel=False).warmup()
+    warm_compiles = metrics.XLA_COMPILES.value()
+    ref = widened(a.params, a.cfg)
+    tok = ByteTokenizer()
+    certs_dir = tempfile.mkdtemp(prefix=".smoke-tls-", dir=HERE)
+    mixed, servers, deferred = None, {}, []
+    try:
+        certs = make_certs(certs_dir)
+        servers.update({
+            "K": ServeServer(a, tokenizer=tok).start(),
+            "TLS": ServeServer(a2, ssl_context=httptls.server_ssl_context(
+                *certs["serve.a"])).start(),
+            "P": ServeServer(p).start(),
+        })
+        engines = {"K": a, "TLS": a2, "P": p}
+        print(f"front: A (a byte-level stand-in tokenizer), A' (mTLS) and "
+              f"P (both kernel switches off) on one weights copy, "
+              f"{args.n_slots} slots, {a.kv_blocks} blocks of "
+              f"{args.kv_block}, warmed in {time.monotonic() - t0:.1f} s "
+              f"(P's graph capture {p.stats()['graph_capture_seconds']:.1f}"
+              f" s, A's {a.stats()['graph_capture_seconds']:.1f} s)",
+              flush=True)
+        before = {n: e.stats() for n, e in engines.items()}
+        out = {}
+        pa.reset_counters()
+        chunks = weight_chunk_count(a) + weight_chunk_count(a2)
+        with SyncCensus([a, a2], weight_chunks=chunks) as census:
+            out["text"] = front_text_leg(servers["K"].port, a, tok)
+            out["openai"] = front_openai_leg(servers["K"].port, a,
+                                             out["text"], tok)
+            out["tls"] = front_tls_leg(a, a2, servers["K"].port,
+                                       servers["TLS"].port, servers["TLS"],
+                                       certs)
+        out["census"] = census.check("front legs")
+        out["openai"]["sampled"] = kv_gate(ref, "front completions n=2",
+                                           *out["openai"].pop("gate"))
+        counts = pa.counters()
+        after = {n: engines[n].stats() for n in ("K", "TLS")}
+        layers = a.cfg.n_layers
+        passes = dispatches = 0
+        for n in ("K", "TLS"):
+            s, s0 = after[n], before[n]
+            d = {k: s[k] - s0[k] for k in (
+                "decode_passes", "decode_dispatches", "graph_replays",
+                "prefill_dispatches", "admission_replays")}
+            passes += d["decode_passes"]
+            dispatches += d["prefill_dispatches"]
+            check(d["graph_replays"] == d["decode_dispatches"] > 0
+                  and d["admission_replays"] == d["prefill_dispatches"] > 0,
+                  f"front {n}: not every dispatch a replay: {d}")
+        check(counts["paged_flash_decode_rows8"] == layers * passes
+              and counts["paged_kv_store_t1"] == layers * passes
+              and counts["paged_flash_decode_tc"] == layers * dispatches
+              and counts["paged_kv_store"] - counts["paged_kv_store_t1"]
+              == layers * dispatches
+              and counts["paged_flash_decode_plain"] == 0
+              and counts["paged_kv_store_plain"] == 0
+              and counts["paged_flash_decode_rows16"] == 0,
+              f"front: K1/K2 launches {counts} != {layers} x ({passes} "
+              f"decode passes, {dispatches} admission dispatches), or a "
+              f"plain call")
+        out["counts"] = counts
+        lone = out["text"][max(FRONT_TEXT_BYTES)]
+        print(f"front text: {len(FRONT_TEXT_BYTES)} text prompts equal to "
+              f"their ids, text = the decode, NDJSON deltas joined = the "
+              f"text; the lone 512-byte prompt's plain TTFT "
+              f"{lone['plain_ttft_ms']:.1f} ms (engine), its first NDJSON "
+              f"line {lone['first_line_ms']:.1f} ms, the first SSE chunk "
+              f"{out['openai']['first_sse_ms']:.1f} ms (clients); "
+              f"completions n=2 {out['openai']['sampled']['equal']} of 2 "
+              f"equal to generate with seed s+i, a stop string "
+              f"{out['openai']['stop']!r} cut by the reference's rule, SSE "
+              f"and chat equal [{SMI}]", flush=True)
+        with SyncCensus([a, p]) as census:
+            out["switch"] = front_switch_leg(servers, engines)
+        try:
+            out["switch_census"] = census.check("front switch")
+        except SmokeFailure as exc:  # raised at the phase's end
+            print(f"front: failed, raised at the phase's end: {exc}",
+                  flush=True)
+            deferred.append(exc)
+        # Outside the census: the profiler's stop waits for the card (on
+        # the profile's thread, not the step loop).
+        out["profile"] = front_profile_leg(servers["K"].port, a)
+        if not (out["profile"]["kernels_named"]
+                or out["profile"]["graph_launches"]):
+            exc = SmokeFailure("front profile: the trace names neither the "
+                               "step thread's kernels nor its graph launches")
+            print(f"front: failed, raised at the phase's end: {exc}",
+                  flush=True)
+            deferred.append(exc)
+        bodies, tokens_k, tokens_p = out["switch"].pop("gate")
+        out["switch"]["gate"] = kv_gate(ref, "front switch", bodies,
+                                        tokens_k, tokens_p)
+        out["profile"]["gate"] = kv_gate(ref, "front profile",
+                                         *out["profile"].pop("gate"))
+        print(f"front switch: K and P {out['switch']['gate']['equal']} of "
+              f"{out['switch']['gate']['of']} greedy streams equal, the "
+              f"largest near-tie gap {out['switch']['gate']['worst_gap']:.3f};"
+              f" profiled streams {out['profile']['gate']['equal']} of "
+              f"{out['profile']['gate']['of']} equal to the unprofiled run",
+              flush=True)
+        for n, e in engines.items():
+            s = e.stats()
+            check(s["admission_graphs"] == before[n]["admission_graphs"]
+                  and s["graph_capture_seconds"]
+                  == before[n]["graph_capture_seconds"]
+                  and s["recompiles"] == 0,
+                  f"front {n}: a graph captured after warmup")
+        check(metrics.XLA_COMPILES.value() == warm_compiles,
+              f"front: oim_xla_compiles_total moved after warmup by "
+              f"{metrics.XLA_COMPILES.value() - warm_compiles}")
+
+        def make_mixed():
+            return Engine(a.params, a.cfg, **kw, paged_kernel=True,
+                          prefill_kernel=False).warmup()
+
+        out["sentinel"], mixed = front_sentinel_leg(a, make_mixed)
+        servers["M"] = ServeServer(mixed).start()
+        settled = metrics.XLA_COMPILES.value()
+        out["mixed"] = front_mixed_leg(mixed, servers["M"])
+        check(metrics.XLA_COMPILES.value() == settled,
+              "front mixed: a capture after warmup")
+        out["mixed"]["gate"] = kv_gate(ref, "front mixed", bodies, tokens_k,
+                                       out["mixed"].pop("tokens"))
+    finally:
+        for server in servers.values():
+            server.stop()
+        shutil.rmtree(certs_dir, ignore_errors=True)
+    for n, e in (("A", a), ("A'", a2), ("P", p), ("M", mixed)):
+        kv_no_leaks(e, f"front {n}")
+    out["daemon"] = front_daemon_leg()
+    out["seconds"] = time.monotonic() - t0
+    if deferred:
+        raise deferred[0]
+    print(f"front: the phase took {out['seconds']:.1f} s, device waits "
+          f"{out['census']['waits']} and {out['switch_census']['waits']} "
+          f"all the engines' own, nothing captured after warmup outside "
+          f"the sentinel leg, no block left [{SMI}]", flush=True)
+    # The loops' last engine (e) and server hold engines too.
+    del a, a2, p, mixed, engines, servers, ref, census, e, server
+    release()
+    check(torch.cuda.memory_allocated() - base < 2**30,
+          f"the front phase still holds "
+          f"{gib(torch.cuda.memory_allocated() - base):.1f} GiB")
     return out
 
 
@@ -5890,6 +6857,13 @@ def parse_args(argv):
              "plain engine on the same traffic), prompt lookup with beam "
              "and embed, the self-draft engines and the draft model, "
              "printing their counts as the last line")
+    only.add_argument(
+        "--front-phase-only", action="store_true",
+        help="build the kernels and run only the front phase (text and "
+             "OpenAI surfaces with a stand-in tokenizer, mTLS, the kernel "
+             "switch's A/B, an on-demand profile, the recompile sentinel "
+             "and the daemon's init, at the served widths), printing its "
+             "gates, latencies and rates as the last line")
     parser.add_argument(
         "--package", default=HERE, metavar="DIR",
         help="the checkout whose oim_tpu_torch to load (default: this "
@@ -5976,6 +6950,8 @@ def main(argv=None) -> int:
                 served["qos"] = qos_phase()
             if "watchdog_interval" in flags:
                 served["http"] = http_phase()
+            if "tokenizer_dir" in flags:
+                served["front"] = front_phase()
         else:  # a package from before depth 2: paged, serial, eager only
             served["paged"] = serve_phase(SERVE_ARGS + ["--kv-block", "16"],
                                           "paged")
@@ -5991,6 +6967,10 @@ def main(argv=None) -> int:
         return 0
     if args.http_phase_only:
         print(json.dumps({"package": package, "http": http_phase()},
+                         default=str), flush=True)
+        return 0
+    if args.front_phase_only:
+        print(json.dumps({"package": package, "front": front_phase()},
                          default=str), flush=True)
         return 0
     if args.route_control:
@@ -6047,6 +7027,10 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     moe_counts = moe_phases(record)
+    # Last: the MoE phase needs its headroom, and after the front phase
+    # (which loads the profiler's tracer) it found 7.5 of the 8 GiB it
+    # gates on free at its serving peak.
+    front_counts = front_phase()["counts"]
     sources = {"rmsnorm": ("oim_tpu_torch/csrc/rmsnorm.cu",
                            "oim_tpu/ops/rmsnorm.py:27"),
                "flash_fwd": ("oim_tpu_torch/csrc/flash_attention.cu",
@@ -6100,6 +7084,9 @@ def main(argv=None) -> int:
     ) + paged_rows(
         "paged pool, 16-row blocks: --kv-block 16 --pipeline-depth 1",
         paged_counts, "",
+    ) + paged_rows(
+        "paged pool, 16-row blocks: the front phase's servers A (text, "
+        "OpenAI) and A' (mTLS), --kv-block 16", front_counts, "",
     ) + paged_rows(
         f"dense cache, 64-row blocks, H {MOE_H} / KVH {MOE_KVH}: the MoE "
         f"serve phase, Mixtral-8x7B widths at {MOE_LAYERS} layers",

@@ -430,7 +430,7 @@ def _peer_leaf(raw: bytearray, dtype: str, shape: tuple) -> torch.Tensor:
 
 def load_params_from_peer(url: str, cfg: TransformerConfig, device=None, *,
                           weight_quant: str = "", int4_group: int = 64,
-                          timeout: float = 600.0) -> dict:
+                          ssl_context=None, timeout: float = 600.0) -> dict:
     """A serving sibling's weights (``GET <url>/v1/weights``, the
     reference's framing: an 8-byte big-endian manifest length, a JSON
     manifest ``[{"name", "dtype", "shape"}...]``, each leaf's raw bytes
@@ -440,11 +440,13 @@ def load_params_from_peer(url: str, cfg: TransformerConfig, device=None, *,
     leaf then goes to ``device`` as it arrives, so the host holds one at
     a time, and ``from_jax_params`` lays them out.  Either package's
     peer: a reference peer streams f32 leaves, a port peer its compute
-    dtype, both exact in the result."""
+    dtype, both exact in the result.  An ``https://`` peer behind mTLS
+    takes ``ssl_context`` (``serve/httptls.py::client_ssl_context``)."""
     t0 = time.perf_counter()
     tree, moved = {}, 0
     request = urllib.request.Request(url.rstrip("/") + "/v1/weights")
-    with urllib.request.urlopen(request, timeout=timeout) as resp:
+    with urllib.request.urlopen(request, timeout=timeout,
+                                context=ssl_context) as resp:
         (length,) = struct.unpack(">Q", bytes(_read_exact(resp, 8)))
         manifest = json.loads(bytes(_read_exact(resp, length)))
         _check_manifest(manifest,

@@ -59,6 +59,19 @@ admitting and suspends in-flight requests into ``/v1/slot`` records for
 a router to ship, waits up to ``--drain-timeout`` for them to leave and
 settles for ``min(2, timeout)`` s; a second Ctrl-C stops at once.
 
+The operator's front door: ``--tokenizer-dir D`` (an HF tokenizer
+directory; needs ``transformers``) turns on text prompts, decoded
+replies and the OpenAI ``/v1/completions`` and ``/v1/chat/completions``;
+``--http-tls --ca --cert --key`` serves over mTLS (the peer's CN is the
+tenant; an ``https://`` ``--params-peer`` dials with the same
+certificate); ``--paged-kernel``/``--prefill-kernel`` ``auto|on|off``
+switch the decode passes and the admissions between the Hopper kernels
+and their plain PyTorch versions, the A/B control.  The daemon starts as
+the reference's does: ``--log-level``, spans to ``--trace-file``, the
+flight recorder with its crash hook, the recompile sentinel and the
+process metrics, then the cheap checks (TLS files, the tokenizer)
+before any weight moves.
+
 Speculative decoding: ``--spec-decode N`` drafts N tokens a slot a
 decode step by prompt lookup (``--spec-ngram``) and verifies them in one
 forward; with ``--draft-params-dir D --draft-n-layers ... --draft-d-model
@@ -73,10 +86,10 @@ from __future__ import annotations
 
 import argparse
 import signal
-import sys
 import threading
 import time
 
+from oim_tpu_torch import log
 from oim_tpu_torch.checkpoint import (
     Checkpointer,
     CheckpointerOptions,
@@ -91,9 +104,15 @@ from oim_tpu_torch.models.transformer import (
 from oim_tpu_torch.models.weights import check_params, recast
 from oim_tpu_torch.ops.quant import WEIGHT_QUANT_TARGETS, quantize_weight
 from oim_tpu_torch.qos.policy import load_policy_file
+from oim_tpu_torch.common import events, metrics, tracing
+from oim_tpu_torch.serve import httptls, sentinel
 from oim_tpu_torch.serve.disagg import POOLS, prewarm_from_peer
 from oim_tpu_torch.serve.engine import Engine, resolve_device
 from oim_tpu_torch.serve.server import ServeServer
+from oim_tpu_torch.serve.texttok import TextTokenizer
+
+# --paged-kernel / --prefill-kernel → the Engine's switch.
+KERNEL_SWITCH = {"auto": None, "on": True, "off": False}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -379,7 +398,59 @@ def build_parser() -> argparse.ArgumentParser:
         "slot for a higher-priority admission; empty = QoS off (pure "
         "FIFO, the pre-QoS behavior)",
     )
+    p.add_argument(
+        "--paged-kernel", choices=("auto", "on", "off"), default="auto",
+        help="hand-written paged attention on every decode pass (decode "
+        "chunks, a verify's rows, the draft's decode): kernel K1 over the "
+        "block table and K2's fused store, with no gathered K/V view: "
+        "auto (default) = on when the engine runs on the GPU, on = the "
+        "kernel wrappers anywhere (their plain versions on the CPU), off "
+        "= the plain PyTorch gather path on the same device, graphed "
+        "too (the A/B control)",
+    )
+    p.add_argument(
+        "--prefill-kernel", choices=("auto", "on", "off"), default="auto",
+        help="the same switch for admissions and prompt segments (K2's "
+        "fused store, then K1's tensor-core route): auto (default) = on "
+        "when the engine runs on the GPU, on = the kernel wrappers "
+        "anywhere, off = the plain PyTorch path (the A/B control and "
+        "exactness oracle).  Pairs with --prefill-chunk: segments of "
+        "long prompts then interleave with decode chunks",
+    )
+    p.add_argument(
+        "--trace-file", default="",
+        help="append spans as JSON lines (default: $OIM_TRACE_FILE)",
+    )
+    p.add_argument("--ca", help="CA cert file (mTLS: --http-tls, an https "
+                   "--params-peer)")
+    p.add_argument("--cert", help="cert (CN serve.<id>)")
+    p.add_argument("--key", help="key")
+    p.add_argument(
+        "--tokenizer-dir", default="",
+        help="HF tokenizer directory (oim-import-hf copies it next to "
+        "the weights): enables {'text': ...} requests and decoded-text "
+        "replies on the HTTP API; without it this instance speaks "
+        "token ids only",
+    )
+    p.add_argument(
+        "--http-tls", action="store_true",
+        help="serve the HTTP API over mTLS with the same --ca/--cert/"
+        "--key: clients (oim-route, oimctl) must hold a deployment-CA "
+        "cert or the handshake fails (the gRPC plane's mTLS-everywhere "
+        "stance, on the data plane)",
+    )
+    p.add_argument("--log-level", default="info")
     return p
+
+
+def peer_ssl_context(args):
+    """The client context an ``https://`` ``--params-peer`` dials with
+    (``--ca/--cert/--key``; SystemExit without them), else None."""
+    if not args.params_peer.startswith("https://"):
+        return None
+    if not (args.ca and args.cert and args.key):
+        raise SystemExit("an https --params-peer needs --ca/--cert/--key")
+    return httptls.client_ssl_context(args.ca, args.cert, args.key)
 
 
 def weight_quant(args) -> str:
@@ -418,7 +489,8 @@ def load_weights(args, cfg: TransformerConfig, device) -> dict:
         # against the flags' geometry and weight quant, never requantized.
         return load_params_from_peer(args.params_peer, cfg, device,
                                      weight_quant=mode,
-                                     int4_group=args.int4_group)
+                                     int4_group=args.int4_group,
+                                     ssl_context=peer_ssl_context(args))
     if args.params_dir:
         what = f"--params-dir {args.params_dir}"
         params = load_params(args.params_dir, device=device)
@@ -543,49 +615,83 @@ def make_engine(args, cuda_graphs: bool = True) -> Engine:
         slow_capture_interval_s=args.slow_capture_interval,
         device=device,
         cuda_graphs=cuda_graphs,
+        paged_kernel=KERNEL_SWITCH[args.paged_kernel],
+        prefill_kernel=KERNEL_SWITCH[args.prefill_kernel],
     )
 
 
-def start_server(args) -> ServeServer:
+def server_tls(args):
+    """The listener's mTLS context (``--http-tls``; SystemExit without
+    ``--ca/--cert/--key``), else None."""
+    if not args.http_tls:
+        return None
+    if not (args.ca and args.cert and args.key):
+        raise SystemExit("--http-tls requires --ca/--cert/--key")
+    return httptls.server_ssl_context(args.ca, args.cert, args.key)
+
+
+def load_tokenizer(args):
+    """``--tokenizer-dir``'s tokenizer, else None."""
+    if not args.tokenizer_dir:
+        return None
+    tokenizer = TextTokenizer(args.tokenizer_dir)
+    log.current().info("tokenizer loaded", path=args.tokenizer_dir)
+    return tokenizer
+
+
+def start_server(args, ssl_context=None, tokenizer=None) -> ServeServer:
     """Build and warm the engine (unless ``--no-warmup``), install the
     weight donor's hottest prefix entries (``--params-peer`` with
     ``--prefix-cache``: after warmup, before the step thread starts, so
-    this thread writes the pool), then start the server; prints the
-    listening line."""
+    this thread writes the pool), then start the server with
+    ``ssl_context`` and ``tokenizer``; logs the listening line."""
     engine = make_engine(args)
     if not args.no_warmup:
+        log.current().info("warming up", buckets=list(engine.prompt_buckets))
         engine.warmup(embed=args.warmup_embed)
     if args.params_peer and args.prefix_prewarm > 0 and args.prefix_cache:
+        opener = httptls.opener(peer_ssl_context(args)).open
         installed = prewarm_from_peer(engine, args.params_peer.rstrip("/"),
-                                      args.prefix_prewarm)
-        print(f"oim-serve prefix pre-warm peer={args.params_peer!r} "
-              f"installed={installed}", file=sys.stderr, flush=True)
+                                      args.prefix_prewarm, opener=opener)
+        log.current().info("prefix pre-warm", peer=args.params_peer,
+                           installed=installed)
     server = ServeServer(
-        engine, host=args.host, port=args.port,
-        watchdog_interval=args.watchdog_interval,
+        engine, host=args.host, port=args.port, ssl_context=ssl_context,
+        tokenizer=tokenizer, watchdog_interval=args.watchdog_interval,
         stall_multiplier=args.stall_multiplier,
         stall_floor_s=args.stall_floor, pool=args.pool,
     ).start()
-    print(
-        f"oim-serve listening host={server.host!r} port={server.port} "
-        f"n_slots={args.n_slots} max_len={args.max_len} "
-        f"kv_block={args.kv_block} pipeline_depth={args.pipeline_depth} "
-        f"prefix_cache={args.prefix_cache} "
-        f"prefill_chunk={args.prefill_chunk} "
-        f"spec_decode={args.spec_decode} "
-        f"draft={'model' if engine.draft_cfg else 'none'} "
-        f"weight_quant={engine.weight_quant or 'none'} "
-        f"kv_quant={engine.kv_quant or 'none'} "
-        f"kv_host_bytes={engine.kv_host_bytes} kv_park={engine.kv_park} "
-        f"pool={server.pool} device={engine.device}",
-        file=sys.stderr, flush=True,
+    scheme = "https" if server.tls else "http"
+    log.current().info(
+        "oim-serve listening", host=server.host, port=server.port,
+        n_slots=args.n_slots, max_len=args.max_len, mtls=server.tls,
+        url=f"{scheme}://{server.host}:{server.port}",
     )
     return server
 
 
+def init_daemon(args) -> None:
+    """The reference's daemon init, in its order: the log level, the
+    span collector (``--trace-file``), the flight recorder and its crash
+    hook, the recompile sentinel (before any warmup, so that its
+    bracket sees every capture and build) and the process metrics."""
+    log.init_from_string(args.log_level)
+    tracing.init("oim-serve", args.trace_file or None)
+    events.init("oim-serve")
+    events.install_crash_hook()
+    sentinel.install()
+    metrics.install_process_metrics()
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    server = start_server(args)
+    init_daemon(args)
+    # The cheap pieces first: a bad certificate path, tokenizer
+    # directory or peer URL fails before any weight moves.
+    ssl_context = server_tls(args)
+    tokenizer = load_tokenizer(args)
+    peer_ssl_context(args)
+    server = start_server(args, ssl_context, tokenizer)
     engine = server.engine
     stop = threading.Event()
 
@@ -603,17 +709,15 @@ def main(argv=None) -> int:
         # into /v1/slot records for a router to ship to siblings, so the
         # wait below ends as soon as they are suspended.
         server.begin_drain()
-        print(f"oim-serve draining in_flight={engine.in_flight()} "
-              f"timeout_s={args.drain_timeout}", file=sys.stderr,
-              flush=True)
+        log.current().info("draining", in_flight=engine.in_flight(),
+                           timeout_s=args.drain_timeout)
         deadline = time.monotonic() + args.drain_timeout
         while engine.in_flight() and time.monotonic() < deadline:
             time.sleep(0.2)
         # Settle: the last slot frees before its handler thread has
         # written the reply; exiting at once would cut that reply.
         time.sleep(min(2.0, args.drain_timeout))
-        print(f"oim-serve drained remaining={engine.in_flight()}",
-              file=sys.stderr, flush=True)
+        log.current().info("drained", remaining=engine.in_flight())
     except KeyboardInterrupt:
         pass
     finally:

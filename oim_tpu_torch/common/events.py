@@ -10,16 +10,23 @@ per component (drop-oldest, counted); sinks run outside the ring lock,
 and a failing sink costs one log line, never the caller.  ``snapshot``
 is the reference's ``/debugz`` document shape.
 
-Not here: the registry publisher, the volume-lifecycle helpers and the
-crash hook (the control plane's; ROADMAP Queue A13/A16).  So
-``flight_dir`` resolves ``$OIM_FLIGHT_DIR``, else the temporary
-directory.
+``install_crash_hook`` dumps every ring to a JSON file in the flight
+dir on an uncaught exception on any thread (``dump``, at
+``crash_dump_path``), then chains to the hooks it replaced; the
+on-demand profiler and the slow captures write there too
+(``flight_dir``: the hook's directory, else ``$OIM_FLIGHT_DIR``, else
+the temporary directory).
+
+Not here: the registry publisher and the volume-lifecycle helpers (the
+control plane's; ROADMAP Queue A13/A16).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
+import sys
 import tempfile
 import threading
 import time
@@ -27,6 +34,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+from oim_tpu_torch import log
 from oim_tpu_torch.common import metrics, tracing
 
 _log = logging.getLogger(__name__)
@@ -200,6 +208,14 @@ def all_events() -> list[Event]:
     return merged
 
 
+def clear_all() -> None:
+    """Empty every ring (test isolation; recorders stay registered)."""
+    with _recorders_lock:
+        recs = list(_recorders.values())
+    for rec in recs:
+        rec.clear()
+
+
 def snapshot() -> dict[str, Any]:
     """The live flight-recorder contents as one JSON document (the
     reference's ``/debugz`` shape)."""
@@ -210,7 +226,84 @@ def snapshot() -> dict[str, Any]:
     }
 
 
+def dump(path: str) -> str:
+    """Write the snapshot to ``path`` (a temporary file, then a rename)."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(snapshot(), f, separators=(",", ":"))
+    os.replace(tmp, path)
+    return path
+
+
+# ---------------------------------------------------------------------------
+# Crash hook
+
+_crash_lock = threading.Lock()
+_crash_state: dict[str, Any] = {"installed": False, "dir": "", "prev": None,
+                                "prev_threading": None}
+
+
 def flight_dir() -> str:
-    """The directory for forensic artifacts (slow-request captures):
+    """The directory for forensic artifacts (crash dumps, slow-request
+    captures, profiler traces): the crash hook's directory, else
     ``$OIM_FLIGHT_DIR``, else the temporary directory."""
-    return os.environ.get("OIM_FLIGHT_DIR") or tempfile.gettempdir()
+    return (_crash_state["dir"] or os.environ.get("OIM_FLIGHT_DIR")
+            or tempfile.gettempdir())
+
+
+def crash_dump_path() -> str:
+    return os.path.join(
+        flight_dir(), f"oim-flight-{os.getpid()}-{int(time.time())}.json")
+
+
+def _dump_on_crash(exc_type, exc_value) -> str | None:
+    if exc_type is not None and issubclass(
+            exc_type, (KeyboardInterrupt, SystemExit)):
+        return None  # an operator's stop, not a crash
+    try:
+        emit("crash", severity=ERROR,
+             error=f"{getattr(exc_type, '__name__', exc_type)}: {exc_value}")
+        path = dump(crash_dump_path())
+        log.current().error("flight recorder dumped", path=path)
+        return path
+    except Exception:
+        return None  # the dump never masks the crash itself
+
+
+def install_crash_hook(directory: str = "") -> None:
+    """Dump every ring to a JSON file on an uncaught exception (the main
+    thread's and every other thread's), then chain to the previous
+    hooks.  ``directory`` defaults to ``$OIM_FLIGHT_DIR`` or the
+    temporary directory.  Idempotent."""
+    with _crash_lock:
+        if directory:
+            _crash_state["dir"] = directory
+        if _crash_state["installed"]:
+            return
+        prev_sys, prev_threading = sys.excepthook, threading.excepthook
+        _crash_state["prev"] = prev_sys
+        _crash_state["prev_threading"] = prev_threading
+
+        def hook(exc_type, exc_value, exc_tb):
+            _dump_on_crash(exc_type, exc_value)
+            prev_sys(exc_type, exc_value, exc_tb)
+
+        def thread_hook(args):
+            _dump_on_crash(args.exc_type, args.exc_value)
+            prev_threading(args)
+
+        sys.excepthook = hook
+        threading.excepthook = thread_hook
+        _crash_state["installed"] = True
+
+
+def uninstall_crash_hook() -> None:
+    """Restore the hooks ``install_crash_hook`` replaced, and forget its
+    directory."""
+    with _crash_lock:
+        _crash_state["dir"] = ""
+        if not _crash_state["installed"]:
+            return
+        sys.excepthook = _crash_state["prev"]
+        threading.excepthook = _crash_state["prev_threading"]
+        _crash_state["installed"] = False

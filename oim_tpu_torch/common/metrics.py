@@ -6,9 +6,15 @@ the text rendering (Prometheus exposition format 0.0.4), and the serving
 families the engine and the server write, under the reference's series
 names so that one scrape config and one set of queries covers both
 packages.  The server's ``GET /metrics`` renders this registry
-(``EXPOSITION_CONTENT_TYPE``).  The standalone ``MetricsServer``, the
-gRPC interceptor and the process self-telemetry are not here (ROADMAP
-Queue A11, second part).
+(``write_exposition``); ``MetricsServer`` is the standalone scrape
+endpoint (``/metrics`` and the flight recorder's ``/debugz``), and
+``install_process_metrics`` binds the ``oim_process_*`` self-telemetry.
+The compile families (``oim_xla_compiles_total``,
+``oim_xla_compile_seconds``) keep the reference's names and count what
+stalls the port's live streams as an XLA compile stalls the
+reference's: CUDA graph captures and kernel builds
+(``serve/sentinel.py``).  The gRPC interceptor is the control plane's
+(ROADMAP Queue A13).
 
 Design notes:
 - Metric instruments are cheap under concurrency: one lock per metric,
@@ -22,8 +28,11 @@ Design notes:
 
 from __future__ import annotations
 
+import http.server
+import socket
 import threading
-from typing import Iterable
+import time
+from typing import Callable, Iterable
 
 # ---------------------------------------------------------------------------
 # Instruments
@@ -94,19 +103,37 @@ class Gauge:
         self.label_names = labels
         self._lock = threading.Lock()
         self._values: dict[tuple[str, ...], float] = {}
+        self._callbacks: dict[tuple[str, ...], Callable[[], float]] = {}
 
     def set(self, value: float, *label_values: str) -> None:
         key = _labels_key(self.label_names, label_values)
         with self._lock:
             self._values[key] = float(value)
 
+    def set_function(self, fn: Callable[[], float],
+                     *label_values: str) -> None:
+        """Read the series from ``fn()`` at each scrape."""
+        key = _labels_key(self.label_names, label_values)
+        with self._lock:
+            self._callbacks[key] = fn
+
     def value(self, *label_values: str) -> float:
+        with self._lock:
+            cb = self._callbacks.get(label_values)
+        if cb is not None:
+            return float(cb())
         with self._lock:
             return self._values.get(label_values, 0.0)
 
     def render(self) -> Iterable[str]:
         with self._lock:
             items = dict(self._values)
+            callbacks = dict(self._callbacks)
+        for key, cb in callbacks.items():
+            try:
+                items[key] = float(cb())
+            except Exception:
+                continue  # a failing callback must not break the scrape
         for values, v in sorted(items.items()):
             yield (
                 f"{self.name}{_render_labels(self.label_names, values)}"
@@ -398,3 +425,219 @@ SERVE_SLOW_CAPTURES = _registry.counter(
     "dumped artifacts.",
     ("engine", "trigger"),
 )
+
+
+# ---------------------------------------------------------------------------
+# Compiles: CUDA graph captures and kernel builds (``serve/sentinel.py``)
+
+XLA_COMPILES = _registry.counter(
+    "oim_xla_compiles_total",
+    "Compilations in this process that stall the device's work while "
+    "they run: in the PyTorch port, CUDA graph captures and kernel "
+    "builds, counted by the recompile sentinel (serve/sentinel.py, "
+    "installed at daemon init).  The count is expected to plateau "
+    "after warmup; any increase on a serving daemon after an engine "
+    "armed also emits a serve.recompile flight-recorder event with the "
+    "active request context.",
+)
+XLA_COMPILE_SECONDS = _registry.histogram(
+    "oim_xla_compile_seconds",
+    "Wall time of each compilation oim_xla_compiles_total counts (a "
+    "graph capture, a kernel build).  A post-warmup observation is a "
+    "stall of the live streams, not a latency curiosity.",
+)
+
+# ---------------------------------------------------------------------------
+# Process self-telemetry
+
+PROCESS_RSS = _registry.gauge(
+    "oim_process_resident_bytes",
+    "Resident set size of this daemon process (from /proc/self/statm; "
+    "ru_maxrss high-water fallback where /proc is unavailable).  On a "
+    "serving host this is dominated by host-tier KV and the runtime "
+    "heap, NOT device memory — compare with the host tier's blocks to "
+    "attribute growth.",
+)
+PROCESS_CPU_SECONDS = _registry.gauge(
+    "oim_process_cpu_seconds",
+    "Cumulative user+system CPU seconds consumed by this process "
+    "(os.times).  Exposed as a gauge because the value is read, not "
+    "accumulated, at scrape time; rate() over it still yields CPU "
+    "utilisation.",
+)
+PROCESS_THREADS = _registry.gauge(
+    "oim_process_threads",
+    "Live Python threads in this process.  A serving daemon has a "
+    "small, stable set (step thread, HTTP, streamers, watchdog); "
+    "unbounded growth means a leaked per-request or per-capture "
+    "thread.",
+)
+PROCESS_GC_PAUSE_SECONDS = _registry.counter(
+    "oim_process_gc_pause_seconds_total",
+    "Cumulative wall time spent inside CPython garbage collections "
+    "(gc.callbacks start→stop).  GC pauses on the step thread are "
+    "invisible to per-phase request tracing but show up as TPOT "
+    "outliers — correlate spikes here with serve.slow_capture events.",
+)
+PROCESS_GC_COLLECTIONS = _registry.counter(
+    "oim_process_gc_collections_total",
+    "CPython garbage collections observed via gc.callbacks, by "
+    "generation.",
+    ("generation",),
+)
+
+_process_metrics_state = {"installed": False}
+_process_metrics_lock = threading.Lock()
+
+
+def install_process_metrics() -> bool:
+    """Bind the ``oim_process_*`` gauges and GC counters to this process
+    (RSS, CPU seconds, threads, GC pauses; stdlib only).  Idempotent:
+    returns False when already installed.  ``MetricsServer.start``
+    calls it too."""
+    with _process_metrics_lock:
+        if _process_metrics_state["installed"]:
+            return False
+        _process_metrics_state["installed"] = True
+
+    import gc
+    import os
+
+    try:
+        page = os.sysconf("SC_PAGE_SIZE")
+    except (AttributeError, ValueError, OSError):
+        page = 4096
+
+    def _rss() -> float:
+        try:
+            with open("/proc/self/statm") as f:
+                return float(int(f.read().split()[1]) * page)
+        except (OSError, ValueError, IndexError):
+            import resource
+
+            # ru_maxrss is a KiB high-water mark: a ceiling, not the
+            # current size.
+            return float(
+                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
+
+    def _cpu() -> float:
+        t = os.times()
+        return float(t.user + t.system)
+
+    PROCESS_RSS.set_function(_rss)
+    PROCESS_CPU_SECONDS.set_function(_cpu)
+    PROCESS_THREADS.set_function(lambda: float(threading.active_count()))
+
+    # gc.callbacks run on the collecting thread with the GIL held, and one
+    # collection's start and stop never interleave with another's: one
+    # shared start slot is race-free.
+    gc_t0 = [0.0]
+
+    def _gc_callback(phase: str, info: dict) -> None:
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        elif phase == "stop":
+            PROCESS_GC_PAUSE_SECONDS.inc(by=time.perf_counter() - gc_t0[0])
+            PROCESS_GC_COLLECTIONS.inc(str(info.get("generation", "")))
+
+    gc.callbacks.append(_gc_callback)
+    return True
+
+
+# ---------------------------------------------------------------------------
+# /metrics over HTTP
+
+
+def write_exposition(handler, registry_: MetricsRegistry | None = None) -> None:
+    """Answer an ``http.server`` request ``handler`` with the registry's
+    Prometheus text: the one scrape response, for ``MetricsServer`` and
+    for a server that embeds ``/metrics`` in its own routes (oim-serve)."""
+    body = (registry_ or _registry).render().encode()
+    handler.send_response(200)
+    handler.send_header("Content-Type", EXPOSITION_CONTENT_TYPE)
+    handler.send_header("Content-Length", str(len(body)))
+    handler.end_headers()
+    handler.wfile.write(body)
+
+
+def _split_host_port(address: str) -> tuple[str, str]:
+    """``host:port`` → (host, port), IPv6-bracket-aware: ``[::1]:9090``
+    gives ``::1``; a bare ``9090`` is an error (not all interfaces by
+    accident); ``:9090`` keeps the empty host, all interfaces."""
+    host, sep, port = address.rpartition(":")
+    if not sep:
+        raise ValueError(
+            f"metrics address {address!r} must be host:port (':{address}' "
+            "for all interfaces)")
+    if host.startswith("[") and host.endswith("]"):
+        host = host[1:-1]
+    elif ":" in host:
+        raise ValueError(
+            f"IPv6 metrics address must be bracketed: '[{host}]:{port}'")
+    if port and not port.isdigit():
+        raise ValueError(f"metrics address {address!r} has non-numeric port")
+    return host, port
+
+
+class _MetricsHandler(http.server.BaseHTTPRequestHandler):
+    """``GET /metrics`` (or ``/``) and ``GET /debugz`` of the registry
+    its server names."""
+
+    def do_GET(self):  # noqa: N802 (stdlib API)
+        path = self.path.split("?", 1)[0]
+        if path == "/debugz":
+            # Imported here: events imports this module.
+            import json
+
+            from oim_tpu_torch.common import events
+
+            body = json.dumps(events.snapshot()).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            return
+        if path not in ("/", "/metrics"):
+            self.send_error(404)
+            return
+        write_exposition(self, self.server.registry)
+
+    def log_message(self, *args):  # quiet
+        pass
+
+
+class _V6Server(http.server.ThreadingHTTPServer):
+    address_family = socket.AF_INET6
+
+
+class MetricsServer:
+    """A scrape endpoint of its own: ``GET /metrics`` on ``host:port``,
+    and ``GET /debugz``, the flight recorder's rings as JSON."""
+
+    def __init__(self, address: str = "127.0.0.1:0",
+                 registry_: MetricsRegistry | None = None):
+        host, port = _split_host_port(address)
+        server_cls = (_V6Server if ":" in host
+                      else http.server.ThreadingHTTPServer)
+        self._httpd = server_cls((host, int(port or 0)), _MetricsHandler)
+        self._httpd.registry = registry_ or _registry
+        self._thread: threading.Thread | None = None
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    def start(self) -> "MetricsServer":
+        install_process_metrics()
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None

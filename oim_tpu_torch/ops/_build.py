@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -116,6 +117,9 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_log = ""  # nvcc's output (ptxas register/spill report) of the build
+# Called with a build's wall seconds after ``build`` compiled the kernels
+# (serve/sentinel.py installs its report here).
+BUILD_LISTENERS: list = []
 
 
 def _nvcc() -> str:
@@ -162,11 +166,13 @@ def build() -> Path:
     library path.  Each source compiles in its own ``nvcc``, all started
     together, and one more links them.  Outputs are written under
     temporary names and the library renamed into place, so a concurrent
-    build never loads a torn file."""
+    build never loads a torn file.  A build that ran reports its wall
+    time to each of ``BUILD_LISTENERS`` (the recompile sentinel)."""
     global build_log
     path = library_path()
     if path.exists():
         return path
+    t0 = time.monotonic()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{path.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
@@ -183,6 +189,8 @@ def build() -> Path:
         tmp.unlink(missing_ok=True)
         for obj in objs:
             obj.unlink(missing_ok=True)
+    for listener in list(BUILD_LISTENERS):
+        listener(time.monotonic() - t0)
     return path
 
 

@@ -67,19 +67,39 @@ def paged_store(cache, scale, new, tables, starts):
     scale)``."""
     n_blocks, block_size = cache.shape[0], cache.shape[1]
     flat, live = _flat_rows(tables, starts, new.shape[1], block_size, n_blocks)
-    idx = flat[live]
     rows = cache.view(n_blocks * block_size, *cache.shape[2:])
     if scale is None:
-        rows[idx] = new[live].to(cache.dtype)
+        _store_rows(rows, flat, live, new.to(cache.dtype))
         return cache, None
     if cache.dtype == INT4_DTYPE:
         q, s = quantize_int4(new)
         q = pack_int4(q)
     else:
         q, s = quantize_int8(new)
-    rows[idx] = q[live]
-    scale.view(n_blocks * block_size, *scale.shape[2:])[idx] = s[live]
+    _store_rows(rows, flat, live, q)
+    _store_rows(scale.view(n_blocks * block_size, *scale.shape[2:]), flat,
+                live, s)
     return cache, scale
+
+
+def _store_rows(rows, flat, live, values) -> None:
+    """``rows[flat[live]] = values[live]`` without a boolean index, whose
+    data-dependent size would wait for the device (and cannot be
+    captured in a CUDA graph): every row writes, a dead one the first
+    live row's value at that row's place — duplicates that carry equal
+    bytes — or, when no row is live, row 0's own value back.  rows [N,
+    ...]; flat, live [B, t]; values [B, t, ...]."""
+    idx, keep = flat.reshape(-1), live.reshape(-1)
+    vals = values.reshape(-1, *rows.shape[1:])
+    # The first live row (0 when none is), taken by index_select: a 0-d
+    # index tensor would be read back to the host.
+    first = torch.argmax(keep.to(torch.int32)).view(1)
+    any_live = keep.any()
+    fill_idx = torch.where(any_live, idx.index_select(0, first), 0)
+    fill = torch.where(any_live, vals.index_select(0, first), rows[:1])
+    mask = keep.view(-1, *([1] * (vals.dim() - 1)))
+    rows.index_put_((torch.where(keep, idx, fill_idx),),
+                    torch.where(mask, vals, fill))
 
 
 def paged_store_blocks(cache, scale, blocks, block_scales, ids):

@@ -18,7 +18,15 @@ paths:
   and decode step stores the new K/V rows into the cache and attends
   straight off it through ``paged_flash_prefill`` — kernel K2 (store,
   fused int8 or packed int4 quant) then kernel K1 (flash decode) on the
-  GPU, their plain versions on the CPU.  Weight-quantized params (int8
+  GPU, their plain versions on the CPU.  ``paged_kernel`` (every decode
+  pass: decode chunks, a verify's rows, the draft's decode) and
+  ``prefill_kernel`` (admissions and prompt segments) are the
+  reference's A/B switch: None (auto) runs the kernels where the engine
+  runs on the card, True the kernel wrappers anywhere, False the plain
+  versions (``paged_kv_store_plain``, ``paged_flash_decode_plain``) on
+  whatever device the engine runs on — graphed on the card too.  Unlike
+  the reference's, the switch applies to the dense cache as well, whose
+  regions the kernels read as blocks.  Weight-quantized params (int8
   or packed int4, ``ops/quant.py``) are read through
   ``ops/wquant.py::quant_matmul`` (``models/transformer.py::linear``).
 - **Continuous batching, chunked decode, a two-deep pipeline.**
@@ -105,9 +113,14 @@ paths:
   streams equal the solo ``generate`` and the reference's, sampled
   streams the port's solo ``generate``.
 
-The reference's sharded serving (``mesh``) and its switches between
-kernel and XLA paths (``paged_kernel``, ``prefill_kernel``) are not
-options here (ROADMAP Queue A11, A12).
+- **Recompile sentinel.**  ``warmup`` runs inside the sentinel's
+  warmup bracket and arms the engine at its end
+  (``serve/sentinel.py``); every graph capture reports its wall time
+  there, and a capture after warmup adds to ``recompiles`` with the
+  request context the step thread keeps in ``_sentinel_ctx``.
+
+The reference's sharded serving (``mesh``) is not an option here
+(ROADMAP Queue A12).
 """
 
 from __future__ import annotations
@@ -153,13 +166,16 @@ from oim_tpu_torch.ops import paged_attention
 from oim_tpu_torch.ops.paged import copy_block, read_blocks, write_blocks
 from oim_tpu_torch.ops.paged_attention import (
     MAX_BLOCK_SIZE,
+    paged_flash_decode_plain,
     paged_flash_prefill,
+    paged_kv_store_plain,
     supported_block_size,
 )
 from oim_tpu_torch.ops.quant import make_kv_buffers, weight_quant_mode
 from oim_tpu_torch.ops.rope import apply_rope
 from oim_tpu_torch.qos.policy import DEFAULT_POLICY as _QOS_DEFAULT
 from oim_tpu_torch.qos.policy import TIER_PRIORITY as _QOS_TIER_PRIORITY
+from oim_tpu_torch.serve import sentinel as _sentinel
 from oim_tpu_torch.serve.disagg import (
     KV_HOLD_MAX,
     KV_HOLD_TTL_S,
@@ -457,13 +473,14 @@ class _ParkedSlot:
 
 
 def _slot_attention(x, lp, cache, layer: int, starts, tables,
-                    cfg: TransformerConfig):
+                    cfg: TransformerConfig, kernel: bool = True):
     """Cached attention for rows at per-slot positions through the
     cache's pool views: x [B, t, D]; starts [B] int32 (row b's token i
     sits at ``starts[b] + i``); tables [B, n_tables] int32.  The new K/V
     rows land in the cache in place (sentinel entries drop) and the rows
     attend off the updated cache — one kernel pair per layer, for a
-    prompt segment and a decode step alike.  The attention output comes
+    prompt segment and a decode step alike, or with ``kernel`` False
+    their plain versions on the same device.  The attention output comes
     back f32 and is cast to the compute dtype before ``wo``, as in the
     reference."""
     b, t, _ = x.shape
@@ -472,27 +489,37 @@ def _slot_attention(x, lp, cache, layer: int, starts, tables,
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
     k_pool, v_pool, k_scale, v_scale = cache.layer(layer)
-    out, *_ = paged_flash_prefill(
-        q, k, v, k_pool, v_pool, k_scale, v_scale, tables, starts,
-        window=cfg.sliding_window,
-    )
+    if kernel:
+        out, *_ = paged_flash_prefill(
+            q, k, v, k_pool, v_pool, k_scale, v_scale, tables, starts,
+            window=cfg.sliding_window,
+        )
+    else:
+        paged_kv_store_plain(k, v, k_pool, v_pool, k_scale, v_scale,
+                             tables, starts)
+        out = paged_flash_decode_plain(
+            q, k_pool, v_pool, k_scale, v_scale, tables, starts,
+            window=cfg.sliding_window,
+        )
     out = out.to(x.dtype).reshape(b, t, cfg.n_heads * cfg.head_dim)
     return x + linear(out, lp, "wo", cfg).to(x.dtype)
 
 
 def _hidden_slots(params, tokens, cache, starts, tables,
-                  cfg: TransformerConfig):
+                  cfg: TransformerConfig, kernel: bool = True):
     """tokens [B, t] at per-slot positions ``starts`` → final-norm hidden
     states [B, t, D], extending the cache in place (a Python loop over
     layers; no unembedding, so prefill unembeds one position per row).
     MoE layers route every token drop-free (``_moe_exact``), so a row's
     result never depends on its batchmates or its padding.  The Pallas
     switch is off here, as in the reference's engine: serving
-    normalizes with the plain formula."""
+    normalizes with the plain formula.  ``kernel`` picks the attention's
+    path (``_slot_attention``)."""
     cfg = replace(cfg, use_pallas=False)
     x = embed_lookup(params["wte"], tokens, cfg)
     for layer, lp in enumerate(params["layers"]):
-        x = _slot_attention(x, lp, cache, layer, starts, tables, cfg)
+        x = _slot_attention(x, lp, cache, layer, starts, tables, cfg,
+                            kernel)
         x = _mlp(x, lp, cfg)
     return _rmsnorm(x, params["final_norm"], cfg)
 
@@ -587,7 +614,7 @@ def _sample_batched(logits, s: _Sampling, noise, top_k: int, counts):
 
 
 def _admit_logits(params, cache, row_tables, prompts, starts, true_tails,
-                  cfg: TransformerConfig):
+                  cfg: TransformerConfig, kernel: bool = True):
     """Prefill a group of admissions sharing a prompt bucket in one
     dispatch: prompts [R, bucket] (each row's prompt tail, zero-padded)
     from starts [R] int32, true_tails [R] valid lengths, row_tables [R,
@@ -596,7 +623,8 @@ def _admit_logits(params, cache, row_tables, prompts, starts, true_tails,
     them.  Returns the f32 logits [R, V] of each row's last real
     position, from which its first token is sampled (or nothing, for a
     segment of a chunked prefill)."""
-    x = _hidden_slots(params, prompts, cache, starts, row_tables, cfg)
+    x = _hidden_slots(params, prompts, cache, starts, row_tables, cfg,
+                      kernel)
     rows = torch.arange(x.shape[0], device=x.device)
     last = x[rows, true_tails.long() - 1]
     return unembed(last, params, cfg)
@@ -604,7 +632,8 @@ def _admit_logits(params, cache, row_tables, prompts, starts, true_tails,
 
 def _decode_chunk(params, cache, tables, tokens, starts, live,
                   s: _Sampling, noise, cfg: TransformerConfig, *,
-                  chunk: int, top_k: int, max_len: int, counts):
+                  chunk: int, top_k: int, max_len: int, counts,
+                  kernel: bool = True):
     """Advance every row ``chunk`` tokens: tokens [S] int64 (each row's
     latest token), starts [S] int32 (where it is written), live [S]
     int32 (1 for a row with a request), noise [chunk, S, V] or None.  A
@@ -617,7 +646,8 @@ def _decode_chunk(params, cache, tables, tokens, starts, live,
     active = live > 0
     outs, lps = [], []
     for i in range(chunk):
-        x = _hidden_slots(params, tokens[:, None], cache, starts, tables, cfg)
+        x = _hidden_slots(params, tokens[:, None], cache, starts, tables, cfg,
+                          kernel)
         logits = unembed(x[:, -1], params, cfg)
         nxt, lp = _sample_batched(
             logits, s, None if noise is None else noise[i], top_k, counts
@@ -671,12 +701,12 @@ def _draft_lookup(hist, lengths, draft_len: int, ngram: int, max_len: int):
 
 
 def _verify_logits(params, cache, tables, lengths, tokens, drafts,
-                   cfg: TransformerConfig):
+                   cfg: TransformerConfig, kernel: bool = True):
     """A verify's forward: one (L+1)-row target forward over [tokens,
     drafts] from ``lengths`` (K2 then K1 per layer, each slot's L+1 rows
     at once) → f32 logits [S, L+1, V]."""
     inputs = torch.cat([tokens[:, None], drafts], dim=1)
-    x = _hidden_slots(params, inputs, cache, lengths, tables, cfg)
+    x = _hidden_slots(params, inputs, cache, lengths, tables, cfg, kernel)
     return unembed(x, params, cfg)
 
 
@@ -712,16 +742,17 @@ def _accept(logits, lengths, tokens, drafts, live, s: _Sampling, noise, *,
 
 def _verify_emit(params, cache, tables, lengths, tokens, drafts, live,
                  s: _Sampling, noise, cfg: TransformerConfig, *, top_k: int,
-                 max_len: int):
+                 max_len: int, kernel: bool = True):
     """The exactness-critical verify-and-emit core of both drafting
     sources: ``_verify_logits`` then ``_accept``."""
     logits = _verify_logits(params, cache, tables, lengths, tokens, drafts,
-                            cfg)
+                            cfg, kernel)
     return _accept(logits, lengths, tokens, drafts, live, s, noise,
                    top_k=top_k, max_len=max_len)
 
 
-def _model_drafts(draft, tokens, lengths, draft_len: int):
+def _model_drafts(draft, tokens, lengths, draft_len: int,
+                  kernel: bool = True):
     """``draft_len`` greedy tokens a slot from the draft model: ``draft``
     = (params, cfg, cache, tables).  ``draft_len + 1`` sequential t = 1
     forwards from ``tokens`` at ``lengths`` write the draft cache's rows
@@ -732,7 +763,7 @@ def _model_drafts(draft, tokens, lengths, draft_len: int):
     cur, drafted = tokens, []
     for j in range(draft_len + 1):
         x = _hidden_slots(dparams, cur[:, None], dcache, lengths + j,
-                          dtables, dcfg)
+                          dtables, dcfg, kernel)
         if j == draft_len:
             break
         cur = torch.argmax(unembed(x[:, -1], dparams, dcfg), dim=-1)
@@ -743,7 +774,8 @@ def _model_drafts(draft, tokens, lengths, draft_len: int):
 def _decode_chunk_spec(params, cache, tables, tokens, starts, live,
                        s: _Sampling, noise, cfg: TransformerConfig, *,
                        chunk: int, draft_len: int, top_k: int, max_len: int,
-                       history=None, ngram: int = 2, draft=None):
+                       history=None, ngram: int = 2, draft=None,
+                       kernel: bool = True):
     """``_decode_chunk`` with speculative decoding: each of ``chunk``
     sub-steps drafts ``draft_len`` tokens a slot — by prompt lookup over
     ``history`` [S, max_len] (updated in place: the newest decided token
@@ -777,11 +809,11 @@ def _decode_chunk_spec(params, cache, tables, tokens, starts, live,
             at = torch.clamp_max(lengths + 1, max_len - draft_len).long()
             history[rows[:, None], at[:, None] + offsets] = drafts
         else:
-            drafts = _model_drafts(draft, tokens, lengths, draft_len)
+            drafts = _model_drafts(draft, tokens, lengths, draft_len, kernel)
         lengths, tokens, out, lp, n_emit = _verify_emit(
             params, cache, tables, lengths, tokens, drafts, live, s,
             None if noise is None else noise[i], cfg, top_k=top_k,
-            max_len=max_len,
+            max_len=max_len, kernel=kernel,
         )
         outs.append(out)
         lps.append(lp)
@@ -1184,6 +1216,8 @@ class Engine:
         slow_capture_interval_s: float = 60.0,
         device=None,
         cuda_graphs: bool = True,
+        paged_kernel: bool | None = None,
+        prefill_kernel: bool | None = None,
     ):
         self.device = resolve_device(device)
         if pipeline_depth not in (1, 2):
@@ -1255,22 +1289,34 @@ class Engine:
                 f"kv_block={kv_block} must divide max_len={max_len} "
                 f"(the block table covers the region exactly)"
             )
+        # The kernel switch (the reference's A/B control): None = the
+        # kernels wherever the engine runs on the card; True = the kernel
+        # wrappers (their plain versions on CPU tensors); False = the plain
+        # versions on this device.  Only the caller's argument picks.
+        cuda = self.device.type == "cuda"
+        self.paged_kernel = cuda if paged_kernel is None else bool(
+            paged_kernel)
+        self.prefill_kernel = cuda if prefill_kernel is None else bool(
+            prefill_kernel)
         block_size = kv_block if self.paged else dense_block_size(max_len)
         geometries = [(cfg.head_dim, block_size,
                        "kv_block" if self.paged else "a dense block")]
         if draft_cfg is not None:
             geometries.append((draft_cfg.head_dim, dense_block_size(max_len),
                                "the draft's dense block"))
-        for head_dim, block, what in geometries:
-            if self.device.type == "cuda" and not supported_block_size(
-                    block, head_dim):
-                # Fail here, with the constraint named, rather than in
-                # the first launch on the step thread.
-                raise ValueError(
-                    f"the paged-attention kernels need head_dim in (64, "
-                    f"128) and blocks of 1 to 64 rows; got head_dim="
-                    f"{head_dim}, {what}={block}"
-                )
+        for name, on in (("paged_kernel", self.paged_kernel),
+                         ("prefill_kernel", self.prefill_kernel)):
+            for head_dim, block, what in geometries:
+                if on and not supported_block_size(block, head_dim):
+                    # Fail here, with the constraint named, rather than
+                    # in the first launch on the step thread.
+                    flag = name.replace("_", "-")
+                    raise ValueError(
+                        f"{name} needs head_dim in (64, 128) and blocks of "
+                        f"1 to 64 rows; got {what}={block}, head_dim="
+                        f"{head_dim} — run this geometry with the gather "
+                        f"path ({name}=False / --{flag} off)"
+                    )
         if max_queue < 0:
             raise ValueError(f"max_queue must be >= 0, got {max_queue}")
         if (brownout_max_tokens < 0
@@ -1626,6 +1672,12 @@ class Engine:
         # capture of every graph, and of the admission graphs' share.
         self.warmup_seconds = 0.0
         self.graph_capture_seconds = 0.0
+        # The recompile sentinel (serve/sentinel.py): the request context
+        # a capture is charged to, replaced wholesale (never mutated) by
+        # the step thread at phase boundaries and read there without a
+        # lock; and the captures charged to this engine after its warmup.
+        self._sentinel_ctx: dict = {"phase": "idle"}
+        self.recompiles = 0
         self.admission_capture_seconds = 0.0
         self._t_device_free: float | None = None
         self._t_last_chunk_done: float | None = None
@@ -2211,12 +2263,20 @@ class Engine:
                 # admission is FIFO and nothing preempts.
                 "qos": self._qos_policy is not None,
                 "device": str(self.device),
-                "attention": (
-                    "cuda-kernels" if self.device.type == "cuda" else "plain"
-                ),
+                "attention": self._attention_path(),
+                "paged_kernel": self.paged_kernel,
+                "prefill_kernel": self.prefill_kernel,
                 "cuda_graphs": self.cuda_graphs,
             },
         }
+
+    def _attention_path(self) -> str:
+        """What attends: "cuda-kernels" (K1/K2 on every pass), "plain"
+        (no kernel launches: the CPU, or both switches off) or "mixed"."""
+        on = {self.paged_kernel, self.prefill_kernel}
+        if self.device.type != "cuda" or on == {False}:
+            return "plain"
+        return "cuda-kernels" if on == {True} else "mixed"
 
     def stats(self) -> dict:
         with self._lock:
@@ -2334,6 +2394,11 @@ class Engine:
                 "tail_elisions": self.tail_elisions,
                 "warmup_seconds": self.warmup_seconds,
                 "graph_capture_seconds": self.graph_capture_seconds,
+                # Captures after warmup the recompile sentinel charged
+                # to this engine, and the attention path of each kind.
+                "recompiles": self.recompiles,
+                "paged_kernel": self.paged_kernel,
+                "prefill_kernel": self.prefill_kernel,
                 "admission_capture_seconds": self.admission_capture_seconds,
                 "pipeline_depth": self.pipeline_depth,
                 "inflight_dispatches": int(self._inflight is not None),
@@ -2388,7 +2453,6 @@ class Engine:
         ``kv_blocks_*`` the pool's headroom (zeros on the dense cache),
         then the host tier's, the ships', the prefix residency, the sheds,
         the tenants and the drain and brownout states."""
-        cuda = self.device.type == "cuda"
         with self._lock:
             return {
                 "queue_depth": len(self._queue),
@@ -2422,12 +2486,11 @@ class Engine:
                 "kv_promote_seconds": round(self.kv_promote_seconds, 6),
                 "kv_demote_bytes": self.kv_demote_bytes,
                 "kv_promote_bytes": self.kv_promote_bytes,
-                # The paged-attention and prefill kernels run wherever
-                # the engine runs on the card (their plain versions on
-                # the CPU).
-                "paged_kernel": cuda,
+                # Whether the decode passes and the admissions take the
+                # kernel wrappers (the caller's switch, resolved).
+                "paged_kernel": self.paged_kernel,
                 "kv_int4": self.kv_int4,
-                "prefill_kernel": cuda,
+                "prefill_kernel": self.prefill_kernel,
                 "prefill_chunk": self.prefill_chunk,
                 "prefill_segments": self.prefill_segments,
                 "kv_exports": self.kv_exports,
@@ -2935,9 +2998,12 @@ class Engine:
         first (``_capture_graphs``: the decode chunk's, and admission's
         for every bucket and row class), so that no graph is captured
         after it.  ``embed`` also runs ``/v1/embed``'s forward once per
-        bucket."""
+        bucket.  The body runs inside the recompile sentinel's warmup
+        bracket, and the warmed engine arms itself there at the end: from
+        then on a capture is a recompile (``serve/sentinel.py``)."""
         t0 = time.monotonic()
         self._warming = True
+        _sentinel.begin_warmup()
         try:
             rids = []
             for b in self.prompt_buckets:
@@ -2959,7 +3025,9 @@ class Engine:
                 self._flush_host_tier_locked()
         finally:
             self._warming = False
+            _sentinel.end_warmup()
         self.warmup_seconds = time.monotonic() - t0
+        _sentinel.arm(self)
         return self
 
     def _release_slot_locked(self, slot: int) -> None:
@@ -4481,7 +4549,7 @@ class Engine:
         prompts, meta, tables = self._adm.views(bucket, rows)
         self._adm.logits[:rows].copy_(_admit_logits(
             self.params, self._cache, tables, prompts, meta[0], meta[1],
-            self.cfg,
+            self.cfg, self.prefill_kernel,
         ))
 
     def _dispatch_admission(self, bucket: int, rows: int, prompts,
@@ -4514,7 +4582,7 @@ class Engine:
         nothing."""
         prompts, meta, tables = self._dadm.views(bucket, rows)
         _hidden_slots(self.draft_params, prompts, self._draft_cache, meta[0],
-                      tables, self.draft_cfg)
+                      tables, self.draft_cfg, self.prefill_kernel)
 
     def _seat_drafting(self, rows) -> None:
         """The speculative half of an admission wave, for the ``rows``
@@ -4658,6 +4726,7 @@ class Engine:
                 joining.append(pend)
                 continue
             seg = pend.segs.pop(0)
+            self._sentinel_ctx = {"phase": "admit", "rids": (pend.rid,)}
             t0 = time.monotonic()
             self._prefill_segment(pend.slot, seg, pend.start)
             pend.trace.segment_walls.append(time.monotonic() - t0)
@@ -4734,6 +4803,11 @@ class Engine:
             if advanced and not self._warming:
                 self.prefill_seconds += time.monotonic() - t0
             return
+        self._sentinel_ctx = {
+            "phase": "admit",
+            "rids": tuple(a[1] for a in admissions)
+            + tuple(p.rid for p in joins),
+        }
         # One boundary instant for the wave: every admission left the
         # queue at the pop above, and its prefill work starts here.
         t_admitted = t_pf = time.monotonic()
@@ -4901,7 +4975,7 @@ class Engine:
                 b.meta[1], s, noise, self.cfg, chunk=self.chunk,
                 draft_len=self.spec_decode, top_k=self.top_k,
                 max_len=self.max_len, history=self._history,
-                ngram=self.spec_ngram, draft=draft,
+                ngram=self.spec_ngram, draft=draft, kernel=self.paged_kernel,
             )
             b.n_emit.copy_(n_emit)
             b.meta[0].copy_(lengths)
@@ -4913,6 +4987,7 @@ class Engine:
                 self.params, self._cache, b.tables, b.tokens, b.meta[0],
                 b.meta[1], s, noise, self.cfg, chunk=self.chunk,
                 top_k=self.top_k, max_len=self.max_len, counts=counts,
+                kernel=self.paged_kernel,
             )
         b.out.copy_(out)
         b.lps.copy_(lps)
@@ -4940,7 +5015,9 @@ class Engine:
         dispatch is captured first, so that the smaller ones reuse its
         pool blocks and the pool holds about one dispatch's transients.
         The launch counts each capture records are what its replays add
-        (``recording``)."""
+        (``recording``; a path switched off records its plain versions'
+        runs, captured on the device like any other op), and each
+        capture reports its wall time to the recompile sentinel."""
         t0 = time.monotonic()
         b = self._buf
         b.tables.fill_(self._sentinel)
@@ -4971,23 +5048,29 @@ class Engine:
         torch.cuda.empty_cache()
         pool = torch.cuda.graph_pool_handle()
 
-        def capture(run, *key):
+        def capture(run, kernel, *key):
             graph = torch.cuda.CUDAGraph()
-            with kernel_counts.recording() as delta, torch.cuda.graph(
-                    graph, pool=pool, capture_error_mode="thread_local"):
+            t = time.monotonic()
+            with kernel_counts.recording(plain=not kernel) as delta, \
+                    torch.cuda.graph(graph, pool=pool,
+                                     capture_error_mode="thread_local"):
                 run(*key)
+            _sentinel.report(time.monotonic() - t)
             return graph, delta
 
         t1 = time.monotonic()
-        self._admit_graphs = {key: capture(self._run_admission, *key)
-                              for key in keys}
+        prefill = self.prefill_kernel
+        self._admit_graphs = {key: capture(self._run_admission, prefill,
+                                           *key) for key in keys}
         if draft:
             self._draft_graphs = {key: capture(self._run_draft_admission,
-                                               *key) for key in keys}
+                                               prefill, *key)
+                                  for key in keys}
         t2 = time.monotonic()
         graphs, counts = {}, {}
         for key in _GRAPH_KEYS:
-            graphs[key], counts[key] = capture(self._run_chunk, key)
+            graphs[key], counts[key] = capture(self._run_chunk,
+                                               self.paged_kernel, key)
         torch.cuda.synchronize(self.device)
         self._graphs, self._graph_counts = graphs, counts
         self.graph_capture_seconds = time.monotonic() - t0
@@ -5065,6 +5148,10 @@ class Engine:
         skipped at readback.  The table is the current one either way."""
         with self._lock:
             slots = dict(self._slots)
+        self._sentinel_ctx = {
+            "phase": "decode",
+            "rids": tuple(sorted(st.rid for st in slots.values())),
+        }
         t0 = time.monotonic()
         if chained is None:
             self._ensure_graphs()

@@ -5,7 +5,9 @@
   package ``oim_tpu``: the port keeps its own copy of what it needs.
   Nor ``grpc``, which the card's machine does not have.  Importing what
   a serving process runs — ``serve_main``, the server, the ship clients
-  of ``serve/disagg.py``, the checkpoint manager — loads none of them.
+  of ``serve/disagg.py``, the checkpoint manager, the logger, the text
+  surface, mTLS and the recompile sentinel — loads none of them, nor
+  ``transformers``.
 - Every port module carries a docstring, imports nothing it does not
   use, and prints only from ``cli/`` (the gates ``tests/test_quality.py``
   holds ``oim_tpu`` to).
@@ -107,14 +109,18 @@ def test_no_unused_imports(path):
     assert not unused, f"unused imports: {unused}"
 
 
-# The modules a serving process imports, the HTTP ship clients among
-# them: importing them (in a fresh interpreter) loads nothing forbidden.
+# The modules a serving process imports, the HTTP ship clients, the
+# logger, the text surface, mTLS and the recompile sentinel among them:
+# importing them (in a fresh interpreter) loads nothing forbidden, and
+# not ``transformers`` either, which only a ``TextTokenizer`` loads.
 RUNTIME = ("oim_tpu_torch.cli.serve_main", "oim_tpu_torch.serve.server",
-           "oim_tpu_torch.serve.disagg", "oim_tpu_torch.checkpoint")
+           "oim_tpu_torch.serve.disagg", "oim_tpu_torch.checkpoint",
+           "oim_tpu_torch.log", "oim_tpu_torch.serve.texttok",
+           "oim_tpu_torch.serve.httptls", "oim_tpu_torch.serve.sentinel")
 
 
 def test_runtime_imports_stay_out():
-    forbidden = sorted(FORBIDDEN | {"grpc"})
+    forbidden = sorted(FORBIDDEN | {"grpc", "transformers"})
     code = (f"import sys, {', '.join(RUNTIME)}; print(sorted("
             f"{{m.split('.')[0] for m in sys.modules}} & set({forbidden!r})))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
