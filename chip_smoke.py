@@ -112,7 +112,7 @@ certificates ``openssl`` makes (good, certless, evil-CA and non-serving
 clients, the CN as the tenant, the weights over https against http);
 the kernel switch's A/B, engine K (the kernels) against P (both
 switches off), K P P K on eight concurrent requests and a lone
-512-token prompt; a 2 s ``/debugz/profile`` capture during four
+512-token prompt; a 0.5 s ``/debugz/profile`` capture during four
 streams; the recompile sentinel (silent after warmup, and an unwarmed
 engine armed by hand charged its first dispatch's captures while a
 sibling's warmup fires nothing); a mixed engine (decode on the
@@ -120,6 +120,27 @@ kernels, admissions plain); and ``serve_main`` as its own process with
 ``--trace-file --log-level debug --paged-kernel on``.  It runs in the
 full smoke and with ``--serve-phase-only`` when the package has
 ``--tokenizer-dir``.
+The default serve phase, the spec phase's target engines, the QoS and
+front phases, training and the parallel phase's Qwen run all 28
+layers; the paged, int4, prefix, KV block I/O and HTTP phases and the
+self-draft engines serve the model at ``SIDE_LAYERS`` (14), any host
+tier's bytes cut in proportion, the draft model runs 12 of its 24
+layers and the bf16 MoE serve phase 16 of Mixtral's 32: the smoke's
+time limit.
+``--parallel-phase-only`` runs only the parallel phase
+(``parallel_phase``): K1/K2 at the ranks' head counts (Qwen tp=2: 6 / 1;
+Mixtral tp2·ep2: 16 / 4) and ``quant_matmul`` at the tp2·ep2 ranks'
+int8 shapes against their plain versions; Qwen2.5-1.5B at tp=2 as two
+gloo ranks sharing the card (eager, 28 layers) against the tp=1 engine
+on the same weights (streams equal or parting at a near tie, every
+rank's buffers bitwise equal, K1/K2 and the collectives once a layer a
+pass); Qwen on a one-rank NCCL mesh with CUDA graphs (the collectives
+captured and counted by replay; streams equal to the engine with no
+mesh); Mixtral-8x7B's widths at tp2·ep2 as four gloo ranks (int8, 8
+layers; teacher-forced with the ranks' own expert choices); and
+``serve_main --bootstrap`` on a file staging ``/dev/nvidia0`` beside
+``--tp 2`` refused on the one card.  The full smoke runs it after the
+HTTP phase.
 
 It exits non-zero without a result line when no GPU is visible, when the
 port's package is not beside it, or when any phase fails.  Every number
@@ -162,14 +183,37 @@ SERVE_ARGS = [
     "--dtype", "bfloat16", "--n-slots", "8",
     "--max-len", "2048", "--chunk", "8", "--port", "0", "--seed", "0",
 ]
+# The phases that serve the same model for what it does besides its
+# forward (the prefix cache, KV block I/O, the HTTP surfaces) run it at
+# SIDE_LAYERS of its 28 layers, the widths and traffic unchanged, and
+# any host tier's byte budget cut in proportion (the same number of
+# blocks): the smoke's time limit.
+SIDE_LAYERS = 14
+
+
+def at_depth(argv: list[str], layers: int) -> list[str]:
+    """``argv`` with ``--n-layers`` set to ``layers``."""
+    out = list(argv)
+    out[out.index("--n-layers") + 1] = str(layers)
+    return out
+
+
+def side_bytes(n_bytes: int) -> int:
+    """A host tier's byte budget at ``SIDE_LAYERS``: as many blocks as
+    ``n_bytes`` holds at 28 layers."""
+    return n_bytes * SIDE_LAYERS // 28
+
+
 # The same model on the paged engine and the serial loop, eager: the
-# serving path of the earlier slices.
-PAGED_SERVE_ARGS = SERVE_ARGS + ["--kv-block", "16", "--pipeline-depth",
+# serving path of the earlier slices, at SIDE_LAYERS.
+PAGED_SERVE_ARGS = at_depth(SERVE_ARGS, SIDE_LAYERS) + [
+    "--kv-block", "16", "--pipeline-depth",
                                  "1"]
 # The quantization ladder's top rung on the same model: packed int4
 # weights in groups of 64 and a packed int4 paged pool, at serve_main's
-# default depth 2.
-QUANT_SERVE_ARGS = SERVE_ARGS + ["--kv-block", "16", "--kv-int4",
+# default depth 2, at SIDE_LAYERS.
+QUANT_SERVE_ARGS = at_depth(SERVE_ARGS, SIDE_LAYERS) + [
+    "--kv-block", "16", "--kv-int4",
                                  "--weights-int4", "--int4-group", "64"]
 # Speculative decoding on the same model (``--spec-decode 4``): prompt
 # lookup on serve_main's defaults otherwise; the same with a draft model
@@ -178,10 +222,11 @@ QUANT_SERVE_ARGS = SERVE_ARGS + ["--kv-block", "16", "--kv-int4",
 # the same 151936 vocabulary — the family's usual draft), random weights
 # from DRAFT_SEED written by the port's own exporter; as the reference
 # builds a draft, it takes the target's vocabulary, RoPE base, norm
-# epsilon and dtype, and no biases.
+# epsilon and dtype, and no biases.  Its depth is cut to 12 of its 24
+# layers: its prefill graphs' capture is most of the phase's wall.
 SPEC = 4
 SPEC_ARGS = SERVE_ARGS + ["--spec-decode", str(SPEC)]
-DRAFT_FLAGS = ["--draft-n-layers", "24", "--draft-d-model", "896",
+DRAFT_FLAGS = ["--draft-n-layers", "12", "--draft-d-model", "896",
                "--draft-n-heads", "14", "--draft-n-kv-heads", "2",
                "--draft-d-ff", "4864"]
 DRAFT_H, DRAFT_KVH, DRAFT_HD = 14, 2, 64
@@ -209,10 +254,11 @@ DENSE_BS = 64
 # MLP 14336, 32 / 8 kv heads, head_dim 128, 8 experts, top 2, vocab
 # 32000, rope_theta 1e6, RMSNorm eps 1e-5, no biases, no window), the
 # repo's untied wlm, random weights from seed 0.  Served depth cut to
-# 24 of 32 layers: in bf16 a layer is 2.90 GB (experts 2.82, attention
-# 0.08) plus 0.067 GB of dense cache (8 slots x 2048 rows), wte and the
-# f32 wlm add 0.79 GB — 71 GB (66 GiB) at 24 layers, which leaves the
-# 8 GiB of headroom on an 80 GB card that ``MOE_FREE_GIB`` checks at the
+# 16 of 32 layers (cut from 24 for the smoke's time limit):
+# in bf16 a layer is 2.90 GB (experts 2.82, attention 0.08) plus 0.067
+# GB of dense cache (8 slots x 2048 rows), wte and the f32 wlm add 0.79
+# GB — 71 GB (66 GiB) at 24 layers, 48 GB at 16, either leaving the 8
+# GiB of headroom on an 80 GB card that ``MOE_FREE_GIB`` checks at the
 # serving peak (admission transients, graph pool).  Trained at 2 layers:
 # f32 masters, grads and AdamW moments of 3.2 B parameters, ~51 GB.
 MOE_GEOMETRY = [
@@ -221,7 +267,7 @@ MOE_GEOMETRY = [
     "--moe-top-k", "2", "--rope-theta", "1000000", "--norm-eps", "1e-5",
     "--dtype", "bfloat16",
 ]
-MOE_LAYERS = 24
+MOE_LAYERS = 16
 MOE_SERVE_ARGS = MOE_GEOMETRY + [
     "--n-layers", str(MOE_LAYERS), "--n-slots", "8", "--max-len",
     str(MAX_LEN), "--chunk", "8", "--port", "0", "--seed", "0",
@@ -1745,7 +1791,8 @@ def self_draft_phase() -> dict:
     from oim_tpu_torch.ops import paged_attention as pa
     from oim_tpu_torch.serve.engine import Engine, GenRequest
 
-    args = serve_main.build_parser().parse_args(SERVE_ARGS)
+    args = serve_main.build_parser().parse_args(
+        at_depth(SERVE_ARGS, SIDE_LAYERS))
     cfg = serve_main.model_config(args)
     params = serve_main.load_weights(args, cfg, DEV)
     rng = np.random.RandomState(3)
@@ -2614,9 +2661,10 @@ def prefix_phase() -> dict:
     counts and those times by layout."""
     counts = {}
     for layout, extra in (("dense", []), ("paged", ["--kv-block", "16"])):
-        cached = prefix_serve(SERVE_ARGS + extra + PREFIX_FLAGS,
+        side = at_depth(SERVE_ARGS, SIDE_LAYERS)
+        cached = prefix_serve(side + extra + PREFIX_FLAGS,
                               f"{layout} cached", True)
-        plain = prefix_serve(SERVE_ARGS + extra, f"{layout} control", False)
+        plain = prefix_serve(side + extra, f"{layout} control", False)
         same = sum(a["tokens"] == b["tokens"]
                    for a, b in zip(cached["replies"], plain["replies"]))
         print(f"prefix {layout}: hit TTFT (the {PREFIX_TAILS[0]}-token "
@@ -2660,14 +2708,15 @@ def prefix_phase() -> dict:
 # serve_main's defaults otherwise (bf16 KV, depth 2, graphs); C the same
 # weights on a 4-slot engine whose pool is small enough that storing the
 # 1008-token entry and serving beside it demotes, with the host tier.
-KV_IO_ARGS = SERVE_ARGS + ["--kv-block", "16", "--prefix-cache", "8"]
+KV_IO_ARGS = at_depth(SERVE_ARGS, SIDE_LAYERS) + [
+    "--kv-block", "16", "--prefix-cache", "8"]
 KV_HOLD_PROMPTS = (512, 700, 850, 1000)  # two greedy, two sampled
 KV_HOLD_FIRST, KV_HOLD_CONT = 8, 56
 KV_MIGRATE_PROMPTS = (40, 96, 160, 256, 320, 400, 480, 512)
 KV_MIGRATE_BUDGET, KV_MIGRATE_AFTER = 256, 64
 KV_TEMP = 0.8
 KV_TIER_BLOCKS = 160
-KV_TIER_HOST = 256 * 2**20
+KV_TIER_HOST = side_bytes(256 * 2**20)
 KV_TIER_BUCKETS = (32, 1024, 2047)
 KV_TIER_PRESSURE = (700, 740)  # two 64-block worst cases
 KV_PARK_PROMPTS = (700, 760, 800)  # 64 new each
@@ -3257,6 +3306,8 @@ def kv_io_phase() -> dict:
 # capture an hour.  Engine S (the shedding leg, through the HTTP server)
 # shares Q's weights: a queue bound of 8, brownout at 16 tokens with no
 # hold, prompt buckets up to the leg's prompts.
+# At all 28 layers: the shedding leg's deadline must expire while eight
+# long requests hold the slots, which takes their full-depth decode.
 QOS_HOST = 64 * 2**20
 QOS_ARGS = SERVE_ARGS + ["--kv-block", "16", "--kv-host-bytes",
                          str(QOS_HOST), "--slow-capture-e2e", "0.001",
@@ -3812,7 +3863,7 @@ def qos_phase() -> dict:
 # Servers A and B: serve_main's model with the paged pool, a prefix cache
 # and a host tier; B shares A's weights.  C is brought up from A over
 # /v1/weights.  Traffic (the legs' prompts and budgets) is the only cut.
-HTTP_HOST = 64 * 2**20
+HTTP_HOST = side_bytes(64 * 2**20)
 HTTP_STREAM_PROMPTS = (128, 256, 384, 512)
 HTTP_STREAM_NEW = 128
 HTTP_DISCONNECT = (64, 1024, 8)  # prompt, budget, tokens read
@@ -3825,8 +3876,9 @@ HTTP_STALL_FLOOR = HTTP_STALL_MULT = 1e-3
 
 
 def http_args() -> list[str]:
-    return SERVE_ARGS + ["--kv-block", "16", "--prefix-cache", "8",
-                         "--kv-host-bytes", str(HTTP_HOST)]
+    return at_depth(SERVE_ARGS, SIDE_LAYERS) + [
+        "--kv-block", "16", "--prefix-cache", "8", "--kv-host-bytes",
+        str(HTTP_HOST)]
 
 
 def http_call(port: int, path: str, body=None, method=None,
@@ -4509,8 +4561,10 @@ FRONT_TEXT_BYTES = (128, 256, 384, 512)
 FRONT_NEW = 128
 FRONT_SAMPLED = (0.8, 77)  # temperature, seed of the n = 2 completions
 FRONT_SWITCH_PROMPTS = (128, 176, 224, 272, 320, 368, 416, 512)
-FRONT_PROFILE_PROMPTS, FRONT_PROFILE_NEW = (128, 192, 256, 320), 1536
-FRONT_PROFILE_S = 2.0
+# A 0.5 s capture: the tracer's stop and export hold the interpreter
+# about 20-30 s a second of capture (PERF.md §6).
+FRONT_PROFILE_PROMPTS, FRONT_PROFILE_NEW = (128, 192, 256, 320), 768
+FRONT_PROFILE_S = 0.5
 # Qwen2.5's <|endoftext|>, the stand-in tokenizer's EOS.
 QWEN_EOS = 151643
 
@@ -6794,6 +6848,637 @@ def ptxas_lines(log: str) -> list[str]:
             for name, parts in report.values() if parts]
 
 
+# ---------------------------------------------------------------------------
+# Sharded serving (tensor and expert parallelism, the bootstrap)
+
+# Qwen2.5-1.5B at its published widths (SERVE_ARGS' model) and
+# Mixtral-8x7B's (MOE_GEOMETRY's), as the ranks build them.
+PAR_QWEN = dict(vocab_size=VOCAB, d_model=D_MODEL, n_layers=28, n_heads=H,
+                n_kv_heads=KVH, d_ff=8960, rope_theta=1e6, norm_eps=1e-6,
+                attn_bias=True, dtype="bfloat16")
+# Mixtral at tp2·ep2 on one card: four ranks' shards plus the tp=1
+# reference's whole model, int8 (1.45 GB a layer), at PAR_MOE_LAYERS of
+# its 32 layers: 5.8 GB a copy, and each rank draws its experts' f32
+# tensors whole (1.9 GB each) before cutting its shard — cut so that the
+# phase stays within its share of the smoke's time.
+PAR_MOE_LAYERS = 4
+PAR_MIXTRAL = dict(vocab_size=MOE_VOCAB, d_model=MOE_D, n_layers=PAR_MOE_LAYERS,
+                   n_heads=MOE_H, n_kv_heads=MOE_KVH, d_ff=14336, n_experts=8,
+                   moe_top_k=2, rope_theta=1e6, norm_eps=1e-5,
+                   dtype="bfloat16")
+PAR_ENGINE = dict(n_slots=8, max_len=MAX_LEN, chunk=8)
+# Eight concurrent requests (two sampled), then a lone 512-token prompt
+# for the time to first token.
+PAR_PROMPTS = (64, 128, 192, 256, 320, 384, 448, 512)
+PAR_NEW = 16
+PAR_SAMPLED = {6: (0.8, 61), 7: (0.7, 62)}  # request index → (temp, seed)
+# The legs: (name, model, weight quant, tp, ep).
+PAR_LEGS = {"qwen_tp2": (PAR_QWEN, "", 2, 1),
+            "mixtral_tp2ep2": (PAR_MIXTRAL, "int8", 2, 2)}
+# quant_matmul at the tp2·ep2 ranks' shapes: column-sharded wq, wk and
+# the experts' w_gate/w_in over tp (the experts over ep), row-sharded
+# wo and w_out, the vocab-sharded wlm.
+PAR_QMM = (("wq", (MOE_D, MOE_D // 2)), ("wk, wv", (MOE_D, 512)),
+           ("wo", (MOE_D // 2, MOE_D)),
+           ("w_gate, w_in", (4, MOE_D, 14336 // 2)),
+           ("w_out", (4, 14336 // 2, MOE_D)),
+           ("wlm", (MOE_D, MOE_VOCAB // 2)))
+
+
+def par_requests(vocab: int) -> tuple[list, dict]:
+    """(the eight requests, the lone 512-token prompt's request), from a
+    fixed seed: the same on every leg."""
+    rng = np.random.RandomState(19)
+    reqs = []
+    for i, n in enumerate(PAR_PROMPTS):
+        req = {"tokens": rng.randint(0, vocab, n).tolist(),
+               "max_new_tokens": PAR_NEW}
+        if i in PAR_SAMPLED:
+            req["temperature"], req["seed"] = PAR_SAMPLED[i]
+        reqs.append(req)
+    lone = {"tokens": rng.randint(0, vocab, 512).tolist(),
+            "max_new_tokens": 1}
+    return reqs, lone
+
+
+def sync() -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def par_engine(fields: dict, mode: str, mesh, graphs: bool, params=None):
+    """The engine of one leg: weights drawn from seed 0 on the card a
+    tensor at a time, each cut to this rank's shard as it is made when
+    ``mesh`` is given (the values the tp=1 reference draws whole), or
+    ``params`` already drawn."""
+    from oim_tpu_torch.models.transformer import TransformerConfig, init_params
+    from oim_tpu_torch.models.weights import serve_specs, shard_tensor
+    from oim_tpu_torch.serve.engine import Engine
+
+    cfg = TransformerConfig(**fields)
+    place = None
+    if mesh is not None:
+        specs = serve_specs(cfg, mesh, mode, 64)
+
+        def place(name, t):
+            return shard_tensor(name, t, specs, mesh)
+
+    if params is None:
+        params = init_params(0, cfg, device=DEV, weight_quant=mode,
+                             int4_group=64, place=place)
+    return Engine(params, cfg, mesh=mesh, cuda_graphs=graphs,
+                  device=None if mesh is not None else DEV, **PAR_ENGINE)
+
+
+def par_drive(engine, vocab: int, warm: bool, routing=None) -> dict:
+    """Serve the eight requests (after one small warm request, or the
+    engine's ``warmup``), counting launches and collectives from zero,
+    then the lone 512-token prompt: tokens, walls, counts and stats.
+    With ``routing`` (a ``ServedRouting`` installed before the engine
+    was built) the eight requests' expert choices come back too, each
+    greedy stream's as ``teacher_check`` forces them (``forced``)."""
+    from oim_tpu_torch.ops import counts as kernel_counts
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    reqs, lone = par_requests(vocab)
+    if warm:
+        engine.warmup()
+    else:
+        rid = engine.submit(GenRequest(tokens=[1] * 16, max_new_tokens=9))
+        engine.run()
+        engine.result(rid)
+    sync()
+    before = engine.stats()
+    if routing is not None:
+        routing.watch(engine)
+    kernel_counts.reset_counters()
+    t0 = time.monotonic()
+    rids = [engine.submit(GenRequest(**r)) for r in reqs]
+    engine.run()
+    wall = time.monotonic() - t0
+    counts = kernel_counts.counters()
+    stats = engine.stats()
+    tokens = [engine.result(rid) for rid in rids]
+    forced = None
+    if routing is not None:
+        routing.remove(engine)
+        forced = [[c.cpu().numpy() for c in routing.choices(
+                      r["tokens"], len(t))]
+                  for r, t in zip(reqs, tokens) if not r.get("temperature")]
+    t0 = time.monotonic()
+    rid = engine.submit(GenRequest(**lone))
+    engine.run()
+    engine.result(rid)
+    ttft = time.monotonic() - t0
+    delta = {k: stats[k] - before[k] for k in (
+        "decode_passes", "prefill_dispatches", "graph_replays",
+        "admission_replays", "decode_seconds", "decode_tokens",
+        "readbacks")}
+    return {"tokens": tokens, "forced": forced, "wall_s": wall,
+            "ttft_ms": ttft * 1e3,
+            "tok_s": sum(map(len, tokens)) / wall,
+            "decode_tok_s": delta["decode_tokens"] / delta["decode_seconds"],
+            "chunk_ms": delta["decode_seconds"] * 1e3 / delta["readbacks"],
+            "counts": counts, "stats": delta}
+
+
+def par_buffers(engine) -> dict:
+    """Digests of what every rank must hold alike after the run."""
+    bufs = {"out": engine._buf.out, "lps": engine._buf.lps,
+            "carry": engine._buf.tokens, "logits": engine._adm.logits,
+            "tok_counts": engine._tok_counts}
+    return {name: digest(t) for name, t in bufs.items() if t is not None}
+
+
+def par_collective_ms(mesh, fields: dict) -> dict:
+    """Every rank together: one decode pass's collectives timed alone
+    over the mesh (mean of 30 after 3), at the shapes a decode step of
+    eight rows gives them — the row-parallel sums over tp, the MoE
+    combine's over tp·ep, the logits' gather."""
+    from oim_tpu_torch.parallel import collectives as c
+
+    d, v = fields["d_model"], fields["vocab_size"] // mesh.shape["tp"]
+    dev = mesh.device
+    cases = {"psum_tp": lambda: c.psum(torch.ones(8, 1, d, device=dev,
+                                                  dtype=torch.bfloat16),
+                                       mesh, "tp"),
+             "gather_logits": lambda: c.all_gather(
+                 torch.ones(8, v, device=dev), mesh, "tp", dim=-1)}
+    if fields.get("n_experts"):
+        cases["psum_tp_ep"] = lambda: c.psum(
+            torch.ones(8, d, device=dev), mesh, ("tp", "ep"))
+    out = {}
+    for name, fn in cases.items():
+        for _ in range(3):
+            fn()
+        sync()
+        t0 = time.monotonic()
+        for _ in range(30):
+            fn()
+        sync()
+        out[name] = (time.monotonic() - t0) * 1e3 / 30
+    return out
+
+
+def par_refuses_gloo_graphs(mesh) -> None:
+    """An engine asked for CUDA graphs on a gloo mesh over the card
+    refuses before any work: gloo's collectives cannot be captured."""
+    from oim_tpu_torch.models.transformer import TransformerConfig, init_params
+    from oim_tpu_torch.serve.engine import Engine
+
+    cfg = TransformerConfig(vocab_size=64, d_model=128, n_layers=1,
+                            n_heads=mesh.shape["tp"], n_experts=(
+                                mesh.shape["ep"] if mesh.shape["ep"] > 1
+                                else 0))
+    try:
+        Engine(init_params(0, cfg, device=DEV), cfg, mesh=mesh,
+               cuda_graphs=True, n_slots=1, max_len=64)
+    except ValueError as exc:
+        check("cannot be captured" in str(exc), f"gloo graphs: {exc}")
+    else:
+        raise SmokeFailure("an engine took cuda_graphs=True on a gloo mesh")
+
+
+def par_rank(rank: int, world: int, store: str, leg: tuple, package: str,
+             dev: str, results) -> None:
+    """One gloo rank of a leg on the shared card (a spawned process):
+    its engine on its shard; rank 0 drives the traffic and stops the
+    followers, which follow; then every rank times the collectives and
+    reports its buffers' digests."""
+    import traceback
+
+    import torch.distributed as dist
+
+    global DEV
+    DEV = dev
+    sys.path.insert(0, package)
+    torch.set_num_threads(2)
+    try:
+        from oim_tpu_torch.ops import _build
+        from oim_tpu_torch.parallel import build_mesh
+
+        if DEV == "cuda":
+            _build.library()
+        fields, mode, tp, ep = leg
+        dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                rank=rank, world_size=world)
+        devices = ["cuda:0" if DEV == "cuda" else "cpu"] * world
+        mesh = build_mesh(tp=tp, ep=ep, devices=devices)
+        if DEV == "cuda":
+            par_refuses_gloo_graphs(mesh)
+        routing = None
+        if rank == 0 and fields.get("n_experts"):
+            # Every rank routes alike (the router is whole on each, the
+            # hidden states bitwise the same): rank 0's choices are all.
+            routing = ServedRouting(PAR_ENGINE["n_slots"],
+                                    fields["moe_top_k"])
+            routing.install()
+        engine = par_engine(fields, mode, mesh, graphs=False)
+        answer = {}
+        if rank == 0:
+            try:
+                answer = par_drive(engine, fields["vocab_size"], warm=False,
+                                   routing=routing)
+            finally:
+                engine.stop_followers()
+        else:
+            engine.follow()
+        answer["collective_ms"] = par_collective_ms(mesh, fields)
+        answer["buffers"] = par_buffers(engine)
+        answer["peak_gib"] = (gib(torch.cuda.max_memory_allocated())
+                              if DEV == "cuda" else 0.0)
+        dist.destroy_process_group()
+        results.put((rank, answer))
+    except Exception:
+        results.put((rank, {"error": traceback.format_exc()}))
+
+
+def par_spawn(leg: str, package: str) -> list[dict]:
+    """A leg's ranks, spawned, on cuda:0 over gloo; their answers by
+    rank.  Every process is joined (killed past its time)."""
+    import multiprocessing as mp
+
+    _, _, tp, ep = PAR_LEGS[leg]
+    world = tp * ep
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    work = tempfile.mkdtemp(prefix=".smoke-par-", dir=HERE)
+    procs = [ctx.Process(target=par_rank, args=(r, world,
+                                                os.path.join(work, "store"),
+                                                PAR_LEGS[leg], package, DEV,
+                                                results),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        answers = {}
+        for _ in procs:
+            rank, answer = results.get(timeout=600)
+            check("error" not in answer,
+                  f"parallel {leg}: rank {rank} failed:\n"
+                  f"{answer.get('error')}")
+            answers[rank] = answer
+        return [answers[r] for r in range(world)]
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def par_counts_check(tag: str, run: dict, fields: dict) -> int:
+    """The launches of one driven run: K1 and K2 once a layer a forward
+    pass (a decode step or an admission dispatch), no plain version, and
+    a mesh's collectives — a vocab-sharded lookup's sum, two row sums a
+    layer (wo, and w_out or the MoE combine), one logits gather — once a
+    pass.  Returns the passes."""
+    counts, stats, n_layers = run["counts"], run["stats"], fields[
+        "n_layers"]
+    passes = stats["decode_passes"] + stats["prefill_dispatches"]
+    if DEV != "cuda":  # a CPU rehearsal runs the plain versions
+        return passes
+    for name in ("paged_flash_decode", "paged_kv_store"):
+        check(counts[name] == n_layers * passes,
+              f"parallel {tag}: {name} launched {counts[name]} times, not "
+              f"{n_layers} x {passes} passes")
+    check(not counts["paged_flash_decode_plain"]
+          and not counts["paged_kv_store_plain"],
+          f"parallel {tag}: a plain version ran")
+    return passes
+
+
+def par_collectives_check(tag: str, run: dict, fields: dict,
+                          passes: int) -> None:
+    counts = run["counts"]
+    want_sum = (1 + 2 * fields["n_layers"]) * passes
+    check(counts["collective.all_reduce"] == want_sum
+          and counts["collective.all_gather"] == passes,
+          f"parallel {tag}: collectives {counts['collective.all_reduce']} "
+          f"sums, {counts['collective.all_gather']} gathers, not "
+          f"{want_sum} and {passes}")
+
+
+def par_ref(fields: dict, mode: str, graphs: bool) -> tuple:
+    """The tp=1 reference engine's run and the f32 forward over its
+    weights (``kv_gate``'s arbiter)."""
+    engine = par_engine(fields, mode, None, graphs)
+    run = par_drive(engine, fields["vocab_size"], warm=graphs)
+    return engine, run
+
+
+def par_leg(leg: str, package: str) -> dict:
+    """One gloo leg against its tp=1 reference: the reference eagerly in
+    this process (the same weights, drawn whole), then the ranks.
+    Streams equal or parting at a near tie (``kv_gate``), every rank's
+    buffers bitwise rank 0's, K1/K2 and the collectives once a layer a
+    pass on rank 0."""
+    fields, mode, tp, ep = PAR_LEGS[leg]
+    reqs, _ = par_requests(fields["vocab_size"])
+    t0 = time.monotonic()
+    engine, ref = par_ref(fields, mode, graphs=False)
+    t1 = time.monotonic()
+    ranks = par_spawn(leg, package)
+    t2 = time.monotonic()
+    lead = ranks[0]
+    ref32 = widened(engine.params, engine.cfg)
+    if lead["forced"] is None:
+        gate = kv_gate(ref32, f"parallel {leg}", reqs, ref["tokens"],
+                       lead["tokens"])
+    else:
+        gate = par_teacher(leg, ref32, reqs, ref["tokens"], lead)
+    del engine, ref32, lead["forced"]
+    if DEV == "cuda":
+        release()
+    bad = [(r, name) for r, answer in enumerate(ranks[1:], 1)
+           for name, d in answer["buffers"].items()
+           if d != lead["buffers"][name]]
+    check(not bad, f"parallel {leg}: buffers differ from rank 0's: {bad}")
+    passes = par_counts_check(leg, lead, fields)
+    par_collectives_check(leg, lead, fields, passes)
+    coll = lead["collective_ms"]
+    per_chunk = PAR_ENGINE["chunk"] * (
+        (1 + fields["n_layers"]) * coll["psum_tp"]
+        + fields["n_layers"] * coll.get("psum_tp_ep", coll["psum_tp"])
+        + coll["gather_logits"])
+    share = per_chunk / lead["chunk_ms"]
+    print(f"parallel {leg}: {tp * ep} gloo ranks on cuda:0, "
+          f"{fields['n_layers']} layers{', ' + mode if mode else ''}, eager: "
+          f"{gate['equal']}/{gate['of']} streams equal to tp=1 (worst gap "
+          f"{gate['worst_gap']:.3f}); buffers bitwise equal on every rank; "
+          f"{passes} passes, K1/K2 and collectives once a layer a pass; "
+          f"8 streams {lead['tok_s']:.1f} tok/s (decode "
+          f"{lead['decode_tok_s']:.1f}, a chunk {lead['chunk_ms']:.1f} ms) "
+          f"against tp=1 {ref['tok_s']:.1f} ({ref['decode_tok_s']:.1f}, "
+          f"{ref['chunk_ms']:.1f} ms); lone-512 TTFT {lead['ttft_ms']:.1f} "
+          f"ms against {ref['ttft_ms']:.1f}; collectives alone "
+          f"{json.dumps({k: round(v, 4) for k, v in coll.items()})} ms, "
+          f"~{share:.0%} of a chunk; rank peaks "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; cuda_graphs=True "
+          f"refused on the gloo mesh; walls: tp=1 "
+          f"{t1 - t0:.1f} s, the ranks {t2 - t1:.1f} s [{SMI}]",
+          flush=True)
+    return {"gate": gate, "tp": lead, "ref": ref, "passes": passes,
+            "collective_share": share,
+            "counts": lead["counts"]}
+
+
+def par_teacher(leg: str, ref32, reqs, wants, lead) -> dict:
+    """An MoE leg's streams: routing is discontinuous (a router near tie
+    that rounds the other way in bf16 moves a token's logits by
+    O(0.1-1)), so instead of ``kv_gate`` each greedy stream of rank 0 is
+    teacher-forced through the f32 forward over the same weights with
+    the ranks' own expert choices, as ``teacher_check`` does: every
+    emitted token within δ of its position's max, the choices the f32
+    router's own or a near tie's (``ROUTE_TIE``).  Counts the streams
+    equal to tp=1's beside."""
+    params32, cfg32 = ref32
+    greedy = [(r, t) for r, t in zip(reqs, lead["tokens"])
+              if not r.get("temperature")]
+    worst_gap = worst_lost = 0.0
+    flips = choices = 0
+    for (req, toks), forced in zip(greedy, lead["forced"]):
+        gap, _, tap = emitted_gap(params32, cfg32, req["tokens"], toks,
+                                  [torch.from_numpy(f).to(DEV)
+                                   for f in forced])
+        worst_gap = max(worst_gap, float(gap.max()))
+        worst_lost = max(worst_lost, tap.most_lost())
+        flips += tap.differing()
+        choices += sum(c.shape[0] for c in tap.choices)
+    equal = sum(w == g for w, g in zip(wants, lead["tokens"]))
+    print(f"parallel {leg}: {len(greedy)} greedy streams teacher-forced "
+          f"with the ranks' expert choices: the largest gap {worst_gap:.3f} "
+          f"(δ {DELTA}); the choices differ from the f32 router's in "
+          f"{flips} of {choices} (layer, position) pairs, giving up at most "
+          f"{worst_lost:.4f} (tol {ROUTE_TIE}); {equal}/{len(wants)} "
+          f"streams equal to tp=1's", flush=True)
+    check(worst_gap <= DELTA and worst_lost <= ROUTE_TIE,
+          f"parallel {leg}: a teacher-forced token {worst_gap:.3f} below "
+          f"its max, or {worst_lost:.4f} of router probability given up")
+    return {"equal": equal, "of": len(wants), "worst_gap": worst_gap,
+            "worst_lost": worst_lost}
+
+
+def par_nccl_leg() -> dict:
+    """Qwen on a one-rank NCCL mesh with CUDA graphs, in this process:
+    the collectives are captured inside every graph, and each replay
+    runs them (counted by replay, ``ops/counts.py``).  Held to the
+    engine with no mesh: a sum over one rank and a gather of one are
+    copies, so the streams must be the same token for token."""
+    import torch.distributed as dist
+
+    from oim_tpu_torch.parallel import build_mesh
+
+    reqs, _ = par_requests(VOCAB)
+    plain, ref = par_ref(PAR_QWEN, "", graphs=True)
+    params = plain.params  # one rank of one: its shard is the whole
+    del plain
+    release()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    try:
+        mesh = build_mesh(tp=1)
+        engine = par_engine(PAR_QWEN, "", mesh, graphs=True, params=params)
+        run = par_drive(engine, VOCAB, warm=True)
+        check(run["tokens"] == ref["tokens"],
+              "parallel nccl: streams differ from the engine with no mesh")
+        passes = par_counts_check("nccl", run, PAR_QWEN)
+        par_collectives_check("nccl", run, PAR_QWEN, passes)
+        stats = run["stats"]
+        check(stats["graph_replays"] > 0 and stats["admission_replays"] > 0
+              and stats["graph_replays"] * PAR_ENGINE["chunk"]
+              == stats["decode_passes"],
+              f"parallel nccl: not every dispatch a replay: {stats}")
+        print(f"parallel nccl: one NCCL rank, graphs: {len(reqs)} streams "
+              f"equal to the engine with no mesh; {stats['graph_replays']} "
+              f"decode and {stats['admission_replays']} admission replays "
+              f"carried {run['counts']['collective.all_reduce']} sums and "
+              f"{run['counts']['collective.all_gather']} gathers; 8 streams "
+              f"{run['tok_s']:.1f} tok/s (decode {run['decode_tok_s']:.1f}) "
+              f"against {ref['tok_s']:.1f} ({ref['decode_tok_s']:.1f}) with "
+              f"no mesh; lone-512 TTFT {run['ttft_ms']:.1f} ms against "
+              f"{ref['ttft_ms']:.1f} [{SMI}]", flush=True)
+        del engine
+    finally:
+        del params
+        dist.destroy_process_group()
+        release()
+    return {"run": run, "ref": ref}
+
+
+def par_bootstrap_leg(package: str) -> dict:
+    """``serve_main --bootstrap`` on a file staging ``/dev/nvidia0``:
+    the binding logged before CUDA starts, one request served (two
+    layers at Qwen's widths, no warmup); then ``--tp 2`` on this one
+    card refused before any work."""
+    import re
+    import signal
+    import subprocess
+
+    work = tempfile.mkdtemp(prefix=".smoke-par-", dir=HERE)
+    path = os.path.join(work, "tpu-bootstrap.json")
+    with open(path, "w") as f:
+        json.dump({"volume_id": "smoke", "mesh": [1], "num_processes": 1,
+                   "chips": [{"device_path": "/dev/nvidia0"}]}, f)
+    args = serve_args("--no-warmup", "--watchdog-interval", "0",
+                      "--drain-timeout", "0")
+    env = dict(os.environ, PYTHONPATH=package)
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    base = [sys.executable, "-m", "oim_tpu_torch.cli.serve_main"]
+    # Both processes at once: the refusal needs no card time.
+    tp2 = subprocess.Popen(base + args + ["--tp", "2"], cwd=package,
+                           env=env, stdout=subprocess.DEVNULL,
+                           stderr=subprocess.PIPE, text=True)
+    proc = subprocess.Popen(base + args + ["--bootstrap", path], cwd=package,
+                            env=env, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    lines, listening = [], threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line)
+            if "oim-serve listening" in line:
+                listening.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        listening.wait(300)
+        match = next((re.search(r"port=(\d+)", ln) for ln in lines
+                      if "oim-serve listening" in ln), None)
+        check(match is not None, "parallel bootstrap: serve_main never "
+              "listened: " + "".join(lines[-5:]))
+        reply = http_ok(int(match.group(1)), {"tokens": list(range(1, 65)),
+                                              "max_new_tokens": 8})
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=60) == 0, "parallel bootstrap: exit code")
+        reader.join(timeout=10)
+        _, refused = tp2.communicate(timeout=300)
+    finally:
+        for p in (proc, tp2):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        proc.stderr.close()
+        shutil.rmtree(work, ignore_errors=True)
+    check(tp2.returncode != 0 and "need 2 devices, have 1" in refused,
+          f"parallel bootstrap: --tp 2 on one card: rc {tp2.returncode}, "
+          f"{refused[-300:]}")
+    text = "".join(lines)
+    binding = next((ln for ln in lines if " chip binding " in ln), "")
+    check("CUDA_VISIBLE_DEVICES" in binding and "'0'" in binding
+          and text.index(" chip binding ") < text.index("oim-serve listening")
+          and "after CUDA initialized" not in text,
+          f"parallel bootstrap: binding line {binding!r}")
+    check(len(reply["tokens"]) == 8, f"parallel bootstrap: reply {reply}")
+    print(f"parallel bootstrap: serve_main --bootstrap (/dev/nvidia0) logged "
+          f"{binding.strip()[:160]!r} before CUDA, served a request; --tp 2 "
+          f"refused: {refused.strip().splitlines()[-1][:120]!r} "
+          f"[{SMI}]", flush=True)
+    return {"binding": binding.strip(), "tokens": reply["tokens"]}
+
+
+def par_kernel_phase() -> dict:
+    """K1/K2 at the ranks' head counts (Qwen tp=2: 6 q and 1 kv head;
+    Mixtral tp2·ep2: 16 and 4) on the dense cache's shapes, and
+    ``quant_matmul`` at the tp2·ep2 ranks' int8 shapes."""
+    from oim_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    record = dense_kernel_phase(pa, gen, H // 2, KVH // 2,
+                                f"dense tp=2 rank H={H // 2} KVH={KVH // 2}",
+                                "_tp")
+    record.update(dense_kernel_phase(
+        pa, gen, MOE_H // 2, MOE_KVH // 2,
+        f"dense tp2·ep2 rank H={MOE_H // 2} KVH={MOE_KVH // 2}", "_tpmoe"))
+    for names, shape in PAR_QMM:
+        out = torch.float32 if names == "wlm" else None
+        record[f"QMM par {names}"] = qmm_case(
+            f"tp2·ep2 rank int8 {names} {list(shape)} x {QMM_ROWS} rows",
+            gen, "int8", shape, QMM_ROWS, names == "w_out", out)
+    return record
+
+
+def parallel_phase(package: str, record: dict) -> dict:
+    """Sharded serving on the one card: the kernels at the ranks'
+    shapes, Qwen2.5-1.5B at tp=2 (two gloo ranks sharing cuda:0,
+    eager, 28 layers), Qwen on a one-rank NCCL mesh with graphs,
+    Mixtral-8x7B's widths at tp2·ep2 (four gloo ranks, int8, depth cut
+    to ``PAR_MOE_LAYERS``), and ``serve_main --bootstrap``/``--tp 2``.
+    Adds the kernel records to ``record``; returns the legs."""
+    t0 = time.monotonic()
+    record.update(par_kernel_phase())
+    walls, out = {"kernels": time.monotonic() - t0}, {}
+    for name, leg in (("qwen_tp2", lambda: par_leg("qwen_tp2", package)),
+                      ("nccl", par_nccl_leg),
+                      ("mixtral_tp2ep2",
+                       lambda: par_leg("mixtral_tp2ep2", package)),
+                      ("bootstrap", lambda: par_bootstrap_leg(package))):
+        t = time.monotonic()
+        out[name] = leg()
+        walls[name] = time.monotonic() - t
+    out["walls"] = walls
+    print(f"parallel: phase {time.monotonic() - t0:.1f} s, by part "
+          f"{json.dumps({k: round(v, 1) for k, v in walls.items()})} "
+          f"[{SMI}]", flush=True)
+    return out
+
+
+def par_rows(record: dict, phase: dict) -> list[dict]:
+    """The ``kernels`` rows of the ranks' shapes, with rank 0's
+    launches in its leg."""
+    src = "oim_tpu_torch/csrc/paged_attention.cu"
+    rows = []
+    for leg, suffix, where in (
+            ("qwen_tp2", "_tp", f"a tp=2 rank of Qwen2.5-1.5B: H {H // 2} / "
+                                f"KVH {KVH // 2}, dense cache"),
+            ("mixtral_tp2ep2", "_tpmoe",
+             f"a tp2·ep2 rank of Mixtral-8x7B's widths: H {MOE_H // 2} / "
+             f"KVH {MOE_KVH // 2}, dense cache")):
+        counts = phase[leg]["counts"]
+        rows += [
+            dict(name=f"paged_flash_decode (K1, decode route: "
+                      f"paged_decode_kernel<8> + merge; {where})",
+                 route="cuda", source=src,
+                 replaces="oim_tpu/ops/paged_attention.py:93",
+                 launches=counts["paged_flash_decode_rows8"],
+                 **record["K1" + suffix]),
+            dict(name=f"paged_flash_decode (K1, tall route: "
+                      f"paged_prefill_tc_kernel; admissions, timed at "
+                      f"t=512; {where})", route="cuda", source=src,
+                 replaces="oim_tpu/ops/paged_attention.py:93",
+                 launches=counts["paged_flash_decode_tc"],
+                 **record["K1t" + suffix]),
+            dict(name=f"paged_kv_store (K2, admissions, timed at t=512; "
+                      f"{where})", route="cuda", source=src,
+                 replaces="oim_tpu/ops/paged_attention.py:265",
+                 launches=(counts["paged_kv_store"]
+                           - counts["paged_kv_store_t1"]),
+                 **record["K2" + suffix]),
+            dict(name=f"paged_kv_store (K2, decode steps, t=1; {where})",
+                 route="cuda", source=src,
+                 replaces="oim_tpu/ops/paged_attention.py:265",
+                 launches=counts["paged_kv_store_t1"],
+                 **record["K2d" + suffix]),
+        ]
+    counts = phase["mixtral_tp2ep2"]["counts"]
+    for names, shape in PAR_QMM:
+        rec = dict(record[f"QMM par {names}"])
+        route, key = rec.pop("route"), rec.pop("key")
+        check(counts.get(key, 0) > 0, f"QMM par {names}: not launched on "
+              f"its {route} route by the tp2·ep2 ranks")
+        rows.append(dict(
+            name=f"quant_matmul ({route} route: quant_matmul_kernel; int8 "
+                 f"Mixtral {names} {list(shape)} on a tp2·ep2 rank, timed "
+                 f"at {QMM_ROWS} rows)",
+            route="cuda", source="oim_tpu_torch/csrc/wquant.cu",
+            replaces="oim_tpu/ops/quant.py:53 (no Pallas kernel: XLA's "
+                     "fused convert+scale in the product)",
+            launches=counts[key], **rec))
+    return rows
+
+
 def parse_args(argv):
     import argparse
 
@@ -6857,6 +7542,14 @@ def parse_args(argv):
              "plain engine on the same traffic), prompt lookup with beam "
              "and embed, the self-draft engines and the draft model, "
              "printing their counts as the last line")
+    only.add_argument(
+        "--parallel-phase-only", action="store_true",
+        help="build the kernels and run only the parallel phase (K1/K2 "
+             "and quant_matmul at the ranks' shapes, Qwen at tp=2 over two "
+             "gloo ranks on the one card, Qwen on a one-rank NCCL mesh "
+             "with graphs, Mixtral's widths at tp2·ep2 over four, "
+             "serve_main --bootstrap and --tp 2), printing its kernel rows "
+             "and legs as the last line")
     only.add_argument(
         "--front-phase-only", action="store_true",
         help="build the kernels and run only the front phase (text and "
@@ -6973,6 +7666,18 @@ def main(argv=None) -> int:
         print(json.dumps({"package": package, "front": front_phase()},
                          default=str), flush=True)
         return 0
+    if args.parallel_phase_only:
+        record = {}
+        phase = parallel_phase(package, record)
+        print(json.dumps({"package": package,
+                          "kernels": par_rows(record, phase),
+                          "parallel": {leg: {k: v for k, v in out.items()
+                                             if k not in ("counts",
+                                                          "forced")}
+                                       if leg != "walls" else out
+                                       for leg, out in phase.items()}},
+                         default=str), flush=True)
+        return 0
     if args.route_control:
         return route_control(args.route_control)
     if args.moe_phase_only:
@@ -7000,23 +7705,32 @@ def main(argv=None) -> int:
         print(json.dumps({"package": package, "kernel_phase": record,
                           "compare": compared}), flush=True)
         return 0
-    record.update(segment_kernel_phase())
-    record.update(spec_kernel_phase())
-    record.update(quant_kernel_phase())
-    record.update(train_kernel_phase())
-    record.update(fused_ce_phase())
+    walls = {"build+kernel": time.monotonic() - t0}
+
+    def timed(name, fn, *fn_args):
+        t = time.monotonic()
+        out = fn(*fn_args)
+        walls[name] = time.monotonic() - t
+        print(f"wall: {name} phase {walls[name]:.1f} s", flush=True)
+        return out
+
+    timed("kernels+", lambda: [record.update(f()) for f in (
+        segment_kernel_phase, spec_kernel_phase, quant_kernel_phase,
+        train_kernel_phase, fused_ce_phase)])
     # The main path: serve_main's defaults.  Then the paged engine's
     # serial loop, and the prefix cache with chunked prefill on both
     # layouts, each with its own counts.
-    counts = serve_phase(SERVE_ARGS, "default", echo=True)
-    paged_counts = serve_phase(PAGED_SERVE_ARGS, "paged")
-    quant_counts = serve_phase(QUANT_SERVE_ARGS, "int4")
-    prefix_counts = prefix_phase()
-    spec_counts = spec_phases(counts["decode_tok_s"])
-    kv_io_phase()
-    qos_phase()
-    http_phase()
-    counts.update(train_phase(record))
+    counts = timed("default", lambda: serve_phase(SERVE_ARGS, "default",
+                                                  echo=True))
+    paged_counts = timed("paged", serve_phase, PAGED_SERVE_ARGS, "paged")
+    quant_counts = timed("int4", serve_phase, QUANT_SERVE_ARGS, "int4")
+    prefix_counts = timed("prefix", prefix_phase)
+    spec_counts = timed("spec", spec_phases, counts["decode_tok_s"])
+    timed("kv_io", kv_io_phase)
+    timed("qos", qos_phase)
+    timed("http", http_phase)
+    parallel = timed("parallel", parallel_phase, package, record)
+    counts.update(timed("train", train_phase, record))
     work = tempfile.mkdtemp(prefix=".smoke-ckpt-", dir=HERE)
     try:
         free = shutil.disk_usage(work).free
@@ -7026,11 +7740,13 @@ def main(argv=None) -> int:
         counts["fused_ce_dx"] = ckpt_lora_phase(work)["fused_ce_dx"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    moe_counts = moe_phases(record)
+    moe_counts = timed("moe", moe_phases, record)
     # Last: the MoE phase needs its headroom, and after the front phase
     # (which loads the profiler's tracer) it found 7.5 of the 8 GiB it
     # gates on free at its serving peak.
-    front_counts = front_phase()["counts"]
+    front_counts = timed("front", front_phase)["counts"]
+    print(f"walls: {json.dumps({k: round(v, 1) for k, v in walls.items()})}",
+          flush=True)
     sources = {"rmsnorm": ("oim_tpu_torch/csrc/rmsnorm.cu",
                            "oim_tpu/ops/rmsnorm.py:27"),
                "flash_fwd": ("oim_tpu_torch/csrc/flash_attention.cu",
@@ -7127,7 +7843,7 @@ def main(argv=None) -> int:
         "--weights-int4", quant_counts, "_i4",
     ) + quant_rows(record, {("qwen", "int4"): quant_counts,
                             ("mixtral", "int8"): moe_counts["int8"]}
-    ) + spec_rows(record, spec_counts)
+    ) + spec_rows(record, spec_counts) + par_rows(record, parallel)
     print(SMI, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

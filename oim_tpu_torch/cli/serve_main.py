@@ -31,7 +31,22 @@ G]`` stores the weights as packed int4 with group-wise scales, and
 are quantized from their f32 values: as each is drawn from ``--seed``,
 or after a ``--params-dir``/``--checkpoint-dir`` restore, layer by
 layer.
-``--tp``/``--ep`` above 1 (sharded serving) are refused.
+
+Sharded serving: ``--tp T --ep E`` serves one model over T·E local
+GPUs, heads, MLP columns and vocab over ``tp``, MoE experts over ``ep``
+(``Engine(mesh=...)``).  The command stays one process: it starts the
+T·E − 1 other ranks itself (``torch.multiprocessing``, spawned, on
+``cuda:1`` …), one NCCL process group through a file rendezvous; rank 0
+is the server, the others follow its dispatches.  Each rank draws or
+restores the weights and keeps only its shard on its card.  Too few
+GPUs fails before any work ("need N devices, have M"); with ``--device
+cpu`` the ranks run on the CPU over gloo.  SIGTERM drains (in-flight
+requests finish; migration under a mesh is ROADMAP Queue A12's second
+part, as are ``--params-peer``, ``--kv-host-bytes``, ``/v1/weights``,
+beam and embed) and stops every rank.  ``--bootstrap FILE`` (default
+``$TPU_BOOTSTRAP``) binds the process to the cards a CSI-staged
+bootstrap names (``/dev/nvidiaN`` → ``CUDA_VISIBLE_DEVICES``) before the
+first CUDA touch.
 
 The host-RAM KV tier: ``--kv-host-bytes B --kv-block N`` demotes prefix
 entries to a pinned host pool of B bytes instead of evicting them, and
@@ -85,9 +100,16 @@ Qwen2.5-0.5B's widths beside Qwen2.5-1.5B:
 from __future__ import annotations
 
 import argparse
+import os
+import shutil
 import signal
+import sys
+import tempfile
 import threading
 import time
+
+import torch
+import torch.distributed as dist
 
 from oim_tpu_torch import log
 from oim_tpu_torch.checkpoint import (
@@ -101,7 +123,15 @@ from oim_tpu_torch.models.transformer import (
     init_params,
     prepare_param,
 )
-from oim_tpu_torch.models.weights import check_params, recast
+from oim_tpu_torch.models.weights import (
+    check_params,
+    recast,
+    serve_specs,
+    shard_tensor,
+)
+from oim_tpu_torch.parallel import apply_chip_binding, build_mesh
+from oim_tpu_torch.parallel import load_bootstrap
+from oim_tpu_torch.parallel.mesh import mesh_devices
 from oim_tpu_torch.ops.quant import WEIGHT_QUANT_TARGETS, quantize_weight
 from oim_tpu_torch.qos.policy import load_policy_file
 from oim_tpu_torch.common import events, metrics, tracing
@@ -237,10 +267,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="bfloat16")
     # Engine shape.
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (refused above 1: one device)")
+                   help="tensor-parallel ways: heads, mlp and vocab over "
+                   "tp·ep local GPUs, one spawned rank each")
     p.add_argument("--ep", type=int, default=1,
-                   help="expert-parallel ways for MoE serving (refused "
-                   "above 1: one device)")
+                   help="expert-parallel ways for MoE serving")
+    p.add_argument("--bootstrap", default="",
+                   help="tpu-bootstrap.json path (default: $TPU_BOOTSTRAP "
+                   "when set): bind to the staged cards before CUDA starts")
     p.add_argument("--n-slots", type=int, default=8)
     p.add_argument("--max-len", type=int, default=1024)
     p.add_argument("--chunk", type=int, default=8)
@@ -460,52 +493,74 @@ def weight_quant(args) -> str:
     return "int4" if getattr(args, "weights_int4", False) else ""
 
 
-def quantize_served(params: dict, cfg: TransformerConfig, mode: str,
-                    group: int) -> dict:
-    """Restored f32 ``params`` in serving's layout with every target
-    weight quantized under ``mode`` from its f32 values, in place, one
-    tensor at a time (each f32 tensor is dropped as its payload lands),
-    as the reference quantizes a restored tree."""
+def place_served(params: dict, cfg: TransformerConfig, mode: str,
+                 group: int, device, place=None) -> dict:
+    """Restored f32 ``params`` (checked) onto ``device`` in serving's
+    layout, in place, one tensor at a time — quantized under ``mode``
+    from its whole f32 values, else cast to the compute dtype — each
+    kept as ``place`` returns it (a rank's shard: the card never holds
+    the whole model), as the reference quantizes a restored tree."""
+    place = place or (lambda name, t: t)
     for tree in (params, *params["layers"]):
         for name in [n for n in tree if n != "layers"]:
-            if name in WEIGHT_QUANT_TARGETS:
-                tree[name], tree[f"{name}_wscale"] = quantize_weight(
-                    tree[name], mode, group)
+            value = tree[name].to(device)
+            if mode and name in WEIGHT_QUANT_TARGETS:
+                q, scale = quantize_weight(value, mode, group)
+                tree[name] = place(name, q)
+                tree[f"{name}_wscale"] = place(f"{name}_wscale", scale)
             else:
-                tree[name] = prepare_param(name, tree[name], cfg)
+                tree[name] = place(name, prepare_param(name, value, cfg))
     return params
 
 
-def load_weights(args, cfg: TransformerConfig, device) -> dict:
+def load_weights(args, cfg: TransformerConfig, device, mesh=None) -> dict:
     """The served parameters in serving's layout: the export or the
     checkpoint's f32 params (checked against the flags' geometry, cast to
-    the compute dtype, or quantized with ``--weights-int8``/``-int4``),
-    else random from ``--seed`` (quantized as drawn).  A missing export
-    or checkpoint raises: a server never quietly serves random
-    weights."""
+    the compute dtype, or quantized with ``--weights-int8``/``-int4``
+    from their f32 values, one tensor at a time), else random from
+    ``--seed`` (quantized as drawn).  A missing export or checkpoint
+    raises: a server never quietly serves random weights.  On a rank of
+    ``mesh`` each tensor is made whole on the card (drawn, or restored to
+    the host first), quantized or cast, and cut to the rank's shard
+    before the next: the card holds its shard and one whole tensor,
+    never the model, as the reference restores sharded over its serving
+    mesh."""
     mode = weight_quant(args)
     if args.params_peer:
+        if mesh is not None:
+            raise SystemExit("--params-peer is not served under a mesh yet "
+                             "(ROADMAP Queue A12, second part)")
         # The sibling streams what it serves, quantized or not: checked
         # against the flags' geometry and weight quant, never requantized.
         return load_params_from_peer(args.params_peer, cfg, device,
                                      weight_quant=mode,
                                      int4_group=args.int4_group,
                                      ssl_context=peer_ssl_context(args))
-    if args.params_dir:
-        what = f"--params-dir {args.params_dir}"
-        params = load_params(args.params_dir, device=device)
-    elif args.checkpoint_dir:
-        what = f"--checkpoint-dir {args.checkpoint_dir}"
-        with Checkpointer(args.checkpoint_dir,
-                          CheckpointerOptions(create=False)) as ckpt:
-            params = ckpt.restore_params(device=device)
-    else:
+    place = None
+    if mesh is not None:
+        specs = serve_specs(cfg, mesh, mode, args.int4_group)
+
+        def place(name, tensor):
+            return shard_tensor(name, tensor, specs, mesh)
+
+    if not (args.params_dir or args.checkpoint_dir):
         return init_params(args.seed, cfg, device=device, weight_quant=mode,
-                           int4_group=args.int4_group)
+                           int4_group=args.int4_group, place=place)
+    params, what = restore_params(args, device if mesh is None else "cpu")
     check_params(params, cfg, what)
-    if mode:
-        return quantize_served(params, cfg, mode, args.int4_group)
-    return recast(params, cfg, cfg.dtype)[0]
+    return place_served(params, cfg, mode, args.int4_group, device, place)
+
+
+def restore_params(args, device) -> tuple:
+    """(f32 params on ``device``, what they came from) of
+    ``--params-dir`` or ``--checkpoint-dir``."""
+    if args.params_dir:
+        return (load_params(args.params_dir, device=device),
+                f"--params-dir {args.params_dir}")
+    with Checkpointer(args.checkpoint_dir,
+                      CheckpointerOptions(create=False)) as ckpt:
+        return (ckpt.restore_params(device=device),
+                f"--checkpoint-dir {args.checkpoint_dir}")
 
 
 def draft_config(args) -> TransformerConfig:
@@ -566,24 +621,24 @@ def model_config(args) -> TransformerConfig:
     )
 
 
-def make_engine(args, cuda_graphs: bool = True) -> Engine:
+def make_engine(args, cuda_graphs: bool = True, mesh=None) -> Engine:
     """The engine from parsed args: device first (no GPU and no
-    ``--device cpu`` fails before any work), then weights and engine.
+    ``--device cpu`` fails before any work), then weights and engine;
+    on a rank of ``mesh`` (``join_mesh``) its shard on its device.
     ``cuda_graphs=False`` dispatches decode chunks and admissions
     eagerly: a measurement's A/B control, deliberately not a serving
     flag."""
-    for axis in ("tp", "ep"):
-        if getattr(args, axis) > 1:
-            raise ValueError(
-                f"--{axis} {getattr(args, axis)}: sharded serving is not "
-                "ported yet (ROADMAP Queue A12: parallelism); the port "
-                "serves on one device")
-    device = resolve_device(args.device)
+    if mesh is None and mesh_size(args) > 1:
+        raise ValueError(
+            f"--tp {args.tp} --ep {args.ep}: sharded serving runs on the "
+            f"mesh of ranks that main() starts (ROADMAP Queue A12, first "
+            f"part); make_engine alone serves one device")
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     # Tolerant load (defaults on a missing or torn file): a bad policy
     # document degrades to FIFO and never blocks serving.
     qos = load_policy_file(args.qos_policy) if args.qos_policy else None
     cfg = model_config(args)
-    params = load_weights(args, cfg, device)
+    params = load_weights(args, cfg, device, mesh)
     draft_params, draft_cfg = load_draft(args, device)
     return Engine(
         params, cfg,
@@ -617,7 +672,79 @@ def make_engine(args, cuda_graphs: bool = True) -> Engine:
         cuda_graphs=cuda_graphs,
         paged_kernel=KERNEL_SWITCH[args.paged_kernel],
         prefill_kernel=KERNEL_SWITCH[args.prefill_kernel],
+        mesh=mesh,
     )
+
+
+def mesh_size(args) -> int:
+    return args.tp * args.ep
+
+
+def join_mesh(args, rank: int, store_path: str):
+    """This process's rank of the serving mesh: the process group
+    (NCCL, or gloo with ``--device cpu``) through the file rendezvous at
+    ``store_path``, then the tp×ep mesh over one device a rank."""
+    n = mesh_size(args)
+    cpu = torch.device(args.device).type == "cpu"
+    devices = ["cpu"] * n if cpu else mesh_devices(n)
+    store = dist.FileStore(store_path, n)
+    if cpu:
+        dist.init_process_group("gloo", store=store, rank=rank,
+                                world_size=n)
+    else:
+        dist.init_process_group("nccl", store=store, rank=rank,
+                                world_size=n, device_id=devices[rank])
+    return build_mesh(tp=args.tp, ep=args.ep, devices=devices)
+
+
+def follow_rank(rank: int, store_path: str, argv) -> None:
+    """A follower rank of ``serve_main --tp/--ep`` (the spawned target):
+    its shard of the engine, running rank 0's dispatches until rank 0
+    stops it."""
+    args = build_parser().parse_args(argv)
+    log.init_from_string(args.log_level)
+    torch.set_num_threads(1)
+    engine = make_engine(args, mesh=join_mesh(args, rank, store_path))
+    engine.follow()
+    dist.destroy_process_group()
+
+
+def start_mesh(args, argv) -> tuple:
+    """(this process's mesh rank 0, the follower processes, the
+    rendezvous directory) for ``--tp``/``--ep``, or (None, [], None).
+    Too few GPUs fails here, before any process starts."""
+    n = mesh_size(args)
+    if n == 1:
+        return None, [], None
+    if torch.device(args.device).type != "cpu":
+        mesh_devices(n)
+    rendezvous = tempfile.mkdtemp(prefix="oim-serve-mesh-")
+    store = os.path.join(rendezvous, "store")
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=follow_rank, args=(rank, store, argv),
+                         daemon=True) for rank in range(1, n)]
+    for p in procs:
+        p.start()
+    log.current().info("mesh ranks started", tp=args.tp, ep=args.ep,
+                       followers=len(procs))
+    return join_mesh(args, 0, store), procs, rendezvous
+
+
+def stop_mesh(engine, procs, rendezvous) -> None:
+    """Stop the followers (the leader's stop record), join them, and
+    remove the rendezvous: no rank outlives the leader."""
+    if engine is not None and engine.mesh is not None:
+        engine.stop_followers()
+    for p in procs:
+        p.join(timeout=30)
+        if p.is_alive():
+            p.terminate()
+            p.join()
+    if procs:
+        log.current().info("mesh ranks stopped",
+                           exitcodes=[p.exitcode for p in procs])
+    if rendezvous is not None:
+        shutil.rmtree(rendezvous, ignore_errors=True)
 
 
 def server_tls(args):
@@ -639,13 +766,15 @@ def load_tokenizer(args):
     return tokenizer
 
 
-def start_server(args, ssl_context=None, tokenizer=None) -> ServeServer:
-    """Build and warm the engine (unless ``--no-warmup``), install the
+def start_server(args, ssl_context=None, tokenizer=None,
+                 mesh=None) -> ServeServer:
+    """Build and warm the engine (unless ``--no-warmup``; on ``mesh``,
+    rank 0's), install the
     weight donor's hottest prefix entries (``--params-peer`` with
     ``--prefix-cache``: after warmup, before the step thread starts, so
     this thread writes the pool), then start the server with
     ``ssl_context`` and ``tokenizer``; logs the listening line."""
-    engine = make_engine(args)
+    engine = make_engine(args, mesh=mesh)
     if not args.no_warmup:
         log.current().info("warming up", buckets=list(engine.prompt_buckets))
         engine.warmup(embed=args.warmup_embed)
@@ -683,15 +812,41 @@ def init_daemon(args) -> None:
     metrics.install_process_metrics()
 
 
+def bind_bootstrap(args) -> dict:
+    """Apply ``--bootstrap``'s (or ``$TPU_BOOTSTRAP``'s) chip binding,
+    in the reference's place in the init order: before the first CUDA
+    touch.  Returns what was applied ({} without a bootstrap)."""
+    path = args.bootstrap or os.environ.get("TPU_BOOTSTRAP", "")
+    if not path:
+        return {}
+    applied = apply_chip_binding(load_bootstrap(path))
+    log.current().info("chip binding", path=path, applied=applied)
+    return applied
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     init_daemon(args)
+    bind_bootstrap(args)
     # The cheap pieces first: a bad certificate path, tokenizer
     # directory or peer URL fails before any weight moves.
     ssl_context = server_tls(args)
     tokenizer = load_tokenizer(args)
     peer_ssl_context(args)
-    server = start_server(args, ssl_context, tokenizer)
+    mesh, procs, rendezvous = start_mesh(args, argv)
+    server = engine = None
+    try:
+        server = start_server(args, ssl_context, tokenizer, mesh)
+        engine = server.engine
+        serve_until_stopped(args, server)
+    finally:
+        stop_mesh(engine, procs, rendezvous)
+    return 0
+
+
+def serve_until_stopped(args, server) -> None:
+    """Serve until SIGTERM or Ctrl-C, then drain and stop the server."""
     engine = server.engine
     stop = threading.Event()
 
@@ -705,10 +860,15 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, request_stop)
     try:
         stop.wait()
-        # Migrate-out drain: stop admitting and suspend in-flight slots
-        # into /v1/slot records for a router to ship to siblings, so the
-        # wait below ends as soon as they are suspended.
-        server.begin_drain()
+        if engine.mesh is not None:
+            # Under a mesh: stop admitting, let in-flight requests end.
+            engine.drain()
+        else:
+            # Migrate-out drain: stop admitting and suspend in-flight
+            # slots into /v1/slot records for a router to ship to
+            # siblings, so the wait below ends as soon as they are
+            # suspended.
+            server.begin_drain()
         log.current().info("draining", in_flight=engine.in_flight(),
                            timeout_s=args.drain_timeout)
         deadline = time.monotonic() + args.drain_timeout
@@ -722,7 +882,6 @@ def main(argv=None) -> int:
         pass
     finally:
         server.stop()
-    return 0
 
 
 if __name__ == "__main__":

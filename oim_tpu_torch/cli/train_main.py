@@ -159,7 +159,7 @@ def _check_flags(args) -> None:
     """Raise for each reference flag this slice does not port, naming the
     ROADMAP item that does, and for flags that need another (checked
     before any work, as the reference does)."""
-    parallel = "ROADMAP Queue A12: parallelism"
+    parallel = "ROADMAP Queue A12: parallelism, third part (training)"
     for axis in ("dp", "pp", "sp", "tp", "ep"):
         if getattr(args, axis) > 1:
             raise ValueError(

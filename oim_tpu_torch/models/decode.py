@@ -36,8 +36,10 @@ from oim_tpu_torch.models.transformer import (
     _router_probs,
     embed_lookup,
     linear,
+    row_linear,
     unembed,
 )
+from oim_tpu_torch.parallel import collectives
 from oim_tpu_torch.ops.quant import (
     WEIGHT_QUANT_TARGETS,
     dequantize_int8,
@@ -140,7 +142,7 @@ def _cached_attention(x, lp, k_cache, v_cache, k_scale, v_scale, start: int,
         "bhgqk,bkhd->bqhgd", probs, _load_kv(v_cache, v_scale)
     ).to(x.dtype)
     out = out.reshape(b, t, h * hd)
-    return x + linear(out, lp, "wo", cfg).to(x.dtype)
+    return x + row_linear(out, lp, "wo", cfg).to(x.dtype)
 
 
 def _moe_exact(x, lp, cfg: TransformerConfig):
@@ -155,7 +157,13 @@ def _moe_exact(x, lp, cfg: TransformerConfig):
     compute-dtype weights, like ``_dense_mlp``'s (weight-quantized
     experts through ``linear``; for more than ``GEMV_ROWS`` tokens
     dequantized once for all passes), in passes of at most
-    ``MOE_TOKENS`` tokens; the weighted combine is f32."""
+    ``MOE_TOKENS`` tokens; the weighted combine is f32.
+
+    On a rank of a mesh (``ShardedConfig``) the router stays whole, so
+    every rank routes every token alike; the rank runs its own
+    ``local_experts`` (over ``ep``) on its MLP columns (over ``tp``) for
+    every token, weighted by the router's probabilities, and the f32
+    combine is summed over ``moe_axes``."""
     b, t, d = x.shape
     g = b * t
     normed = _rmsnorm(x, lp["mlp_norm"], cfg).reshape(g, d)
@@ -164,6 +172,9 @@ def _moe_exact(x, lp, cfg: TransformerConfig):
     weights = torch.sum(
         _expert_mask(top_idx, cfg.n_experts) * gates[..., None], dim=1
     )  # [G, E]
+    moe_axes = getattr(cfg, "moe_axes", ())
+    if moe_axes:
+        weights = weights[:, cfg.expert_lo:cfg.expert_lo + cfg.local_experts]
     if g > GEMV_ROWS:
         # Weight-quantized experts meet tall inputs (an admission's tokens)
         # as dequantized weights: dequantize each once for every pass.
@@ -177,6 +188,8 @@ def _moe_exact(x, lp, cfg: TransformerConfig):
         out.append(torch.einsum("egd,ge->gd", down.float(),
                                 weights[lo:lo + MOE_TOKENS]))
     out = out[0] if len(out) == 1 else torch.cat(out)
+    if moe_axes:
+        out = collectives.psum(out, cfg.mesh, moe_axes)
     return x + out.reshape(b, t, d).to(x.dtype)
 
 

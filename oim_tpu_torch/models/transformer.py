@@ -32,12 +32,22 @@ weight's int8 or packed int4 payload under its name plus a
 through ``ops/wquant.py::quant_matmul``, which dequantizes each weight to
 the compute dtype where the product reads it.  Training never sees
 quantized params.
+
+Served over a mesh (tensor and expert parallelism), each rank holds its
+shard of the params as plain tensors (``models/weights.py::
+shard_params``, by ``param_pspecs``' logical axes) and runs the same
+layer math on them under a ``ShardedConfig``: its local heads, kv heads,
+MLP columns and experts, and the collectives the reference leaves to
+GSPMD — a ``psum`` over ``tp`` after the row-parallel ``wo`` and
+``w_out``, a masked lookup and ``psum`` for the vocab-sharded ``wte``,
+an ``all_gather`` of the vocab-sharded logits before sampling.  With no
+mesh no collective runs and the code is what it is on one device.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +61,8 @@ from oim_tpu_torch.ops.quant import WEIGHT_QUANT_TARGETS, quantize_weight
 from oim_tpu_torch.ops.rmsnorm import reference_rmsnorm, rmsnorm
 from oim_tpu_torch.ops.rope import apply_rope
 from oim_tpu_torch.ops.wquant import quant_matmul
+from oim_tpu_torch.parallel import collectives
+from oim_tpu_torch.parallel.sharding import DEFAULT_RULES, partition_spec
 
 # Weight on the MoE auxiliary channel in the train objective (the
 # reference's AUX_LOSS_WEIGHT); dense layers add 0 to the channel.
@@ -179,13 +191,94 @@ class TransformerConfig:
         return _DTYPES[self.dtype]
 
 
+@dataclass(frozen=True)
+class ShardedConfig(TransformerConfig):
+    """One rank's view of ``full`` served over ``mesh``: its local
+    ``n_heads``, ``n_kv_heads`` and ``d_ff`` (the shapes its shards and
+    its cache have, so the layer code and the engine read them
+    unchanged), the full model's head dim, vocab and experts (routing
+    and sampling see all of them), and where the collectives go:
+    ``vocab_shard`` (``wte``/``wlm`` rows of the vocab over ``tp``),
+    ``row_psum`` (row-parallel weights whose product is summed over
+    ``tp``), ``row_gather`` (a weight replicated whose input arrives
+    sharded over ``tp``: its input is gathered first), ``expert_lo`` and
+    ``local_experts`` (this rank's experts) with ``moe_axes`` (the axes
+    an MoE layer's output is summed over).  Built by
+    ``models/weights.py::rank_config``."""
+
+    full: TransformerConfig | None = None
+    mesh: object = field(default=None, compare=False, repr=False)
+    vocab_shard: bool = False
+    row_psum: frozenset = frozenset()
+    row_gather: frozenset = frozenset()
+    expert_lo: int = 0
+    local_experts: int = 0
+    moe_axes: tuple = ()
+
+    @property
+    def head_dim(self) -> int:
+        return self.full.head_dim
+
+
 def require_trainable(cfg: TransformerConfig) -> None:
     """Refuse configs the port does not train yet: pipeline stages."""
     if cfg.n_stages != 1:
         raise ValueError(
             f"n_stages={cfg.n_stages}: pipeline parallelism is not ported "
-            "yet (ROADMAP Queue A: parallelism, parallel/pipeline.py)"
+            "yet (ROADMAP Queue A12, third part: parallel/pipeline.py)"
         )
+
+
+def logical_axes(cfg: TransformerConfig) -> dict:
+    """Logical dim names per parameter in the reference's stacked layout
+    (``[stages, layers, ...]`` for layer weights; see
+    ``parallel/sharding.py``'s rules)."""
+    axes = {
+        "wte": ("vocab", "model"),
+        "attn_norm": ("stages", None, None),
+        "wq": ("stages", None, "model", "heads"),
+        "wk": ("stages", None, "model", "heads"),
+        "wv": ("stages", None, "model", "heads"),
+        "wo": ("stages", None, "heads", "model"),
+        "mlp_norm": ("stages", None, None),
+        "final_norm": (None,),
+        "wlm": ("model", "vocab"),
+    }
+    if cfg.attn_bias:
+        axes.update(
+            {
+                "bq": ("stages", None, "heads"),
+                "bk": ("stages", None, "heads"),
+                "bv": ("stages", None, "heads"),
+            }
+        )
+    if cfg.n_experts:
+        axes.update(
+            {
+                "router": ("stages", None, "model", None),
+                "w_gate": ("stages", None, "experts", "model", "mlp"),
+                "w_in": ("stages", None, "experts", "model", "mlp"),
+                "w_out": ("stages", None, "experts", "mlp", "model"),
+            }
+        )
+    else:
+        axes.update(
+            {
+                "w_gate": ("stages", None, "model", "mlp"),
+                "w_in": ("stages", None, "model", "mlp"),
+                "w_out": ("stages", None, "mlp", "model"),
+            }
+        )
+    return axes
+
+
+def param_pspecs(cfg: TransformerConfig, rules=None) -> dict:
+    """Full PartitionSpecs per parameter (the reference's layout)."""
+    rules = rules or DEFAULT_RULES
+    return {
+        name: partition_spec(dims, rules)
+        for name, dims in logical_axes(cfg).items()
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +310,7 @@ def prepare_param(name: str, value, cfg: TransformerConfig):
 
 def init_params(seed: int, cfg: TransformerConfig, device=None,
                 master: bool = False, weight_quant: str = "",
-                int4_group: int = 64) -> dict:
+                int4_group: int = 64, place=None) -> dict:
     """Truncated-normal init (±2 sigma, scaled by 1/sqrt(fan_in)) drawn
     from ``torch.Generator(device).manual_seed(seed)``, one tensor at a
     time so the peak is one f32 tensor beyond the model.  Returns
@@ -230,7 +323,12 @@ def init_params(seed: int, cfg: TransformerConfig, device=None,
     ``WEIGHT_QUANT_TARGETS`` weight from its f32 draw as it is drawn, so
     the float model never has to fit whole: the same values as
     ``quantize_params_int8``/``_int4`` of the master params, since the
-    draws come from one generator in one order."""
+    draws come from one generator in one order.  ``place(name, tensor)``
+    (serving) takes each finished tensor as it is made and returns what
+    to keep: a rank of a mesh keeps its shard
+    (``models/weights.py::shard_tensor``), so the card never holds more
+    than its shard and one whole tensor."""
+    place = place or (lambda name, t: t)
     if weight_quant and master:
         raise ValueError("training masters are never quantized")
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -244,14 +342,16 @@ def init_params(seed: int, cfg: TransformerConfig, device=None,
         t.mul_(2.0).sub_(1.0).erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
         t.div_(math.sqrt(fan_in))
         if weight_quant and name in WEIGHT_QUANT_TARGETS:
-            tree[name], tree[f"{name}_wscale"] = quantize_weight(
-                t, weight_quant, int4_group)
+            q, scale = quantize_weight(t, weight_quant, int4_group)
+            tree[name] = place(name, q)
+            tree[f"{name}_wscale"] = place(f"{name}_wscale", scale)
         else:
-            tree[name] = t if master else prepare_param(name, t, cfg)
+            tree[name] = place(name, t if master
+                               else prepare_param(name, t, cfg))
 
     def const(tree, name, fill, *shape):
         t = torch.full(shape, fill, dtype=torch.float32, device=device)
-        tree[name] = t if master else prepare_param(name, t, cfg)
+        tree[name] = place(name, t if master else prepare_param(name, t, cfg))
 
     params = {}
     dense(params, "wte", cfg.vocab_size, d, fan_in=d)
@@ -301,7 +401,19 @@ def embed_lookup(wte, tokens, cfg: TransformerConfig):
     casts the table, then gathers: the same values; the gradient of a
     repeated token then sums in f32 where the reference sums in the
     compute dtype)."""
-    x = F.embedding(tokens, wte).to(cfg.compute_dtype)
+    if getattr(cfg, "vocab_shard", False):
+        # This rank's rows of the table: a token outside them looks up
+        # zeros, and the sum over tp holds each token's one real row
+        # (adding zeros is exact).
+        rows = wte.shape[0]
+        local = tokens - cfg.mesh.axis_index("tp") * rows
+        inside = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), wte)
+        x = collectives.psum(torch.where(inside[..., None], x, 0.0).to(
+            wte.dtype), cfg.mesh, "tp")
+    else:
+        x = F.embedding(tokens, wte)
+    x = x.to(cfg.compute_dtype)
     if cfg.embed_scale:
         # A fill on the device, not a copy from the host: the serving
         # engine captures this in a CUDA graph.
@@ -328,12 +440,25 @@ def linear(x, tree, name: str, cfg: TransformerConfig):
     return quant_matmul(x, tree[name], scale, dtype=cfg.compute_dtype)
 
 
+def row_linear(x, tree, name: str, cfg: TransformerConfig):
+    """``linear`` of a row-parallel weight (``wo``, a dense ``w_out``):
+    on a rank of a mesh, its partial product summed over ``tp`` — or,
+    for a weight kept whole while its input arrives sharded, the input
+    gathered first; with no mesh, ``linear``."""
+    if name in getattr(cfg, "row_gather", ()):
+        x = collectives.all_gather(x, cfg.mesh, "tp", dim=-1)
+    y = linear(x, tree, name, cfg)
+    if name in getattr(cfg, "row_psum", ()):
+        y = collectives.psum(y, cfg.mesh, "tp")
+    return y
+
+
 def _dense_mlp(x, lp, cfg: TransformerConfig):
     """Pre-norm gated MLP with its residual."""
     normed = _rmsnorm(x, lp["mlp_norm"], cfg)
     gate = _mlp_act(linear(normed, lp, "w_gate", cfg), cfg)
     up = linear(normed, lp, "w_in", cfg)
-    return x + linear(gate * up, lp, "w_out", cfg).to(x.dtype)
+    return x + row_linear(gate * up, lp, "w_out", cfg).to(x.dtype)
 
 
 def _router_probs(normed, router):
@@ -456,9 +581,15 @@ def unembed(x, params: dict, cfg: TransformerConfig):
     ``_unembed(x, dequantize_named(params, "wlm"), cfg)`` casts it."""
     scale = params.get("wlm_wscale")
     if scale is None:
-        return _unembed(x, params["wlm"], cfg)
-    return quant_matmul(x.to(cfg.compute_dtype), params["wlm"], scale,
-                        dtype=cfg.compute_dtype, out_dtype=torch.float32)
+        logits = _unembed(x, params["wlm"], cfg)
+    else:
+        logits = quant_matmul(x.to(cfg.compute_dtype), params["wlm"], scale,
+                              dtype=cfg.compute_dtype,
+                              out_dtype=torch.float32)
+    if getattr(cfg, "vocab_shard", False):
+        # Every rank samples from the whole vocab, bit for bit the same.
+        logits = collectives.all_gather(logits, cfg.mesh, "tp", dim=-1)
+    return logits
 
 
 # ---------------------------------------------------------------------------

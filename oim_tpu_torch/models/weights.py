@@ -16,6 +16,11 @@ bf16 model's weights).  Weight-quantized trees (``ops/quant.py``: int8
 or packed int4 payloads with ``<name>_wscale`` companions) carry their
 payloads and f32 scales unchanged; on the reference's side an int4
 payload is one value a byte (``jnp.int4``).
+
+Over a mesh, ``serve_specs`` says how each served parameter shards (the
+counterpart of the reference engine's ``serve_param_shardings``),
+``shard_params`` keeps one rank's blocks of a tree and ``rank_config``
+describes the model that rank runs (``ShardedConfig``).
 """
 
 from __future__ import annotations
@@ -28,7 +33,12 @@ import torch
 
 from oim_tpu_torch.models.decode import _LAYER_ENTRIES
 from oim_tpu_torch.models.train import named_parameters
-from oim_tpu_torch.models.transformer import TransformerConfig, prepare_param
+from oim_tpu_torch.models.transformer import (
+    ShardedConfig,
+    TransformerConfig,
+    param_pspecs,
+    prepare_param,
+)
 from oim_tpu_torch.ops.quant import (
     INT4_DTYPE,
     WEIGHT_QUANT_TARGETS,
@@ -38,6 +48,7 @@ from oim_tpu_torch.ops.quant import (
     unpack_int4,
     weight_quant_mode,
 )
+from oim_tpu_torch.parallel.sharding import PartitionSpec, fitted, shard
 from oim_tpu_torch.serve.disagg import dtype_name
 
 _TOP = ("wte", "final_norm", "wlm", "wlm_wscale")
@@ -307,3 +318,154 @@ def to_device(params: dict, device) -> dict:
         for lp in params["layers"]
     ]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving
+
+
+def serve_specs(cfg: TransformerConfig, mesh, weight_quant: str = "",
+                int4_group: int = 64) -> dict:
+    """``{name: PartitionSpec}`` of every served parameter name (the
+    port's layout: a layer's names without the reference's stacked
+    ``[stages, layers]`` dims), by ``param_pspecs``' logical axes
+    (heads, mlp, vocab → ``tp``; experts → ``ep``), fitted to the full
+    shapes as the reference's ``serve_param_shardings`` fits them: an
+    axis that does not divide a dimension replicates it.  Two rules of
+    the port's own.  A packed int4 weight sharded along its reduction
+    axis keeps whole groups of an even row count a rank (its bytes hold
+    row pairs), else that axis replicates.  The MLP's three weights
+    shard their ``mlp`` axis together or not at all, so a replicated
+    ``w_out`` never meets sharded columns.  Weight-quant companions
+    follow their weight: an int8 ``_wscale`` drops the reduction axis's
+    entry, an int4 one shards its groups as the weight's rows shard.
+    LoRA adapters and anything else unnamed replicate."""
+    shapes = param_shapes(replace(cfg, n_layers=1))
+    base = {}
+    for name, spec in param_pspecs(cfg).items():
+        if len(spec) > 1 and spec[0] == "pp":
+            spec = spec[2:]  # [stages, layers, ...] → one layer's dims
+        key = name if name in shapes else f"layers.0.{name}"
+        base[name] = fitted(shapes[key], spec, mesh)
+    if weight_quant == "int4":
+        for name in WEIGHT_QUANT_TARGETS:
+            spec = base.get(name)
+            if spec is None or spec[-2] is None:
+                continue
+            din = shapes.get(name, shapes.get(f"layers.0.{name}"))[-2]
+            rows = din // mesh.axis_size(spec[-2])
+            if rows % _int4_group(din, int4_group) or rows % 2:
+                base[name] = PartitionSpec(*spec[:-2], None, spec[-1])
+    mlp = [base[n] for n in ("w_gate", "w_in")] + [base["w_out"]]
+    if any(s[-1] is None for s in mlp[:2]) or mlp[2][-2] is None:
+        for name in ("w_gate", "w_in"):
+            base[name] = PartitionSpec(*base[name][:-1], None)
+        base["w_out"] = PartitionSpec(*base["w_out"][:-2], None,
+                                      base["w_out"][-1])
+    specs = dict(base)
+    for name in WEIGHT_QUANT_TARGETS:
+        spec = base.get(name)
+        if spec is None or not weight_quant:
+            continue
+        if weight_quant == "int8":
+            specs[f"{name}_wscale"] = PartitionSpec(*spec[:-2], spec[-1])
+        else:
+            specs[f"{name}_wscale"] = spec
+    return specs
+
+
+def _quant_args(params: dict, cfg: TransformerConfig) -> tuple:
+    """(weight quant mode, int4 group) of ``params``: the group read off
+    ``wq``'s scale, ``din`` over its groups."""
+    mode = weight_quant_mode(params)
+    if mode != "int4":
+        return mode, 64
+    return mode, cfg.d_model // params["layers"][0]["wq_wscale"].shape[-2]
+
+
+def specs_of(params: dict, cfg: TransformerConfig, mesh) -> dict:
+    """``serve_specs`` for the weight quantization ``params`` carry."""
+    return serve_specs(cfg, mesh, *_quant_args(params, cfg))
+
+
+def shard_tensor(name: str, value: torch.Tensor, specs: dict,
+                 mesh) -> torch.Tensor:
+    """This rank's block of one whole served tensor ``name`` under
+    ``specs`` (``serve_specs``), copied so that the whole can be freed;
+    a name with no spec (replicated) as it is."""
+    spec = specs.get(name)
+    if spec is None:
+        return value
+    return shard(value, spec, mesh).contiguous()
+
+
+def _block(value: torch.Tensor, spec, full_shape, mesh) -> torch.Tensor:
+    """This rank's block of one parameter: the full one sliced and
+    copied, so that the rest can be freed; one already at its block's
+    shape (a tree loaded sharded) as it is."""
+    full_shape = tuple(full_shape)
+    block = tuple(shard(torch.empty(full_shape, device="meta"), spec, mesh)
+                  .shape)
+    if tuple(value.shape) == full_shape:
+        return shard(value, spec, mesh).contiguous()
+    if tuple(value.shape) == block:
+        return value
+    raise ValueError(f"a parameter of {tuple(value.shape)} is neither the "
+                     f"whole {full_shape} nor this rank's block {block}")
+
+
+def shard_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
+    """This rank's shard of the port's serving params (``serve_specs``):
+    the counterpart of the reference engine's ``jax.device_put(params,
+    serve_param_shardings(...))``.  Entries already at a block's shape
+    are kept (a tree loaded sharded); a packed int4 payload shards its
+    byte rows, whole row pairs a rank.  The tensors stay where they
+    are."""
+    specs = specs_of(params, cfg, mesh)
+
+    def tree(source: dict, prefix: str) -> dict:
+        out = {}
+        for name, value in source.items():
+            spec = specs.get(name)
+            if spec is None:
+                out[name] = value
+                continue
+            full = full_shapes.get(prefix + name)
+            if full is None:
+                raise ValueError(f"unexpected served parameter {name!r}")
+            out[name] = _block(value, spec, full, mesh)
+        return out
+
+    full_shapes = param_shapes(replace(cfg, n_layers=1),
+                               *_quant_args(params, cfg))
+    top = tree({n: v for n, v in params.items() if n != "layers"}, "")
+    top["layers"] = [tree(lp, "layers.0.") for lp in params["layers"]]
+    return top
+
+
+def rank_config(cfg: TransformerConfig, mesh, specs: dict) -> ShardedConfig:
+    """The model one rank of ``mesh`` runs on its shard (``specs`` from
+    ``serve_specs``): local heads, kv heads and MLP width, and where the
+    collectives go (``ShardedConfig``)."""
+    tp = mesh.shape["tp"]
+    mlp_axis = specs["w_gate"][-1]
+    local_ff = cfg.ff_dim // mesh.axis_size(mlp_axis) if mlp_axis else (
+        cfg.ff_dim)
+    fields = {f: getattr(cfg, f) for f in cfg.__dataclass_fields__}
+    fields.update(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.kv_heads // tp,
+                  d_ff=local_ff)
+    row_psum = {"wo"} if specs["wo"][-2] is not None else set()
+    if not cfg.n_experts and specs["w_out"][-2] is not None:
+        row_psum.add("w_out")
+    moe = {}
+    if cfg.n_experts:
+        ep = mesh.shape["ep"]
+        axes = ("tp", "ep") if mlp_axis else ("ep",)
+        moe = dict(expert_lo=mesh.axis_index("ep") * cfg.n_experts // ep,
+                   local_experts=cfg.n_experts // ep, moe_axes=axes)
+    return ShardedConfig(
+        **fields, full=cfg, mesh=mesh,
+        vocab_shard=specs["wte"][0] is not None,
+        row_psum=frozenset(row_psum),
+        row_gather=frozenset() if "wo" in row_psum else frozenset({"wo"}),
+        **moe)

@@ -4,7 +4,9 @@ that keeps them true across CUDA graph replays.
 Each kernel module (``rmsnorm``, ``flash_attention``, ``fused_ce``,
 ``paged_attention``, ``wquant``) counts its wrappers' launches, its
 routes and its plain versions' runs under names of its own
-(``<module>.counters()``).
+(``<module>.counters()``), and ``parallel/collectives.py`` its
+collectives (``collective.<primitive>``), so that a graph's replays
+count the collectives captured in it too.
 A CUDA graph runs the wrappers' Python once, at capture, and none of it
 at replay: ``recording`` takes back what a captured region counted and
 keeps it, and ``replay_counts`` adds it again at each replay, so the
@@ -18,8 +20,10 @@ import contextlib
 
 from oim_tpu_torch.ops import flash_attention, fused_ce, paged_attention
 from oim_tpu_torch.ops import rmsnorm, wquant
+from oim_tpu_torch.parallel import collectives
 
-MODULES = (rmsnorm, flash_attention, fused_ce, paged_attention, wquant)
+MODULES = (rmsnorm, flash_attention, fused_ce, paged_attention, wquant,
+           collectives)
 
 
 def counters() -> dict:

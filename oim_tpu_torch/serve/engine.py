@@ -119,8 +119,27 @@ paths:
   there, and a capture after warmup adds to ``recompiles`` with the
   request context the step thread keeps in ``_sentinel_ctx``.
 
-The reference's sharded serving (``mesh``) is not an option here
-(ROADMAP Queue A12).
+- **Tensor- and expert-parallel serving.**  ``mesh=`` (a
+  ``parallel/mesh.py::Mesh`` over ``tp`` and, for MoE, ``ep``; one
+  process a device) shards the params by their logical axes
+  (``models/weights.py::shard_params``) and the cache over kv heads, and
+  each rank runs its shard under a ``ShardedConfig`` whose layers call
+  the collectives (``models/transformer.py``).  Rank 0 is the engine
+  callers see: it owns the queue, the slots, the scheduler and every
+  host decision.  Each device dispatch it makes — an admission, a first
+  token's sampling, a prompt segment, a decode chunk, a draft prefill, a
+  prefix copy, the graph capture — is first sent as a record of its
+  staged host inputs over the mesh's gloo ``control`` group, and every
+  other rank runs the same dispatch on its shard (``follow``), by replay
+  or eagerly; followers read nothing back.  The logits every rank sees
+  after the collectives are bitwise the same, and sampling noise is
+  keyed by (seed, token index), so the tokens a chunk feeds back on the
+  device stay in lockstep without a broadcast a token.  On NCCL the
+  collectives are captured inside the graphs; gloo cannot be captured,
+  so a gloo mesh on the card runs eagerly (``cuda_graphs=False``).  The
+  host KV tier and parking, KV/prefix/slot shipping and migration,
+  ``beam`` and ``embed`` are refused under a mesh (ROADMAP Queue A12,
+  second part).
 """
 
 from __future__ import annotations
@@ -138,6 +157,7 @@ from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from oim_tpu_torch.common import events as _events
 from oim_tpu_torch.common import metrics as _metrics
@@ -157,10 +177,17 @@ from oim_tpu_torch.models.transformer import (
     _qkv,
     _rmsnorm,
     embed_lookup,
-    linear,
+    row_linear,
     unembed,
 )
-from oim_tpu_torch.models.weights import n_params, to_device
+from oim_tpu_torch.models.weights import (
+    n_params,
+    param_shapes,
+    rank_config,
+    shard_params,
+    specs_of,
+    to_device,
+)
 from oim_tpu_torch.ops import counts as kernel_counts
 from oim_tpu_torch.ops import paged_attention
 from oim_tpu_torch.ops.paged import copy_block, read_blocks, write_blocks
@@ -502,7 +529,7 @@ def _slot_attention(x, lp, cache, layer: int, starts, tables,
             window=cfg.sliding_window,
         )
     out = out.to(x.dtype).reshape(b, t, cfg.n_heads * cfg.head_dim)
-    return x + linear(out, lp, "wo", cfg).to(x.dtype)
+    return x + row_linear(out, lp, "wo", cfg).to(x.dtype)
 
 
 def _hidden_slots(params, tokens, cache, starts, tables,
@@ -1162,6 +1189,45 @@ class _SlotState:
     phases: _PhaseTrace | None = None
 
 
+class MeshUnsupportedError(ValueError):
+    """A feature the engine does not serve under a mesh yet."""
+
+
+def _refuse_mesh(what: str) -> MeshUnsupportedError:
+    return MeshUnsupportedError(
+        f"{what} is not served under a mesh yet (ROADMAP Queue A12, "
+        f"second part)")
+
+
+class _MeshLink:
+    """The leader's device dispatches, as records, to the other ranks of
+    a mesh: each record is a batch of (method name, host arguments),
+    broadcast from rank 0 over the mesh's gloo ``control`` group, so host
+    metadata never rides a device stream.  Records ``defer``red by the
+    leader (a dense prefix entry dropped under the engine lock) go out
+    ahead of its next one."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.leader = mesh.rank == 0
+        self._deferred: list = []
+        self._lock = threading.Lock()
+
+    def defer(self, *record) -> None:
+        with self._lock:
+            self._deferred.append(record)
+
+    def send(self, *record) -> None:
+        with self._lock:
+            batch, self._deferred = self._deferred + [record], []
+        dist.broadcast_object_list([batch], src=0, group=self.mesh.control)
+
+    def recv(self) -> list:
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.mesh.control)
+        return box[0]
+
+
 class Engine:
     """Continuous-batching engine: submit → step/run → result.
 
@@ -1174,7 +1240,9 @@ class Engine:
     dispatch); ``cuda_graphs=False`` dispatches the same work eagerly
     instead, the A/B control for measurements.  A capture or replay that
     fails, or an admission shape with no graph, raises: the engine never
-    falls back to eager dispatch by itself.
+    falls back to eager dispatch by itself.  With ``mesh`` every rank
+    builds its engine with the same arguments; rank 0 serves and the
+    others ``follow`` (module docstring).
     """
 
     _instance_lock = threading.Lock()
@@ -1218,7 +1286,13 @@ class Engine:
         cuda_graphs: bool = True,
         paged_kernel: bool | None = None,
         prefill_kernel: bool | None = None,
+        mesh=None,
     ):
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not this rank's mesh "
+                                 f"device {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         if pipeline_depth not in (1, 2):
             raise ValueError(
@@ -1346,9 +1420,46 @@ class Engine:
                 f"prefill_chunk must be >= 0, got {prefill_chunk}"
             )
         _validate_truncation(top_k, top_p, cfg.vocab_size)
+        self.mesh = mesh
+        self._link = None
+        # The config the device functions run: the model, or this rank's
+        # share of it under a mesh (``cfg`` stays the whole model's).
+        self._run_cfg = cfg
+        if mesh is not None:
+            tp = mesh.shape.get("tp", 1)
+            if cfg.n_heads % tp or cfg.kv_heads % tp:
+                raise ValueError(
+                    f"n_heads={cfg.n_heads} and kv_heads={cfg.kv_heads} "
+                    f"must divide by mesh tp={tp}"
+                )
+            ep = mesh.shape.get("ep", 1)
+            if ep > 1 and (not cfg.n_experts or cfg.n_experts % ep):
+                raise ValueError(
+                    f"n_experts={cfg.n_experts} must be a positive "
+                    f"multiple of mesh ep={ep}"
+                )
+            if kv_host_bytes:
+                raise _refuse_mesh("the host KV tier (kv_host_bytes)")
+            if (cuda_graphs and self.device.type == "cuda"
+                    and mesh.backend != "nccl"):
+                raise ValueError(
+                    f"cuda_graphs needs an NCCL mesh: {mesh.backend} "
+                    f"collectives cannot be captured in a CUDA graph; pass "
+                    f"cuda_graphs=False")
+            # The whole model's count (the reference's, over the global
+            # arrays), before this rank keeps its shard.
+            self.n_params = sum(math.prod(shape) for shape in
+                                param_shapes(cfg).values())
+            self._run_cfg = rank_config(cfg, mesh,
+                                        specs_of(params, cfg, mesh))
+            params = shard_params(params, cfg, mesh)
+            self._link = _MeshLink(mesh)
+            if mesh.backend == "nccl":
+                mesh.warm()  # communicators exist before any capture
         self.cfg = cfg
         self.params = to_device(params, self.device)
-        self.n_params = n_params(self.params)
+        if mesh is None:
+            self.n_params = n_params(self.params)
         self.n_slots = n_slots
         self.max_len = max_len
         self.chunk = chunk
@@ -1403,7 +1514,8 @@ class Engine:
         if self.paged:
             self.kv_blocks = kv_blocks or n_slots * self._n_tables
             self._cache = PagedCache.create(
-                cfg, self.kv_blocks, kv_block, quantized=self.kv_quant,
+                self._run_cfg, self.kv_blocks, kv_block,
+                quantized=self.kv_quant,
                 device=self.device,
             )
             self._alloc = BlockAllocator(self.kv_blocks)
@@ -1415,7 +1527,8 @@ class Engine:
         else:
             self.kv_blocks = 0
             self._cache = SlotCache.create(
-                cfg, n_slots, max_len, block_size, quantized=kv_int8,
+                self._run_cfg, n_slots, max_len, block_size,
+                quantized=kv_int8,
                 device=self.device,
             )
             self._alloc = None
@@ -1762,6 +1875,8 @@ class Engine:
     def _validate(self, req: GenRequest) -> None:
         if not req.tokens:
             raise ValueError("empty prompt")
+        if self.mesh is not None and req.hold_kv:
+            raise _refuse_mesh("hold_kv")
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if req.sample_base < 0:
@@ -1848,6 +1963,9 @@ class Engine:
         abort, deadline, migration).  Callbacks run on the step thread
         (or the thread that failed the request) and must not block: hand
         off to a queue, as the HTTP stream does."""
+        if self._link is not None and not self._link.leader:
+            raise RuntimeError("a follower rank runs the leader's records "
+                               "(follow); submit to rank 0")
         try:
             self._validate(req)
         except ValueError:
@@ -2112,6 +2230,8 @@ class Engine:
         bucket.  Stateless and slot-free: it touches neither the cache
         nor the queue, so any thread may call it while the step thread
         runs; it runs the plain solo path, as the reference's does."""
+        if self.mesh is not None:
+            raise _refuse_mesh("embed")
         with self._aux_request():
             self._validate(GenRequest(tokens=tokens, max_new_tokens=1))
             bucket = self._bucket(len(tokens))
@@ -2144,6 +2264,8 @@ class Engine:
         functions over client-chosen (beam_size, alpha, eos_id), and a
         budget of ``_MAX_BEAM_TRACES`` (configuration, prompt length,
         max_new) shapes, past which both are cleared."""
+        if self.mesh is not None:
+            raise _refuse_mesh("beam")
         with self._aux_request():
             return self._beam_inner(tokens, max_new_tokens, beam_size,
                                     alpha, eos_id)
@@ -2267,6 +2389,8 @@ class Engine:
                 "paged_kernel": self.paged_kernel,
                 "prefill_kernel": self.prefill_kernel,
                 "cuda_graphs": self.cuda_graphs,
+                "tp": self.mesh.shape.get("tp", 1) if self.mesh else 1,
+                "ep": self.mesh.shape.get("ep", 1) if self.mesh else 1,
             },
         }
 
@@ -3276,13 +3400,19 @@ class Engine:
                 return 0, "recomputed"
             self._prefix_cache.move_to_end(key)  # LRU touch
             source = self._touch_prefix_meta_locked(key)
-            entry, _ = self._prefix_cache[key]
+        self._dev("_inject_rows", slot, key)
+        return usable, source
+
+    def _inject_rows(self, slot: int, key: tuple) -> None:
+        """Dense: copy prefix entry ``key``'s rows into the head of
+        ``slot``'s region (step thread, the only one that retires dense
+        entries)."""
+        entry, _ = self._prefix_cache[key]
         cache = self._cache
         for dst, src in zip((cache.k, cache.v, cache.k_scale, cache.v_scale),
                             entry):
             if src is not None:
                 dst[:, slot, : src.shape[1]].copy_(src)
-        return usable, source
 
     def _store_prefix(self, slot: int, req: GenRequest) -> None:
         """Cache ``slot``'s freshly prefilled prompt KV under
@@ -3311,15 +3441,29 @@ class Engine:
                 self._trim_prefix_cache_locked()
             return
         rows = self._bucket(len(tokens))
-        cache = self._cache
-        entry = tuple(None if t is None else t[:, slot, :rows].clone()
-                      for t in (cache.k, cache.v, cache.k_scale,
-                                cache.v_scale))
+        self._lead("_follow_store", slot, key, rows)
+        entry = self._slot_rows(slot, rows)
         with self._lock:
             self._prefix_cache[key] = (entry, len(tokens))
             self._prefix_cache.move_to_end(key)
             self._set_prefix_meta_locked(key, len(tokens), "local", tenant)
             self._trim_prefix_cache_locked()
+
+    def _slot_rows(self, slot: int, rows: int) -> tuple:
+        """Dense: a copy of ``slot``'s first ``rows`` cache rows, one
+        tensor a cache leaf (None where the leaf is)."""
+        cache = self._cache
+        return tuple(None if t is None else t[:, slot, :rows].clone()
+                     for t in (cache.k, cache.v, cache.k_scale,
+                               cache.v_scale))
+
+    def _follow_store(self, slot: int, key: tuple, rows: int) -> None:
+        """A follower's half of a dense prefix store: the same copy under
+        the same key (the leader keeps the entry's host records)."""
+        self._prefix_cache[key] = (self._slot_rows(slot, rows), rows)
+
+    def _follow_drop(self, key: tuple) -> None:
+        self._prefix_cache.pop(key, None)
 
     def _trim_prefix_cache_locked(self) -> None:
         """Count a store and retire least recently used entries past the
@@ -3349,6 +3493,8 @@ class Engine:
             self._alloc.decref(entry)
         del self._prefix_cache[key]
         self._prefix_meta.pop(key, None)
+        if self._link is not None and not self.paged:
+            self._link.defer("_follow_drop", key)
         if not self._warming:
             if demoted:
                 self.prefix_demotions += 1
@@ -4040,7 +4186,10 @@ class Engine:
         return [name for name, _ in self._cache.leaves()], staged
 
     def _refuse_ship(self, what: str) -> None:
-        """The ship-ineligible guard: dense and packed-int4 engines."""
+        """The ship-ineligible guard: dense and packed-int4 engines, and
+        a mesh."""
+        if self.mesh is not None:
+            raise KvIneligibleError(str(_refuse_mesh(what)))
         if not self.paged:
             raise KvIneligibleError(
                 f"{what} needs a paged engine (oim-serve --kv-block)")
@@ -4324,6 +4473,8 @@ class Engine:
         and parked request at its next step into "migrated" failures,
         active and parked ones leaving a record for ``export_slot``.
         Idempotent; any thread."""
+        if self.mesh is not None:
+            raise _refuse_mesh("migration")
         with self._lock:
             self._draining = True
             self._migrate_out = True
@@ -4505,6 +4656,47 @@ class Engine:
             self.slot_imports += 1
         return import_id, rows, slot_meta
 
+    # -- mesh: the leader's records and the followers ---------------------
+
+    # What a follower runs: the device dispatches the leader records.
+    _FOLLOWED = frozenset((
+        "_dispatch_admission", "_first_tokens", "_seat_history",
+        "_dispatch_draft", "_copy_block", "_inject_rows", "_follow_store",
+        "_follow_drop", "_stage_chunk", "_ensure_graphs",
+    ))
+
+    def _lead(self, name: str, *args) -> None:
+        """On a mesh's leader, send the record of device dispatch
+        ``name`` to the followers (nothing elsewhere)."""
+        if self._link is not None and self._link.leader:
+            self._link.send(name, *args)
+
+    def _dev(self, name: str, *args):
+        """Run device dispatch ``name`` from host inputs here, after
+        sending its record to a mesh's followers."""
+        self._lead(name, *args)
+        return getattr(self, name)(*args)
+
+    @torch.no_grad()
+    def follow(self) -> None:
+        """A follower rank's loop: run each device dispatch the leader
+        records, on this rank's shard, until the leader's stop record.
+        Reads nothing back from the device."""
+        if self._link is None or self._link.leader:
+            raise RuntimeError("follow() runs on a mesh rank other than 0")
+        while True:
+            for name, *args in self._link.recv():
+                if name == "stop":
+                    return
+                if name not in self._FOLLOWED:
+                    raise RuntimeError(f"unknown record {name!r}")
+                getattr(self, name)(*args)
+
+    def stop_followers(self) -> None:
+        """The leader's stop record: every follower's ``follow`` returns.
+        Call from the step thread's side (no step running)."""
+        self._lead("stop")
+
     # -- admission ----------------------------------------------------------
 
     def _admission_inputs(self, bucket: int, rows: int, entries,
@@ -4549,7 +4741,7 @@ class Engine:
         prompts, meta, tables = self._adm.views(bucket, rows)
         self._adm.logits[:rows].copy_(_admit_logits(
             self.params, self._cache, tables, prompts, meta[0], meta[1],
-            self.cfg, self.prefill_kernel,
+            self._run_cfg, self.prefill_kernel,
         ))
 
     def _dispatch_admission(self, bucket: int, rows: int, prompts,
@@ -4599,8 +4791,7 @@ class Engine:
             for i, r in enumerate(rows):
                 full[i, : len(r[2].tokens)] = r[2].tokens
             slots = np.asarray([r[0] for r in rows], np.int64)
-            self._history[_to_device(slots, self.device)] = _to_device(
-                full, self.device)
+            self._dev("_seat_history", slots, full)
             return
         identity = self._draft_identity_host
         for bucket in sorted({self._bucket(len(r[2].tokens)) for r in rows}):
@@ -4608,25 +4799,42 @@ class Engine:
                      == bucket]
             for take, cls in self._pieces(len(group), bucket):
                 piece, group = group[:take], group[take:]
-                prompts, ints = self._admission_inputs(
-                    bucket, cls, [(r[2].tokens, 0, identity[r[0]])
-                                  for r in piece], draft=True)
-                self._dadm.stage(prompts, ints)
+                self._dev("_dispatch_draft", bucket, cls,
+                          *self._admission_inputs(
+                              bucket, cls, [(r[2].tokens, 0, identity[r[0]])
+                                            for r in piece], draft=True))
                 if not self._warming:
                     self.draft_prefill_dispatches += 1
-                if not self.cuda_graphs:
-                    self._run_draft_admission(bucket, cls)
-                    continue
-                if (bucket, cls) not in self._draft_graphs:
-                    raise RuntimeError(
-                        f"no draft admission graph for bucket {bucket} x "
-                        f"{cls} rows (captured: {sorted(self._draft_graphs)})"
-                    )
-                graph, delta = self._draft_graphs[bucket, cls]
-                graph.replay()
-                kernel_counts.replay_counts(delta)
-                if not self._warming:
-                    self.draft_admission_replays += 1
+                    self.draft_admission_replays += int(self.cuda_graphs)
+
+    def _seat_history(self, slots: np.ndarray, full: np.ndarray) -> None:
+        """Prompt lookup's history rows ``slots`` ← ``full`` [n, max_len]
+        (each whole prompt, zero-padded)."""
+        self._history[_to_device(slots, self.device)] = _to_device(
+            full, self.device)
+
+    def _dispatch_draft(self, bucket: int, rows: int, prompts, ints) -> None:
+        """Stage one draft prefill dispatch and run it: its graph's
+        replay, or eagerly with graphs off."""
+        self._dadm.stage(prompts, ints)
+        if not self.cuda_graphs:
+            self._run_draft_admission(bucket, rows)
+            return
+        if (bucket, rows) not in self._draft_graphs:
+            raise RuntimeError(
+                f"no draft admission graph for bucket {bucket} x {rows} "
+                f"rows (captured: {sorted(self._draft_graphs)})")
+        graph, delta = self._draft_graphs[bucket, rows]
+        graph.replay()
+        kernel_counts.replay_counts(delta)
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """Copy-on-write: pool block ``src`` into ``dst`` on every leaf,
+        stream-ordered before the tail's writes into ``dst``."""
+        cache = self._cache
+        for pool in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+            if pool is not None:
+                copy_block(pool, src, dst)
 
     def _sample_first(self, piece) -> tuple:
         """Sample the first token of each real row of the admission
@@ -4634,28 +4842,35 @@ class Engine:
         eagerly, and seat the rows' penalty counts.  ``piece`` is its
         rows' (slot, rid, req, ...) tuples.  Returns (tokens, logprobs)
         [len(piece)] on the device."""
-        dev, vocab = self.device, self.cfg.vocab_size
         reqs = [r[2] for r in piece]
-        slot_ids = np.asarray([r[0] for r in piece], np.int64)
-        cols = _columns(reqs, self.default_top_p)
+        return self._dev(
+            "_first_tokens", np.asarray([r[0] for r in piece], np.int64),
+            _columns(reqs, self.default_top_p), [r.seed for r in reqs],
+            [r.sample_base for r in reqs],
+            [req.tokens for req in reqs] if self.penalties else None)
+
+    def _first_tokens(self, slot_ids, cols, seeds, bases, prompts) -> tuple:
+        """``_sample_first``'s device half, from host inputs: the first
+        tokens of the ``len(slot_ids)`` rows at the head of
+        ``_adm.logits`` and, with penalties, each slot's counts seated
+        from its prompt (``prompts``) and first token."""
+        dev, vocab, n = self.device, self.cfg.vocab_size, len(slot_ids)
         s = _Sampling(_to_device(cols, dev), *_sampling_key(cols))
         noise = None
         if s.sampled:
-            noise = _noise([r.seed for r in reqs],
-                           [r.sample_base for r in reqs], cols[0] > 0, 1,
-                           vocab, dev)[0]
+            noise = _noise(seeds, bases, cols[0] > 0, 1, vocab, dev)[0]
         counts = None
-        if self.penalties:
+        if prompts is not None:
             prompt_counts = _to_device(np.stack([
-                np.bincount(req.tokens, minlength=vocab) for req in reqs
+                np.bincount(p, minlength=vocab) for p in prompts
             ]).astype(np.int32), dev)
             counts = (prompt_counts, torch.zeros_like(prompt_counts))
-        tokens, lps = _sample_batched(self._adm.logits[: len(piece)], s,
-                                      noise, self.top_k, counts)
-        if self.penalties:
+        tokens, lps = _sample_batched(self._adm.logits[:n], s, noise,
+                                      self.top_k, counts)
+        if prompts is not None:
             idx = _to_device(slot_ids, dev)
             onehot = torch.zeros_like(prompt_counts)
-            onehot[torch.arange(len(piece), device=dev), tokens] = 1
+            onehot[torch.arange(n, device=dev), tokens] = 1
             self._tok_counts[idx] = prompt_counts + onehot
             self._gen_counts[idx] = onehot
         return tokens, lps
@@ -4667,7 +4882,7 @@ class Engine:
         segment is ``prefill_chunk`` long, a bucket, so nothing is
         padded."""
         bucket = len(seg)
-        self._dispatch_admission(bucket, 1, *self._admission_inputs(
+        self._dev("_dispatch_admission", bucket, 1, *self._admission_inputs(
             bucket, 1, [(seg, start, self._tables_host[slot])]))
         if not self._warming:
             self.prefill_segments += 1
@@ -4832,12 +5047,7 @@ class Engine:
                 if plan["cow"] is not None:
                     # Stream-ordered before the tail writes into it; the
                     # shared source block is never written.
-                    src, dst = plan["cow"]
-                    cache = self._cache
-                    for pool in (cache.k, cache.v, cache.k_scale,
-                                 cache.v_scale):
-                        if pool is not None:
-                            copy_block(pool, src, dst)
+                    self._dev("_copy_block", *plan["cow"])
             trace = _PhaseTrace(t_submit=t_submit, t_admitted=t_admitted,
                                 t_prefill=t_pf, prefix_source=source,
                                 prefill_segments=1)
@@ -4862,9 +5072,11 @@ class Engine:
             group = [r for r in rows if self._bucket(len(r[5])) == bucket]
             for take, cls in self._pieces(len(group), bucket):
                 piece, group = group[:take], group[take:]
-                self._dispatch_admission(bucket, cls, *self._admission_inputs(
-                    bucket, cls, [(r[5], r[4], self._tables_host[r[0]])
-                                  for r in piece]))
+                self._dev("_dispatch_admission", bucket, cls,
+                          *self._admission_inputs(
+                              bucket, cls,
+                              [(r[5], r[4], self._tables_host[r[0]])
+                               for r in piece]))
                 groups.append((piece, *self._sample_first(piece)))
         if self.spec_decode:
             self._seat_drafting(rows)
@@ -4972,7 +5184,7 @@ class Engine:
                          self._draft_cache, tables)
             out, lps, n_emit, last, lengths = _decode_chunk_spec(
                 self.params, self._cache, b.tables, b.tokens, b.meta[0],
-                b.meta[1], s, noise, self.cfg, chunk=self.chunk,
+                b.meta[1], s, noise, self._run_cfg, chunk=self.chunk,
                 draft_len=self.spec_decode, top_k=self.top_k,
                 max_len=self.max_len, history=self._history,
                 ngram=self.spec_ngram, draft=draft, kernel=self.paged_kernel,
@@ -4985,7 +5197,7 @@ class Engine:
                 counts = (self._tok_counts, self._gen_counts)
             out, lps, last = _decode_chunk(
                 self.params, self._cache, b.tables, b.tokens, b.meta[0],
-                b.meta[1], s, noise, self.cfg, chunk=self.chunk,
+                b.meta[1], s, noise, self._run_cfg, chunk=self.chunk,
                 top_k=self.top_k, max_len=self.max_len, counts=counts,
                 kernel=self.paged_kernel,
             )
@@ -4997,6 +5209,7 @@ class Engine:
         """On graphs, capture them all at the first dispatch of either
         kind (``warmup``'s first, on a warmed engine)."""
         if self.cuda_graphs and self._graphs is None:
+            self._lead("_ensure_graphs")
             self._capture_graphs()
 
     def _capture_graphs(self) -> None:
@@ -5086,14 +5299,33 @@ class Engine:
         Returns (the host results in ``_ChunkBuffers.outputs``' order,
         the event that marks them done or None on the CPU).  Nothing here
         waits for the device."""
+        tables = self._tables_host.copy()
+        tables[inputs.live == 0] = self._sentinel  # K2 drops, K1 skips
+        turn = self._dev("_stage_chunk", inputs.key, tables, starts,
+                         inputs.live, tokens, inputs.cols, inputs.seeds,
+                         indices, graph)
+        results = self._buf.results[turn]
+        for host, dev in zip(results, self._buf.outputs):
+            host.copy_(dev, non_blocking=True)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return results, done
+
+    def _stage_chunk(self, key, tables, starts, live, tokens, cols, seeds,
+                     indices, graph: bool) -> int:
+        """``_enqueue_chunk``'s device half, from host inputs: stage them
+        into the chunk buffers (``starts`` and ``tokens`` None keep the
+        device-side carry, as there), fill the noise, run the chunk — by
+        graph ``key``'s replay or eagerly.  Returns the staging turn the
+        results belong to."""
         b = self._buf
         turn = b.turn
         b.turn ^= 1
         if b.staged[turn] is not None:
             b.staged[turn].synchronize()  # its last copies are done
         stage = b.stages[turn]
-        tables = self._tables_host.copy()
-        tables[inputs.live == 0] = self._sentinel  # K2 drops, K1 skips
         stage["tables"].copy_(torch.from_numpy(tables))
         names = ["tables"]
         if starts is not None:
@@ -5101,34 +5333,26 @@ class Engine:
             # a speculative one leaves the meta (its starts the carry) as
             # the chunk before it left it.
             stage["meta"][0] = torch.from_numpy(starts)
-            stage["meta"][1] = torch.from_numpy(inputs.live)
+            stage["meta"][1] = torch.from_numpy(live)
             names.append("meta")
         if tokens is not None:
             stage["tokens"].copy_(torch.from_numpy(tokens))
-            stage["cols"].copy_(torch.from_numpy(inputs.cols))
+            stage["cols"].copy_(torch.from_numpy(cols))
             names += ["tokens", "cols"]
         for name in names:
             getattr(b, name).copy_(stage[name], non_blocking=True)
-        cuda = self.device.type == "cuda"
-        if cuda:
+        if self.device.type == "cuda":
             b.staged[turn] = torch.cuda.Event()
             b.staged[turn].record()
-        if inputs.key[0]:
-            _noise(inputs.seeds, indices, inputs.cols[0] > 0, self.chunk,
+        if key[0]:
+            _noise(seeds, indices, cols[0] > 0, self.chunk,
                    self.cfg.vocab_size, self.device, out=b.noise)
         if graph:
-            self._graphs[inputs.key].replay()
-            kernel_counts.replay_counts(self._graph_counts[inputs.key])
+            self._graphs[key].replay()
+            kernel_counts.replay_counts(self._graph_counts[key])
         else:
-            self._run_chunk(inputs.key)
-        results = b.results[turn]
-        for host, dev in zip(results, b.outputs):
-            host.copy_(dev, non_blocking=True)
-        done = None
-        if cuda:
-            done = torch.cuda.Event()
-            done.record()
-        return results, done
+            self._run_chunk(key)
+        return turn
 
     def _dispatch_chunk(self, acc: list,
                         chained: _InFlightChunk | None) -> _InFlightChunk:
@@ -5305,6 +5529,8 @@ class Engine:
         ``n_emit`` and the lengths carry.  Needs the graphs and no chunk
         in flight; afterwards the device state is as it was before either
         run."""
+        if self.mesh is not None:
+            raise _refuse_mesh("chunk_twice")
         if self._graphs is None or self._inflight is not None:
             raise RuntimeError("chunk_twice needs captured graphs and no "
                                "chunk in flight")
@@ -5362,6 +5588,8 @@ class Engine:
         device state (``_device_state``) as tensors.  Needs the graphs and
         no chunk in flight; the engine is left as the replayed wave left
         it.  The check's work is not counted in ``stats()``."""
+        if self.mesh is not None:
+            raise _refuse_mesh("admit_twice")
         if self._graphs is None or self._inflight is not None:
             raise RuntimeError("admit_twice needs captured graphs and no "
                                "chunk in flight")

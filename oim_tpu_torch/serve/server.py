@@ -994,6 +994,13 @@ class ServeServer:
         each made and copied down as it is sent."""
         if self._unavailable(handler, "weights"):
             return
+        if self.engine.mesh is not None:
+            # Each rank holds a shard; streaming the whole model waits
+            # for ROADMAP Queue A12, second part.
+            handler._json(501, {"error": "/v1/weights is not served under "
+                                "a mesh yet (ROADMAP Queue A12, second "
+                                "part)"})
+            return
         leaves = jax_leaves(self.engine.params, self.engine.cfg)
         manifest = [{"name": leaf.name, "dtype": leaf.dtype,
                      "shape": list(leaf.shape)} for leaf in leaves]

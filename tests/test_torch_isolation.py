@@ -1,8 +1,11 @@
 """The PyTorch port stands alone, and never runs quietly on the CPU.
 
-- No module of ``oim_tpu_torch`` and not ``chip_smoke.py`` imports JAX
-  (``jax``, ``jaxlib``, ``flax``, ``optax``) or anything of the JAX
-  package ``oim_tpu``: the port keeps its own copy of what it needs.
+- No module of ``oim_tpu_torch`` (its ``parallel/`` layer included),
+  not ``chip_smoke.py`` and not the rank helper of the sharded-serving
+  tests (``tests/torch_tp_worker.py``, which spawned ranks import)
+  imports JAX (``jax``, ``jaxlib``, ``flax``, ``optax``) or anything of
+  the JAX package ``oim_tpu``: the port keeps its own copy of what it
+  needs.
   Nor ``grpc``, which the card's machine does not have.  Importing what
   a serving process runs — ``serve_main``, the server, the ship clients
   of ``serve/disagg.py``, the checkpoint manager, the logger, the text
@@ -37,8 +40,11 @@ PRINT_ALLOWED = ("oim_tpu_torch/cli/",)
 FILES = sorted(PORT.rglob("*.py"))
 assert FILES, "port file discovery broke"
 IDS = [str(p.relative_to(REPO)) for p in FILES]
-# The port's modules plus the chip smoke that drives them.
-SCRIPTS, SCRIPT_IDS = FILES + [REPO / "chip_smoke.py"], IDS + ["chip_smoke.py"]
+# The port's modules plus the chip smoke that drives them, and the
+# sharded-serving tests' rank helper, which spawned children import by
+# name.
+SCRIPTS = FILES + [REPO / "chip_smoke.py", REPO / "tests/torch_tp_worker.py"]
+SCRIPT_IDS = IDS + ["chip_smoke.py", "tests/torch_tp_worker.py"]
 
 
 def _tree(path):
@@ -116,7 +122,8 @@ def test_no_unused_imports(path):
 RUNTIME = ("oim_tpu_torch.cli.serve_main", "oim_tpu_torch.serve.server",
            "oim_tpu_torch.serve.disagg", "oim_tpu_torch.checkpoint",
            "oim_tpu_torch.log", "oim_tpu_torch.serve.texttok",
-           "oim_tpu_torch.serve.httptls", "oim_tpu_torch.serve.sentinel")
+           "oim_tpu_torch.serve.httptls", "oim_tpu_torch.serve.sentinel",
+           "oim_tpu_torch.parallel")
 
 
 def test_runtime_imports_stay_out():
@@ -154,11 +161,19 @@ def test_engine_without_device_needs_a_gpu():
 def test_serve_main_without_device_needs_a_gpu():
     from oim_tpu_torch.cli import serve_main
 
+    from oim_tpu_torch.common import events
+
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve_main.main(["--vocab-size", "31", "--d-model", "32",
-                         "--n-layers", "1", "--n-heads", "2", "--port", "0"])
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve_main.main(["--vocab-size", "31", "--d-model", "32",
+                             "--n-layers", "1", "--n-heads", "2",
+                             "--port", "0"])
+    finally:
+        # main's daemon init installed the crash hook for the process:
+        # later tests in this worker install their own.
+        events.uninstall_crash_hook()
 
 
 def test_train_main_without_device_needs_a_gpu():
