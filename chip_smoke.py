@@ -12,7 +12,7 @@ few steps in the trainer's usual configuration
 forward, dx and dw; every step after the first one CUDA graph replay
 of the whole step, which must be bit-equal to the eager step, and the
 fused AdamW held against the per-tensor update), then checkpoint,
-resume (graphed, and eagerly from a graphed run's checkpoint), export,
+resume by the graphed step and export,
 fine-tune LoRA on the export and serve the merged weights — and check
 what comes back.
 Then the prefix cache and chunked prefill on both cache layouts
@@ -111,7 +111,7 @@ SSE) and ``/v1/chat/completions``; A' (A's weights) over mTLS with
 certificates ``openssl`` makes (good, certless, evil-CA and non-serving
 clients, the CN as the tenant, the weights over https against http);
 the kernel switch's A/B, engine K (the kernels) against P (both
-switches off), K P P K on eight concurrent requests and a lone
+switches off), K then P on eight concurrent requests and a lone
 512-token prompt; a 0.5 s ``/debugz/profile`` capture during four
 streams; the recompile sentinel (silent after warmup, and an unwarmed
 engine armed by hand charged its first dispatch's captures while a
@@ -134,10 +134,19 @@ int8 shapes against their plain versions; Qwen2.5-1.5B at tp=2 as two
 gloo ranks sharing the card (eager, 28 layers) against the tp=1 engine
 on the same weights (streams equal or parting at a near tie, every
 rank's buffers bitwise equal, K1/K2 and the collectives once a layer a
-pass); Qwen on a one-rank NCCL mesh with CUDA graphs (the collectives
+pass), then on the same ranks the block I/O leg (``par_io``: a paged
+engine with a host tier and a QoS policy — a prefix demoted and
+promoted, a preemption parked and restored —, held KV and a live slot
+shipped tp=1 → tp=2 and back, a tp=2 round trip bitwise, ``/v1/weights``
+byte-equal to tp=1's, the ranks loading tp=1's stream as a peer into
+their drawn shards bitwise, embed and a beam while streams decode; tier
+and ship counters equal to tp=1's, K1/K2 at 6 / 1 heads counted on every
+rank); Qwen on a one-rank NCCL mesh with CUDA graphs (the collectives
 captured and counted by replay; streams equal to the engine with no
-mesh); Mixtral-8x7B's widths at tp2·ep2 as four gloo ranks (int8, 8
-layers; teacher-forced with the ranks' own expert choices); and
+mesh; the host tier, parking and a round trip too, an admission wave
+and a decode chunk eager = replay); Mixtral-8x7B's widths at tp2·ep2 as
+four gloo ranks (int8, 4 layers; teacher-forced with the ranks' own
+expert choices); and
 ``serve_main --bootstrap`` on a file staging ``/dev/nvidia0`` beside
 ``--tp 2`` refused on the one card.  The full smoke runs it after the
 HTTP phase.
@@ -2059,7 +2068,7 @@ def teacher_check(engine, checked, tag: str, routing=None,
     return [n_flips, n_choices]
 
 
-def class_times(engine, bucket: int, runs: int = 5) -> dict:
+def class_times(engine, bucket: int, runs: int = 2) -> dict:
     """Device time of one replay of each admission graph at ``bucket``,
     by row class, on inert rows (the sentinel table: every product runs,
     attention reads and writes nothing, so a row's time here is a lower
@@ -4426,13 +4435,34 @@ def http_observed(servers, rids: dict) -> dict:
                   f"http observe {name}: rid {rid} "
                   f"{ring.get(rid, {}).get('outcome')} not {outcome}")
             found += 1
+        # The snapshot reads the clock twice over: ``ts`` and each prefix
+        # digest's ``age_s`` (rounded to 0.1 s).  So the HTTP read is
+        # bracketed by two direct ones: every other key equals both, and
+        # each clock reading lies between theirs.
+        before = dict(engine.load(), pool=server.pool)
         info = http_call(port, "/v1/info")[2]
-        load = dict(engine.load(), pool=server.pool)
-        check({k: v for k, v in info["load"].items() if k != "ts"}
-              == {k: v for k, v in load.items() if k != "ts"}
-              and info["pool"] == server.pool,
-              f"http observe {name}: /v1/info's load is not load() + pool")
+        after = dict(engine.load(), pool=server.pool)
+        fixed = [clockless(s) for s in (before, info["load"], after)]
+        diff = sorted(k for k in fixed[1][0]
+                      if fixed[1][0][k] != fixed[0][0].get(k))
+        check(fixed[0][0] == fixed[1][0] == fixed[2][0]
+              and info["pool"] == server.pool
+              and all(lo <= mid <= hi for lo, mid, hi in zip(
+                  fixed[0][1], fixed[1][1], fixed[2][1])),
+              f"http observe {name}: /v1/info's load is not load() + pool "
+              f"(keys {diff} differ; clocks {fixed[0][1]} <= "
+              f"{fixed[1][1]} <= {fixed[2][1]} expected)")
     return {"ring_checked": found}
+
+
+def clockless(load: dict) -> tuple[dict, list]:
+    """A load snapshot split into what is not a clock reading and its
+    clock readings in order: ``ts``, then each digest's ``age_s``."""
+    digests = [{k: v for k, v in d.items() if k != "age_s"}
+               for d in load["prefix_digests"]]
+    clocks = [load["ts"]] + [d["age_s"] for d in load["prefix_digests"]]
+    return dict({k: v for k, v in load.items() if k != "ts"},
+                prefix_digests=digests), clocks
 
 
 def http_phase() -> dict:
@@ -4892,8 +4922,7 @@ def front_traffic(port: int, seed: int) -> tuple[list, list]:
 def front_switch_leg(servers: dict, engines: dict) -> dict:
     """Engine K (the defaults: the kernels) and engine P (both switches
     off), one weights copy, both graphed at depth 2, serve the same eight
-    concurrent requests and a lone 512-token prompt in the order K P P
-    K.  Gates: K's K1/K2 launches by route are its layers x passes, P
+    concurrent requests and a lone 512-token prompt, K then P.  Gates: K's K1/K2 launches by route are its layers x passes, P
     launches neither and runs the plain versions as many times, every
     dispatch of both a replay, the greedy tokens equal or parting at a
     near tie (``kv_gate`` on the returned inputs, after the census),
@@ -4903,7 +4932,7 @@ def front_switch_leg(servers: dict, engines: dict) -> dict:
 
     runs, tokens = [], {}
     totals = {name: dict.fromkeys(pa.counters(), 0) for name in "KP"}
-    for name in "KPPK":
+    for name in "KP":
         engine = engines[name]
         s0 = engine.stats()
         pa.reset_counters()
@@ -4951,7 +4980,7 @@ def front_switch_leg(servers: dict, engines: dict) -> dict:
             for n in "KP"}
     ttft = {n: [r["lone_512_ttft_ms"] for r in runs if r["engine"] == n]
             for n in "KP"}
-    print("front switch: K P P K decode "
+    print("front switch: K P decode "
           + ", ".join(f"{r['decode_tok_s']:.1f}" for r in runs)
           + " tok/s, lone-512 TTFT "
           + ", ".join(f"{r['lone_512_ttft_ms']:.1f}" for r in runs)
@@ -5312,7 +5341,7 @@ def front_phase() -> dict:
     tokenizer, A' over mTLS, engine P with both kernel switches off and
     a mixed engine, all on one copy of A's weights, and ``serve_main``
     as its own process.  Legs: text and the OpenAI surfaces, mTLS, the
-    kernel switch's A/B (K = A, P; K P P K), an on-demand profile, the
+    kernel switch's A/B (K = A, then P), an on-demand profile, the
     recompile sentinel, the mixed engine, the daemon's init.  Path
     gates: K1/K2 launched by route as A's and A''s passes and
     dispatches say with no plain call, the plain versions only on P and
@@ -6191,17 +6220,12 @@ def train_phase(record: dict) -> dict:
 
 def train_twice(args, steps: int = 3) -> None:
     """The training configuration from its seed-0 masters on its first
-    ``steps`` batches, three times through ``make_train_step``: eagerly,
-    graphed (an eager first step, the capture, replays) and eagerly with
-    the per-tensor AdamW.  Graphed and eager must be bit-equal (losses,
-    ce, every parameter and both moments): the replay runs the eager
-    step's kernels on the same inputs.  The per-tensor update's losses
-    and largest parameter difference from the fused update's are
-    printed, not gated: from the second step on they carry the bf16
-    forward's amplification of the updates' last-bit differences
-    (``adamw_phase`` holds the updates themselves to each other on the
-    same gradients).  One state besides the eager one exists at a
-    time."""
+    ``steps`` batches, twice through ``make_train_step``: eagerly and
+    graphed (an eager first step, the capture, replays).  They must be
+    bit-equal (losses, ce, every parameter and both moments): the replay
+    runs the eager step's kernels on the same inputs.  The per-tensor
+    AdamW is ``adamw_phase``'s, which holds the updates themselves to
+    each other on the same gradients."""
     from oim_tpu_torch.cli import train_main
     from oim_tpu_torch.data.loader import TokenBatches
     from oim_tpu_torch.models.train import (
@@ -6218,11 +6242,10 @@ def train_twice(args, steps: int = 3) -> None:
     batches = [torch.from_numpy(corpus.batch_at(i)[:, :args.seq]).long()
                .to(DEV) for i in range(steps)]
     runs, ref = {}, None
-    for name, kind, graphed in (("eager", "fused", False),
-                                ("graphed", "fused", True),
-                                ("per_tensor", "per_tensor", False)):
+    for name, graphed in (("eager", False), ("graphed", True)):
         state = TrainState.create(
-            init_params(args.seed, cfg, device=DEV, master=True), opt, kind)
+            init_params(args.seed, cfg, device=DEV, master=True), opt,
+            "fused")
         step = make_train_step(cfg, cuda_graph=graphed)
         metrics = [step(state, tokens)[1] for tokens in batches]
         runs[name] = {"loss": [float(m["loss"]) for m in metrics],
@@ -6247,20 +6270,14 @@ def train_twice(args, steps: int = 3) -> None:
         torch.cuda.empty_cache()
     del ref
     torch.cuda.empty_cache()
-    eager, graphed, per_tensor = (runs[k] for k in ("eager", "graphed",
-                                                    "per_tensor"))
-    rel = max(abs(a - b) / abs(b) for a, b in zip(per_tensor["loss"],
-                                                  eager["loss"]))
+    eager, graphed = runs["eager"], runs["graphed"]
     print(f"train_twice: {steps} steps from one seed, eager losses "
           f"{eager['loss']}, graphed {graphed['loss']} (captures "
           f"{graphed['stats']['captures']}, replays "
           f"{graphed['stats']['replays']}); bit-equal: "
           f"{eager['loss'] == graphed['loss'] and not graphed['differ']} "
-          f"(largest parameter difference {graphed['max_abs_diff']:.3e}); "
-          f"per-tensor AdamW losses {per_tensor['loss']} (relative "
-          f"difference from the fused update's at most {rel:.2e}), largest "
-          f"parameter difference {per_tensor['max_abs_diff']:.3e} [{SMI}]",
-          flush=True)
+          f"(largest parameter difference {graphed['max_abs_diff']:.3e}) "
+          f"[{SMI}]", flush=True)
     check(graphed["stats"]["captures"] == 1
           and graphed["stats"]["replays"] == steps - 1,
           f"train_twice: graphed run {graphed['stats']}")
@@ -6605,13 +6622,13 @@ def run_train(argv, cuda_graph: bool = True) -> dict:
 
 def ckpt_lora_phase(work: str) -> dict:
     """Under ``work``: an uninterrupted 5-step run; the same run
-    interrupted after 3 steps (checkpoint every 3) and resumed to 5 twice
-    from that checkpoint, by the graphed step and by the eager one, each
-    of whose steps 4-5 must give the uninterrupted losses bit for bit
-    (every run graphed unless named); the same command again with
-    ``--export-dir``; a LoRA fine-tune on that export with its merged
-    export; the merged weights served through ``serve_main``.  Returns
-    the LoRA run's fused-CE launch counts."""
+    interrupted after 3 steps (checkpoint every 3) and resumed to 5 from
+    that checkpoint by the graphed step with ``--export-dir``, whose
+    steps 4-5 must give the uninterrupted losses bit for bit (the eager
+    step gives the graphed one's bit for bit: ``train_twice``); a LoRA
+    fine-tune on that export with its merged export; the merged weights
+    served through ``serve_main``.  Returns the LoRA run's fused-CE
+    launch counts."""
     from oim_tpu_torch.checkpoint import (
         Checkpointer,
         directory_bytes,
@@ -6635,32 +6652,26 @@ def ckpt_lora_phase(work: str) -> dict:
     t0 = time.monotonic()
     first = run_train(ckpt_args(3, "--checkpoint-dir", base,
                                 "--save-every", "3"))
-    eager = run_train(ckpt_args(5, "--checkpoint-dir", base,
-                                "--save-every", "3"), cuda_graph=False)
-    # The eager resume saved step 5; resume from step 3 again, graphed.
-    shutil.rmtree(os.path.join(base, "5"))
     resumed = run_train(ckpt_args(5, "--checkpoint-dir", base,
-                                  "--save-every", "3"))
+                                  "--save-every", "3", "--export-dir",
+                                  export))
     steps = Checkpointer(base).all_steps()
-    for name, run in (("graphed", resumed), ("eager", eager)):
-        got = first["losses"] + run["losses"]
-        print(f"ckpt: {CKPT_LAYERS}-layer full-width runs; uninterrupted "
-              f"losses {[round(x, 6) for x in full]}; interrupted at 3 and "
-              f"resumed at {run['start_step']} by the {name} step: "
-              f"{[round(x, 6) for x in got]}; bit-equal: {got == full}; "
-              f"checkpoints on disk {steps} ({time.monotonic() - t0:.1f} s "
-              f"with saves)", flush=True)
-        check(run["start_step"] == 3 and len(got) == 5, "resume cursor")
-        check(bool(np.allclose(got, full, rtol=RESUME_RTOL, atol=0)),
-              f"{name} resumed losses {got} differ from uninterrupted {full}")
-        check(got == full, f"{name} resumed losses {got} are not the "
-              f"uninterrupted run's {full} bit for bit")
-    check(resumed["graph"]["replays"] == 1 and not eager["graph"]["graphed"],
-          f"resumed runs' graphs: {resumed['graph']}, {eager['graph']}")
+    got = first["losses"] + resumed["losses"]
+    print(f"ckpt: {CKPT_LAYERS}-layer full-width runs; uninterrupted "
+          f"losses {[round(x, 6) for x in full]}; interrupted at 3 and "
+          f"resumed at {resumed['start_step']} by the graphed step: "
+          f"{[round(x, 6) for x in got]}; bit-equal: {got == full}; "
+          f"checkpoints on disk {steps} ({time.monotonic() - t0:.1f} s "
+          f"with saves and the export)", flush=True)
+    check(resumed["start_step"] == 3 and len(got) == 5, "resume cursor")
+    check(bool(np.allclose(got, full, rtol=RESUME_RTOL, atol=0)),
+          f"resumed losses {got} differ from uninterrupted {full}")
+    check(got == full, f"resumed losses {got} are not the uninterrupted "
+          f"run's {full} bit for bit")
+    check(resumed["graph"]["replays"] == 1,
+          f"the resumed run's graph: {resumed['graph']}")
     check(steps == [3, 5], f"checkpoint steps {steps}")
     base_bytes = directory_bytes(os.path.join(base, "5"))
-    run_train(ckpt_args(5, "--checkpoint-dir", base,
-                        "--save-every", "3", "--export-dir", export))
     check(os.path.isfile(os.path.join(export, "params.pt")), "no export")
     shutil.rmtree(base)  # at most two full checkpoints on disk at once
 
@@ -7040,11 +7051,12 @@ def par_refuses_gloo_graphs(mesh) -> None:
 
 
 def par_rank(rank: int, world: int, store: str, leg: tuple, package: str,
-             dev: str, results) -> None:
+             dev: str, io, results) -> None:
     """One gloo rank of a leg on the shared card (a spawned process):
     its engine on its shard; rank 0 drives the traffic and stops the
     followers, which follow; then every rank times the collectives and
-    reports its buffers' digests."""
+    reports its buffers' digests, and with ``io`` runs the block I/O leg
+    (``par_io_rank``) on the same shard."""
     import traceback
 
     import torch.distributed as dist
@@ -7085,6 +7097,12 @@ def par_rank(rank: int, world: int, store: str, leg: tuple, package: str,
             engine.follow()
         answer["collective_ms"] = par_collective_ms(mesh, fields)
         answer["buffers"] = par_buffers(engine)
+        if io is not None:
+            params = engine.params
+            del engine
+            if DEV == "cuda":
+                release()
+            answer["io"] = par_io_rank(rank, mesh, params, io)
         answer["peak_gib"] = (gib(torch.cuda.max_memory_allocated())
                               if DEV == "cuda" else 0.0)
         dist.destroy_process_group()
@@ -7093,9 +7111,10 @@ def par_rank(rank: int, world: int, store: str, leg: tuple, package: str,
         results.put((rank, {"error": traceback.format_exc()}))
 
 
-def par_spawn(leg: str, package: str) -> list[dict]:
+def par_spawn(leg: str, package: str, io=None) -> list[dict]:
     """A leg's ranks, spawned, on cuda:0 over gloo; their answers by
-    rank.  Every process is joined (killed past its time)."""
+    rank (``io``: the block I/O leg's inputs, ``par_io_rank``).  Every
+    process is joined (killed past its time)."""
     import multiprocessing as mp
 
     _, _, tp, ep = PAR_LEGS[leg]
@@ -7106,7 +7125,7 @@ def par_spawn(leg: str, package: str) -> list[dict]:
     procs = [ctx.Process(target=par_rank, args=(r, world,
                                                 os.path.join(work, "store"),
                                                 PAR_LEGS[leg], package, DEV,
-                                                results),
+                                                io, results),
                          daemon=True) for r in range(world)]
     for p in procs:
         p.start()
@@ -7173,14 +7192,35 @@ def par_leg(leg: str, package: str) -> dict:
     this process (the same weights, drawn whole), then the ranks.
     Streams equal or parting at a near tie (``kv_gate``), every rank's
     buffers bitwise rank 0's, K1/K2 and the collectives once a layer a
-    pass on rank 0."""
+    pass on rank 0.  Qwen's ranks then run the block I/O leg
+    (``par_io_rank``): tp=1 ships them a held request and a live slot
+    first, and serves its weights for their peer load."""
+    from oim_tpu_torch.serve.server import ServeServer
+
     fields, mode, tp, ep = PAR_LEGS[leg]
     reqs, _ = par_requests(fields["vocab_size"])
     t0 = time.monotonic()
     engine, ref = par_ref(fields, mode, graphs=False)
+    io = server = io_engine = None
+    if leg == "qwen_tp2":
+        # The exports come from an engine of their own, so that the one
+        # held to the ranks counts only the traffic they run.
+        source_engine = par_io_engine(engine.params, fields, None,
+                                      graphs=False)
+        io = {"source": par_io_source(source_engine), "fields": fields}
+        del source_engine
+        io_engine = par_io_engine(engine.params, fields, None, graphs=False)
+        server = ServeServer(engine, port=0).start()
+        io["url"] = f"http://127.0.0.1:{server.port}"
     t1 = time.monotonic()
-    ranks = par_spawn(leg, package)
-    t2 = time.monotonic()
+    try:
+        ranks = par_spawn(leg, package, io)
+        t2 = time.monotonic()
+        if server is not None:
+            weights = par_weights_sha(server.port)
+    finally:
+        if server is not None:
+            server.stop()
     lead = ranks[0]
     ref32 = widened(engine.params, engine.cfg)
     if lead["forced"] is None:
@@ -7188,6 +7228,21 @@ def par_leg(leg: str, package: str) -> dict:
                        lead["tokens"])
     else:
         gate = par_teacher(leg, ref32, reqs, ref["tokens"], lead)
+    io_out = None
+    if io is not None:
+        ref_io = par_io_run(io_engine, par_io_steps(
+            io["source"], fields["vocab_size"]))
+        ios = [r["io"] for r in ranks]
+        io_check = par_io_check(ios, io_engine, ref_io, io["source"], ref32,
+                                weights)
+        io_out = par_io_report(ios, ref_io, io_check, weights)
+        io_out["counts"] = ios[0]["counts"]
+        # What the one-rank NCCL mesh's run is held to.
+        io_out["ref"] = {name: ref_io["outputs"][name]
+                         for name in PAR_IO_NCCL}
+        for r in ranks:
+            r.pop("io")
+        del io_engine
     del engine, ref32, lead["forced"]
     if DEV == "cuda":
         release()
@@ -7221,7 +7276,7 @@ def par_leg(leg: str, package: str) -> dict:
           flush=True)
     return {"gate": gate, "tp": lead, "ref": ref, "passes": passes,
             "collective_share": share,
-            "counts": lead["counts"]}
+            "counts": lead["counts"], "io": io_out}
 
 
 def par_teacher(leg: str, ref32, reqs, wants, lead) -> dict:
@@ -7260,12 +7315,15 @@ def par_teacher(leg: str, ref32, reqs, wants, lead) -> dict:
             "worst_lost": worst_lost}
 
 
-def par_nccl_leg() -> dict:
+def par_nccl_leg(io_ref: dict) -> dict:
     """Qwen on a one-rank NCCL mesh with CUDA graphs, in this process:
     the collectives are captured inside every graph, and each replay
     runs them (counted by replay, ``ops/counts.py``).  Held to the
     engine with no mesh: a sum over one rank and a gather of one are
-    copies, so the streams must be the same token for token."""
+    copies, so the streams must be the same token for token.  Then the
+    block I/O leg's host tier, parking and held-KV round trip on the
+    mesh with graphs (``par_nccl_io``), held to ``io_ref``, the tp=1
+    engine's run of the same steps."""
     import torch.distributed as dist
 
     from oim_tpu_torch.parallel import build_mesh
@@ -7300,11 +7358,82 @@ def par_nccl_leg() -> dict:
               f"no mesh; lone-512 TTFT {run['ttft_ms']:.1f} ms against "
               f"{ref['ttft_ms']:.1f} [{SMI}]", flush=True)
         del engine
+        release()
+        io = par_nccl_io(params, mesh, io_ref)
     finally:
         del params
         dist.destroy_process_group()
         release()
-    return {"run": run, "ref": ref}
+    return {"run": run, "ref": ref, "io": io}
+
+
+def par_nccl_io(params, mesh, io_ref: dict, fields: dict = PAR_QWEN) -> dict:
+    """The io engine on the one-rank NCCL mesh with graphs: the host
+    tier, parking and a held-KV round trip (``PAR_IO_NCCL``) give the
+    tp=1 engine's streams and counters exactly, K1/K2 once a layer a
+    pass by replay; then one admission wave and one decode chunk, each
+    run eagerly and by replay from one state, bit-equal
+    (``admit_check``, ``chunk_twice``)."""
+    from oim_tpu_torch.ops import counts as kernel_counts
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    engine = par_io_engine(params, fields, mesh, graphs=True)
+    engine.warmup()
+    sync()
+    kernel_counts.reset_counters()
+    before = engine.stats()
+    t0 = time.monotonic()
+    run = par_io_run(engine, par_io_steps(None, fields["vocab_size"]))
+    wall = time.monotonic() - t0
+    counts = kernel_counts.counters()
+    stats = engine.stats()
+    passes = sum(stats[k] - before[k] for k in ("decode_passes",
+                                                 "prefill_dispatches"))
+    differ = [name for name in PAR_IO_NCCL
+              if name != "stats" and run["outputs"][name] != io_ref[name]]
+    check(not differ, f"parallel nccl io: {differ} differ from the engine "
+          f"with no mesh")
+    tier = run["outputs"]["stats"]
+    check(tier["kv_demotions"] > 0 and tier["kv_promotions"] > 0
+          and tier["kv_parks"] > 0 and tier["kv_unparks"] == tier["kv_parks"],
+          f"parallel nccl io: the tier's routes were not all taken: {tier}")
+    check(run["outputs"]["round_trip"]["bitwise"],
+          "parallel nccl io: the round trip changed the shipped bytes")
+    n_layers = fields["n_layers"]
+    check(counts["paged_flash_decode"] == counts["paged_kv_store"]
+          == n_layers * passes > 0 and not counts["paged_flash_decode_plain"]
+          and not counts["paged_kv_store_plain"]
+          and stats["graph_replays"] > before["graph_replays"],
+          f"parallel nccl io: K1/K2 {counts['paged_flash_decode']}/"
+          f"{counts['paged_kv_store']} for {passes} passes")
+    p = par_io_prompts(fields["vocab_size"])
+    engine.set_pipeline_depth(1)
+    for name, kw in (("d1", {}), ("d2", dict(temperature=0.9, seed=13))):
+        engine.submit(GenRequest(tokens=p[name], max_new_tokens=16, **kw))
+    admit_check(engine, "parallel nccl io", "two prompts on the mesh", 2, 0)
+    engine.step()
+    eager, replayed = engine.chunk_twice()
+    same = all(torch.equal(eager[k], replayed[k])
+               for k in ("out", "lps", "carry")) and all(
+        torch.equal(a, b) for a, b in zip(eager["state"], replayed["state"]))
+    check(same, "parallel nccl io: a decode chunk's replay differs from "
+          "eager on the mesh")
+    engine.run()
+    print(f"parallel nccl io: one NCCL rank, graphs, paged with a host tier "
+          f"and a QoS policy: the host tier, parking and a held-KV round "
+          f"trip give the engine with no mesh's {len(PAR_IO_NCCL) - 1} "
+          f"outputs exactly ({json.dumps(run['outputs']['stats'])}); K1/K2 "
+          f"{counts['paged_flash_decode']} launches for {passes} passes by "
+          f"replay; an admission wave and a decode chunk eager = replay "
+          f"bitwise; {wall:.1f} s [{SMI}]", flush=True)
+    del engine
+    release()
+    return {"stats": run["outputs"]["stats"], "passes": passes,
+            "counts": {k: counts[k] for k in (
+                "paged_flash_decode", "paged_kv_store",
+                "paged_flash_decode_rows8", "paged_flash_decode_tc",
+                "paged_kv_store_t1")},
+            "wall_s": wall}
 
 
 def par_bootstrap_leg(package: str) -> dict:
@@ -7379,16 +7508,67 @@ def par_bootstrap_leg(package: str) -> dict:
     return {"binding": binding.strip(), "tokens": reply["tokens"]}
 
 
+def paged_rank_phase(pa, gen, h: int, kvh: int, tag: str,
+                     suffix: str) -> dict:
+    """K1 and K2 at the block I/O leg's shapes (``PAR_IO_ENGINE``): the
+    paged pool's 16-row blocks behind tables of ``max_len / 16`` entries,
+    two slots, ``h`` query and ``kvh`` kv heads — K1 at decode (contexts
+    299 and 64) and at an admission of two 128-token prompts, K2 at t=1
+    and t=128.  bf16; returns the records, keyed with ``suffix``."""
+    rng = np.random.RandomState(20)
+    n_blocks = 64
+    n_tables = PAR_IO_ENGINE["max_len"] // BS
+    k_pool, v_pool, _, _ = make_pool(gen, n_blocks, False, BS, kvh, HD)
+    positions = [299, 64]
+    tables = torch.from_numpy(np.ascontiguousarray(make_tables(
+        rng, 2, positions, n_blocks)[:, :n_tables])).cuda()
+    starts = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    q = torch.randn((2, 1, h, HD), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    none = slice(0, 0)
+    k1 = k1_phase(f"decode bf16 {tag} B=2 t=1", pa,
+                  (q, k_pool, v_pool, None, None, tables, starts), none,
+                  (1, 2, 4), (0, 256))
+    dk = torch.randn((2, 1, kvh, HD), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    k2d = k2_phase(f"bf16 {tag} B=2 t=1", pa, dk, dk.clone(),
+                   [k_pool.clone(), v_pool.clone()], [None, None], tables,
+                   starts)
+    t, pstarts = 128, [37, 200]
+    ptables = torch.from_numpy(np.ascontiguousarray(make_tables(
+        rng, 2, [p + t - 1 for p in pstarts], n_blocks)[:, :n_tables])).cuda()
+    pst = torch.tensor(pstarts, dtype=torch.int32, device="cuda")
+    k_new, v_new = (torch.randn((2, t, kvh, HD), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+    qp = torch.randn((2, t, h, HD), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    pools = [k_pool.clone(), v_pool.clone()]
+    k2 = k2_phase(f"bf16 {tag} B=2 t={t}", pa, k_new, v_new, pools,
+                  [None, None], ptables, pst)
+    k1t = k1_phase(f"prefill bf16 {tag} B=2 t={t}", pa,
+                   (qp, *pools, None, None, ptables, pst), none,
+                   PREFILL_SPLITS, (0, 256))
+    del k_pool, v_pool, pools
+    torch.cuda.empty_cache()
+    return {"K1" + suffix: k1, "K1t" + suffix: k1t, "K2" + suffix: k2,
+            "K2d" + suffix: k2d}
+
+
 def par_kernel_phase() -> dict:
     """K1/K2 at the ranks' head counts (Qwen tp=2: 6 q and 1 kv head;
-    Mixtral tp2·ep2: 16 and 4) on the dense cache's shapes, and
-    ``quant_matmul`` at the tp2·ep2 ranks' int8 shapes."""
+    Mixtral tp2·ep2: 16 and 4) on the dense cache's shapes, Qwen's on
+    the block I/O leg's paged shapes too, and ``quant_matmul`` at the
+    tp2·ep2 ranks' int8 shapes."""
     from oim_tpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device="cuda").manual_seed(19)
     record = dense_kernel_phase(pa, gen, H // 2, KVH // 2,
                                 f"dense tp=2 rank H={H // 2} KVH={KVH // 2}",
                                 "_tp")
+    record.update(paged_rank_phase(
+        pa, gen, H // 2, KVH // 2,
+        f"paged tp=2 rank H={H // 2} KVH={KVH // 2}", "_tpio"))
     record.update(dense_kernel_phase(
         pa, gen, MOE_H // 2, MOE_KVH // 2,
         f"dense tp2·ep2 rank H={MOE_H // 2} KVH={MOE_KVH // 2}", "_tpmoe"))
@@ -7398,6 +7578,512 @@ def par_kernel_phase() -> dict:
             f"tp2·ep2 rank int8 {names} {list(shape)} x {QMM_ROWS} rows",
             gen, "int8", shape, QMM_ROWS, names == "w_out", out)
     return record
+
+
+# The block I/O leg (``par_io``): Qwen at tp=2 on the paged pool of
+# 16-row blocks with a host tier and a QoS policy, two slots so that a
+# premium arrival preempts.  12 pool blocks: two 64-token prompts' worst
+# cases (5 blocks each) do not fit beside a stored 4-block prefix entry,
+# which is therefore demoted, then promoted by a hit; two best-effort
+# streams of 16 tokens fill both slots, and a premium arrival parks
+# one.  The tier holds 16 whole blocks (over all the model's kv heads:
+# each rank pins its half).  Serial decode (depth 1): a step of at most
+# 8 tokens is one chunk, none dispatched ahead past a request's end (a
+# gloo pass takes ~0.15 s at 28 layers); the CPU tests hold depth 2
+# under a mesh.
+PAR_IO_ENGINE = dict(n_slots=2, max_len=512, chunk=8,
+                     prompt_buckets=(64, 128), kv_block=16, kv_blocks=12,
+                     prefix_cache_size=2, pipeline_depth=1)
+PAR_IO_HOST_BLOCKS = 16
+PAR_IO_POLICY = ('{"tenants": {"user.gold": {"tier": "premium"}, '
+                 '"user.lead": {"tier": "best_effort"}}}')
+PAR_IO_KEYS = ("kv_demotions", "kv_promotions", "kv_parks", "kv_unparks",
+               "kv_demote_bytes", "kv_promote_bytes", "prefix_demotions",
+               "prefix_evictions", "prefix_hits", "kv_host_blocks_total",
+               "qos_preemptions", "kv_exports", "kv_imports",
+               "kv_ship_bytes", "slot_exports", "slot_imports",
+               "migrated_slots", "kv_holds", "kv_imports_staged")
+
+
+def par_io_prompts(vocab: int) -> dict:
+    """The leg's prompts, from a fixed seed."""
+    rng = np.random.RandomState(20)
+    out = {name: rng.randint(0, vocab, n).tolist() for name, n in (
+        ("entry", 64), ("p1", 64), ("p2", 64), ("tail", 16),
+        ("lead1", 64), ("lead2", 64), ("gold", 64), ("held", 64),
+        ("trip", 64), ("slot", 64), ("beam", 32), ("embed", 48),
+        ("d1", 64), ("d2", 32))}
+    out["hit"] = out["entry"] + out["tail"]
+    return out
+
+
+def par_io_source(engine) -> dict:
+    """What tp=1 ships to the ranks: a held request's (tokens, manifest,
+    arrays) and a live sampled slot's (manifest, arrays)."""
+    p = par_io_prompts(engine.cfg.vocab_size)
+    return {"held": par_io_ops["hold"](engine, dict(tokens=p["held"],
+                                                     max_new_tokens=4)),
+            "slot": par_io_ops["suspend"](engine, PAR_IO_SLOT | dict(
+                tokens=p["slot"]), 4)}
+
+
+PAR_IO_SLOT = dict(max_new_tokens=16, temperature=0.7, seed=21)
+# The embedding against tp=1's: the largest difference and the cosine.
+PAR_IO_EMBED_ATOL = 2.5e-3
+PAR_IO_EMBED_COS = 0.9995
+
+
+# The steps the one-rank NCCL mesh runs with graphs.
+PAR_IO_NCCL = ("store", "pressure", "hit", "qos", "round_trip", "stats")
+
+
+def par_io_steps(source: dict, vocab: int) -> list:
+    """(name, op, args) of the leg's traffic, the same on tp=2 and on
+    tp=1: the host tier (store, pressure → demotion, hit → promotion), a
+    QoS preemption (park and restore), held KV and a slot from ``source``
+    imported and continued, a held export, a round trip, a slot
+    suspended, embed, a beam while two streams decode.  With no ``source``, the steps of ``PAR_IO_NCCL``."""
+    p = par_io_prompts(vocab)
+    lead = dict(max_new_tokens=16, tenant="user.lead")
+    if source is None:
+        source = {"held": ([], {}, []), "slot": ({"tokens": []}, [])}
+    held_tokens = source["held"][0]
+    slot_prior = len(source["slot"][0]["tokens"])
+    steps = [
+        ("store", "gen", ([dict(tokens=p["entry"], max_new_tokens=2,
+                                cache_prefix=True)],)),
+        ("pressure", "gen", ([dict(tokens=p["p1"], max_new_tokens=8),
+                              dict(tokens=p["p2"], max_new_tokens=8)],)),
+        ("hit", "gen", ([dict(tokens=p["hit"], max_new_tokens=8)],)),
+        ("qos", "late", ([dict(lead, tokens=p["lead1"], seed=7),
+                          dict(lead, tokens=p["lead2"], seed=9,
+                               temperature=0.8)], 1,
+                         [dict(tokens=p["gold"], max_new_tokens=8,
+                               tenant="user.gold")])),
+        ("import_held", "import_kv", (*source["held"][1:], dict(
+            tokens=p["held"] + held_tokens, max_new_tokens=4))),
+        ("hold", "hold", (dict(tokens=p["held"], max_new_tokens=4),)),
+        ("round_trip", "round_trip", (dict(tokens=p["trip"],
+                                           max_new_tokens=4),)),
+        ("suspend", "suspend", (PAR_IO_SLOT | dict(tokens=p["slot"]), 4)),
+        ("import_slot", "import_slot", (*source["slot"], dict(
+            PAR_IO_SLOT, max_new_tokens=PAR_IO_SLOT["max_new_tokens"]
+            - slot_prior))),
+        ("embed", "embed", (p["embed"],)),
+        ("beam_during", "beam_during", (
+            [dict(tokens=p["d1"], max_new_tokens=8),
+             dict(tokens=p["d2"], max_new_tokens=8, temperature=0.9,
+                  seed=13)], (p["beam"], 8, 2))),
+        ("stats", "stats", ()),
+    ]
+    if not held_tokens:
+        return [step for step in steps if step[0] in PAR_IO_NCCL]
+    return steps
+
+
+def _io_gen(engine, requests: list) -> list:
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    rids = [engine.submit(GenRequest(**r)) for r in requests]
+    engine.run()
+    return [list(engine.result(rid, timeout=0)) for rid in rids]
+
+
+def _io_late(engine, early: list, steps: int, late: list) -> list:
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    rids = [engine.submit(GenRequest(**r)) for r in early]
+    for _ in range(steps):
+        engine.step()
+    rids += [engine.submit(GenRequest(**r)) for r in late]
+    engine.run()
+    return [list(engine.result(rid, timeout=0)) for rid in rids]
+
+
+def _io_hold(engine, request: dict) -> tuple:
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    rid = engine.submit(GenRequest(**request, hold_kv=True))
+    engine.run()
+    tokens = list(engine.result(rid, timeout=0))
+    t0 = time.monotonic()
+    manifest, arrays = engine.export_kv(rid)
+    engine._io_walls.append(("export", time.monotonic() - t0,
+                             sum(a.nbytes for a in arrays)))
+    engine.release_kv_hold(rid)
+    return tokens, manifest, [a.cpu() for a in arrays]
+
+
+def _io_import(engine, manifest: dict, arrays: list) -> int:
+    names = [leaf["name"] for leaf in manifest["leaves"]]
+    t0 = time.monotonic()
+    import_id, _ = engine.import_kv(manifest, dict(zip(names, arrays)))
+    engine._io_walls.append(("import", time.monotonic() - t0,
+                             sum(a.nbytes for a in arrays)))
+    return import_id
+
+
+def _io_import_kv(engine, manifest, arrays, request) -> list:
+    import_id = _io_import(engine, manifest, arrays)
+    return _io_gen(engine, [dict(request, kv_import=import_id)])[0]
+
+
+def _io_round_trip(engine, request: dict) -> dict:
+    """Held, exported (E1), imported and continued by one token under a
+    hold, exported again (E2): whether E2's first rows are E1's bytes."""
+    tokens, manifest, arrays = _io_hold(engine, request)
+    import_id = _io_import(engine, manifest, arrays)
+    _, again, arrays2 = _io_hold(engine, dict(
+        request, tokens=request["tokens"] + tokens, max_new_tokens=1,
+        kv_import=import_id))
+    rows = manifest["rows"]
+
+    def head(a):
+        return a.reshape(a.shape[0], -1, *a.shape[3:])[:, :rows]
+
+    same = all(torch.equal(head(a).view(torch.uint8),
+                           head(b).view(torch.uint8))
+               for a, b in zip(arrays, arrays2))
+    return {"bitwise": same, "rows": rows, "rows_again": again["rows"]}
+
+
+def _io_suspend(engine, request: dict, min_tokens: int) -> tuple:
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    rid = engine.submit(GenRequest(**request))
+    base = engine.stats()["tokens_generated"]
+    for _ in range(40):
+        engine.step()
+        if engine.stats()["tokens_generated"] - base >= min_tokens:
+            break
+    engine.begin_migrate_out()
+    engine.run()
+    manifest, arrays = engine.export_slot(rid)
+    engine.release_migrated(rid)
+    engine._draining = engine._migrate_out = False
+    return manifest, [a.cpu() for a in arrays]
+
+
+def _io_import_slot(engine, manifest, arrays, request) -> list:
+    names = [leaf["name"] for leaf in manifest["leaves"]]
+    import_id, _, slot = engine.import_slot(manifest, dict(zip(names,
+                                                               arrays)))
+    tokens = list(manifest["prompt_tokens"]) + list(manifest["tokens"])
+    return _io_gen(engine, [dict(request, tokens=tokens, kv_import=import_id,
+                                 sample_base=slot["sample_base"])])[0]
+
+
+def _io_beam_during(engine, requests: list, beam: tuple) -> dict:
+    """A beam search while ``requests`` decode on a step thread: the
+    streams, the beam, and how long the beam held the step loop (its
+    wall: the dispatches wait for the whole search)."""
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    rids = [engine.submit(GenRequest(**r)) for r in requests]
+    stepper = threading.Thread(target=engine.run)
+    stepper.start()
+    try:
+        t0 = time.monotonic()
+        found = engine.beam(*beam)
+        wall = time.monotonic() - t0
+    finally:
+        stepper.join()
+    return {"streams": [list(engine.result(rid, timeout=0)) for rid in rids],
+            "beam": found, "beam_s": wall}
+
+
+par_io_ops = {
+    "gen": _io_gen, "late": _io_late, "hold": _io_hold,
+    "import_kv": _io_import_kv, "round_trip": _io_round_trip,
+    "suspend": _io_suspend, "import_slot": _io_import_slot,
+    "embed": lambda e, tokens: e.embed(tokens),
+    "beam_during": _io_beam_during,
+    "stats": lambda e: {k: e.stats()[k] for k in PAR_IO_KEYS},
+}
+
+
+def par_io_engine(params, fields: dict, mesh, graphs: bool):
+    """The leg's engine over ``params`` of model ``fields``: a host tier
+    of ``PAR_IO_HOST_BLOCKS`` whole blocks (every kv head's bytes)."""
+    from oim_tpu_torch.models.transformer import TransformerConfig
+    from oim_tpu_torch.qos.policy import decode_policy
+    from oim_tpu_torch.serve.engine import Engine
+
+    cfg = TransformerConfig(**fields)
+    block = (2 * cfg.n_layers * cfg.kv_heads * cfg.head_dim
+             * cfg.compute_dtype.itemsize * PAR_IO_ENGINE["kv_block"])
+    engine = Engine(params, cfg, mesh=mesh, cuda_graphs=graphs,
+                    qos=decode_policy(PAR_IO_POLICY),
+                    device=None if mesh is not None else DEV,
+                    kv_host_bytes=PAR_IO_HOST_BLOCKS * block,
+                    **PAR_IO_ENGINE)
+    engine._io_walls = []
+    return engine
+
+
+def par_io_run(engine, steps: list) -> dict:
+    """``steps`` on ``engine`` (a mesh's leader, or one device): each
+    step's output and wall by name, the export/import walls, and the
+    tier's promote/demote rates from its counters."""
+    out, walls = {}, {}
+    for name, op, args in steps:
+        t0 = time.monotonic()
+        out[name] = par_io_ops[op](engine, *args)
+        sync()
+        walls[name] = time.monotonic() - t0
+    stats = engine.stats()
+    return {"outputs": out, "walls": walls, "ship": engine._io_walls,
+            "tier": {k: stats[k] for k in (
+                "kv_demote_bytes", "kv_demote_seconds", "kv_promote_bytes",
+                "kv_promote_seconds")}}
+
+
+def par_weights_sha(port: int) -> dict:
+    """SHA-256 of ``GET /v1/weights`` read in 8 MiB pieces (never held
+    whole), with its bytes and wall."""
+    import hashlib
+
+    sha, n = hashlib.sha256(), 0
+    t0 = time.monotonic()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/weights",
+                                timeout=600) as resp:
+        while True:
+            piece = resp.read(8 << 20)
+            if not piece:
+                break
+            sha.update(piece)
+            n += len(piece)
+    return {"sha": sha.hexdigest(), "bytes": n,
+            "s": time.monotonic() - t0}
+
+
+def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors hold the same dtype, shape and bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def par_io_rank(rank: int, mesh, params, io: dict) -> dict:
+    """One rank's block I/O leg (``par_io``) on its shard ``params``: the
+    io engine (eager over gloo); rank 0 runs ``par_io_steps`` and serves
+    ``/v1/weights`` once while the others follow; then every rank loads
+    the tp=1 peer's stream (``load_params_from_peer`` on the mesh, what
+    ``serve_main --params-peer`` runs) and holds it to its drawn shard
+    bitwise.  Every rank's K1/K2 launches and buffers come back."""
+    from oim_tpu_torch.checkpoint import load_params_from_peer
+    from oim_tpu_torch.models.transformer import TransformerConfig
+    from oim_tpu_torch.models.train import named_parameters
+    from oim_tpu_torch.ops import counts as kernel_counts
+    from oim_tpu_torch.serve.server import ServeServer
+
+    fields = io["fields"]
+    engine = par_io_engine(params, fields, mesh, graphs=False)
+    sync()
+    kernel_counts.reset_counters()
+    before = engine.stats()
+    answer = {}
+    if rank == 0:
+        t0 = time.monotonic()
+        try:
+            answer = par_io_run(engine, par_io_steps(
+                io["source"], fields["vocab_size"]))
+            counts = kernel_counts.counters()
+            stats = engine.stats()
+            answer["passes"] = sum(stats[k] - before[k] for k in (
+                "decode_passes", "prefill_dispatches"))
+            server = ServeServer(engine, port=0).start()
+            try:
+                answer["weights"] = par_weights_sha(server.port)
+            finally:
+                server.stop()
+        finally:
+            engine.stop_followers()
+        answer["wall_s"] = time.monotonic() - t0
+    else:
+        engine.follow()
+        counts = kernel_counts.counters()
+    answer["counts"] = {k: counts[k] for k in (
+        "paged_flash_decode", "paged_kv_store", "paged_flash_decode_plain",
+        "paged_kv_store_plain", "paged_flash_decode_rows8",
+        "paged_flash_decode_tc", "paged_kv_store_t1")}
+    answer["buffers"] = par_buffers(engine)
+    del engine
+    if DEV == "cuda":
+        release()
+    t0 = time.monotonic()
+    loaded = load_params_from_peer(io["url"], TransformerConfig(**fields),
+                                   mesh.device, mesh=mesh)
+    sync()
+    answer["peer_s"] = time.monotonic() - t0
+    drawn = dict(named_parameters(params))
+    answer["peer_bad"] = [name for name, t in named_parameters(loaded)
+                          if not same_bytes(t, drawn[name])]
+    answer["peer_tensors"] = len(drawn)
+    del loaded
+    if DEV == "cuda":
+        release()
+    return answer
+
+
+def par_io_check(ios: list, ref_engine, ref_io: dict, source: dict,
+                 ref32, weights: dict) -> dict:
+    """The block I/O leg (``ios``: every rank's answer) against tp=1 on
+    the same traffic: every stream equal or parting at a near tie
+    (``kv_gate``) — shipped continuations as whole streams against tp=1's
+    unbroken runs, tp=2's held KV and slot continued on tp=1 too —, tier
+    and ship counters equal, the round trip bitwise, every rank's buffers
+    rank 0's, K1 and K2 once a layer a pass on every rank with no plain
+    call, beam and embed close to tp=1's, the weights stream byte-equal,
+    and the peer's stream loaded into every rank's drawn shard bitwise."""
+    lead = ios[0]
+    got, want = lead["outputs"], ref_io["outputs"]
+    vocab = ref_engine.cfg.vocab_size
+    p = par_io_prompts(vocab)
+    steps = {name: args for name, _, args in par_io_steps(source, vocab)}
+    reqs, wants, gots = [], [], []
+    for name in ("store", "pressure", "hit", "qos"):
+        args = steps[name]
+        for r, w, g in zip(args[0] + (args[2] if name == "qos" else []),
+                           want[name], got[name]):
+            reqs.append(r)
+            wants.append(w)
+            gots.append(g)
+    for r, w, g in zip(steps["beam_during"][0],
+                       want["beam_during"]["streams"],
+                       got["beam_during"]["streams"]):
+        reqs.append(r)
+        wants.append(w)
+        gots.append(g)
+    held = dict(tokens=p["held"], max_new_tokens=8)
+    slot = PAR_IO_SLOT | dict(tokens=p["slot"])
+    unbroken = par_io_ops["gen"](ref_engine, [held, slot])
+    tokens, manifest, arrays = got["hold"]
+    back = tokens + par_io_ops["import_kv"](ref_engine, manifest, arrays, dict(
+        tokens=p["held"] + tokens, max_new_tokens=4))
+    slot_m, slot_a = got["suspend"]
+    slot_back = slot_m["tokens"] + par_io_ops["import_slot"](
+        ref_engine, slot_m, slot_a, dict(
+            PAR_IO_SLOT, max_new_tokens=PAR_IO_SLOT["max_new_tokens"]
+            - len(slot_m["tokens"])))
+    for r, w, g in (
+            (held, unbroken[0], source["held"][0] + got["import_held"]),
+            (slot, unbroken[1], source["slot"][0]["tokens"]
+             + got["import_slot"]),
+            (held, unbroken[0], back), (slot, unbroken[1], slot_back)):
+        reqs.append(r)
+        wants.append(w)
+        gots.append(g)
+    gate = kv_gate(ref32, "parallel io", reqs, wants, gots)
+    check(got["stats"] == want["stats"],
+          f"parallel io: tier and ship counters {got['stats']} differ from "
+          f"tp=1's {want['stats']}")
+    stats = got["stats"]
+    check(stats["kv_demotions"] > 0 and stats["kv_promotions"] > 0
+          and stats["kv_parks"] > 0 and stats["kv_unparks"] == stats[
+              "kv_parks"] and stats["qos_preemptions"] > 0,
+          f"parallel io: the tier's routes were not all taken: {stats}")
+    check(got["round_trip"]["bitwise"],
+          "parallel io: a tp=2 round trip changed the shipped bytes")
+    hm, wm = manifest, want["hold"][1]
+    check([(leaf["name"], leaf["dtype"], leaf["shape"]) for leaf in
+           hm["leaves"]] == [(leaf["name"], leaf["dtype"], leaf["shape"])
+                             for leaf in wm["leaves"]]
+          and hm["rows"] == wm["rows"],
+          f"parallel io: tp=2's held manifest {hm} is not tp=1's {wm}")
+    bad = [(r, name) for r, io in enumerate(ios[1:], 1)
+           for name, dg in io["buffers"].items()
+           if dg != lead["buffers"][name]]
+    check(not bad, f"parallel io: buffers differ from rank 0's: {bad}")
+    n_layers = ref_engine.cfg.n_layers
+    for r, io in enumerate(ios):
+        c = io["counts"]
+        if DEV == "cuda":
+            check(c["paged_flash_decode"] == c["paged_kv_store"]
+                  == n_layers * lead["passes"] > 0
+                  and not c["paged_flash_decode_plain"]
+                  and not c["paged_kv_store_plain"],
+                  f"parallel io: rank {r}'s K1/K2 launches {c} are not "
+                  f"{n_layers} x {lead['passes']} passes with no plain call")
+        check(not io["peer_bad"],
+              f"parallel io: rank {r}'s peer-loaded shard differs from its "
+              f"drawn one at {io['peer_bad'][:4]}")
+    beam, ref_beam = got["beam_during"]["beam"], want["beam_during"]["beam"]
+    check(abs(beam[1] - ref_beam[1]) <= 0.05,
+          f"parallel io: beam score {beam[1]} against tp=1's {ref_beam[1]}")
+    vec, ref_vec = np.asarray(got["embed"]), np.asarray(want["embed"])
+    emb = float(np.max(np.abs(vec - ref_vec)))
+    cos = float(vec @ ref_vec / (np.linalg.norm(vec)
+                                 * np.linalg.norm(ref_vec)))
+    # A unit vector of d_model values (~0.026 each at Qwen's 1536): a
+    # misplaced shard moves every value by about that much; bf16 tp=2
+    # against tp=1 moved the largest by 8e-4 in four runs.
+    check(emb <= PAR_IO_EMBED_ATOL and cos >= PAR_IO_EMBED_COS,
+          f"parallel io: embed differs from tp=1's by {emb} (cosine "
+          f"{cos}; bounds {PAR_IO_EMBED_ATOL}, {PAR_IO_EMBED_COS})")
+    check(lead["weights"]["sha"] == weights["sha"]
+          and lead["weights"]["bytes"] == weights["bytes"],
+          "parallel io: the tp=2 /v1/weights stream differs from tp=1's")
+    return {"gate": gate, "stats": stats, "embed_err": emb,
+            "embed_cos": cos, "beam_equal": beam[0] == ref_beam[0]}
+
+
+def par_io_report(ios: list, ref_io: dict, check_out: dict,
+                  weights: dict) -> dict:
+    """The leg's line: rates and walls beside tp=1's."""
+    lead = ios[0]
+    mb = 1e6
+
+    def per_mb(io, kind):
+        rows = [(s, n) for k, s, n in io["ship"] if k == kind]
+        return (sum(s for s, _ in rows) * 1e3 / (sum(n for _, n in rows) / mb)
+                if rows else float("nan"))
+
+    def tier_gbs(io, kind, share):
+        t = io["tier"]
+        sec = t[f"kv_{kind}_seconds"]
+        return t[f"kv_{kind}_bytes"] * share / sec / 1e9 if sec else 0.0
+
+    gbs = lead["weights"]["bytes"] / lead["weights"]["s"] / 1e9
+    ref_gbs = weights["bytes"] / weights["s"] / 1e9
+    out = {
+        "promote_gbs_rank": tier_gbs(lead, "promote", 0.5),
+        "demote_gbs_rank": tier_gbs(lead, "demote", 0.5),
+        "promote_gbs_tp1": tier_gbs(ref_io, "promote", 1.0),
+        "demote_gbs_tp1": tier_gbs(ref_io, "demote", 1.0),
+        "export_ms_per_mb": per_mb(lead, "export"),
+        "import_ms_per_mb": per_mb(lead, "import"),
+        "export_ms_per_mb_tp1": per_mb(ref_io, "export"),
+        "import_ms_per_mb_tp1": per_mb(ref_io, "import"),
+        "weights_gbs": gbs, "weights_gbs_tp1": ref_gbs,
+        "peer_s": [io["peer_s"] for io in ios],
+        "beam_pause_s": lead["outputs"]["beam_during"]["beam_s"],
+        "beam_pause_s_tp1": ref_io["outputs"]["beam_during"]["beam_s"],
+        "walls": lead["walls"], "walls_tp1": ref_io["walls"],
+        "wall_s": lead["wall_s"]}
+    gate = check_out["gate"]
+    print(f"parallel io: Qwen tp=2 (two gloo ranks on cuda:0, eager) on "
+          f"the paged pool with a host tier and a QoS policy: "
+          f"{gate['equal']}/{gate['of']} streams equal to tp=1 (worst gap "
+          f"{gate['worst_gap']:.3f}); counters equal to tp=1's "
+          f"{json.dumps(check_out['stats'])}; round trip bitwise; every "
+          f"rank's buffers equal, K1/K2 once a layer a pass on every rank; "
+          f"promote {out['promote_gbs_rank']:.2f} GB/s a rank (tp=1 "
+          f"{out['promote_gbs_tp1']:.2f}), demote landing "
+          f"{out['demote_gbs_rank']:.2f} (tp=1 {out['demote_gbs_tp1']:.2f}); "
+          f"export {out['export_ms_per_mb']:.2f} ms/MB (tp=1 "
+          f"{out['export_ms_per_mb_tp1']:.2f}), import "
+          f"{out['import_ms_per_mb']:.2f} (tp=1 "
+          f"{out['import_ms_per_mb_tp1']:.2f}); /v1/weights {gbs:.3f} GB/s "
+          f"byte-equal to tp=1's ({ref_gbs:.3f}); peer bring-up "
+          f"{[round(s, 1) for s in out['peer_s']]} s a rank, shards "
+          f"bitwise; a beam paused the streams {out['beam_pause_s']:.2f} s "
+          f"(tp=1 {out['beam_pause_s_tp1']:.2f}), beam tokens "
+          f"{'equal' if check_out['beam_equal'] else 'differ'}, embed within "
+          f"{check_out['embed_err']:.2e} (cosine "
+          f"{check_out['embed_cos']:.7f}); the leg {lead['wall_s']:.1f} s "
+          f"[{SMI}]", flush=True)
+    return out
 
 
 def parallel_phase(package: str, record: dict) -> dict:
@@ -7411,7 +8097,8 @@ def parallel_phase(package: str, record: dict) -> dict:
     record.update(par_kernel_phase())
     walls, out = {"kernels": time.monotonic() - t0}, {}
     for name, leg in (("qwen_tp2", lambda: par_leg("qwen_tp2", package)),
-                      ("nccl", par_nccl_leg),
+                      ("nccl", lambda: par_nccl_leg(
+                          out["qwen_tp2"]["io"]["ref"])),
                       ("mixtral_tp2ep2",
                        lambda: par_leg("mixtral_tp2ep2", package)),
                       ("bootstrap", lambda: par_bootstrap_leg(package))):
@@ -7462,6 +8149,34 @@ def par_rows(record: dict, phase: dict) -> list[dict]:
                  launches=counts["paged_kv_store_t1"],
                  **record["K2d" + suffix]),
         ]
+    counts = phase["qwen_tp2"]["io"]["counts"]
+    where = (f"the block I/O leg, a tp=2 rank of Qwen2.5-1.5B: H {H // 2} / "
+             f"KVH {KVH // 2}, paged 16-row blocks")
+    rows += [
+        dict(name=f"paged_flash_decode (K1, decode route: "
+                  f"paged_decode_kernel<8> + merge; {where})",
+             route="cuda", source=src,
+             replaces="oim_tpu/ops/paged_attention.py:93",
+             launches=counts["paged_flash_decode_rows8"],
+             **record["K1_tpio"]),
+        dict(name=f"paged_flash_decode (K1, tall route: "
+                  f"paged_prefill_tc_kernel; admissions, timed at t=128; "
+                  f"{where})", route="cuda", source=src,
+             replaces="oim_tpu/ops/paged_attention.py:93",
+             launches=counts["paged_flash_decode_tc"],
+             **record["K1t_tpio"]),
+        dict(name=f"paged_kv_store (K2, admissions, timed at t=128; "
+                  f"{where})", route="cuda", source=src,
+             replaces="oim_tpu/ops/paged_attention.py:265",
+             launches=(counts["paged_kv_store"]
+                       - counts["paged_kv_store_t1"]),
+             **record["K2_tpio"]),
+        dict(name=f"paged_kv_store (K2, decode steps, t=1; {where})",
+             route="cuda", source=src,
+             replaces="oim_tpu/ops/paged_attention.py:265",
+             launches=counts["paged_kv_store_t1"],
+             **record["K2d_tpio"]),
+    ]
     counts = phase["mixtral_tp2ep2"]["counts"]
     for names, shape in PAR_QMM:
         rec = dict(record[f"QMM par {names}"])

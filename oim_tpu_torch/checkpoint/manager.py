@@ -33,7 +33,8 @@ the reference's has:
 ``load_params_from_peer`` restores a server's weights from a serving
 sibling's ``GET /v1/weights`` stream (either package's: the reference's
 framing and its flat parameter dict), checked against this replica's
-geometry before a byte of payload moves.  Saves, restores and peer
+geometry before a byte of payload moves; on a mesh each rank reads the
+stream and keeps its shard, a leaf at a time.  Saves, restores and peer
 restores are observed as the reference observes them:
 ``oim_checkpoint_seconds{op}`` and ``oim_checkpoint_bytes_total{op}``.
 """
@@ -63,9 +64,11 @@ from oim_tpu_torch.models.train import (
 from oim_tpu_torch.models.transformer import TransformerConfig
 from oim_tpu_torch.models.weights import (
     _quant_shapes,
-    from_jax_params,
     int4_values,
     param_shapes,
+    port_tensor,
+    serve_specs,
+    shard_tensor,
 )
 from oim_tpu_torch.ops.quant import WEIGHT_QUANT_TARGETS
 from oim_tpu_torch.serve.disagg import torch_dtype
@@ -428,38 +431,69 @@ def _peer_leaf(raw: bytearray, dtype: str, shape: tuple) -> torch.Tensor:
     return torch.frombuffer(raw, dtype=wire).view(want).reshape(shape)
 
 
+def _place_leaf(tree: dict, layers: list, entry: dict, leaf: torch.Tensor,
+                peer: dict, specs: dict, cfg: TransformerConfig, device,
+                mesh) -> None:
+    """One peer leaf into ``tree``: each layer's tensor (or the
+    top-level one) laid out on ``device`` as ``from_jax_params`` lays it
+    out, and cut to this rank's block where ``specs`` shard it."""
+    name = entry["name"]
+    payload = entry["dtype"] if entry["dtype"] in ("int8", "int4") else ""
+
+    def block(value):
+        return shard_tensor(name, port_tensor(name, value, cfg, device,
+                                              payload), specs, mesh)
+
+    if not peer[name][2]:
+        tree[name] = block(leaf)
+        return
+    for i, value in enumerate(leaf.reshape(cfg.n_layers, *leaf.shape[2:])):
+        layers[i][name] = block(value)
+
+
 def load_params_from_peer(url: str, cfg: TransformerConfig, device=None, *,
                           weight_quant: str = "", int4_group: int = 64,
-                          ssl_context=None, timeout: float = 600.0) -> dict:
+                          ssl_context=None, timeout: float = 600.0,
+                          mesh=None) -> dict:
     """A serving sibling's weights (``GET <url>/v1/weights``, the
     reference's framing: an 8-byte big-endian manifest length, a JSON
     manifest ``[{"name", "dtype", "shape"}...]``, each leaf's raw bytes
     in manifest order) as the port's serving params on ``device``.  The
     manifest is checked against ``cfg`` (and ``weight_quant``'s payloads,
     int4 in groups of ``int4_group``) before a byte of payload moves; each
-    leaf then goes to ``device`` as it arrives, so the host holds one at
-    a time, and ``from_jax_params`` lays them out.  Either package's
+    leaf, as it arrives, is laid out one layer's tensor at a time on
+    ``device`` as ``from_jax_params`` lays it out, quantized payloads as
+    they come, so the host holds one leaf at a time.  Either package's
     peer: a reference peer streams f32 leaves, a port peer its compute
     dtype, both exact in the result.  An ``https://`` peer behind mTLS
-    takes ``ssl_context`` (``serve/httptls.py::client_ssl_context``)."""
+    takes ``ssl_context`` (``serve/httptls.py::client_ssl_context``).
+
+    On a rank of ``mesh`` every rank reads the stream itself (no
+    collective, so ranks load in parallel and none waits on another) and
+    cuts each tensor to its block (``serve_specs``) before the next, so
+    no card holds the whole model — exactly ``shard_params`` of the
+    whole tree."""
     t0 = time.perf_counter()
-    tree, moved = {}, 0
+    tree, layers, moved = {}, [{} for _ in range(cfg.n_layers)], 0
+    peer = _peer_specs(cfg, weight_quant, int4_group)
+    specs = ({} if mesh is None
+             else serve_specs(cfg, mesh, weight_quant, int4_group))
     request = urllib.request.Request(url.rstrip("/") + "/v1/weights")
     with urllib.request.urlopen(request, timeout=timeout,
                                 context=ssl_context) as resp:
         (length,) = struct.unpack(">Q", bytes(_read_exact(resp, 8)))
         manifest = json.loads(bytes(_read_exact(resp, length)))
-        _check_manifest(manifest,
-                        _peer_specs(cfg, weight_quant, int4_group), cfg, url)
+        _check_manifest(manifest, peer, cfg, url)
         for entry in manifest:
             shape = tuple(int(d) for d in entry["shape"])
             itemsize = (1 if entry["dtype"] == "int4"
                         else torch_dtype(entry["dtype"]).itemsize)
             raw = _read_exact(resp, int(np.prod(shape)) * itemsize)
             moved += len(raw)
-            tree[entry["name"]] = _peer_leaf(raw, entry["dtype"],
-                                             shape).to(device)
-    params = from_jax_params(tree, cfg, device=device)
+            _place_leaf(tree, layers, entry,
+                        _peer_leaf(raw, entry["dtype"], shape), peer, specs,
+                        cfg, device, mesh)
+    params = dict(tree, layers=layers)
     _CKPT_SECONDS.observe(time.perf_counter() - t0, "restore-peer")
     _CKPT_BYTES.inc("restore-peer", by=float(moved))
     return params

@@ -40,10 +40,13 @@ T·E − 1 other ranks itself (``torch.multiprocessing``, spawned, on
 is the server, the others follow its dispatches.  Each rank draws or
 restores the weights and keeps only its shard on its card.  Too few
 GPUs fails before any work ("need N devices, have M"); with ``--device
-cpu`` the ranks run on the CPU over gloo.  SIGTERM drains (in-flight
-requests finish; migration under a mesh is ROADMAP Queue A12's second
-part, as are ``--params-peer``, ``--kv-host-bytes``, ``/v1/weights``,
-beam and embed) and stops every rank.  ``--bootstrap FILE`` (default
+cpu`` the ranks run on the CPU over gloo.  Everything below works on a
+mesh too: ``--kv-host-bytes`` (each rank pins its kv-head share of the
+tier), ``--params-peer`` (every rank reads the sibling's stream and
+keeps its shard), ``/v1/kv``, ``/v1/slot``, ``/v1/weights`` (each
+tensor gathered whole to rank 0), ``/v1/beam``, ``/v1/embed`` and the
+drain by migration; the followers stop once the last slot record has
+been taken or the drain timeout has passed.  ``--bootstrap FILE`` (default
 ``$TPU_BOOTSTRAP``) binds the process to the cards a CSI-staged
 bootstrap names (``/dev/nvidiaN`` → ``CUDA_VISIBLE_DEVICES``) before the
 first CUDA touch.
@@ -527,15 +530,14 @@ def load_weights(args, cfg: TransformerConfig, device, mesh=None) -> dict:
     mesh."""
     mode = weight_quant(args)
     if args.params_peer:
-        if mesh is not None:
-            raise SystemExit("--params-peer is not served under a mesh yet "
-                             "(ROADMAP Queue A12, second part)")
         # The sibling streams what it serves, quantized or not: checked
-        # against the flags' geometry and weight quant, never requantized.
+        # against the flags' geometry and weight quant, never requantized;
+        # on a mesh each rank reads it and keeps its shard.
         return load_params_from_peer(args.params_peer, cfg, device,
                                      weight_quant=mode,
                                      int4_group=args.int4_group,
-                                     ssl_context=peer_ssl_context(args))
+                                     ssl_context=peer_ssl_context(args),
+                                     mesh=mesh)
     place = None
     if mesh is not None:
         specs = serve_specs(cfg, mesh, mode, args.int4_group)
@@ -860,19 +862,22 @@ def serve_until_stopped(args, server) -> None:
     signal.signal(signal.SIGINT, request_stop)
     try:
         stop.wait()
-        if engine.mesh is not None:
-            # Under a mesh: stop admitting, let in-flight requests end.
-            engine.drain()
-        else:
-            # Migrate-out drain: stop admitting and suspend in-flight
-            # slots into /v1/slot records for a router to ship to
-            # siblings, so the wait below ends as soon as they are
-            # suspended.
-            server.begin_drain()
+        # Migrate-out drain: stop admitting and suspend in-flight slots
+        # into /v1/slot records for a router to ship to siblings, so the
+        # wait below ends as soon as they are suspended.  Under a mesh a
+        # record's export needs every rank, so the wait also lasts until
+        # the records have been taken.
+        server.begin_drain()
         log.current().info("draining", in_flight=engine.in_flight(),
                            timeout_s=args.drain_timeout)
         deadline = time.monotonic() + args.drain_timeout
-        while engine.in_flight() and time.monotonic() < deadline:
+
+        def busy() -> bool:
+            return bool(engine.in_flight() or (
+                engine.mesh is not None
+                and engine.stats()["migrated_slots"]))
+
+        while busy() and time.monotonic() < deadline:
             time.sleep(0.2)
         # Settle: the last slot frees before its handler thread has
         # written the reply; exiting at once would cut that reply.

@@ -38,8 +38,12 @@ def _top_k(values, k: int):
 
 
 @torch.no_grad()
-def _beam(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
-          beam_size: int, alpha: float, eos_id: int | None):
+def beam_steps(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
+               beam_size: int, alpha: float, eos_id: int | None) -> tuple:
+    """The search itself, left on the device: (the beams' generated
+    tokens [k, max_new], their scores [k], lengths [k] and normalized
+    scores [k]).  Reads nothing back, so a follower rank of a mesh runs
+    it as the leader does."""
     b, t = prompt.shape
     if b != 1:
         raise ValueError("beam search is batch-1 (the beams are the batch)")
@@ -87,12 +91,25 @@ def _beam(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
             finished = finished | (tokens == eos_id)
     # GNMT length normalization over the generated length.
     norm = ((5.0 + lengths.float()) / 6.0) ** alpha
-    normalized = scores / norm
+    return seqs, scores, lengths, scores / norm
+
+
+def best_hypothesis(seqs, scores, lengths, normalized) -> tuple:
+    """The winner of ``beam_steps``' beams (the highest normalized
+    score): (its generated tokens [max_new] on the device, stats)."""
     best = int(torch.argmax(normalized))
-    out = torch.cat([prompt[0].to(torch.int64), seqs[best]])[None]
-    return out.to(torch.int32), {"score": float(scores[best]),
-                                 "normalized_score": float(normalized[best]),
-                                 "length": int(lengths[best])}
+    return seqs[best], {"score": float(scores[best]),
+                        "normalized_score": float(normalized[best]),
+                        "length": int(lengths[best])}
+
+
+@torch.no_grad()
+def _beam(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
+          beam_size: int, alpha: float, eos_id: int | None):
+    generated, stats = best_hypothesis(*beam_steps(
+        params, prompt, cfg, max_new_tokens, beam_size, alpha, eos_id))
+    out = torch.cat([prompt[0].to(torch.int64), generated])[None]
+    return out.to(torch.int32), stats
 
 
 def make_beam_search_fn(cfg: TransformerConfig, beam_size: int = 4,

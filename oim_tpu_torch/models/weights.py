@@ -20,7 +20,11 @@ payload is one value a byte (``jnp.int4``).
 Over a mesh, ``serve_specs`` says how each served parameter shards (the
 counterpart of the reference engine's ``serve_param_shardings``),
 ``shard_params`` keeps one rank's blocks of a tree and ``rank_config``
-describes the model that rank runs (``ShardedConfig``).
+describes the model that rank runs (``ShardedConfig``); ``gather_leaf``
+and ``gather_params`` are ``shard_params``' exact inverse (the whole
+tensors ``GET /v1/weights`` streams from a mesh's leader), and
+``port_tensor`` lays out one reference leaf, so that a peer's stream is
+cut to a rank's shard a leaf at a time.
 """
 
 from __future__ import annotations
@@ -104,15 +108,11 @@ def from_jax_params(tree: dict, cfg: TransformerConfig, device=None,
         raise ValueError("training masters are never weight-quantized")
 
     def tensor(source, name, value):
+        payload = ""
         if f"{name}_wscale" in source:
-            values = _torch_leaf(value, torch.int8)
-            if _int4_payload(source[name], source[f"{name}_wscale"]):
-                return pack_weight_int4(values.to(device))
-            return values.to(device)
-        arr = _torch_leaf(value, torch.float32).to(device)
-        if master or name.endswith("_wscale"):
-            return arr
-        return prepare_param(name, arr, cfg)
+            payload = ("int4" if _int4_payload(
+                source[name], source[f"{name}_wscale"]) else "int8")
+        return port_tensor(name, value, cfg, device, payload, master)
 
     params = {name: tensor(tree, name, tree[name]) for name in _TOP
               if name in tree}
@@ -123,6 +123,22 @@ def from_jax_params(tree: dict, cfg: TransformerConfig, device=None,
         for i in range(cfg.n_layers)
     ]
     return params
+
+
+def port_tensor(name: str, value, cfg: TransformerConfig, device=None,
+                payload: str = "", master: bool = False) -> torch.Tensor:
+    """One reference leaf (one layer's part of a stacked one) as the
+    port serves it on ``device``: ``payload`` "int8" or "int4" for a
+    weight-quantized payload (int4 values packed), else a float leaf
+    prepared for the compute dtype (a ``_wscale`` scale, or every leaf
+    when ``master``, stays f32)."""
+    if payload:
+        values = _torch_leaf(value, torch.int8).to(device)
+        return pack_weight_int4(values) if payload == "int4" else values
+    arr = _torch_leaf(value, torch.float32).to(device)
+    if master or name.endswith("_wscale"):
+        return arr
+    return prepare_param(name, arr, cfg)
 
 
 def from_jax_lora(adapters: dict, cfg: TransformerConfig,
@@ -163,36 +179,48 @@ def int4_values(raw: torch.Tensor) -> torch.Tensor:
     return (raw.view(torch.int8) << 4) >> 4
 
 
-def _jax_part(tree: dict, name: str, cfg: TransformerConfig):
-    """(the reference's dtype name, shape, part) of one port tensor."""
+def _jax_part(tree: dict, name: str, cfg: TransformerConfig, get=None):
+    """(the reference's dtype name, shape, part) of one port tensor;
+    ``get`` (when given) returns the tensor the part reads, ``tree``
+    then only describing it."""
     t = tree[name]
+    get = get or (lambda: t)
     if t.dtype == INT4_DTYPE and f"{name}_wscale" in tree:
         din = int4_din(t, tree[f"{name}_wscale"])
         shape = (*t.shape[:-2], din, t.shape[-1])
         return "int4", shape, (
-            lambda: (unpack_int4(t, dim=-2)[..., :din, :] & 0xF).to(
+            lambda: (unpack_int4(get(), dim=-2)[..., :din, :] & 0xF).to(
                 torch.uint8))
     if name == "wlm" and "wlm_wscale" not in tree:
         # The forward's widened copy of compute-dtype values: exact back.
         return dtype_name(cfg.compute_dtype), tuple(t.shape), (
-            lambda: t.to(cfg.compute_dtype))
-    return dtype_name(t.dtype), tuple(t.shape), (lambda: t)
+            lambda: get().to(cfg.compute_dtype))
+    return dtype_name(t.dtype), tuple(t.shape), get
 
 
-def jax_leaves(params: dict, cfg: TransformerConfig) -> list[JaxLeaf]:
+def jax_leaves(params: dict, cfg: TransformerConfig,
+               fetch=None) -> list[JaxLeaf]:
     """The reference's flat parameter dict of ``params`` as lazy
     ``JaxLeaf``s sorted by name (the order ``GET /v1/weights`` streams
     them): layer entries stacked ``[1, n_layers, ...]`` (one stage, as
     the reference serves), every leaf in the dtype the port serves it in
     (``wlm`` in the compute dtype), int4 payloads as one value a byte:
-    its low nibble, a ``torch.uint8`` part."""
+    its low nibble, a ``torch.uint8`` part.  With ``fetch`` (a mesh's
+    leader: ``fetch(layer index or None, name)`` returns the whole
+    tensor, gathered from the ranks' shards when its part is made)
+    ``params`` only describes the whole tensors (``whole_meta``)."""
+
+    def get(layer, name):
+        return None if fetch is None else (lambda: fetch(layer, name))
+
     leaves = []
     for name in [n for n in _TOP if n in params]:
-        dtype, shape, part = _jax_part(params, name, cfg)
+        dtype, shape, part = _jax_part(params, name, cfg, get(None, name))
         leaves.append(JaxLeaf(name, dtype, shape, [part]))
     layers = params["layers"]
     for name in layers[0]:
-        parts = [_jax_part(lp, name, cfg) for lp in layers]
+        parts = [_jax_part(lp, name, cfg, get(i, name))
+                 for i, lp in enumerate(layers)]
         dtype, shape, _ = parts[0]
         leaves.append(JaxLeaf(name, dtype, (1, cfg.n_layers, *shape),
                               [part for _, _, part in parts]))
@@ -469,3 +497,72 @@ def rank_config(cfg: TransformerConfig, mesh, specs: dict) -> ShardedConfig:
         row_psum=frozenset(row_psum),
         row_gather=frozenset() if "wo" in row_psum else frozenset({"wo"}),
         **moe)
+
+
+def whole_shape(block_shape, spec, mesh) -> tuple[int, ...]:
+    """The whole tensor's shape of a block of ``block_shape`` under
+    ``spec`` (None: replicated, the block is the whole)."""
+    shape = list(block_shape)
+    for dim, entry in enumerate(spec or ()):
+        if entry is not None:
+            shape[dim] *= mesh.axis_size(entry)
+    return tuple(shape)
+
+
+def gather_leaf(blocks: list, spec, mesh) -> torch.Tensor:
+    """The whole tensor from every rank's block (``blocks[r]``: rank
+    r's, all on one device), the inverse of ``shard``: each block lands
+    at its rank's index over each sharded dimension's axes.  A tensor
+    that ``spec`` replicates (None, or no axis) is rank 0's block alone:
+    nothing is concatenated."""
+    if spec is None or all(entry is None for entry in spec):
+        return blocks[0]
+    first = blocks[0]
+    whole = torch.empty(whole_shape(first.shape, spec, mesh),
+                        dtype=first.dtype, device=first.device)
+    for rank, block in enumerate(blocks):
+        view = whole
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            size = block.shape[dim]
+            view = view.narrow(dim, mesh.axis_index(entry, rank) * size,
+                               size)
+        view.copy_(block)
+    return whole
+
+
+def gather_params(shards: list, cfg: TransformerConfig, mesh) -> dict:
+    """The whole serving params from every rank's ``shard_params`` shard
+    (``shards[r]``: rank r's tree), tensor by tensor through
+    ``gather_leaf``: the exact inverse of ``shard_params`` under
+    ``serve_specs`` — column, row, vocab and expert shards, int8 scales
+    that dropped the reduction axis, int4 scales and packed nibbles, and
+    the leaves ``fitted`` replicates (rank 0's)."""
+    specs = specs_of(shards[0], cfg, mesh)
+
+    def tree(sources: list) -> dict:
+        return {name: gather_leaf([s[name] for s in sources],
+                                  specs.get(name), mesh)
+                for name in sources[0] if name != "layers"}
+
+    out = tree(shards)
+    out["layers"] = [tree([s["layers"][i] for s in shards])
+                     for i in range(len(shards[0]["layers"]))]
+    return out
+
+
+def whole_meta(params: dict, cfg: TransformerConfig, mesh) -> dict:
+    """A rank's shard ``params`` described whole: each tensor a ``meta``
+    tensor of the whole one's shape and dtype (``jax_leaves``' ``fetch``
+    form)."""
+    specs = specs_of(params, cfg, mesh)
+
+    def tree(source: dict) -> dict:
+        return {name: torch.empty(whole_shape(t.shape, specs.get(name), mesh),
+                                  dtype=t.dtype, device="meta")
+                for name, t in source.items() if name != "layers"}
+
+    out = tree(params)
+    out["layers"] = [tree(lp) for lp in params["layers"]]
+    return out

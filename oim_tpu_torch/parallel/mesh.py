@@ -87,12 +87,23 @@ class Mesh:
     def axis_size(self, axes) -> int:
         return math.prod(self.shape[a] for a in self._key(axes))
 
-    def axis_index(self, axes) -> int:
-        """This rank's index inside its group over ``axes`` (row-major
-        over them, as the group's ranks are ordered)."""
+    @property
+    def size(self) -> int:
+        """The number of ranks."""
+        return math.prod(self.shape.values())
+
+    def coords_of(self, rank: int) -> dict[str, int]:
+        """Rank ``rank``'s coordinate on each axis."""
+        return dict(zip(AXES, _coords(rank, self.shape)))
+
+    def axis_index(self, axes, rank: int | None = None) -> int:
+        """This rank's (or ``rank``'s) index inside its group over
+        ``axes`` (row-major over them, as the group's ranks are
+        ordered)."""
+        coords = self.coords if rank is None else self.coords_of(rank)
         index = 0
         for a in self._key(axes):
-            index = index * self.shape[a] + self.coords[a]
+            index = index * self.shape[a] + coords[a]
         return index
 
     def warm(self) -> None:

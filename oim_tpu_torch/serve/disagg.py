@@ -127,7 +127,9 @@ class KvImport:
     """A staged ingest: freshly reserved block ids (ref 1 each), the
     shipped frontier, the token record the continuation's prompt must
     start with, and the host payload (leaf name → tensor [n_layers,
-    n_ship, block_size, ...]) the step thread writes at admission."""
+    n_ship, block_size, ...]) the step thread writes at admission.  On a
+    mesh's leader the payload is rank 0's kv-head part, and ``tag``
+    names every rank's part (``Engine._stash``); -1 off a mesh."""
 
     import_id: int
     blocks: tuple[int, ...]
@@ -135,6 +137,7 @@ class KvImport:
     tokens: list[int]  # prompt + emitted
     data: dict
     t_created: float = field(default_factory=time.monotonic)
+    tag: int = -1
 
 
 @dataclass

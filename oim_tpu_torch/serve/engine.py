@@ -131,20 +131,34 @@ paths:
   prefix copy, the graph capture — is first sent as a record of its
   staged host inputs over the mesh's gloo ``control`` group, and every
   other rank runs the same dispatch on its shard (``follow``), by replay
-  or eagerly; followers read nothing back.  The logits every rank sees
-  after the collectives are bitwise the same, and sampling noise is
-  keyed by (seed, token index), so the tokens a chunk feeds back on the
-  device stay in lockstep without a broadcast a token.  On NCCL the
-  collectives are captured inside the graphs; gloo cannot be captured,
-  so a gloo mesh on the card runs eagerly (``cuda_graphs=False``).  The
-  host KV tier and parking, KV/prefix/slot shipping and migration,
-  ``beam`` and ``embed`` are refused under a mesh (ROADMAP Queue A12,
-  second part).
+  or eagerly; a follower's decode path reads nothing back.  The logits
+  every rank sees after the collectives are bitwise the same, and
+  sampling noise is keyed by (seed, token index), so the tokens a chunk
+  feeds back on the device stay in lockstep without a broadcast a
+  token.  On NCCL the collectives are captured inside the graphs; gloo
+  cannot be captured, so a gloo mesh on the card runs eagerly
+  (``cuda_graphs=False``).
+- **Block I/O, weights, beam and embed under a mesh.**  Everything that
+  moves KV blocks or runs slot-free work is a record too, from whichever
+  thread starts it (``_MeshLink.turn``: a record and the leader's own
+  half, atomically).  Each rank keeps its kv-head slice: a demotion or
+  park copies the same block ids down into the rank's own host tier at
+  the leader's host block ids, a promotion, restore or landing writes
+  them back (``_restore_parked`` rebuilds the replicated history and
+  penalty rows on every rank).  Exports gather the ranks' slices to rank
+  0, which joins them on the kv-head axis (``_export_payload``); imports
+  cut the whole heads and scatter the parts (``_stage_payload``), staged
+  under a tag until the blocks are written — so the wire stays the
+  reference's, and a mesh, one device and the reference engine ship to
+  one another.  ``GET /v1/weights`` gathers each tensor whole
+  (``weight_leaves``); ``beam`` and ``embed`` run the solo pass on every
+  shard.  Counters and the host tier's budget count whole blocks.
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import math
 import os
@@ -152,7 +166,7 @@ import statistics
 import threading
 import time
 from collections import OrderedDict, deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -162,7 +176,11 @@ import torch.distributed as dist
 from oim_tpu_torch.common import events as _events
 from oim_tpu_torch.common import metrics as _metrics
 from oim_tpu_torch.common import tracing as _tracing
-from oim_tpu_torch.models.beam import make_beam_search_fn
+from oim_tpu_torch.models.beam import (
+    beam_steps,
+    best_hypothesis,
+    make_beam_search_fn,
+)
 from oim_tpu_torch.models.decode import (
     _mlp,
     _validate_truncation,
@@ -181,12 +199,15 @@ from oim_tpu_torch.models.transformer import (
     unembed,
 )
 from oim_tpu_torch.models.weights import (
+    gather_leaf,
+    jax_leaves,
     n_params,
     param_shapes,
     rank_config,
     shard_params,
     specs_of,
     to_device,
+    whole_meta,
 )
 from oim_tpu_torch.ops import counts as kernel_counts
 from oim_tpu_torch.ops import paged_attention
@@ -1189,43 +1210,103 @@ class _SlotState:
     phases: _PhaseTrace | None = None
 
 
-class MeshUnsupportedError(ValueError):
-    """A feature the engine does not serve under a mesh yet."""
+def _pack(tensors) -> torch.Tensor:
+    """Host tensors' C-order bytes, one after another, as one uint8
+    tensor (what a gather or scatter over gloo moves; one tensor's own
+    bytes, viewed, not copied)."""
+    if not tensors:
+        return torch.empty(0, dtype=torch.uint8)
+    if len(tensors) == 1:
+        return tensors[0].contiguous().reshape(-1).view(torch.uint8)
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors])
 
 
-def _refuse_mesh(what: str) -> MeshUnsupportedError:
-    return MeshUnsupportedError(
-        f"{what} is not served under a mesh yet (ROADMAP Queue A12, "
-        f"second part)")
+def _unpack(flat: torch.Tensor, like) -> list[torch.Tensor]:
+    """``_pack``'s inverse: tensors of ``like``'s shapes and dtypes,
+    views of ``flat``."""
+    out, at = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(flat[at:at + n].view(t.dtype).reshape(t.shape))
+        at += n
+    return out
 
 
 class _MeshLink:
-    """The leader's device dispatches, as records, to the other ranks of
-    a mesh: each record is a batch of (method name, host arguments),
+    """The leader's device work, as records, to the other ranks of a
+    mesh: each record is a batch of (method name, host arguments),
     broadcast from rank 0 over the mesh's gloo ``control`` group, so host
     metadata never rides a device stream.  Records ``defer``red by the
-    leader (a dense prefix entry dropped under the engine lock) go out
-    ahead of its next one."""
+    leader under the engine lock (a dense prefix entry dropped, a
+    demotion's or a park's copy down, a promotion's host gather, a staged
+    payload dropped) go out ahead of its next one.
+
+    Any thread of the leader may start device work (the step thread's
+    dispatches, and the HTTP handlers' KV exports and imports, weight
+    gathers, beam and embed): it sends the record and does its own half
+    — its device work and any ``gather`` or ``scatter`` — inside
+    ``turn``, one reentrant lock, so that the followers, which run the
+    records strictly in arrival order, issue their collectives in the
+    leader's order.  Nothing takes ``turn`` while holding the engine
+    lock (that work is deferred instead).
+
+    ``gather`` and ``scatter`` move host tensors to and from rank 0 over
+    the same ``control`` group, never a ``tp``/``ep`` group, so these
+    bytes never enter a dispatch's collectives or a captured graph.
+    They carry the block reads of a KV export (held KV, a prefix entry,
+    a suspended slot's device or host blocks) to rank 0, a shipped
+    payload's kv-head parts out to the ranks at its import, and each
+    weight tensor's blocks to rank 0 for ``GET /v1/weights``: the one
+    place a follower reads the device back."""
 
     def __init__(self, mesh):
         self.mesh = mesh
         self.leader = mesh.rank == 0
         self._deferred: list = []
         self._lock = threading.Lock()
+        self.turn = threading.RLock()
 
     def defer(self, *record) -> None:
         with self._lock:
             self._deferred.append(record)
 
     def send(self, *record) -> None:
-        with self._lock:
-            batch, self._deferred = self._deferred + [record], []
-        dist.broadcast_object_list([batch], src=0, group=self.mesh.control)
+        with self.turn:
+            with self._lock:
+                batch, self._deferred = self._deferred + [record], []
+            dist.broadcast_object_list([batch], src=0,
+                                       group=self.mesh.control)
 
     def recv(self) -> list:
         box = [None]
         dist.broadcast_object_list(box, src=0, group=self.mesh.control)
         return box[0]
+
+    def gather(self, tensors) -> list | None:
+        """Every rank's host ``tensors`` (the same shapes and dtypes on
+        each rank) at rank 0: ``[rank][i]`` there, None on the others."""
+        flat = _pack(tensors)
+        if not self.leader:
+            dist.gather(flat, dst=0, group=self.mesh.control)
+            return None
+        bufs = [torch.empty_like(flat) for _ in range(self.mesh.size)]
+        dist.gather(flat, bufs, dst=0, group=self.mesh.control)
+        return [_unpack(buf, tensors) for buf in bufs]
+
+    def scatter(self, parts=None, like=None) -> list:
+        """Rank 0's ``parts`` (one list of host tensors a rank, the same
+        sizes on each) out to the ranks: rank 0 keeps ``parts[0]``; a
+        follower passes ``like`` (tensors of its part's shapes and
+        dtypes) and gets its part."""
+        if self.leader:
+            out = torch.empty_like(_pack(parts[0]))
+            dist.scatter(out, [_pack(p) for p in parts], src=0,
+                         group=self.mesh.control)
+            return parts[0]
+        out = _pack(like)
+        dist.scatter(out, src=0, group=self.mesh.control)
+        return _unpack(out, like)
 
 
 class Engine:
@@ -1422,6 +1503,7 @@ class Engine:
         _validate_truncation(top_k, top_p, cfg.vocab_size)
         self.mesh = mesh
         self._link = None
+        self._specs = None
         # The config the device functions run: the model, or this rank's
         # share of it under a mesh (``cfg`` stays the whole model's).
         self._run_cfg = cfg
@@ -1438,8 +1520,6 @@ class Engine:
                     f"n_experts={cfg.n_experts} must be a positive "
                     f"multiple of mesh ep={ep}"
                 )
-            if kv_host_bytes:
-                raise _refuse_mesh("the host KV tier (kv_host_bytes)")
             if (cuda_graphs and self.device.type == "cuda"
                     and mesh.backend != "nccl"):
                 raise ValueError(
@@ -1450,8 +1530,8 @@ class Engine:
             # arrays), before this rank keeps its shard.
             self.n_params = sum(math.prod(shape) for shape in
                                 param_shapes(cfg).values())
-            self._run_cfg = rank_config(cfg, mesh,
-                                        specs_of(params, cfg, mesh))
+            self._specs = specs_of(params, cfg, mesh)
+            self._run_cfg = rank_config(cfg, mesh, self._specs)
             params = shard_params(params, cfg, mesh)
             self._link = _MeshLink(mesh)
             if mesh.backend == "nccl":
@@ -1546,12 +1626,15 @@ class Engine:
                 device=self.device,
             )
             self._gen_counts = torch.zeros_like(self._tok_counts)
-        # Bytes of one cached row over every layer (K, V and scales).
+        # Bytes of one cached row over every layer (K, V and scales), of
+        # the whole model's kv heads: under a mesh a rank holds 1/tp of
+        # them, but the host tier's budget, the block counters and the
+        # byte counters are the reference's, over the global arrays.
         self._kv_row_bytes = sum(
             t[0, 0, 0].numel() * t.element_size() * cfg.n_layers
             for t in (self._cache.k, self._cache.v, self._cache.k_scale,
                       self._cache.v_scale) if t is not None
-        )
+        ) * (cfg.kv_heads // self._run_cfg.kv_heads)
         # Bytes in one pool block (0 on dense): the tier-flow and ship
         # byte counters are blocks times this.
         self._block_bytes = self._kv_row_bytes * kv_block
@@ -1571,6 +1654,8 @@ class Engine:
                     f"(one {kv_block}-token block is {self._block_bytes} "
                     f"bytes here)"
                 )
+            # Under a mesh each rank pins its kv-head share of each
+            # block; the leader's allocator picks the ids every rank uses.
             self._host = HostBlockPool(self._cache, n_host,
                                        pin=self.device.type == "cuda")
         # Parking needs a per-slot state that host truth rebuilds: a
@@ -1605,6 +1690,16 @@ class Engine:
         self._prefix_installs: list[tuple] = []
         self._migrated: dict[int, SlotRecord] = {}
         self._migrate_out = False
+        # Under a mesh: a staged payload's tag (a promotion's or an
+        # import's, ``KvImport.tag``) names each rank's part of it, held
+        # in ``_stash`` until its blocks are written; a follower's
+        # demotions and parks wait in ``_follow_writes`` until they land
+        # in its host pool; ``_twice_saved`` is chunk_twice/admit_twice's
+        # device state on every rank.
+        self._tags = itertools.count()
+        self._stash: dict[int, list] = {}
+        self._follow_writes: list = []
+        self._twice_saved = None
         # Prompt tokens → (entry, rows it covers), least recently used
         # first.  Dense: copies (k, v, k_scale, v_scale) of a slot's first
         # rows, [n_layers, rows, ...]; paged: the ids of the blocks the
@@ -1875,8 +1970,6 @@ class Engine:
     def _validate(self, req: GenRequest) -> None:
         if not req.tokens:
             raise ValueError("empty prompt")
-        if self.mesh is not None and req.hold_kv:
-            raise _refuse_mesh("hold_kv")
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if req.sample_base < 0:
@@ -2229,20 +2322,22 @@ class Engine:
         (``models/decode.py::embed_tokens``), padded to its prompt
         bucket.  Stateless and slot-free: it touches neither the cache
         nor the queue, so any thread may call it while the step thread
-        runs; it runs the plain solo path, as the reference's does."""
-        if self.mesh is not None:
-            raise _refuse_mesh("embed")
+        runs; it runs the plain solo path, as the reference's does.  Under
+        a mesh every rank runs the pass on its shard (a record) and the
+        leader reads the result; the step loop's dispatches wait for it."""
         with self._aux_request():
             self._validate(GenRequest(tokens=tokens, max_new_tokens=1))
-            bucket = self._bucket(len(tokens))
-            padded = torch.zeros((1, bucket), dtype=torch.int64,
-                                 device=self.device)
-            padded[0, : len(tokens)] = torch.as_tensor(tokens)
-            vec = embed_tokens(
-                self.params, padded,
-                torch.tensor([len(tokens)], device=self.device), self.cfg,
-            )
+            padded = np.zeros((1, self._bucket(len(tokens))), np.int64)
+            padded[0, : len(tokens)] = tokens
+            vec = self._dev("_embed_pass", padded, len(tokens))
             return [float(x) for x in self._fetch_aux(vec[0])]
+
+    def _embed_pass(self, padded: np.ndarray, n: int) -> torch.Tensor:
+        """``embed``'s device half, from host inputs: the pooled vector
+        [1, d_model] on the device."""
+        return embed_tokens(
+            self.params, _to_device(padded, self.device),
+            torch.tensor([n], device=self.device), self._run_cfg)
 
     def beam(self, tokens: list[int], max_new_tokens: int,
              beam_size: int = 4, alpha: float = 0.6,
@@ -2263,9 +2358,11 @@ class Engine:
         compiled programs: a FIFO of ``_MAX_BEAM_PROGRAMS`` search
         functions over client-chosen (beam_size, alpha, eos_id), and a
         budget of ``_MAX_BEAM_TRACES`` (configuration, prompt length,
-        max_new) shapes, past which both are cleared."""
-        if self.mesh is not None:
-            raise _refuse_mesh("beam")
+        max_new) shapes, past which both are cleared.  Under a mesh every
+        rank runs the search on its shard (a record): the top-k over the
+        gathered logits is the same on every rank, so they stay in
+        lockstep with no traffic, and the leader alone reads the winner;
+        the step loop's dispatches wait for the whole search."""
         with self._aux_request():
             return self._beam_inner(tokens, max_new_tokens, beam_size,
                                     alpha, eos_id)
@@ -2298,31 +2395,47 @@ class Engine:
         if not math.isfinite(alpha):
             # NaN would also poison the cache key (nan != nan).
             raise ValueError(f"alpha must be finite, got {alpha}")
-        key = (beam_size, alpha, eos_id)
-        with self._beam_lock:
-            if len(self._beam_traces) >= _MAX_BEAM_TRACES:
-                self._beam_fns.clear()
-                self._beam_traces.clear()
-            fn = self._beam_fns.get(key)
-            if fn is None:
-                while len(self._beam_fns) >= _MAX_BEAM_PROGRAMS:
-                    evicted = next(iter(self._beam_fns))
-                    self._beam_fns.pop(evicted)
-                    self._beam_traces = {t for t in self._beam_traces
-                                         if t[0] != evicted}
-                fn = self._beam_fns[key] = make_beam_search_fn(
-                    self.cfg, beam_size=beam_size, alpha=alpha,
-                    eos_id=eos_id,
-                )
-            self._beam_traces.add((key, len(tokens), max_new_tokens))
-        prompt = torch.as_tensor([tokens], device=self.device)
-        out, stats = fn(self.params, prompt, max_new_tokens=max_new_tokens)
-        generated = [int(t) for t in self._fetch_aux(out[0, len(tokens):])]
+        self._beam_fn(beam_size, alpha, eos_id, len(tokens), max_new_tokens)
+        best, stats = best_hypothesis(*self._dev(
+            "_beam_pass", tokens, max_new_tokens, beam_size, alpha, eos_id))
+        generated = [int(t) for t in self._fetch_aux(best)]
         if eos_id is not None:
             # Past the winner's EOS come 0-pads: trim to the generation,
             # the EOS included (GenRequest's eos semantics).
             generated = generated[: stats["length"]]
         return generated, stats["normalized_score"]
+
+    def _beam_fn(self, beam_size: int, alpha: float, eos_id, n_prompt: int,
+                 max_new_tokens: int) -> None:
+        """Check the search configuration (beam_size, alpha, eos_id) and
+        keep it under the bounds ``beam`` states, as the reference keeps
+        its compiled programs; every rank runs the search itself through
+        ``_beam_pass``."""
+        key = (beam_size, alpha, eos_id)
+        with self._beam_lock:
+            if len(self._beam_traces) >= _MAX_BEAM_TRACES:
+                self._beam_fns.clear()
+                self._beam_traces.clear()
+            if key not in self._beam_fns:
+                while len(self._beam_fns) >= _MAX_BEAM_PROGRAMS:
+                    evicted = next(iter(self._beam_fns))
+                    self._beam_fns.pop(evicted)
+                    self._beam_traces = {t for t in self._beam_traces
+                                         if t[0] != evicted}
+                self._beam_fns[key] = make_beam_search_fn(
+                    self._run_cfg, beam_size=beam_size, alpha=alpha,
+                    eos_id=eos_id,
+                )
+            self._beam_traces.add((key, n_prompt, max_new_tokens))
+
+    def _beam_pass(self, tokens, max_new_tokens, beam_size, alpha,
+                   eos_id) -> tuple:
+        """``beam``'s device half, from host inputs: the search on this
+        rank's shard, its beams left on the device (``beam_steps``; a
+        follower reads nothing back)."""
+        return beam_steps(
+            self.params, torch.as_tensor([tokens], device=self.device),
+            self._run_cfg, max_new_tokens, beam_size, alpha, eos_id)
 
     # -- introspection ------------------------------------------------------
 
@@ -3441,8 +3554,9 @@ class Engine:
                 self._trim_prefix_cache_locked()
             return
         rows = self._bucket(len(tokens))
-        self._lead("_follow_store", slot, key, rows)
-        entry = self._slot_rows(slot, rows)
+        with self._turn():
+            self._lead("_follow_store", slot, key, rows)
+            entry = self._slot_rows(slot, rows)
         with self._lock:
             self._prefix_cache[key] = (entry, len(tokens))
             self._prefix_cache.move_to_end(key)
@@ -3737,6 +3851,7 @@ class Engine:
         if host_blocks is None:
             return False
         staged, done = self._read_blocks_dispatch(blocks)
+        self._defer("_follow_demote", tuple(blocks), tuple(host_blocks))
         meta = self._prefix_meta.get(key)
         self._pending_host_writes.append(_HostWrite(
             kind="prefix", host_blocks=tuple(host_blocks), staged=staged,
@@ -3893,13 +4008,18 @@ class Engine:
             raise
         data = {name: rows for (name, _), rows in
                 zip(self._host.pools(), leaves)}
+        tag = -1 if self._link is None else next(self._tags)
         with self._lock:
+            if tag >= 0:
+                # Each follower stages its part of the same host blocks
+                # before the pin below drops and the blocks can be reused.
+                self._defer("_follow_stage", tag, plan["host_blocks"])
             self._promote_staging.discard(plan["key"])
             self._host.alloc.decref(plan["host_blocks"])
             self._prefix_installs.append((plan["digest"], KvImport(
                 import_id=-1, blocks=plan["dev_blocks"], rows=plan["rows"],
                 tokens=list(plan["key"]), data=data,
-                t_created=time.monotonic(),
+                t_created=time.monotonic(), tag=tag,
             ), plan["key"]))
 
     def _pick_park_victim_locked(self, below_priority: int | None = None):
@@ -3955,8 +4075,9 @@ class Engine:
         host_blocks = self._host.alloc.alloc(n_cov)
         if host_blocks is None:
             return False
-        staged, done = self._read_blocks_dispatch(
-            [int(b) for b in row[:n_cov]])
+        pool_blocks = tuple(int(b) for b in row[:n_cov])
+        staged, done = self._read_blocks_dispatch(pool_blocks)
+        self._defer("_follow_demote", pool_blocks, tuple(host_blocks))
         self._pending_host_writes.append(_HostWrite(
             kind="park", host_blocks=tuple(host_blocks), staged=staged,
             done=done, rid=rid,
@@ -4031,9 +4152,9 @@ class Engine:
                 slot = self._free.pop(0)
                 state = parked.state
             t0 = time.monotonic()
-            self._write_host_payload(parked.host_blocks,
-                                     blocks[: parked.n_cov])
-            self._restore_slot_state(slot, state)
+            self._dev("_restore_parked", parked.host_blocks,
+                      tuple(blocks[: parked.n_cov]), slot,
+                      list(state.req.tokens), list(state.emitted))
             with self._lock:
                 if self._parked.pop(rid, None) is None:
                     # Aborted during the writes: the request is failed
@@ -4055,19 +4176,29 @@ class Engine:
                     self.kv_promote_seconds += dt
                     self._promote_walls.append(dt)
 
+    def _restore_parked(self, host_blocks, dev_blocks, slot: int, prompt,
+                        emitted) -> None:
+        """Write a parked slot's host-tier blocks back into pool
+        ``dev_blocks`` and rebuild its per-slot device state (step
+        thread; on a follower after its own demotions have landed)."""
+        self._land_host(wait=True)
+        self._write_host_payload(host_blocks, dev_blocks)
+        self._restore_slot_state(slot, prompt, emitted)
+
     def _write_host_payload(self, host_blocks, dev_blocks) -> None:
         """Write host-tier blocks back into the device pool (step
         thread): a gather into pinned staging, then ``_write_blocks``."""
         self._write_blocks(dev_blocks, self._host.gather(
             host_blocks, pin=self.device.type == "cuda"))
 
-    def _restore_slot_state(self, slot: int, state: _SlotState) -> None:
+    def _restore_slot_state(self, slot: int, prompt, emitted) -> None:
         """Rebuild a restored slot's per-slot device state from host truth
-        (step thread, stream-ordered before the next dispatch): prompt
-        lookup's history row and the penalty occurrence rows.  Sampling
-        needs nothing: the noise key is (seed, sample_base + emitted
-        count), all host state."""
-        tokens = list(state.req.tokens) + list(state.emitted)
+        (its ``prompt`` and ``emitted`` tokens; stream-ordered before the
+        next dispatch): prompt lookup's history row and the penalty
+        occurrence rows, on every rank of a mesh.  Sampling needs
+        nothing: the noise key is (seed, sample_base + emitted count), all
+        host state."""
+        tokens = list(prompt) + list(emitted)
         vocab = self.cfg.vocab_size
         with self._step_stream():
             hist_row = tok_row = gen_row = None
@@ -4079,7 +4210,7 @@ class Engine:
                 tok_row = _to_device(np.bincount(
                     tokens, minlength=vocab).astype(np.int32), self.device)
                 gen_row = _to_device(np.bincount(
-                    state.emitted, minlength=vocab).astype(np.int32),
+                    emitted, minlength=vocab).astype(np.int32),
                     self.device)
             _restore_slot(self._history, self._tok_counts, self._gen_counts,
                           slot, hist_row, tok_row, gen_row)
@@ -4152,6 +4283,7 @@ class Engine:
         if imp is None:
             return False
         self._alloc.decref(imp.blocks)
+        self._drop_tag_locked(imp.tag)
         return True
 
     def release_kv_hold(self, rid: int) -> bool:
@@ -4186,10 +4318,7 @@ class Engine:
         return [name for name, _ in self._cache.leaves()], staged
 
     def _refuse_ship(self, what: str) -> None:
-        """The ship-ineligible guard: dense and packed-int4 engines, and
-        a mesh."""
-        if self.mesh is not None:
-            raise KvIneligibleError(str(_refuse_mesh(what)))
+        """The ship-ineligible guard: dense and packed-int4 engines."""
         if not self.paged:
             raise KvIneligibleError(
                 f"{what} needs a paged engine (oim-serve --kv-block)")
@@ -4216,7 +4345,7 @@ class Engine:
             hold = self._kv_holds.get(rid)
             if hold is None:
                 raise KvIneligibleError(f"no held KV for request {rid}")
-        names, arrays = self._gather_blocks(hold.blocks)
+        names, arrays = self._export_payload(hold.blocks)
         manifest = self._manifest(hold.rows, hold.prompt_tokens, hold.tokens,
                                   hold.sampling, names, arrays)
         with self._lock:
@@ -4230,7 +4359,8 @@ class Engine:
         shipped blocks (all-or-nothing: ``KvCapacityError`` is
         backpressure), and keep the host payload for the step thread to write
         at the continuation's admission.  Returns (import_id, rows).  Any
-        thread: nothing here touches the device."""
+        thread: nothing here touches the device (under a mesh each rank
+        takes its kv-head part of the payload here, ``_stage_payload``)."""
         self._refuse_ship("KV ingest")
         validate_geometry(manifest, self.kv_geometry())
         rows = int(manifest["rows"])
@@ -4241,6 +4371,7 @@ class Engine:
                 f"shipped rows {rows} exceed max_len {self.max_len}")
         leaves = self._validate_ship_leaves(data, -(-rows // self.kv_block))
         total = sum(t.nbytes for t in leaves.values())
+        tag, leaves = self._stage_payload(leaves)
         with self._lock:
             now = time.monotonic()
             self._sweep_kv_imports_locked(now)
@@ -4251,6 +4382,7 @@ class Engine:
             n_ship = -(-rows // self.kv_block)
             blocks = self._alloc.alloc(n_ship)
             if blocks is None:
+                self._drop_tag_locked(tag)
                 raise KvCapacityError(
                     f"pool cannot reserve {n_ship} blocks for the shipped "
                     f"KV ({self._alloc.free_blocks} free) — retry or fall "
@@ -4259,7 +4391,7 @@ class Engine:
             self._next_import_id += 1
             self._kv_imports[import_id] = KvImport(
                 import_id=import_id, blocks=tuple(blocks), rows=rows,
-                tokens=tokens, data=leaves, t_created=now,
+                tokens=tokens, data=leaves, t_created=now, tag=tag,
             )
             self.kv_imports_total += 1
             self.kv_ship_bytes += total
@@ -4310,7 +4442,7 @@ class Engine:
                 raise KvIneligibleError(f"no resident prefix {digest!r}")
             self._alloc.incref(entry_blocks)  # pinned for the read
         try:
-            names, arrays = self._gather_blocks(entry_blocks)
+            names, arrays = self._export_payload(entry_blocks)
         finally:
             with self._lock:
                 self._alloc.decref(entry_blocks)
@@ -4347,31 +4479,42 @@ class Engine:
         tokens = [int(t) for t in manifest["prompt_tokens"]]
         n_ship = rows // self.kv_block
         leaves = self._validate_ship_leaves(data, n_ship)
+        total = sum(t.nbytes for t in leaves.values())
+        key = tuple(tokens)
         with self._lock:
-            key = tuple(tokens)
-            if key in self._prefix_cache or any(
-                    tuple(st.tokens) == key
-                    for _, st, _ in self._prefix_installs):
+            if self._prefix_staged_locked(key):
+                return digest, 0
+        tag, leaves = self._stage_payload(leaves)
+        with self._lock:
+            if self._prefix_staged_locked(key):
+                self._drop_tag_locked(tag)
                 return digest, 0
             now = time.monotonic()
             self._sweep_prefix_installs_locked(now)
             while len(self._prefix_installs) >= PREFIX_IMPORT_MAX:
                 _, old, _ = self._prefix_installs.pop(0)
                 self._alloc.decref(old.blocks)
+                self._drop_tag_locked(old.tag)
             if n_ship > self._alloc.free_blocks:
                 self._evict_prefix_for_locked(n_ship)
             blocks = self._alloc.alloc(n_ship)
             if blocks is None:
+                self._drop_tag_locked(tag)
                 raise KvCapacityError(
                     f"pool cannot reserve {n_ship} blocks for the shipped "
                     f"prefix ({self._alloc.free_blocks} free) — retry or "
                     f"fall back to recompute")
             self._prefix_installs.append((digest, KvImport(
                 import_id=-1, blocks=tuple(blocks), rows=rows,
-                tokens=tokens, data=leaves, t_created=now,
+                tokens=tokens, data=leaves, t_created=now, tag=tag,
             ), None))
-            self.kv_ship_bytes += sum(t.nbytes for t in leaves.values())
+            self.kv_ship_bytes += total
         return digest, rows
+
+    def _prefix_staged_locked(self, key: tuple) -> bool:
+        """Whether prefix ``key`` is resident or staged (lock held)."""
+        return key in self._prefix_cache or any(
+            tuple(st.tokens) == key for _, st, _ in self._prefix_installs)
 
     def _sweep_prefix_installs_locked(self, now: float) -> None:
         """TTL the staged prefix installs (lock held).  A swept promotion
@@ -4380,6 +4523,7 @@ class Engine:
         for item in self._prefix_installs:
             if now - item[1].t_created > PREFIX_IMPORT_TTL_S:
                 self._alloc.decref(item[1].blocks)
+                self._drop_tag_locked(item[1].tag)
             else:
                 keep.append(item)
         self._prefix_installs = keep
@@ -4436,9 +4580,13 @@ class Engine:
         """Land a consumed import's or install's payload in its blocks
         (step thread), stream-ordered before the admission that reads
         them: ship ingests carry k, v and int8's scales; promotions every
-        leaf of the pool, a packed int4 one's included."""
-        self._write_blocks(imp.blocks, [imp.data[name] for name, _ in
-                                        self._cache.leaves()])
+        leaf of the pool, a packed int4 one's included.  Under a mesh
+        every rank writes its part (``_write_stash``)."""
+        with self._turn():
+            if imp.tag >= 0:
+                self._lead("_write_stash", imp.tag, imp.blocks)
+            self._write_blocks(imp.blocks, [imp.data[name] for name, _ in
+                                            self._cache.leaves()])
 
     def _plan_import_admission_locked(self, req: GenRequest,
                                       imp: KvImport):
@@ -4473,8 +4621,6 @@ class Engine:
         and parked request at its next step into "migrated" failures,
         active and parked ones leaving a record for ``export_slot``.
         Idempotent; any thread."""
-        if self.mesh is not None:
-            raise _refuse_mesh("migration")
         with self._lock:
             self._draining = True
             self._migrate_out = True
@@ -4628,13 +4774,7 @@ class Engine:
             rec = self._migrated.get(rid)
             if rec is None:
                 raise KvIneligibleError(f"no migrated slot for request {rid}")
-        if rec.host_blocks:
-            # The record's refs keep these host blocks allocated, and
-            # only the step thread writes host rows, into blocks it owns.
-            names = [name for name, _ in self._host.pools()]
-            arrays = self._host.gather(rec.host_blocks, pin=False)
-        else:
-            names, arrays = self._gather_blocks(rec.blocks)
+        names, arrays = self._export_payload(rec.blocks, rec.host_blocks)
         manifest = self._manifest(rec.rows, rec.prompt_tokens, rec.tokens,
                                   rec.sampling, names, arrays)
         manifest["slot"] = dict(rec.meta)
@@ -4658,44 +4798,228 @@ class Engine:
 
     # -- mesh: the leader's records and the followers ---------------------
 
-    # What a follower runs: the device dispatches the leader records.
+    # What a follower runs: the device work the leader records.
     _FOLLOWED = frozenset((
         "_dispatch_admission", "_first_tokens", "_seat_history",
         "_dispatch_draft", "_copy_block", "_inject_rows", "_follow_store",
-        "_follow_drop", "_stage_chunk", "_ensure_graphs",
+        "_follow_drop", "_stage_chunk", "_ensure_graphs", "_follow_demote",
+        "_follow_stage", "_follow_recv", "_follow_unstash", "_write_stash",
+        "_restore_parked", "_follow_export", "_send_param", "_embed_pass",
+        "_beam_pass", "_twice_state", "_set_graphs",
     ))
 
+    def _turn(self):
+        """The leader's ``_MeshLink.turn`` (a record and its own half of
+        the work, atomically), or nothing off a mesh's leader."""
+        if self._link is not None and self._link.leader:
+            return self._link.turn
+        return nullcontext()
+
     def _lead(self, name: str, *args) -> None:
-        """On a mesh's leader, send the record of device dispatch
-        ``name`` to the followers (nothing elsewhere)."""
+        """On a mesh's leader, send the record of device work ``name``
+        to the followers (nothing elsewhere)."""
         if self._link is not None and self._link.leader:
             self._link.send(name, *args)
 
     def _dev(self, name: str, *args):
-        """Run device dispatch ``name`` from host inputs here, after
-        sending its record to a mesh's followers."""
-        self._lead(name, *args)
-        return getattr(self, name)(*args)
+        """Run device work ``name`` from host inputs here, after sending
+        its record to a mesh's followers, both inside the turn."""
+        with self._turn():
+            self._lead(name, *args)
+            return getattr(self, name)(*args)
 
     @torch.no_grad()
     def follow(self) -> None:
-        """A follower rank's loop: run each device dispatch the leader
-        records, on this rank's shard, until the leader's stop record.
-        Reads nothing back from the device."""
+        """A follower rank's loop: run each piece of device work the
+        leader records, on this rank's shard, until the leader's stop
+        record.  A decode or admission reads nothing back; a KV export or
+        a weight gather reads this rank's part to the host for the leader
+        (``_MeshLink.gather``), after the work already queued on its
+        stream."""
         if self._link is None or self._link.leader:
             raise RuntimeError("follow() runs on a mesh rank other than 0")
         while True:
             for name, *args in self._link.recv():
                 if name == "stop":
+                    self._land_host(wait=True)
                     return
                 if name not in self._FOLLOWED:
                     raise RuntimeError(f"unknown record {name!r}")
                 getattr(self, name)(*args)
+            self._land_host(wait=False)
 
     def stop_followers(self) -> None:
         """The leader's stop record: every follower's ``follow`` returns.
         Call from the step thread's side (no step running)."""
         self._lead("stop")
+
+    # -- mesh: block I/O's records -----------------------------------------
+
+    def _defer(self, *record) -> None:
+        """Queue a record made under the engine lock (a mesh's leader
+        only), to go out ahead of the leader's next one."""
+        if self._link is not None:
+            self._link.defer(*record)
+
+    def _follow_demote(self, blocks, host_blocks) -> None:
+        """A follower's half of a demotion or a park: the same copy of
+        pool ``blocks`` down, landed in host blocks ``host_blocks`` of its
+        own tier once done (``_land_host``)."""
+        staged, done = self._read_blocks_dispatch(blocks)
+        self._follow_writes.append((host_blocks, staged, done))
+
+    def _land_host(self, wait: bool) -> None:
+        """A follower's demotions whose copies are done, oldest first,
+        into its host pool at the leader's host block ids; ``wait`` lands
+        them all (before anything reads the host pool)."""
+        pending = self._follow_writes
+        while pending and (wait or pending[0][2] is None
+                           or pending[0][2].query()):
+            host_blocks, staged, done = pending.pop(0)
+            if done is not None:
+                done.synchronize()
+            ids = torch.as_tensor(host_blocks, dtype=torch.int64)
+            for (_, pool), rows in zip(self._host.pools(), staged):
+                pool.index_copy_(1, ids, rows)
+
+    def _follow_stage(self, tag: int, host_blocks) -> None:
+        """A follower's half of a promotion's staging: its part of host
+        blocks ``host_blocks``, kept under ``tag`` until the install."""
+        self._land_host(wait=True)
+        self._stash[tag] = self._host.gather(
+            host_blocks, pin=self.device.type == "cuda")
+
+    def _follow_recv(self, tag: int, n_blocks: int) -> None:
+        """A follower's half of a shipped payload's import: its kv-head
+        part of ``n_blocks`` blocks of every pool leaf, from rank 0,
+        kept under ``tag``."""
+        like = [torch.empty((pool.shape[0], n_blocks, *pool.shape[2:]),
+                            dtype=pool.dtype)
+                for _, pool in self._cache.leaves()]
+        self._stash[tag] = self._link.scatter(like=like)
+
+    def _follow_unstash(self, tag: int) -> None:
+        self._stash.pop(tag, None)
+
+    def _write_stash(self, tag: int, blocks) -> None:
+        """A follower's half of an install or an import's landing: its
+        part staged under ``tag`` into pool ``blocks``."""
+        self._write_blocks(blocks, self._stash.pop(tag))
+
+    def _drop_tag_locked(self, tag: int) -> None:
+        """A staged payload dropped before its blocks were written (lock
+        held): the followers drop their parts of it too."""
+        if tag >= 0:
+            self._defer("_follow_unstash", tag)
+
+    def _stage_payload(self, leaves: dict) -> tuple[int, dict]:
+        """A validated shipped payload (leaf name → whole kv heads, in
+        ``PagedCache.leaves``' order) as this engine stages it: (-1, the
+        leaves) off a mesh; on a mesh's leader each rank's kv-head part
+        is sent to it and staged under a new tag, and (the tag, rank 0's
+        part) come back.  Never under the engine lock."""
+        if self._link is None:
+            return -1, leaves
+        tag = next(self._tags)
+        whole = list(leaves.values())
+        with self._turn():
+            self._lead("_follow_recv", tag, whole[0].shape[1])
+            mine = self._link.scatter(
+                [self._kv_part(whole, rank) for rank in range(
+                    self.mesh.size)])
+        return tag, dict(zip(leaves, mine))
+
+    def _kv_part(self, leaves: list, rank: int) -> list:
+        """Rank ``rank``'s kv-head part of whole KV leaves [n_layers, N,
+        block, kv_heads, ...]."""
+        n = self._run_cfg.kv_heads
+        at = self.mesh.axis_index("tp", rank) * n
+        return [t.narrow(3, at, n).contiguous() for t in leaves]
+
+    def _kv_whole(self, parts: list) -> list:
+        """Whole KV leaves from every rank's parts (``parts[rank]``):
+        concatenated on the kv-head axis in ``tp`` order, one rank of
+        each ``tp`` index (the others hold the same heads)."""
+        by_index = {}
+        for rank in range(self.mesh.size):
+            by_index.setdefault(self.mesh.axis_index("tp", rank), rank)
+        ranks = [by_index[i] for i in range(len(by_index))]
+        return [torch.cat([parts[r][j] for r in ranks], dim=3)
+                for j in range(len(parts[0]))]
+
+    def _export_payload(self, blocks=(), host_blocks=()) -> tuple:
+        """(leaf names, whole leaves) of pool ``blocks`` or of host-tier
+        ``host_blocks``: the payload of every export.  Under a mesh every
+        rank reads its kv-head part (a record) and the leader gathers the
+        parts and joins them, byte for byte what one device holding the
+        same K/V sends."""
+        with self._turn():
+            self._lead("_follow_export", tuple(blocks), tuple(host_blocks))
+            names, arrays = self._read_payload(blocks, host_blocks)
+            if self._link is None:
+                return names, arrays
+            parts = self._link.gather(arrays)
+        return names, self._kv_whole(parts)
+
+    def _read_payload(self, blocks, host_blocks) -> tuple:
+        if host_blocks:
+            # The record's refs keep these host blocks allocated, and
+            # only the step thread writes host rows, into blocks it owns.
+            names = [name for name, _ in self._host.pools()]
+            return names, self._host.gather(host_blocks, pin=False)
+        return self._gather_blocks(blocks)
+
+    def _follow_export(self, blocks, host_blocks) -> None:
+        """A follower's half of an export: its part read to the host (a
+        readback, behind the work queued on its stream) and sent to rank
+        0."""
+        if host_blocks:
+            self._land_host(wait=True)
+        self._link.gather(self._read_payload(blocks, host_blocks)[1])
+
+    def _whole_param(self, layer, name: str) -> torch.Tensor:
+        """Served tensor ``name`` (of layer ``layer``, or top-level when
+        None) whole, on the host: on a mesh's leader gathered from every
+        rank's block (a record), one tensor at a time."""
+        tree = self.params if layer is None else self.params["layers"][layer]
+        spec = self._specs.get(name) if self._specs is not None else None
+        if spec is None or all(entry is None for entry in spec):
+            return tree[name].cpu()
+        with self._turn():
+            self._lead("_send_param", layer, name)
+            blocks = self._link.gather([tree[name].cpu()])
+        return gather_leaf([b[0] for b in blocks], spec, self.mesh)
+
+    def _send_param(self, layer, name: str) -> None:
+        """A follower's half of ``_whole_param``: its block to rank 0."""
+        tree = self.params if layer is None else self.params["layers"][layer]
+        self._link.gather([tree[name].cpu()])
+
+    def weight_leaves(self) -> list:
+        """The served weights as the reference's flat dict of lazy
+        ``JaxLeaf``s (``GET /v1/weights``): on a mesh's leader each part
+        gathers its whole tensor from the ranks when it is made, so no
+        card and no host buffer holds the whole model at once."""
+        if self.mesh is None:
+            return jax_leaves(self.params, self.cfg)
+        return jax_leaves(whole_meta(self.params, self.cfg, self.mesh),
+                          self.cfg, fetch=self._whole_param)
+
+    def _twice_state(self, op: str) -> None:
+        """chunk_twice's and admit_twice's device state on every rank:
+        ``save`` a copy of it, ``restore`` the copy, ``drop`` it."""
+        state = self._device_state()
+        if op == "save":
+            self._twice_saved = [t.clone() for t in state]
+        elif op == "restore":
+            for t, saved in zip(state, self._twice_saved):
+                t.copy_(saved)
+        else:
+            self._twice_saved = None
+
+    def _set_graphs(self, on: bool) -> None:
+        """admit_twice's switch between eager dispatch and replays."""
+        self.cuda_graphs = on
 
     # -- admission ----------------------------------------------------------
 
@@ -5209,8 +5533,9 @@ class Engine:
         """On graphs, capture them all at the first dispatch of either
         kind (``warmup``'s first, on a warmed engine)."""
         if self.cuda_graphs and self._graphs is None:
-            self._lead("_ensure_graphs")
-            self._capture_graphs()
+            with self._turn():
+                self._lead("_ensure_graphs")
+                self._capture_graphs()
 
     def _capture_graphs(self) -> None:
         """Capture one CUDA graph of ``_run_chunk`` per ``_GRAPH_KEYS``
@@ -5528,9 +5853,8 @@ class Engine:
         (``_device_state``) as tensors, and on a speculative engine
         ``n_emit`` and the lengths carry.  Needs the graphs and no chunk
         in flight; afterwards the device state is as it was before either
-        run."""
-        if self.mesh is not None:
-            raise _refuse_mesh("chunk_twice")
+        run.  Under a mesh every rank runs both from its own saved state
+        (records), the collectives inside the replayed graph."""
         if self._graphs is None or self._inflight is not None:
             raise RuntimeError("chunk_twice needs captured graphs and no "
                                "chunk in flight")
@@ -5538,11 +5862,10 @@ class Engine:
             slots = dict(self._slots)
         inputs, tokens, starts, indices = self._fresh_inputs(slots)
         state = self._device_state()
-        saved = [t.clone() for t in state]
+        self._dev("_twice_state", "save")
         runs = []
         for graph in (False, True):
-            for t, s in zip(state, saved):
-                t.copy_(s)
+            self._dev("_twice_state", "restore")
             _, done = self._enqueue_chunk(inputs, tokens, starts, indices,
                                           graph)
             if done is not None:
@@ -5555,8 +5878,8 @@ class Engine:
                 run.update(n_emit=b.n_emit.clone(),
                            lengths=b.meta[0].clone())
             runs.append(run)
-        for t, s in zip(state, saved):
-            t.copy_(s)
+        self._dev("_twice_state", "restore")
+        self._dev("_twice_state", "drop")
         return runs
 
     def _device_state(self) -> list[torch.Tensor]:
@@ -5587,14 +5910,13 @@ class Engine:
         segment start} of the prompts mid-prefill, and ``state``, the
         device state (``_device_state``) as tensors.  Needs the graphs and
         no chunk in flight; the engine is left as the replayed wave left
-        it.  The check's work is not counted in ``stats()``."""
-        if self.mesh is not None:
-            raise _refuse_mesh("admit_twice")
+        it.  The check's work is not counted in ``stats()``.  Under a mesh
+        every rank runs both from its own saved state (records)."""
         if self._graphs is None or self._inflight is not None:
             raise RuntimeError("admit_twice needs captured graphs and no "
                                "chunk in flight")
         state = self._device_state()
-        saved = [t.clone() for t in state]
+        self._dev("_twice_state", "save")
         with self._lock:
             host = copy.deepcopy({name: getattr(self, name)
                                   for name in self._WAVE_STATE})
@@ -5604,12 +5926,11 @@ class Engine:
         self._warming = True
         try:
             for graphs in (False, True):
-                for t, s in zip(state, saved):
-                    t.copy_(s)
+                self._dev("_twice_state", "restore")
                 with self._lock:
                     for name, value in copy.deepcopy(host).items():
                         setattr(self, name, value)
-                self.cuda_graphs = graphs
+                self._dev("_set_graphs", graphs)
                 self._admit_wave()
                 with self._lock:
                     first = {st.rid: (st.emitted[0], st.logprobs[0])
@@ -5624,6 +5945,7 @@ class Engine:
                         "state": [t.clone() for t in state],
                     })
         finally:
-            self.cuda_graphs = True
+            self._dev("_set_graphs", True)
+            self._dev("_twice_state", "drop")
             self._warming = False
         return runs

@@ -47,7 +47,8 @@ codes and JSON bodies:
 - ``GET /v1/weights``: the served weights in the reference's framing and
   flat layout (``models/weights.py::jax_leaves``), leaf by leaf off the
   card through one pinned bounce buffer, for a sibling's
-  ``load_params_from_peer``.
+  ``load_params_from_peer``; on a mesh's leader each tensor gathered
+  whole from the ranks' shards, one at a time.
 - ``GET /healthz``, ``/v1/stats``, ``/v1/info`` (with the server's
   ``pool``, the live ``load`` and the tokenizer's path), ``/metrics``
   (the Prometheus text of ``common/metrics.py``'s registry), ``/debugz``
@@ -91,7 +92,6 @@ from urllib.parse import parse_qs
 import torch
 
 from oim_tpu_torch.common import events, metrics, tracing
-from oim_tpu_torch.models.weights import jax_leaves
 from oim_tpu_torch.serve import disagg
 from oim_tpu_torch.serve.httptls import (
     TLSThreadingHTTPServer,
@@ -991,25 +991,22 @@ class ServeServer:
     def _stream_weights(self, handler) -> None:
         """``GET /v1/weights``: the reference's flat parameter dict in
         its framing — manifest, then each leaf's bytes in manifest order,
-        each made and copied down as it is sent."""
+        each made and copied down as it is sent.  A mesh's leader gathers
+        each tensor whole from the ranks' shards as its part is made
+        (``Engine.weight_leaves``), on the host."""
         if self._unavailable(handler, "weights"):
             return
-        if self.engine.mesh is not None:
-            # Each rank holds a shard; streaming the whole model waits
-            # for ROADMAP Queue A12, second part.
-            handler._json(501, {"error": "/v1/weights is not served under "
-                                "a mesh yet (ROADMAP Queue A12, second "
-                                "part)"})
-            return
-        leaves = jax_leaves(self.engine.params, self.engine.cfg)
+        leaves = self.engine.weight_leaves()
         manifest = [{"name": leaf.name, "dtype": leaf.dtype,
                      "shape": list(leaf.shape)} for leaf in leaves]
         total = sum(math.prod(leaf.shape) * (
             1 if leaf.dtype == "int4"
             else disagg.torch_dtype(leaf.dtype).itemsize) for leaf in leaves)
         parts = [part for leaf in leaves for part in leaf.parts]
+        device = (self.engine.device if self.engine.mesh is None
+                  else torch.device("cpu"))
         _send_transfer(handler, manifest, total,
-                       _weight_chunks(self.engine.device, parts))
+                       _weight_chunks(device, parts))
 
     def _send_export(self, handler, manifest, arrays) -> None:
         total = sum(a.numel() * a.element_size() for a in arrays)

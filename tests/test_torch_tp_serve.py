@@ -14,8 +14,10 @@ weights (int4 at a group that keeps ``wo`` whole, its input gathered),
 the paged pool with the prefix cache and chunked prefill at depth 1, the
 dense prefix cache, prompt-lookup and draft-model speculation,
 penalties — greedy tokens the JAX engine's, and every rank's final
-buffers are bitwise rank 0's.  The refusals carry the reference's
-messages, or name ROADMAP Queue A12's second part.
+buffers are bitwise rank 0's.  Indivisible heads are refused with the
+reference's message.  The host tier, shipping, migration, weights,
+beam and embed under a mesh are ``tests/test_torch_tp_io*.py``'s and
+``tests/test_torch_tp_ship.py``'s.
 """
 
 import numpy as np
@@ -27,7 +29,6 @@ from torch_cpu_threads import one_torch_thread  # noqa: F401
 from torch_tp_cases import (
     CASES,
     CFG,
-    ENGINE,
     case,
     greedy_rows,
     jax_mesh,
@@ -36,19 +37,10 @@ from torch_tp_cases import (
 )
 from torch_tp_worker import RankGroup, same_buffers
 
-A12_2 = "ROADMAP Queue A12, second part"
 # name → (case fields over the plain one's, the message rank 0 raises)
 REFUSALS = {
     "heads": (dict(cfg=dict(CFG, d_model=48, n_heads=3, n_kv_heads=0)),
               "must divide by mesh tp=2"),
-    "host_tier": (dict(engine=dict(ENGINE, kv_block=16,
-                                   kv_host_bytes=1 << 20)), A12_2),
-    "beam": (dict(call=("beam", ([1, 2, 3], 4))), A12_2),
-    "embed": (dict(call=("embed", ([1, 2, 3],))), A12_2),
-    "migration": (dict(call=("begin_migrate_out", ())), A12_2),
-    "hold_kv": (dict(engine=dict(ENGINE, kv_block=16),
-                     requests=[dict(tokens=[1, 2, 3], max_new_tokens=2,
-                                    hold_kv=True)]), A12_2),
 }
 
 
@@ -125,8 +117,8 @@ def test_tp_paths_took_their_routes(runs):
 
 @pytest.mark.parametrize("name", list(REFUSALS))
 def test_tp_refusals(runs, name):
-    """Out-of-scope features and indivisible heads raise on rank 0 with
-    the reference's message or the named ROADMAP item."""
+    """Indivisible heads raise on rank 0 with the reference's
+    message."""
     answer = runs.get()[f"refuse_{name}"][0]
     assert REFUSALS[name][1] in (answer.get("error") or ""), answer
 

@@ -3,9 +3,14 @@
 - ``--device cpu --tp 2`` as its own process: one command starts its
   follower rank (spawned, gloo), serves ``/v1/generate`` with the tokens
   the single-device engine gives the same seed's weights, reports
-  ``tp``/``ep`` in ``/v1/info``, refuses ``/v1/weights`` naming ROADMAP
-  Queue A12's second part, and on SIGTERM drains, stops the follower
+  ``tp``/``ep`` in ``/v1/info``, streams ``/v1/weights`` byte-equal to
+  the single-device server's, and on SIGTERM drains, stops the follower
   (exit code 0) and exits 0.
+- ``--tp 2 --params-peer URL --kv-block --kv-host-bytes``: the ranks
+  take a single-device sibling's weights and serve its greedy tokens;
+  SIGTERM with a live stream drains by migration — the stream ends
+  "migrated", its ``/v1/slot`` record exports (every rank's part) until
+  it is deleted — and then every rank exits.
 - Too few GPUs fails before any process starts, with the reference's
   ``"need N devices, have M"``; ``make_engine`` alone refuses a mesh
   size it was not given a mesh for.
@@ -29,7 +34,9 @@ import torch
 
 from oim_tpu_torch.cli import serve_main
 from oim_tpu_torch.models.transformer import init_params
-from oim_tpu_torch.serve.engine import Engine, GenRequest
+from oim_tpu_torch.serve import disagg
+from oim_tpu_torch.serve.engine import Engine
+from oim_tpu_torch.serve.server import ServeServer
 from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -52,52 +59,146 @@ def _get(port: int, path: str, body=None):
         return exc.code, json.loads(exc.read())
 
 
-def test_serve_main_tp2_process(tmp_path):
-    argv = [sys.executable, "-m", "oim_tpu_torch.cli.serve_main", *TINY,
-            "--device", "cpu", "--tp", "2", "--port", "0", "--no-warmup",
-            "--watchdog-interval", "0", "--drain-timeout", "5"]
-    env = dict(os.environ, PYTHONPATH=str(REPO), TMPDIR=str(tmp_path),
-               OMP_NUM_THREADS="1")
-    proc = subprocess.Popen(argv, cwd=str(REPO), env=env,
-                            stderr=subprocess.PIPE, text=True,
-                            start_new_session=True)
-    lines, listening = [], threading.Event()
-
-    def read():
-        for line in proc.stderr:
-            lines.append(line)
-            if "oim-serve listening" in line:
-                listening.set()
-
-    reader = threading.Thread(target=read, daemon=True)
-    reader.start()
+def _raw(port: int, path: str, method: str = "GET") -> tuple:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 method=method)
     try:
-        assert listening.wait(120), "".join(lines[-10:])
-        port = int(next(re.search(r"port=(\d+)", ln).group(1)
-                        for ln in lines if "oim-serve listening" in ln))
-        status, reply = _get(port, "/v1/generate",
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+class _Process:
+    """``serve_main`` with ``args`` as its own process: its stderr lines
+    (``lines``), the port it listens on; ``stop`` sends SIGTERM and
+    returns its exit code and log."""
+
+    def __init__(self, tmp_path, args):
+        argv = [sys.executable, "-m", "oim_tpu_torch.cli.serve_main",
+                *args, "--device", "cpu", "--tp", "2", "--port", "0",
+                "--no-warmup", "--watchdog-interval", "0"]
+        env = dict(os.environ, PYTHONPATH=str(REPO), TMPDIR=str(tmp_path),
+                   OMP_NUM_THREADS="1")
+        self.proc = subprocess.Popen(argv, cwd=str(REPO), env=env,
+                                     stderr=subprocess.PIPE, text=True,
+                                     start_new_session=True)
+        self.lines, listening = [], threading.Event()
+
+        def read():
+            for line in self.proc.stderr:
+                self.lines.append(line)
+                if "oim-serve listening" in line:
+                    listening.set()
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+        if not listening.wait(120):
+            self.kill()
+            raise AssertionError("".join(self.lines[-10:]))
+        self.port = int(next(re.search(r"port=(\d+)", ln).group(1)
+                             for ln in self.lines
+                             if "oim-serve listening" in ln))
+
+    def signal(self) -> None:
+        self.proc.send_signal(signal.SIGTERM)
+
+    def wait(self) -> tuple:
+        code = self.proc.wait(timeout=90)
+        self.reader.join(timeout=10)
+        return code, "".join(self.lines)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        self.proc.stderr.close()
+
+
+def _single_server(args: list, **engine) -> ServeServer:
+    """The single-device server of ``TINY`` + ``args``' model (seed 3)."""
+    parsed = serve_main.build_parser().parse_args(TINY + args)
+    cfg = serve_main.model_config(parsed)
+    return ServeServer(Engine(init_params(3, cfg, device="cpu"), cfg,
+                              device="cpu", **engine)).start()
+
+
+def test_serve_main_tp2_process(tmp_path):
+    proc = _Process(tmp_path, TINY + ["--drain-timeout", "5"])
+    try:
+        status, reply = _get(proc.port, "/v1/generate",
                              {"tokens": PROMPT, "max_new_tokens": 6})
         assert status == 200, reply
-        _, info = _get(port, "/v1/info")
-        status, refused = _get(port, "/v1/weights")
-        proc.send_signal(signal.SIGTERM)
-        assert proc.wait(timeout=60) == 0
-        reader.join(timeout=10)
+        _, info = _get(proc.port, "/v1/info")
+        status, weights = _raw(proc.port, "/v1/weights")
+        proc.signal()
+        code, text = proc.wait()
     finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-        proc.stderr.close()
-    text = "".join(lines)
+        proc.kill()
+    assert code == 0
     assert (info["engine"]["tp"], info["engine"]["ep"]) == (2, 1)
-    assert status == 501 and "A12, second part" in refused["error"]
     assert "mesh ranks stopped exitcodes=[0]" in text, text[-600:]
-    args = serve_main.build_parser().parse_args(TINY + ["--device", "cpu"])
-    cfg = serve_main.model_config(args)
-    engine = Engine(init_params(3, cfg, device="cpu"), cfg, device="cpu",
-                    n_slots=2, max_len=64, chunk=4)
-    rid = engine.submit(GenRequest(tokens=PROMPT, max_new_tokens=6))
-    assert reply["tokens"] == engine.run()[rid]
+    single = _single_server([], n_slots=2, max_len=64, chunk=4)
+    try:
+        _, want = _get(single.port, "/v1/generate",
+                       {"tokens": PROMPT, "max_new_tokens": 6})
+        assert reply["tokens"] == want["tokens"]
+        assert status == 200
+        assert weights == _raw(single.port, "/v1/weights")[1]
+    finally:
+        single.stop()
+
+
+def test_serve_main_tp2_params_peer_drains_by_migration(tmp_path):
+    """The ranks load a sibling's weights; SIGTERM suspends a live
+    stream into a slot record, which every rank exports, and the
+    followers stop once it is taken."""
+    sibling = _single_server([], n_slots=2, max_len=256, chunk=1)
+    try:
+        proc = _Process(tmp_path, TINY + [
+            "--params-peer", f"http://127.0.0.1:{sibling.port}",
+            "--seed", "9", "--max-len", "256", "--chunk", "1",
+            "--kv-block", "8", "--kv-host-bytes", str(1 << 20),
+            "--drain-timeout", "60"])
+        try:
+            body = {"tokens": PROMPT, "max_new_tokens": 8}
+            status, reply = _get(proc.port, "/v1/generate", body)
+            assert status == 200
+            assert reply["tokens"] == _get(sibling.port, "/v1/generate",
+                                           body)[1]["tokens"]
+            lines = _stream(proc, {"tokens": PROMPT, "max_new_tokens": 240})
+            assert lines[-1].get("migrate") is True, lines[-1]
+            rid = int(lines[-1]["request_id"])
+            prior = [ln["token"] for ln in lines if "token" in ln]
+            status, record = _raw(proc.port, f"/v1/slot?rid={rid}")
+            manifest, _ = disagg.unpack_transfer(record)
+            assert status == 200 and manifest["tokens"] == prior
+            assert manifest["rows"] == len(PROMPT) + len(prior) - 1
+            assert _raw(proc.port, f"/v1/slot?rid={rid}", "DELETE")[0] == 200
+            code, text = proc.wait()
+        finally:
+            proc.kill()
+    finally:
+        sibling.stop()
+    assert code == 0 and "drained remaining=0" in text
+    assert "mesh ranks stopped exitcodes=[0]" in text, text[-600:]
+
+
+def _stream(proc: _Process, body: dict) -> list:
+    """A streaming generate on ``proc``, SIGTERM sent at its second
+    token: every NDJSON line."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{proc.port}/v1/generate",
+        json.dumps(dict(body, stream=True)).encode(),
+        {"Content-Type": "application/json"})
+    lines = []
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        for raw in resp:
+            if raw.strip():
+                lines.append(json.loads(raw))
+                if len(lines) == 2:
+                    proc.signal()
+    return lines
 
 
 def test_too_few_devices_fail_before_any_rank(monkeypatch):

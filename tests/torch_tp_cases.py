@@ -1,5 +1,7 @@
 """Shared pieces of the port's sharded-serving tests: the small models,
-their requests and cases, and the engines they are held against.
+their requests and cases, and the engines they are held against.  JAX
+is imported only by the functions that build its engines, so that a
+module of the port's engines alone starts without it.
 
 The params are drawn by the port's seeded ``init_params`` (q/k/v biases
 random) and handed to both packages as the reference's numpy tree, so
@@ -9,21 +11,14 @@ f32 at tiny widths.
 """
 
 import functools
+import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
-
-from oim_tpu.models import TransformerConfig as JaxConfig
-from oim_tpu.ops.quant import quantize_params_int8 as jax_quant_int8
-from oim_tpu.parallel import build_mesh as jax_build_mesh
-from oim_tpu.serve import Engine as JaxEngine
-from oim_tpu.serve import GenRequest as JaxRequest
 
 from oim_tpu_torch.models.transformer import TransformerConfig, init_params
 from oim_tpu_torch.models.weights import from_jax_params, to_jax_params
 from oim_tpu_torch.serve.engine import Engine, GenRequest
-from torch_tp_worker import quantized
+from torch_tp_worker import quantized, run_script
 
 # Qwen2-style (biases, GQA 4/2), an even vocab: wte/wlm shard over tp.
 CFG = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -146,6 +141,15 @@ def greedy_rows(c: dict, tokens: list) -> list:
 def jax_mesh(c: dict, tp: int, ep: int = 1) -> list:
     """Greedy tokens of the JAX engine on its own tp×ep mesh (virtual
     CPU devices) on case ``c``."""
+    import jax
+    import jax.numpy as jnp
+
+    from oim_tpu.models import TransformerConfig as JaxConfig
+    from oim_tpu.ops.quant import quantize_params_int8 as jax_quant_int8
+    from oim_tpu.parallel import build_mesh as jax_build_mesh
+    from oim_tpu.serve import Engine as JaxEngine
+    from oim_tpu.serve import GenRequest as JaxRequest
+
     params = {k: jnp.asarray(v) for k, v in c["tree"].items()}
     if c["weights"] == "int8":
         params = jax_quant_int8(params)
@@ -161,3 +165,273 @@ def jax_mesh(c: dict, tp: int, ep: int = 1) -> list:
     rids = [engine.submit(JaxRequest(**r)) for r in greedy]
     results = engine.run()
     return [results[rid] for rid in rids]
+
+
+# ---------------------------------------------------------------------------
+# Block I/O under a mesh (``tests/test_torch_tp_io*.py``): the host tier,
+# KV shipping, weights, peers, beam and embed.  The steps are
+# ``torch_tp_worker.run_script``'s, run alike on the tp=2 leader and on
+# the single-device engine.
+
+# The reference's pressure geometry (``tests/test_torch_host_tier.py``):
+# a 10-block pool of 8-token blocks, worst cases of 5 blocks, and a host
+# tier of 16 whole blocks (a whole block: 2 layers x K, V x 2 kv heads x
+# 8 x 8 rows x 4 bytes = 2 KiB), so the tier's size depends on counting
+# bytes over the whole model's kv heads.
+HOST_BYTES = 16 * 2048
+TIER_ENGINE = dict(n_slots=4, max_len=64, chunk=4, prompt_buckets=(16, 32),
+                   kv_block=8, kv_blocks=10, prefix_cache_size=2,
+                   kv_host_bytes=HOST_BYTES)
+QOS_POLICY = ('{"tenants": {"user.gold": {"tier": "premium"}, '
+              '"user.lead": {"tier": "best_effort"}}}')
+QOS_ENGINE = dict(TIER_ENGINE, n_slots=2, kv_blocks=16, qos=QOS_POLICY)
+SHIP_ENGINE = dict(TIER_ENGINE, kv_blocks=16, prompt_buckets=(8, 16, 32))
+TIER_KEYS = ["kv_demotions", "kv_promotions", "kv_parks", "kv_unparks",
+             "kv_demote_bytes", "kv_promote_bytes", "prefix_demotions",
+             "prefix_evictions", "prefix_hits", "kv_host_blocks_total",
+             "host_prefix_entries", "qos_preemptions"]
+SHIP_KEYS = ["kv_exports", "kv_imports", "kv_ship_bytes", "prefix_exports",
+             "prefix_fetch_installs", "slot_exports", "slot_imports",
+             "prefix_hits", "prefix_bytes_saved", "kv_holds",
+             "kv_imports_staged", "migrated_slots"]
+
+HIT = prompt(1, 16) + prompt(2, 8)
+COW_HIT = prompt(1, 16) + prompt(4, 3)
+TIER_SCRIPT = [
+    ("gen", [dict(tokens=HIT, max_new_tokens=5)]),
+    ("gen", [dict(tokens=COW_HIT, max_new_tokens=5, temperature=0.8,
+                  seed=11)]),
+    ("flush",),
+    # Seed an entry, retire it under pressure (demoted), hit it twice
+    # (promoted), a sampled stream beside.
+    ("gen", [dict(tokens=prompt(1, 16), max_new_tokens=2,
+                  cache_prefix=True)]),
+    ("gen", [dict(tokens=prompt(100 + i, 16), max_new_tokens=24)
+             for i in range(3)]),
+    ("gen", [dict(tokens=HIT, max_new_tokens=5),
+             dict(tokens=prompt(5, 9), max_new_tokens=5, temperature=0.8,
+                  seed=3)]),
+    ("gen", [dict(tokens=COW_HIT, max_new_tokens=5, temperature=0.8,
+                  seed=11)]),
+    ("stats", TIER_KEYS),
+]
+QOS_LEAD = [dict(tokens=prompt(70, 16), max_new_tokens=40, seed=7,
+                 tenant="user.lead"),
+            dict(tokens=prompt(71, 16), max_new_tokens=40, seed=9,
+                 tenant="user.lead")]
+QOS_GOLD = [dict(tokens=prompt(72, 16), max_new_tokens=6, seed=3,
+                 tenant="user.gold")]
+
+
+def _sampled(reqs: list) -> list:
+    return [dict(r, temperature=0.8) for r in reqs]
+
+
+QOS_SCRIPT = [
+    ("late", QOS_LEAD, 4, QOS_GOLD),
+    ("late", _sampled(QOS_LEAD), 4, _sampled(QOS_GOLD)),
+    ("stats", TIER_KEYS),
+]
+
+HELD = dict(tokens=prompt(31, 20), max_new_tokens=3)
+HELD_FULL = dict(HELD, max_new_tokens=12)
+SYSTEM = prompt(7, 16)
+PREFIX_HIT = SYSTEM + prompt(8, 5)
+SLOT = dict(tokens=prompt(33, 14), max_new_tokens=20, temperature=0.7,
+            seed=21)
+SOURCE_SCRIPT = [  # what the single-device exporter ships to the ranks
+    ("hold", HELD),
+    ("gen", [dict(tokens=SYSTEM, max_new_tokens=2, cache_prefix=True)]),
+    ("export_prefix", SYSTEM),
+    ("suspend", SLOT, 5),
+]
+
+
+def ship_script(held, prefix, slot) -> list:
+    """The shipping case's steps, importing the single-device exports
+    ``held`` (tokens, manifest, arrays), ``prefix`` and ``slot``
+    (manifest, arrays)."""
+    prior = len(slot[0]["tokens"])
+    return [
+        ("hold", HELD),
+        ("import_kv", held[1], held[2],
+         dict(tokens=HELD["tokens"] + held[0], max_new_tokens=9)),
+        ("roundtrip_kv", dict(tokens=prompt(34, 11), max_new_tokens=4)),
+        ("gen", [dict(tokens=SYSTEM, max_new_tokens=2, cache_prefix=True)]),
+        ("export_prefix", SYSTEM),
+        ("flush",),
+        ("import_prefix", *prefix),
+        ("gen", [dict(tokens=PREFIX_HIT, max_new_tokens=6)]),
+        ("roundtrip_prefix", SYSTEM),
+        ("suspend", SLOT, 5),
+        ("import_slot", *slot, dict(max_new_tokens=SLOT["max_new_tokens"]
+                                    - prior, temperature=0.7, seed=21)),
+        ("stats", SHIP_KEYS),
+    ]
+
+
+BEAM = (prompt(40, 9), 6, 3)
+SOLO_SCRIPT = [
+    ("beam", *BEAM),
+    ("beam", prompt(41, 5), 4, 2, 0.6, 17),
+    ("embed", prompt(42, 11)),
+    ("beam_during", GREEDY + SAMPLED, BEAM),
+    ("weights",),
+    ("storm", GREEDY + SAMPLED, [prompt(43 + i, 5 + i) for i in range(
+        (os.cpu_count() or 4) + 2)]),
+]
+# Still refused or not parking under a mesh, as on one device: packed
+# int4 KV ships nothing; a draft engine does not park.
+INT4_SCRIPT = [("try", "hold", HELD), ("attr", "kv_park")]
+DRAFT_SCRIPT = [("attr", "kv_park"),
+                ("gen", [dict(tokens=HIT, max_new_tokens=4)])]
+
+IO_CASES = {
+    "tier": (TIER_ENGINE, "", TIER_SCRIPT),
+    "qos": (QOS_ENGINE, "", QOS_SCRIPT),
+    "solo": (dict(ENGINE), "", SOLO_SCRIPT),
+    "int4_kv": (dict(TIER_ENGINE, kv_int4=True), "", INT4_SCRIPT),
+    "draft": (dict(TIER_ENGINE, spec_decode=2, penalties=False), "",
+              DRAFT_SCRIPT),
+}
+
+
+def io_case(name: str, script=None, engine=None, **over) -> dict:
+    """One block I/O case as the ranks take it."""
+    eng, weights, steps = IO_CASES.get(name, (engine, "", script))
+    out = {"name": name, "cfg": CFG, "tree": model_tree(CFG),
+           "engine": eng, "weights": weights,
+           "script": script if script is not None else steps}
+    if name == "draft":
+        out["draft"] = draft_case()
+    out.update(over)
+    return out
+
+
+def port_engine(c: dict) -> Engine:
+    """The port's single-device engine of case ``c``."""
+    from oim_tpu_torch.qos.policy import decode_policy
+
+    cfg = TransformerConfig(**c["cfg"])
+    params = quantized(from_jax_params(c["tree"], cfg), c["weights"])
+    kw = dict(c["engine"])
+    if isinstance(kw.get("qos"), str):
+        kw["qos"] = decode_policy(kw["qos"])
+    if "draft" in c:
+        dcfg = TransformerConfig(**c["draft"]["cfg"])
+        kw.update(draft_cfg=dcfg,
+                  draft_params=from_jax_params(c["draft"]["tree"], dcfg))
+    return Engine(params, cfg, device="cpu", **kw)
+
+
+class RankView:
+    """Rank ``rank``'s view of a mesh of ``sizes`` with no process group:
+    what ``shard_params``, ``gather_params`` and ``serve_specs`` read."""
+
+    def __init__(self, rank: int, **sizes):
+        from oim_tpu_torch.parallel.mesh import AXES, _coords
+
+        self.shape = {a: sizes.get(a, 1) for a in AXES}
+        self.rank = rank
+        self._axes = AXES
+        self._coords = _coords
+        self.size = int(np.prod(list(self.shape.values())))
+
+    def coords_of(self, rank: int) -> dict:
+        return dict(zip(self._axes, self._coords(rank, self.shape)))
+
+    def _key(self, axes) -> tuple:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in self._axes if a in axes)
+
+    def axis_size(self, axes) -> int:
+        return int(np.prod([self.shape[a] for a in self._key(axes)]))
+
+    def axis_index(self, axes, rank=None) -> int:
+        coords = self.coords_of(self.rank if rank is None else rank)
+        index = 0
+        for a in self._key(axes):
+            index = index * self.shape[a] + coords[a]
+        return index
+
+
+def rank_views(**sizes) -> list:
+    n = int(np.prod(list(sizes.values())))
+    return [RankView(r, **sizes) for r in range(n)]
+
+
+class GroupRuns:
+    """``cases`` handed to one spawned tp=2 group at once (or later, by
+    ``submit``, while the ranks start); ``get`` collects every answer at
+    first use ({name: [rank answers]}), so the test process works
+    meanwhile; ``outputs`` is rank 0's script outputs of a case that
+    raised on no rank."""
+
+    def __init__(self, tmp_dir: str, cases: list, **sizes):
+        from torch_tp_worker import RankGroup
+
+        self.group = RankGroup(2, tmp_dir, **(sizes or dict(tp=2)))
+        self.cases = []
+        self.submit(cases)
+        self.answers = None
+
+    def submit(self, cases: list) -> None:
+        self.cases += cases
+        self.group.submit(cases)
+
+    def get(self) -> dict:
+        if self.answers is None:
+            self.answers = self.group.collect([c["name"]
+                                               for c in self.cases])
+        return self.answers
+
+    def outputs(self, name: str) -> list:
+        answers = self.get()[name]
+        assert [a.get("error") for a in answers] == [None, None], answers
+        return answers[0]["outputs"]
+
+    def close(self) -> None:
+        self.group.close()
+
+
+_SINGLE: dict = {}
+
+
+def single_outputs(case: dict) -> list:
+    """Case ``case``'s steps on the port's single-device engine (cached
+    by name)."""
+    if case["name"] not in _SINGLE:
+        _SINGLE[case["name"]] = run_script(port_engine(case), case["script"])
+    return _SINGLE[case["name"]]
+
+
+def same_streams(got: list, want: list) -> None:
+    """The same tokens, logprobs within 1e-4."""
+    assert [t for t, _ in got] == [t for t, _ in want]
+    np.testing.assert_allclose(np.concatenate([lp for _, lp in got]),
+                               np.concatenate([lp for _, lp in want]),
+                               atol=1e-4, rtol=0)
+
+
+def jax_engine(engine: dict, tp: int = 1):
+    """The JAX engine over the plain model's numpy params with ``engine``
+    arguments (a QoS policy as its JSON text): one device, or its own tp
+    mesh of virtual CPU devices."""
+    import jax
+    import jax.numpy as jnp
+
+    from oim_tpu.models import TransformerConfig as JaxConfig
+    from oim_tpu.parallel import build_mesh as jax_build_mesh
+    from oim_tpu.serve import Engine as JaxEngine
+
+    from oim_tpu.qos.policy import decode_policy
+
+    params = {k: jnp.asarray(v) for k, v in model_tree(CFG).items()}
+    mesh = None
+    if tp > 1:
+        mesh = jax_build_mesh(tp=tp, devices=jax.devices()[:tp])
+    kw = dict(engine)
+    if isinstance(kw.get("qos"), str):
+        kw["qos"] = decode_policy(kw["qos"])
+    return JaxEngine(params, JaxConfig(**CFG, use_pallas=False), mesh=mesh,
+                     **kw)

@@ -10,14 +10,23 @@ mesh with the case's params and arguments; rank 0 serves the case's
 requests (or makes its call) and then stops the followers, which run
 ``Engine.follow`` meanwhile.  Each rank answers with what it saw: rank
 0's tokens and logprobs, or the error it raised, and every rank's final
-device buffers, which the tests hold bitwise to rank 0's.  This module
-imports no JAX: the children import it by name.
+device buffers, which the tests hold bitwise to rank 0's.  A case with a
+``script`` runs ``run_script``'s steps on rank 0 instead (the block I/O
+cases: the host tier, KV shipping, weights, beam and embed), and the
+tests run the same steps on the single-device engine and on the JAX
+engine (each step submits the engine's own package's ``GenRequest``);
+a case with a ``peer`` URL loads every rank's shard from that server's
+``/v1/weights``.  This module imports no JAX: the children import it by
+name.
 """
 
+import hashlib
 import multiprocessing as mp
 import os
 import queue
+import threading
 import traceback
+import urllib.request
 
 import numpy as np
 
@@ -50,14 +59,25 @@ def quantized(params: dict, weights: str) -> dict:
     return params
 
 
-def _params(case: dict):
+def _params(case: dict, mesh=None):
+    from oim_tpu_torch.checkpoint import load_params_from_peer
     from oim_tpu_torch.models.transformer import TransformerConfig
     from oim_tpu_torch.models.weights import from_jax_params
+    from oim_tpu_torch.qos.policy import decode_policy
 
     cfg = TransformerConfig(**case["cfg"])
-    params = from_jax_params(case["tree"], cfg)
-    params = quantized(params, case.get("weights", ""))
+    if case.get("peer"):
+        weights = case.get("weights", "")
+        params = load_params_from_peer(
+            case["peer"], cfg, "cpu", weight_quant=weights.split(":")[0],
+            int4_group=int(weights[5:]) if weights.startswith("int4:")
+            else 64, mesh=mesh)
+    else:
+        params = quantized(from_jax_params(case["tree"], cfg),
+                           case.get("weights", ""))
     kwargs = dict(case.get("engine", {}))
+    if isinstance(kwargs.get("qos"), str):
+        kwargs["qos"] = decode_policy(kwargs["qos"])
     if "draft" in case:
         dcfg = TransformerConfig(**case["draft"]["cfg"])
         kwargs.update(draft_cfg=dcfg, draft_params=from_jax_params(
@@ -65,20 +85,42 @@ def _params(case: dict):
     return cfg, params, kwargs
 
 
+def digests(params: dict) -> dict:
+    """SHA-256 of each tensor's bytes of a port params tree, by dotted
+    name."""
+    from oim_tpu_torch.models.train import named_parameters
+
+    return {name: hashlib.sha256(_host_bytes(t)).hexdigest()
+            for name, t in named_parameters(params)}
+
+
+def _host_bytes(t) -> bytes:
+    import torch
+
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy().tobytes()
+
+
 def run_case(mesh, case: dict) -> dict:
     """One case on this rank (see the module docstring)."""
     from oim_tpu_torch.serve.engine import Engine, GenRequest
 
-    cfg, params, kwargs = _params(case)
+    cfg, params, kwargs = _params(case, mesh)
+    extra = {"params": digests(params)} if case.get("peer") else {}
     try:
         engine = Engine(params, cfg, device="cpu", mesh=mesh, **kwargs)
     except Exception as exc:
         return {"error": f"{type(exc).__name__}: {exc}"}
     if mesh.rank != 0:
         engine.follow()
-        return {"buffers": _buffers(engine)}
-    answer = {}
+        return {"buffers": _buffers(engine), **extra}
+    answer = dict(extra)
     try:
+        if "script" in case:
+            answer["outputs"] = run_script(engine, case["script"])
+            return answer
         call = case.get("call")
         if call is not None:
             name, args = call
@@ -95,8 +137,247 @@ def run_case(mesh, case: dict) -> dict:
         answer["error"] = f"{type(exc).__name__}: {exc}"
     finally:
         engine.stop_followers()
-    answer["buffers"] = _buffers(engine)
+        answer["buffers"] = _buffers(engine)
     return answer
+
+
+# ---------------------------------------------------------------------------
+# Scripts: the block I/O cases' steps, on a mesh's rank 0 or one device
+
+
+def _np(arrays) -> list:
+    """Exported arrays (the port's tensors or the JAX engine's arrays)
+    as host numpy copies."""
+    return [np.array(a.detach().cpu() if hasattr(a, "detach") else a)
+            for a in arrays]
+
+
+def _wire(engine, manifest: dict, arrays: list) -> dict:
+    """{leaf name: array} as ``engine``'s import takes it: torch tensors
+    for the port's, numpy arrays (the JAX wire's) for the JAX engine."""
+    names = [leaf["name"] for leaf in manifest["leaves"]]
+    if type(engine).__module__.startswith("oim_tpu_torch"):
+        import torch
+
+        arrays = [torch.from_numpy(np.asarray(a)) for a in arrays]
+    return dict(zip(names, arrays))
+
+
+def _submit(engine, request: dict, **extra) -> int:
+    """Submit ``request`` as ``engine``'s own package's GenRequest (the
+    port's or the JAX engine's)."""
+    import sys
+
+    module = sys.modules[type(engine).__module__]
+    return engine.submit(module.GenRequest(**request, **extra))
+
+
+def _gen(engine, requests: list) -> list:
+    """Submit every request, run to the end: [(tokens, logprobs)]."""
+    rids = [_submit(engine, r) for r in requests]
+    engine.run()
+    return [tuple(map(list, engine.result_full(rid, timeout=0)))
+            for rid in rids]
+
+
+def _late(engine, early: list, steps: int, late: list) -> list:
+    """``early`` submitted and stepped ``steps`` times, then ``late``
+    (a QoS preemption's premium arrival), run to the end."""
+    rids = [_submit(engine, r) for r in early]
+    for _ in range(steps):
+        engine.step()
+    rids += [_submit(engine, r) for r in late]
+    engine.run()
+    return [tuple(map(list, engine.result_full(rid, timeout=0)))
+            for rid in rids]
+
+
+def _hold(engine, request: dict) -> tuple:
+    """A held request's (tokens, manifest, arrays), the hold released."""
+    rid = _submit(engine, request, hold_kv=True)
+    engine.run()
+    tokens = list(engine.result(rid, timeout=0))
+    manifest, arrays = engine.export_kv(rid)
+    engine.release_kv_hold(rid)
+    return tokens, manifest, _np(arrays)
+
+
+def _import_kv(engine, manifest: dict, arrays: list, request: dict):
+    """Import a held export and run its continuation ``request``."""
+    import_id, _ = engine.import_kv(manifest,
+                                    _wire(engine, manifest, arrays))
+    return _gen(engine, [dict(request, kv_import=import_id)])[0]
+
+
+def _export_prefix(engine, tokens: list) -> tuple:
+    from oim_tpu_torch.serve.disagg import prefix_digest
+
+    manifest, arrays = engine.export_kv_prefix(prefix_digest(tokens))
+    return manifest, _np(arrays)
+
+
+def _import_prefix(engine, manifest: dict, arrays: list) -> tuple:
+    """Stage a shipped prefix entry and land it (this thread owns the
+    pool): (digest, rows)."""
+    out = engine.import_kv_prefix(manifest, _wire(engine, manifest, arrays))
+    engine.install_prefix_imports()
+    return out
+
+
+def _suspend(engine, request: dict, min_tokens: int) -> tuple:
+    """A live slot suspended by migrate-out mid-stream: its (manifest,
+    arrays), the record released and the engine admitting again."""
+    rid = _submit(engine, request)
+    base = engine.stats()["tokens_generated"]
+    for _ in range(40):
+        engine.step()
+        if engine.stats()["tokens_generated"] - base >= min_tokens:
+            break
+    engine.begin_migrate_out()
+    engine.run()
+    manifest, arrays = engine.export_slot(rid)
+    engine.release_migrated(rid)
+    engine._draining = engine._migrate_out = False
+    return manifest, _np(arrays)
+
+
+def _import_slot(engine, manifest: dict, arrays: list, request: dict):
+    """Import a shipped slot and continue it (``request`` gives the
+    budget and sampling; its prompt is the record's tokens)."""
+    import_id, _, slot = engine.import_slot(
+        manifest, _wire(engine, manifest, arrays))
+    tokens = list(manifest["prompt_tokens"]) + list(manifest["tokens"])
+    return _gen(engine, [dict(request, tokens=tokens, kv_import=import_id,
+                              sample_base=slot["sample_base"])])[0]
+
+
+def _roundtrip_kv(engine, request: dict) -> tuple:
+    """Hold ``request``, export it (E1), import E1 and continue it by one
+    token under a hold, export that (E2): (E1, E2), each (manifest,
+    arrays); E2's first E1 rows are E1's."""
+    tokens, manifest, arrays = _hold(engine, request)
+    import_id, _ = engine.import_kv(manifest,
+                                    _wire(engine, manifest, arrays))
+    _, manifest2, arrays2 = _hold(engine, dict(
+        request, tokens=list(request["tokens"]) + tokens, max_new_tokens=1,
+        kv_import=import_id))
+    return (manifest, arrays), (manifest2, arrays2)
+
+
+def _roundtrip_prefix(engine, tokens: list) -> tuple:
+    """Store prefix ``tokens``, export it (E1), drop it, import and land
+    E1, export it again (E2): (E1, E2)."""
+    _flush(engine)
+    _gen(engine, [dict(tokens=tokens, max_new_tokens=2, cache_prefix=True)])
+    first = _export_prefix(engine, tokens)
+    _flush(engine)
+    _import_prefix(engine, *first)
+    return first, _export_prefix(engine, tokens)
+
+
+def _try(engine, op: str, *args) -> str:
+    """The error step ``op`` raises, as "Type: message" ("" if none)."""
+    try:
+        SCRIPT_OPS[op](engine, *args)
+    except Exception as exc:
+        return f"{type(exc).__name__}: {exc}"
+    return ""
+
+
+def _beam_during(engine, requests: list, beam: tuple) -> tuple:
+    """A beam search called while ``requests`` decode on a step thread:
+    (the streams, the beam's (tokens, score))."""
+    rids = [_submit(engine, r) for r in requests]
+    stepper = threading.Thread(target=engine.run)
+    stepper.start()
+    try:
+        found = engine.beam(*beam)
+    finally:
+        stepper.join()
+    return ([tuple(map(list, engine.result_full(rid, timeout=0)))
+             for rid in rids], found)
+
+
+def _storm(engine, requests: list, prompts: list) -> tuple:
+    """More threads than cores, each embedding one of ``prompts`` (every
+    one a record and a leader's pass inside the turn), while
+    ``requests`` decode on a step thread, under a short switch interval:
+    (the streams, the vectors).  Every thread is joined within its
+    time."""
+    import sys
+
+    rids = [_submit(engine, r) for r in requests]
+    vectors = [None] * len(prompts)
+
+    def embed(i):
+        vectors[i] = engine.embed(prompts[i])
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=engine.run)] + [
+            threading.Thread(target=embed, args=(i,))
+            for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=TIMEOUT_S)
+        if any(t.is_alive() for t in threads):
+            raise RuntimeError("a thread did not finish: deadlock")
+    finally:
+        sys.setswitchinterval(interval)
+    engine.run()
+    return ([tuple(map(list, engine.result_full(rid, timeout=0)))
+             for rid in rids], vectors)
+
+
+def _weights(engine) -> str:
+    """SHA-256 of the body ``GET /v1/weights`` answers on this engine."""
+    from oim_tpu_torch.serve.server import ServeServer
+
+    server = ServeServer(engine, port=0).start()
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/v1/weights",
+                timeout=60) as resp:
+            return hashlib.sha256(resp.read()).hexdigest()
+    finally:
+        server.stop()
+
+
+def _flush(engine) -> None:
+    """Drop every prefix entry of both tiers, counter-silent."""
+    engine._warming = True
+    try:
+        with engine._lock:
+            engine._clear_prefix_cache_locked()
+            engine._flush_host_tier_locked()
+    finally:
+        engine._warming = False
+
+
+def _stats(engine, keys: list) -> dict:
+    stats = engine.stats()
+    return {k: stats[k] for k in keys}
+
+
+SCRIPT_OPS = {
+    "gen": _gen, "late": _late, "hold": _hold, "import_kv": _import_kv,
+    "export_prefix": _export_prefix, "import_prefix": _import_prefix,
+    "suspend": _suspend, "import_slot": _import_slot,
+    "beam": lambda e, *a: e.beam(*a), "embed": lambda e, t: e.embed(t),
+    "beam_during": _beam_during, "storm": _storm, "weights": _weights,
+    "flush": _flush,
+    "stats": _stats, "roundtrip_kv": _roundtrip_kv,
+    "roundtrip_prefix": _roundtrip_prefix, "try": _try,
+    "attr": lambda e, name: getattr(e, name),
+}
+
+
+def run_script(engine, steps: list) -> list:
+    """Each step ``(op, *args)`` of ``SCRIPT_OPS`` on ``engine``, in
+    order: their outputs."""
+    return [SCRIPT_OPS[op](engine, *args) for op, *args in steps]
 
 
 def _rank_main(rank: int, world: int, store_path: str, sizes: dict,
