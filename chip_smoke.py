@@ -131,7 +131,8 @@ time limit.
 (``parallel_phase``): K1/K2 at the ranks' head counts (Qwen tp=2: 6 / 1;
 Mixtral tp2·ep2: 16 / 4) and ``quant_matmul`` at the tp2·ep2 ranks'
 int8 shapes against their plain versions; Qwen2.5-1.5B at tp=2 as two
-gloo ranks sharing the card (eager, 28 layers) against the tp=1 engine
+gloo ranks sharing the card (eager, 14 of its 28 layers) against the
+tp=1 engine
 on the same weights (streams equal or parting at a near tie, every
 rank's buffers bitwise equal, K1/K2 and the collectives once a layer a
 pass), then on the same ranks the block I/O leg (``par_io``: a paged
@@ -150,6 +151,23 @@ expert choices); and
 ``serve_main --bootstrap`` on a file staging ``/dev/nvidia0`` beside
 ``--tp 2`` refused on the one card.  The full smoke runs it after the
 HTTP phase.
+``--train-parallel-phase-only`` runs only the training-parallel phase
+(``train_parallel_phase``): RMSNorm, the flash kernels and the fused-CE
+forward and joint backward at a dp=2 rank's shapes against their plain
+versions; ``train_main --dp 2 --backend gloo`` (two gloo ranks sharing
+the card) at Qwen2.5-1.5B's widths and 4 of its 28 layers, its losses
+held against one device's, every rank launching the training kernels
+each step, replicated leaves bit-equal across ranks, once without and
+once with ``--zero1`` (the main path: checkpointed, interrupted after
+step 2, resumed by the same command bit for bit, exported; moments per
+rank halved); that checkpoint restored onto one device and its export
+served by ``serve_main --params-dir``; one NCCL rank with the step's
+CUDA graph (4 layers), the gradient all-reduce inside it, bit-equal to
+the eager steps and to no mesh; ``--tp 2`` at 4 layers and ``--ep 2`` at
+Mixtral-8x7B's widths and one layer, each against one device running
+the same plain math and launching none of the training kernels (the
+reference's gate); and two ``train_main --bootstrap`` processes from
+staged files.  The full smoke runs it after the parallel phase.
 
 It exits non-zero without a result line when no GPU is visible, when the
 port's package is not beside it, or when any phase fails.  Every number
@@ -5546,18 +5564,18 @@ def flash_bound(q, k, pairs, flops_per_pair, n_in, n_out):
     return bound(moved, flops_per_pair * pairs, q.dtype)
 
 
-def flash_case(gen, dtype, t, window, segmented):
-    """Inputs at the training shape: q, k, v, dout [B, t, heads, 128],
+def flash_case(gen, dtype, t, window, segmented, b=TRAIN_B):
+    """Inputs at the training shape: q, k, v, dout [b, t, heads, 128],
     and packed segment ids (a document boundary about every 100
     tokens) or None."""
-    shape_q, shape_k = (TRAIN_B, t, H, HD), (TRAIN_B, t, KVH, HD)
+    shape_q, shape_k = (b, t, H, HD), (b, t, KVH, HD)
     q, do = (torch.randn(shape_q, generator=gen, device=DEV).to(dtype)
              for _ in range(2))
     k, v = (torch.randn(shape_k, generator=gen, device=DEV).to(dtype)
             for _ in range(2))
     seg = None
     if segmented:
-        starts = torch.rand((TRAIN_B, t), generator=gen, device=DEV) < 0.01
+        starts = torch.rand((b, t), generator=gen, device=DEV) < 0.01
         seg = torch.cumsum(starts.int(), dim=1, dtype=torch.int32)
     return q, k, v, do, seg
 
@@ -6864,9 +6882,14 @@ def ptxas_lines(log: str) -> list[str]:
 
 # Qwen2.5-1.5B at its published widths (SERVE_ARGS' model) and
 # Mixtral-8x7B's (MOE_GEOMETRY's), as the ranks build them.
-PAR_QWEN = dict(vocab_size=VOCAB, d_model=D_MODEL, n_layers=28, n_heads=H,
-                n_kv_heads=KVH, d_ff=8960, rope_theta=1e6, norm_eps=1e-6,
-                attn_bias=True, dtype="bfloat16")
+# Qwen's serving legs at SIDE_LAYERS of its 28 layers (the widths
+# unchanged): gloo's host passes, a sum a layer, are most of the legs'
+# time, and the training-parallel phase needs that time in the smoke's
+# limit.  At 7 layers a tp=2 beam's score left tp=1's by 0.33 (its gate
+# is 0.05): the shallower model's beams part at near ties.
+PAR_QWEN = dict(vocab_size=VOCAB, d_model=D_MODEL, n_layers=SIDE_LAYERS,
+                n_heads=H, n_kv_heads=KVH, d_ff=8960, rope_theta=1e6,
+                norm_eps=1e-6, attn_bias=True, dtype="bfloat16")
 # Mixtral at tp2·ep2 on one card: four ranks' shards plus the tp=1
 # reference's whole model, int8 (1.45 GB a layer), at PAR_MOE_LAYERS of
 # its 32 layers: 5.8 GB a copy, and each rank draws its experts' f32
@@ -8089,7 +8112,7 @@ def par_io_report(ios: list, ref_io: dict, check_out: dict,
 def parallel_phase(package: str, record: dict) -> dict:
     """Sharded serving on the one card: the kernels at the ranks'
     shapes, Qwen2.5-1.5B at tp=2 (two gloo ranks sharing cuda:0,
-    eager, 28 layers), Qwen on a one-rank NCCL mesh with graphs,
+    eager, 14 of its 28 layers), Qwen on a one-rank NCCL mesh with graphs,
     Mixtral-8x7B's widths at tp2·ep2 (four gloo ranks, int8, depth cut
     to ``PAR_MOE_LAYERS``), and ``serve_main --bootstrap``/``--tp 2``.
     Adds the kernel records to ``record``; returns the legs."""
@@ -8194,6 +8217,582 @@ def par_rows(record: dict, phase: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Training over a mesh (train_parallel_phase)
+
+# The dp legs: Qwen2.5-1.5B's widths at TPAR_LAYERS of its 28 layers, the
+# training configuration's global 4 x 1024 batch split over two gloo
+# ranks sharing cuda:0 (NCCL refuses two ranks on one card), for
+# TPAR_STEPS steps; the tp leg at TPAR_TP_LAYERS, the ep leg at
+# Mixtral-8x7B's widths and TPAR_EP_LAYERS; the one-rank NCCL leg at
+# TPAR_NCCL_LAYERS (three runs of it).  Depths are the smoke's time: a
+# dp step's gradient all-reduce (and ZeRO-1's all-gather) moves every
+# parameter through the host over gloo, and the checkpoint writes and
+# reads them: at 14 layers the dp legs took 151 s on an H100; 4 layers
+# move 58 % of those bytes.
+TPAR_LAYERS = 4
+TPAR_STEPS = 3
+TPAR_TP_LAYERS = 4
+TPAR_EP_LAYERS = 1
+TPAR_NCCL_LAYERS = 4
+# A mesh's losses against one device's on the same batch: bf16 compute
+# in another grouping (per-rank products of half the rows, the gradient
+# summed over ranks in f32; under tp the products split along their
+# reduction axis), held at the training phase's bf16 step tolerance.
+TPAR_LOSS_ATOL = STEP_LOSS_ATOL[torch.bfloat16]
+TPAR_KERNELS = ("rmsnorm", "flash_fwd", "flash_dq", "flash_dkv",
+                "fused_ce_fwd", "fused_ce_bwd")
+
+
+def tpar_args(layers: int, steps: int, *flags, base=None) -> list[str]:
+    """The training command (``base``, default the training
+    configuration's) at ``layers`` layers for ``steps`` steps, plus
+    ``flags``."""
+    args = list(TRAIN_ARGS if base is None else base)
+    args[args.index("--n-layers") + 1] = str(layers)
+    args[args.index("--steps") + 1] = str(steps)
+    return args + list(flags)
+
+
+def tpar_run(tag: str, argv: list, cuda_graph: bool = True) -> dict:
+    """``train_main`` on ``argv`` in this process (rank 0 of a mesh, the
+    others spawned by it), every count set to 0 just before; prints the
+    losses, the ranks' peak GiB, moment GiB and dp all-reduce share."""
+    from oim_tpu_torch.ops import counts
+
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset_counters()
+    t0 = time.monotonic()
+    out = run_train(argv, cuda_graph=cuda_graph)
+    out["wall"] = time.monotonic() - t0
+    out["counts"] = counts.counters()
+    steps = out["step_seconds"]
+    line = (f"train_parallel {tag}: {len(out['losses'])} steps in "
+            f"{out['wall']:.1f} s (setup included), losses "
+            f"{[round(x, 6) for x in out['losses']]}, step walls "
+            f"{[round(x * 1e3, 1) for x in steps]} ms")
+    for r in out.get("ranks") or []:
+        red = r["reduce_seconds"]
+        share = (sum(red[-len(steps):]) / sum(steps)) if red and steps else 0
+        line += (f"; rank {r['rank']}: peak {gib(r['peak_bytes']):.2f} GiB, "
+                 f"params {gib(r['param_bytes']):.2f}, moments "
+                 f"{gib(r['moment_bytes']):.2f} GiB, dp all-reduce "
+                 f"{[round(x * 1e3, 1) for x in red]} ms ({share:.1%} of "
+                 f"the steps)")
+    print(f"{line} [{SMI}]", flush=True)
+    return out
+
+
+def tpar_kernel_counts(tag: str, out: dict, steps: int, layers: int,
+                       on: bool) -> None:
+    """Every rank launched the training kernels ``steps`` times their
+    per-step formula (``check_train_counts``'s; no plain version), or,
+    under tp or ep (the reference's gate), none of them."""
+    per = {"rmsnorm": 4 * layers + 1, "flash_fwd": 2 * layers,
+           "flash_dq": layers, "flash_dkv": layers, "fused_ce_fwd": 1,
+           "fused_ce_bwd": 1}
+    for r in out["ranks"]:
+        c = r["counts"]
+        for name, n in per.items():
+            want = steps * n if on else 0
+            check(c.get(name, 0) == want and c.get(f"{name}_plain", 0) == 0,
+                  f"train_parallel {tag}: rank {r['rank']} launched {name} "
+                  f"{c.get(name, 0)} times (plain {c.get(name + '_plain')}),"
+                  f" expected {want}")
+
+
+def tpar_replicas(tag: str, out: dict, want: dict | None = None) -> dict:
+    """The replicated leaves' checksums, equal on every rank (and to
+    ``want``'s where given)."""
+    ranks = out["ranks"]
+    first = ranks[0]["replicas"]
+    for r in ranks[1:]:
+        bad = [n for n in first if r["replicas"].get(n) != first[n]]
+        check(not bad, f"train_parallel {tag}: replicated leaves differ "
+              f"between rank 0 and rank {r['rank']}: {bad[:4]}")
+    if want is not None:
+        bad = [n for n in want if first.get(n) != want[n]]
+        check(not bad, f"train_parallel {tag}: leaves differ from the "
+              f"run held against: {bad[:4]}")
+    return first
+
+
+def tpar_close(tag: str, got: list, want: list, atol: float) -> float:
+    gap = max(abs(a - b) for a, b in zip(got, want))
+    print(f"train_parallel {tag}: losses {[round(x, 6) for x in got]} "
+          f"against {[round(x, 6) for x in want]}: max |diff| {gap:.3e} "
+          f"(gate {atol}) [{SMI}]", flush=True)
+    check(len(got) == len(want) and all(np.isfinite(got)),
+          f"train_parallel {tag}: losses {got}")
+    check(gap <= atol, f"train_parallel {tag}: |diff| {gap} > {atol}")
+    return gap
+
+
+def tpar_dp_legs(work: str) -> dict:
+    """(a) dp=2 over two gloo ranks on cuda:0 against one device, once
+    without ZeRO-1 and once with it — the main path: the ZeRO-1 run
+    checkpointed, interrupted after step 2 and resumed by the same
+    command, which exports — and (e) that checkpoint restored onto one
+    device and its export served by ``serve_main --params-dir``."""
+    from oim_tpu_torch.checkpoint import Checkpointer, directory_bytes
+    from oim_tpu_torch.cli import serve_main, train_main
+    from oim_tpu_torch.models.train import (
+        OptimizerConfig,
+        TrainState,
+        replica_checksums,
+    )
+    from oim_tpu_torch.models.transformer import init_params
+    from oim_tpu_torch.ops import counts as kcounts
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    layers, steps = TPAR_LAYERS, TPAR_STEPS
+    dp = ["--dp", "2", "--backend", "gloo"]
+    ckpt, export = os.path.join(work, "ckpt"), os.path.join(work, "export")
+    one = tpar_run("one device", tpar_args(layers, steps))
+    ref, one_peak = one["losses"], torch.cuda.max_memory_allocated()
+    del one
+    plain = tpar_run("dp=2", tpar_args(layers, steps, *dp))
+    gap = tpar_close("dp=2 vs one device", plain["losses"], ref,
+                     TPAR_LOSS_ATOL)
+    tpar_kernel_counts("dp=2", plain, steps, layers, True)
+    sums = tpar_replicas("dp=2", plain)
+    plain_ranks = [{k: r[k] for k in ("peak_bytes", "moment_bytes",
+                                      "param_bytes", "reduce_seconds")}
+                   for r in plain["ranks"]]
+    plain_losses, plain_steps = plain["losses"], plain["step_seconds"]
+    del plain
+    # The main path: ZeRO-1 with checkpoints, counted from 0 over both
+    # commands.
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    kcounts.reset_counters()
+    flags = dp + ["--zero1", "--checkpoint-dir", ckpt, "--save-every",
+                  "100"]
+    t0 = time.monotonic()
+    first = run_train(tpar_args(layers, steps - 1, *flags))
+    save_wall = time.monotonic() - t0
+    first_losses, first_reduce = first["losses"], first["ranks"][0][
+        "reduce_seconds"]
+    first_spawned = first["ranks"][1]["counts"]
+    del first  # its state: rank 0's masters, gradients and moments
+    release()
+    resumed = run_train(tpar_args(layers, steps, *flags, "--export-dir",
+                                  export))
+    main_counts = kcounts.counters()
+    # Rank 0 is this process (its counts since the reset, over both
+    # commands); rank 1 a process of each command, its counts its own.
+    spawned = {k: first_spawned.get(k, 0) + v
+               for k, v in resumed["ranks"][1]["counts"].items()}
+    zero1 = {"ranks": [dict(resumed["ranks"][0], counts=main_counts),
+                       dict(resumed["ranks"][1], counts=spawned)]}
+    tpar_kernel_counts("dp=2 zero1 (main path)", zero1, steps, layers, True)
+    got = first_losses + resumed["losses"]
+    print(f"train_parallel zero1: interrupted at {steps - 1} "
+          f"({save_wall:.1f} s with the sharded save), resumed at "
+          f"{resumed['start_step']}: losses {[round(x, 6) for x in got]}; "
+          f"the run without ZeRO-1 {[round(x, 6) for x in plain_losses]}; "
+          f"bit-equal {got == plain_losses}; checkpoint "
+          f"{gib(directory_bytes(os.path.join(ckpt, str(steps)))):.2f} GiB "
+          f"on disk [{SMI}]", flush=True)
+    check(resumed["start_step"] == steps - 1 and got == plain_losses,
+          f"train_parallel zero1: resumed losses {got} are not the "
+          f"uninterrupted run's {plain_losses} bit for bit")
+    tpar_replicas("dp=2 zero1 resumed", resumed, sums)
+    for r, plain_r in zip(resumed["ranks"], plain_ranks):
+        ratio = r["moment_bytes"] / plain_r["moment_bytes"]
+        print(f"train_parallel zero1 rank {r['rank']}: moments "
+              f"{gib(r['moment_bytes']):.3f} GiB against "
+              f"{gib(plain_r['moment_bytes']):.3f} without ZeRO-1 "
+              f"({ratio:.4f}); peak {gib(r['peak_bytes']):.2f} GiB against "
+              f"{gib(plain_r['peak_bytes']):.2f} [{SMI}]", flush=True)
+        check(0.49 < ratio < 0.51, f"train_parallel zero1: rank "
+              f"{r['rank']}'s moments are {ratio:.3f} of the unsharded")
+    rank0 = resumed["state"]
+    cfg = train_main.make_config(train_main.build_parser().parse_args(
+        tpar_args(layers, steps)))
+    del resumed, rank0
+    release()
+    # (e) The ZeRO-1 checkpoint restored onto one device.
+    t0 = time.monotonic()
+    state, data = Checkpointer(ckpt).restore(lambda: TrainState.create(
+        init_params(1, cfg, device=DEV, master=True),
+        OptimizerConfig(lr=3e-4)))
+    restore_wall = time.monotonic() - t0
+    restored = replica_checksums(state)
+    check(state.step == steps and data == {"next_step": steps},
+          f"train_parallel restore: step {state.step}, data {data}")
+    bad = [n for n in sums if restored.get(n) != sums[n]]
+    check(not bad, f"train_parallel restore: one device's {bad[:4]} differ "
+          "from the ranks'")
+    moments = sum(len(v) for v in state.optimizer.state.values())
+    check(moments == 3 * len(sums), "train_parallel restore: moments "
+          f"{moments} entries for {len(sums)} leaves")
+    del state
+    release()
+    engine = serve_main.make_engine(serve_main.build_parser().parse_args(
+        at_depth(SERVE_ARGS, layers) + ["--params-dir", export,
+                                        "--no-warmup"]))
+    rng = np.random.RandomState(5)
+    rid = engine.submit(GenRequest(tokens=rng.randint(0, VOCAB, 64).tolist(),
+                                   max_new_tokens=8))
+    served = engine.run()[rid]
+    check(len(served) == 8, f"train_parallel export: served {served}")
+    del engine
+    release()
+    print(f"train_parallel restore: the dp=2 ZeRO-1 step {steps} onto one "
+          f"device in {restore_wall:.1f} s, every leaf bit-equal to the "
+          f"ranks'; its export served 8 tokens through serve_main "
+          f"--params-dir [{SMI}]", flush=True)
+    return {"one_device": ref, "dp2": plain_losses, "zero1": got,
+            "gap": gap, "one_device_peak_gib": gib(one_peak),
+            "ranks": plain_ranks,
+            "zero1_ranks": [{k: r[k] for k in ("peak_bytes", "moment_bytes",
+                                               "reduce_seconds")}
+                            for r in zero1["ranks"]],
+            "step_ms": [x * 1e3 for x in plain_steps],
+            "first_reduce_s": first_reduce, "save_wall": save_wall,
+            "restore_wall": restore_wall, "counts": main_counts}
+
+
+def tpar_batches(argv: list) -> list:
+    """The global batches ``train_main`` feeds for ``argv``, on the
+    card."""
+    from oim_tpu_torch.cli import train_main
+    from oim_tpu_torch.data.loader import TokenBatches
+
+    args = train_main.build_parser().parse_args(argv)
+    batches = TokenBatches(train_main._load_corpus(args), args.batch_global,
+                           args.seq, seed=args.seed)
+    return [torch.from_numpy(batches.batch_at(s)[:, :args.seq]).long().to(DEV)
+            for s in range(args.steps)]
+
+
+def tpar_plain_ref(argv: list) -> list:
+    """One device's losses for ``argv`` with ``use_pallas`` off: the
+    math a tp or ep rank runs (the reference's gate), on the same seed
+    and batches."""
+    from dataclasses import replace
+
+    from oim_tpu_torch.cli import train_main
+    from oim_tpu_torch.models.train import TrainState, make_train_step
+    from oim_tpu_torch.models.transformer import init_params
+
+    release()
+    args = train_main.build_parser().parse_args(argv)
+    cfg = replace(train_main.make_config(args), use_pallas=False)
+    state = TrainState.create(init_params(args.seed, cfg, device=DEV,
+                                          master=True),
+                              train_main.make_optimizer_config(args))
+    step = make_train_step(cfg)
+    losses = [float(step(state, b)[1]["loss"]) for b in tpar_batches(argv)]
+    del state, step
+    release()
+    return losses
+
+
+def tpar_nccl_leg() -> dict:
+    """(b) One NCCL rank with graphs: the training configuration at
+    ``TPAR_NCCL_LAYERS`` on a one-rank mesh, every step after the first a
+    replay with the gradients' all-reduce over dp inside the graph, bit
+    for bit the eager steps on that mesh and the steps with no mesh."""
+    import torch.distributed as dist
+
+    from oim_tpu_torch.cli import train_main
+    from oim_tpu_torch.models.train import (
+        TrainState,
+        make_train_step,
+        replica_checksums,
+    )
+    from oim_tpu_torch.models.transformer import init_params
+    from oim_tpu_torch.models.weights import init_rank_params, serve_specs
+    from oim_tpu_torch.parallel import build_mesh, collectives
+
+    argv = tpar_args(TPAR_NCCL_LAYERS, TPAR_STEPS)
+    args = train_main.build_parser().parse_args(argv)
+    cfg, opt = train_main.make_config(args), train_main.make_optimizer_config(
+        args)
+    batches = tpar_batches(argv)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(DEV, 0))
+    try:
+        mesh = build_mesh(devices=[DEV + ":0"])
+
+        def run(on_mesh: bool, graph: bool) -> tuple:
+            release()
+            if on_mesh:
+                state = TrainState.create(
+                    init_rank_params(0, cfg, mesh, device=DEV), opt,
+                    mesh=mesh, specs=serve_specs(cfg, mesh))
+            else:
+                state = TrainState.create(init_params(0, cfg, device=DEV,
+                                                      master=True), opt)
+            step = make_train_step(cfg, cuda_graph=graph,
+                                   mesh=mesh if on_mesh else None)
+            collectives.reset_counters()
+            losses = [float(step(state, b)[1]["loss"]) for b in batches]
+            out = (losses, replica_checksums(state), step.stats(),
+                   collectives.counters()["collective.all_reduce"])
+            del state, step
+            return out
+
+        graphed = run(True, True)
+        eager = run(True, False)
+        alone = run(False, True)
+    finally:
+        dist.destroy_process_group()
+        release()
+    leaves = 3 + 12 * TPAR_NCCL_LAYERS  # wte, final_norm, wlm; 12 a layer
+    stats = graphed[2]
+    print(f"train_parallel nccl: one NCCL rank, {TPAR_NCCL_LAYERS} layers: "
+          f"graphed losses {graphed[0]}, eager {eager[0]}, no mesh "
+          f"{alone[0]}; replays {stats['replays']}, replay ms "
+          f"{[round(x, 2) for x in stats['replay_ms']]}; all-reduces "
+          f"{graphed[3]} ({leaves} gradients and the metrics a step) "
+          f"[{SMI}]", flush=True)
+    check(stats["graphed"] and stats["replays"] == TPAR_STEPS - 1,
+          f"train_parallel nccl: graph stats {stats}")
+    check(graphed[3] == TPAR_STEPS * (leaves + 1),
+          f"train_parallel nccl: {graphed[3]} all-reduces, expected "
+          f"{TPAR_STEPS * (leaves + 1)} (replays counted)")
+    check(graphed[0] == eager[0] == alone[0]
+          and graphed[1] == eager[1] == alone[1],
+          "train_parallel nccl: the replayed, eager and mesh-free steps "
+          "differ")
+    return {"losses": graphed[0], "replay_ms": stats["replay_ms"],
+            "all_reduces": graphed[3]}
+
+
+def tpar_tp_leg() -> dict:
+    """(c) tp=2 over two gloo ranks on cuda:0 at Qwen's widths and
+    ``TPAR_TP_LAYERS`` layers, against one device running the same
+    plain math; no rank launches a training kernel (the reference's
+    gate)."""
+    argv = tpar_args(TPAR_TP_LAYERS, TPAR_STEPS)
+    ref = tpar_plain_ref(argv)
+    out = tpar_run("tp=2", argv + ["--dp", "1", "--tp", "2", "--backend",
+                                   "gloo"])
+    gap = tpar_close("tp=2 vs one device (plain math)", out["losses"], ref,
+                     TPAR_LOSS_ATOL)
+    tpar_kernel_counts("tp=2", out, TPAR_STEPS, TPAR_TP_LAYERS, False)
+    tpar_replicas("tp=2", out)
+    return {"losses": out["losses"], "ref": ref, "gap": gap,
+            "step_ms": [x * 1e3 for x in out["step_seconds"]],
+            "peak_gib": [gib(r["peak_bytes"]) for r in out["ranks"]]}
+
+
+def tpar_ep_leg() -> dict:
+    """(d) ep=2 over two gloo ranks on cuda:0 at Mixtral-8x7B's widths
+    and ``TPAR_EP_LAYERS`` layer, each rank four of the eight experts,
+    against ep=1 running the same plain math."""
+    argv = tpar_args(TPAR_EP_LAYERS, TPAR_STEPS, base=MOE_TRAIN_ARGS)
+    ref = tpar_plain_ref(argv)
+    out = tpar_run("ep=2", argv + ["--dp", "1", "--ep", "2", "--backend",
+                                   "gloo"])
+    gap = tpar_close("ep=2 vs ep=1 (plain math)", out["losses"], ref,
+                     TPAR_LOSS_ATOL)
+    tpar_kernel_counts("ep=2", out, TPAR_STEPS, TPAR_EP_LAYERS, False)
+    tpar_replicas("ep=2", out)
+    check(all(a > 0 for a in out["aux"]), f"ep=2 aux {out['aux']}")
+    return {"losses": out["losses"], "ref": ref, "gap": gap,
+            "step_ms": [x * 1e3 for x in out["step_seconds"]],
+            "peak_gib": [gib(r["peak_bytes"]) for r in out["ranks"]]}
+
+
+def tpar_bootstrap_leg(package: str, work: str) -> dict:
+    """(f) ``train_main --bootstrap``: two processes, each from its own
+    staged file (``/dev/nvidia0``, two processes of one slice, a file
+    coordinator), form a gloo mesh on the card and train as its two dp
+    ranks (dp inferred from the slice)."""
+    import subprocess
+
+    argv = tpar_args(CKPT_LAYERS, 2, "--backend", "gloo")
+    env = dict(os.environ, PYTHONPATH=package)
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    procs = []
+    for pid in range(2):
+        path = os.path.join(work, f"bootstrap-{pid}.json")
+        with open(path, "w") as f:
+            json.dump({"volume_id": "smoke-train", "mesh": [1],
+                       "num_processes": 2, "process_id": pid,
+                       "coordinator_address": f"file://{work}/coordinator",
+                       "chips": [{"device_path": "/dev/nvidia0"}]}, f)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "oim_tpu_torch.cli.train_main", *argv,
+             "--bootstrap", path], cwd=package, env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+    logs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            logs.append(err)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    steps = [ln for ln in logs[0].splitlines() if "oim-train step " in ln]
+    check(codes == [0, 0] and len(steps) == 2
+          and "mesh=dp2" in logs[0] and "bootstrap loaded" in logs[0]
+          and "oim-train step" not in logs[1],
+          f"train_parallel bootstrap: exit codes {codes}; "
+          f"{logs[0][-400:]} | {logs[1][-400:]}")
+    print(f"train_parallel bootstrap: two train_main --bootstrap processes "
+          f"formed dp=2 on the card; rank 0 logged "
+          f"{steps[-1].split(' I ')[-1]!r} [{SMI}]", flush=True)
+    return {"steps": steps}
+
+
+def tpar_kernel_phase() -> dict:
+    """RMSNorm, the three flash kernels and the fused-CE forward and
+    joint backward at a dp=2 rank's shapes (half the global batch: [2 x
+    1024] rows, N = 2048), held against their plain versions and timed
+    beside their bound and the PyTorch call that computes the same
+    function; returns their records."""
+    import torch.nn.functional as F
+
+    from oim_tpu_torch.ops import flash_attention as fa
+    from oim_tpu_torch.ops import fused_ce as fc
+    from oim_tpu_torch.ops import rmsnorm as rn
+
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    b = TRAIN_B // 2
+    rows = b * TRAIN_T
+    record = {}
+    x = torch.randn((rows, D_MODEL), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    w = torch.rand(D_MODEL, generator=gen, device=DEV) + 0.5
+    got, want = rn.rmsnorm_fwd(x, w, 1e-6), rn.rmsnorm_plain(x, w, 1e-6)
+    err, rel = rel_err(got, want)
+    check(rel <= TRAIN_TOL[torch.bfloat16], f"rmsnorm dp rank: {rel}")
+    wl = w.to(x.dtype)
+    bnd, by = bound(2 * x.numel() * x.element_size() + w.numel() * 4,
+                    4 * x.numel(), torch.float32)
+    record["rmsnorm_dp"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: rn.rmsnorm_fwd(x, w, 1e-6)),
+        plain_ms=time_ms(lambda: rn.rmsnorm_plain(x, w, 1e-6)),
+        bound_ms=bnd, bound_by=by,
+        library_ms=time_ms(lambda: F.rms_norm(x, (D_MODEL,), wl, 1e-6)))
+    del x, w, got, want, wl
+    q, k, v, do, _ = flash_case(gen, torch.bfloat16, TRAIN_T, 0, False, b=b)
+    errs = check_flash(f"bf16 dp rank B={b}", q, k, v, do, 0, None)
+    out, lse = fa.flash_fwd_plain(q, k, v, True, 0, None)
+    delta = fa.flash_delta(out, do)
+    bwd = (q, k, v, do, lse, delta, True, 0, None)
+    pairs = attended_pairs(b, H, TRAIN_T, 0, None)
+    qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    sdpa = F.scaled_dot_product_attention
+    lib_fwd = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
+                                   enable_gqa=True))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qh, kh, vh))
+    out_g = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out_g, (qg, kg, vg), doh, retain_graph=True))
+    for name, kernel, plain, flops, n_in, n_out, lib in (
+            ("flash_fwd", lambda: fa.flash_fwd(q, k, v, True, 0, None),
+             lambda: fa.flash_fwd_plain(q, k, v, True, 0, None),
+             4 * HD, (1, 2, 0), (1, 0, 1), lib_fwd),
+            ("flash_dq", lambda: fa.flash_dq(*bwd),
+             lambda: fa.flash_dq_plain(*bwd), 6 * HD, (2, 2, 2), (1, 0, 0),
+             lib_bwd),
+            ("flash_dkv", lambda: fa.flash_dkv(*bwd),
+             lambda: fa.flash_dkv_plain(*bwd), 8 * HD, (2, 2, 2), (0, 2, 0),
+             lib_bwd)):
+        bnd, by = flash_bound(q, k, pairs, flops, n_in, n_out)
+        record[f"{name}_dp"] = dict(
+            max_abs_err=errs[name], ms=time_ms(kernel),
+            plain_ms=time_ms(plain), bound_ms=bnd, bound_by=by,
+            library_ms=lib)
+    del q, k, v, do, out, lse, delta, bwd, qh, kh, vh, doh, qg, kg, vg, out_g
+    release()
+    x, w, labels, g = ce_case(gen, torch.bfloat16, rows)
+    tag = f"bf16 dp rank N={rows} D={D_MODEL} V={VOCAB}"
+    check(fc.route(x, w) == "wgmma", f"fused CE at {tag}: {fc.route(x, w)}")
+    errs = check_ce(tag, x, w, labels, g)
+    lse, _ = fc.fused_ce_fwd_plain(x, w, labels)
+    for name, kernel, plain in (
+            ("fused_ce_fwd", lambda: fc.fused_ce_fwd(x, w, labels),
+             lambda: fc.fused_ce_fwd_plain(x, w, labels)),
+            ("fused_ce_bwd", lambda: fc.fused_ce_bwd(x, w, labels, lse, g),
+             lambda: fc.fused_ce_bwd_plain(x, w, labels, lse, g))):
+        bnd, by = ce_bound(rows, D_MODEL, VOCAB, x.dtype, name[-3:])
+        record[f"{name}_dp"] = dict(
+            max_abs_err=errs[name], ms=time_ms(kernel),
+            plain_ms=time_ms(plain, runs=5), bound_ms=bnd, bound_by=by,
+            library_ms=None)
+    del x, w, labels, g, lse
+    release()
+    for name, rec in record.items():
+        print(f"{name} (a dp=2 rank's shape): {rec['ms']:.4f} ms (plain "
+              f"{rec['plain_ms']:.4f}, bound {rec['bound_ms']:.5f} by "
+              f"{rec['bound_by']}, library {rec['library_ms']}) "
+              f"max_abs_err {rec['max_abs_err']:.3e} [{SMI}]", flush=True)
+    return record
+
+
+def train_parallel_phase(package: str, record: dict) -> dict:
+    """Training over a mesh on the one card: the kernels at a dp rank's
+    shapes, then the legs (see each): dp=2 with and without ZeRO-1 and
+    the sharded checkpoint (the main path), one NCCL rank with graphs,
+    tp=2, ep=2, and ``train_main --bootstrap``.  Adds the kernel records
+    to ``record``; returns the legs."""
+    t0 = time.monotonic()
+    record.update(tpar_kernel_phase())
+    walls, out = {"kernels": time.monotonic() - t0}, {}
+    work = tempfile.mkdtemp(prefix=".smoke-tpar-", dir=HERE)
+    try:
+        for name, leg in (("dp", lambda: tpar_dp_legs(work)),
+                          ("nccl", tpar_nccl_leg), ("tp", tpar_tp_leg),
+                          ("ep", tpar_ep_leg),
+                          ("bootstrap",
+                           lambda: tpar_bootstrap_leg(package, work))):
+            t = time.monotonic()
+            out[name] = leg()
+            walls[name] = time.monotonic() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["walls"] = walls
+    print(f"train_parallel: phase {time.monotonic() - t0:.1f} s, by part "
+          f"{json.dumps({k: round(v, 1) for k, v in walls.items()})} "
+          f"[{SMI}]", flush=True)
+    return out
+
+
+def tpar_rows(record: dict, phase: dict) -> list[dict]:
+    """The ``kernels`` rows of a dp=2 rank's shapes, with rank 0's
+    launches on the main path (dp=2, ZeRO-1, checkpointed and resumed)."""
+    counts = phase["dp"]["counts"]
+    where = (f"a dp=2 rank of Qwen2.5-1.5B's training, [{TRAIN_B // 2} x "
+             f"{TRAIN_T}] rows of the global {TRAIN_B} x {TRAIN_T}")
+    rows = []
+    for key, name, src, replaces in (
+            ("rmsnorm", "rmsnorm", "oim_tpu_torch/csrc/rmsnorm.cu",
+             "oim_tpu/ops/rmsnorm.py:27"),
+            ("flash_fwd", "flash_fwd (flash_fwd_tc_kernel)",
+             "oim_tpu_torch/csrc/flash_attention.cu",
+             "oim_tpu/ops/flash_attention.py:100"),
+            ("flash_dq", "flash_dq (flash_dq_tc_kernel)",
+             "oim_tpu_torch/csrc/flash_attention.cu",
+             "oim_tpu/ops/flash_attention.py:163"),
+            ("flash_dkv", "flash_dkv (flash_dkv_tc_kernel + dkv_sum_kernel)",
+             "oim_tpu_torch/csrc/flash_attention.cu",
+             "oim_tpu/ops/flash_attention.py:213"),
+            ("fused_ce_fwd", "fused_ce_fwd (ce_tc_kernel, wgmma route)",
+             "oim_tpu_torch/csrc/fused_ce.cu", "oim_tpu/ops/fused_ce.py:94"),
+            ("fused_ce_bwd", "fused_ce_bwd (ce_tc_kernel: dx of a full "
+             "step, from the one dlogits pass that gives dw)",
+             "oim_tpu_torch/csrc/fused_ce.cu", "oim_tpu/ops/fused_ce.py:148"),
+            ("fused_ce_bwd", "fused_ce_bwd (ce_tc_kernel: dw of a full "
+             "step, from the one dlogits pass that gives dx)",
+             "oim_tpu_torch/csrc/fused_ce.cu", "oim_tpu/ops/fused_ce.py:168")):
+        check(counts.get(key, 0) > 0, f"{key}: not launched on the dp path")
+        rows.append(dict(name=f"{name}; {where}", route="cuda", source=src,
+                         replaces=replaces, launches=counts[key],
+                         **record[f"{key}_dp"]))
+    return rows
+
+
 def parse_args(argv):
     import argparse
 
@@ -8265,6 +8864,13 @@ def parse_args(argv):
              "with graphs, Mixtral's widths at tp2·ep2 over four, "
              "serve_main --bootstrap and --tp 2), printing its kernel rows "
              "and legs as the last line")
+    only.add_argument(
+        "--train-parallel-phase-only", action="store_true",
+        help="build the kernels and run only the training-parallel phase "
+             "(the training kernels at a dp=2 rank's shapes, train_main at "
+             "dp=2 with and without --zero1 and its sharded checkpoint, "
+             "one NCCL rank with graphs, tp=2, ep=2 and --bootstrap), "
+             "printing its kernel rows and legs as the last line")
     only.add_argument(
         "--front-phase-only", action="store_true",
         help="build the kernels and run only the front phase (text and "
@@ -8393,6 +8999,18 @@ def main(argv=None) -> int:
                                        for leg, out in phase.items()}},
                          default=str), flush=True)
         return 0
+    if args.train_parallel_phase_only:
+        record = {}
+        phase = train_parallel_phase(package, record)
+        print(json.dumps({"package": package,
+                          "kernels": tpar_rows(record, phase),
+                          "train_parallel": {
+                              leg: {k: v for k, v in out.items()
+                                    if k != "counts"}
+                              if leg != "walls" else out
+                              for leg, out in phase.items()}},
+                         default=str), flush=True)
+        return 0
     if args.route_control:
         return route_control(args.route_control)
     if args.moe_phase_only:
@@ -8445,6 +9063,8 @@ def main(argv=None) -> int:
     timed("qos", qos_phase)
     timed("http", http_phase)
     parallel = timed("parallel", parallel_phase, package, record)
+    train_parallel = timed("train_parallel", train_parallel_phase, package,
+                           record)
     counts.update(timed("train", train_phase, record))
     work = tempfile.mkdtemp(prefix=".smoke-ckpt-", dir=HERE)
     try:
@@ -8558,7 +9178,8 @@ def main(argv=None) -> int:
         "--weights-int4", quant_counts, "_i4",
     ) + quant_rows(record, {("qwen", "int4"): quant_counts,
                             ("mixtral", "int8"): moe_counts["int8"]}
-    ) + spec_rows(record, spec_counts) + par_rows(record, parallel)
+    ) + spec_rows(record, spec_counts) + par_rows(record, parallel) + (
+        tpar_rows(record, train_parallel))
     print(SMI, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,48 +1,73 @@
 """Checkpoints of a ``TrainState`` plus its data cursor, and params-only
 exports for serving.
 
-The counterpart of ``oim_tpu/checkpoint/manager.py`` for one device.
-Orbax imports JAX, so the format is the port's own, with the properties
-the reference's has:
+The counterpart of ``oim_tpu/checkpoint/manager.py``.  Orbax imports
+JAX, so the format is the port's own, with the properties the
+reference's has:
 
-- **Layout.** ``<dir>/<step>/`` holds ``params.pt`` (every parameter by
-  its dotted name, f32 CPU tensors), ``optimizer.pt`` (the AdamW
-  ``state_dict``: both moments and each parameter's ``step`` count, and
+- **Layout.**  ``<dir>/<step>/`` holds each rank's blocks: ``params.pt``
+  (rank 0) or ``params-<r>.pt`` (every parameter block the rank writes,
+  by its dotted name, f32 CPU tensors) and ``moments.pt`` /
+  ``moments-<r>.pt`` (the AdamW moments ``exp_avg`` and ``exp_avg_sq``
+  of the slice the rank's optimizer owns, by the same names), beside
+  ``layout.json`` (each leaf's whole shape and every saved block: its
+  file, start and size along each dimension; each leaf's update count;
   ``TrainState.step``) and ``data.json`` (the data cursor, e.g.
-  ``{"next_step": n}``).  An export is a directory with ``params.pt``
-  alone: what a server reads, a third of a checkpoint's bytes.
-- **Atomic saves.**  A step is written under a temporary name in the
-  same directory and renamed into place, so a crash leaves no
-  half-written step; a leftover temporary directory is never a step.
-- **Async saves.**  ``save`` snapshots every tensor into host memory
-  before it returns (training then updates the device tensors in
-  place), and a background thread writes the snapshot; ``wait`` and
-  ``close`` join it and re-raise its error.  One write is in flight at
-  a time.
+  ``{"next_step": n}``).  A block replicated over some mesh axes is
+  written once, by the rank at index 0 of each of them.  On one device
+  ``params.pt`` holds every whole parameter, as an export does.  An
+  export is a directory with ``params.pt`` alone: what a server reads,
+  a third of a checkpoint's bytes.  The layout before sharded saves
+  (``params.pt`` whole beside ``optimizer.pt``, the AdamW ``state_dict``
+  keyed by index) still restores, onto one device or a mesh.
+- **Placement-independent restores.**  A restore builds each rank's
+  block of each leaf, one leaf at a time, from the saved blocks that
+  overlap it, read through memory maps: a checkpoint written on one
+  mesh, with or without ZeRO-1, restores onto another or onto one
+  device (the reference's "a zero1 checkpoint restores fine either
+  way").
+- **Atomic saves.**  Every rank writes into one temporary sibling of the
+  step (named from a token rank 0 broadcasts) and leaves a marker with
+  its block records; rank 0 waits for every marker (``commit_timeout``:
+  a rank that failed mid-save never leaves one, and the wait raises
+  instead of hanging), writes ``layout.json`` and ``data.json`` and
+  renames the directory into place.  A crash on any rank leaves no
+  step; a leftover temporary directory is never a step.
+- **Async saves.**  ``save`` snapshots the rank's blocks into host
+  memory before it returns (training then updates the device tensors
+  in place), and a background thread writes them (and, on rank 0,
+  commits); ``wait`` and ``close`` join it and re-raise its error.  One
+  write is in flight at a time.  ``save`` is collective on a mesh:
+  every rank calls it at the same steps.
 - **Retention.**  ``max_to_keep`` newest steps stay; ``save`` skips a
   step off ``save_interval_steps`` unless forced, and a step that is
-  already saved.
+  already saved (decided from this object's own history, so that every
+  rank decides alike).
 - **Resume.**  ``restore_or_init`` is the idempotent entry: the latest
   step when one exists, else ``init_fn()``.  A restore builds the state
-  with ``init_fn`` (the restore target: names and shapes must match)
-  and copies the saved values into it, so the optimizer keeps the
-  caller's configuration (``load_optimizer_state``: a checkpoint of the
-  per-tensor update restores into the fused one) and the update after a
+  with ``init_fn`` (the restore target: names and whole shapes must
+  match) and copies the saved values into it, so the optimizer keeps
+  the caller's configuration (``set_moments``) and the update after a
   resume is bit for bit the one an uninterrupted run takes.
 
+``export_params`` on a mesh gathers one whole leaf at a time onto every
+rank and writes the whole ``params.pt`` from rank 0.
 ``load_params_from_peer`` restores a server's weights from a serving
 sibling's ``GET /v1/weights`` stream (either package's: the reference's
 framing and its flat parameter dict), checked against this replica's
 geometry before a byte of payload moves; on a mesh each rank reads the
 stream and keeps its shard, a leaf at a time.  Saves, restores and peer
 restores are observed as the reference observes them:
-``oim_checkpoint_seconds{op}`` and ``oim_checkpoint_bytes_total{op}``.
+``oim_checkpoint_seconds{op}`` and ``oim_checkpoint_bytes_total{op}``
+(each rank its own).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
+import secrets
 import shutil
 import struct
 import threading
@@ -54,12 +79,13 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from oim_tpu_torch.common import metrics
 from oim_tpu_torch.models.train import (
     TrainState,
-    load_optimizer_state,
     named_parameters,
+    set_moments,
 )
 from oim_tpu_torch.models.transformer import TransformerConfig
 from oim_tpu_torch.models.weights import (
@@ -69,8 +95,12 @@ from oim_tpu_torch.models.weights import (
     port_tensor,
     serve_specs,
     shard_tensor,
+    spec_of,
+    whole_shape,
 )
 from oim_tpu_torch.ops.quant import WEIGHT_QUANT_TARGETS
+from oim_tpu_torch.parallel import collectives
+from oim_tpu_torch.parallel.sharding import block_slices, sharded_axes
 from oim_tpu_torch.serve.disagg import torch_dtype
 
 # Checkpoint observability, the reference's families: save latency is
@@ -89,9 +119,13 @@ _CKPT_BYTES = metrics.registry().counter(
 )
 
 PARAMS = "params.pt"
-OPTIMIZER = "optimizer.pt"
+MOMENTS = "moments.pt"
+LAYOUT = "layout.json"
 DATA = "data.json"
+OPTIMIZER = "optimizer.pt"  # the one-device layout before sharded saves
 _TMP = ".tmp-"
+_MARK = "blocks-{}.json"
+_MOMENT_KEYS = ("exp_avg", "exp_avg_sq")
 
 
 @dataclass(frozen=True)
@@ -100,12 +134,14 @@ class CheckpointerOptions:
     every ``save_interval_steps``, write in the background when
     ``async_save``, and create the directory unless ``create`` is False
     (a read-only open, as a server makes: a mistyped path must not leave
-    an empty checkpoint directory behind)."""
+    an empty checkpoint directory behind).  ``commit_timeout`` bounds
+    rank 0's wait for the other ranks' writes of a step."""
 
     max_to_keep: int = 3
     save_interval_steps: int = 1
     async_save: bool = True
     create: bool = True
+    commit_timeout: float = 600.0
 
 
 def _host_copy(value):
@@ -153,15 +189,21 @@ def _write_atomic(directory: Path, files: dict) -> None:
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
     try:
-        for name, obj in files.items():
-            if isinstance(obj, str):
-                (tmp / name).write_text(obj)
-            else:
-                torch.save(obj, tmp / name)
+        _write_files(tmp, files)
         os.rename(tmp, directory)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+
+
+def _write_files(directory: Path, files: dict) -> None:
+    for name, obj in files.items():
+        if isinstance(obj, str):
+            part = directory / f"{name}.part"
+            part.write_text(obj)
+            os.rename(part, directory / name)
+        else:
+            torch.save(obj, directory / name)
 
 
 def _tensor_bytes(value) -> int:
@@ -175,13 +217,210 @@ def _tensor_bytes(value) -> int:
     return 0
 
 
-def _load(path: Path):
-    return torch.load(path, map_location="cpu", weights_only=True)
+def _load(path: Path, mmap: bool = False):
+    return torch.load(path, map_location="cpu", weights_only=True,
+                      mmap=mmap)
+
+
+def _rank_file(base: str, rank: int) -> str:
+    """Rank ``rank``'s file of kind ``base`` (``params.pt``: rank 0's is
+    ``params.pt`` itself, another's ``params-<r>.pt``)."""
+    if rank == 0:
+        return base
+    stem, ext = os.path.splitext(base)
+    return f"{stem}-{rank}{ext}"
+
+
+# ---------------------------------------------------------------------------
+# Blocks: what this rank holds of each leaf, and what it writes
+
+
+def _region(state: TrainState, name: str, tensor) -> list:
+    """``[(start, size)]`` a dimension: the region of the whole leaf
+    ``name`` that this rank's block ``tensor`` holds."""
+    if state.mesh is None:
+        return [(0, int(n)) for n in tensor.shape]
+    spec = spec_of(state.specs, name)
+    return block_slices(_whole(state, name, tensor), spec, state.mesh)
+
+
+def _writes(state: TrainState, axes: tuple) -> bool:
+    """Whether this rank writes a block that the ranks differing from it
+    only on axes outside ``axes`` hold alike: the one at index 0 of each
+    of those axes does."""
+    mesh = state.mesh
+    return mesh is None or all(
+        mesh.coords[a] == 0 for a in mesh.axis_names
+        if a not in axes and mesh.shape[a] > 1)
+
+
+def _moment_region(state: TrainState, owned) -> list:
+    """The region of the whole leaf whose moments ``owned`` (a
+    ``models/train.py::Owned``) holds: its block, narrowed to ZeRO-1's
+    slice."""
+    region = _region(state, owned.name, owned.param)
+    if owned.dim is not None:
+        start, _ = region[owned.dim]
+        region[owned.dim] = (start + owned.start, owned.size)
+    return region
+
+
+def _whole(state: TrainState, name: str, tensor) -> list:
+    """The whole shape of leaf ``name`` whose block is ``tensor``."""
+    if state.mesh is None:
+        return list(tensor.shape)
+    return list(whole_shape(tensor.shape, spec_of(state.specs, name),
+                            state.mesh))
+
+
+def _entry(region: list, shape: list) -> dict:
+    return {"start": [s for s, _ in region], "size": [n for _, n in region],
+            "shape": shape}
+
+
+def _snapshot(state: TrainState) -> tuple[dict, dict, dict]:
+    """(parameter blocks, moment blocks, block records) this rank writes:
+    host copies, and ``{"params": {name: {"start", "size", "shape"}},
+    "moments": {name: {..., "step": its update count}}}``."""
+    params, moments = {}, {}
+    record = {"params": {}, "moments": {}}
+    for name, value in named_parameters(state.params):
+        spec = None if state.mesh is None else spec_of(state.specs, name)
+        axes = () if state.mesh is None else sharded_axes(spec, state.mesh)
+        if _writes(state, axes):
+            params[name] = _host_copy(value)
+            record["params"][name] = _entry(_region(state, name, value),
+                                            _whole(state, name, value))
+    for owned in state.owned:
+        opt = state.optimizer.state.get(owned.tensor)
+        if not opt:
+            continue  # no update taken yet: no moments
+        spec = None if state.mesh is None else spec_of(state.specs,
+                                                      owned.name)
+        axes = () if state.mesh is None else sharded_axes(spec, state.mesh)
+        if owned.dim is not None:
+            axes = axes + ("dp",)
+        if not _writes(state, axes):
+            continue
+        moments[owned.name] = {k: _host_copy(opt[k]) for k in _MOMENT_KEYS}
+        record["moments"][owned.name] = dict(
+            _entry(_moment_region(state, owned),
+                   _whole(state, owned.name, owned.param)),
+            step=float(opt["step"]))
+    return params, moments, record
+
+
+# ---------------------------------------------------------------------------
+# Sources: a saved step's blocks, read a leaf at a time
+
+
+class _Source:
+    """A saved step: whole shapes, blocks and update counts by name."""
+
+    def __init__(self, path: Path):
+        self.path = path
+        self._files: dict = {}
+        layout = path / LAYOUT
+        if layout.is_file():
+            meta = json.loads(layout.read_text())
+            self.step = int(meta["step"])
+            self.params = meta["params"]
+            self.moments = meta["moments"]
+            return
+        # The one-device layout before sharded saves: whole tensors, the
+        # moments in an index-keyed AdamW state_dict.
+        saved = self._file(PARAMS)
+        self.params = {name: {"shape": list(t.shape),
+                              "blocks": [[PARAMS, [0] * t.dim(),
+                                          list(t.shape)]]}
+                       for name, t in saved.items()}
+        self.moments, self.step = {}, 0
+        if (path / OPTIMIZER).is_file():
+            self._legacy_moments(_load(path / OPTIMIZER))
+
+    def _legacy_moments(self, opt: dict) -> None:
+        """The moments of an index-keyed ``state_dict``: its indices run
+        over the groups in order, decay (every name not ``*_norm``) then
+        no decay, each in ``named_parameters``' order."""
+        self.step = int(opt["step"])
+        names = list(self.params)
+        order = ([n for n in names if not n.endswith("_norm")]
+                 + [n for n in names if n.endswith("_norm")])
+        state = opt["optimizer"]["state"]
+        indices = [i for g in opt["optimizer"]["param_groups"]
+                   for i in g["params"]]
+        self._legacy = {}
+        for index, name in zip(indices, order):
+            entry = state.get(index)
+            if not entry:
+                continue
+            self._legacy[name] = entry
+            shape = self.params[name]["shape"]
+            self.moments[name] = {"shape": shape,
+                                  "step": float(entry["step"]),
+                                  "blocks": [[None, [0] * len(shape),
+                                              shape]]}
+
+    def _file(self, name: str):
+        if name not in self._files:
+            self._files[name] = _load(self.path / name, mmap=True)
+        return self._files[name]
+
+    def _block(self, file: str | None, name: str, key: str | None):
+        if file is None:
+            return self._legacy[name][key]
+        value = self._file(file)[name]
+        return value if key is None else value[key]
+
+    def _fill(self, entry: dict, name: str, key, out, starts) -> None:
+        """Copy into ``out`` (the region of leaf ``name`` from ``starts``
+        at ``out``'s shape) every saved block overlapping it."""
+        covered = 0
+        for file, b_start, b_size in entry["blocks"]:
+            src, dst = [], []
+            for s, n, bs, bn in zip(starts, out.shape, b_start, b_size):
+                lo, hi = max(s, bs), min(s + n, bs + bn)
+                if lo >= hi:
+                    break
+                src.append(slice(lo - bs, hi - bs))
+                dst.append(slice(lo - s, hi - s))
+            else:
+                out[tuple(dst)] = self._block(file, name, key)[tuple(src)]
+                covered += math.prod(d.stop - d.start for d in dst)
+        if covered != out.numel():
+            raise ValueError(f"checkpoint {self.path}: the saved blocks of "
+                             f"{name} cover {covered} of {out.numel()} "
+                             "values of this rank's block")
+
+    def param(self, name: str, out, starts) -> None:
+        self._fill(self.params[name], name, None, out, starts)
+
+    def moment(self, name: str, key: str, out, starts) -> None:
+        self._fill(self.moments[name], name, key, out, starts)
+
+    def whole(self, name: str) -> torch.Tensor:
+        """The whole saved leaf ``name`` (f32, host)."""
+        shape = self.params[name]["shape"]
+        out = torch.empty(shape, dtype=torch.float32)
+        self.param(name, out, [0] * len(shape))
+        return out
+
+
+def _whole_params(path: Path, device=None) -> dict:
+    """Every whole parameter of a saved step or export at ``path``."""
+    source = _Source(path)
+    return unflatten_params({name: source.whole(name)
+                             for name in source.params}, device)
+
+
+# ---------------------------------------------------------------------------
+# The checkpointer
 
 
 class Checkpointer:
-    """Save and restore a ``TrainState`` with a JSON side-car for the
-    data cursor, under one directory of numbered steps."""
+    """Save and restore a ``TrainState`` (one device's, or one rank's of
+    a mesh) with a JSON side-car for the data cursor, under one
+    directory of numbered steps."""
 
     def __init__(self, directory, options: CheckpointerOptions | None = None):
         self._dir = Path(directory)
@@ -192,48 +431,103 @@ class Checkpointer:
             raise FileNotFoundError(f"no checkpoint directory: {directory}")
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
-        self._pending: int | None = None  # the step being written
+        # Steps on disk at the start and steps this object saved: what
+        # ``save`` skips, the same on every rank.
+        self._saved = set(self.all_steps())
 
     # -- save ---------------------------------------------------------------
 
     def save(self, state: TrainState, data_state: dict | None = None,
              force: bool = False) -> bool:
-        """Save at ``state.step``: snapshot to host memory now, write in
-        the background (or now, without ``async_save``).  Returns False
-        when the interval policy skips the step or it is already saved."""
+        """Save at ``state.step``: snapshot this rank's blocks to host
+        memory now, write in the background (or now, without
+        ``async_save``).  Returns False when the interval policy skips
+        the step or it is already saved.  On a mesh every rank calls it
+        at the same step."""
         step = int(state.step)
         if not force and step % self._options.save_interval_steps:
             return False
-        if step in self.all_steps() or step == self._pending:
+        if step in self._saved:
             return False
         self.wait()  # one write in flight; surfaces the last one's error
+        self._saved.add(step)
+        mesh = state.mesh
+        rank = 0 if mesh is None else mesh.rank
+        world = 1 if mesh is None else mesh.size
+        token = secrets.token_hex(4)
+        if world > 1:  # one temporary directory for every rank
+            box = [token]
+            dist.broadcast_object_list(box, src=0, group=mesh.control)
+            token = box[0]
         t0 = time.perf_counter()
-        files = {
-            PARAMS: _host_copy(flatten_params(state.params)),
-            OPTIMIZER: {"step": step,
-                        "optimizer": _host_copy(state.optimizer.state_dict())},
-            DATA: json.dumps(data_state or {}),
-        }
+        params, moments, record = _snapshot(state)
+        files = {_rank_file(PARAMS, rank): params,
+                 _rank_file(MOMENTS, rank): moments}
         _CKPT_SECONDS.observe(time.perf_counter() - t0, "save")
         _CKPT_BYTES.inc("save", by=float(_tensor_bytes(files)))
+        record["mesh"] = None if mesh is None else mesh.shape
+        job = (step, token, rank, world, files, record, data_state or {})
         if not self._options.async_save:
-            self._write(step, files)
+            self._write(*job)
             return True
-        self._pending = step
         self._thread = threading.Thread(target=self._write_background,
-                                        args=(step, files), daemon=True,
+                                        args=job, daemon=True,
                                         name=f"oim-ckpt-{step}")
         self._thread.start()
         return True
 
-    def _write(self, step: int, files: dict) -> None:
-        _write_atomic(self._dir / str(step), files)
+    def _write(self, step: int, token: str, rank: int, world: int,
+               files: dict, record: dict, data_state: dict) -> None:
+        """This rank's files and its marker into the step's temporary
+        directory; on rank 0 the commit."""
+        tmp = self._dir / f"{_TMP}{step}-{token}"
+        tmp.mkdir(parents=True, exist_ok=True)
+        _write_files(tmp, dict(files, **{_MARK.format(rank):
+                                         json.dumps(record)}))
+        if rank == 0:
+            try:
+                self._commit(tmp, step, world, data_state)
+            except BaseException:
+                shutil.rmtree(tmp, ignore_errors=True)
+                raise
+
+    def _commit(self, tmp: Path, step: int, world: int,
+                data_state: dict) -> None:
+        """Rank 0: wait for every rank's marker, merge their records into
+        ``layout.json``, write ``data.json`` and rename the step into
+        place; then drop the steps past retention."""
+        deadline = time.monotonic() + self._options.commit_timeout
+        marks = [tmp / _MARK.format(r) for r in range(world)]
+        while not all(m.is_file() for m in marks):
+            if time.monotonic() > deadline:
+                missing = [r for r, m in enumerate(marks) if not m.is_file()]
+                raise TimeoutError(
+                    f"checkpoint step {step}: ranks {missing} did not finish "
+                    f"writing in {self._options.commit_timeout} s; the step "
+                    "is not committed")
+            time.sleep(0.05)
+        layout = {"format": 2, "step": step, "params": {}, "moments": {}}
+        for r, mark in enumerate(marks):
+            record = json.loads(mark.read_text())
+            layout.setdefault("mesh", record["mesh"])
+            for kind, base in (("params", PARAMS), ("moments", MOMENTS)):
+                for name, rec in record[kind].items():
+                    entry = layout[kind].setdefault(
+                        name, {"shape": rec["shape"], "blocks": []})
+                    entry["blocks"].append([_rank_file(base, r),
+                                            rec["start"], rec["size"]])
+                    if "step" in rec:
+                        entry["step"] = rec["step"]
+            mark.unlink()
+        _write_files(tmp, {LAYOUT: json.dumps(layout),
+                           DATA: json.dumps(data_state)})
+        os.rename(tmp, self._dir / str(step))
         for old in self.all_steps()[:-self._options.max_to_keep]:
             shutil.rmtree(self._dir / str(old), ignore_errors=True)
 
-    def _write_background(self, step: int, files: dict) -> None:
+    def _write_background(self, *job) -> None:
         try:
-            self._write(step, files)
+            self._write(*job)
         except Exception as exc:  # re-raised by wait()
             self._error = exc
 
@@ -263,31 +557,54 @@ class Checkpointer:
     def restore(self, init_fn: Callable[[], TrainState],
                 step: int | None = None) -> tuple[TrainState, dict]:
         """Restore ``step`` (default: the latest) into ``init_fn()``'s
-        state: every parameter, the optimizer's moments and step counts,
-        and ``TrainState.step``.  Returns ``(state, data_state)``."""
+        state — one device's, or this rank's of its mesh, whatever mesh
+        and ZeRO-1 setting the step was saved with: every parameter
+        block, the optimizer's moments and update counts, and
+        ``TrainState.step``.  Returns ``(state, data_state)``."""
         path = self._step_dir(step)
         t0 = time.perf_counter()
         state = init_fn()
-        saved = _load(path / PARAMS)
+        source = _Source(path)
         target = flatten_params(state.params)
-        if set(saved) != set(target):
+        if set(source.params) != set(target):
             raise ValueError(
-                f"checkpoint {path} holds {sorted(set(saved) ^ set(target))} "
-                f"that the restore target does not match")
+                f"checkpoint {path} holds "
+                f"{sorted(set(source.params) ^ set(target))} that the "
+                "restore target does not match")
+        moved = 0
         with torch.no_grad():
             for name, value in target.items():
-                if tuple(saved[name].shape) != tuple(value.shape):
+                want = _whole(state, name, value)
+                if source.params[name]["shape"] != want:
                     raise ValueError(
                         f"checkpoint {path}: {name} is "
-                        f"{tuple(saved[name].shape)}, the target "
-                        f"{tuple(value.shape)}")
-                value.copy_(saved[name])
-        opt = _load(path / OPTIMIZER)
-        load_optimizer_state(state.optimizer, opt["optimizer"])
-        state.step = int(opt["step"])
+                        f"{tuple(source.params[name]['shape'])}, the target "
+                        f"{tuple(want)}")
+                block = torch.empty(value.shape, dtype=torch.float32)
+                source.param(name, block,
+                             [s for s, _ in _region(state, name, value)])
+                value.copy_(block)
+                moved += block.numel() * 4
+            for owned in state.owned:
+                if not owned.shared:  # ZeRO-1's copied slice
+                    owned.tensor.copy_(owned.param.narrow(
+                        owned.dim, owned.start, owned.size))
+                if owned.name not in source.moments:
+                    continue
+                starts = [s for s, _ in _moment_region(state, owned)]
+                pair = []
+                for key in _MOMENT_KEYS:
+                    out = torch.empty(owned.tensor.shape, dtype=torch.float32)
+                    source.moment(owned.name, key, out, starts)
+                    pair.append(out)
+                    moved += out.numel() * 4
+                set_moments(state.optimizer, owned.tensor,
+                            source.moments[owned.name]["step"], *pair)
+        state.step = source.step
         _CKPT_SECONDS.observe(time.perf_counter() - t0, "restore")
-        _CKPT_BYTES.inc("restore", by=float(_tensor_bytes((saved, opt))))
-        return state, json.loads((path / DATA).read_text())
+        _CKPT_BYTES.inc("restore", by=float(moved))
+        data = path / DATA
+        return state, json.loads(data.read_text()) if data.is_file() else {}
 
     def restore_or_init(self, init_fn: Callable[[], TrainState]
                         ) -> tuple[TrainState, dict | None, bool]:
@@ -300,32 +617,51 @@ class Checkpointer:
         return state, data, True
 
     def restore_params(self, step: int | None = None, device=None) -> dict:
-        """Only the parameters of a training checkpoint (f32, on
-        ``device``): a server needs neither the optimizer state nor the
-        trainer's optimizer flags."""
-        return unflatten_params(_load(self._step_dir(step) / PARAMS), device)
+        """Only the whole parameters of a training checkpoint (f32, on
+        ``device``), whatever mesh saved them: a server needs neither the
+        optimizer state nor the trainer's optimizer flags."""
+        return _whole_params(self._step_dir(step), device)
 
     # -- params-only export (serving) ---------------------------------------
 
     def export_params(self, state: TrainState, directory) -> None:
-        """Write ``state.params`` alone to ``directory`` for
+        """Write ``state.params`` whole to ``directory`` for
         ``load_params``/``serve_main --params-dir``, synchronously and
-        atomically.  Refuses to overwrite an existing export."""
+        atomically.  On a mesh every rank calls it: each leaf is gathered
+        whole over the axes that shard it, one leaf at a time, and rank
+        0 writes.  Refuses to overwrite an existing export."""
         directory = Path(directory)
-        if directory.exists():
+        mesh = getattr(state, "mesh", None)
+        exists = directory.exists()
+        if mesh is not None and mesh.size > 1:  # every rank refuses alike
+            box = [exists]
+            dist.broadcast_object_list(box, src=0, group=mesh.control)
+            exists = box[0]
+        if exists:
             raise FileExistsError(f"params export target exists: {directory}")
-        directory.parent.mkdir(parents=True, exist_ok=True)
-        _write_atomic(directory,
-                      {PARAMS: _host_copy(flatten_params(state.params))})
+        whole = {}
+        for name, value in named_parameters(state.params):
+            value = value.detach()
+            if mesh is not None:
+                for dim, entry in enumerate(spec_of(state.specs, name)
+                                            or ()):
+                    if entry is not None and mesh.axis_size(entry) > 1:
+                        value = collectives.all_gather(value, mesh, entry,
+                                                       dim)
+            if mesh is None or mesh.rank == 0:
+                whole[name] = _host_copy(value)
+        if mesh is None or mesh.rank == 0:
+            directory.parent.mkdir(parents=True, exist_ok=True)
+            _write_atomic(directory, {PARAMS: whole})
 
     # -- lifecycle ----------------------------------------------------------
 
     def wait(self) -> None:
-        """Block until the queued save is on disk; re-raise its error."""
+        """Block until the queued save is on disk (committed, on rank 0);
+        re-raise its error."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-            self._pending = None
         if self._error is not None:
             error, self._error = self._error, None
             raise error
@@ -341,12 +677,13 @@ class Checkpointer:
 
 
 def load_params(directory, device=None) -> dict:
-    """A params-only export (``Checkpointer.export_params``) as the
-    port's nested parameter dict of f32 tensors on ``device``."""
-    path = Path(directory) / PARAMS
-    if not path.is_file():
+    """A params-only export (``Checkpointer.export_params``), or a
+    training step's directory, as the port's nested parameter dict of
+    whole f32 tensors on ``device``."""
+    path = Path(directory)
+    if not (path / PARAMS).is_file() and not (path / LAYOUT).is_file():
         raise FileNotFoundError(f"no params export at {directory}")
-    return unflatten_params(_load(path), device)
+    return _whole_params(path, device)
 
 
 def directory_bytes(path) -> int:

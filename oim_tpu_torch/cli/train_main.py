@@ -1,21 +1,38 @@
-"""oim-train for the port: one device, the reference trainer's flags.
+"""oim-train for the port: one device or a dp·tp·ep mesh, the reference
+trainer's flags.
 
 Synthetic (or ``.npy``) tokens → deterministic batches
-(``data/loader.py``) → a background copy onto the device
-(``data/prefetch.py``) → the training step (``models/train.py``) over
-f32 master weights from a seed, with RMSNorm, flash attention and the
-fused unembed+CE loss in the Hopper kernels (the configuration's
-defaults: no [B, T, V] logits are built).  It runs on the GPU unless
-``--device cpu``; there every step after the first is one CUDA graph
-replay of the whole step, as the reference jits it.
+(``data/loader.py``; on a mesh each rank its dp slice) → a background
+copy onto the device (``data/prefetch.py``) → the training step
+(``models/train.py``) over f32 master weights from a seed, with RMSNorm,
+flash attention and the fused unembed+CE loss in the Hopper kernels (the
+configuration's defaults: no [B, T, V] logits are built).  It runs on
+the GPU unless ``--device cpu``; there every step after the first is one
+CUDA graph replay of the whole step, as the reference jits it.
 
-``--checkpoint-dir`` saves every ``--save-every`` steps (asynchronously)
-and resumes from the latest step with its data cursor, so re-running the
-same command continues an interrupted run; a rescue save runs on the way
-out.  ``--export-dir`` writes the params alone after a completed run, for
-``serve_main --params-dir``.  ``--lora-rank/--lora-base`` fine-tune
-low-rank adapters over a frozen params export; evaluation and the export
-use the merged weights.
+``--dp/--tp/--ep`` train over a mesh of ``dp·tp·ep`` ranks, one process
+a device: this process is rank 0 and starts the others (spawned, meeting
+through a file rendezvous), NCCL between cards and gloo with ``--device
+cpu`` (``--backend gloo`` shares one card among the ranks, eagerly).
+``--dp 0`` (the default) takes every visible GPU, with the reference's
+refusal when the other axes do not divide them; with ``--device cpu``
+it is one rank.  ``--bootstrap FILE`` (default ``$TPU_BOOTSTRAP``)
+makes this process one rank of a CSI-staged slice instead
+(``parallel/coordinator.py::initialize``, ``dp`` inferred).  A pure dp
+mesh runs the one-device model, kernels and all, on each rank; under tp
+or ep the plain layer math with explicit collectives (the reference's
+gate: its Pallas kernels are off whenever tp or ep is above 1).
+``--zero1`` shards the AdamW moments over ``dp``.  Rank 0 logs and
+exports; every rank checkpoints its blocks.
+
+``--checkpoint-dir`` saves every ``--save-every`` steps (asynchronously;
+sharded on a mesh) and resumes from the latest step with its data
+cursor, on whatever mesh the command asks for, so re-running the same
+command continues an interrupted run; a rescue save runs on the way
+out.  ``--export-dir`` writes the whole params alone after a completed
+run, for ``serve_main --params-dir``.  ``--lora-rank/--lora-base``
+fine-tune low-rank adapters over a frozen params export (on one device
+or a dp mesh); evaluation and the export use the merged weights.
 
 Usage (full-width Qwen2.5-1.5B geometry on one H100):
     python -m oim_tpu_torch.cli.train_main --synthetic 400000 \\
@@ -23,6 +40,12 @@ Usage (full-width Qwen2.5-1.5B geometry on one H100):
         --d-model 1536 --n-layers 28 --n-heads 12 --n-kv-heads 2 \\
         --d-ff 8960 --attn-bias --rope-theta 1000000 --norm-eps 1e-6 \\
         --dtype bfloat16 --log-every 1
+
+The same at two data-parallel ranks with ZeRO-1 and checkpoints (two
+GPUs; on one, ``--backend gloo`` runs both ranks on it), or on the CPU
+at a tiny width with ``--device cpu --dp 2``:
+    python -m oim_tpu_torch.cli.train_main ... --dp 2 --zero1 \\
+        --checkpoint-dir /tmp/ckpt
 
 An MoE model (``--n-experts E --moe-top-k k``, optionally
 ``--router-z-loss``) trains with the reference's capacity routing; each
@@ -34,21 +57,26 @@ depth cut to 2 layers:
         --d-ff 14336 --n-experts 8 --moe-top-k 2 --router-z-loss 1e-3 \\
         --rope-theta 1000000 --norm-eps 1e-5 --dtype bfloat16
 
-Flags of the reference this slice does not port (mesh axes above 1, so
-expert parallelism too; bootstrap; ZeRO-1) are accepted and refused with
-the ROADMAP item that ports them.
+Flags of the reference this slice does not port (``--pp/--sp`` above 1,
+``--attn-impl``, ``--pp-schedule`` and ``--n-microbatches`` off their
+defaults, LoRA under tp or ep) are accepted and refused with the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
-import sys
+import shutil
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from oim_tpu_torch import log
 from oim_tpu_torch.checkpoint import (
     Checkpointer,
     CheckpointerOptions,
@@ -66,10 +94,32 @@ from oim_tpu_torch.models.train import (
     TrainState,
     make_eval_step,
     make_train_step,
+    replica_checksums,
 )
 from oim_tpu_torch.models.transformer import TransformerConfig, init_params
-from oim_tpu_torch.models.weights import check_params
+from oim_tpu_torch.ops import counts
+from oim_tpu_torch.models.weights import (
+    block_bytes,
+    check_params,
+    init_rank_params,
+    serve_specs,
+    train_config,
+)
+from oim_tpu_torch.parallel import (
+    apply_chip_binding,
+    build_mesh,
+    initialize,
+    load_bootstrap,
+)
+from oim_tpu_torch.parallel.mesh import mesh_devices
 from oim_tpu_torch.serve.engine import resolve_device
+
+# What refusals of the flags this slice does not port name.
+SECOND_HALF = ("ROADMAP Queue A12, third part, second half: sequence and "
+               "pipeline parallelism")
+# How long a rank waits in a collective for its peers (a peer that died
+# fails the others instead of hanging them).
+COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
 
 
 def _positive_int(value: str) -> int:
@@ -125,12 +175,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--norm-offset", action="store_true")
     p.add_argument("--embed-scale", action="store_true")
     p.add_argument("--dtype", default="bfloat16")
-    # Mesh flags of the reference, refused above 1 / when set; LoRA and
-    # checkpoints.
-    for axis in ("dp", "pp", "sp", "tp", "ep"):
-        p.add_argument(f"--{axis}", type=int, default=1 if axis != "dp" else 0)
-    p.add_argument("--bootstrap", default="")
-    p.add_argument("--zero1", action="store_true")
+    # The reference's sequence- and pipeline-parallel flags: their
+    # defaults only (A12's second half).
+    p.add_argument("--attn-impl", default="ring", choices=["ring", "ulysses"])
+    p.add_argument("--pp-schedule", default="gpipe", choices=["gpipe", "1f1b"])
+    p.add_argument("--n-microbatches", type=int, default=1)
+    # Mesh: explicit axes, or inferred from the CSI-staged bootstrap.
+    p.add_argument("--dp", type=int, default=0,
+                   help="0 = every visible GPU left by the other axes "
+                   "(one rank with --device cpu)")
+    p.add_argument("--pp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--ep", type=int, default=1)
+    p.add_argument(
+        "--bootstrap", default="",
+        help="tpu-bootstrap.json path (default: $TPU_BOOTSTRAP when set): "
+        "this process is one rank of the staged slice",
+    )
+    p.add_argument(
+        "--backend", default="", choices=["", "nccl", "gloo"],
+        help="the ranks' collectives: nccl (default on the GPU) or gloo "
+        "(the default with --device cpu; on the GPU it lets ranks share "
+        "a card, and steps run eagerly)",
+    )
+    p.add_argument(
+        "--zero1", action="store_true",
+        help="ZeRO-1: shard adamw moments over the dp axis (optimizer "
+        "memory / dp; math unchanged — the update all-gathers params)",
+    )
     p.add_argument("--lora-rank", type=_nonneg_int, default=0)
     p.add_argument("--lora-alpha", type=float, default=16.0)
     p.add_argument("--lora-base", default="")
@@ -152,32 +225,172 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-frac", type=float, default=0.05)
     p.add_argument("--eval-batches", type=_positive_int, default=4)
     p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--log-level", default="info")
     return p
 
 
 def _check_flags(args) -> None:
-    """Raise for each reference flag this slice does not port, naming the
-    ROADMAP item that does, and for flags that need another (checked
-    before any work, as the reference does)."""
-    parallel = "ROADMAP Queue A12: parallelism, third part (training)"
-    for axis in ("dp", "pp", "sp", "tp", "ep"):
+    """``SystemExit`` for each reference flag this slice does not port,
+    naming the ROADMAP item that does, and for flags that need another
+    (the reference's messages, checked before any work)."""
+    for axis in ("pp", "sp"):
         if getattr(args, axis) > 1:
-            raise ValueError(
-                f"--{axis} {getattr(args, axis)}: multi-device training is "
-                f"not ported yet ({parallel}); the port trains on one device")
-    refused = [
-        (args.bootstrap, "--bootstrap", f"{parallel}, coordinator.py"),
-        (args.zero1, "--zero1", f"{parallel}, sharding.py"),
-    ]
-    for given, flag, item in refused:
-        if given:
-            raise ValueError(f"{flag} is not ported yet ({item})")
+            raise SystemExit(
+                f"--{axis} {getattr(args, axis)} is not ported yet "
+                f"({SECOND_HALF})")
+    defaults = (("attn_impl", "ring"), ("pp_schedule", "gpipe"),
+                ("n_microbatches", 1))
+    for name, default in defaults:
+        if getattr(args, name) != default:
+            raise SystemExit(
+                f"--{name.replace('_', '-')} {getattr(args, name)} is not "
+                f"ported yet ({SECOND_HALF})")
+    for axis in ("dp", "tp", "ep"):
+        if getattr(args, axis) < (0 if axis == "dp" else 1):
+            raise SystemExit(f"--{axis} {getattr(args, axis)} is out of "
+                             "range")
     if args.export_dir and not args.checkpoint_dir:
-        raise ValueError("--export-dir requires --checkpoint-dir")
+        raise SystemExit("--export-dir requires --checkpoint-dir")
     if args.lora_rank and not args.lora_base:
-        raise ValueError("--lora-rank requires --lora-base (a params export)")
+        raise SystemExit("--lora-rank requires --lora-base (a params export)")
     if args.lora_base and not args.lora_rank:
-        raise ValueError("--lora-base requires --lora-rank >= 1")
+        raise SystemExit("--lora-base requires --lora-rank >= 1")
+    if args.lora_rank and (args.tp > 1 or args.ep > 1):
+        raise SystemExit(
+            f"--lora-rank under --tp {args.tp} --ep {args.ep} is not ported "
+            f"yet ({SECOND_HALF}, LoRA under tp/ep); LoRA trains on one "
+            "device or a dp mesh")
+    if args.backend == "nccl" and torch.device(args.device).type == "cpu":
+        raise SystemExit("--backend nccl needs the GPU; --device cpu runs "
+                         "gloo")
+
+
+def _bootstrap_path(args) -> str:
+    return args.bootstrap or os.environ.get("TPU_BOOTSTRAP", "")
+
+
+def mesh_sizes(args) -> dict:
+    """``{"dp", "tp", "ep"}`` of the mesh the flags ask for (no
+    bootstrap): ``--dp 0`` is every visible GPU the other axes leave (the
+    reference's inference from its device count, and its refusal when
+    they do not divide), or one rank with ``--device cpu``."""
+    fixed = args.pp * args.sp * args.tp * args.ep
+    dp = args.dp
+    if not dp:
+        if torch.device(args.device).type == "cpu":
+            dp = 1
+        else:
+            n = torch.cuda.device_count()
+            dp = n // fixed
+            if dp * fixed != n:
+                # Inferred dp flooring would silently idle GPUs; make the
+                # operator choose.
+                raise SystemExit(
+                    f"{n} devices not divisible by pp*sp*tp*ep={fixed}; "
+                    "pass --dp explicitly (a sub-mesh is allowed when "
+                    "explicit)")
+    return {"dp": dp, "tp": args.tp, "ep": args.ep}
+
+
+def _backend(args) -> str:
+    if torch.device(args.device).type == "cpu":
+        return "gloo"
+    return args.backend or "nccl"
+
+
+def _devices(args, n: int) -> list:
+    """One device a rank: the CPU, distinct GPUs (NCCL), or the visible
+    GPUs in turn (gloo: ranks may share a card)."""
+    if torch.device(args.device).type == "cpu":
+        return ["cpu"] * n
+    if _backend(args) == "gloo":
+        have = torch.cuda.device_count()
+        return [torch.device("cuda", r % have) for r in range(n)]
+    return mesh_devices(n)
+
+
+def join_mesh(args, rank: int, store_path: str):
+    """This process's rank of the training mesh the flags ask for: the
+    process group (NCCL, or gloo) through the file rendezvous at
+    ``store_path``, then the mesh over one device a rank."""
+    sizes = mesh_sizes(args)
+    n = sizes["dp"] * sizes["tp"] * sizes["ep"]
+    devices = _devices(args, n)
+    store = dist.FileStore(store_path, n)
+    backend = _backend(args)
+    extra = ({"device_id": torch.device(devices[rank])}
+             if backend == "nccl" else {})
+    dist.init_process_group(backend, store=store, rank=rank, world_size=n,
+                            timeout=COLLECTIVE_TIMEOUT, **extra)
+    return build_mesh(devices=devices, **sizes)
+
+
+def train_rank(rank: int, store_path: str, args, cuda_graph: bool) -> None:
+    """A spawned rank of ``--dp/--tp/--ep`` (rank 0 is the process that
+    started it): its part of every step, checkpoint and export."""
+    torch.set_num_threads(1)
+    mesh = join_mesh(args, rank, store_path)
+    try:
+        _train(args, cuda_graph, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_mesh(args, cuda_graph: bool) -> tuple:
+    """(this process's mesh, the other ranks' processes, the rendezvous
+    directory): from ``--bootstrap`` (this process one rank of the
+    slice, nothing started), from ``--dp/--tp/--ep`` (rank 0 here, the
+    others spawned), or (None, [], None) for one device.  Too few GPUs
+    fails here, before any process starts."""
+    bootstrap = _bootstrap_path(args)
+    if bootstrap:
+        staged = load_bootstrap(bootstrap)
+        local = (int(np.prod(staged.mesh)) if staged.mesh
+                 else len(staged.chips))
+        n = local * max(1, staged.num_processes)
+        devices = (_devices(args, n) if _backend(args) == "gloo" else None)
+        mesh = initialize(bootstrap, backend=_backend(args), devices=devices,
+                          dp=args.dp, pp=args.pp, sp=args.sp, tp=args.tp,
+                          ep=args.ep)
+        log.current().info("bootstrap loaded", path=bootstrap,
+                           process=f"{staged.process_id}/"
+                                   f"{staged.num_processes}")
+        return mesh, [], None
+    sizes = mesh_sizes(args)
+    n = sizes["dp"] * sizes["tp"] * sizes["ep"]
+    if n == 1:
+        return None, [], None
+    _devices(args, n)  # too few GPUs: refused before any process starts
+    rendezvous = tempfile.mkdtemp(prefix="oim-train-mesh-")
+    store = os.path.join(rendezvous, "store")
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=train_rank,
+                         args=(rank, store, args, cuda_graph), daemon=True)
+             for rank in range(1, n)]
+    for p in procs:
+        p.start()
+    log.current().info("mesh ranks started", ranks=n, others=len(procs))
+    return join_mesh(args, 0, store), procs, rendezvous
+
+
+def stop_mesh(mesh, procs, rendezvous, failed: bool) -> None:
+    """Leave the process group, join the other ranks (killing any left
+    behind after a failure here) and remove the rendezvous; a rank that
+    failed fails the run."""
+    if mesh is not None and dist.is_initialized():
+        dist.destroy_process_group()
+    for p in procs:
+        p.join(timeout=30 if failed else None)
+        if p.is_alive():
+            p.terminate()
+            p.join()
+    if rendezvous is not None:
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    codes = [p.exitcode for p in procs]
+    if procs:
+        log.current().info("mesh ranks stopped", exitcodes=codes)
+    if not failed and any(codes):
+        raise RuntimeError(f"a training rank failed: exit codes {codes}")
 
 
 def _load_corpus(args) -> np.ndarray:
@@ -213,8 +426,12 @@ def make_config(args) -> TransformerConfig:
         norm_eps=args.norm_eps,
         sliding_window=args.sliding_window,
         doc_sep_id=args.doc_sep_id,
+        n_stages=args.pp,
+        n_microbatches=max(args.n_microbatches, 1),
         grad_accum=args.grad_accum,
         dtype=args.dtype,
+        attn_impl=args.attn_impl,
+        pp_schedule=args.pp_schedule,
     )
 
 
@@ -226,31 +443,39 @@ def make_optimizer_config(args) -> OptimizerConfig:
                            grad_clip=args.grad_clip)
 
 
+# Whether this process logs the run (one device, or a mesh's rank 0).
+_LEAD = [True]
+
+
 def _log(event: str, **fields) -> None:
+    if not _LEAD[0]:
+        return
     text = " ".join(f"{k}={v}" for k, v in fields.items())
-    print(f"oim-train {event} {text}", file=sys.stderr, flush=True)
+    log.current().info(f"oim-train {event} {text}".rstrip())
 
 
-def _eval_fn(args, cfg, tokens, device):
+def _eval_fn(args, cfg, tokens, device, mesh):
     """(training tokens, ``eval_fn(params) -> ce`` or None): with
     ``--eval-every`` the corpus tail is held out and averaged over
-    ``--eval-batches`` distinct batches."""
+    ``--eval-batches`` distinct batches (on a mesh each rank its dp
+    rows; the ce is the whole batch's on every rank)."""
     if not args.eval_every:
         return tokens, None
     if not 0.0 < args.eval_frac < 1.0:
-        raise ValueError(
+        raise SystemExit(
             f"--eval-frac must be in (0, 1), got {args.eval_frac}")
     n_eval = int(len(tokens) * args.eval_frac)
     if window_count(n_eval, args.seq) < args.batch_global:
-        raise ValueError(
+        raise SystemExit(
             f"eval split of {n_eval} tokens cannot fill one batch of "
-            f"{args.batch_global}x(seq+1); raise --eval-frac")
+            f"{args.batch_global}x(seq+1); raise --eval-frac or use a "
+            "larger corpus")
     # Tail split: train never sees the eval tokens.
     eval_tokens = tokens[len(tokens) - n_eval:]
     eval_batches = TokenBatches(eval_tokens, args.batch_global, args.seq,
-                                ShardSpec(), seed=args.seed + 1)
+                                _shard(mesh), seed=args.seed + 1)
     n_eval_batches = min(args.eval_batches, eval_batches.steps_per_epoch)
-    eval_step = make_eval_step(cfg)
+    eval_step = make_eval_step(cfg, mesh=mesh)
 
     def eval_fn(params) -> float:
         ces = []
@@ -262,24 +487,60 @@ def _eval_fn(args, cfg, tokens, device):
     return tokens[: len(tokens) - n_eval], eval_fn
 
 
+def _shard(mesh) -> ShardSpec:
+    """The rows a rank feeds: its dp slice (its tp/ep peers feed the
+    same)."""
+    if mesh is None:
+        return ShardSpec()
+    return ShardSpec(mesh.axis_index("dp"), mesh.shape["dp"])
+
+
 def train(args, cuda_graph: bool = True) -> dict:
-    """Run the training the args describe; returns ``{"losses": [per
-    step run], "aux": [per step run], "step_seconds": [...],
+    """Run the training the args describe; returns this process's (rank
+    0's, or under ``--bootstrap`` its own rank's) ``{"losses":
+    [per step run], "aux": [per step run], "step_seconds": [...],
     "tokens_per_step", "eval_ce": [...], "start_step", "graph": the step
-    function's ``stats()``, "state"}``.  Step times are host walls that
-    end in a device sync (the loss readback).  On the GPU every step
-    after the first is a replay of the step's CUDA graph (as the
-    reference jits its step); ``cuda_graph=False`` runs them eagerly
-    (the A/B control, no flag)."""
+    function's ``stats()``, "state", "mesh": the mesh's shape or None,
+    "rank": this process's, "moment_bytes": the AdamW moments it
+    holds, "reduce_seconds": each eager step's dp gradient sum, and on a
+    mesh's rank 0 "ranks": every rank's report (``_rank_reports``)}``.  Step times are
+    host walls that end in a device sync (the loss readback).  On the GPU
+    every step after the first is a replay of the step's CUDA graph (as
+    the reference jits its step; on an NCCL mesh the collectives inside
+    it, a gloo mesh eager); ``cuda_graph=False`` runs them eagerly (the
+    A/B control, no flag)."""
+    log.init_from_string(args.log_level)
     _check_flags(args)
-    device = resolve_device(args.device)
+    if _bootstrap_path(args):
+        # The staged cards are bound before CUDA first starts.
+        apply_chip_binding(load_bootstrap(_bootstrap_path(args)))
+    resolve_device(args.device)
+    mesh, procs, rendezvous = start_mesh(args, cuda_graph)
+    failed = True
+    try:
+        out = _train(args, cuda_graph, mesh)
+        failed = False
+    finally:
+        stop_mesh(mesh, procs, rendezvous, failed)
+    return out
+
+
+def _train(args, cuda_graph: bool, mesh) -> dict:
+    """One rank's run (or the one device's): see ``train``."""
+    _LEAD[0] = mesh is None or mesh.rank == 0
+    device = resolve_device(args.device) if mesh is None else mesh.device
     cfg = make_config(args)
+    model = cfg if mesh is None else train_config(cfg, mesh)
     opt = make_optimizer_config(args)
-    _log("start", device=device, fused_ce=cfg.fused_ce,
-         use_pallas=cfg.use_pallas, remat=cfg.remat, layers=cfg.n_layers,
+    _log("start", device=device, fused_ce=model.fused_ce,
+         use_pallas=model.use_pallas, remat=cfg.remat, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
          batch=f"{args.batch_global}x{args.seq}",
-         graphed=cuda_graph and device.type == "cuda")
+         mesh=None if mesh is None else "x".join(
+             f"{a}{n}" for a, n in mesh.shape.items() if n > 1) or "1",
+         zero1=args.zero1,
+         graphed=cuda_graph and device.type == "cuda" and (
+             mesh is None or mesh.backend == "nccl"))
     lora_base = None
     if args.lora_rank:
         lora_base = load_params(args.lora_base, device=device)
@@ -288,11 +549,16 @@ def train(args, cuda_graph: bool = True) -> dict:
              base=args.lora_base)
 
     def init_fn() -> TrainState:
-        if args.lora_rank:
+        if args.lora_rank:  # adapters and base whole on every rank
             return TrainState.create(
-                init_lora(args.seed, cfg, args.lora_rank, device=device), opt)
+                init_lora(args.seed, cfg, args.lora_rank, device=device), opt,
+                mesh=mesh, zero1=args.zero1)
+        if mesh is None:
+            return TrainState.create(
+                init_params(args.seed, cfg, device=device, master=True), opt)
         return TrainState.create(
-            init_params(args.seed, cfg, device=device, master=True), opt)
+            init_rank_params(args.seed, cfg, mesh, device=device), opt,
+            mesh=mesh, specs=serve_specs(cfg, mesh), zero1=args.zero1)
 
     def merged(state: TrainState) -> dict:
         """The model the run trains: the params, or LoRA's merge."""
@@ -315,19 +581,22 @@ def train(args, cuda_graph: bool = True) -> dict:
             _log("resumed", step=start_step)
     else:
         state = init_fn()
-    tokens, eval_fn = _eval_fn(args, cfg, _load_corpus(args), device)
-    batches = TokenBatches(tokens, args.batch_global, args.seq, ShardSpec(),
+    tokens, eval_fn = _eval_fn(args, cfg, _load_corpus(args), device, mesh)
+    batches = TokenBatches(tokens, args.batch_global, args.seq, _shard(mesh),
                            seed=args.seed)
     if args.lora_rank:
         lora_step = make_lora_train_step(cfg, args.lora_alpha,
-                                         args.lora_rank, cuda_graph)
+                                         args.lora_rank, cuda_graph,
+                                         mesh=mesh)
 
         def step_fn(state, batch):
             return lora_step(state, lora_base, batch)
 
         step_stats = lora_step.stats
     else:
-        step_fn = make_train_step(cfg, cuda_graph=cuda_graph)
+        step_fn = (make_train_step(cfg, cuda_graph=cuda_graph) if mesh is None
+                   else make_train_step(cfg, cuda_graph=cuda_graph,
+                                        mesh=mesh))
         step_stats = step_fn.stats
 
     def batch_stream():
@@ -338,7 +607,8 @@ def train(args, cuda_graph: bool = True) -> dict:
 
     out = {"losses": [], "aux": [], "step_seconds": [], "eval_ce": [],
            "tokens_per_step": args.batch_global * args.seq,
-           "start_step": start_step}
+           "start_step": start_step, "rank": 0 if mesh is None else mesh.rank,
+           "mesh": None if mesh is None else dict(mesh.shape)}
     step = start_step
     t0 = time.perf_counter()
     try:
@@ -369,28 +639,58 @@ def train(args, cuda_graph: bool = True) -> dict:
     finally:
         if checkpointer is not None:
             try:
-                # Rescue save: an interrupted run resumes where it stopped.
-                if checkpointer.latest_step() != step:
-                    checkpointer.save(state, {"next_step": step}, force=True)
+                # Rescue save: an interrupted run resumes where it stopped
+                # (skipped when this step is saved already).
+                checkpointer.save(state, {"next_step": step}, force=True)
                 if args.export_dir and step >= args.steps:
-                    # Completed runs only; an existing export is a prior
-                    # completed run's, so re-running stays idempotent.
-                    if os.path.exists(args.export_dir):
-                        _log("export exists; skipping", dir=args.export_dir)
-                    else:
-                        # LoRA exports the MERGED weights: serving needs
-                        # no LoRA support.
-                        checkpointer.export_params(
-                            TrainState(params=merged(state), optimizer=None,
-                                       opt=opt, step=state.step),
-                            args.export_dir)
-                        _log("params exported", dir=args.export_dir)
+                    _export(args, checkpointer, state, merged, opt)
             finally:
                 checkpointer.close()  # always await the queued save
     out["graph"] = step_stats()
+    out["moment_bytes"] = state.moment_bytes()
+    out["reduce_seconds"] = list(state.reduce_seconds)
+    if mesh is not None:
+        out["ranks"] = _rank_reports(state, mesh)
     _log("done", steps=step)
     out["state"] = state
     return out
+
+
+def _rank_reports(state: TrainState, mesh) -> list | None:
+    """Every rank's report, gathered on rank 0 (None elsewhere): its
+    kernel and collective launch counts (``ops/counts.py``, since the
+    process began or the caller's reset), peak device bytes, parameter
+    and moment bytes, the host wall of each eager step's dp gradient
+    sum, and the checksums of its replicated leaves
+    (``replica_checksums``)."""
+    device = mesh.device
+    report = {"rank": mesh.rank, "coords": dict(mesh.coords),
+              "counts": counts.counters(),
+              "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                             if device.type == "cuda" else 0),
+              "param_bytes": block_bytes(state.params),
+              "moment_bytes": state.moment_bytes(),
+              "reduce_seconds": list(state.reduce_seconds),
+              "replicas": replica_checksums(state)}
+    reports = [None] * mesh.size if mesh.rank == 0 else None
+    dist.gather_object(report, reports, dst=0, group=mesh.control)
+    return reports
+
+
+def _export(args, checkpointer, state, merged, opt) -> None:
+    """Completed runs only; an existing export is a prior completed
+    run's, so re-running stays idempotent.  LoRA exports the MERGED
+    weights: serving needs no LoRA support."""
+    params = merged(state)
+    target = state if params is state.params else TrainState(
+        params=params, optimizer=None, opt=opt, step=state.step,
+        mesh=state.mesh)
+    try:
+        checkpointer.export_params(target, args.export_dir)
+    except FileExistsError:
+        _log("export exists; skipping", dir=args.export_dir)
+        return
+    _log("params exported", dir=args.export_dir)
 
 
 def main(argv=None) -> int:

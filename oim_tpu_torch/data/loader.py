@@ -2,8 +2,14 @@
 
 The port's own copy of ``oim_tpu/data/loader.py``'s ``ShardSpec``,
 ``window_count`` and ``TokenBatches``, so both trainers cut the same
-corpus into the same batches at the same steps.  The reference's
-Prometheus counters are left out: the metrics module is not ported.
+corpus into the same batches at the same steps, with the reference's
+data-plane instruments: ``oim_data_batches_total`` and
+``oim_data_batch_assembly_seconds``.
+
+On a training mesh a rank feeds ``ShardSpec(dp index, dp)``: its tp
+and ep peers feed the same rows, and the dp ranks' rows together are the
+global batch (rank r holds rows ``r::dp``; concatenated in rank order,
+as the reference's multi-process feed assembles its global array).
 
 - **Process-sharded, deterministic.**  Every process computes the same
   global shuffle from the same seed and takes its own disjoint rows by
@@ -18,10 +24,27 @@ Prometheus counters are left out: the metrics module is not ported.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
+
+from oim_tpu_torch.common import metrics
+
+# Data-plane instruments (the reference's): a host-bound feed shows here
+# before step time regresses.  Assembly is sub-millisecond when healthy,
+# so FAST_BUCKETS.
+_BATCHES = metrics.registry().counter(
+    "oim_data_batches_total",
+    "Token batches assembled by the input pipeline.",
+)
+_ASSEMBLY = metrics.registry().histogram(
+    "oim_data_batch_assembly_seconds",
+    "Host-side batch gather latency (shuffled windows to one batch "
+    "array), per batch.",
+    buckets=metrics.FAST_BUCKETS,
+)
 
 
 @dataclass(frozen=True)
@@ -101,6 +124,7 @@ class TokenBatches:
     def batch_at(self, step: int) -> np.ndarray:
         """The local batch for a global step (random access: the resume
         path needs no iterator state)."""
+        t0 = time.perf_counter()
         epoch, within = divmod(step, self.steps_per_epoch)
         order = self._epoch_order(epoch)
         start = within * self.batch_global
@@ -112,6 +136,8 @@ class TokenBatches:
         out = np.empty((self.batch_local, self.seq + 1), np.int32)
         for i, w in enumerate(rows):
             out[i] = self.tokens[w * self.seq : w * self.seq + self.seq + 1]
+        _ASSEMBLY.observe(time.perf_counter() - t0)
+        _BATCHES.inc()
         return out
 
     def __iter__(self) -> Iterator[np.ndarray]:

@@ -10,17 +10,34 @@ tensor is used there.  On the CPU the tensor is the batch itself.
 
 An exception in the source iterator surfaces in the consumer where it
 would have taken that batch; closing the generator stops the producer.
+The reference's instruments: ``oim_data_prefetch_depth`` (batches ready
+at the consumer's last wakeup: pinned at 0, the host cannot keep up)
+and ``oim_data_batch_wait_seconds`` (what that costs the step).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Iterable, Iterator
 
 import numpy as np
 import torch
 
+from oim_tpu_torch.common import metrics
+
+_DEPTH = metrics.registry().gauge(
+    "oim_data_prefetch_depth",
+    "Batches ready in the host-to-device prefetch buffer at the last "
+    "consumer wakeup.",
+)
+_WAIT = metrics.registry().histogram(
+    "oim_data_batch_wait_seconds",
+    "Time the consumer blocked waiting for the next prefetched batch "
+    "(sustained milliseconds here = input-pipeline-bound training).",
+    buckets=metrics.FAST_BUCKETS,
+)
 
 class _Stop:
     pass
@@ -80,7 +97,10 @@ def device_prefetch(batches: Iterable[np.ndarray],
         thread.start()
         try:
             while True:
+                t0 = time.perf_counter()
                 item = buf.get()
+                _WAIT.observe(time.perf_counter() - t0)
+                _DEPTH.set(buf.qsize())
                 if isinstance(item, _Stop):
                     return
                 if isinstance(item, BaseException):

@@ -97,16 +97,17 @@ def _adapter_grads(grads_w: dict, adapters: dict, alpha: float,
 
 
 def make_lora_train_step(cfg: TransformerConfig, alpha: float, rank: int,
-                         cuda_graph: bool = True):
+                         cuda_graph: bool = True, mesh=None):
     """``step(state, base_params, tokens) -> (state, metrics)``:
     ``state.params`` are the adapters (the only thing optimized or
     checkpointed); ``base_params`` stay frozen.  The full train step
     runs on the merged weights — on the GPU as ``make_train_step``'s
     graph, the merge inside it and the base held by address (one base a
-    step function)."""
+    step function).  On a ``dp`` mesh base and adapters are whole on
+    every rank and the adapters' gradients are summed over ``dp``."""
     step = make_train_step(
         cfg, model_params=lambda adapters, base: merge_lora(
-            base, adapters, alpha, rank), cuda_graph=cuda_graph)
+            base, adapters, alpha, rank), cuda_graph=cuda_graph, mesh=mesh)
 
     def lora_step(state, base_params, tokens):
         return step(state, tokens, base_params)

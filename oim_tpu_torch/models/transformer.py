@@ -42,6 +42,17 @@ GSPMD — a ``psum`` over ``tp`` after the row-parallel ``wo`` and
 ``w_out``, a masked lookup and ``psum`` for the vocab-sharded ``wte``,
 an ``all_gather`` of the vocab-sharded logits before sampling.  With no
 mesh no collective runs and the code is what it is on one device.
+
+Trained over a mesh (``models/weights.py::train_config``), the same
+layer math carries gradients: where a tensor requires grad, the sums are
+``parallel/collectives.py``'s differentiable ``reduce_from`` (the
+serving path's in-place ``psum`` otherwise), the replicated input of a
+column-parallel product goes through ``copy_to`` (its gradient summed
+over ``tp``), and ``_switch_moe`` under ``ep`` runs this rank's experts'
+capacity slots over the tokens every ep rank shares, the expert sum
+through ``reduce_from`` and the gates and the experts' input through
+``copy_to``, so that the router and the norms get whole gradients on
+every rank.
 """
 
 from __future__ import annotations
@@ -225,8 +236,22 @@ def require_trainable(cfg: TransformerConfig) -> None:
     if cfg.n_stages != 1:
         raise ValueError(
             f"n_stages={cfg.n_stages}: pipeline parallelism is not ported "
-            "yet (ROADMAP Queue A12, third part: parallel/pipeline.py)"
+            "yet (ROADMAP Queue A12, third part, second half: "
+            "parallel/pipeline.py)"
         )
+
+
+def named_parameters(params: dict):
+    """``(name, tensor)`` over a port parameter dict in its order, layers
+    as ``layers.<i>.<name>`` — the model's parameters or LoRA's
+    adapters."""
+    for name, value in params.items():
+        if name == "layers":
+            for i, lp in enumerate(value):
+                for leaf, t in lp.items():
+                    yield f"layers.{i}.{leaf}", t
+        else:
+            yield name, value
 
 
 def logical_axes(cfg: TransformerConfig) -> dict:
@@ -409,8 +434,8 @@ def embed_lookup(wte, tokens, cfg: TransformerConfig):
         local = tokens - cfg.mesh.axis_index("tp") * rows
         inside = (local >= 0) & (local < rows)
         x = F.embedding(local.clamp(0, rows - 1), wte)
-        x = collectives.psum(torch.where(inside[..., None], x, 0.0).to(
-            wte.dtype), cfg.mesh, "tp")
+        x = _sum(torch.where(inside[..., None], x, 0.0).to(wte.dtype),
+                 cfg, "tp")
     else:
         x = F.embedding(tokens, wte)
     x = x.to(cfg.compute_dtype)
@@ -440,22 +465,42 @@ def linear(x, tree, name: str, cfg: TransformerConfig):
     return quant_matmul(x, tree[name], scale, dtype=cfg.compute_dtype)
 
 
+def _sum(x, cfg, axes):
+    """``x`` summed over ``axes`` of ``cfg.mesh``: ``reduce_from`` where
+    autograd records ``x`` (training), else the in-place ``psum``."""
+    if x.requires_grad:
+        return collectives.reduce_from(x, cfg.mesh, axes)
+    return collectives.psum(x, cfg.mesh, axes)
+
+
+def column_input(x, cfg, row: str):
+    """``x`` as the replicated input of the column-parallel products
+    paired with the row-parallel ``row`` (``wo``: q/k/v; ``w_out``: the
+    MLP's gate and up): under training, ``copy_to`` over ``tp``, so
+    that its gradient — each rank's columns' part — is summed; as it is
+    otherwise."""
+    if x.requires_grad and row in getattr(cfg, "row_psum", ()):
+        return collectives.copy_to(x, cfg.mesh, "tp")
+    return x
+
+
 def row_linear(x, tree, name: str, cfg: TransformerConfig):
     """``linear`` of a row-parallel weight (``wo``, a dense ``w_out``):
     on a rank of a mesh, its partial product summed over ``tp`` — or,
     for a weight kept whole while its input arrives sharded, the input
     gathered first; with no mesh, ``linear``."""
     if name in getattr(cfg, "row_gather", ()):
-        x = collectives.all_gather(x, cfg.mesh, "tp", dim=-1)
+        x = (collectives.gather_from(x, cfg.mesh, "tp", -1) if x.requires_grad
+             else collectives.all_gather(x, cfg.mesh, "tp", dim=-1))
     y = linear(x, tree, name, cfg)
     if name in getattr(cfg, "row_psum", ()):
-        y = collectives.psum(y, cfg.mesh, "tp")
+        y = _sum(y, cfg, "tp")
     return y
 
 
 def _dense_mlp(x, lp, cfg: TransformerConfig):
     """Pre-norm gated MLP with its residual."""
-    normed = _rmsnorm(x, lp["mlp_norm"], cfg)
+    normed = column_input(_rmsnorm(x, lp["mlp_norm"], cfg), cfg, "w_out")
     gate = _mlp_act(linear(normed, lp, "w_gate", cfg), cfg)
     up = linear(normed, lp, "w_in", cfg)
     return x + row_linear(gate * up, lp, "w_out", cfg).to(x.dtype)
@@ -523,7 +568,15 @@ def _switch_moe(x, lp, cfg: TransformerConfig):
     out, aux)``: the load-balance loss over first choices, ``e ·
     Σ density · mean prob``, plus the router z-loss ``mean(lse²)``
     pre-divided by ``AUX_LOSS_WEIGHT`` (the objective multiplies it
-    back, so the term is exactly ``router_z_loss · mean(z²)``)."""
+    back, so the term is exactly ``router_z_loss · mean(z²)``).
+
+    On a rank of a training mesh (``moe_axes``) every rank routes every
+    token alike and queues them all; the rank runs its ``local_experts``
+    from ``expert_lo`` (on its MLP columns under ``tp``) and the expert
+    sum is ``reduce_from`` over ``moe_axes``.  The gates and the experts'
+    input pass ``copy_to`` there: each rank's part of their gradient
+    covers its own experts only, and the sum makes the router's and the
+    norm's gradients whole on every rank."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     g = b * t
@@ -531,12 +584,23 @@ def _switch_moe(x, lp, cfg: TransformerConfig):
     normed = _rmsnorm(x, lp["mlp_norm"], cfg).reshape(g, d).float()
     logits, probs = _router_probs(normed, lp["router"])
     _, top_idx, gates = _router_gates(probs, k)
+    axes = getattr(cfg, "moe_axes", ())
+    experts_in = normed
+    if axes:
+        gates = collectives.copy_to(gates, cfg.mesh, axes)
+        experts_in = collectives.copy_to(normed, cfg.mesh, axes)
     dispatch, combine = _capacity_dispatch(top_idx, gates, e, capacity)
-    expert_in = torch.einsum("gec,gd->ecd", dispatch, normed)
+    if axes:
+        local = slice(cfg.expert_lo, cfg.expert_lo + cfg.local_experts)
+        dispatch, combine = dispatch[:, local], combine[:, local]
+    expert_in = torch.einsum("gec,gd->ecd", dispatch, experts_in)
     gate = _mlp_act(expert_in @ lp["w_gate"], cfg)
     up = expert_in @ lp["w_in"]
     expert_out = (gate * up) @ lp["w_out"]
-    out = torch.einsum("gec,ecd->gd", combine, expert_out).reshape(b, t, d)
+    out = torch.einsum("gec,ecd->gd", combine, expert_out)
+    if axes:
+        out = collectives.reduce_from(out, cfg.mesh, axes)
+    out = out.reshape(b, t, d)
     density = torch.mean(_expert_mask(top_idx[:, 0], e), dim=0)
     aux = e * torch.sum(density * torch.mean(probs, dim=0))
     if cfg.router_z_loss:
@@ -549,7 +613,7 @@ def _qkv(x, lp, cfg: TransformerConfig):
     """Pre-norm q/k/v projections (plus the Qwen biases) reshaped to
     [b, t, heads, head_dim] — shared by solo decode and the engine."""
     b, t, _ = x.shape
-    normed = _rmsnorm(x, lp["attn_norm"], cfg)
+    normed = column_input(_rmsnorm(x, lp["attn_norm"], cfg), cfg, "wo")
     q = linear(normed, lp, "wq", cfg)
     k = linear(normed, lp, "wk", cfg)
     v = linear(normed, lp, "wv", cfg)
@@ -620,7 +684,7 @@ def _attention(x, lp, positions, cfg: TransformerConfig, segments=None):
         out = reference_attention(q, k, v, True, segments,
                                   cfg.sliding_window)
     out = out.reshape(b, t, cfg.n_heads * cfg.head_dim)
-    return x + (out @ lp["wo"]).to(x.dtype)
+    return x + row_linear(out, lp, "wo", cfg).to(x.dtype)
 
 
 def _layer(x, lp, positions, cfg: TransformerConfig, segments=None):
@@ -669,7 +733,11 @@ def forward_local(params: dict, tokens, cfg: TransformerConfig):
     """tokens [b, t] → (f32 logits [b, t, V], aux loss) over f32 master
     ``params``: ``forward_hidden`` then ``_unembed`` of the compute-dtype
     rounding of ``wlm``, as the reference's bf16 x bf16 einsum with an
-    f32 accumulator."""
+    f32 accumulator.  Under a vocab-sharded ``wlm`` the logits are this
+    rank's columns [b, t, V/tp] (the loss reduces them without
+    gathering: ``models/train.py::_vocab_parallel_ce_sum``)."""
     x, aux = forward_hidden(params, tokens, cfg)
+    if getattr(cfg, "vocab_shard", False) and x.requires_grad:
+        x = collectives.copy_to(x, cfg.mesh, "tp")
     wlm = prepare_param("wlm", params["wlm"], cfg)
     return _unembed(x, wlm, cfg), aux

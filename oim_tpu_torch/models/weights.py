@@ -25,6 +25,12 @@ and ``gather_params`` are ``shard_params``' exact inverse (the whole
 tensors ``GET /v1/weights`` streams from a mesh's leader), and
 ``port_tensor`` lays out one reference leaf, so that a peer's stream is
 cut to a rank's shard a leaf at a time.
+
+Trained over a mesh, the f32 masters shard by the same layout
+(``serve_specs`` with no weight quant: ``param_pspecs``' logical axes,
+the reference's ``logical_axes``): ``init_rank_params`` draws them as
+one device draws them and keeps this rank's blocks, and
+``train_config`` is the model a rank trains.
 """
 
 from __future__ import annotations
@@ -36,10 +42,11 @@ import numpy as np
 import torch
 
 from oim_tpu_torch.models.decode import _LAYER_ENTRIES
-from oim_tpu_torch.models.train import named_parameters
 from oim_tpu_torch.models.transformer import (
     ShardedConfig,
     TransformerConfig,
+    init_params,
+    named_parameters,
     param_pspecs,
     prepare_param,
 )
@@ -566,3 +573,62 @@ def whole_meta(params: dict, cfg: TransformerConfig, mesh) -> dict:
     out = tree(params)
     out["layers"] = [tree(lp) for lp in params["layers"]]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sharded training
+
+
+def spec_of(specs: dict, name: str):
+    """The spec of dotted parameter ``name`` (a layer's by its leaf name;
+    None for a replicated one, LoRA's adapters among them)."""
+    return specs.get(name.rsplit(".", 1)[-1])
+
+
+def train_config(cfg: TransformerConfig, mesh) -> TransformerConfig:
+    """The model one rank of a training ``mesh`` runs.  With ``tp`` and
+    ``ep`` both 1 (data parallelism) it is ``cfg`` itself: the one-device
+    model, kernels and all.  Otherwise ``rank_config``'s ``ShardedConfig``
+    (the collectives of axes of size 1 dropped) with ``use_pallas`` off:
+    the reference's ``_manual_setup`` turns its kernels off whenever
+    ``tp`` or ``ep`` is above 1, so the port runs the same plain math.
+    Heads, kv heads and the MLP width must divide over ``tp`` and the
+    experts over ``ep`` (a rank trains whole heads, columns and experts);
+    an odd vocab replicates ``wte``/``wlm`` as ``fitted`` does."""
+    tp, ep = mesh.shape["tp"], mesh.shape["ep"]
+    if tp == ep == 1:
+        return cfg
+    bad = [f"{what}={n} over {axis}={mesh.shape[axis]}"
+           for what, n, axis in (("n_heads", cfg.n_heads, "tp"),
+                                 ("n_kv_heads", cfg.kv_heads, "tp"),
+                                 ("d_ff", cfg.ff_dim, "tp"),
+                                 ("n_experts", cfg.n_experts, "ep"))
+           if n % mesh.shape[axis]]
+    if bad:
+        raise ValueError(f"the mesh does not divide the model: {bad}")
+    sharded = rank_config(cfg, mesh, serve_specs(cfg, mesh))
+    return replace(
+        sharded, use_pallas=False,
+        vocab_shard=sharded.vocab_shard and tp > 1,
+        row_psum=sharded.row_psum if tp > 1 else frozenset(),
+        row_gather=frozenset(),
+        moe_axes=tuple(a for a in sharded.moe_axes if mesh.shape[a] > 1))
+
+
+def init_rank_params(seed: int, cfg: TransformerConfig, mesh,
+                     device=None) -> dict:
+    """This rank's f32 master blocks on ``mesh``: every tensor drawn
+    whole from ``init_params(seed, cfg, master=True)``'s generator in its
+    order, cut to the rank's block (``serve_specs``) and the rest freed
+    before the next is drawn — the one-device initialisation cut up, bit
+    for bit, with no more than one whole tensor on the card."""
+    specs = serve_specs(cfg, mesh)
+    return init_params(seed, cfg, device=device, master=True,
+                       place=lambda name, t: shard_tensor(name, t, specs,
+                                                          mesh))
+
+
+def block_bytes(params: dict) -> int:
+    """Bytes of every tensor of a (rank's) parameter dict."""
+    return sum(t.numel() * t.element_size()
+               for _, t in named_parameters(params))

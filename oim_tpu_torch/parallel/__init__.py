@@ -5,12 +5,14 @@ The counterpart of ``oim_tpu/parallel/``.  The reference is one process
 over a ``jax.sharding.Mesh`` with GSPMD placing the collectives; the
 port runs one process a device, each holding its shard as a plain
 tensor and calling the collectives itself (``collectives.py``), NCCL
-between cards and gloo across processes on the CPU.  What serving needs
-is here: ``mesh.py``, ``sharding.py`` (``partition_spec``, ``shard``),
-``collectives.py`` and ``coordinator.py``.  The training part — ring
-attention, Ulysses, the pipeline schedules, ``constrain`` and
-``shard_pytree``, the all-reduce bandwidth harness — is ROADMAP Queue
-A12's third part.
+between cards and gloo across processes on the CPU.  What serving and
+dp·tp·ep training need is here: ``mesh.py``, ``sharding.py``
+(``partition_spec``, ``shard``, ``block_slices``), ``collectives.py``
+(with the differentiable ``copy_to``/``reduce_from``/``gather_from``
+that training runs through) and ``coordinator.py``.  The rest of the
+training part — ring attention, Ulysses, the pipeline schedules,
+``constrain`` and ``shard_pytree`` — is ROADMAP Queue A12's third part,
+second half; the all-reduce bandwidth harness comes after it.
 """
 
 from oim_tpu_torch.parallel import collectives

@@ -25,6 +25,23 @@ Every wrapper counts the primitive it launches (``counters``), and a
 CUDA graph's capture records them like kernel launches
 (``ops/counts.py``), so replays count collectives too.
 
+**Differentiable collectives (training).**  ``psum`` works in place,
+so on a tensor autograd saved it would corrupt the backward without an
+error; training goes through three ``torch.autograd.Function``s
+instead, each counted through the primitive it launches:
+``copy_to`` (identity forward, ``psum`` of the gradient backward: the
+input of a column-parallel product, and of whatever reads a replicated
+activation on each rank), ``reduce_from`` (``psum`` forward into a new
+tensor, identity backward: the output of a row-parallel product and of
+the expert sum) and ``gather_from`` (``all_gather`` forward, this
+rank's slice backward).  A training step under tp or ep launches
+``copy_to``'s and ``reduce_from``'s sums (one each a column- or
+row-parallel product, the vocab-sharded lookup and loss, the expert
+combine), ``pmax`` for the vocab-parallel log-sum-exp, and in-place
+``psum`` only outside autograd: the gradients over ``dp`` after the
+backward, the metrics and the clip's norm.  The serving path keeps its
+in-place wrappers.
+
 ``allreduce_bandwidth`` and ``matmul_throughput`` belong to the
 training part of the port (``bench/allreduce.py``).
 """
@@ -68,6 +85,14 @@ def psum(x, mesh, axis):
     returned)."""
     _count("all_reduce")
     dist.all_reduce(x, group=mesh.group(axis))
+    return x
+
+
+def pmax(x, mesh, axis):
+    """The elementwise maximum of ``x`` over ``axis``, in place on every
+    rank (``x`` is returned)."""
+    _count("all_reduce")
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.group(axis))
     return x
 
 
@@ -148,3 +173,58 @@ def all_to_all(x, mesh, axis, split_axis: int, concat_axis: int):
     _count("all_to_all")
     dist.all_to_all_single(recv, send, group=mesh.group(axis))
     return torch.cat(list(recv.unbind(0)), dim=concat_axis)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives (training): see the module docstring.
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return psum(grad.contiguous().clone(), ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return psum(x.contiguous().clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.size = x.shape[dim]
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = ctx.mesh.axis_index(ctx.axis) * ctx.size
+        return grad.narrow(ctx.dim, start, ctx.size), None, None, None
+
+
+def copy_to(x, mesh, axis):
+    """Identity forward; the gradient summed over ``axis`` backward."""
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x, mesh, axis):
+    """The sum of ``x`` over ``axis`` as a new tensor; the gradient
+    passes through unchanged backward."""
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def gather_from(x, mesh, axis, dim: int):
+    """The shards of ``axis`` concatenated along ``dim`` (``all_gather``);
+    backward, this rank's slice of the gradient."""
+    return _GatherFrom.apply(x, mesh, axis, dim)

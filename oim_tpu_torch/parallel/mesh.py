@@ -137,11 +137,14 @@ def _rank_of(coords: dict[str, int], sizes: dict[str, int]) -> int:
 
 
 def build_mesh(dp: int = 1, pp: int = 1, sp: int = 1, tp: int = 1,
-               ep: int = 1, devices=None) -> Mesh:
+               ep: int = 1, devices=None, per_process: bool = False) -> Mesh:
     """A mesh with the canonical five axes over the initialised default
     process group, whose world size must be the product of the sizes.
     Every rank calls it, with the same arguments: each group is made by
-    every rank in one order (``dist.new_group`` is collective)."""
+    every rank in one order (``dist.new_group`` is collective).
+    ``per_process``: ``devices`` name each process's own cards (a
+    bootstrap's processes each bound to theirs), so one name may stand
+    for several cards."""
     sizes = _sizes(dp, pp, sp, tp, ep)
     n = math.prod(sizes.values())
     devices = mesh_devices(n, devices)
@@ -154,7 +157,8 @@ def build_mesh(dp: int = 1, pp: int = 1, sp: int = 1, tp: int = 1,
         raise ValueError(f"a mesh of {n} ranks needs a process group of {n}, "
                          f"have {world}")
     backend = dist.get_backend()
-    if backend != "gloo" and len(set(devices)) < len(devices):
+    if (backend != "gloo" and not per_process
+            and len(set(devices)) < len(devices)):
         raise ValueError(f"devices {[str(d) for d in devices]} name one "
                          f"device twice: only a gloo group may share a card")
     if backend == "nccl":
@@ -187,7 +191,9 @@ def mesh_from_bootstrap(bootstrap, dp: int = 0, pp: int = 1, sp: int = 1,
     ``dp=0`` (default) absorbs the leftover: dp = n_chips //
     (pp*sp*tp*ep).  The bootstrap's ``mesh`` is the local (per-host)
     sub-slice; the global device count is local × ``num_processes``,
-    one rank a device once every process has joined."""
+    one rank a device once every process has joined.  With no
+    ``devices`` and several processes, each process's ranks run on its
+    own visible cards in order (``cuda:0`` … on each)."""
     local = math.prod(bootstrap.mesh) if bootstrap.mesh else len(
         bootstrap.chips)
     n = local * max(1, getattr(bootstrap, "num_processes", 1))
@@ -202,4 +208,9 @@ def mesh_from_bootstrap(bootstrap, dp: int = 0, pp: int = 1, sp: int = 1,
         raise ValueError(
             f"dp*pp*sp*tp*ep={dp * fixed} does not match slice size {n}"
         )
-    return build_mesh(dp=dp, pp=pp, sp=sp, tp=tp, ep=ep, devices=devices)
+    processes = max(1, getattr(bootstrap, "num_processes", 1))
+    per_process = devices is None and processes > 1
+    if per_process:
+        devices = [torch.device("cuda", r % local) for r in range(n)]
+    return build_mesh(dp=dp, pp=pp, sp=sp, tp=tp, ep=ep, devices=devices,
+                      per_process=per_process)

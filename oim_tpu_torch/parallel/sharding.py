@@ -14,8 +14,9 @@ take plain tensors with known strides, and a CUDA graph must see fixed
 addresses and no per-op ``DTensor`` dispatch on the host (a decode chunk
 is one replay).
 
-``constrain`` and ``shard_pytree`` belong to the training part of the
-port.
+``block_slices`` names a block as a region of the whole tensor (what a
+sharded checkpoint records); ``constrain`` and ``shard_pytree`` belong
+to the second half of the training part of the port.
 """
 
 from __future__ import annotations
@@ -97,3 +98,24 @@ def shard(x, spec, mesh):
         size = x.shape[dim] // n
         x = x.narrow(dim, mesh.axis_index(axes) * size, size)
     return x
+
+
+def block_slices(shape, spec, mesh) -> list:
+    """``[(start, size)]`` along each dimension of a whole tensor of
+    ``shape``: the block that this rank holds under ``spec``, as
+    ``shard`` cuts it (None: replicated, the whole)."""
+    out = [(0, int(n)) for n in shape]
+    for dim, entry in enumerate(spec or ()):
+        axes = _axes(entry)
+        if not axes:
+            continue
+        size = out[dim][1] // mesh.axis_size(axes)
+        out[dim] = (mesh.axis_index(axes) * size, size)
+    return out
+
+
+def sharded_axes(spec, mesh) -> tuple:
+    """The axes of size above 1 that cut some dimension under
+    ``spec``."""
+    return tuple(a for entry in (spec or ()) for a in _axes(entry)
+                 if mesh.shape[a] > 1)

@@ -223,5 +223,5 @@ def test_lora_finetune_workflow(tmp_path, capsys):
     assert len(engine.run()[rid]) == 5
 
     # Missing --lora-base fails fast and names the flag.
-    with pytest.raises(ValueError, match="--lora-base"):
+    with pytest.raises(SystemExit, match="--lora-base"):
         train_main.main(DRIVE + ["--steps", "1", "--lora-rank", "4"])

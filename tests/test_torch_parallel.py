@@ -47,7 +47,12 @@ from oim_tpu_torch.parallel import (
 from oim_tpu_torch.parallel.mesh import mesh_devices
 from oim_tpu_torch.parallel.sharding import PartitionSpec, fitted
 from torch_cpu_threads import one_torch_thread  # noqa: F401
-from torch_tp_worker import _bootstrap_rank, _parallel_rank, spawn_all
+from torch_tp_worker import (
+    _bootstrap_rank,
+    _parallel_rank,
+    _train_bootstrap_rank,
+    spawn_all,
+)
 
 
 @pytest.fixture(scope="module")
@@ -238,3 +243,32 @@ def test_staged_bootstraps_form_real_process_group(tmp_path):
         assert r["shape"] == {"dp": 2, "pp": 1, "sp": 1, "tp": 1, "ep": 1}
         # 8 elements of 1.0 (process 0) + 8 of 2.0 (process 1).
         assert r["sum"] == 24.0
+
+
+def test_train_main_bootstrap_forms_a_dp_mesh(tmp_path):
+    """``train_main --bootstrap``: two processes, each with its own
+    staged bootstrap, meet at the coordinator and train as the two dp
+    ranks of the slice (dp inferred from it): the losses of the whole
+    batch on both, the one-device run's within 1e-5."""
+    from oim_tpu_torch.cli import train_main
+
+    argv = ["--device", "cpu", "--synthetic", "4000", "--steps", "2",
+            "--batch-global", "4", "--seq", "16", "--vocab-size", "64",
+            "--d-model", "32", "--n-layers", "1", "--n-heads", "2",
+            "--dtype", "float32", "--lr", "1e-2"]
+    paths = []
+    for pid in range(2):
+        path = tmp_path / f"bootstrap-{pid}.json"
+        path.write_text(json.dumps({
+            "volume_id": "train-vol", "chips": [{"device_path": "/tmp/fake"}],
+            "mesh": [1], "num_processes": 2, "process_id": pid,
+            "coordinator_address": f"file://{tmp_path}/coordinator",
+        }))
+        paths.append((str(path), argv))
+    reports = spawn_all(_train_bootstrap_rank, paths)
+    want = train_main.train(train_main.build_parser().parse_args(argv))
+    for r in reports:
+        assert r["mesh"] == {"dp": 2, "pp": 1, "sp": 1, "tp": 1, "ep": 1}
+        assert not r["initialized"]  # the run left its group
+        np.testing.assert_allclose(r["losses"], want["losses"], rtol=0,
+                                   atol=1e-5)

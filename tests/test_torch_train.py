@@ -289,21 +289,59 @@ def test_train_main_cpu_drive(source, tmp_path, capsys):
     assert err.strip().endswith("oim-train done steps=3")
 
 
+# Each case keeps its id: what the flag meant in the slices before, and
+# now either a mesh that trains (``None``) or the reference's SystemExit
+# message naming what it needs or the ROADMAP item that ports it.
 @pytest.mark.parametrize("flag,item", [
-    (["--pp", "2"], "parallelism"),
-    (["--dp", "2"], "parallelism"),
-    (["--zero1"], "sharding.py"),
-    # LoRA and checkpoints are ported: what is refused now is a flag
-    # without the one it needs (the ids are the cases' earlier names).
+    pytest.param(["--pp", "2"], "A12, third part, second half",
+                 id="flag0-parallelism"),
+    pytest.param(["--dp", "2"], None, id="flag1-parallelism"),
+    pytest.param(["--zero1"], None, id="flag2-sharding.py"),
     pytest.param(["--lora-rank", "4"], "requires --lora-base",
                  id="flag3-lora.py"),
     pytest.param(["--export-dir", "x"], "requires --checkpoint-dir",
                  id="flag4-checkpoint/manager.py"),
-    # MoE trains now: what stays refused is expert parallelism.
-    pytest.param(["--n-experts", "4", "--ep", "2"], "Queue A12: parallelism",
+    # Expert parallelism trains now, on a mesh of two ranks.
+    pytest.param(["--n-experts", "4", "--ep", "2"], None,
                  id="flag5-_switch_moe"),
-    (["--lora-base", "x"], "requires --lora-rank"),
+    pytest.param(["--lora-base", "x"], "requires --lora-rank",
+                 id="flag6-requires --lora-rank"),
 ])
-def test_train_main_refuses_unported_flags(flag, item):
-    with pytest.raises(ValueError, match=item):
+def test_train_main_refuses_unported_flags(flag, item, capsys):
+    argv = TINY_ARGS + ["--device", "cpu"] + flag
+    if item is None:
+        assert train_main.main(argv) == 0
+        err = capsys.readouterr().err
+        assert err.count("oim-train step ") == 3
+        assert "mesh ranks stopped exitcodes=[0]" in err or "--zero1" in flag
+        return
+    with pytest.raises(SystemExit, match=item):
+        train_main.main(argv)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--sp", "2"], ["--attn-impl", "ulysses"], ["--pp-schedule", "1f1b"],
+    ["--n-microbatches", "2"],
+    ["--lora-rank", "4", "--lora-base", "x", "--tp", "2"],
+    ["--lora-rank", "4", "--lora-base", "x", "--ep", "2"]])
+def test_train_main_refuses_the_second_half_by_name(flag):
+    """Sequence and pipeline parallelism, their schedule flags off their
+    defaults, and LoRA under tp or ep: refused before any work, naming
+    A12's second half."""
+    with pytest.raises(SystemExit, match="A12, third part, second half"):
         train_main.main(TINY_ARGS + ["--device", "cpu"] + flag)
+
+
+def test_train_main_infers_dp_and_refuses_what_does_not_divide(monkeypatch):
+    """``--dp 0`` takes every visible GPU the other axes leave, with the
+    reference's refusal when they do not divide (the CPU: one rank)."""
+    args = train_main.build_parser().parse_args(TINY_ARGS + ["--tp", "2"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert train_main.mesh_sizes(args) == {"dp": 2, "tp": 2, "ep": 1}
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    with pytest.raises(SystemExit, match="3 devices not divisible by "
+                       "pp\\*sp\\*tp\\*ep=2; pass --dp explicitly"):
+        train_main.mesh_sizes(args)
+    cpu = train_main.build_parser().parse_args(TINY_ARGS + ["--device",
+                                                            "cpu"])
+    assert train_main.mesh_sizes(cpu) == {"dp": 1, "tp": 1, "ep": 1}

@@ -435,3 +435,195 @@ def jax_engine(engine: dict, tp: int = 1):
         kw["qos"] = decode_policy(kw["qos"])
     return JaxEngine(params, JaxConfig(**CFG, use_pallas=False), mesh=mesh,
                      **kw)
+
+
+# ---------------------------------------------------------------------------
+# Training over a mesh (tests/test_torch_train_mesh*.py): the small
+# models, their batches, the one-device runs they are held against, and
+# the assembly of the ranks' blocks into whole tensors.
+
+# Qwen2-style with packed documents (separator 0: the static normalizer
+# meets dropped labels), an even vocab (wte/wlm shard over tp).
+TRAIN_DENSE = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4,
+                   n_kv_heads=2, d_ff=64, attn_bias=True, dtype="float32",
+                   doc_sep_id=0)
+# Mixtral-style routing: 4 experts, top 2, the router z-loss.
+TRAIN_MOE = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4,
+                 n_kv_heads=2, d_ff=64, n_experts=4, moe_top_k=2,
+                 router_z_loss=1e-3, dtype="float32")
+TRAIN_OPT = dict(lr=1e-2, warmup_steps=1, decay_steps=3, weight_decay=0.1,
+                 grad_clip=0.0)
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 32, 3
+
+
+def train_batches(vocab: int, steps: int = TRAIN_STEPS, b: int = TRAIN_B,
+                  t: int = TRAIN_T, seed: int = 0) -> np.ndarray:
+    """[steps, b, t] global batches: the trainer's synthetic corpus cut by
+    its loader, the +1 boundary token dropped."""
+    from oim_tpu_torch.data.loader import TokenBatches
+
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, vocab, size=4000 // 8)
+    corpus = ((base[:, None] + np.arange(8)[None, :]) % vocab).reshape(-1)
+    batches = TokenBatches(corpus.astype(np.int32), b, t, seed=seed)
+    return np.stack([batches.batch_at(s)[:, :t] for s in range(steps)])
+
+
+def train_case(name: str, mesh: dict, op: str = "steps", **spec) -> dict:
+    """A ``torch_tp_worker.run_train_case`` case on a mesh of ``mesh``."""
+    return {"name": name, "mesh": mesh, "train": dict(spec, op=op)}
+
+
+def one_device_run(cfg: dict, opt: dict, batches, seed: int = 0,
+                   tree=None, grad_accum: int = 1) -> tuple:
+    """(per step [loss, ce, aux], final params by name as numpy) of the
+    port's one-device trainer on the same global batches."""
+    import torch
+
+    from oim_tpu_torch.models import train as ttrain
+
+    config = TransformerConfig(**{**cfg, "grad_accum": grad_accum})
+    params = (from_jax_params(tree, config, master=True) if tree is not None
+              else init_params(seed, config, master=True))
+    state = ttrain.TrainState.create(params, ttrain.OptimizerConfig(**opt))
+    step = ttrain.make_train_step(config, cuda_graph=False)
+    metrics = []
+    for batch in batches:
+        state, m = step(state, torch.from_numpy(batch).long())
+        metrics.append([float(m[k]) for k in ("loss", "ce", "aux")])
+    return metrics, {n: t.detach().numpy().copy()
+                     for n, t in ttrain.named_parameters(state.params)}
+
+
+def assemble(answers: list, key: str = "blocks", part: int = 1) -> dict:
+    """Whole arrays from the ranks' ``(start, array, ...)`` blocks under
+    ``key`` (``part`` picks which array of a moment's)."""
+    pieces: dict = {}
+    for answer in answers:
+        if answer is None or answer.get("idle"):
+            continue
+        for name, entry in answer[key].items():
+            pieces.setdefault(name, []).append((entry[0], entry[part]))
+    out = {}
+    for name, blocks in pieces.items():
+        shape = [max(s[d] + a.shape[d] for s, a in blocks)
+                 for d in range(blocks[0][1].ndim)]
+        whole = np.full(shape, np.nan, dtype=blocks[0][1].dtype)
+        for start, arr in blocks:
+            whole[tuple(slice(s, s + n) for s, n in zip(start, arr.shape))] \
+                = arr
+        assert not np.isnan(whole).any(), name
+        out[name] = whole
+    return out
+
+
+def replicas_differ(answers: list) -> list:
+    """The leaves of which two ranks hold the same region with other
+    bits (a replicated leaf must be bitwise one on every rank)."""
+    seen, bad = {}, []
+    for answer in answers:
+        if answer is None or answer.get("idle"):
+            continue
+        for name, (start, arr) in answer["blocks"].items():
+            key = (name, tuple(start), arr.shape)
+            if key in seen and seen[key] != arr.tobytes():
+                bad.append(name)
+            seen.setdefault(key, arr.tobytes())
+    return sorted(set(bad))
+
+
+# The reference's side of tests/test_torch_train_mesh_jax*.py: its
+# trainer's optimizer and its train step on its own mesh of virtual CPU
+# devices (JAX imported here only).
+JAX_TRAIN_OPT = dict(lr=1e-2, warmup_steps=1, decay_steps=3,
+                     weight_decay=0.1, grad_clip=1.0)
+
+
+def jax_chain(opt: dict):
+    """The reference trainer's optimizer (oim_tpu/cli/train_main.py)."""
+    import optax
+
+    lr = optax.warmup_cosine_decay_schedule(
+        init_value=0.0, peak_value=opt["lr"],
+        warmup_steps=max(opt["warmup_steps"], 1),
+        decay_steps=opt["warmup_steps"] + opt["decay_steps"])
+    adamw = optax.adamw(
+        lr, weight_decay=opt["weight_decay"],
+        mask=lambda params: {n: not n.endswith("_norm") for n in params})
+    return optax.chain(optax.clip_by_global_norm(opt["grad_clip"]), adamw)
+
+
+def jax_flat(tree: dict, n_layers: int) -> dict:
+    """Reference params (stacked [1, L, ...]) by the port's names."""
+    out = {}
+    for name, value in tree.items():
+        value = np.asarray(value)
+        if name in ("wte", "final_norm", "wlm"):
+            out[name] = value
+        else:
+            value = value.reshape(n_layers, *value.shape[2:])
+            for i in range(n_layers):
+                out[f"layers.{i}.{name}"] = value[i]
+    return out
+
+
+def jax_initial(cfg: dict) -> dict:
+    """The reference's seeded initialisation of ``cfg``, host numpy."""
+    import jax
+
+    from oim_tpu.models import TransformerConfig as JConfig
+    from oim_tpu.models import init_params as j_init_params
+
+    tree = j_init_params(jax.random.PRNGKey(0), JConfig(**cfg))
+    return {k: np.asarray(v) for k, v in jax.device_get(tree).items()}
+
+
+def jax_mesh_train(cfg: dict, sizes: dict, zero1: bool, host: dict,
+                   batches) -> tuple:
+    """(per-step [loss, ce], final params by the port's names) of the
+    reference's ``make_train_step`` on ``build_mesh(**sizes)`` from
+    ``host``, ZeRO-1 through ``shard_state`` as asked; each dp block of
+    the global array on its dp rank."""
+    import jax
+
+    from oim_tpu.models import TrainState as JTrainState
+    from oim_tpu.models import TransformerConfig as JConfig
+    from oim_tpu.models import make_train_step as j_make_train_step
+    from oim_tpu.models.train import data_pspec, shard_state
+    from oim_tpu.parallel import build_mesh as jax_build_mesh
+
+    jcfg = JConfig(**cfg)
+    n = int(np.prod(list(sizes.values())))
+    mesh = jax_build_mesh(**sizes, devices=jax.devices()[:n])
+    chain = jax_chain(JAX_TRAIN_OPT)
+    tree = {k: jax.numpy.asarray(v) for k, v in host.items()}
+    state = shard_state(JTrainState.create(tree, chain), jcfg, mesh,
+                        zero1=zero1)
+    step = j_make_train_step(jcfg, mesh, chain)
+    sharding = jax.sharding.NamedSharding(mesh, data_pspec())
+    metrics = []
+    for tokens in batches:
+        state, m = step(state, jax.device_put(tokens, sharding))
+        metrics.append([float(m[k]) for k in ("loss", "ce")])
+    return metrics, jax_flat(jax.device_get(state.params), jcfg.n_layers)
+
+
+def mesh_against_jax(tmp_dir: str, name: str, cfg: dict, sizes: dict,
+                     zero1: bool) -> tuple:
+    """(the port's ranks' answers, the reference's (metrics, params)) on
+    one mesh: four spawned ranks from the reference's initialisation,
+    the reference running while they do."""
+    from torch_tp_worker import RankGroup
+
+    host, batches = jax_initial(cfg), train_batches(cfg["vocab_size"])
+    group = RankGroup(4, tmp_dir, **sizes)
+    try:
+        group.submit([train_case(name, sizes, cfg=cfg, opt=JAX_TRAIN_OPT,
+                                 zero1=zero1, batches=batches, tree=host)])
+        want = jax_mesh_train(cfg, sizes, zero1, host, batches)
+        answers = group.collect([name])[name]
+    finally:
+        group.close()
+    for answer in answers:
+        assert "error" not in answer, f"{name}: {answer['error']}"
+    return answers, want

@@ -380,37 +380,238 @@ def run_script(engine, steps: list) -> list:
     return [SCRIPT_OPS[op](engine, *args) for op, *args in steps]
 
 
+# ---------------------------------------------------------------------------
+# Training cases: a case with ``train`` runs one of ``TRAIN_OPS`` on this
+# rank of its mesh and answers with its blocks
+
+
+def rank_blocks(state) -> dict:
+    """``{"blocks": {name: (start, array)}, "moments": {name: (start,
+    exp_avg, exp_avg_sq, count)}}``: this rank's parameter blocks and
+    the moments its optimizer owns, each at its region's start in the
+    whole leaf."""
+    from oim_tpu_torch.checkpoint.manager import _moment_region, _region
+    from oim_tpu_torch.models.train import named_parameters
+
+    blocks = {name: ([s for s, _ in _region(state, name, t)],
+                     t.detach().numpy().copy())
+              for name, t in named_parameters(state.params)}
+    moments = {}
+    for owned in state.owned:
+        opt = state.optimizer.state.get(owned.tensor)
+        if opt:
+            moments[owned.name] = (
+                [s for s, _ in _moment_region(state, owned)],
+                opt["exp_avg"].numpy().copy(),
+                opt["exp_avg_sq"].numpy().copy(), float(opt["step"]))
+    return {"blocks": blocks, "moments": moments,
+            "moment_bytes": state.moment_bytes(), "step": state.step}
+
+
+def _state(mesh, spec: dict):
+    """A fresh ``TrainState`` on ``mesh``: the reference tree's masters
+    cut to this rank's blocks (``tree``), or ``init_rank_params`` from
+    ``seed``."""
+    from oim_tpu_torch.models.train import OptimizerConfig, TrainState
+    from oim_tpu_torch.models.transformer import TransformerConfig
+    from oim_tpu_torch.models.weights import (
+        from_jax_params,
+        init_rank_params,
+        serve_specs,
+        shard_tensor,
+    )
+
+    cfg = TransformerConfig(**spec["cfg"])
+    specs = serve_specs(cfg, mesh)
+    if "tree" in spec:
+        whole = from_jax_params(spec["tree"], cfg, master=True)
+        params = {n: shard_tensor(n, t, specs, mesh)
+                  for n, t in whole.items() if n != "layers"}
+        params["layers"] = [{n: shard_tensor(n, t, specs, mesh)
+                             for n, t in lp.items()}
+                            for lp in whole["layers"]]
+    else:
+        params = init_rank_params(spec.get("seed", 0), cfg, mesh)
+    return cfg, TrainState.create(params, OptimizerConfig(**spec["opt"]),
+                                  mesh=mesh, specs=specs,
+                                  zero1=spec.get("zero1", False))
+
+
+def _train_steps(mesh, spec: dict) -> dict:
+    """``spec["batches"]`` ([steps, B, T] global batches; this rank
+    takes its dp block of rows, as the reference's global array splits
+    over dp) through ``make_train_step`` on the mesh."""
+    import torch
+
+    from oim_tpu_torch.models.train import make_train_step
+
+    cfg, state = _state(mesh, spec)
+    init = rank_blocks(state)["blocks"] if spec.get("init") else None
+    step = make_train_step(cfg, cuda_graph=False, mesh=mesh)
+    dp, i = mesh.shape["dp"], mesh.axis_index("dp")
+    metrics, digests = [], []
+    for batch in spec["batches"]:
+        rows = batch.shape[0] // dp
+        tokens = torch.from_numpy(batch[i * rows:(i + 1) * rows]).long()
+        state, m = step(state, tokens)
+        metrics.append([float(m[k]) for k in ("loss", "ce", "aux")])
+        digests.append({name: (start, hashlib.sha256(a.tobytes()).hexdigest())
+                        for name, (start, a)
+                        in rank_blocks(state)["blocks"].items()})
+    return dict(rank_blocks(state), metrics=metrics, init=init,
+                digests=digests)
+
+
+def _train_main(mesh, spec: dict) -> dict:
+    """``train_main``'s run of ``spec["argv"]`` as this rank of its mesh
+    (the mesh the flags ask for)."""
+    from oim_tpu_torch.cli import train_main
+
+    args = train_main.build_parser().parse_args(spec["argv"])
+    out = train_main._train(args, False, mesh)
+    return dict(rank_blocks(out["state"]), losses=out["losses"],
+                start_step=out["start_step"])
+
+
+def _restore(mesh, spec: dict) -> dict:
+    """The latest step of ``spec["dir"]`` restored onto this rank of the
+    mesh (ZeRO-1 as ``spec`` asks)."""
+    from oim_tpu_torch.checkpoint import Checkpointer, CheckpointerOptions
+
+    ckpt = Checkpointer(spec["dir"], CheckpointerOptions(create=False))
+    state, data = ckpt.restore(lambda: _state(mesh, spec)[1])
+    return dict(rank_blocks(state), data=data)
+
+
+def _failed_save(mesh, spec: dict) -> dict:
+    """One step, then a save in which the last rank fails before it
+    writes: every rank's ``wait`` error and the steps on disk after."""
+    import torch
+
+    from oim_tpu_torch.checkpoint import Checkpointer, CheckpointerOptions
+    from oim_tpu_torch.checkpoint import manager
+    from oim_tpu_torch.models.train import make_train_step
+
+    cfg, state = _state(mesh, spec)
+    step = make_train_step(cfg, cuda_graph=False, mesh=mesh)
+    dp, i = mesh.shape["dp"], mesh.axis_index("dp")
+    batch = spec["batches"][0]
+    rows = batch.shape[0] // dp
+    state, _ = step(state, torch.from_numpy(
+        batch[i * rows:(i + 1) * rows]).long())
+    ckpt = Checkpointer(spec["dir"], CheckpointerOptions(
+        commit_timeout=spec["timeout"]))
+    real = manager._write_files
+    if mesh.rank == mesh.size - 1:
+        def broken(directory, files):
+            raise OSError("disk lost mid-save")
+
+        manager._write_files = broken
+    try:
+        ckpt.save(state, {"next_step": 1})
+        ckpt.wait()
+        error = ""
+    except Exception as exc:
+        error = f"{type(exc).__name__}: {exc}"
+    finally:
+        manager._write_files = real
+    import torch.distributed as dist
+
+    dist.barrier(group=mesh.control)
+    return {"error_seen": error, "steps": ckpt.all_steps(),
+            "leftovers": sorted(os.listdir(spec["dir"]))}
+
+
+def _serve(mesh, spec: dict) -> dict:
+    """``serve_main``'s engine for ``spec["argv"]`` on the mesh (its
+    ``--tp``): rank 0 serves ``spec["requests"]`` greedily, the others
+    follow; rank 0 answers with the tokens."""
+    from oim_tpu_torch.cli import serve_main
+    from oim_tpu_torch.serve.engine import GenRequest
+
+    args = serve_main.build_parser().parse_args(spec["argv"])
+    engine = serve_main.make_engine(args, mesh=mesh)
+    if mesh.rank != 0:
+        engine.follow()
+        return {}
+    try:
+        rids = [engine.submit(GenRequest(**r)) for r in spec["requests"]]
+        done = engine.run()
+        return {"tokens": [list(done[rid]) for rid in rids]}
+    finally:
+        engine.stop_followers()
+
+
+TRAIN_OPS = {"steps": _train_steps, "main": _train_main, "serve": _serve,
+             "restore": _restore, "failed_save": _failed_save}
+
+
+def run_train_case(mesh, case: dict) -> dict:
+    """A training case on this rank (``case["train"]["op"]``)."""
+    spec = case["train"]
+    return TRAIN_OPS[spec["op"]](mesh, spec)
+
+
+def _join(rank: int, world: int, store_path: str, sizes: dict):
+    """This rank's mesh of ``sizes`` over a gloo group of ``world``
+    ranks meeting at ``store_path``."""
+    import torch.distributed as dist
+
+    from oim_tpu_torch.parallel import build_mesh
+
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    return build_mesh(devices=["cpu"] * world, **sizes)
+
+
 def _rank_main(rank: int, world: int, store_path: str, sizes: dict,
                jobs, results) -> None:
+    import math
+
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    from oim_tpu_torch.parallel import build_mesh
-
     try:
-        store = dist.FileStore(store_path, world)
-        dist.init_process_group("gloo", store=store, rank=rank,
-                                world_size=world)
-        mesh = build_mesh(devices=["cpu"] * world, **sizes)
+        mesh = _join(rank, world, store_path, sizes)
+        generation = 0
         while True:
             case = jobs.get()
             if case is None:
                 break
+            want = case.get("mesh", sizes)
+            if want != sizes:
+                # Another mesh for this case and those after it: a new
+                # group of as many ranks as it needs; the rest idle.
+                sizes, generation = want, generation + 1
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+                n = math.prod(sizes.values())
+                mesh = (_join(rank, n, f"{store_path}-{generation}", sizes)
+                        if rank < n else None)
+            if mesh is None:
+                results.put((rank, case["name"], {"idle": True}))
+                continue
             try:
-                results.put((rank, case["name"], run_case(mesh, case)))
+                run = run_train_case if "train" in case else run_case
+                results.put((rank, case["name"], run(mesh, case)))
             except Exception:
                 results.put((rank, case["name"],
                              {"error": traceback.format_exc()}))
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
     except Exception:
         results.put((rank, None, {"error": traceback.format_exc()}))
 
 
 class RankGroup:
-    """``world`` spawned ranks over one gloo mesh of ``sizes`` (``tp``,
-    ``ep``); ``run`` hands every rank the same cases and returns
-    ``{case name: [each rank's answer]}``.  ``close`` joins every child
+    """``world`` spawned ranks over one gloo mesh of ``sizes`` (``dp``,
+    ``tp``, ``ep``); ``run`` hands every rank the same cases and returns
+    ``{case name: [each rank's answer]}``.  A case with a ``mesh`` (its
+    sizes) runs on a mesh of those sizes, formed anew over the first of
+    the ranks when it differs from the last case's; the other ranks
+    answer ``{"idle": True}``.  ``close`` joins every child
     (killing any that does not stop)."""
 
     def __init__(self, world: int, tmp_dir: str, **sizes):
@@ -545,6 +746,25 @@ def _bootstrap_rank(path: str, results) -> None:
             "world": dist.get_world_size(), "shape": mesh.shape,
             "sum": float(total.sum())}))
         dist.destroy_process_group()
+    except Exception:
+        results.put((-1, {"error": traceback.format_exc()}))
+
+
+def _train_bootstrap_rank(path: str, argv: list, results) -> None:
+    """``train_main --bootstrap path`` as one process of a staged
+    slice: its losses, the mesh it trained on, and its rank."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    from oim_tpu_torch.cli import train_main
+
+    try:
+        out = train_main.train(train_main.build_parser().parse_args(
+            argv + ["--bootstrap", path]))
+        results.put((out["rank"], {"losses": out["losses"],
+                                   "mesh": out["mesh"],
+                                   "initialized": dist.is_initialized()}))
     except Exception:
         results.put((-1, {"error": traceback.format_exc()}))
 
